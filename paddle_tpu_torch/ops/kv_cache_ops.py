@@ -1,0 +1,93 @@
+"""Paged KV-cache ops for incremental decode (counterpart of
+``paddle_tpu/ops/kv_cache_ops.py``).
+
+Per-layer K/V live in a block pool ``[num_blocks, block_len, heads,
+head_dim]``; each decode slot owns a page-table row of block ids, and an
+idle slot's row holds the sentinel ``num_blocks`` (one past the pool).
+
+- `kv_cache_write` scatters new K/V rows into the pools through the page
+  table, IN PLACE.  The JAX package returns updated pools functionally
+  and the decode engine donates them so XLA aliases the update; PyTorch
+  tensors are mutable, so the port writes straight into the pool.
+  Masked, over-long and sentinel-page rows are filtered out before the
+  scatter: JAX drops them with ``mode="drop"``, while an out-of-range
+  index in a CUDA scatter is a device-side assert that kills the context.
+- `paged_attention` is the serving ("fast") path: the paged-attention
+  kernel (ops/kernels.py).  The JAX package's ``numerics="exact"`` mode
+  is not ported yet.
+- `pos_encoding_add` and `batched_select` are the generation programs'
+  positional add and per-row gather.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .kernels import gather_slot_kv, paged_attention  # noqa: F401
+
+
+def write_plan(table: torch.Tensor, index: torch.Tensor, t: int,
+               block_len: int, num_blocks: int,
+               length: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the ``t`` new rows of each slot go: returns ``(src, dst)``
+    int64 vectors, ``src`` indexing the flattened ``[S*T]`` new rows and
+    ``dst`` the flattened ``[N*L]`` pool rows, with every masked
+    (position >= Length[s]), over-long (beyond the slot's pages) or
+    unmapped (sentinel or foreign block id) row left out.  The plan
+    depends only on the table and positions, so one plan serves every
+    layer of a forward pass."""
+    s, pages = table.shape
+    dev = table.device
+    steps = torch.arange(t, device=dev)
+    pos = index.reshape(s, 1).long() + steps[None, :]            # [S, T]
+    valid = pos < pages * block_len
+    if length is not None:
+        valid &= steps[None, :] < length.reshape(s, 1).long()
+    page_idx = (pos // block_len).clamp(0, pages - 1)
+    blk = torch.gather(table.long(), 1, page_idx)
+    valid &= (blk >= 0) & (blk < num_blocks)
+    dst = blk * block_len + pos % block_len
+    src = torch.nonzero(valid.reshape(-1)).reshape(-1)
+    return src, dst.reshape(-1)[src]
+
+
+def kv_cache_write(k: torch.Tensor, v: torch.Tensor, pool_k: torch.Tensor,
+                   pool_v: torch.Tensor, table: torch.Tensor,
+                   index: torch.Tensor, length: Optional[torch.Tensor] = None,
+                   plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Write K/V ``[S, T, H, D]`` into the pools ``[N, L, H, D]`` at
+    positions ``Index[s] .. Index[s]+T-1`` of each slot, in place (cast to
+    the pool dtype).  Rows at ``t >= Length[s]``, past the slot's pages
+    or on an unmapped page are dropped.  ``plan`` is a precomputed
+    `write_plan`.  Returns the (same) pool tensors."""
+    n, block_len = pool_k.shape[0], pool_k.shape[1]
+    if plan is None:
+        plan = write_plan(table, index, k.shape[1], block_len, n, length)
+    src, dst = plan
+    for new, pool in ((k, pool_k), (v, pool_v)):
+        rows = new.reshape((-1,) + tuple(pool.shape[2:]))
+        flat = pool.view((n * block_len,) + tuple(pool.shape[2:]))
+        flat.index_copy_(0, dst, rows.index_select(0, src).to(pool.dtype))
+    return pool_k, pool_v
+
+
+def pos_encoding_add(x: torch.Tensor, table: torch.Tensor,
+                     index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x [B, T, D] + table[:T]`` (prefill), or with ``index``,
+    ``x [S, D] + table[Index]`` (decode: each slot adds its own
+    position's row; indices clip to the table like the JAX op)."""
+    if index is not None:
+        rows = table.index_select(
+            0, index.reshape(-1).long().clamp(0, table.shape[0] - 1))
+        return x + rows.reshape(x.shape)
+    return x + table[None, :x.shape[-2], :]
+
+
+def batched_select(x: torch.Tensor, index: torch.Tensor,
+                   offset: int = 0) -> torch.Tensor:
+    """``Out[b] = X[b, Index[b] + offset]`` along axis 1, clipped."""
+    b = x.shape[0]
+    idx = (index.reshape(b).long() + offset).clamp(0, x.shape[1] - 1)
+    return x[torch.arange(b, device=x.device), idx]
