@@ -6,10 +6,9 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the serving path from ops/csrc (one nvcc
-   per source, all started together) and print the build seconds and
-   ptxas report;
-3. hold each kernel against its plain PyTorch version at the main path's
+2. build every CUDA kernel from ops/csrc (one nvcc per source, all
+   started together) and print the build seconds and ptxas report;
+3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, in f32 and bf16, and time kernel, plain version and a PyTorch
    library yardstick with CUDA events;
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
@@ -17,10 +16,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    directory and loaded through DecodeEngine.from_model_dir) in bf16
    with 16 slots: 32 concurrent requests with prompts of 8..1024 tokens
    and 64 new tokens each.  Kernel launch counts are zeroed just before
-   and read just after; every kernel must have launched.  Two streams are
-   recomputed through greedy_decode_full and their logits compared;
-5. a JSON line with every ported kernel's launches, error and times;
-6. the last line: {"ok": true, "device": {...}}.
+   and read just after; every serving kernel must have launched.  Two
+   streams are recomputed through greedy_decode_full and their logits
+   compared;
+5. train the repo's at-scale config (vocab 8192, T 512, 12 layers,
+   d_model 768, 12 heads, d_ff 3072; 90.6 M parameters) in f32 with TF32
+   off, through transformer_lm_train_program + Executor.run: startup from
+   a fixed seed, then 20 Adam steps at batch 16 on a seeded copy task,
+   launch counts zeroed just before and read just after (12 flash
+   forward and backward, 24 LayerNorm forward and backward, 1 softmax-
+   xent forward and backward per step), every loss finite and the last
+   below the first; one more step under torch.profiler;
+6. one full-width step at batch 1 from the same carried-in state and
+   feed on the card and on the CPU (Executor(CPUPlace()), the plain
+   versions): the loss and every parameter's @GRAD must agree;
+7. a JSON line with every ported kernel's launches, error and times;
+8. the card's name and power limit, then the last line:
+   {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -50,6 +62,28 @@ BF16_REL, BF16_FLOOR = 2.0 ** -7, 1e-4
 E2E_TOL = 2e-2
 FULL_WIDTH = dict(vocab=32000, max_len=2048, n_layers=12, d_model=768,
                   n_heads=12, d_ff=3072, eos_id=None)
+#: the kernels the serving path runs
+SERVE_KERNELS = ("paged_attention", "flash_attention_fwd", "layer_norm_fwd")
+#: the repo's at-scale training config (bench.py bench_transformer_big):
+#: 90.6 M trainable parameters, Adam, f32
+TRAIN_CONFIG = dict(vocab=8192, max_len=512, n_layers=12, d_model=768,
+                    n_heads=12, d_ff=3072)
+TRAIN_BATCH, TRAIN_STEPS = 16, 20
+#: kernel launches per training step: one attention and two LayerNorms in
+#: each of the 12 layers, one loss head
+TRAIN_LAUNCHES_PER_STEP = {
+    "flash_attention_fwd": 12, "flash_attention_bwd": 12,
+    "layer_norm_fwd": 24, "layer_norm_bwd": 24,
+    "softmax_xent_fwd": 1, "softmax_xent_bwd": 1, "paged_attention": 0}
+#: one step on the card against the same step on the CPU, both in full
+#: f32 (TF32 off): the two devices sum every GEMM and reduction in
+#: another order, and 12 post-LN layers of backward compound those
+#: roundings; f32 reordering alone is ~1e-6 relative per sum, so the
+#: limits leave an order of magnitude over what we expect (<= 1e-4):
+#: loss relative error, and each @GRAD's max abs error over that
+#: gradient's max |value|
+CPU_LOSS_RTOL = 1e-4
+CPU_GRAD_RTOL = 1e-3
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -89,20 +123,28 @@ def _err(out, ref):
     return float(d.max()), float(share)
 
 
-def _check(name, pairs, dtype, label):
+def _check(name, pairs, dtype, label, rec):
     """Fail unless every (kernel output, plain output) pair is within the
-    tolerance of its dtype; return the largest abs error."""
+    tolerance of its dtype; keep the largest abs error and the largest
+    share of the tolerance in the kernel's record ``rec``."""
+    import torch
     errs = [_err(o, r) for o, r in pairs]
     err = max(e for e, _ in errs)
     share = max(s for _, s in errs)
     ok = share <= 1.0
+    differ = sum(int((o != r).sum()) for o, r in pairs)
+    mag = max(float(torch.nan_to_num(r.float(), posinf=0.0,
+                                     neginf=0.0).abs().max())
+              for _, r in pairs)
     print(f"  {name} {label} {dtype}: max_abs_err {err:.3e}, "
-          f"{share:.3f} of the tolerance {'ok' if ok else 'FAIL'}",
+          f"{share:.3f} of the tolerance {'ok' if ok else 'FAIL'} "
+          f"({differ} elements differ; max |plain| {mag:.3e})",
           flush=True)
     if not ok:
         raise AssertionError(f"{name} {label} {dtype} disagrees with its "
                              f"plain version: {share:.3f} of the tolerance")
-    return err
+    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+    rec["limit_share"] = max(rec.get("limit_share", 0.0), share)
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +171,6 @@ def check_paged_attention(rec):
     dev = torch.device("cuda")
     index, table = index.to(dev), table.to(dev)
     n_pos = sum(min(int(i), P * L - 1) + 1 for i in index.cpu())
-    worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
         q = torch.randn(S, H, 1, D, generator=g).to(dev, dtype)
@@ -138,9 +179,8 @@ def check_paged_attention(rec):
         out = K.paged_attention(q, pk, pv, table, index)
         ref = K.paged_attention_plain(q, pk, pv, table, index)
         torch.cuda.synchronize()
-        err = _check("paged_attention", [(out, ref)], dn,
-                     f"S{S} H{H} D{D} L{L} P{P}")
-        worst = max(worst, err)
+        _check("paged_attention", [(out, ref)], dn,
+               f"S{S} H{H} D{D} L{L} P{P}", rec)
         if dtype is torch.bfloat16:
             item = 2
             nbytes = (n_pos * H * D * 2 + 2 * S * H * D) * item \
@@ -162,7 +202,6 @@ def check_paged_attention(rec):
             rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dn)
             rec["shape"] = (f"S{S} H{H} D{D} L{L} P{P} bf16, "
                             f"{n_pos} positions")
-    rec["max_abs_err"] = worst
 
 
 def check_flash_attention(rec):
@@ -172,22 +211,31 @@ def check_flash_attention(rec):
     H, D = 12, 64
     g = torch.Generator(device="cpu").manual_seed(12)
     dev = torch.device("cuda")
-    cases = [(t, t, True) for t in (7, 128, 1000, 2048)]
-    cases += [(100, 1000, True), (100, 1000, False)]
-    worst = 0.0
+    # (batch, tq, tk, causal); B16 T512 is the training shape
+    cases = [(1, t, t, True) for t in (7, 128, 1000, 2048)]
+    cases += [(1, 100, 1000, True), (1, 100, 1000, False),
+              (16, 512, 512, True)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        for tq, tk, causal in cases:
-            q = torch.randn(1, H, tq, D, generator=g).to(dev, dtype)
-            k = torch.randn(1, H, tk, D, generator=g).to(dev, dtype)
-            v = torch.randn(1, H, tk, D, generator=g).to(dev, dtype)
+        for b, tq, tk, causal in cases:
+            q = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
+            k = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
+            v = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
             out, lse = K.flash_attention_fwd(q, k, v, causal)
             ref, ref_lse = K.flash_attention_fwd_plain(q, k, v, causal)
             torch.cuda.synchronize()
-            err = _check("flash_attention_fwd",
-                         [(out, ref), (lse, ref_lse)], dn,
-                         f"tq{tq} tk{tk} causal={causal}")
-            worst = max(worst, err)
+            _check("flash_attention_fwd", [(out, ref), (lse, ref_lse)], dn,
+                   f"B{b} tq{tq} tk{tk} causal={causal}", rec)
+            if dtype is torch.float32 and b == 16:
+                pairs = b * H * tq * (tq + 1) // 2
+                n = b * H * tq * D
+                rec["training"] = _timings(
+                    lambda: K.flash_attention_fwd(q, k, v, True),
+                    lambda: K.flash_attention_fwd_plain(q, k, v, True),
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True),
+                    4 * n * 4 + b * H * tq * 4, 4 * pairs * D, dn,
+                    f"B{b} H{H} T{tq} D{D} causal f32")
             if dtype is torch.bfloat16 and (tq, tk, causal) == (1000, 1000,
                                                                True):
                 pairs = tq * (tq + 1) // 2
@@ -202,7 +250,6 @@ def check_flash_attention(rec):
                                                            is_causal=True))
                 rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dn)
                 rec["shape"] = f"B1 H{H} T{tq} D{D} causal bf16"
-    rec["max_abs_err"] = worst
 
 
 def check_layer_norm(rec):
@@ -211,21 +258,26 @@ def check_layer_norm(rec):
     from paddle_tpu_torch.ops import kernels as K
     g = torch.Generator(device="cpu").manual_seed(13)
     dev = torch.device("cuda")
-    worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        for r in (16, 2048):
-            for f in (768, 3072, 1000):
+        for r in (16, 2048, 8192):
+            for f in ((768,) if r == 8192 else (768, 3072, 1000)):
                 x = (3 * torch.randn(r, f, generator=g) + 1).to(dev, dtype)
                 sc = (1 + 0.1 * torch.randn(f, generator=g)).to(dev)
                 bi = (0.1 * torch.randn(f, generator=g)).to(dev)
                 y, mean, var = K.layer_norm_fwd(x, sc, bi, 1e-5)
                 ry, rmean, rvar = K.layer_norm_fwd_plain(x, sc, bi, 1e-5)
                 torch.cuda.synchronize()
-                err = _check("layer_norm_fwd",
-                             [(y, ry), (mean, rmean), (var, rvar)], dn,
-                             f"R{r} F{f}")
-                worst = max(worst, err)
+                _check("layer_norm_fwd",
+                       [(y, ry), (mean, rmean), (var, rvar)], dn,
+                       f"R{r} F{f}", rec)
+                if dtype is torch.float32 and r == 8192:
+                    rec["training"] = _timings(
+                        lambda: K.layer_norm_fwd(x, sc, bi, 1e-5),
+                        lambda: K.layer_norm_fwd_plain(x, sc, bi, 1e-5),
+                        lambda: F.layer_norm(x, (f,), sc, bi, 1e-5),
+                        2 * r * f * 4 + 2 * f * 4 + 2 * r * 4, 8 * r * f,
+                        dn, f"R{r} F{f} f32")
                 if dtype is torch.bfloat16 and (r, f) == (16, 768):
                     nbytes = 2 * r * f * 2 + 2 * f * 4 + 2 * r * 4
                     ops = 8 * r * f
@@ -241,7 +293,154 @@ def check_layer_norm(rec):
                     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops,
                                                               "float32")
                     rec["shape"] = f"R{r} F{f} bf16"
-    rec["max_abs_err"] = worst
+
+
+def _timings(kernel, plain, library, nbytes, ops, dtype, shape):
+    """Kernel, plain and library ms and the bound of one more shape."""
+    bound, by = _bound(nbytes, ops, dtype)
+    return {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
+            "library_ms": _time_ms(library), "bound_ms": bound,
+            "bound_by": by, "shape": shape}
+
+
+def _grad_ms(outputs, inputs, grads):
+    """Time one autograd backward of a library call (its yardstick)."""
+    import torch
+    return _time_ms(lambda: torch.autograd.grad(outputs, inputs, grads,
+                                                retain_graph=True))
+
+
+def check_flash_attention_bwd(rec):
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kernels as K
+    H, D = 12, 64
+    g = torch.Generator(device="cpu").manual_seed(14)
+    dev = torch.device("cuda")
+    # (batch, tq, tk, causal): the training shape first
+    cases = [(16, 512, 512, True), (1, 7, 7, True), (1, 1000, 1000, True),
+             (1, 100, 1000, True), (1, 100, 1000, False),
+             (2, 128, 128, False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        for b, tq, tk, causal in cases:
+            q = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
+            k = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
+            v = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
+            do = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
+            out, lse = K.flash_attention_fwd(q, k, v, causal)
+            got = K.flash_attention_bwd(q, k, v, out, lse, do, causal)
+            ref = K.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+            torch.cuda.synchronize()
+            _check("flash_attention_bwd", list(zip(got, ref)), dn,
+                   f"B{b} tq{tq} tk{tk} causal={causal}", rec)
+            if dtype is torch.float32 and (b, tq, tk) == (16, 512, 512):
+                item = 4
+                pairs = b * H * tq * (tq + 1) // 2
+                n = b * H * tq * D
+                nbytes = (5 * n + 3 * n) * item + b * H * tq * 4
+                ops = 10 * pairs * D
+                rec["ms"] = _time_ms(lambda: K.flash_attention_bwd(
+                    q, k, v, out, lse, do, True))
+                rec["plain_ms"] = _time_ms(lambda: K.flash_attention_bwd_plain(
+                    q, k, v, out, lse, do, True))
+                qq, kk, vv = (t.detach().requires_grad_(True)
+                              for t in (q, k, v))
+                lib = F.scaled_dot_product_attention(qq, kk, vv,
+                                                     is_causal=True)
+                rec["library_ms"] = _grad_ms(lib, (qq, kk, vv), do)
+                rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dn)
+                rec["shape"] = f"B{b} H{H} T{tq} D{D} causal f32"
+
+
+def check_layer_norm_bwd(rec):
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cpu").manual_seed(15)
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        for r, f in ((8192, 768), (16, 3072), (16, 1000), (2048, 1000)):
+            x = (3 * torch.randn(r, f, generator=g) + 1).to(dev, dtype)
+            dy = torch.randn(r, f, generator=g).to(dev, dtype)
+            sc = (1 + 0.1 * torch.randn(f, generator=g)).to(dev)
+            bi = (0.1 * torch.randn(f, generator=g)).to(dev)
+            _, mean, var = K.layer_norm_fwd(x, sc, bi, 1e-5)
+            inv = torch.rsqrt(var + 1e-5)
+            got = K.layer_norm_bwd(x, sc, mean, inv, dy)
+            ref = K.layer_norm_bwd_plain(x, sc, mean, inv, dy)
+            torch.cuda.synchronize()
+            _check("layer_norm_bwd", list(zip(got, ref)), dn,
+                   f"R{r} F{f}", rec)
+            if dtype is torch.float32 and (r, f) == (8192, 768):
+                nbytes = 3 * r * f * 4 + 3 * f * 4 + 2 * r * 4
+                ops = 12 * r * f
+                rec["ms"] = _time_ms(
+                    lambda: K.layer_norm_bwd(x, sc, mean, inv, dy), iters=50)
+                rec["plain_ms"] = _time_ms(
+                    lambda: K.layer_norm_bwd_plain(x, sc, mean, inv, dy),
+                    iters=50)
+                xx, ww, bb = (t.detach().requires_grad_(True)
+                              for t in (x, sc, bi))
+                lib = F.layer_norm(xx, (f,), ww, bb, 1e-5)
+                rec["library_ms"] = _grad_ms(lib, (xx, ww, bb), dy)
+                rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dn)
+                rec["shape"] = f"R{r} F{f} f32"
+
+
+def check_softmax_xent(rec_fwd, rec_bwd):
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cpu").manual_seed(16)
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        for r, v, extreme in ((8192, 8192, False), (64, 1000, False),
+                              (64, 8192, True)):
+            x = (2 * torch.randn(r, v, generator=g))
+            if extreme:     # +-1e4 logits, rows that saturate the exp
+                x[::2, ::3] = 1e4
+                x[1::2, 1::5] = -1e4
+            x = x.to(dev, dtype)
+            lab = torch.randint(0, v, (r,), generator=g)
+            lab[3], lab[5] = -1, v          # out of range: gold 0
+            lab = lab.to(dev, torch.int32)
+            dl = torch.rand(r, generator=g).to(dev)
+            loss, lse = K.softmax_xent_fwd(x, lab)
+            rloss, rlse = K.softmax_xent_fwd_plain(x, lab)
+            dx = K.softmax_xent_bwd(x, lab, lse, dl)
+            rdx = K.softmax_xent_bwd_plain(x, lab, lse, dl)
+            torch.cuda.synchronize()
+            label = f"R{r} V{v}" + (" +-1e4" if extreme else "")
+            _check("softmax_xent_fwd", [(loss, rloss), (lse, rlse)], dn,
+                   label, rec_fwd)
+            _check("softmax_xent_bwd", [(dx, rdx)], dn, label, rec_bwd)
+            if dtype is torch.float32 and (r, v, extreme) == (8192, 8192,
+                                                              False):
+                shape = f"R{r} V{v} f32"
+                rec_fwd["ms"] = _time_ms(lambda: K.softmax_xent_fwd(x, lab))
+                rec_fwd["plain_ms"] = _time_ms(
+                    lambda: K.softmax_xent_fwd_plain(x, lab))
+                # the library asserts on a label outside [0, V): it is
+                # timed on the in-range labels
+                lab64 = lab.long().clamp(0, v - 1)
+                rec_fwd["library_ms"] = _time_ms(lambda: F.cross_entropy(
+                    x, lab64, reduction="none"))
+                rec_fwd["bound_ms"], rec_fwd["bound_by"] = _bound(
+                    r * v * 4 + r * 4 + 2 * r * 4, 4 * r * v, dn)
+                rec_fwd["shape"] = shape
+                rec_bwd["ms"] = _time_ms(
+                    lambda: K.softmax_xent_bwd(x, lab, lse, dl))
+                rec_bwd["plain_ms"] = _time_ms(
+                    lambda: K.softmax_xent_bwd_plain(x, lab, lse, dl))
+                xx = x.detach().requires_grad_(True)
+                lib = F.cross_entropy(xx, lab64, reduction="none")
+                rec_bwd["library_ms"] = _grad_ms(lib, (xx,), dl)
+                rec_bwd["bound_ms"], rec_bwd["bound_by"] = _bound(
+                    2 * r * v * 4 + 3 * r * 4, 4 * r * v, dn)
+                rec_bwd["shape"] = shape
 
 
 # ---------------------------------------------------------------------------
@@ -303,11 +502,11 @@ def serve(seed=0):
                                  f" after {len(r['tokens'])} tokens")
         if not all(0 <= t < spec["vocab"] for t in r["tokens"]):
             raise AssertionError("token id out of range")
-    print(f"  launches on the main path: {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
+    print(f"  launches on the serving path: {launches}", flush=True)
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
+                                 "serving path")
     print(f"  32 requests, {n_tok} tokens in {wall:.3f} s: "
           f"{n_tok / wall:.1f} tokens/s; TTFT ms {stats['ttft_ms']}; "
           f"step ms {stats['step_ms']}; prefills {stats['prefills']}, "
@@ -345,6 +544,159 @@ def serve(seed=0):
                       "step_ms": stats["step_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: training through the Fluid front end
+# ---------------------------------------------------------------------------
+
+def _train_program(seed):
+    """Build the training config in fresh default programs; returns
+    (main, startup, avg_cost)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    fluid.core.program.reset_default_programs()
+    _, _, avg_cost = transformer.transformer_lm_train_program(**TRAIN_CONFIG)
+    startup = fluid.default_startup_program()
+    startup.random_seed = seed
+    return fluid.default_main_program(), startup, avg_cost
+
+
+def _copy_feed(batch, seed):
+    """One fixed batch of seeded tokens; labels are the tokens shifted by
+    one (tests/test_transformer.py's copy task)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    seqs = rng.integers(0, TRAIN_CONFIG["vocab"],
+                        (batch, TRAIN_CONFIG["max_len"])).astype(np.int64)
+    return {"tokens": seqs, "labels": np.roll(seqs, -1, axis=1)}
+
+
+def train(seed=0):
+    """Phase 5: TRAIN_STEPS Adam steps at batch TRAIN_BATCH on the card;
+    returns (launches, end-to-end numbers, state after the steps)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import kernels as K
+    main, startup, avg_cost = _train_program(seed)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters()
+                   if p.trainable)
+    n_persist = sum(int(np.prod(v.shape)) for v in main.list_vars()
+                    if v.persistable and not v.desc.is_data)
+    scope = fluid.core.scope.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = _copy_feed(TRAIN_BATCH, seed)
+    with fluid.scope_guard(scope):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        print(f"  {n_params / 1e6:.2f} M trainable parameters, "
+              f"{n_persist * 4 / 2**30:.2f} GiB of f32 state; startup "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        losses, ms = [], []
+        for step in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            (loss,) = exe.run(main, feed=feed, fetch_list=[avg_cost])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            print(f"  step {step + 1}: loss {losses[-1]:.6f}, "
+                  f"{ms[-1]:.2f} ms", flush=True)
+        launches = {k.name: k.launches for k in K.KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        _profile_step(exe, main, feed, avg_cost)
+        state = {n: t.cpu().numpy() for n, t in scope._vars.items()}
+    print(f"  launches in {TRAIN_STEPS} steps: {launches}", flush=True)
+    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
+                f"want {per_step} per step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    # step 1 pays one-time costs (cuBLAS handles, allocator growth): it
+    # is reported apart from the steady-state percentiles
+    p50, p99 = np.percentile(ms[1:], 50), np.percentile(ms[1:], 99)
+    tokens = TRAIN_BATCH * TRAIN_CONFIG["max_len"]
+    e2e = {"step1_ms": ms[0], "step_ms_p50": float(p50),
+           "step_ms_p99": float(p99),
+           "examples_per_s": TRAIN_BATCH / (p50 / 1e3),
+           "tokens_per_s": tokens / (p50 / 1e3),
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "peak_mem_gib": peak / 2**30}
+    return launches, e2e, state
+
+
+def _profile_step(exe, main, feed, avg_cost):
+    """One more step under torch.profiler: device time by kernel name.
+    A measurement aid only; its failure is reported, not fatal."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exe.run(main, feed=feed, fetch_list=[avg_cost])
+            torch.cuda.synchronize()
+        kernels = [r for r in prof.key_averages()
+                   if r.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(r.device_time_total for r in kernels)
+        print(f"  profiled step (first 15 kernels, then the port's): "
+              f"{total / 1e3:.2f} ms of device time in "
+              f"{sum(r.count for r in kernels)} kernel launches; by "
+              "kernel (ms, launches):", flush=True)
+        ours = ("flash_", "ln_", "sm_xent_", "paged_")
+        ranked = sorted(kernels, key=lambda r: -r.device_time_total)
+        for i, r in enumerate(ranked):
+            if i < 15 or any(f in r.key for f in ours):
+                print(f"    {r.device_time_total / 1e3:9.3f}  "
+                      f"x{r.count:<5d} {r.key[:100]}")
+    except Exception as e:  # noqa: BLE001  (a measurement aid)
+        print(f"  profiler unavailable: {type(e).__name__}: {e}",
+              flush=True)
+
+
+def card_vs_cpu(state, seed=0):
+    """Phase 6: the training program at full width, batch 1: one step from
+    the same carried-in state and feed on the card (kernels) and on the
+    CPU (plain versions); the loss and every @GRAD must agree."""
+    import numpy as np
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    main, _, avg_cost = _train_program(seed)
+    feed = _copy_feed(1, seed + 1)
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    fetch = [avg_cost.name] + [p + "@GRAD" for p in params]
+    out = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        exe = fluid.Executor(place)
+        scope = fluid.core.scope.Scope()
+        pio.scope_from_numpy(scope, main, state, exe.device)
+        t0 = time.perf_counter()
+        out[type(place).__name__] = exe.run(main, feed=feed,
+                                            fetch_list=fetch, scope=scope)
+        print(f"  {type(place).__name__}: loss "
+              f"{float(out[type(place).__name__][0]):.7f} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    card, cpu = out["CUDAPlace"], out["CPUPlace"]
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    errs = sorted(((float(np.abs(a - b).max())
+                    / max(float(np.abs(b).max()), 1e-30), n)
+                   for n, a, b in zip(params, card[1:], cpu[1:])),
+                  reverse=True)
+    print(f"  loss relative error {loss_err:.3e} (limit {CPU_LOSS_RTOL}); "
+          f"largest @GRAD errors over each gradient's max |value| "
+          f"(limit {CPU_GRAD_RTOL}): "
+          + ", ".join(f"{n} {e:.3e}" for e, n in errs[:5]), flush=True)
+    if loss_err > CPU_LOSS_RTOL or errs[0][0] > CPU_GRAD_RTOL:
+        raise AssertionError("the card's step disagrees with the CPU's")
+    return {"loss_rel_err": loss_err, "grad_rel_err_max": errs[0][0],
+            "grads_compared": len(params)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -379,11 +731,25 @@ def main():
     check_paged_attention(recs["paged_attention"])
     check_flash_attention(recs["flash_attention_fwd"])
     check_layer_norm(recs["layer_norm_fwd"])
+    check_flash_attention_bwd(recs["flash_attention_bwd"])
+    check_layer_norm_bwd(recs["layer_norm_bwd"])
+    check_softmax_xent(recs["softmax_xent_fwd"], recs["softmax_xent_bwd"])
 
     print(f"phase 4: DecodeEngine, {FULL_WIDTH['n_layers']}-layer d768 LM, "
           "bf16", flush=True)
-    launches, e2e = serve()
+    serve_launches, e2e = serve()
     print(f"  end to end: {json.dumps(e2e)}", flush=True)
+
+    print(f"phase 5: training {TRAIN_CONFIG} at batch {TRAIN_BATCH}, f32 "
+          "(TF32 off), Adam, through transformer_lm_train_program + "
+          "Executor.run", flush=True)
+    train_launches, train_e2e, state = train()
+    print(f"  end to end: {json.dumps(train_e2e)}", flush=True)
+
+    print("phase 6: one full-width step at batch 1, card against CPU",
+          flush=True)
+    cpu_check = card_vs_cpu(state)
+    print(f"  {json.dumps(cpu_check)}", flush=True)
 
     kernels = []
     for k in K.KERNELS:
@@ -391,11 +757,17 @@ def main():
         kernels.append({
             "name": k.name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/csrc/{k.source}.cu",
-            "replaces": k.replaces, "launches": launches[k.name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "replaces": k.replaces,
+            "launches": serve_launches[k.name] + train_launches[k.name],
+            "launches_serving": serve_launches[k.name],
+            "launches_training": train_launches[k.name],
+            "max_abs_err": r["max_abs_err"],
+            "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"],
+            **({"training_shape": r["training"]} if "training" in r
+               else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,18 @@
-"""Device resolution and the dtype table (counterpart of
-``paddle_tpu/core/place.py`` and the dtype table of
-``paddle_tpu/core/types.py``).
+"""Device resolution and places (counterpart of
+``paddle_tpu/core/place.py``).
 
 Every entry point of the port takes a ``device`` argument.  ``None``
 means the card: ``cuda`` when CUDA is present, and an error when it is
 not — the port never drops to the CPU on its own.  ``"cpu"`` runs the
 plain PyTorch versions of the kernels, which is what the CPU tests ask
-for.
+for.  The Fluid front end names devices by place: `CUDAPlace` (the card)
+and `CPUPlace`; `Executor()` with no place means the card.
 """
 from __future__ import annotations
 
 import torch
 
-#: canonical dtype names (the JAX package's spelling) -> torch dtypes
-_DTYPE_TABLE = {
-    "float32": torch.float32,
-    "bfloat16": torch.bfloat16,
-    "int32": torch.int32,
-    "int64": torch.int64,
-}
+from .types import to_torch_dtype  # noqa: F401  (the one dtype table)
 
 #: serving precision -> activation / parameter dtype
 _PRECISION_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -42,17 +36,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def to_torch_dtype(name) -> torch.dtype:
-    """``"float32"`` / ``"bfloat16"`` / ``"int32"`` / ``"int64"`` (or a
-    torch dtype, returned as is) -> torch dtype."""
-    if isinstance(name, torch.dtype):
-        return name
-    try:
-        return _DTYPE_TABLE[str(name)]
-    except KeyError:
-        raise ValueError(f"unsupported dtype {name!r}") from None
-
-
 def precision_dtype(precision: str) -> torch.dtype:
     """Serving precision (``"f32"`` or ``"bf16"``) -> torch dtype."""
     try:
@@ -60,3 +43,23 @@ def precision_dtype(precision: str) -> torch.dtype:
     except KeyError:
         raise ValueError(
             f"precision must be f32|bf16, got {precision!r}") from None
+
+
+class CPUPlace:
+    """The host: tensors on the CPU, kernels' plain versions."""
+
+    def __init__(self, device_id: int = 0):
+        self.device_id = device_id
+
+    def torch_device(self) -> torch.device:
+        return resolve_device("cpu")
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.device_id})"
+
+
+class CUDAPlace(CPUPlace):
+    """A card: CUDA tensors and the port's kernels (raises without CUDA)."""
+
+    def torch_device(self) -> torch.device:
+        return resolve_device(f"cuda:{self.device_id}")

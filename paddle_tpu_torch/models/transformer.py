@@ -1,5 +1,11 @@
-"""Decoder-only transformer LM for generation (counterpart of the
-generation half of ``paddle_tpu/models/transformer.py``).
+"""Decoder-only transformer LM (counterpart of
+``paddle_tpu/models/transformer.py``), in two forms:
+
+- the functions at the end of this module that build the training Program
+  (`transformer_lm_train_program` and the layers it calls), which emit
+  the JAX package's ops, names and shapes through the Fluid front end;
+- the generation model `TransformerLM`, an ``nn.Module`` that the decode
+  engine serves.
 
 The model is the one the JAX package builds in ``transformer_lm_logits``
 and serves through ``transformer_lm_prefill_logits`` /
@@ -31,8 +37,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import nets
+from .. import layers, nets
 from ..core.place import precision_dtype, resolve_device
+from ..ops.attention_ops import self_attention
 from ..ops.kv_cache_ops import batched_select, pos_encoding_add, write_plan
 from ..ops.nn_ops import layer_norm
 
@@ -154,8 +161,8 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None):
         b, t, d = x.shape
-        attn = nets.scaled_dot_product_attention(
-            x, self.qkv_w, self.qkv_b, self.n_heads, causal=True, cache=cache)
+        attn = self_attention(x, self.qkv_w, self.qkv_b, self.n_heads,
+                              causal=True, cache=cache)
         x, _, _ = layer_norm(x + attn, self.ln1_w, self.ln1_b, 2, LN_EPSILON)
         h = torch.relu(torch.addmm(self.ffn1_b, x.reshape(b * t, d),
                                    self.ffn1_w))
@@ -295,3 +302,80 @@ def params_from_numpy(spec: dict, arrays: Dict[str, np.ndarray],
         val = val.to(model.dtype).to(dst.dtype)
         dst.copy_(val)
     return model
+
+
+# ---------------------------------------------------------------------------
+# training programs (the Fluid front end)
+# ---------------------------------------------------------------------------
+
+def _positional_encoding(x, max_len, d_model):
+    """The sinusoid table as a trainable=False parameter (no gradient, no
+    optimizer state), added to ``x [B, max_len, d]`` through reshape +
+    elementwise_add, the JAX package's training emission."""
+    from ..initializer import NumpyArrayInitializer
+    from ..layer_helper import LayerHelper
+    helper = LayerHelper("pos_encoding")
+    pe = helper.create_parameter(
+        attr=None, shape=[max_len, d_model], dtype="float32",
+        default_initializer=NumpyArrayInitializer(
+            sinusoid_table(max_len, d_model)))
+    pe.trainable = False
+    return layers.elementwise_add(x, layers.reshape(
+        pe, shape=[1, max_len, d_model]))
+
+
+def _ffn(x, d_model, d_ff, dropout):
+    h = layers.fc(input=x, size=d_ff, num_flatten_dims=2, act="relu")
+    h = layers.sharding_constraint(h, ("batch", "length", "mlp"))
+    if dropout:
+        h = layers.dropout(h, dropout_prob=dropout)
+    out = layers.fc(input=h, size=d_model, num_flatten_dims=2)
+    return layers.sharding_constraint(out, ("batch", "length", "embed"))
+
+
+def _residual_norm(x, y, dropout):
+    if dropout:
+        y = layers.dropout(y, dropout_prob=dropout)
+    return layers.layer_norm(layers.elementwise_add(x, y),
+                             begin_norm_axis=2)
+
+
+def transformer_decoder_layer(x, d_model, n_heads, d_ff, dropout=0.0):
+    """One post-LN decoder layer: causal self-attention, residual + LN,
+    FFN, residual + LN."""
+    attn = nets.scaled_dot_product_attention(x, x, x, num_heads=n_heads,
+                                             causal=True)
+    x = _residual_norm(x, attn, dropout)
+    return _residual_norm(x, _ffn(x, d_model, d_ff, dropout), dropout)
+
+
+def transformer_lm_logits(tokens, vocab, max_len, n_layers=2, d_model=64,
+                          n_heads=4, d_ff=256, dropout=0.0):
+    """Decoder-only causal LM over [B, T] ids -> pre-softmax [B, T, vocab]."""
+    emb = layers.embedding(input=tokens, size=[vocab, d_model])
+    x = layers.scale(emb, scale=math.sqrt(d_model))
+    x = _positional_encoding(x, max_len, d_model)
+    x = layers.amp_cast(x)
+    for _ in range(n_layers):
+        x = transformer_decoder_layer(x, d_model, n_heads, d_ff, dropout)
+    return layers.fc(input=x, size=vocab, num_flatten_dims=2)
+
+
+def transformer_lm_train_program(vocab=128, max_len=64, n_layers=2,
+                                 d_model=64, n_heads=4, d_ff=256,
+                                 dropout=0.0, lr=1e-3, amp=False):
+    """(tokens, labels, avg_cost): next-token prediction over [B, T] in the
+    default programs, with Adam.  The loss head is the fused
+    softmax_with_cross_entropy op: no [B, T, V] probability tensor in
+    either direction."""
+    from .. import optimizer as opt_mod
+    tokens = layers.data(name="tokens", shape=[max_len], dtype="int64")
+    labels = layers.data(name="labels", shape=[max_len], dtype="int64")
+    logits = transformer_lm_logits(tokens, vocab, max_len, n_layers,
+                                   d_model, n_heads, d_ff, dropout)
+    labels3 = layers.reshape(labels, shape=[-1, max_len, 1])
+    cost = layers.softmax_with_cross_entropy(logits=logits, label=labels3)
+    avg_cost = layers.mean(cost)
+    opt_mod.Adam(learning_rate=lr, amp=amp).minimize(avg_cost)
+    return tokens, labels, avg_cost
+

@@ -1,55 +1,57 @@
 """Composite layers (counterpart of ``paddle_tpu/nets.py``; only the
-self-attention path of ``scaled_dot_product_attention`` is ported)."""
+self-attention branch of ``scaled_dot_product_attention`` is ported)."""
 from __future__ import annotations
 
-import torch
-
-from .ops.kernels import flash_attention_fwd
-from .ops.kv_cache_ops import kv_cache_write, paged_attention
+from . import layers
+from .layer_helper import LayerHelper
 
 
-def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
-    b, t, hidden = x.shape
-    return x.reshape(b, t, n, hidden // n).transpose(1, 2)      # [B,H,T,Dh]
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0, causal=False,
+                                 use_fused=True, cache=None):
+    """Multi-head self-attention over [batch, seq, dim] program variables
+    (``queries is keys is values``): one ``[d, 3d]`` fc, q/k/v slices,
+    heads split to [B, H, T, d/H], ONE ``fused_attention`` op, heads
+    merged back.  The ops, attributes and shapes are the JAX package's.
 
+    Not ported: cross-attention, a single head, attention dropout (the
+    matmul/softmax chain), the paged KV cache (the serving model is the
+    ``nn.Module`` in ``models.transformer``)."""
+    if not (queries is keys and keys is values) or num_heads <= 1:
+        raise NotImplementedError("only multi-head self-attention is "
+                                  "ported")
+    if dropout_rate or cache is not None:
+        raise NotImplementedError("attention dropout and the KV cache are "
+                                  "not ported in the Program front end")
+    hidden = queries.shape[-1]
+    qkv = layers.fc(input=queries, size=3 * hidden, num_flatten_dims=2)
+    qkv = layers.sharding_constraint(qkv, ("batch", "length", "heads"))
+    q = layers.slice(qkv, axes=[2], starts=[0], ends=[hidden])
+    k = layers.slice(qkv, axes=[2], starts=[hidden], ends=[2 * hidden])
+    v = layers.slice(qkv, axes=[2], starts=[2 * hidden], ends=[3 * hidden])
+    for t in (q, k, v):
+        t.desc.shape = tuple(qkv.shape[:-1]) + (hidden,)
 
-def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    b, h, t, dh = x.shape
-    return x.transpose(1, 2).reshape(b, t, h * dh)
+    def _split_heads(x, n):
+        reshaped = layers.reshape(x, shape=[0, 0, n, x.shape[-1] // n])
+        t = layers.transpose(reshaped, perm=[0, 2, 1, 3])
+        return layers.sharding_constraint(
+            t, ("batch", "heads", "length", "kv"))
 
+    def _merge_heads(x):
+        t = layers.transpose(x, perm=[0, 2, 1, 3])
+        merged = layers.reshape(t, shape=[0, 0, t.shape[2] * t.shape[3]])
+        return layers.sharding_constraint(
+            merged, ("batch", "length", "embed"))
 
-def scaled_dot_product_attention(x: torch.Tensor, qkv_weight: torch.Tensor,
-                                 qkv_bias: torch.Tensor, num_heads: int,
-                                 causal: bool = True, cache=None
-                                 ) -> torch.Tensor:
-    """Multi-head self-attention over ``x [B, T, d]``: one ``[d, 3d]`` qkv
-    projection, heads split to ``[B, H, T, d/H]``, attention, heads merged
-    back to ``[B, T, d]``.  There is no output projection (the JAX model
-    has none).
-
-    ``cache`` (a ``models.transformer.KVCache``) makes the call read from
-    and append to the paged KV cache: the new K/V rows are written into
-    this layer's pools, then ``cache.mode == "decode"`` (one token per
-    slot) runs the paged-attention kernel over each slot's cached prefix,
-    while ``"prefill"`` runs the causal FlashAttention forward over the
-    prompt itself.  Without a cache the call is the full causal attention
-    of the training-shaped model."""
-    b, t, hidden = x.shape
-    qkv = torch.addmm(qkv_bias, x.reshape(b * t, hidden),
-                      qkv_weight).reshape(b, t, 3 * hidden)
-    q, k, v = qkv.split(hidden, dim=-1)
     q = _split_heads(q, num_heads)
     k = _split_heads(k, num_heads)
     v = _split_heads(v, num_heads)
-    if cache is not None:
-        pool_k, pool_v = cache.next_pools()
-        kv_cache_write(k.transpose(1, 2), v.transpose(1, 2), pool_k, pool_v,
-                       cache.pages, cache.index, cache.length,
-                       plan=cache.plan)
-        if cache.mode == "decode":
-            out = paged_attention(q.contiguous(), pool_k, pool_v,
-                                  cache.pages, cache.index)
-            return _merge_heads(out)
-    out, _ = flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal=causal)
+    helper = LayerHelper("fused_attention", input=q)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    helper.append_op(type="fused_attention",
+                     inputs={"Q": [q], "K": [k], "V": [v]},
+                     outputs={"Out": [out]},
+                     attrs={"causal": causal})
+    out.desc.shape = tuple(q.shape[:-1]) + (v.shape[-1],)
     return _merge_heads(out)

@@ -1,2 +1,6 @@
 """Ops of the port: the CUDA kernels (`kernels`), their build (`_build`),
-and the op functions the model calls (`nn_ops`, `kv_cache_ops`)."""
+the tensor functions the serving model calls (`nn_ops`, `kv_cache_ops`,
+`attention_ops`) and the op rules the executor interprets.  Importing the
+package registers every rule."""
+from . import (attention_ops, math_ops, misc_ops, nn_ops,  # noqa: F401
+               optimizer_ops, tensor_ops)

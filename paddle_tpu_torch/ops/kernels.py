@@ -1,14 +1,20 @@
-"""The port's hand-written CUDA kernels, their wrappers and their plain
-PyTorch versions (counterpart of the three forward kernels of
-``paddle_tpu/ops/pallas_kernels.py`` that the serving path runs).
+"""The port's hand-written CUDA kernels, their wrappers, their plain
+PyTorch versions and the autograd Functions that pair a forward kernel
+with its backward (counterpart of the kernels of
+``paddle_tpu/ops/pallas_kernels.py`` on the serving and training paths).
 
-=====================  ==========================  =========================
-wrapper                CUDA source (ops/csrc)      replaces (Pallas kernel)
-=====================  ==========================  =========================
-`paged_attention`      paged_attention.cu          ``_paged_attn_kernel``
-`flash_attention_fwd`  flash_attention.cu          ``_flash_kernel``
-`layer_norm_fwd`       layer_norm.cu               ``_ln_fwd_kernel``
-=====================  ==========================  =========================
+=======================  ========================  ===========================
+wrapper                  CUDA source (ops/csrc)    replaces (Pallas kernel)
+=======================  ========================  ===========================
+`paged_attention`        paged_attention.cu        ``_paged_attn_kernel``
+`flash_attention_fwd`    flash_attention.cu        ``_flash_kernel``
+`flash_attention_bwd`    flash_attention_bwd.cu    ``_flash_bwd_dq_kernel``,
+                                                   ``_flash_bwd_dkv_kernel``
+`layer_norm_fwd`         layer_norm.cu             ``_ln_fwd_kernel``
+`layer_norm_bwd`         layer_norm_bwd.cu         ``_ln_bwd_kernel``
+`softmax_xent_fwd`       softmax_xent.cu           ``_sm_xent_fwd_kernel``
+`softmax_xent_bwd`       softmax_xent.cu           ``_sm_xent_bwd_kernel``
+=======================  ========================  ===========================
 
 Each source's header comment says what bounds the kernel on the H100
 and what its design does about it.
@@ -21,6 +27,13 @@ fallback.  Each launch adds one to the kernel's ``launches`` count
 (`KERNELS`), so a run can show that its main path went through the
 kernels.  The plain versions are what the CPU tests hold against the JAX
 package and what ``chip_smoke.py`` holds each kernel against on the card.
+They compute in f32, or in f64 for f64 inputs (``gradcheck``).
+
+`FlashAttention`, `LayerNorm` and `SoftmaxXent` are the
+``torch.autograd.Function``s of the training path (the counterparts of
+the JAX package's ``custom_vjp``s): forward through the forward wrapper,
+backward through the backward wrapper, so the same autograd wiring runs
+the kernels on the card and the plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -74,8 +87,27 @@ LAYER_NORM_FWD = Kernel(
     "layer_norm_fwd", "layer_norm", "ptt_layer_norm_fwd",
     "paddle_tpu/ops/pallas_kernels.py:1388 _ln_fwd_kernel",
     [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P])
+FLASH_ATTENTION_BWD = Kernel(
+    "flash_attention_bwd", "flash_attention_bwd", "ptt_flash_attention_bwd",
+    "paddle_tpu/ops/pallas_kernels.py:274 _flash_backward "
+    "(:164 _flash_bwd_dq_kernel, :217 _flash_bwd_dkv_kernel)",
+    [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _P])
+LAYER_NORM_BWD = Kernel(
+    "layer_norm_bwd", "layer_norm_bwd", "ptt_layer_norm_bwd",
+    "paddle_tpu/ops/pallas_kernels.py:1437 _ln_bwd_kernel",
+    [_P] * 9 + [_I, _I, _I, _I, _P])
+SOFTMAX_XENT_FWD = Kernel(
+    "softmax_xent_fwd", "softmax_xent", "ptt_softmax_xent_fwd",
+    "paddle_tpu/ops/pallas_kernels.py:1634 _sm_xent_fwd_kernel",
+    [_P, _P, _P, _P, _I, _I, _I, _P])
+SOFTMAX_XENT_BWD = Kernel(
+    "softmax_xent_bwd", "softmax_xent", "ptt_softmax_xent_bwd",
+    "paddle_tpu/ops/pallas_kernels.py:1671 _sm_xent_bwd_kernel",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _P])
 
-KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, LAYER_NORM_FWD)
+KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD,
+           LAYER_NORM_FWD, LAYER_NORM_BWD, SOFTMAX_XENT_FWD,
+           SOFTMAX_XENT_BWD)
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 _PAGED_HEAD_DIMS = (16, 32, 64, 128)
@@ -85,6 +117,12 @@ _FLASH_HEAD_DIMS = (32, 64)
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' accumulation dtype: f64 stays f64
+    (``gradcheck``), anything else computes in f32."""
+    return t.double() if t.dtype == torch.float64 else t.float()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -170,7 +208,7 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# FlashAttention-2 forward
+# FlashAttention-2 forward and backward
 # ---------------------------------------------------------------------------
 
 def flash_attention_fwd_plain(q, k, v, causal=False):
@@ -178,7 +216,7 @@ def flash_attention_fwd_plain(q, k, v, causal=False):
     row; a fully masked row gives out 0 and lse -inf."""
     d = q.shape[-1]
     tq, tk = q.shape[2], k.shape[2]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", _acc(q), _acc(k)) / math.sqrt(d)
     if causal:
         mask = torch.ones(tq, tk, dtype=torch.bool,
                           device=q.device).tril(tk - tq)
@@ -187,7 +225,7 @@ def flash_attention_fwd_plain(q, k, v, causal=False):
     live = torch.isfinite(lse)[..., None]
     p = torch.where(live, torch.exp(s - lse[..., None]),
                     torch.zeros((), device=q.device))
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, _acc(v))
     return out.to(q.dtype), lse
 
 
@@ -223,17 +261,87 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False):
+    """Plain version: p recomputed from the saved lse (0 where masked and
+    on fully masked rows), delta = rowsum(dO * O), then
+    ds = p * (dO V^T - delta) / sqrt(D); dq = ds K, dk = ds^T Q,
+    dv = p^T dO."""
+    d = q.shape[-1]
+    tq, tk = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, of, gf = (_acc(t) for t in (q, k, v, out, dout))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if causal:
+        mask = torch.ones(tq, tk, dtype=torch.bool,
+                          device=q.device).tril(tk - tq)
+        s = s.masked_fill(~mask, float("-inf"))
+    lse = _acc(lse)
+    live = torch.isfinite(lse)[..., None]
+    p = torch.where(live, torch.exp(s - torch.where(live, lse[..., None],
+                                                    torch.zeros_like(
+                                                        lse[..., None]))),
+                    torch.zeros((), dtype=s.dtype, device=q.device))
+    delta = (gf * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of `flash_attention_fwd`: from q, k, v, its out and lse
+    ([B, H, Tq] f32) and dO (shaped like out) -> (dq, dk, dv) in the
+    inputs' dtype.  Same masking contract as the forward."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if k.shape != (b, h, tk, d) or v.shape != k.shape \
+            or out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} out "
+                         f"{tuple(out.shape)} dout {tuple(dout.shape)}")
+    if lse.shape != (b, h, tq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, want ({b}, {h}, {tq}) float32")
+    if q.dtype not in _FLOAT_TYPES or any(
+            t.dtype != q.dtype for t in (k, v, out, dout)):
+        raise ValueError(f"flash_attention_bwd: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}/{out.dtype}/{dout.dtype}")
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} not in "
+                         f"{_FLASH_HEAD_DIMS}")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention_bwd: batch*heads {b * h} > 65535")
+    _check_cuda("flash_attention_bwd", q, k, v, out, lse, dout)
+    delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    FLASH_ATTENTION_BWD.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b * h, tq, tk, d, int(bool(causal)),
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q))
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
-# LayerNorm forward
+# LayerNorm forward and backward
 # ---------------------------------------------------------------------------
 
 def layer_norm_fwd_plain(x2, scale, bias, eps=1e-5):
     """Plain version: two-pass f32 statistics over [R, F] rows."""
-    xf = x2.float()
+    xf = _acc(x2)
     mean = xf.mean(dim=1)
     var = (xf - mean[:, None]).square().mean(dim=1)
     y = (xf - mean[:, None]) * torch.rsqrt(var + eps)[:, None]
-    y = y * scale.float()[None, :] + bias.float()[None, :]
+    y = y * _acc(scale)[None, :] + _acc(bias)[None, :]
     return y.to(x2.dtype), mean, var
 
 
@@ -264,3 +372,207 @@ def layer_norm_fwd(x2: torch.Tensor, scale: torch.Tensor,
         mean.data_ptr(), var.data_ptr(), r, f, float(eps),
         int(x2.dtype == torch.bfloat16), _stream(x2))
     return y, mean, var
+
+
+#: rows each block of the LayerNorm backward sums into one partial row of
+#: dscale/dbias: enough blocks to fill the card (about 4 per SM), few
+#: enough that the partial buffer stays small against x and dy
+_LN_BWD_BLOCKS = 512
+#: largest F whose [2, F] f32 accumulator fits a block's shared memory
+_LN_BWD_MAX_F = 227 * 1024 // 8
+
+
+def layer_norm_bwd_plain(x2, scale, mean, inv, dy):
+    """Plain version: closed-form dx from the saved f32 mean and inv;
+    dscale and dbias summed over rows in f32."""
+    xf, g = _acc(x2), _acc(dy)
+    mean, inv = _acc(mean), _acc(inv)
+    xn = (xf - mean[:, None]) * inv[:, None]
+    dbias = g.sum(dim=0)
+    dscale = (g * xn).sum(dim=0)
+    dxn = g * _acc(scale)[None, :]
+    dx = inv[:, None] * (dxn - dxn.mean(dim=1, keepdim=True)
+                         - xn * (dxn * xn).mean(dim=1, keepdim=True))
+    return dx.to(x2.dtype), dscale, dbias
+
+
+def layer_norm_bwd(x2: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
+                   inv: torch.Tensor, dy: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of `layer_norm_fwd` over [R, F] rows: x2 and dy in x's
+    dtype, f32 scale [F], f32 mean and inv = rsqrt(var + eps) [R] ->
+    (dx in x's dtype, dscale [F] f32, dbias [F] f32)."""
+    if x2.device.type == "cpu":
+        return layer_norm_bwd_plain(x2, scale, mean, inv, dy)
+    if x2.dim() != 2 or dy.shape != x2.shape:
+        raise ValueError(f"layer_norm_bwd: x {tuple(x2.shape)} and dy "
+                         f"{tuple(dy.shape)} must be one [R, F] shape")
+    r, f = x2.shape
+    if scale.shape != (f,) or mean.shape != (r,) or inv.shape != (r,):
+        raise ValueError(f"layer_norm_bwd: scale {tuple(scale.shape)}, mean "
+                         f"{tuple(mean.shape)}, inv {tuple(inv.shape)} for "
+                         f"[{r}, {f}]")
+    if x2.dtype not in _FLOAT_TYPES or dy.dtype != x2.dtype or any(
+            t.dtype != torch.float32 for t in (scale, mean, inv)):
+        raise ValueError(f"layer_norm_bwd: dtypes {x2.dtype}/{dy.dtype}/"
+                         f"{scale.dtype}/{mean.dtype}/{inv.dtype}")
+    if f > _LN_BWD_MAX_F:
+        raise ValueError(f"layer_norm_bwd: F {f} > {_LN_BWD_MAX_F}")
+    _check_cuda("layer_norm_bwd", x2, scale, mean, inv, dy)
+    rows_per_block = max(1, -(-r // _LN_BWD_BLOCKS))
+    n_blocks = -(-r // rows_per_block) if r else 0
+    dx = torch.empty_like(x2)
+    part = torch.empty((2, n_blocks, f), dtype=torch.float32,
+                       device=x2.device)
+    # the kernel writes every element unless there are no rows to sum
+    alloc = torch.empty if r else torch.zeros
+    dscale = alloc(f, dtype=torch.float32, device=x2.device)
+    dbias = alloc(f, dtype=torch.float32, device=x2.device)
+    LAYER_NORM_BWD.launch(
+        x2.data_ptr(), scale.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        dy.data_ptr(), dx.data_ptr(), part.data_ptr(), dscale.data_ptr(),
+        dbias.data_ptr(), r, f, rows_per_block,
+        int(x2.dtype == torch.bfloat16), _stream(x2))
+    return dx, dscale, dbias
+
+
+# ---------------------------------------------------------------------------
+# softmax cross-entropy (hard labels) forward and backward
+# ---------------------------------------------------------------------------
+
+def softmax_xent_fwd_plain(x2, labels):
+    """Plain version: f32 logsumexp and gold logit per row; a label
+    outside [0, V) picks gold 0."""
+    v = x2.shape[1]
+    xf = _acc(x2)
+    lse = torch.logsumexp(xf, dim=1)
+    lab = labels.long()
+    valid = (lab >= 0) & (lab < v)
+    gold = xf.gather(1, lab.clamp(0, v - 1)[:, None])[:, 0]
+    gold = torch.where(valid, gold, torch.zeros_like(gold))
+    return lse - gold, lse
+
+
+def softmax_xent_fwd(x2: torch.Tensor, labels: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hard-label softmax cross-entropy over [R, V] logits and [R] labels
+    (int32; int64 is cast) -> (loss [R] f32, lse [R] f32)."""
+    if x2.device.type == "cpu":
+        return softmax_xent_fwd_plain(x2, labels)
+    if x2.dim() != 2 or labels.shape != (x2.shape[0],):
+        raise ValueError(f"softmax_xent_fwd: logits {tuple(x2.shape)} and "
+                         f"labels {tuple(labels.shape)}")
+    if x2.dtype not in _FLOAT_TYPES:
+        raise ValueError(f"softmax_xent_fwd: logits dtype {x2.dtype}")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"softmax_xent_fwd: labels dtype {labels.dtype}")
+    labels = labels.to(torch.int32).contiguous()
+    _check_cuda("softmax_xent_fwd", x2, labels)
+    r, v = x2.shape
+    loss = torch.empty(r, dtype=torch.float32, device=x2.device)
+    lse = torch.empty(r, dtype=torch.float32, device=x2.device)
+    SOFTMAX_XENT_FWD.launch(
+        x2.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+        r, v, int(x2.dtype == torch.bfloat16), _stream(x2))
+    return loss, lse
+
+
+def softmax_xent_bwd_plain(x2, labels, lse, dloss):
+    """Plain version: (softmax - onehot) * dloss in x's dtype."""
+    v = x2.shape[1]
+    p = torch.exp(_acc(x2) - _acc(lse)[:, None])
+    onehot = torch.arange(v, device=x2.device)[None, :] \
+        == labels.long()[:, None]
+    return ((p - onehot.to(p.dtype)) * _acc(dloss)[:, None]).to(x2.dtype)
+
+
+def softmax_xent_bwd(x2: torch.Tensor, labels: torch.Tensor,
+                     lse: torch.Tensor, dloss: torch.Tensor) -> torch.Tensor:
+    """Gradient of `softmax_xent_fwd`'s loss: logits [R, V], labels [R],
+    the saved lse [R] f32 and dloss [R] f32 -> dlogits [R, V] in the
+    logits' dtype, with no probability tensor in between."""
+    if x2.device.type == "cpu":
+        return softmax_xent_bwd_plain(x2, labels, lse, dloss)
+    r = x2.shape[0]
+    if x2.dim() != 2 or labels.shape != (r,) or lse.shape != (r,) \
+            or dloss.shape != (r,):
+        raise ValueError(f"softmax_xent_bwd: logits {tuple(x2.shape)}, "
+                         f"labels {tuple(labels.shape)}, lse "
+                         f"{tuple(lse.shape)}, dloss {tuple(dloss.shape)}")
+    if x2.dtype not in _FLOAT_TYPES or lse.dtype != torch.float32 \
+            or dloss.dtype != torch.float32:
+        raise ValueError(f"softmax_xent_bwd: dtypes {x2.dtype}/{lse.dtype}/"
+                         f"{dloss.dtype}")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"softmax_xent_bwd: labels dtype {labels.dtype}")
+    labels = labels.to(torch.int32).contiguous()
+    _check_cuda("softmax_xent_bwd", x2, labels, lse, dloss)
+    v = x2.shape[1]
+    dx = torch.empty_like(x2)
+    SOFTMAX_XENT_BWD.launch(
+        x2.data_ptr(), labels.data_ptr(), lse.data_ptr(), dloss.data_ptr(),
+        dx.data_ptr(), r, v, int(x2.dtype == torch.bfloat16), _stream(x2))
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions of the training path
+# ---------------------------------------------------------------------------
+
+class FlashAttention(torch.autograd.Function):
+    """Attention over [B, H, T, D] whose backward is the flash backward
+    kernel (the JAX package's ``_own_flash_attention`` custom VJP):
+    saves q, k, v, out and lse, never a [T, T] tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+class LayerNorm(torch.autograd.Function):
+    """LayerNorm over [R, F] rows -> (y, mean, var) whose backward is the
+    LayerNorm backward kernel (``fused_layer_norm``'s custom VJP).  mean
+    and var come out stop-gradient: the closed-form dx already folds
+    their derivatives in.  dscale and dbias return in scale's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, eps):
+        y, mean, var = layer_norm_fwd(x2, scale, bias, eps)
+        ctx.save_for_backward(x2, scale, mean, torch.rsqrt(var + eps))
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x2, scale, mean, inv = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_bwd(x2, scale, mean, inv,
+                                           dy.contiguous())
+        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None
+
+
+class SoftmaxXent(torch.autograd.Function):
+    """Hard-label softmax cross-entropy over [R, V] -> loss [R] whose
+    backward is the softmax-xent backward kernel (``fused_softmax_xent``'s
+    custom VJP): saves the logits, the labels and one lse per row."""
+
+    @staticmethod
+    def forward(ctx, x2, labels):
+        loss, lse = softmax_xent_fwd(x2, labels)
+        ctx.save_for_backward(x2, labels, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, dloss):
+        x2, labels, lse = ctx.saved_tensors
+        dloss = dloss.to(lse.dtype).contiguous()
+        return softmax_xent_bwd(x2, labels, lse, dloss), None

@@ -7,7 +7,13 @@ mode.  Inputs are made with numpy from a fixed seed and handed to both.
 
 Tolerances (max abs error): f32 2e-5 — the same f32 math summed in
 another order; bf16 2e-2 — tests/test_pallas_kernels.py's bf16 tolerance,
-outputs rounded to bf16 at slightly different places.
+outputs rounded to bf16 at slightly different places.  Gradients, whose
+magnitude grows with the rows summed, are held to the same tolerances
+times max(1, max |want|).
+
+Each autograd Function is also held to finite differences by
+``torch.autograd.gradcheck`` in f64 (the plain versions compute in f64
+for f64 inputs).
 """
 import numpy as np
 import pytest
@@ -15,7 +21,11 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from paddle_tpu.ops.pallas_kernels import (_flash_forward, fused_layer_norm,
+from paddle_tpu.ops.pallas_kernels import (_flash_backward, _flash_forward,
+                                           _ln_pallas_bwd,
+                                           _sm_xent_pallas_bwd,
+                                           _sm_xent_pallas_fwd,
+                                           fused_layer_norm,
                                            paged_attention_pallas)
 from paddle_tpu_torch.ops import kernels as K
 
@@ -36,8 +46,11 @@ def _np(x):
     return np.asarray(x.astype(jnp.float32))
 
 
-def _close(a, b, tol):
+def _close(a, b, tol, rel=False):
     a, b = _np(a), _np(b)
+    if rel:
+        tol = tol * max(1.0, float(np.max(np.abs(b[np.isfinite(b)]),
+                                          initial=0.0)))
     assert a.shape == b.shape
     fin = np.isfinite(b)
     assert np.array_equal(np.isfinite(a), fin)
@@ -141,6 +154,140 @@ def test_layer_norm_matches_pallas(dtype, shape):
     _close(gvar, wvar, 1e-4)
 
 
+# ---------------------------------------------------------------------------
+# FlashAttention backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tq,tk,causal", [
+    (16, 16, True), (8, 24, False),
+    (24, 16, True)])      # tq > tk causal: fully masked rows get p = 0
+def test_flash_backward_matches_pallas(dtype, tq, tk, causal):
+    rng = np.random.RandomState(4)
+    b, h, d = 2, 2, 16
+    q = rng.randn(b, h, tq, d).astype(np.float32)
+    k = rng.randn(b, h, tk, d).astype(np.float32)
+    v = rng.randn(b, h, tk, d).astype(np.float32)
+    g = rng.randn(b, h, tq, d).astype(np.float32)
+    jq, tq_ = _pair(q, dtype)
+    jk, tk_ = _pair(k, dtype)
+    jv, tv = _pair(v, dtype)
+    jg, tg = _pair(g, dtype)
+    # both backward passes start from the JAX forward's out and lse
+    jout, jlse = _flash_forward(jq, jk, jv, causal, 8, 8, interpret=True)
+    want = _flash_backward(jq, jk, jv, jout, jlse, jg, causal, 8, 8,
+                           interpret=True)
+    tout = torch.from_numpy(np.array(_np(jout))).to(tq_.dtype)
+    tlse = torch.from_numpy(np.array(jlse).reshape(b, h, tq))
+    got = K.flash_attention_bwd(tq_, tk_, tv, tout, tlse, tg, causal)
+    for gt, wt in zip(got, want):
+        assert gt.dtype == tq_.dtype
+        _close(gt, wt, TOL[dtype], rel=True)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 37), (130, 768), (7, 257)])
+def test_layer_norm_backward_matches_pallas(dtype, shape):
+    rng = np.random.RandomState(5)
+    r, f = shape
+    x = (2.0 * rng.randn(r, f) + 0.5).astype(np.float32)
+    dy = rng.randn(r, f).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.randn(f)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    jdy, tdy = _pair(dy, dtype)
+    # the saved statistics of the JAX forward feed both
+    _, mean, var = fused_layer_norm(jx, jnp.asarray(scale),
+                                    jnp.zeros(f, jnp.float32), 1e-5, True)
+    inv = 1.0 / np.sqrt(np.asarray(var) + 1e-5)
+    want = _ln_pallas_bwd(jx, jnp.asarray(scale), mean, jnp.asarray(inv),
+                          jdy, interpret=True)
+    got = K.layer_norm_bwd(tx, torch.from_numpy(scale),
+                           torch.from_numpy(np.array(mean)),
+                           torch.from_numpy(inv), tdy)
+    assert got[0].dtype == tx.dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    _close(got[0], want[0], TOL[dtype], rel=True)
+    # dscale and dbias are f32 sums over the rows in both
+    _close(got[1], want[1], 2e-5, rel=True)
+    _close(got[2], want[2], 2e-5, rel=True)
+
+
+# ---------------------------------------------------------------------------
+# softmax cross-entropy
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,v", [(16, 128), (7, 37), (24, 1000)])
+def test_softmax_xent_matches_pallas(dtype, r, v):
+    rng = np.random.RandomState(6)
+    x = (3.0 * rng.randn(r, v)).astype(np.float32)
+    lab = rng.randint(0, v, r).astype(np.int32)
+    lab[1], lab[4] = -1, v                     # out of range: gold 0
+    dloss = rng.rand(r).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    wloss, wlse = _sm_xent_pallas_fwd(jx, jnp.asarray(lab), interpret=True)
+    gloss, glse = K.softmax_xent_fwd(tx, torch.from_numpy(lab))
+    assert gloss.dtype == glse.dtype == torch.float32
+    # f32 statistics from identical (bf16-rounded) logits in both
+    _close(gloss, wloss, 2e-5, rel=True)
+    _close(glse, wlse, 2e-5, rel=True)
+    wdx = _sm_xent_pallas_bwd(jx, jnp.asarray(lab), wlse,
+                              jnp.asarray(dloss), interpret=True)
+    gdx = K.softmax_xent_bwd(tx, torch.from_numpy(lab), glse,
+                             torch.from_numpy(dloss))
+    assert gdx.dtype == tx.dtype
+    _close(gdx, wdx, TOL[dtype])
+
+
+def test_softmax_xent_extreme_logits():
+    """+-1e4 logits saturate exp without overflow (the Pallas kernel's
+    online softmax test)."""
+    x = np.array([[1e4, 0.0, -1e4, 5.0] * 32, [-1e4] * 128], np.float32)
+    lab = np.array([0, 3], np.int32)
+    wloss, _ = _sm_xent_pallas_fwd(jnp.asarray(x), jnp.asarray(lab),
+                                   interpret=True)
+    gloss, _ = K.softmax_xent_fwd(torch.from_numpy(x), torch.from_numpy(lab))
+    assert np.isfinite(gloss.numpy()).all()
+    np.testing.assert_allclose(gloss.numpy(), np.asarray(wloss), atol=1e-3,
+                               rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions against finite differences
+# ---------------------------------------------------------------------------
+
+def _f64(*shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=g, dtype=torch.float64,
+                       requires_grad=True)
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(3, 6, True), (6, 3, True),
+                                          (4, 5, False)])
+def test_flash_attention_function_gradcheck(tq, tk, causal):
+    q, k, v = _f64(1, 2, tq, 8, seed=1), _f64(1, 2, tk, 8, seed=2), \
+        _f64(1, 2, tk, 8, seed=3)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: K.FlashAttention.apply(a, b, c, causal), (q, k, v))
+
+
+def test_layer_norm_function_gradcheck():
+    x, s, b = _f64(4, 9, seed=4), _f64(9, seed=5), _f64(9, seed=6)
+    assert torch.autograd.gradcheck(
+        lambda a, c, d: K.LayerNorm.apply(a, c, d, 1e-5)[0], (x, s, b))
+
+
+def test_softmax_xent_function_gradcheck():
+    x = _f64(5, 9, seed=7)
+    lab = torch.tensor([1, 8, 0, -1, 9])        # two labels out of range
+    assert torch.autograd.gradcheck(
+        lambda a: K.SoftmaxXent.apply(a, lab), (x,))
+
+
 def test_wrappers_count_only_kernel_launches():
     """On the CPU the plain version runs and no kernel launch is
     counted."""
@@ -149,4 +296,11 @@ def test_wrappers_count_only_kernel_launches():
     K.layer_norm_fwd(x, torch.ones(32), torch.zeros(32))
     q = torch.randn(1, 2, 3, 32)
     K.flash_attention_fwd(q, q, q, True)
+    y, mean, var = K.LayerNorm.apply(x.requires_grad_(), torch.ones(32),
+                                     torch.zeros(32), 1e-5)
+    y.sum().backward()
+    out = K.FlashAttention.apply(q.requires_grad_(), q, q, True)
+    out.sum().backward()
+    loss = K.SoftmaxXent.apply(x, torch.tensor([0, 1, 2, 3]))
+    loss.sum().backward()
     assert all(k.launches == 0 for k in K.KERNELS)
