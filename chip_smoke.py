@@ -30,13 +30,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. one full-width step at batch 1 from the same carried-in state and
    feed on the card and on the CPU (Executor(CPUPlace()), the plain
    versions): the loss and every parameter's @GRAD must agree;
-7. a JSON line with every ported kernel's launches, error and times;
-8. the card's name and power limit, then the last line:
-   {"ok": true, "device": {...}}.
+7. train ResNet-50 (bench.py bench_resnet: 224x224, 1000 classes, NHWC,
+   program.amp) through resnet_train_program + Executor.run: startup from
+   a fixed seed, then 20 Momentum steps at batch 128 on one fixed seeded
+   batch, launch counts zeroed just before and read just after (53
+   BatchNorm backward launches per step), every loss finite and the last
+   below the first; one more step under torch.profiler;
+8. the same ResNet-50 program in f32 (amp off, TF32 off) at batch 2: one
+   step from phase 7's state and one feed on the card and on the CPU; the
+   loss and every @GRAD must agree;
+then a JSON line with every ported kernel's launches, error and times,
+the card's name and power limit, and the last line:
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -74,7 +84,8 @@ TRAIN_BATCH, TRAIN_STEPS = 16, 20
 TRAIN_LAUNCHES_PER_STEP = {
     "flash_attention_fwd": 12, "flash_attention_bwd": 12,
     "layer_norm_fwd": 24, "layer_norm_bwd": 24,
-    "softmax_xent_fwd": 1, "softmax_xent_bwd": 1, "paged_attention": 0}
+    "softmax_xent_fwd": 1, "softmax_xent_bwd": 1, "paged_attention": 0,
+    "batch_norm_bwd": 0}
 #: one step on the card against the same step on the CPU, both in full
 #: f32 (TF32 off): the two devices sum every GEMM and reduction in
 #: another order, and 12 post-LN layers of backward compound those
@@ -84,6 +95,26 @@ TRAIN_LAUNCHES_PER_STEP = {
 #: gradient's max |value|
 CPU_LOSS_RTOL = 1e-4
 CPU_GRAD_RTOL = 1e-3
+#: the repo's ResNet-50 training config (bench.py bench_resnet, data
+#: format NHWC, program.amp on): 25.6 M trainable parameters, Momentum
+RESNET_CONFIG = dict(depth=50, class_dim=1000, image_shape=(224, 224, 3),
+                     data_format="NHWC", lr=0.01, optimizer="momentum")
+RESNET_BATCH, RESNET_STEPS = 128, 20
+#: kernel launches per ResNet-50 step: one BatchNorm backward for each of
+#: the 53 conv + BatchNorm layers, nothing else of the port's
+RESNET_LAUNCHES_PER_STEP = dict(
+    {name: 0 for name in TRAIN_LAUNCHES_PER_STEP}, batch_norm_bwd=53)
+#: ResNet-50 card against CPU in full f32 at batch 2 (resnet_card_vs_cpu):
+#: each @GRAD's norm-wise error may reach this many times the CPU's own
+#: spread between two orders of summation
+RESNET_CPU_BATCH = 2
+RESNET_SPREAD_FACTOR = 4
+#: BatchNorm backward shapes of ResNet-50 at batch 128, (N, H, W, C), and
+#: a ragged one (R 1000 x C 96): each is checked as NHWC (N*H*W, C, 1)
+#: and as NCHW (N, C, H*W)
+BN_SHAPES = {"stem": (128, 112, 112, 64),
+             "stage-1 expansion": (128, 56, 56, 256),
+             "stage 4": (128, 7, 7, 2048), "ragged": (8, 5, 25, 96)}
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -293,6 +324,66 @@ def check_layer_norm(rec):
                     rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops,
                                                               "float32")
                     rec["shape"] = f"R{r} F{f} bf16"
+
+
+def check_batch_norm_bwd(rec):
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    for label, (n, h, w, c) in BN_SHAPES.items():
+        numel = n * h * w * c
+        xs = (1.5 * torch.randn(numel, generator=g, device=dev) + 0.3)
+        dys = torch.randn(numel, generator=g, device=dev)
+        sc = (1 + 0.3 * torch.randn(c, generator=g, device=dev))
+        bi = 0.5 * torch.randn(c, generator=g, device=dev)
+        for layout, view in (("NHWC", (n * h * w, c, 1)),
+                             ("NCHW", (n, c, h * w))):
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).replace("torch.", "")
+                x, dy = xs.to(dtype).view(view), dys.to(dtype).view(view)
+                xf = x.float()
+                mean = xf.mean(dim=(0, 2))
+                inv = torch.rsqrt(xf.var(dim=(0, 2), unbiased=False) + 1e-5)
+                del xf
+                for act in (None, "relu"):
+                    args = (x, dy, sc, bi, mean, inv, act)
+                    got = K.batch_norm_bwd(*args)
+                    ref = K.batch_norm_bwd_plain(*args)
+                    torch.cuda.synchronize()
+                    _check("batch_norm_bwd", list(zip(got, ref)), dn,
+                           f"{label} {layout} {view} act={act}", rec)
+                    del got, ref
+                    # the main path's dtype and layout: the largest
+                    # launch (the stem, relu fused) and a stage-1 one
+                    case = (label, layout, dn, act)
+                    if case == ("stem", "NHWC", "bfloat16", "relu"):
+                        rec.update(_bn_timings(args, (n, h, w, c)))
+                    elif case == ("stage-1 expansion", "NHWC", "bfloat16",
+                                  None):
+                        rec["training"] = _bn_timings(args, (n, h, w, c))
+
+
+def _bn_timings(args, nhwc):
+    """Kernel, plain and library ms and the bound of the BatchNorm
+    backward on NHWC ``args``; the library is F.batch_norm's backward
+    (cuDNN) on the same tensors in channels_last memory, no relu."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kernels as K
+    x, dy, sc, bi = args[:4]
+    n, h, w, c = nhwc
+    numel = x.numel()
+    xx, ww, bb = (t.detach().requires_grad_(True)
+                  for t in (x.view(nhwc).permute(0, 3, 1, 2), sc, bi))
+    lib = F.batch_norm(xx, None, None, ww, bb, training=True)
+    bound, by = _bound(3 * numel * x.element_size() + 6 * c * 4,
+                       15 * numel, "float32")
+    return {"ms": _time_ms(lambda: K.batch_norm_bwd(*args)),
+            "plain_ms": _time_ms(lambda: K.batch_norm_bwd_plain(*args)),
+            "library_ms": _grad_ms(lib, (xx, ww, bb),
+                                   dy.view(nhwc).permute(0, 3, 1, 2)),
+            "bound_ms": bound, "bound_by": by,
+            "shape": f"R{n * h * w} C{c} NHWC {x.dtype} act={args[6]}"}
 
 
 def _timings(kernel, plain, library, nbytes, ops, dtype, shape):
@@ -570,21 +661,23 @@ def _copy_feed(batch, seed):
     return {"tokens": seqs, "labels": np.roll(seqs, -1, axis=1)}
 
 
-def train(seed=0):
-    """Phase 5: TRAIN_STEPS Adam steps at batch TRAIN_BATCH on the card;
-    returns (launches, end-to-end numbers, state after the steps)."""
+def _train_steps(main, startup, avg_cost, feed, steps, per_step):
+    """Startup, then ``steps`` steps of ``main`` on the card on one fixed
+    feed, with the launch counts zeroed just before the steps and read
+    just after, then one profiled step.  Fails unless each kernel
+    launched ``per_step[name]`` times a step and the loss is finite and
+    falls.  Returns (launches, end-to-end numbers, state after the
+    steps)."""
     import numpy as np
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import kernels as K
-    main, startup, avg_cost = _train_program(seed)
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters()
                    if p.trainable)
     n_persist = sum(int(np.prod(v.shape)) for v in main.list_vars()
                     if v.persistable and not v.desc.is_data)
     scope = fluid.core.scope.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
-    feed = _copy_feed(TRAIN_BATCH, seed)
     with fluid.scope_guard(scope):
         t0 = time.perf_counter()
         exe.run(startup)
@@ -595,7 +688,7 @@ def train(seed=0):
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
         losses, ms = [], []
-        for step in range(TRAIN_STEPS):
+        for step in range(steps):
             t = time.perf_counter()
             (loss,) = exe.run(main, feed=feed, fetch_list=[avg_cost])
             torch.cuda.synchronize()
@@ -605,35 +698,48 @@ def train(seed=0):
                   f"{ms[-1]:.2f} ms", flush=True)
         launches = {k.name: k.launches for k in K.KERNELS}
         peak = torch.cuda.max_memory_allocated()
-        _profile_step(exe, main, feed, avg_cost)
+        device = _profile_step(exe, main, feed, avg_cost)
         state = {n: t.cpu().numpy() for n, t in scope._vars.items()}
-    print(f"  launches in {TRAIN_STEPS} steps: {launches}", flush=True)
-    for name, per_step in TRAIN_LAUNCHES_PER_STEP.items():
-        if launches[name] != per_step * TRAIN_STEPS:
+    print(f"  launches in {steps} steps: {launches}", flush=True)
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
             raise AssertionError(
-                f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, "
-                f"want {per_step} per step")
+                f"{name}: {launches[name]} launches in {steps} steps, "
+                f"want {n} per step")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses[0]} -> "
                              f"{losses[-1]}")
-    # step 1 pays one-time costs (cuBLAS handles, allocator growth): it
-    # is reported apart from the steady-state percentiles
+    # step 1 pays one-time costs (cuBLAS handles, cuDNN plans, allocator
+    # growth): it is reported apart from the steady-state percentiles
     p50, p99 = np.percentile(ms[1:], 50), np.percentile(ms[1:], 99)
-    tokens = TRAIN_BATCH * TRAIN_CONFIG["max_len"]
     e2e = {"step1_ms": ms[0], "step_ms_p50": float(p50),
            "step_ms_p99": float(p99),
-           "examples_per_s": TRAIN_BATCH / (p50 / 1e3),
-           "tokens_per_s": tokens / (p50 / 1e3),
            "loss_first": losses[0], "loss_last": losses[-1],
-           "peak_mem_gib": peak / 2**30}
+           "peak_mem_gib": peak / 2**30, "profiled_device_ms": device,
+           "device_busy_share": (device["all"] / p50 if device is not None
+                                 else None)}
+    return launches, e2e, state
+
+
+def train(seed=0):
+    """Phase 5: TRAIN_STEPS Adam steps at batch TRAIN_BATCH on the card."""
+    main, startup, avg_cost = _train_program(seed)
+    launches, e2e, state = _train_steps(
+        main, startup, avg_cost, _copy_feed(TRAIN_BATCH, seed), TRAIN_STEPS,
+        TRAIN_LAUNCHES_PER_STEP)
+    per_s = 1e3 / e2e["step_ms_p50"]
+    e2e.update(examples_per_s=TRAIN_BATCH * per_s,
+               tokens_per_s=TRAIN_BATCH * TRAIN_CONFIG["max_len"] * per_s)
     return launches, e2e, state
 
 
 def _profile_step(exe, main, feed, avg_cost):
-    """One more step under torch.profiler: device time by kernel name.
-    A measurement aid only; its failure is reported, not fatal."""
+    """One more step under torch.profiler: device time by kernel name;
+    returns the step's device ms in all and by group (None if the
+    profiler fails).  A measurement aid only; its failure is reported,
+    not fatal."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -648,15 +754,49 @@ def _profile_step(exe, main, feed, avg_cost):
               f"{total / 1e3:.2f} ms of device time in "
               f"{sum(r.count for r in kernels)} kernel launches; by "
               "kernel (ms, launches):", flush=True)
-        ours = ("flash_", "ln_", "sm_xent_", "paged_")
+        ours = ("flash_", "ln_", "sm_xent_", "paged_", "bn_")
         ranked = sorted(kernels, key=lambda r: -r.device_time_total)
         for i, r in enumerate(ranked):
             if i < 15 or any(f in r.key for f in ours):
                 print(f"    {r.device_time_total / 1e3:9.3f}  "
                       f"x{r.count:<5d} {r.key[:100]}")
+        # the same time in groups: the port's kernels, library products
+        # (cuDNN convolutions, cuBLAS/CUTLASS GEMMs), PyTorch reductions,
+        # and the rest (elementwise math, casts, copies, fills)
+        groups = {"port": ours,
+                  "library products": ("xmma", "gemm", "conv", "cudnn",
+                                       "cutlass", "implicit", "wgrad",
+                                       "dgrad", "fprop"),
+                  "reductions": ("reduce_kernel",)}
+        sums = dict.fromkeys(list(groups) + ["other"], 0.0)
+        for r in kernels:
+            name = next((g for g, keys in groups.items()
+                         if any(k in r.key.lower() for k in keys)), "other")
+            sums[name] += r.device_time_total / 1e3
+        print("  by group (ms): " + ", ".join(
+            f"{g} {t:.2f}" for g, t in sums.items()), flush=True)
+        return dict({"all": total / 1e3}, **sums)
     except Exception as e:  # noqa: BLE001  (a measurement aid)
         print(f"  profiler unavailable: {type(e).__name__}: {e}",
               flush=True)
+        return None
+
+
+def _step(place, main, avg_cost, feed, state):
+    """One step of ``main`` on ``place`` from the carried-in ``state``:
+    (parameter names, [loss, then each parameter's @GRAD])."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    exe = fluid.Executor(place)
+    scope = fluid.core.scope.Scope()
+    pio.scope_from_numpy(scope, main, state, exe.device)
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=feed, scope=scope,
+                  fetch_list=[avg_cost.name] + [p + "@GRAD" for p in params])
+    print(f"  {type(place).__name__}: loss {float(out[0]):.7f} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return params, out
 
 
 def card_vs_cpu(state, seed=0):
@@ -665,23 +805,10 @@ def card_vs_cpu(state, seed=0):
     CPU (plain versions); the loss and every @GRAD must agree."""
     import numpy as np
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch import io as pio
     main, _, avg_cost = _train_program(seed)
     feed = _copy_feed(1, seed + 1)
-    params = [p.name for p in main.all_parameters() if p.trainable]
-    fetch = [avg_cost.name] + [p + "@GRAD" for p in params]
-    out = {}
-    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
-        exe = fluid.Executor(place)
-        scope = fluid.core.scope.Scope()
-        pio.scope_from_numpy(scope, main, state, exe.device)
-        t0 = time.perf_counter()
-        out[type(place).__name__] = exe.run(main, feed=feed,
-                                            fetch_list=fetch, scope=scope)
-        print(f"  {type(place).__name__}: loss "
-              f"{float(out[type(place).__name__][0]):.7f} in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-    card, cpu = out["CUDAPlace"], out["CPUPlace"]
+    params, card = _step(fluid.CUDAPlace(0), main, avg_cost, feed, state)
+    _, cpu = _step(fluid.CPUPlace(), main, avg_cost, feed, state)
     loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
     errs = sorted(((float(np.abs(a - b).max())
                     / max(float(np.abs(b).max()), 1e-30), n)
@@ -694,6 +821,131 @@ def card_vs_cpu(state, seed=0):
     if loss_err > CPU_LOSS_RTOL or errs[0][0] > CPU_GRAD_RTOL:
         raise AssertionError("the card's step disagrees with the CPU's")
     return {"loss_rel_err": loss_err, "grad_rel_err_max": errs[0][0],
+            "grads_compared": len(params)}
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: ResNet-50 training through the Fluid front end
+# ---------------------------------------------------------------------------
+
+def _resnet_program(seed, amp):
+    """Build ResNet-50 in fresh default programs; returns (main, startup,
+    avg_cost)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    fluid.core.program.reset_default_programs()
+    _, _, avg_cost, _ = resnet.resnet_train_program(**RESNET_CONFIG)
+    main = fluid.default_main_program()
+    main.amp = amp
+    startup = fluid.default_startup_program()
+    startup.random_seed = seed
+    return main, startup, avg_cost
+
+
+def _image_feed(batch, seed, device):
+    """One fixed batch of seeded random images in [0, 1) and labels, as
+    tensors on ``device`` (bench.py bench_resnet stages its batches on the
+    device too)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    shape = (batch,) + RESNET_CONFIG["image_shape"]
+    return {"data": torch.from_numpy(
+                rng.random(shape, dtype=np.float32)).to(device),
+            "label": torch.from_numpy(rng.integers(
+                0, RESNET_CONFIG["class_dim"], (batch, 1))).to(device)}
+
+
+def train_resnet(seed=0):
+    """Phase 7: RESNET_STEPS Momentum steps of ResNet-50 at RESNET_BATCH
+    under program.amp on the card."""
+    import torch
+    main, startup, avg_cost = _resnet_program(seed, amp=True)
+    launches, e2e, state = _train_steps(
+        main, startup, avg_cost,
+        _image_feed(RESNET_BATCH, seed, torch.device("cuda")), RESNET_STEPS,
+        RESNET_LAUNCHES_PER_STEP)
+    e2e["images_per_s"] = RESNET_BATCH * 1e3 / e2e["step_ms_p50"]
+    e2e["conv_outputs_contiguous_nhwc"] = _nhwc_conv_outputs(state, seed)
+    # the BatchNorm backward's least time in a step: read x and dy and
+    # write dx of every BatchNorm layer once, in bf16 (program.amp)
+    elems = sum(RESNET_BATCH * math.prod(op.block.var(
+        op.desc.inputs["X"][0]).shape[1:]) for op in main.global_block().ops
+        if op.type == "batch_norm")
+    e2e["bn_elements_per_step"] = elems
+    e2e["bn_bwd_bound_ms_per_step"] = 3 * elems * 2 / MEM_BYTES_PER_S * 1e3
+    return launches, e2e, state
+
+
+def _norm_errs(params, got, want):
+    """Each @GRAD's relative error ||got - want|| / ||want||, largest
+    first."""
+    import numpy as np
+    return sorted(((float(np.linalg.norm(a - b))
+                    / max(float(np.linalg.norm(b)), 1e-30), n)
+                   for n, a, b in zip(params, got, want)), reverse=True)
+
+
+def _nhwc_conv_outputs(state, seed):
+    """How many of the ResNet-50 step's conv outputs are contiguous NHWC
+    tensors (one more step at batch 8 from ``state``): cuDNN must return
+    channels_last outputs, or every BatchNorm would copy its input.
+    Fails unless all are."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    main, _, _ = _resnet_program(seed, amp=True)
+    names = [op.desc.outputs["Output"][0] for op in main.global_block().ops
+             if op.type == "conv2d"]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.core.scope.Scope()
+    pio.scope_from_numpy(scope, main, state, exe.device)
+    outs = exe.run(main, feed=_image_feed(8, seed, exe.device),
+                   fetch_list=names, scope=scope, return_numpy=False)
+    n = sum(int(t.is_contiguous()) for t in outs)
+    print(f"  conv outputs contiguous NHWC: {n} of {len(names)}", flush=True)
+    if n != len(names):
+        raise AssertionError("a conv output is not contiguous NHWC")
+    return n
+
+
+def resnet_card_vs_cpu(state, seed=0):
+    """Phase 8: ResNet-50 in f32 at batch RESNET_CPU_BATCH: one step from
+    phase 7's state and one feed on the card (kernel) and on the CPU
+    (plain version).  The loss must agree to CPU_LOSS_RTOL.  The gradients
+    of this step are ill-conditioned in f32: BatchNorm over as few as 98
+    rows, 53 times over, magnifies a reordered sum's 1e-7 into percents.
+    So the CPU takes the step a second time on one thread (another order
+    of every sum), and each @GRAD's norm-wise error on the card must stay
+    within RESNET_SPREAD_FACTOR x the largest such spread of the CPU
+    against itself (and CPU_GRAD_RTOL at least)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    main, _, avg_cost = _resnet_program(seed, amp=False)
+    feed = {k: v.numpy() for k, v in _image_feed(
+        RESNET_CPU_BATCH, seed + 1, torch.device("cpu")).items()}
+    params, card = _step(fluid.CUDAPlace(0), main, avg_cost, feed, state)
+    _, cpu = _step(fluid.CPUPlace(), main, avg_cost, feed, state)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, cpu1 = _step(fluid.CPUPlace(), main, avg_cost, feed, state)
+    finally:
+        torch.set_num_threads(threads)
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    errs = _norm_errs(params, card[1:], cpu[1:])
+    spread = _norm_errs(params, cpu1[1:], cpu[1:])
+    limit = max(CPU_GRAD_RTOL, RESNET_SPREAD_FACTOR * spread[0][0])
+    print(f"  loss relative error {loss_err:.3e} (limit {CPU_LOSS_RTOL}); "
+          f"CPU {threads} threads against 1, largest @GRAD norm-wise "
+          "spreads: " + ", ".join(f"{n} {e:.3e}" for e, n in spread[:3])
+          + f"; card against CPU (limit {limit:.3e}): "
+          + ", ".join(f"{n} {e:.3e}" for e, n in errs[:5]), flush=True)
+    if loss_err > CPU_LOSS_RTOL or errs[0][0] > limit:
+        raise AssertionError("the card's ResNet-50 step disagrees with the "
+                             "CPU's")
+    return {"loss_rel_err": loss_err, "grad_norm_rel_err_max": errs[0][0],
+            "cpu_spread_max": spread[0][0], "grad_limit": limit,
             "grads_compared": len(params)}
 
 
@@ -734,6 +986,7 @@ def main():
     check_flash_attention_bwd(recs["flash_attention_bwd"])
     check_layer_norm_bwd(recs["layer_norm_bwd"])
     check_softmax_xent(recs["softmax_xent_fwd"], recs["softmax_xent_bwd"])
+    check_batch_norm_bwd(recs["batch_norm_bwd"])
 
     print(f"phase 4: DecodeEngine, {FULL_WIDTH['n_layers']}-layer d768 LM, "
           "bf16", flush=True)
@@ -750,6 +1003,18 @@ def main():
           flush=True)
     cpu_check = card_vs_cpu(state)
     print(f"  {json.dumps(cpu_check)}", flush=True)
+    del state
+
+    print(f"phase 7: ResNet-50 {RESNET_CONFIG} at batch {RESNET_BATCH}, "
+          "program.amp, Momentum, through resnet_train_program + "
+          "Executor.run", flush=True)
+    resnet_launches, resnet_e2e, state = train_resnet()
+    print(f"  end to end: {json.dumps(resnet_e2e)}", flush=True)
+
+    print(f"phase 8: ResNet-50 in f32 at batch {RESNET_CPU_BATCH}, card "
+          "against CPU", flush=True)
+    resnet_cpu_check = resnet_card_vs_cpu(state)
+    print(f"  {json.dumps(resnet_cpu_check)}", flush=True)
 
     kernels = []
     for k in K.KERNELS:
@@ -758,9 +1023,12 @@ def main():
             "name": k.name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/csrc/{k.source}.cu",
             "replaces": k.replaces,
-            "launches": serve_launches[k.name] + train_launches[k.name],
+            "launches": (serve_launches[k.name] + train_launches[k.name]
+                         + resnet_launches[k.name]),
             "launches_serving": serve_launches[k.name],
-            "launches_training": train_launches[k.name],
+            "launches_training": (train_launches[k.name]
+                                  + resnet_launches[k.name]),
+            "launches_resnet_training": resnet_launches[k.name],
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -7,7 +7,8 @@ the Executor interprets the global block op by op with torch functions
 field, so a program built by either package parses in the other.
 
 Ported as far as the training programs need: no operator sugar on
-`Variable`, no ``clone``/``prune``/sub-block transforms yet.
+`Variable`, no ``clone``/``prune``/sub-block transforms yet.  Like the
+JAX package's, the ``amp`` flag is not part of the JSON.
 """
 from __future__ import annotations
 
@@ -295,6 +296,7 @@ class Program:
         self._current_block_idx = 0
         self._seed = None            # program-level RNG seed
         self._op_role = "forward"    # forward | backward | optimize
+        self._amp = False            # bf16 compute on conv/matmul ops
 
     def global_block(self) -> Block:
         return self.blocks[0]
@@ -309,6 +311,17 @@ class Program:
     @random_seed.setter
     def random_seed(self, s):
         self._seed = s
+
+    @property
+    def amp(self):
+        """Mixed precision: conv and matmul operands are cast to bf16 and
+        their f32-declared outputs stay bf16; parameters, optimizer state
+        and statistics stay f32 (master weights).  Off by default."""
+        return self._amp
+
+    @amp.setter
+    def amp(self, on: bool):
+        self._amp = bool(on)
 
     def list_vars(self):
         for block in self.blocks:

@@ -4,8 +4,9 @@ of ``paddle_tpu/io.py``).
 The JAX package saves variables as one ``<var>.npy`` each (or one
 ``.npz`` when a filename is given): a generation model's parameters plus
 ``__generation__.json`` with its hyperparameters, or a training
-program's persistables (``save_persistables``: parameters, Adam moments,
-beta-power accumulators, the learning rate).  This module reads both with
+program's persistables (``save_persistables``: parameters, Adam moments
+and beta-power accumulators or Momentum velocities, BatchNorm running
+means and variances, the learning rate).  This module reads both with
 numpy, so a model or a training run saved by the JAX package continues in
 the port.
 """

@@ -4,8 +4,10 @@ from .. import ops as _ops  # registers the op rules  # noqa: F401
 
 from .io import data  # noqa: F401
 from .misc import sharding_constraint  # noqa: F401
-from .nn import (dropout, elementwise_add, elementwise_op,  # noqa: F401
-                 embedding, fc, layer_norm, mean, softmax_with_cross_entropy)
+from .nn import (accuracy, batch_norm, conv2d,  # noqa: F401
+                 cross_entropy, dropout, elementwise_add, elementwise_op,
+                 embedding, fc, layer_norm, mean, pool2d, softmax,
+                 softmax_with_cross_entropy, topk)
 from .ops import amp_cast, scale  # noqa: F401
 from .tensor import (create_global_var, reshape, slice,  # noqa: F401
                      transpose)

@@ -18,8 +18,8 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None,
 
 
 def amp_cast(x, name=None):
-    """Where a model's activation stream would drop to bf16 under mixed
-    precision; the identity in the port (no mixed precision yet)."""
+    """Where a model's activation stream drops to bf16 under
+    ``program.amp``; the identity at full precision."""
     helper = LayerHelper("amp_cast", input=x, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="amp_cast", inputs={"X": [x]},

@@ -1,1 +1,2 @@
-"""Models of the port (so far the generation transformer LM)."""
+"""Models of the port: the transformer LM (generation and training) and
+ResNet (training)."""

@@ -14,6 +14,7 @@ wrapper                  CUDA source (ops/csrc)    replaces (Pallas kernel)
 `layer_norm_bwd`         layer_norm_bwd.cu         ``_ln_bwd_kernel``
 `softmax_xent_fwd`       softmax_xent.cu           ``_sm_xent_fwd_kernel``
 `softmax_xent_bwd`       softmax_xent.cu           ``_sm_xent_bwd_kernel``
+`batch_norm_bwd`         batch_norm_bwd.cu         ``_bn_bwd_kernel``
 =======================  ========================  ===========================
 
 Each source's header comment says what bounds the kernel on the H100
@@ -29,9 +30,10 @@ kernels.  The plain versions are what the CPU tests hold against the JAX
 package and what ``chip_smoke.py`` holds each kernel against on the card.
 They compute in f32, or in f64 for f64 inputs (``gradcheck``).
 
-`FlashAttention`, `LayerNorm` and `SoftmaxXent` are the
+`FlashAttention`, `LayerNorm`, `SoftmaxXent` and `BatchNormTrain` are the
 ``torch.autograd.Function``s of the training path (the counterparts of
-the JAX package's ``custom_vjp``s): forward through the forward wrapper,
+the JAX package's ``custom_vjp``s): forward through the forward wrapper
+(plain torch for BatchNorm, whose forward the JAX package leaves to XLA),
 backward through the backward wrapper, so the same autograd wiring runs
 the kernels on the card and the plain versions on the CPU.
 """
@@ -73,7 +75,7 @@ class Kernel:
         self.launches += 1
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 PAGED_ATTENTION = Kernel(
     "paged_attention", "paged_attention", "ptt_paged_attention",
@@ -105,9 +107,15 @@ SOFTMAX_XENT_BWD = Kernel(
     "paddle_tpu/ops/pallas_kernels.py:1671 _sm_xent_bwd_kernel",
     [_P, _P, _P, _P, _P, _I, _I, _I, _P])
 
+BATCH_NORM_BWD = Kernel(
+    "batch_norm_bwd", "batch_norm_bwd", "ptt_batch_norm_bwd",
+    "paddle_tpu/ops/pallas_kernels.py:1277 _bn_bwd_kernel "
+    "(bn_bwd_onepass :1798)",
+    [_P] * 10 + [_L, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P])
+
 KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD,
            LAYER_NORM_FWD, LAYER_NORM_BWD, SOFTMAX_XENT_FWD,
-           SOFTMAX_XENT_BWD)
+           SOFTMAX_XENT_BWD, BATCH_NORM_BWD)
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 _PAGED_HEAD_DIMS = (16, 32, 64, 128)
@@ -516,6 +524,114 @@ def softmax_xent_bwd(x2: torch.Tensor, labels: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# BatchNorm training backward
+# ---------------------------------------------------------------------------
+#
+# x and dy come as a [N', C, S] view: element (n, c, s) at n*C*S + c*S + s,
+# so NHWC activations are (N*H*W, C, 1) and NCHW ones (N, C, H*W).
+
+#: elements of one block's tile in the BatchNorm backward kernel (256
+#: threads x 4 positions; batch_norm_bwd.cu kTile)
+_BN_TILE = 1024
+#: blocks per SM the BatchNorm backward aims at (256 threads, 8 KB of
+#: shared memory and few registers each: 8 fit one SM)
+_BN_BLOCKS_PER_SM = 8
+
+
+def bn_bwd_geometry(rows: int, c: int, s: int, blocks: int):
+    """Tiling of the BatchNorm backward kernel over a [rows, C, S] view ->
+    (nb, cb, sb, rows_per_chunk, n_chunks): each block owns a tile of nb
+    rows x cb channels x sb positions (at most `_BN_TILE` elements) and
+    walks rows_per_chunk rows of n; the grid is n_chunks x ceil(C / cb) x
+    ceil(S / sb) blocks, about ``blocks`` in all."""
+    sb = min(s, _BN_TILE)
+    cb = min(c, _BN_TILE // sb)
+    nb = min(rows, _BN_TILE // (cb * sb))
+    tiles = -(-c // cb) * -(-s // sb)
+    chunks = max(1, min(-(-rows // nb), -(-blocks // tiles)))
+    per = -(-rows // chunks)
+    per = -(-per // nb) * nb              # whole tiles of rows
+    return nb, cb, sb, per, -(-rows // per)
+
+
+def batch_norm_apply(x3, scale, bias, mean, inv, act=None):
+    """relu?((x - mean) * inv * scale + bias) over a [N', C, S] view with
+    per-channel vectors, computed in f32 (f64 for f64 inputs) and returned
+    in x's dtype: the training forward from the batch statistics, and the
+    inference forward from the running ones."""
+    def v(t):
+        return _acc(t).reshape(1, -1, 1)
+    y = (_acc(x3) - v(mean)) * v(inv) * v(scale) + v(bias)
+    if act == "relu":
+        y = torch.relu(y)
+    return y.to(x3.dtype)
+
+
+def batch_norm_bwd_plain(x3, dy3, scale, bias, mean, inv, act=None):
+    """Plain version: the closed form in f32 -- dy masked by the
+    pre-activation under relu, dbias and dscale summed over n and s,
+    dx = (dy' - dbias/R - xn * dscale/R) * scale * inv."""
+    def v(t):
+        return _acc(t).reshape(1, -1, 1)
+    xf, g = _acc(x3), _acc(dy3)
+    xn = (xf - v(mean)) * v(inv)
+    if act == "relu":
+        g = torch.where(xn * v(scale) + v(bias) > 0, g,
+                        torch.zeros((), dtype=g.dtype, device=g.device))
+    n = x3.shape[0] * x3.shape[2]
+    dbias = g.sum(dim=(0, 2))
+    dscale = (g * xn).sum(dim=(0, 2))
+    t = g - (dbias / n).reshape(1, -1, 1) - xn * (dscale / n).reshape(1, -1, 1)
+    dx = t * (v(scale) * v(inv))
+    return dx.to(x3.dtype), dscale, dbias
+
+
+def batch_norm_bwd(x3: torch.Tensor, dy3: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+                   act=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """BatchNorm training backward over a [N', C, S] view: x3 and dy3 in
+    x's dtype, f32 scale, bias, mean and inv = rsqrt(var + eps) [C], act
+    None or "relu" (fused into the forward) -> (dx in x's dtype, dscale
+    [C] f32, dbias [C] f32).  The cotangents of mean and inv are zero:
+    the closed form already accounts for them."""
+    if x3.device.type == "cpu":
+        return batch_norm_bwd_plain(x3, dy3, scale, bias, mean, inv, act)
+    if x3.dim() != 3 or dy3.shape != x3.shape:
+        raise ValueError(f"batch_norm_bwd: x {tuple(x3.shape)} and dy "
+                         f"{tuple(dy3.shape)} must be one [N', C, S] shape")
+    n, c, s = x3.shape
+    if any(t.shape != (c,) for t in (scale, bias, mean, inv)):
+        raise ValueError(f"batch_norm_bwd: per-channel vectors "
+                         f"{[tuple(t.shape) for t in (scale, bias, mean, inv)]}"
+                         f" for C={c}")
+    if x3.dtype not in _FLOAT_TYPES or dy3.dtype != x3.dtype or any(
+            t.dtype != torch.float32 for t in (scale, bias, mean, inv)):
+        raise ValueError(f"batch_norm_bwd: dtypes {x3.dtype}/{dy3.dtype}/"
+                         f"{[str(t.dtype) for t in (scale, bias, mean, inv)]}")
+    if act not in (None, "relu"):
+        raise ValueError(f"batch_norm_bwd: act {act!r} not in (None, 'relu')")
+    _check_cuda("batch_norm_bwd", x3, dy3, scale, bias, mean, inv)
+    sms = torch.cuda.get_device_properties(x3.device).multi_processor_count
+    nb, cb, sb, per, chunks = bn_bwd_geometry(max(n, 1), c, s,
+                                              _BN_BLOCKS_PER_SM * sms)
+    dx = torch.empty_like(x3)
+    part = torch.empty((chunks * -(-s // sb), 2, c), dtype=torch.float32,
+                       device=x3.device)
+    # the kernel writes every element unless there are no rows to sum
+    alloc = torch.empty if x3.numel() else torch.zeros
+    dscale = alloc(c, dtype=torch.float32, device=x3.device)
+    dbias = alloc(c, dtype=torch.float32, device=x3.device)
+    BATCH_NORM_BWD.launch(
+        x3.data_ptr(), dy3.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        dscale.data_ptr(), dbias.data_ptr(), n, c, s, nb, cb, sb, per,
+        chunks, int(act == "relu"), int(x3.dtype == torch.bfloat16),
+        _stream(x3))
+    return dx, dscale, dbias
+
+
+# ---------------------------------------------------------------------------
 # autograd Functions of the training path
 # ---------------------------------------------------------------------------
 
@@ -576,3 +692,26 @@ class SoftmaxXent(torch.autograd.Function):
         x2, labels, lse = ctx.saved_tensors
         dloss = dloss.to(lse.dtype).contiguous()
         return softmax_xent_bwd(x2, labels, lse, dloss), None
+
+
+class BatchNormTrain(torch.autograd.Function):
+    """Training-mode BatchNorm over a [N', C, S] view from batch
+    statistics passed in detached, with the relu optionally fused, whose
+    backward is the BatchNorm backward kernel (the JAX package's
+    ``_bn_train_core`` custom VJP): saves x and the per-channel vectors,
+    never an f32 activation-sized tensor.  mean and inv get no gradient:
+    the closed-form dx already folds in their derivatives."""
+
+    @staticmethod
+    def forward(ctx, x3, scale, bias, mean, inv, act):
+        ctx.save_for_backward(x3, scale, bias, mean, inv)
+        ctx.act = act
+        return batch_norm_apply(x3, scale, bias, mean, inv, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, scale, bias, mean, inv = ctx.saved_tensors
+        dx, dscale, dbias = batch_norm_bwd(x3, dy.contiguous(), scale, bias,
+                                           mean, inv, ctx.act)
+        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None,
+                None)

@@ -1,5 +1,5 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer.py``; the `Optimizer`
-base and `AdamOptimizer`).
+base, `SGDOptimizer`, `MomentumOptimizer` and `AdamOptimizer`).
 
 ``minimize(loss)`` = `append_backward` + one optimize op per parameter.
 The global learning rate and the accumulators are persistable vars
@@ -7,8 +7,9 @@ created in the startup program, under the JAX package's names
 (``learning_rate_0``, ``fc_0.w_0.moment1_0``, ...), so optimizer state
 carries across.
 
-Not ported yet: ``MixedPrecision`` (``amp=True``) and loss scaling,
-gradient clipping and regularization, the other optimizers.
+Not ported yet: ``MixedPrecision`` (``amp=True``) and loss scaling
+(``program.amp`` alone, without them, is ported), gradient clipping and
+regularization, the other optimizers.
 """
 from __future__ import annotations
 
@@ -109,6 +110,37 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p]})
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kw):
@@ -141,4 +173,6 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -13,18 +13,23 @@ times max(1, max |want|).
 
 Each autograd Function is also held to finite differences by
 ``torch.autograd.gradcheck`` in f64 (the plain versions compute in f64
-for f64 inputs).
+for f64 inputs).  The BatchNorm backward is held against the Pallas
+kernel where it applies (channels-last, C a multiple of 128) and against
+the JAX package's XLA closed form elsewhere (NCHW, C=64).
 """
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
+from paddle_tpu.ops.nn_ops import _bn_train_core
 from paddle_tpu.ops.pallas_kernels import (_flash_backward, _flash_forward,
                                            _ln_pallas_bwd,
                                            _sm_xent_pallas_bwd,
                                            _sm_xent_pallas_fwd,
+                                           bn_bwd_onepass,
                                            fused_layer_norm,
                                            paged_attention_pallas)
 from paddle_tpu_torch.ops import kernels as K
@@ -257,6 +262,94 @@ def test_softmax_xent_extreme_logits():
 
 
 # ---------------------------------------------------------------------------
+# BatchNorm training backward
+# ---------------------------------------------------------------------------
+
+def _bn_case(rng, shape, c, dtype, axes):
+    """Seeded x, dy and per-channel vectors; mean and inv are the batch
+    statistics of x as rounded to ``dtype``, shared by both sides."""
+    x = (2.0 * rng.randn(*shape) + 0.5).astype(np.float32)
+    dy = rng.randn(*shape).astype(np.float32)
+    scale = (1.0 + 0.3 * rng.randn(c)).astype(np.float32)
+    bias = (0.5 * rng.randn(c)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    jdy, tdy = _pair(dy, dtype)
+    xr = _np(tx)
+    mean = xr.mean(axis=axes)
+    inv = (1.0 / np.sqrt(xr.var(axis=axes) + 1e-5)).astype(np.float32)
+    return jx, tx, jdy, tdy, scale, bias, mean.astype(np.float32), inv
+
+
+def _bn_check(got, want, dtype, tx):
+    dx, dscale, dbias = got
+    assert dx.dtype == tx.dtype
+    assert dscale.dtype == dbias.dtype == torch.float32
+    _close(dx, want[0], TOL[dtype], rel=True)
+    # dscale and dbias are f32 sums of the same (rounded) inputs in both
+    _close(dscale, want[1], 2e-5, rel=True)
+    _close(dbias, want[2], 2e-5, rel=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,c", [(64, 128), (256, 128), (64, 256),
+                                 (256, 256)])
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_batch_norm_backward_matches_pallas(dtype, r, c, act):
+    """Channels-last [R, C] rows, the shapes the Pallas kernel takes."""
+    rng = np.random.RandomState(7)
+    jx, tx, jdy, tdy, scale, bias, mean, inv = _bn_case(rng, (r, c), c,
+                                                        dtype, 0)
+    want = bn_bwd_onepass(jx, jdy, jnp.asarray(scale), jnp.asarray(bias),
+                          jnp.asarray(mean), jnp.asarray(inv), act,
+                          interpret=True)
+    got = K.batch_norm_bwd(tx.reshape(r, c, 1), tdy.reshape(r, c, 1),
+                           *(torch.from_numpy(a)
+                             for a in (scale, bias, mean, inv)), act)
+    _bn_check((got[0].reshape(r, c),) + got[1:], want, dtype, tx)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_batch_norm_backward_matches_jax_closed_form(dtype, layout, act):
+    """C=64, and NCHW: what the Pallas kernel does not take, held against
+    the XLA closed form of ``_bn_train_core``'s VJP."""
+    rng = np.random.RandomState(8)
+    n, c, h, w = 3, 64, 5, 7
+    if layout == "NCHW":
+        shape, ch, axes, view = (n, c, h, w), 1, (0, 2, 3), (n, c, h * w)
+    else:
+        shape, ch, axes, view = (n, h, w, c), 3, (0, 1, 2), (n * h * w, c, 1)
+    jx, tx, jdy, tdy, scale, bias, mean, inv = _bn_case(rng, shape, c,
+                                                        dtype, axes)
+    _, vjp = jax.vjp(lambda a, s, b: _bn_train_core(
+        a, s, b, jnp.asarray(mean), jnp.asarray(inv), (ch, axes, act)),
+        jx, jnp.asarray(scale), jnp.asarray(bias))
+    want = vjp(jdy)
+    got = K.batch_norm_bwd(tx.reshape(view), tdy.reshape(view),
+                           *(torch.from_numpy(a)
+                             for a in (scale, bias, mean, inv)), act)
+    _bn_check((got[0].reshape(shape),) + got[1:], want, dtype, tx)
+
+
+@pytest.mark.parametrize("shape", [
+    (1605632, 64, 1), (128, 64, 12544), (401408, 256, 1), (6272, 2048, 1),
+    (128, 2048, 49), (1000, 96, 1), (8, 96, 125), (1, 1, 1), (3, 5, 2000)])
+def test_batch_norm_backward_tiling(shape):
+    """The tiling the wrapper hands the kernel meets the launcher's
+    checks at ResNet-50's shapes and ragged ones: a tile of at most 1024
+    elements, whole tiles of rows per chunk, chunks that cover the rows
+    with none empty, grid dimensions within CUDA's limits."""
+    rows, c, s = shape
+    nb, cb, sb, per, chunks = K.bn_bwd_geometry(rows, c, s, 1056)
+    assert nb * cb * sb <= K._BN_TILE and min(nb, cb, sb) >= 1
+    assert per % nb == 0
+    assert (chunks - 1) * per < rows <= chunks * per
+    assert -(-c // cb) <= 65535 and -(-s // sb) <= 65535
+    assert chunks * -(-c // cb) * -(-s // sb) <= 2 * 1056 or chunks == 1
+
+
+# ---------------------------------------------------------------------------
 # autograd Functions against finite differences
 # ---------------------------------------------------------------------------
 
@@ -288,6 +381,19 @@ def test_softmax_xent_function_gradcheck():
         lambda a: K.SoftmaxXent.apply(a, lab), (x,))
 
 
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_batch_norm_function_gradcheck(act):
+    """Finite differences recompute the batch statistics from x, as the
+    op rule does; the closed-form backward must account for them."""
+    def f(x, s, b):
+        with torch.no_grad():
+            mean = x.mean(dim=(0, 2))
+            inv = torch.rsqrt(x.var(dim=(0, 2), unbiased=False) + 1e-5)
+        return K.BatchNormTrain.apply(x, s, b, mean, inv, act)
+    x, s, b = _f64(4, 3, 5, seed=8), _f64(3, seed=9), _f64(3, seed=10)
+    assert torch.autograd.gradcheck(f, (x, s, b))
+
+
 def test_wrappers_count_only_kernel_launches():
     """On the CPU the plain version runs and no kernel launch is
     counted."""
@@ -303,4 +409,7 @@ def test_wrappers_count_only_kernel_launches():
     out.sum().backward()
     loss = K.SoftmaxXent.apply(x, torch.tensor([0, 1, 2, 3]))
     loss.sum().backward()
+    x3 = torch.randn(4, 3, 2, requires_grad=True)
+    K.BatchNormTrain.apply(x3, torch.ones(3), torch.zeros(3), torch.zeros(3),
+                           torch.ones(3), "relu").sum().backward()
     assert all(k.launches == 0 for k in K.KERNELS)

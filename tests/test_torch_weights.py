@@ -98,7 +98,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "paddle_tpu_torch.models.transformer, "
             "paddle_tpu_torch.serving.decode_engine, "
             "paddle_tpu_torch.core.executor, paddle_tpu_torch.layers, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.ops.attention_ops; "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.ops.attention_ops, "
+            "paddle_tpu_torch.ops.logic_ops, paddle_tpu_torch.models.resnet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
