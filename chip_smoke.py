@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build every CUDA kernel from ops/csrc (one nvcc per source, all
    started together) and print the build seconds and ptxas report;
 3. hold each kernel against its plain PyTorch version at the main paths'
-   shapes, in f32 and bf16, and time kernel, plain version and a PyTorch
-   library yardstick with CUDA events;
+   shapes, in f32 and bf16 (the recurrent kernels also with ragged and
+   time-reversed masks and at an odd shape), and time kernel, plain
+   version and a PyTorch library yardstick with CUDA events;
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
    768, 12 heads, d_ff 3072; seeded random weights saved as a model
    directory and loaded through DecodeEngine.from_model_dir) in bf16
@@ -39,6 +40,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
 8. the same ResNet-50 program in f32 (amp off, TF32 off) at batch 2: one
    step from phase 7's state and one feed on the card and on the CPU; the
    loss and every @GRAD must agree;
+9. train the stacked dynamic LSTM (bench.py bench_lstm: lstm_net with
+   dict 30000, emb 512, hid 512, 3 recurrences; batch 32, T 80, Adam,
+   program.amp) through Executor.run on one seeded batch: launch counts
+   zeroed just before and read just after (2 LSTM forward and 2 LSTM
+   backward launches per step, nothing else of the port's), every loss
+   finite and the last below the first; one more step under
+   torch.profiler;
+10. the same for the GRU classifier of tools/gru_bench.py (vocab 30000,
+   H 512; 1 GRU forward and 1 backward launch per step);
+11. one f32 step of each sequence model at full width, batch 4, ragged
+   lengths, from its phase's state, on the card and on the CPU: the loss
+   and every @GRAD must agree;
 then a JSON line with every ported kernel's launches, error and times,
 the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
@@ -85,7 +98,8 @@ TRAIN_LAUNCHES_PER_STEP = {
     "flash_attention_fwd": 12, "flash_attention_bwd": 12,
     "layer_norm_fwd": 24, "layer_norm_bwd": 24,
     "softmax_xent_fwd": 1, "softmax_xent_bwd": 1, "paged_attention": 0,
-    "batch_norm_bwd": 0}
+    "batch_norm_bwd": 0, "lstm_fwd": 0, "lstm_bwd": 0, "gru_fwd": 0,
+    "gru_bwd": 0}
 #: one step on the card against the same step on the CPU, both in full
 #: f32 (TF32 off): the two devices sum every GEMM and reduction in
 #: another order, and 12 post-LN layers of backward compound those
@@ -115,6 +129,25 @@ RESNET_SPREAD_FACTOR = 4
 BN_SHAPES = {"stem": (128, 112, 112, 64),
              "stage-1 expansion": (128, 56, 56, 256),
              "stage 4": (128, 7, 7, 2048), "ragged": (8, 5, 25, 96)}
+#: the stacked dynamic LSTM at bench.py bench_lstm's config (:591-626:
+#: models/stacked_lstm.py lstm_net, dict 30000, emb 512, hid 512, three
+#: recurrences) and the GRU classifier of tools/gru_bench.py (vocab 30000,
+#: H 512), each at batch 32, T 80, Adam lr 1e-3, program.amp on, on one
+#: seeded batch with full lengths (as the bench feeds)
+LSTM_CONFIG = dict(dict_dim=30000, emb_dim=512, hid_dim=512, stacked_num=3)
+GRU_CONFIG = dict(vocab=30000, hid=512)
+SEQ_BATCH, SEQ_T, SEQ_STEPS = 32, 80, 20
+#: kernel launches per step: the two dynamic_lstm layers (the DynamicRNN
+#: layer is eager torch) run one LSTM forward and one backward each; the
+#: GRU classifier one GRU forward and backward
+SEQ_LAUNCHES_PER_STEP = {
+    "lstm": dict({name: 0 for name in TRAIN_LAUNCHES_PER_STEP},
+                 lstm_fwd=2, lstm_bwd=2),
+    "gru": dict({name: 0 for name in TRAIN_LAUNCHES_PER_STEP},
+                gru_fwd=1, gru_bwd=1)}
+#: phase 11: one f32 step of each at full width on the card and the CPU,
+#: batch 4, ragged lengths
+SEQ_CPU_BATCH = 4
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -138,28 +171,35 @@ def _bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _err(out, ref):
+def _err(out, ref, rule=None):
     """(max abs error of ``out`` against ``ref``, its share of the stated
-    tolerance for ``ref``'s dtype); equal infinities count as no error."""
+    tolerance); equal infinities count as no error.  ``rule`` is "f32"
+    (F32_TOL relative to max(1, max |ref|)), "bf16" (per element, one
+    bf16 rounding step plus BF16_FLOOR) or "bf16_max" (one bf16 rounding
+    step of max(1, max |ref|)); by default the rule of ``ref``'s dtype."""
     import torch
     a, b = out.float(), ref.float()
     both_inf = torch.isinf(a) & torch.isinf(b) & (torch.sign(a)
                                                   == torch.sign(b))
     d = torch.where(both_inf, torch.zeros_like(a), (a - b).abs())
     mag = torch.where(torch.isinf(b), torch.zeros_like(b), b.abs())
-    if ref.dtype == torch.bfloat16:
+    rule = rule or ("bf16" if ref.dtype == torch.bfloat16 else "f32")
+    if rule == "bf16":
         share = (d / (BF16_REL * mag + BF16_FLOOR)).max()
+    elif rule == "bf16_max":
+        share = d.max() / (BF16_REL * max(1.0, float(mag.max())))
     else:
         share = d.max() / (F32_TOL * max(1.0, float(mag.max())))
     return float(d.max()), float(share)
 
 
-def _check(name, pairs, dtype, label, rec):
+def _check(name, pairs, dtype, label, rec, rule=None):
     """Fail unless every (kernel output, plain output) pair is within the
-    tolerance of its dtype; keep the largest abs error and the largest
-    share of the tolerance in the kernel's record ``rec``."""
+    tolerance of its dtype (or of ``rule``, see `_err`); keep the largest
+    abs error and the largest share of the tolerance in the kernel's
+    record ``rec``."""
     import torch
-    errs = [_err(o, r) for o, r in pairs]
+    errs = [_err(o, r, rule) for o, r in pairs]
     err = max(e for e, _ in errs)
     share = max(s for _, s in errs)
     ok = share <= 1.0
@@ -534,6 +574,181 @@ def check_softmax_xent(rec_fwd, rec_bwd):
                 rec_bwd["shape"] = shape
 
 
+def _recurrent_inputs(gates, t, b, h, lens, reverse, g):
+    """Seeded inputs of a recurrent kernel on the card: xs, w (f32), h0,
+    c0, the [T, B, 1] mask of ``lens`` ("full" or "ragged": seeded lengths
+    in [1, T], every seventh row of length 1; reversed in time for
+    ``reverse``, as the rule hands an is_reverse layer to the kernel), and
+    the cotangents dhs, dcs."""
+    import torch
+    dev = torch.device("cuda")
+    if lens == "full":
+        n = torch.full((b,), t)
+    else:
+        n = torch.randint(1, t + 1, (b,), generator=g)
+        n[::7] = 1
+        n[1] = t
+    mask = (torch.arange(t)[:, None] < n[None, :]).float()[:, :, None]
+    if reverse:
+        mask = mask.flip(0)
+    xs = 0.5 * torch.randn(t, b, gates * h, generator=g)
+    w = torch.randn(h, gates * h, generator=g) / math.sqrt(h)
+    h0, c0 = (0.5 * torch.randn(b, h, generator=g) for _ in range(2))
+    dhs, dcs = (torch.randn(t, b, h, generator=g) for _ in range(2))
+    return [x.to(dev).contiguous()
+            for x in (xs, w, h0, c0, mask.contiguous(), dhs, dcs)]
+
+
+def check_recurrent(kind, rec_fwd, rec_bwd):
+    """Phase 3 for the LSTM (``kind`` "lstm") or GRU ("gru") kernels:
+    forward and backward against their plain versions at T80 B32 H512 with
+    full and ragged lengths and one is_reverse mask, and at T7 B5 H96;
+    the LSTM with f32 w and with the bf16 w of program.amp, the GRU with
+    f32 w (and one bf16 w case off the main path).  f32 w: F32_TOL.  bf16
+    w: the kernel and the plain version round h_prev to bf16 each step,
+    and an f32 reordering can flip one rounding, which the recurrence
+    carries on to values near 0: the outputs are held to one bf16
+    rounding step of their largest value ("bf16_max"); the share of the
+    per-element bf16 rule is printed beside it, not held.  Times at the
+    main path's shape and w dtype (the LSTM's bf16 w under program.amp,
+    the GRU's f32), and the LSTM's also with f32 w, the dtype of its
+    library yardstick.  At H 1024 (8 units a block) the forward is
+    checked too, and the backward, whose w slices do not fit shared
+    memory, must refuse to launch."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    lstm = kind == "lstm"
+    gates = 4 if lstm else 3
+    g = torch.Generator(device="cpu").manual_seed(18 if lstm else 19)
+    cases = [(80, 32, 512, "full", False), (80, 32, 512, "ragged", False),
+             (80, 32, 512, "ragged", True), (7, 5, 96, "ragged", False)]
+    runs = [(c, wd) for wd in (torch.float32, torch.bfloat16)
+            for c in cases]
+    if not lstm:
+        runs = [(c, torch.float32) for c in cases] + [
+            (cases[0], torch.bfloat16)]
+    for (t, b, h, lens, rev), wdt in runs:
+        xs, w32, h0, c0, mask, dhs, dcs = _recurrent_inputs(
+            gates, t, b, h, lens, rev, g)
+        w = w32.to(wdt)
+        dn = str(wdt).replace("torch.", "")
+        label = (f"T{t} B{b} H{h} {lens}" + (" reverse" if rev else "")
+                 + f" w {dn}")
+        bf = wdt is torch.bfloat16
+        if lstm:
+            fwd_args = (xs, w, h0, c0, mask)
+            got = K.lstm_fwd(*fwd_args)
+            ref = K.lstm_fwd_plain(*fwd_args)
+            bwd_args = fwd_args + tuple(ref) + (dhs, dcs)
+            dgot = K.lstm_bwd(*bwd_args)
+            dref = K.lstm_bwd_plain(*bwd_args)
+        else:
+            fwd_args = (xs, w, h0, mask)
+            got = (K.gru_fwd(*fwd_args),)
+            ref = (K.gru_fwd_plain(*fwd_args),)
+            bwd_args = fwd_args + (ref[0], dhs)
+            dgot = K.gru_bwd(*bwd_args)
+            dref = K.gru_bwd_plain(*bwd_args)
+        torch.cuda.synchronize()
+        for name, pairs, rec in ((f"{kind}_fwd", list(zip(got, ref)),
+                                  rec_fwd),
+                                 (f"{kind}_bwd", list(zip(dgot, dref)),
+                                  rec_bwd)):
+            _check(name, pairs, "float32", label, rec,
+                   "bf16_max" if bf else None)
+            if bf:
+                print(f"    per-element bf16 rule: "
+                      f"{max(_err(o, r, 'bf16')[1] for o, r in pairs):.3f} "
+                      "of it (not held)", flush=True)
+        main_dtype = torch.bfloat16 if lstm else torch.float32
+        if (t, lens, rev, wdt) == (80, "full", False, main_dtype):
+            rec_fwd.update(_recurrent_timings(kind, False, fwd_args,
+                                              bwd_args))
+            rec_bwd.update(_recurrent_timings(kind, True, fwd_args,
+                                              bwd_args))
+        elif lstm and (t, lens, rev) == (80, "full", False):
+            # the f32 w, in the library's dtype
+            rec_fwd["f32_w"] = _recurrent_timings(kind, False, fwd_args,
+                                                  bwd_args)
+            rec_bwd["f32_w"] = _recurrent_timings(kind, True, fwd_args,
+                                                  bwd_args)
+        del got, ref, dgot, dref
+    # H 1024: 8 units a block; the forward fits, the backward's w slices
+    # do not fit shared memory, and its launch must be refused, not hang
+    xs, w, h0, c0, mask, dhs, dcs = _recurrent_inputs(
+        gates, 3, 4, 1024, "ragged", False, g)
+    if lstm:
+        got, ref = K.lstm_fwd(xs, w, h0, c0, mask), \
+            K.lstm_fwd_plain(xs, w, h0, c0, mask)
+        refused = lambda: K.lstm_bwd(xs, w, h0, c0, mask, *ref, dhs, dcs)
+    else:
+        got, ref = (K.gru_fwd(xs, w, h0, mask),), \
+            (K.gru_fwd_plain(xs, w, h0, mask),)
+        refused = lambda: K.gru_bwd(xs, w, h0, mask, ref[0], dhs)
+    torch.cuda.synchronize()
+    _check(f"{kind}_fwd", list(zip(got, ref)), "float32",
+           "T3 B4 H1024 ragged w float32", rec_fwd)
+    try:
+        refused()
+    except RuntimeError as e:
+        if "cannot be placed" not in str(e):
+            raise
+        print(f"  {kind}_bwd T3 B4 H1024: refused ({e})", flush=True)
+    else:
+        raise AssertionError(f"{kind}_bwd launched at H 1024, whose w "
+                             "slices do not fit shared memory")
+
+
+def _recurrent_timings(kind, backward, fwd_args, bwd_args):
+    """Kernel, plain and library ms and the bound of a recurrent kernel.
+    Bytes: each input read once, each output written once.  Operations:
+    the products, 2*T*B*H*G*H forward (G = 4 gates for the LSTM, 3 for the
+    GRU) and three times that backward (the gates again, dw, dh_prev), at
+    the rate of w's dtype.  Library: torch.nn.LSTM (cuDNN) forward or
+    backward at the same T, B, H in f32, which also does the input
+    product x . W_ih; none for the GRU (cuDNN's GRU computes
+    r * (h . W_c), another function than (r * h) . W_c)."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    lstm = kind == "lstm"
+    args = bwd_args if backward else fwd_args
+    xs, w = args[0], args[1]
+    t, b, gh = xs.shape
+    h = w.shape[0]
+    if lstm:
+        fn = K.lstm_bwd if backward else K.lstm_fwd
+        plain = K.lstm_bwd_plain if backward else K.lstm_fwd_plain
+        out_bytes = (xs.numel() + w.numel() + 2 * b * h) * 4 if backward \
+            else 2 * t * b * h * 4
+    else:
+        fn = K.gru_bwd if backward else K.gru_fwd
+        plain = K.gru_bwd_plain if backward else K.gru_fwd_plain
+        out_bytes = (xs.numel() + w.numel() + b * h) * 4 if backward \
+            else t * b * h * 4
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    ops = 2 * t * b * h * gh * (3 if backward else 1)
+    dn = str(w.dtype).replace("torch.", "")
+    bound, by = _bound(in_bytes + out_bytes, ops, dn)
+    library = None
+    if lstm:
+        lib = torch.nn.LSTM(h, h).cuda()
+        x = torch.randn(t, b, h, device="cuda")
+        if backward:
+            x.requires_grad_(True)
+            out, _ = lib(x)
+            library = _grad_ms(out, [x] + list(lib.parameters()),
+                               torch.randn_like(out))
+        else:
+            with torch.no_grad():
+                library = _time_ms(lambda: lib(x))
+    return {"ms": _time_ms(lambda: fn(*args)),
+            "plain_ms": _time_ms(lambda: plain(*args), iters=5, warmup=1),
+            "library_ms": library, "bound_ms": bound, "bound_by": by,
+            "shape": f"T{t} B{b} H{h} w {dn}" + (
+                "" if lstm else "; library none: cuDNN's GRU computes "
+                "r*(h.W_c), not (r*h).W_c")}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the slice
 # ---------------------------------------------------------------------------
@@ -661,7 +876,8 @@ def _copy_feed(batch, seed):
     return {"tokens": seqs, "labels": np.roll(seqs, -1, axis=1)}
 
 
-def _train_steps(main, startup, avg_cost, feed, steps, per_step):
+def _train_steps(main, startup, avg_cost, feed, steps, per_step,
+                 other="other"):
     """Startup, then ``steps`` steps of ``main`` on the card on one fixed
     feed, with the launch counts zeroed just before the steps and read
     just after, then one profiled step.  Fails unless each kernel
@@ -698,7 +914,7 @@ def _train_steps(main, startup, avg_cost, feed, steps, per_step):
                   f"{ms[-1]:.2f} ms", flush=True)
         launches = {k.name: k.launches for k in K.KERNELS}
         peak = torch.cuda.max_memory_allocated()
-        device = _profile_step(exe, main, feed, avg_cost)
+        device = _profile_step(exe, main, feed, avg_cost, other)
         state = {n: t.cpu().numpy() for n, t in scope._vars.items()}
     print(f"  launches in {steps} steps: {launches}", flush=True)
     for name, n in per_step.items():
@@ -735,11 +951,12 @@ def train(seed=0):
     return launches, e2e, state
 
 
-def _profile_step(exe, main, feed, avg_cost):
+def _profile_step(exe, main, feed, avg_cost, other="other"):
     """One more step under torch.profiler: device time by kernel name;
     returns the step's device ms in all and by group (None if the
-    profiler fails).  A measurement aid only; its failure is reported,
-    not fatal."""
+    profiler fails); ``other`` names the group of everything that is not
+    a port kernel, a library product or a reduction.  A measurement aid
+    only; its failure is reported, not fatal."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -754,7 +971,8 @@ def _profile_step(exe, main, feed, avg_cost):
               f"{total / 1e3:.2f} ms of device time in "
               f"{sum(r.count for r in kernels)} kernel launches; by "
               "kernel (ms, launches):", flush=True)
-        ours = ("flash_", "ln_", "sm_xent_", "paged_", "bn_")
+        ours = ("flash_", "ln_", "sm_xent_", "paged_", "bn_", "lstm_",
+                "gru_")
         ranked = sorted(kernels, key=lambda r: -r.device_time_total)
         for i, r in enumerate(ranked):
             if i < 15 or any(f in r.key for f in ours):
@@ -766,12 +984,12 @@ def _profile_step(exe, main, feed, avg_cost):
         groups = {"port": ours,
                   "library products": ("xmma", "gemm", "conv", "cudnn",
                                        "cutlass", "implicit", "wgrad",
-                                       "dgrad", "fprop"),
+                                       "dgrad", "fprop", "nvjet"),
                   "reductions": ("reduce_kernel",)}
-        sums = dict.fromkeys(list(groups) + ["other"], 0.0)
+        sums = dict.fromkeys(list(groups) + [other], 0.0)
         for r in kernels:
             name = next((g for g, keys in groups.items()
-                         if any(k in r.key.lower() for k in keys)), "other")
+                         if any(k in r.key.lower() for k in keys)), other)
             sums[name] += r.device_time_total / 1e3
         print("  by group (ms): " + ", ".join(
             f"{g} {t:.2f}" for g, t in sums.items()), flush=True)
@@ -949,6 +1167,112 @@ def resnet_card_vs_cpu(state, seed=0):
             "grads_compared": len(params)}
 
 
+# ---------------------------------------------------------------------------
+# phases 9, 10 and 11: the sequence models through the Fluid front end
+# ---------------------------------------------------------------------------
+
+def _seq_program(model, seed, amp):
+    """Build the stacked LSTM (``model`` "lstm") or the GRU classifier
+    ("gru") + Adam in fresh default programs; returns (main, startup,
+    avg_cost)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.models.stacked_lstm import lstm_net
+    fluid.core.program.reset_default_programs()
+    data = layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    if model == "lstm":
+        avg_cost, _, _ = lstm_net(data, label, **LSTM_CONFIG)
+    else:
+        vocab, hid = GRU_CONFIG["vocab"], GRU_CONFIG["hid"]
+        emb = layers.embedding(input=data, size=[vocab, hid])
+        proj = layers.fc(input=emb, size=3 * hid, num_flatten_dims=2)
+        seq = layers.dynamic_gru(input=proj, size=hid)
+        pooled = layers.sequence_pool(input=seq, pool_type="max")
+        pred = layers.fc(input=pooled, size=2, act="softmax")
+        avg_cost = layers.mean(layers.cross_entropy(input=pred, label=label))
+    optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+    main = fluid.default_main_program()
+    main.amp = amp
+    startup = fluid.default_startup_program()
+    startup.random_seed = seed
+    return main, startup, avg_cost
+
+
+def _word_feed(batch, seed, ragged=False):
+    """One seeded batch of token ids [batch, SEQ_T], their lengths (all
+    SEQ_T, or seeded in [1, SEQ_T] with the first row full and the last of
+    length 1) and binary labels, as numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = np.full(batch, SEQ_T, np.int32)
+    if ragged:
+        lens = rng.integers(1, SEQ_T + 1, batch).astype(np.int32)
+        lens[0], lens[-1] = SEQ_T, 1
+    return {"words": rng.integers(0, 30000, (batch, SEQ_T)),
+            "words@SEQ_LEN": lens,
+            "label": rng.integers(0, 2, (batch, 1))}
+
+
+def train_sequence(model, seed=0):
+    """Phases 9 and 10: SEQ_STEPS Adam steps of the stacked LSTM or the GRU
+    classifier at SEQ_BATCH x SEQ_T under program.amp on the card, the
+    batch staged on the card."""
+    import torch
+    main, startup, avg_cost = _seq_program(model, seed, amp=True)
+    feed = {k: torch.from_numpy(v).to("cuda")
+            for k, v in _word_feed(SEQ_BATCH, seed).items()}
+    launches, e2e, state = _train_steps(
+        main, startup, avg_cost, feed, SEQ_STEPS,
+        SEQ_LAUNCHES_PER_STEP[model],
+        other="the DynamicRNN's eager per-step ops and other elementwise")
+    per_s = 1e3 / e2e["step_ms_p50"]
+    e2e.update(examples_per_s=SEQ_BATCH * per_s,
+               tokens_per_s=SEQ_BATCH * SEQ_T * per_s)
+    return launches, e2e, state
+
+
+def seq_card_vs_cpu(model, state, seed=0):
+    """Phase 11: the model in f32 (amp off, TF32 off) at full width, batch
+    SEQ_CPU_BATCH with ragged lengths: one step from the carried-in state
+    on the card (kernels) and on the CPU (plain versions), held to the LM's
+    rule (CPU_LOSS_RTOL; CPU_GRAD_RTOL on each @GRAD's max abs error over
+    its max |value|).  The CPU's own spread between its thread count and 1
+    thread is measured and printed beside it."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as fluid
+    main, _, avg_cost = _seq_program(model, seed, amp=False)
+    feed = _word_feed(SEQ_CPU_BATCH, seed + 1, ragged=True)
+    params, card = _step(fluid.CUDAPlace(0), main, avg_cost, feed, state)
+    _, cpu = _step(fluid.CPUPlace(), main, avg_cost, feed, state)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, cpu1 = _step(fluid.CPUPlace(), main, avg_cost, feed, state)
+    finally:
+        torch.set_num_threads(threads)
+
+    def errs(got, want):
+        return sorted(((float(np.abs(a - b).max())
+                        / max(float(np.abs(b).max()), 1e-30), n)
+                       for n, a, b in zip(params, got[1:], want[1:])),
+                      reverse=True)
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    card_errs, spread = errs(card, cpu), errs(cpu1, cpu)
+    print(f"  loss relative error {loss_err:.3e} (limit {CPU_LOSS_RTOL}); "
+          f"largest @GRAD errors over each gradient's max |value| (limit "
+          f"{CPU_GRAD_RTOL}): "
+          + ", ".join(f"{n} {e:.3e}" for e, n in card_errs[:5])
+          + f"; CPU {threads} threads against 1: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in spread[:3]), flush=True)
+    if loss_err > CPU_LOSS_RTOL or card_errs[0][0] > CPU_GRAD_RTOL:
+        raise AssertionError(f"the card's {model} step disagrees with the "
+                             "CPU's")
+    return {"loss_rel_err": loss_err, "grad_rel_err_max": card_errs[0][0],
+            "cpu_spread_max": spread[0][0], "grads_compared": len(params)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -987,6 +1311,8 @@ def main():
     check_layer_norm_bwd(recs["layer_norm_bwd"])
     check_softmax_xent(recs["softmax_xent_fwd"], recs["softmax_xent_bwd"])
     check_batch_norm_bwd(recs["batch_norm_bwd"])
+    for kind in ("lstm", "gru"):
+        check_recurrent(kind, recs[f"{kind}_fwd"], recs[f"{kind}_bwd"])
 
     print(f"phase 4: DecodeEngine, {FULL_WIDTH['n_layers']}-layer d768 LM, "
           "bf16", flush=True)
@@ -1015,6 +1341,22 @@ def main():
           "against CPU", flush=True)
     resnet_cpu_check = resnet_card_vs_cpu(state)
     print(f"  {json.dumps(resnet_cpu_check)}", flush=True)
+    del state
+
+    seq = {}
+    for phase, model, what in ((9, "lstm", f"stacked dynamic LSTM "
+                                f"{LSTM_CONFIG} (bench.py bench_lstm)"),
+                               (10, "gru", f"GRU classifier {GRU_CONFIG} "
+                                "(tools/gru_bench.py)")):
+        print(f"phase {phase}: {what} at batch {SEQ_BATCH}, T {SEQ_T}, "
+              "program.amp, Adam, through Executor.run", flush=True)
+        seq[model] = train_sequence(model)
+        print(f"  end to end: {json.dumps(seq[model][1])}", flush=True)
+    print(f"phase 11: one f32 step of each at batch {SEQ_CPU_BATCH}, ragged "
+          "lengths, card against CPU", flush=True)
+    for model in ("lstm", "gru"):
+        check = seq_card_vs_cpu(model, seq[model][2])
+        print(f"  {model}: {json.dumps(check)}", flush=True)
 
     kernels = []
     for k in K.KERNELS:
@@ -1024,18 +1366,24 @@ def main():
             "source": f"paddle_tpu_torch/ops/csrc/{k.source}.cu",
             "replaces": k.replaces,
             "launches": (serve_launches[k.name] + train_launches[k.name]
-                         + resnet_launches[k.name]),
+                         + resnet_launches[k.name]
+                         + seq["lstm"][0][k.name] + seq["gru"][0][k.name]),
             "launches_serving": serve_launches[k.name],
             "launches_training": (train_launches[k.name]
-                                  + resnet_launches[k.name]),
+                                  + resnet_launches[k.name]
+                                  + seq["lstm"][0][k.name]
+                                  + seq["gru"][0][k.name]),
             "launches_resnet_training": resnet_launches[k.name],
+            "launches_lstm_training": seq["lstm"][0][k.name],
+            "launches_gru_training": seq["gru"][0][k.name],
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
             **({"training_shape": r["training"]} if "training" in r
-               else {})})
+               else {}),
+            **({"f32_w": r["f32_w"]} if "f32_w" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

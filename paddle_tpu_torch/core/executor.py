@@ -5,7 +5,8 @@ program's global block on the place's device (`core.lowering`):
 
 - a startup-like program (no feeds, no fetches, reads no data var)
   materialises its persistables into the scope;
-- feeds are cast to each data var's declared dtype on the device;
+- feeds are cast to each data var's declared dtype on the device; a
+  ragged feed's ``<name>@SEQ_LEN`` length vector stays int32;
 - state lives in the scope as device tensors and is updated in place by
   the optimizer ops: a step copies no state, and every scope tensor
   leaves the step as a plain leaf (no autograd history);
@@ -102,8 +103,12 @@ class Executor:
             var = block.vars.get(name)
             t = (value if isinstance(value, torch.Tensor)
                  else torch.as_tensor(np.asarray(value)))
-            want = (to_torch_dtype(var.dtype)
-                    if var is not None and var.dtype is not None else t.dtype)
+            if name.endswith(lowering.LEN_SUFFIX):
+                want = torch.int32
+            elif var is not None and var.dtype is not None:
+                want = to_torch_dtype(var.dtype)
+            else:
+                want = t.dtype
             out[name] = t.to(self.device, want)
         return out
 

@@ -14,6 +14,12 @@ the env as leaves that require grad, and every output the program marks
 ``stop_gradient`` is detached.  The backward rule then differentiates the
 recorded graph once (`core.backward`), and the ops after it (the
 optimizer's) run without recording.
+
+Ragged values keep the JAX package's representation: a padded dense
+tensor plus a companion int32 length vector named ``<name>@SEQ_LEN`` in
+the env (fed beside the data, carried along by the rules).  Sub-blocks
+(a DynamicRNN's step block) are run by their op's rule, which hands each
+of their ops an `ExecContext` whose ``block`` is the sub-block.
 """
 from __future__ import annotations
 
@@ -23,6 +29,9 @@ import torch
 
 from .program import Block, Operator, Program
 from .registry import OpRegistry
+
+#: suffix of the companion length vector of a ragged value
+LEN_SUFFIX = "@SEQ_LEN"
 
 
 class ExecContext:
@@ -44,6 +53,9 @@ class ExecContext:
         if not names:
             return default
         return self.env[names[0]]
+
+    def inputs(self, slot: str) -> List[Any]:
+        return [self.env[n] for n in self.op.desc.inputs.get(slot, [])]
 
     def input_name(self, slot: str) -> Optional[str]:
         names = self.op.desc.inputs.get(slot, [])
@@ -71,6 +83,20 @@ class ExecContext:
     def attr(self, key: str, default=None):
         return self.op.desc.attrs.get(key, default)
 
+    # -- sequence-length companions ------------------------------------------
+    def seq_len_of(self, slot: str):
+        """The length vector of a ragged input, if one was fed (None for
+        a dense one)."""
+        name = self.input_name(slot)
+        if name is None:
+            return None
+        return self.env.get(name + LEN_SUFFIX)
+
+    def set_seq_len(self, slot: str, lengths):
+        name = self.output_name(slot)
+        if name is not None and lengths is not None:
+            self.env[name + LEN_SUFFIX] = lengths
+
     # -- device and randomness -------------------------------------------------
     @property
     def device(self) -> torch.device:
@@ -95,9 +121,12 @@ class Interpreter:
         self.needed = set()
 
     def run_block(self, block: Block, env: Dict[str, Any]):
+        # an output read only inside a sub-block (a DynamicRNN's step
+        # block) is needed too
         self.needed = set(self.fetch_names)
-        for op in block.ops:
-            self.needed.update(op.desc.input_names())
+        for b in self.program.blocks:
+            for op in b.ops:
+                self.needed.update(op.desc.input_names())
         bwd_at = next((i for i, op in enumerate(block.ops)
                        if op.type == "backward"), None)
         if bwd_at is not None:

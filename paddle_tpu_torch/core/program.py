@@ -6,9 +6,11 @@ the Executor interprets the global block op by op with torch functions
 (`core.lowering`).  Serialization is the JAX package's JSON, field for
 field, so a program built by either package parses in the other.
 
-Ported as far as the training programs need: no operator sugar on
-`Variable`, no ``clone``/``prune``/sub-block transforms yet.  Like the
-JAX package's, the ``amp`` flag is not part of the JSON.
+Ported as far as the training programs need: sub-blocks (a DynamicRNN's
+step block, ``create_block``/``rollback``), no operator sugar on
+`Variable`, no ``clone``/``prune`` yet.  Like the JAX package's, the
+``amp`` flag is not part of the JSON, and an attribute's tuples come back
+from it as lists.
 """
 from __future__ import annotations
 
@@ -303,6 +305,19 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
+
+    def create_block(self, parent_idx=None) -> Block:
+        """A new sub-block (a DynamicRNN's step block) under the current
+        block, or under ``parent_idx``; it becomes the current block."""
+        parent = self._current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = self.current_block().parent_idx
 
     @property
     def random_seed(self):

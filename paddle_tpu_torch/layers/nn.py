@@ -339,3 +339,4 @@ def _make_elementwise(op_type):
 
 
 elementwise_add = _make_elementwise("elementwise_add")
+elementwise_mul = _make_elementwise("elementwise_mul")

@@ -1,6 +1,7 @@
 """Pass-through layers (counterpart of ``paddle_tpu/layers/ops.py``;
-``scale`` and ``amp_cast``).  Activations reach programs through a
-layer's ``act`` argument (`LayerHelper.append_activation`)."""
+``scale``, ``amp_cast`` and the ``sigmoid`` and ``tanh`` activations).
+Other activations reach programs through a layer's ``act`` argument
+(`LayerHelper.append_activation`)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
@@ -27,3 +28,22 @@ def amp_cast(x, name=None):
     out.desc.shape = x.shape
     out.desc.lod_level = x.lod_level
     return out
+
+
+def _make_unary(op_type):
+    """A one-op X -> Out activation layer, as the JAX package generates
+    them from its activation table."""
+    def layer(x, name=None, **kwargs):
+        helper = LayerHelper(op_type, input=x, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        attrs = {k: v for k, v in kwargs.items() if v is not None}
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        out.desc.shape = x.shape
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+sigmoid = _make_unary("sigmoid")
+tanh = _make_unary("tanh")

@@ -55,3 +55,14 @@ def slice(input, axes, starts, ends, name=None):
         out.desc.shape = tuple(shp)
     out.desc.lod_level = input.lod_level
     return out
+
+
+def sums(input, out=None):
+    """One ``sum`` op adding the list ``input``."""
+    inputs = list(input) if isinstance(input, (list, tuple)) else [input]
+    helper = LayerHelper("sum", input=input)
+    out = out or helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(type="sum", inputs={"X": inputs},
+                     outputs={"Out": [out]})
+    out.desc.shape = inputs[0].shape
+    return out

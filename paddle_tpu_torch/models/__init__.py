@@ -1,2 +1,2 @@
-"""Models of the port: the transformer LM (generation and training) and
-ResNet (training)."""
+"""Models of the port: the transformer LM (generation and training),
+ResNet (training) and the stacked dynamic LSTM (training)."""

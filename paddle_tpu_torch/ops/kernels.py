@@ -15,6 +15,10 @@ wrapper                  CUDA source (ops/csrc)    replaces (Pallas kernel)
 `softmax_xent_fwd`       softmax_xent.cu           ``_sm_xent_fwd_kernel``
 `softmax_xent_bwd`       softmax_xent.cu           ``_sm_xent_bwd_kernel``
 `batch_norm_bwd`         batch_norm_bwd.cu         ``_bn_bwd_kernel``
+`lstm_fwd`               lstm.cu                   ``_lstm_fwd_kernel``
+`lstm_bwd`               lstm.cu                   ``_lstm_bwd_kernel``
+`gru_fwd`                gru.cu                    ``_gru_fwd_kernel``
+`gru_bwd`                gru.cu                    ``_gru_bwd_kernel``
 =======================  ========================  ===========================
 
 Each source's header comment says what bounds the kernel on the H100
@@ -30,12 +34,13 @@ kernels.  The plain versions are what the CPU tests hold against the JAX
 package and what ``chip_smoke.py`` holds each kernel against on the card.
 They compute in f32, or in f64 for f64 inputs (``gradcheck``).
 
-`FlashAttention`, `LayerNorm`, `SoftmaxXent` and `BatchNormTrain` are the
-``torch.autograd.Function``s of the training path (the counterparts of
-the JAX package's ``custom_vjp``s): forward through the forward wrapper
-(plain torch for BatchNorm, whose forward the JAX package leaves to XLA),
-backward through the backward wrapper, so the same autograd wiring runs
-the kernels on the card and the plain versions on the CPU.
+`FlashAttention`, `LayerNorm`, `SoftmaxXent`, `BatchNormTrain`,
+`FusedLSTM` and `FusedGRU` are the ``torch.autograd.Function``s of the
+training paths (the counterparts of the JAX package's ``custom_vjp``s):
+forward through the forward wrapper (plain torch for BatchNorm, whose
+forward the JAX package leaves to XLA), backward through the backward
+wrapper, so the same autograd wiring runs the kernels on the card and the
+plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -69,10 +74,21 @@ class Kernel:
             fn.restype = ctypes.c_int
             self._fn = fn
         rc = self._fn(*args)
+        if rc == _COOPERATIVE_TOO_LARGE:
+            raise RuntimeError(
+                f"{self.name}: this shape cannot be placed on the card: the "
+                "kernel's grid-wide barrier needs every block resident at "
+                "once, and its blocks do not fit (cooperative launch too "
+                "large)")
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc}")
         self.launches += 1
+
+
+#: cudaErrorCooperativeLaunchTooLarge (its value since CUDA 10), returned
+#: by the recurrent kernels when their grid cannot be co-resident
+_COOPERATIVE_TOO_LARGE = 720
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
@@ -113,9 +129,31 @@ BATCH_NORM_BWD = Kernel(
     "(bn_bwd_onepass :1798)",
     [_P] * 10 + [_L, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P])
 
+LSTM_FWD = Kernel(
+    "lstm_fwd", "lstm", "ptt_lstm_fwd",
+    "paddle_tpu/ops/pallas_kernels.py:853 _lstm_fwd_kernel "
+    "(_lstm_pallas_fwd :944)",
+    [_P] * 7 + [_I, _I, _I, _I, _P])
+LSTM_BWD = Kernel(
+    "lstm_bwd", "lstm", "ptt_lstm_bwd",
+    "paddle_tpu/ops/pallas_kernels.py:885 _lstm_bwd_kernel "
+    "(_lstm_pallas_bwd :979)",
+    [_P] * 11 + [_I, _I, _I, _I, _P])
+GRU_FWD = Kernel(
+    "gru_fwd", "gru", "ptt_gru_fwd",
+    "paddle_tpu/ops/pallas_kernels.py:1078 _gru_fwd_kernel "
+    "(_gru_pallas_fwd :1164)",
+    [_P] * 6 + [_I, _I, _I, _I, _P])
+GRU_BWD = Kernel(
+    "gru_bwd", "gru", "ptt_gru_bwd",
+    "paddle_tpu/ops/pallas_kernels.py:1104 _gru_bwd_kernel "
+    "(_gru_pallas_bwd :1189)",
+    [_P] * 9 + [_I, _I, _I, _I, _P])
+
 KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD,
            LAYER_NORM_FWD, LAYER_NORM_BWD, SOFTMAX_XENT_FWD,
-           SOFTMAX_XENT_BWD, BATCH_NORM_BWD)
+           SOFTMAX_XENT_BWD, BATCH_NORM_BWD, LSTM_FWD, LSTM_BWD, GRU_FWD,
+           GRU_BWD)
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 _PAGED_HEAD_DIMS = (16, 32, 64, 128)
@@ -632,6 +670,245 @@ def batch_norm_bwd(x3: torch.Tensor, dy3: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# LSTM and GRU recurrences, forward and backward
+# ---------------------------------------------------------------------------
+#
+# Time-major, as the Pallas kernels: xs [T, B, G*H] holds the pre-projected
+# gate inputs with the bias folded in (G = 4, gates i | f | g | o; G = 3,
+# gates r | z | c), w [H, G*H] is the recurrent weight (f32, or bf16 under
+# program.amp), mask [T, B, 1] is 1 on a live step and 0 on padding (a
+# padded step carries h and c through), h0 and c0 are [B, H].  Products
+# with a bf16 w take bf16 operands and accumulate in f32, as the Pallas
+# kernels' dots do; everything else is f32.  The backward kernels
+# recompute the gates from the saved states, walking t down from T - 1.
+
+def _mm(t, w):
+    """``t`` as an operand of a product with ``w``: rounded to bf16 and
+    back when w is bf16 (the Pallas kernels' ``.astype(w.dtype)``)."""
+    return t.to(w.dtype).to(t.dtype) if w.dtype == torch.bfloat16 else t
+
+
+def _prev(x0, xs):
+    """[x0, xs[0], ..., xs[T-2]]: the state each step starts from."""
+    return torch.cat([_acc(x0)[None], _acc(xs[:-1])])
+
+
+def lstm_fwd_plain(xs, w, h0, c0, mask):
+    """Plain version of `lstm_fwd`: the Pallas kernel's step in torch."""
+    hid = w.shape[0]
+    wf = _acc(w)
+    h, c = _acc(h0), _acc(c0)
+    hs, cs = [], []
+    for t in range(xs.shape[0]):
+        gates = _acc(xs[t]) + _mm(h, w) @ wf
+        i = torch.sigmoid(gates[:, :hid])
+        f = torch.sigmoid(gates[:, hid:2 * hid])
+        g = torch.tanh(gates[:, 2 * hid:3 * hid])
+        o = torch.sigmoid(gates[:, 3 * hid:])
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        m = _acc(mask[t])
+        h = m * h_new + (1 - m) * h
+        c = m * c_new + (1 - m) * c
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def lstm_bwd_plain(xs, w, h0, c0, mask, hs, cs, dhs, dcs):
+    """Plain version of `lstm_bwd`: the Pallas backward kernel's step in
+    torch, t from T - 1 down to 0."""
+    hid = w.shape[0]
+    wf = _acc(w)
+    hprev, cprev = _prev(h0, hs), _prev(c0, cs)
+    dh_c = torch.zeros_like(hprev[0])
+    dc_c = torch.zeros_like(dh_c)
+    dw = torch.zeros_like(wf)
+    dxs = [None] * xs.shape[0]
+    for t in reversed(range(xs.shape[0])):
+        h_prev, c_prev, m = hprev[t], cprev[t], _acc(mask[t])
+        gates = _acc(xs[t]) + _mm(h_prev, w) @ wf
+        i = torch.sigmoid(gates[:, :hid])
+        f = torch.sigmoid(gates[:, hid:2 * hid])
+        g = torch.tanh(gates[:, 2 * hid:3 * hid])
+        o = torch.sigmoid(gates[:, 3 * hid:])
+        tanh_c = torch.tanh(f * c_prev + i * g)
+        dh = _acc(dhs[t]) + dh_c
+        dc_out = _acc(dcs[t]) + dc_c
+        dh_new = m * dh
+        dc_new = m * dc_out + dh_new * o * (1 - tanh_c * tanh_c)
+        dgates = torch.cat([dc_new * g * i * (1 - i),
+                            dc_new * c_prev * f * (1 - f),
+                            dc_new * i * (1 - g * g),
+                            dh_new * tanh_c * o * (1 - o)], dim=1)
+        dxs[t] = dgates
+        dg = _mm(dgates, w)
+        dw = dw + _mm(h_prev, w).T @ dg
+        dh_c = (1 - m) * dh + dg @ wf.T
+        dc_c = f * dc_new + (1 - m) * dc_out
+    return torch.stack(dxs), dw, dh_c, dc_c
+
+
+def gru_fwd_plain(xs, w, h0, mask):
+    """Plain version of `gru_fwd`: the Pallas kernel's step in torch."""
+    hid = w.shape[0]
+    wf = _acc(w)
+    h = _acc(h0)
+    hs = []
+    for t in range(xs.shape[0]):
+        x = _acc(xs[t])
+        rz = torch.sigmoid(x[:, :2 * hid] + _mm(h, w) @ wf[:, :2 * hid])
+        r, z = rz[:, :hid], rz[:, hid:]
+        c = torch.tanh(x[:, 2 * hid:] + _mm(r * h, w) @ wf[:, 2 * hid:])
+        m = _acc(mask[t])
+        h = m * ((1 - z) * h + z * c) + (1 - m) * h
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def gru_bwd_plain(xs, w, h0, mask, hs, dhs):
+    """Plain version of `gru_bwd`: the Pallas backward kernel's step in
+    torch, t from T - 1 down to 0."""
+    hid = w.shape[0]
+    wf = _acc(w)
+    w_rz, w_c = wf[:, :2 * hid], wf[:, 2 * hid:]
+    hprev = _prev(h0, hs)
+    dh_c = torch.zeros_like(hprev[0])
+    dw = torch.zeros_like(wf)
+    dxs = [None] * xs.shape[0]
+    for t in reversed(range(xs.shape[0])):
+        h_prev, m, x = hprev[t], _acc(mask[t]), _acc(xs[t])
+        rz = torch.sigmoid(x[:, :2 * hid] + _mm(h_prev, w) @ w_rz)
+        r, z = rz[:, :hid], rz[:, hid:]
+        rh = r * h_prev
+        c = torch.tanh(x[:, 2 * hid:] + _mm(rh, w) @ w_c)
+        dh = _acc(dhs[t]) + dh_c
+        dh_new = m * dh
+        dh_prev = (1 - m) * dh + dh_new * (1 - z)
+        dz = dh_new * (c - h_prev)
+        dc_in = dh_new * z * (1 - c * c)
+        drh = _mm(dc_in, w) @ w_c.T
+        dh_prev = dh_prev + drh * r
+        drz_in = torch.cat([drh * h_prev * r * (1 - r), dz * z * (1 - z)],
+                           dim=1)
+        dh_c = dh_prev + _mm(drz_in, w) @ w_rz.T
+        dxs[t] = torch.cat([drz_in, dc_in], dim=1)
+        dw = dw + torch.cat([_mm(h_prev, w).T @ _mm(drz_in, w),
+                             _mm(rh, w).T @ _mm(dc_in, w)], dim=1)
+    return torch.stack(dxs), dw, dh_c
+
+
+def _check_recurrent(name, gates, xs, w, states, seqs, mask):
+    """Shapes, dtypes and contiguity of a recurrent kernel's arguments ->
+    (T, B, H).  ``states`` are [B, H], ``seqs`` [T, B, H]."""
+    if xs.dim() != 3 or xs.shape[2] % gates or xs.shape[0] < 1 \
+            or xs.shape[1] < 1:
+        raise ValueError(f"{name}: xs must be [T >= 1, B >= 1, {gates}*H], "
+                         f"got {tuple(xs.shape)}")
+    t, b, g = xs.shape
+    h = g // gates
+    if w.shape != (h, g):
+        raise ValueError(f"{name}: w {tuple(w.shape)}, want ({h}, {g})")
+    if mask.shape != (t, b, 1):
+        raise ValueError(f"{name}: mask {tuple(mask.shape)}, want "
+                         f"({t}, {b}, 1)")
+    for s in states:
+        if s.shape != (b, h):
+            raise ValueError(f"{name}: state {tuple(s.shape)}, want "
+                             f"({b}, {h})")
+    for s in seqs:
+        if s.shape != (t, b, h):
+            raise ValueError(f"{name}: sequence {tuple(s.shape)}, want "
+                             f"({t}, {b}, {h})")
+    if w.dtype not in _FLOAT_TYPES or any(
+            x.dtype != torch.float32 for x in (xs, mask, *states, *seqs)):
+        raise ValueError(f"{name}: w must be f32 or bf16 and the rest f32, "
+                         f"got w {w.dtype}, xs {xs.dtype}")
+    _check_cuda(name, xs, w, mask, *states, *seqs)
+    return t, b, h
+
+
+def lstm_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
+             c0: torch.Tensor, mask: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole-T LSTM recurrence: xs [T, B, 4H] f32, w [H, 4H] f32 or
+    bf16, h0 and c0 [B, H] f32, mask [T, B, 1] f32 -> (hs, cs), each
+    [T, B, H] f32.  One launch for all T steps."""
+    if xs.device.type == "cpu":
+        return lstm_fwd_plain(xs, w, h0, c0, mask)
+    t, b, h = _check_recurrent("lstm_fwd", 4, xs, w, (h0, c0), (), mask)
+    hs = torch.empty((t, b, h), dtype=torch.float32, device=xs.device)
+    cs = torch.empty_like(hs)
+    LSTM_FWD.launch(xs.data_ptr(), w.data_ptr(), h0.data_ptr(),
+                    c0.data_ptr(), mask.data_ptr(), hs.data_ptr(),
+                    cs.data_ptr(), t, b, h, int(w.dtype == torch.bfloat16),
+                    _stream(xs))
+    return hs, cs
+
+
+def lstm_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
+             c0: torch.Tensor, mask: torch.Tensor, hs: torch.Tensor,
+             cs: torch.Tensor, dhs: torch.Tensor, dcs: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    """Gradients of `lstm_fwd` from its inputs, its outputs hs and cs and
+    their cotangents dhs and dcs -> (dxs [T, B, 4H], dw [H, 4H], dh0,
+    dc0), all f32.  One launch for all T steps."""
+    if xs.device.type == "cpu":
+        return lstm_bwd_plain(xs, w, h0, c0, mask, hs, cs, dhs, dcs)
+    t, b, h = _check_recurrent("lstm_bwd", 4, xs, w, (h0, c0),
+                               (hs, cs, dhs, dcs), mask)
+    hprev, cprev = _prev(h0, hs), _prev(c0, cs)
+    dxs = torch.empty_like(xs)
+    dw = torch.empty((h, 4 * h), dtype=torch.float32, device=xs.device)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    LSTM_BWD.launch(xs.data_ptr(), w.data_ptr(), hprev.data_ptr(),
+                    cprev.data_ptr(), mask.data_ptr(), dhs.data_ptr(),
+                    dcs.data_ptr(), dxs.data_ptr(), dw.data_ptr(),
+                    dh0.data_ptr(), dc0.data_ptr(), t, b, h,
+                    int(w.dtype == torch.bfloat16), _stream(xs))
+    return dxs, dw, dh0, dc0
+
+
+def gru_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """The whole-T GRU recurrence, gate columns r | z | c: xs [T, B, 3H]
+    f32, w [H, 3H] f32 or bf16, h0 [B, H] f32, mask [T, B, 1] f32 -> hs
+    [T, B, H] f32.  One launch for all T steps."""
+    if xs.device.type == "cpu":
+        return gru_fwd_plain(xs, w, h0, mask)
+    t, b, h = _check_recurrent("gru_fwd", 3, xs, w, (h0,), (), mask)
+    hs = torch.empty((t, b, h), dtype=torch.float32, device=xs.device)
+    rh = torch.empty((b, h), dtype=torch.float32, device=xs.device)
+    GRU_FWD.launch(xs.data_ptr(), w.data_ptr(), h0.data_ptr(),
+                   mask.data_ptr(), hs.data_ptr(), rh.data_ptr(), t, b, h,
+                   int(w.dtype == torch.bfloat16), _stream(xs))
+    return hs
+
+
+def gru_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
+            mask: torch.Tensor, hs: torch.Tensor, dhs: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of `gru_fwd` from its inputs, its output hs and the
+    cotangent dhs -> (dxs [T, B, 3H], dw [H, 3H], dh0), all f32.  One
+    launch for all T steps."""
+    if xs.device.type == "cpu":
+        return gru_bwd_plain(xs, w, h0, mask, hs, dhs)
+    t, b, h = _check_recurrent("gru_bwd", 3, xs, w, (h0,), (hs, dhs), mask)
+    hprev = _prev(h0, hs)
+    dxs = torch.empty_like(xs)
+    dw = torch.empty((h, 3 * h), dtype=torch.float32, device=xs.device)
+    dh0 = torch.empty_like(h0)
+    rh = torch.empty((b, h), dtype=torch.float32, device=xs.device)
+    GRU_BWD.launch(xs.data_ptr(), w.data_ptr(), hprev.data_ptr(),
+                   mask.data_ptr(), dhs.data_ptr(), dxs.data_ptr(),
+                   dw.data_ptr(), dh0.data_ptr(), rh.data_ptr(), t, b, h,
+                   int(w.dtype == torch.bfloat16), _stream(xs))
+    return dxs, dw, dh0
+
+
+# ---------------------------------------------------------------------------
 # autograd Functions of the training path
 # ---------------------------------------------------------------------------
 
@@ -715,3 +992,57 @@ class BatchNormTrain(torch.autograd.Function):
                                            mean, inv, ctx.act)
         return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None,
                 None)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A recurrent kernel's operand: f32 (f64 stays f64 for gradcheck on
+    the plain versions), contiguous."""
+    if t.dtype not in (torch.float32, torch.float64):
+        t = t.float()
+    return t.contiguous()
+
+
+class FusedLSTM(torch.autograd.Function):
+    """The whole-T LSTM over time-major [T, B, 4H] inputs whose backward
+    is the LSTM backward kernel (the JAX package's ``fused_lstm`` custom
+    VJP): saves the inputs and hs/cs only, and the backward recomputes the
+    gates.  A bf16 xs runs in f32 with hs, cs and the gradients rounded to
+    its dtype, as the Pallas kernels keep an f32 carry; dw returns in w's
+    dtype (bf16 under program.amp), as the JAX VJP does."""
+
+    @staticmethod
+    def forward(ctx, xs, w, h0, c0, mask):
+        hs, cs = lstm_fwd(_f32(xs), w.contiguous(), _f32(h0), _f32(c0),
+                          _f32(mask))
+        hs, cs = hs.to(xs.dtype), cs.to(xs.dtype)
+        ctx.save_for_backward(xs, w, h0, c0, mask, hs, cs)
+        return hs, cs
+
+    @staticmethod
+    def backward(ctx, dhs, dcs):
+        xs, w, h0, c0, mask, hs, cs = ctx.saved_tensors
+        dxs, dw, dh0, dc0 = lstm_bwd(
+            _f32(xs), w.contiguous(), _f32(h0), _f32(c0), _f32(mask),
+            _f32(hs), _f32(cs), _f32(dhs), _f32(dcs))
+        return (dxs.to(xs.dtype), dw.to(w.dtype), dh0.to(h0.dtype),
+                dc0.to(c0.dtype), None)
+
+
+class FusedGRU(torch.autograd.Function):
+    """The whole-T GRU over time-major [T, B, 3H] inputs ([r | z | c]
+    gate columns) whose backward is the GRU backward kernel (the JAX
+    package's ``fused_gru`` custom VJP); dtypes as `FusedLSTM`."""
+
+    @staticmethod
+    def forward(ctx, xs, w, h0, mask):
+        hs = gru_fwd(_f32(xs), w.contiguous(), _f32(h0),
+                     _f32(mask)).to(xs.dtype)
+        ctx.save_for_backward(xs, w, h0, mask, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        xs, w, h0, mask, hs = ctx.saved_tensors
+        dxs, dw, dh0 = gru_bwd(_f32(xs), w.contiguous(), _f32(h0),
+                               _f32(mask), _f32(hs), _f32(dhs))
+        return dxs.to(xs.dtype), dw.to(w.dtype), dh0.to(h0.dtype), None

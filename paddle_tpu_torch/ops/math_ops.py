@@ -1,8 +1,12 @@
 """Math op rules (counterpart of ``paddle_tpu/ops/math_ops.py``; the ops
 the training programs use) and the mixed-precision helpers of
-``program.amp`` that the matmul and convolution rules share."""
+``program.amp`` that the matmul and convolution rules share.  Where the
+JAX rules carry a ragged input's ``@SEQ_LEN`` companion to the output
+(``mul``, the elementwise ops, the activations, ``scale``, ``amp_cast``),
+so do these."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,23 +25,37 @@ def _align(x: torch.Tensor, y: torch.Tensor, axis) -> torch.Tensor:
                      + [1] * (x.dim() - axis - y.dim()))
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx):
-    x = ctx.input("X")
-    y = _align(x, ctx.input("Y"), ctx.attr("axis", -1))
-    ctx.set_output("Out", x + y)
+def _elementwise(fn):
+    """An elementwise rule: Out = fn(X, Y aligned at ``axis``), which
+    keeps X's sequence lengths.  Mixed bf16/f32 operands promote to f32
+    (see ROADMAP queue C for the JAX rule's bf16 cast of a broadcast pair
+    under program.amp)."""
+    def rule(ctx):
+        x = ctx.input("X")
+        y = _align(x, ctx.input("Y"), ctx.attr("axis", -1))
+        ctx.set_output("Out", fn(x, y))
+        ctx.set_seq_len("Out", ctx.seq_len_of("X"))
+    return rule
+
+
+for _name, _fn in (("elementwise_add", torch.add),
+                   ("elementwise_mul", torch.mul)):
+    register_op(_name)(_elementwise(_fn))
 
 
 #: activation op type -> function (the JAX package's table holds ~30; the
 #: port has the ones its programs use)
 ACTIVATIONS = {
     "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
 }
 
 
 def _act_rule(fn):
     def rule(ctx):
         ctx.set_output("Out", fn(ctx.input("X")))
+        ctx.set_seq_len("Out", ctx.seq_len_of("X"))
     return rule
 
 
@@ -94,6 +112,7 @@ def _mul(ctx):
     out = amp_out(ctx, torch.matmul(x2, y2), want)
     ctx.set_output("Out", out.reshape(
         tuple(x.shape[:xnd]) + tuple(y.shape[ynd:])))
+    ctx.set_seq_len("Out", ctx.seq_len_of("X"))
 
 
 @register_op("top_k", doc="top_k_op.cc")
@@ -108,12 +127,18 @@ def _mean(ctx):
     ctx.set_output("Out", torch.mean(ctx.input("X")))
 
 
+@register_op("sum", doc="sum_op.cc: add N tensors")
+def _sum(ctx):
+    ctx.set_output("Out", functools.reduce(torch.add, ctx.inputs("X")))
+
+
 @register_op("scale", doc="scale_op.cc")
 def _scale(ctx):
     x = ctx.input("X")
     s, b = ctx.attr("scale", 1.0), ctx.attr("bias", 0.0)
     out = x * s + b if ctx.attr("bias_after_scale", True) else (x + b) * s
     ctx.set_output("Out", out.to(x.dtype))
+    ctx.set_seq_len("Out", ctx.seq_len_of("X"))
 
 
 @register_op("amp_cast", doc="joins the bf16 activation stream under "
@@ -123,3 +148,4 @@ def _amp_cast(ctx):
     if amp_on(ctx) and x.dtype == torch.float32:
         x = x.to(torch.bfloat16)
     ctx.set_output("Out", x)
+    ctx.set_seq_len("Out", ctx.seq_len_of("X"))

@@ -229,6 +229,7 @@ def _softmax_with_cross_entropy(ctx):
 
 @register_op("lookup_table", doc="lookup_table_op.cc: embedding gather")
 def _lookup_table(ctx):
+    """Ids [..., 1] or [...] (a ragged [B, T] batch keeps its lengths)."""
     ids = ctx.input("Ids")
     w = ctx.input("W")
     flat = ids[..., 0] if ids.dim() >= 2 and ids.shape[-1] == 1 else ids
@@ -238,6 +239,7 @@ def _lookup_table(ctx):
         # the padding row reads (and so trains) as zeros
         out = out.masked_fill((flat == padding_idx)[..., None], 0.0)
     ctx.set_output("Out", out)
+    ctx.set_seq_len("Out", ctx.seq_len_of("Ids"))
 
 
 @register_op("dropout")
