@@ -9,9 +9,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build every CUDA kernel from ops/csrc (one nvcc per source, all
    started together) and print the build seconds and ptxas report;
 3. hold each kernel against its plain PyTorch version at the main paths'
-   shapes, in f32 and bf16 (the recurrent kernels also with ragged and
+   shapes, in f32 and bf16 (the flash kernels also at head_dim 32 and at
+   tile-edge lengths, the recurrent kernels also with ragged and
    time-reversed masks and at an odd shape), and time kernel, plain
-   version and a PyTorch library yardstick with CUDA events;
+   version and a PyTorch library yardstick with CUDA events; the flash
+   kernels and their SDPA yardsticks also by device time per call
+   (torch.profiler), the flash backward must repeat bit for bit, and both
+   flash libraries must hold tensor-core instructions (HMMA in
+   cuobjdump -sass);
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
    768, 12 heads, d_ff 3072; seeded random weights saved as a model
    directory and loaded through DecodeEngine.from_model_dir) in bf16
@@ -67,17 +72,24 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM peaks (NVIDIA data sheet): memory rate and dense op rates
+#: H100 SXM peaks (NVIDIA data sheet): memory rate and dense op rates.
+#: "float32" is the CUDA cores' rate; "float32_3xtf32" that of an f32
+#: product on the tensor cores as three TF32 products (the flash kernels)
 MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12,
+            "float32_3xtf32": 495e12 / 3}
 #: stated tolerances of kernel vs plain version.  Every kernel accumulates
 #: in f32 and rounds its output once, as the plain version does.
 #: An f32 output (any f32 output, the lse and the LN statistics of bf16
 #: inputs included): max abs error <= F32_TOL * max(1, max |plain|), the
-#: same f32 math summed in another order.  A bf16 output, per element:
+#: same f32 math summed in another order (the flash kernels' 3xTF32
+#: products included).  A bf16 output, per element:
 #: |kernel - plain| <= BF16_REL * |plain| + BF16_FLOOR, i.e. one bf16
 #: rounding step (2^-7 relative at most) apart, plus a floor for the f32
 #: reordering error of values near 0 (f32 errors measured at <= 3e-6).
+#: The bf16 flash kernels round p and ds to bf16 as product operands,
+#: which the plain versions do not; their outputs are held to one bf16
+#: step of max(1, max |plain|) ("bf16_max" in `_err`).
 F32_TOL = 2e-5
 BF16_REL, BF16_FLOOR = 2.0 ** -7, 1e-4
 #: engine logits against the full-prefix recompute after 12 bf16 layers:
@@ -275,52 +287,162 @@ def check_paged_attention(rec):
                             f"{n_pos} positions")
 
 
+#: flash cases, (batch, tq, tk, causal): the serving prefill lengths, the
+#: training shape B16 T512, and the tile edges (64-row tiles); at head_dim
+#: 64 (the models') all of them, at 32 the edges and a long prefill
+FLASH_EDGES = [(1, t, t, True) for t in (63, 65, 129)] + [
+    (1, 65, 1000, True), (1, 65, 1000, False)]
+FLASH_CASES = {64: [(1, t, t, True) for t in (7, 128, 1000, 2048)]
+               + [(1, 100, 1000, True), (1, 100, 1000, False),
+                  (16, 512, 512, True)] + FLASH_EDGES,
+               32: [(1, 7, 7, True), (2, 128, 128, False),
+                    (1, 1000, 1000, True)] + FLASH_EDGES}
+
+
+def _device_ms(fn, iters=20, warmup=3):
+    """Device time per call of ``fn`` from torch.profiler: the CUDA time of
+    every kernel it launched, summed by name over ``iters`` calls, so,
+    unlike `_time_ms`, without the host's enqueue.  Returns (ms per call,
+    {kernel name: ms per call}), or (None, {}) when the profiler shows no
+    device time (a measurement aid: reported, not fatal)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = {r.key: r.device_time_total / 1e3 / iters
+             for r in prof.key_averages()
+             if r.device_type == torch.autograd.DeviceType.CUDA
+             and r.device_time_total > 0}
+    if not names:
+        print("  profiler shows no device time", flush=True)
+        return None, {}
+    return sum(names.values()), names
+
+
+def _flash_times(rec, kernel, plain, library, nbytes, ops, dtype, shape):
+    """Fill ``rec`` with the times of one flash shape: CUDA-event ms of
+    kernel, plain version and library (SDPA, or its backward), device ms
+    per call of kernel and library, and the bound: f32 against 3xTF32 on
+    the tensor cores, with the CUDA cores' bound beside it."""
+    rec["ms"] = _time_ms(kernel, iters=50)
+    rec["plain_ms"] = _time_ms(plain)
+    rec["library_ms"] = _time_ms(library, iters=50)
+    rec["device_ms"], names = _device_ms(kernel)
+    rec["library_device_ms"], lib_names = _device_ms(library)
+    f32 = dtype == "float32"
+    rec["bound_ms"], rec["bound_by"] = _bound(
+        nbytes, ops, "float32_3xtf32" if f32 else dtype)
+    if f32:
+        rec["bound_cuda_core_ms"] = _bound(nbytes, ops, "float32")[0]
+    rec["shape"] = shape
+    print(f"  {shape}: kernel {rec['ms']:.4f} ms (device "
+          f"{rec['device_ms']}), library {rec['library_ms']:.4f} ms (device "
+          f"{rec['library_device_ms']}), plain {rec['plain_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}"
+          + (f"; CUDA cores {rec['bound_cuda_core_ms']:.4f}" if f32 else "")
+          + ")", flush=True)
+    for what, table in (("kernel", names), ("library", lib_names)):
+        print(f"    {what} device ms per call by name: " + "; ".join(
+            f"{n[:70]} {t:.4f}" for n, t in sorted(table.items(),
+                                                     key=lambda x: -x[1])),
+              flush=True)
+    return rec
+
+
+def _flash_check(name, got, want, dtype, label, rec):
+    """Hold a flash kernel's outputs to the plain version's: every f32
+    output to F32_TOL; bf16 outputs to one bf16 step of their largest value
+    ("bf16_max": the kernels round p and ds as product operands)."""
+    import torch
+    f32 = [(o, r) for o, r in zip(got, want) if r.dtype == torch.float32]
+    bf = [(o, r) for o, r in zip(got, want) if r.dtype == torch.bfloat16]
+    if f32:
+        _check(name, f32, dtype, label + (" f32 lse" if bf else ""), rec,
+               "f32")
+    if bf:
+        _check(name, bf, dtype, label + " (bf16_max)", rec, "bf16_max")
+
+
 def check_flash_attention(rec):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
-    H, D = 12, 64
+    H = 12
     g = torch.Generator(device="cpu").manual_seed(12)
     dev = torch.device("cuda")
-    # (batch, tq, tk, causal); B16 T512 is the training shape
-    cases = [(1, t, t, True) for t in (7, 128, 1000, 2048)]
-    cases += [(1, 100, 1000, True), (1, 100, 1000, False),
-              (16, 512, 512, True)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        for b, tq, tk, causal in cases:
-            q = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
-            k = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
-            v = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
-            out, lse = K.flash_attention_fwd(q, k, v, causal)
-            ref, ref_lse = K.flash_attention_fwd_plain(q, k, v, causal)
-            torch.cuda.synchronize()
-            _check("flash_attention_fwd", [(out, ref), (lse, ref_lse)], dn,
-                   f"B{b} tq{tq} tk{tk} causal={causal}", rec)
-            if dtype is torch.float32 and b == 16:
-                pairs = b * H * tq * (tq + 1) // 2
-                n = b * H * tq * D
-                rec["training"] = _timings(
-                    lambda: K.flash_attention_fwd(q, k, v, True),
-                    lambda: K.flash_attention_fwd_plain(q, k, v, True),
-                    lambda: F.scaled_dot_product_attention(q, k, v,
-                                                           is_causal=True),
-                    4 * n * 4 + b * H * tq * 4, 4 * pairs * D, dn,
-                    f"B{b} H{H} T{tq} D{D} causal f32")
-            if dtype is torch.bfloat16 and (tq, tk, causal) == (1000, 1000,
-                                                               True):
-                pairs = tq * (tq + 1) // 2
-                nbytes = 4 * tq * H * D * 2 + tq * H * 4
-                ops = 4 * pairs * H * D
-                rec["ms"] = _time_ms(
-                    lambda: K.flash_attention_fwd(q, k, v, True))
-                rec["plain_ms"] = _time_ms(
-                    lambda: K.flash_attention_fwd_plain(q, k, v, True))
-                rec["library_ms"] = _time_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v,
-                                                           is_causal=True))
-                rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dn)
-                rec["shape"] = f"B1 H{H} T{tq} D{D} causal bf16"
+        for D, cases in FLASH_CASES.items():
+            for b, tq, tk, causal in cases:
+                q = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
+                k = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
+                v = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
+                out, lse = K.flash_attention_fwd(q, k, v, causal)
+                ref, ref_lse = K.flash_attention_fwd_plain(q, k, v, causal)
+                torch.cuda.synchronize()
+                _flash_check("flash_attention_fwd", (out, lse),
+                             (ref, ref_lse), dn,
+                             f"D{D} B{b} tq{tq} tk{tk} causal={causal}", rec)
+                if D != 64:
+                    continue
+                if dtype is torch.float32 and b == 16:
+                    pairs = b * H * tq * (tq + 1) // 2
+                    n = b * H * tq * D
+                    rec["training"] = _flash_times(
+                        {},
+                        lambda: K.flash_attention_fwd(q, k, v, True),
+                        lambda: K.flash_attention_fwd_plain(q, k, v, True),
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True),
+                        4 * n * 4 + b * H * tq * 4, 4 * pairs * D, dn,
+                        f"B{b} H{H} T{tq} D{D} causal f32")
+                if dtype is torch.bfloat16 and (tq, tk, causal) == (
+                        1000, 1000, True):
+                    pairs = tq * (tq + 1) // 2
+                    _flash_times(
+                        rec,
+                        lambda: K.flash_attention_fwd(q, k, v, True),
+                        lambda: K.flash_attention_fwd_plain(q, k, v, True),
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True),
+                        4 * tq * H * D * 2 + tq * H * 4, 4 * pairs * H * D,
+                        dn, f"B1 H{H} T{tq} D{D} causal bf16")
+
+
+def check_tensor_cores(paths):
+    """Count the tensor-core instructions (HMMA) in the flash libraries'
+    machine code with cuobjdump (beside nvcc, or in Triton's package);
+    fail when either has none."""
+    import glob
+    from paddle_tpu_torch.ops import _build
+    cands = [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")]
+    try:
+        import triton
+        cands += glob.glob(os.path.join(os.path.dirname(triton.__file__),
+                                        "backends", "nvidia", "bin",
+                                        "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((c for c in cands if os.path.exists(c)), None)
+    if tool is None:
+        raise AssertionError("cuobjdump not found: " + ", ".join(cands))
+    counts = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([tool, "-sass", str(paths[name])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+        print(f"  {name}: {counts[name]} HMMA instructions "
+              f"(cuobjdump -sass)", flush=True)
+        if counts[name] == 0:
+            raise AssertionError(f"{name} holds no tensor-core instruction")
+    return counts
 
 
 def check_layer_norm(rec):
@@ -445,43 +567,54 @@ def check_flash_attention_bwd(rec):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
-    H, D = 12, 64
+    H = 12
     g = torch.Generator(device="cpu").manual_seed(14)
     dev = torch.device("cuda")
-    # (batch, tq, tk, causal): the training shape first
-    cases = [(16, 512, 512, True), (1, 7, 7, True), (1, 1000, 1000, True),
-             (1, 100, 1000, True), (1, 100, 1000, False),
-             (2, 128, 128, False)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        for b, tq, tk, causal in cases:
-            q = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
-            k = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
-            v = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
-            do = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
-            out, lse = K.flash_attention_fwd(q, k, v, causal)
-            got = K.flash_attention_bwd(q, k, v, out, lse, do, causal)
-            ref = K.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
-            torch.cuda.synchronize()
-            _check("flash_attention_bwd", list(zip(got, ref)), dn,
-                   f"B{b} tq{tq} tk{tk} causal={causal}", rec)
-            if dtype is torch.float32 and (b, tq, tk) == (16, 512, 512):
-                item = 4
+        for D, cases in FLASH_CASES.items():
+            for b, tq, tk, causal in cases:
+                if tq == 2048:     # the plain backward's [T, T] tensors
+                    continue
+                q = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
+                k = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
+                v = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
+                do = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
+                out, lse = K.flash_attention_fwd(q, k, v, causal)
+                got = K.flash_attention_bwd(q, k, v, out, lse, do, causal)
+                ref = K.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                  causal)
+                torch.cuda.synchronize()
+                label = f"D{D} B{b} tq{tq} tk{tk} causal={causal}"
+                _flash_check("flash_attention_bwd", got, ref, dn, label, rec)
+                if (D, b, tq, tk) != (64, 16, 512, 512):
+                    continue
+                again = K.flash_attention_bwd(q, k, v, out, lse, do, causal)
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                print(f"  flash_attention_bwd {label} {dn}: a second run "
+                      f"is {'bitwise equal' if same else 'DIFFERENT'}",
+                      flush=True)
+                if not same:
+                    raise AssertionError("the flash backward does not "
+                                         "repeat bit for bit")
+                rec.setdefault("bitwise_repeat", []).append(dn)
+                if dtype is not torch.float32:
+                    continue
                 pairs = b * H * tq * (tq + 1) // 2
                 n = b * H * tq * D
-                nbytes = (5 * n + 3 * n) * item + b * H * tq * 4
-                ops = 10 * pairs * D
-                rec["ms"] = _time_ms(lambda: K.flash_attention_bwd(
-                    q, k, v, out, lse, do, True))
-                rec["plain_ms"] = _time_ms(lambda: K.flash_attention_bwd_plain(
-                    q, k, v, out, lse, do, True))
                 qq, kk, vv = (t.detach().requires_grad_(True)
                               for t in (q, k, v))
                 lib = F.scaled_dot_product_attention(qq, kk, vv,
                                                      is_causal=True)
-                rec["library_ms"] = _grad_ms(lib, (qq, kk, vv), do)
-                rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dn)
-                rec["shape"] = f"B{b} H{H} T{tq} D{D} causal f32"
+                _flash_times(
+                    rec, lambda: K.flash_attention_bwd(
+                        q, k, v, out, lse, do, True),
+                    lambda: K.flash_attention_bwd_plain(
+                        q, k, v, out, lse, do, True),
+                    lambda: torch.autograd.grad(lib, (qq, kk, vv), do,
+                                                retain_graph=True),
+                    (5 * n + 3 * n) * 4 + b * H * tq * 4, 10 * pairs * D,
+                    dn, f"B{b} H{H} T{tq} D{D} causal f32")
 
 
 def check_layer_norm_bwd(rec):
@@ -1294,15 +1427,19 @@ def main():
     print(f"phase 1: card: {smi}", flush=True)
 
     t0 = time.perf_counter()
-    _build.build_all(k.source for k in K.KERNELS)
+    paths = _build.build_all(k.source for k in K.KERNELS)
     print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, log in _build.build_logs.items():
+        kernel = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1][:90]
             if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name} {kernel}: {line.strip()}")
 
     print("phase 3: kernels against their plain versions", flush=True)
+    hmma = check_tensor_cores(paths)
     recs = {k.name: {} for k in K.KERNELS}
     check_paged_attention(recs["paged_attention"])
     check_flash_attention(recs["flash_attention_fwd"])
@@ -1380,7 +1517,14 @@ def main():
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r.get("device_ms"),
+            "library_device_ms": r.get("library_device_ms"),
             "shape": r["shape"],
+            **({"bound_cuda_core_ms": r["bound_cuda_core_ms"]}
+               if "bound_cuda_core_ms" in r else {}),
+            **({"hmma": hmma[k.source]} if k.source in hmma else {}),
+            **({"bitwise_repeat": r["bitwise_repeat"]}
+               if "bitwise_repeat" in r else {}),
             **({"training_shape": r["training"]} if "training" in r
                else {}),
             **({"f32_w": r["f32_w"]} if "f32_w" in r else {})})

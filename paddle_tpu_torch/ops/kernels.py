@@ -24,6 +24,15 @@ wrapper                  CUDA source (ops/csrc)    replaces (Pallas kernel)
 Each source's header comment says what bounds the kernel on the H100
 and what its design does about it.
 
+The two flash sources run every product on the tensor cores
+(``mma.sync``, building blocks in ``csrc/flash_mma.cuh``): bf16 inputs in
+bf16 with f32 accumulators, rounding p and ds to bf16 only as the
+operands of their products (as ``_reference_attention`` rounds p; the
+plain versions and the Pallas kernels keep them in f32); f32 inputs in
+3xTF32 (each operand split into a tf32 high and low part, three products
+summed in f32), which keeps f32's accuracy without the TF32 rounding the
+port turns off elsewhere.
+
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
 kernel on the current stream (no allocation inside the kernel, no
@@ -280,7 +289,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention over [B, H, T, D] -> (out [B, H, Tq, D] in q's dtype,
     lse [B, H, Tq] f32).  Causal masking is bottom-right aligned (key j
-    visible to query i when j <= i + Tk - Tq); any Tq, Tk work."""
+    visible to query i when j <= i + Tk - Tq); any Tq, Tk work.  On the
+    card: bf16 products with p rounded to bf16 for P.V, or 3xTF32 for
+    f32 (module docstring); inputs 16-byte aligned."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal)
     b, h, tq, d = q.shape
@@ -342,7 +353,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of `flash_attention_fwd`: from q, k, v, its out and lse
     ([B, H, Tq] f32) and dO (shaped like out) -> (dq, dk, dv) in the
-    inputs' dtype.  Same masking contract as the forward."""
+    inputs' dtype.  Same masking contract and numerics as the forward (p
+    and ds rounded to bf16 as product operands for bf16); no atomics, so
+    a launch repeats bit for bit."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
     b, h, tq, d = q.shape

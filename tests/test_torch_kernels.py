@@ -17,6 +17,8 @@ for f64 inputs).  The BatchNorm backward is held against the Pallas
 kernel where it applies (channels-last, C a multiple of 128) and against
 the JAX package's XLA closed form elsewhere (NCHW, C=64).
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -188,6 +190,242 @@ def test_flash_backward_matches_pallas(dtype, tq, tk, causal):
     for gt, wt in zip(got, want):
         assert gt.dtype == tq_.dtype
         _close(gt, wt, TOL[dtype], rel=True)
+
+
+# ---------------------------------------------------------------------------
+# the flash kernels' numerics on the tensor cores, emulated on the CPU
+# ---------------------------------------------------------------------------
+#
+# The CUDA flash kernels run every product on the tensor cores: bf16
+# inputs through bf16 mma with p and ds rounded to bf16 as product
+# operands, f32 inputs through 3xTF32.  These helpers repeat that
+# arithmetic in torch on the CPU (they are test code, never on the main
+# path) to pin the choice before any card runs it.
+
+F32_TOL = 2e-5      # chip_smoke.py's tolerance of an f32 kernel output
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on f32 bit patterns: round to nearest, ties
+    away from zero, to 10 mantissa bits (the low 13 bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rz(x):
+    """The tf32 bits the tensor core reads from an f32 register: the low
+    13 bits dropped (round toward zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _rz_f32(x):
+    """f64 -> f32 rounded toward zero."""
+    r = x.float()
+    over = r.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _mm_tf32(passes, fadd_every=None):
+    """a @ b from tf32 operands as the kernels form it: one pass (hi.hi)
+    or 3xTF32 (lo.hi + hi.lo + hi.hi, with hi = tf32(x) rounded to
+    nearest and lo = x - hi read by the tensor core as tf32 by
+    truncation), one mma per 8 columns of k and term.
+
+    The accumulation follows the kernels too, under a model of the tensor
+    cores' adder: each mma adds its 8 exact products to the f32
+    accumulator and rounds the sum toward zero, not to nearest (the drift
+    that made the kernels sum apart).  Every ``fadd_every`` columns of k
+    the accumulator starts again from zero and is added to the running sum
+    by an f32 add, rounded to nearest: 8 for the forward (each k-step's
+    three products summed apart), 32 for the backward's dq, dk and dv
+    (`add_pn`, per 32-row step), None for one accumulator over all of k
+    (the backward's S and dP).  The model is the bias's direction, not the
+    hardware's exact alignment and truncation of the addends."""
+    def mm(a, b):
+        a, b = a.float(), b.float()
+        ah, bh = _tf32(a), _tf32(b)
+        terms = [(ah, bh)]
+        if passes == 3:
+            terms = [(_tf32_rz(a - ah), bh), (ah, _tf32_rz(b - bh)), (ah, bh)]
+        kdim = a.shape[-1]
+        step = fadd_every or kdim
+        total = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        for k0 in range(0, kdim, step):
+            acc = torch.zeros_like(total)
+            for k1 in range(k0, min(k0 + step, kdim), 8):
+                for x, y in terms:
+                    acc = _rz_f32(acc.double()
+                                  + x[..., k1:k1 + 8].double()
+                                  @ y[..., k1:k1 + 8, :].double())
+            total = total + acc
+        return total
+    return mm
+
+
+def _mm_f32(a, b):
+    return a.float() @ b.float()
+
+
+def _bf16_operand(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _causal_mask(tq, tk):
+    return torch.ones(tq, tk, dtype=torch.bool).tril(tk - tq)
+
+
+def _emulated_fwd(q, k, v, causal, mm, operand=lambda x: x):
+    """The forward kernel's arithmetic: f32 scores and softmax, exp(s - m)
+    left unnormalised and passed through ``operand`` into P.V, divided by
+    the f32 row sum at the end; out in q's dtype, lse f32."""
+    d, tq, tk = q.shape[-1], q.shape[2], k.shape[2]
+    s = mm(q, k.transpose(-1, -2)) / math.sqrt(d)
+    if causal:
+        s = s.masked_fill(~_causal_mask(tq, tk), float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    out = mm(operand(e), v) / torch.where(l > 0, l, torch.ones_like(l))
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, -math.inf))
+    return out.to(q.dtype), lse[..., 0]
+
+
+def _emulated_bwd(q, k, v, out, lse, do, causal, mm, operand=lambda x: x,
+                  mm_grad=None):
+    """The backward kernels' arithmetic: p = exp(s - lse) in f32 (0 on a
+    fully masked row), ds = p (dO.V^T - delta) / sqrt(D), then dV = P^T.dO,
+    dQ = dS.K, dK = dS^T.Q with p and ds passed through ``operand``; S and
+    dP by ``mm``, the three gradients by ``mm_grad`` (default ``mm``)."""
+    mm_grad = mm_grad or mm
+    d, tq, tk = q.shape[-1], q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    s = mm(q, k.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_mask(tq, tk), float("-inf"))
+    live = torch.isfinite(lse)[..., None]
+    p = torch.where(live, torch.exp(s - torch.where(live, lse[..., None],
+                                                    torch.zeros(()))),
+                    torch.zeros(()))
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    ds = p * (mm(do, v.transpose(-1, -2)) - delta) * scale
+    dv = mm_grad(operand(p).transpose(-1, -2), do)
+    dq = mm_grad(operand(ds), k)
+    dk = mm_grad(operand(ds).transpose(-1, -2), q)
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("tq,tk,causal", [
+    (16, 16, True), (16, 16, False), (8, 24, True), (8, 24, False),
+    (24, 16, True)])
+def test_flash_forward_bf16_rounding_matches_pallas(tq, tk, causal):
+    """The card kernel's bf16 rounding points (p rounded as the operand of
+    P.V, the row sum in f32) stay within the bf16 tolerance of the Pallas
+    kernel, which keeps p in f32."""
+    rng = np.random.RandomState(1)
+    b, h, d = 2, 2, 16
+    q, k, v = (rng.randn(b, h, t, d).astype(np.float32)
+               for t in (tq, tk, tk))
+    jq, tq_ = _pair(q, "bfloat16")
+    jk, tk_ = _pair(k, "bfloat16")
+    jv, tv = _pair(v, "bfloat16")
+    want_out, want_lse = _flash_forward(jq, jk, jv, causal, 8, 8,
+                                        interpret=True)
+    got_out, got_lse = _emulated_fwd(tq_, tk_, tv, causal, _mm_f32,
+                                     _bf16_operand)
+    assert got_out.dtype == torch.bfloat16
+    _close(got_out, want_out, TOL["bfloat16"])
+    _close(got_lse, np.asarray(want_lse).reshape(b, h, tq), 1e-4)
+
+
+@pytest.mark.parametrize("tq,tk,causal", [
+    (16, 16, True), (8, 24, False), (24, 16, True)])
+def test_flash_backward_bf16_rounding_matches_pallas(tq, tk, causal):
+    """The same for the backward: p and ds rounded to bf16 only as the
+    operands of dV, dQ and dK."""
+    rng = np.random.RandomState(4)
+    b, h, d = 2, 2, 16
+    q = rng.randn(b, h, tq, d).astype(np.float32)
+    k = rng.randn(b, h, tk, d).astype(np.float32)
+    v = rng.randn(b, h, tk, d).astype(np.float32)
+    g = rng.randn(b, h, tq, d).astype(np.float32)
+    jq, tq_ = _pair(q, "bfloat16")
+    jk, tk_ = _pair(k, "bfloat16")
+    jv, tv = _pair(v, "bfloat16")
+    jg, tg = _pair(g, "bfloat16")
+    jout, jlse = _flash_forward(jq, jk, jv, causal, 8, 8, interpret=True)
+    want = _flash_backward(jq, jk, jv, jout, jlse, jg, causal, 8, 8,
+                           interpret=True)
+    tout = torch.from_numpy(np.array(_np(jout))).to(torch.bfloat16)
+    tlse = torch.from_numpy(np.array(jlse).reshape(b, h, tq))
+    got = _emulated_bwd(tq_, tk_, tv, tout, tlse, tg, causal, _mm_f32,
+                        _bf16_operand)
+    for gt, wt in zip(got, want):
+        assert gt.dtype == torch.bfloat16
+        _close(gt, wt, TOL["bfloat16"], rel=True)
+
+
+def _tf32_shares(passes, t=128, partial_sums=True):
+    """Largest error of the emulated f32 kernels (forward out and lse,
+    backward dq, dk, dv) against the f64 plain versions, each as a share
+    of F32_TOL * max(1, max |reference|): T ``t``, D 64, causal.  With
+    ``partial_sums`` the products are summed apart as the kernels sum them
+    (`_mm_tf32`), else each in one accumulator over all of k."""
+    g = torch.Generator().manual_seed(21)
+    q, k, v, do = (torch.randn(1, 2, t, 64, generator=g)
+                   for _ in range(4))
+    fwd_every, grad_every = (8, 32) if partial_sums else (None, None)
+    out, lse = _emulated_fwd(q, k, v, True, _mm_tf32(passes, fwd_every))
+    grads = _emulated_bwd(q, k, v, out, lse, do, True, _mm_tf32(passes),
+                          mm_grad=_mm_tf32(passes, grad_every))
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    rout, rlse = K.flash_attention_fwd_plain(q64, k64, v64, True)
+    rgrads = K.flash_attention_bwd_plain(q64, k64, v64, rout, rlse, do64,
+                                         True)
+    shares = []
+    for got, want in zip((out, lse) + grads, (rout, rlse) + rgrads):
+        err = float((got.double() - want).abs().max())
+        shares.append(err / (F32_TOL * max(1.0, float(want.abs().max()))))
+    return shares
+
+
+def test_flash_3xtf32_is_f32_accurate():
+    """3xTF32, the f32 kernels' route, stays within a tenth of F32_TOL of
+    the f64 reference in every output."""
+    shares = _tf32_shares(3)
+    assert max(shares) <= 0.1, shares
+
+
+def test_flash_tf32_partial_sums_stop_the_drift():
+    """Over a thousand keys, products fed straight into one accumulator
+    drift, since the tensor cores round their sums toward zero: most of
+    F32_TOL.  Summed apart and added to nearest, as the kernels do, they
+    stay near a tenth of it."""
+    straight = _tf32_shares(3, t=1024, partial_sums=False)
+    kernels = _tf32_shares(3, t=1024)
+    assert max(straight) > 0.5, straight
+    assert max(kernels) <= 0.2, kernels
+
+
+def test_flash_single_tf32_pass_misses_f32_tol():
+    """One TF32 pass (11 bits per operand) would break F32_TOL: the reason
+    the f32 kernels take three."""
+    shares = _tf32_shares(1)
+    assert max(shares) > 1.0, shares
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    """The emulated cvt.rna: 10 mantissa bits kept, a tie rounds away from
+    zero, the rest to nearest."""
+    one = 1.0
+    ulp = 2.0 ** -10                      # a tf32 step at 1.0
+    x = torch.tensor([one, one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0], dtype=torch.float32)
+    want = torch.tensor([one, one + ulp, -(one + ulp), one, one + ulp, 3.0])
+    assert torch.equal(_tf32(x), want)
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(3))
+    assert float(((_tf32(y) - y).abs() / y.abs()).max()) <= 2.0 ** -11
 
 
 # ---------------------------------------------------------------------------
