@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # the smoke run, phases 1-11
+    python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -10,13 +11,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    started together) and print the build seconds and ptxas report;
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, in f32 and bf16 (the flash kernels also at head_dim 32 and at
-   tile-edge lengths, the recurrent kernels also with ragged and
-   time-reversed masks and at an odd shape), and time kernel, plain
-   version and a PyTorch library yardstick with CUDA events; the flash
-   kernels and their SDPA yardsticks also by device time per call
-   (torch.profiler), the flash backward must repeat bit for bit, and both
-   flash libraries must hold tensor-core instructions (HMMA in
-   cuobjdump -sass);
+   tile-edge lengths, paged attention also at one slot of 2047
+   positions and at head_dim 128 and 32 with indexes on page and split
+   edges and at -1, LayerNorm at widths on both sides of its warp-per-row
+   path, the recurrent kernels also with ragged and time-reversed masks
+   and at an odd shape), and time kernel, plain version and a PyTorch
+   library yardstick with CUDA events; the flash, paged-attention and
+   LayerNorm kernels and their yardsticks also by device time per call
+   (torch.profiler), the wrappers of the last two by host us per call,
+   the flash backward must repeat bit for bit, and both flash libraries
+   must hold tensor-core instructions (HMMA in cuobjdump -sass);
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
    768, 12 heads, d_ff 3072; seeded random weights saved as a model
    directory and loaded through DecodeEngine.from_model_dir) in bf16
@@ -24,7 +28,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and 64 new tokens each.  Kernel launch counts are zeroed just before
    and read just after; every serving kernel must have launched.  Two
    streams are recomputed through greedy_decode_full and their logits
-   compared;
+   compared.  Then the decode step of the run's middle with every slot
+   active is replayed under torch.profiler: device ms by kernel and by
+   group, launches per step, host idle share;
 5. train the repo's at-scale config (vocab 8192, T 512, 12 layers,
    d_model 768, 12 heads, d_ff 3072; 90.6 M parameters) in f32 with TF32
    off, through transformer_lm_train_program + Executor.run: startup from
@@ -60,6 +66,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
 then a JSON line with every ported kernel's launches, error and times,
 the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
+
+With --serving it runs only phase 1, the paged-attention and LayerNorm
+checks and timings of phase 3, and phase 4, and prints their results as
+one JSON line (no result line): run from two checkouts in turns, it
+compares two versions of the serving kernels on one card.
 """
 from __future__ import annotations
 
@@ -234,45 +245,67 @@ def _check(name, pairs, dtype, label, rec, rule=None):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+#: paged-attention cases, (slots, heads, head_dim, block_len, pages,
+#: positions): the serving shape (S16, 12 heads of 64, ragged positions
+#: with slots 3 and 9 idle: sentinel pages, index 0), one slot of 2047
+#: positions (decoding a single long stream), and head_dim 128 / 32
+#: cases whose indexes sit on page and split edges, past the table's
+#: capacity and at -1 (no live position: the output is 0)
+PAGED_CASES = {
+    "serving": (16, 12, 64, 16, 128, None),
+    "one long slot": (1, 12, 64, 16, 128, [2046]),
+    "D128 edges": (4, 8, 128, 16, 32, [511, -1, 16, 130]),
+    "D32 edges": (5, 4, 32, 8, 64, [15, 127, 0, 600, -1])}
+#: the cases timed in bf16 (the rest are checked only)
+PAGED_TIMED = ("serving", "one long slot")
+
+
+def _paged_inputs(S, H, D, L, P, positions, g):
+    """index [S] and table [S, P] on the card for one paged case: each
+    live slot gets distinct random blocks for the pages it needs, the
+    rest of its row (and an idle slot's whole row) the sentinel N."""
+    import torch
+    N = S * P
+    if positions is None:
+        index = torch.randint(0, P * L, (S,), generator=g).to(torch.int32)
+        index[3] = index[9] = 0
+    else:
+        index = torch.tensor(positions, dtype=torch.int32)
+    table = torch.full((S, P), N, dtype=torch.int32)
+    perm = torch.randperm(N, generator=g).to(torch.int32)
+    for s in range(S):
+        if positions is None and s in (3, 9):
+            continue
+        need = min(int(index[s]) // L + 1, P) if index[s] >= 0 else 0
+        table[s, :need] = perm[s * P:s * P + need]
+    dev = torch.device("cuda")
+    return N, index.to(dev), table.to(dev)
+
+
 def check_paged_attention(rec):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
-    S, H, D, L, P = 16, 12, 64, 16, 128
-    N = S * P
     g = torch.Generator(device="cpu").manual_seed(11)
-    # ragged positions; slots 3 and 9 idle (sentinel row, index 0)
-    index = torch.randint(0, P * L, (S,), generator=g).to(torch.int32)
-    table = torch.full((S, P), N, dtype=torch.int32)
-    perm = torch.randperm(N, generator=g).to(torch.int32)
-    for s in range(S):
-        if s in (3, 9):
-            index[s] = 0
-            continue
-        need = int(index[s]) // L + 1
-        table[s, :need] = perm[s * P:s * P + need]
     dev = torch.device("cuda")
-    index, table = index.to(dev), table.to(dev)
-    n_pos = sum(min(int(i), P * L - 1) + 1 for i in index.cpu())
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).replace("torch.", "")
-        q = torch.randn(S, H, 1, D, generator=g).to(dev, dtype)
-        pk = torch.randn(N, L, H, D, generator=g).to(dev, dtype)
-        pv = torch.randn(N, L, H, D, generator=g).to(dev, dtype)
-        out = K.paged_attention(q, pk, pv, table, index)
-        ref = K.paged_attention_plain(q, pk, pv, table, index)
-        torch.cuda.synchronize()
-        _check("paged_attention", [(out, ref)], dn,
-               f"S{S} H{H} D{D} L{L} P{P}", rec)
-        if dtype is torch.bfloat16:
-            item = 2
-            nbytes = (n_pos * H * D * 2 + 2 * S * H * D) * item \
+    for label, (S, H, D, L, P, positions) in PAGED_CASES.items():
+        N, index, table = _paged_inputs(S, H, D, L, P, positions, g)
+        n_pos = sum(min(int(i), P * L - 1) + 1 for i in index.cpu()
+                    if i >= 0)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).replace("torch.", "")
+            q = torch.randn(S, H, 1, D, generator=g).to(dev, dtype)
+            pk = torch.randn(N, L, H, D, generator=g).to(dev, dtype)
+            pv = torch.randn(N, L, H, D, generator=g).to(dev, dtype)
+            out = K.paged_attention(q, pk, pv, table, index)
+            ref = K.paged_attention_plain(q, pk, pv, table, index)
+            torch.cuda.synchronize()
+            _check("paged_attention", [(out, ref)], dn,
+                   f"{label} S{S} H{H} D{D} L{L} P{P}", rec)
+            if dtype is not torch.bfloat16 or label not in PAGED_TIMED:
+                continue
+            nbytes = (n_pos * H * D * 2 + 2 * S * H * D) * 2 \
                 + table.numel() * 4 + index.numel() * 4
-            ops = 4 * n_pos * H * D
-            rec["ms"] = _time_ms(
-                lambda: K.paged_attention(q, pk, pv, table, index))
-            rec["plain_ms"] = _time_ms(
-                lambda: K.paged_attention_plain(q, pk, pv, table, index))
             live = (torch.arange(P * L, device=dev)[None, :]
                     <= index[:, None].long())[:, None, None, :]
 
@@ -281,10 +314,19 @@ def check_paged_attention(rec):
                 v = K.gather_slot_kv(pv, table)
                 return F.scaled_dot_product_attention(q, k, v,
                                                       attn_mask=live)
-            rec["library_ms"] = _time_ms(library)
-            rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dn)
-            rec["shape"] = (f"S{S} H{H} D{D} L{L} P{P} bf16, "
-                            f"{n_pos} positions")
+            times = _kernel_times(
+                {}, lambda: K.paged_attention(q, pk, pv, table, index),
+                lambda: K.paged_attention_plain(q, pk, pv, table, index),
+                library, nbytes, 4 * n_pos * H * D, dn,
+                f"S{S} H{H} D{D} L{L} P{P} bf16, {n_pos} positions")
+            times["host_us"] = _host_us(
+                lambda: K.paged_attention(q, pk, pv, table, index))
+            print(f"    wrapper host us per call {times['host_us']:.2f}",
+                  flush=True)
+            if label == "serving":
+                rec.update(times)
+            else:
+                rec["one_long_slot"] = times
 
 
 #: flash cases, (batch, tq, tk, causal): the serving prefill lengths, the
@@ -325,17 +367,38 @@ def _device_ms(fn, iters=20, warmup=3):
     return sum(names.values()), names
 
 
-def _flash_times(rec, kernel, plain, library, nbytes, ops, dtype, shape):
-    """Fill ``rec`` with the times of one flash shape: CUDA-event ms of
-    kernel, plain version and library (SDPA, or its backward), device ms
-    per call of kernel and library, and the bound: f32 against 3xTF32 on
-    the tensor cores, with the CUDA cores' bound beside it."""
+def _host_us(fn, iters=200, repeats=5, warmup=5):
+    """Host microseconds per call of ``fn``: the time to enqueue ``iters``
+    calls back to back, read before the closing synchronise (the card
+    keeps up at the shapes this is used for, so nothing waits on it); the
+    least of ``repeats`` such runs, since the host is shared and noisy."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    best = math.inf
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / iters * 1e6
+
+
+def _kernel_times(rec, kernel, plain, library, nbytes, ops, dtype, shape,
+                  tensor_cores=False):
+    """Fill ``rec`` with the times of one timed shape: CUDA-event ms of
+    kernel, plain version and library yardstick, device ms per call of
+    kernel and library, and the bound; with ``tensor_cores`` (the flash
+    kernels) an f32 shape is bound by 3xTF32 on the tensor cores, with
+    the CUDA cores' bound beside it."""
     rec["ms"] = _time_ms(kernel, iters=50)
     rec["plain_ms"] = _time_ms(plain)
     rec["library_ms"] = _time_ms(library, iters=50)
     rec["device_ms"], names = _device_ms(kernel)
     rec["library_device_ms"], lib_names = _device_ms(library)
-    f32 = dtype == "float32"
+    f32 = tensor_cores and dtype == "float32"
     rec["bound_ms"], rec["bound_by"] = _bound(
         nbytes, ops, "float32_3xtf32" if f32 else dtype)
     if f32:
@@ -394,25 +457,27 @@ def check_flash_attention(rec):
                 if dtype is torch.float32 and b == 16:
                     pairs = b * H * tq * (tq + 1) // 2
                     n = b * H * tq * D
-                    rec["training"] = _flash_times(
+                    rec["training"] = _kernel_times(
                         {},
                         lambda: K.flash_attention_fwd(q, k, v, True),
                         lambda: K.flash_attention_fwd_plain(q, k, v, True),
                         lambda: F.scaled_dot_product_attention(
                             q, k, v, is_causal=True),
                         4 * n * 4 + b * H * tq * 4, 4 * pairs * D, dn,
-                        f"B{b} H{H} T{tq} D{D} causal f32")
+                        f"B{b} H{H} T{tq} D{D} causal f32",
+                        tensor_cores=True)
                 if dtype is torch.bfloat16 and (tq, tk, causal) == (
                         1000, 1000, True):
                     pairs = tq * (tq + 1) // 2
-                    _flash_times(
+                    _kernel_times(
                         rec,
                         lambda: K.flash_attention_fwd(q, k, v, True),
                         lambda: K.flash_attention_fwd_plain(q, k, v, True),
                         lambda: F.scaled_dot_product_attention(
                             q, k, v, is_causal=True),
                         4 * tq * H * D * 2 + tq * H * 4, 4 * pairs * H * D,
-                        dn, f"B1 H{H} T{tq} D{D} causal bf16")
+                        dn, f"B1 H{H} T{tq} D{D} causal bf16",
+                        tensor_cores=True)
 
 
 def check_tensor_cores(paths):
@@ -445,6 +510,57 @@ def check_tensor_cores(paths):
     return counts
 
 
+#: LayerNorm forward widths checked at R16 and R2048: the models' 768,
+#: the FFN's 3072, and widths on both sides of the warp-per-row path's
+#: limits (a row of at most 1024 features in whole 16-byte chunks)
+LN_WIDTHS = (37, 768, 1000, 1024, 1032, 3072)
+
+
+def _ln_host_us(x, sc, bi, w16, b16):
+    """Host us per call of the LayerNorm wrapper, F.layer_norm, and the
+    wrapper's parts beside an alternative to each: its outputs (three
+    torch.empty; or y and one [2, R] buffer split into two views), the
+    stream lookup (`_stream`; or PyTorch's public call) and the bare C
+    call with the arguments the wrapper passed (the library's function
+    with argtypes set; or a ctypes prototype)."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import _build, kernels as K
+    kern = K.LAYER_NORM_FWD
+    seen = []
+    launch = kern.launch
+    kern.launch = lambda *a: (seen.append(a), launch(*a))
+    try:
+        # held to the end: the replayed calls write into its outputs
+        held = K.layer_norm_fwd(x, sc, bi, 1e-5)
+    finally:
+        del kern.launch
+    lib = _build.load(kern.source)
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *kern.argtypes)((kern.entry, lib))
+    attr = getattr(lib, kern.entry)
+    attr.argtypes, attr.restype = kern.argtypes, ctypes.c_int
+    r, dev = x.shape[0], x.device
+    times = {
+        "wrapper": _host_us(lambda: K.layer_norm_fwd(x, sc, bi, 1e-5)),
+        "F.layer_norm": _host_us(
+            lambda: F.layer_norm(x, (x.shape[1],), w16, b16, 1e-5)),
+        "three torch.empty": _host_us(
+            lambda: (torch.empty_like(x),
+                     torch.empty(r, dtype=torch.float32, device=dev),
+                     torch.empty(r, dtype=torch.float32, device=dev))),
+        "empty_like + new_empty [2, R] + unbind": _host_us(
+            lambda: (torch.empty_like(x),
+                     x.new_empty((2, r), dtype=torch.float32).unbind())),
+        "torch.cuda.current_stream": _host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "_stream": _host_us(lambda: K._stream(x)),
+        "C call, prototype": _host_us(lambda: proto(*seen[0])),
+        "C call, argtypes": _host_us(lambda: attr(*seen[0]))}
+    del held
+    return times
+
+
 def check_layer_norm(rec):
     import torch
     import torch.nn.functional as F
@@ -454,7 +570,7 @@ def check_layer_norm(rec):
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
         for r in (16, 2048, 8192):
-            for f in ((768,) if r == 8192 else (768, 3072, 1000)):
+            for f in ((768,) if r == 8192 else LN_WIDTHS):
                 x = (3 * torch.randn(r, f, generator=g) + 1).to(dev, dtype)
                 sc = (1 + 0.1 * torch.randn(f, generator=g)).to(dev)
                 bi = (0.1 * torch.randn(f, generator=g)).to(dev)
@@ -464,28 +580,25 @@ def check_layer_norm(rec):
                 _check("layer_norm_fwd",
                        [(y, ry), (mean, rmean), (var, rvar)], dn,
                        f"R{r} F{f}", rec)
+                w16, b16 = sc.to(dtype), bi.to(dtype)
                 if dtype is torch.float32 and r == 8192:
-                    rec["training"] = _timings(
-                        lambda: K.layer_norm_fwd(x, sc, bi, 1e-5),
+                    rec["training"] = _kernel_times(
+                        {}, lambda: K.layer_norm_fwd(x, sc, bi, 1e-5),
                         lambda: K.layer_norm_fwd_plain(x, sc, bi, 1e-5),
                         lambda: F.layer_norm(x, (f,), sc, bi, 1e-5),
                         2 * r * f * 4 + 2 * f * 4 + 2 * r * 4, 8 * r * f,
-                        dn, f"R{r} F{f} f32")
+                        "float32", f"R{r} F{f} f32")
                 if dtype is torch.bfloat16 and (r, f) == (16, 768):
-                    nbytes = 2 * r * f * 2 + 2 * f * 4 + 2 * r * 4
-                    ops = 8 * r * f
-                    rec["ms"] = _time_ms(
-                        lambda: K.layer_norm_fwd(x, sc, bi, 1e-5), iters=100)
-                    rec["plain_ms"] = _time_ms(
+                    _kernel_times(
+                        rec, lambda: K.layer_norm_fwd(x, sc, bi, 1e-5),
                         lambda: K.layer_norm_fwd_plain(x, sc, bi, 1e-5),
-                        iters=100)
-                    w16, b16 = sc.to(dtype), bi.to(dtype)
-                    rec["library_ms"] = _time_ms(
                         lambda: F.layer_norm(x, (f,), w16, b16, 1e-5),
-                        iters=100)
-                    rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops,
-                                                              "float32")
-                    rec["shape"] = f"R{r} F{f} bf16"
+                        2 * r * f * 2 + 2 * f * 4 + 2 * r * 4, 8 * r * f,
+                        "float32", f"R{r} F{f} bf16")
+                    rec["host_us"] = _ln_host_us(x, sc, bi, w16, b16)
+                    print("    host us per call: " + ", ".join(
+                        f"{k} {v:.2f}" for k, v in rec["host_us"].items()),
+                          flush=True)
 
 
 def check_batch_norm_bwd(rec):
@@ -606,7 +719,7 @@ def check_flash_attention_bwd(rec):
                               for t in (q, k, v))
                 lib = F.scaled_dot_product_attention(qq, kk, vv,
                                                      is_causal=True)
-                _flash_times(
+                _kernel_times(
                     rec, lambda: K.flash_attention_bwd(
                         q, k, v, out, lse, do, True),
                     lambda: K.flash_attention_bwd_plain(
@@ -614,7 +727,8 @@ def check_flash_attention_bwd(rec):
                     lambda: torch.autograd.grad(lib, (qq, kk, vv), do,
                                                 retain_graph=True),
                     (5 * n + 3 * n) * 4 + b * H * tq * 4, 10 * pairs * D,
-                    dn, f"B{b} H{H} T{tq} D{D} causal f32")
+                    dn, f"B{b} H{H} T{tq} D{D} causal f32",
+                    tensor_cores=True)
 
 
 def check_layer_norm_bwd(rec):
@@ -922,6 +1036,10 @@ def serve(seed=0):
     prompts = [rng.integers(0, spec["vocab"], n).tolist() for n in lens]
     checked = (0, 17)        # streams recomputed through the full model
     max_new = 64
+    steps = []               # each decode step's (tokens, pages, index)
+    decode = engine.model.decode
+    engine.model.decode = lambda *a: (steps.append((a[0], a[2], a[3])),
+                                      decode(*a))[1]
     try:
         K.reset_launches()
         t0 = time.perf_counter()
@@ -934,6 +1052,7 @@ def serve(seed=0):
         stats = engine.stats()
     finally:
         engine.close()
+        del engine.model.decode
     n_tok = sum(len(r["tokens"]) for r in results)
     for r in results:
         if len(r["tokens"]) != max_new or r["finish_reason"] != "length":
@@ -978,9 +1097,77 @@ def serve(seed=0):
                 break
         print(f"  stream {i} (prompt {len(prompts[i])}): engine logits "
               f"match the full recompute at {compared} tokens", flush=True)
+    profile = profile_decode_step(engine, steps)
     return launches, {"tokens_per_s": n_tok / wall,
                       "ttft_ms": stats["ttft_ms"],
-                      "step_ms": stats["step_ms"]}
+                      "step_ms": stats["step_ms"],
+                      "decode_step_profile": profile}
+
+
+#: groups of the decode-step profile, by kernel name
+DECODE_GROUPS = {"paged attention": ("paged_",),
+                 "LayerNorm": ("ln_fwd",),
+                 "library products": ("xmma", "gemm", "gemv", "cutlass",
+                                      "nvjet", "splitk")}
+
+
+def profile_decode_step(engine, steps, iters=20):
+    """One decode step of the served model under torch.profiler: the
+    step of the run nearest its middle at which every slot was active,
+    replayed on the engine's pools as the engine runs it (decode, argmax,
+    copy to the host).  Prints device ms by kernel and by group, launches
+    per step and the host idle share (1 - device time / the step's wall
+    time, the median of ``iters`` unprofiled replays)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    full = [i for i, (_, _, index) in enumerate(steps)
+            if bool((index > 0).all())] or list(range(len(steps)))
+    mid = min(full, key=lambda i: abs(i - len(steps) // 2))
+    tokens, pages, index = steps[mid]
+    model, pools = engine.model, engine._pools
+
+    def step():
+        logits = model.decode(tokens, pools, pages, index)
+        return logits.argmax(dim=-1).cpu()
+
+    with torch.inference_mode():
+        for _ in range(3):
+            step()
+        walls = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            step()
+            walls.append(time.perf_counter() - t0)
+        wall_ms = sorted(walls)[iters // 2] * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    kernels = [r for r in prof.key_averages()
+               if r.device_type == torch.autograd.DeviceType.CUDA
+               and r.device_time_total > 0]
+    device_ms = sum(r.device_time_total for r in kernels) / 1e3
+    n_launch = sum(r.count for r in kernels)
+    positions = int(index.long().sum()) + len(index)
+    print(f"  decode step {mid} of {len(steps)} "
+          f"({int((index > 0).sum())} of {len(index)} slots active, "
+          f"{positions} positions attended): wall {wall_ms:.3f} ms "
+          f"(median of {iters}), device {device_ms:.3f} ms in {n_launch} "
+          f"launches, host idle {1 - device_ms / wall_ms:.1%}; by kernel "
+          "(ms, launches):", flush=True)
+    for r in sorted(kernels, key=lambda r: -r.device_time_total):
+        print(f"    {r.device_time_total / 1e3:9.4f}  x{r.count:<4d} "
+              f"{r.key[:100]}")
+    groups = dict.fromkeys(list(DECODE_GROUPS) + ["other"], 0.0)
+    for r in kernels:
+        name = next((g for g, keys in DECODE_GROUPS.items()
+                     if any(k in r.key.lower() for k in keys)), "other")
+        groups[name] += r.device_time_total / 1e3
+    print("  by group (ms): " + ", ".join(
+        f"{g} {t:.4f}" for g, t in groups.items()), flush=True)
+    return {"step": mid, "positions": positions, "wall_ms": wall_ms,
+            "device_ms": device_ms, "launches": n_launch,
+            "host_idle_share": 1 - device_ms / wall_ms, "groups_ms": groups}
 
 
 # ---------------------------------------------------------------------------
@@ -1406,7 +1593,24 @@ def seq_card_vs_cpu(model, state, seed=0):
             "cpu_spread_max": spread[0][0], "grads_compared": len(params)}
 
 
-def main():
+def serving_ab(smi):
+    """``--serving``: only the serving path's kernels and phase 4 (paged
+    attention and LayerNorm against their plain versions with their
+    times, then serving with its decode-step profile), printed as one
+    JSON line.  Run from two checkouts in turns, it compares two versions
+    of those kernels on one card; it is not the smoke run and prints no
+    {"ok": ...} line."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("paged_attention", "flash_attention", "layer_norm"))
+    recs = {"paged_attention": {}, "layer_norm_fwd": {}}
+    check_paged_attention(recs["paged_attention"])
+    check_layer_norm(recs["layer_norm_fwd"])
+    recs["serving"] = serve()[1]
+    print(json.dumps(dict(recs, card=smi)))
+    return 0
+
+
+def main(argv=()):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1425,6 +1629,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"phase 1: card: {smi}", flush=True)
+    if argv:
+        if list(argv) != ["--serving"]:
+            print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+            return 2
+        return serving_ab(smi)
 
     t0 = time.perf_counter()
     paths = _build.build_all(k.source for k in K.KERNELS)
@@ -1537,4 +1746,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

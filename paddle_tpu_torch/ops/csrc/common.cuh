@@ -1,5 +1,6 @@
-// Shared helpers for the port's kernels: element loads/stores in f32 or
-// bf16 and block-wide reductions.  Every kernel accumulates in f32.
+// Shared helpers for the port's kernels: element and 16-byte loads and
+// stores in f32 or bf16, warp- and block-wide reductions.  Every kernel
+// accumulates in f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +22,57 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+
+// 16 bytes of T (4 f32 or 8 bf16) as one vector load or store: `raw`
+// reads them (through the read-only path), `unpack` widens them to f32,
+// `pack` rounds n f32 back to T.  Pointers must be 16-byte aligned.
+template <typename T>
+struct Chunk;
+
+template <>
+struct Chunk<float> {
+  static constexpr int n = 4;
+  static __device__ __forceinline__ uint4 raw(const float* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int n = 8;
+  static __device__ __forceinline__ uint4 raw(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  // a 32-bit word holds elements 2i (low half) and 2i+1 (high half); a
+  // bf16 is the high half of the f32 with the same bits
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -33,6 +33,11 @@ plain versions and the Pallas kernels keep them in f32); f32 inputs in
 summed in f32), which keeps f32's accuracy without the TF32 rounding the
 port turns off elsewhere.
 
+Paged attention splits each slot's positions over blocks and merges
+them in a second kernel (flash-decoding); the LayerNorm forward keeps a
+row of up to 1024 features in one warp's registers.  `paged_geometry`
+and `layer_norm_geometry` pick their launch shapes.
+
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
 kernel on the current stream (no allocation inside the kernel, no
@@ -54,6 +59,7 @@ plain versions on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -105,7 +111,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 PAGED_ATTENTION = Kernel(
     "paged_attention", "paged_attention", "ptt_paged_attention",
     "paddle_tpu/ops/pallas_kernels.py:704 _paged_attn_kernel",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P])
+    [_P] * 7 + [_I] * 9 + [_F, _I, _P])
 FLASH_ATTENTION_FWD = Kernel(
     "flash_attention_fwd", "flash_attention", "ptt_flash_attention_fwd",
     "paddle_tpu/ops/pallas_kernels.py:54 _flash_kernel",
@@ -113,7 +119,7 @@ FLASH_ATTENTION_FWD = Kernel(
 LAYER_NORM_FWD = Kernel(
     "layer_norm_fwd", "layer_norm", "ptt_layer_norm_fwd",
     "paddle_tpu/ops/pallas_kernels.py:1388 _ln_fwd_kernel",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P])
+    [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P])
 FLASH_ATTENTION_BWD = Kernel(
     "flash_attention_bwd", "flash_attention_bwd", "ptt_flash_attention_bwd",
     "paddle_tpu/ops/pallas_kernels.py:274 _flash_backward "
@@ -181,14 +187,19 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card, straight
+    from PyTorch's C side: `torch.cuda.current_stream` builds a Python
+    Stream object first, several us a call on the H100's host
+    (PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor):
-    dev = tensors[0].device
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_cuda or t.get_device() != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and "
+                             f"{tensors[0].device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is "
                              "not contiguous")
@@ -227,12 +238,48 @@ def paged_attention_plain(q, pool_k, pool_v, table, index):
     return out.to(q.dtype)
 
 
+#: the split-K paged-attention kernel (csrc/paged_attention.cu): the
+#: positions one split block covers, at most and at least (the wrapper
+#: halves the first towards the second while the grid holds fewer than
+#: two blocks per SM of the H100's 132), and the 16-byte chunks of one
+#: position's row a lane holds at most (kChunks)
+_PAGED_SPLIT_MAX, _PAGED_SPLIT_MIN = 64, 16
+_PAGED_MIN_BLOCKS = 2 * 132
+_PAGED_LANE_CHUNKS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def paged_geometry(slots: int, heads: int, head_dim: int, pages: int,
+                   block_len: int, itemsize: int) -> Tuple[int, int, int,
+                                                           int]:
+    """Launch geometry of the split-K paged-attention kernel -> (split,
+    n_splits, heads_per_block, scratch_floats).  A split block covers
+    ``split`` positions of one slot for ``heads_per_block`` heads; the
+    grid covers the table's capacity (``pages * block_len``) in
+    ``n_splits`` splits, since the host does not read ``index``.  Heads
+    are grouped so that a lane holds at most ``_PAGED_LANE_CHUNKS``
+    16-byte chunks of a position's row.  The scratch holds each split's
+    f32 accumulator row and (m, l) pair per head."""
+    capacity = pages * block_len
+    lanes_per_head = head_dim * itemsize // 16
+    groups = -(-heads * lanes_per_head // (32 * _PAGED_LANE_CHUNKS))
+    split = _PAGED_SPLIT_MAX
+    while split > _PAGED_SPLIT_MIN and \
+            slots * groups * -(-capacity // split) < _PAGED_MIN_BLOCKS:
+        split //= 2
+    n_splits = -(-capacity // split)
+    return (split, n_splits, -(-heads // groups),
+            slots * n_splits * heads * (head_dim + 2))
+
+
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                     pool_v: torch.Tensor, table: torch.Tensor,
                     index: torch.Tensor) -> torch.Tensor:
     """One decode query per slot over its paged prefix: q [S, H, 1, D],
     pools [N, L, H, D], table [S, P] int32, index [S] int32 (the query's
-    position; it sees positions 0..Index[s]) -> [S, H, 1, D]."""
+    position; it sees positions 0..Index[s]) -> [S, H, 1, D].  On the
+    card: split-K over each slot's positions (`paged_geometry`), q and
+    the pools 16-byte aligned; a call repeats bit for bit."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, table, index)
     s, h, one, d = q.shape
@@ -253,11 +300,19 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
         raise ValueError(f"paged_attention: head_dim {d} not in "
                          f"{_PAGED_HEAD_DIMS}")
     _check_cuda("paged_attention", q, pool_k, pool_v, table, index)
+    ptrs = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr())
+    if (ptrs[0] | ptrs[1] | ptrs[2]) & 15:
+        raise ValueError("paged_attention: q and the pools must be 16-byte "
+                         "aligned")
+    pages = table.shape[1]
+    split, n_splits, heads_per_block, floats = paged_geometry(
+        s, h, d, pages, block_len, q.element_size())
     out = torch.empty_like(q)
+    scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
     PAGED_ATTENTION.launch(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        table.data_ptr(), index.data_ptr(), out.data_ptr(), s, h, d, n,
-        block_len, table.shape[1], 1.0 / math.sqrt(d),
+        *ptrs, table.data_ptr(), index.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), s, h, d, n, block_len, pages, split, n_splits,
+        heads_per_block, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), _stream(q))
     return out
 
@@ -404,6 +459,29 @@ def layer_norm_fwd_plain(x2, scale, bias, eps=1e-5):
     return y.to(x2.dtype), mean, var
 
 
+#: the LayerNorm forward (csrc/layer_norm.cu): the longest row of the
+#: warp-per-row kernel, and the shared memory a block-per-row kernel may
+#: use to keep its row (the default limit, no opt-in needed)
+_LN_WARP_MAX_F = 1024
+_LN_ROW_CACHE_BYTES = 48 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def layer_norm_geometry(features: int, itemsize: int,
+                        aligned: bool = True) -> Tuple[int, int]:
+    """Launch geometry of the LayerNorm forward -> (block_threads,
+    cache_bytes).  (0, 0) takes the warp-per-row kernel: rows of at most
+    1024 features in whole 16-byte chunks, with every pointer 16-byte
+    aligned.  Any other row takes one block of 256 threads (128 under
+    1024 features), which keeps the row in ``cache_bytes`` of shared
+    memory when it fits (0: re-read through L2)."""
+    row = features * itemsize
+    if features <= _LN_WARP_MAX_F and row % 16 == 0 and aligned:
+        return 0, 0
+    return (256 if features >= 1024 else 128,
+            row if row <= _LN_ROW_CACHE_BYTES else 0)
+
+
 def layer_norm_fwd(x2: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, eps: float = 1e-5
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -423,13 +501,15 @@ def layer_norm_fwd(x2: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"layer_norm_fwd: dtypes {x2.dtype}/{scale.dtype}/"
                          f"{bias.dtype}")
     _check_cuda("layer_norm_fwd", x2, scale, bias)
+    xp, sp, bp = x2.data_ptr(), scale.data_ptr(), bias.data_ptr()
+    threads, cache = layer_norm_geometry(f, x2.element_size(),
+                                         not (xp | sp | bp) & 15)
     y = torch.empty_like(x2)
     mean = torch.empty(r, dtype=torch.float32, device=x2.device)
     var = torch.empty(r, dtype=torch.float32, device=x2.device)
-    LAYER_NORM_FWD.launch(
-        x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), var.data_ptr(), r, f, float(eps),
-        int(x2.dtype == torch.bfloat16), _stream(x2))
+    LAYER_NORM_FWD.launch(xp, sp, bp, y.data_ptr(), mean.data_ptr(),
+                          var.data_ptr(), r, f, float(eps), threads, cache,
+                          int(x2.dtype == torch.bfloat16), _stream(x2))
     return y, mean, var
 
 

@@ -99,6 +99,148 @@ def test_paged_attention_matches_pallas(dtype, block_len, pages):
     _close(got, want, TOL[dtype])
 
 
+LOG2E = 1.4426950408889634
+#: the split kernel's warps and the combine kernel's groups of splits
+#: (kWarps, kCombineGroups in csrc/paged_attention.cu)
+PAGED_WARPS, PAGED_COMBINE_GROUPS = 4, 16
+
+
+def _fold(state, sc, v):
+    """One position into a running (m, l, acc) per head, log2 units."""
+    m, l, acc = state
+    m_new = torch.maximum(m, sc)
+    alpha = torch.exp2(m - m_new)
+    p = torch.exp2(sc - m_new)
+    return m_new, l * alpha + p, acc * alpha[:, None] + p[:, None] * v
+
+
+def _merge(states, groups=1):
+    """(m, l, acc) states of one head set merged at their common max;
+    with ``groups``, group g first sums states g, g + groups, ... and the
+    groups' sums are added in order (the combine kernel's order)."""
+    mx = torch.stack([m for m, _, _ in states]).amax(0)
+    parts = [states[g::groups] for g in range(min(groups, len(states)))]
+    l = sum(sum(l * torch.exp2(m - mx) for m, l, _ in p) for p in parts)
+    acc = sum(sum(a * torch.exp2(m - mx)[:, None] for m, _, a in p)
+              for p in parts)
+    return mx, l, acc
+
+
+def _paged_split_emulation(q, pk, pv, table, index):
+    """The split-K paged-attention kernel's arithmetic in plain f32 torch:
+    for each slot, each live split of `K.paged_geometry`'s length, warp w
+    folds positions t0 + w, t0 + w + 4, ... one at a time into its
+    (m, l, acc); the warps merge, then the combine merges the live
+    splits in its groups.  Sentinel pages clamp to the last block; no
+    live position gives 0."""
+    s, h, _, d = q.shape
+    n, block_len = pk.shape[:2]
+    pages = table.shape[1]
+    split = K.paged_geometry(s, h, d, pages, block_len,
+                             q.element_size())[0]
+    qf = q.float()[:, :, 0, :] * (LOG2E / math.sqrt(d))
+    out = torch.zeros(s, h, d)
+    for slot in range(s):
+        last = min(int(index[slot]), pages * block_len - 1)
+        splits = []
+        for t0 in range(0, last + 1, split):
+            warps = []
+            for w in range(PAGED_WARPS):
+                state = (torch.full((h,), -math.inf), torch.zeros(h),
+                         torch.zeros(h, d))
+                for t in range(t0 + w, min(t0 + split, last + 1),
+                               PAGED_WARPS):
+                    page = min(max(int(table[slot, t // block_len]), 0),
+                               n - 1)
+                    k = pk[page, t % block_len].float()
+                    v = pv[page, t % block_len].float()
+                    state = _fold(state, (qf[slot] * k).sum(-1), v)
+                warps.append(state)
+            splits.append(_merge(warps))
+        if splits:
+            _, l, acc = _merge(splits, PAGED_COMBINE_GROUPS)
+            out[slot] = acc / l[:, None]
+    return out[:, :, None, :].to(q.dtype)
+
+
+#: (slots, heads, head_dim, block_len, pages, index): cases with several
+#: splits a slot (split 16 in the first two, 64 in the third), splits
+#: wholly past the index, indexes on page edges (3, 16, 31, 32) and split
+#: edges (15, 16, 63, 64), an idle slot (index 0, sentinel row), index -1
+#: (no live position) and an index past the table's capacity
+PAGED_SPLIT_CASES = [
+    (7, 2, 16, 4, 12, [47, 15, 16, 3, 0, -1, 60]),
+    (3, 12, 64, 16, 8, [127, 100, 16]),
+    (9, 4, 32, 32, 64, [2047, 63, 64, 1000, 0, -1, 31, 32, 3000]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(PAGED_SPLIT_CASES)))
+def test_paged_split_emulation_matches_pallas(dtype, case):
+    s, h, d, block_len, pages, index = PAGED_SPLIT_CASES[case]
+    rng = np.random.RandomState(10 + case)
+    n = s * pages
+    index = np.asarray(index, np.int32)
+    table = np.full((s, pages), n, np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    for i in range(s):
+        if index[i] > 0:
+            need = min(index[i] // block_len + 1, pages)
+            table[i, :need] = perm[i * pages:i * pages + need]
+    q = rng.randn(s, h, 1, d).astype(np.float32)
+    pk = rng.randn(n, block_len, h, d).astype(np.float32)
+    pv = rng.randn(n, block_len, h, d).astype(np.float32)
+    jq, tq = _pair(q, dtype)
+    jk, tk = _pair(pk, dtype)
+    jv, tv = _pair(pv, dtype)
+    want = paged_attention_pallas(jq, jk, jv, jnp.asarray(table),
+                                  jnp.asarray(index), interpret=True)
+    got = _paged_split_emulation(tq, tk, tv, torch.from_numpy(table),
+                                 torch.from_numpy(index))
+    split, n_splits = K.paged_geometry(s, h, d, pages, block_len,
+                                       tq.element_size())[:2]
+    live = [min(i, pages * block_len - 1) // split + 1 if i >= 0 else 0
+            for i in index]
+    assert max(live) > 1 and min(live) < n_splits
+    assert got.dtype == tq.dtype
+    assert not got[index < 0].any()
+    _close(got, want, TOL[dtype])
+    # and the port's plain version, which the card's kernel is held to
+    _close(got, K.paged_attention(tq, tk, tv, torch.from_numpy(table),
+                                  torch.from_numpy(index)), TOL[dtype])
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("slots,heads,head_dim,pages,block_len", [
+    (16, 12, 64, 128, 16), (1, 12, 64, 128, 16), (4, 8, 128, 32, 16),
+    (5, 2, 16, 3, 4), (1, 32, 128, 128, 16), (64, 12, 64, 128, 16)])
+def test_paged_geometry(itemsize, slots, heads, head_dim, pages, block_len):
+    split, n_splits, hpb, floats = K.paged_geometry(
+        slots, heads, head_dim, pages, block_len, itemsize)
+    capacity = pages * block_len
+    assert split in (16, 32, 64)
+    assert n_splits == -(-capacity // split)
+    assert (n_splits - 1) * split < capacity <= n_splits * split
+    lanes_per_head = head_dim * itemsize // 16
+    assert hpb * lanes_per_head <= 4 * 32        # kChunks chunks a lane
+    groups = -(-heads // hpb)
+    # two blocks an SM of the H100's 132 when the table is full, unless
+    # the split is already at its shortest
+    assert split == 16 or slots * groups * n_splits >= 264
+    assert floats == slots * n_splits * heads * (head_dim + 2)
+
+
+def test_paged_geometry_serving_shape():
+    # the served model: 16 slots, 12 heads of 64, 128 pages of 16
+    assert K.paged_geometry(16, 12, 64, 128, 16, 2) == (
+        64, 32, 12, 16 * 32 * 12 * 66)
+    # one long slot: 128 splits of 16 positions
+    assert K.paged_geometry(1, 12, 64, 128, 16, 2)[:2] == (16, 128)
+    # f32 rows of 12 heads take two head groups of 6
+    assert K.paged_geometry(16, 12, 64, 128, 16, 4)[2] == 6
+
+
 # ---------------------------------------------------------------------------
 # FlashAttention forward
 # ---------------------------------------------------------------------------
@@ -159,6 +301,25 @@ def test_layer_norm_matches_pallas(dtype, shape):
     # statistics are f32 in both, from identical (bf16-rounded) inputs
     _close(gmean, wmean, 2e-5)
     _close(gvar, wvar, 1e-4)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("f,path", [(37, "block"), (768, "warp"),
+                                    (1000, "warp"), (1024, "warp"),
+                                    (1032, "block"), (3072, "block"),
+                                    (30000, "block")])
+def test_layer_norm_geometry(itemsize, f, path):
+    threads, cache = K.layer_norm_geometry(f, itemsize)
+    if path == "warp":
+        # one warp a row: at most 1024 features in whole 16-byte chunks
+        assert (threads, cache) == (0, 0)
+        assert f * itemsize % 16 == 0 and f <= 1024
+        # a row that is not 16-byte aligned takes the block path
+        assert K.layer_norm_geometry(f, itemsize, False)[0] > 0
+    else:
+        assert threads == (256 if f >= 1024 else 128)
+        # the row stays in shared memory when it fits in 48 KB
+        assert cache == (f * itemsize if f * itemsize <= 48 * 1024 else 0)
 
 
 # ---------------------------------------------------------------------------
