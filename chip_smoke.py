@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py             # the smoke run, phases 1-11
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
+    python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
+    python3 chip_smoke.py --lstm      # phase 1, recurrent phase 3, phase 9
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -15,12 +17,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    positions and at head_dim 128 and 32 with indexes on page and split
    edges and at -1, LayerNorm at widths on both sides of its warp-per-row
    path, the recurrent kernels also with ragged and time-reversed masks
-   and at an odd shape), and time kernel, plain version and a PyTorch
-   library yardstick with CUDA events; the flash, paged-attention and
-   LayerNorm kernels and their yardsticks also by device time per call
-   (torch.profiler), the wrappers of the last two by host us per call,
-   the flash backward must repeat bit for bit, and both flash libraries
-   must hold tensor-core instructions (HMMA in cuobjdump -sass);
+   and at an odd shape, and at the widths where placement ends: what
+   fits is checked, what does not must refuse), and time kernel, plain
+   version and a PyTorch library yardstick with CUDA events and (but the
+   LayerNorm and softmax-xent backward ones) by device time per call
+   (torch.profiler, split by kernel name), the wrappers of paged
+   attention and the LayerNorm forward by host us per call; the flash,
+   BatchNorm and recurrent backward kernels must repeat bit for bit,
+   and the flash and LSTM libraries must hold tensor-core instructions
+   (HMMA in cuobjdump -sass);
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
    768, 12 heads, d_ff 3072; seeded random weights saved as a model
    directory and loaded through DecodeEngine.from_model_dir) in bf16
@@ -68,9 +73,13 @@ the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
 
 With --serving it runs only phase 1, the paged-attention and LayerNorm
-checks and timings of phase 3, and phase 4, and prints their results as
-one JSON line (no result line): run from two checkouts in turns, it
-compares two versions of the serving kernels on one card.
+checks and timings of phase 3, and phase 4; with --resnet phase 1, the
+BatchNorm backward's checks and timings and phase 7; with --lstm phase 1,
+the LSTM and GRU checks and timings and phase 9.  Each prints its results
+as one JSON line (no result line): run from two checkouts in turns, it
+compares two versions of those kernels on one card.  In these modes a
+recurrent kernel that refuses a width it should place is recorded, not
+fatal, so that an older kernel can be measured too.
 """
 from __future__ import annotations
 
@@ -152,6 +161,13 @@ RESNET_SPREAD_FACTOR = 4
 BN_SHAPES = {"stem": (128, 112, 112, 64),
              "stage-1 expansion": (128, 56, 56, 256),
              "stage 4": (128, 7, 7, 2048), "ragged": (8, 5, 25, 96)}
+#: the BatchNorm backward's timed cases, (shape, layout, dtype, act) ->
+#: record key: the main path's dtype and layout at its largest launch
+#: (the stem, relu fused), a stage-1 one, and a stage-4 one whose x and
+#: dy fit in L2
+BN_TIMED = {("stem", "NHWC", "bfloat16", "relu"): "main",
+            ("stage-1 expansion", "NHWC", "bfloat16", None): "training",
+            ("stage 4", "NHWC", "bfloat16", None): "stage4"}
 #: the stacked dynamic LSTM at bench.py bench_lstm's config (:591-626:
 #: models/stacked_lstm.py lstm_net, dict 30000, emb 512, hid 512, three
 #: recurrences) and the GRU classifier of tools/gru_bench.py (vocab 30000,
@@ -387,14 +403,15 @@ def _host_us(fn, iters=200, repeats=5, warmup=5):
 
 
 def _kernel_times(rec, kernel, plain, library, nbytes, ops, dtype, shape,
-                  tensor_cores=False):
+                  tensor_cores=False, plain_iters=20):
     """Fill ``rec`` with the times of one timed shape: CUDA-event ms of
     kernel, plain version and library yardstick, device ms per call of
     kernel and library, and the bound; with ``tensor_cores`` (the flash
     kernels) an f32 shape is bound by 3xTF32 on the tensor cores, with
     the CUDA cores' bound beside it."""
     rec["ms"] = _time_ms(kernel, iters=50)
-    rec["plain_ms"] = _time_ms(plain)
+    rec["plain_ms"] = _time_ms(plain, iters=plain_iters,
+                               warmup=min(3, plain_iters))
     rec["library_ms"] = _time_ms(library, iters=50)
     rec["device_ms"], names = _device_ms(kernel)
     rec["library_device_ms"], lib_names = _device_ms(library)
@@ -480,10 +497,15 @@ def check_flash_attention(rec):
                         tensor_cores=True)
 
 
+#: the kernel libraries whose products run on the tensor cores: the flash
+#: pair, and the LSTM's bf16-w backward and its dw and gates products
+TENSOR_CORE_SOURCES = ("flash_attention", "flash_attention_bwd", "lstm")
+
+
 def check_tensor_cores(paths):
-    """Count the tensor-core instructions (HMMA) in the flash libraries'
-    machine code with cuobjdump (beside nvcc, or in Triton's package);
-    fail when either has none."""
+    """Count the tensor-core instructions (HMMA) in the machine code of
+    TENSOR_CORE_SOURCES' libraries with cuobjdump (beside nvcc, or in
+    Triton's package); fail when one has none."""
     import glob
     from paddle_tpu_torch.ops import _build
     cands = [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")]
@@ -498,7 +520,7 @@ def check_tensor_cores(paths):
     if tool is None:
         raise AssertionError("cuobjdump not found: " + ", ".join(cands))
     counts = {}
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in TENSOR_CORE_SOURCES:
         sass = subprocess.run([tool, "-sass", str(paths[name])],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -602,6 +624,11 @@ def check_layer_norm(rec):
 
 
 def check_batch_norm_bwd(rec):
+    """The BatchNorm backward against its plain version at every
+    BN_SHAPES shape, NHWC and NCHW, f32 and bf16, relu and none; a second
+    run at the main path's largest launch (stem, NHWC, bf16, relu) must
+    repeat bit for bit.  Timed (BN_TIMED) at the stem, at a stage-1
+    launch and at a stage-4 one, whose x and dy (12.8 MB) fit in L2."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
     dev = torch.device("cuda")
@@ -628,21 +655,42 @@ def check_batch_norm_bwd(rec):
                     torch.cuda.synchronize()
                     _check("batch_norm_bwd", list(zip(got, ref)), dn,
                            f"{label} {layout} {view} act={act}", rec)
-                    del got, ref
-                    # the main path's dtype and layout: the largest
-                    # launch (the stem, relu fused) and a stage-1 one
+                    del ref
                     case = (label, layout, dn, act)
                     if case == ("stem", "NHWC", "bfloat16", "relu"):
-                        rec.update(_bn_timings(args, (n, h, w, c)))
-                    elif case == ("stage-1 expansion", "NHWC", "bfloat16",
-                                  None):
-                        rec["training"] = _bn_timings(args, (n, h, w, c))
+                        _bitwise_repeat("batch_norm_bwd", got,
+                                        K.batch_norm_bwd(*args),
+                                        f"{label} {layout} {dn} relu", rec)
+                    del got
+                    key = BN_TIMED.get(case)
+                    if key is not None:
+                        t = _bn_timings(args, (n, h, w, c))
+                        if key == "main":
+                            rec.update(t)
+                        else:
+                            rec[key] = t
+
+
+def _bitwise_repeat(name, got, again, label, rec):
+    """Fail unless a second run's outputs ``again`` equal ``got`` bit for
+    bit."""
+    import torch
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"  {name} {label}: a second run is "
+          f"{'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        raise AssertionError(f"{name} does not repeat bit for bit")
+    rec.setdefault("bitwise_repeat", []).append(label)
 
 
 def _bn_timings(args, nhwc):
-    """Kernel, plain and library ms and the bound of the BatchNorm
-    backward on NHWC ``args``; the library is F.batch_norm's backward
-    (cuDNN) on the same tensors in channels_last memory, no relu."""
+    """Kernel, plain and library times (CUDA events and device time per
+    call) and the bound of the BatchNorm backward on NHWC ``args``, with
+    the device time split by kernel (sums, reduce, dx); the library is
+    F.batch_norm's backward (cuDNN) on the same tensors in channels_last
+    memory, no relu."""
+    import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
     x, dy, sc, bi = args[:4]
@@ -651,22 +699,14 @@ def _bn_timings(args, nhwc):
     xx, ww, bb = (t.detach().requires_grad_(True)
                   for t in (x.view(nhwc).permute(0, 3, 1, 2), sc, bi))
     lib = F.batch_norm(xx, None, None, ww, bb, training=True)
-    bound, by = _bound(3 * numel * x.element_size() + 6 * c * 4,
-                       15 * numel, "float32")
-    return {"ms": _time_ms(lambda: K.batch_norm_bwd(*args)),
-            "plain_ms": _time_ms(lambda: K.batch_norm_bwd_plain(*args)),
-            "library_ms": _grad_ms(lib, (xx, ww, bb),
-                                   dy.view(nhwc).permute(0, 3, 1, 2)),
-            "bound_ms": bound, "bound_by": by,
-            "shape": f"R{n * h * w} C{c} NHWC {x.dtype} act={args[6]}"}
-
-
-def _timings(kernel, plain, library, nbytes, ops, dtype, shape):
-    """Kernel, plain and library ms and the bound of one more shape."""
-    bound, by = _bound(nbytes, ops, dtype)
-    return {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
-            "library_ms": _time_ms(library), "bound_ms": bound,
-            "bound_by": by, "shape": shape}
+    gy = dy.view(nhwc).permute(0, 3, 1, 2)
+    return _kernel_times(
+        {}, lambda: K.batch_norm_bwd(*args),
+        lambda: K.batch_norm_bwd_plain(*args),
+        lambda: torch.autograd.grad(lib, (xx, ww, bb), gy,
+                                    retain_graph=True),
+        3 * numel * x.element_size() + 6 * c * 4, 15 * numel, "float32",
+        f"R{n * h * w} C{c} NHWC {str(x.dtype)[6:]} act={args[6]}")
 
 
 def _grad_ms(outputs, inputs, grads):
@@ -702,15 +742,10 @@ def check_flash_attention_bwd(rec):
                 _flash_check("flash_attention_bwd", got, ref, dn, label, rec)
                 if (D, b, tq, tk) != (64, 16, 512, 512):
                     continue
-                again = K.flash_attention_bwd(q, k, v, out, lse, do, causal)
-                same = all(torch.equal(x, y) for x, y in zip(got, again))
-                print(f"  flash_attention_bwd {label} {dn}: a second run "
-                      f"is {'bitwise equal' if same else 'DIFFERENT'}",
-                      flush=True)
-                if not same:
-                    raise AssertionError("the flash backward does not "
-                                         "repeat bit for bit")
-                rec.setdefault("bitwise_repeat", []).append(dn)
+                _bitwise_repeat(
+                    "flash_attention_bwd", got,
+                    K.flash_attention_bwd(q, k, v, out, lse, do, causal),
+                    dn, rec)
                 if dtype is not torch.float32:
                     continue
                 pairs = b * H * tq * (tq + 1) // 2
@@ -846,7 +881,7 @@ def _recurrent_inputs(gates, t, b, h, lens, reverse, g):
             for x in (xs, w, h0, c0, mask.contiguous(), dhs, dcs)]
 
 
-def check_recurrent(kind, rec_fwd, rec_bwd):
+def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
     """Phase 3 for the LSTM (``kind`` "lstm") or GRU ("gru") kernels:
     forward and backward against their plain versions at T80 B32 H512 with
     full and ragged lengths and one is_reverse mask, and at T7 B5 H96;
@@ -859,9 +894,8 @@ def check_recurrent(kind, rec_fwd, rec_bwd):
     per-element bf16 rule is printed beside it, not held.  Times at the
     main path's shape and w dtype (the LSTM's bf16 w under program.amp,
     the GRU's f32), and the LSTM's also with f32 w, the dtype of its
-    library yardstick.  At H 1024 (8 units a block) the forward is
-    checked too, and the backward, whose w slices do not fit shared
-    memory, must refuse to launch."""
+    library yardstick.  At the main shape a second backward must repeat
+    bit for bit.  Then `check_recurrent_limits` (``strict`` as there)."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
     lstm = kind == "lstm"
@@ -909,6 +943,9 @@ def check_recurrent(kind, rec_fwd, rec_bwd):
                       "of it (not held)", flush=True)
         main_dtype = torch.bfloat16 if lstm else torch.float32
         if (t, lens, rev, wdt) == (80, "full", False, main_dtype):
+            _bitwise_repeat(f"{kind}_bwd", dgot,
+                            (K.lstm_bwd if lstm else K.gru_bwd)(*bwd_args),
+                            label, rec_bwd)
             rec_fwd.update(_recurrent_timings(kind, False, fwd_args,
                                               bwd_args))
             rec_bwd.update(_recurrent_timings(kind, True, fwd_args,
@@ -920,41 +957,77 @@ def check_recurrent(kind, rec_fwd, rec_bwd):
             rec_bwd["f32_w"] = _recurrent_timings(kind, True, fwd_args,
                                                   bwd_args)
         del got, ref, dgot, dref
-    # H 1024: 8 units a block; the forward fits, the backward's w slices
-    # do not fit shared memory, and its launch must be refused, not hang
-    xs, w, h0, c0, mask, dhs, dcs = _recurrent_inputs(
-        gates, 3, 4, 1024, "ragged", False, g)
-    if lstm:
-        got, ref = K.lstm_fwd(xs, w, h0, c0, mask), \
-            K.lstm_fwd_plain(xs, w, h0, c0, mask)
-        refused = lambda: K.lstm_bwd(xs, w, h0, c0, mask, *ref, dhs, dcs)
-    else:
-        got, ref = (K.gru_fwd(xs, w, h0, mask),), \
-            (K.gru_fwd_plain(xs, w, h0, mask),)
-        refused = lambda: K.gru_bwd(xs, w, h0, mask, ref[0], dhs)
-    torch.cuda.synchronize()
-    _check(f"{kind}_fwd", list(zip(got, ref)), "float32",
-           "T3 B4 H1024 ragged w float32", rec_fwd)
-    try:
-        refused()
-    except RuntimeError as e:
-        if "cannot be placed" not in str(e):
-            raise
-        print(f"  {kind}_bwd T3 B4 H1024: refused ({e})", flush=True)
-    else:
-        raise AssertionError(f"{kind}_bwd launched at H 1024, whose w "
-                             "slices do not fit shared memory")
+    check_recurrent_limits(kind, g, rec_fwd, rec_bwd, strict)
+
+
+#: the widths at which the recurrent kernels are checked at the edge of
+#: what the card can place (T3 B4, ragged, f32 w): kernel -> (H checked
+#: against the plain version, H that must be refused)
+RECURRENT_LIMITS = {"lstm_fwd": ((1024,), ()), "lstm_bwd": ((1024,), (2048,)),
+                    "gru_fwd": ((1024,), ()), "gru_bwd": ((), (1024,))}
+
+
+def check_recurrent_limits(kind, g, rec_fwd, rec_bwd, strict=True):
+    """At RECURRENT_LIMITS' widths: each kernel that fits is held to its
+    plain version, and each that does not must refuse to launch ("cannot
+    be placed"), not hang.  With ``strict`` False (the A/B modes, which
+    also run older kernels) a refusal where a fit is expected is recorded
+    in the kernel's record, not raised."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    lstm = kind == "lstm"
+    gates = 4 if lstm else 3
+    for which, rec in (("fwd", rec_fwd), ("bwd", rec_bwd)):
+        name = f"{kind}_{which}"
+        fits, refused = RECURRENT_LIMITS[name]
+        for h, want_fit in [(h, True) for h in fits] + [
+                (h, False) for h in refused]:
+            xs, w, h0, c0, mask, dhs, dcs = _recurrent_inputs(
+                gates, 3, 4, h, "ragged", False, g)
+            fwd_args = (xs, w, h0, c0, mask) if lstm else (xs, w, h0, mask)
+            plain_fwd = K.lstm_fwd_plain if lstm else K.gru_fwd_plain
+            outs = plain_fwd(*fwd_args)
+            outs = tuple(outs) if lstm else (outs,)
+            bwd_args = fwd_args + outs + ((dhs, dcs) if lstm else (dhs,))
+            if which == "fwd":
+                fn, plain, args = getattr(K, name), plain_fwd, fwd_args
+            else:
+                fn, plain = getattr(K, name), getattr(K, f"{name}_plain")
+                args = bwd_args
+            label = f"T3 B4 H{h} ragged w float32"
+            try:
+                got = fn(*args)
+            except RuntimeError as e:
+                if "cannot be placed" not in str(e):
+                    raise
+                print(f"  {name} {label}: refused ({e})", flush=True)
+                if want_fit:
+                    rec.setdefault("refused_h", []).append(h)
+                    if strict:
+                        raise AssertionError(f"{name} refused H {h}, "
+                                             "which it must place")
+                continue
+            if not want_fit:
+                raise AssertionError(f"{name} launched at H {h}, whose "
+                                     "blocks cannot all be resident")
+            got = (got,) if isinstance(got, torch.Tensor) else got
+            ref = plain(*args)
+            ref = (ref,) if isinstance(ref, torch.Tensor) else ref
+            torch.cuda.synchronize()
+            _check(name, list(zip(got, ref)), "float32", label, rec)
+            rec.setdefault("checked_h", []).append(h)
 
 
 def _recurrent_timings(kind, backward, fwd_args, bwd_args):
-    """Kernel, plain and library ms and the bound of a recurrent kernel.
-    Bytes: each input read once, each output written once.  Operations:
-    the products, 2*T*B*H*G*H forward (G = 4 gates for the LSTM, 3 for the
-    GRU) and three times that backward (the gates again, dw, dh_prev), at
-    the rate of w's dtype.  Library: torch.nn.LSTM (cuDNN) forward or
-    backward at the same T, B, H in f32, which also does the input
-    product x . W_ih; none for the GRU (cuDNN's GRU computes
-    r * (h . W_c), another function than (r * h) . W_c)."""
+    """Kernel, plain and library times (CUDA events and device time per
+    call, the device time split by kernel) and the bound of a recurrent
+    kernel.  Bytes: each input read once, each output written once.
+    Operations: the products, 2*T*B*H*G*H forward (G = 4 gates for the
+    LSTM, 3 for the GRU) and three times that backward (the gates again,
+    dw, dh_prev), at the rate of w's dtype.  Library: torch.nn.LSTM
+    (cuDNN) forward or backward at the same T, B, H in f32, which also
+    does the input product x . W_ih; none for the GRU (cuDNN's GRU
+    computes r * (h . W_c), another function than (r * h) . W_c)."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
     lstm = kind == "lstm"
@@ -975,25 +1048,38 @@ def _recurrent_timings(kind, backward, fwd_args, bwd_args):
     in_bytes = sum(a.numel() * a.element_size() for a in args)
     ops = 2 * t * b * h * gh * (3 if backward else 1)
     dn = str(w.dtype).replace("torch.", "")
-    bound, by = _bound(in_bytes + out_bytes, ops, dn)
-    library = None
-    if lstm:
-        lib = torch.nn.LSTM(h, h).cuda()
-        x = torch.randn(t, b, h, device="cuda")
-        if backward:
-            x.requires_grad_(True)
-            out, _ = lib(x)
-            library = _grad_ms(out, [x] + list(lib.parameters()),
-                               torch.randn_like(out))
-        else:
+    shape = f"T{t} B{b} H{h} w {dn}" + (
+        "" if lstm else "; library none: cuDNN's GRU computes r*(h.W_c), "
+        "not (r*h).W_c")
+    if not lstm:
+        rec = {"ms": _time_ms(lambda: fn(*args)),
+               "plain_ms": _time_ms(lambda: plain(*args), iters=5, warmup=1),
+               "library_ms": None, "library_device_ms": None}
+        rec["device_ms"], names = _device_ms(lambda: fn(*args))
+        rec["bound_ms"], rec["bound_by"] = _bound(in_bytes + out_bytes, ops,
+                                                  dn)
+        rec["shape"] = shape
+        print(f"  {shape}: kernel {rec['ms']:.4f} ms (device "
+              f"{rec['device_ms']}), plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})", flush=True)
+        return rec
+    lib = torch.nn.LSTM(h, h).cuda()
+    x = torch.randn(t, b, h, device="cuda")
+    if backward:
+        x.requires_grad_(True)
+        out, _ = lib(x)
+        params = [x] + list(lib.parameters())
+        gy = torch.randn_like(out)
+
+        def library():
+            return torch.autograd.grad(out, params, gy, retain_graph=True)
+    else:
+        def library():
             with torch.no_grad():
-                library = _time_ms(lambda: lib(x))
-    return {"ms": _time_ms(lambda: fn(*args)),
-            "plain_ms": _time_ms(lambda: plain(*args), iters=5, warmup=1),
-            "library_ms": library, "bound_ms": bound, "bound_by": by,
-            "shape": f"T{t} B{b} H{h} w {dn}" + (
-                "" if lstm else "; library none: cuDNN's GRU computes "
-                "r*(h.W_c), not (r*h).W_c")}
+                return lib(x)
+    return _kernel_times({}, lambda: fn(*args), lambda: plain(*args),
+                         library, in_bytes + out_bytes, ops, dn, shape,
+                         plain_iters=5)
 
 
 # ---------------------------------------------------------------------------
@@ -1596,18 +1682,50 @@ def seq_card_vs_cpu(model, state, seed=0):
 def serving_ab(smi):
     """``--serving``: only the serving path's kernels and phase 4 (paged
     attention and LayerNorm against their plain versions with their
-    times, then serving with its decode-step profile), printed as one
-    JSON line.  Run from two checkouts in turns, it compares two versions
-    of those kernels on one card; it is not the smoke run and prints no
-    {"ok": ...} line."""
+    times, then serving with its decode-step profile)."""
     from paddle_tpu_torch.ops import _build
     _build.build_all(("paged_attention", "flash_attention", "layer_norm"))
     recs = {"paged_attention": {}, "layer_norm_fwd": {}}
     check_paged_attention(recs["paged_attention"])
     check_layer_norm(recs["layer_norm_fwd"])
     recs["serving"] = serve()[1]
-    print(json.dumps(dict(recs, card=smi)))
-    return 0
+    return recs
+
+
+def resnet_ab(smi):
+    """``--resnet``: the BatchNorm backward's phase 3 checks and timings,
+    then phase 7 (ResNet-50 training with its profile)."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("batch_norm_bwd",))
+    recs = {"batch_norm_bwd": {}}
+    check_batch_norm_bwd(recs["batch_norm_bwd"])
+    launches, recs["resnet"], _ = train_resnet()
+    recs["resnet"]["batch_norm_bwd_launches"] = launches["batch_norm_bwd"]
+    return recs
+
+
+def lstm_ab(smi):
+    """``--lstm``: the recurrent kernels' phase 3 checks and timings (the
+    GRU's too: they share recurrent.cuh), then phase 9 (the stacked LSTM
+    with its profile)."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("lstm", "gru"))
+    recs = {k: {} for k in ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd")}
+    for kind in ("lstm", "gru"):
+        check_recurrent(kind, recs[f"{kind}_fwd"], recs[f"{kind}_bwd"],
+                        strict=False)
+    launches, recs["stacked_lstm"], _ = train_sequence("lstm")
+    recs["stacked_lstm"]["launches"] = {k: launches[k]
+                                        for k in ("lstm_fwd", "lstm_bwd")}
+    return recs
+
+
+#: the A/B modes: option -> what it runs.  Each prints its results as one
+#: JSON line and no {"ok": ...} line: run from two checkouts in turns
+#: (parent, change, change, parent), it compares two versions of those
+#: kernels on one card
+AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
+            "--lstm": lstm_ab}
 
 
 def main(argv=()):
@@ -1630,10 +1748,11 @@ def main(argv=()):
                          text=True, check=True).stdout.strip()
     print(f"phase 1: card: {smi}", flush=True)
     if argv:
-        if list(argv) != ["--serving"]:
+        if len(argv) != 1 or argv[0] not in AB_MODES:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
-        return serving_ab(smi)
+        print(json.dumps(dict(AB_MODES[argv[0]](smi), card=smi)))
+        return 0
 
     t0 = time.perf_counter()
     paths = _build.build_all(k.source for k in K.KERNELS)

@@ -15,69 +15,67 @@
 // ~20 flops per byte.
 //
 // Design.  The TPU kernel keeps a 128-channel column of ALL rows in VMEM
-// and reads x and dy once.  At ResNet-50 bs128 a column is up to 1.6 M
-// rows, which no shared memory holds, so this kernel takes three passes:
-//   1. partial sums.  A block owns a tile of nb rows x cb channels x sb
-//      spatial positions (at most 1024 elements; for a fixed n the tile's
-//      elements are cb runs of sb, contiguous when sb == S) and a run of
-//      n.  Each thread owns up to 4 fixed tile positions, so its channel
-//      and per-channel constants stay in registers while it walks the
-//      rows: neighbouring threads read neighbouring addresses in both
-//      layouts.  At the end the block folds its per-position sums into
-//      one row of a [P, 2, C] f32 partial buffer (per channel, a warp
-//      sums the tile positions in a fixed order);
+// and reads x and dy once.  At ResNet-50 bs128 one launch's x and dy are
+// up to 411 MB, far beyond the 50 MB of L2 and any on-chip memory, and dx
+// needs the finished sums, so this kernel streams twice (5 units of
+// traffic against the 3 of the bound):
+//   1. partial sums, one row of a [P, 2, C] f32 buffer per block;
 //   2. a fixed-order reduce of the partials into dscale and dbias;
-//   3. an elementwise dx pass over the same tiles.
-// No atomics: the result is the same from run to run.  x and dy are read
-// twice (5 units of traffic against the 3 of the bound); keeping them in
-// L2 or shared memory between the passes is later work.  The relu mask
-// rounds xn * scale and + bias separately, as the forward computes them.
+//   3. dx, walking the rows in the reverse order of pass 1, so the lines
+//      pass 1 read last are still in L2 (all of them for a launch whose
+//      x and dy fit there, as ResNet-50's stage-3 and stage-4 ones do).
+// Every load and store is 16 bytes a thread (8 bf16 or 4 f32) where the
+// contiguous dimension and the pointers allow, else one element:
+//  - channels-last (S == 1, the main path): a thread owns V consecutive
+//    channels, keeps their constants and partial sums in registers and
+//    walks rows; a block covers up to 256 vectors of a row and, for
+//    narrow C, several rows at once (rpp rows per pass);
+//  - channel-major (S > 1, NCHW): a block owns one channel and walks its
+//    N runs of S elements, V at a time.
+// Each thread keeps kUnroll rows of loads in flight.  The grid is one
+// wave of the blocks the card holds at once (the wrapper asks
+// `ptt_batch_norm_bwd_residency`, i.e. cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor, times the SMs), and each block walks its rows
+// grid-stride.  No atomics: every sum is taken in a fixed order, so
+// runs repeat bit for bit.  The relu mask rounds xn * scale and + bias
+// separately, as the forward computes them.
 #include <cstdint>
+#include <initializer_list>
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPer = 4;                   // tile positions per thread
-constexpr int kTile = kThreads * kPer;    // elements of a block's tile
-constexpr int kReduceCols = 32;           // channels per reduce block
-constexpr int kReduceWarps = 8;           // warps splitting the partials
+constexpr int kUnroll = 4;               // rows of loads in flight a thread
+constexpr int kReduceWarps = 32;         // warps splitting the partials
 
 struct Geom {
-  int64_t rows;                   // N'
+  int64_t rows;   // N'
   int C, S;
-  int nb, cb, sb;                 // the tile
-  int64_t rows_per_chunk;         // rows of n each block walks
+  int bcols;      // channels-last: vectors of a row one block covers
+  int rpp;        // channels-last: rows a block takes per pass
 };
 
-// The fixed tile positions of this thread: offsets from the tile's row,
-// the row within the tile, the channel, and whether the position lies
-// inside the tensor.
-struct Slots {
-  int64_t off[kPer];
-  int nl[kPer];
-  int c[kPer];
-  bool ok[kPer];
-};
-
-__device__ __forceinline__ void tile_slots(const Geom& g, int c0, int s0,
-                                           Slots& t) {
-  const int per_row = g.cb * g.sb;
-  const int tile = g.nb * per_row;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int j = threadIdx.x + k * kThreads;
-    const int nl = j / per_row, rem = j - nl * per_row;
-    const int cl = rem / g.sb, sl = rem - cl * g.sb;
-    const int c = c0 + cl, s = s0 + sl;
-    t.ok[k] = j < tile && c < g.C && s < g.S;
-    t.nl[k] = nl;
-    t.c[k] = t.ok[k] ? c : 0;
-    t.off[k] = static_cast<int64_t>(nl) * g.C * g.S
-               + static_cast<int64_t>(c) * g.S + s;
+// V elements of T at once: one 16-byte vector (kVec) or one element.
+template <typename T, bool kVec>
+struct Pack {
+  static constexpr int V = kVec ? ptt::Chunk<T>::n : 1;
+  uint4 u;
+  T e;
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kVec) u = ptt::Chunk<T>::raw(p);
+    else e = *p;
   }
-}
+  __device__ __forceinline__ void unpack(float* f) const {
+    if constexpr (kVec) ptt::Chunk<T>::unpack(u, f);
+    else f[0] = ptt::to_f32(e);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* f) {
+    if constexpr (kVec) *reinterpret_cast<uint4*>(p) = ptt::Chunk<T>::pack(f);
+    else *p = ptt::from_f32<T>(f[0]);
+  }
+};
 
 template <bool kRelu>
 __device__ __forceinline__ float masked(float g, float xn, float sc,
@@ -86,96 +84,292 @@ __device__ __forceinline__ float masked(float g, float xn, float sc,
   return g;
 }
 
-template <typename T, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-    bn_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ mean,
-                       const float* __restrict__ inv,
-                       float* __restrict__ part, Geom g) {
-  __shared__ float red[2][kTile];
-  const int c0 = blockIdx.y * g.cb, s0 = blockIdx.z * g.sb;
-  Slots t;
-  tile_slots(g, c0, s0, t);
-  float mu[kPer], iv[kPer], sc[kPer], bi[kPer], ds[kPer], db[kPer];
+// --- channels-last (S == 1): element (n, c) at n*C + c ---------------
+//
+// Block (bx, by) covers vector columns [by * bcols, by * bcols + bcols);
+// thread t owns column t % bcols and row lane t / bcols (< rpp).  Its rows
+// are base + k * stride, base = bx * rpp + lane, stride = gridDim.x * rpp:
+// in step k the grid reads one band of stride consecutive rows.
+
+template <typename T, bool kVec, bool kRelu>
+__global__ void __launch_bounds__(kThreads, 2)
+    bn_sums_last_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ mean,
+                        const float* __restrict__ inv,
+                        float* __restrict__ part, Geom g) {
+  using P = Pack<T, kVec>;
+  constexpr int V = P::V;
+  __shared__ float red[2][kThreads * V];
+  const int col = threadIdx.x % g.bcols, lane = threadIdx.x / g.bcols;
+  const int c0 = (blockIdx.y * g.bcols + col) * V;
+  const bool on = lane < g.rpp && c0 < g.C;
+  float mu[V], iv[V], sc[V], bi[V], ds[V], db[V];
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    mu[k] = mean[t.c[k]];
-    iv[k] = inv[t.c[k]];
-    sc[k] = scale[t.c[k]];
-    bi[k] = bias[t.c[k]];
-    ds[k] = 0.f;
-    db[k] = 0.f;
+  for (int j = 0; j < V; ++j) {
+    const int c = on ? c0 + j : 0;
+    mu[j] = mean[c];
+    iv[j] = inv[c];
+    sc[j] = kRelu ? scale[c] : 0.f;
+    bi[j] = kRelu ? bias[c] : 0.f;
+    ds[j] = db[j] = 0.f;
   }
-  const int64_t cs = static_cast<int64_t>(g.C) * g.S;
-  const int64_t n0 = blockIdx.x * g.rows_per_chunk;
-  const int64_t n1 = min(g.rows, n0 + g.rows_per_chunk);
-  for (int64_t n = n0; n < n1; n += g.nb) {
-    const int64_t base = n * cs;
+  if (on) {
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * g.rpp;
+    for (int64_t r0 = static_cast<int64_t>(blockIdx.x) * g.rpp + lane;
+         r0 < g.rows; r0 += kUnroll * stride) {
+      P xv[kUnroll], gv[kUnroll];
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (t.ok[k] && n + t.nl[k] < n1) {
-        const float xn = (ptt::to_f32(x[base + t.off[k]]) - mu[k]) * iv[k];
-        const float gk = masked<kRelu>(ptt::to_f32(dy[base + t.off[k]]), xn,
-                                       sc[k], bi[k]);
-        db[k] += gk;
-        ds[k] += gk * xn;
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t r = r0 + u * stride;
+        if (r < g.rows) {
+          xv[u].load(x + r * g.C + c0);
+          gv[u].load(dy + r * g.C + c0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (r0 + u * stride >= g.rows) break;
+        float xf[V], gf[V];
+        xv[u].unpack(xf);
+        gv[u].unpack(gf);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xn = (xf[j] - mu[j]) * iv[j];
+          const float gk = masked<kRelu>(gf[j], xn, sc[j], bi[j]);
+          db[j] += gk;
+          ds[j] += gk * xn;
+        }
       }
     }
   }
+  // per channel of the block: its rpp row lanes in order
+  const int nch = g.bcols * V;
+  if (lane < g.rpp) {
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    red[0][threadIdx.x + k * kThreads] = ds[k];
-    red[1][threadIdx.x + k * kThreads] = db[k];
+    for (int j = 0; j < V; ++j) {
+      red[0][lane * nch + col * V + j] = ds[j];
+      red[1][lane * nch + col * V + j] = db[j];
+    }
   }
   __syncthreads();
-  // per channel of the tile: its nb * sb positions, lanes strided, then a
-  // warp tree -- a fixed order
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int per_c = g.nb * g.sb;
-  const int64_t p = static_cast<int64_t>(blockIdx.z) * gridDim.x
-                    + blockIdx.x;
-  for (int cl = w; cl < g.cb; cl += kThreads / 32) {
+  for (int k = threadIdx.x; k < nch; k += kThreads) {
+    const int c = blockIdx.y * nch + k;
+    if (c >= g.C) break;
     float a = 0.f, b = 0.f;
-    for (int q = lane; q < per_c; q += 32) {
-      const int nl = q / g.sb, sl = q - nl * g.sb;
-      const int j = (nl * g.cb + cl) * g.sb + sl;
-      a += red[0][j];
-      b += red[1][j];
+    for (int q = 0; q < g.rpp; ++q) {
+      a += red[0][q * nch + k];
+      b += red[1][q * nch + k];
     }
-    a = ptt::warp_sum(a);
-    b = ptt::warp_sum(b);
-    if (lane == 0 && c0 + cl < g.C) {
-      part[(2 * p) * g.C + c0 + cl] = a;
-      part[(2 * p + 1) * g.C + c0 + cl] = b;
+    part[(2 * static_cast<int64_t>(blockIdx.x)) * g.C + c] = a;
+    part[(2 * static_cast<int64_t>(blockIdx.x) + 1) * g.C + c] = b;
+  }
+}
+
+template <typename T, bool kVec, bool kRelu>
+__global__ void __launch_bounds__(kThreads, 2)
+    bn_dx_last_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ inv,
+                      const float* __restrict__ dscale,
+                      const float* __restrict__ dbias, T* __restrict__ dx,
+                      Geom g, float count) {
+  using P = Pack<T, kVec>;
+  constexpr int V = P::V;
+  const int col = threadIdx.x % g.bcols, lane = threadIdx.x / g.bcols;
+  const int c0 = (blockIdx.y * g.bcols + col) * V;
+  if (lane >= g.rpp || c0 >= g.C) return;
+  float mu[V], iv[V], sc[V], bi[V], mb[V], ms[V], a[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = c0 + j;
+    mu[j] = mean[c];
+    iv[j] = inv[c];
+    sc[j] = scale[c];
+    bi[j] = bias[c];
+    mb[j] = dbias[c] / count;
+    ms[j] = dscale[c] / count;
+    a[j] = sc[j] * iv[j];
+  }
+  // the rows of pass 1, last first
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * g.rpp;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * g.rpp + lane;
+  if (base >= g.rows) return;
+  for (int64_t r0 = base + (g.rows - 1 - base) / stride * stride; r0 >= 0;
+       r0 -= kUnroll * stride) {
+    P xv[kUnroll], gv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t r = r0 - u * stride;
+      if (r >= 0) {
+        xv[u].load(x + r * g.C + c0);
+        gv[u].load(dy + r * g.C + c0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t r = r0 - u * stride;
+      if (r < 0) break;
+      float xf[V], gf[V], o[V];
+      xv[u].unpack(xf);
+      gv[u].unpack(gf);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xn = (xf[j] - mu[j]) * iv[j];
+        const float gk = masked<kRelu>(gf[j], xn, sc[j], bi[j]);
+        o[j] = (gk - mb[j] - xn * ms[j]) * a[j];
+      }
+      P::store(dx + r * g.C + c0, o);
     }
   }
 }
 
-// dscale[c] = sum over p of part[p][0][c], dbias likewise from part[p][1];
-// warp w sums p = w, w + 8, ... for 32 channels, then the eight warp sums
-// are added in order.
-__global__ void __launch_bounds__(32 * kReduceWarps)
-    bn_bwd_reduce_kernel(const float* __restrict__ part,
-                         float* __restrict__ dscale,
-                         float* __restrict__ dbias, int64_t np, int C) {
-  __shared__ float sums[2][kReduceWarps][kReduceCols];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int c = blockIdx.x * kReduceCols + lane;
-  float a = 0.f, b = 0.f;
-  if (c < C) {
-    for (int64_t p = w; p < np; p += kReduceWarps) {
-      a += part[(2 * p) * C + c];
-      b += part[(2 * p + 1) * C + c];
+// --- channel-major (S > 1): element (n, c, s) at n*C*S + c*S + s -------
+//
+// Block (bx, c) walks channel c's N * S / V vectors e = n * (S / V) + s / V:
+// e = (k * gridDim.x + bx) * kThreads + t.
+
+template <typename T, bool kVec, bool kRelu>
+__global__ void __launch_bounds__(kThreads, 2)
+    bn_sums_major_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ mean,
+                         const float* __restrict__ inv,
+                         float* __restrict__ part, Geom g) {
+  using P = Pack<T, kVec>;
+  constexpr int V = P::V;
+  __shared__ float scratch[32];
+  const int c = blockIdx.y;
+  const float mu = mean[c], iv = inv[c];
+  const float sc = kRelu ? scale[c] : 0.f, bi = kRelu ? bias[c] : 0.f;
+  const int sv = g.S / V;
+  const int64_t nv = g.rows * sv;
+  const int64_t cs = static_cast<int64_t>(g.C) * g.S;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  float ds = 0.f, db = 0.f;
+  for (int64_t e0 = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       e0 < nv; e0 += kUnroll * stride) {
+    P xv[kUnroll], gv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t e = e0 + u * stride;
+      if (e < nv) {
+        const int64_t n = e / sv;
+        const int64_t off = n * cs + static_cast<int64_t>(c) * g.S
+                            + (e - n * sv) * V;
+        xv[u].load(x + off);
+        gv[u].load(dy + off);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (e0 + u * stride >= nv) break;
+      float xf[V], gf[V];
+      xv[u].unpack(xf);
+      gv[u].unpack(gf);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xn = (xf[j] - mu) * iv;
+        const float gk = masked<kRelu>(gf[j], xn, sc, bi);
+        db += gk;
+        ds += gk * xn;
+      }
     }
   }
-  sums[0][w][lane] = a;
-  sums[1][w][lane] = b;
+  ds = ptt::block_sum(ds, scratch);
+  db = ptt::block_sum(db, scratch);
+  if (threadIdx.x == 0) {
+    part[(2 * static_cast<int64_t>(blockIdx.x)) * g.C + c] = ds;
+    part[(2 * static_cast<int64_t>(blockIdx.x) + 1) * g.C + c] = db;
+  }
+}
+
+template <typename T, bool kVec, bool kRelu>
+__global__ void __launch_bounds__(kThreads, 2)
+    bn_dx_major_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ mean,
+                       const float* __restrict__ inv,
+                       const float* __restrict__ dscale,
+                       const float* __restrict__ dbias, T* __restrict__ dx,
+                       Geom g, float count) {
+  using P = Pack<T, kVec>;
+  constexpr int V = P::V;
+  const int c = blockIdx.y;
+  const float mu = mean[c], iv = inv[c], sc = scale[c], bi = bias[c];
+  const float mb = dbias[c] / count, ms = dscale[c] / count, a = sc * iv;
+  const int sv = g.S / V;
+  const int64_t nv = g.rows * sv;
+  const int64_t cs = static_cast<int64_t>(g.C) * g.S;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads
+                       + threadIdx.x;
+  if (base >= nv) return;
+  for (int64_t e0 = base + (nv - 1 - base) / stride * stride; e0 >= 0;
+       e0 -= kUnroll * stride) {
+    P xv[kUnroll], gv[kUnroll];
+    int64_t off[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t e = e0 - u * stride;
+      if (e >= 0) {
+        const int64_t n = e / sv;
+        off[u] = n * cs + static_cast<int64_t>(c) * g.S + (e - n * sv) * V;
+        xv[u].load(x + off[u]);
+        gv[u].load(dy + off[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (e0 - u * stride < 0) break;
+      float xf[V], gf[V], o[V];
+      xv[u].unpack(xf);
+      gv[u].unpack(gf);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xn = (xf[j] - mu) * iv;
+        const float gk = masked<kRelu>(gf[j], xn, sc, bi);
+        o[j] = (gk - mb - xn * ms) * a;
+      }
+      P::store(dx + off[u], o);
+    }
+  }
+}
+
+// dscale[c] = sum over p of part[p][0][c], dbias likewise from part[p][1]:
+// a block takes 32 channels (one a lane); warp w sums p = w + 32 i with
+// four partial sums (i mod 4) so that four loads are in flight, adds them
+// in order, and the 32 warp sums are added in order.
+__global__ void __launch_bounds__(32 * kReduceWarps)
+    bn_reduce_kernel(const float* __restrict__ part,
+                     float* __restrict__ dscale, float* __restrict__ dbias,
+                     int np, int C) {
+  __shared__ float sums[2][kReduceWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float a[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c < C) {
+    for (int p0 = w; p0 < np; p0 += 4 * kReduceWarps) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int p = p0 + u * kReduceWarps;
+        if (p < np) {
+          a[u] += part[(2 * static_cast<int64_t>(p)) * C + c];
+          b[u] += part[(2 * static_cast<int64_t>(p) + 1) * C + c];
+        }
+      }
+    }
+  }
+  sums[0][w][lane] = (a[0] + a[1]) + (a[2] + a[3]);
+  sums[1][w][lane] = (b[0] + b[1]) + (b[2] + b[3]);
   __syncthreads();
   if (w == 0 && c < C) {
     float sa = 0.f, sb = 0.f;
-#pragma unroll
     for (int j = 0; j < kReduceWarps; ++j) {
       sa += sums[0][j][lane];
       sb += sums[1][j][lane];
@@ -185,109 +379,128 @@ __global__ void __launch_bounds__(32 * kReduceWarps)
   }
 }
 
-template <typename T, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-    bn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ mean,
-                     const float* __restrict__ inv,
-                     const float* __restrict__ dscale,
-                     const float* __restrict__ dbias, T* __restrict__ dx,
-                     Geom g, float count) {
-  const int c0 = blockIdx.y * g.cb, s0 = blockIdx.z * g.sb;
-  Slots t;
-  tile_slots(g, c0, s0, t);
-  float mu[kPer], iv[kPer], sc[kPer], bi[kPer], mb[kPer], ms[kPer],
-      a[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int c = t.c[k];
-    mu[k] = mean[c];
-    iv[k] = inv[c];
-    sc[k] = scale[c];
-    bi[k] = bias[c];
-    mb[k] = dbias[c] / count;
-    ms[k] = dscale[c] / count;
-    a[k] = sc[k] * iv[k];
-  }
-  const int64_t cs = static_cast<int64_t>(g.C) * g.S;
-  const int64_t n0 = blockIdx.x * g.rows_per_chunk;
-  const int64_t n1 = min(g.rows, n0 + g.rows_per_chunk);
-  for (int64_t n = n0; n < n1; n += g.nb) {
-    const int64_t base = n * cs;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (t.ok[k] && n + t.nl[k] < n1) {
-        const int64_t e = base + t.off[k];
-        const float xn = (ptt::to_f32(x[e]) - mu[k]) * iv[k];
-        const float gk = masked<kRelu>(ptt::to_f32(dy[e]), xn, sc[k],
-                                       bi[k]);
-        dx[e] = ptt::from_f32<T>((gk - mb[k] - xn * ms[k]) * a[k]);
-      }
-    }
-  }
-}
+struct Args {
+  const void *x, *dy, *scale, *bias, *mean, *inv;
+  void *dx, *part, *dscale, *dbias;
+  Geom g;
+  int gx_sums, gx_dx, gy;
+  cudaStream_t st;
+};
 
-template <typename T, bool kRelu>
-int launch(const void* x, const void* dy, const void* scale,
-           const void* bias, const void* mean, const void* inv, void* dx,
-           void* part, void* dscale, void* dbias, const Geom& g,
-           int64_t n_chunks, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>(n_chunks),
-                  static_cast<unsigned>((g.C + g.cb - 1) / g.cb),
-                  static_cast<unsigned>((g.S + g.sb - 1) / g.sb));
-  const int64_t np = n_chunks * grid.z;
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  const float* mu = static_cast<const float*>(mean);
-  const float* iv = static_cast<const float*>(inv);
-  float* ds = static_cast<float*>(dscale);
-  float* db = static_cast<float*>(dbias);
-  bn_bwd_sums_kernel<T, kRelu><<<grid, kThreads, 0, st>>>(
-      xt, dyt, sc, bi, mu, iv, static_cast<float*>(part), g);
-  bn_bwd_reduce_kernel<<<(g.C + kReduceCols - 1) / kReduceCols,
-                         32 * kReduceWarps, 0, st>>>(
-      static_cast<const float*>(part), ds, db, np, g.C);
-  bn_bwd_dx_kernel<T, kRelu><<<grid, kThreads, 0, st>>>(
-      xt, dyt, sc, bi, mu, iv, ds, db, static_cast<T*>(dx), g,
-      static_cast<float>(g.rows * g.S));
-  return static_cast<int>(cudaGetLastError());
+struct Launch {
+  const Args& a;
+  template <typename T, bool kVec, bool kRelu>
+  int run() const {
+    const Geom& g = a.g;
+    const T* x = static_cast<const T*>(a.x);
+    const T* dy = static_cast<const T*>(a.dy);
+    const float* sc = static_cast<const float*>(a.scale);
+    const float* bi = static_cast<const float*>(a.bias);
+    const float* mu = static_cast<const float*>(a.mean);
+    const float* iv = static_cast<const float*>(a.inv);
+    float* part = static_cast<float*>(a.part);
+    float* ds = static_cast<float*>(a.dscale);
+    float* db = static_cast<float*>(a.dbias);
+    T* dx = static_cast<T*>(a.dx);
+    const dim3 sums_grid(a.gx_sums, a.gy), dx_grid(a.gx_dx, a.gy);
+    const float count = static_cast<float>(g.rows * g.S);
+    if (g.S == 1)
+      bn_sums_last_kernel<T, kVec, kRelu><<<sums_grid, kThreads, 0, a.st>>>(x, dy, sc, bi, mu, iv,
+                                                     part, g);
+    else
+      bn_sums_major_kernel<T, kVec, kRelu><<<sums_grid, kThreads, 0, a.st>>>(x, dy, sc, bi, mu, iv,
+                                                      part, g);
+    bn_reduce_kernel<<<(g.C + 31) / 32, 32 * kReduceWarps, 0, a.st>>>(
+        part, ds, db, a.gx_sums, g.C);
+    if (g.S == 1)
+      bn_dx_last_kernel<T, kVec, kRelu><<<dx_grid, kThreads, 0, a.st>>>(x, dy, sc, bi, mu, iv, ds,
+                                                 db, dx, g, count);
+    else
+      bn_dx_major_kernel<T, kVec, kRelu><<<dx_grid, kThreads, 0, a.st>>>(x, dy, sc, bi, mu, iv, ds,
+                                                  db, dx, g, count);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct Residency {
+  bool major;
+  int* sums;
+  int* dx;
+  template <typename T, bool kVec, bool kRelu>
+  int run() const {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        sums, major ? bn_sums_major_kernel<T, kVec, kRelu>
+                    : bn_sums_last_kernel<T, kVec, kRelu>, kThreads, 0);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          dx, major ? bn_dx_major_kernel<T, kVec, kRelu>
+                    : bn_dx_last_kernel<T, kVec, kRelu>, kThreads, 0);
+    return static_cast<int>(e);
+  }
+};
+
+template <typename Op>
+int dispatch(int is_bf16, int vec, int relu, const Op& op) {
+  using B = __nv_bfloat16;
+  if (is_bf16) {
+    if (vec)
+      return relu ? op.template run<B, true, true>()
+                  : op.template run<B, true, false>();
+    return relu ? op.template run<B, false, true>()
+                : op.template run<B, false, false>();
+  }
+  if (vec)
+    return relu ? op.template run<float, true, true>()
+                : op.template run<float, true, false>();
+  return relu ? op.template run<float, false, true>()
+              : op.template run<float, false, false>();
 }
 
 }  // namespace
 
-// The tile (nb, cb, sb) and rows_per_chunk come from the wrapper, which
-// also allocates part: f32 scratch of n_chunks * ceil(S / sb) * 2 * C
-// values.  Grid: n_chunks x ceil(C / cb) x ceil(S / sb) blocks.
+// Blocks of the sums and dx kernels one SM holds at once, for a dtype, a
+// relu, a layout (channel_major: S > 1) and a load width (vec: 16 bytes).
+extern "C" int ptt_batch_norm_bwd_residency(int is_bf16, int relu,
+                                            int channel_major, int vec,
+                                            int* sums_blocks,
+                                            int* dx_blocks) {
+  return dispatch(is_bf16, vec, relu,
+                  Residency{channel_major != 0, sums_blocks, dx_blocks});
+}
+
+// The geometry comes from the wrapper (kernels.bn_bwd_geometry): vec 1
+// for 16-byte loads (the contiguous dimension -- C when S == 1, else S --
+// a multiple of 16 bytes' elements, and x, dy, dx 16-byte aligned), else
+// 0; channels-last (S == 1): bcols vectors a block, rpp rows a pass, gy =
+// ceil(C / V / bcols) column groups; channel-major: gy = C.  part is f32
+// scratch of gx_sums * 2 * C values.
 extern "C" int ptt_batch_norm_bwd(const void* x, const void* dy,
                                   const void* scale, const void* bias,
                                   const void* mean, const void* inv,
                                   void* dx, void* part, void* dscale,
                                   void* dbias, int64_t rows, int channels,
-                                  int spatial, int nb, int cb, int sb,
-                                  int64_t rows_per_chunk, int64_t n_chunks,
-                                  int relu, int is_bf16, void* stream) {
+                                  int spatial, int vec, int bcols, int rpp,
+                                  int gx_sums, int gx_dx, int gy, int relu,
+                                  int is_bf16, void* stream) {
   if (rows <= 0 || channels <= 0 || spatial <= 0) return cudaSuccess;
-  if (nb <= 0 || cb <= 0 || sb <= 0 || nb * cb * sb > kTile
-      || rows_per_chunk <= 0 || n_chunks <= 0
-      || (n_chunks - 1) * rows_per_chunk >= rows
-      || n_chunks * rows_per_chunk < rows || n_chunks > 0x7fffffff
-      || (channels + cb - 1) / cb > 65535 || (spatial + sb - 1) / sb > 65535)
+  const int v = vec ? 16 / (is_bf16 ? 2 : 4) : 1;
+  const int along = spatial == 1 ? channels : spatial;
+  if (along % v != 0 || gx_sums <= 0 || gx_dx <= 0 || gy <= 0
+      || gy > 65535)
     return cudaErrorInvalidValue;
-  const Geom g{rows, channels, spatial, nb, cb, sb, rows_per_chunk};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return relu ? launch<__nv_bfloat16, true>(x, dy, scale, bias, mean, inv,
-                                              dx, part, dscale, dbias, g,
-                                              n_chunks, st)
-                : launch<__nv_bfloat16, false>(x, dy, scale, bias, mean, inv,
-                                               dx, part, dscale, dbias, g,
-                                               n_chunks, st);
-  return relu ? launch<float, true>(x, dy, scale, bias, mean, inv, dx, part,
-                                    dscale, dbias, g, n_chunks, st)
-              : launch<float, false>(x, dy, scale, bias, mean, inv, dx, part,
-                                     dscale, dbias, g, n_chunks, st);
+  if (vec)
+    for (const void* p : {x, dy, static_cast<const void*>(dx)})
+      if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+        return cudaErrorMisalignedAddress;
+  if (spatial == 1) {
+    if (bcols <= 0 || bcols > kThreads || rpp <= 0 || rpp * bcols > kThreads
+        || static_cast<int64_t>(gy) * bcols * v < channels)
+      return cudaErrorInvalidValue;
+  } else if (gy != channels) {
+    return cudaErrorInvalidValue;
+  }
+  const Args a{x, dy, scale, bias, mean, inv, dx, part, dscale, dbias,
+               Geom{rows, channels, spatial, bcols, rpp},
+               gx_sums, gx_dx, gy, static_cast<cudaStream_t>(stream)};
+  return dispatch(is_bf16, vec, relu, Launch{a});
 }

@@ -36,7 +36,12 @@ port turns off elsewhere.
 Paged attention splits each slot's positions over blocks and merges
 them in a second kernel (flash-decoding); the LayerNorm forward keeps a
 row of up to 1024 features in one warp's registers.  `paged_geometry`
-and `layer_norm_geometry` pick their launch shapes.
+and `layer_norm_geometry` pick their launch shapes.  The BatchNorm
+backward streams x and dy twice with 16-byte loads in a grid of one wave
+of resident blocks (`bn_bwd_geometry`, from the library's occupancy
+query).  The LSTM backward runs its gates and dw products as tiled
+products around the serial recurrence, which forms dh_prev each step
+from partial sums the blocks exchange (tensor cores for a bf16 w).
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -142,7 +147,7 @@ BATCH_NORM_BWD = Kernel(
     "batch_norm_bwd", "batch_norm_bwd", "ptt_batch_norm_bwd",
     "paddle_tpu/ops/pallas_kernels.py:1277 _bn_bwd_kernel "
     "(bn_bwd_onepass :1798)",
-    [_P] * 10 + [_L, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P])
+    [_P] * 10 + [_L] + [_I] * 10 + [_P])
 
 LSTM_FWD = Kernel(
     "lstm_fwd", "lstm", "ptt_lstm_fwd",
@@ -153,7 +158,7 @@ LSTM_BWD = Kernel(
     "lstm_bwd", "lstm", "ptt_lstm_bwd",
     "paddle_tpu/ops/pallas_kernels.py:885 _lstm_bwd_kernel "
     "(_lstm_pallas_bwd :979)",
-    [_P] * 11 + [_I, _I, _I, _I, _P])
+    [_P] * 14 + [_I] * 5 + [_P])
 GRU_FWD = Kernel(
     "gru_fwd", "gru", "ptt_gru_fwd",
     "paddle_tpu/ops/pallas_kernels.py:1078 _gru_fwd_kernel "
@@ -192,6 +197,11 @@ def _stream(t: torch.Tensor) -> int:
     Stream object first, several us a call on the H100's host
     (PERF.md)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor):
@@ -661,28 +671,65 @@ def softmax_xent_bwd(x2: torch.Tensor, labels: torch.Tensor,
 # x and dy come as a [N', C, S] view: element (n, c, s) at n*C*S + c*S + s,
 # so NHWC activations are (N*H*W, C, 1) and NCHW ones (N, C, H*W).
 
-#: elements of one block's tile in the BatchNorm backward kernel (256
-#: threads x 4 positions; batch_norm_bwd.cu kTile)
-_BN_TILE = 1024
-#: blocks per SM the BatchNorm backward aims at (256 threads, 8 KB of
-#: shared memory and few registers each: 8 fit one SM)
-_BN_BLOCKS_PER_SM = 8
+#: threads of a BatchNorm backward block (batch_norm_bwd.cu kThreads)
+_BN_THREADS = 256
 
 
-def bn_bwd_geometry(rows: int, c: int, s: int, blocks: int):
-    """Tiling of the BatchNorm backward kernel over a [rows, C, S] view ->
-    (nb, cb, sb, rows_per_chunk, n_chunks): each block owns a tile of nb
-    rows x cb channels x sb positions (at most `_BN_TILE` elements) and
-    walks rows_per_chunk rows of n; the grid is n_chunks x ceil(C / cb) x
-    ceil(S / sb) blocks, about ``blocks`` in all."""
-    sb = min(s, _BN_TILE)
-    cb = min(c, _BN_TILE // sb)
-    nb = min(rows, _BN_TILE // (cb * sb))
-    tiles = -(-c // cb) * -(-s // sb)
-    chunks = max(1, min(-(-rows // nb), -(-blocks // tiles)))
-    per = -(-rows // chunks)
-    per = -(-per // nb) * nb              # whole tiles of rows
-    return nb, cb, sb, per, -(-rows // per)
+def bn_bwd_geometry(rows: int, c: int, s: int, vec: int, sums_per_sm: int,
+                    dx_per_sm: int, sms: int):
+    """Launch shape of the BatchNorm backward over a [rows, C, S] view ->
+    (bcols, rpp, gx_sums, gx_dx, gy).  ``vec`` is the elements a thread
+    loads at once (16 bytes' worth, or 1), ``sums_per_sm``/``dx_per_sm``
+    the blocks of the sums and dx kernels one SM holds at once.
+
+    Channels-last (S == 1): a block covers ``bcols`` vectors of a row (at
+    most 256, one a thread) and ``rpp`` rows a pass; gy column groups
+    cover the C / vec vectors of a row; block x of a group walks rows
+    bx * rpp + lane + k * gx * rpp.  Channel-major (S > 1): gy = C, one
+    channel a block, whose rows * S / vec vectors the gx blocks walk.
+    Each kernel's grid is one wave of what the card holds (gx * gy at
+    most blocks-per-SM x SMs), but no more blocks than there is work."""
+    if s == 1:
+        cols = c // vec
+        bcols = min(cols, _BN_THREADS)
+        rpp = _BN_THREADS // bcols
+        gy = -(-cols // bcols)
+        work = -(-rows // rpp)
+    else:
+        bcols, rpp, gy = 1, 1, c
+        work = -(-rows * (s // vec) // _BN_THREADS)
+
+    def wave(per_sm):
+        return max(1, min(per_sm * sms // gy, work))
+    return bcols, rpp, wave(sums_per_sm), wave(dx_per_sm), gy
+
+
+def bn_bwd_vec(c: int, s: int, itemsize: int, aligned: bool) -> int:
+    """Elements a BatchNorm backward thread loads at once over a [N', C,
+    S] view: 16 bytes' worth when the contiguous dimension (C for S == 1,
+    else S) is a multiple of that and the tensors are 16-byte
+    ``aligned``, else 1."""
+    vec = 16 // itemsize
+    return vec if aligned and (c if s == 1 else s) % vec == 0 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_residency(device: int, is_bf16: int, relu: int, channel_major: int,
+                  vec: int) -> Tuple[int, int]:
+    """(sums, dx) blocks of the BatchNorm backward kernels one SM of card
+    ``device`` holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    in the library)."""
+    fn = _build.load(BATCH_NORM_BWD.source).ptt_batch_norm_bwd_residency
+    fn.argtypes = [_I] * 4 + [_P, _P]
+    fn.restype = ctypes.c_int
+    sums, dx = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(is_bf16, relu, channel_major, int(vec > 1),
+                ctypes.byref(sums), ctypes.byref(dx))
+    if rc != 0 or sums.value < 1 or dx.value < 1:
+        raise RuntimeError(f"batch_norm_bwd residency query failed: CUDA "
+                           f"error {rc}, blocks {sums.value}/{dx.value}")
+    return sums.value, dx.value
 
 
 def batch_norm_apply(x3, scale, bias, mean, inv, act=None):
@@ -743,22 +790,28 @@ def batch_norm_bwd(x3: torch.Tensor, dy3: torch.Tensor, scale: torch.Tensor,
     if act not in (None, "relu"):
         raise ValueError(f"batch_norm_bwd: act {act!r} not in (None, 'relu')")
     _check_cuda("batch_norm_bwd", x3, dy3, scale, bias, mean, inv)
-    sms = torch.cuda.get_device_properties(x3.device).multi_processor_count
-    nb, cb, sb, per, chunks = bn_bwd_geometry(max(n, 1), c, s,
-                                              _BN_BLOCKS_PER_SM * sms)
+    if s > 1 and c > 65535:
+        raise ValueError(f"batch_norm_bwd: C={c} > 65535 channels with S > "
+                         "1 (one grid row a channel)")
     dx = torch.empty_like(x3)
-    part = torch.empty((chunks * -(-s // sb), 2, c), dtype=torch.float32,
+    dev = x3.get_device()
+    relu, bf16 = int(act == "relu"), int(x3.dtype == torch.bfloat16)
+    vec = bn_bwd_vec(c, s, x3.element_size(), all(
+        t.data_ptr() % 16 == 0 for t in (x3, dy3, dx)))
+    bcols, rpp, gx_sums, gx_dx, gy = bn_bwd_geometry(
+        max(n, 1), c, s, vec, *_bn_residency(dev, bf16, relu, int(s > 1),
+                                             vec), _sm_count(dev))
+    part = torch.empty((gx_sums, 2, c), dtype=torch.float32,
                        device=x3.device)
-    # the kernel writes every element unless there are no rows to sum
+    # the kernels write every element unless there are no rows to sum
     alloc = torch.empty if x3.numel() else torch.zeros
     dscale = alloc(c, dtype=torch.float32, device=x3.device)
     dbias = alloc(c, dtype=torch.float32, device=x3.device)
     BATCH_NORM_BWD.launch(
         x3.data_ptr(), dy3.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         mean.data_ptr(), inv.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        dscale.data_ptr(), dbias.data_ptr(), n, c, s, nb, cb, sb, per,
-        chunks, int(act == "relu"), int(x3.dtype == torch.bfloat16),
-        _stream(x3))
+        dscale.data_ptr(), dbias.data_ptr(), n, c, s, int(vec > 1), bcols,
+        rpp, gx_sums, gx_dx, gy, relu, bf16, _stream(x3))
     return dx, dscale, dbias
 
 
@@ -939,6 +992,25 @@ def lstm_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     return hs, cs
 
 
+def rnn_units_per_block(h: int, sms: int) -> int:
+    """Hidden units each block of a recurrent kernel owns
+    (recurrent.cuh units_per_block): the fewest of 1, 2, 4, 8 that need
+    no more blocks than the card has SMs, else 8."""
+    units = 1
+    while units < 8 and -(-h // units) > sms:
+        units *= 2
+    return units
+
+
+def lstm_dw_splits(h: int, tb: int) -> int:
+    """Runs of k the LSTM backward's dw product [H, T*B] x [T*B, 4H] is
+    split into (lstm.cu, summed in order after): enough 64 x 64 output
+    tiles x runs for about 1024 blocks, at most 8 runs, and no more runs
+    than T*B holds 128s of k."""
+    tiles = -(-h // 64) * -(-4 * h // 64)
+    return max(1, min(8, 1024 // tiles, -(-tb // 128)))
+
+
 def lstm_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
              c0: torch.Tensor, mask: torch.Tensor, hs: torch.Tensor,
              cs: torch.Tensor, dhs: torch.Tensor, dcs: torch.Tensor
@@ -946,21 +1018,39 @@ def lstm_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
                         torch.Tensor]:
     """Gradients of `lstm_fwd` from its inputs, its outputs hs and cs and
     their cotangents dhs and dcs -> (dxs [T, B, 4H], dw [H, 4H], dh0,
-    dc0), all f32.  One launch for all T steps."""
+    dc0), all f32.  One C call: the gates' product, the recurrence (one
+    cooperative launch for all T steps) and dw's product."""
     if xs.device.type == "cpu":
         return lstm_bwd_plain(xs, w, h0, c0, mask, hs, cs, dhs, dcs)
     t, b, h = _check_recurrent("lstm_bwd", 4, xs, w, (h0, c0),
                                (hs, cs, dhs, dcs), mask)
     hprev, cprev = _prev(h0, hs), _prev(c0, cs)
     dxs = torch.empty_like(xs)
+    # dgates as the dw product's bf16 operand (rows padded to whole
+    # 16-byte chunks)
+    bf16 = w.dtype == torch.bfloat16
+    dg16 = torch.empty((t, b, -(-4 * h // 8) * 8), dtype=torch.bfloat16,
+                       device=xs.device) if bf16 else None
     dw = torch.empty((h, 4 * h), dtype=torch.float32, device=xs.device)
+    # the exchange of dh_prev's partial sums: two halves of [blocks
+    # (reader)][blocks (writer)][B * units rounded up to 4] (lstm.cu)
+    units = rnn_units_per_block(h, _sm_count(xs.get_device()))
+    blocks = -(-h // units)
+    exch = torch.empty(2 * blocks * blocks * (-(-b * units // 4) * 4),
+                       dtype=torch.float32, device=xs.device)
+    splits = lstm_dw_splits(h, t * b)
+    part = torch.empty((splits, h, 4 * h), dtype=torch.float32,
+                       device=xs.device) if splits > 1 else None
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
     LSTM_BWD.launch(xs.data_ptr(), w.data_ptr(), hprev.data_ptr(),
                     cprev.data_ptr(), mask.data_ptr(), dhs.data_ptr(),
-                    dcs.data_ptr(), dxs.data_ptr(), dw.data_ptr(),
-                    dh0.data_ptr(), dc0.data_ptr(), t, b, h,
-                    int(w.dtype == torch.bfloat16), _stream(xs))
+                    dcs.data_ptr(), dxs.data_ptr(),
+                    dg16.data_ptr() if bf16 else None, exch.data_ptr(),
+                    dw.data_ptr(),
+                    part.data_ptr() if splits > 1 else None,
+                    dh0.data_ptr(), dc0.data_ptr(), t, b, h, splits,
+                    int(bf16), _stream(xs))
     return dxs, dw, dh0, dc0
 
 

@@ -731,21 +731,59 @@ def test_batch_norm_backward_matches_jax_closed_form(dtype, layout, act):
     _bn_check((got[0].reshape(shape),) + got[1:], want, dtype, tx)
 
 
+def _bn_walk(n, stride, reverse):
+    """The items one BatchNorm backward walker visits, in order, as the
+    kernels compute them: base + k * stride below n for each base <
+    stride, forward in the sums pass; in the dx pass from the last one
+    down, with C++'s truncating division and its early exit."""
+    walks = []
+    for base in range(stride):
+        if not reverse:
+            walks.append(list(range(base, n, stride)))
+        elif base < n:
+            first = base + int((n - 1 - base) / stride) * stride
+            walks.append(list(range(first, -1, -stride)))
+    return walks
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("shape", [
     (1605632, 64, 1), (128, 64, 12544), (401408, 256, 1), (6272, 2048, 1),
     (128, 2048, 49), (1000, 96, 1), (8, 96, 125), (1, 1, 1), (3, 5, 2000)])
-def test_batch_norm_backward_tiling(shape):
-    """The tiling the wrapper hands the kernel meets the launcher's
-    checks at ResNet-50's shapes and ragged ones: a tile of at most 1024
-    elements, whole tiles of rows per chunk, chunks that cover the rows
-    with none empty, grid dimensions within CUDA's limits."""
+def test_batch_norm_backward_tiling(shape, itemsize):
+    """The geometry the wrapper hands the kernels at ResNet-50's shapes and
+    ragged ones, in bf16 and f32: 16-byte loads exactly where the
+    contiguous dimension allows them (else the scalar path), a grid of
+    one wave of the given residency (3 sums and 2 dx blocks an SM on 132
+    SMs) or less when there is less work, column groups that cover C
+    with none empty, and walks that visit every row (channels-last) or
+    vector (channel-major) once in each pass, the dx pass in reverse."""
     rows, c, s = shape
-    nb, cb, sb, per, chunks = K.bn_bwd_geometry(rows, c, s, 1056)
-    assert nb * cb * sb <= K._BN_TILE and min(nb, cb, sb) >= 1
-    assert per % nb == 0
-    assert (chunks - 1) * per < rows <= chunks * per
-    assert -(-c // cb) <= 65535 and -(-s // sb) <= 65535
-    assert chunks * -(-c // cb) * -(-s // sb) <= 2 * 1056 or chunks == 1
+    full = 16 // itemsize
+    vec = K.bn_bwd_vec(c, s, itemsize, aligned=True)
+    assert vec == (full if (c if s == 1 else s) % full == 0 else 1)
+    assert K.bn_bwd_vec(c, s, itemsize, aligned=False) == 1
+    bcols, rpp, gx_sums, gx_dx, gy = K.bn_bwd_geometry(rows, c, s, vec, 3,
+                                                       2, 132)
+    if s == 1:
+        assert 1 <= bcols <= 256 and rpp * bcols <= 256
+        assert rpp == 256 // bcols
+        assert (gy - 1) * bcols * vec < c <= gy * bcols * vec
+        n, per_pass = rows, rpp
+    else:
+        assert gy == c
+        n, per_pass = rows * (s // vec), 256
+    for gx, per_sm in ((gx_sums, 3), (gx_dx, 2)):
+        # one wave, or every row (vector) already in one pass
+        assert gx >= 1
+        assert gx * gy <= max(per_sm * 132, gy)
+        assert gx * gy > per_sm * 132 - gy or gx * per_pass >= n or gx == 1
+        stride = gx * per_pass
+        if n > 50000:           # the walks are checked at ragged sizes
+            continue
+        fwd, rev = _bn_walk(n, stride, False), _bn_walk(n, stride, True)
+        assert sorted(i for w in fwd for i in w) == list(range(n))
+        assert [w[::-1] for w in rev] == [w for w in fwd if w]
 
 
 # ---------------------------------------------------------------------------

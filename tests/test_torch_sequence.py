@@ -119,6 +119,86 @@ def test_lstm_matches_pallas(wdtype):
         _close(leaf.grad, jg.astype(jnp.float32), _tol(wdtype, jg), name)
 
 
+def _dw_as_the_kernel_sums(hprev, dxs, wdtype):
+    """dw = h_prev^T . dgates summed as lstm.cu's dw product sums it: over
+    k = (t, b) in order.  bf16 w: operands rounded to bf16, each 16-deep
+    k-tile's product formed apart (f64, then rounded to f32: a tensor-core
+    mma from zero) and added to the f32 sum.  f32 w: one fused
+    multiply-add a k (f64 product and sum, rounded to f32)."""
+    a = hprev.reshape(-1, hprev.shape[-1])
+    b = dxs.reshape(-1, dxs.shape[-1])
+    dw = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float32)
+    if wdtype == "bfloat16":
+        a, b = (x.to(torch.bfloat16).double() for x in (a, b))
+        for k0 in range(0, a.shape[0], 16):
+            dw = dw + (a[k0:k0 + 16].T @ b[k0:k0 + 16]).float()
+    else:
+        a, b = a.double(), b.double()
+        for k in range(a.shape[0]):
+            dw = (dw.double() + a[k][:, None] * b[k][None, :]).float()
+    return dw
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+def test_lstm_dw_summation_order_matches_pallas(wdtype):
+    """The LSTM backward's dw product, emulated in its order of summation
+    from the plain version's dgates, against lstm_bwd_plain's dw and the
+    Pallas backward's (interpret mode): F32_TOL for an f32 w, the bf16
+    rule for a bf16 w."""
+    xs, w, jw, tw, h0, c0, gh, gc = _recurrent_case(4, wdtype, 2)
+    tm = _mask()
+    targs = (torch.from_numpy(xs), tw, torch.from_numpy(h0),
+             torch.from_numpy(c0), torch.from_numpy(tm))
+    hs, cs = K.lstm_fwd_plain(*targs)
+    dxs, dw, _, _ = K.lstm_bwd_plain(*targs, hs, cs, torch.from_numpy(gh),
+                                     torch.from_numpy(gc))
+    got = _dw_as_the_kernel_sums(K._prev(targs[2], hs), dxs, wdtype)
+    jargs = (jnp.asarray(xs), jw, jnp.asarray(h0), jnp.asarray(c0))
+    jhs, jcs = fused_lstm(*jargs, jnp.asarray(tm), True)
+    want = _lstm_pallas_bwd(*jargs, jnp.asarray(tm), jhs, jcs,
+                            jnp.asarray(gh), jnp.asarray(gc), True)[1]
+    _close(got, dw, _tol(wdtype, dw), "plain dw")
+    _close(got, want, _tol(wdtype, want), "Pallas dw")
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("units", [1, 4, 8])
+def test_lstm_dh_exchange_order_matches_plain(wdtype, units):
+    """dh_prev as the LSTM backward's recurrence forms it: each block of
+    ``units`` hidden units multiplies its own 4 * units dgates columns by
+    the matching columns of w for every j (operands rounded to bf16 for a
+    bf16 w, the product in f32), and the blocks' shares are added in
+    order of block.  Held against the plain version's mm(dgates) . w^T:
+    F32_TOL for an f32 w, the bf16 rule for a bf16 w."""
+    tw = _recurrent_case(4, wdtype, 3)[3]
+    dg = torch.from_numpy(np.random.RandomState(4).randn(B, 4 * H)
+                          .astype(np.float32))
+    wf = tw.float()
+    want = K._mm(dg, tw) @ wf.T
+    got = torch.zeros(B, H)
+    for j0 in range(0, H, units):
+        cols = [q * H + j0 + u for q in range(4) for u in range(units)]
+        share = (K._mm(dg[:, cols], tw).double()
+                 @ wf[:, cols].T.double()).float()
+        got = got + share
+    _close(got, want, _tol(wdtype, want), "dh_prev")
+
+
+@pytest.mark.parametrize("h,sms,units", [(512, 132, 4), (96, 132, 1),
+                                         (1024, 132, 8), (2048, 132, 8),
+                                         (264, 132, 2)])
+def test_recurrent_units_and_dw_splits(h, sms, units):
+    """The units a block the wrapper assumes (and sizes the exchange by)
+    follow recurrent.cuh's rule, and the dw product's split gives about
+    1024 blocks, at most 8 runs of at least 128 k each."""
+    assert K.rnn_units_per_block(h, sms) == units
+    tiles = -(-h // 64) * -(-4 * h // 64)
+    for tb in (7 * 5, 80 * 32, 4096 * 64):
+        s = K.lstm_dw_splits(h, tb)
+        assert 1 <= s <= 8 and (s == 1 or tb / s >= 128 / 2)
+        assert s * tiles <= max(1024, tiles)
+
+
 @pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
 def test_gru_matches_pallas(wdtype):
     """gru_fwd_plain and gru_bwd_plain against the Pallas kernels, and
