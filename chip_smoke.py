@@ -4,7 +4,7 @@
     python3 chip_smoke.py             # the smoke run, phases 1-11
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
-    python3 chip_smoke.py --lstm      # phase 1, recurrent phase 3, phase 9
+    python3 chip_smoke.py --lstm      # phase 1, recurrent phase 3, 9, 10
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -24,7 +24,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (torch.profiler, split by kernel name), the wrappers of paged
    attention and the LayerNorm forward by host us per call; the flash,
    BatchNorm and recurrent backward kernels must repeat bit for bit,
-   and the flash and LSTM libraries must hold tensor-core instructions
+   and the flash, LSTM and GRU libraries must hold tensor-core instructions
    (HMMA in cuobjdump -sass);
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
    768, 12 heads, d_ff 3072; seeded random weights saved as a model
@@ -75,11 +75,11 @@ the card's name and power limit, and the last line:
 With --serving it runs only phase 1, the paged-attention and LayerNorm
 checks and timings of phase 3, and phase 4; with --resnet phase 1, the
 BatchNorm backward's checks and timings and phase 7; with --lstm phase 1,
-the LSTM and GRU checks and timings and phase 9.  Each prints its results
-as one JSON line (no result line): run from two checkouts in turns, it
-compares two versions of those kernels on one card.  In these modes a
-recurrent kernel that refuses a width it should place is recorded, not
-fatal, so that an older kernel can be measured too.
+the LSTM and GRU checks and timings and phases 9 and 10.  Each prints its
+results as one JSON line (no result line): run from two checkouts in
+turns, it compares two versions of those kernels on one card.  In these
+modes a recurrent kernel that refuses a width it should place is
+recorded, not fatal, so that an older kernel can be measured too.
 """
 from __future__ import annotations
 
@@ -406,9 +406,9 @@ def _kernel_times(rec, kernel, plain, library, nbytes, ops, dtype, shape,
                   tensor_cores=False, plain_iters=20):
     """Fill ``rec`` with the times of one timed shape: CUDA-event ms of
     kernel, plain version and library yardstick, device ms per call of
-    kernel and library, and the bound; with ``tensor_cores`` (the flash
-    kernels) an f32 shape is bound by 3xTF32 on the tensor cores, with
-    the CUDA cores' bound beside it."""
+    kernel and library, and the bound; with ``tensor_cores`` an f32 shape
+    is bound by 3xTF32 on the tensor cores, with the CUDA cores' bound
+    beside it (the flash and recurrent kernels)."""
     rec["ms"] = _time_ms(kernel, iters=50)
     rec["plain_ms"] = _time_ms(plain, iters=plain_iters,
                                warmup=min(3, plain_iters))
@@ -498,8 +498,9 @@ def check_flash_attention(rec):
 
 
 #: the kernel libraries whose products run on the tensor cores: the flash
-#: pair, and the LSTM's bf16-w backward and its dw and gates products
-TENSOR_CORE_SOURCES = ("flash_attention", "flash_attention_bwd", "lstm")
+#: pair, and the LSTM and GRU recurrences' products (bf16, or 3xTF32)
+TENSOR_CORE_SOURCES = ("flash_attention", "flash_attention_bwd", "lstm",
+                       "gru")
 
 
 def check_tensor_cores(paths):
@@ -895,7 +896,11 @@ def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
     main path's shape and w dtype (the LSTM's bf16 w under program.amp,
     the GRU's f32), and the LSTM's also with f32 w, the dtype of its
     library yardstick.  At the main shape a second backward must repeat
-    bit for bit.  Then `check_recurrent_limits` (``strict`` as there)."""
+    bit for bit.  The LSTM also at LSTM_CHUNKED, where its forward stages
+    the batch in chunks (checked through ptt_lstm_fwd_rows), with both w
+    types.  Then `check_exchange_sizes` and `check_recurrent_limits`
+    (``strict`` as there: the A/B modes also run older libraries, which
+    may lack the queries)."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
     lstm = kind == "lstm"
@@ -905,7 +910,10 @@ def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
              (80, 32, 512, "ragged", True), (7, 5, 96, "ragged", False)]
     runs = [(c, wd) for wd in (torch.float32, torch.bfloat16)
             for c in cases]
-    if not lstm:
+    if lstm:
+        runs += [(LSTM_CHUNKED, wd)
+                 for wd in (torch.float32, torch.bfloat16)]
+    else:
         runs = [(c, torch.float32) for c in cases] + [
             (cases[0], torch.bfloat16)]
     for (t, b, h, lens, rev), wdt in runs:
@@ -916,6 +924,15 @@ def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
         label = (f"T{t} B{b} H{h} {lens}" + (" reverse" if rev else "")
                  + f" w {dn}")
         bf = wdt is torch.bfloat16
+        if lstm and (t, b, h, lens, rev) == LSTM_CHUNKED:
+            rows = _lstm_fwd_rows(b, h, bf, strict)
+            print(f"  lstm_fwd {label}: stages {rows} rows of {b} at once",
+                  flush=True)
+            rec_fwd.setdefault("chunked_rows", {})[dn] = rows
+            if rows is not None and not rows < b:
+                raise AssertionError(f"lstm_fwd {label} stages all {b} rows "
+                                     "at once: the chunked path is not "
+                                     "checked")
         if lstm:
             fwd_args = (xs, w, h0, c0, mask)
             got = K.lstm_fwd(*fwd_args)
@@ -957,14 +974,82 @@ def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
             rec_bwd["f32_w"] = _recurrent_timings(kind, True, fwd_args,
                                                   bwd_args)
         del got, ref, dgot, dref
+    check_exchange_sizes(kind, rec_bwd, strict)
     check_recurrent_limits(kind, g, rec_fwd, rec_bwd, strict)
+
+
+#: an LSTM shape whose forward stages the batch in chunks on the H100 (an
+#: f32 w stages 16 rows of 64 at H1024, a bf16 w 48): T, B, H, lengths,
+#: reversed
+LSTM_CHUNKED = (3, 64, 1024, "ragged", False)
+
+
+def _lstm_fwd_rows(b, h, bf16, strict=True):
+    """Rows of the batch the LSTM forward stages at once at B, H on this
+    card (ptt_lstm_fwd_rows); None from an older library without the
+    query when not ``strict``."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    try:
+        fn = _build.load("lstm").ptt_lstm_fwd_rows
+    except AttributeError:
+        if strict:
+            raise
+        return None
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = ctypes.c_int(0)
+    rc = fn(b, h, int(bf16), ctypes.byref(rows))
+    if rc != 0 or not 1 <= rows.value <= b:
+        raise AssertionError(f"ptt_lstm_fwd_rows({b}, {h}): error {rc}, "
+                             f"{rows.value} rows")
+    return rows.value
+
+
+def check_exchange_sizes(kind, rec_bwd, strict=True):
+    """The exchange buffer that the backward's library sizes
+    (ptt_rnn_exchange_floats, the wrappers' allocation) against the layout
+    its kernels use (recurrent.cuh): two [blocks] x [blocks] x [B * units
+    rounded up to 4] f32 buffers, units the fewest of 1, 2, 4, 8 that need
+    no more blocks than the card has SMs (else 8).  Skipped for an older
+    library (not ``strict``) that sizes the buffer in Python."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        query = K.rnn_exchange_floats
+        query(kind, 0, 96, 5)
+    except (AttributeError, TypeError):
+        if strict:
+            raise
+        print(f"  {kind}_bwd exchange sizes: no library query, skipped",
+              flush=True)
+        return
+    got = {}
+    for h in (96, 264, 512, 1024, 2048):
+        units = 1
+        while units < 8 and -(-h // units) > sms:
+            units *= 2
+        blocks = -(-h // units)
+        for b in (1, 5, 32, 64):
+            want = 2 * blocks * blocks * (-(-b * units // 4) * 4)
+            n = query(kind, 0, h, b)
+            got[f"H{h} B{b}"] = n
+            if n != want:
+                raise AssertionError(f"{kind}_bwd exchange at H{h} B{b}: "
+                                     f"the library sizes {n} f32, the "
+                                     f"layout needs {want}")
+    print(f"  {kind}_bwd exchange sizes ({sms} SMs): the library's agree "
+          f"with the layout at {len(got)} shapes (H512 B32: "
+          f"{got['H512 B32']} f32)", flush=True)
+    rec_bwd["exchange_floats"] = got
 
 
 #: the widths at which the recurrent kernels are checked at the edge of
 #: what the card can place (T3 B4, ragged, f32 w): kernel -> (H checked
 #: against the plain version, H that must be refused)
 RECURRENT_LIMITS = {"lstm_fwd": ((1024,), ()), "lstm_bwd": ((1024,), (2048,)),
-                    "gru_fwd": ((1024,), ()), "gru_bwd": ((), (1024,))}
+                    "gru_fwd": ((1024,), ()), "gru_bwd": ((1024,), (2048,))}
 
 
 def check_recurrent_limits(kind, g, rec_fwd, rec_bwd, strict=True):
@@ -1024,7 +1109,9 @@ def _recurrent_timings(kind, backward, fwd_args, bwd_args):
     kernel.  Bytes: each input read once, each output written once.
     Operations: the products, 2*T*B*H*G*H forward (G = 4 gates for the
     LSTM, 3 for the GRU) and three times that backward (the gates again,
-    dw, dh_prev), at the rate of w's dtype.  Library: torch.nn.LSTM
+    dw, dh_prev), at the rate of w's dtype on the tensor cores (3xTF32
+    for an f32 w, with the CUDA cores' bound beside it, as the flash
+    kernels' f32 bound).  Library: torch.nn.LSTM
     (cuDNN) forward or backward at the same T, B, H in f32, which also
     does the input product x . W_ih; none for the GRU (cuDNN's GRU
     computes r * (h . W_c), another function than (r * h) . W_c)."""
@@ -1056,12 +1143,23 @@ def _recurrent_timings(kind, backward, fwd_args, bwd_args):
                "plain_ms": _time_ms(lambda: plain(*args), iters=5, warmup=1),
                "library_ms": None, "library_device_ms": None}
         rec["device_ms"], names = _device_ms(lambda: fn(*args))
-        rec["bound_ms"], rec["bound_by"] = _bound(in_bytes + out_bytes, ops,
-                                                  dn)
+        rec["device_split"] = {n[:70]: t for n, t in names.items()}
+        f32 = dn == "float32"
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            in_bytes + out_bytes, ops, "float32_3xtf32" if f32 else dn)
+        if f32:
+            rec["bound_cuda_core_ms"] = _bound(in_bytes + out_bytes, ops,
+                                               "float32")[0]
         rec["shape"] = shape
         print(f"  {shape}: kernel {rec['ms']:.4f} ms (device "
               f"{rec['device_ms']}), plain {rec['plain_ms']:.4f} ms, bound "
-              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})", flush=True)
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}"
+              + (f"; CUDA cores {rec['bound_cuda_core_ms']:.4f}" if f32
+                 else "") + ")", flush=True)
+        print("    kernel device ms per call by name: " + "; ".join(
+            f"{n[:70]} {t:.4f}" for n, t in sorted(names.items(),
+                                                     key=lambda x: -x[1])),
+              flush=True)
         return rec
     lib = torch.nn.LSTM(h, h).cuda()
     x = torch.randn(t, b, h, device="cuda")
@@ -1079,7 +1177,7 @@ def _recurrent_timings(kind, backward, fwd_args, bwd_args):
                 return lib(x)
     return _kernel_times({}, lambda: fn(*args), lambda: plain(*args),
                          library, in_bytes + out_bytes, ops, dn, shape,
-                         plain_iters=5)
+                         tensor_cores=True, plain_iters=5)
 
 
 # ---------------------------------------------------------------------------
@@ -1378,7 +1476,7 @@ def _profile_step(exe, main, feed, avg_cost, other="other"):
               f"{sum(r.count for r in kernels)} kernel launches; by "
               "kernel (ms, launches):", flush=True)
         ours = ("flash_", "ln_", "sm_xent_", "paged_", "bn_", "lstm_",
-                "gru_")
+                "gru_", "rnn_")
         ranked = sorted(kernels, key=lambda r: -r.device_time_total)
         for i, r in enumerate(ranked):
             if i < 15 or any(f in r.key for f in ours):
@@ -1635,6 +1733,11 @@ def train_sequence(model, seed=0):
     per_s = 1e3 / e2e["step_ms_p50"]
     e2e.update(examples_per_s=SEQ_BATCH * per_s,
                tokens_per_s=SEQ_BATCH * SEQ_T * per_s)
+    device = e2e["profiled_device_ms"]
+    print(f"  {model}: the port's group "
+          f"{device['port'] if device else None} ms of device time a step, "
+          f"step p50 {e2e['step_ms_p50']:.3f} ms, device busy share "
+          f"{e2e['device_busy_share']}", flush=True)
     return launches, e2e, state
 
 
@@ -1706,17 +1809,20 @@ def resnet_ab(smi):
 
 def lstm_ab(smi):
     """``--lstm``: the recurrent kernels' phase 3 checks and timings (the
-    GRU's too: they share recurrent.cuh), then phase 9 (the stacked LSTM
-    with its profile)."""
+    GRU's too: they share recurrent.cuh), then phases 9 and 10 (the
+    stacked LSTM and the GRU classifier, each with its profile)."""
     from paddle_tpu_torch.ops import _build
     _build.build_all(("lstm", "gru"))
     recs = {k: {} for k in ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd")}
     for kind in ("lstm", "gru"):
         check_recurrent(kind, recs[f"{kind}_fwd"], recs[f"{kind}_bwd"],
                         strict=False)
-    launches, recs["stacked_lstm"], _ = train_sequence("lstm")
-    recs["stacked_lstm"]["launches"] = {k: launches[k]
-                                        for k in ("lstm_fwd", "lstm_bwd")}
+    for phase, model, key in ((9, "lstm", "stacked_lstm"),
+                              (10, "gru", "gru_classifier")):
+        print(f"phase {phase}: {model}", flush=True)
+        launches, recs[key], _ = train_sequence(model)
+        recs[key]["launches"] = {k: launches[k]
+                                 for k in (f"{model}_fwd", f"{model}_bwd")}
     return recs
 
 

@@ -22,20 +22,52 @@
 // before: the time is T times the latency of a step, and a GRU step has
 // two dependent products, since (r * h_prev) . w_c needs r of every unit.
 //
-// Design: as lstm.cu, one cooperative launch persistent over T; block k
+// Forward: as lstm.cu, one cooperative launch persistent over T; block k
 // owns HB hidden units and keeps the 3 * HB columns of w that feed them in
-// shared memory.  Forward, per step: r and z of its units from h_prev
-// (L2), r * h_prev of its units into a [B, H] scratch, a grid barrier,
-// then c of its units from the whole scratch, h, and a second barrier.
-// The backward also keeps the rows of w of its units ([HB][3H], for the
-// products with w^T) and its dw columns ([3HB][H] f32, summed over T in
-// shared memory and written once: no atomics).  Per step it needs three
-// barriers: after r * h_prev (the recomputed c needs every unit), after
-// dc_in (drh = dc_in . w_c^T needs every unit) and after dr_in/dz_in (the
-// last term of dh_prev, drz_in . w_rz^T).  dw's candidate columns read
-// the scratch before the third barrier, after which another block may
-// overwrite it for step t - 1.
-#include "recurrent.cuh"
+// shared memory.  Per step: r and z of its units from h_prev (L2), r *
+// h_prev of its units into a [B, H] scratch, a grid barrier, then c of
+// its units from the whole scratch, h, and a second barrier.
+//
+// Backward.  Only dh carries from step to step: r, z and c depend on the
+// saved h_prev alone, and dw on h_prev and the dgates of every step.  So
+// one C call enqueues three stages (counted as one launch):
+//   1. before the recurrence, as tiled products over all T
+//      (recurrent_gemm.cuh): the r|z pre-activations xs[.., :2H] +
+//      mm(h_prev) . w[:, :2H], [T*B, H] x [H, 2H], into dxs; r and z
+//      (activated, over them) and rh = r * h_prev into a [T, B, H]
+//      scratch; then c's pre-activation xs[.., 2H:] + mm(rh) . w[:, 2H:],
+//      [T*B, H] x [H, H], into dxs;
+//   2. the recurrence, one cooperative launch persistent over T.  Block k
+//      keeps, for every j, the 3 * HB columns of w of its units, in w's
+//      type ([H][3HB] with padding).  Per step, two exchanges of partial
+//      sums (recurrent.cuh) and two grid barriers:
+//        (a) for its units dh = dhs + the carried dh, dc_in and dz_in into
+//            dxs, then its share of drh for every j, sum over its units of
+//            mm(dc_in) . w_c[j, unit], into exchange 1;  barrier 1;
+//        (b) drh of its units gathered in order of writer, dr_in into dxs,
+//            the carry (1 - m) dh + dh_new (1 - z) + drh r, then its share
+//            of the reference's drz_in . w_rz^T into exchange 2;  barrier 2;
+//        (c) exchange 2 of its units gathered into the carry.
+//      No block reads another block's dgates.  Each exchange needs one
+//      buffer, not two halves: exchange 1 is written in (a) and read in (b)
+//      of a step, and the next write, in (a) of step t - 1, comes after
+//      barrier 2, which every block passes only after its reading in (b);
+//      exchange 2 is written in (b) and read in (c), and its next write
+//      comes after barrier 1 of step t - 1, which every block passes only
+//      after its (c).  The step's inputs of the block's units (dhs, h_prev,
+//      r, z, c) are prefetched one step ahead with cp.async;
+//   3. after the recurrence, dw as tiled products: dw[:, :2H] =
+//      mm(h_prev)^T . mm(drz_in) and dw[:, 2H:] = mm(rh)^T . mm(dc_in),
+//      [H, T*B] x [T*B, .], split over k and summed in order of split.
+// The tiled products run on the tensor cores, bf16 mma.sync for a bf16 w
+// and 3xTF32 for f32 (each 16- or 8-deep product summed from zero and
+// added with FADD); the exchanges' shares run bf16 mma.sync for a bf16 w
+// and the CUDA cores for f32.  Every sum is taken in a fixed order and
+// nothing is summed with atomics: runs repeat bit for bit.  Shared memory
+// is about H * 3HB of w's type plus operands (120 KB at H1024 B32 for an
+// f32 w), so H1024 places (HB 8, 128 blocks); H2048 needs 256 blocks, one
+// an SM, and is refused.
+#include "recurrent_gemm.cuh"
 
 namespace {
 
@@ -111,169 +143,241 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// --- backward ------------------------------------------------------------
+//
+// Shared memory of the recurrence.  Row j of w_s holds the block's
+// columns of w for unit row j: w[j][q*H + j0 + u] at q*HB + u for the r|z
+// gates (q = 0, 1, padded to KR columns), then w[j][2H + j0 + u] at KR + u
+// for c (padded to KC); a_s holds the batch rows of the block's dgates in
+// the same columns (dr_in, dz_in; dc_in), the operands of its two shares.
+// bf16: KR and KC are whole m16n8k16 depths and rows carry 16 bytes of
+// padding (ldmatrix rows in distinct banks); f32: no padding but one word.
+template <typename W, int HB>
+struct BwdGeom {
+  static constexpr bool kBf16 = sizeof(W) == 2;
+  static constexpr int KR = kBf16 ? (2 * HB + 15) / 16 * 16 : 2 * HB;
+  static constexpr int KC = kBf16 ? (HB + 15) / 16 * 16 : HB;
+  static constexpr int LD = KR + KC + (kBf16 ? 8 : 1);
+};
+
+// Row stride of the bf16 dgates copy (the dw products' operand): 3H in
+// whole 16-byte chunks.
+__host__ __device__ inline int dg_ld(int H) { return (3 * H + 7) / 8 * 8; }
+
+// w_s [roundup(H, 16)][LD] and a_s [roundup(B, 16)][LD] of w's type; the
+// exchange read's sums (max(1024, seg) f32); per (row, unit) the carried
+// dh, its part known before the exchanges, and drh ([B][HB] f32 each);
+// the prefetched inputs of two steps ([2][5][B][HB] f32: dhs, h_prev, r,
+// z, c's pre-activation) and their masks ([2][B]).
+template <typename W, int HB>
+size_t bwd_smem(int B, int H) {
+  using G = BwdGeom<W, HB>;
+  const size_t rows = (H + 15) / 16 * 16 + (B + 15) / 16 * 16;
+  const int seg = exchange_seg(B, HB);
+  const size_t red = seg > 1024 ? seg : 1024;
+  return (rows * G::LD * sizeof(W) + 15) / 16 * 16
+         + sizeof(float) * (red + 13 * static_cast<size_t>(B) * HB + 2 * B);
+}
+
+// Prefetch step t's inputs of the block's (row, unit) pairs into in_s
+// [5][B][HB] and m_s [B] with 4-byte cp.async copies (committed by the
+// caller): dhs[t], h_prev[t] and, from dxs, r, z and c's pre-activation.
+__device__ __forceinline__ void prefetch_step(float* in_s, float* m_s,
+                                              const float* dhs,
+                                              const float* hprev,
+                                              const float* dxs,
+                                              const float* mask, int t,
+                                              int B, int H, int HB, int j0,
+                                              int nu) {
+  using ptt::fa::cp_async4;
+  const int64_t BH = static_cast<int64_t>(B) * H, H3 = 3LL * H;
+  for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
+    const int b = idx / nu, u = idx - b * nu, j = j0 + u, at = b * HB + u;
+    const int64_t hb = t * BH + static_cast<int64_t>(b) * H + j;
+    const float* gx = dxs + (static_cast<int64_t>(t) * B + b) * H3 + j;
+    cp_async4(in_s + at, dhs + hb, 4);
+    cp_async4(in_s + B * HB + at, hprev + hb, 4);
+    cp_async4(in_s + 2 * B * HB + at, gx, 4);
+    cp_async4(in_s + 3 * B * HB + at, gx + H, 4);
+    cp_async4(in_s + 4 * B * HB + at, gx + 2 * H, 4);
+  }
+  for (int b = threadIdx.x; b < B; b += kThreads)
+    cp_async4(m_s + b, mask + t * B + b, 4);
+}
+
+// One cooperative launch for all T steps, block k owning units [k * HB,
+// k * HB + HB).  On entry dxs holds r and z (activated) and c's
+// pre-activation (the products before the launch); on exit the dgates
+// dr_in, dz_in, dc_in.  Per step (a: the units' dc_in, dz_in and the share
+// of drh; barrier 1; b: drh gathered, dr_in, the carry's middle terms and
+// the share of drz_in . w_rz^T; barrier 2; c: that share gathered into
+// the carry).  ex1 and ex2 are [blocks][blocks][seg] f32 each.
 template <typename W, int HB>
 __global__ void __launch_bounds__(kThreads)
-    gru_bwd_kernel(const float* __restrict__ xs, const W* __restrict__ w,
-                   const float* __restrict__ hprev,
+    gru_bwd_kernel(const W* __restrict__ w, const float* __restrict__ hprev,
                    const float* __restrict__ mask,
-                   const float* __restrict__ dhs, float* dxs, float* dw,
-                   float* dh0, float* rh, int T, int B, int H) {
-  constexpr int G = 3 * HB;
-  constexpr int RZ = 2 * HB;
-  constexpr int R2 = rows_per_warp(RZ);
-  constexpr int R1 = rows_per_warp(HB);
-  extern __shared__ float smem[];
-  float* wc_s = smem;             // [G][H]   the units' columns: r, z, c
-  float* wrc_s = wc_s + G * H;    // [HB][H]  w[units, c columns]
-  float* wrz_s = wrc_s + HB * H;  // [HB][2H] w[units, r|z columns]
-  float* dw_s = wrz_s + RZ * H;   // [G][H]   dw of the units' columns
-  float* rz_s = dw_s + G * H;     // [B][2HB] r and z
-  float* c_s = rz_s + B * RZ;     // [B][HB]  c
-  float* dg_s = c_s + B * HB;     // [B][G]   dr_in, dz_in, dc_in for dw
-  float* dz_s = dg_s + B * G;     // [B][HB]  dz
-  float* dh_s = dz_s + B * HB;    // [B][HB]  dh carried to step t - 1
+                   const float* __restrict__ dhs, float* dxs,
+                   __nv_bfloat16* dg16, float* ex1, float* ex2, float* dh0,
+                   int T, int B, int H) {
+  using G = BwdGeom<W, HB>;
+  constexpr bool kBf16 = G::kBf16;
+  constexpr int KR = G::KR, KC = G::KC, LD = G::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int j0 = blockIdx.x * HB, nu = min(HB, H - j0);
-  const int warp = threadIdx.x >> 5;
-  const int64_t H3 = 3LL * H, BH = static_cast<int64_t>(B) * H;
-  load_columns<W, HB>(w, H, 3, j0, nu, wc_s);
-  load_rows<W, HB>(w, H3, 2 * H, H, j0, nu, wrc_s);
-  load_rows<W, HB>(w, H3, 0, 2 * H, j0, nu, wrz_s);
-  for (int idx = threadIdx.x; idx < G * H; idx += kThreads) dw_s[idx] = 0.f;
-  for (int idx = threadIdx.x; idx < B * HB; idx += kThreads) dh_s[idx] = 0.f;
-  __syncthreads();
+  const int blocks = gridDim.x, ldd = dg_ld(H);
+  const int64_t H3 = 3LL * H;
+  const int hp = (H + 15) / 16 * 16, bp = (B + 15) / 16 * 16;
+  const int BU = B * HB;
+  W* w_s = reinterpret_cast<W*>(smem_raw);
+  W* a_s = w_s + hp * LD;
+  float* red = reinterpret_cast<float*>(
+      smem_raw + ((hp + bp) * LD * sizeof(W) + 15) / 16 * 16);
+  float* carry_s = red + max(1024, exchange_seg(B, HB));  // dh to step t-1
+  float* part_s = carry_s + BU;  // (1 - m) dh + dh_new (1 - z)
+  float* drh_s = part_s + BU;
+  float* in_s = drh_s + BU;      // [2][5][B][HB]
+  float* m_s = in_s + 10 * BU;   // [2][B]
+  for (int idx = threadIdx.x; idx < hp * LD; idx += kThreads) {
+    const int j = idx / LD, n = idx - j * LD;
+    const int q = n < KR ? n / HB : 2, u = n < KR ? n % HB : n - KR;
+    const bool in = j < H && u < nu && (n < KR ? n < 2 * HB : u < HB);
+    w_s[idx] = in ? w[static_cast<int64_t>(j) * H3 + q * H + j0 + u]
+                  : static_cast<W>(0.f);
+  }
+  for (int idx = threadIdx.x; idx < bp * LD; idx += kThreads)
+    a_s[idx] = static_cast<W>(0.f);
+  for (int idx = threadIdx.x; idx < BU; idx += kThreads) carry_s[idx] = 0.f;
+  prefetch_step(in_s + ((T - 1) & 1) * 5 * BU, m_s + ((T - 1) & 1) * B, dhs,
+                hprev, dxs, mask, T - 1, B, H, HB, j0, nu);
+  ptt::fa::cp_async_commit();
   cg::grid_group grid = cg::this_grid();
   for (int t = T - 1; t >= 0; --t) {
-    const float* hp = hprev + t * BH;
-    const float* xt = xs + t * B * H3;
-    float* dxt = dxs + t * B * H3;
-    // 1. r and z of the units, then their r * h_prev into the scratch
-    for (int b0 = warp * R2; b0 < B; b0 += kWarps * R2) {
-      float acc[R2][RZ];
-      warp_rows_dot<W, R2, RZ, false>(hp, H, b0, B, H, wc_s, acc);
-#pragma unroll
-      for (int r = 0; r < R2; ++r)
-#pragma unroll
-        for (int n = 0; n < RZ; ++n) {
-          const int b = b0 + r, q = n / HB, u = n % HB;
-          if (lane_owns(r, n, RZ) && b < B && u < nu)
-            rz_s[b * RZ + n] =
-                sigmoid(xt[b * H3 + q * H + j0 + u] + acc[r][n]);
-        }
-    }
+    float* dxt = dxs + static_cast<int64_t>(t) * B * H3;
+    const float* in = in_s + (t & 1) * 5 * BU;
+    const float* mt = m_s + (t & 1) * B;
+    ptt::fa::cp_async_wait<0>();
     __syncthreads();
+    // (a) dc_in and dz_in of the units, then the share of drh
     for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
-      const int b = idx / nu, u = idx - b * nu;
-      const int64_t at = static_cast<int64_t>(b) * H + j0 + u;
-      rh[at] = rz_s[b * RZ + u] * hp[at];
-    }
-    grid.sync();
-    // 2. c of the units from every unit's r * h_prev
-    for (int b0 = warp * R1; b0 < B; b0 += kWarps * R1) {
-      float acc[R1][HB];
-      warp_rows_dot<W, R1, HB, true>(rh, H, b0, B, H, wc_s + RZ * H, acc);
-#pragma unroll
-      for (int r = 0; r < R1; ++r)
-#pragma unroll
-        for (int u = 0; u < HB; ++u) {
-          const int b = b0 + r;
-          if (lane_owns(r, u, HB) && b < B && u < nu)
-            c_s[b * HB + u] =
-                tanhf(xt[b * H3 + 2 * H + j0 + u] + acc[r][u]);
-        }
-    }
-    __syncthreads();
-    // 3. dc_in of the units (into dxs), dz, and dh_prev's first terms
-    for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
-      const int b = idx / nu, u = idx - b * nu, j = j0 + u;
-      const int64_t at = static_cast<int64_t>(b) * H + j;
-      const float z = rz_s[b * RZ + HB + u], c = c_s[b * HB + u];
-      const float h_prev = hp[at];
-      const float m = mask[t * B + b];
-      const float dh = dhs[t * BH + at] + dh_s[b * HB + u];
+      const int b = idx / nu, u = idx - b * nu, j = j0 + u, at = b * HB + u;
+      const float h_prev = in[BU + at], z = in[3 * BU + at];
+      const float c = tanhf(in[4 * BU + at]);
+      const float m = mt[b];
+      const float dh = in[at] + carry_s[at];
       const float dh_new = m * dh;
+      part_s[at] = (1.f - m) * dh + dh_new * (1.f - z);
+      const float dz = dh_new * (c - h_prev);
       const float dc_in = dh_new * z * (1.f - c * c);
+      const float dz_in = dz * z * (1.f - z);
+      dxt[b * H3 + H + j] = dz_in;
       dxt[b * H3 + 2 * H + j] = dc_in;
-      dg_s[b * G + RZ + u] = mm<W>(dc_in);
-      dz_s[b * HB + u] = dh_new * (c - h_prev);
-      dh_s[b * HB + u] = (1.f - m) * dh + dh_new * (1.f - z);
-    }
-    __syncthreads();
-    // 4. dw of the units' c columns += mm(r * h_prev)^T . dc_in, while the
-    //    scratch still holds step t
-    for (int k = threadIdx.x; k < H; k += kThreads) {
-      float a[HB];
-#pragma unroll
-      for (int u = 0; u < HB; ++u) a[u] = 0.f;
-      for (int b = 0; b < B; ++b) {
-        const float v = mm<W>(__ldcg(rh + b * H + k));
-#pragma unroll
-        for (int u = 0; u < HB; ++u)
-          a[u] = fmaf(v, dg_s[b * G + RZ + u], a[u]);
+      a_s[b * LD + HB + u] = static_cast<W>(dz_in);
+      a_s[b * LD + KR + u] = static_cast<W>(dc_in);
+      if constexpr (kBf16) {
+        __nv_bfloat16* d = dg16 + (static_cast<int64_t>(t) * B + b) * ldd + j;
+        d[H] = __float2bfloat16(dz_in);
+        d[2 * H] = __float2bfloat16(dc_in);
       }
-#pragma unroll
-      for (int u = 0; u < HB; ++u) dw_s[(RZ + u) * H + k] += a[u];
-    }
-    // every block's dc_in of step t is in dxs
-    grid.sync();
-    // 5. drh = mm(dc_in) . w[units, c]^T, then dr_in and dz_in (into dxs)
-    for (int b0 = warp * R1; b0 < B; b0 += kWarps * R1) {
-      float acc[R1][HB];
-      warp_rows_dot<W, R1, HB, true>(dxt + 2 * H, H3, b0, B, H, wrc_s, acc);
-#pragma unroll
-      for (int r = 0; r < R1; ++r)
-#pragma unroll
-        for (int u = 0; u < HB; ++u) {
-          const int b = b0 + r, j = j0 + u;
-          if (!(lane_owns(r, u, HB) && b < B && u < nu)) continue;
-          const float rr = rz_s[b * RZ + u], z = rz_s[b * RZ + HB + u];
-          const float drh = acc[r][u];
-          const float h_prev = hp[static_cast<int64_t>(b) * H + j];
-          dh_s[b * HB + u] += drh * rr;
-          const float dr_in = drh * h_prev * rr * (1.f - rr);
-          const float dz_in = dz_s[b * HB + u] * z * (1.f - z);
-          dxt[b * H3 + j] = dr_in;
-          dxt[b * H3 + H + j] = dz_in;
-          dg_s[b * G + u] = mm<W>(dr_in);
-          dg_s[b * G + HB + u] = mm<W>(dz_in);
-        }
     }
     __syncthreads();
-    // 6. dw of the units' r and z columns += mm(h_prev)^T . drz_in
-    for (int k = threadIdx.x; k < H; k += kThreads) {
-      float a[RZ];
-#pragma unroll
-      for (int n = 0; n < RZ; ++n) a[n] = 0.f;
-      for (int b = 0; b < B; ++b) {
-        const float v = mm<W>(hp[b * H + k]);
-#pragma unroll
-        for (int n = 0; n < RZ; ++n) a[n] = fmaf(v, dg_s[b * G + n], a[n]);
-      }
-#pragma unroll
-      for (int n = 0; n < RZ; ++n) dw_s[n * H + k] += a[n];
+    exchange_share<W, HB, KC>(a_s + KR, LD, w_s + KR, LD, ex1, blockIdx.x,
+                              blocks, B, H);
+    grid.sync();  // barrier 1
+    // (b) drh of the units, dr_in, and the share of drz_in . w_rz^T
+    exchange_gather<HB, false>(ex1, red, drh_s, blocks, B, nu);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
+      const int b = idx / nu, u = idx - b * nu, j = j0 + u, at = b * HB + u;
+      const float h_prev = in[BU + at], r = in[2 * BU + at];
+      const float drh = drh_s[at];
+      const float dr_in = drh * h_prev * r * (1.f - r);
+      dxt[b * H3 + j] = dr_in;
+      a_s[b * LD + u] = static_cast<W>(dr_in);
+      if constexpr (kBf16)
+        dg16[(static_cast<int64_t>(t) * B + b) * ldd + j] =
+            __float2bfloat16(dr_in);
+      carry_s[at] = part_s[at] + drh * r;
     }
-    // every block's dr_in and dz_in of step t are in dxs
-    grid.sync();
-    // 7. dh_prev += mm(drz_in) . w[units, r|z]^T
-    for (int b0 = warp * R1; b0 < B; b0 += kWarps * R1) {
-      float acc[R1][HB];
-      warp_rows_dot<W, R1, HB, true>(dxt, H3, b0, B, 2 * H, wrz_s, acc);
-#pragma unroll
-      for (int r = 0; r < R1; ++r)
-#pragma unroll
-        for (int u = 0; u < HB; ++u)
-          if (lane_owns(r, u, HB) && b0 + r < B && u < nu)
-            dh_s[(b0 + r) * HB + u] += acc[r][u];
+    if (t > 0) {
+      prefetch_step(in_s + ((t - 1) & 1) * 5 * BU, m_s + ((t - 1) & 1) * B,
+                    dhs, hprev, dxs, mask, t - 1, B, H, HB, j0, nu);
+      ptt::fa::cp_async_commit();
     }
     __syncthreads();
+    exchange_share<W, HB, KR>(a_s, LD, w_s, LD, ex2, blockIdx.x, blocks, B,
+                              H);
+    grid.sync();  // barrier 2
+    // (c) the carry += the shares of every block
+    exchange_gather<HB, true>(ex2, red, carry_s, blocks, B, nu);
   }
-  for (int idx = threadIdx.x; idx < G * H; idx += kThreads) {
-    const int n = idx / H, k = idx - n * H, q = n / HB, u = n % HB;
-    if (u < nu) dw[k * H3 + q * H + j0 + u] = dw_s[idx];
-  }
+  __syncthreads();
   for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
     const int b = idx / nu, u = idx - b * nu;
-    dh0[b * H + j0 + u] = dh_s[b * HB + u];
+    dh0[b * H + j0 + u] = carry_s[b * HB + u];
   }
+}
+
+// r = sigmoid(dxs[.., :H]) and z = sigmoid(dxs[.., H:2H]) written over
+// their pre-activations, and rh = r * h_prev, for all T * B rows.
+__global__ void gru_gates_kernel(float* __restrict__ dxs,
+                                 const float* __restrict__ hprev,
+                                 float* __restrict__ rh, int64_t rows,
+                                 int H) {
+  const int64_t n = rows * H, H3 = 3LL * H;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
+                   + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = i / H, j = i - row * H;
+    float* g = dxs + row * H3 + j;
+    const float r = sigmoid(g[0]), z = sigmoid(g[H]);
+    g[0] = r;
+    g[H] = z;
+    rh[i] = r * hprev[i];
+  }
+}
+
+// The backward: check that the recurrence can be placed, then enqueue the
+// gates (r|z product, r and z with rh, c's product, all into dxs), the
+// recurrence, and dw's two products (in S runs of k through part, summed
+// after, when S > 1).
+template <typename W, int HB>
+int launch_bwd(const float* xs, const W* w, const float* hprev,
+               const float* mask, const float* dhs, float* dxs,
+               __nv_bfloat16* dg16, float* exch, float* dw, float* part,
+               int S, float* dh0, float* rh, int T, int B, int H,
+               cudaStream_t st) {
+  auto kern = gru_bwd_kernel<W, HB>;
+  const int blocks = (H + HB - 1) / HB;
+  const size_t smem = bwd_smem<W, HB>(B, H);
+  cudaError_t e = place(kern, blocks, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int TB = T * B, H2 = 2 * H, H3 = 3 * H;
+  launch_gemm<W, false>(hprev, H, w, H3, xs, dxs, H3, 1, TB, H2, H, st);
+  gru_gates_kernel<<<264, 256, 0, st>>>(dxs, hprev, rh, TB, H);
+  launch_gemm<W, false>(rh, H, w + H2, H3, xs + H2, dxs + H2, H3, 1, TB, H,
+                        H, st);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* ex1 = exch;
+  float* ex2 = exch + static_cast<int64_t>(blocks) * blocks
+                          * exchange_seg(B, HB);
+  void* args[] = {&w, &hprev, &mask, &dhs, &dxs, &dg16, &ex1, &ex2, &dh0,
+                  &T, &B, &H};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                  blocks, kThreads, args, smem, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the dgates as the products' operand: the bf16 copy, or dxs itself
+  const bool bf = sizeof(W) == 2;
+  const W* dg = bf ? reinterpret_cast<const W*>(dg16)
+                   : reinterpret_cast<const W*>(dxs);
+  const int ldg = bf ? dg_ld(H) : H3;
+  float* out = S > 1 ? part : dw;
+  launch_gemm<W, true>(hprev, H, dg, ldg, nullptr, out, H3, S, H, H2, TB,
+                       st);
+  launch_gemm<W, true>(rh, H, dg + H2, ldg, nullptr, out + H2, H3, S, H, H,
+                       TB, st);
+  if (S > 1) launch_sum_splits(part, dw, static_cast<int64_t>(H) * H3, S, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename W, int HB>
@@ -326,26 +430,30 @@ int fwd(const void* xs, const void* w, const void* h0, const void* mask,
 
 template <typename W>
 int bwd(const void* xs, const void* w, const void* hprev, const void* mask,
-        const void* dhs, void* dxs, void* dw, void* dh0, void* rh, int T,
-        int B, int H, cudaStream_t st) {
+        const void* dhs, void* dxs, void* dg16, void* exch, void* dw,
+        void* part, int S, void* dh0, void* rh, int T, int B, int H,
+        cudaStream_t st) {
   const float* x = static_cast<const float*>(xs);
   const W* wt = static_cast<const W*>(w);
   const float* hp = static_cast<const float*>(hprev);
   const float* m = static_cast<const float*>(mask);
   const float* gh = static_cast<const float*>(dhs);
   float* dx = static_cast<float*>(dxs);
+  __nv_bfloat16* dg = static_cast<__nv_bfloat16*>(dg16);
+  float* ex = static_cast<float*>(exch);
   float* dwo = static_cast<float*>(dw);
+  float* pt = static_cast<float*>(part);
   float* dh = static_cast<float*>(dh0);
   float* s = static_cast<float*>(rh);
   switch (units_per_block(H)) {
-    case 1: return launch_bwd<W, 1>(x, wt, hp, m, gh, dx, dwo, dh, s, T, B,
-                                    H, st);
-    case 2: return launch_bwd<W, 2>(x, wt, hp, m, gh, dx, dwo, dh, s, T, B,
-                                    H, st);
-    case 4: return launch_bwd<W, 4>(x, wt, hp, m, gh, dx, dwo, dh, s, T, B,
-                                    H, st);
-    default: return launch_bwd<W, 8>(x, wt, hp, m, gh, dx, dwo, dh, s, T, B,
-                                     H, st);
+    case 1: return launch_bwd<W, 1>(x, wt, hp, m, gh, dx, dg, ex, dwo, pt, S,
+                                    dh, s, T, B, H, st);
+    case 2: return launch_bwd<W, 2>(x, wt, hp, m, gh, dx, dg, ex, dwo, pt, S,
+                                    dh, s, T, B, H, st);
+    case 4: return launch_bwd<W, 4>(x, wt, hp, m, gh, dx, dg, ex, dwo, pt, S,
+                                    dh, s, T, B, H, st);
+    default: return launch_bwd<W, 8>(x, wt, hp, m, gh, dx, dg, ex, dwo, pt,
+                                     S, dh, s, T, B, H, st);
   }
 }
 
@@ -362,16 +470,30 @@ extern "C" int ptt_gru_fwd(const void* xs, const void* w, const void* h0,
 }
 
 // hprev [T, B, H]: the state each step starts from ([h0, hs[:-1]]).
-// dxs [T, B, 3H], dw [H, 3H], dh0 [B, H], all f32, fully written; rh is
-// [B, H] f32 scratch.
+// dxs [T, B, 3H], dw [H, 3H], dh0 [B, H], all f32, fully written.
+// Scratch: rh [T, B, H] f32 (r * h_prev, the c product's and dw's operand);
+// dg16 [T, B, dg_ld(H)] bf16 for a bf16 w (unused for f32); exch, the two
+// exchanges, of the f32 elements that ptt_rnn_exchange_floats gives
+// (recurrent.cuh); for dw_splits S > 1 part [S, H, 3H] f32.
+// Seven kernels, one call (six with S == 1): r|z product, r, z and rh, c
+// product, recurrence, dw's two products (and the sum of their S runs).
 extern "C" int ptt_gru_bwd(const void* xs, const void* w, const void* hprev,
                            const void* mask, const void* dhs, void* dxs,
-                           void* dw, void* dh0, void* rh, int T, int B,
-                           int H, int w_bf16, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
+                           void* dg16, void* exch, void* dw, void* part,
+                           void* dh0, void* rh, int T, int B, int H,
+                           int dw_splits, int w_bf16, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || dw_splits <= 0)
+    return cudaErrorInvalidValue;
+  if ((w_bf16 && dg16 == nullptr) || exch == nullptr || rh == nullptr
+      || (dw_splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  for (const void* p : {exch, dw, part})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return w_bf16 ? bwd<__nv_bfloat16>(xs, w, hprev, mask, dhs, dxs, dw, dh0,
-                                     rh, T, B, H, st)
-                : bwd<float>(xs, w, hprev, mask, dhs, dxs, dw, dh0, rh, T, B,
-                             H, st);
+  return w_bf16 ? bwd<__nv_bfloat16>(xs, w, hprev, mask, dhs, dxs, dg16,
+                                     exch, dw, part, dw_splits, dh0, rh, T,
+                                     B, H, st)
+                : bwd<float>(xs, w, hprev, mask, dhs, dxs, dg16, exch, dw,
+                             part, dw_splits, dh0, rh, T, B, H, st);
 }

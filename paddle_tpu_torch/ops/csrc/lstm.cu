@@ -23,35 +23,207 @@
 // Forward.  On the TPU the grid over T runs in order on one core with w
 // in VMEM.  Here one cooperative launch is persistent over T: block k
 // owns HB hidden units (HB = 4 at H = 512: 128 blocks on 132 SMs) and
-// keeps the 4 * HB columns of w that feed them in shared memory ([4HB][H]
-// f32, 32 KB), so its gate math stays local.  Per step each warp takes R
-// batch rows, reads h_prev from L2 and accumulates R x 4HB dot products
-// over H (lanes stride over H, then a warp reduction); the cell math runs
-// per (row, unit); `grid.sync()` ends the step.
+// keeps the 4 * HB columns of w that feed them in shared memory, in w's
+// own type, so its gate math stays local.  Per step every block needs all
+// of h_prev (the gates are 4H wide and h is H wide, so an exchange of
+// partial gates would move 4x the bytes of h: the all-gather stays, made
+// cheap):
+//   - h is published in the product's precision: for a bf16 w each block
+//     also writes its units' h rounded to bf16 (exactly the operand the
+//     plain version multiplies) into a two-slot buffer h16 (slot t & 1 is
+//     written at step t and read at t + 1: a slot is rewritten only after
+//     the barrier that follows every read of it), so every block reads
+//     back half the bytes; an f32 w reads the f32 hs of step t - 1;
+//   - h_prev is staged into shared memory with 16-byte cp.async copies,
+//     every copy of the step in flight at once and one wait (with the
+//     step's x and mask), instead of 4-byte loads whose FMAs wait on them;
+//   - the step product [B, H] x [H, 4HB] splits K over the 8 warps, on
+//     the tensor cores: mma.sync m16n8k16 for a bf16 w, 3xTF32 m16n8k8 for
+//     f32 (about f32's accuracy), each k-step's product summed from zero
+//     and added with FADD; the warps' partial tiles go to shared memory
+//     and are added in order of warp by the cell math, which needs no
+//     shuffle reduction;
+//   - a block keeps its own units' h and c in shared memory (no read of
+//     c_prev), and `grid.sync()` ends the step.
+// The batch is staged MC rows at a time (MC a multiple of 16, the whole
+// batch when the shared memory allows, fewer otherwise).
 //
 // Backward.  Only dh and dc carry from step to step: the gates'
 // pre-activations depend on the saved h_prev alone, and dw on h_prev and
 // the dgates of every step.  So one C call enqueues three kernels:
 //   1. the gates for all T at once, [T*B, H] x [H, 4H] + xs, into dxs;
 //   2. the recurrence, one cooperative launch persistent over T (block k
-//      owns HB units as in the forward, keeping only the rows of w of its
-//      units, [HB][4H]): per step the cell's gradients of its units
-//      (dgates written over their gates in dxs, and as a bf16 copy for a
-//      bf16 w: the operand's precision, half the bytes every block reads
-//      back), one grid-wide barrier, then dh_prev of its units from every
-//      unit's dgates, through L2 -- on the tensor cores (mma.sync
-//      m16n8k16) for a bf16 w, on the CUDA cores for f32;
+//      owns HB units as in the forward, keeping the columns of w of its
+//      units for every j, [H][4HB]): per step the cell's gradients of its
+//      units (dgates written over their gates in dxs, and as a bf16 copy
+//      for a bf16 w, dw's operand), the block's share of every unit's
+//      dh_prev into an exchange (recurrent.cuh; on the tensor cores,
+//      mma.sync m16n8k16, for a bf16 w, on the CUDA cores for f32), one
+//      grid-wide barrier, then the shares of its units added in order;
 //   3. dw = mm(h_prev)^T . mm(dgates), [H, T*B] x [T*B, 4H].
-// 1 and 3 are tiled products: bf16 mma.sync on the tensor cores for a bf16
-// w, the CUDA cores for f32.  Every sum is taken in a fixed order, the
+// 1 and 3 are tiled products on the tensor cores: bf16 mma.sync for a
+// bf16 w, 3xTF32 for f32.  Every sum is taken in a fixed order, the
 // tensor cores' 16-deep products each added to an f32 sum with FADD, and
 // nothing is summed with atomics: runs repeat bit for bit.
-#include "flash_mma.cuh"
-#include "recurrent.cuh"
+#include "recurrent_gemm.cuh"
 
 namespace {
 
 using namespace ptt::rnn;
+
+// --- forward -------------------------------------------------------------
+//
+// Geometry of the step product (host and device agree on it): KP = H
+// rounded up to 16 (its depth, zero-padded), NP = 4HB rounded up to 16
+// (the gate columns, zero-padded), LDK = KP + 16 bytes, the row stride of
+// the staged h_prev and of the w columns (a warp's ldmatrix rows, or its
+// f32 fragment reads, in distinct banks), NR = NP + 4 the row stride of a
+// warp's partial tile.
+template <typename W, int HB>
+struct FwdGeom {
+  static constexpr int NP = (4 * HB + 15) / 16 * 16;
+  static constexpr int NR = NP + 4;
+  __host__ __device__ static int kp(int H) { return (H + 15) / 16 * 16; }
+  __host__ __device__ static int ldk(int H) {
+    return kp(H) + 16 / static_cast<int>(sizeof(W));
+  }
+};
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+// Shared memory of the forward at MC staged rows: w_s [NP][LDK] and h_s
+// [MC][LDK] of w's type, the warps' partial tiles [kWarps][MC][NR], the
+// step's x [MC][4HB] and mask [MC], and the units' c and h [B][HB] (f32).
+template <typename W, int HB>
+size_t fwd_smem(int B, int H, int MC) {
+  using G = FwdGeom<W, HB>;
+  const size_t ldk = G::ldk(H);
+  return align16(G::NP * ldk * sizeof(W)) + align16(MC * ldk * sizeof(W))
+         + sizeof(float) * (static_cast<size_t>(kWarps) * MC * G::NR
+                            + MC * 4 * HB + MC
+                            + 2 * static_cast<size_t>(B) * HB);
+}
+
+// Stage rows b0 .. b0 + MC - 1 of h_prev into h_s [MC][ldk] (0 past B and
+// past H): from h16 (bf16, row stride kp) with 16-byte cp.async copies;
+// for an f32 w from hf (f32, row stride H) the same way when H is a
+// multiple of 4; otherwise (the first step of a bf16 w, which rounds h0
+// here, or an f32 H not a multiple of 4) element by element through L2.
+// The caller commits and waits.
+template <typename W>
+__device__ __forceinline__ void stage_h(W* h_s, int ldk, const float* hf,
+                                        const __nv_bfloat16* h16, int b0,
+                                        int MC, int B, int H, int kp) {
+  using ptt::fa::cp_async16;
+  if constexpr (sizeof(W) == 2) {
+    if (h16 != nullptr) {
+      const int chunks = kp / 8;
+      for (int i = threadIdx.x; i < MC * chunks; i += kThreads) {
+        const int r = i / chunks, c = (i - r * chunks) * 8;
+        const bool in = b0 + r < B;
+        cp_async16(h_s + r * ldk + c,
+                   h16 + static_cast<int64_t>(in ? b0 + r : 0) * kp + c,
+                   in ? 16 : 0);
+      }
+      return;
+    }
+  } else {
+    if (H % 4 == 0 && reinterpret_cast<uintptr_t>(hf) % 16 == 0) {
+      const int chunks = kp / 4;
+      for (int i = threadIdx.x; i < MC * chunks; i += kThreads) {
+        const int r = i / chunks, c = (i - r * chunks) * 4;
+        const bool in = b0 + r < B && c < H;
+        cp_async16(h_s + r * ldk + c,
+                   hf + (in ? static_cast<int64_t>(b0 + r) * H + c : 0),
+                   in ? 16 : 0);
+      }
+      return;
+    }
+  }
+  for (int i = threadIdx.x; i < MC * kp; i += kThreads) {
+    const int r = i / kp, k = i - r * kp;
+    h_s[r * ldk + k] =
+        b0 + r < B && k < H
+            ? static_cast<W>(__ldcg(hf + static_cast<int64_t>(b0 + r) * H + k))
+            : static_cast<W>(0.f);
+  }
+}
+
+// The step product's partial tiles: red[warp][r][n] = sum over the warp's
+// k-range of mm(h_s[r][k]) . w_s[n][k], for r < MC, n < NP.  The warps
+// split KP into runs of whole 16-deep steps, in order.  On the tensor
+// cores, each k-step's product summed from zero and added to the tile
+// with FADD:
+//  - bf16 w: m16n8k16;
+//  - f32 w: 3xTF32 m16n8k8 (flash_mma.cuh: lo.hi + hi.lo + hi.hi).
+template <typename W, int HB>
+__device__ __forceinline__ void fwd_step_product(const W* h_s, const W* w_s,
+                                                 int ldk, float* red, int MC,
+                                                 int kp) {
+  constexpr int NP = FwdGeom<W, HB>::NP, NR = FwdGeom<W, HB>::NR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int steps = kp / 16, per = (steps + kWarps - 1) / kWarps;
+  const int k0 = 16 * min(steps, warp * per);
+  const int k1 = 16 * min(steps, warp * per + per);
+  float* out = red + warp * MC * NR;
+  const int g = lane >> 2, t = lane & 3;
+  for (int m0 = 0; m0 < MC; m0 += 16) {
+    float acc[NP / 8][4] = {};
+    if constexpr (sizeof(W) == 2) {
+      using Tc = ptt::fa::Tc<__nv_bfloat16>;
+      for (int k = k0; k < k1; k += 16) {
+        const Tc::A af = Tc::load_a(h_s + m0 * ldk, ldk, k);
+#pragma unroll
+        for (int n0 = 0; n0 < NP; n0 += 16) {
+          Tc::B b0, b1;
+          Tc::load_b(b0, b1, w_s, ldk, n0, k);
+          float d0[4] = {}, d1[4] = {};
+          ptt::fa::mma_bf16(d0, af.x, b0.x[0], b0.x[1]);
+          ptt::fa::mma_bf16(d1, af.x, b1.x[0], b1.x[1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[n0 / 8][e] += d0[e];
+            acc[n0 / 8 + 1][e] += d1[e];
+          }
+        }
+      }
+    } else {
+      // m16n8k8 fragments read element by element: A (row g / g + 8,
+      // k t / t + 4) of h_s, B (k t / t + 4, column g) of w_s
+      for (int k = k0; k < k1; k += 8) {
+        const float* ap = h_s + (m0 + g) * ldk + k + t;
+        uint32_t ahi[4], alo[4];
+        ptt::fa::split_tf32(ap[0], ahi[0], alo[0]);
+        ptt::fa::split_tf32(ap[8 * ldk], ahi[1], alo[1]);
+        ptt::fa::split_tf32(ap[4], ahi[2], alo[2]);
+        ptt::fa::split_tf32(ap[8 * ldk + 4], ahi[3], alo[3]);
+#pragma unroll
+        for (int nb = 0; nb < NP / 8; ++nb) {
+          const float* bp = w_s + (nb * 8 + g) * ldk + k + t;
+          uint32_t bhi[2], blo[2];
+          ptt::fa::split_tf32(bp[0], bhi[0], blo[0]);
+          ptt::fa::split_tf32(bp[4], bhi[1], blo[1]);
+          float d[4];
+          ptt::fa::mma_tf32_zero(d, alo, bhi);
+          ptt::fa::mma_tf32(d, ahi, blo);
+          ptt::fa::mma_tf32(d, ahi, bhi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nb][e] += d[e];
+        }
+      }
+    }
+    // (row g / g + 8, columns 2t, 2t + 1) of each n-block
+#pragma unroll
+    for (int nb = 0; nb < NP / 8; ++nb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(out + (m0 + g + 8 * r) * NR + nb * 8
+                                   + 2 * t) =
+            make_float2(acc[nb][2 * r], acc[nb][2 * r + 1]);
+  }
+}
 
 template <typename W, int HB>
 __global__ void __launch_bounds__(kThreads)
@@ -59,324 +231,105 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ h0,
                     const float* __restrict__ c0,
                     const float* __restrict__ mask, float* hs, float* cs,
-                    int T, int B, int H) {
-  constexpr int G = 4 * HB;
-  constexpr int R = rows_per_warp(G);
-  extern __shared__ float smem[];
-  float* w_s = smem;            // [G][H] the units' columns of w
-  float* g_s = w_s + G * H;     // [B][G] gate pre-activations of a step
+                    __nv_bfloat16* h16, int T, int B, int H, int MC) {
+  using Geo = FwdGeom<W, HB>;
+  constexpr bool kBf16 = sizeof(W) == 2;
+  constexpr int G = 4 * HB, NP = Geo::NP, NR = Geo::NR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kp = Geo::kp(H), ldk = Geo::ldk(H);
+  W* w_s = reinterpret_cast<W*>(smem_raw);  // [NP][ldk] the units' columns
+  W* h_s = reinterpret_cast<W*>(smem_raw + align16(NP * ldk * sizeof(W)));
+  float* red = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(h_s) + align16(MC * ldk * sizeof(W)));
+  float* x_s = red + kWarps * MC * NR;  // [MC][G] the step's x
+  float* m_s = x_s + MC * G;            // [MC] the step's mask
+  float* c_s = m_s + MC;                // [B][HB] the units' c
+  float* ho_s = c_s + B * HB;           // [B][HB] the units' h
   const int j0 = blockIdx.x * HB, nu = min(HB, H - j0);
-  const int warp = threadIdx.x >> 5;
   const int64_t H4 = 4LL * H, BH = static_cast<int64_t>(B) * H;
-  load_columns<W, HB>(w, H, 4, j0, nu, w_s);
+  // w_s[q * HB + u][k] = w[k][q * H + j0 + u]; 0 past the units and past H
+  for (int idx = threadIdx.x; idx < NP * ldk; idx += kThreads) {
+    const int n = idx / ldk, k = idx - n * ldk, q = n / HB, u = n - q * HB;
+    w_s[idx] = n < G && u < nu && k < H ? w[k * H4 + q * H + j0 + u]
+                                        : static_cast<W>(0.f);
+  }
+  for (int idx = threadIdx.x; idx < B * HB; idx += kThreads) {
+    const int b = idx / HB, u = idx - b * HB;
+    c_s[idx] = u < nu ? c0[b * H + j0 + u] : 0.f;
+    ho_s[idx] = u < nu ? h0[b * H + j0 + u] : 0.f;
+  }
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
   for (int t = 0; t < T; ++t) {
-    const float* hp = t ? hs + (t - 1) * BH : h0;
-    const float* cp = t ? cs + (t - 1) * BH : c0;
     const float* xt = xs + t * B * H4;
-    for (int b0 = warp * R; b0 < B; b0 += kWarps * R) {
-      float acc[R][G];
-      warp_rows_dot<W, R, G, true>(hp, H, b0, B, H, w_s, acc);
+    const float* hf = t ? hs + (t - 1) * BH : h0;
+    const __nv_bfloat16* hb =
+        kBf16 && t ? h16 + ((t - 1) & 1) * static_cast<int64_t>(B) * kp
+                   : nullptr;
+    for (int b0 = 0; b0 < B; b0 += MC) {
+      const int rows = min(MC, B - b0);
+      // the step's x and mask of the rows (4-byte copies), then h_prev
+      for (int i = threadIdx.x; i < rows * G; i += kThreads) {
+        const int r = i / G, n = i - r * G, q = n / HB, u = n - q * HB;
+        if (u < nu)
+          ptt::fa::cp_async4(x_s + i, xt + (b0 + r) * H4 + q * H + j0 + u,
+                             4);
+      }
+      for (int r = threadIdx.x; r < rows; r += kThreads)
+        ptt::fa::cp_async4(m_s + r, mask + t * B + b0 + r, 4);
+      stage_h<W>(h_s, ldk, hf, hb, b0, MC, B, H, kp);
+      ptt::fa::cp_async_commit();
+      ptt::fa::cp_async_wait<0>();
+      __syncthreads();
+      fwd_step_product<W, HB>(h_s, w_s, ldk, red, MC, kp);
+      __syncthreads();
+      // the gates (x + the warps' partial products, added in order of
+      // warp) and the cell of each (row, unit)
+      for (int i = threadIdx.x; i < rows * nu; i += kThreads) {
+        const int r = i / nu, u = i - r * nu, b = b0 + r;
+        float gate[4];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+        for (int q = 0; q < 4; ++q) {
+          const int n = q * HB + u;
+          float s = red[r * NR + n];
 #pragma unroll
-        for (int n = 0; n < G; ++n) {
-          const int b = b0 + r, q = n / HB, u = n % HB;
-          if (lane_owns(r, n, G) && b < B && u < nu)
-            g_s[b * G + n] = xt[b * H4 + q * H + j0 + u] + acc[r][n];
+          for (int wp = 1; wp < kWarps; ++wp) s += red[(wp * MC + r) * NR + n];
+          gate[q] = x_s[r * G + n] + s;
         }
+        const float ig = sigmoid(gate[0]), f = sigmoid(gate[1]);
+        const float gg = tanhf(gate[2]), o = sigmoid(gate[3]);
+        const float h_prev = ho_s[b * HB + u], c_prev = c_s[b * HB + u];
+        const float c_new = f * c_prev + ig * gg;
+        const float h_new = o * tanhf(c_new);
+        const float m = m_s[r];
+        const float h = m * h_new + (1.f - m) * h_prev;
+        const float c = m * c_new + (1.f - m) * c_prev;
+        const int64_t at = static_cast<int64_t>(b) * H + j0 + u;
+        hs[t * BH + at] = h;
+        cs[t * BH + at] = c;
+        ho_s[b * HB + u] = h;
+        c_s[b * HB + u] = c;
+        if constexpr (kBf16)
+          h16[((t & 1) * static_cast<int64_t>(B) + b) * kp + j0 + u] =
+              __float2bfloat16(h);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
-      const int b = idx / nu, u = idx - b * nu;
-      const int64_t at = static_cast<int64_t>(b) * H + j0 + u;
-      const float* g = g_s + b * G;
-      const float i = sigmoid(g[u]), f = sigmoid(g[HB + u]);
-      const float gg = tanhf(g[2 * HB + u]), o = sigmoid(g[3 * HB + u]);
-      const float h_prev = __ldcg(hp + at), c_prev = __ldcg(cp + at);
-      const float c_new = f * c_prev + i * gg;
-      const float h_new = o * tanhf(c_new);
-      const float m = mask[t * B + b];
-      hs[t * BH + at] = m * h_new + (1.f - m) * h_prev;
-      cs[t * BH + at] = m * c_new + (1.f - m) * c_prev;
-    }
-    grid.sync();
+    grid.sync();  // forward step barrier
   }
 }
 
-// --- backward: the products before and after the recurrence ------------
+// --- backward ------------------------------------------------------------
 //
-// out[M][N] = (cin ? cin[M][N] : 0) + sum over k < K of mm(A[m][k]) . B[k][n]
-// with A f32 at a[m * lda + k] (kAT: at a[k * lda + m], A stored
-// transposed) and B of w's type at b[k * ldb + n]; out and cin have row
-// stride N.  A block computes a 64 x 64 tile of out, 32 (bf16) or 16
-// (f32) k at a time through shared memory; with gridDim.z = S > 1 block
-// z takes the z-th of S runs of k-tiles and writes its partial tile to
-// out + z * M * N, which `lstm_bwd_sum_splits_kernel` adds in order of z
-// (a product with few output tiles and a long k, as dw, fills the card
-// that way).
-//  - bf16 w: mma.sync m16n8k16 on the tensor cores, A rounded to bf16 as
-//    it is staged (mm()); 4 warps, 16 rows each.  The next k-tile is
-//    loaded into registers (16-byte loads where the strides and pointers
-//    allow) while the current one is multiplied.  Each 16-deep product
-//    is summed from zero and added to the f32 accumulator with FADD
-//    (the tensor cores do not round their sums to nearest, PERF.md).
-//  - f32 w: the CUDA cores, 256 threads with 4 x 4 outputs each, every
-//    sum an FMA chain over k in order.
-// The gates' pre-activations are this with cin = xs, A = h_prev [T*B, H]
-// and B = w; dw is it with A^T = h_prev (kAT) and B = dgates [T*B, 4H].
-constexpr int kBM = 64, kBN = 64;
-
-template <typename W>
-__host__ __device__ constexpr int gemm_threads() {
-  return sizeof(W) == 2 ? 128 : 256;
-}
-
-template <typename W>
-__host__ __device__ constexpr int gemm_bk() {
-  return sizeof(W) == 2 ? 32 : 16;
-}
-
-__device__ __forceinline__ uint2 pack4_bf16(float4 v) {
-  return make_uint2(ptt::fa::pack_bf16(v.x, v.y), ptt::fa::pack_bf16(v.z, v.w));
-}
-
-template <typename W, bool kAT>
-__global__ void __launch_bounds__(gemm_threads<W>())
-    lstm_bwd_gemm_kernel(const float* __restrict__ a, int64_t lda,
-                         const W* __restrict__ b, int64_t ldb,
-                         const float* __restrict__ cin,
-                         float* __restrict__ out, int M, int N, int K,
-                         int kps) {
-  constexpr int NT = gemm_threads<W>(), kBK = gemm_bk<W>();
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int nk = (K + kBK - 1) / kBK;
-  const int kt0 = blockIdx.z * kps, kt1 = min(nk, kt0 + kps);
-  if (gridDim.z > 1) out += static_cast<int64_t>(blockIdx.z) * M * N;
-  auto a_at = [&](int m, int k) -> float {
-    if (m >= M || k >= K) return 0.f;
-    return kAT ? a[static_cast<int64_t>(k) * lda + m]
-               : a[static_cast<int64_t>(m) * lda + k];
-  };
-  if constexpr (sizeof(W) == 2) {
-    using Tc = ptt::fa::Tc<__nv_bfloat16>;
-    constexpr int LA = kAT ? kBM + 8 : kBK + 8, LB = kBN + 8;
-    __shared__ __align__(16) __nv_bfloat16 As[kAT ? kBK * LA : kBM * LA];
-    __shared__ __align__(16) __nv_bfloat16 Bs[kBK * LB];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const bool avec = lda % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
-    const bool bvec = ldb % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
-    const unsigned short* bu = reinterpret_cast<const unsigned short*>(b);
-    // a thread stages 4 x 4 values of A and 2 x 8 of B a k-tile: A as
-    // (row, 4 k) runs, or (k, 4 rows) for kAT; B as (k, 8 n) runs
-    float4 ar[4];
-    uint4 br[2];
-    auto load = [&](int kt) {
-      const int k0 = kt * kBK;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int idx = threadIdx.x + j * NT;
-        const int r = kAT ? idx / 16 : idx / 8, c = kAT ? idx % 16 : idx % 8;
-        const int m = kAT ? m0 + 4 * c : m0 + r, k = kAT ? k0 + r : k0 + 4 * c;
-        const bool full = kAT ? k < K && m + 4 <= M : m < M && k + 4 <= K;
-        if (avec && full) {
-          ar[j] = __ldg(reinterpret_cast<const float4*>(
-              kAT ? a + static_cast<int64_t>(k) * lda + m
-                  : a + static_cast<int64_t>(m) * lda + k));
-        } else if (kAT) {
-          ar[j] = make_float4(a_at(m, k), a_at(m + 1, k), a_at(m + 2, k),
-                              a_at(m + 3, k));
-        } else {
-          ar[j] = make_float4(a_at(m, k), a_at(m, k + 1), a_at(m, k + 2),
-                              a_at(m, k + 3));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int idx = threadIdx.x + j * NT;
-        const int k = k0 + idx / 8, n = n0 + 8 * (idx % 8);
-        if (bvec && k < K && n + 8 <= N) {
-          br[j] = __ldg(reinterpret_cast<const uint4*>(
-              b + static_cast<int64_t>(k) * ldb + n));
-        } else {
-          unsigned h[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            h[e] = k < K && n + e < N
-                ? bu[static_cast<int64_t>(k) * ldb + n + e] : 0u;
-          br[j] = make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
-                             h[4] | h[5] << 16, h[6] | h[7] << 16);
-        }
-      }
-    };
-    auto store = [&]() {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int idx = threadIdx.x + j * NT;
-        const int r = kAT ? idx / 16 : idx / 8, c = kAT ? idx % 16 : idx % 8;
-        *reinterpret_cast<uint2*>(As + r * LA + 4 * c) = pack4_bf16(ar[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int idx = threadIdx.x + j * NT;
-        *reinterpret_cast<uint4*>(Bs + (idx / 8) * LB + 8 * (idx % 8)) =
-            br[j];
-      }
-    };
-    float acc[kBN / 8][4] = {};
-    if (kt0 < kt1) {
-      load(kt0);
-      store();
-    }
-    __syncthreads();
-    for (int kt = kt0; kt < kt1; ++kt) {
-      if (kt + 1 < kt1) load(kt + 1);
-#pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        Tc::A af;
-        if constexpr (kAT) {
-          const int i = lane >> 3, r = lane & 7;
-          ptt::fa::ldsm_x4_t(af.x, As + (kk + (i >> 1) * 8 + r) * LA
-                                       + 16 * warp + (i & 1) * 8);
-        } else {
-          af = Tc::load_a(As + 16 * warp * LA, LA, kk);
-        }
-#pragma unroll
-        for (int nb = 0; nb < kBN; nb += 16) {
-          Tc::B b0, b1;
-          Tc::load_bt(b0, b1, Bs, LB, kk, nb);
-          float d0[4] = {}, d1[4] = {};
-          ptt::fa::mma_bf16(d0, af.x, b0.x[0], b0.x[1]);
-          ptt::fa::mma_bf16(d1, af.x, b1.x[0], b1.x[1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[nb / 8][e] += d0[e];
-            acc[nb / 8 + 1][e] += d1[e];
-          }
-        }
-      }
-      __syncthreads();
-      if (kt + 1 < kt1) {
-        store();
-        __syncthreads();
-      }
-    }
-    // accumulator (row g / g + 8, columns 2t, 2t + 1) of each n-block
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int nb = 0; nb < kBN / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + 16 * warp + g + (e >> 1) * 8;
-        const int n = n0 + nb * 8 + 2 * t + (e & 1);
-        if (m < M && n < N) {
-          const int64_t at = static_cast<int64_t>(m) * N + n;
-          out[at] = (cin ? cin[at] : 0.f) + acc[nb][e];
-        }
-      }
-  } else {
-    __shared__ __align__(16) float As[kBK][kBM];
-    __shared__ __align__(16) float Bs[kBK][kBN];
-    const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-    float acc[4][4] = {};
-    for (int kt = kt0; kt < kt1; ++kt) {
-      const int k0 = kt * kBK;
-      for (int i = threadIdx.x; i < kBM * kBK; i += NT) {
-        if constexpr (kAT) {
-          const int kr = i / kBM, mc = i % kBM;
-          As[kr][mc] = a_at(m0 + mc, k0 + kr);
-        } else {
-          const int mr = i / kBK, kc = i % kBK;
-          As[kc][mr] = a_at(m0 + mr, k0 + kc);
-        }
-        const int kr = i / kBN, nc = i % kBN;
-        Bs[kr][nc] = (k0 + kr < K && n0 + nc < N)
-                         ? ptt::to_f32(b[static_cast<int64_t>(k0 + kr) * ldb
-                                         + n0 + nc])
-                         : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[k][4 * tr]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][4 * tc]);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = m0 + 4 * tr + i, n = n0 + 4 * tc + j;
-        if (m < M && n < N) {
-          const int64_t at = static_cast<int64_t>(m) * N + n;
-          out[at] = (cin ? cin[at] : 0.f) + acc[i][j];
-        }
-      }
-  }
-}
-
-// out[i] = sum over z < S of part[z][i], in order of z (float4 at a time;
-// n is a multiple of 4).
-__global__ void lstm_bwd_sum_splits_kernel(const float4* __restrict__ part,
-                                           float4* __restrict__ out,
-                                           int64_t n4, int S) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x)
-                   + threadIdx.x;
-       i < n4; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float4 s = part[i];
-    for (int z = 1; z < S; ++z) {
-      const float4 v = part[z * n4 + i];
-      s.x += v.x;
-      s.y += v.y;
-      s.z += v.z;
-      s.w += v.w;
-    }
-    out[i] = s;
-  }
-}
-
-// out = cin + A . B (S == 1, part unused), or, for S > 1, the S partial
-// products into part [S][M][N] and their sum into out.
-template <typename W, bool kAT>
-void launch_gemm(const float* a, int64_t lda, const W* b, int64_t ldb,
-                 const float* cin, float* out, float* part, int S, int M,
-                 int N, int K, cudaStream_t st) {
-  const int nk = (K + gemm_bk<W>() - 1) / gemm_bk<W>();
-  const int kps = (nk + S - 1) / S;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, S);
-  lstm_bwd_gemm_kernel<W, kAT><<<grid, gemm_threads<W>(), 0, st>>>(
-      a, lda, b, ldb, S > 1 ? nullptr : cin, S > 1 ? part : out, M, N, K,
-      kps);
-  if (S > 1) {
-    const int64_t n4 = static_cast<int64_t>(M) * N / 4;
-    lstm_bwd_sum_splits_kernel<<<264, 256, 0, st>>>(
-        reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out),
-        n4, S);
-  }
-}
-
-// --- backward: the recurrence ----------------------------------------
-//
-// dh_prev[b][j] = sum over n < 4H of mm(dgates[b][n]) . w[j][n] needs
-// every unit's dgates.  Rather than have every block read all of them
-// (an all-gather of B x 4H values a block a step, PERF.md), each block
-// multiplies its own 4HB dgates columns by the matching columns of w for
-// every j, a [B, 4HB] x [4HB, H] product, and writes the partial sums
-// (f32) to an exchange buffer P; after the step's barrier block k adds
-// the partials of its units over all blocks, in order of the block that
-// wrote them.  Every block reads B x HB values of every block: its own
-// lines, which no other block reads.  P is [2][blocks (reader)][blocks
-// (writer)][seg] f32, seg = B * HB rounded up to 4, one half a step in
-// turn: a block writes one half only after every block has passed the
-// barrier that follows its reading of that half.
+// The products before and after the recurrence are recurrent_gemm.cuh's:
+// the gates' pre-activations with cin = xs, A = h_prev [T*B, H] and B = w;
+// dw with A^T = h_prev (kAT) and B = dgates [T*B, 4H], split over k and
+// summed in order.  In the recurrence, dh_prev[b][j] = sum over n < 4H of
+// mm(dgates[b][n]) . w[j][n] goes through recurrent.cuh's exchange: each
+// block's share is its own 4HB dgates columns times the matching columns
+// of w, a [B, 4HB] x [4HB, H] product.  The exchange buffer has two
+// halves, one a step in turn: a block writes one half only after every
+// block has passed the barrier that follows its reading of that half.
 
 // Row stride of the bf16 dgates copy (the dw product's operand): 4H in
 // whole 16-byte chunks.
@@ -397,10 +350,6 @@ __host__ __device__ constexpr int own_ld() {
   return sizeof(W) == 2 ? own_k<W, HB>() + 8 : own_k<W, HB>() + 1;
 }
 
-__host__ __device__ inline int exchange_seg(int B, int HB) {
-  return (B * HB + 3) / 4 * 4;
-}
-
 // Shared memory of the recurrence: the block's columns of w for every j
 // ([roundup(H, 16)][own_ld] of w's type, row j holding w[j][q*H + j0 + u]
 // at q*HB + u), its dgates as the product's operand ([roundup(B, 16)]
@@ -414,126 +363,6 @@ size_t bwd_smem(int B, int H) {
   const size_t red = seg > 1024 ? seg : 1024;
   return (rows * ld * sizeof(W) + 15) / 16 * 16
          + sizeof(float) * (red + 2 * static_cast<size_t>(B) * HB);
-}
-
-// The block's partial products: p[dst][src][b * HB + u] = sum over its
-// own columns n of mm(dg[b][n]) . w[dst * HB + u][n], for every j = dst *
-// HB + u < H, src = this block.
-//  - bf16 w: m16n8k16 on the tensor cores, M = the batch rows, N = j (two
-//    n-blocks of 8 a load_b, the pairs split over the warps), K = the own
-//    columns (16 or 32); each 16-deep product is summed from zero and
-//    added with FADD.
-//  - f32 w: the CUDA cores, a thread a j (its own-column weights in
-//    registers), an FMA chain over the own columns for each b.
-template <typename W, int HB>
-__device__ __forceinline__ void partial_dh(const W* dg_s, const W* wc_s,
-                                           float* p, int src, int blocks,
-                                           int B, int H) {
-  constexpr int KO = own_k<W, HB>(), LD = own_ld<W, HB>();
-  const int seg = exchange_seg(B, HB);
-  const int64_t row_ld = static_cast<int64_t>(blocks) * seg;
-  if constexpr (sizeof(W) == 2) {
-    using Tc = ptt::fa::Tc<__nv_bfloat16>;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    for (int m0 = 0; m0 < B; m0 += 16) {
-      Tc::A af[KO / 16];
-#pragma unroll
-      for (int kk = 0; kk < KO / 16; ++kk)
-        af[kk] = Tc::load_a(dg_s + m0 * LD, LD, 16 * kk);
-      for (int n0 = 16 * warp; n0 < H; n0 += 16 * kWarps) {
-        float c[2][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < KO / 16; ++kk) {
-          Tc::B b0, b1;
-          Tc::load_b(b0, b1, wc_s, LD, n0, 16 * kk);
-          float d0[4] = {}, d1[4] = {};
-          ptt::fa::mma_bf16(d0, af[kk].x, b0.x[0], b0.x[1]);
-          ptt::fa::mma_bf16(d1, af[kk].x, b1.x[0], b1.x[1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            c[0][e] += d0[e];
-            c[1][e] += d1[e];
-          }
-        }
-        // (row g / g + 8, columns 2t, 2t + 1) of the two n-blocks
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int b = m0 + g + 8 * r, j = n0 + 8 * h + 2 * t;
-            if (b >= B || j >= H) continue;
-            const float x = c[h][2 * r], y = c[h][2 * r + 1];
-            float* q = p + (j / HB) * row_ld
-                       + static_cast<int64_t>(src) * seg + b * HB + j % HB;
-            if constexpr (HB >= 2) {
-              if (j + 1 < H) {
-                *reinterpret_cast<float2*>(q) = make_float2(x, y);
-                continue;
-              }
-            } else if (j + 1 < H) {
-              p[(j + 1) * row_ld + static_cast<int64_t>(src) * seg + b] = y;
-            }
-            *q = x;
-          }
-      }
-    }
-  } else {
-    for (int j = threadIdx.x; j < H; j += kThreads) {
-      float wv[KO];
-#pragma unroll
-      for (int n = 0; n < KO; ++n) wv[n] = wc_s[j * LD + n];
-      float* q = p + (j / HB) * row_ld + static_cast<int64_t>(src) * seg
-                 + j % HB;
-      for (int b = 0; b < B; ++b) {
-        float s = 0.f;
-#pragma unroll
-        for (int n = 0; n < KO; ++n) s = fmaf(dg_s[b * LD + n], wv[n], s);
-        q[b * HB] = s;
-      }
-    }
-  }
-}
-
-// dh_s[b][u] += sum over src < blocks of p[k][src][b * HB + u], k = this
-// block, in order of src: threads take 4 values (one float4) of a slice of
-// the writers each, the slices' sums meet in red and are added in order.
-template <int HB>
-__device__ __forceinline__ void gather_dh(const float* p, float* red,
-                                          float* dh_s, int blocks, int B,
-                                          int nu) {
-  const int seg = exchange_seg(B, HB), Q = seg / 4;
-  const int slices = max(1, kThreads / Q);
-  const int per = (blocks + slices - 1) / slices;
-  const float4* pk = reinterpret_cast<const float4*>(
-      p + static_cast<int64_t>(blockIdx.x) * blocks * seg);
-  for (int i = threadIdx.x; i < Q * slices; i += kThreads) {
-    const int s = i / Q, q = i - s * Q;
-    const int src1 = min(blocks, (s + 1) * per);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int src0 = s * per; src0 < src1; src0 += 16) {
-      float4 v[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        if (src0 + e < src1) v[e] = __ldcg(pk + (src0 + e) * Q + q);
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        if (src0 + e < src1) {
-          acc.x += v[e].x;
-          acc.y += v[e].y;
-          acc.z += v[e].z;
-          acc.w += v[e].w;
-        }
-    }
-    reinterpret_cast<float4*>(red)[s * Q + q] = acc;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
-    const int b = idx / nu, u = idx - b * nu;
-    float sum = 0.f;
-    for (int s = 0; s < slices; ++s) sum += red[s * seg + b * HB + u];
-    dh_s[b * HB + u] += sum;
-  }
 }
 
 // One cooperative launch for all T steps, block k owning units
@@ -552,7 +381,7 @@ __global__ void __launch_bounds__(kThreads)
                     __nv_bfloat16* dg16, float* exch, float* dh0,
                     float* dc0, int T, int B, int H) {
   constexpr bool kBf16 = sizeof(W) == 2;
-  constexpr int LD = own_ld<W, HB>();
+  constexpr int KO = own_k<W, HB>(), LD = own_ld<W, HB>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int j0 = blockIdx.x * HB, nu = min(HB, H - j0);
   const int blocks = gridDim.x, H4 = 4 * H, ldd = dg_ld(H);
@@ -615,10 +444,11 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     // this block's share of every unit's dh_prev
-    partial_dh<W, HB>(dg_s, wc_s, p, blockIdx.x, blocks, B, H);
+    exchange_share<W, HB, KO>(dg_s, LD, wc_s, LD, p, blockIdx.x, blocks, B,
+                              H);
     grid.sync();  // step barrier
     // dh_prev of the units += the shares of every block
-    gather_dh<HB>(p, red, dh_s, blocks, B, nu);
+    exchange_gather<HB, true>(p, red, dh_s, blocks, B, nu);
     __syncthreads();
   }
   for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
@@ -643,7 +473,7 @@ int launch_bwd(const float* xs, const W* w, const float* hprev,
   cudaError_t e = place(kern, blocks, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int TB = T * B, H4 = 4 * H;
-  launch_gemm<W, false>(hprev, H, w, H4, xs, dxs, nullptr, 1, TB, H4, H, st);
+  launch_gemm<W, false>(hprev, H, w, H4, xs, dxs, H4, 1, TB, H4, H, st);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   void* args[] = {&w, &cprev, &mask, &dhs, &dcs, &dxs, &dg16, &exch, &dh0,
@@ -655,29 +485,51 @@ int launch_bwd(const float* xs, const W* w, const float* hprev,
   const bool bf = sizeof(W) == 2;
   const W* dg = bf ? reinterpret_cast<const W*>(dg16)
                    : reinterpret_cast<const W*>(dxs);
-  launch_gemm<W, true>(hprev, H, dg, bf ? dg_ld(H) : H4, nullptr, dw, part,
-                       S, H, H4, TB, st);
+  launch_gemm<W, true>(hprev, H, dg, bf ? dg_ld(H) : H4, nullptr,
+                       S > 1 ? part : dw, H4, S, H, H4, TB, st);
+  if (S > 1) launch_sum_splits(part, dw, static_cast<int64_t>(H) * H4, S, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of the batch the forward stages at once: the whole batch when the
+// shared memory allows, else the most rows (a multiple of 16) that fit.
+template <typename W, int HB>
+int fwd_rows(int B, int H) {
+  const size_t optin = static_cast<size_t>(smem_optin());
+  int MC = (B + 15) / 16 * 16;
+  while (MC > 16 && fwd_smem<W, HB>(B, H, MC) > optin) MC -= 16;
+  return MC;
+}
+
+template <typename W>
+int fwd_rows(int B, int H) {
+  switch (units_per_block(H)) {
+    case 1: return fwd_rows<W, 1>(B, H);
+    case 2: return fwd_rows<W, 2>(B, H);
+    case 4: return fwd_rows<W, 4>(B, H);
+    default: return fwd_rows<W, 8>(B, H);
+  }
 }
 
 template <typename W, int HB>
 int launch_fwd(const float* xs, const W* w, const float* h0, const float* c0,
-               const float* mask, float* hs, float* cs, int T, int B, int H,
-               cudaStream_t st) {
+               const float* mask, float* hs, float* cs, __nv_bfloat16* h16,
+               int T, int B, int H, cudaStream_t st) {
   auto kern = lstm_fwd_kernel<W, HB>;
   const int blocks = (H + HB - 1) / HB;
-  const size_t smem = sizeof(float) * (4 * HB * static_cast<size_t>(H)
-                                       + static_cast<size_t>(B) * 4 * HB);
+  int MC = fwd_rows<W, HB>(B, H);
+  const size_t smem = fwd_smem<W, HB>(B, H, MC);
   cudaError_t e = place(kern, blocks, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&xs, &w, &h0, &c0, &mask, &hs, &cs, &T, &B, &H};
+  void* args[] = {&xs, &w, &h0, &c0, &mask, &hs, &cs, &h16, &T, &B, &H,
+                  &MC};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kern), blocks, kThreads, args, smem, st));
 }
 
 template <typename W>
 int fwd(const void* xs, const void* w, const void* h0, const void* c0,
-        const void* mask, void* hs, void* cs, int T, int B, int H,
+        const void* mask, void* hs, void* cs, void* h16, int T, int B, int H,
         cudaStream_t st) {
   const float* x = static_cast<const float*>(xs);
   const W* wt = static_cast<const W*>(w);
@@ -686,11 +538,13 @@ int fwd(const void* xs, const void* w, const void* h0, const void* c0,
   const float* m = static_cast<const float*>(mask);
   float* ho = static_cast<float*>(hs);
   float* co = static_cast<float*>(cs);
+  __nv_bfloat16* hb = static_cast<__nv_bfloat16*>(h16);
   switch (units_per_block(H)) {
-    case 1: return launch_fwd<W, 1>(x, wt, h, c, m, ho, co, T, B, H, st);
-    case 2: return launch_fwd<W, 2>(x, wt, h, c, m, ho, co, T, B, H, st);
-    case 4: return launch_fwd<W, 4>(x, wt, h, c, m, ho, co, T, B, H, st);
-    default: return launch_fwd<W, 8>(x, wt, h, c, m, ho, co, T, B, H, st);
+    case 1: return launch_fwd<W, 1>(x, wt, h, c, m, ho, co, hb, T, B, H, st);
+    case 2: return launch_fwd<W, 2>(x, wt, h, c, m, ho, co, hb, T, B, H, st);
+    case 4: return launch_fwd<W, 4>(x, wt, h, c, m, ho, co, hb, T, B, H, st);
+    default: return launch_fwd<W, 8>(x, wt, h, c, m, ho, co, hb, T, B, H,
+                                     st);
   }
 }
 
@@ -727,22 +581,37 @@ int bwd(const void* xs, const void* w, const void* hprev, const void* cprev,
 
 }  // namespace
 
-// hs, cs [T, B, H] f32 are written for every t.  T, B, H >= 1.
+// hs, cs [T, B, H] f32 are written for every t.  T, B, H >= 1.  h16, for
+// a bf16 w only (null for f32), is [2, B, roundup(H, 16)] bf16 scratch
+// whose padding columns are 0: the step's h as the next step's operand.
 extern "C" int ptt_lstm_fwd(const void* xs, const void* w, const void* h0,
                             const void* c0, const void* mask, void* hs,
-                            void* cs, int T, int B, int H, int w_bf16,
-                            void* stream) {
+                            void* cs, void* h16, int T, int B, int H,
+                            int w_bf16, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (w_bf16 && (h16 == nullptr || reinterpret_cast<uintptr_t>(h16) % 16))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return w_bf16 ? fwd<__nv_bfloat16>(xs, w, h0, c0, mask, hs, cs, T, B, H, st)
-                : fwd<float>(xs, w, h0, c0, mask, hs, cs, T, B, H, st);
+  return w_bf16 ? fwd<__nv_bfloat16>(xs, w, h0, c0, mask, hs, cs, h16, T, B,
+                                     H, st)
+                : fwd<float>(xs, w, h0, c0, mask, hs, cs, h16, T, B, H, st);
+}
+
+// *rows: the rows of the batch the forward stages at once at B, H on this
+// card (B when the shared memory allows, else fewer, in chunks).
+extern "C" int ptt_lstm_fwd_rows(int B, int H, int w_bf16, int* rows) {
+  if (B <= 0 || H <= 0 || rows == nullptr) return cudaErrorInvalidValue;
+  const int mc =
+      w_bf16 ? fwd_rows<__nv_bfloat16>(B, H) : fwd_rows<float>(B, H);
+  *rows = mc < B ? mc : B;
+  return cudaSuccess;
 }
 
 // hprev/cprev [T, B, H]: the state each step starts from ([h0, hs[:-1]]).
 // dxs [T, B, 4H], dw [H, 4H], dh0/dc0 [B, H], all f32, fully written.
 // Scratch: dg16 [T, B, dg_ld(H)] bf16 for a bf16 w (unused for f32);
-// exch, the exchange of dh_prev's partial sums, 2 * blocks^2 * seg f32
-// (blocks = ceil(H / units a block), seg = B * units rounded up to 4);
+// exch, the exchange of dh_prev's partial sums, of the f32 elements that
+// ptt_rnn_exchange_floats gives (recurrent.cuh);
 // for dw_splits S > 1 part [S, H, 4H] f32.  Three kernels, one call
 // (four with S > 1): gates' product, recurrence, dw's product (and the
 // sum of its S runs).

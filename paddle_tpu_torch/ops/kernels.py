@@ -39,9 +39,12 @@ row of up to 1024 features in one warp's registers.  `paged_geometry`
 and `layer_norm_geometry` pick their launch shapes.  The BatchNorm
 backward streams x and dy twice with 16-byte loads in a grid of one wave
 of resident blocks (`bn_bwd_geometry`, from the library's occupancy
-query).  The LSTM backward runs its gates and dw products as tiled
-products around the serial recurrence, which forms dh_prev each step
-from partial sums the blocks exchange (tensor cores for a bf16 w).
+query).  The LSTM and GRU backward run their gates and dw products as
+tiled tensor-core products around the serial recurrence, which forms
+dh_prev each step from partial sums the blocks exchange (one exchange a
+step for the LSTM, two for the GRU); the LSTM forward stages each
+step's h_prev with 16-byte copies and splits its product over the warps
+on the tensor cores (bf16 for a bf16 w, 3xTF32 for f32).
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -153,7 +156,7 @@ LSTM_FWD = Kernel(
     "lstm_fwd", "lstm", "ptt_lstm_fwd",
     "paddle_tpu/ops/pallas_kernels.py:853 _lstm_fwd_kernel "
     "(_lstm_pallas_fwd :944)",
-    [_P] * 7 + [_I, _I, _I, _I, _P])
+    [_P] * 8 + [_I, _I, _I, _I, _P])
 LSTM_BWD = Kernel(
     "lstm_bwd", "lstm", "ptt_lstm_bwd",
     "paddle_tpu/ops/pallas_kernels.py:885 _lstm_bwd_kernel "
@@ -168,7 +171,7 @@ GRU_BWD = Kernel(
     "gru_bwd", "gru", "ptt_gru_bwd",
     "paddle_tpu/ops/pallas_kernels.py:1104 _gru_bwd_kernel "
     "(_gru_pallas_bwd :1189)",
-    [_P] * 9 + [_I, _I, _I, _I, _P])
+    [_P] * 12 + [_I] * 5 + [_P])
 
 KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD,
            LAYER_NORM_FWD, LAYER_NORM_BWD, SOFTMAX_XENT_FWD,
@@ -985,29 +988,42 @@ def lstm_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     t, b, h = _check_recurrent("lstm_fwd", 4, xs, w, (h0, c0), (), mask)
     hs = torch.empty((t, b, h), dtype=torch.float32, device=xs.device)
     cs = torch.empty_like(hs)
+    # a bf16 w: each step's h as the next step's bf16 operand, two slots
+    # of [B, H rounded up to 16] whose padding stays 0 (lstm.cu)
+    bf16 = w.dtype == torch.bfloat16
+    h16 = torch.zeros((2, b, -(-h // 16) * 16), dtype=torch.bfloat16,
+                      device=xs.device) if bf16 else None
     LSTM_FWD.launch(xs.data_ptr(), w.data_ptr(), h0.data_ptr(),
                     c0.data_ptr(), mask.data_ptr(), hs.data_ptr(),
-                    cs.data_ptr(), t, b, h, int(w.dtype == torch.bfloat16),
-                    _stream(xs))
+                    cs.data_ptr(), h16.data_ptr() if bf16 else None, t, b, h,
+                    int(bf16), _stream(xs))
     return hs, cs
 
 
-def rnn_units_per_block(h: int, sms: int) -> int:
-    """Hidden units each block of a recurrent kernel owns
-    (recurrent.cuh units_per_block): the fewest of 1, 2, 4, 8 that need
-    no more blocks than the card has SMs, else 8."""
-    units = 1
-    while units < 8 and -(-h // units) > sms:
-        units *= 2
-    return units
+@functools.lru_cache(maxsize=None)
+def rnn_exchange_floats(source: str, device: int, h: int, b: int) -> int:
+    """f32 elements of a recurrent backward's exchange buffer at ``h``,
+    ``b`` on card ``device``, as the library of ``source`` ("lstm" or
+    "gru") sizes it (ptt_rnn_exchange_floats, recurrent.cuh: its units a
+    block and its layout are the kernels' own)."""
+    fn = _build.load(source).ptt_rnn_exchange_floats
+    fn.argtypes = [_I, _I, _P]
+    fn.restype = ctypes.c_int
+    floats = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        rc = fn(h, b, ctypes.byref(floats))
+    if rc != 0 or floats.value < 1:
+        raise RuntimeError(f"{source} exchange size query failed: CUDA "
+                           f"error {rc}, {floats.value} floats")
+    return floats.value
 
 
-def lstm_dw_splits(h: int, tb: int) -> int:
-    """Runs of k the LSTM backward's dw product [H, T*B] x [T*B, 4H] is
-    split into (lstm.cu, summed in order after): enough 64 x 64 output
+def rnn_dw_splits(h: int, tb: int, gates: int) -> int:
+    """Runs of k a recurrent backward's dw product [H, T*B] x [T*B,
+    gates*H] is split into (summed in order after): enough 64 x 64 output
     tiles x runs for about 1024 blocks, at most 8 runs, and no more runs
     than T*B holds 128s of k."""
-    tiles = -(-h // 64) * -(-4 * h // 64)
+    tiles = -(-h // 64) * -(-gates * h // 64)
     return max(1, min(8, 1024 // tiles, -(-tb // 128)))
 
 
@@ -1032,13 +1048,11 @@ def lstm_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     dg16 = torch.empty((t, b, -(-4 * h // 8) * 8), dtype=torch.bfloat16,
                        device=xs.device) if bf16 else None
     dw = torch.empty((h, 4 * h), dtype=torch.float32, device=xs.device)
-    # the exchange of dh_prev's partial sums: two halves of [blocks
-    # (reader)][blocks (writer)][B * units rounded up to 4] (lstm.cu)
-    units = rnn_units_per_block(h, _sm_count(xs.get_device()))
-    blocks = -(-h // units)
-    exch = torch.empty(2 * blocks * blocks * (-(-b * units // 4) * 4),
+    # the exchange of dh_prev's partial sums, in two halves (lstm.cu)
+    exch = torch.empty(rnn_exchange_floats(LSTM_BWD.source, xs.get_device(),
+                                           h, b),
                        dtype=torch.float32, device=xs.device)
-    splits = lstm_dw_splits(h, t * b)
+    splits = rnn_dw_splits(h, t * b, 4)
     part = torch.empty((splits, h, 4 * h), dtype=torch.float32,
                        device=xs.device) if splits > 1 else None
     dh0 = torch.empty_like(h0)
@@ -1074,20 +1088,35 @@ def gru_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
             mask: torch.Tensor, hs: torch.Tensor, dhs: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of `gru_fwd` from its inputs, its output hs and the
-    cotangent dhs -> (dxs [T, B, 3H], dw [H, 3H], dh0), all f32.  One
-    launch for all T steps."""
+    cotangent dhs -> (dxs [T, B, 3H], dw [H, 3H], dh0), all f32.  One C
+    call: the gates' products, the recurrence (one cooperative launch for
+    all T steps) and dw's products."""
     if xs.device.type == "cpu":
         return gru_bwd_plain(xs, w, h0, mask, hs, dhs)
     t, b, h = _check_recurrent("gru_bwd", 3, xs, w, (h0,), (hs, dhs), mask)
     hprev = _prev(h0, hs)
     dxs = torch.empty_like(xs)
+    # the dgates as the dw products' bf16 operand (rows padded to whole
+    # 16-byte chunks)
+    bf16 = w.dtype == torch.bfloat16
+    dg16 = torch.empty((t, b, -(-3 * h // 8) * 8), dtype=torch.bfloat16,
+                       device=xs.device) if bf16 else None
+    # exchanges 1 (drh) and 2 (dh_prev's last term) of the recurrence
+    exch = torch.empty(rnn_exchange_floats(GRU_BWD.source, xs.get_device(),
+                                           h, b),
+                       dtype=torch.float32, device=xs.device)
     dw = torch.empty((h, 3 * h), dtype=torch.float32, device=xs.device)
+    splits = rnn_dw_splits(h, t * b, 3)
+    part = torch.empty((splits, h, 3 * h), dtype=torch.float32,
+                       device=xs.device) if splits > 1 else None
     dh0 = torch.empty_like(h0)
-    rh = torch.empty((b, h), dtype=torch.float32, device=xs.device)
+    rh = torch.empty((t, b, h), dtype=torch.float32, device=xs.device)
     GRU_BWD.launch(xs.data_ptr(), w.data_ptr(), hprev.data_ptr(),
                    mask.data_ptr(), dhs.data_ptr(), dxs.data_ptr(),
-                   dw.data_ptr(), dh0.data_ptr(), rh.data_ptr(), t, b, h,
-                   int(w.dtype == torch.bfloat16), _stream(xs))
+                   dg16.data_ptr() if bf16 else None, exch.data_ptr(),
+                   dw.data_ptr(), part.data_ptr() if splits > 1 else None,
+                   dh0.data_ptr(), rh.data_ptr(), t, b, h, splits,
+                   int(bf16), _stream(xs))
     return dxs, dw, dh0
 
 

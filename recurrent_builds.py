@@ -1,31 +1,53 @@
 #!/usr/bin/env python3
-"""Measurement builds of the port's LSTM backward kernel on one NVIDIA GPU.
+"""Measurement builds of the port's recurrent kernels on one NVIDIA GPU.
 
     python3 recurrent_builds.py
 
 Each build is a copy of paddle_tpu_torch/ops/csrc under
-build/recurrent_builds/<build>/ with edits to lstm.cu, compiled with the
-port's nvcc flags (every build at once).  The LSTM backward of each build
-is called through the port's wrapper (`kernels.lstm_bwd`, its C entry
-swapped for the build's) at chip_smoke.py's main shape, T80 B32 H512,
-with bf16 w (program.amp) and with f32 w, and timed by device time per
-call (torch.profiler), two rounds in opposite order.  The builds:
+build/recurrent_builds/<build>/ with edits to one kernel's source,
+compiled with the port's nvcc flags (every build at once).  The kernel of
+each build is called through the port's wrapper (its C entry swapped for
+the build's) at chip_smoke.py's main shape, T80 B32 H512, and timed by
+device time per call (torch.profiler, every kernel of the call but
+PyTorch's own), two rounds in opposite order.  The LSTM kernels run with
+bf16 w (program.amp) and f32 w, the GRU backward with f32 w (its main
+path) and bf16 w.  The builds, by kernel:
 
-- shipped: the sources as they are;
-- no_products: the backward without its products (the gates recompute,
-  dh_prev's and dw's products are skipped);
-- no_sync: the backward without its grid-wide barrier;
-- no_dw: the backward without its dw product.
+- shipped: the sources as they are (lstm.cu and gru.cu);
+- LSTM backward (lstm.cu):
+  - lstm_bwd-no_products: without its products (the gates recompute,
+    dh_prev's and dw's products are skipped);
+  - lstm_bwd-no_sync: without its grid-wide barrier;
+  - lstm_bwd-no_dw: without its dw product;
+- LSTM forward (lstm.cu):
+  - lstm_fwd-fwd_no_product: the step product skipped;
+  - lstm_fwd-fwd_no_sync: the grid-wide barrier removed;
+  - lstm_fwd-fwd_no_load: h_prev not read (a constant, or what the
+    staging buffer holds, used instead);
+  - lstm_fwd-fwd_f32_cuda_cores (pr8): the f32 w's step product on the
+    CUDA cores (an FMA chain a value over the warp's k-range) instead of
+    3xTF32 on the tensor cores: the same function by another route, so
+    its outputs are held to the plain version's;
+- GRU backward (gru.cu):
+  - gru_bwd-no_recompute: the r, z and c products skipped;
+  - gru_bwd-no_dw: both dw products (or loops) skipped;
+  - gru_bwd-no_sync: the grid-wide barriers removed.
 
-Every build but `shipped` computes wrong results by design: it is only
-timed against the shipped build, and its time splits the step between
-products, barrier and the rest.  The edits find their targets by exact
-text, and the script raises when a kernel change moves them.  Each known
-version of lstm.cu has its own set of edits (`EDITS`); the set whose
-targets are all present is taken, so a checkout of an older version of
-the port with this script copied into it measures that version.
+Every build but `shipped` and those in `EXACT` computes wrong results by
+design: it is only timed against the shipped build, and its time splits
+the call between products, loads, barriers and the rest.  A build in
+`EXACT` computes the kernel's function another way; its outputs are held
+to the plain version's (F32_TOL, or one bf16 step of the largest value
+for a bf16 w, as chip_smoke.py holds the kernel) and printed.  The edits find their targets by
+exact text, and the script raises when a kernel change moves them.  Each
+known version of the sources has its own set of edits (`EDITS`: pr4, the
+first persistent kernels; pr7, the LSTM backward with its products
+outside the loop; pr8, the staged LSTM forward and the three-stage GRU
+backward); the set whose targets are all present is taken, so a checkout of an older
+version of the port with this script copied into it measures that
+version.
 
-Prints the ptxas report of each build's LSTM kernels and, as its last
+Prints the ptxas report of each build's edited kernels and, as its last
 line, one JSON object of the times.  Nothing here is on a main path of
 the port: the kernels ship as `shipped`.
 """
@@ -54,6 +76,14 @@ def _cut(start, end):
     return edit
 
 
+def _swap(start, end, new):
+    """Replace the text from ``start`` up to (not including) ``end`` with
+    ``new``."""
+    def edit(src):
+        return _cut(start, end)(src).replace(end, new + end, 1)
+    return edit
+
+
 def _replace(old, new):
     def edit(src):
         if src.count(old) != 1:
@@ -63,98 +93,258 @@ def _replace(old, new):
     return edit
 
 
-#: version of lstm.cu -> build -> edits of lstm.cu
-EDITS = {
-    # the persistent kernel of PR 4: gates, dw and dh_prev inside the
-    # serial loop, on the CUDA cores
-    "pr4": {
-        "no_products": [
-            _replace("      warp_rows_dot<W, R, G, false>(hp, H, b0, B, H, "
-                     "wc_s, acc);\n", ZERO_ACC),
-            _replace("      warp_rows_dot<W, RD, HB, true>(dxt, H4, b0, B, "
-                     "4 * H, wr_s, acc);\n", ZERO_ACC),
-            _cut("    // 3. dw of the units' columns",
-                 "    // every block's dgates of step t are in dxs\n")],
-        "no_sync": [_replace("    grid.sync();\n    // 4. dh_prev",
-                             "    // 4. dh_prev")],
-        "no_dw": [_cut("    // 3. dw of the units' columns",
-                       "    // every block's dgates of step t are in dxs\n")],
-    },
-    # the redesign: gates and dw as products before and after the
-    # recurrence; in the recurrence each block's share of dh_prev (on the
-    # tensor cores for a bf16 w) goes through an exchange
-    "pr7": {
-        "no_products": [
-            _replace("  launch_gemm<W, false>(", "  if (0) launch_gemm<W, false>("),
-            _replace("  launch_gemm<W, true>(", "  if (0) launch_gemm<W, true>("),
-            _replace("    partial_dh<W, HB>(", "    if (0) partial_dh<W, HB>(")],
-        "no_sync": [_replace("    grid.sync();  // step barrier\n", "")],
-        "no_dw": [_replace("  launch_gemm<W, true>(", "  if (0) launch_gemm<W, true>(")],
-    },
+# --- the edits, by kernel and version: build -> [(file, edit)] ---------
+#
+# pr4's LSTM backward: gates, dw and dh_prev inside the serial loop, on
+# the CUDA cores
+LSTM_BWD_PR4 = {
+    "no_products": [
+        ("lstm.cu", _replace("      warp_rows_dot<W, R, G, false>(hp, H, b0, "
+                             "B, H, wc_s, acc);\n", ZERO_ACC)),
+        ("lstm.cu", _replace("      warp_rows_dot<W, RD, HB, true>(dxt, H4, "
+                             "b0, B, 4 * H, wr_s, acc);\n", ZERO_ACC)),
+        ("lstm.cu", _cut("    // 3. dw of the units' columns",
+                         "    // every block's dgates of step t are in "
+                         "dxs\n"))],
+    "no_sync": [("lstm.cu", _replace("    grid.sync();\n    // 4. dh_prev",
+                                     "    // 4. dh_prev"))],
+    "no_dw": [("lstm.cu", _cut("    // 3. dw of the units' columns",
+                               "    // every block's dgates of step t are "
+                               "in dxs\n"))],
 }
-BUILDS = ("shipped", "no_products", "no_sync", "no_dw")
+# pr7's LSTM backward: gates and dw as products around the recurrence,
+# dh_prev's shares through an exchange
+LSTM_BWD_PR7 = {
+    "no_products": [
+        ("lstm.cu", _replace("  launch_gemm<W, false>(",
+                             "  if (0) launch_gemm<W, false>(")),
+        ("lstm.cu", _replace("  launch_gemm<W, true>(",
+                             "  if (0) launch_gemm<W, true>(")),
+        ("lstm.cu", _replace("    partial_dh<W, HB>(",
+                             "    if (0) partial_dh<W, HB>("))],
+    "no_sync": [("lstm.cu", _replace("    grid.sync();  // step barrier\n",
+                                     ""))],
+    "no_dw": [("lstm.cu", _replace("  launch_gemm<W, true>(",
+                                   "  if (0) launch_gemm<W, true>("))],
+}
+# pr8's LSTM backward: the same design, the products and the exchange
+# moved into shared headers
+LSTM_BWD_PR8 = {
+    "no_products": [
+        ("lstm.cu", _replace("  launch_gemm<W, false>(",
+                             "  if (0) launch_gemm<W, false>(")),
+        ("lstm.cu", _replace("  launch_gemm<W, true>(",
+                             "  if (0) launch_gemm<W, true>(")),
+        ("lstm.cu", _replace("    exchange_share<W, HB, KO>(",
+                             "    if (0) exchange_share<W, HB, KO>("))],
+    "no_sync": [("lstm.cu", _replace("    grid.sync();  // step barrier\n",
+                                     ""))],
+    "no_dw": [("lstm.cu", _replace("  launch_gemm<W, true>(",
+                                   "  if (0) launch_gemm<W, true>("))],
+}
+# pr4's LSTM forward: each warp reads h_prev from L2 4 bytes a lane and
+# reduces its dot products with shuffles
+LSTM_FWD_PR4 = {
+    "fwd_no_product": [
+        ("lstm.cu", _replace("      warp_rows_dot<W, R, G, true>(hp, H, b0, "
+                             "B, H, w_s, acc);\n", ZERO_ACC))],
+    "fwd_no_sync": [
+        ("lstm.cu", _replace("    grid.sync();\n  }\n}\n\n// --- backward",
+                             "  }\n}\n\n// --- backward"))],
+    "fwd_no_load": [
+        ("recurrent.cuh", _replace("        x = kL2 ? __ldcg(p) : *p;\n",
+                                   "        x = kL2 ? 0.5f : *p;\n"))],
+}
+# the f32 step product of pr8's LSTM forward on the CUDA cores: lane (g, t)
+# takes the values of the tensor cores' layout (rows g and g + 8, columns
+# 2t and 2t + 1 of each n-block), 4 k at a time from 16-byte reads, one FMA
+# chain a value over the warp's k-range
+FWD_F32_FMA = """\
+      for (int k = k0; k < k1; k += 4) {
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(h_s + (m0 + g) * ldk + k);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(h_s + (m0 + g + 8) * ldk + k);
+#pragma unroll
+        for (int nb = 0; nb < NP / 8; ++nb) {
+          const float4 w0 = *reinterpret_cast<const float4*>(
+              w_s + (nb * 8 + 2 * t) * ldk + k);
+          const float4 w1 = *reinterpret_cast<const float4*>(
+              w_s + (nb * 8 + 2 * t + 1) * ldk + k);
+          const float4 av[2] = {a0, a1}, wv[2] = {w0, w1};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 x = av[e >> 1], y = wv[e & 1];
+            float v = acc[nb][e];
+            v = fmaf(x.x, y.x, v);
+            v = fmaf(x.y, y.y, v);
+            v = fmaf(x.z, y.z, v);
+            acc[nb][e] = fmaf(x.w, y.w, v);
+          }
+        }
+      }
+    }
+"""
+# pr8's LSTM forward: h_prev staged by 16-byte cp.async, the step product
+# K-split over the warps (bf16 mma.sync, 3xTF32 for f32)
+LSTM_FWD_PR8 = {
+    "fwd_no_product": [
+        ("lstm.cu", _replace("      fwd_step_product<W, HB>(",
+                             "      if (0) fwd_step_product<W, HB>("))],
+    "fwd_no_sync": [
+        ("lstm.cu", _replace("    grid.sync();  // forward step barrier\n",
+                             ""))],
+    "fwd_no_load": [
+        ("lstm.cu", _replace("      stage_h<W>(",
+                             "      if (0) stage_h<W>("))],
+    "fwd_f32_cuda_cores": [
+        ("lstm.cu", _swap("      // m16n8k8 fragments read element by "
+                          "element",
+                          "    // (row g / g + 8, columns 2t, 2t + 1) of "
+                          "each n-block", FWD_F32_FMA))],
+}
+# pr4's GRU backward: r, z, c recomputed and dw accumulated inside the
+# serial loop, three barriers a step
+GRU_BWD_PR4 = {
+    "no_recompute": [
+        ("gru.cu", _replace("      warp_rows_dot<W, R2, RZ, false>(hp, H, b0, "
+                            "B, H, wc_s, acc);\n", ZERO_ACC)),
+        ("gru.cu", _replace("      warp_rows_dot<W, R1, HB, true>(rh, H, b0, "
+                            "B, H, wc_s + RZ * H, acc);\n", ZERO_ACC))],
+    "no_dw": [
+        ("gru.cu", _cut("    // 4. dw of the units' c columns",
+                        "    // every block's dc_in of step t is in dxs\n")),
+        ("gru.cu", _cut("    // 6. dw of the units' r and z columns",
+                        "    // every block's dr_in and dz_in of step t "
+                        "are in dxs\n"))],
+    "no_sync": [
+        ("gru.cu", _replace("    grid.sync();\n    // 2. c of the units",
+                            "    // 2. c of the units")),
+        ("gru.cu", _replace("    grid.sync();\n    // 5. drh",
+                            "    // 5. drh")),
+        ("gru.cu", _replace("    grid.sync();\n    // 7. dh_prev",
+                            "    // 7. dh_prev"))],
+}
+# pr8's GRU backward: gates and dw as products around the recurrence,
+# two exchanges and two barriers a step
+GRU_BWD_PR8 = {
+    "no_recompute": [
+        ("gru.cu", _replace("  launch_gemm<W, false>(hprev",
+                            "  if (0) launch_gemm<W, false>(hprev")),
+        ("gru.cu", _replace("  launch_gemm<W, false>(rh",
+                            "  if (0) launch_gemm<W, false>(rh"))],
+    "no_dw": [
+        ("gru.cu", _replace("  launch_gemm<W, true>(hprev",
+                            "  if (0) launch_gemm<W, true>(hprev")),
+        ("gru.cu", _replace("  launch_gemm<W, true>(rh",
+                            "  if (0) launch_gemm<W, true>(rh"))],
+    "no_sync": [
+        ("gru.cu", _replace("    grid.sync();  // barrier 1\n", "")),
+        ("gru.cu", _replace("    grid.sync();  // barrier 2\n", ""))],
+}
+
+#: version of the sources -> kernel -> build -> [(file, edit)]
+EDITS = {
+    "pr4": {"lstm_bwd": LSTM_BWD_PR4, "lstm_fwd": LSTM_FWD_PR4,
+            "gru_bwd": GRU_BWD_PR4},
+    "pr7": {"lstm_bwd": LSTM_BWD_PR7, "lstm_fwd": LSTM_FWD_PR4,
+            "gru_bwd": GRU_BWD_PR4},
+    "pr8": {"lstm_bwd": LSTM_BWD_PR8, "lstm_fwd": LSTM_FWD_PR8,
+            "gru_bwd": GRU_BWD_PR8},
+}
+#: builds that compute the kernel's function by another route: their
+#: outputs are held to the plain version's
+EXACT = {"lstm_fwd-fwd_f32_cuda_cores"}
+#: the source each kernel's builds compile
+SOURCE = {"lstm_bwd": "lstm", "lstm_fwd": "lstm", "gru_bwd": "gru"}
 T, B, H = 80, 32, 512
 
 
-def _version(src):
-    """The EDITS version whose every edit applies to ``src``."""
-    for version, builds in EDITS.items():
+def _version(read):
+    """The EDITS version whose every edit applies to the sources
+    (``read(file)`` gives a file's text)."""
+    for version, kernels in EDITS.items():
         try:
-            for edits in builds.values():
-                for edit in edits:
-                    edit(src)
+            for builds in kernels.values():
+                for edits in builds.values():
+                    for name, edit in edits:
+                        edit(read(name))
         except ValueError:
             continue
         return version
-    raise ValueError("no known version of lstm.cu: every EDITS set misses a "
-                     "target")
+    raise ValueError("no known version of lstm.cu and gru.cu: every EDITS "
+                     "set misses a target")
+
+
+def _builds(version):
+    """[(build name, source to compile, [(file, edit)])], shipped first."""
+    out = [("shipped", src, []) for src in ("lstm", "gru")]
+    for kernel, builds in EDITS[version].items():
+        for name, edits in builds.items():
+            out.append((f"{kernel}-{name}", SOURCE[kernel], edits))
+    return out
 
 
 def build_all():
     """Copy, edit and compile every build at once; returns (version,
-    {build: (library path, ptxas report)})."""
+    {(build, source): (library path, ptxas report)})."""
     from paddle_tpu_torch.ops import _build
-    with open(os.path.join(_build.CSRC, "lstm.cu")) as f:
-        version = _version(f.read())
+
+    def read(name):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            return f.read()
+    version = _version(read)
     root = os.path.join(HERE, "build", "recurrent_builds")
+    shutil.rmtree(root, ignore_errors=True)
     procs = {}
-    for name in BUILDS:
+    for name, source, edits in _builds(version):
         d = os.path.join(root, name)
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(_build.CSRC, d)
-        path = os.path.join(d, "lstm.cu")
-        with open(path) as f:
-            src = f.read()
-        for edit in EDITS[version].get(name, []):
-            src = edit(src)
-        with open(path, "w") as f:
-            f.write(src)
-        lib = os.path.join(d, "liblstm.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, path]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       lib)
+        if not os.path.isdir(d):
+            shutil.copytree(_build.CSRC, d)
+        for fname, edit in edits:
+            path = os.path.join(d, fname)
+            with open(path) as f:
+                src = f.read()
+            with open(path, "w") as f:
+                f.write(edit(src))
+        lib = os.path.join(d, f"lib{source}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+               os.path.join(d, f"{source}.cu")]
+        procs[(name, source)] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True), lib)
     out = {}
-    for name, (proc, lib) in procs.items():
+    for key, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        out[name] = (lib, log)
+            raise RuntimeError(f"nvcc {key} failed:\n{log}")
+        out[key] = (lib, log)
     return version, out
 
 
-def _ptxas(log):
-    """[(kernel, 'N registers, ...')] of the LSTM backward kernels in one
-    nvcc report."""
+def _ptxas(log, build):
+    """[(kernel, 'N registers, ...')] of the kernels an edited build
+    changes (every recurrent kernel of the shipped build) in one nvcc
+    report."""
+    keys = {"lstm_fwd": ("lstm_fwd",), "lstm_bwd": ("lstm_bwd", "rnn_"),
+            "gru_bwd": ("gru_bwd", "gru_gates", "rnn_")}.get(
+                build.split("-")[0], ("lstm", "gru", "rnn_"))
     rows, kernel = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif "Used" in line and "registers" in line and kernel:
-            if "lstm_bwd" in kernel:
+            if any(k in kernel for k in keys):
                 rows.append((kernel[:90], line.split("info    :")[-1].strip()))
             kernel = None
     return rows
+
+
+def _recurrent_ms(names):
+    """Device ms of the recurrent kernels among a call's kernels (every
+    kernel of the port's sources, none of PyTorch's own)."""
+    return sum(t for k, t in names.items()
+               if any(s in k for s in ("lstm", "gru", "rnn_")))
 
 
 def main():
@@ -163,46 +353,82 @@ def main():
         print("recurrent_builds: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import _device_ms, _recurrent_inputs
+    from chip_smoke import _device_ms, _err, _recurrent_inputs
     from paddle_tpu_torch.ops import kernels as K
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
     version, libs = build_all()
+    print(f"version of the sources: {version}", flush=True)
     report = {"card": smi, "version": version, "ptxas": {}, "device_ms": {}}
-    for name, (_, log) in libs.items():
-        for kernel, regs in _ptxas(log):
+    for (name, source), (_, log) in libs.items():
+        for kernel, regs in _ptxas(log, name):
             print(f"  {name} {kernel}: {regs}", flush=True)
             report["ptxas"][f"{name} {kernel}"] = regs
-    fns = {}
-    for name, (lib, _) in libs.items():
-        fn = getattr(ctypes.CDLL(lib), K.LSTM_BWD.entry)
-        fn.argtypes, fn.restype = K.LSTM_BWD.argtypes, ctypes.c_int
-        fns[name] = fn
+    wrapped = {"lstm_bwd": K.LSTM_BWD, "lstm_fwd": K.LSTM_FWD,
+               "gru_bwd": K.GRU_BWD}
+    shipped = {k: w._fn for k, w in wrapped.items()}
     g = torch.Generator(device="cpu").manual_seed(18)
-    xs, w32, h0, c0, mask, dhs, dcs = _recurrent_inputs(4, T, B, H, "full",
-                                                        False, g)
-    shipped_fn = K.LSTM_BWD._fn
     try:
-        for wdt in (torch.bfloat16, torch.float32):
-            w = w32.to(wdt)
-            hs, cs = K.lstm_fwd_plain(xs, w, h0, c0, mask)
-            args = (xs, w, h0, c0, mask, hs, cs, dhs, dcs)
-            label = f"T{T} B{B} H{H} w {str(wdt)[6:]}"
-            rec = {n: [] for n in BUILDS}
-            for order in (BUILDS, BUILDS[::-1]):
-                for n in order:
-                    K.LSTM_BWD._fn = fns[n]
-                    _, names = _device_ms(lambda: K.lstm_bwd(*args))
-                    rec[n].append(sum(t for k, t in names.items()
-                                      if "lstm" in k))
-            for n in BUILDS:
-                print(f"  {label} {n}: device ms of the LSTM kernels "
-                      f"{rec[n]}", flush=True)
-            report["device_ms"][label] = rec
+        for kernel, wrapper in wrapped.items():
+            src = SOURCE[kernel]
+            fns = {}
+            for (name, source), (lib, _) in libs.items():
+                if source == src and (name == "shipped"
+                                      or name.startswith(kernel + "-")):
+                    fn = getattr(ctypes.CDLL(lib), wrapper.entry)
+                    fn.argtypes, fn.restype = wrapper.argtypes, ctypes.c_int
+                    fns[name] = fn
+            builds = tuple(fns)
+            lstm = kernel.startswith("lstm")
+            xs, w32, h0, c0, mask, dhs, dcs = _recurrent_inputs(
+                4 if lstm else 3, T, B, H, "full", False, g)
+            for wdt in ((torch.bfloat16, torch.float32) if lstm
+                        else (torch.float32, torch.bfloat16)):
+                w = w32.to(wdt)
+                if kernel == "lstm_fwd":
+                    args = (xs, w, h0, c0, mask)
+                elif kernel == "lstm_bwd":
+                    hs, cs = K.lstm_fwd_plain(xs, w, h0, c0, mask)
+                    args = (xs, w, h0, c0, mask, hs, cs, dhs, dcs)
+                else:
+                    hs = K.gru_fwd_plain(xs, w, h0, mask)
+                    args = (xs, w, h0, mask, hs, dhs)
+
+                def call(fn=getattr(K, kernel), a=args):
+                    return fn(*a)
+                label = f"{kernel} T{T} B{B} H{H} w {str(wdt)[6:]}"
+                rec = {n: [] for n in builds}
+                for order in (builds, builds[::-1]):
+                    for n in order:
+                        wrapper._fn = fns[n]
+                        _, names = _device_ms(call)
+                        rec[n].append(_recurrent_ms(names))
+                for n in builds:
+                    print(f"  {label} {n}: device ms of the recurrent "
+                          f"kernels {rec[n]}", flush=True)
+                report["device_ms"][label] = rec
+                for n in (n for n in builds if n in EXACT):
+                    wrapper._fn = fns[n]
+                    pairs = list(zip(call(), getattr(K, kernel + "_plain")(
+                        *args)))
+                    errs = [_err(o, r, "bf16_max" if wdt is torch.bfloat16
+                                 else None) for o, r in pairs]
+                    err = max(e for e, _ in errs)
+                    share = max(x for _, x in errs)
+                    print(f"  {label} {n}: max_abs_err {err:.3e} against "
+                          f"the plain version, {share:.3f} of the "
+                          "tolerance", flush=True)
+                    report.setdefault("exact", {})[f"{label} {n}"] = [
+                        err, share]
+                    if share > 1.0:
+                        raise AssertionError(f"{label} {n} disagrees with "
+                                             "the plain version")
+                wrapper._fn = shipped[kernel]
     finally:
-        K.LSTM_BWD._fn = shipped_fn
+        for kernel, wrapper in wrapped.items():
+            wrapper._fn = shipped[kernel]
     print(smi)
     print(json.dumps(report))
     return 0

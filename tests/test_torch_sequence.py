@@ -16,6 +16,8 @@ max(1, max |want|) (the ROADMAP's bf16 rule: a reordered f32 sum can flip
 one bf16 rounding of h_prev, which the recurrence carries on); programs,
 1e-5 x the largest |value| in f32.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,8 @@ import torch
 import paddle_tpu as jfluid
 from paddle_tpu import layers as jlayers
 from paddle_tpu.ops.pallas_kernels import (_gru_pallas_bwd, _lstm_pallas_bwd,
-                                           fused_gru, fused_lstm)
+                                           _lstm_pallas_fwd, fused_gru,
+                                           fused_lstm)
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import layers as players
 from paddle_tpu_torch.ops import kernels as K
@@ -119,24 +122,28 @@ def test_lstm_matches_pallas(wdtype):
         _close(leaf.grad, jg.astype(jnp.float32), _tol(wdtype, jg), name)
 
 
+def _kernel_sum(a, b, wdtype):
+    """sum over k of a[k] (x) b[k] for a [K, M], b [K, N] in the order of
+    summation of the port's tensor-core products: each k-step's product
+    formed apart (f64, then rounded to f32: an mma from zero) and added
+    to the f32 sum.  bf16 w: operands rounded to bf16, 16-deep steps; f32
+    w: 8-deep steps (3xTF32 m16n8k8, about f32's accuracy)."""
+    out = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float32)
+    if wdtype == "bfloat16":
+        a, b = (x.to(torch.bfloat16) for x in (a, b))
+    a, b = a.double(), b.double()
+    depth = 16 if wdtype == "bfloat16" else 8
+    for k0 in range(0, a.shape[0], depth):
+        out = out + (a[k0:k0 + depth].T @ b[k0:k0 + depth]).float()
+    return out
+
+
 def _dw_as_the_kernel_sums(hprev, dxs, wdtype):
     """dw = h_prev^T . dgates summed as lstm.cu's dw product sums it: over
-    k = (t, b) in order.  bf16 w: operands rounded to bf16, each 16-deep
-    k-tile's product formed apart (f64, then rounded to f32: a tensor-core
-    mma from zero) and added to the f32 sum.  f32 w: one fused
-    multiply-add a k (f64 product and sum, rounded to f32)."""
+    k = (t, b) in order, by `_kernel_sum`."""
     a = hprev.reshape(-1, hprev.shape[-1])
     b = dxs.reshape(-1, dxs.shape[-1])
-    dw = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float32)
-    if wdtype == "bfloat16":
-        a, b = (x.to(torch.bfloat16).double() for x in (a, b))
-        for k0 in range(0, a.shape[0], 16):
-            dw = dw + (a[k0:k0 + 16].T @ b[k0:k0 + 16]).float()
-    else:
-        a, b = a.double(), b.double()
-        for k in range(a.shape[0]):
-            dw = (dw.double() + a[k][:, None] * b[k][None, :]).float()
-    return dw
+    return _kernel_sum(a, b, wdtype)
 
 
 @pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
@@ -187,16 +194,217 @@ def test_lstm_dh_exchange_order_matches_plain(wdtype, units):
 @pytest.mark.parametrize("h,sms,units", [(512, 132, 4), (96, 132, 1),
                                          (1024, 132, 8), (2048, 132, 8),
                                          (264, 132, 2)])
-def test_recurrent_units_and_dw_splits(h, sms, units):
-    """The units a block the wrapper assumes (and sizes the exchange by)
-    follow recurrent.cuh's rule, and the dw product's split gives about
-    1024 blocks, at most 8 runs of at least 128 k each."""
-    assert K.rnn_units_per_block(h, sms) == units
-    tiles = -(-h // 64) * -(-4 * h // 64)
-    for tb in (7 * 5, 80 * 32, 4096 * 64):
-        s = K.lstm_dw_splits(h, tb)
-        assert 1 <= s <= 8 and (s == 1 or tb / s >= 128 / 2)
-        assert s * tiles <= max(1024, tiles)
+def test_recurrent_units_and_dw_splits(h, sms, units, monkeypatch):
+    """The wrappers size their exchange buffers by asking their own
+    kernel's library (ptt_rnn_exchange_floats, whose units a block and
+    layout are recurrent.cuh's; chip_smoke.py phase 3 holds the answers on
+    the card to two [blocks] x [blocks] x [B * units rounded up to 4]
+    buffers): here a stand-in library answers that layout for ``units``
+    (recurrent.cuh's rule on a card of ``sms`` SMs), and the query must
+    pass H and B to the named library, keep one answer per card and shape,
+    and raise when the library reports an error.  The dw products' split,
+    for the LSTM's 4H and the GRU's 3H gate columns, gives about 1024
+    blocks, at most 8 runs of at least 128 k each."""
+    asked = []
+
+    class Lib:
+        def __init__(self, name):
+            self.name = name
+
+        @property
+        def ptt_rnn_exchange_floats(self):
+            def query(hh, bb, out):
+                asked.append((self.name, hh, bb))
+                blocks = -(-hh // units)
+                out._obj.value = 2 * blocks * blocks * (-(-bb * units // 4)
+                                                        * 4)
+                return 0 if hh > 0 else 1
+            return query
+
+    monkeypatch.setattr(K._build, "load", Lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    K.rnn_exchange_floats.cache_clear()
+    try:
+        blocks = -(-h // units)
+        assert (blocks <= sms or units == 8) and (
+            units == 1 or -(-h // (units // 2)) > sms)
+        for source in (K.LSTM_BWD.source, K.GRU_BWD.source):
+            for b in (1, 5, 32):
+                seg = -(-b * units // 4) * 4
+                for _ in range(2):
+                    assert (K.rnn_exchange_floats(source, 0, h, b)
+                            == 2 * blocks * blocks * seg)
+        assert asked == [(s, h, b) for s in ("lstm", "gru")
+                         for b in (1, 5, 32)]
+        with pytest.raises(RuntimeError, match="exchange size query"):
+            K.rnn_exchange_floats("gru", 0, -h, 4)
+    finally:
+        K.rnn_exchange_floats.cache_clear()
+    for gates in (4, 3):
+        tiles = -(-h // 64) * -(-gates * h // 64)
+        for tb in (7 * 5, 80 * 32, 4096 * 64):
+            s = K.rnn_dw_splits(h, tb, gates)
+            assert 1 <= s <= 8 and (s == 1 or tb / s >= 128 / 2)
+            assert s * tiles <= max(1024, tiles)
+    # the main path's GRU (H512, T80 B32): 8 x 24 tiles in 5 runs
+    assert K.rnn_dw_splits(512, 80 * 32, 3) == 5
+
+
+def _split_dw(a, b, wdtype, splits):
+    """a^T . b over k = (t, b) as the backward's dw product sums it: k in
+    `splits` runs of whole k-tiles (32 deep for bf16, 16 for f32), each
+    run's partial product summed apart, the runs added in order."""
+    bk = 32 if wdtype == "bfloat16" else 16
+    tiles = -(-a.shape[0] // bk)
+    per = -(-tiles // splits)
+    out = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float32)
+    for z in range(splits):
+        k0, k1 = z * per * bk, min(a.shape[0], (z + 1) * per * bk)
+        if k0 < k1:
+            out = out + _kernel_sum(a[k0:k1], b[k0:k1], wdtype)
+    return out
+
+
+def _shares(d, w_cols, units, gate_cols, wdtype, tw):
+    """sum over n of mm(d[b][n]) . w_cols[j][n] as the exchange takes it:
+    each block of ``units`` hidden units multiplies its own columns (the
+    units' column of each of ``gate_cols`` gates) by w's, in f32 from
+    exact products, and the blocks' shares are added in order of block."""
+    hid = w_cols.shape[0]
+    width = d.shape[1] // gate_cols
+    out = torch.zeros(d.shape[0], hid)
+    for j0 in range(0, width, units):
+        cols = [q * width + j0 + u for q in range(gate_cols)
+                for u in range(units) if j0 + u < width]
+        share = (K._mm(d[:, cols], tw).double()
+                 @ w_cols[:, cols].T.double()).float()
+        out = out + share
+    return out
+
+
+def _gru_bwd_hoisted(xs, tw, h0, mask, hs, dhs, units, wdtype):
+    """The GRU backward in the order gru.cu takes it: r, z and c from two
+    products over all T (x + mm(h_prev) . w_rz, then x + mm(r h_prev) .
+    w_c), the recurrence with drh and drz_in . w_rz^T formed from the
+    blocks' shares added in order of block, and dw as in-order sums of
+    split runs of k."""
+    hid = tw.shape[0]
+    wf = tw.float()
+    w_rz, w_c = wf[:, :2 * hid], wf[:, 2 * hid:]
+    t_, b_ = xs.shape[:2]
+    hprev = K._prev(h0, hs)
+    hp2, x2 = hprev.reshape(-1, hid), xs.reshape(t_ * b_, -1)
+    rz = torch.sigmoid(x2[:, :2 * hid] + (K._mm(hp2, tw).double()
+                                          @ w_rz.double()).float())
+    r, z = rz[:, :hid], rz[:, hid:]
+    rh = r * hp2
+    c = torch.tanh(x2[:, 2 * hid:] + (K._mm(rh, tw).double()
+                                      @ w_c.double()).float())
+    r, z, c = (v.reshape(t_, b_, hid) for v in (r, z, c))
+    carry = torch.zeros(b_, hid)
+    dxs = torch.zeros_like(xs)
+    for t in reversed(range(t_)):
+        m, h_prev = mask[t], hprev[t]
+        dh = dhs[t] + carry
+        dh_new = m * dh
+        part = (1 - m) * dh + dh_new * (1 - z[t])
+        dz = dh_new * (c[t] - h_prev)
+        dc_in = dh_new * z[t] * (1 - c[t] * c[t])
+        dz_in = dz * z[t] * (1 - z[t])
+        drh = _shares(dc_in, w_c, units, 1, wdtype, tw)
+        dr_in = drh * h_prev * r[t] * (1 - r[t])
+        carry = part + drh * r[t]
+        drz_in = torch.cat([dr_in, dz_in], dim=1)
+        carry = carry + _shares(drz_in, w_rz, units, 2, wdtype, tw)
+        dxs[t] = torch.cat([drz_in, dc_in], dim=1)
+    splits = K.rnn_dw_splits(hid, t_ * b_, 3)
+    dg = dxs.reshape(t_ * b_, -1)
+    dw = torch.cat([_split_dw(hp2, dg[:, :2 * hid], wdtype, splits),
+                    _split_dw(rh, dg[:, 2 * hid:], wdtype, splits)], dim=1)
+    return dxs, dw, carry
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("units", [1, 4, 8])
+def test_gru_bwd_hoisted_order_matches_pallas(wdtype, units):
+    """The GRU backward's order of work and summation (gates from the
+    batched products, drh and the drz_in . w_rz^T term from the blocks'
+    shares added block by block, dw as in-order split sums), rendered in
+    plain torch, against gru_bwd_plain and the Pallas backward
+    (interpret mode): F32_TOL for an f32 w, the bf16 rule for a bf16 w."""
+    xs, w, jw, tw, h0, _, gh, _ = _recurrent_case(3, wdtype, 5)
+    tm = _mask()
+    targs = (torch.from_numpy(xs), tw, torch.from_numpy(h0),
+             torch.from_numpy(tm))
+    hs = K.gru_fwd_plain(*targs)
+    got = _gru_bwd_hoisted(targs[0], tw, targs[2], targs[3], hs,
+                           torch.from_numpy(gh), units, wdtype)
+    plain = K.gru_bwd_plain(*targs, hs, torch.from_numpy(gh))
+    jargs = (jnp.asarray(xs), jw, jnp.asarray(h0))
+    jhs = fused_gru(*jargs, jnp.asarray(tm), True)
+    want = _gru_pallas_bwd(*jargs, jnp.asarray(tm), jhs, jnp.asarray(gh),
+                           True)
+    for name, g, pv, wv in zip(["dxs", "dw", "dh0"], got, plain, want):
+        _close(g, pv, _tol(wdtype, pv), f"plain {name}")
+        _close(g, wv, _tol(wdtype, wv), f"Pallas {name}")
+
+
+def _lstm_fwd_warp_split(xs, tw, h0, c0, mask, wdtype, warps=8):
+    """The LSTM forward in lstm.cu's order of summation: each step's
+    product mm(h_prev) . w split over ``warps`` runs of whole 16-deep
+    k-steps, each run summed apart (`_kernel_sum`: 16-deep bf16 or 8-deep
+    3xTF32 products added with FADD), the runs added in order of warp,
+    then x added."""
+    hid = tw.shape[0]
+    wf = tw.float()
+    steps = -(-hid // 16)
+    per = -(-steps // warps)
+    h, c = h0.float(), c0.float()
+    hs, cs = [], []
+    for t in range(xs.shape[0]):
+        hm = K._mm(h, tw)
+        total = torch.zeros(h.shape[0], 4 * hid)
+        for wp in range(warps):
+            k0, k1 = 16 * min(steps, wp * per), 16 * min(steps, wp * per + per)
+            k1 = min(k1, hid)
+            if k0 < k1:
+                total = total + _kernel_sum(hm[:, k0:k1].T, wf[k0:k1],
+                                            wdtype)
+        gates = xs[t] + total
+        i = torch.sigmoid(gates[:, :hid])
+        f = torch.sigmoid(gates[:, hid:2 * hid])
+        g = torch.tanh(gates[:, 2 * hid:3 * hid])
+        o = torch.sigmoid(gates[:, 3 * hid:])
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        m = mask[t]
+        h = m * h_new + (1 - m) * h
+        c = m * c_new + (1 - m) * c
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+def test_lstm_fwd_step_product_order_matches_pallas(wdtype):
+    """The LSTM forward's step product in its kernel's order (K split over
+    the 8 warps, 16-deep bf16 or 8-deep 3xTF32 partials added with FADD,
+    the warps' sums added in order) against lstm_fwd_plain and the Pallas
+    forward (interpret mode): F32_TOL for an f32 w, the bf16 rule for a
+    bf16 w."""
+    xs, w, jw, tw, h0, c0, _, _ = _recurrent_case(4, wdtype, 6)
+    tm = _mask()
+    targs = (torch.from_numpy(xs), tw, torch.from_numpy(h0),
+             torch.from_numpy(c0), torch.from_numpy(tm))
+    got = _lstm_fwd_warp_split(*targs[:2], targs[2], targs[3], targs[4],
+                               wdtype)
+    plain = K.lstm_fwd_plain(*targs)
+    want = _lstm_pallas_fwd(jnp.asarray(xs), jw, jnp.asarray(h0),
+                            jnp.asarray(c0), jnp.asarray(tm), True)
+    for name, g, pv, wv in zip(["hs", "cs"], got, plain, want):
+        _close(g, pv, _tol(wdtype, pv), f"plain {name}")
+        _close(g, wv, _tol(wdtype, wv), f"Pallas {name}")
 
 
 @pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
