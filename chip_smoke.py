@@ -5,6 +5,7 @@
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
     python3 chip_smoke.py --lstm      # phase 1, recurrent phase 3, 9, 10
+    python3 chip_smoke.py --ln        # phase 1, LayerNorm phase 3
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -18,14 +19,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    edges and at -1, LayerNorm at widths on both sides of its warp-per-row
    path, the recurrent kernels also with ragged and time-reversed masks
    and at an odd shape, and at the widths where placement ends: what
-   fits is checked, what does not must refuse), and time kernel, plain
-   version and a PyTorch library yardstick with CUDA events and (but the
-   LayerNorm and softmax-xent backward ones) by device time per call
-   (torch.profiler, split by kernel name), the wrappers of paged
-   attention and the LayerNorm forward by host us per call; the flash,
-   BatchNorm and recurrent backward kernels must repeat bit for bit,
-   and the flash, LSTM and GRU libraries must hold tensor-core instructions
-   (HMMA in cuobjdump -sass);
+   fits is checked, what does not must refuse; the LSTM and GRU forward
+   also where they stage the batch in chunks), and time kernel, plain
+   version and a PyTorch library yardstick with CUDA events and by device
+   time per call (torch.profiler, split by kernel name), the wrappers of
+   paged attention and the LayerNorm forward by host us per call; the
+   flash, LayerNorm, BatchNorm and recurrent backward kernels and the GRU
+   forward must repeat bit for bit, and the flash, LSTM and GRU libraries
+   must hold tensor-core instructions (HMMA in cuobjdump -sass), the GRU
+   forward kernel in its own machine code;
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
    768, 12 heads, d_ff 3072; seeded random weights saved as a model
    directory and loaded through DecodeEngine.from_model_dir) in bf16
@@ -75,7 +77,8 @@ the card's name and power limit, and the last line:
 With --serving it runs only phase 1, the paged-attention and LayerNorm
 checks and timings of phase 3, and phase 4; with --resnet phase 1, the
 BatchNorm backward's checks and timings and phase 7; with --lstm phase 1,
-the LSTM and GRU checks and timings and phases 9 and 10.  Each prints its
+the LSTM and GRU checks and timings and phases 9 and 10; with --ln phase
+1 and the LayerNorm forward and backward checks and timings.  Each prints its
 results as one JSON line (no result line): run from two checkouts in
 turns, it compares two versions of those kernels on one card.  In these
 modes a recurrent kernel that refuses a width it should place is
@@ -501,12 +504,29 @@ def check_flash_attention(rec):
 #: pair, and the LSTM and GRU recurrences' products (bf16, or 3xTF32)
 TENSOR_CORE_SOURCES = ("flash_attention", "flash_attention_bwd", "lstm",
                        "gru")
+#: kernels whose own machine code must hold tensor-core instructions, by
+#: library: every instance (w type, units a block) of the GRU forward
+TENSOR_CORE_FUNCTIONS = {"gru": "gru_fwd_kernel"}
+
+
+def _hmma_by_function(sass):
+    """{function name: HMMA instructions in it} of cuobjdump -sass output
+    (each function's code follows its "Function : <name>" line)."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def check_tensor_cores(paths):
     """Count the tensor-core instructions (HMMA) in the machine code of
     TENSOR_CORE_SOURCES' libraries with cuobjdump (beside nvcc, or in
-    Triton's package); fail when one has none."""
+    Triton's package); fail when one has none, or when a kernel of
+    TENSOR_CORE_FUNCTIONS has none in its own functions."""
     import glob
     from paddle_tpu_torch.ops import _build
     cands = [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")]
@@ -530,6 +550,17 @@ def check_tensor_cores(paths):
               f"(cuobjdump -sass)", flush=True)
         if counts[name] == 0:
             raise AssertionError(f"{name} holds no tensor-core instruction")
+        kernel = TENSOR_CORE_FUNCTIONS.get(name)
+        if kernel is None:
+            continue
+        own = {f: n for f, n in _hmma_by_function(sass).items()
+               if kernel in f}
+        print(f"  {name}: {kernel}'s {len(own)} instances hold "
+              f"{sorted(own.values())} HMMA instructions", flush=True)
+        if not own or min(own.values()) == 0:
+            raise AssertionError(f"an instance of {kernel} holds no "
+                                 "tensor-core instruction")
+        counts[kernel] = sum(own.values())
     return counts
 
 
@@ -710,13 +741,6 @@ def _bn_timings(args, nhwc):
         f"R{n * h * w} C{c} NHWC {str(x.dtype)[6:]} act={args[6]}")
 
 
-def _grad_ms(outputs, inputs, grads):
-    """Time one autograd backward of a library call (its yardstick)."""
-    import torch
-    return _time_ms(lambda: torch.autograd.grad(outputs, inputs, grads,
-                                                retain_graph=True))
-
-
 def check_flash_attention_bwd(rec):
     import torch
     import torch.nn.functional as F
@@ -768,6 +792,12 @@ def check_flash_attention_bwd(rec):
 
 
 def check_layer_norm_bwd(rec):
+    """The LayerNorm backward against its plain version at R16 and R2048
+    at every LN_WIDTHS width (both sides of its warp-per-row path's
+    limits) and at the LM's R8192 F768, f32 and bf16; at R8192 F768 a
+    second run must repeat bit for bit, and its times are taken in both
+    dtypes (f32 the LM's, under "ms"; bf16 under "bf16"), the library's
+    being F.layer_norm's backward on the same tensors."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
@@ -775,32 +805,42 @@ def check_layer_norm_bwd(rec):
     dev = torch.device("cuda")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        for r, f in ((8192, 768), (16, 3072), (16, 1000), (2048, 1000)):
-            x = (3 * torch.randn(r, f, generator=g) + 1).to(dev, dtype)
-            dy = torch.randn(r, f, generator=g).to(dev, dtype)
-            sc = (1 + 0.1 * torch.randn(f, generator=g)).to(dev)
-            bi = (0.1 * torch.randn(f, generator=g)).to(dev)
-            _, mean, var = K.layer_norm_fwd(x, sc, bi, 1e-5)
-            inv = torch.rsqrt(var + 1e-5)
-            got = K.layer_norm_bwd(x, sc, mean, inv, dy)
-            ref = K.layer_norm_bwd_plain(x, sc, mean, inv, dy)
-            torch.cuda.synchronize()
-            _check("layer_norm_bwd", list(zip(got, ref)), dn,
-                   f"R{r} F{f}", rec)
-            if dtype is torch.float32 and (r, f) == (8192, 768):
-                nbytes = 3 * r * f * 4 + 3 * f * 4 + 2 * r * 4
-                ops = 12 * r * f
-                rec["ms"] = _time_ms(
-                    lambda: K.layer_norm_bwd(x, sc, mean, inv, dy), iters=50)
-                rec["plain_ms"] = _time_ms(
-                    lambda: K.layer_norm_bwd_plain(x, sc, mean, inv, dy),
-                    iters=50)
-                xx, ww, bb = (t.detach().requires_grad_(True)
+        for r in (16, 2048, 8192):
+            for f in ((768,) if r == 8192 else LN_WIDTHS):
+                x = (3 * torch.randn(r, f, generator=g) + 1).to(dev, dtype)
+                dy = torch.randn(r, f, generator=g).to(dev, dtype)
+                sc = (1 + 0.1 * torch.randn(f, generator=g)).to(dev)
+                bi = (0.1 * torch.randn(f, generator=g)).to(dev)
+                _, mean, var = K.layer_norm_fwd(x, sc, bi, 1e-5)
+                inv = torch.rsqrt(var + 1e-5)
+                args = (x, sc, mean, inv, dy)
+                got = K.layer_norm_bwd(*args)
+                ref = K.layer_norm_bwd_plain(*args)
+                torch.cuda.synchronize()
+                label = f"R{r} F{f}"
+                _check("layer_norm_bwd", list(zip(got, ref)), dn, label,
+                       rec)
+                if r != 8192:
+                    continue
+                _bitwise_repeat("layer_norm_bwd", got,
+                                K.layer_norm_bwd(*args), f"{label} {dn}",
+                                rec)
+                # the library takes scale and bias in x's dtype
+                xx, ww, bb = (t.detach().to(dtype).requires_grad_(True)
                               for t in (x, sc, bi))
                 lib = F.layer_norm(xx, (f,), ww, bb, 1e-5)
-                rec["library_ms"] = _grad_ms(lib, (xx, ww, bb), dy)
-                rec["bound_ms"], rec["bound_by"] = _bound(nbytes, ops, dn)
-                rec["shape"] = f"R{r} F{f} f32"
+                item = x.element_size()
+                t = _kernel_times(
+                    {}, lambda: K.layer_norm_bwd(*args),
+                    lambda: K.layer_norm_bwd_plain(*args),
+                    lambda: torch.autograd.grad(lib, (xx, ww, bb), dy,
+                                                retain_graph=True),
+                    3 * r * f * item + 3 * f * 4 + 2 * r * 4, 12 * r * f,
+                    "float32", f"{label} {dn}", plain_iters=50)
+                if dtype is torch.float32:
+                    rec.update(t)
+                else:
+                    rec["bf16"] = t
 
 
 def check_softmax_xent(rec_fwd, rec_bwd):
@@ -834,27 +874,22 @@ def check_softmax_xent(rec_fwd, rec_bwd):
             if dtype is torch.float32 and (r, v, extreme) == (8192, 8192,
                                                               False):
                 shape = f"R{r} V{v} f32"
-                rec_fwd["ms"] = _time_ms(lambda: K.softmax_xent_fwd(x, lab))
-                rec_fwd["plain_ms"] = _time_ms(
-                    lambda: K.softmax_xent_fwd_plain(x, lab))
                 # the library asserts on a label outside [0, V): it is
                 # timed on the in-range labels
                 lab64 = lab.long().clamp(0, v - 1)
-                rec_fwd["library_ms"] = _time_ms(lambda: F.cross_entropy(
-                    x, lab64, reduction="none"))
-                rec_fwd["bound_ms"], rec_fwd["bound_by"] = _bound(
-                    r * v * 4 + r * 4 + 2 * r * 4, 4 * r * v, dn)
-                rec_fwd["shape"] = shape
-                rec_bwd["ms"] = _time_ms(
-                    lambda: K.softmax_xent_bwd(x, lab, lse, dl))
-                rec_bwd["plain_ms"] = _time_ms(
-                    lambda: K.softmax_xent_bwd_plain(x, lab, lse, dl))
+                _kernel_times(
+                    rec_fwd, lambda: K.softmax_xent_fwd(x, lab),
+                    lambda: K.softmax_xent_fwd_plain(x, lab),
+                    lambda: F.cross_entropy(x, lab64, reduction="none"),
+                    r * v * 4 + r * 4 + 2 * r * 4, 4 * r * v, dn, shape)
                 xx = x.detach().requires_grad_(True)
                 lib = F.cross_entropy(xx, lab64, reduction="none")
-                rec_bwd["library_ms"] = _grad_ms(lib, (xx,), dl)
-                rec_bwd["bound_ms"], rec_bwd["bound_by"] = _bound(
-                    2 * r * v * 4 + 3 * r * 4, 4 * r * v, dn)
-                rec_bwd["shape"] = shape
+                _kernel_times(
+                    rec_bwd, lambda: K.softmax_xent_bwd(x, lab, lse, dl),
+                    lambda: K.softmax_xent_bwd_plain(x, lab, lse, dl),
+                    lambda: torch.autograd.grad(lib, (xx,), dl,
+                                                retain_graph=True),
+                    2 * r * v * 4 + 3 * r * 4, 4 * r * v, dn, shape)
 
 
 def _recurrent_inputs(gates, t, b, h, lens, reverse, g):
@@ -895,12 +930,13 @@ def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
     per-element bf16 rule is printed beside it, not held.  Times at the
     main path's shape and w dtype (the LSTM's bf16 w under program.amp,
     the GRU's f32), and the LSTM's also with f32 w, the dtype of its
-    library yardstick.  At the main shape a second backward must repeat
-    bit for bit.  The LSTM also at LSTM_CHUNKED, where its forward stages
-    the batch in chunks (checked through ptt_lstm_fwd_rows), with both w
-    types.  Then `check_exchange_sizes` and `check_recurrent_limits`
-    (``strict`` as there: the A/B modes also run older libraries, which
-    may lack the queries)."""
+    library yardstick, the GRU's also with bf16 w.  At the main shape a
+    second backward (and for the GRU a second forward) must repeat bit for
+    bit.  Both also at RECURRENT_CHUNKED, where their forward stages the
+    batch in chunks (checked through ptt_lstm_fwd_rows / ptt_gru_fwd_rows),
+    with both w types.  Then `check_exchange_sizes` and
+    `check_recurrent_limits` (``strict`` as there: the A/B modes also run
+    older libraries, which may lack the queries)."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
     lstm = kind == "lstm"
@@ -908,14 +944,14 @@ def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
     g = torch.Generator(device="cpu").manual_seed(18 if lstm else 19)
     cases = [(80, 32, 512, "full", False), (80, 32, 512, "ragged", False),
              (80, 32, 512, "ragged", True), (7, 5, 96, "ragged", False)]
-    runs = [(c, wd) for wd in (torch.float32, torch.bfloat16)
-            for c in cases]
     if lstm:
-        runs += [(LSTM_CHUNKED, wd)
-                 for wd in (torch.float32, torch.bfloat16)]
+        runs = [(c, wd) for wd in (torch.float32, torch.bfloat16)
+                for c in cases]
     else:
         runs = [(c, torch.float32) for c in cases] + [
             (cases[0], torch.bfloat16)]
+    runs += [(RECURRENT_CHUNKED, wd)
+             for wd in (torch.float32, torch.bfloat16)]
     for (t, b, h, lens, rev), wdt in runs:
         xs, w32, h0, c0, mask, dhs, dcs = _recurrent_inputs(
             gates, t, b, h, lens, rev, g)
@@ -924,15 +960,15 @@ def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
         label = (f"T{t} B{b} H{h} {lens}" + (" reverse" if rev else "")
                  + f" w {dn}")
         bf = wdt is torch.bfloat16
-        if lstm and (t, b, h, lens, rev) == LSTM_CHUNKED:
-            rows = _lstm_fwd_rows(b, h, bf, strict)
-            print(f"  lstm_fwd {label}: stages {rows} rows of {b} at once",
+        if (t, b, h, lens, rev) == RECURRENT_CHUNKED:
+            rows = _fwd_rows(kind, b, h, bf, strict)
+            print(f"  {kind}_fwd {label}: stages {rows} rows of {b} at once",
                   flush=True)
             rec_fwd.setdefault("chunked_rows", {})[dn] = rows
             if rows is not None and not rows < b:
-                raise AssertionError(f"lstm_fwd {label} stages all {b} rows "
-                                     "at once: the chunked path is not "
-                                     "checked")
+                raise AssertionError(f"{kind}_fwd {label} stages all {b} "
+                                     "rows at once: the chunked path is "
+                                     "not checked")
         if lstm:
             fwd_args = (xs, w, h0, c0, mask)
             got = K.lstm_fwd(*fwd_args)
@@ -963,35 +999,39 @@ def check_recurrent(kind, rec_fwd, rec_bwd, strict=True):
             _bitwise_repeat(f"{kind}_bwd", dgot,
                             (K.lstm_bwd if lstm else K.gru_bwd)(*bwd_args),
                             label, rec_bwd)
+            if not lstm:
+                _bitwise_repeat("gru_fwd", got, (K.gru_fwd(*fwd_args),),
+                                label, rec_fwd)
             rec_fwd.update(_recurrent_timings(kind, False, fwd_args,
                                               bwd_args))
             rec_bwd.update(_recurrent_timings(kind, True, fwd_args,
                                               bwd_args))
-        elif lstm and (t, lens, rev) == (80, "full", False):
-            # the f32 w, in the library's dtype
-            rec_fwd["f32_w"] = _recurrent_timings(kind, False, fwd_args,
-                                                  bwd_args)
-            rec_bwd["f32_w"] = _recurrent_timings(kind, True, fwd_args,
-                                                  bwd_args)
+        elif (t, lens, rev) == (80, "full", False):
+            # the other w dtype: the LSTM's f32 w is its library's dtype
+            key = "f32_w" if lstm else "bf16_w"
+            rec_fwd[key] = _recurrent_timings(kind, False, fwd_args,
+                                              bwd_args)
+            rec_bwd[key] = _recurrent_timings(kind, True, fwd_args,
+                                              bwd_args)
         del got, ref, dgot, dref
     check_exchange_sizes(kind, rec_bwd, strict)
     check_recurrent_limits(kind, g, rec_fwd, rec_bwd, strict)
 
 
-#: an LSTM shape whose forward stages the batch in chunks on the H100 (an
-#: f32 w stages 16 rows of 64 at H1024, a bf16 w 48): T, B, H, lengths,
-#: reversed
-LSTM_CHUNKED = (3, 64, 1024, "ragged", False)
+#: a shape whose LSTM and GRU forward stage the batch in chunks on the
+#: H100 (an f32 w stages 16 rows of 64 at H1024, a bf16 w 48): T, B, H,
+#: lengths, reversed
+RECURRENT_CHUNKED = (3, 64, 1024, "ragged", False)
 
 
-def _lstm_fwd_rows(b, h, bf16, strict=True):
-    """Rows of the batch the LSTM forward stages at once at B, H on this
-    card (ptt_lstm_fwd_rows); None from an older library without the
-    query when not ``strict``."""
+def _fwd_rows(kind, b, h, bf16, strict=True):
+    """Rows of the batch the LSTM or GRU (``kind``) forward stages at once
+    at B, H on this card (ptt_lstm_fwd_rows / ptt_gru_fwd_rows); None
+    from an older library without the query when not ``strict``."""
     import ctypes
     from paddle_tpu_torch.ops import _build
     try:
-        fn = _build.load("lstm").ptt_lstm_fwd_rows
+        fn = getattr(_build.load(kind), f"ptt_{kind}_fwd_rows")
     except AttributeError:
         if strict:
             raise
@@ -1001,7 +1041,7 @@ def _lstm_fwd_rows(b, h, bf16, strict=True):
     rows = ctypes.c_int(0)
     rc = fn(b, h, int(bf16), ctypes.byref(rows))
     if rc != 0 or not 1 <= rows.value <= b:
-        raise AssertionError(f"ptt_lstm_fwd_rows({b}, {h}): error {rc}, "
+        raise AssertionError(f"ptt_{kind}_fwd_rows({b}, {h}): error {rc}, "
                              f"{rows.value} rows")
     return rows.value
 
@@ -1826,12 +1866,23 @@ def lstm_ab(smi):
     return recs
 
 
+def ln_ab(smi):
+    """``--ln``: the LayerNorm forward and backward kernels' phase 3
+    checks and timings only."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("layer_norm", "layer_norm_bwd"))
+    recs = {"layer_norm_fwd": {}, "layer_norm_bwd": {}}
+    check_layer_norm(recs["layer_norm_fwd"])
+    check_layer_norm_bwd(recs["layer_norm_bwd"])
+    return recs
+
+
 #: the A/B modes: option -> what it runs.  Each prints its results as one
 #: JSON line and no {"ok": ...} line: run from two checkouts in turns
 #: (parent, change, change, parent), it compares two versions of those
 #: kernels on one card
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
-            "--lstm": lstm_ab}
+            "--lstm": lstm_ab, "--ln": ln_ab}
 
 
 def main(argv=()):
@@ -1957,11 +2008,14 @@ def main(argv=()):
             **({"bound_cuda_core_ms": r["bound_cuda_core_ms"]}
                if "bound_cuda_core_ms" in r else {}),
             **({"hmma": hmma[k.source]} if k.source in hmma else {}),
+            **({"hmma_own": hmma[k.name + "_kernel"]}
+               if k.name + "_kernel" in hmma else {}),
             **({"bitwise_repeat": r["bitwise_repeat"]}
                if "bitwise_repeat" in r else {}),
             **({"training_shape": r["training"]} if "training" in r
                else {}),
-            **({"f32_w": r["f32_w"]} if "f32_w" in r else {})})
+            **{key: r[key] for key in ("f32_w", "bf16_w", "bf16",
+                                       "chunked_rows") if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,10 +23,30 @@
 // two dependent products, since (r * h_prev) . w_c needs r of every unit.
 //
 // Forward: as lstm.cu, one cooperative launch persistent over T; block k
-// owns HB hidden units and keeps the 3 * HB columns of w that feed them in
-// shared memory.  Per step: r and z of its units from h_prev (L2), r *
-// h_prev of its units into a [B, H] scratch, a grid barrier, then c of
-// its units from the whole scratch, h, and a second barrier.
+// owns HB = 8 hidden units (64 blocks at H = 512; `kFwdUnits`) and keeps
+// the 3 * HB columns of w that feed them in shared memory, in w's own
+// type.  A step has two products over the whole hidden state, each
+// followed by a grid-wide barrier: r and z of the block's units from
+// h_prev, then c from r * h_prev, which needs r of every unit.  Both are
+// recurrent.cuh's staged step product:
+//   - the operand is published in the product's precision: for a bf16 w
+//     h and r * h_prev are written rounded to bf16 (exactly the operands
+//     the plain version multiplies, at half the bytes), for an f32 w in
+//     f32 (hs itself, and an [B, H] f32 scratch for r * h_prev);
+//   - each product splits K over the 8 warps; each warp stages its own
+//     k-range of the operand into shared memory with 16-byte cp.async
+//     copies, all in flight at once with the step's x (and mask), waits
+//     once and multiplies on the tensor cores: mma.sync m16n8k16 for a
+//     bf16 w, 3xTF32 m16n8k8 for an f32 w, each k-step's product summed
+//     from zero and added with FADD; the gate math adds the warps'
+//     partial tiles in order of warp;
+//   - a block keeps its own units' h (the f32 carry) and z in shared
+//     memory, so nothing of its own is re-read from device memory.
+// Per step: (a) the r|z product, r and z, r * h_prev of the units
+// published; barrier 1; (b) the c product, c and h of the units
+// published; barrier 2.  The batch is staged MC rows at a time (MC a
+// multiple of 16, the whole batch when the shared memory allows, fewer
+// otherwise: `ptt_gru_fwd_rows`).
 //
 // Backward.  Only dh carries from step to step: r, z and c depend on the
 // saved h_prev alone, and dw on h_prev and the dgates of every step.  So
@@ -73,73 +93,172 @@ namespace {
 
 using namespace ptt::rnn;
 
+// --- forward -------------------------------------------------------------
+//
+// Geometry of the two step products: NPR = 2HB rounded up to 16 (the r|z
+// columns of the block's units, zero-padded), NPC = HB rounded up to 16
+// (c's); w_s holds [NPR + NPC] rows of LDK (recurrent.cuh's StepGeom).  A
+// warp's partial tile of a product over NP columns has rows of NP + 4
+// floats (step_product); NPR >= NPC, so the r|z tile is the larger.
+template <typename W, int HB>
+struct FwdGeom : StepGeom<W> {
+  static constexpr int NPR = (2 * HB + 15) / 16 * 16;
+  static constexpr int NPC = (HB + 15) / 16 * 16;
+};
+
+// Units a block of the forward owns, at any H: both tiles are 16 columns
+// wide for 1 to 8 units, so 8 units cost a block no more product work
+// than 4 and halve the blocks that stage all of h twice a step (on an
+// H100 at T80 B32 H512, f32 w: 0.99 ms at 8 units, 1.08 at 4, 1.14 at 16).
+constexpr int kFwdUnits = 8;
+
+// Shared memory of the forward at MC staged rows: w_s [NPR + NPC][LDK] and
+// the staged operand [MC][LDK] of w's type, the warps' partial tiles
+// [kWarps][MC][NPR + 4], the step's x of the phase's gates [MC][2HB] and
+// mask [MC], and the units' z and h [B][HB] (f32).
+template <typename W, int HB>
+size_t fwd_smem(int B, int H, int MC) {
+  using G = FwdGeom<W, HB>;
+  const size_t ldk = G::ldk(H);
+  return align16((G::NPR + G::NPC) * ldk * sizeof(W))
+         + align16(MC * ldk * sizeof(W))
+         + sizeof(float) * (static_cast<size_t>(kWarps) * MC * (G::NPR + 4)
+                            + MC * 2 * HB + MC
+                            + 2 * static_cast<size_t>(B) * HB);
+}
+
+// The sum of the warps' partial tiles at (row r, column n), in order of
+// warp; tiles of MC rows of NR floats.
+__device__ __forceinline__ float warp_tiles_sum(const float* red, int MC,
+                                                int NR, int r, int n) {
+  float s = red[r * NR + n];
+#pragma unroll
+  for (int wp = 1; wp < kWarps; ++wp) s += red[(wp * MC + r) * NR + n];
+  return s;
+}
+
+// One cooperative launch for all T steps, block k owning units [k * HB,
+// k * HB + HB) and the 3HB columns of w that feed them (w_s).  Per step,
+// for each run of MC batch rows:
+//   (a) h_prev staged (hf: f32 [B, H]; or for a bf16 w h16, [B, kp] bf16),
+//       with the step's x of r and z; the r|z product; r and z of the
+//       units; r * h_prev (h_prev of the units from ho_s, the f32 carry)
+//       published into the scratch in the operand's precision (rhf f32
+//       [B, H], or rh16 [B, kp] bf16);
+// then forward barrier 1; then for each run of rows:
+//   (b) the whole r * h_prev staged, with x of c and the mask; c's
+//       product; c and h of the units, written to hs[t] (and h16);
+// then forward barrier 2.  One buffer each for r * h_prev and h16 is
+// enough: every read of r * h_prev falls between barriers 1 and 2 of a
+// step and its writes before barrier 1, and every read of h16 before
+// barrier 1 and its writes after it, so no block writes a buffer that
+// another block may still be reading.
 template <typename W, int HB>
 __global__ void __launch_bounds__(kThreads)
     gru_fwd_kernel(const float* __restrict__ xs, const W* __restrict__ w,
                    const float* __restrict__ h0,
-                   const float* __restrict__ mask, float* hs, float* rh,
-                   int T, int B, int H) {
-  constexpr int G = 3 * HB;
-  constexpr int RZ = 2 * HB;
-  constexpr int R2 = rows_per_warp(RZ);
-  constexpr int R1 = rows_per_warp(HB);
-  extern __shared__ float smem[];
-  float* w_s = smem;             // [G][H]  the units' columns: r, z, c
-  float* rz_s = w_s + G * H;     // [B][2HB] r and z of the units
-  float* c_s = rz_s + B * RZ;    // [B][HB]  c of the units
+                   const float* __restrict__ mask, float* hs, float* rhf,
+                   __nv_bfloat16* rh16, __nv_bfloat16* h16, int T, int B,
+                   int H, int MC) {
+  using Geo = FwdGeom<W, HB>;
+  constexpr bool kBf16 = sizeof(W) == 2;
+  constexpr int NPR = Geo::NPR, NPC = Geo::NPC;
+  constexpr int NRR = NPR + 4, NRC = NPC + 4, G2 = 2 * HB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kp = Geo::kp(H), ldk = Geo::ldk(H);
+  W* w_s = reinterpret_cast<W*>(smem_raw);  // [NPR + NPC][ldk]
+  W* h_s = reinterpret_cast<W*>(
+      smem_raw + align16((NPR + NPC) * ldk * sizeof(W)));  // [MC][ldk]
+  float* red = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(h_s) + align16(MC * ldk * sizeof(W)));
+  float* x_s = red + kWarps * MC * NRR;  // [MC][2HB] the phase's x
+  float* m_s = x_s + MC * G2;            // [MC] the step's mask
+  float* z_s = m_s + MC;                 // [B][HB] the units' z
+  float* ho_s = z_s + B * HB;            // [B][HB] the units' h
   const int j0 = blockIdx.x * HB, nu = min(HB, H - j0);
-  const int warp = threadIdx.x >> 5;
   const int64_t H3 = 3LL * H, BH = static_cast<int64_t>(B) * H;
-  load_columns<W, HB>(w, H, 3, j0, nu, w_s);
+  // w_s[q * HB + u][k] = w[k][q * H + j0 + u] for r, z (q = 0, 1), and
+  // w_s[NPR + u][k] = w[k][2H + j0 + u] for c; 0 past the units and past H
+  for (int idx = threadIdx.x; idx < (NPR + NPC) * ldk; idx += kThreads) {
+    const int n = idx / ldk, k = idx - n * ldk;
+    const int q = n < NPR ? n / HB : 2, u = n < NPR ? n % HB : n - NPR;
+    const bool in = (n < NPR ? n < G2 : u < HB) && u < nu && k < H;
+    w_s[idx] = in ? w[k * H3 + q * H + j0 + u] : static_cast<W>(0.f);
+  }
+  for (int idx = threadIdx.x; idx < B * HB; idx += kThreads) {
+    const int b = idx / HB, u = idx - b * HB;
+    ho_s[idx] = u < nu ? h0[b * H + j0 + u] : 0.f;
+  }
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
   for (int t = 0; t < T; ++t) {
-    const float* hp = t ? hs + (t - 1) * BH : h0;
     const float* xt = xs + t * B * H3;
-    for (int b0 = warp * R2; b0 < B; b0 += kWarps * R2) {
-      float acc[R2][RZ];
-      warp_rows_dot<W, R2, RZ, true>(hp, H, b0, B, H, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < R2; ++r)
-#pragma unroll
-        for (int n = 0; n < RZ; ++n) {
-          const int b = b0 + r, q = n / HB, u = n % HB;
-          if (lane_owns(r, n, RZ) && b < B && u < nu)
-            rz_s[b * RZ + n] =
-                sigmoid(xt[b * H3 + q * H + j0 + u] + acc[r][n]);
+    const float* hf = t ? hs + (t - 1) * BH : h0;
+    const __nv_bfloat16* hb = kBf16 && t ? h16 : nullptr;
+    for (int b0 = 0; b0 < B; b0 += MC) {
+      const int rows = min(MC, B - b0);
+      // (a) x of r and z (4-byte copies), then h_prev
+      for (int i = threadIdx.x; i < rows * G2; i += kThreads) {
+        const int r = i / G2, n = i - r * G2, q = n / HB, u = n - q * HB;
+        if (u < nu)
+          ptt::fa::cp_async4(x_s + i, xt + (b0 + r) * H3 + q * H + j0 + u,
+                             4);
+      }
+      stage_h<W>(h_s, ldk, hf, hb, b0, MC, B, H, kp);
+      ptt::fa::cp_async_commit();
+      ptt::fa::cp_async_wait<0>();
+      __syncwarp();  // the warp's own k-range is staged
+      step_product<W, NPR>(h_s, w_s, ldk, red, MC, kp);
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows * nu; i += kThreads) {
+        const int r = i / nu, u = i - r * nu, b = b0 + r;
+        const float rg = sigmoid(x_s[r * G2 + u]
+                                 + warp_tiles_sum(red, MC, NRR, r, u));
+        const float zg = sigmoid(x_s[r * G2 + HB + u]
+                                 + warp_tiles_sum(red, MC, NRR, r, HB + u));
+        z_s[b * HB + u] = zg;
+        const float rh = rg * ho_s[b * HB + u];
+        if constexpr (kBf16) {
+          rh16[static_cast<int64_t>(b) * kp + j0 + u] = __float2bfloat16(rh);
+        } else {
+          rhf[static_cast<int64_t>(b) * H + j0 + u] = rh;
         }
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
-      const int b = idx / nu, u = idx - b * nu;
-      const int64_t at = static_cast<int64_t>(b) * H + j0 + u;
-      rh[at] = rz_s[b * RZ + u] * __ldcg(hp + at);
+    grid.sync();  // forward barrier 1: every unit's r * h_prev is published
+    for (int b0 = 0; b0 < B; b0 += MC) {
+      const int rows = min(MC, B - b0);
+      // (b) x of c and the mask (4-byte copies), then r * h_prev
+      for (int i = threadIdx.x; i < rows * HB; i += kThreads) {
+        const int r = i / HB, u = i - r * HB;
+        if (u < nu)
+          ptt::fa::cp_async4(x_s + i, xt + (b0 + r) * H3 + 2 * H + j0 + u,
+                             4);
+      }
+      for (int r = threadIdx.x; r < rows; r += kThreads)
+        ptt::fa::cp_async4(m_s + r, mask + t * B + b0 + r, 4);
+      stage_h<W>(h_s, ldk, rhf, rh16, b0, MC, B, H, kp);
+      ptt::fa::cp_async_commit();
+      ptt::fa::cp_async_wait<0>();
+      __syncwarp();  // the warp's own k-range is staged
+      step_product<W, NPC>(h_s, w_s + NPR * ldk, ldk, red, MC, kp);
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows * nu; i += kThreads) {
+        const int r = i / nu, u = i - r * nu, b = b0 + r;
+        const float c =
+            tanhf(x_s[r * HB + u] + warp_tiles_sum(red, MC, NRC, r, u));
+        const float z = z_s[b * HB + u], h_prev = ho_s[b * HB + u];
+        const float m = m_s[r];
+        const float h = m * ((1.f - z) * h_prev + z * c) + (1.f - m) * h_prev;
+        hs[t * BH + static_cast<int64_t>(b) * H + j0 + u] = h;
+        ho_s[b * HB + u] = h;
+        if constexpr (kBf16)
+          h16[static_cast<int64_t>(b) * kp + j0 + u] = __float2bfloat16(h);
+      }
+      __syncthreads();
     }
-    // every unit's r * h_prev is in the scratch
-    grid.sync();
-    for (int b0 = warp * R1; b0 < B; b0 += kWarps * R1) {
-      float acc[R1][HB];
-      warp_rows_dot<W, R1, HB, true>(rh, H, b0, B, H, w_s + RZ * H, acc);
-#pragma unroll
-      for (int r = 0; r < R1; ++r)
-#pragma unroll
-        for (int u = 0; u < HB; ++u) {
-          const int b = b0 + r;
-          if (lane_owns(r, u, HB) && b < B && u < nu)
-            c_s[b * HB + u] =
-                tanhf(xt[b * H3 + 2 * H + j0 + u] + acc[r][u]);
-        }
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
-      const int b = idx / nu, u = idx - b * nu;
-      const int64_t at = static_cast<int64_t>(b) * H + j0 + u;
-      const float z = rz_s[b * RZ + HB + u], c = c_s[b * HB + u];
-      const float h_prev = __ldcg(hp + at);
-      const float m = mask[t * B + b];
-      hs[t * BH + at] = m * ((1.f - z) * h_prev + z * c) + (1.f - m) * h_prev;
-    }
-    grid.sync();
+    grid.sync();  // forward barrier 2: every unit's h is published
   }
 }
 
@@ -380,52 +499,39 @@ int launch_bwd(const float* xs, const W* w, const float* hprev,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Rows of the batch the forward stages at once (recurrent.cuh).
+template <typename W, int HB>
+int fwd_rows(int B, int H) {
+  return staged_rows(B, [&](int MC) { return fwd_smem<W, HB>(B, H, MC); });
+}
+
 template <typename W, int HB>
 int launch_fwd(const float* xs, const W* w, const float* h0,
-               const float* mask, float* hs, float* rh, int T, int B, int H,
-               cudaStream_t st) {
+               const float* mask, float* hs, float* rhf, __nv_bfloat16* rh16,
+               __nv_bfloat16* h16, int T, int B, int H, cudaStream_t st) {
   auto kern = gru_fwd_kernel<W, HB>;
   const int blocks = (H + HB - 1) / HB;
-  const size_t smem = sizeof(float) * (3 * HB * static_cast<size_t>(H)
-                                       + static_cast<size_t>(B) * 3 * HB);
+  int MC = fwd_rows<W, HB>(B, H);
+  const size_t smem = fwd_smem<W, HB>(B, H, MC);
   cudaError_t e = place(kern, blocks, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&xs, &w, &h0, &mask, &hs, &rh, &T, &B, &H};
+  void* args[] = {&xs, &w, &h0, &mask, &hs, &rhf, &rh16, &h16, &T, &B, &H,
+                  &MC};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kern), blocks, kThreads, args, smem, st));
 }
 
-template <typename W, int HB>
-int launch_bwd(const float* xs, const W* w, const float* hprev,
-               const float* mask, const float* dhs, float* dxs, float* dw,
-               float* dh0, float* rh, int T, int B, int H, cudaStream_t st) {
-  auto kern = gru_bwd_kernel<W, HB>;
-  const int blocks = (H + HB - 1) / HB;
-  const size_t smem = sizeof(float) * (9 * HB * static_cast<size_t>(H)
-                                       + static_cast<size_t>(B) * 8 * HB);
-  cudaError_t e = place(kern, blocks, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&xs, &w, &hprev, &mask, &dhs, &dxs, &dw, &dh0, &rh,
-                  &T, &B, &H};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kern), blocks, kThreads, args, smem, st));
-}
-
+// rh is r * h_prev's scratch: f32 for an f32 w, bf16 for a bf16 w.
 template <typename W>
 int fwd(const void* xs, const void* w, const void* h0, const void* mask,
-        void* hs, void* rh, int T, int B, int H, cudaStream_t st) {
-  const float* x = static_cast<const float*>(xs);
-  const W* wt = static_cast<const W*>(w);
-  const float* h = static_cast<const float*>(h0);
-  const float* m = static_cast<const float*>(mask);
-  float* ho = static_cast<float*>(hs);
-  float* s = static_cast<float*>(rh);
-  switch (units_per_block(H)) {
-    case 1: return launch_fwd<W, 1>(x, wt, h, m, ho, s, T, B, H, st);
-    case 2: return launch_fwd<W, 2>(x, wt, h, m, ho, s, T, B, H, st);
-    case 4: return launch_fwd<W, 4>(x, wt, h, m, ho, s, T, B, H, st);
-    default: return launch_fwd<W, 8>(x, wt, h, m, ho, s, T, B, H, st);
-  }
+        void* hs, void* rh, void* h16, int T, int B, int H, cudaStream_t st) {
+  constexpr bool kBf16 = sizeof(W) == 2;
+  return launch_fwd<W, kFwdUnits>(
+      static_cast<const float*>(xs), static_cast<const W*>(w),
+      static_cast<const float*>(h0), static_cast<const float*>(mask),
+      static_cast<float*>(hs), kBf16 ? nullptr : static_cast<float*>(rh),
+      kBf16 ? static_cast<__nv_bfloat16*>(rh) : nullptr,
+      static_cast<__nv_bfloat16*>(h16), T, B, H, st);
 }
 
 template <typename W>
@@ -459,14 +565,34 @@ int bwd(const void* xs, const void* w, const void* hprev, const void* mask,
 
 }  // namespace
 
-// hs [T, B, H] f32 is written for every t; rh is [B, H] f32 scratch.
+// hs [T, B, H] f32 is written for every t.  T, B, H >= 1.  Scratch, the
+// step's operands published for every block: rh, r * h_prev, is [B, H]
+// f32 for an f32 w, [B, roundup(H, 16)] bf16 for a bf16 w; h16, for a
+// bf16 w only (null for f32), is [B, roundup(H, 16)] bf16 (h as the next
+// step's operand).  The padding columns of both bf16 buffers are 0 and
+// stay 0.
 extern "C" int ptt_gru_fwd(const void* xs, const void* w, const void* h0,
-                           const void* mask, void* hs, void* rh, int T,
-                           int B, int H, int w_bf16, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
+                           const void* mask, void* hs, void* rh, void* h16,
+                           int T, int B, int H, int w_bf16, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || rh == nullptr)
+    return cudaErrorInvalidValue;
+  if (w_bf16 && (h16 == nullptr || reinterpret_cast<uintptr_t>(h16) % 16
+                 || reinterpret_cast<uintptr_t>(rh) % 16))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return w_bf16 ? fwd<__nv_bfloat16>(xs, w, h0, mask, hs, rh, T, B, H, st)
-                : fwd<float>(xs, w, h0, mask, hs, rh, T, B, H, st);
+  return w_bf16 ? fwd<__nv_bfloat16>(xs, w, h0, mask, hs, rh, h16, T, B, H,
+                                     st)
+                : fwd<float>(xs, w, h0, mask, hs, rh, h16, T, B, H, st);
+}
+
+// *rows: the rows of the batch the forward stages at once at B, H on this
+// card (B when the shared memory allows, else fewer, in chunks).
+extern "C" int ptt_gru_fwd_rows(int B, int H, int w_bf16, int* rows) {
+  if (B <= 0 || H <= 0 || rows == nullptr) return cudaErrorInvalidValue;
+  const int mc = w_bf16 ? fwd_rows<__nv_bfloat16, kFwdUnits>(B, H)
+                        : fwd_rows<float, kFwdUnits>(B, H);
+  *rows = mc < B ? mc : B;
+  return cudaSuccess;
 }
 
 // hprev [T, B, H]: the state each step starts from ([h0, hs[:-1]]).

@@ -35,8 +35,9 @@
 //     the barrier that follows every read of it), so every block reads
 //     back half the bytes; an f32 w reads the f32 hs of step t - 1;
 //   - h_prev is staged into shared memory with 16-byte cp.async copies,
-//     every copy of the step in flight at once and one wait (with the
-//     step's x and mask), instead of 4-byte loads whose FMAs wait on them;
+//     each warp the k-range it multiplies, every copy of the step in
+//     flight at once and one wait (with the step's x and mask), instead
+//     of 4-byte loads whose FMAs wait on them;
 //   - the step product [B, H] x [H, 4HB] splits K over the 8 warps, on
 //     the tensor cores: mma.sync m16n8k16 for a bf16 w, 3xTF32 m16n8k8 for
 //     f32 (about f32's accuracy), each k-step's product summed from zero
@@ -45,6 +46,7 @@
 //     shuffle reduction;
 //   - a block keeps its own units' h and c in shared memory (no read of
 //     c_prev), and `grid.sync()` ends the step.
+// The staging and the product are recurrent.cuh's (shared with gru.cu).
 // The batch is staged MC rows at a time (MC a multiple of 16, the whole
 // batch when the shared memory allows, fewer otherwise).
 //
@@ -73,25 +75,15 @@ using namespace ptt::rnn;
 
 // --- forward -------------------------------------------------------------
 //
-// Geometry of the step product (host and device agree on it): KP = H
-// rounded up to 16 (its depth, zero-padded), NP = 4HB rounded up to 16
-// (the gate columns, zero-padded), LDK = KP + 16 bytes, the row stride of
-// the staged h_prev and of the w columns (a warp's ldmatrix rows, or its
-// f32 fragment reads, in distinct banks), NR = NP + 4 the row stride of a
-// warp's partial tile.
+// Geometry of the step product (host and device agree on it): KP and LDK
+// as recurrent.cuh's StepGeom, NP = 4HB rounded up to 16 (the gate
+// columns, zero-padded), NR = NP + 4 the row stride of a warp's partial
+// tile.
 template <typename W, int HB>
-struct FwdGeom {
+struct FwdGeom : StepGeom<W> {
   static constexpr int NP = (4 * HB + 15) / 16 * 16;
   static constexpr int NR = NP + 4;
-  __host__ __device__ static int kp(int H) { return (H + 15) / 16 * 16; }
-  __host__ __device__ static int ldk(int H) {
-    return kp(H) + 16 / static_cast<int>(sizeof(W));
-  }
 };
-
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) / 16 * 16;
-}
 
 // Shared memory of the forward at MC staged rows: w_s [NP][LDK] and h_s
 // [MC][LDK] of w's type, the warps' partial tiles [kWarps][MC][NR], the
@@ -104,125 +96,6 @@ size_t fwd_smem(int B, int H, int MC) {
          + sizeof(float) * (static_cast<size_t>(kWarps) * MC * G::NR
                             + MC * 4 * HB + MC
                             + 2 * static_cast<size_t>(B) * HB);
-}
-
-// Stage rows b0 .. b0 + MC - 1 of h_prev into h_s [MC][ldk] (0 past B and
-// past H): from h16 (bf16, row stride kp) with 16-byte cp.async copies;
-// for an f32 w from hf (f32, row stride H) the same way when H is a
-// multiple of 4; otherwise (the first step of a bf16 w, which rounds h0
-// here, or an f32 H not a multiple of 4) element by element through L2.
-// The caller commits and waits.
-template <typename W>
-__device__ __forceinline__ void stage_h(W* h_s, int ldk, const float* hf,
-                                        const __nv_bfloat16* h16, int b0,
-                                        int MC, int B, int H, int kp) {
-  using ptt::fa::cp_async16;
-  if constexpr (sizeof(W) == 2) {
-    if (h16 != nullptr) {
-      const int chunks = kp / 8;
-      for (int i = threadIdx.x; i < MC * chunks; i += kThreads) {
-        const int r = i / chunks, c = (i - r * chunks) * 8;
-        const bool in = b0 + r < B;
-        cp_async16(h_s + r * ldk + c,
-                   h16 + static_cast<int64_t>(in ? b0 + r : 0) * kp + c,
-                   in ? 16 : 0);
-      }
-      return;
-    }
-  } else {
-    if (H % 4 == 0 && reinterpret_cast<uintptr_t>(hf) % 16 == 0) {
-      const int chunks = kp / 4;
-      for (int i = threadIdx.x; i < MC * chunks; i += kThreads) {
-        const int r = i / chunks, c = (i - r * chunks) * 4;
-        const bool in = b0 + r < B && c < H;
-        cp_async16(h_s + r * ldk + c,
-                   hf + (in ? static_cast<int64_t>(b0 + r) * H + c : 0),
-                   in ? 16 : 0);
-      }
-      return;
-    }
-  }
-  for (int i = threadIdx.x; i < MC * kp; i += kThreads) {
-    const int r = i / kp, k = i - r * kp;
-    h_s[r * ldk + k] =
-        b0 + r < B && k < H
-            ? static_cast<W>(__ldcg(hf + static_cast<int64_t>(b0 + r) * H + k))
-            : static_cast<W>(0.f);
-  }
-}
-
-// The step product's partial tiles: red[warp][r][n] = sum over the warp's
-// k-range of mm(h_s[r][k]) . w_s[n][k], for r < MC, n < NP.  The warps
-// split KP into runs of whole 16-deep steps, in order.  On the tensor
-// cores, each k-step's product summed from zero and added to the tile
-// with FADD:
-//  - bf16 w: m16n8k16;
-//  - f32 w: 3xTF32 m16n8k8 (flash_mma.cuh: lo.hi + hi.lo + hi.hi).
-template <typename W, int HB>
-__device__ __forceinline__ void fwd_step_product(const W* h_s, const W* w_s,
-                                                 int ldk, float* red, int MC,
-                                                 int kp) {
-  constexpr int NP = FwdGeom<W, HB>::NP, NR = FwdGeom<W, HB>::NR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int steps = kp / 16, per = (steps + kWarps - 1) / kWarps;
-  const int k0 = 16 * min(steps, warp * per);
-  const int k1 = 16 * min(steps, warp * per + per);
-  float* out = red + warp * MC * NR;
-  const int g = lane >> 2, t = lane & 3;
-  for (int m0 = 0; m0 < MC; m0 += 16) {
-    float acc[NP / 8][4] = {};
-    if constexpr (sizeof(W) == 2) {
-      using Tc = ptt::fa::Tc<__nv_bfloat16>;
-      for (int k = k0; k < k1; k += 16) {
-        const Tc::A af = Tc::load_a(h_s + m0 * ldk, ldk, k);
-#pragma unroll
-        for (int n0 = 0; n0 < NP; n0 += 16) {
-          Tc::B b0, b1;
-          Tc::load_b(b0, b1, w_s, ldk, n0, k);
-          float d0[4] = {}, d1[4] = {};
-          ptt::fa::mma_bf16(d0, af.x, b0.x[0], b0.x[1]);
-          ptt::fa::mma_bf16(d1, af.x, b1.x[0], b1.x[1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[n0 / 8][e] += d0[e];
-            acc[n0 / 8 + 1][e] += d1[e];
-          }
-        }
-      }
-    } else {
-      // m16n8k8 fragments read element by element: A (row g / g + 8,
-      // k t / t + 4) of h_s, B (k t / t + 4, column g) of w_s
-      for (int k = k0; k < k1; k += 8) {
-        const float* ap = h_s + (m0 + g) * ldk + k + t;
-        uint32_t ahi[4], alo[4];
-        ptt::fa::split_tf32(ap[0], ahi[0], alo[0]);
-        ptt::fa::split_tf32(ap[8 * ldk], ahi[1], alo[1]);
-        ptt::fa::split_tf32(ap[4], ahi[2], alo[2]);
-        ptt::fa::split_tf32(ap[8 * ldk + 4], ahi[3], alo[3]);
-#pragma unroll
-        for (int nb = 0; nb < NP / 8; ++nb) {
-          const float* bp = w_s + (nb * 8 + g) * ldk + k + t;
-          uint32_t bhi[2], blo[2];
-          ptt::fa::split_tf32(bp[0], bhi[0], blo[0]);
-          ptt::fa::split_tf32(bp[4], bhi[1], blo[1]);
-          float d[4];
-          ptt::fa::mma_tf32_zero(d, alo, bhi);
-          ptt::fa::mma_tf32(d, ahi, blo);
-          ptt::fa::mma_tf32(d, ahi, bhi);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nb][e] += d[e];
-        }
-      }
-    }
-    // (row g / g + 8, columns 2t, 2t + 1) of each n-block
-#pragma unroll
-    for (int nb = 0; nb < NP / 8; ++nb)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<float2*>(out + (m0 + g + 8 * r) * NR + nb * 8
-                                   + 2 * t) =
-            make_float2(acc[nb][2 * r], acc[nb][2 * r + 1]);
-  }
 }
 
 template <typename W, int HB>
@@ -280,8 +153,8 @@ __global__ void __launch_bounds__(kThreads)
       stage_h<W>(h_s, ldk, hf, hb, b0, MC, B, H, kp);
       ptt::fa::cp_async_commit();
       ptt::fa::cp_async_wait<0>();
-      __syncthreads();
-      fwd_step_product<W, HB>(h_s, w_s, ldk, red, MC, kp);
+      __syncwarp();  // the warp's own k-range is staged
+      step_product<W, NP>(h_s, w_s, ldk, red, MC, kp);
       __syncthreads();
       // the gates (x + the warps' partial products, added in order of
       // warp) and the cell of each (row, unit)
@@ -491,14 +364,10 @@ int launch_bwd(const float* xs, const W* w, const float* hprev,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows of the batch the forward stages at once: the whole batch when the
-// shared memory allows, else the most rows (a multiple of 16) that fit.
+// Rows of the batch the forward stages at once (recurrent.cuh).
 template <typename W, int HB>
 int fwd_rows(int B, int H) {
-  const size_t optin = static_cast<size_t>(smem_optin());
-  int MC = (B + 15) / 16 * 16;
-  while (MC > 16 && fwd_smem<W, HB>(B, H, MC) > optin) MC -= 16;
-  return MC;
+  return staged_rows(B, [&](int MC) { return fwd_smem<W, HB>(B, H, MC); });
 }
 
 template <typename W>

@@ -30,80 +30,160 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// An operand of a product with w: rounded to bf16 when w is bf16 (the
-// Pallas kernels' `.astype(w.dtype)` before a dot that accumulates in f32).
+// --- the forward kernels' staged step product (lstm.cu, gru.cu) --------
+//
+// Each step every block multiplies a [B, H] operand that every block wrote
+// (h_prev) by its own columns of w.  The operand is staged into shared
+// memory in w's type (16-byte cp.async copies, all in flight at once) and
+// the product's depth is split over the 8 warps on the tensor cores.
+// Geometry (host and device agree on it): KP = H rounded up to 16 (the
+// depth, zero-padded), LDK = KP + 16 bytes, the row stride of the staged
+// operand and of the w columns (a warp's ldmatrix rows, or its f32
+// fragment reads, in distinct banks).
 template <typename W>
-__device__ __forceinline__ float mm(float x);
-template <>
-__device__ __forceinline__ float mm<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float mm<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+struct StepGeom {
+  __host__ __device__ static int kp(int H) { return (H + 15) / 16 * 16; }
+  __host__ __device__ static int ldk(int H) {
+    return kp(H) + 16 / static_cast<int>(sizeof(W));
+  }
+};
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) / 16 * 16;
 }
 
-// Rows a warp takes at once in `warp_rows_dot`: R x N accumulators, about
-// 64 registers, so a column of w read from shared memory serves R rows.
-__host__ __device__ constexpr int rows_per_warp(int n) {
-  return n >= 64 ? 1 : (64 / n > 8 ? 8 : 64 / n);
+// The k-range [k0, k1) of this warp in a step product of depth kp (a
+// multiple of 16): the warps split it into runs of whole 16-deep steps,
+// in order.
+__device__ __forceinline__ void warp_k_range(int kp, int& k0, int& k1) {
+  const int warp = threadIdx.x >> 5;
+  const int steps = kp / 16, per = (steps + kWarps - 1) / kWarps;
+  k0 = 16 * min(steps, warp * per);
+  k1 = 16 * min(steps, warp * per + per);
 }
 
-// acc[r][n] = sum over k < K of mm(src[(b0 + r) * ld + k]) * w_s[n * K + k]
-// for the rows b0 .. b0 + R - 1 that are below B (others give 0).  The
-// lanes stride over k, and every lane ends with the full sums.  src lies
-// in device memory; kL2 reads it through L2 only (`__ldcg`), for data that
-// another block wrote during this launch (L1 is not coherent across SMs).
-// w_s is an [N][K] slice in shared memory: neighbouring lanes read
-// neighbouring words.
-template <typename W, int R, int N, bool kL2>
-__device__ __forceinline__ void warp_rows_dot(const float* src, int64_t ld,
-                                              int b0, int B, int K,
-                                              const float* w_s,
-                                              float (&acc)[R][N]) {
+// Stage rows b0 .. b0 + MC - 1 of a [B, H] operand (h_prev, or the GRU's
+// r * h_prev) into h_s [MC][ldk] (0 past B and past H), each warp the
+// columns of its own k-range (`warp_k_range`), so that a warp's product
+// waits only for its own copies: from h16 (bf16, row stride kp) with
+// 16-byte cp.async copies; for an f32 w from hf (f32, row stride H) the
+// same way when H is a multiple of 4; otherwise (the first step of a
+// bf16 w, which rounds h0 here, or an f32 H not a multiple of 4) element
+// by element through L2.  The caller commits, waits and syncs the warp.
+template <typename W>
+__device__ __forceinline__ void stage_h(W* h_s, int ldk, const float* hf,
+                                        const __nv_bfloat16* h16, int b0,
+                                        int MC, int B, int H, int kp) {
+  using ptt::fa::cp_async16;
+  int k0, k1;
+  warp_k_range(kp, k0, k1);
   const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int n = 0; n < N; ++n) acc[r][n] = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    float v[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float x = 0.f;
-      if (b0 + r < B) {
-        const float* p = src + (b0 + r) * ld + k;
-        x = kL2 ? __ldcg(p) : *p;
+  if constexpr (sizeof(W) == 2) {
+    if (h16 != nullptr) {
+      const int chunks = (k1 - k0) / 8;
+      for (int i = lane; i < MC * chunks; i += 32) {
+        const int r = i / chunks, c = k0 + (i - r * chunks) * 8;
+        const bool in = b0 + r < B;
+        cp_async16(h_s + r * ldk + c,
+                   h16 + static_cast<int64_t>(in ? b0 + r : 0) * kp + c,
+                   in ? 16 : 0);
       }
-      v[r] = mm<W>(x);
+      return;
     }
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float wv = w_s[n * K + k];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r][n] = fmaf(v[r], wv, acc[r][n]);
+  } else {
+    if (H % 4 == 0 && reinterpret_cast<uintptr_t>(hf) % 16 == 0) {
+      const int chunks = (k1 - k0) / 4;
+      for (int i = lane; i < MC * chunks; i += 32) {
+        const int r = i / chunks, c = k0 + (i - r * chunks) * 4;
+        const bool in = b0 + r < B && c < H;
+        cp_async16(h_s + r * ldk + c,
+                   hf + (in ? static_cast<int64_t>(b0 + r) * H + c : 0),
+                   in ? 16 : 0);
+      }
+      return;
     }
   }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int n = 0; n < N; ++n) acc[r][n] = warp_sum(acc[r][n]);
+  const int cols = k1 - k0;
+  for (int i = lane; i < MC * cols; i += 32) {
+    const int r = i / cols, k = k0 + i - r * cols;
+    h_s[r * ldk + k] =
+        b0 + r < B && k < H
+            ? static_cast<W>(__ldcg(hf + static_cast<int64_t>(b0 + r) * H + k))
+            : static_cast<W>(0.f);
+  }
 }
 
-// Whether this lane stores accumulator (r, n) of `warp_rows_dot`: the
-// stores spread over the lanes, one lane per value.
-__device__ __forceinline__ bool lane_owns(int r, int n, int N) {
-  return ((r * N + n) & 31) == (threadIdx.x & 31);
-}
-
-// Load the columns of w [H, gates * H] that feed units j0 .. j0 + HB - 1
-// into w_s [gates * HB][H] as f32: row q * HB + u of w_s is column
-// q * H + j0 + u of w (0 for a unit past H).
-template <typename W, int HB>
-__device__ void load_columns(const W* w, int H, int gates, int j0, int nu,
-                             float* w_s) {
-  const int64_t ld = static_cast<int64_t>(gates) * H;
-  for (int idx = threadIdx.x; idx < gates * HB * H; idx += kThreads) {
-    const int n = idx / H, k = idx - n * H, q = n / HB, u = n - q * HB;
-    w_s[idx] = u < nu ? to_f32(w[k * ld + q * H + j0 + u]) : 0.f;
+// The step product's partial tiles: red[warp][r][n] = sum over the warp's
+// k-range (`warp_k_range`) of mm(h_s[r][k]) . w_s[n][k], for r < MC (a
+// multiple of 16), n < NP (a multiple of 16), in rows of NP + 4 floats.
+// On the tensor cores, each k-step's product summed from zero and added
+// to the tile with FADD:
+//  - bf16 w: m16n8k16;
+//  - f32 w: 3xTF32 m16n8k8 (flash_mma.cuh: lo.hi + hi.lo + hi.hi).
+template <typename W, int NP>
+__device__ __forceinline__ void step_product(const W* h_s, const W* w_s,
+                                             int ldk, float* red, int MC,
+                                             int kp) {
+  static_assert(NP % 16 == 0, "whole pairs of 8-column n-blocks");
+  constexpr int NR = NP + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int k0, k1;
+  warp_k_range(kp, k0, k1);
+  float* out = red + warp * MC * NR;
+  const int g = lane >> 2, t = lane & 3;
+  for (int m0 = 0; m0 < MC; m0 += 16) {
+    float acc[NP / 8][4] = {};
+    if constexpr (sizeof(W) == 2) {
+      using Tc = ptt::fa::Tc<__nv_bfloat16>;
+      for (int k = k0; k < k1; k += 16) {
+        const Tc::A af = Tc::load_a(h_s + m0 * ldk, ldk, k);
+#pragma unroll
+        for (int n0 = 0; n0 < NP; n0 += 16) {
+          Tc::B b0, b1;
+          Tc::load_b(b0, b1, w_s, ldk, n0, k);
+          float d0[4] = {}, d1[4] = {};
+          ptt::fa::mma_bf16(d0, af.x, b0.x[0], b0.x[1]);
+          ptt::fa::mma_bf16(d1, af.x, b1.x[0], b1.x[1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[n0 / 8][e] += d0[e];
+            acc[n0 / 8 + 1][e] += d1[e];
+          }
+        }
+      }
+    } else {
+      // m16n8k8 fragments read element by element: A (row g / g + 8,
+      // k t / t + 4) of h_s, B (k t / t + 4, column g) of w_s
+      for (int k = k0; k < k1; k += 8) {
+        const float* ap = h_s + (m0 + g) * ldk + k + t;
+        uint32_t ahi[4], alo[4];
+        ptt::fa::split_tf32(ap[0], ahi[0], alo[0]);
+        ptt::fa::split_tf32(ap[8 * ldk], ahi[1], alo[1]);
+        ptt::fa::split_tf32(ap[4], ahi[2], alo[2]);
+        ptt::fa::split_tf32(ap[8 * ldk + 4], ahi[3], alo[3]);
+#pragma unroll
+        for (int nb = 0; nb < NP / 8; ++nb) {
+          const float* bp = w_s + (nb * 8 + g) * ldk + k + t;
+          uint32_t bhi[2], blo[2];
+          ptt::fa::split_tf32(bp[0], bhi[0], blo[0]);
+          ptt::fa::split_tf32(bp[4], bhi[1], blo[1]);
+          float d[4];
+          ptt::fa::mma_tf32_zero(d, alo, bhi);
+          ptt::fa::mma_tf32(d, ahi, blo);
+          ptt::fa::mma_tf32(d, ahi, bhi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nb][e] += d[e];
+        }
+      }
+    }
+    // (row g / g + 8, columns 2t, 2t + 1) of each n-block
+#pragma unroll
+    for (int nb = 0; nb < NP / 8; ++nb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(out + (m0 + g + 8 * r) * NR + nb * 8
+                                   + 2 * t) =
+            make_float2(acc[nb][2 * r], acc[nb][2 * r + 1]);
   }
 }
 
@@ -303,6 +383,17 @@ inline int smem_optin() {
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   return optin;
+}
+
+// Rows of the batch a forward kernel stages at once, given its shared
+// memory at MC rows (smem(MC)): the whole batch when it fits, else the
+// most rows (a multiple of 16) that fit.
+template <typename Smem>
+int staged_rows(int B, Smem smem) {
+  const size_t optin = static_cast<size_t>(smem_optin());
+  int MC = (B + 15) / 16 * 16;
+  while (MC > 16 && smem(MC) > optin) MC -= 16;
+  return MC;
 }
 
 // Units per block: the fewest (1, 2, 4 or 8) that need no more blocks

@@ -34,17 +34,20 @@ summed in f32), which keeps f32's accuracy without the TF32 rounding the
 port turns off elsewhere.
 
 Paged attention splits each slot's positions over blocks and merges
-them in a second kernel (flash-decoding); the LayerNorm forward keeps a
-row of up to 1024 features in one warp's registers.  `paged_geometry`
-and `layer_norm_geometry` pick their launch shapes.  The BatchNorm
+them in a second kernel (flash-decoding); the LayerNorm forward and
+backward keep a row of up to 1024 features in one warp's registers (the
+backward's warps walk the rows of a one-wave grid and sum dscale and dbias
+of their columns in registers).  `paged_geometry`, `layer_norm_geometry`
+and `layer_norm_bwd_geometry` pick their launch shapes.  The BatchNorm
 backward streams x and dy twice with 16-byte loads in a grid of one wave
 of resident blocks (`bn_bwd_geometry`, from the library's occupancy
 query).  The LSTM and GRU backward run their gates and dw products as
 tiled tensor-core products around the serial recurrence, which forms
 dh_prev each step from partial sums the blocks exchange (one exchange a
-step for the LSTM, two for the GRU); the LSTM forward stages each
-step's h_prev with 16-byte copies and splits its product over the warps
-on the tensor cores (bf16 for a bf16 w, 3xTF32 for f32).
+step for the LSTM, two for the GRU); the LSTM and GRU forward stage each
+step product's operand (h_prev; the GRU's r * h_prev too) with 16-byte
+copies and split the product over the warps on the tensor cores (bf16
+for a bf16 w, 3xTF32 for f32).
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -136,7 +139,7 @@ FLASH_ATTENTION_BWD = Kernel(
 LAYER_NORM_BWD = Kernel(
     "layer_norm_bwd", "layer_norm_bwd", "ptt_layer_norm_bwd",
     "paddle_tpu/ops/pallas_kernels.py:1437 _ln_bwd_kernel",
-    [_P] * 9 + [_I, _I, _I, _I, _P])
+    [_P] * 9 + [_I] * 6 + [_P])
 SOFTMAX_XENT_FWD = Kernel(
     "softmax_xent_fwd", "softmax_xent", "ptt_softmax_xent_fwd",
     "paddle_tpu/ops/pallas_kernels.py:1634 _sm_xent_fwd_kernel",
@@ -166,7 +169,7 @@ GRU_FWD = Kernel(
     "gru_fwd", "gru", "ptt_gru_fwd",
     "paddle_tpu/ops/pallas_kernels.py:1078 _gru_fwd_kernel "
     "(_gru_pallas_fwd :1164)",
-    [_P] * 6 + [_I, _I, _I, _I, _P])
+    [_P] * 7 + [_I, _I, _I, _I, _P])
 GRU_BWD = Kernel(
     "gru_bwd", "gru", "ptt_gru_bwd",
     "paddle_tpu/ops/pallas_kernels.py:1104 _gru_bwd_kernel "
@@ -526,12 +529,62 @@ def layer_norm_fwd(x2: torch.Tensor, scale: torch.Tensor,
     return y, mean, var
 
 
-#: rows each block of the LayerNorm backward sums into one partial row of
-#: dscale/dbias: enough blocks to fill the card (about 4 per SM), few
-#: enough that the partial buffer stays small against x and dy
-_LN_BWD_BLOCKS = 512
-#: largest F whose [2, F] f32 accumulator fits a block's shared memory
+#: the LayerNorm backward (csrc/layer_norm_bwd.cu): rows (warps) of a
+#: warp-per-row block, and the largest F whose [2, F] f32 accumulator fits
+#: a block-per-row block's shared memory
+_LN_ROW_WARPS = 8
 _LN_BWD_MAX_F = 227 * 1024 // 8
+
+
+def layer_norm_bwd_path(features: int, itemsize: int,
+                       aligned: bool) -> Tuple[int, int]:
+    """Path of the LayerNorm backward -> (warp, vec).  warp 1 takes the
+    warp-per-row kernel: rows of at most 1024 features in whole 16-byte
+    chunks with every pointer 16-byte ``aligned`` (as the forward's
+    `layer_norm_geometry`); any other row takes one block of 256 threads
+    a row.  ``vec`` is the elements a thread loads at once: 16 bytes'
+    worth, or 1 when the row is not in whole chunks or a pointer is
+    misaligned."""
+    chunked = features * itemsize % 16 == 0 and aligned
+    return (int(chunked and features <= _LN_WARP_MAX_F),
+            16 // itemsize if chunked else 1)
+
+
+def layer_norm_bwd_geometry(rows: int, features: int, itemsize: int,
+                            aligned: bool, per_sm: int, sms: int
+                            ) -> Tuple[int, int, int]:
+    """Launch geometry of the LayerNorm backward -> (warp, vec, blocks):
+    the path (`layer_norm_bwd_path`) and a grid of one wave of what the
+    card holds (``per_sm`` blocks of the path's kernel on each of ``sms``
+    SMs), but no more blocks than there is work: the warp path's blocks
+    take ``_LN_ROW_WARPS`` rows at once, the block path's one.  Each
+    walker (warp w of block k, the (k * _LN_ROW_WARPS + w)th, on the warp
+    path; block k on the block path) takes a run of ceil(rows / walkers)
+    consecutive rows."""
+    warp, vec = layer_norm_bwd_path(features, itemsize, aligned)
+    work = -(-rows // _LN_ROW_WARPS) if warp else rows
+    return warp, vec, max(1, min(per_sm * sms, work))
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_bwd_launch(rows: int, features: int, itemsize: int, aligned: bool,
+                   device: int) -> Tuple[int, int, int]:
+    """`layer_norm_bwd_geometry` on card ``device``, with the blocks of
+    the path's kernel one SM holds at once from the library
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    warp, vec = layer_norm_bwd_path(features, itemsize, aligned)
+    fn = _build.load(LAYER_NORM_BWD.source).ptt_layer_norm_bwd_residency
+    fn.argtypes = [_I] * 4 + [_P]
+    fn.restype = ctypes.c_int
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(features, warp, vec, int(itemsize == 2),
+                ctypes.byref(per_sm))
+    if rc != 0 or per_sm.value < 1:
+        raise RuntimeError(f"layer_norm_bwd residency query failed: CUDA "
+                           f"error {rc}, {per_sm.value} blocks")
+    return layer_norm_bwd_geometry(rows, features, itemsize, aligned,
+                                   per_sm.value, _sm_count(device))
 
 
 def layer_norm_bwd_plain(x2, scale, mean, inv, dy):
@@ -571,20 +624,21 @@ def layer_norm_bwd(x2: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     if f > _LN_BWD_MAX_F:
         raise ValueError(f"layer_norm_bwd: F {f} > {_LN_BWD_MAX_F}")
     _check_cuda("layer_norm_bwd", x2, scale, mean, inv, dy)
-    rows_per_block = max(1, -(-r // _LN_BWD_BLOCKS))
-    n_blocks = -(-r // rows_per_block) if r else 0
     dx = torch.empty_like(x2)
-    part = torch.empty((2, n_blocks, f), dtype=torch.float32,
+    ptrs = (x2.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr())
+    warp, vec, blocks = _ln_bwd_launch(
+        r, f, x2.element_size(),
+        not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15, x2.get_device())
+    part = torch.empty((2, blocks, f), dtype=torch.float32,
                        device=x2.device)
     # the kernel writes every element unless there are no rows to sum
     alloc = torch.empty if r else torch.zeros
     dscale = alloc(f, dtype=torch.float32, device=x2.device)
     dbias = alloc(f, dtype=torch.float32, device=x2.device)
     LAYER_NORM_BWD.launch(
-        x2.data_ptr(), scale.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-        dy.data_ptr(), dx.data_ptr(), part.data_ptr(), dscale.data_ptr(),
-        dbias.data_ptr(), r, f, rows_per_block,
-        int(x2.dtype == torch.bfloat16), _stream(x2))
+        ptrs[0], ptrs[1], mean.data_ptr(), inv.data_ptr(), ptrs[2], ptrs[3],
+        part.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), r, f, warp,
+        vec, blocks, int(x2.dtype == torch.bfloat16), _stream(x2))
     return dx, dscale, dbias
 
 
@@ -1077,10 +1131,19 @@ def gru_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
         return gru_fwd_plain(xs, w, h0, mask)
     t, b, h = _check_recurrent("gru_fwd", 3, xs, w, (h0,), (), mask)
     hs = torch.empty((t, b, h), dtype=torch.float32, device=xs.device)
-    rh = torch.empty((b, h), dtype=torch.float32, device=xs.device)
+    # the step's operands published for every block (gru.cu): r * h_prev,
+    # and for a bf16 w h too, each as bf16 [B, H rounded up to 16] whose
+    # padding stays 0; for an f32 w r * h_prev alone, f32 [B, H]
+    bf16 = w.dtype == torch.bfloat16
+    if bf16:
+        rh, h16 = torch.zeros((2, b, -(-h // 16) * 16), dtype=torch.bfloat16,
+                              device=xs.device)
+    else:
+        rh = torch.empty((b, h), dtype=torch.float32, device=xs.device)
     GRU_FWD.launch(xs.data_ptr(), w.data_ptr(), h0.data_ptr(),
-                   mask.data_ptr(), hs.data_ptr(), rh.data_ptr(), t, b, h,
-                   int(w.dtype == torch.bfloat16), _stream(xs))
+                   mask.data_ptr(), hs.data_ptr(), rh.data_ptr(),
+                   h16.data_ptr() if bf16 else None, t, b, h, int(bf16),
+                   _stream(xs))
     return hs
 
 

@@ -27,12 +27,17 @@ def _align(x: torch.Tensor, y: torch.Tensor, axis) -> torch.Tensor:
 
 def _elementwise(fn):
     """An elementwise rule: Out = fn(X, Y aligned at ``axis``), which
-    keeps X's sequence lengths.  Mixed bf16/f32 operands promote to f32
-    (see ROADMAP queue C for the JAX rule's bf16 cast of a broadcast pair
-    under program.amp)."""
+    keeps X's sequence lengths.  Under program.amp a mixed bf16/f32
+    broadcast pair (an f32 bias or table added into a bf16 stream) is cast
+    to bf16, as the JAX rule does, so the stream stays bf16; a same-shape
+    mixed pair keeps promotion to f32 (the JAX rule's reason: inside a
+    recurrent cell a forced bf16 would flip the carry's dtype)."""
     def rule(ctx):
         x = ctx.input("X")
         y = _align(x, ctx.input("Y"), ctx.attr("axis", -1))
+        if (amp_on(ctx) and x.shape != y.shape
+                and {x.dtype, y.dtype} == {torch.bfloat16, torch.float32}):
+            x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
         ctx.set_output("Out", fn(x, y))
         ctx.set_seq_len("Out", ctx.seq_len_of("X"))
     return rule

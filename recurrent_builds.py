@@ -10,7 +10,7 @@ each build is called through the port's wrapper (its C entry swapped for
 the build's) at chip_smoke.py's main shape, T80 B32 H512, and timed by
 device time per call (torch.profiler, every kernel of the call but
 PyTorch's own), two rounds in opposite order.  The LSTM kernels run with
-bf16 w (program.amp) and f32 w, the GRU backward with f32 w (its main
+bf16 w (program.amp) and f32 w, the GRU kernels with f32 w (their main
 path) and bf16 w.  The builds, by kernel:
 
 - shipped: the sources as they are (lstm.cu and gru.cu);
@@ -24,10 +24,16 @@ path) and bf16 w.  The builds, by kernel:
   - lstm_fwd-fwd_no_sync: the grid-wide barrier removed;
   - lstm_fwd-fwd_no_load: h_prev not read (a constant, or what the
     staging buffer holds, used instead);
-  - lstm_fwd-fwd_f32_cuda_cores (pr8): the f32 w's step product on the
+  - lstm_fwd-fwd_f32_cuda_cores (pr8 only): the f32 w's step product on the
     CUDA cores (an FMA chain a value over the warp's k-range) instead of
     3xTF32 on the tensor cores: the same function by another route, so
     its outputs are held to the plain version's;
+- GRU forward (gru.cu, pr8 and later):
+  - gru_fwd-fwd_no_product: both step products skipped (in pr8 with
+    their h_prev and r * h_prev reads, which the products make);
+  - gru_fwd-fwd_no_sync: both grid-wide barriers removed;
+  - gru_fwd-fwd_no_load: h_prev and r * h_prev not read (a constant, or
+    what the staging buffer holds, used instead);
 - GRU backward (gru.cu):
   - gru_bwd-no_recompute: the r, z and c products skipped;
   - gru_bwd-no_dw: both dw products (or loops) skipped;
@@ -43,7 +49,9 @@ exact text, and the script raises when a kernel change moves them.  Each
 known version of the sources has its own set of edits (`EDITS`: pr4, the
 first persistent kernels; pr7, the LSTM backward with its products
 outside the loop; pr8, the staged LSTM forward and the three-stage GRU
-backward); the set whose targets are all present is taken, so a checkout of an older
+backward; pr9, the staged GRU forward, its staging and product shared
+with the LSTM forward in recurrent.cuh); the set whose targets are all
+present is taken, so a checkout of an older
 version of the port with this script copied into it measures that
 version.
 
@@ -243,6 +251,59 @@ GRU_BWD_PR8 = {
         ("gru.cu", _replace("    grid.sync();  // barrier 2\n", ""))],
 }
 
+# pr4's GRU forward (unchanged through pr8): each warp reads h_prev and
+# the rh scratch from L2 4 bytes a lane and reduces its dot products with
+# shuffles; the block re-reads its own units' h_prev from L2 twice a step
+GRU_FWD_PR4 = {
+    "fwd_no_product": [
+        ("gru.cu", _replace("      warp_rows_dot<W, R2, RZ, true>(hp, H, b0, "
+                            "B, H, w_s, acc);\n", ZERO_ACC)),
+        ("gru.cu", _replace("      warp_rows_dot<W, R1, HB, true>(rh, H, b0, "
+                            "B, H, w_s + RZ * H, acc);\n", ZERO_ACC))],
+    "fwd_no_sync": [
+        ("gru.cu", _replace("    // every unit's r * h_prev is in the "
+                            "scratch\n    grid.sync();\n", "")),
+        ("gru.cu", _replace("    grid.sync();\n  }\n}\n\n// --- backward",
+                            "  }\n}\n\n// --- backward"))],
+    "fwd_no_load": [
+        ("recurrent.cuh", _replace("        x = kL2 ? __ldcg(p) : *p;\n",
+                                   "        x = kL2 ? 0.5f : *p;\n")),
+        ("gru.cu", _replace("rz_s[b * RZ + u] * __ldcg(hp + at);",
+                            "rz_s[b * RZ + u] * 0.5f;")),
+        ("gru.cu", _replace("      const float h_prev = __ldcg(hp + at);",
+                            "      const float h_prev = 0.5f;"))],
+}
+
+# pr9's LSTM forward: pr8's design, its staging and step product moved
+# into recurrent.cuh (shared with the GRU forward), each warp staging its
+# own k-range, two m-tiles a warp at once
+LSTM_FWD_PR9 = {
+    "fwd_no_product": [
+        ("lstm.cu", _replace("      step_product<W, NP>(",
+                             "      if (0) step_product<W, NP>("))],
+    "fwd_no_sync": LSTM_FWD_PR8["fwd_no_sync"],
+    "fwd_no_load": LSTM_FWD_PR8["fwd_no_load"],
+}
+# pr9's GRU forward: both step products staged (h_prev, then r * h_prev)
+# and K-split over the warps on the tensor cores, two barriers a step
+GRU_FWD_PR9 = {
+    "fwd_no_product": [
+        ("gru.cu", _replace("      step_product<W, NPR>(",
+                            "      if (0) step_product<W, NPR>(")),
+        ("gru.cu", _replace("      step_product<W, NPC>(",
+                            "      if (0) step_product<W, NPC>("))],
+    "fwd_no_sync": [
+        ("gru.cu", _replace("    grid.sync();  // forward barrier 1",
+                            "    // forward barrier 1")),
+        ("gru.cu", _replace("    grid.sync();  // forward barrier 2",
+                            "    // forward barrier 2"))],
+    "fwd_no_load": [
+        ("gru.cu", _replace("      stage_h<W>(h_s, ldk, hf, hb,",
+                            "      if (0) stage_h<W>(h_s, ldk, hf, hb,")),
+        ("gru.cu", _replace("      stage_h<W>(h_s, ldk, rhf, rh16,",
+                            "      if (0) stage_h<W>(h_s, ldk, rhf, rh16,"))],
+}
+
 #: version of the sources -> kernel -> build -> [(file, edit)]
 EDITS = {
     "pr4": {"lstm_bwd": LSTM_BWD_PR4, "lstm_fwd": LSTM_FWD_PR4,
@@ -250,13 +311,16 @@ EDITS = {
     "pr7": {"lstm_bwd": LSTM_BWD_PR7, "lstm_fwd": LSTM_FWD_PR4,
             "gru_bwd": GRU_BWD_PR4},
     "pr8": {"lstm_bwd": LSTM_BWD_PR8, "lstm_fwd": LSTM_FWD_PR8,
-            "gru_bwd": GRU_BWD_PR8},
+            "gru_bwd": GRU_BWD_PR8, "gru_fwd": GRU_FWD_PR4},
+    "pr9": {"lstm_bwd": LSTM_BWD_PR8, "lstm_fwd": LSTM_FWD_PR9,
+            "gru_bwd": GRU_BWD_PR8, "gru_fwd": GRU_FWD_PR9},
 }
 #: builds that compute the kernel's function by another route: their
 #: outputs are held to the plain version's
 EXACT = {"lstm_fwd-fwd_f32_cuda_cores"}
 #: the source each kernel's builds compile
-SOURCE = {"lstm_bwd": "lstm", "lstm_fwd": "lstm", "gru_bwd": "gru"}
+SOURCE = {"lstm_bwd": "lstm", "lstm_fwd": "lstm", "gru_bwd": "gru",
+          "gru_fwd": "gru"}
 T, B, H = 80, 32, 512
 
 
@@ -327,7 +391,8 @@ def _ptxas(log, build):
     changes (every recurrent kernel of the shipped build) in one nvcc
     report."""
     keys = {"lstm_fwd": ("lstm_fwd",), "lstm_bwd": ("lstm_bwd", "rnn_"),
-            "gru_bwd": ("gru_bwd", "gru_gates", "rnn_")}.get(
+            "gru_bwd": ("gru_bwd", "gru_gates", "rnn_"),
+            "gru_fwd": ("gru_fwd",)}.get(
                 build.split("-")[0], ("lstm", "gru", "rnn_"))
     rows, kernel = [], None
     for line in log.splitlines():
@@ -366,8 +431,11 @@ def main():
         for kernel, regs in _ptxas(log, name):
             print(f"  {name} {kernel}: {regs}", flush=True)
             report["ptxas"][f"{name} {kernel}"] = regs
-    wrapped = {"lstm_bwd": K.LSTM_BWD, "lstm_fwd": K.LSTM_FWD,
-               "gru_bwd": K.GRU_BWD}
+    wrapped = {k: w for k, w in (("lstm_bwd", K.LSTM_BWD),
+                                  ("lstm_fwd", K.LSTM_FWD),
+                                  ("gru_bwd", K.GRU_BWD),
+                                  ("gru_fwd", K.GRU_FWD))
+               if k in EDITS[version]}
     shipped = {k: w._fn for k, w in wrapped.items()}
     g = torch.Generator(device="cpu").manual_seed(18)
     try:
@@ -392,6 +460,8 @@ def main():
                 elif kernel == "lstm_bwd":
                     hs, cs = K.lstm_fwd_plain(xs, w, h0, c0, mask)
                     args = (xs, w, h0, c0, mask, hs, cs, dhs, dcs)
+                elif kernel == "gru_fwd":
+                    args = (xs, w, h0, mask)
                 else:
                     hs = K.gru_fwd_plain(xs, w, h0, mask)
                     args = (xs, w, h0, mask, hs, dhs)

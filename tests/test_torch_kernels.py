@@ -620,6 +620,107 @@ def test_layer_norm_backward_matches_pallas(dtype, shape):
     _close(got[2], want[2], 2e-5, rel=True)
 
 
+def _ln_bwd_walks(rows, warp, blocks):
+    """The rows each walker of the LayerNorm backward visits, in order, by
+    block: `layer_norm_bwd_geometry`'s runs of ceil(rows / walkers)
+    consecutive rows (a warp a walker on the warp path, _LN_ROW_WARPS a
+    block; a block a walker else)."""
+    per_block = K._LN_ROW_WARPS if warp else 1
+    run = -(-rows // (blocks * per_block))
+    return [[list(range(min(rows, (k * per_block + w) * run),
+                        min(rows, (k * per_block + w + 1) * run)))
+             for w in range(per_block)] for k in range(blocks)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("f,path", [(37, "block"), (768, "warp"),
+                                    (1000, "warp"), (1024, "warp"),
+                                    (1032, "block"), (3072, "block")])
+@pytest.mark.parametrize("rows", [1, 7, 2048, 8192])
+def test_layer_norm_backward_geometry(itemsize, f, path, rows):
+    """The LayerNorm backward's path as the forward's (warp per row for at
+    most 1024 features in whole 16-byte chunks with aligned pointers),
+    16-byte loads exactly where the row allows them, a grid of one wave
+    of the given residency (4 blocks an SM on 132 SMs) or less when there
+    is less work, and a walk that visits every row once."""
+    warp, vec, blocks = K.layer_norm_bwd_geometry(rows, f, itemsize, True,
+                                                  4, 132)
+    whole = f * itemsize % 16 == 0
+    assert warp == (path == "warp") == (whole and f <= 1024)
+    assert vec == (16 // itemsize if whole else 1)
+    # a misaligned pointer takes the block path with element loads
+    assert K.layer_norm_bwd_geometry(rows, f, itemsize, False, 4,
+                                     132)[:2] == (0, 1)
+    work = -(-rows // K._LN_ROW_WARPS) if warp else rows
+    assert blocks == min(4 * 132, work) >= 1
+    walked = sorted(r for blk in _ln_bwd_walks(rows, warp, blocks)
+                    for walk in blk for r in walk)
+    assert walked == list(range(rows))
+
+
+def _ln_bwd_sums_in_kernel_order(x, dy, mean, inv, warp, blocks):
+    """dscale and dbias of [R, F] f32 rows summed as layer_norm_bwd.cu
+    sums them: each walker (lane columns) adds its rows in walk order,
+    a block adds its walkers' sums in order, then the reduce kernel's
+    warp w adds blocks w, w + 32, ... and the 32 warp sums are added in
+    order."""
+    xn = (x - mean[:, None]) * inv[:, None]
+    prod = dy * xn
+    f = x.shape[1]
+    parts = []
+    for walkers in _ln_bwd_walks(x.shape[0], warp, blocks):
+        a, b = torch.zeros(f), torch.zeros(f)
+        for walk in walkers:
+            sa, sb = torch.zeros(f), torch.zeros(f)
+            for r in walk:
+                sa, sb = sa + prod[r], sb + dy[r]
+            a, b = a + sa, b + sb
+        parts.append((a, b))
+    out = [torch.zeros(f), torch.zeros(f)]
+    for w in range(32):
+        sa, sb = torch.zeros(f), torch.zeros(f)
+        for blk in range(w, blocks, 32):
+            sa, sb = sa + parts[blk][0], sb + parts[blk][1]
+        out = [out[0] + sa, out[1] + sb]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1000, 768), (300, 1032), (257, 37)])
+def test_layer_norm_backward_sum_order_matches_pallas(dtype, shape):
+    """dscale and dbias in the LayerNorm backward kernel's order of
+    summation (lane over its walk, warps in order, blocks in the reduce
+    kernel's order), on the path and grid the wrapper gives (12 blocks an
+    SM on 4 SMs: 48 blocks, more than the reduce kernel's 32 warps),
+    against the Pallas backward (interpret
+    mode) and the plain version: f32 sums over the rows in all three,
+    2e-5 x max(1, max |want|)."""
+    rng = np.random.RandomState(9)
+    r, f = shape
+    x = (2.0 * rng.randn(r, f) + 0.5).astype(np.float32)
+    dy = rng.randn(r, f).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.randn(f)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    jdy, tdy = _pair(dy, dtype)
+    _, mean, var = fused_layer_norm(jx, jnp.asarray(scale),
+                                    jnp.zeros(f, jnp.float32), 1e-5, True)
+    inv = 1.0 / np.sqrt(np.asarray(var) + 1e-5)
+    warp, _, nb = K.layer_norm_bwd_geometry(r, f, tx.element_size(), True,
+                                            12, 4)
+    assert nb == 48
+    got = _ln_bwd_sums_in_kernel_order(
+        tx.float(), tdy.float(), torch.from_numpy(np.array(mean)),
+        torch.from_numpy(inv), warp, nb)
+    want = _ln_pallas_bwd(jx, jnp.asarray(scale), mean, jnp.asarray(inv),
+                          jdy, interpret=True)
+    plain = K.layer_norm_bwd_plain(tx, torch.from_numpy(scale),
+                                   torch.from_numpy(np.array(mean)),
+                                   torch.from_numpy(inv), tdy)
+    for g, wv, pv in zip(got, want[1:], plain[1:]):
+        _close(g, wv, 2e-5, rel=True)
+        _close(g, pv, 2e-5, rel=True)
+
+
 # ---------------------------------------------------------------------------
 # softmax cross-entropy
 # ---------------------------------------------------------------------------

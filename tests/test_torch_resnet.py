@@ -224,30 +224,82 @@ def test_sgd_and_nesterov_steps_match_jax(tmp_path, make):
                  optimizer=make)
 
 
-def test_amp_dtypes_follow_the_jax_rules():
-    """Under program.amp: conv outputs and BatchNorm/pool/residual
-    activations bf16, softmax and the loss f32 (the fc's f32 bias
-    promotes), the master weights, velocities and running stats f32."""
-    avg, acc, predict = _small_net(PORT, "NHWC")
-    main = fluid.default_main_program()
+def _amp_fetch_dtypes(pkg, fetch_of):
+    """Build the cut-down ResNet in ``pkg`` under program.amp, run its
+    startup and one step, and return the dtype name of every var that
+    ``fetch_of(main, avg, predict)`` lists."""
+    fl = pkg[0]
+    avg, _, predict = _small_net(pkg, "NHWC")
+    main = fl.default_main_program()
     main.amp = True
-    exe = fluid.Executor(fluid.CPUPlace())
-    exe.run(fluid.default_startup_program())
-    block = main.global_block()
-    conv = [op.desc.outputs["Output"][0] for op in block.ops
-            if op.type == "conv2d"]
-    bn = [op.desc.outputs["Y"][0] for op in block.ops
-          if op.type == "batch_norm"]
-    pools = [op.desc.outputs["Out"][0] for op in block.ops
-             if op.type == "pool2d"]
-    fetch = [avg, predict] + conv + bn + pools
-    out = exe.run(main, feed=_feeds("NHWC", 1)[0], fetch_list=fetch,
+    exe = fl.Executor(fl.CPUPlace())
+    exe.run(fl.default_startup_program())
+    names = fetch_of(main, avg, predict)
+    out = exe.run(main, feed=_feeds("NHWC", 1)[0], fetch_list=names,
                   return_numpy=False)
-    assert out[0].dtype == out[1].dtype == torch.float32
-    assert all(t.dtype == torch.bfloat16 for t in out[2:])
+    return [str(o.dtype).replace("torch.", "") for o in out]
+
+
+def test_amp_dtypes_follow_the_jax_rules():
+    """Under program.amp: conv outputs, BatchNorm/pool activations and
+    the two elementwise_adds (residual and the fc's broadcast bias, cast
+    to bf16 as the JAX rule casts a mixed broadcast pair) bf16, so predict
+    (softmax keeps its input's dtype) is bf16, the loss f32, the master
+    weights, velocities and running stats f32 -- each dtype as the JAX
+    package fetches it."""
+    def fetch_of(main, avg, predict):
+        block = main.global_block()
+        keyed = (("conv2d", "Output"), ("batch_norm", "Y"),
+                 ("pool2d", "Out"), ("elementwise_add", "Out"))
+        return [avg.name, predict.name] + [
+            op.desc.outputs[key][0] for typ, key in keyed
+            for op in block.ops if op.type == typ]
+
+    want = _amp_fetch_dtypes(JAX, fetch_of)
+    jfluid.core.program.reset_default_programs()
+    got = _amp_fetch_dtypes(PORT, fetch_of)
+    assert want[:2] == ["float32", "bfloat16"]
+    assert got == want
     assert all(t.dtype == torch.float32
                for t in fluid.global_scope()._vars.values()
                if t.is_floating_point())
+
+
+def test_amp_every_var_dtype_matches_jax():
+    """Every var of one amp program with a broadcast bias add (fc) and a
+    same-shape mixed bf16/f32 pair (the fc's bf16 output plus an f32 feed
+    of its shape) fetches with the JAX package's dtype: the broadcast pair
+    casts to bf16, the same-shape pair promotes to f32."""
+    def build(pkg):
+        fl, layers, _, _ = pkg
+        x = layers.data(name="x", shape=[6], dtype="float32")
+        y = layers.data(name="y", shape=[8], dtype="float32")
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        h = layers.fc(input=x, size=8, act="relu")
+        mixed = layers.elementwise_add(h, y)
+        both = layers.elementwise_add(mixed, h)
+        predict = layers.fc(input=both, size=4, act="softmax")
+        avg = layers.mean(layers.cross_entropy(input=predict, label=label))
+        main = fl.default_main_program()
+        main.amp = True
+        exe = fl.Executor(fl.CPUPlace())
+        exe.run(fl.default_startup_program())
+        names = sorted({v for op in main.global_block().ops
+                        for vs in op.desc.outputs.values() for v in vs})
+        rng = np.random.RandomState(3)
+        feed = {"x": rng.rand(5, 6).astype(np.float32),
+                "y": rng.rand(5, 8).astype(np.float32),
+                "label": rng.randint(0, 4, (5, 1)).astype(np.int64)}
+        out = exe.run(main, feed=feed, fetch_list=names, return_numpy=False)
+        return dict(zip(names, (str(o.dtype).replace("torch.", "")
+                                for o in out))), avg.name, mixed.name
+
+    want, avg, mixed = build(JAX)
+    fluid.core.program.reset_default_programs()
+    got, _, _ = build(PORT)
+    assert want[avg] == "float32" and want[mixed] == "float32"
+    assert "bfloat16" in want.values()
+    assert got == want
 
 
 def test_is_test_forward_matches_jax(tmp_path):

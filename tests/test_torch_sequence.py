@@ -26,7 +26,8 @@ import torch
 
 import paddle_tpu as jfluid
 from paddle_tpu import layers as jlayers
-from paddle_tpu.ops.pallas_kernels import (_gru_pallas_bwd, _lstm_pallas_bwd,
+from paddle_tpu.ops.pallas_kernels import (_gru_pallas_bwd, _gru_pallas_fwd,
+                                           _lstm_pallas_bwd,
                                            _lstm_pallas_fwd, fused_gru,
                                            fused_lstm)
 import paddle_tpu_torch as fluid
@@ -350,28 +351,34 @@ def test_gru_bwd_hoisted_order_matches_pallas(wdtype, units):
         _close(g, wv, _tol(wdtype, wv), f"Pallas {name}")
 
 
-def _lstm_fwd_warp_split(xs, tw, h0, c0, mask, wdtype, warps=8):
-    """The LSTM forward in lstm.cu's order of summation: each step's
-    product mm(h_prev) . w split over ``warps`` runs of whole 16-deep
-    k-steps, each run summed apart (`_kernel_sum`: 16-deep bf16 or 8-deep
-    3xTF32 products added with FADD), the runs added in order of warp,
-    then x added."""
-    hid = tw.shape[0]
-    wf = tw.float()
+def _warp_split(a, w_cols, wdtype, warps=8):
+    """A forward step product a [B, K] . w_cols [K, N] in the order of
+    summation of recurrent.cuh's step_product: K split over ``warps``
+    runs of whole 16-deep k-steps, each run summed apart (`_kernel_sum`:
+    16-deep bf16 or 8-deep 3xTF32 products added with FADD), the runs
+    added in order of warp."""
+    hid = w_cols.shape[0]
     steps = -(-hid // 16)
     per = -(-steps // warps)
+    total = torch.zeros(a.shape[0], w_cols.shape[1])
+    for wp in range(warps):
+        k0, k1 = 16 * min(steps, wp * per), 16 * min(steps, wp * per + per)
+        k1 = min(k1, hid)
+        if k0 < k1:
+            total = total + _kernel_sum(a[:, k0:k1].T, w_cols[k0:k1],
+                                        wdtype)
+    return total
+
+
+def _lstm_fwd_warp_split(xs, tw, h0, c0, mask, wdtype, warps=8):
+    """The LSTM forward in lstm.cu's order of summation: each step's
+    product mm(h_prev) . w by `_warp_split`, then x added."""
+    hid = tw.shape[0]
+    wf = tw.float()
     h, c = h0.float(), c0.float()
     hs, cs = [], []
     for t in range(xs.shape[0]):
-        hm = K._mm(h, tw)
-        total = torch.zeros(h.shape[0], 4 * hid)
-        for wp in range(warps):
-            k0, k1 = 16 * min(steps, wp * per), 16 * min(steps, wp * per + per)
-            k1 = min(k1, hid)
-            if k0 < k1:
-                total = total + _kernel_sum(hm[:, k0:k1].T, wf[k0:k1],
-                                            wdtype)
-        gates = xs[t] + total
+        gates = xs[t] + _warp_split(K._mm(h, tw), wf, wdtype, warps)
         i = torch.sigmoid(gates[:, :hid])
         f = torch.sigmoid(gates[:, hid:2 * hid])
         g = torch.tanh(gates[:, 2 * hid:3 * hid])
@@ -384,6 +391,28 @@ def _lstm_fwd_warp_split(xs, tw, h0, c0, mask, wdtype, warps=8):
         hs.append(h)
         cs.append(c)
     return torch.stack(hs), torch.stack(cs)
+
+
+def _gru_fwd_warp_split(xs, tw, h0, mask, wdtype, warps=8):
+    """The GRU forward in gru.cu's order of summation: the r|z product
+    mm(h_prev) . w[:, :2H] and the candidate's mm(r * h_prev) . w[:, 2H:]
+    each by `_warp_split`, then x added; r * h_prev rounded as the kernel
+    publishes it (bf16 for a bf16 w)."""
+    hid = tw.shape[0]
+    wf = tw.float()
+    h = h0.float()
+    hs = []
+    for t in range(xs.shape[0]):
+        x = xs[t]
+        rz = torch.sigmoid(x[:, :2 * hid] + _warp_split(
+            K._mm(h, tw), wf[:, :2 * hid], wdtype, warps))
+        r, z = rz[:, :hid], rz[:, hid:]
+        c = torch.tanh(x[:, 2 * hid:] + _warp_split(
+            K._mm(r * h, tw), wf[:, 2 * hid:], wdtype, warps))
+        m = mask[t]
+        h = m * ((1 - z) * h + z * c) + (1 - m) * h
+        hs.append(h)
+    return torch.stack(hs)
 
 
 @pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
@@ -405,6 +434,25 @@ def test_lstm_fwd_step_product_order_matches_pallas(wdtype):
     for name, g, pv, wv in zip(["hs", "cs"], got, plain, want):
         _close(g, pv, _tol(wdtype, pv), f"plain {name}")
         _close(g, wv, _tol(wdtype, wv), f"Pallas {name}")
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+def test_gru_fwd_step_product_order_matches_pallas(wdtype):
+    """The GRU forward's two step products in its kernel's order (K split
+    over the 8 warps, 16-deep bf16 or 8-deep 3xTF32 partials added with
+    FADD, the warps' sums added in order, r * h_prev rounded as
+    published) against gru_fwd_plain and the Pallas forward (interpret
+    mode): F32_TOL for an f32 w, the bf16 rule for a bf16 w."""
+    xs, w, jw, tw, h0, _, _, _ = _recurrent_case(3, wdtype, 7)
+    tm = _mask()
+    targs = (torch.from_numpy(xs), tw, torch.from_numpy(h0),
+             torch.from_numpy(tm))
+    got = _gru_fwd_warp_split(*targs, wdtype)
+    plain = K.gru_fwd_plain(*targs)
+    want = _gru_pallas_fwd(jnp.asarray(xs), jw, jnp.asarray(h0),
+                           jnp.asarray(tm), True)
+    _close(got, plain, _tol(wdtype, plain), "plain hs")
+    _close(got, want, _tol(wdtype, want), "Pallas hs")
 
 
 @pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
