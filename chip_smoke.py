@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-11
+    python3 chip_smoke.py             # the smoke run, phases 1-12
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
+    python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
     python3 chip_smoke.py --lstm      # phase 1, recurrent phase 3, 9, 10
     python3 chip_smoke.py --ln        # phase 1, LayerNorm phase 3
@@ -70,6 +71,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
 11. one f32 step of each sequence model at full width, batch 4, ragged
    lengths, from its phase's state, on the card and on the CPU: the loss
    and every @GRAD must agree;
+12. the serving front door: the port saves the full-width LM
+   (save_generation_model, seeded random weights) and ResNet-50 inference
+   (save_inference_model, NHWC, softmax output, startup weights at the
+   seed with BatchNorm statistics from one seeded batch); one
+   InferenceServer on 127.0.0.1:0 (port file) over one ModelRegistry
+   serves both in bf16: the LM with 16 decode slots, block_len 16 and a
+   512-block prefix cache, ResNet-50 transpiled with batches of up to 32.
+   Launch counts are zeroed, then 32 streamed generate requests of 64 new
+   tokens from 8 client threads (four groups of 8 prompts sharing a
+   512-token head, suffixes of 8..512 tokens) and 64 infer requests of 4
+   images from 16 threads go over the wire; paged attention, the flash
+   forward and the LayerNorm forward must have launched, and
+   decode_prefix_hits_total (read through the metrics verb) must reach
+   24.  Every stream must equal an in-process DecodeEngine without prefix
+   cache, or part from it on a near tie; a cold and a hot stream of the
+   served engine must match greedy_decode_full; every infer reply must be
+   its rows of the batch the server ran, each batch must match the
+   in-process bf16 Predictor on the same padded batch, and one request in
+   f32 on the card must match the CPU's f32 Predictor.  drain_and_stop
+   must drain, and the KV allocator must be back to its baseline after
+   close.  It prints tokens/s, TTFT cold and hot, the decode step, infer
+   requests/s, latency and batch fill beside the card's name;
 then a JSON line with every ported kernel's launches, error and times,
 the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
@@ -78,7 +101,8 @@ With --serving it runs only phase 1, the paged-attention and LayerNorm
 checks and timings of phase 3, and phase 4; with --resnet phase 1, the
 BatchNorm backward's checks and timings and phase 7; with --lstm phase 1,
 the LSTM and GRU checks and timings and phases 9 and 10; with --ln phase
-1 and the LayerNorm forward and backward checks and timings.  Each prints its
+1 and the LayerNorm forward and backward checks and timings; with
+--frontdoor phase 1 and phase 12.  Each prints its
 results as one JSON line (no result line): run from two checkouts in
 turns, it compares two versions of those kernels on one card.  In these
 modes a recurrent kernel that refuses a width it should place is
@@ -1241,8 +1265,7 @@ def serve(seed=0):
     import numpy as np
     import torch
     from paddle_tpu_torch.ops import kernels as K
-    from paddle_tpu_torch.serving.decode_engine import (DecodeEngine,
-                                                        greedy_decode_full)
+    from paddle_tpu_torch.serving.decode_engine import DecodeEngine
     spec = dict(FULL_WIDTH)
     model_dir = os.path.join(HERE, "build", "smoke_model")
     t0 = time.perf_counter()
@@ -1294,38 +1317,46 @@ def serve(seed=0):
           f"step ms {stats['step_ms']}; prefills {stats['prefills']}, "
           f"decode steps {stats['iterations']}", flush=True)
     # cross-check two streams against the full-prefix recompute
-    n_check = 8
     for i in checked:
-        full = greedy_decode_full(engine.model, [prompts[i]], n_check,
-                                  capture_logits=True)
-        kv_logits = results[i]["logits"]
-        compared = 0
-        for step in range(n_check):
-            a = kv_logits[step]
-            b = full["logits"][step][0]
-            err = float(np.abs(a - b).max())
-            tol = E2E_TOL * max(1.0, float(np.abs(b).max()))
-            if err > tol:
-                raise AssertionError(
-                    f"stream {i} token {step}: engine logits differ from "
-                    f"the full recompute by {err}")
-            compared += 1
-            if full["tokens"][0][step] != results[i]["tokens"][step]:
-                top2 = np.sort(b)[-2:]
-                if top2[1] - top2[0] > tol:
-                    raise AssertionError(
-                        f"stream {i} token {step}: greedy choice differs "
-                        f"from the full recompute without a near tie")
-                print(f"  stream {i} diverges at token {step} on a near "
-                      f"tie (top-2 gap {top2[1] - top2[0]:.3e})")
-                break
-        print(f"  stream {i} (prompt {len(prompts[i])}): engine logits "
-              f"match the full recompute at {compared} tokens", flush=True)
+        _match_full_recompute(engine.model, prompts[i], results[i],
+                              f"stream {i}")
     profile = profile_decode_step(engine, steps)
     return launches, {"tokens_per_s": n_tok / wall,
                       "ttft_ms": stats["ttft_ms"],
                       "step_ms": stats["step_ms"],
                       "decode_step_profile": profile}
+
+
+def _match_full_recompute(model, prompt, result, label, n_check=8):
+    """The engine's logits of one stream (``result``, captured) against
+    `greedy_decode_full` on ``model`` for its first ``n_check`` tokens:
+    max abs error within E2E_TOL of max(1, max |logit|), and a greedy
+    choice that differs only on a near tie of the recompute's logits (its
+    top two within that tolerance), after which the streams part."""
+    import numpy as np
+    from paddle_tpu_torch.serving.decode_engine import greedy_decode_full
+    full = greedy_decode_full(model, [prompt], n_check, capture_logits=True)
+    compared = 0
+    for step in range(n_check):
+        a = result["logits"][step]
+        b = full["logits"][step][0]
+        err = float(np.abs(a - b).max())
+        tol = E2E_TOL * max(1.0, float(np.abs(b).max()))
+        if err > tol:
+            raise AssertionError(f"{label} token {step}: engine logits "
+                                 f"differ from the full recompute by {err}")
+        compared += 1
+        if full["tokens"][0][step] != result["tokens"][step]:
+            top2 = np.sort(b)[-2:]
+            if top2[1] - top2[0] > tol:
+                raise AssertionError(
+                    f"{label} token {step}: greedy choice differs from "
+                    "the full recompute without a near tie")
+            print(f"  {label} diverges at token {step} on a near tie "
+                  f"(top-2 gap {top2[1] - top2[0]:.3e})")
+            break
+    print(f"  {label} (prompt {len(prompt)}): engine logits match the "
+          f"full recompute at {compared} tokens", flush=True)
 
 
 #: groups of the decode-step profile, by kernel name
@@ -1392,6 +1423,397 @@ def profile_decode_step(engine, steps, iters=20):
     return {"step": mid, "positions": positions, "wall_ms": wall_ms,
             "device_ms": device_ms, "launches": n_launch,
             "host_idle_share": 1 - device_ms / wall_ms, "groups_ms": groups}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the serving front door
+# ---------------------------------------------------------------------------
+
+#: phase 12's generate traffic: FD_GROUPS groups of FD_PER_GROUP requests
+#: whose prompts share an FD_PREFIX-token head, each followed by its own
+#: suffix of FD_SUFFIX[0]..FD_SUFFIX[1] tokens, FD_NEW new tokens each,
+#: streamed to FD_GEN_THREADS client threads (each sends requests of one
+#: group, one after another: its second and later requests find their
+#: group's head in the prefix cache, so at least FD_MIN_HITS hit)
+FD_GROUPS, FD_PER_GROUP, FD_PREFIX, FD_SUFFIX = 4, 8, 512, (8, 512)
+FD_NEW, FD_GEN_THREADS, FD_MIN_HITS = 64, 8, 24
+FD_SLOTS, FD_BLOCK_LEN, FD_PREFIX_BLOCKS = 16, 16, 512
+#: phase 12's infer traffic: FD_INFER ResNet-50 requests of FD_INFER_BATCH
+#: images from FD_INFER_THREADS client threads, batched up to
+#: FD_RESNET_MAX_BATCH rows
+FD_INFER, FD_INFER_BATCH, FD_INFER_THREADS, FD_RESNET_MAX_BATCH = 64, 4, 16, 32
+FD_RESNET = dict(depth=50, class_dim=1000, image_shape=(224, 224, 3))
+#: seconds a client waits for any one reply line (a hot request's longest
+#: tail replay is ~512 decode steps, a few seconds)
+FD_WIRE_TIMEOUT = 120
+#: a batch the server ran against the in-process Predictor on the card
+#: on the same padded batch (same shapes, so the same library kernels):
+#: max abs error over max |reference| within one bf16 step
+FD_SAME_BATCH_TOL = 2.0 ** -7
+
+
+def _save_frontdoor_models(root, seed, device):
+    """Phase 12's two artifacts, written by the port: the full-width LM
+    (save_generation_model over random_params at ``seed``) and ResNet-50
+    inference (save_inference_model of its softmax output, NHWC).  The
+    ResNet weights are the startup program's at ``seed``; its BatchNorm
+    running statistics are set from one seeded batch of 8 images (a
+    training-mode forward), since the startup's mean 0 and variance 1
+    saturate the softmax to one class for every input, which would hide
+    a reply sent to the wrong request."""
+    import shutil
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio, layers
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.models import resnet, transformer as T
+    lm_dir, rn_dir = os.path.join(root, "lm"), os.path.join(root, "resnet50")
+    for d in (lm_dir, rn_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    spec = T.generation_spec(**FULL_WIDTH)
+    scope = Scope()
+    for name, arr in T.random_params(spec, seed).items():
+        scope.set(name, arr)
+    T.save_generation_model(lm_dir, **FULL_WIDTH, scope=scope, init=False)
+    del scope
+    main, startup, scope = fluid.Program(), fluid.Program(), Scope()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard(), \
+            scope_guard(scope):
+        img = layers.data(name="data", shape=list(FD_RESNET["image_shape"]),
+                          dtype="float32")
+        predict = resnet.resnet_imagenet(
+            img, class_dim=FD_RESNET["class_dim"], depth=FD_RESNET["depth"],
+            data_format="NHWC")
+        startup.random_seed = seed
+        exe = fluid.Executor(fluid.CPUPlace() if device == "cpu"
+                             else fluid.CUDAPlace(0))
+        exe.run(startup)
+        bns = [op for op in main.global_block().ops
+               if op.type == "batch_norm"]
+        calib = np.random.default_rng(seed + 7).random(
+            (8,) + FD_RESNET["image_shape"], dtype=np.float32)
+        stats = exe.run(main, feed={"data": calib}, fetch_list=[
+            n for op in bns for n in (op.desc.outputs["SavedMean"][0],
+                                      op.desc.outputs["SavedVariance"][0])])
+        for op, mean, inv in zip(bns, stats[0::2], stats[1::2]):
+            eps = op.desc.attrs.get("epsilon", 1e-5)
+            scope.set(op.desc.inputs["Mean"][0], torch.tensor(mean))
+            scope.set(op.desc.inputs["Variance"][0],
+                      torch.tensor(1.0 / inv.astype(np.float64) ** 2 - eps,
+                                   dtype=torch.float32))
+        pio.save_inference_model(rn_dir, ["data"], [predict], exe,
+                                 main_program=main)
+    return lm_dir, rn_dir, spec
+
+
+def _fd_prompts(vocab, seed):
+    """FD_GROUPS x FD_PER_GROUP prompts, group by group."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for _ in range(FD_GROUPS):
+        head = rng.integers(0, vocab, FD_PREFIX).tolist()
+        for _ in range(FD_PER_GROUP):
+            n = int(rng.integers(FD_SUFFIX[0], FD_SUFFIX[1] + 1))
+            prompts.append(head + rng.integers(0, vocab, n).tolist())
+    return prompts
+
+
+def _run_threads(fn, n):
+    """Run ``fn(t)`` on n threads; re-raise the first failure."""
+    import threading
+    errors = []
+
+    def body(t):
+        try:
+            fn(t)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(t,), daemon=True)
+               for t in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish in 900 s")
+    if errors:
+        raise errors[0]
+
+
+def _pct(samples):
+    import numpy as np
+    a = np.asarray(samples, np.float64) * 1e3
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99))}
+
+
+def _fd_generate(ep, prompts):
+    """The generate traffic over the wire: every stream's tokens, its
+    client-side TTFT and whether it was its thread's first request."""
+    from paddle_tpu_torch.serving import ServingClient
+    per_thread = FD_PER_GROUP // (FD_GEN_THREADS // FD_GROUPS)
+    results = {}
+
+    def client(t):
+        g, k = t % FD_GROUPS, t // FD_GROUPS
+        with ServingClient(ep, timeout=FD_WIRE_TIMEOUT) as c:
+            for j in range(per_thread):
+                i = g * FD_PER_GROUP + k * per_thread + j
+                t0, ttft, toks, final = time.perf_counter(), None, [], None
+                for line in c.generate_stream(prompts[i], model="lm",
+                                              max_new_tokens=FD_NEW):
+                    if "token" in line:
+                        if ttft is None:
+                            ttft = time.perf_counter() - t0
+                        toks.append(line["token"])
+                    else:
+                        final = line
+                if final is None or final["tokens"] != toks:
+                    raise AssertionError(f"request {i}: the final line does "
+                                         "not repeat the streamed tokens")
+                results[i] = {"tokens": toks, "ttft": ttft, "first": j == 0,
+                              "finish_reason": final["finish_reason"]}
+
+    t0 = time.perf_counter()
+    _run_threads(client, FD_GEN_THREADS)
+    return results, time.perf_counter() - t0
+
+
+def _fd_infer(ep, images):
+    """The infer traffic over the wire: every reply and its latency."""
+    from paddle_tpu_torch.serving import ServingClient
+    replies, lat = {}, {}
+    per_thread = FD_INFER // FD_INFER_THREADS
+
+    def client(t):
+        with ServingClient(ep, timeout=FD_WIRE_TIMEOUT) as c:
+            for j in range(per_thread):
+                i = t * per_thread + j
+                t0 = time.perf_counter()
+                out = c.infer({"data": images[i]}, model="resnet50")
+                lat[i] = time.perf_counter() - t0
+                replies[i] = next(iter(out.values()))
+
+    t0 = time.perf_counter()
+    _run_threads(client, FD_INFER_THREADS)
+    return replies, lat, time.perf_counter() - t0
+
+
+def _check_streams_against_cold_engine(lm_dir, prompts, results, device):
+    """Every wire stream against an in-process DecodeEngine with no prefix
+    cache on the same prompts: equal token for token, or parted on a
+    near tie (the wire's token within E2E_TOL of the top logit of the
+    cold engine's logits, phase 4's rule), after which the streams part."""
+    import numpy as np
+    from paddle_tpu_torch.serving import DecodeEngine
+    with DecodeEngine.from_model_dir(
+            lm_dir, precision="bf16", device=device, slots=FD_SLOTS,
+            block_len=FD_BLOCK_LEN) as ref:
+        handles = [ref.submit(p, FD_NEW, capture_logits=True)
+                   for p in prompts]
+        cold = [h.result(timeout=900) for h in handles]
+    parted = 0
+    for i, (r, want) in enumerate(zip(results, cold)):
+        if len(r["tokens"]) != FD_NEW or r["finish_reason"] != "length":
+            raise AssertionError(f"stream {i} ended early: "
+                                 f"{r['finish_reason']}")
+        for step, (a, b) in enumerate(zip(r["tokens"], want["tokens"])):
+            if a == b:
+                continue
+            row = want["logits"][step]
+            tol = E2E_TOL * max(1.0, float(np.abs(row).max()))
+            if float(row.max() - row[a]) > tol:
+                raise AssertionError(
+                    f"stream {i} token {step}: the wire's token differs "
+                    "from the cold engine's without a near tie")
+            parted += 1
+            break
+    return parted
+
+
+def _check_infer(pred_bf16, batches, images, replies):
+    """Each wire reply is its rows of the batch the server ran (bit for
+    bit), and each batch the server ran matches the in-process bf16
+    Predictor on the card on the same padded batch within
+    FD_SAME_BATCH_TOL."""
+    import numpy as np
+    where = {}
+    for b, (feed, out) in enumerate(batches):
+        for off in range(0, feed.shape[0], FD_INFER_BATCH):
+            where[feed[off, :2, :2].tobytes()] = (b, off)
+    for i, img in enumerate(images):
+        b, off = where[img[0, :2, :2].tobytes()]
+        got = batches[b][1][off:off + FD_INFER_BATCH]
+        if not np.array_equal(replies[i], got):
+            raise AssertionError(f"request {i}: the reply is not its rows "
+                                 "of the batch the server ran")
+    worst = 0.0
+    for feed, out in batches:
+        want = pred_bf16.run({"data": feed})[0]
+        err = float(np.abs(out - want).max()) / float(np.abs(want).max())
+        worst = max(worst, err)
+    if worst > FD_SAME_BATCH_TOL:
+        raise AssertionError(f"a served batch differs from the in-process "
+                             f"Predictor by {worst:.3e} of its max")
+    return worst
+
+
+def frontdoor(seed=0, device="cuda"):
+    """Phase 12: the full-width LM and ResNet-50, saved by the port,
+    served by one InferenceServer over one ModelRegistry (bf16): generate
+    streamed to the LM, infer to ResNet-50, over TCP."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import (InferenceServer, ModelRegistry,
+                                          Predictor, ServingClient,
+                                          wait_for_port_file)
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    root = os.path.join(HERE, "build", "frontdoor")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    lm_dir, rn_dir, spec = _save_frontdoor_models(root, seed, device)
+    print(f"  LM and ResNet-50 saved: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    reg = ModelRegistry(device=device)
+    reg.load("lm", lm_dir, precision="bf16",
+             engine_opts={"max_batch_size": 1},
+             decode={"slots": FD_SLOTS, "block_len": FD_BLOCK_LEN,
+                     "prefix_cache_blocks": FD_PREFIX_BLOCKS,
+                     "warmup": True})
+    reg.load("resnet50", rn_dir, precision="bf16", transpile=True,
+             engine_opts={"max_batch_size": FD_RESNET_MAX_BATCH},
+             warmup=[b for b in (1, 2, 4, 8, 16, 32)
+                     if b <= FD_RESNET_MAX_BATCH])
+    rn_entry, lm_entry = reg.get("resnet50"), reg.get("lm")
+    if any(op.type == "batch_norm"
+           for op in rn_entry.predictor.program.global_block().ops):
+        raise AssertionError("the transpiler left a BatchNorm in ResNet-50")
+    port_file = os.path.join(root, "port")
+    server = InferenceServer(reg, port=0, port_file=port_file).start()
+    ep = f"127.0.0.1:{wait_for_port_file(port_file, timeout=60)}"
+    sync()
+    print(f"  registry loaded (ResNet-50 transpiled, buckets "
+          f"{rn_entry.engine.buckets}; LM decode slots {FD_SLOTS}, "
+          f"prefix cache {FD_PREFIX_BLOCKS} blocks), serving on {ep}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = _fd_prompts(spec["vocab"], seed)
+    rng = np.random.default_rng(seed + 1)
+    images = [rng.random((FD_INFER_BATCH,) + FD_RESNET["image_shape"],
+                         dtype=np.float32) for _ in range(FD_INFER)]
+    batches = []
+    served = rn_entry.predictor.run_with_info
+
+    def recording(feed, return_numpy=True):
+        outs, hit = served(feed, return_numpy)
+        batches.append((np.array(feed["data"]), outs[0]))
+        return outs, hit
+    rn_entry.predictor.run_with_info = recording
+    try:
+        K.reset_launches()
+        gen, gen_wall = _fd_generate(ep, prompts)
+        replies, lat, infer_wall = _fd_infer(ep, images)
+        sync()
+        launches = {k.name: k.launches for k in K.KERNELS}
+        with ServingClient(ep, timeout=60) as c:
+            prom = c.metrics()
+            lm_stats = c.stats(model="lm")
+            rn_stats = c.stats(model="resnet50")
+        hits = next(float(line.split()[-1]) for line in prom.splitlines()
+                    if line.startswith('decode_prefix_hits_total{model="lm"}'))
+        # one cold and one hot stream of the served engine, in process,
+        # against the full-prefix recompute
+        fresh = rng.integers(0, spec["vocab"],
+                             FD_PREFIX + FD_SUFFIX[1] // 2).tolist()
+        for label, p in (("cold stream", fresh), ("hot stream", prompts[0])):
+            before = lm_entry.decode.prefix_cache.hits
+            r = lm_entry.decode.submit(p, 8, capture_logits=True
+                                       ).result(timeout=600)
+            if (lm_entry.decode.prefix_cache.hits > before) != \
+                    (label == "hot stream"):
+                raise AssertionError(f"the {label} was not {label[:3]}")
+            _match_full_recompute(lm_entry.decode.model, p, r, label)
+        drained = server.drain_and_stop(timeout=120)
+    finally:
+        rn_entry.predictor.run_with_info = served
+        server.stop()
+        decode = lm_entry.decode
+        reg.close()
+    if not drained:
+        raise AssertionError("drain_and_stop did not drain in 120 s")
+    alloc = decode.allocator
+    if (any(alloc.refcount(b) for b in range(alloc.num_blocks))
+            or alloc.in_use != decode.prefix_cache.cached_blocks):
+        raise AssertionError("the KV allocator is not back to its baseline "
+                             "after close")
+    print(f"  launches on the front-door path: {launches}", flush=True)
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "front-door path")
+    if hits < FD_MIN_HITS:
+        raise AssertionError(f"decode_prefix_hits_total {hits} < "
+                             f"{FD_MIN_HITS}")
+    results = [gen[i] for i in range(len(prompts))]
+    parted = _check_streams_against_cold_engine(lm_dir, prompts, results,
+                                                device)
+    pred = Predictor.from_model_dir(rn_dir, precision="bf16", device=device)
+    same_batch_err = _check_infer(pred, batches, images, replies)
+    # one request in f32 on the card against the CPU's f32 Predictor
+    card32 = Predictor.from_model_dir(rn_dir, device=device).run(
+        {"data": images[0]})[0]
+    cpu32 = Predictor.from_model_dir(rn_dir, device="cpu").run(
+        {"data": images[0]})[0]
+    f32_err = float(np.abs(card32 - cpu32).max()) / float(
+        np.abs(cpu32).max())
+    bf16_err = float(np.abs(replies[0] - cpu32).max()) / float(
+        np.abs(cpu32).max())
+    if f32_err > CPU_LOSS_RTOL:
+        raise AssertionError(f"ResNet-50 f32 on the card differs from the "
+                             f"CPU by {f32_err:.3e} of its max")
+    n_tok = sum(len(r["tokens"]) for r in results)
+    cold_ttft = [r["ttft"] for r in results if r["first"]]
+    hot_ttft = [r["ttft"] for r in results if not r["first"]]
+    infer_lat = [lat[i] for i in range(FD_INFER)]
+    out = {
+        "generate_tokens_per_s": n_tok / gen_wall,
+        "generate_wall_s": gen_wall,
+        "ttft_cold_ms": _pct(cold_ttft), "ttft_hot_ms": _pct(hot_ttft),
+        "server_ttft_ms": lm_stats["decode"]["ttft_ms"],
+        "server_ttft_hot_ms": lm_stats["decode"]["prefix"]["ttft_hot_ms"],
+        "decode_step_ms": lm_stats["decode"]["step_ms"],
+        "prefix_hits": hits, "prefix": lm_stats["decode"]["prefix"],
+        "prefills": lm_stats["decode"]["prefills"],
+        "streams_parted_on_near_tie": parted,
+        "infer_requests_per_s": FD_INFER / infer_wall,
+        "infer_latency_ms": _pct(infer_lat),
+        "infer_batch_fill": rn_stats["batch_fill_ratio"],
+        "infer_avg_batch": rn_stats["avg_batch"],
+        "infer_dispatches": rn_stats["dispatches"],
+        "infer_same_batch_err": same_batch_err,
+        "resnet_f32_card_vs_cpu_err": f32_err,
+        "resnet_bf16_wire_vs_cpu_f32_err": bf16_err,
+        "launches": {k: launches[k] for k in SERVE_KERNELS}}
+    print(f"  generate: {len(results)} streams, {n_tok} tokens in "
+          f"{gen_wall:.3f} s over the wire: {out['generate_tokens_per_s']:.1f}"
+          f" tokens/s; TTFT ms cold {out['ttft_cold_ms']}, hot "
+          f"{out['ttft_hot_ms']}; decode step ms {out['decode_step_ms']}; "
+          f"prefix hits {hits:.0f}, prefills {out['prefills']}, "
+          f"{parted} streams parted on a near tie", flush=True)
+    print(f"  infer: {FD_INFER} requests of {FD_INFER_BATCH} images in "
+          f"{infer_wall:.3f} s: {out['infer_requests_per_s']:.1f} "
+          f"requests/s, latency ms {out['infer_latency_ms']}, batch fill "
+          f"{out['infer_batch_fill']} (mean batch {out['infer_avg_batch']}"
+          f" rows in {out['infer_dispatches']} dispatches); served batches "
+          f"against the in-process Predictor {same_batch_err:.3e}; f32 card "
+          f"against CPU {f32_err:.3e}; bf16 wire against CPU f32 "
+          f"{bf16_err:.3e} (not a check: bf16 precision)", flush=True)
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -1866,6 +2288,14 @@ def lstm_ab(smi):
     return recs
 
 
+def frontdoor_ab(smi):
+    """``--frontdoor``: phase 12 only (the serving front door over TCP),
+    after building the three serving kernels."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("paged_attention", "flash_attention", "layer_norm"))
+    return {"frontdoor": frontdoor()[1]}
+
+
 def ln_ab(smi):
     """``--ln``: the LayerNorm forward and backward kernels' phase 3
     checks and timings only."""
@@ -1882,7 +2312,7 @@ def ln_ab(smi):
 #: (parent, change, change, parent), it compares two versions of those
 #: kernels on one card
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
-            "--lstm": lstm_ab, "--ln": ln_ab}
+            "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab}
 
 
 def main(argv=()):
@@ -1980,6 +2410,12 @@ def main(argv=()):
         check = seq_card_vs_cpu(model, seq[model][2])
         print(f"  {model}: {json.dumps(check)}", flush=True)
 
+    print("phase 12: the serving front door: the full-width LM (generate) "
+          "and ResNet-50 (infer), bf16, one InferenceServer over one "
+          "ModelRegistry, over TCP", flush=True)
+    fd_launches, fd_e2e = frontdoor()
+    print(f"  end to end ({smi}): {json.dumps(fd_e2e)}", flush=True)
+
     kernels = []
     for k in K.KERNELS:
         r = recs[k.name]
@@ -1989,8 +2425,10 @@ def main(argv=()):
             "replaces": k.replaces,
             "launches": (serve_launches[k.name] + train_launches[k.name]
                          + resnet_launches[k.name]
-                         + seq["lstm"][0][k.name] + seq["gru"][0][k.name]),
+                         + seq["lstm"][0][k.name] + seq["gru"][0][k.name]
+                         + fd_launches[k.name]),
             "launches_serving": serve_launches[k.name],
+            "launches_frontdoor": fd_launches[k.name],
             "launches_training": (train_launches[k.name]
                                   + resnet_launches[k.name]
                                   + seq["lstm"][0][k.name]

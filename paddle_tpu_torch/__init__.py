@@ -1,7 +1,7 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
 It sits beside the JAX package and imports nothing of it.  Module names
-mirror the JAX package's, so each counterpart is found by name.  Four
+mirror the JAX package's, so each counterpart is found by name.  Five
 slices are ported:
 
 - training through the Fluid front end: a user script written for the
@@ -23,13 +23,18 @@ slices are ported:
   plus ``dynamic_lstm`` layers) and ``dynamic_gru`` classifiers, fed
   padded ids with a ``<name>@SEQ_LEN`` length vector;
 - serving the transformer LM: `serving.decode_engine.DecodeEngine` over a
-  paged KV cache.
+  paged KV cache, with a radix prefix cache;
+- the serving front door: `serving.Predictor` over a saved inference
+  model (``io.save_inference_model`` / ``load_inference_model``), the
+  dynamic batcher `serving.ServingEngine`, `serving.ModelRegistry`, the
+  TCP `serving.InferenceServer` (the JAX package's wire), and
+  ``python -m paddle_tpu_torch serve``.
 
 Their kernels (paged attention, FlashAttention-2 forward and backward,
 LayerNorm forward and backward, softmax cross-entropy forward and
 backward, BatchNorm training backward, the LSTM and GRU recurrences
 forward and backward) are written in CUDA (``ops/csrc``).  Entry points run on the card unless the caller asks for
-the CPU (``Executor(CPUPlace())``, ``device="cpu"``).
+the CPU (``Executor(CPUPlace())``, ``device="cpu"``, ``--device cpu``).
 """
 from . import (core, initializer, io, layers, nets, optimizer,  # noqa: F401
                unique_name)

@@ -32,6 +32,10 @@ from .registry import OpRegistry
 
 #: suffix of the companion length vector of a ragged value
 LEN_SUFFIX = "@SEQ_LEN"
+#: suffix of an int8 parameter's per-column dequantization scales in the
+#: env (serving.Predictor at precision "int8"; the lookup_table rule
+#: dequantizes only the rows it gathers)
+QSCALE_SUFFIX = "@QSCALE@"
 
 
 class ExecContext:

@@ -21,7 +21,9 @@ _PRECISION_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16}
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the current CUDA device (raise without CUDA);
     anything else -> ``torch.device(device)``, checked for CUDA when it
-    names a CUDA device."""
+    names a CUDA device.  A CUDA device always comes back with its index
+    (``"cuda"`` is the current one), so that a worker thread can make it
+    its own current device."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -29,8 +31,11 @@ def resolve_device(device=None) -> torch.device:
                 "the caller passes device='cpu'")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is absent")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is absent")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -6,16 +6,18 @@ the Executor interprets the global block op by op with torch functions
 (`core.lowering`).  Serialization is the JAX package's JSON, field for
 field, so a program built by either package parses in the other.
 
-Ported as far as the training programs need: sub-blocks (a DynamicRNN's
-step block, ``create_block``/``rollback``), no operator sugar on
-`Variable`, no ``clone``/``prune`` yet.  Like the JAX package's, the
-``amp`` flag is not part of the JSON, and an attribute's tuples come back
-from it as lists.
+Ported as far as the training and serving programs need: sub-blocks (a
+DynamicRNN's step block, ``create_block``/``rollback``),
+``clone(for_test=True)`` and ``prune(targets)`` (what
+``io.save_inference_model`` exports), no operator sugar on `Variable`.
+Like the JAX package's, the ``amp`` flag is not part of the JSON, and an
+attribute's tuples come back from it as lists.
 """
 from __future__ import annotations
 
+import copy
 import json
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -345,6 +347,53 @@ class Program:
     def all_parameters(self):
         return self.global_block().all_parameters()
 
+    # -- whole-program transforms -------------------------------------------
+    def clone(self, for_test: bool = False) -> "Program":
+        """A deep copy; ``for_test=True`` keeps only the forward ops and
+        sets ``is_test`` on the ops that behave differently in inference
+        (dropout scales instead of masking, BatchNorm reads its running
+        statistics)."""
+        p = copy.deepcopy(self)
+        if for_test:
+            for block in p.blocks:
+                block.ops = [op for op in block.ops
+                             if op.desc.attrs.get("op_role", "forward")
+                             == "forward"]
+                for op in block.ops:
+                    if "is_test" in _TEST_MODE_OPS.get(op.type, ()):
+                        op.desc.attrs["is_test"] = True
+            p._op_role = "forward"
+        return p
+
+    def prune(self, targets: Sequence) -> "Program":
+        """A copy whose global block keeps only the ops that ``targets``
+        need (a backward slice of the op list), and only the variables
+        those ops and their sub-blocks use."""
+        target_names = {t.name if isinstance(t, Variable) else t
+                        for t in targets}
+        p = self.clone()
+        block = p.global_block()
+        needed = set(target_names)
+        kept = []
+        for op in reversed(block.ops):
+            if set(op.desc.output_names()) & needed or op.type == "feed":
+                kept.append(op)
+                needed |= set(op.desc.input_names())
+        block.ops = list(reversed(kept))
+        used = set()
+        for op in block.ops:
+            used |= set(op.desc.input_names()) | set(op.desc.output_names())
+        # a kept sub-block (a DynamicRNN's step block) reads its
+        # parameters from block 0
+        for bi in {op.desc.attrs["sub_block"] for op in block.ops
+                   if "sub_block" in op.desc.attrs}:
+            for op in p.blocks[bi].ops:
+                used |= (set(op.desc.input_names())
+                         | set(op.desc.output_names()))
+        block.vars = {k: v for k, v in block.vars.items()
+                      if k in used or k in target_names}
+        return p
+
     # -- serialization -------------------------------------------------------
     def to_dict(self):
         return {"blocks": [b.to_dict() for b in self.blocks], "version": 1}
@@ -374,6 +423,11 @@ class Program:
         if not p.blocks:
             p.blocks = [Block(p, 0)]
         return p
+
+
+#: ops whose behaviour differs between training and inference
+_TEST_MODE_OPS = {"dropout": ("is_test",), "batch_norm": ("is_test",),
+                  "layer_norm": ()}
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@
   (`transformer_lm_train_program` and the layers it calls), which emit
   the JAX package's ops, names and shapes through the Fluid front end;
 - the generation model `TransformerLM`, an ``nn.Module`` that the decode
-  engine serves.
+  engine serves, and `save_generation_model`, which writes the artifact
+  both packages serve.
 
 The model is the one the JAX package builds in ``transformer_lm_logits``
 and serves through ``transformer_lm_prefill_logits`` /
@@ -28,6 +29,7 @@ which is what the LayerNorm kernel reads.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -55,6 +57,46 @@ def generation_spec(vocab, max_len, n_layers=2, d_model=64, n_heads=4,
             "d_model": int(d_model), "n_heads": int(n_heads),
             "d_ff": int(d_ff),
             "eos_id": None if eos_id is None else int(eos_id)}
+
+
+def save_generation_model(dirname, vocab, max_len, n_layers=2, d_model=64,
+                          n_heads=4, d_ff=256, eos_id=None, seed=None,
+                          scope=None, init=True) -> dict:
+    """Save a servable generation model, as the JAX package's function of
+    this name does: the full-prefix LM inference artifact (``__model__``
+    fetching the ``[B, T, V]`` logits, the parameters, the manifest) plus
+    ``__generation__.json``, from which a `DecodeEngine` builds the model.
+    ``init=True`` runs the startup program (seeded by ``seed``) on the
+    CPU first, as the JAX function does; ``init=False`` saves the
+    parameters already in ``scope`` (trained weights, or
+    `random_params`).  Returns the spec."""
+    from .. import io as _io
+    from .. import unique_name
+    from ..core.executor import Executor
+    from ..core.place import CPUPlace
+    from ..core.program import Program, program_guard
+    from ..core.scope import scope_guard
+    spec = generation_spec(vocab, max_len, n_layers, d_model, n_heads,
+                           d_ff, eos_id)
+    main, startup = Program(), Program()
+    with program_guard(main, startup), unique_name.guard():
+        tokens = layers.data(name="tokens", shape=[max_len], dtype="int64")
+        logits = transformer_lm_logits(tokens, vocab, max_len, n_layers,
+                                       d_model, n_heads, d_ff)
+    if seed is not None:
+        startup.random_seed = seed
+    exe = Executor(CPUPlace())
+    with contextlib.ExitStack() as stack:
+        if scope is not None:
+            stack.enter_context(scope_guard(scope))
+        if init:
+            exe.run(startup)
+        _io.save_inference_model(dirname, ["tokens"], [logits], exe,
+                                 main_program=main)
+        with _io._atomic_write(os.path.join(
+                dirname, GENERATION_SPEC_FILENAME)) as f:
+            json.dump(spec, f, indent=1)
+    return spec
 
 
 def read_generation_spec(model_dir: str) -> Optional[dict]:

@@ -72,6 +72,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -81,7 +82,10 @@ from . import _build
 
 class Kernel:
     """One CUDA kernel: where it lives, what it replaces, and how often the
-    wrapper has launched it (a plain integer)."""
+    wrapper has launched it (a plain integer, counted under a lock: the
+    serving engines launch from several threads at once)."""
+
+    _count_lock = threading.Lock()
 
     def __init__(self, name: str, source: str, entry: str, replaces: str,
                  argtypes):
@@ -109,7 +113,8 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 #: cudaErrorCooperativeLaunchTooLarge (its value since CUDA 10), returned
@@ -187,8 +192,9 @@ _FLASH_HEAD_DIMS = (32, 64)
 
 
 def reset_launches():
-    for k in KERNELS:
-        k.launches = 0
+    with Kernel._count_lock:
+        for k in KERNELS:
+            k.launches = 0
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.lowering import QSCALE_SUFFIX
 from ..core.registry import register_op
 from . import kernels as K
 from .math_ops import amp_operands, amp_out, conv_accum_dtype
@@ -233,7 +234,13 @@ def _lookup_table(ctx):
     ids = ctx.input("Ids")
     w = ctx.input("W")
     flat = ids[..., 0] if ids.dim() >= 2 and ids.shape[-1] == 1 else ids
-    out = F.embedding(flat.long(), w)
+    scale = ctx.env.get(ctx.input_name("W") + QSCALE_SUFFIX)
+    if scale is not None:
+        # an int8 table (serving precision "int8"): dequantize only the
+        # gathered rows with the per-column scales, stored bf16
+        out = (w[flat.long()].float() * scale).to(torch.bfloat16)
+    else:
+        out = F.embedding(flat.long(), w)
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         # the padding row reads (and so trains) as zeros

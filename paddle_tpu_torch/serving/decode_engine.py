@@ -7,25 +7,43 @@ Orca-style iteration-level scheduling over a vLLM-style paged KV cache:
   iteration: every active slot emits one token per step.
 - New requests join the running batch at any iteration boundary as
   others finish (continuous batching, no drain barrier).
-- A request's prompt is written into its slot by a *prefill* before the
-  slot joins the decode batch.  The prefill runs at the prompt's own
-  length: the JAX engine pads prompts to power-of-two buckets so that
-  XLA compiles a few executables, and eager PyTorch needs no buckets.
+- A cold request's prompt is written into its slot by a *prefill*
+  before the slot joins the decode batch.  The prefill runs at the
+  prompt's own length: the JAX engine pads prompts to power-of-two
+  buckets so that XLA compiles a few executables, and eager PyTorch
+  needs no buckets.
 - Per-layer K/V live in paged block pools ``[num_blocks, block_len,
   heads, head_dim]`` on the device, with the host-side `BlockAllocator`
   handing each slot a page-table row (ops/kv_cache_ops.py).  The pools
   are written in place; their dtype follows the model's precision (bf16
   halves the KV bytes).
+- The prefix cache (``prefix_cache_blocks > 0``): a radix tree of full
+  prompt blocks (`PrefixCache`).  A released request's prefill-written
+  full prompt blocks move into the tree instead of the free list; a new
+  request whose prompt starts with a cached path adopts those blocks by
+  reference (`BlockAllocator.incref`).  A hot request runs no prefill:
+  its uncached prompt tail is replayed through the decode step, one
+  token per step, at its own positions, and it emits nothing until the
+  last prompt token's logits give the first generated token.  When the
+  whole prompt is cached, its last block is copied on write (a ``copy_``
+  of each layer's K and V block, ordered on the stream before the
+  replay writes it), since a shared block is never written.  The tree
+  evicts least-recently-used leaves nobody references, and yields its
+  blocks to live traffic under pool pressure (`PrefixCache.evict_for`).
 
 Generation is greedy.  The argmax runs on the device; full logits are
 copied to the host only for requests that ask for them
-(``capture_logits``).
+(``capture_logits``).  Every metric family is the JAX engine's
+(``decode_*``, labelled by ``model``), mounted on the process default
+registry; the flight recorder keeps one record per iteration.
 
-Not ported yet: the prefix cache, ``numerics="exact"``, the compile
-cache, the metrics registry, the flight recorder and trace scopes.
+Refused with a ValueError that names the ROADMAP item:
+``numerics="exact"`` (the port's bitwise contract needs its own design
+under ``torch.use_deterministic_algorithms``) and ``precision="int8"``.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -35,20 +53,43 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import profiler
 from ..io import load_generation_model
 from ..models.transformer import TransformerLM
+from ..observability import MetricsRegistry, default_registry, trace
+from ..observability import flight as _flight
+from ..observability.registry import _LatencyWindow
 from .engine import EngineOverloadedError
+
+
+def _refuse_unported(numerics: str, precision: str):
+    if numerics != "fast":
+        raise ValueError(
+            f"numerics={numerics!r}: the port decodes with 'fast' only; "
+            "'exact' (bitwise decode against the full recompute) is not "
+            "ported yet: ROADMAP queue A item 1 (numerics='exact')")
+    if precision == "int8":
+        raise ValueError(
+            "precision='int8' decode is not ported yet: ROADMAP queue A "
+            "item 1 (int8 decode)")
 
 
 class BlockAllocator:
     """Host-side free list over the KV block pool.  Block ids are
     0..num_blocks-1; ``num_blocks`` itself is the IDLE sentinel a page
     table carries for unmapped pages (writes to it are dropped, reads
-    clamp to the last block — see ops/kv_cache_ops.py)."""
+    clamp to the last block — see ops/kv_cache_ops.py).
+
+    Per-block reference counts let the prefix cache share a committed
+    prompt block between slots: ``incref`` when a slot adopts a cached
+    block, ``decref`` when it lets go.  They count adopting slots only (a
+    block the cache holds idle sits at 0), and ``free`` refuses a block
+    that a slot still references."""
 
     def __init__(self, num_blocks: int):
         self.num_blocks = int(num_blocks)
         self._free = deque(range(self.num_blocks))
+        self._refs: Dict[int, int] = {}
 
     @property
     def available(self) -> int:
@@ -70,7 +111,173 @@ class BlockAllocator:
         for b in blocks:
             if not (0 <= b < self.num_blocks):
                 raise ValueError(f"freeing foreign block {b}")
+            if self._refs.get(b, 0) > 0:
+                raise ValueError(f"freeing block {b} with {self._refs[b]} "
+                                 "live references")
             self._free.append(b)
+
+    def incref(self, block: int) -> int:
+        self._refs[block] = self._refs.get(block, 0) + 1
+        return self._refs[block]
+
+    def decref(self, block: int) -> int:
+        n = self._refs.get(block, 0) - 1
+        if n < 0:
+            raise ValueError(f"decref of unreferenced block {block}")
+        if n == 0:
+            del self._refs[block]
+        else:
+            self._refs[block] = n
+        return n
+
+    def refcount(self, block: int) -> int:
+        return self._refs.get(block, 0)
+
+
+class _PrefixNode:
+    """One full block of prompt tokens: the edge from its parent is the
+    block's ``block_len``-token tuple, and the node owns the pool block
+    that holds those positions' K/V."""
+
+    __slots__ = ("key", "block", "parent", "children", "last_used")
+
+    def __init__(self, key, block, parent):
+        self.key = key
+        self.block = block
+        self.parent = parent
+        self.children: Dict[tuple, "_PrefixNode"] = {}
+        self.last_used = 0.0
+
+
+class PrefixCache:
+    """Radix tree over prompt tokens at block granularity.
+
+    Only prefill-written blocks enter the tree: a hot request's replayed
+    tail is written by the decode step, whose values may differ from the
+    prefill's in the last bits.  The tree holds at most
+    ``capacity_blocks`` pool blocks; it evicts the least recently used
+    leaf whose refcount is 0 (an interior node is pinned by its
+    children), and a full tree with every leaf referenced stops
+    inserting.  The tree lives and dies with its engine, so a reloaded
+    model starts empty."""
+
+    def __init__(self, allocator: BlockAllocator, block_len: int,
+                 capacity_blocks: int):
+        self.allocator = allocator
+        self.block_len = int(block_len)
+        self.capacity_blocks = int(capacity_blocks)
+        self.root = _PrefixNode((), None, None)
+        self.cached_blocks = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def match(self, prompt: Sequence[int]) -> List[_PrefixNode]:
+        """The longest cached path of full prompt blocks (node i holds
+        positions i*L .. (i+1)*L-1); touches the path's LRU clocks."""
+        L = self.block_len
+        path: List[_PrefixNode] = []
+        node = self.root
+        now = time.monotonic()
+        for start in range(0, len(prompt) - L + 1, L):
+            child = node.children.get(tuple(prompt[start:start + L]))
+            if child is None:
+                break
+            child.last_used = now
+            path.append(child)
+            node = child
+        return path
+
+    def adopt(self, path: Sequence[_PrefixNode]) -> List[int]:
+        """Reference the path's blocks for one slot."""
+        for node in path:
+            self.allocator.incref(node.block)
+        return [node.block for node in path]
+
+    def release(self, path: Sequence[_PrefixNode]):
+        for node in path:
+            self.allocator.decref(node.block)
+
+    def insert(self, prompt: Sequence[int], blocks: Sequence[int],
+               committed_blocks: int) -> List[int]:
+        """Take ownership of a released slot's first ``committed_blocks``
+        blocks (its prefill-written full prompt blocks).  Returns the
+        blocks the tree did not take (duplicates of a cached path, or
+        overflow past capacity) for the caller to free."""
+        L = self.block_len
+        rejected: List[int] = []
+        node = self.root
+        now = time.monotonic()
+        for i in range(committed_blocks):
+            key = tuple(prompt[i * L:(i + 1) * L])
+            child = node.children.get(key)
+            if child is not None:
+                # the same tokens at the same positions: keep the
+                # resident block, surrender the duplicate
+                rejected.append(blocks[i])
+                child.last_used = now
+                node = child
+                continue
+            if (self.cached_blocks >= self.capacity_blocks
+                    and not self._evict(protect=node)):
+                rejected.extend(blocks[i:])
+                return rejected
+            child = _PrefixNode(key, blocks[i], node)
+            child.last_used = now
+            node.children[key] = child
+            node = child
+            self.cached_blocks += 1
+        return rejected
+
+    def _leaves(self):
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            for child in node.children.values():
+                if child.children:
+                    stack.append(child)
+                else:
+                    yield child
+
+    def _evict(self, protect: Optional[_PrefixNode] = None) -> bool:
+        """Drop the least recently used refcount-0 leaf and free its
+        block; ``protect`` pins the path being inserted under."""
+        protected = set()
+        node = protect
+        while node is not None:
+            protected.add(id(node))
+            node = node.parent
+        victim = None
+        for leaf in self._leaves():
+            if id(leaf) in protected or self.allocator.refcount(leaf.block):
+                continue
+            if victim is None or leaf.last_used < victim.last_used:
+                victim = leaf
+        if victim is None:
+            return False
+        del victim.parent.children[victim.key]
+        self.allocator.free([victim.block])
+        self.cached_blocks -= 1
+        self.evictions += 1
+        return True
+
+    def evict_for(self, n: int) -> int:
+        """Free up to ``n`` blocks for an admission under pool pressure
+        (cached prefixes yield to live traffic)."""
+        freed = 0
+        while freed < n and self._evict():
+            freed += 1
+        return freed
+
+    def stats(self) -> Dict[str, Any]:
+        lookups = self.hits + self.misses
+        return {"capacity_blocks": self.capacity_blocks,
+                "cached_blocks": self.cached_blocks,
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+                "hit_rate": round(self.hits / lookups, 4) if lookups
+                else None}
 
 
 class GenerateHandle:
@@ -134,7 +341,7 @@ class GenerateHandle:
 
 class _Request:
     __slots__ = ("prompt", "max_new", "eos_id", "deadline", "handle",
-                 "t_submit", "capture_logits")
+                 "t_submit", "trace", "capture_logits")
 
     def __init__(self, prompt, max_new, eos_id, deadline, capture_logits):
         self.prompt = prompt
@@ -144,29 +351,39 @@ class _Request:
         self.capture_logits = capture_logits
         self.handle = GenerateHandle(len(prompt))
         self.t_submit = time.monotonic()
+        self.trace = trace.current_ids()
 
 
 class _Slot:
     __slots__ = ("sid", "req", "blocks", "pos", "tokens", "budget",
-                 "last_token", "t_prev")
+                 "last_token", "t_prev",
+                 # prefix cache: the adopted tree nodes (released at the
+                 # end), the prompt tail still to replay, and how many of
+                 # the slot's own leading blocks are prefill-written full
+                 # prompt blocks (inserted into the tree at the end)
+                 "prefix_path", "replay", "insertable")
 
     def __init__(self, sid: int):
         self.sid = sid
         self.req: Optional[_Request] = None
         self.blocks: List[int] = []
         self.tokens: List[int] = []
+        self.prefix_path: List[_PrefixNode] = []
+        self.replay: deque = deque()
+        self.insertable = 0
 
     @property
     def active(self) -> bool:
         return self.req is not None
 
 
-def _percentiles(samples, scale=1e3) -> Optional[Dict[str, float]]:
-    if not samples:
-        return None
-    a = np.asarray(samples, np.float64) * scale
-    return {"p50": float(np.percentile(a, 50)),
-            "p99": float(np.percentile(a, 99))}
+def _ms(summary, key):
+    return round(summary[key] * 1e3, 3) if summary else None
+
+
+def _p50_p99(summary):
+    return ({"p50": _ms(summary, "p50"), "p99": _ms(summary, "p99")}
+            if summary else None)
 
 
 class DecodeEngine:
@@ -176,8 +393,13 @@ class DecodeEngine:
                  block_len: int = 16, pages_per_slot: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  max_queue_depth: Optional[int] = None,
-                 warmup: bool = False):
+                 warmup: bool = False, numerics: str = "fast",
+                 model_name: str = "default",
+                 prefix_cache_blocks: int = 0):
+        _refuse_unported(numerics, model.precision)
         self.model = model
+        self.model_name = str(model_name)
+        self.numerics = numerics
         self.spec = dict(model.spec)
         self.device = model.device
         self.slots = int(slots)
@@ -191,6 +413,16 @@ class DecodeEngine:
         if num_blocks is None:
             num_blocks = self.slots * self.pages_per_slot
         self.allocator = BlockAllocator(num_blocks)
+        prefix_cache_blocks = int(prefix_cache_blocks)
+        if prefix_cache_blocks >= self.allocator.num_blocks:
+            raise ValueError(
+                f"prefix_cache_blocks={prefix_cache_blocks} must leave "
+                f"room for live traffic in a {self.allocator.num_blocks}"
+                "-block pool")
+        self.prefix_cache = (PrefixCache(self.allocator, self.block_len,
+                                         prefix_cache_blocks)
+                             if prefix_cache_blocks > 0 else None)
+        self._evictions_synced = 0
         self.max_queue_depth = (None if max_queue_depth is None
                                 else int(max_queue_depth))
         self.kv_dtype = str(model.dtype).replace("torch.", "")
@@ -202,33 +434,96 @@ class DecodeEngine:
         self._cv = threading.Condition()
         self._queue: deque = deque()
         self._closed = False
-        # counters and samples; written by the engine thread only
+        # written by the engine thread only
         self._busy_s = 0.0
         self._iterations = 0
         self._prefills = 0
-        self._tokens = 0
-        self._requests = 0
-        self._shed = 0
-        self._expired = 0
-        self._finished: Dict[str, int] = {}
-        self._ttft: List[float] = []
-        self._itl: List[float] = []
-        self._step_s: List[float] = []
+        self._step_s = _LatencyWindow()
+        self._init_metrics()
         if warmup:
-            self.warm()
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                         name="decode-engine")
+            try:
+                self.warm()
+            except BaseException:
+                default_registry().unmount(self.metrics)
+                raise
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True,
+            name=f"decode-engine-{self.model_name}")
         self._thread.start()
+
+    def _init_metrics(self):
+        self.metrics = MetricsRegistry(enabled=True)
+        m, lab = self.metrics, dict(model=self.model_name)
+
+        def series(kind, name, help):
+            return getattr(m, kind)(name, help,
+                                    labelnames=("model",)).labels(**lab)
+
+        self._m_requests = series("counter", "decode_requests_total",
+                                  "generation requests submitted")
+        self._m_tokens = series("counter", "decode_tokens_total",
+                                "tokens emitted across all slots")
+        self._m_iterations = series("counter", "decode_iterations_total",
+                                    "fused decode steps dispatched")
+        self._m_prefills = series("counter", "decode_prefills_total",
+                                  "prompt prefill dispatches")
+        self._m_active = series("gauge", "decode_active_slots",
+                                "slots mid-generation")
+        self._m_queue = series("gauge", "decode_queue_depth",
+                               "requests waiting for a slot")
+        self._m_blocks = series("gauge", "decode_blocks_in_use",
+                                "KV pool blocks allocated")
+        self._m_occupancy = series("histogram", "decode_slot_occupancy",
+                                   "active/total slots per iteration")
+        self._m_ttft = series("histogram", "decode_ttft_seconds",
+                              "submit to first emitted token")
+        self._m_itl = series("histogram", "decode_inter_token_seconds",
+                             "gap between consecutive tokens of one stream")
+        self._m_shed = series("counter", "decode_shed_total",
+                              "submits rejected at the queue bound")
+        self._m_expired = series(
+            "counter", "decode_expired_total",
+            "queued requests whose deadline lapsed before a slot freed")
+        self._m_finished = m.counter(
+            "decode_finished_total", "completed streams by finish reason",
+            labelnames=("model", "reason"))
+        self._m_prefix_hits = series(
+            "counter", "decode_prefix_hits_total",
+            "admitted requests that adopted a cached prompt prefix")
+        self._m_prefix_misses = series(
+            "counter", "decode_prefix_misses_total",
+            "admitted requests with no cached prefix to adopt")
+        self._m_prefix_evictions = series(
+            "counter", "decode_prefix_evictions_total",
+            "prefix-cache blocks evicted (LRU refcount-0 leaves)")
+        self._m_ttft_hot = series(
+            "histogram", "decode_ttft_hot_seconds",
+            "submit to first token for prefix-cache hits (~one decode "
+            "step instead of a prefill)")
+        default_registry().mount(m)
+        default_registry().enable()
+        self.flight = _flight.FlightRecorder(
+            f"decode.{self.model_name}",
+            ("ts", "iteration", "active", "queued", "admitted", "finished",
+             "tokens_total", "step_s"),
+            meta={"model": self.model_name, "slots": self.slots,
+                  "block_len": self.block_len,
+                  "num_blocks": self.allocator.num_blocks,
+                  "numerics": self.numerics})
+        _flight.install_signal_handler()
 
     @classmethod
     def from_model_dir(cls, model_dir: str, params_filename=None,
                        precision: str = "f32", device=None,
+                       model: str = "default", numerics: str = "fast",
                        **kwargs) -> "DecodeEngine":
         """Serve a `save_generation_model` artifact (saved by either
-        package) on ``device`` (the card unless ``"cpu"``)."""
-        model = load_generation_model(model_dir, params_filename,
-                                      precision=precision, device=device)
-        return cls(model, **kwargs)
+        package) on ``device`` (the card unless ``"cpu"``); ``model`` is
+        the name its metric series carry."""
+        _refuse_unported(numerics, precision)
+        lm = load_generation_model(model_dir, params_filename,
+                                   precision=precision, device=device)
+        return cls(lm, numerics=numerics, model_name=model, **kwargs)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -283,11 +578,13 @@ class DecodeEngine:
                 raise RuntimeError("DecodeEngine is closed")
             if (self.max_queue_depth is not None
                     and len(self._queue) >= self.max_queue_depth):
-                self._shed += 1
-                raise EngineOverloadedError("decode", len(self._queue),
+                self._m_shed.inc()
+                raise EngineOverloadedError(self.model_name,
+                                            len(self._queue),
                                             self.max_queue_depth)
             self._queue.append(req)
-            self._requests += 1
+            self._m_requests.inc()
+            self._m_queue.set(len(self._queue))
             self._cv.notify_all()
         return req.handle
 
@@ -303,33 +600,42 @@ class DecodeEngine:
     def stats(self) -> Dict[str, Any]:
         with self._cv:
             queued = len(self._queue)
-            finished = dict(self._finished)
-        tokens = self._tokens
+        tokens = int(self._m_tokens.value)
         busy = self._busy_s
+        occ = self._m_occupancy.summary()
+        prefix = None
+        if self.prefix_cache is not None:
+            prefix = dict(self.prefix_cache.stats())
+            prefix["ttft_hot_ms"] = _p50_p99(self._m_ttft_hot.summary())
+        step = self._step_s.eval() if self._step_s.count else None
         return {
             "slots": self.slots,
             "active_slots": sum(1 for s in self._slots if s.active),
             "queue_depth": queued,
-            "requests": self._requests,
+            "requests": int(self._m_requests.value),
             "tokens_total": tokens,
             "iterations": self._iterations,
             "prefills": self._prefills,
-            "dispatches_per_token": (self._iterations + self._prefills)
-            / max(tokens, 1),
-            "tokens_per_sec": tokens / busy if busy > 0 else None,
-            "ttft_ms": _percentiles(self._ttft),
-            "inter_token_ms": _percentiles(self._itl),
-            "step_ms": _percentiles(self._step_s),
+            "dispatches_per_token": round(
+                (self._iterations + self._prefills) / max(tokens, 1), 4),
+            "tokens_per_sec": round(tokens / busy, 2) if busy > 0 else None,
+            "occupancy_mean": round(occ["mean"], 4) if occ else None,
+            "ttft_ms": _p50_p99(self._m_ttft.summary()),
+            "inter_token_ms": _p50_p99(self._m_itl.summary()),
+            "step_ms": _p50_p99(step),
+            "prefix": prefix,
             "blocks": {"total": self.allocator.num_blocks,
                        "in_use": self.allocator.in_use,
                        "block_len": self.block_len},
+            "numerics": self.numerics,
             "kv_dtype": self.kv_dtype,
-            "shed": self._shed,
-            "expired": self._expired,
-            "finished": finished,
+            "shed": int(self._m_shed.value),
+            "expired": int(self._m_expired.value),
+            "finished": {labels["reason"]: int(series.value)
+                         for labels, series in self._m_finished.items()},
         }
 
-    def close(self, timeout: float = 30.0):
+    def close(self, timeout: float = 30.0, unmount: bool = True):
         """Stop admitting, let active slots finish generating (drain),
         resolve still-queued requests with the shutdown error, and join
         the engine thread."""
@@ -337,6 +643,7 @@ class DecodeEngine:
             self._closed = True
             queued = list(self._queue)
             self._queue.clear()
+            self._m_queue.set(0)
             self._cv.notify_all()
         for req in queued:
             req.handle._emit(("error",
@@ -350,6 +657,8 @@ class DecodeEngine:
                 if req is not None:
                     req.handle._emit(
                         ("error", RuntimeError("DecodeEngine is closed")))
+        if unmount:
+            default_registry().unmount(self.metrics)
 
     def __enter__(self):
         return self
@@ -374,10 +683,22 @@ class DecodeEngine:
                         and not any(s.active for s in self._slots)):
                     return
             try:
-                self._admit()
+                admitted = self._admit()
+                finished = 0
+                t0 = time.perf_counter()
                 if any(s.active for s in self._slots):
-                    self._step()
+                    finished = self._step()
+                self.flight.push((
+                    time.time(), self._iterations,
+                    sum(1 for s in self._slots if s.active),
+                    len(self._queue), admitted, finished,
+                    int(self._m_tokens.value), time.perf_counter() - t0))
             except Exception as e:  # noqa: BLE001 — the thread must survive
+                try:
+                    self.flight.dump(
+                        reason=f"decode driver: {type(e).__name__}")
+                except OSError:
+                    pass
                 # fail every in-flight stream; the engine stays up for
                 # new requests
                 for slot in self._slots:
@@ -396,7 +717,7 @@ class DecodeEngine:
                        if r.deadline is not None and now > r.deadline]
             for req in expired:
                 self._queue.remove(req)
-                self._expired += 1
+                self._m_expired.inc()
                 req.handle._emit(("error", TimeoutError(
                     "deadline expired before a decode slot freed")))
             while self._queue:
@@ -407,37 +728,122 @@ class DecodeEngine:
                 budget = min(head.max_new,
                              self.max_tokens - len(head.prompt))
                 need = -(-(len(head.prompt) + budget) // self.block_len)
-                blocks = self.allocator.alloc(need)
+                # adopt the longest cached prefix by reference, before
+                # any allocation or eviction below can reap it.  A
+                # full-prompt hit splits off its last node to copy on
+                # write: the replay of the last prompt token writes into
+                # that block, and a shared block is never written.
+                path = (self.prefix_cache.match(head.prompt)
+                        if self.prefix_cache is not None else [])
+                cow_node = None
+                if path and len(path) * self.block_len >= len(head.prompt):
+                    cow_node = path[-1]
+                    path = path[:-1]
+                adopted = self.prefix_cache.adopt(path) if path else []
+                if cow_node is not None:
+                    self.allocator.incref(cow_node.block)
+                fresh = need - len(adopted)
+                blocks = self.allocator.alloc(fresh)
+                if blocks is None and self.prefix_cache is not None:
+                    # live traffic beats cached prefixes
+                    self.prefix_cache.evict_for(
+                        fresh - self.allocator.available)
+                    blocks = self.allocator.alloc(fresh)
                 if blocks is None:
+                    if path:
+                        self.prefix_cache.release(path)
+                    if cow_node is not None:
+                        self.allocator.decref(cow_node.block)
                     break            # pool pressure: wait for frees
                 self._queue.popleft()
                 slot.req = head
                 slot.blocks = blocks
                 slot.budget = budget
                 slot.tokens = []
+                n_adopt = len(adopted)
                 row = np.full(self.pages_per_slot, self.allocator.num_blocks,
                               np.int32)
-                row[:len(blocks)] = blocks
+                row[:n_adopt] = adopted
+                row[n_adopt:n_adopt + len(blocks)] = blocks
                 self._pages[slot.sid] = row
-                admitted.append(slot)
-        for slot in admitted:
-            self._prefill(slot)
+                slot.prefix_path = path
+                slot.insertable = 0
+                hot = bool(path) or cow_node is not None
+                if cow_node is not None:
+                    # every prompt position is cached: replay just the
+                    # last prompt token into the copied block
+                    slot.pos = len(head.prompt) - 1
+                    slot.replay = deque(head.prompt[-1:])
+                elif hot:
+                    slot.pos = n_adopt * self.block_len
+                    slot.replay = deque(head.prompt[slot.pos:])
+                else:
+                    slot.replay = deque()      # cold: the prefill covers it
+                if self.prefix_cache is not None:
+                    if hot:
+                        self.prefix_cache.hits += 1
+                        self._m_prefix_hits.inc()
+                    else:
+                        self.prefix_cache.misses += 1
+                        self._m_prefix_misses.inc()
+                admitted.append((slot, cow_node))
+            self._m_queue.set(len(self._queue))
+        for slot, cow_node in admitted:
+            if cow_node is not None:
+                self._cow_copy(cow_node.block, slot.blocks[0])
+                self.allocator.decref(cow_node.block)
+            if slot.replay:
+                # hot: no prefill; the decode step replays the tail
+                slot.t_prev = time.monotonic()
+            else:
+                self._prefill(slot)
+        self._sync_prefix_metrics()
+        self._m_blocks.set(self.allocator.in_use)
+        self._m_active.set(sum(1 for s in self._slots if s.active))
         return len(admitted)
+
+    def _cow_copy(self, src: int, dst: int):
+        """Copy block ``src`` into block ``dst`` in every layer's K and V
+        pool; on the engine's stream, so it lands before the replay's
+        first write to ``dst``."""
+        for k, v in self._pools:
+            k[dst].copy_(k[src])
+            v[dst].copy_(v[src])
+
+    def _sync_prefix_metrics(self):
+        if self.prefix_cache is None:
+            return
+        delta = self.prefix_cache.evictions - self._evictions_synced
+        if delta > 0:
+            self._m_prefix_evictions.inc(delta)
+            self._evictions_synced += delta
+
+    def _trace_scope(self, reqs):
+        ids = tuple(t for r in reqs for t in r.trace)
+        return trace.scope(*ids) if ids else contextlib.nullcontext()
 
     def _prefill(self, slot: _Slot):
         req = slot.req
         t0 = time.perf_counter()
-        logits = self.model.prefill(
-            self._tensor(np.asarray([req.prompt], np.int64)), self._pools,
-            self._tensor(self._pages[slot.sid:slot.sid + 1]),
-            self._tensor(np.array([len(req.prompt)], np.int32)))
-        tok = int(logits[0].argmax())
-        row = logits[0].float().cpu().numpy() if req.capture_logits else None
+        with self._trace_scope([req]), profiler.record_block(
+                "decode.prefill"):
+            logits = self.model.prefill(
+                self._tensor(np.asarray([req.prompt], np.int64)),
+                self._pools,
+                self._tensor(self._pages[slot.sid:slot.sid + 1]),
+                self._tensor(np.array([len(req.prompt)], np.int32)))
+            tok = int(logits[0].argmax())
+            row = (logits[0].float().cpu().numpy() if req.capture_logits
+                   else None)
         self._busy_s += time.perf_counter() - t0
         self._prefills += 1
+        self._m_prefills.inc()
         slot.pos = len(req.prompt)
+        if self.prefix_cache is not None:
+            # only prefill-written blocks are cacheable
+            slot.insertable = len(req.prompt) // self.block_len
         now = time.monotonic()
-        self._ttft.append(now - req.t_submit)
+        self._m_ttft.observe(now - req.t_submit)
         slot.t_prev = now
         self._emit_token(slot, tok, row)
 
@@ -445,7 +851,7 @@ class DecodeEngine:
         req = slot.req
         slot.tokens.append(tok)
         slot.last_token = tok
-        self._tokens += 1
+        self._m_tokens.inc()
         req.handle._emit(("token", len(slot.tokens) - 1, tok,
                           self._iterations, logits))
         # finish checks: EOS, token budget, slot capacity, deadline
@@ -465,45 +871,87 @@ class DecodeEngine:
             self._finish(slot, reason)
 
     def _finish(self, slot: _Slot, reason: str):
-        with self._cv:
-            self._finished[reason] = self._finished.get(reason, 0) + 1
-        slot.req.handle._emit(("done", reason, list(slot.tokens)))
+        self._m_finished.labels(model=self.model_name, reason=reason).inc()
+        req, tokens = slot.req, list(slot.tokens)
+        # release first: a consumer that has its "done" finds the blocks
+        # freed or cached already
         self._release(slot)
+        req.handle._emit(("done", reason, tokens))
+        with self._cv:
+            self._cv.notify_all()   # a freed slot may unblock admission
 
     def _release(self, slot: _Slot):
-        self.allocator.free(slot.blocks)
+        if slot.prefix_path:
+            self.prefix_cache.release(slot.prefix_path)
+        if self.prefix_cache is not None and slot.insertable > 0:
+            # the prefill-written full prompt blocks move into the tree
+            # (refcount 0: idle and evictable, not freed); what it does
+            # not keep goes back with the decode-written tail
+            n = slot.insertable
+            rejected = self.prefix_cache.insert(slot.req.prompt,
+                                                slot.blocks[:n], n)
+            self.allocator.free(list(rejected) + slot.blocks[n:])
+        else:
+            self.allocator.free(slot.blocks)
         self._pages[slot.sid] = self.allocator.num_blocks
         slot.req = None
         slot.blocks = []
         slot.tokens = []
+        slot.prefix_path = []
+        slot.replay = deque()
+        slot.insertable = 0
+        self._sync_prefix_metrics()
+        self._m_blocks.set(self.allocator.in_use)
+        self._m_active.set(sum(1 for s in self._slots if s.active))
 
-    def _step(self):
-        """ONE decode forward advancing every active slot by one token."""
+    def _step(self) -> int:
+        """ONE decode forward advancing every active slot by one token
+        (a hot slot still replaying its prompt tail writes that token's
+        K/V and emits nothing).  Returns the streams it finished."""
         active = [s for s in self._slots if s.active]
         tokens = np.zeros(self.slots, np.int64)
         index = np.zeros(self.slots, np.int32)
         for s in active:
-            tokens[s.sid] = s.last_token
+            tokens[s.sid] = s.replay[0] if s.replay else s.last_token
             index[s.sid] = s.pos
         t0 = time.perf_counter()
-        logits = self.model.decode(self._tensor(tokens), self._pools,
-                                   self._tensor(self._pages),
-                                   self._tensor(index))
-        next_tokens = logits.argmax(dim=-1).cpu().numpy()
-        rows = (logits.float().cpu().numpy()
-                if any(s.req.capture_logits for s in active) else None)
+        with self._trace_scope([s.req for s in active]), \
+                profiler.record_block("decode.step"):
+            logits = self.model.decode(self._tensor(tokens), self._pools,
+                                       self._tensor(self._pages),
+                                       self._tensor(index))
+            next_tokens = logits.argmax(dim=-1).cpu().numpy()
+            rows = (logits.float().cpu().numpy()
+                    if any(s.req.capture_logits for s in active) else None)
         dt = time.perf_counter() - t0
         self._busy_s += dt
-        self._step_s.append(dt)
+        self._step_s.update(dt)
         self._iterations += 1
+        self._m_iterations.inc()
+        self._m_occupancy.observe(len(active) / self.slots)
+        finished_before = sum(1 for s in self._slots if not s.active)
         now = time.monotonic()
         for s in active:
             s.pos += 1
-            self._itl.append(now - s.t_prev)
+            row = rows[s.sid].copy() if s.req.capture_logits else None
+            if s.replay:
+                s.replay.popleft()
+                if s.replay:
+                    # mid-replay: no emission, but a lapsed deadline
+                    # still ends the stream
+                    if (s.req.deadline is not None
+                            and now > s.req.deadline):
+                        self._finish(s, "deadline")
+                    continue
+                # the last prompt token's logits are the first token's
+                self._m_ttft.observe(now - s.req.t_submit)
+                self._m_ttft_hot.observe(now - s.req.t_submit)
+            else:
+                self._m_itl.observe(now - s.t_prev)
             s.t_prev = now
-            self._emit_token(s, int(next_tokens[s.sid]),
-                             rows[s.sid].copy() if s.req.capture_logits
-                             else None)
+            self._emit_token(s, int(next_tokens[s.sid]), row)
+        return sum(1 for s in self._slots
+                   if not s.active) - finished_before
 
 
 # ---------------------------------------------------------------------------
