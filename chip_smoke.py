@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-12
+    python3 chip_smoke.py             # the smoke run, phases 1-13
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
     python3 chip_smoke.py --lstm      # phase 1, recurrent phase 3, 9, 10
     python3 chip_smoke.py --ln        # phase 1, LayerNorm phase 3
+    python3 chip_smoke.py --decode-modes  # phase 1, the row-stable
+                                      # product's phase 3, phase 13
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -28,7 +30,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flash, LayerNorm, BatchNorm and recurrent backward kernels and the GRU
    forward must repeat bit for bit, and the flash, LSTM and GRU libraries
    must hold tensor-core instructions (HMMA in cuobjdump -sass), the GRU
-   forward kernel in its own machine code;
+   forward kernel in its own machine code; the row-stable product of
+   exact decode must equal its plain version bit for bit at the exact
+   LM's shapes (M 4, 2048, 8192) and give a row the same bits at M 1 and
+   8192 (cuBLAS's addmm is recorded for the same row);
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
    768, 12 heads, d_ff 3072; seeded random weights saved as a model
    directory and loaded through DecodeEngine.from_model_dir) in bf16
@@ -93,6 +98,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    must drain, and the KV allocator must be back to its baseline after
    close.  It prints tokens/s, TTFT cold and hot, the decode step, infer
    requests/s, latency and batch fill beside the card's name;
+13. the decode modes and the hot-row cache, at full width.  Exact decode:
+   the LM in f32 with numerics="exact", 4 slots over the whole 2048-token
+   span, a prefix cache; prompts of 17, 300, 1000 and 1900 tokens, 8 new
+   tokens each, then the 1000-token prompt again: every token's logits
+   bitwise greedy_decode_full(numerics="exact"), the hot stream's bitwise
+   the cold one's; the flash forward, LayerNorm forward and row-stable
+   product launched.  int8 decode: 8 requests of 64 new tokens on 8
+   slots, two streams against the int8 full recompute by phase 4's rule;
+   paged attention, the flash forward and the LayerNorm forward launched;
+   tokens/s and step p50 beside phase 4's.  The recommender of
+   bench.py:788-810 (V 100000, D 64, T 64, sequence_pool sum, fc 128
+   relu, fc 2 softmax), saved by the port, 200 requests of batch 64 with
+   Zipf(1.1) ids: a 25000-row hot-row cache's replies bitwise the
+   uncached predictor's, in f32 and int8; then a registry apply_deltas of
+   1000 rows (written in the JAX chain format by write_row_delta) bitwise
+   a fresh load of the patched model; hit rate, promotions and requests/s
+   cached and uncached.  Launch counts are zeroed before and read after
+   each decode run;
 then a JSON line with every ported kernel's launches, error and times,
 the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
@@ -102,7 +125,8 @@ checks and timings of phase 3, and phase 4; with --resnet phase 1, the
 BatchNorm backward's checks and timings and phase 7; with --lstm phase 1,
 the LSTM and GRU checks and timings and phases 9 and 10; with --ln phase
 1 and the LayerNorm forward and backward checks and timings; with
---frontdoor phase 1 and phase 12.  Each prints its
+--frontdoor phase 1 and phase 12; with --decode-modes phase 1, the
+row-stable product's phase 3 and phase 13.  Each prints its
 results as one JSON line (no result line): run from two checkouts in
 turns, it compares two versions of those kernels on one card.  In these
 modes a recurrent kernel that refuses a width it should place is
@@ -916,6 +940,79 @@ def check_softmax_xent(rec_fwd, rec_bwd):
                     2 * r * v * 4 + 3 * r * 4, 4 * r * v, dn, shape)
 
 
+#: the row-stable product's cases: the exact LM's products (FULL_WIDTH,
+#: 4 slots) at decode's M = 4, prefill's M = 2048 and the recompute's
+#: M = 4 x 2048, as (M, K, N, label); the timed one is the recompute's
+#: first FFN product
+MM_CASES = [(4, 768, 2304, "decode QKV"), (4, 3072, 768, "decode FFN2"),
+            (4, 768, 32000, "decode head"), (2048, 768, 3072,
+                                             "prefill FFN1"),
+            (8192, 768, 2304, "recompute QKV"),
+            (8192, 768, 3072, "recompute FFN1"),
+            (8192, 3072, 768, "recompute FFN2"), (5, 12, 8, "ragged")]
+MM_TIMED = "recompute FFN1"
+MM_TIMED_DECODE = "decode head"
+
+
+def check_row_stable_mm(rec):
+    """The exact mode's product against its plain version, bit for bit
+    (the plain version does the kernel's arithmetic: each multiply and
+    add rounded on its own, k in order), at every MM_CASES shape; a row
+    must give the same bits at M = 1 and inside M = 8192.  Timed at
+    MM_TIMED beside cuBLAS's addmm (TF32 off), whose bits for one row at
+    M = 1 and inside M = 8192 are recorded too: the reason the kernel
+    exists."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cpu").manual_seed(17)
+    dev = torch.device("cuda")
+    for m, k, n, label in MM_CASES:
+        x = torch.randn(m, k, generator=g).to(dev)
+        w = (torch.randn(k, n, generator=g) / math.sqrt(k)).to(dev)
+        b = (0.1 * torch.randn(n, generator=g)).to(dev)
+        out = K.row_stable_mm(x, w, b)
+        ref = K.row_stable_mm_plain(x, w, b)
+        torch.cuda.synchronize()
+        differ = int((out != ref).sum())
+        err = float((out - ref).abs().max())
+        print(f"  row_stable_mm {label} M{m} K{k} N{n}: {differ} elements "
+              f"differ from the plain version (max_abs_err {err:.3e}; "
+              "the tolerance is bitwise)", flush=True)
+        if differ:
+            raise AssertionError(f"row_stable_mm {label}: not bitwise its "
+                                 "plain version")
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        rec["limit_share"] = 0.0
+        if m == 8192:
+            one = K.row_stable_mm(x[4321:4322].contiguous(), w, b)
+            lib_all = torch.addmm(b, x, w)
+            lib_one = torch.addmm(b, x[4321:4322], w)
+            torch.cuda.synchronize()
+            if not torch.equal(one[0], out[4321]):
+                raise AssertionError(f"row_stable_mm {label}: row 4321 "
+                                     "differs between M=1 and M=8192")
+            same = bool(torch.equal(lib_one[0], lib_all[4321]))
+            rec.setdefault("addmm_row_same_bits", {})[label] = same
+            print(f"    row 4321 at M=1 and inside M=8192: kernel same "
+                  f"bits; torch.addmm (cuBLAS, TF32 off) "
+                  f"{'same bits' if same else 'DIFFERENT bits'} (max "
+                  f"{float((lib_one[0] - lib_all[4321]).abs().max()):.3e})",
+                  flush=True)
+        if label == MM_TIMED:
+            _kernel_times(rec, lambda: K.row_stable_mm(x, w, b),
+                          lambda: K.row_stable_mm_plain(x, w, b),
+                          lambda: torch.addmm(b, x, w),
+                          4 * (m * k + k * n + n + m * n), 2 * m * n * k,
+                          "float32", f"M{m} K{k} N{n} f32", plain_iters=2)
+        if label == MM_TIMED_DECODE:
+            rec["decode"] = _kernel_times(
+                {}, lambda: K.row_stable_mm(x, w, b),
+                lambda: K.row_stable_mm_plain(x, w, b),
+                lambda: torch.addmm(b, x, w),
+                4 * (m * k + k * n + n + m * n), 2 * m * n * k, "float32",
+                f"M{m} K{k} N{n} f32", plain_iters=2)
+
+
 def _recurrent_inputs(gates, t, b, h, lens, reverse, g):
     """Seeded inputs of a recurrent kernel on the card: xs, w (f32), h0,
     c0, the [T, B, 1] mask of ``lens`` ("full" or "ragged": seeded lengths
@@ -1285,8 +1382,8 @@ def serve(seed=0):
     max_new = 64
     steps = []               # each decode step's (tokens, pages, index)
     decode = engine.model.decode
-    engine.model.decode = lambda *a: (steps.append((a[0], a[2], a[3])),
-                                      decode(*a))[1]
+    engine.model.decode = lambda *a, **k: (
+        steps.append((a[0], a[2], a[3])), decode(*a, **k))[1]
     try:
         K.reset_launches()
         t0 = time.perf_counter()
@@ -1361,6 +1458,8 @@ def _match_full_recompute(model, prompt, result, label, n_check=8):
 
 #: groups of the decode-step profile, by kernel name
 DECODE_GROUPS = {"paged attention": ("paged_",),
+                 "flash forward": ("flash_fwd",),
+                 "row-stable products": ("row_stable",),
                  "LayerNorm": ("ln_fwd",),
                  "library products": ("xmma", "gemm", "gemv", "cutlass",
                                       "nvjet", "splitk")}
@@ -1382,7 +1481,8 @@ def profile_decode_step(engine, steps, iters=20):
     model, pools = engine.model, engine._pools
 
     def step():
-        logits = model.decode(tokens, pools, pages, index)
+        logits = model.decode(tokens, pools, pages, index,
+                              **engine._exact_kw)
         return logits.argmax(dim=-1).cpu()
 
     with torch.inference_mode():
@@ -1814,6 +1914,354 @@ def frontdoor(seed=0, device="cuda"):
           f"against CPU {f32_err:.3e}; bf16 wire against CPU f32 "
           f"{bf16_err:.3e} (not a check: bf16 precision)", flush=True)
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: exact and int8 decode, the hot-row cache and live row deltas
+# ---------------------------------------------------------------------------
+
+#: exact decode: FULL_WIDTH in f32, DM_SLOTS slots of DM_BLOCK_LEN-token
+#: blocks over the whole max_len span, a DM_PREFIX_BLOCKS-block prefix
+#: cache; prompts of DM_EXACT_PROMPTS tokens, DM_EXACT_NEW new tokens
+#: each, then prompt DM_HOT again (a prefix-cache hit)
+DM_SLOTS, DM_BLOCK_LEN, DM_PREFIX_BLOCKS = 4, 16, 256
+DM_EXACT_PROMPTS, DM_EXACT_NEW, DM_HOT = (17, 300, 1000, 1900), 8, 2
+#: int8 decode: DM_INT8_REQUESTS requests with prompts of DM_INT8_PROMPT
+#: tokens and DM_INT8_NEW new tokens each on DM_INT8_SLOTS slots; the
+#: streams DM_INT8_CHECKED are recomputed through the int8 full model
+DM_INT8_REQUESTS, DM_INT8_NEW, DM_INT8_SLOTS = 8, 64, 8
+DM_INT8_PROMPT = (8, 512)
+DM_INT8_CHECKED = (0, 5)
+#: the kernels each decode mode must launch
+DM_KERNELS = {"exact": ("flash_attention_fwd", "layer_norm_fwd",
+                        "row_stable_mm"),
+              "int8": ("paged_attention", "flash_attention_fwd",
+                       "layer_norm_fwd")}
+#: the recommender of bench.py:788-810 (table V x D, T ids a row,
+#: sequence_pool sum, fc 128 relu, fc 2 softmax) served at batch
+#: REC_BATCH with Zipf(REC_ZIPF) ids clipped to V (bench.py:814),
+#: REC_REQUESTS requests, a V/4-row hot-row cache; REC_INT8_REQUESTS of
+#: them through the int8 predictors; a delta of REC_DELTA_ROWS rows, half
+#: of them among the REC_DELTA_ROWS // 2 hottest ids, checked on
+#: REC_DELTA_REQUESTS requests.  Each cached predictor first serves
+#: REC_WARM_REQUESTS other requests of the same traffic, untimed: the
+#: cache promotes every 512 lookups (the JAX default), so the timed
+#: requests see its steady state
+REC_V, REC_D, REC_T = 100_000, 64, 64
+REC_BATCH, REC_ZIPF, REC_REQUESTS, REC_INT8_REQUESTS = 64, 1.1, 200, 50
+REC_CACHE_ROWS, REC_DELTA_ROWS, REC_DELTA_REQUESTS = REC_V // 4, 1000, 50
+REC_WARM_REQUESTS = 520
+
+
+def _exact_decode(model_dir, seed, device, sync):
+    """Exact decode at FULL_WIDTH: every token's logits bitwise the exact
+    full recompute's, a hot stream's bitwise its cold stream's."""
+    import numpy as np
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving.decode_engine import (DecodeEngine,
+                                                        greedy_decode_full)
+    t0 = time.perf_counter()
+    engine = DecodeEngine.from_model_dir(
+        model_dir, precision="f32", numerics="exact", slots=DM_SLOTS,
+        block_len=DM_BLOCK_LEN, prefix_cache_blocks=DM_PREFIX_BLOCKS,
+        warmup=True, device=device)
+    sync()
+    print(f"  exact engine loaded and warm: {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    rng = np.random.default_rng(seed + 13)
+    vocab = FULL_WIDTH["vocab"]
+    prompts = [rng.integers(0, vocab, n).tolist() for n in DM_EXACT_PROMPTS]
+    steps = []               # each decode step's (tokens, pages, index)
+    decode = engine.model.decode
+    engine.model.decode = lambda *a, **k: (
+        steps.append((a[0], a[2], a[3])), decode(*a, **k))[1]
+    try:
+        sync()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        cold = [h.result(timeout=900) for h in [
+            engine.submit(p, DM_EXACT_NEW, capture_logits=True)
+            for p in prompts]]
+        hot = engine.submit(prompts[DM_HOT], DM_EXACT_NEW,
+                            capture_logits=True).result(timeout=900)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in K.KERNELS}
+        stats = engine.stats()
+    finally:
+        engine.close()
+        del engine.model.decode
+    print(f"  exact: {len(prompts)} cold streams and one hot of "
+          f"{DM_EXACT_NEW} tokens in {wall:.3f} s; step ms "
+          f"{stats['step_ms']}, prefills {stats['prefills']}, prefix "
+          f"{stats['prefix']}; launches {launches}", flush=True)
+    for name in DM_KERNELS["exact"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"exact decode never launched {name}")
+    if stats["prefix"]["hits"] != 1:
+        raise AssertionError(f"the repeated prompt missed the prefix cache: "
+                             f"{stats['prefix']}")
+    if hot["tokens"] != cold[DM_HOT]["tokens"] or not all(
+            np.array_equal(a, b) for a, b in zip(hot["logits"],
+                                                 cold[DM_HOT]["logits"])):
+        raise AssertionError("the hot stream's logits are not bitwise the "
+                             "cold stream's")
+    t0 = time.perf_counter()
+    full = greedy_decode_full(engine.model, prompts, DM_EXACT_NEW,
+                              capture_logits=True, numerics="exact")
+    sync()
+    full_s = time.perf_counter() - t0
+    compared = 0
+    for i, r in enumerate(cold):
+        if len(r["logits"]) != DM_EXACT_NEW or \
+                r["tokens"] != full["tokens"][i]:
+            raise AssertionError(f"exact stream {i} tokens differ from the "
+                                 "exact full recompute")
+        for step, a in enumerate(r["logits"]):
+            b = full["logits"][step][i]
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"exact stream {i} (prompt {len(prompts[i])}) token "
+                    f"{step}: logits differ from the exact full recompute "
+                    f"by up to {float(np.abs(a - b).max()):.3e}")
+            compared += 1
+    print(f"  exact: {compared} tokens of {len(prompts)} streams (prompts "
+          f"{list(DM_EXACT_PROMPTS)}) bitwise the exact full recompute "
+          f"(its {DM_EXACT_NEW} steps at [{len(prompts)}, "
+          f"{FULL_WIDTH['max_len']}] took {full_s:.2f} s); the hot stream "
+          "bitwise the cold one", flush=True)
+    profile = profile_decode_step(engine, steps)
+    return launches, {"wall_s": wall, "step_ms": stats["step_ms"],
+                      "tokens_bitwise": compared,
+                      "full_recompute_s": full_s,
+                      "prefix_hits": stats["prefix"]["hits"],
+                      "decode_step_profile": profile}
+
+
+def _int8_decode(model_dir, seed, device, sync):
+    """int8 decode at FULL_WIDTH: two streams against the int8 full
+    recompute by phase 4's rule."""
+    import numpy as np
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving.decode_engine import DecodeEngine
+    engine = DecodeEngine.from_model_dir(
+        model_dir, precision="int8", slots=DM_INT8_SLOTS,
+        block_len=DM_BLOCK_LEN, warmup=True, device=device)
+    rng = np.random.default_rng(seed + 19)
+    prompts = [rng.integers(0, FULL_WIDTH["vocab"], n).tolist()
+               for n in rng.integers(DM_INT8_PROMPT[0], DM_INT8_PROMPT[1] + 1,
+                                     DM_INT8_REQUESTS)]
+    try:
+        sync()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        results = [h.result(timeout=900) for h in [
+            engine.submit(p, DM_INT8_NEW,
+                          capture_logits=i in DM_INT8_CHECKED)
+            for i, p in enumerate(prompts)]]
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in K.KERNELS}
+        stats = engine.stats()
+    finally:
+        engine.close()
+    n_tok = sum(len(r["tokens"]) for r in results)
+    if any(len(r["tokens"]) != DM_INT8_NEW for r in results):
+        raise AssertionError("an int8 stream ended early")
+    for name in DM_KERNELS["int8"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"int8 decode never launched {name}")
+    print(f"  int8: {DM_INT8_REQUESTS} requests, {n_tok} tokens in "
+          f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s; step ms "
+          f"{stats['step_ms']}; KV {stats['kv_dtype']}; launches "
+          f"{launches}", flush=True)
+    for i in DM_INT8_CHECKED:
+        _match_full_recompute(engine.model, prompts[i], results[i],
+                              f"int8 stream {i}")
+    return launches, {"tokens_per_s": n_tok / wall,
+                      "step_ms": stats["step_ms"],
+                      "ttft_ms": stats["ttft_ms"]}
+
+
+def _save_recommender(model_dir, seed, table=None):
+    """The recommender, saved by the port: startup weights at ``seed``,
+    the embedding table replaced by ``table`` when given.  Returns
+    (table name, the table as saved)."""
+    import shutil
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio, layers
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    shutil.rmtree(model_dir, ignore_errors=True)
+    main, startup, scope = fluid.Program(), fluid.Program(), Scope()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard(), \
+            scope_guard(scope):
+        words = layers.data(name="words", shape=[1], dtype="int64",
+                            lod_level=1)
+        emb = layers.embedding(input=words, size=[REC_V, REC_D],
+                               is_sparse=True, is_distributed=True)
+        pooled = layers.sequence_pool(emb, pool_type="sum")
+        h = layers.fc(input=pooled, size=128, act="relu")
+        pred = layers.fc(input=h, size=2, act="softmax")
+        startup.random_seed = seed
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup)
+        name = next(op.desc.inputs["W"][0] for op in main.global_block().ops
+                    if op.type == "lookup_table")
+        if table is not None:
+            scope.set(name, torch.from_numpy(np.asarray(table)))
+        pio.save_inference_model(model_dir, ["words"], [pred], exe,
+                                 main_program=main)
+        return name, np.asarray(scope.get(name).cpu())
+
+
+def _hot_rows(root, seed, device, sync):
+    """The recommender behind the hot-row cache: replies bitwise the
+    uncached predictor's in f32 and in int8, and a registry delta of
+    REC_DELTA_ROWS rows bitwise a fresh load of the patched model."""
+    import numpy as np
+    from paddle_tpu_torch.serving import ModelRegistry, Predictor
+    from paddle_tpu_torch.serving.registry import write_row_delta
+    model_dir = os.path.join(root, "recommender")
+    t0 = time.perf_counter()
+    table_name, table = _save_recommender(model_dir, seed)
+    rng = np.random.default_rng(seed + 29)
+
+    def requests(n):
+        return [{"words": (np.minimum(rng.zipf(REC_ZIPF, (REC_BATCH, REC_T)),
+                                      REC_V) - 1).astype(np.int64),
+                 "words@SEQ_LEN": np.full((REC_BATCH,), REC_T, np.int32)}
+                for _ in range(n)]
+    feeds, warm = requests(REC_REQUESTS), requests(REC_WARM_REQUESTS)
+    print(f"  recommender saved, {REC_REQUESTS} + {REC_WARM_REQUESTS} "
+          f"requests made: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def serve(pred, n):
+        """Replies and requests/s of the first ``n`` timed requests, after
+        the warm-up; and the cache's hit rate over the timed ones."""
+        caches = list(pred._row_caches.values())
+        for f in (warm if caches else warm[:1]):
+            pred.run(f)          # set-up, and the cache's promotions
+        sync()
+        seen = [(c.hits, c.misses) for c in caches]
+        t0 = time.perf_counter()
+        outs = [pred.run(f)[0] for f in feeds[:n]]
+        rps = n / (time.perf_counter() - t0)
+        hit_rate = [round((c.hits - h) / max(1, c.hits + c.misses - h - m),
+                          4) for c, (h, m) in zip(caches, seen)]
+        return outs, rps, hit_rate
+
+    plain = Predictor.from_model_dir(model_dir, device=device)
+    cached = Predictor.from_model_dir(model_dir, device=device,
+                                      embedding_cache_rows=REC_CACHE_ROWS)
+    want, plain_rps, _ = serve(plain, REC_REQUESTS)
+    got, cached_rps, (timed_hit_rate,) = serve(cached, REC_REQUESTS)
+    (cstats,) = cached.stats()["embedding_cache"].values()
+    if not all(a.tobytes() == b.tobytes() for a, b in zip(got, want)):
+        raise AssertionError("cached replies are not bitwise the uncached "
+                             "predictor's")
+    del plain, cached
+    want8 = serve(Predictor.from_model_dir(model_dir, device=device,
+                                           precision="int8"),
+                  REC_INT8_REQUESTS)[0]
+    got8 = serve(Predictor.from_model_dir(
+        model_dir, device=device, precision="int8",
+        embedding_cache_rows=REC_CACHE_ROWS), REC_INT8_REQUESTS)[0]
+    if not all(a.tobytes() == b.tobytes() for a, b in zip(got8, want8)):
+        raise AssertionError("int8 cached replies are not bitwise the int8 "
+                             "uncached predictor's")
+    print(f"  hot rows: {REC_REQUESTS} requests of {REC_BATCH}x{REC_T} ids "
+          f"bitwise cached and uncached ({REC_INT8_REQUESTS} in int8 too); "
+          f"requests/s uncached {plain_rps:.1f}, cached {cached_rps:.1f}; "
+          f"hit rate {timed_hit_rate} over the timed requests "
+          f"({cstats['hit_rate']} with the warm-up), promotions "
+          f"{cstats['promotions']}, cache {cstats['device_bytes']} B on the "
+          f"card, table {cstats['host_bytes']} B on the host", flush=True)
+
+    reg = ModelRegistry(device=device)
+    try:
+        reg.load("rec", model_dir, embedding_cache_rows=REC_CACHE_ROWS,
+                 warmup=[])
+        live = reg.get("rec").predictor
+        for f in warm:
+            live.run(f)                     # promote the hot head
+        half = REC_DELTA_ROWS // 2
+        rows = np.concatenate([np.arange(half), rng.choice(
+            np.arange(half, REC_V), REC_DELTA_ROWS - half, replace=False)])
+        values = (table[rows] + rng.normal(0, 0.5, (rows.size, REC_D))
+                  ).astype(np.float32)
+        resident = int((live._row_caches[table_name]._slot_of[rows]
+                        >= 0).sum())
+        write_row_delta(model_dir, {table_name: (rows, values)}, step=1)
+        t0 = time.perf_counter()
+        res = reg.apply_deltas("rec")
+        apply_s = time.perf_counter() - t0
+        if not res["applied"] or res["rows"] != REC_DELTA_ROWS:
+            raise AssertionError(f"apply_deltas: {res}")
+        patched = table.copy()
+        patched[rows] = values
+        _save_recommender(os.path.join(root, "recommender_patched"), seed,
+                          patched)
+        fresh = Predictor.from_model_dir(
+            os.path.join(root, "recommender_patched"), device=device)
+        moved = 0
+        for i, f in enumerate(feeds[:REC_DELTA_REQUESTS]):
+            a, b = live.run(f)[0], fresh.run(f)[0]
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"request {i} after apply_deltas is "
+                                     "not bitwise a fresh load of the "
+                                     "patched model")
+            moved += int(a.tobytes() != want[i].tobytes())
+        if not moved:
+            raise AssertionError("the delta changed no reply")
+    finally:
+        reg.close()
+    print(f"  deltas: apply_deltas of {REC_DELTA_ROWS} rows ({resident} "
+          f"resident in the cache) in {apply_s * 1e3:.1f} ms; "
+          f"{REC_DELTA_REQUESTS} replies bitwise a fresh load of the "
+          f"patched model, {moved} changed",
+          flush=True)
+    return {"cached_requests_per_s": cached_rps,
+            "uncached_requests_per_s": plain_rps,
+            "hit_rate_timed": timed_hit_rate,
+            "hit_rate": cstats["hit_rate"],
+            "promotions": cstats["promotions"],
+            "cache_device_bytes": cstats["device_bytes"],
+            "table_host_bytes": cstats["host_bytes"],
+            "delta_rows": REC_DELTA_ROWS, "delta_resident_rows": resident,
+            "delta_apply_ms": apply_s * 1e3, "delta_replies_changed": moved}
+
+
+def decode_modes(seed=0, device="cuda", bf16=None):
+    """Phase 13: exact decode, int8 decode and the recommender behind the
+    hot-row cache with a live delta, at full width.  ``bf16`` is phase
+    4's result, printed beside int8's.  Returns (launches summed over the
+    two decode runs, results)."""
+    import torch
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    root = os.path.join(HERE, "build", "decode_modes")
+    os.makedirs(root, exist_ok=True)
+    model_dir = os.path.join(root, "lm")
+    t0 = time.perf_counter()
+    _save_model(model_dir, dict(FULL_WIDTH), seed)
+    print(f"  full-width LM saved: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ex_launches, exact = _exact_decode(model_dir, seed, device, sync)
+    i8_launches, int8 = _int8_decode(model_dir, seed, device, sync)
+    if bf16 is not None:
+        print(f"  int8 {int8['tokens_per_s']:.1f} tokens/s, step ms "
+              f"{int8['step_ms']}; phase 4 bf16 {bf16['tokens_per_s']:.1f} "
+              f"tokens/s, step ms {bf16['step_ms']} (other traffic: 32 "
+              "requests on 16 slots)", flush=True)
+    hot = _hot_rows(root, seed, device, sync)
+    launches = {k: ex_launches[k] + i8_launches[k] for k in ex_launches}
+    return launches, {"exact": exact, "int8": int8, "hot_rows": hot,
+                      "launches_exact": {k: ex_launches[k]
+                                         for k in DM_KERNELS["exact"]},
+                      "launches_int8": {k: i8_launches[k]
+                                        for k in DM_KERNELS["int8"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -2296,6 +2744,19 @@ def frontdoor_ab(smi):
     return {"frontdoor": frontdoor()[1]}
 
 
+def decode_modes_ab(smi):
+    """``--decode-modes``: the row-stable product's phase 3 checks and
+    timings, then phase 13 (exact and int8 decode, the hot-row cache and
+    live deltas)."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("paged_attention", "flash_attention", "layer_norm",
+                      "row_stable_mm"))
+    recs = {"row_stable_mm": {}}
+    check_row_stable_mm(recs["row_stable_mm"])
+    recs["decode_modes"] = decode_modes()[1]
+    return recs
+
+
 def ln_ab(smi):
     """``--ln``: the LayerNorm forward and backward kernels' phase 3
     checks and timings only."""
@@ -2312,7 +2773,8 @@ def ln_ab(smi):
 #: (parent, change, change, parent), it compares two versions of those
 #: kernels on one card
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
-            "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab}
+            "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
+            "--decode-modes": decode_modes_ab}
 
 
 def main(argv=()):
@@ -2365,6 +2827,7 @@ def main(argv=()):
     check_batch_norm_bwd(recs["batch_norm_bwd"])
     for kind in ("lstm", "gru"):
         check_recurrent(kind, recs[f"{kind}_fwd"], recs[f"{kind}_bwd"])
+    check_row_stable_mm(recs["row_stable_mm"])
 
     print(f"phase 4: DecodeEngine, {FULL_WIDTH['n_layers']}-layer d768 LM, "
           "bf16", flush=True)
@@ -2416,6 +2879,12 @@ def main(argv=()):
     fd_launches, fd_e2e = frontdoor()
     print(f"  end to end ({smi}): {json.dumps(fd_e2e)}", flush=True)
 
+    print("phase 13: exact and int8 decode of the full-width LM, the "
+          "recommender behind the hot-row cache with a live delta",
+          flush=True)
+    dm_launches, dm_e2e = decode_modes(bf16=e2e)
+    print(f"  end to end ({smi}): {json.dumps(dm_e2e)}", flush=True)
+
     kernels = []
     for k in K.KERNELS:
         r = recs[k.name]
@@ -2426,9 +2895,10 @@ def main(argv=()):
             "launches": (serve_launches[k.name] + train_launches[k.name]
                          + resnet_launches[k.name]
                          + seq["lstm"][0][k.name] + seq["gru"][0][k.name]
-                         + fd_launches[k.name]),
+                         + fd_launches[k.name] + dm_launches[k.name]),
             "launches_serving": serve_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
+            "launches_decode_modes": dm_launches[k.name],
             "launches_training": (train_launches[k.name]
                                   + resnet_launches[k.name]
                                   + seq["lstm"][0][k.name]
@@ -2450,10 +2920,12 @@ def main(argv=()):
                if k.name + "_kernel" in hmma else {}),
             **({"bitwise_repeat": r["bitwise_repeat"]}
                if "bitwise_repeat" in r else {}),
+            **({"addmm_row_same_bits": r["addmm_row_same_bits"]}
+               if "addmm_row_same_bits" in r else {}),
             **({"training_shape": r["training"]} if "training" in r
                else {}),
             **{key: r[key] for key in ("f32_w", "bf16_w", "bf16",
-                                       "chunked_rows") if key in r}})
+                                       "chunked_rows", "decode") if key in r}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

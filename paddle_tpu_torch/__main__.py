@@ -5,7 +5,10 @@ of ``paddle_tpu/__main__.py``; the serving verbs only):
                         newline-JSON wire: --model NAME=DIR (repeatable)
                         mounts more models behind one port; a model whose
                         artifact ships __generation__.json also answers
-                        ``generate`` through a DecodeEngine.  Runs on the
+                        ``generate`` through a DecodeEngine
+                        (--decode-numerics fast|exact); lookup-only
+                        tables can be served through a hot-row cache
+                        (--embedding-cache-rows N).  Runs on the
                         card unless --device cpu.  SIGTERM or SIGINT (or
                         the ``shutdown`` verb) drains in-flight requests,
                         then prints the engines' stats as one JSON line
@@ -56,6 +59,7 @@ def cmd_serve(args):
         "block_len": args.decode_block_len,
         "num_blocks": args.decode_blocks,
         "prefix_cache_blocks": args.decode_prefix_cache_blocks,
+        "numerics": args.decode_numerics,
         "max_queue_depth": args.max_queue_depth,
         "warmup": True,
     }
@@ -64,7 +68,8 @@ def cmd_serve(args):
         entry = registry.load(name, d, params_filename=args.params_filename,
                               transpile=not args.no_transpile,
                               engine_opts=engine_opts, warmup=warm,
-                              precision=args.precision, decode=decode)
+                              precision=args.precision, decode=decode,
+                              embedding_cache_rows=args.embedding_cache_rows)
         pred, eng = entry.predictor, entry.engine
         print(f"loaded model {name!r} from {d} "
               f"(feeds={pred.feed_names} fetch={pred.fetch_names} "
@@ -195,8 +200,17 @@ def main(argv=None):
                    choices=["f32", "bf16", "int8"],
                    help="serving precision: bf16 casts the weights and "
                         "the activation stream; int8 also quantizes "
-                        "eligible matrices (per-column absmax scales); "
-                        "the decode engine takes f32 and bf16")
+                        "eligible matrices (per-column absmax scales), "
+                        "the decode engine's too (its KV pools stay f32)")
+    p.add_argument("--embedding-cache-rows", type=int, default=0,
+                   metavar="N",
+                   help="serve lookup-only embedding tables from a "
+                        "device-resident hot-row cache of N rows: the "
+                        "full table stays in host memory, replies are "
+                        "bitwise the uncached predictor's, and "
+                        "embedding_cache_{hits,misses,promotions}_total "
+                        "track the skew; with --precision int8 the cache "
+                        "holds int8 rows; 0 disables")
     p.add_argument("--no-transpile", action="store_true",
                    help="skip the inference transpiler (BatchNorm fold)")
     p.add_argument("--metrics-jsonl", default=None,
@@ -219,6 +233,13 @@ def main(argv=None):
     p.add_argument("--decode-blocks", type=int, default=None,
                    help="KV pool blocks (default: slots x "
                         "ceil(max_len/block_len))")
+    p.add_argument("--decode-numerics", default="fast",
+                   choices=["fast", "exact"],
+                   help="decode numerics: fast = paged attention over "
+                        "each slot's prefix; exact = the verification "
+                        "mode, every token's logits bitwise the full-"
+                        "prefix recompute's (row-stable products, "
+                        "attention at the full max_len span)")
     p.add_argument("--decode-prefix-cache-blocks", type=int, default=0,
                    metavar="N",
                    help="let up to N KV pool blocks hold cached prompt "

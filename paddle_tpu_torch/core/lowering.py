@@ -23,7 +23,7 @@ of their ops an `ExecContext` whose ``block`` is the sub-block.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -36,6 +36,29 @@ LEN_SUFFIX = "@SEQ_LEN"
 #: env (serving.Predictor at precision "int8"; the lookup_table rule
 #: dequantizes only the rows it gathers)
 QSCALE_SUFFIX = "@QSCALE@"
+#: suffix of a lookup_table output's pre-gathered rows in the env (the
+#: serving hot-row cache feeds them; the table itself is not in the env)
+CACHED_ROWS_SUFFIX = "@CACHED_ROWS@"
+#: int8 serving quantizes f32 2-D matrices of at least this many elements
+INT8_MIN_ELEMENTS = 256
+
+
+def quantize_int8(val: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-column absmax int8 quantization of an f32 ``[K, N]`` matrix
+    (the JAX predictor's ``_apply_precision``) -> (int8 values, f32
+    scales ``[N]``): scales ``amax / 127`` (1 where a column is all
+    zeros), values rounded and clipped to +-127."""
+    amax = val.abs().amax(dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(val / scale[None, :]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 values (a matrix, or rows gathered from one) times their
+    column scales, multiplied in f32 and stored bf16 (the JAX forward's
+    expand)."""
+    return (q.float() * scale).to(torch.bfloat16)
 
 
 class ExecContext:

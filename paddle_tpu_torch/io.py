@@ -232,7 +232,7 @@ def load_generation_model(model_dir: str,
                           precision: str = "f32", device=None):
     """The `TransformerLM` saved in ``model_dir`` (``spec`` on the
     returned module), on ``device`` (the card unless ``"cpu"``), in
-    ``precision`` ("f32" or "bf16")."""
+    ``precision`` ("f32", "bf16" or "int8")."""
     spec = read_generation_spec(model_dir)
     if spec is None:
         raise ValueError(

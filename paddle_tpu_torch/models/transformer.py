@@ -25,7 +25,21 @@ are the saved artifact's variable names, which `params_from_numpy` maps
 onto the module.  ``precision="bf16"`` holds every parameter and the
 activation stream in bf16 (the JAX predictor's cast); the LayerNorm
 scale and bias are rounded through bf16 the same way but kept as f32,
-which is what the LayerNorm kernel reads.
+which is what the LayerNorm kernel reads.  ``precision="int8"`` runs the
+bf16 activation stream with every f32 matrix of at least
+``INT8_MIN_ELEMENTS`` elements held as int8 with per-column scales (the
+predictor's quantization, `core.lowering.quantize_int8`), dequantized to
+bf16 in every forward as the JAX compiled forward does (the embedding
+table only in the rows it gathers); the rest is bf16 and the KV pools
+stay f32, as in the JAX decode engine.
+
+``exact=True`` on `forward`, `prefill` and `decode` is the decode
+engine's ``numerics="exact"``: every product runs on the row-stable
+product kernel and every attention in f32 on the flash forward kernel
+(``ops/attention_ops.py``), so a row's logits do not depend on the batch
+or the call it is computed in.  Called at ``T = max_len`` (the engine
+pads its prefill, `greedy_decode_full` its recompute), the three give a
+position bitwise the same logits.
 """
 from __future__ import annotations
 
@@ -41,7 +55,8 @@ from torch import nn
 
 from .. import layers, nets
 from ..core.place import precision_dtype, resolve_device
-from ..ops.attention_ops import self_attention
+from ..core.lowering import INT8_MIN_ELEMENTS, dequantize_int8, quantize_int8
+from ..ops.attention_ops import linear, self_attention
 from ..ops.kv_cache_ops import batched_select, pos_encoding_add, write_plan
 from ..ops.nn_ops import layer_norm
 
@@ -182,8 +197,18 @@ class KVCache:
         return pair
 
 
+def _dequantized(module: nn.Module, attr: str) -> torch.Tensor:
+    """``module.<attr>``, dequantized to bf16 when it is held as int8 (its
+    scales in the buffer ``<attr>_qscale``)."""
+    w = getattr(module, attr)
+    scale = getattr(module, attr + "_qscale")
+    return w if scale is None else dequantize_int8(w, scale)
+
+
 class DecoderLayer(nn.Module):
     """One post-LN decoder layer (``transformer_decoder_layer``)."""
+
+    MATRICES = ("qkv_w", "ffn1_w", "ffn2_w")
 
     def __init__(self, d_model, n_heads, d_ff, dtype, device):
         super().__init__()
@@ -200,22 +225,31 @@ class DecoderLayer(nn.Module):
         self.ffn2_b = nn.Parameter(torch.empty(d_model, **kw))
         self.ln2_w = nn.Parameter(torch.empty(d_model, **f32))
         self.ln2_b = nn.Parameter(torch.empty(d_model, **f32))
+        for attr in self.MATRICES:
+            self.register_buffer(attr + "_qscale", None)
 
-    def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None):
+    def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None,
+                exact: bool = False):
         b, t, d = x.shape
-        attn = self_attention(x, self.qkv_w, self.qkv_b, self.n_heads,
-                              causal=True, cache=cache)
+        attn = self_attention(x, _dequantized(self, "qkv_w"), self.qkv_b,
+                              self.n_heads, causal=True, cache=cache,
+                              exact=exact)
         x, _, _ = layer_norm(x + attn, self.ln1_w, self.ln1_b, 2, LN_EPSILON)
-        h = torch.relu(torch.addmm(self.ffn1_b, x.reshape(b * t, d),
-                                   self.ffn1_w))
-        ffn = torch.addmm(self.ffn2_b, h, self.ffn2_w).reshape(b, t, d)
+        h = torch.relu(linear(x.reshape(b * t, d),
+                              _dequantized(self, "ffn1_w"), self.ffn1_b,
+                              exact))
+        ffn = linear(h, _dequantized(self, "ffn2_w"), self.ffn2_b,
+                     exact).reshape(b, t, d)
         x, _, _ = layer_norm(x + ffn, self.ln2_w, self.ln2_b, 2, LN_EPSILON)
         return x
 
 
 class TransformerLM(nn.Module):
     """The generation model: `forward` is the full-prefix LM, `prefill`
-    and `decode` the two paged-KV programs of the decode engine."""
+    and `decode` the two paged-KV programs of the decode engine.
+    ``precision`` is "f32", "bf16" or "int8" (module docstring)."""
+
+    PRECISIONS = ("f32", "bf16", "int8")
 
     def __init__(self, spec: dict, precision: str = "f32", device=None):
         super().__init__()
@@ -224,8 +258,12 @@ class TransformerLM(nn.Module):
                              f"{spec.get('family')!r}")
         if spec["d_model"] % spec["n_heads"]:
             raise ValueError("d_model must be a multiple of n_heads")
+        if precision not in self.PRECISIONS:
+            raise ValueError(f"precision must be one of {self.PRECISIONS}, "
+                             f"got {precision!r}")
         dev = resolve_device(device)
-        dtype = precision_dtype(precision)
+        # int8 runs the bf16 activation stream
+        dtype = precision_dtype("bf16" if precision == "int8" else precision)
         self.spec = dict(spec)
         self.precision = precision
         self.dtype = dtype
@@ -241,59 +279,74 @@ class TransformerLM(nn.Module):
             for _ in range(spec["n_layers"]))
         self.head_w = nn.Parameter(torch.empty(d, v, **kw))
         self.head_b = nn.Parameter(torch.empty(v, **kw))
+        for attr in ("embedding", "pos_encoding", "head_w"):
+            self.register_buffer(attr + "_qscale", None)
         self.requires_grad_(False)
 
     # -- parameter names ------------------------------------------------
-    def named_artifact_tensors(self) -> Dict[str, torch.Tensor]:
-        """Artifact variable name -> the module tensor that holds it."""
-        out = {"embedding_0.w_0": self.embedding,
-               "pos_encoding_0.w_0": self.pos_encoding}
+    def artifact_slots(self) -> Dict[str, Tuple[nn.Module, str]]:
+        """Artifact variable name -> (module, attribute) that holds it."""
+        out = {"embedding_0.w_0": (self, "embedding"),
+               "pos_encoding_0.w_0": (self, "pos_encoding")}
         for i, layer in enumerate(self.layers):
             fc = (("qkv", 3 * i), ("ffn1", 3 * i + 1), ("ffn2", 3 * i + 2))
             for attr, k in fc:
-                out[f"fc_{k}.w_0"] = getattr(layer, f"{attr}_w")
-                out[f"fc_{k}.b_0"] = getattr(layer, f"{attr}_b")
+                out[f"fc_{k}.w_0"] = (layer, f"{attr}_w")
+                out[f"fc_{k}.b_0"] = (layer, f"{attr}_b")
             for j in range(2):
-                out[f"layer_norm_{2 * i + j}.w_0"] = getattr(layer,
-                                                            f"ln{j + 1}_w")
-                out[f"layer_norm_{2 * i + j}.b_0"] = getattr(layer,
-                                                            f"ln{j + 1}_b")
+                out[f"layer_norm_{2 * i + j}.w_0"] = (layer, f"ln{j + 1}_w")
+                out[f"layer_norm_{2 * i + j}.b_0"] = (layer, f"ln{j + 1}_b")
         n = 3 * len(self.layers)
-        out[f"fc_{n}.w_0"] = self.head_w
-        out[f"fc_{n}.b_0"] = self.head_b
+        out[f"fc_{n}.w_0"] = (self, "head_w")
+        out[f"fc_{n}.b_0"] = (self, "head_b")
         return out
+
+    def named_artifact_tensors(self) -> Dict[str, torch.Tensor]:
+        """Artifact variable name -> the module tensor that holds it."""
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in self.artifact_slots().items()}
 
     def new_kv_pools(self, num_blocks: int, block_len: int
                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Zeroed per-layer (K, V) pools ``[num_blocks, block_len, heads,
-        head_dim]`` in the activation dtype."""
+        head_dim]``: bf16 under bf16 serving, f32 otherwise (int8 too, as
+        the JAX engine keeps them)."""
         shape = (num_blocks, block_len, self.spec["n_heads"], self.head_dim)
-        return [(torch.zeros(shape, dtype=self.dtype, device=self.device),
-                 torch.zeros(shape, dtype=self.dtype, device=self.device))
+        dtype = torch.bfloat16 if self.precision == "bf16" else torch.float32
+        return [(torch.zeros(shape, dtype=dtype, device=self.device),
+                 torch.zeros(shape, dtype=dtype, device=self.device))
                 for _ in self.layers]
 
     # -- forward passes ---------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embedding[tokens] * math.sqrt(self.spec["d_model"])
+        rows = self.embedding[tokens]
+        if self.embedding_qscale is not None:
+            rows = dequantize_int8(rows, self.embedding_qscale)
+        return rows * math.sqrt(self.spec["d_model"])
 
-    def _head(self, x2: torch.Tensor) -> torch.Tensor:
-        return torch.addmm(self.head_b, x2, self.head_w)
+    def _pos_add(self, x: torch.Tensor,
+                 index: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return pos_encoding_add(x, _dequantized(self, "pos_encoding"), index)
+
+    def _head(self, x2: torch.Tensor, exact: bool = False) -> torch.Tensor:
+        return linear(x2, _dequantized(self, "head_w"), self.head_b, exact)
 
     def forward(self, tokens: torch.Tensor,
-                last: Optional[torch.Tensor] = None) -> torch.Tensor:
+                last: Optional[torch.Tensor] = None,
+                exact: bool = False) -> torch.Tensor:
         """Full-prefix causal LM over ``tokens [B, T]`` -> logits
         ``[B, T, V]``; with ``last [B]`` only row ``last[b]`` of each
         sequence goes through the LM head -> ``[B, V]``."""
-        x = pos_encoding_add(self._embed(tokens), self.pos_encoding)
+        x = self._pos_add(self._embed(tokens))
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, exact=exact)
         if last is not None:
-            return self._head(batched_select(x, last))
+            return self._head(batched_select(x, last), exact)
         b, t, d = x.shape
-        return self._head(x.reshape(b * t, d)).reshape(b, t, -1)
+        return self._head(x.reshape(b * t, d), exact).reshape(b, t, -1)
 
     def prefill(self, tokens: torch.Tensor, pools, pages: torch.Tensor,
-                length: torch.Tensor) -> torch.Tensor:
+                length: torch.Tensor, exact: bool = False) -> torch.Tensor:
         """Write the prompt ``tokens [B, T]`` (valid rows ``length [B]``)
         into the paged cache from position 0 and return the next-token
         logits ``[B, V]`` (position ``length - 1``).  Only that row goes
@@ -302,45 +355,53 @@ class TransformerLM(nn.Module):
         b, t = tokens.shape
         index = torch.zeros(b, dtype=torch.int32, device=tokens.device)
         cache = KVCache("prefill", pools, pages, index, t, length)
-        x = pos_encoding_add(self._embed(tokens), self.pos_encoding)
+        x = self._pos_add(self._embed(tokens))
         for layer in self.layers:
-            x = layer(x, cache)
-        return self._head(batched_select(x, length, offset=-1))
+            x = layer(x, cache, exact)
+        return self._head(batched_select(x, length, offset=-1), exact)
 
     def decode(self, tokens: torch.Tensor, pools, pages: torch.Tensor,
-               index: torch.Tensor) -> torch.Tensor:
+               index: torch.Tensor, exact: bool = False) -> torch.Tensor:
         """One decode iteration for the slot batch: ``tokens [S]`` at
         positions ``index [S]`` -> next-token logits ``[S, V]``, appending
         each slot's K/V to the paged cache."""
         s = tokens.shape[0]
         cache = KVCache("decode", pools, pages, index, 1)
-        x = pos_encoding_add(self._embed(tokens), self.pos_encoding, index)
+        x = self._pos_add(self._embed(tokens), index)
         x = x.reshape(s, 1, -1)
         for layer in self.layers:
-            x = layer(x, cache)
-        return self._head(x.reshape(s, -1))
+            x = layer(x, cache, exact)
+        return self._head(x.reshape(s, -1), exact)
 
 
 def params_from_numpy(spec: dict, arrays: Dict[str, np.ndarray],
                       precision: str = "f32", device=None) -> TransformerLM:
     """Build the model from the artifact's arrays (the weight carry-over
     from the JAX package).  Raises on a missing or surplus name and on a
-    shape mismatch."""
+    shape mismatch.  Under int8 each matrix of at least
+    ``INT8_MIN_ELEMENTS`` elements is quantized on the model's device."""
     model = TransformerLM(spec, precision=precision, device=device)
-    targets = model.named_artifact_tensors()
-    missing = sorted(set(targets) - set(arrays))
-    surplus = sorted(set(arrays) - set(targets))
+    slots = model.artifact_slots()
+    missing = sorted(set(slots) - set(arrays))
+    surplus = sorted(set(arrays) - set(slots))
     if missing or surplus:
         raise ValueError(f"parameter names do not match the model: missing "
                          f"{missing}, surplus {surplus}")
-    for name, dst in targets.items():
+    for name, (mod, attr) in slots.items():
+        dst = getattr(mod, attr)
         src = np.asarray(arrays[name])
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)} does not "
                              f"match the model's {tuple(dst.shape)}")
         val = torch.from_numpy(np.ascontiguousarray(src, np.float32))
-        # bf16 serving rounds every parameter through bf16 (LayerNorm
-        # affines included), whatever dtype the module keeps it in
+        if (precision == "int8" and val.dim() == 2
+                and val.numel() >= INT8_MIN_ELEMENTS):
+            q, scale = quantize_int8(val.to(model.device))
+            dst.data = q
+            setattr(mod, attr + "_qscale", scale)
+            continue
+        # bf16 and int8 serving round every other parameter through bf16
+        # (LayerNorm affines included), whatever dtype the module keeps
         val = val.to(model.dtype).to(dst.dtype)
         dst.copy_(val)
     return model

@@ -8,14 +8,21 @@ package's dispatch sends short sequences to an XLA matmul chain by a
 table measured on the TPU; that table does not carry over to the card,
 and a matmul chain in plain PyTorch is no port of the kernel, so every
 length takes the flash kernels here.
+
+Under ``exact`` (the decode engine's ``numerics="exact"``) every product
+goes through the row-stable product kernel (`kernels.row_stable_mm`) and
+every attention runs in f32 on the flash forward kernel, over the full
+span for a decode step (`kv_cache_ops.paged_attention_exact`), so that a
+row's bits never depend on the batch it is in.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.registry import register_op
-from .kernels import FlashAttention, flash_attention_fwd
-from .kv_cache_ops import kv_cache_write, paged_attention
+from .kernels import FlashAttention, flash_attention_fwd, row_stable_mm
+from .kv_cache_ops import (kv_cache_write, paged_attention,
+                           paged_attention_exact)
 
 
 @register_op("fused_attention",
@@ -26,6 +33,24 @@ def _fused_attention(ctx):
     ctx.set_output("Out", FlashAttention.apply(q, k, v,
                                                bool(ctx.attr("causal",
                                                              False))))
+
+
+def linear(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           exact: bool = False) -> torch.Tensor:
+    """``x2 [M, K] @ w [K, N] + b`` in x2's dtype: ``torch.addmm``, or
+    under ``exact`` the row-stable product kernel in f32."""
+    if exact:
+        return row_stable_mm(x2.float().contiguous(), w.float().contiguous(),
+                             b.float()).to(x2.dtype)
+    return torch.addmm(b, x2, w)
+
+
+def _flash_f32(q, k, v, causal):
+    """The flash forward in f32, rounded back to q's dtype."""
+    out, _ = flash_attention_fwd(q.float().contiguous(),
+                                 k.float().contiguous(),
+                                 v.float().contiguous(), causal=causal)
+    return out.to(q.dtype)
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -40,7 +65,8 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def self_attention(x: torch.Tensor, qkv_weight: torch.Tensor,
                    qkv_bias: torch.Tensor, num_heads: int,
-                   causal: bool = True, cache=None) -> torch.Tensor:
+                   causal: bool = True, cache=None,
+                   exact: bool = False) -> torch.Tensor:
     """Multi-head self-attention over ``x [B, T, d]`` for the serving
     model: one ``[d, 3d]`` qkv projection, heads split to ``[B, H, T,
     d/H]``, attention, heads merged back to ``[B, T, d]``.  There is no
@@ -52,10 +78,15 @@ def self_attention(x: torch.Tensor, qkv_weight: torch.Tensor,
     slot) runs the paged-attention kernel over each slot's cached prefix,
     while ``"prefill"`` runs the causal FlashAttention forward over the
     prompt itself.  Without a cache the call is the full causal attention
-    of the training-shaped model."""
+    of the training-shaped model.
+
+    A KV pool may be wider than the activations (f32 pools under int8
+    serving): the decode query is cast to the pool dtype for the kernel
+    and the result back.  ``exact`` takes the row-stable paths (module
+    docstring)."""
     b, t, hidden = x.shape
-    qkv = torch.addmm(qkv_bias, x.reshape(b * t, hidden),
-                      qkv_weight).reshape(b, t, 3 * hidden)
+    qkv = linear(x.reshape(b * t, hidden), qkv_weight, qkv_bias,
+                 exact).reshape(b, t, 3 * hidden)
     q, k, v = qkv.split(hidden, dim=-1)
     q = _split_heads(q, num_heads)
     k = _split_heads(k, num_heads)
@@ -66,9 +97,16 @@ def self_attention(x: torch.Tensor, qkv_weight: torch.Tensor,
                        cache.pages, cache.index, cache.length,
                        plan=cache.plan)
         if cache.mode == "decode":
-            out = paged_attention(q.contiguous(), pool_k, pool_v,
-                                  cache.pages, cache.index)
+            if exact:
+                out = paged_attention_exact(q, pool_k, pool_v, cache.pages,
+                                            cache.index)
+            else:
+                out = paged_attention(q.to(pool_k.dtype).contiguous(),
+                                      pool_k, pool_v, cache.pages,
+                                      cache.index).to(q.dtype)
             return _merge_heads(out)
+    if exact:
+        return _merge_heads(_flash_f32(q, k, v, causal))
     out, _ = flash_attention_fwd(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal=causal)
     return _merge_heads(out)

@@ -19,6 +19,8 @@ wrapper                  CUDA source (ops/csrc)    replaces (Pallas kernel)
 `lstm_bwd`               lstm.cu                   ``_lstm_bwd_kernel``
 `gru_fwd`                gru.cu                    ``_gru_fwd_kernel``
 `gru_bwd`                gru.cu                    ``_gru_bwd_kernel``
+`row_stable_mm`          row_stable_mm.cu          none: XLA's per-op f32 dot
+                                                   of ``numerics="exact"``
 =======================  ========================  ===========================
 
 Each source's header comment says what bounds the kernel on the H100
@@ -47,7 +49,11 @@ dh_prev each step from partial sums the blocks exchange (one exchange a
 step for the LSTM, two for the GRU); the LSTM and GRU forward stage each
 step product's operand (h_prev; the GRU's r * h_prev too) with 16-byte
 copies and split the product over the warps on the tensor cores (bf16
-for a bf16 w, 3xTF32 for f32).
+for a bf16 w, 3xTF32 for f32).  `row_stable_mm` is the exact decode
+path's product: each output element summed over k in one order with
+separately rounded multiplies and adds, so a row's bits do not depend on
+M (the plain version does the same arithmetic, so the two agree bit for
+bit).
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -181,10 +187,17 @@ GRU_BWD = Kernel(
     "(_gru_pallas_bwd :1189)",
     [_P] * 12 + [_I] * 5 + [_P])
 
+ROW_STABLE_MM = Kernel(
+    "row_stable_mm", "row_stable_mm", "ptt_row_stable_mm",
+    "none (no Pallas kernel): the f32 dots of numerics='exact', which XLA "
+    "CPU runs op by op (paddle_tpu/serving/decode_engine.py:54 "
+    "_GenPredictor)",
+    [_P] * 4 + [_I] * 3 + [_P])
+
 KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD,
            LAYER_NORM_FWD, LAYER_NORM_BWD, SOFTMAX_XENT_FWD,
            SOFTMAX_XENT_BWD, BATCH_NORM_BWD, LSTM_FWD, LSTM_BWD, GRU_FWD,
-           GRU_BWD)
+           GRU_BWD, ROW_STABLE_MM)
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 _PAGED_HEAD_DIMS = (16, 32, 64, 128)
@@ -465,6 +478,60 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dk.data_ptr(), dv.data_ptr(), b * h, tq, tk, d, int(bool(causal)),
         1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q))
     return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the row-stable product of numerics="exact"
+# ---------------------------------------------------------------------------
+
+def row_stable_mm_plain(x, w, bias=None):
+    """Plain version: ``x [M, K] . w [K, N] (+ bias [N])`` in f32 as K
+    elementwise multiply-adds, ``acc = acc + x[:, k] * w[k]`` in order of
+    k from zero, then ``+ bias``: each product and sum rounded on its own,
+    so a row's result depends on that row alone, on any device."""
+    xf, wf = x.float(), w.float()
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    prod = torch.empty_like(acc)
+    for k in range(x.shape[1]):
+        torch.mul(xf[:, k:k + 1], wf[k:k + 1], out=prod)
+        acc.add_(prod)
+    return acc if bias is None else acc.add_(bias.float())
+
+
+def row_stable_mm(x: torch.Tensor, w: torch.Tensor,
+                  bias: torch.Tensor = None) -> torch.Tensor:
+    """``x [M, K] . w [K, N] (+ bias [N])`` -> f32 ``[M, N]``, every
+    element summed over k in one fixed order with separately rounded
+    multiplies and adds: bit for bit `row_stable_mm_plain`, whatever M.
+    On the card: f32, contiguous, 16-byte aligned, K and N multiples of
+    4."""
+    if x.device.type == "cpu":
+        return row_stable_mm_plain(x, w, bias)
+    if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1] or (
+            bias is not None and bias.shape != (w.shape[1],)):
+        raise ValueError(f"row_stable_mm: x {tuple(x.shape)} w "
+                         f"{tuple(w.shape)} bias "
+                         f"{None if bias is None else tuple(bias.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    if any(t.dtype != torch.float32 for t in (x, w)) or (
+            bias is not None and bias.dtype != torch.float32):
+        raise ValueError("row_stable_mm: operands must be float32")
+    if k % 4 or n % 4:
+        raise ValueError(f"row_stable_mm: K={k} and N={n} must be "
+                         "multiples of 4")
+    if m > 65535 * 128:
+        raise ValueError(f"row_stable_mm: M={m} rows exceed the grid")
+    tensors = (x, w) if bias is None else (x, w, bias)
+    _check_cuda("row_stable_mm", *tensors)
+    if (x.data_ptr() | w.data_ptr()) & 15:
+        raise ValueError("row_stable_mm: x and w must be 16-byte aligned")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    ROW_STABLE_MM.launch(x.data_ptr(), w.data_ptr(),
+                         None if bias is None else bias.data_ptr(),
+                         out.data_ptr(), m, n, k, _stream(x))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,17 @@ idle slot's row holds the sentinel ``num_blocks`` (one past the pool).
   scatter: JAX drops them with ``mode="drop"``, while an out-of-range
   index in a CUDA scatter is a device-side assert that kills the context.
 - `paged_attention` is the serving ("fast") path: the paged-attention
-  kernel (ops/kernels.py).  The JAX package's ``numerics="exact"`` mode
-  is not ported yet.
+  kernel (ops/kernels.py).
+- `paged_attention_exact` is ``numerics="exact"``: the JAX op's
+  ``exact=True`` branch.  Each slot's K/V are gathered over the whole
+  span, the query is scattered into row ``Index`` of a zero ``[T, D]``
+  matrix, the flash forward kernel runs causal in f32 over all T rows,
+  and row ``Index`` is selected.  The flash kernel gives a row the same
+  bits wherever the rest of the batch is (one q tile of 64 rows per
+  block, each row's softmax its own, no split over keys, no shape-picked
+  path), and a key past ``Index`` is masked to a zero weight, so the row
+  is bitwise the one the full-prefix recompute at ``T = max_len`` gives
+  it.
 - `pos_encoding_add` and `batched_select` are the generation programs'
   positional add and per-row gather.
 """
@@ -24,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .kernels import gather_slot_kv, paged_attention  # noqa: F401
+from .kernels import flash_attention_fwd, gather_slot_kv, paged_attention  # noqa: F401,E501
 
 
 def write_plan(table: torch.Tensor, index: torch.Tensor, t: int,
@@ -71,6 +80,25 @@ def kv_cache_write(k: torch.Tensor, v: torch.Tensor, pool_k: torch.Tensor,
         flat = pool.view((n * block_len,) + tuple(pool.shape[2:]))
         flat.index_copy_(0, dst, rows.index_select(0, src).to(pool.dtype))
     return pool_k, pool_v
+
+
+def paged_attention_exact(q: torch.Tensor, pool_k: torch.Tensor,
+                          pool_v: torch.Tensor, table: torch.Tensor,
+                          index: torch.Tensor) -> torch.Tensor:
+    """One decode query per slot, q ``[S, H, 1, D]``, attending positions
+    ``0..Index[s]`` of its paged prefix, computed as the full-span causal
+    attention of a ``[T, D]`` query matrix that holds q in row ``Index``
+    (T = pages * block_len), in f32; -> ``[S, H, 1, D]`` in q's dtype."""
+    s = q.shape[0]
+    k = gather_slot_kv(pool_k, table).float().contiguous()   # [S, H, T, D]
+    v = gather_slot_kv(pool_v, table).float().contiguous()
+    t = k.shape[2]
+    rows = torch.arange(s, device=q.device)
+    idx = index.reshape(s).long().clamp(0, t - 1)
+    q_full = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    q_full[rows, :, idx] = q[:, :, 0].float()
+    out, _ = flash_attention_fwd(q_full, k, v, causal=True)
+    return out[rows, :, idx].unsqueeze(2).to(q.dtype)
 
 
 def pos_encoding_add(x: torch.Tensor, table: torch.Tensor,

@@ -18,7 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..core.lowering import QSCALE_SUFFIX
+from ..core.lowering import (CACHED_ROWS_SUFFIX, QSCALE_SUFFIX,
+                             dequantize_int8)
 from ..core.registry import register_op
 from . import kernels as K
 from .math_ops import amp_operands, amp_out, conv_accum_dtype
@@ -228,19 +229,46 @@ def _softmax_with_cross_entropy(ctx):
         ctx.set_output("Softmax", torch.softmax(logits.float(), dim=-1))
 
 
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     scale=None) -> torch.Tensor:
+    """Rows of ``table [V, D]`` for ``ids`` (any shape) -> ``[*ids, D]``,
+    with the JAX rule's out-of-range semantics (``jnp.take``): an id in
+    ``[-V, 0)`` wraps, any other id outside ``[0, V)`` gives the fill
+    row (NaN for a float table, the dtype's minimum for an int8 one).
+    The ids are clamped before the gather, so no id reaches an indexing
+    kernel out of range (on the card that would be a device assert,
+    which ends the CUDA context).  ``scale`` (an int8 table's column
+    scales) dequantizes the gathered rows, fill rows included."""
+    v = table.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + v, ids)
+    oob = (ids < 0) | (ids >= v)
+    safe = ids.clamp(0, v - 1)
+    if table.is_floating_point():
+        rows = F.embedding(safe, table).masked_fill(oob[..., None],
+                                                    float("nan"))
+    else:
+        rows = table[safe].masked_fill(oob[..., None],
+                                       torch.iinfo(table.dtype).min)
+    return rows if scale is None else dequantize_int8(rows, scale)
+
+
 @register_op("lookup_table", doc="lookup_table_op.cc: embedding gather")
 def _lookup_table(ctx):
     """Ids [..., 1] or [...] (a ragged [B, T] batch keeps its lengths)."""
     ids = ctx.input("Ids")
-    w = ctx.input("W")
     flat = ids[..., 0] if ids.dim() >= 2 and ids.shape[-1] == 1 else ids
     scale = ctx.env.get(ctx.input_name("W") + QSCALE_SUFFIX)
-    if scale is not None:
+    pre = ctx.env.get(ctx.output_name("Out") + CACHED_ROWS_SUFFIX)
+    if pre is not None:
+        # the serving hot-row cache resolved the ids to rows (the table is
+        # not in the env); an int8 cache's rows dequantize here
+        out = (dequantize_int8(pre, scale)
+               if pre.dtype == torch.int8 and scale is not None else pre)
+    else:
         # an int8 table (serving precision "int8"): dequantize only the
         # gathered rows with the per-column scales, stored bf16
-        out = (w[flat.long()].float() * scale).to(torch.bfloat16)
-    else:
-        out = F.embedding(flat.long(), w)
+        out = embedding_lookup(ctx.input("W"), flat, scale)
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         # the padding row reads (and so trains) as zeros

@@ -31,15 +31,26 @@ Orca-style iteration-level scheduling over a vLLM-style paged KV cache:
   evicts least-recently-used leaves nobody references, and yields its
   blocks to live traffic under pool pressure (`PrefixCache.evict_for`).
 
+Numerics, the JAX engine's ``numerics=``: ``"fast"`` (default) decodes
+through the paged-attention kernel, within f32 rounding of the full
+recompute.  ``"exact"`` is the verification mode: every emitted token's
+logits are bitwise the full-prefix recompute's (`greedy_decode_full` with
+``numerics="exact"``).  The JAX engine gets that from XLA's op-at-a-time
+dispatch on the CPU; the port gets it from kernels whose row results do
+not depend on the batch (``TransformerLM`` with ``exact=True``: the
+row-stable product kernel, the flash forward in f32 over the full
+``max_len`` span, the LayerNorm kernel).  So exact mode needs
+``pages_per_slot * block_len == max_len``, and its prefill runs at the
+single ``max_len`` bucket.
+
+Precision: the model's, "f32", "bf16" (bf16 KV pools) or "int8" (int8
+weights dequantized in every forward, f32 KV pools).
+
 Generation is greedy.  The argmax runs on the device; full logits are
 copied to the host only for requests that ask for them
 (``capture_logits``).  Every metric family is the JAX engine's
 (``decode_*``, labelled by ``model``), mounted on the process default
 registry; the flight recorder keeps one record per iteration.
-
-Refused with a ValueError that names the ROADMAP item:
-``numerics="exact"`` (the port's bitwise contract needs its own design
-under ``torch.use_deterministic_algorithms``) and ``precision="int8"``.
 """
 from __future__ import annotations
 
@@ -60,18 +71,6 @@ from ..observability import MetricsRegistry, default_registry, trace
 from ..observability import flight as _flight
 from ..observability.registry import _LatencyWindow
 from .engine import EngineOverloadedError
-
-
-def _refuse_unported(numerics: str, precision: str):
-    if numerics != "fast":
-        raise ValueError(
-            f"numerics={numerics!r}: the port decodes with 'fast' only; "
-            "'exact' (bitwise decode against the full recompute) is not "
-            "ported yet: ROADMAP queue A item 1 (numerics='exact')")
-    if precision == "int8":
-        raise ValueError(
-            "precision='int8' decode is not ported yet: ROADMAP queue A "
-            "item 1 (int8 decode)")
 
 
 class BlockAllocator:
@@ -396,10 +395,13 @@ class DecodeEngine:
                  warmup: bool = False, numerics: str = "fast",
                  model_name: str = "default",
                  prefix_cache_blocks: int = 0):
-        _refuse_unported(numerics, model.precision)
+        if numerics not in ("fast", "exact"):
+            raise ValueError(f"numerics must be fast|exact, got {numerics!r}")
         self.model = model
         self.model_name = str(model_name)
         self.numerics = numerics
+        #: the model's keyword for the exact paths (none in fast mode)
+        self._exact_kw = {"exact": True} if numerics == "exact" else {}
         self.spec = dict(model.spec)
         self.device = model.device
         self.slots = int(slots)
@@ -410,6 +412,17 @@ class DecodeEngine:
         self.pages_per_slot = int(pages_per_slot)
         #: longest sequence one slot can hold
         self.max_tokens = min(max_len, self.pages_per_slot * self.block_len)
+        if numerics == "exact" and \
+                self.pages_per_slot * self.block_len != max_len:
+            # the verification mode compares with a full recompute at
+            # T = max_len, so the gathered span must be that long
+            raise ValueError(
+                "numerics='exact' needs pages_per_slot*block_len == "
+                f"max_len ({self.pages_per_slot}*{self.block_len} != "
+                f"{max_len})")
+        #: prefill lengths: the prompt's own, or exact mode's single
+        #: max_len bucket
+        self.prefill_bucket = max_len if numerics == "exact" else None
         if num_blocks is None:
             num_blocks = self.slots * self.pages_per_slot
         self.allocator = BlockAllocator(num_blocks)
@@ -425,9 +438,9 @@ class DecodeEngine:
         self._evictions_synced = 0
         self.max_queue_depth = (None if max_queue_depth is None
                                 else int(max_queue_depth))
-        self.kv_dtype = str(model.dtype).replace("torch.", "")
         self._pools = model.new_kv_pools(self.allocator.num_blocks,
                                          self.block_len)
+        self.kv_dtype = str(self._pools[0][0].dtype).replace("torch.", "")
         self._slots = [_Slot(i) for i in range(self.slots)]
         self._pages = np.full((self.slots, self.pages_per_slot),
                               self.allocator.num_blocks, np.int32)
@@ -520,7 +533,6 @@ class DecodeEngine:
         """Serve a `save_generation_model` artifact (saved by either
         package) on ``device`` (the card unless ``"cpu"``); ``model`` is
         the name its metric series carry."""
-        _refuse_unported(numerics, precision)
         lm = load_generation_model(model_dir, params_filename,
                                    precision=precision, device=device)
         return cls(lm, numerics=numerics, model_name=model, **kwargs)
@@ -534,21 +546,33 @@ class DecodeEngine:
         request.  Idle pages take no writes."""
         idle = self._tensor(self._pages)
         with torch.inference_mode():
-            self.model.prefill(self._tensor(np.zeros((1, 1), np.int64)),
-                               self._pools, idle[:1],
-                               self._tensor(np.ones(1, np.int32)))
+            self.model.prefill(
+                self._tensor(np.zeros((1, self.prefill_bucket or 1),
+                                      np.int64)),
+                self._pools, idle[:1], self._tensor(np.ones(1, np.int32)),
+                **self._exact_kw)
             self.model.decode(self._tensor(np.zeros(self.slots, np.int64)),
                               self._pools, idle,
-                              self._tensor(np.zeros(self.slots, np.int32)))
+                              self._tensor(np.zeros(self.slots, np.int32)),
+                              **self._exact_kw)
 
     # -- submission ----------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
                eos_id: Optional[int] = None,
                deadline_ms: Optional[float] = None,
                capture_logits: bool = False) -> GenerateHandle:
-        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        vocab = int(self.spec["vocab"])
+        # an id in [-V, 0) wraps, as the JAX lookup does; the model never
+        # gathers an id outside the table (on the card that would be a
+        # device assert)
+        prompt = [int(t) + vocab if -vocab <= int(t) < 0 else int(t)
+                  for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
+        bad = [t for t in prompt if not 0 <= t < vocab]
+        if bad:
+            raise ValueError(f"prompt token ids {bad[:4]} are outside the "
+                             f"vocabulary [0, {vocab})")
         if len(prompt) >= self.max_tokens:
             raise ValueError(
                 f"prompt of {len(prompt)} tokens leaves no room in a "
@@ -827,11 +851,14 @@ class DecodeEngine:
         t0 = time.perf_counter()
         with self._trace_scope([req]), profiler.record_block(
                 "decode.prefill"):
+            toks = np.zeros((1, self.prefill_bucket or len(req.prompt)),
+                            np.int64)
+            toks[0, :len(req.prompt)] = req.prompt
             logits = self.model.prefill(
-                self._tensor(np.asarray([req.prompt], np.int64)),
-                self._pools,
+                self._tensor(toks), self._pools,
                 self._tensor(self._pages[slot.sid:slot.sid + 1]),
-                self._tensor(np.array([len(req.prompt)], np.int32)))
+                self._tensor(np.array([len(req.prompt)], np.int32)),
+                **self._exact_kw)
             tok = int(logits[0].argmax())
             row = (logits[0].float().cpu().numpy() if req.capture_logits
                    else None)
@@ -919,7 +946,7 @@ class DecodeEngine:
                 profiler.record_block("decode.step"):
             logits = self.model.decode(self._tensor(tokens), self._pools,
                                        self._tensor(self._pages),
-                                       self._tensor(index))
+                                       self._tensor(index), **self._exact_kw)
             next_tokens = logits.argmax(dim=-1).cpu().numpy()
             rows = (logits.float().cpu().numpy()
                     if any(s.req.capture_logits for s in active) else None)
@@ -970,14 +997,19 @@ def greedy_decode_full(model, prompts: Sequence[Sequence[int]],
                        max_new_tokens: int = 16,
                        eos_id: Optional[int] = None,
                        capture_logits: bool = False,
-                       precision: str = "f32", device=None
-                       ) -> Dict[str, Any]:
+                       precision: str = "f32", device=None,
+                       numerics: str = "fast") -> Dict[str, Any]:
     """The O(T^2) offline baseline: every emitted token re-runs the whole
     prefix through the model (`TransformerLM.forward`) and reads each
     sequence's last position.  ``model`` is a `TransformerLM` or a saved
     model directory.  Padding past a sequence's length is inert under the
-    causal mask."""
+    causal mask.  ``numerics="exact"`` runs the exact paths at
+    ``T = max_len`` (as the JAX baseline always does), the shapes at which
+    the exact decode engine's logits are bitwise these."""
+    if numerics not in ("fast", "exact"):
+        raise ValueError(f"numerics must be fast|exact, got {numerics!r}")
     m = _as_model(model, precision, device)
+    exact = numerics == "exact"
     if eos_id is None:
         eos_id = m.spec.get("eos_id")
     max_len = m.spec["max_len"]
@@ -992,13 +1024,13 @@ def greedy_decode_full(model, prompts: Sequence[Sequence[int]],
         for _ in range(max_new_tokens):
             if all(done):
                 break
-            t = max(len(s) for s in seqs)
+            t = max_len if exact else max(len(s) for s in seqs)
             toks = np.zeros((b, t), np.int64)
             for i, s in enumerate(seqs):
                 toks[i, :len(s)] = s
             last = np.array([len(s) - 1 for s in seqs], np.int64)
             lg = m(torch.from_numpy(toks).to(m.device),
-                   torch.from_numpy(last).to(m.device))
+                   torch.from_numpy(last).to(m.device), exact=exact)
             dispatches += 1
             nxt = lg.argmax(dim=-1).cpu().numpy()
             if capture_logits:
@@ -1025,12 +1057,14 @@ def greedy_decode_kv(model, prompts: Sequence[Sequence[int]],
                      max_new_tokens: int = 16,
                      eos_id: Optional[int] = None, block_len: int = 16,
                      capture_logits: bool = False, precision: str = "f32",
-                     device=None, **engine_kwargs) -> Dict[str, Any]:
+                     device=None, numerics: str = "fast",
+                     **engine_kwargs) -> Dict[str, Any]:
     """The same offline generation through the KV cache: one DecodeEngine
-    with a slot per prompt — prefill once, then one step per token."""
+    with a slot per prompt — prefill once, then one step per token;
+    bitwise `greedy_decode_full` under ``numerics="exact"``."""
     engine = DecodeEngine(_as_model(model, precision, device),
                           slots=len(prompts), block_len=block_len,
-                          **engine_kwargs)
+                          numerics=numerics, **engine_kwargs)
     try:
         handles = [engine.submit(p, max_new_tokens, eos_id=eos_id,
                                  capture_logits=capture_logits)

@@ -20,15 +20,24 @@ Precision, as the JAX predictor's ``_apply_precision``:
 - ``"bf16"`` casts every f32 parameter to bf16 and sets ``program.amp``;
 - ``"int8"`` also quantizes each f32 2-D matrix of at least
   ``INT8_MIN_ELEMENTS`` elements to int8 with per-column absmax scales
-  (``amax / 127``, 1 where ``amax`` is 0; values rounded and clipped to
-  +-127).  A matrix a product reads is dequantized to bf16 inside each
-  forward; a table that only ``lookup_table`` reads stays int8 and the
-  rule dequantizes the rows it gathers (``@QSCALE@`` env key).
+  (`core.lowering.quantize_int8`).  A matrix a product reads is
+  dequantized to bf16 inside each forward; a table that only
+  ``lookup_table`` reads stays int8 and the rule dequantizes the rows it
+  gathers (``@QSCALE@`` env key).
+
+The hot-row embedding cache (``embedding_cache_rows=N``, the JAX
+eligibility rule): a table that only ``lookup_table`` reads, whose ids
+are a feed, leaves the device parameters and is served through a
+`HotRowCache` of N rows with the full table in host memory; the cache
+resolves each batch's ids to rows on the host side of the call, and the
+rows reach the rule under ``<Out>@CACHED_ROWS@``.  Under int8 the cache
+holds int8 rows.  `apply_row_deltas` patches table rows in place (a
+published trainer delta), through the cache or as one scatter into a new
+device tensor.
 
 Refused with a ValueError: ``compile_cache`` (eager PyTorch has no
 executable to persist; the nearest analog, the kernels' ``.so`` build
-cache in ``build/kernels``, is keyed by source hash already) and
-``embedding_cache_rows`` (the hot-row cache, ROADMAP queue A item 1).
+cache in ``build/kernels``, is keyed by source hash already).
 """
 from __future__ import annotations
 
@@ -43,12 +52,15 @@ import numpy as np
 import torch
 
 from .. import profiler
-from ..core.lowering import QSCALE_SUFFIX, Interpreter
+from ..core.lowering import (CACHED_ROWS_SUFFIX, INT8_MIN_ELEMENTS,
+                             QSCALE_SUFFIX, Interpreter, dequantize_int8,
+                             quantize_int8)
 from ..core.place import resolve_device
 from ..core.program import Program, Variable
 from ..core.scope import Scope, global_scope, scope_guard
 from ..core.types import to_torch_dtype
 from ..observability import default_registry as _obs_registry
+from .hot_rows import HotRowCache
 
 # the predictor is the executor layer of a serving process: the JAX
 # package's executor_* families, under layer="predictor"
@@ -63,16 +75,12 @@ _PRED_RUN_S = _obs_registry().histogram(
     labelnames=("layer",)).labels(layer="predictor")
 
 
-def _refuse_xla_options(compile_cache, embedding_cache_rows):
+def _refuse_xla_options(compile_cache):
     if compile_cache is not None:
         raise ValueError(
             "compile_cache persists XLA executables; eager PyTorch has "
             "none to persist (the kernels' build cache in build/kernels "
             "is the port's analog; ROADMAP queue C: XLA-only options)")
-    if embedding_cache_rows:
-        raise ValueError(
-            "embedding_cache_rows (the hot-row embedding cache) is not "
-            "ported yet: ROADMAP queue A item 1 (hot_rows)")
 
 
 class Predictor:
@@ -81,14 +89,14 @@ class Predictor:
 
     PRECISIONS = ("f32", "bf16", "int8")
     #: int8 candidates: f32 2-D matrices of at least this many elements
-    INT8_MIN_ELEMENTS = 256
+    INT8_MIN_ELEMENTS = INT8_MIN_ELEMENTS
     QSCALE_SUFFIX = QSCALE_SUFFIX
 
     def __init__(self, program: Program, feed_names: Sequence[str],
                  fetch_vars: Sequence, scope: Optional[Scope] = None,
                  compile_cache=None, precision: str = "f32",
                  embedding_cache_rows: int = 0, device=None):
-        _refuse_xla_options(compile_cache, embedding_cache_rows)
+        _refuse_xla_options(compile_cache)
         if precision not in self.PRECISIONS:
             raise ValueError(f"precision must be one of {self.PRECISIONS},"
                              f" got {precision!r}")
@@ -111,6 +119,7 @@ class Predictor:
                     self._params[v.name] = self._own_copy(val)
         if self.precision != "f32":
             self._apply_precision()
+        self._setup_row_caches(embedding_cache_rows)
         # the computation's identity, the JAX recipe: two loads of one
         # __model__ share it
         self.fingerprint = hashlib.sha1(
@@ -139,11 +148,7 @@ class Predictor:
                 continue
             if (self.precision == "int8" and val.dim() == 2
                     and val.numel() >= self.INT8_MIN_ELEMENTS):
-                amax = val.abs().amax(dim=0)
-                scale = torch.where(amax > 0, amax / 127.0,
-                                    torch.ones_like(amax))
-                q = torch.clamp(torch.round(val / scale[None, :]),
-                                -127, 127).to(torch.int8)
+                q, scale = quantize_int8(val)
                 skey = name + QSCALE_SUFFIX
                 self._params[name] = q
                 self._params[skey] = scale
@@ -152,6 +157,86 @@ class Predictor:
                     self._gather_quantized.add(name)
             else:
                 self._params[name] = val.to(torch.bfloat16)
+
+    # -- hot-row cache ---------------------------------------------------
+    def _setup_row_caches(self, budget_rows: int):
+        """Move each eligible table into a `HotRowCache`: every use a
+        lookup_table "W" input (the int8 gather-dequant rule) and every
+        site's ids a feed (in-graph ids cannot be resolved on the host),
+        as the JAX predictor decides."""
+        self._row_caches: Dict[str, HotRowCache] = {}
+        #: (Out name, Ids feed name, table name) of each cached site
+        self._cached_lookups: List = []
+        if not budget_rows:
+            return
+        eligible = self._lookup_only_params()
+        feedable = set(self.feed_names)
+        sites: Dict[str, List] = {}
+        for op in self.program.global_block().ops:
+            if op.type != "lookup_table":
+                continue
+            w = op.desc.inputs["W"][0]
+            if w in eligible and w in self._params:
+                sites.setdefault(w, []).append(
+                    (op.desc.outputs["Out"][0], op.desc.inputs["Ids"][0]))
+        for name, pairs in sites.items():
+            if (not all(ids in feedable for _, ids in pairs)
+                    or self._params[name].dim() != 2):
+                continue
+            # the table never stays on the device
+            self._row_caches[name] = HotRowCache(
+                self._params.pop(name), budget_rows, name=name,
+                device=self.device)
+            self._cached_lookups.extend((o, i, name) for o, i in pairs)
+
+    def _cached_rows(self, feed: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Each cached site's rows, keyed for the rule, resolved on the
+        host from the ids as the caller sent them."""
+        out = {}
+        for out_name, ids_name, table in self._cached_lookups:
+            ids = feed[ids_name]
+            ids = (ids.cpu().numpy() if isinstance(ids, torch.Tensor)
+                   else np.asarray(ids))
+            if ids.ndim >= 2 and ids.shape[-1] == 1:
+                ids = ids.reshape(ids.shape[:-1])   # the rule's squeeze
+            out[out_name + CACHED_ROWS_SUFFIX] = \
+                self._row_caches[table].lookup(ids)
+        return out
+
+    def apply_row_deltas(self, updates: Dict[str, Any]) -> int:
+        """Patch embedding rows from a published delta: ``updates`` maps a
+        table name to ``(rows, values)``.  A cached table goes through its
+        cache (`HotRowCache.apply_delta`); a device table takes one
+        scatter into a new tensor, swapped in under the lock, so a request
+        in flight finishes on the tensor it started with.  An int8 table
+        refuses: its scales came from the whole table at load.  Returns
+        the rows applied."""
+        total = 0
+        for name, (rows, values) in updates.items():
+            if name in self._quantized:
+                raise ValueError(
+                    f"table {name!r} is int8-quantized; row deltas "
+                    "cannot recompute its per-channel scales — reload "
+                    "the model instead")
+            cache = self._row_caches.get(name)
+            if cache is not None:
+                total += cache.apply_delta(rows, values)
+                continue
+            cur = self._params.get(name)
+            if cur is None or cur.dim() != 2:
+                raise KeyError(f"table {name!r} is not a [V, D] param of "
+                               "this predictor")
+            rows = np.asarray(rows).reshape(-1).astype(np.int64)
+            v = int(cur.shape[0])
+            if rows.size and ((rows < 0) | (rows >= v)).any():
+                raise ValueError(f"delta rows outside [0, {v})")
+            new = cur.clone()
+            new[torch.from_numpy(rows).to(cur.device)] = torch.as_tensor(
+                np.asarray(values)).to(cur.device, cur.dtype)
+            with self._lock:
+                self._params[name] = new
+            total += int(rows.size)
+        return total
 
     def _lookup_only_params(self) -> set:
         """Params whose every use is a lookup_table "W" input of the
@@ -183,8 +268,7 @@ class Predictor:
         (a keyword) is the card unless ``"cpu"``."""
         from .. import io as _io
         from ..inference_transpiler import InferenceTranspiler
-        _refuse_xla_options(compile_cache,
-                            kwargs.get("embedding_cache_rows", 0))
+        _refuse_xla_options(compile_cache)
         scope = scope or Scope()
         with scope_guard(scope):
             program, feed_names, fetch_vars = _io.load_inference_model(
@@ -201,7 +285,9 @@ class Predictor:
         """Run one batch; returns (fetches, hit), ``hit`` True when this
         feed signature ran before.  Numpy fetches of a bf16 value come
         back as f32 (numpy has no bf16)."""
-        feed = self._prepare_feed(feed)
+        prepared = self._prepare_feed(feed)
+        cached = self._cached_rows(feed)
+        feed = prepared
         sig = tuple((n, tuple(feed[n].shape), feed[n].dtype)
                     for n in self.feed_names)
         with self._lock:
@@ -215,23 +301,25 @@ class Predictor:
         t0 = time.perf_counter()
         with profiler.record_block("executor.run"), \
                 _on_device(self.device), torch.inference_mode():
-            outs = self._forward(feed)
+            outs = self._forward(feed, cached)
             if return_numpy:
                 outs = [(o.float() if o.dtype == torch.bfloat16 else o)
                         .cpu().numpy() for o in outs]
         _PRED_RUN_S.observe(time.perf_counter() - t0)
         return outs, hit
 
-    def _forward(self, feed: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
-        env: Dict[str, Any] = dict(self._params)
+    def _forward(self, feed: Dict[str, torch.Tensor],
+                 cached: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        with self._lock:
+            env: Dict[str, Any] = dict(self._params)
         # int8: a matrix a product reads is dequantized here, per call,
         # f32 multiply stored bf16 (the JAX forward's expand)
         for name, skey in self._quantized.items():
             if name in self._gather_quantized:
                 continue
-            s = env.pop(skey)
-            env[name] = (env[name].float() * s[None, :]).to(torch.bfloat16)
+            env[name] = dequantize_int8(env[name], env.pop(skey))
         env.update(feed)
+        env.update(cached)
         Interpreter(self.program, self.device, self._generator,
                     self.fetch_names).run_block(self.program.global_block(),
                                                 env)
@@ -260,13 +348,17 @@ class Predictor:
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
-            return {"fingerprint": self.fingerprint,
-                    "precision": self.precision,
-                    "device": str(self.device),
-                    "quantized_params": len(self._quantized),
-                    "cache_hits": self.cache_hits,
-                    "cache_misses": self.cache_misses,
-                    "shapes_seen": len(self._seen)}
+            out = {"fingerprint": self.fingerprint,
+                   "precision": self.precision,
+                   "device": str(self.device),
+                   "quantized_params": len(self._quantized),
+                   "cache_hits": self.cache_hits,
+                   "cache_misses": self.cache_misses,
+                   "shapes_seen": len(self._seen)}
+        if self._row_caches:
+            out["embedding_cache"] = {n: c.stats()
+                                      for n, c in self._row_caches.items()}
+        return out
 
     def _prepare_feed(self, feed: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Each feed as a tensor of its declared dtype on the device."""

@@ -13,11 +13,17 @@ artifact ships ``__generation__.json``:
   the engine that took them);
 - ``unload(name)`` drains and drops (the engines' series unmount).
 
+- ``apply_deltas(name)`` patches embedding rows of the live predictor
+  from the ``__delta__.json`` chain head in the model's directory (the
+  format the JAX package's ``ModelPublisher.publish_deltas`` writes;
+  `write_row_delta` writes one link), without a rebuild or a drain.
+
 Every engine is labelled with the model's name, and lifecycle events
 count in ``serving_model_events_total{model,event}`` and
-``serving_models``.  Refused with an error that names the ROADMAP item:
-``mesh`` (sharded serving), ``compile_cache`` (XLA-only),
-``embedding_cache_rows`` and ``apply_deltas`` (hot rows).
+``serving_models``; rows patched by deltas in
+``embedding_delta_rows_total{model}``.  Refused with an error that names
+the ROADMAP item: ``mesh`` (sharded serving) and ``compile_cache``
+(XLA-only).
 """
 from __future__ import annotations
 
@@ -25,15 +31,22 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from ..core.place import resolve_device
-from ..io import MANIFEST_FILENAME
+from ..io import MANIFEST_FILENAME, _atomic_write
 from ..models.transformer import read_generation_spec
 from ..observability import default_registry
 from .decode_engine import DecodeEngine
 from .engine import ServingEngine
 from .predictor import Predictor
+
+
+#: the delta chain head in a model directory (the JAX package's
+#: ``fleet_control.publisher.DELTA_FILENAME``)
+DELTA_FILENAME = "__delta__.json"
 
 
 class UnknownModelError(KeyError):
@@ -58,10 +71,15 @@ class _Entry:
     """One mounted model; reload swaps whole entries, never mutates one."""
 
     __slots__ = ("name", "predictor", "engine", "model_dir", "version",
-                 "fingerprint", "loaded_at", "load_opts", "decode")
+                 "fingerprint", "loaded_at", "load_opts", "decode",
+                 "delta_seq", "delta_step")
 
     def __init__(self, name, predictor, engine, model_dir, version,
                  fingerprint, load_opts, decode=None):
+        #: the last applied delta link's seq and step; None until the
+        #: first apply (a fresh load is the chain's base)
+        self.delta_seq = None
+        self.delta_step = None
         self.name = name
         self.predictor = predictor
         self.engine = engine
@@ -82,6 +100,9 @@ class _Entry:
              "feed_names": list(self.predictor.feed_names),
              "fetch_names": list(self.predictor.fetch_names),
              "device": str(self.predictor.device)}
+        if self.delta_seq is not None:
+            d["delta_seq"] = self.delta_seq
+            d["delta_step"] = self.delta_step
         if self.decode is not None:
             pc = self.decode.prefix_cache
             d["decode"] = {"slots": self.decode.slots,
@@ -119,6 +140,10 @@ class ModelRegistry:
             labelnames=("model", "event"))
         self._m_models = reg.gauge(
             "serving_models", "models currently loaded")
+        self._m_delta_rows = reg.counter(
+            "embedding_delta_rows_total",
+            "embedding rows patched live from published row deltas",
+            labelnames=("model",))
 
     # -- mounting ----------------------------------------------------------
     def load(self, name: str, model_dir: str,
@@ -130,7 +155,9 @@ class ModelRegistry:
              embedding_cache_rows: int = 0, device=None) -> _Entry:
         """Build a predictor and its engines from a saved model dir and
         publish them under ``name``.  ``decode`` is a dict of
-        `DecodeEngine` options, or False for no decode engine."""
+        `DecodeEngine` options (``numerics``, ``precision`` and the rest),
+        or False for no decode engine; ``embedding_cache_rows`` serves
+        lookup-only tables through a hot-row cache of that many rows."""
         if mesh is not None:
             raise ValueError(
                 "mesh= (sharded serving over several cards) is not ported "
@@ -263,9 +290,52 @@ class ModelRegistry:
         return True
 
     def apply_deltas(self, name: str) -> Dict[str, Any]:
-        raise ValueError(
-            "apply_deltas (streaming embedding row deltas) is not ported "
-            "yet: ROADMAP queue A item 1 (hot_rows and apply_deltas)")
+        """Apply the ``__delta__.json`` chain head of ``name``'s model dir
+        to its live predictor (device tables, hot-row caches), with no
+        rebuild and no drain.
+
+        The lineage is checked before any row moves: the first link must
+        name this entry's manifest fingerprint as its base, and each later
+        link's ``prev_seq`` must be the seq last applied.  A mismatch (a
+        missed link, a restarted chain, a replica loaded since) returns
+        ``stale: True``, the caller's cue to reload.  Returns ``{applied,
+        stale, seq, step, rows}``; ``applied`` False with ``stale`` False
+        means nothing new (re-polling the same head is a no-op)."""
+        with self._lock:
+            entry = self._models.get(str(name))
+            if entry is None:
+                raise UnknownModelError(f"model {name!r} is not loaded")
+        try:
+            with open(os.path.join(entry.model_dir, DELTA_FILENAME)) as f:
+                record = json.load(f)
+        except (OSError, ValueError):
+            return {"applied": False, "stale": False, "seq": None,
+                    "step": None, "rows": 0}
+        seq = record.get("seq")
+        if seq is None or seq == entry.delta_seq:
+            return {"applied": False, "stale": False,
+                    "seq": entry.delta_seq, "step": entry.delta_step,
+                    "rows": 0}
+        if entry.delta_seq is None:
+            ok = (record.get("prev_seq") is None
+                  and record.get("base_fingerprint") == entry.fingerprint)
+        else:
+            ok = record.get("prev_seq") == entry.delta_seq
+        if not ok:
+            return {"applied": False, "stale": True, "seq": seq,
+                    "step": record.get("step"), "rows": 0}
+        updates: Dict[str, Any] = {}
+        for tname, info in (record.get("tables") or {}).items():
+            with np.load(os.path.join(entry.model_dir, info["file"])) as d:
+                updates[tname] = (d["rows"].copy(), d["values"].copy())
+        rows = entry.predictor.apply_row_deltas(updates)
+        entry.delta_seq = int(seq)
+        entry.delta_step = record.get("step")
+        if rows:
+            self._m_delta_rows.labels(model=entry.name).inc(rows)
+        self._m_events.labels(model=entry.name, event="delta_apply").inc()
+        return {"applied": True, "stale": False, "seq": int(seq),
+                "step": record.get("step"), "rows": int(rows)}
 
     def close(self, drain_timeout: float = 30.0, unmount: bool = True):
         """Unload everything; ``unmount=False`` keeps the engines' series
@@ -364,3 +434,40 @@ class ModelRegistry:
         if entry.decode is not None:
             out["decode"] = entry.decode.stats()
         return out
+
+
+def write_row_delta(model_dir: str, tables: Dict[str, Tuple[Any, Any]],
+                    step: int) -> Dict[str, Any]:
+    """Publish one link of a row-delta chain into ``model_dir`` in the
+    format of the JAX package's ``ModelPublisher.publish_deltas``: the
+    payloads ``deltas/step_<step>/<table>.npz`` (``rows`` int64 and
+    ``values``) first, then ``__delta__.json`` atomically, naming the
+    chain's base (the manifest fingerprint, for the first link) and the
+    previous link's seq.  ``tables`` maps a table name to ``(rows,
+    values)``.  The port has no checkpoint publisher yet; tests and the
+    smoke run write their deltas with this.  Returns the record."""
+    head: Dict[str, Any] = {}
+    try:
+        with open(os.path.join(model_dir, DELTA_FILENAME)) as f:
+            head = json.load(f)
+    except (OSError, ValueError):
+        pass
+    manifest = read_manifest(model_dir) or {}
+    ddir = os.path.join("deltas", f"step_{int(step)}")
+    os.makedirs(os.path.join(model_dir, ddir), exist_ok=True)
+    out_tables = {}
+    for name, (rows, values) in tables.items():
+        fname = name.replace("/", "_") + ".npz"
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        np.savez(os.path.join(model_dir, ddir, fname), rows=rows,
+                 values=np.asarray(values))
+        out_tables[name] = {"rows": int(rows.size),
+                            "file": os.path.join(ddir, fname)}
+    record = {"seq": int(head.get("seq", 0)) + 1, "step": int(step),
+              "base_step": head.get("step"),
+              "base_fingerprint": head.get("base_fingerprint",
+                                           manifest.get("fingerprint")),
+              "prev_seq": head.get("seq"), "tables": out_tables}
+    with _atomic_write(os.path.join(model_dir, DELTA_FILENAME)) as f:
+        json.dump(record, f, indent=1)
+    return record

@@ -14,9 +14,9 @@ registry default; ``"deadline_ms"`` is the remaining budget),
 ``generate`` (one ``{"token"}`` line per token unless ``"stream":
 false``, then one ``{"done": true}`` line), ``stats``, ``metrics``
 (Prometheus text, or a snapshot with ``"format": "json"``), ``models``,
-``load``, ``unload``, ``reload`` and ``shutdown``.  ``inspect``,
-``trace`` and ``apply_deltas`` answer ``bad_request`` naming them as not
-ported yet.  Errors are ``{"error", "code"}`` with code one of
+``load``, ``unload``, ``reload``, ``apply_deltas`` (a model's row-delta
+chain head onto its live predictor) and ``shutdown``.  ``inspect`` and
+``trace`` answer ``bad_request`` naming them as not ported yet.  Errors are ``{"error", "code"}`` with code one of
 ``unknown_model`` / ``bad_feed`` / ``shutting_down`` / ``overloaded`` /
 ``deadline_exceeded`` / ``bad_request`` / ``internal``;
 ``shutting_down`` and ``overloaded`` are retriable (the request never
@@ -55,8 +55,7 @@ SELECTED_PORT_FILE = os.path.join(tempfile.gettempdir(),
 #: bad_request, and the ROADMAP item that brings each
 _NOT_PORTED = {
     "inspect": "ROADMAP queue A item 1 (inspect/trace)",
-    "trace": "ROADMAP queue A item 1 (inspect/trace)",
-    "apply_deltas": "ROADMAP queue A item 1 (hot_rows and apply_deltas)"}
+    "trace": "ROADMAP queue A item 1 (inspect/trace)"}
 
 
 def _encode(arr: np.ndarray) -> dict:
@@ -329,6 +328,14 @@ class _Handler(socketserver.StreamRequestHandler):
                     reloaded = registry.reload(msg["model"])
                     resp = {"ok": True, "reloaded": reloaded,
                             "model": registry.get(msg["model"]).describe()}
+                except Exception as e:  # noqa: BLE001
+                    resp = _err(e)
+            elif method == "apply_deltas":
+                # streaming embedding deltas: rows patched on the live
+                # predictor, no engine drained or rebuilt
+                try:
+                    resp = {"ok": True,
+                            "delta": registry.apply_deltas(msg["model"])}
                 except Exception as e:  # noqa: BLE001
                     resp = _err(e)
             elif method == "shutdown":
@@ -710,6 +717,13 @@ class ServingClient:
         """Hot-swap a model from its dir; False = manifest fingerprint
         unchanged, nothing happened."""
         return self._call({"method": "reload", "model": name})["reloaded"]
+
+    def apply_deltas(self, name: str) -> Dict[str, Any]:
+        """Apply the model dir's ``__delta__.json`` row deltas to the live
+        model: ``{applied, stale, seq, step, rows}`` (``stale`` asks for
+        a reload)."""
+        return self._call({"method": "apply_deltas",
+                           "model": name})["delta"]
 
     def close(self):
         f, sock = self._f, self._sock

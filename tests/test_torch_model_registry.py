@@ -166,11 +166,17 @@ def test_every_wire_error_code_through_the_jax_client(tmp_path, lm_dir):
             with pytest.raises(jserving.ServingError) as ei:
                 c.infer(one, model="a", deadline_ms=0)
             assert ei.value.code == "deadline_exceeded"
-            for verb in ("inspect", "trace", "apply_deltas"):
+            for verb in ("inspect", "trace"):
                 reply = c.raw_call({"method": verb, "model": "a", "id": "x"})
                 assert reply["code"] == "bad_request", reply
                 assert "not ported" in reply["error"]
                 assert "ROADMAP" in reply["error"]
+            # apply_deltas is ported: an unknown model is unknown_model,
+            # a model with no delta chain a no-op
+            reply = c.raw_call({"method": "apply_deltas", "model": "zz"})
+            assert reply["code"] == "unknown_model", reply
+            assert c.raw_call({"method": "apply_deltas", "model": "a"})[
+                "delta"]["applied"] is False
             # a server-side fault is the server's: internal
             pred = reg.get("b").predictor
             real = pred.run_with_info
@@ -416,19 +422,26 @@ def test_registry_load_precision_and_refusals(tmp_path, lm_dir):
                                                          np.float32)})[0]
         got = reg.infer("m8", {"x": np.ones((2, 4), np.float32)})[0]
         np.testing.assert_allclose(got, want, atol=1e-6)
-        for kw in ({"mesh": {"dp": 2}}, {"compile_cache": str(tmp_path)},
-                   {"embedding_cache_rows": 16}):
+        for kw in ({"mesh": {"dp": 2}}, {"compile_cache": str(tmp_path)}):
             with pytest.raises(ValueError, match="ROADMAP"):
                 reg.load("x", d, **kw)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            reg.apply_deltas("m8")
-        # a decode engine at int8 or exact numerics is refused, and the
-        # refused load leaks no engine
-        with pytest.raises(ValueError, match="ROADMAP"):
-            reg.load("lm8", lm_dir, precision="int8")
-        with pytest.raises(ValueError, match="ROADMAP"):
-            reg.load("lmx", lm_dir, decode={"numerics": "exact"})
-        assert reg.names() == ["m8"]
-        assert 'model="lmx"' not in render_prometheus()
+        # no delta chain in the model dir: nothing to apply
+        assert reg.apply_deltas("m8") == {"applied": False, "stale": False,
+                                          "seq": None, "step": None,
+                                          "rows": 0}
+        # a decode engine at int8 and one at exact numerics load; a bad
+        # exact geometry is refused and the refused load leaks no engine
+        lm8 = reg.load("lm8", lm_dir, precision="int8", warmup=[])
+        assert lm8.decode.model.precision == "int8"
+        assert lm8.decode.kv_dtype == "float32"
+        lmx = reg.load("lmx", lm_dir, warmup=[],
+                       decode={"numerics": "exact", "block_len": 4})
+        assert lmx.describe()["decode"]["numerics"] == "exact"
+        with pytest.raises(ValueError, match="max_len"):
+            reg.load("lmy", lm_dir, decode={"numerics": "exact",
+                                            "block_len": 4,
+                                            "pages_per_slot": 2})
+        assert reg.names() == ["lm8", "lmx", "m8"]
+        assert 'model="lmy"' not in render_prometheus()
     finally:
         reg.close()

@@ -1,6 +1,6 @@
 """The port's decode-engine prefix cache against the JAX package's
-(twins of test_decode_engine.py's prefix-cache tests, without the exact
-mode, which the port refuses).
+(twins of test_decode_engine.py's prefix-cache tests; the exact-mode
+twin is in test_torch_exact_decode.py).
 
 A tiny generation model (2 layers, d16, 2 heads, d_ff 32, vocab 32,
 max_len 16) saved by the JAX package, its zero biases and unit LayerNorm
@@ -227,7 +227,12 @@ def test_prefix_cache_rejects_bad_capacity_and_unported_modes(model_dir):
     with pytest.raises(ValueError):
         _engine(model_dir, slots=1, block_len=4, num_blocks=4,
                 prefix_cache_blocks=4)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        _engine(model_dir, numerics="exact")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        _engine(model_dir, precision="int8")
+    # exact numerics and int8 are ported: exact needs the full max_len
+    # span per slot, int8 keeps its KV pools in f32
+    with pytest.raises(ValueError, match="max_len"):
+        _engine(model_dir, numerics="exact", block_len=4, pages_per_slot=2)
+    with _engine(model_dir, numerics="exact", block_len=4,
+                 prefix_cache_blocks=2) as eng:
+        assert eng.stats()["numerics"] == "exact"
+    with _engine(model_dir, precision="int8", block_len=4) as eng:
+        assert eng.kv_dtype == "float32"

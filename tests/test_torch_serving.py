@@ -377,8 +377,8 @@ def test_transpiler_matches_jax_on_nchw_and_folds_nhwc_relu():
 def test_xla_only_and_unported_options_refused(fc_dir, tmp_path):
     with pytest.raises(ValueError, match="ROADMAP"):
         _pred(fc_dir, compile_cache=str(tmp_path / "cc"))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        _pred(fc_dir, embedding_cache_rows=8)
+    # the hot-row cache is ported: an fc net has no table, nothing cached
+    assert _pred(fc_dir, embedding_cache_rows=8)._row_caches == {}
     main = tfluid.Program()
     with tfluid.program_guard(main, tfluid.Program()):
         x = tlayers.data(name="x", shape=[2], dtype="float32")
