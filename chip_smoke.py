@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-13
+    python3 chip_smoke.py             # the smoke run, phases 1-16
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -9,6 +9,8 @@
     python3 chip_smoke.py --ln        # phase 1, LayerNorm phase 3
     python3 chip_smoke.py --decode-modes  # phase 1, the row-stable
                                       # product's phase 3, phase 13
+    python3 chip_smoke.py --vgg       # phase 1, BatchNorm's phase 3,
+                                      # phases 14-16
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -116,6 +118,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    a fresh load of the patched model; hit rate, promotions and requests/s
    cached and uncached.  Launch counts are zeroed before and read after
    each decode run;
+14. train VGG-16 with BatchNorm and dropout (benchmark/fluid/vgg.py:
+   224x224 NCHW, 1000 classes, batch 128, program.amp, Adam 1e-4) through
+   vgg16_bn_drop + Executor.run: 20 steps on one seeded batch, launch
+   counts zeroed just before and read just after (14 BatchNorm backward
+   launches a step on NCHW (N, C, H*W) views and the 2-D fc output),
+   every loss finite and the last below the first; step p50/p99,
+   images/s and the step's bound at the bf16 peak; one more step under
+   torch.profiler, grouped into library products, the BatchNorm backward
+   kernel, the eager BatchNorm forward and statistics, dropout (the
+   kernels their rules launch) and other;
+15. the same VGG-16 in f32 with every dropout probability 0, batch 8:
+   one step from phase 14's state on the card, on the CPU, and in f64 on
+   the CPU, for the feed and two one-ulp moves of it; the loss held as in
+   phase 8, and each @GRAD's distance from the f64 step on the card at
+   most twice the CPU f32 step's plus 1e-4 (the rule of the CPU test
+   against the JAX package); then LeNet-5 (benchmark/fluid/mnist.py:
+   1x28x28, 10 classes, batch 128, amp, Adam 1e-3), 20 steps, no port
+   kernel;
+16. every op rule the port registers (but the optimizers, the backward
+   op and the DynamicRNN, which the training phases run), each as a
+   one-op program on the card and on the CPU from one seeded feed:
+   outputs and the input @GRADs of a weighted-sum loss, integer and bool
+   outputs exactly; the random rules by mean and variance on the card.
+   Its first case is cross_entropy with labels outside [0, V): NaN and
+   the wrapped row as on the CPU, no device assert, and every later case
+   runs on the same CUDA context;
 then a JSON line with every ported kernel's launches, error and times,
 the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
@@ -126,7 +154,8 @@ BatchNorm backward's checks and timings and phase 7; with --lstm phase 1,
 the LSTM and GRU checks and timings and phases 9 and 10; with --ln phase
 1 and the LayerNorm forward and backward checks and timings; with
 --frontdoor phase 1 and phase 12; with --decode-modes phase 1, the
-row-stable product's phase 3 and phase 13.  Each prints its
+row-stable product's phase 3 and phase 13; with --vgg phase 1, the
+BatchNorm backward's checks and timings and phases 14-16.  Each prints its
 results as one JSON line (no result line): run from two checkouts in
 turns, it compares two versions of those kernels on one card.  In these
 modes a recurrent kernel that refuses a width it should place is
@@ -134,12 +163,15 @@ recorded, not fatal, so that an older kernel can be measured too.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -206,19 +238,22 @@ RESNET_LAUNCHES_PER_STEP = dict(
 #: spread between two orders of summation
 RESNET_CPU_BATCH = 2
 RESNET_SPREAD_FACTOR = 4
-#: BatchNorm backward shapes of ResNet-50 at batch 128, (N, H, W, C), and
-#: a ragged one (R 1000 x C 96): each is checked as NHWC (N*H*W, C, 1)
-#: and as NCHW (N, C, H*W)
+#: BatchNorm backward shapes of ResNet-50 at batch 128, (N, H, W, C),
+#: VGG-16's largest launch (block 1) and its fc BatchNorm at batch 128,
+#: and a ragged one (R 1000 x C 96): each is checked as NHWC (N*H*W, C,
+#: 1) and as NCHW (N, C, H*W)
 BN_SHAPES = {"stem": (128, 112, 112, 64),
              "stage-1 expansion": (128, 56, 56, 256),
-             "stage 4": (128, 7, 7, 2048), "ragged": (8, 5, 25, 96)}
+             "stage 4": (128, 7, 7, 2048), "ragged": (8, 5, 25, 96),
+             "vgg block 1": (128, 224, 224, 64), "vgg fc": (128, 1, 1, 512)}
 #: the BatchNorm backward's timed cases, (shape, layout, dtype, act) ->
 #: record key: the main path's dtype and layout at its largest launch
-#: (the stem, relu fused), a stage-1 one, and a stage-4 one whose x and
-#: dy fit in L2
+#: (the stem, relu fused), a stage-1 one, a stage-4 one whose x and dy
+#: fit in L2, and VGG-16's block 1 in its NCHW layout
 BN_TIMED = {("stem", "NHWC", "bfloat16", "relu"): "main",
             ("stage-1 expansion", "NHWC", "bfloat16", None): "training",
-            ("stage 4", "NHWC", "bfloat16", None): "stage4"}
+            ("stage 4", "NHWC", "bfloat16", None): "stage4",
+            ("vgg block 1", "NCHW", "bfloat16", "relu"): "vgg"}
 #: the stacked dynamic LSTM at bench.py bench_lstm's config (:591-626:
 #: models/stacked_lstm.py lstm_net, dict 30000, emb 512, hid 512, three
 #: recurrences) and the GRU classifier of tools/gru_bench.py (vocab 30000,
@@ -235,9 +270,37 @@ SEQ_LAUNCHES_PER_STEP = {
                  lstm_fwd=2, lstm_bwd=2),
     "gru": dict({name: 0 for name in TRAIN_LAUNCHES_PER_STEP},
                 gru_fwd=1, gru_bwd=1)}
+#: phase 16: rules that sum (reductions, products, convolutions, norms,
+#: losses) are held to this many times max(1, max |cpu|) on the card
+#: against the CPU; elementwise rules to F32_TOL
+SUM_TOL = 1e-4
+#: rules phase 16 leaves to the training phases: the optimizers and the
+#: backward op run in every training step, the DynamicRNN in phase 9
+PHASE16_ELSEWHERE = {"adam", "momentum", "sgd", "backward", "dynamic_rnn"}
 #: phase 11: one f32 step of each at full width on the card and the CPU,
 #: batch 4, ragged lengths
 SEQ_CPU_BATCH = 4
+#: VGG-16 bn_drop at benchmark/fluid/vgg.py's config (:14-38 with
+#: bench_util.py:19-30's defaults): 224x224 NCHW, 1000 classes, batch
+#: 128, program.amp, Adam 1e-4
+VGG_CONFIG = dict(image_shape=(3, 224, 224), class_dim=1000, lr=1e-4)
+VGG_BATCH, VGG_STEPS = 128, 20
+#: BatchNorm backward launches per VGG-16 step: the 13 conv BatchNorms
+#: (relu fused, NCHW (N, C, H*W) views) and the one over the fc output
+VGG_LAUNCHES_PER_STEP = dict(
+    {name: 0 for name in TRAIN_LAUNCHES_PER_STEP}, batch_norm_bwd=14)
+#: phase 15: one f32 VGG-16 step at batch 8 on the card and on the CPU,
+#: each held to the f64 step on the CPU, for the feed and
+#: VGG_F32_DRAWS - 1 one-ulp moves of it; the slack of the distance rule
+#: (tests/test_torch_book_models.py NORM_TOL)
+VGG_CPU_BATCH = 8
+VGG_F32_DRAWS = 3
+VGG_NORM_TOL = 1e-4
+#: LeNet-5 at benchmark/fluid/mnist.py's config (:14-30): 1x28x28, 10
+#: classes, batch 128, program.amp, Adam 1e-3; it runs no port kernel
+LENET_CONFIG = dict(image_shape=(1, 28, 28), class_num=10, lr=1e-3)
+LENET_BATCH, LENET_STEPS = 128, 20
+LENET_LAUNCHES_PER_STEP = {name: 0 for name in TRAIN_LAUNCHES_PER_STEP}
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -708,7 +771,8 @@ def check_batch_norm_bwd(rec):
     BN_SHAPES shape, NHWC and NCHW, f32 and bf16, relu and none; a second
     run at the main path's largest launch (stem, NHWC, bf16, relu) must
     repeat bit for bit.  Timed (BN_TIMED) at the stem, at a stage-1
-    launch and at a stage-4 one, whose x and dy (12.8 MB) fit in L2."""
+    launch, at a stage-4 one, whose x and dy (12.8 MB) fit in L2, and at
+    VGG-16's block 1 as NCHW (128, 64, 50176)."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
     dev = torch.device("cuda")
@@ -744,7 +808,7 @@ def check_batch_norm_bwd(rec):
                     del got
                     key = BN_TIMED.get(case)
                     if key is not None:
-                        t = _bn_timings(args, (n, h, w, c))
+                        t = _bn_timings(args, (n, h, w, c), layout)
                         if key == "main":
                             rec.update(t)
                         else:
@@ -764,29 +828,36 @@ def _bitwise_repeat(name, got, again, label, rec):
     rec.setdefault("bitwise_repeat", []).append(label)
 
 
-def _bn_timings(args, nhwc):
+def _bn_timings(args, nhwc, layout="NHWC"):
     """Kernel, plain and library times (CUDA events and device time per
-    call) and the bound of the BatchNorm backward on NHWC ``args``, with
-    the device time split by kernel (sums, reduce, dx); the library is
-    F.batch_norm's backward (cuDNN) on the same tensors in channels_last
-    memory, no relu."""
+    call) and the bound of the BatchNorm backward on ``args`` (a
+    ``layout`` view of an (N, H, W, C) activation), with the device time
+    split by kernel (sums, reduce, dx); the library is F.batch_norm's
+    backward (cuDNN) on the same tensors in the same memory format
+    (channels_last for NHWC), no relu."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
     x, dy, sc, bi = args[:4]
     n, h, w, c = nhwc
     numel = x.numel()
+
+    def nchw(t):
+        return (t.view(nhwc).permute(0, 3, 1, 2) if layout == "NHWC"
+                else t.view(n, c, h, w))
     xx, ww, bb = (t.detach().requires_grad_(True)
-                  for t in (x.view(nhwc).permute(0, 3, 1, 2), sc, bi))
+                  for t in (nchw(x), sc, bi))
     lib = F.batch_norm(xx, None, None, ww, bb, training=True)
-    gy = dy.view(nhwc).permute(0, 3, 1, 2)
+    gy = nchw(dy)
+    rows = n * h * w if layout == "NHWC" else n
     return _kernel_times(
         {}, lambda: K.batch_norm_bwd(*args),
         lambda: K.batch_norm_bwd_plain(*args),
         lambda: torch.autograd.grad(lib, (xx, ww, bb), gy,
                                     retain_graph=True),
         3 * numel * x.element_size() + 6 * c * 4, 15 * numel, "float32",
-        f"R{n * h * w} C{c} NHWC {str(x.dtype)[6:]} act={args[6]}")
+        f"R{rows} C{c}{'' if layout == 'NHWC' else f' S{h * w}'} {layout} "
+        f"{str(x.dtype)[6:]} act={args[6]}")
 
 
 def check_flash_attention_bwd(rec):
@@ -2291,7 +2362,7 @@ def _copy_feed(batch, seed):
 
 
 def _train_steps(main, startup, avg_cost, feed, steps, per_step,
-                 other="other"):
+                 other="other", ranges=None):
     """Startup, then ``steps`` steps of ``main`` on the card on one fixed
     feed, with the launch counts zeroed just before the steps and read
     just after, then one profiled step.  Fails unless each kernel
@@ -2328,7 +2399,7 @@ def _train_steps(main, startup, avg_cost, feed, steps, per_step,
                   f"{ms[-1]:.2f} ms", flush=True)
         launches = {k.name: k.launches for k in K.KERNELS}
         peak = torch.cuda.max_memory_allocated()
-        device = _profile_step(exe, main, feed, avg_cost, other)
+        device = _profile_step(exe, main, feed, avg_cost, other, ranges)
         state = {n: t.cpu().numpy() for n, t in scope._vars.items()}
     print(f"  launches in {steps} steps: {launches}", flush=True)
     for name, n in per_step.items():
@@ -2365,21 +2436,52 @@ def train(seed=0):
     return launches, e2e, state
 
 
-def _profile_step(exe, main, feed, avg_cost, other="other"):
+@contextlib.contextmanager
+def _op_ranges(op_types):
+    """Run each rule of ``op_types`` inside a profiler range named
+    ``op:<type>`` (the kernels it launches count toward that range's
+    device time); the rules are restored on exit."""
+    import torch
+    from paddle_tpu_torch.core.registry import OpRegistry
+    saved = {}
+
+    def ranged(fn, op_type):
+        def rule(ctx):
+            with torch.profiler.record_function("op:" + op_type):
+                return fn(ctx)
+        return rule
+    try:
+        for t in op_types:
+            saved[t] = OpRegistry.get(t).fn
+            OpRegistry.get(t).fn = ranged(saved[t], t)
+        yield
+    finally:
+        for t, fn in saved.items():
+            OpRegistry.get(t).fn = fn
+
+
+def _profile_step(exe, main, feed, avg_cost, other="other", ranges=None):
     """One more step under torch.profiler: device time by kernel name;
     returns the step's device ms in all and by group (None if the
     profiler fails); ``other`` names the group of everything that is not
-    a port kernel, a library product or a reduction.  A measurement aid
-    only; its failure is reported, not fatal."""
+    a port kernel, a library product or a reduction.  ``ranges`` (group
+    name -> op type) takes the device time of every kernel an op's rule
+    launches (its forward) into a group of its own, in place of the
+    reductions group.  A measurement aid only; its failure is reported,
+    not fatal."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    ranges = ranges or {}
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _op_ranges(ranges.values()), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             exe.run(main, feed=feed, fetch_list=[avg_cost])
             torch.cuda.synchronize()
-        kernels = [r for r in prof.key_averages()
-                   if r.device_type == torch.autograd.DeviceType.CUDA]
+        rows = prof.key_averages()
+        kernels = [r for r in rows
+                   if r.device_type == torch.autograd.DeviceType.CUDA
+                   and not r.key.startswith("op:")]
         total = sum(r.device_time_total for r in kernels)
         print(f"  profiled step (first 15 kernels, then the port's): "
               f"{total / 1e3:.2f} ms of device time in "
@@ -2393,18 +2495,27 @@ def _profile_step(exe, main, feed, avg_cost, other="other"):
                 print(f"    {r.device_time_total / 1e3:9.3f}  "
                       f"x{r.count:<5d} {r.key[:100]}")
         # the same time in groups: the port's kernels, library products
-        # (cuDNN convolutions, cuBLAS/CUTLASS GEMMs), PyTorch reductions,
-        # and the rest (elementwise math, casts, copies, fills)
+        # (cuDNN convolutions, cuBLAS/CUTLASS GEMMs), PyTorch reductions
+        # (or the ranges' ops), and the rest (elementwise math, casts,
+        # copies, fills)
         groups = {"port": ours,
                   "library products": ("xmma", "gemm", "conv", "cudnn",
                                        "cutlass", "implicit", "wgrad",
-                                       "dgrad", "fprop", "nvjet"),
-                  "reductions": ("reduce_kernel",)}
-        sums = dict.fromkeys(list(groups) + [other], 0.0)
+                                       "dgrad", "fprop", "nvjet")}
+        if not ranges:
+            groups["reductions"] = ("reduce_kernel",)
+        sums = dict.fromkeys(list(groups) + list(ranges) + [other], 0.0)
         for r in kernels:
             name = next((g for g, keys in groups.items()
                          if any(k in r.key.lower() for k in keys)), other)
             sums[name] += r.device_time_total / 1e3
+        for group, op_type in ranges.items():
+            ms = sum(r.device_time_total for r in rows
+                     if r.key == "op:" + op_type
+                     and r.device_type == torch.autograd.DeviceType.CPU
+                     ) / 1e3
+            sums[group] = ms
+            sums[other] -= ms
         print("  by group (ms): " + ", ".join(
             f"{g} {t:.2f}" for g, t in sums.items()), flush=True)
         return dict({"all": total / 1e3}, **sums)
@@ -2414,12 +2525,14 @@ def _profile_step(exe, main, feed, avg_cost, other="other"):
         return None
 
 
-def _step(place, main, avg_cost, feed, state):
+def _step(place, main, avg_cost, feed, state, params=None):
     """One step of ``main`` on ``place`` from the carried-in ``state``:
-    (parameter names, [loss, then each parameter's @GRAD])."""
+    (parameter names, [loss, then each parameter's @GRAD]); ``params``
+    names the parameters, else those ``main`` trains."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import io as pio
-    params = [p.name for p in main.all_parameters() if p.trainable]
+    params = params or [p.name for p in main.all_parameters()
+                        if p.trainable]
     exe = fluid.Executor(place)
     scope = fluid.core.scope.Scope()
     pio.scope_from_numpy(scope, main, state, exe.device)
@@ -2579,6 +2692,787 @@ def resnet_card_vs_cpu(state, seed=0):
     return {"loss_rel_err": loss_err, "grad_norm_rel_err_max": errs[0][0],
             "cpu_spread_max": spread[0][0], "grad_limit": limit,
             "grads_compared": len(params)}
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: VGG-16 and LeNet-5 training through the Fluid front end
+# ---------------------------------------------------------------------------
+
+def _image_program(model, seed, amp, dropout=True):
+    """Build VGG-16 bn_drop (``model`` "vgg") or LeNet-5 ("lenet") as
+    benchmark/fluid/vgg.py and mnist.py do: data layers, the model,
+    cross_entropy, mean, Adam, in fresh default programs; without
+    ``dropout`` every dropout op's probability is 0.  Returns (main,
+    startup, avg_cost)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.models import lenet, vgg
+    fluid.core.program.reset_default_programs()
+    cfg = VGG_CONFIG if model == "vgg" else LENET_CONFIG
+    img = layers.data(name="img", shape=list(cfg["image_shape"]),
+                      dtype="float32")
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    if model == "vgg":
+        predict = vgg.vgg16_bn_drop(img, class_dim=cfg["class_dim"])
+        avg_cost = layers.mean(layers.cross_entropy(input=predict,
+                                                    label=label))
+    else:
+        avg_cost, _, _ = lenet.lenet(img, label, class_num=cfg["class_num"])
+    main = fluid.default_main_program()
+    if not dropout:
+        for op in main.global_block().ops:
+            if op.type == "dropout":
+                op.desc.attrs["dropout_prob"] = 0.0
+    optimizer.Adam(learning_rate=cfg["lr"]).minimize(avg_cost)
+    main.amp = amp
+    startup = fluid.default_startup_program()
+    startup.random_seed = seed
+    return main, startup, avg_cost
+
+
+def _nchw_feed(model, batch, seed, device):
+    """One fixed batch of seeded images in [0, 1) and labels on
+    ``device`` (the benchmark scripts feed synthetic numpy too)."""
+    import numpy as np
+    import torch
+    cfg = VGG_CONFIG if model == "vgg" else LENET_CONFIG
+    classes = cfg.get("class_dim", cfg.get("class_num"))
+    rng = np.random.default_rng(seed)
+    return {"img": torch.from_numpy(rng.random(
+                (batch,) + cfg["image_shape"], dtype=np.float32)).to(device),
+            "label": torch.from_numpy(rng.integers(
+                0, classes, (batch, 1))).to(device)}
+
+
+def _forward_flops(main, batch):
+    """Operations of one forward at ``batch`` (2 a multiply-add): every
+    conv2d and mul of ``main``."""
+    flops = 0
+    block = main.global_block()
+    for op in block.ops:
+        if op.type == "conv2d":
+            w = block.var(op.desc.inputs["Filter"][0]).shape
+            out = block.var(op.desc.outputs["Output"][0]).shape
+            flops += 2 * batch * math.prod(out[1:]) * math.prod(w[1:])
+        elif op.type == "mul":
+            w = block.var(op.desc.inputs["Y"][0]).shape
+            flops += 2 * batch * w[0] * w[1]
+    return flops
+
+
+def train_image(model, seed=0):
+    """Phase 14 (VGG-16) or the second part of phase 15 (LeNet-5): 20
+    Adam steps at the benchmark script's config under program.amp on the
+    card, on one fixed batch staged on the card."""
+    import torch
+    batch, steps = ((VGG_BATCH, VGG_STEPS) if model == "vgg"
+                    else (LENET_BATCH, LENET_STEPS))
+    main, startup, avg_cost = _image_program(model, seed, amp=True)
+    launches, e2e, state = _train_steps(
+        main, startup, avg_cost, _nchw_feed(model, batch, seed,
+                                            torch.device("cuda")),
+        steps, VGG_LAUNCHES_PER_STEP if model == "vgg"
+        else LENET_LAUNCHES_PER_STEP,
+        ranges={"eager BatchNorm forward and statistics": "batch_norm",
+                "dropout": "dropout"} if model == "vgg" else None)
+    e2e["images_per_s"] = batch * 1e3 / e2e["step_ms_p50"]
+    # a step is a forward and a backward of about twice its operations
+    e2e["step_flop"] = 3 * _forward_flops(main, batch)
+    e2e["step_bound_ms"] = e2e["step_flop"] / PEAK_OPS["bfloat16"] * 1e3
+    e2e["parameters"] = sum(math.prod(p.shape) for p in main.all_parameters()
+                            if p.trainable)
+    device = e2e["profiled_device_ms"]
+    e2e["batch_norm_bwd_launches_per_step"] = (launches["batch_norm_bwd"]
+                                               / steps)
+    print(f"  {model}: {e2e['parameters']} trainable parameters; "
+          f"{e2e['batch_norm_bwd_launches_per_step']:g} BatchNorm backward "
+          f"launches a step; step p50 "
+          f"{e2e['step_ms_p50']:.3f} ms against a {e2e['step_bound_ms']:.3f}"
+          f" ms bound ({e2e['step_flop'] / 1e12:.3f} TFLOP at the bf16 "
+          f"peak), {e2e['images_per_s']:.1f} images/s, loss "
+          f"{e2e['loss_first']:.5f} -> {e2e['loss_last']:.5f}, device busy "
+          f"share {e2e['device_busy_share']}, peak memory "
+          f"{e2e['peak_mem_gib']:.2f} GiB; device ms by group: {device}",
+          flush=True)
+    return launches, e2e, state
+
+
+def _f64_program(main):
+    """A parsed copy of ``main`` with every f32 variable in f64."""
+    from paddle_tpu_torch.core.program import Program
+    prog = Program.parse_from_string(main.serialize_to_string())
+    for v in prog.list_vars():
+        if v.dtype == "float32":
+            v.desc.dtype = "float64"
+    return prog
+
+
+def _f64_arrays(arrays):
+    return {k: (v.astype(np.float64) if v.dtype == np.float32 else v)
+            for k, v in arrays.items()}
+
+
+@contextlib.contextmanager
+def _bn_bwd_plain_on_card():
+    """The BatchNorm backward's plain version in place of its kernel, on
+    the card's tensors (phase 15's anatomy only: a measurement aid)."""
+    from paddle_tpu_torch.ops import kernels as K
+    kernel = K.batch_norm_bwd
+    K.batch_norm_bwd = K.batch_norm_bwd_plain
+    try:
+        yield
+    finally:
+        K.batch_norm_bwd = kernel
+
+
+@contextlib.contextmanager
+def _cudnn_off():
+    """The card's convolutions by PyTorch's native kernels, not cuDNN's
+    (phase 15's anatomy only)."""
+    import torch
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = True
+
+
+def _leaf_errs(got, want):
+    """Each @GRAD's norm-wise distance ||got - want|| / max(1, ||want||):
+    a conv bias in front of a BatchNorm has a zero gradient in exact
+    arithmetic, so its @GRAD is rounding and is held to its size."""
+    return [float(np.linalg.norm(np.asarray(a, np.float64) - b)
+                  / max(float(np.linalg.norm(b)), 1.0))
+            for a, b in zip(got[1:], want[1:])]
+
+
+def vgg_card_vs_cpu(state, seed=0, anatomy=False):
+    """Phase 15: VGG-16 in f32 (amp off, TF32 off) at batch VGG_CPU_BATCH
+    with every dropout probability 0 (torch's masks differ between the
+    card and the CPU), one step from phase 14's state.  The step is
+    ill-conditioned: a relu mask or a max-pool choice that flips on one
+    rounding moves every gradient below it by up to 1e-2, and the f64
+    step itself moves about that far when the feed moves by one ulp.  So
+    two f32 steps are held to the exact step, not to each other.  For the
+    feed and VGG_F32_DRAWS - 1 moves of it (every
+    pixel by one ulp, signs from a seed) the port takes the step in f64
+    on the CPU (the reference, which tests/test_torch_book_models.py
+    holds to the JAX package), in f32 on the CPU (plain versions) and in
+    f32 on the card (kernels).  Each @GRAD's norm-wise distance from that
+    draw's f64 step is taken; on every @GRAD the card's largest over the
+    draws must be at most twice the CPU's largest plus VGG_NORM_TOL, the
+    rule the CPU test holds the port to against the JAX package.  The
+    loss must agree with the CPU's to CPU_LOSS_RTOL on the feed.  Prints
+    every @GRAD's distances, and how far each moved feed's f64 step
+    lies from the feed's.  With ``anatomy`` (``--vgg-f32``) the card also
+    takes the feed's step with cuDNN off (PyTorch's native convolutions)
+    and with the BatchNorm backward's plain version on the card, which
+    separates the library's convolutions and the kernel from the rest."""
+    import torch
+    import paddle_tpu_torch as fluid
+    main, _, avg_cost = _image_program("vgg", seed, amp=False,
+                                       dropout=False)
+    prog64, state64 = _f64_program(main), _f64_arrays(state)
+    feed = {k: v.numpy() for k, v in _nchw_feed(
+        "vgg", VGG_CPU_BATCH, seed + 1, torch.device("cpu")).items()}
+    rng = np.random.default_rng(seed)
+    img = feed["img"]
+    feeds = [feed] + [dict(feed, img=img + np.spacing(img) * rng.choice(
+        [-1.0, 1.0], img.shape).astype(np.float32))
+        for _ in range(VGG_F32_DRAWS - 1)]
+    card, cpu, exact = [], [], []
+    for f in feeds:
+        params, out = _step(fluid.CUDAPlace(0), main, avg_cost, f, state)
+        card.append(out)
+        cpu.append(_step(fluid.CPUPlace(), main, avg_cost, f, state)[1])
+        exact.append(_step(fluid.CPUPlace(), prog64, avg_cost,
+                           _f64_arrays(f), state64, params)[1])
+    loss_err = abs(float(card[0][0]) - float(cpu[0][0])) / abs(
+        float(cpu[0][0]))
+    e_card = np.array([_leaf_errs(c, x) for c, x in zip(card, exact)])
+    e_cpu = np.array([_leaf_errs(c, x) for c, x in zip(cpu, exact)])
+    moved = np.array([_leaf_errs(x, exact[0]) for x in exact[1:]])
+    card_max, cpu_max = e_card.max(0), e_cpu.max(0)
+    limit = 2 * cpu_max + VGG_NORM_TOL
+    extra = {}
+    if anatomy:
+        for name, ctx in (("cudnn_off", _cudnn_off()),
+                          ("bn_bwd_plain", _bn_bwd_plain_on_card())):
+            with ctx:
+                out = _step(fluid.CUDAPlace(0), main, avg_cost, feed,
+                            state)[1]
+            extra[name] = _leaf_errs(out, exact[0])
+    print(f"  loss relative error {loss_err:.3e} (limit {CPU_LOSS_RTOL}); "
+          f"each @GRAD's norm-wise distance from the f64 step over "
+          f"{VGG_F32_DRAWS} draws (the feed, then one-ulp moves): card | "
+          "CPU f32 | the moved feed's f64 step from the feed's"
+          + "".join(f" | card {k} on the feed" for k in extra), flush=True)
+    for i, name in enumerate(params):
+        print(f"    {name}: " + " ".join(f"{e:.2e}" for e in e_card[:, i])
+              + " | " + " ".join(f"{e:.2e}" for e in e_cpu[:, i])
+              + " | " + " ".join(f"{e:.2e}" for e in moved[:, i])
+              + "".join(f" | {v[i]:.2e}" for v in extra.values())
+              + ("  OVER" if card_max[i] > limit[i] else ""))
+    worst = int(np.argmax(card_max / limit))
+    rec = {"loss_rel_err": loss_err, "draws": VGG_F32_DRAWS,
+           "card_max": float(card_max.max()),
+           "cpu_max": float(cpu_max.max()),
+           "card_median": float(np.median(e_card)),
+           "cpu_median": float(np.median(e_cpu)),
+           "exact_moved_max": float(moved.max()),
+           "worst_leaf": params[worst],
+           "worst_leaf_card": float(card_max[worst]),
+           "worst_leaf_limit": float(limit[worst]),
+           "grads_compared": len(params)}
+    rec.update({f"{k}_max": float(max(v)) for k, v in extra.items()})
+    print(f"  {json.dumps(rec)}", flush=True)
+    if loss_err > CPU_LOSS_RTOL or (card_max > limit).any():
+        raise AssertionError("the card's VGG-16 step is farther from the "
+                             "f64 step than the CPU's f32 step allows")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 16: every op rule on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _op_case(op, inputs, attrs=None, outs=("Out",), loss=None, nodiff=(),
+             seq_len=None, sums=False):
+    """One phase-16 case: ``inputs`` slot -> (kind, shape, *args), an
+    array, or a list of those; ``sums`` marks a rule whose outputs sum
+    (reductions, products, convolutions, norms, losses)."""
+    return dict(op=op, inputs=inputs, attrs=attrs or {}, outs=outs,
+                loss=loss, nodiff=nodiff, seq_len=seq_len or {}, sums=sums)
+
+
+def _u(shape, lo=-2.0, hi=2.0):
+    return ("u", shape, lo, hi)
+
+
+def _away(shape, *kinks):
+    """Uniform in [-2, 2) kept 0.2 away from each kink (0 by default)."""
+    return ("away", shape, kinks or (0.0,))
+
+
+#: the op rules phase 16 holds on the card against the CPU: each rule of
+#: tests/test_op_grad.py's SPECS that the port registers (its shapes and
+#: attributes, values drawn from a seed; the kernel rules at shapes their
+#: kernels take), with the input @GRADs of a weighted-sum loss
+OP_CASES = (
+    [_op_case(a, {"X": _u((2, 3))}) for a in (
+        "sigmoid", "logsigmoid", "exp", "tanh", "tanh_shrink", "cos", "sin",
+        "square", "softplus", "softsign", "gelu", "silu")]
+    + [_op_case(a, {"X": _u((2, 3), 0.3, 2.0)})
+       for a in ("sqrt", "rsqrt", "reciprocal", "log")]
+    + [_op_case("relu", {"X": _away((2, 3))}),
+       _op_case("abs", {"X": _away((2, 3))}),
+       _op_case("ceil", {"X": _away((2, 3), -1.0, 0.0, 1.0)}),
+       _op_case("floor", {"X": _away((2, 3), -1.0, 0.0, 1.0)}),
+       _op_case("round", {"X": _away((2, 3), -1.5, -0.5, 0.5, 1.5)}),
+       _op_case("softshrink", {"X": _away((2, 3), -0.5, 0.5)},
+                {"lambda": 0.5}),
+       _op_case("hard_shrink", {"X": _away((2, 3), -0.5, 0.5)},
+                {"threshold": 0.5}),
+       _op_case("brelu", {"X": _away((2, 3), -1.0, 1.0)},
+                {"t_min": -1.0, "t_max": 1.0}),
+       _op_case("leaky_relu", {"X": _away((2, 3))}, {"alpha": 0.1}),
+       _op_case("soft_relu", {"X": _u((2, 3), -1.5, 1.5)},
+                {"threshold": 4.0}),
+       _op_case("elu", {"X": _away((2, 3))}, {"alpha": 0.8}),
+       _op_case("relu6", {"X": _away((2, 3))}, {"threshold": 6.0}),
+       _op_case("pow", {"X": _u((2, 3), 0.3, 2.0)}, {"factor": 2.5}),
+       _op_case("stanh", {"X": _u((2, 3))}, {"scale_a": 0.67,
+                                               "scale_b": 1.72}),
+       _op_case("hard_sigmoid", {"X": _away((2, 3), -2.5, 2.5)},
+                {"slope": 0.2, "offset": 0.5}),
+       _op_case("swish", {"X": _u((2, 3))}, {"beta": 1.5}),
+       _op_case("thresholded_relu", {"X": _away((2, 3), 1.0)},
+                {"threshold": 1.0}),
+       _op_case("sign", {"X": _away((2, 3))}),
+       _op_case("clip", {"X": _away((2, 3), -1.0, 1.0)},
+                {"min": -1.0, "max": 1.0}),
+       _op_case("cumsum", {"X": _u((2, 3))}, {"axis": 1}, sums=True),
+       _op_case("log_softmax", {"X": _u((2, 3))}, {"axis": -1}, sums=True)]
+    + [_op_case(a, {"X": _u((2, 3)), "Y": _u((2, 3))}) for a in (
+        "elementwise_add", "elementwise_sub", "elementwise_mul")]
+    + [_op_case("elementwise_div", {"X": _u((2, 3)),
+                                    "Y": _u((2, 3), 0.4, 2.0)}),
+       _op_case("elementwise_max", {"X": _u((2, 3)), "Y": _u((2, 3))}),
+       _op_case("elementwise_min", {"X": _u((2, 3)), "Y": _u((2, 3))}),
+       _op_case("elementwise_pow", {"X": _u((2, 3), 0.4, 1.8),
+                                    "Y": _u((2, 3), 0.5, 2.0)}),
+       _op_case("elementwise_mod", {"X": _u((2, 3), 0.3, 0.9),
+                                    "Y": _u((2, 3), 1.0, 1.0)},
+                nodiff=("Y",)),
+       _op_case("elementwise_add", {"X": _u((2, 3)), "Y": _u((3,))},
+                {"axis": 1}),
+       _op_case("sharding_constraint", {"X": _u((2, 3))},
+                {"logical_axes": ["batch", "embed"]}),
+       _op_case("reduce_sum", {"X": _u((2, 3))}, {"dim": [1]}, sums=True),
+       _op_case("reduce_mean", {"X": _u((2, 3))}, {"reduce_all": True},
+                sums=True),
+       _op_case("reduce_max", {"X": _u((2, 3))}, {"dim": [1]}, sums=True),
+       _op_case("reduce_min", {"X": _u((2, 3))}, {"dim": [1]}, sums=True),
+       _op_case("reduce_prod", {"X": _u((2, 3), 0.5, 1.5)},
+                {"reduce_all": True}, sums=True),
+       _op_case("mean", {"X": _u((2, 3))}, sums=True),
+       _op_case("sum", {"X": [_u((2, 3)), _u((2, 3)), _u((2, 3))]}),
+       _op_case("scale", {"X": _u((2, 3))}, {"scale": 2.5, "bias": 0.5}),
+       _op_case("squared_l2_norm", {"X": _u((2, 3))}, sums=True),
+       _op_case("l2_normalize", {"X": _u((2, 3), 0.3, 2.0)},
+                {"axis": 1, "epsilon": 1e-12}, sums=True),
+       _op_case("norm", {"X": _u((2, 3), 0.3, 2.0), "Scale": _u((3,))},
+                {"epsilon": 1e-10}, ("Out", "Norm"), ("Out",), sums=True),
+       _op_case("clip_by_norm", {"X": _u((2, 3), -0.2, 0.2)},
+                {"max_norm": 5.0}, sums=True),
+       _op_case("clip_by_norm", {"X": _u((2, 3), -20.0, 20.0)},
+                {"max_norm": 1.0}, sums=True),
+       _op_case("cos_sim", {"X": _u((2, 4), 0.2, 1.0),
+                            "Y": _u((2, 4), 0.2, 1.0)}, {},
+                ("Out", "XNorm", "YNorm"), ("Out",), sums=True),
+       _op_case("mul", {"X": _u((2, 3)), "Y": _u((3, 4))},
+                {"x_num_col_dims": 1, "y_num_col_dims": 1}, sums=True),
+       _op_case("matmul", {"X": _u((2, 3)), "Y": _u((3, 4))}, sums=True),
+       _op_case("matmul", {"X": _u((3, 2)), "Y": _u((4, 3))},
+                {"transpose_X": True, "transpose_Y": True, "alpha": 0.5},
+                sums=True),
+       _op_case("conv2d", {"Input": _u((2, 3, 6, 6)),
+                           "Filter": _u((4, 3, 3, 3), -0.5, 0.5)},
+                {"strides": [1, 1], "paddings": [1, 1],
+                 "dilations": [1, 1], "groups": 1}, ("Output",), sums=True),
+       _op_case("depthwise_conv2d", {"Input": _u((2, 3, 6, 6)),
+                                     "Filter": _u((3, 1, 3, 3), -0.5, 0.5)},
+                {"strides": [1, 1], "paddings": [1, 1], "groups": 3},
+                ("Output",), sums=True),
+       _op_case("conv2d_transpose", {"Input": _u((2, 3, 4, 4)),
+                                     "Filter": _u((3, 4, 3, 3), -0.5, 0.5)},
+                {"strides": [2, 2], "paddings": [1, 1],
+                 "dilations": [1, 1]}, ("Output",), sums=True),
+       _op_case("conv3d", {"Input": _u((1, 2, 4, 4, 4)),
+                           "Filter": _u((3, 2, 3, 3, 3), -0.5, 0.5)},
+                {"strides": [1, 1, 1], "paddings": [1, 1, 1],
+                 "dilations": [1, 1, 1], "groups": 1}, ("Output",),
+                sums=True),
+       _op_case("pool2d", {"X": _u((2, 2, 4, 4))},
+                {"pooling_type": "avg", "ksize": [2, 2], "strides": [2, 2],
+                 "paddings": [0, 0]}, sums=True),
+       _op_case("pool2d", {"X": _u((2, 2, 5, 5))},
+                {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+                 "paddings": [1, 1], "ceil_mode": True}, sums=True),
+       _op_case("pool3d", {"X": _u((1, 2, 4, 4, 4))},
+                {"pooling_type": "avg", "ksize": [2, 2, 2],
+                 "strides": [2, 2, 2], "paddings": [0, 0, 0]}, sums=True),
+       _op_case("batch_norm",
+                {"X": _u((3, 2, 3, 3)), "Scale": _u((2,), 0.5, 1.5),
+                 "Bias": _u((2,), -0.5, 0.5), "Mean": _u((2,), 0.0, 0.0),
+                 "Variance": _u((2,), 1.0, 1.0)},
+                {"momentum": 0.9, "epsilon": 1e-5, "is_test": False},
+                ("Y", "MeanOut", "VarianceOut", "SavedMean",
+                 "SavedVariance"), ("Y",), ("Mean", "Variance"), sums=True),
+       _op_case("layer_norm", {"X": _u((3, 37)), "Scale": _u((37,), 0.5, 1.5),
+                               "Bias": _u((37,), -0.5, 0.5)},
+                {"begin_norm_axis": 1, "epsilon": 1e-5},
+                ("Y", "Mean", "Variance"), ("Y",), sums=True),
+       _op_case("lrn", {"X": _u((2, 4, 3, 3), 0.2, 1.0)},
+                {"n": 3, "k": 1.0, "alpha": 1e-2, "beta": 0.75},
+                ("Out", "MidOut"), ("Out",), sums=True),
+       _op_case("softmax", {"X": _u((2, 3))}, sums=True),
+       _op_case("maxout", {"X": _u((2, 4, 3, 3))}, {"groups": 2}),
+       _op_case("prelu", {"X": _away((2, 3)), "Alpha": _u((1,), 0.1, 0.4)},
+                {"mode": "all"}),
+       _op_case("prelu", {"X": _away((2, 3, 2)),
+                          "Alpha": _u((3,), 0.1, 0.4)}, {"mode": "channel"}),
+       _op_case("dropout", {"X": _u((2, 3))},
+                {"dropout_prob": 0.35, "is_test": True}),
+       _op_case("pad", {"X": _u((2, 3))},
+                {"paddings": [0, 1, 1, 0], "pad_value": 0.5}),
+       _op_case("pad_constant_like", {"X": _u((3, 4)), "Y": _u((2, 3))},
+                {"pad_value": 0.0}, nodiff=("X",)),
+       _op_case("amp_cast", {"X": _u((3, 4))}),
+       _op_case("cross_entropy", {"X": ("probs", (3, 4)),
+                                  "Label": ("ids", (3, 1), 4)},
+                {"soft_label": False}, ("Y",), sums=True),
+       _op_case("cross_entropy", {"X": ("probs", (3, 4)),
+                                  "Label": ("probs", (3, 4))},
+                {"soft_label": True}, ("Y",), nodiff=("Label",), sums=True),
+       _op_case("cross_entropy", {"X": ("probs", (3, 5, 4)),
+                                  "Label": ("ids", (3, 5, 1), 4)},
+                {"soft_label": False}, ("Y",), seq_len={"Label": [5, 2, 3]},
+                sums=True),
+       _op_case("softmax_with_cross_entropy",
+                {"Logits": _u((3, 4)), "Label": ("ids", (3, 1), 4)},
+                {"soft_label": False}, ("Loss", "Softmax"), ("Loss",),
+                sums=True),
+       _op_case("softmax_with_cross_entropy",
+                {"Logits": _u((3, 4)), "Label": ("probs", (3, 4))},
+                {"soft_label": True}, ("Loss", "Softmax"), ("Loss",),
+                nodiff=("Label",), sums=True),
+       _op_case("sigmoid_cross_entropy_with_logits",
+                {"X": _u((3, 4)), "Label": _u((3, 4), 0.0, 1.0)},
+                nodiff=("Label",)),
+       _op_case("smooth_l1_loss",
+                {"X": _u((2, 4), -1, 1), "Y": _u((2, 4), -1, 1),
+                 "InsideWeight": _u((2, 4), 0.5, 1.5),
+                 "OutsideWeight": _u((2, 4), 0.5, 1.5)}, {"sigma": 1.0},
+                ("Out", "Diff"), ("Out",), ("InsideWeight", "OutsideWeight"),
+                sums=True),
+       _op_case("squared_l2_distance", {"X": _u((2, 4)), "Y": _u((2, 4))},
+                {}, ("Out", "sub_result"), ("Out",), sums=True),
+       _op_case("huber_loss", {"X": _u((3, 1)), "Y": _u((3, 1))},
+                {"delta": 0.5}, ("Out", "Residual"), ("Out",)),
+       _op_case("rank_loss", {"Label": ("bits", (3, 1)), "Left": _u((3, 1)),
+                              "Right": _u((3, 1))}, nodiff=("Label",)),
+       _op_case("margin_rank_loss",
+                {"Label": ("signs", (3, 1)), "X1": _u((3, 1)),
+                 "X2": _u((3, 1))}, {"margin": 0.1}, ("Out", "Activated"),
+                ("Out",), ("Label",)),
+       _op_case("hinge_loss", {"Logits": _away((3, 1), -1.0, 1.0),
+                               "Labels": ("bits", (3, 1))}, {}, ("Loss",),
+                nodiff=("Labels",)),
+       _op_case("log_loss", {"Predicted": _u((3, 1), 0.2, 0.8),
+                             "Labels": ("bits", (3, 1))},
+                {"epsilon": 1e-4}, ("Loss",), nodiff=("Labels",)),
+       _op_case("lookup_table", {"W": _u((6, 4)), "Ids": ("ids", (3, 1), 6)},
+                {"padding_idx": -1}),
+       _op_case("concat", {"X": [_u((2, 3)), _u((2, 2))]}, {"axis": 1}),
+       _op_case("split", {"X": _u((2, 6))}, {"num": 3, "axis": 1},
+                ("Out",) * 1),
+       _op_case("reshape", {"X": _u((2, 3))}, {"shape": [3, 2]}),
+       _op_case("squeeze", {"X": _u((2, 1, 3))}, {"axes": [1]}),
+       _op_case("unsqueeze", {"X": _u((2, 3))}, {"axes": [1]}),
+       _op_case("transpose", {"X": _u((2, 3, 4))}, {"axis": [2, 0, 1]}),
+       _op_case("expand", {"X": _u((1, 3))}, {"expand_times": [2, 1]}),
+       _op_case("stack", {"X": [_u((2, 3)), _u((2, 3))]}, {"axis": 0},
+                ("Y",)),
+       _op_case("slice", {"Input": _u((3, 4))},
+                {"axes": [0, 1], "starts": [1, 0], "ends": [3, 3]}),
+       _op_case("gather", {"X": _u((4, 3)),
+                           "Index": np.array([0, 2, 2, -1], np.int32)}),
+       _op_case("scatter", {"X": _u((4, 3)),
+                            "Ids": np.array([1, 3], np.int32),
+                            "Updates": _u((2, 3))}),
+       _op_case("reverse", {"X": _u((2, 3))}, {"axis": [1]}),
+       _op_case("cast", {"X": _u((2, 3))},
+                {"in_dtype": "float32", "out_dtype": "float32"}),
+       _op_case("assign", {"X": _u((2, 3))}),
+       _op_case("increment", {"X": _u((1,))}, {"step": 2.0}),
+       _op_case("fill_zeros_like", {"X": _u((2, 3))}),
+       _op_case("where_select", {"Cond": ("bools", (2, 3)), "X": _u((2, 3)),
+                                 "Y": _u((2, 3))}),
+       _op_case("top_k", {"X": _u((2, 5))}, {"k": 2}, ("Out", "Indices"),
+                ("Out",)),
+       _op_case("sequence_pool", {"X": _u((2, 4, 3))}, {"pooltype": "SUM"},
+                seq_len={"X": [4, 2]}, sums=True),
+       _op_case("sequence_pool", {"X": _u((2, 4, 3))},
+                {"pooltype": "AVERAGE"}, seq_len={"X": [4, 2]}, sums=True),
+       _op_case("sequence_pool", {"X": _u((2, 4, 3))}, {"pooltype": "MAX"},
+                seq_len={"X": [4, 2]}, sums=True),
+       _op_case("lstm", {"Input": _u((2, 3, 384), -0.5, 0.5),
+                         "Weight": _u((96, 384), -0.1, 0.1),
+                         "Bias": _u((1, 384), -0.2, 0.2)},
+                {"use_peepholes": False, "is_reverse": False,
+                 "gate_activation": "sigmoid", "cell_activation": "tanh",
+                 "candidate_activation": "tanh"}, ("Hidden", "Cell"),
+                ("Hidden",), seq_len={"Input": [3, 2]}, sums=True),
+       _op_case("gru", {"Input": _u((2, 3, 288), -0.5, 0.5),
+                        "Weight": _u((96, 288), -0.1, 0.1),
+                        "Bias": _u((1, 288), -0.2, 0.2)},
+                {"is_reverse": False, "gate_activation": "sigmoid",
+                 "activation": "tanh"}, ("Hidden",),
+                seq_len={"Input": [3, 2]}, sums=True),
+       _op_case("fused_attention", {"Q": _u((1, 2, 4, 32), -0.5, 0.5),
+                                    "K": _u((1, 2, 4, 32), -0.5, 0.5),
+                                    "V": _u((1, 2, 4, 32), -0.5, 0.5)},
+                {"causal": False}, sums=True)]
+    # the rules without a gradient: outputs only
+    + [_op_case(a, {"X": _u((3, 4)), "Y": ("near", (3, 4))}, sums=None)
+       for a in ("equal", "not_equal", "less_than", "less_equal",
+                 "greater_than", "greater_equal")]
+    + [_op_case(a, {"X": ("bools", (3, 4)), "Y": ("bools", (3, 4))},
+                sums=None)
+       for a in ("logical_and", "logical_or", "logical_xor")]
+    + [_op_case("logical_not", {"X": ("bools", (3, 4))}, sums=None),
+       _op_case("arg_max", {"X": _u((3, 4))}, {"axis": 1}, sums=None),
+       _op_case("arg_min", {"X": _u((3, 4))}, {"axis": 0}, sums=None),
+       _op_case("one_hot", {"X": np.array([[0], [3], [1], [5], [-1]],
+                                         np.int64)}, {"depth": 4},
+                sums=None),
+       _op_case("shape", {"Input": _u((2, 3, 5))}, sums=None),
+       _op_case("is_empty", {"X": _u((3, 4))}, sums=None),
+       _op_case("fill_constant_batch_size_like", {"Input": _u((5, 3))},
+                {"shape": [-1, 7], "dtype": "float32", "value": 2.5},
+                sums=None),
+       _op_case("fill_constant", {}, {"shape": [2, 3], "dtype": "int64",
+                                      "value": 7.0}, sums=None),
+       _op_case("assign_value", {}, {"shape": [2, 2], "dtype": "float32",
+                                     "values": [1.0, -2.0, 3.5, 0.25]},
+                sums=None),
+       _op_case("accuracy", {"Out": _u((4, 2)),
+                             "Indices": np.array([[1, 0], [2, 1], [0, 3],
+                                                  [3, 2]], np.int64),
+                             "Label": np.array([[1], [1], [2], [2]],
+                                               np.int64)}, {},
+                ("Accuracy", "Correct", "Total"), sums=None),
+       _op_case("auc", {"Predict": ("probs", (16, 2)),
+                        "Label": ("ids", (16, 1), 2),
+                        "TP": np.arange(9, dtype=np.int64),
+                        "FP": np.ones(9, np.int64),
+                        "TN": np.full(9, 2, np.int64),
+                        "FN": np.zeros(9, np.int64)},
+                {"curve": "ROC", "num_thresholds": 9},
+                ("AUC", "TPOut", "FPOut", "TNOut", "FNOut"), sums=None),
+       _op_case("precision_recall",
+                {"MaxProbs": _u((6, 1), 0, 1),
+                 "Indices": np.array([[0], [1], [2], [1], [0], [2]],
+                                     np.int32),
+                 "Labels": np.array([[0], [2], [2], [1], [1], [2]],
+                                    np.int32),
+                 "StatesInfo": np.arange(12, dtype=np.float32).reshape(3, 4)},
+                {}, ("BatchMetrics", "AccumMetrics", "AccumStatesInfo"),
+                sums=None)])
+
+#: the random rules: (op, inputs, attributes, mean, variance) of their
+#: stated distribution, drawn on the card
+_TRUNC_VAR = 0.7737413          # N(0, 1) truncated to [-2, 2]
+RANDOM_OP_CASES = (
+    ("uniform_random", {}, {"shape": [500, 400], "dtype": "float32",
+                            "min": -1.0, "max": 3.0}, 1.0, 16.0 / 12.0),
+    ("gaussian_random", {}, {"shape": [500, 400], "dtype": "float32",
+                             "mean": 0.5, "std": 2.0}, 0.5, 4.0),
+    ("uniform_random_batch_size_like",
+     {"Input": np.zeros((50000, 1), np.float32)},
+     {"shape": [-1, 4], "dtype": "float32", "min": 0.0, "max": 2.0},
+     1.0, 4.0 / 12.0),
+    ("gaussian_random_batch_size_like",
+     {"Input": np.zeros((50000, 1), np.float32)},
+     {"shape": [-1, 4], "dtype": "float32", "mean": -1.0, "std": 0.5},
+     -1.0, 0.25),
+    ("truncated_gaussian_random", {},
+     {"shape": [500, 400], "dtype": "float32", "mean": 1.0, "std": 0.5},
+     1.0, 0.25 * _TRUNC_VAR),
+)
+
+
+def _case_array(spec, rng):
+    """A phase-16 input from its spec (see `_op_case`) and ``rng``."""
+    import numpy as np
+    if isinstance(spec, np.ndarray):
+        return spec
+    kind, shape = spec[0], spec[1]
+    if kind == "u":
+        return rng.uniform(spec[2], spec[3], shape).astype(np.float32)
+    if kind == "away":
+        x = rng.uniform(-2.0, 2.0, shape)
+        for k in spec[2]:
+            near = np.abs(x - k) < 0.2
+            x = np.where(near, k + np.sign(x - k + 1e-9) * 0.25, x)
+        return x.astype(np.float32)
+    if kind == "near":          # X's values, some changed: ties and not
+        return None
+    if kind == "probs":
+        p = rng.uniform(0.1, 1.0, shape)
+        return (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    if kind == "ids":
+        return rng.integers(0, spec[2], shape).astype(np.int64)
+    if kind == "bits":
+        return rng.integers(0, 2, shape).astype(np.float32)
+    if kind == "signs":
+        return (2 * rng.integers(0, 2, shape) - 1).astype(np.float32)
+    if kind == "bools":
+        return rng.random(shape) > 0.5
+    raise ValueError(kind)
+
+
+def _one_op_program(case, feed_arrays, out_shapes=None):
+    """The case's one-op program in the port's IR; with ``out_shapes``
+    (the float outputs' shapes, from a first run) a weighted-sum loss of
+    them and a ``backward`` op for the float inputs are appended.
+    Returns (program, feed, output names, @GRAD names)."""
+    import numpy as np
+    import paddle_tpu_torch as fluid
+    prog = fluid.Program()
+    block = prog.global_block()
+    feed, in_map, diff = {}, {}, []
+    for slot, arrs in feed_arrays.items():
+        names = []
+        for i, arr in enumerate(arrs):
+            name = f"{slot.lower()}_{i}"
+            diffable = (arr.dtype == np.float32
+                        and slot not in case["nodiff"])
+            block.create_var(name=name, shape=arr.shape,
+                             dtype=str(arr.dtype),
+                             stop_gradient=not diffable, is_data=True)
+            feed[name] = arr
+            names.append(name)
+            if diffable:
+                diff.append(name)
+        in_map[slot] = names
+        if slot in case["seq_len"]:
+            feed[names[0] + "@SEQ_LEN"] = np.asarray(case["seq_len"][slot],
+                                                     np.int32)
+    n_out = {"split": 3}.get(case["op"], 1)
+    out_map = {slot: [f"o_{slot.lower()}_{i}" for i in range(n_out)]
+               for slot in case["outs"]}
+    for names in out_map.values():
+        for name in names:
+            block.create_var(name=name, shape=(1,), dtype="float32")
+    block.append_op(case["op"], inputs=in_map, outputs=out_map,
+                    attrs=case["attrs"])
+    outs = [n for names in out_map.values() for n in names]
+    if not out_shapes or not diff:
+        return prog, feed, outs, []
+    rng = np.random.default_rng(1)
+    parts = []
+    for j, (name, shape) in enumerate(out_shapes.items()):
+        w = f"lw_{j}"
+        block.create_var(name=w, shape=shape, dtype="float32",
+                         stop_gradient=True, is_data=True)
+        feed[w] = (0.5 + rng.random(shape)).astype(np.float32)
+        for k, (op, ins, out) in enumerate((
+                ("elementwise_mul", {"X": [name], "Y": [w]}, f"lm_{j}"),
+                ("reduce_sum", {"X": [f"lm_{j}"]}, f"ls_{j}"))):
+            block.create_var(name=out, dtype="float32")
+            block.append_op(op, inputs=ins, outputs={"Out": [out]},
+                            attrs={"reduce_all": True} if k else {})
+        parts.append(f"ls_{j}")
+    block.create_var(name="loss", shape=(1,), dtype="float32")
+    block.append_op("sum", inputs={"X": parts}, outputs={"Out": ["loss"]})
+    forward_end = len(block.ops)
+    grads = [d + "@GRAD" for d in diff]
+    for g in grads:
+        block.create_var(name=g, dtype="float32")
+    block.append_op("backward", inputs={"Loss": ["loss"]},
+                    outputs={"Grads": grads, "LossGrad": []},
+                    attrs={"params": diff, "forward_op_end": forward_end,
+                           "op_role": "backward"})
+    return prog, feed, outs, grads
+
+
+def _run_on(place, prog, feed, fetch):
+    import paddle_tpu_torch as fluid
+    return fluid.Executor(place).run(prog, feed=feed, fetch_list=fetch,
+                                     scope=fluid.core.scope.Scope())
+
+
+def _hold(label, got, want, tol):
+    """Fail unless the card's fetch ``got`` equals the CPU's ``want`` (same
+    dtype and shape; integer and bool exactly; NaN where the CPU has NaN;
+    float within ``tol`` x max(1, max |want|)); returns the error's share
+    of the tolerance."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: card {got.dtype}{got.shape}, CPU "
+                             f"{want.dtype}{want.shape}")
+    if want.dtype.kind in "biu":
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: integer outputs differ")
+        return 0.0
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        raise AssertionError(f"{label}: NaN at other places")
+    ok = ~np.isnan(w)
+    if not ok.any():
+        return 0.0
+    share = float(np.abs(g[ok] - w[ok]).max()) / (
+        tol * max(1.0, float(np.abs(w[ok]).max())))
+    if share > 1.0:
+        raise AssertionError(f"{label}: {share:.3f} of the tolerance")
+    return share
+
+
+def op_rules_card_vs_cpu(seed=0):
+    """Phase 16: every case of OP_CASES as a one-op program on CUDAPlace
+    and on CPUPlace from the same seeded feed: outputs and the input
+    @GRADs of a weighted-sum loss to F32_TOL x max(1, max |cpu|) for
+    elementwise rules and SUM_TOL for rules that sum, integer and bool
+    outputs exactly; each rule of RANDOM_OP_CASES drawn on the card by
+    its mean and variance.  The first case is cross_entropy with labels
+    outside [0, V) (-1, V, V + 3, -V - 1): the card must give the CPU's
+    NaNs and wrapped row without a device assert, and every later case
+    runs on the same CUDA context."""
+    import zlib
+    import numpy as np
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.registry import OpRegistry
+    oob = _op_case("cross_entropy", {
+        "X": ("probs", (6, 4)),
+        "Label": np.array([[0], [-1], [4], [7], [-5], [2]], np.int64)},
+        {"soft_label": False}, ("Y",), sums=True)
+    shares, rules = {}, set()
+    for n, case in enumerate([oob] + OP_CASES):
+        op = case["op"]
+        rng = np.random.default_rng(seed + zlib.crc32(f"{op}{n}".encode()))
+        arrays = {}
+        for slot, spec in case["inputs"].items():
+            specs = spec if isinstance(spec, list) else [spec]
+            arrays[slot] = [_case_array(s, rng) for s in specs]
+        if "Y" in arrays and arrays["Y"][0] is None:
+            x = arrays["X"][0]
+            arrays["Y"] = [np.where(rng.random(x.shape) < 0.3, x,
+                                    x + 0.5).astype(np.float32)]
+        prog, feed, outs, _ = _one_op_program(case, arrays)
+        cpu = _run_on(fluid.CPUPlace(), prog, feed, outs)
+        loss_slots = [f"o_{s.lower()}_"
+                      for s in (case["loss"] or case["outs"])]
+        floats = {o: a.shape for o, a in zip(outs, cpu)
+                  if a.dtype.kind == "f"
+                  and any(o.startswith(s) for s in loss_slots)}
+        grads = []
+        if case["sums"] is not None and floats:
+            prog, feed, outs, grads = _one_op_program(case, arrays, floats)
+        fetch = outs + grads
+        want = _run_on(fluid.CPUPlace(), prog, feed, fetch)
+        got = _run_on(fluid.CUDAPlace(0), prog, feed, fetch)
+        tol = SUM_TOL if case["sums"] else F32_TOL
+        share = max(_hold(f"{op} #{n} {name}", g, w, tol)
+                    for name, g, w in zip(fetch, got, want))
+        shares[f"{op} #{n}"] = share
+        rules.add(op)
+        if n == 0:
+            print(f"  cross_entropy, labels outside [0, V) on the card: "
+                  f"{np.asarray(got[0]).ravel().tolist()} (the CPU's)",
+                  flush=True)
+    for op, inputs, attrs, mean, var in RANDOM_OP_CASES:
+        case = _op_case(op, {k: v for k, v in inputs.items()}, attrs)
+        prog, feed, outs, _ = _one_op_program(
+            case, {k: [v] for k, v in inputs.items()})
+        (got,) = _run_on(fluid.CUDAPlace(0), prog, feed, outs)
+        (cpu,) = _run_on(fluid.CPUPlace(), prog, feed, outs)
+        n = got.size
+        ok = (got.shape == cpu.shape and got.dtype == cpu.dtype
+              and abs(got.mean() - mean) < 5 * math.sqrt(var / n)
+              and abs(got.var() - var) < 5 * math.sqrt(8 * var * var / n))
+        print(f"  {op} on the card: mean {got.mean():.5f} (want {mean}), "
+              f"variance {got.var():.5f} (want {var:.5f}) over {n} draws "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{op}: the card's draws do not follow "
+                                 "the stated distribution")
+        rules.add(op)
+    probs = np.tile(np.array([[0.1, 0.0, 0.6, 0.3]], np.float32), (20000, 1))
+    prog, feed, outs, _ = _one_op_program(
+        _op_case("sampling_id", {"X": probs}), {"X": [probs]})
+    (ids,) = _run_on(fluid.CUDAPlace(0), prog, feed, outs)
+    freq = np.bincount(ids, minlength=4) / ids.size
+    se = np.sqrt(probs[0] * (1 - probs[0]) / ids.size)
+    print(f"  sampling_id on the card: frequencies {freq.tolist()} "
+          f"(probabilities {probs[0].tolist()})", flush=True)
+    if ids.dtype != np.int32 or not np.all(np.abs(freq - probs[0])
+                                           <= 5 * se + 1e-9):
+        raise AssertionError("sampling_id: the card's draws do not follow "
+                             "the probabilities")
+    rules.add("sampling_id")
+    missing = sorted(set(OpRegistry.registered_ops()) - rules
+                     - PHASE16_ELSEWHERE)
+    if missing:
+        raise AssertionError(f"rules phase 16 did not run: {missing}")
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  {len(shares)} one-op programs and {len(RANDOM_OP_CASES) + 1} "
+          f"random rules over {len(rules)} rules held; largest shares of "
+          f"the tolerance: {worst}", flush=True)
+    return {"cases": len(shares) + len(RANDOM_OP_CASES) + 1,
+            "rules": len(rules), "largest_share": worst[0][1]}
 
 
 # ---------------------------------------------------------------------------
@@ -2768,13 +3662,60 @@ def ln_ab(smi):
     return recs
 
 
+def image_phases(smi):
+    """Phases 14-16: VGG-16 training, VGG-16 card against CPU and LeNet-5
+    training, every op rule on the card against the CPU.  Returns the
+    kernel launches of VGG-16's and LeNet-5's steps."""
+    print(f"phase 14: VGG-16 bn_drop {VGG_CONFIG} at batch {VGG_BATCH}, "
+          "NCHW, program.amp, Adam, through vgg16_bn_drop + Executor.run",
+          flush=True)
+    vgg_launches, vgg_e2e, state = train_image("vgg")
+    print(f"  end to end ({smi}): {json.dumps(vgg_e2e)}", flush=True)
+    print(f"phase 15: VGG-16 in f32 at batch {VGG_CPU_BATCH}, dropout 0, "
+          "card against CPU; then LeNet-5 "
+          f"{LENET_CONFIG} at batch {LENET_BATCH}, program.amp, Adam",
+          flush=True)
+    vgg_card_vs_cpu(state)
+    del state
+    lenet_launches, lenet_e2e, _ = train_image("lenet")
+    print(f"  end to end ({smi}): {json.dumps(lenet_e2e)}", flush=True)
+    print("phase 16: every op rule on the card against the CPU", flush=True)
+    print(f"  {json.dumps(op_rules_card_vs_cpu())}", flush=True)
+    return vgg_launches, lenet_launches
+
+
+def vgg_ab(smi):
+    """``--vgg``: the BatchNorm backward's phase 3 checks and timings
+    (VGG-16's NCHW launches among them), then phases 14-16."""
+    from paddle_tpu_torch.ops import _build, kernels as K
+    # phase 16 runs every kernel's rule
+    _build.build_all(k.source for k in K.KERNELS)
+    recs = {"batch_norm_bwd": {}}
+    check_batch_norm_bwd(recs["batch_norm_bwd"])
+    vgg_launches, _ = image_phases(smi)
+    recs["batch_norm_bwd"]["launches_vgg_training"] = vgg_launches[
+        "batch_norm_bwd"]
+    return recs
+
+
+def vgg_f32_anatomy(smi):
+    """``--vgg-f32``: phase 14's training, then phase 15's f32 check
+    with its anatomy: the card's step also with cuDNN off and with the
+    BatchNorm backward's plain version on the card."""
+    from paddle_tpu_torch.ops import _build, kernels as K
+    _build.build_all([K.BATCH_NORM_BWD.source])
+    _, _, state = train_image("vgg")
+    return vgg_card_vs_cpu(state, anatomy=True)
+
+
 #: the A/B modes: option -> what it runs.  Each prints its results as one
 #: JSON line and no {"ok": ...} line: run from two checkouts in turns
 #: (parent, change, change, parent), it compares two versions of those
 #: kernels on one card
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
-            "--decode-modes": decode_modes_ab}
+            "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
+            "--vgg-f32": vgg_f32_anatomy}
 
 
 def main(argv=()):
@@ -2885,6 +3826,8 @@ def main(argv=()):
     dm_launches, dm_e2e = decode_modes(bf16=e2e)
     print(f"  end to end ({smi}): {json.dumps(dm_e2e)}", flush=True)
 
+    vgg_launches, lenet_launches = image_phases(smi)
+
     kernels = []
     for k in K.KERNELS:
         r = recs[k.name]
@@ -2895,17 +3838,22 @@ def main(argv=()):
             "launches": (serve_launches[k.name] + train_launches[k.name]
                          + resnet_launches[k.name]
                          + seq["lstm"][0][k.name] + seq["gru"][0][k.name]
-                         + fd_launches[k.name] + dm_launches[k.name]),
+                         + fd_launches[k.name] + dm_launches[k.name]
+                         + vgg_launches[k.name] + lenet_launches[k.name]),
             "launches_serving": serve_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
             "launches_decode_modes": dm_launches[k.name],
             "launches_training": (train_launches[k.name]
                                   + resnet_launches[k.name]
                                   + seq["lstm"][0][k.name]
-                                  + seq["gru"][0][k.name]),
+                                  + seq["gru"][0][k.name]
+                                  + vgg_launches[k.name]
+                                  + lenet_launches[k.name]),
             "launches_resnet_training": resnet_launches[k.name],
             "launches_lstm_training": seq["lstm"][0][k.name],
             "launches_gru_training": seq["gru"][0][k.name],
+            "launches_vgg_training": vgg_launches[k.name],
+            "launches_lenet_training": lenet_launches[k.name],
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2924,6 +3872,7 @@ def main(argv=()):
                if "addmm_row_same_bits" in r else {}),
             **({"training_shape": r["training"]} if "training" in r
                else {}),
+            **({"vgg_shape": r["vgg"]} if "vgg" in r else {}),
             **{key: r[key] for key in ("f32_w", "bf16_w", "bf16",
                                        "chunked_rows", "decode") if key in r}})
     print(json.dumps({"kernels": kernels}))

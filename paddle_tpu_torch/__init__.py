@@ -1,8 +1,8 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
 It sits beside the JAX package and imports nothing of it.  Module names
-mirror the JAX package's, so each counterpart is found by name.  Five
-slices are ported:
+mirror the JAX package's, so each counterpart is found by name.  Ported
+so far:
 
 - training through the Fluid front end: a user script written for the
   JAX package runs with the import changed::
@@ -16,12 +16,16 @@ slices are ported:
 
   The Executor interprets the Program op by op; one ``backward`` op
   differentiates the recorded forward, one optimizer op per parameter
-  (``adam``, ``momentum``, ``sgd``) updates it in place.  The models:
-  the transformer LM (Adam, f32), ResNet (`models.resnet`, Momentum,
-  with ``program.amp`` for bf16 convolutions), and the sequence family:
-  the stacked dynamic LSTM (`models.stacked_lstm`, a DynamicRNN cell
-  plus ``dynamic_lstm`` layers) and ``dynamic_gru`` classifiers, fed
-  padded ids with a ``<name>@SEQ_LEN`` length vector;
+  (``adam``, ``momentum``, ``sgd``) updates it in place.  The dense op
+  families (math, tensor, logic and the dense nn rules), their layers,
+  ``Variable``'s operators, the ``nets`` image helpers, `DataFeeder`,
+  `metrics`, `evaluator` and `average` are ported.  The models: the
+  transformer LM (Adam, f32), ResNet (`models.resnet`, Momentum, with
+  ``program.amp`` for bf16 convolutions), LeNet-5 (`models.lenet`) and
+  VGG-16 with BatchNorm (`models.vgg`), and the sequence family: the
+  stacked dynamic LSTM (`models.stacked_lstm`, a DynamicRNN cell plus
+  ``dynamic_lstm`` layers) and ``dynamic_gru`` classifiers, fed padded
+  ids with a ``<name>@SEQ_LEN`` length vector;
 - serving the transformer LM: `serving.decode_engine.DecodeEngine` over a
   paged KV cache, with a radix prefix cache;
 - the serving front door: `serving.Predictor` over a saved inference
@@ -36,12 +40,14 @@ backward, BatchNorm training backward, the LSTM and GRU recurrences
 forward and backward) are written in CUDA (``ops/csrc``).  Entry points run on the card unless the caller asks for
 the CPU (``Executor(CPUPlace())``, ``device="cpu"``, ``--device cpu``).
 """
-from . import (core, initializer, io, layers, nets, optimizer,  # noqa: F401
+from . import (average, backward, core, evaluator,  # noqa: F401
+               initializer, io, layers, metrics, nets, optimizer,
                unique_name)
+from .data_feeder import DataFeeder  # noqa: F401
 from .core import (Executor, CPUPlace, CUDAPlace, Program,  # noqa: F401
                    Variable, Parameter, append_backward,
                    default_main_program, default_startup_program,
                    global_scope, program_guard, scope_guard)
 from .param_attr import ParamAttr  # noqa: F401
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -68,8 +68,11 @@ def _backward_rule(ctx: ExecContext):
     params = [ctx.env[p] for p in ctx.attr("params")]
     # d(sum(loss))/dparams, the JAX rule's jax.grad of jnp.sum(loss)
     loss_grad = torch.ones_like(loss)
-    grads = torch.autograd.grad(loss, params, grad_outputs=loss_grad,
-                                allow_unused=True)
+    # a loss that depends on no parameter (a constant, or only on stopped
+    # inputs) has zero gradients, as jax.grad gives
+    grads = (torch.autograd.grad(loss, params, grad_outputs=loss_grad,
+                                 allow_unused=True)
+             if loss.requires_grad else [None] * len(params))
     for gname, p, g in zip(ctx.output_names("Grads"), params, grads):
         ctx.env[gname] = torch.zeros_like(p) if g is None else g.to(p.dtype)
     ctx.set_output("LossGrad", loss_grad)

@@ -9,7 +9,7 @@ field, so a program built by either package parses in the other.
 Ported as far as the training and serving programs need: sub-blocks (a
 DynamicRNN's step block, ``create_block``/``rollback``),
 ``clone(for_test=True)`` and ``prune(targets)`` (what
-``io.save_inference_model`` exports), no operator sugar on `Variable`.
+``io.save_inference_model`` exports) and `Variable`'s operator sugar.
 Like the JAX package's, the ``amp`` flag is not part of the JSON, and an
 attribute's tuples come back from it as lists.
 """
@@ -166,6 +166,58 @@ class Variable:
     def __repr__(self):
         return (f"Variable(name={self.name}, shape={self.shape}, "
                 f"dtype={self.dtype})")
+
+    # -- operator sugar: each operator appends the JAX package's ops ----------
+    def _binary(self, other, op_type, reverse=False):
+        from .. import layers
+        if not isinstance(other, Variable):
+            other = layers.fill_constant(shape=[1], dtype=self.dtype,
+                                         value=float(other))
+        x, y = (other, self) if reverse else (self, other)
+        return layers.elementwise_op(op_type, x, y)
+
+    def __add__(self, o):
+        return self._binary(o, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "elementwise_sub")
+
+    def __rsub__(self, o):
+        return self._binary(o, "elementwise_sub", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "elementwise_div")
+
+    def __matmul__(self, o):
+        from .. import layers
+        return layers.matmul(self, o)
+
+    def _cmp(self, other, op_type):
+        from .. import layers
+        return layers.compare_op(op_type, self, other)
+
+    def __lt__(self, o):
+        return self._cmp(o, "less_than")
+
+    def __le__(self, o):
+        return self._cmp(o, "less_equal")
+
+    def __gt__(self, o):
+        return self._cmp(o, "greater_than")
+
+    def __ge__(self, o):
+        return self._cmp(o, "greater_equal")
+
+    def astype(self, dtype):
+        from .. import layers
+        return layers.cast(self, dtype)
 
 
 class Parameter(Variable):

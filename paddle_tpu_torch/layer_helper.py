@@ -37,6 +37,19 @@ class LayerHelper:
     def block(self):
         return self.main_program.current_block()
 
+    def multiple_input(self, name="input"):
+        """The ``name`` keyword as a list (one Variable or several)."""
+        x = self.kwargs[name]
+        return list(x) if isinstance(x, (list, tuple)) else [x]
+
+    def input_dtype(self, name="input"):
+        """The one dtype of the ``name`` inputs (raises if they differ)."""
+        dtypes = {v.dtype for v in self.multiple_input(name)}
+        if len(dtypes) != 1:
+            raise ValueError(f"all inputs must have the same dtype, got "
+                             f"{sorted(dtypes)}")
+        return dtypes.pop()
+
     # ------------------------------------------------------------------
     @property
     def param_attr(self):

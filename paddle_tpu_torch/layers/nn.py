@@ -1,10 +1,14 @@
-"""Neural-net layers (counterpart of ``paddle_tpu/layers/nn.py``; the
-layers the training programs call).  Each appends ops to the current
-block and returns output Variables with inferred shapes."""
+"""Neural-net layers (counterpart of ``paddle_tpu/layers/nn.py``; its
+dense part).  Each appends ops to the current block and returns output
+Variables with inferred shapes.  Not ported: ``row_conv``,
+``im2sequence``, ``sampling_id``, ``sequence_slice``, ``lstm_unit``,
+``hsigmoid`` and ``sequence_reverse``, which wait for their op
+families."""
 from __future__ import annotations
 
+from ..initializer import Constant, ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
-from ..initializer import ConstantInitializer, NormalInitializer
+from ..param_attr import ParamAttr
 
 
 def _prod(xs):
@@ -26,22 +30,33 @@ def _conv_out(size, k, p, s, d=1):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, is_test=False, name=None):
-    """Fully-connected layer: mul + bias + activation (one input; the
-    several-input form, summed by a ``sum`` op, is not ported)."""
-    if isinstance(input, (list, tuple)):
-        raise NotImplementedError("fc over several inputs is not ported")
+    """Fully-connected layer: one ``mul`` an input (``param_attr`` may be
+    a list, one an input), summed by a ``sum`` op when there are several,
+    then bias and activation."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
-    dtype = input.dtype
-    fan_in = _prod([abs(s) for s in input.shape[num_flatten_dims:]])
-    w = helper.create_parameter(param_attr, shape=[fan_in, size],
-                                dtype=dtype)
-    pre_bias = helper.create_variable_for_type_inference(dtype)
-    helper.append_op(type="mul", inputs={"X": [input], "Y": [w]},
-                     outputs={"Out": [pre_bias]},
-                     attrs={"x_num_col_dims": num_flatten_dims,
-                            "y_num_col_dims": 1})
-    pre_bias.desc.shape = tuple(input.shape[:num_flatten_dims]) + (size,)
+    dtype = helper.input_dtype()
+    inputs = helper.multiple_input()
+    attrs = (list(param_attr) if isinstance(param_attr, (list, tuple))
+             else [param_attr] * len(inputs))
+    mul_results = []
+    for inp, pattr in zip(inputs, attrs):
+        fan_in = _prod([abs(s) for s in inp.shape[num_flatten_dims:]])
+        w = helper.create_parameter(pattr, shape=[fan_in, size], dtype=dtype)
+        out = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="mul", inputs={"X": [inp], "Y": [w]},
+                         outputs={"Out": [out]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        out.desc.shape = tuple(inp.shape[:num_flatten_dims]) + (size,)
+        mul_results.append(out)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+        pre_bias.desc.shape = mul_results[0].shape
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     pre_act.desc.shape = pre_bias.shape
     out = helper.append_activation(pre_act)
@@ -339,4 +354,313 @@ def _make_elementwise(op_type):
 
 
 elementwise_add = _make_elementwise("elementwise_add")
+elementwise_sub = _make_elementwise("elementwise_sub")
 elementwise_mul = _make_elementwise("elementwise_mul")
+elementwise_div = _make_elementwise("elementwise_div")
+elementwise_max = _make_elementwise("elementwise_max")
+elementwise_min = _make_elementwise("elementwise_min")
+elementwise_pow = _make_elementwise("elementwise_pow")
+
+
+def square_error_cost(input, label):
+    """(input - label)^2, elementwise."""
+    from . import ops as _ops
+    return _ops.square(elementwise_sub(input, label))
+
+
+def compare_op(op_type, x, y, cond=None):
+    helper = LayerHelper(op_type, input=x)
+    cond = cond or helper.create_variable_for_type_inference("bool")
+    cond.stop_gradient = True
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [cond]})
+    cond.desc.shape = x.shape
+    return cond
+
+
+def less_than(x, y, cond=None):
+    return compare_op("less_than", x, y, cond)
+
+
+def equal(x, y, cond=None):
+    return compare_op("equal", x, y, cond)
+
+
+def greater_than(x, y, cond=None):
+    return compare_op("greater_than", x, y, cond)
+
+
+def not_equal(x, y, cond=None):
+    return compare_op("not_equal", x, y, cond)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    xs, ys = list(x.shape or ()), list(y.shape or ())
+    if xs and ys:
+        m = xs[-1] if transpose_x else xs[-2] if len(xs) > 1 else 1
+        n = ys[-2] if transpose_y else ys[-1]
+        out.desc.shape = tuple(xs[:-2]) + (m, n)
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot", input=input)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    ish = input.shape or ()
+    base = ish[:-1] if (ish and ish[-1] == 1) else ish
+    out.desc.shape = tuple(base) + (depth,)
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    out.desc.shape = x.shape
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalisation across channels (lrn_op.cc)."""
+    helper = LayerHelper("lrn", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    out.desc.shape = input.shape
+    return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """NCHW; the filter is IOHW.  Without ``filter_size`` it is derived
+    from ``output_size``."""
+    helper = LayerHelper("conv2d_transpose", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    s, p, d = _pair(stride), _pair(padding), _pair(dilation)
+    n, num_channels, h, wd = input.shape
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("conv2d_transpose needs filter_size or "
+                             "output_size")
+        oh, ow = _pair(output_size)
+        filter_size = (oh - (h - 1) * s[0] + 2 * p[0],
+                       ow - (wd - 1) * s[1] + 2 * p[1])
+    k = _pair(filter_size)
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_channels, num_filters, k[0], k[1]],
+                                dtype=input.dtype)
+    pre_bias = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [pre_bias]},
+                     attrs={"strides": list(s), "paddings": list(p),
+                            "dilations": list(d)})
+
+    def out_size(size, i):
+        if size in (None, -1):
+            return -1
+        return (size - 1) * s[i] - 2 * p[i] + d[i] * (k[i] - 1) + 1
+    pre_bias.desc.shape = (n, num_filters, out_size(h, 0), out_size(wd, 1))
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    pre_act.desc.shape = pre_bias.shape
+    out = helper.append_activation(pre_act)
+    out.desc.shape = pre_bias.shape
+    return out
+
+
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * 3
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           act=None, name=None):
+    helper = LayerHelper("conv3d", input=input, act=act)
+    filt = helper.create_parameter(
+        param_attr or None,
+        [num_filters, input.shape[1] // groups] + _triple(filter_size),
+        "float32")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="conv3d",
+                     inputs={"Input": [input], "Filter": [filt]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding),
+                            "dilations": _triple(dilation),
+                            "groups": groups})
+    if bias_attr is not None and bias_attr is not False:
+        bias = helper.create_parameter(bias_attr, [num_filters], "float32",
+                                       is_bias=True)
+        out = elementwise_add(out, bias, axis=1)
+    return helper.append_activation(out)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None):
+    helper = LayerHelper("pool3d", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pool3d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _triple(pool_size),
+                            "strides": _triple(pool_stride),
+                            "paddings": _triple(pool_padding),
+                            "global_pooling": global_pooling})
+    return out
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """A bare trainable parameter."""
+    helper = LayerHelper("create_parameter")
+    return helper.create_parameter(attr or ParamAttr(name=name), shape, dtype,
+                                   is_bias=is_bias,
+                                   default_initializer=default_initializer)
+
+
+def _simple_xy(op_type, x, y, attrs=None, out_dtype=None, extra=None):
+    """One ``op_type`` op over X (and Y, and ``extra`` slots) -> Out."""
+    helper = LayerHelper(op_type, input=x)
+    out = helper.create_variable_for_type_inference(out_dtype or x.dtype)
+    inputs = {"X": [x]}
+    if y is not None:
+        inputs["Y"] = [y]
+    if extra:
+        inputs.update(extra)
+    helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs or {})
+    return out
+
+
+def maxout(x, groups, name=None):
+    return _simple_xy("maxout", x, None, {"groups": groups})
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """out = x > 0 ? x : alpha * x; one alpha (``all``), one a channel
+    (``channel``) or one an element (``element``)."""
+    helper = LayerHelper("prelu", input=x)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(param_attr or ParamAttr(), alpha_shape,
+                                    "float32",
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    out.desc.shape = x.shape
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _simple_xy("pad", x, None, {"paddings": list(paddings),
+                                       "pad_value": float(pad_value)})
+
+
+def reverse(x, axis, name=None):
+    axes = axis if isinstance(axis, (list, tuple)) else [axis]
+    return _simple_xy("reverse", x, None, {"axis": list(axes)})
+
+
+def squeeze(input, axes, name=None):
+    return _simple_xy("squeeze", input, None, {"axes": list(axes)})
+
+
+def unsqueeze(input, axes, name=None):
+    return _simple_xy("unsqueeze", input, None, {"axes": list(axes)})
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None,
+              name=None):
+    helper = LayerHelper("smooth_l1_loss", input=x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Out": [out], "Diff": [diff]},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    return _simple_xy("sigmoid_cross_entropy_with_logits", x, None,
+                      extra={"Label": [label]})
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper("rank_loss", input=left)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    helper.append_op(type="rank_loss",
+                     inputs={"Label": [label], "Left": [left],
+                             "Right": [right]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def huber_loss(input, label, delta, name=None):
+    helper = LayerHelper("huber_loss", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    residual = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="huber_loss",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [residual]},
+                     attrs={"delta": float(delta)})
+    return out
+
+
+def cos_sim(x, y, name=None):
+    """Row-wise cosine similarity -> [batch, 1]."""
+    helper = LayerHelper("cos_sim", input=x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xn = helper.create_variable_for_type_inference(x.dtype)
+    yn = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    if x.shape:
+        out.desc.shape = (x.shape[0], 1)
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200, topk=1, name=None):
+    """Streaming ROC-AUC with persistent TP/FP/TN/FN counters ->
+    (auc, [tp, fp, tn, fn])."""
+    from .tensor import create_global_var
+    helper = LayerHelper("auc", input=input, name=name)
+    stats = [create_global_var(shape=[num_thresholds], value=0,
+                               dtype="int64", persistable=True)
+             for _ in range(4)]
+    tp, fp, tn, fn_ = stats
+    auc_out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="auc",
+                     inputs={"Predict": [input], "Label": [label],
+                             "TP": [tp], "FP": [fp], "TN": [tn],
+                             "FN": [fn_]},
+                     outputs={"AUC": [auc_out], "TPOut": [tp],
+                              "FPOut": [fp], "TNOut": [tn],
+                              "FNOut": [fn_]},
+                     attrs={"curve": curve,
+                            "num_thresholds": num_thresholds})
+    auc_out.desc.shape = (1,)
+    return auc_out, stats

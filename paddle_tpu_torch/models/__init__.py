@@ -1,2 +1,2 @@
 """Models of the port: the transformer LM (generation and training),
-ResNet (training) and the stacked dynamic LSTM (training)."""
+ResNet, the stacked dynamic LSTM, LeNet-5 and VGG-16 (training)."""

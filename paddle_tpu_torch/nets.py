@@ -1,9 +1,68 @@
-"""Composite layers (counterpart of ``paddle_tpu/nets.py``; only the
-self-attention branch of ``scaled_dot_product_attention`` is ported)."""
+"""Composite layers (counterpart of ``paddle_tpu/nets.py``): the image
+helpers ``simple_img_conv_pool`` and ``img_conv_group``, ``glu``, and the
+self-attention branch of ``scaled_dot_product_attention``.
+``sequence_conv_pool`` waits for ``sequence_conv``."""
 from __future__ import annotations
 
 from . import layers
 from .layer_helper import LayerHelper
+
+
+def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
+                         pool_stride, act, param_attr=None,
+                         pool_type="max", use_cudnn=True):
+    """conv2d (with ``act``) then pool2d."""
+    conv_out = layers.conv2d(input=input, num_filters=num_filters,
+                             filter_size=filter_size, param_attr=param_attr,
+                             act=act, use_cudnn=use_cudnn)
+    return layers.pool2d(input=conv_out, pool_size=pool_size,
+                         pool_type=pool_type, pool_stride=pool_stride,
+                         use_cudnn=use_cudnn)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None, param_attr=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type="max", use_cudnn=True):
+    """A conv2d for each of ``conv_num_filter`` (each optionally followed
+    by batch_norm carrying ``conv_act`` and by dropout), then one pool2d.
+    Every per-conv argument is one value or a list, one a conv."""
+    if not isinstance(conv_num_filter, (list, tuple)):
+        raise TypeError("conv_num_filter must be a list or tuple")
+
+    def _expand(obj):
+        if isinstance(obj, (list, tuple)):
+            return list(obj)
+        return [obj] * len(conv_num_filter)
+
+    conv_padding = _expand(conv_padding)
+    conv_filter_size = _expand(conv_filter_size)
+    param_attr = _expand(param_attr)
+    conv_with_batchnorm = _expand(conv_with_batchnorm)
+    conv_batchnorm_drop_rate = _expand(conv_batchnorm_drop_rate)
+
+    tmp = input
+    for i, num_filter in enumerate(conv_num_filter):
+        tmp = layers.conv2d(input=tmp, num_filters=num_filter,
+                            filter_size=conv_filter_size[i],
+                            padding=conv_padding[i],
+                            param_attr=param_attr[i],
+                            act=None if conv_with_batchnorm[i] else conv_act,
+                            use_cudnn=use_cudnn)
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(input=tmp, act=conv_act)
+            drop_rate = conv_batchnorm_drop_rate[i]
+            if abs(drop_rate) > 1e-5:
+                tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
+    return layers.pool2d(input=tmp, pool_size=pool_size,
+                         pool_type=pool_type, pool_stride=pool_stride,
+                         use_cudnn=use_cudnn)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: a * sigmoid(b) over the two halves of ``dim``."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
 
 
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,
