@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-16
+    python3 chip_smoke.py             # the smoke run, phases 1-18
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -11,6 +11,8 @@
                                       # product's phase 3, phase 13
     python3 chip_smoke.py --vgg       # phase 1, BatchNorm's phase 3,
                                       # phases 14-16
+    python3 chip_smoke.py --amp-train # phase 1, the training kernels at
+                                      # phase 17's bf16 shapes, phase 17
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -144,6 +146,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    Its first case is cross_entropy with labels outside [0, V): NaN and
    the wrapped row as on the CPU, no device assert, and every later case
    runs on the same CUDA context;
+17. the six training kernels at the LM's training shapes in bf16 (the
+   operand dtype under amp) against their plain versions and timed
+   beside SDPA, F.layer_norm and F.cross_entropy; then the training
+   config under MixedPrecision(Adam) (transformer_lm_train_program(
+   amp=True), bench.py bench_transformer_big's path) at batch 16 through
+   Executor.train_loop: 20 steps on one seeded batch in windows of 4
+   steps with one host sync each, a checkpoint every 8 steps into a
+   temporary directory, launch counts zeroed just before and read just
+   after (TRAIN_LAUNCHES_PER_STEP a step, every kernel fed bf16), the
+   loss falling; a fresh executor and scope resume from step 16 to 20
+   with losses bitwise the first run's; one profiled step; one step at a
+   loss scale of 2^127 that must be a skip (every persistable but the
+   scaler bitwise unchanged, the scale halved); step p50/p99, tokens/s,
+   device ms and busy share, the scaler's trajectory, the checkpoint's
+   caller-thread and commit ms and the skip guard's cost a step;
+18. every optimizer rule, ModelAverage's accumulation, each weight decay,
+   gradient clip and LR schedule and a per-parameter learning rate on a
+   small fc program: 5 steps on the card and on the CPU from one startup
+   state, losses, learning rates and every persistable to 2e-5; the
+   card's ModelAverage apply/restore bitwise;
 then a JSON line with every ported kernel's launches, error and times,
 the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
@@ -155,7 +177,8 @@ the LSTM and GRU checks and timings and phases 9 and 10; with --ln phase
 1 and the LayerNorm forward and backward checks and timings; with
 --frontdoor phase 1 and phase 12; with --decode-modes phase 1, the
 row-stable product's phase 3 and phase 13; with --vgg phase 1, the
-BatchNorm backward's checks and timings and phases 14-16.  Each prints its
+BatchNorm backward's checks and timings and phases 14-16; with
+--amp-train phase 1 and phase 17.  Each prints its
 results as one JSON line (no result line): run from two checkouts in
 turns, it compares two versions of those kernels on one card.  In these
 modes a recurrent kernel that refuses a width it should place is
@@ -275,8 +298,15 @@ SEQ_LAUNCHES_PER_STEP = {
 #: against the CPU; elementwise rules to F32_TOL
 SUM_TOL = 1e-4
 #: rules phase 16 leaves to the training phases: the optimizers and the
-#: backward op run in every training step, the DynamicRNN in phase 9
-PHASE16_ELSEWHERE = {"adam", "momentum", "sgd", "backward", "dynamic_rnn"}
+#: backward op run in every training step (and every optimizer rule in
+#: phase 18), the DynamicRNN in phase 9, the loss scaler's rules in
+#: phase 17
+OPTIMIZER_RULES = ("sgd", "momentum", "adam", "adamax", "adagrad",
+                   "decayed_adagrad", "adadelta", "rmsprop", "ftrl",
+                   "proximal_gd", "proximal_adagrad", "average_accumulates")
+PHASE16_ELSEWHERE = set(OPTIMIZER_RULES) | {
+    "backward", "dynamic_rnn", "check_finite_and_unscale",
+    "update_loss_scaling"}
 #: phase 11: one f32 step of each at full width on the card and the CPU,
 #: batch 4, ragged lengths
 SEQ_CPU_BATCH = 4
@@ -301,6 +331,14 @@ VGG_NORM_TOL = 1e-4
 LENET_CONFIG = dict(image_shape=(1, 28, 28), class_num=10, lr=1e-3)
 LENET_BATCH, LENET_STEPS = 128, 20
 LENET_LAUNCHES_PER_STEP = {name: 0 for name in TRAIN_LAUNCHES_PER_STEP}
+#: phase 17: TRAIN_CONFIG under MixedPrecision(Adam) (bench.py
+#: bench_transformer_big's transformer_lm_train_program(amp=True)) at
+#: batch TRAIN_BATCH through Executor.train_loop: AMP_STEPS steps in
+#: windows of AMP_K steps (one host sync a window), a checkpoint every
+#: AMP_CKPT_EVERY steps, a resume from the last one; then one step at a
+#: loss scale of AMP_SKIP_SCALE, where the scaled loss overflows f32
+AMP_STEPS, AMP_K, AMP_CKPT_EVERY = 20, 4, 8
+AMP_SKIP_SCALE = 2.0 ** 127
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -2339,13 +2377,14 @@ def decode_modes(seed=0, device="cuda", bf16=None):
 # phases 5 and 6: training through the Fluid front end
 # ---------------------------------------------------------------------------
 
-def _train_program(seed):
-    """Build the training config in fresh default programs; returns
-    (main, startup, avg_cost)."""
+def _train_program(seed, amp=False):
+    """Build the training config in fresh default programs (``amp``:
+    under MixedPrecision(Adam)); returns (main, startup, avg_cost)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer
     fluid.core.program.reset_default_programs()
-    _, _, avg_cost = transformer.transformer_lm_train_program(**TRAIN_CONFIG)
+    _, _, avg_cost = transformer.transformer_lm_train_program(
+        **TRAIN_CONFIG, amp=amp)
     startup = fluid.default_startup_program()
     startup.random_seed = seed
     return fluid.default_main_program(), startup, avg_cost
@@ -3586,6 +3625,544 @@ def seq_card_vs_cpu(model, state, seed=0):
             "cpu_spread_max": spread[0][0], "grads_compared": len(params)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the at-scale LM under MixedPrecision(Adam) through train_loop
+# ---------------------------------------------------------------------------
+
+#: the six kernel wrappers the training step calls (looked up by name in
+#: kernels.py at each call, so `_operand_dtypes` can watch them)
+TRAIN_KERNEL_WRAPPERS = ("flash_attention_fwd", "flash_attention_bwd",
+                         "layer_norm_fwd", "layer_norm_bwd",
+                         "softmax_xent_fwd", "softmax_xent_bwd")
+
+
+@contextlib.contextmanager
+def _operand_dtypes(names):
+    """Record the dtype of the first operand each wrapper of ``names`` is
+    called with; the wrappers are restored on exit."""
+    from paddle_tpu_torch.ops import kernels as K
+    seen = {n: set() for n in names}
+    saved = {n: getattr(K, n) for n in names}
+
+    def watched(name, fn):
+        def call(*args, **kw):
+            seen[name].add(str(args[0].dtype).replace("torch.", ""))
+            return fn(*args, **kw)
+        return call
+    try:
+        for n in names:
+            setattr(K, n, watched(n, saved[n]))
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(K, n, fn)
+
+
+def check_amp_training_shapes(recs):
+    """The six training kernels at phase 17's shapes in bf16 (the operand
+    dtype the amp LM gives them): each against its plain version, then
+    timed beside its library call, into ``recs[name]["amp_training"]``."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cpu").manual_seed(17)
+    dev, bf, dn = torch.device("cuda"), torch.bfloat16, "bfloat16"
+    B, T = TRAIN_BATCH, TRAIN_CONFIG["max_len"]
+    H = TRAIN_CONFIG["n_heads"]
+    D = TRAIN_CONFIG["d_model"] // H
+    R, Fw, V = B * T, TRAIN_CONFIG["d_model"], TRAIN_CONFIG["vocab"]
+    label = f"B{B} H{H} T{T} D{D} causal"
+    q, k, v, do = (torch.randn(B, H, T, D, generator=g).to(dev, bf)
+                   for _ in range(4))
+    out, lse = K.flash_attention_fwd(q, k, v, True)
+    _flash_check("flash_attention_fwd", (out, lse),
+                 K.flash_attention_fwd_plain(q, k, v, True), dn, label,
+                 recs["flash_attention_fwd"])
+    got = K.flash_attention_bwd(q, k, v, out, lse, do, True)
+    _flash_check("flash_attention_bwd", got,
+                 K.flash_attention_bwd_plain(q, k, v, out, lse, do, True),
+                 dn, label, recs["flash_attention_bwd"])
+    pairs, n = B * H * T * (T + 1) // 2, B * H * T * D
+    recs["flash_attention_fwd"]["amp_training"] = _kernel_times(
+        {}, lambda: K.flash_attention_fwd(q, k, v, True),
+        lambda: K.flash_attention_fwd_plain(q, k, v, True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        4 * n * 2 + B * H * T * 4, 4 * pairs * D, dn, label + " bf16",
+        tensor_cores=True)
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    recs["flash_attention_bwd"]["amp_training"] = _kernel_times(
+        {}, lambda: K.flash_attention_bwd(q, k, v, out, lse, do, True),
+        lambda: K.flash_attention_bwd_plain(q, k, v, out, lse, do, True),
+        lambda: torch.autograd.grad(lib, (qq, kk, vv), do,
+                                    retain_graph=True),
+        (5 * n + 3 * n) * 2 + B * H * T * 4, 10 * pairs * D, dn,
+        label + " bf16", tensor_cores=True)
+    x = (3 * torch.randn(R, Fw, generator=g) + 1).to(dev, bf)
+    dy = torch.randn(R, Fw, generator=g).to(dev, bf)
+    sc = (1 + 0.1 * torch.randn(Fw, generator=g)).to(dev)
+    bi = (0.1 * torch.randn(Fw, generator=g)).to(dev)
+    y, mean, var = K.layer_norm_fwd(x, sc, bi, 1e-5)
+    _check("layer_norm_fwd",
+           list(zip((y, mean, var), K.layer_norm_fwd_plain(x, sc, bi,
+                                                           1e-5))),
+           dn, f"R{R} F{Fw}", recs["layer_norm_fwd"])
+    inv = torch.rsqrt(var + 1e-5)
+    args = (x, sc, mean, inv, dy)
+    _check("layer_norm_bwd", list(zip(K.layer_norm_bwd(*args),
+                                      K.layer_norm_bwd_plain(*args))),
+           dn, f"R{R} F{Fw}", recs["layer_norm_bwd"])
+    xx, ww, bb = (t.detach().to(bf).requires_grad_(True)
+                  for t in (x, sc, bi))
+    recs["layer_norm_fwd"]["amp_training"] = _kernel_times(
+        {}, lambda: K.layer_norm_fwd(x, sc, bi, 1e-5),
+        lambda: K.layer_norm_fwd_plain(x, sc, bi, 1e-5),
+        lambda: F.layer_norm(x, (Fw,), ww.detach(), bb.detach(), 1e-5),
+        2 * R * Fw * 2 + 2 * Fw * 4 + 2 * R * 4, 8 * R * Fw, "float32",
+        f"R{R} F{Fw} bf16")
+    lib = F.layer_norm(xx, (Fw,), ww, bb, 1e-5)
+    recs["layer_norm_bwd"]["amp_training"] = _kernel_times(
+        {}, lambda: K.layer_norm_bwd(*args),
+        lambda: K.layer_norm_bwd_plain(*args),
+        lambda: torch.autograd.grad(lib, (xx, ww, bb), dy,
+                                    retain_graph=True),
+        3 * R * Fw * 2 + 3 * Fw * 4 + 2 * R * 4, 12 * R * Fw, "float32",
+        f"R{R} F{Fw} bf16", plain_iters=50)
+    xs = (2 * torch.randn(R, V, generator=g)).to(dev, bf)
+    lab = torch.randint(0, V, (R,), generator=g).to(dev, torch.int32)
+    dl = torch.rand(R, generator=g).to(dev)
+    loss, lse = K.softmax_xent_fwd(xs, lab)
+    _check("softmax_xent_fwd",
+           list(zip((loss, lse), K.softmax_xent_fwd_plain(xs, lab))), dn,
+           f"R{R} V{V}", recs["softmax_xent_fwd"])
+    _check("softmax_xent_bwd",
+           [(K.softmax_xent_bwd(xs, lab, lse, dl),
+             K.softmax_xent_bwd_plain(xs, lab, lse, dl))], dn,
+           f"R{R} V{V}", recs["softmax_xent_bwd"])
+    lab64 = lab.long()
+    recs["softmax_xent_fwd"]["amp_training"] = _kernel_times(
+        {}, lambda: K.softmax_xent_fwd(xs, lab),
+        lambda: K.softmax_xent_fwd_plain(xs, lab),
+        lambda: F.cross_entropy(xs, lab64, reduction="none"),
+        R * V * 2 + R * 4 + 2 * R * 4, 4 * R * V, "float32",
+        f"R{R} V{V} bf16")
+    xg = xs.detach().requires_grad_(True)
+    lib = F.cross_entropy(xg, lab64, reduction="none")
+    recs["softmax_xent_bwd"]["amp_training"] = _kernel_times(
+        {}, lambda: K.softmax_xent_bwd(xs, lab, lse, dl),
+        lambda: K.softmax_xent_bwd_plain(xs, lab, lse, dl),
+        lambda: torch.autograd.grad(lib, (xg,), dl, retain_graph=True),
+        2 * R * V * 2 + 3 * R * 4, 4 * R * V, "float32", f"R{R} V{V} bf16")
+
+
+def _guard_cost(scope, main, iters=10):
+    """Device ms a step of the interpreter's commits of the optimize ops
+    that carry ``skip_on_found_inf`` (parameters, moments, beta pows):
+    ``copy_`` (an op without the guard) against ``torch.where(found, old,
+    new, out=old)`` (with it), on copies of this scope's tensors."""
+    import torch
+    names = sorted({n for op in main.global_block().ops
+                    if op.desc.attrs.get("skip_on_found_inf")
+                    for n in op.desc.output_names()})
+    olds = [scope.get(n).clone() for n in names]
+    news = [t.clone() for t in olds]
+    found = torch.zeros((), dtype=torch.bool, device=olds[0].device)
+
+    def copy():
+        for o, n in zip(olds, news):
+            o.copy_(n)
+
+    def guarded():
+        for o, n in zip(olds, news):
+            torch.where(found, o, n, out=o)
+    nbytes = sum(t.numel() * t.element_size() for t in olds)
+    out = {"tensors": len(olds), "state_gib": nbytes / 2**30,
+           "copy_ms": _time_ms(copy, iters), "where_ms": _time_ms(guarded,
+                                                                 iters)}
+    out["guard_ms"] = out["where_ms"] - out["copy_ms"]
+    return out
+
+
+def _amp_skip_step(exe, scope, main, feed, avg_cost):
+    """The overflowed step of phase 17: at a loss scale of AMP_SKIP_SCALE
+    the loss gradient reaching the logits is AMP_SKIP_SCALE / (B x T), so
+    the LM's gradients may stay inside f32's range; one step at that
+    scale reports whether they overflowed by themselves.  Then the
+    overflow is made as the JAX tests make theirs, with one non-finite
+    input: an inf in the frozen positional table (a trainable=False
+    parameter no optimizer touches).  That step must be a skip: every
+    persistable bitwise as before it, the scale halved, the clean-step
+    count 0.  Returns ((scale, clean steps) after the skip, whether the
+    scale alone overflowed)."""
+    import numpy as np
+    import torch
+    ls = main._loss_scaling
+    scale = scope.get(ls["scale"])
+    scale.fill_(AMP_SKIP_SCALE)
+    _, found = exe.run(main, feed=feed,
+                       fetch_list=[avg_cost.name, ls["found_inf"]])
+    overflows_alone = bool(np.asarray(found).reshape(-1)[0])
+    (table,) = [p.name for p in main.all_parameters() if not p.trainable]
+    names = [v.name for v in main.global_block().vars.values()
+             if v.persistable and v.name not in (ls["scale"],
+                                                 ls["good_steps"])
+             and isinstance(scope.get(v.name), torch.Tensor)]
+    scope.get(table)[0, 0] = float("inf")
+    scale.fill_(AMP_SKIP_SCALE)
+    before = {n: scope.get(n).clone() for n in names}
+    exe.run(main, feed=feed, fetch_list=[avg_cost])
+    torch.cuda.synchronize()
+    moved = [n for n in names if not torch.equal(before[n], scope.get(n))]
+    after = (float(scope.get(ls["scale"])), int(scope.get(ls["good_steps"])))
+    print(f"  scale 2^127 alone: found_inf {overflows_alone}; with an inf in "
+          f"{table}: {len(names)} persistables compared, {len(moved)} moved "
+          f"{moved[:5]}; scaler after {after}", flush=True)
+    if moved or after != (AMP_SKIP_SCALE / 2, 0):
+        raise AssertionError("the overflowed step was not a bitwise skip")
+    return after, overflows_alone
+
+
+def _window_step_ms(records, k):
+    """Per-step wall ms of each window after the first, from the flight
+    ring: the time between two window syncs over the window's k steps."""
+    ts = [r["ts"] for r in records if r["note"] == "window_sync"]
+    return [(b - a) * 1e3 / k for a, b in zip(ts, ts[1:])]
+
+
+def amp_train(smi, seed=0):
+    """Phase 17: the training config under MixedPrecision(Adam) (bf16
+    activations, f32 master weights, dynamic loss scaling) through
+    Executor.train_loop: AMP_STEPS steps on one fixed batch in windows of
+    AMP_K (one host sync each), a checkpoint every AMP_CKPT_EVERY steps
+    into a temporary directory; then a fresh executor and scope resume
+    from the last checkpoint to AMP_STEPS, and the resumed losses must be
+    bitwise the first run's.  The kernels must launch
+    TRAIN_LAUNCHES_PER_STEP times a step and see bf16 operands; the loss
+    must fall.  Then one profiled step, and one step at a loss scale of
+    AMP_SKIP_SCALE, which must be a skip: every persistable but the
+    scaler's bitwise unchanged, the scale halved.  Returns (launches of
+    the main run, end-to-end numbers)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.checkpoint import manager as ckpt_manager
+    from paddle_tpu_torch.observability import default_registry
+    from paddle_tpu_torch.ops import kernels as K
+    main, startup, avg_cost = _train_program(seed, amp=True)
+    feed = _copy_feed(TRAIN_BATCH, seed)
+    ls = main._loss_scaling
+    fetch = [avg_cost.name, ls["scale"], ls["good_steps"]]
+    loop = dict(fetch_list=fetch, steps=AMP_STEPS, fetch_every=AMP_K,
+                steps_per_launch=AMP_K)
+    reg = default_registry()
+    was_enabled = reg.enabled
+    reg.enable()
+    save_ms = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "ckpt")
+            scope = fluid.core.scope.Scope()
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            save = exe._checkpoint
+
+            def timed_save(*args):
+                t0 = time.perf_counter()
+                save(*args)
+                save_ms.append((time.perf_counter() - t0) * 1e3)
+            exe._checkpoint = timed_save
+            commits0 = ckpt_manager._CKPT_SAVE_S.count
+            commit_s0 = ckpt_manager._CKPT_SAVE_S.sum
+            with fluid.scope_guard(scope):
+                exe.run(startup)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                K.reset_launches()
+                with _operand_dtypes(TRAIN_KERNEL_WRAPPERS) as dtypes:
+                    t0 = time.perf_counter()
+                    handles = exe.train_loop(
+                        main, feed, checkpoint_dir=ckpt,
+                        checkpoint_every=AMP_CKPT_EVERY, keep_last_n=2,
+                        **loop)
+                    wall = time.perf_counter() - t0
+                launches = {k.name: k.launches for k in K.KERNELS}
+                peak = torch.cuda.max_memory_allocated()
+            commits = ckpt_manager._CKPT_SAVE_S.count - commits0
+            commit_ms = ((ckpt_manager._CKPT_SAVE_S.sum - commit_s0)
+                         / max(commits, 1) * 1e3)
+            committed = CheckpointManager(ckpt).steps()
+            window_ms = _window_step_ms(exe._flight.records(), AMP_K)
+            got = [h.get() for h in handles]
+            losses = [float(f[0]) for f in got]
+            scaler = [(float(f[1][0]), int(f[2][0])) for f in got]
+            del exe, scope
+            print(f"  {AMP_STEPS} steps in {wall:.2f} s; losses "
+                  f"{losses[0]:.6f} -> {losses[-1]:.6f}; committed "
+                  f"checkpoints {committed}; operand dtypes "
+                  f"{ {n: sorted(d) for n, d in dtypes.items()} }",
+                  flush=True)
+            for name, per in TRAIN_LAUNCHES_PER_STEP.items():
+                if launches[name] != per * AMP_STEPS:
+                    raise AssertionError(
+                        f"{name}: {launches[name]} launches in {AMP_STEPS} "
+                        f"amp steps, want {per} per step")
+            bad = {n: d for n, d in dtypes.items() if d != {"bfloat16"}}
+            if bad:
+                raise AssertionError(f"kernels not fed bf16 under amp: {bad}")
+            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                raise AssertionError(f"amp losses do not fall: {losses}")
+            if committed[-1] != AMP_STEPS - AMP_STEPS % AMP_CKPT_EVERY:
+                raise AssertionError(f"checkpoints {committed}")
+
+            scope2 = fluid.core.scope.Scope()
+            exe2 = fluid.Executor(fluid.CUDAPlace(0))
+            with fluid.scope_guard(scope2):
+                exe2.run(startup)
+                K.reset_launches()
+                resumed = exe2.train_loop(main, feed, resume_from=ckpt,
+                                          **loop)
+                resume_launches = {k.name: k.launches for k in K.KERNELS}
+                again = [float(h.get()[0]) for h in resumed]
+                start = resumed[0].step
+                print(f"  resumed from step {start}: losses {again} "
+                      f"against {losses[start:]}", flush=True)
+                if start != committed[-1]:
+                    raise AssertionError(f"resumed at {start}")
+                for name, per in TRAIN_LAUNCHES_PER_STEP.items():
+                    if resume_launches[name] != per * len(again):
+                        raise AssertionError(f"{name} on resume: "
+                                             f"{resume_launches[name]}")
+                diff = [(start + i, a, b) for i, (a, b) in
+                        enumerate(zip(again, losses[start:]))
+                        if np.float32(a).tobytes() != np.float32(b).tobytes()]
+                if diff:
+                    raise AssertionError(
+                        f"the resumed losses differ from the first run's: "
+                        f"{diff}")
+                device = _profile_step(exe2, main, feed, avg_cost)
+                guard = _guard_cost(scope2, main)
+                skip_scaler, overflows_alone = _amp_skip_step(
+                    exe2, scope2, main, feed, avg_cost)
+    finally:
+        if not was_enabled:
+            reg.disable()
+    p50 = float(np.percentile(window_ms, 50))
+    e2e = {"steps": AMP_STEPS, "steps_per_launch": AMP_K,
+           "step_ms_p50": p50,
+           "step_ms_p99": float(np.percentile(window_ms, 99)),
+           "window_step_ms": window_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_CONFIG["max_len"] * 1e3 / p50,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "resumed_from": start, "resumed_bitwise": True,
+           "scaler_trajectory": scaler, "skip_scaler": skip_scaler,
+           "scale_2_127_overflows_alone": overflows_alone,
+           "checkpoint_caller_ms": save_ms, "checkpoint_commit_ms": commit_ms,
+           "checkpoints_committed": commits, "guard": guard,
+           "peak_mem_gib": peak / 2**30, "profiled_device_ms": device,
+           "device_busy_share": (device["all"] / p50 if device else None)}
+    print(f"  ({smi}) step p50 {p50:.3f} ms, p99 {e2e['step_ms_p99']:.3f} ms "
+          f"(per step of windows 2-{AMP_STEPS // AMP_K}: {window_ms})",
+          flush=True)
+    print(f"  ({smi}) tokens/s {e2e['tokens_per_s']:.1f}", flush=True)
+    print(f"  ({smi}) device ms a step "
+          f"{device['all'] if device else None}, busy share "
+          f"{e2e['device_busy_share']}", flush=True)
+    print(f"  ({smi}) scaler trajectory (scale, clean steps): {scaler}",
+          flush=True)
+    print(f"  ({smi}) checkpoint caller-thread ms {save_ms}, commit ms "
+          f"{commit_ms:.1f} ({commits} commits)", flush=True)
+    print(f"  ({smi}) guard: {json.dumps(guard)}", flush=True)
+    return launches, e2e
+
+
+# ---------------------------------------------------------------------------
+# phase 18: every optimizer rule, clip, weight decay and LR schedule
+# ---------------------------------------------------------------------------
+
+OPT_STEPS = 5
+
+
+def _opt_fc(fl, param_attr=None):
+    layers = fl.layers
+    x = layers.data(name="x", shape=[4], dtype="float32")
+    y = layers.data(name="y", shape=[1], dtype="float32")
+    h = layers.fc(input=x, size=6, act="tanh", param_attr=param_attr)
+    pred = layers.fc(input=h, size=1)
+    return layers.mean(layers.square_error_cost(input=pred, label=y))
+
+
+def _opt_case(make_opt, param_attr=None, clip=None, schedule=None,
+              average=False):
+    """A phase-18 program builder: fluid -> (loss, extra fetches,
+    ModelAverage or None)."""
+    def build(fl):
+        loss = _opt_fc(fl, param_attr(fl) if param_attr else None)
+        if clip:
+            fl.clip.set_gradient_clip(clip(fl))
+        lr = schedule(fl.layers) if schedule else None
+        make_opt(fl, lr).minimize(loss)
+        ma = (fl.optimizer.ModelAverage(average_window_rate=0.5,
+                                        min_average_window=2,
+                                        max_average_window=3)
+              if average else None)
+        return loss, [lr.name] if lr is not None else [], ma
+    return build
+
+
+def _opt_cases():
+    def opt(cls, lr=0.1, **kw):
+        return lambda fl, sched: getattr(fl.optimizer, cls)(
+            sched if sched is not None else lr, **kw)
+    cases = {
+        "sgd": _opt_case(opt("SGD")),
+        "momentum": _opt_case(opt("Momentum", momentum=0.9)),
+        "momentum nesterov": _opt_case(opt("Momentum", momentum=0.9,
+                                           use_nesterov=True)),
+        "adam": _opt_case(opt("Adam", 0.05)),
+        "adamax": _opt_case(opt("Adamax", 0.05)),
+        "adagrad": _opt_case(opt("Adagrad")),
+        "decayed_adagrad": _opt_case(opt("DecayedAdagrad")),
+        "adadelta": _opt_case(opt("Adadelta", 1.0)),
+        "rmsprop": _opt_case(opt("RMSProp", 0.01, momentum=0.5)),
+        "ftrl": _opt_case(opt("Ftrl", l1=0.01, l2=0.01)),
+        "ftrl lr_power -0.7": _opt_case(opt("Ftrl", l1=0.01, l2=0.01,
+                                            lr_power=-0.7)),
+        "proximal_gd": _opt_case(opt("ProximalGD", l1=0.01, l2=0.01)),
+        "proximal_adagrad": _opt_case(opt("ProximalAdagrad", l1=0.01,
+                                          l2=0.01)),
+        "average_accumulates": _opt_case(opt("SGD"), average=True),
+        "L1Decay": _opt_case(lambda fl, s: fl.optimizer.Momentum(
+            0.1, momentum=0.9, regularization=fl.regularizer.L1Decay(0.05))),
+        "L2Decay": _opt_case(lambda fl, s: fl.optimizer.Momentum(
+            0.1, momentum=0.9, regularization=fl.regularizer.L2Decay(0.05))),
+        "L2Decay on a parameter": _opt_case(
+            opt("Adam", 0.05), param_attr=lambda fl: fl.ParamAttr(
+                regularizer=fl.regularizer.L2Decay(0.05))),
+        "per-parameter learning rate": _opt_case(
+            opt("Adam", 0.05),
+            param_attr=lambda fl: fl.ParamAttr(learning_rate=0.25)),
+        "GradientClipByValue": _opt_case(
+            opt("SGD", 1.0),
+            clip=lambda fl: fl.clip.GradientClipByValue(max=0.05)),
+        "GradientClipByNorm": _opt_case(
+            opt("SGD", 1.0),
+            clip=lambda fl: fl.clip.GradientClipByNorm(clip_norm=0.1)),
+        "GradientClipByGlobalNorm": _opt_case(
+            opt("SGD", 1.0),
+            clip=lambda fl: fl.clip.GradientClipByGlobalNorm(clip_norm=0.1)),
+    }
+    schedules = {
+        "noam_decay": lambda L: L.noam_decay(d_model=64, warmup_steps=3),
+        "exponential_decay": lambda L: L.exponential_decay(0.5, 2, 0.5,
+                                                           staircase=True),
+        "natural_exp_decay": lambda L: L.natural_exp_decay(0.5, 2, 0.5),
+        "inverse_time_decay": lambda L: L.inverse_time_decay(0.5, 2, 0.5),
+        "polynomial_decay": lambda L: L.polynomial_decay(0.5, 3, 0.01,
+                                                         power=2.0),
+        "polynomial_decay cycle": lambda L: L.polynomial_decay(
+            0.5, 2, 0.01, cycle=True),
+        "piecewise_decay": lambda L: L.piecewise_decay([2, 4],
+                                                       [0.5, 0.2, 0.05]),
+    }
+    for name, sched in schedules.items():
+        cases[name] = _opt_case(opt("SGD"), schedule=sched)
+    return cases
+
+
+def _opt_run(build, place, state, feeds):
+    """Build a phase-18 program, put ``state`` in a fresh scope on
+    ``place`` and take len(feeds) steps: (fetches a step, final state,
+    ModelAverage or None, scope)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    fluid.core.program.reset_default_programs()
+    loss, extra, ma = build(fluid)
+    main = fluid.default_main_program()
+    exe = fluid.Executor(place)
+    scope = fluid.core.scope.Scope()
+    pio.scope_from_numpy(scope, main, state, exe.device)
+    with fluid.scope_guard(scope):
+        fetched = [exe.run(main, feed=f, fetch_list=[loss.name] + extra)
+                   for f in feeds]
+    final = {n: scope.get(n).cpu().numpy() for n in state}
+    return fetched, final, ma, scope
+
+
+def optimizer_rules_card_vs_cpu(seed=0):
+    """Phase 18: each case of `_opt_cases` (every optimizer rule,
+    ModelAverage's accumulation, each weight decay, clip and LR schedule,
+    a per-parameter learning rate) on a small fc program: OPT_STEPS steps
+    on the card and on the CPU from the same startup state and feeds;
+    every loss and fetched learning rate and every persistable afterwards
+    to F32_TOL x max(1, max |cpu|).  ModelAverage's apply/restore must
+    round-trip the card's parameters bitwise, its average agreeing with
+    the CPU's."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as fluid
+    rng = np.random.RandomState(seed)
+    feeds = [{"x": rng.rand(8, 4).astype(np.float32),
+              "y": rng.rand(8, 1).astype(np.float32)}
+             for _ in range(OPT_STEPS)]
+    worst = {}
+    rules = set()
+    for label, build in _opt_cases().items():
+        fluid.core.program.reset_default_programs()
+        build(fluid)
+        rules |= {op.type for op in
+                  fluid.default_main_program().global_block().ops}
+        startup = fluid.default_startup_program()
+        startup.random_seed = seed
+        scope = fluid.core.scope.Scope()
+        with fluid.scope_guard(scope):
+            fluid.Executor(fluid.CPUPlace()).run(startup)
+        state = {n: v.cpu().numpy() for n, v in scope._vars.items()}
+        card, card_state, ma, card_scope = _opt_run(
+            build, fluid.CUDAPlace(0), state, feeds)
+        cpu, cpu_state, cpu_ma, cpu_scope = _opt_run(
+            build, fluid.CPUPlace(), state, feeds)
+        pairs = ([(f"step {i} fetch {j}", a, b)
+                  for i, (ca, cb) in enumerate(zip(card, cpu))
+                  for j, (a, b) in enumerate(zip(ca, cb))]
+                 + [(n, card_state[n], cpu_state[n]) for n in state])
+        share = 0.0
+        for what, a, b in pairs:
+            b = np.asarray(b, np.float64)
+            lim = F32_TOL * max(1.0, float(np.abs(b).max()))
+            err = float(np.abs(np.asarray(a, np.float64) - b).max())
+            share = max(share, err / lim)
+            if err > lim:
+                raise AssertionError(f"phase 18 {label}: {what} differs "
+                                     f"by {err:.3e} (limit {lim:.3e})")
+        if ma is not None:
+            with fluid.scope_guard(card_scope):
+                live = {p.name: card_scope.get(p.name).clone()
+                        for p in ma.params}
+                with ma.apply():
+                    avg = {n: card_scope.get(n).cpu().numpy() for n in live}
+                if not all(torch.equal(card_scope.get(n), t)
+                           for n, t in live.items()):
+                    raise AssertionError("ModelAverage restore is not "
+                                         "bitwise on the card")
+            with fluid.scope_guard(cpu_scope):
+                with cpu_ma.apply():
+                    for n, a in avg.items():
+                        b = cpu_scope.get(n).numpy()
+                        if np.abs(a - b).max() > F32_TOL * max(
+                                1.0, float(np.abs(b).max())):
+                            raise AssertionError(
+                                f"ModelAverage's average of {n} differs")
+        worst[label] = share
+    missing = set(OPTIMIZER_RULES) - rules
+    if missing:
+        raise AssertionError(f"phase 18 ran no case of {sorted(missing)}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  {len(worst)} cases held over {OPT_STEPS} steps; largest "
+          f"shares of the tolerance: {top}", flush=True)
+    return {"cases": len(worst), "largest_share": top[0][1]}
+
+
 def serving_ab(smi):
     """``--serving``: only the serving path's kernels and phase 4 (paged
     attention and LayerNorm against their plain versions with their
@@ -3684,6 +4261,22 @@ def image_phases(smi):
     return vgg_launches, lenet_launches
 
 
+def amp_train_ab(smi):
+    """``--amp-train``: the six training kernels at phase 17's bf16
+    shapes, then phase 17 (the amp LM through train_loop with its
+    checkpoint, resume and skip)."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("flash_attention", "flash_attention_bwd",
+                      "layer_norm", "layer_norm_bwd", "softmax_xent"))
+    recs = {n: {} for n in TRAIN_KERNEL_WRAPPERS}
+    check_amp_training_shapes(recs)
+    launches, e2e = amp_train(smi)
+    for n in TRAIN_KERNEL_WRAPPERS:
+        recs[n]["launches_amp_training"] = launches[n]
+    recs["amp_training"] = e2e
+    return recs
+
+
 def vgg_ab(smi):
     """``--vgg``: the BatchNorm backward's phase 3 checks and timings
     (VGG-16's NCHW launches among them), then phases 14-16."""
@@ -3715,7 +4308,7 @@ def vgg_f32_anatomy(smi):
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
-            "--vgg-f32": vgg_f32_anatomy}
+            "--vgg-f32": vgg_f32_anatomy, "--amp-train": amp_train_ab}
 
 
 def main(argv=()):
@@ -3828,6 +4421,18 @@ def main(argv=()):
 
     vgg_launches, lenet_launches = image_phases(smi)
 
+    print(f"phase 17: training {TRAIN_CONFIG} at batch {TRAIN_BATCH} under "
+          "MixedPrecision(Adam) through Executor.train_loop "
+          f"(steps_per_launch {AMP_K}, a checkpoint every {AMP_CKPT_EVERY} "
+          "steps, a resume, a skipped overflow)", flush=True)
+    check_amp_training_shapes(recs)
+    amp_launches, amp_e2e = amp_train(smi)
+    print(f"  end to end ({smi}): {json.dumps(amp_e2e)}", flush=True)
+
+    print("phase 18: every optimizer rule, clip, weight decay and LR "
+          "schedule on the card against the CPU", flush=True)
+    print(f"  {json.dumps(optimizer_rules_card_vs_cpu())}", flush=True)
+
     kernels = []
     for k in K.KERNELS:
         r = recs[k.name]
@@ -3839,7 +4444,8 @@ def main(argv=()):
                          + resnet_launches[k.name]
                          + seq["lstm"][0][k.name] + seq["gru"][0][k.name]
                          + fd_launches[k.name] + dm_launches[k.name]
-                         + vgg_launches[k.name] + lenet_launches[k.name]),
+                         + vgg_launches[k.name] + lenet_launches[k.name]
+                         + amp_launches[k.name]),
             "launches_serving": serve_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
             "launches_decode_modes": dm_launches[k.name],
@@ -3848,12 +4454,14 @@ def main(argv=()):
                                   + seq["lstm"][0][k.name]
                                   + seq["gru"][0][k.name]
                                   + vgg_launches[k.name]
-                                  + lenet_launches[k.name]),
+                                  + lenet_launches[k.name]
+                                  + amp_launches[k.name]),
             "launches_resnet_training": resnet_launches[k.name],
             "launches_lstm_training": seq["lstm"][0][k.name],
             "launches_gru_training": seq["gru"][0][k.name],
             "launches_vgg_training": vgg_launches[k.name],
             "launches_lenet_training": lenet_launches[k.name],
+            "launches_amp_training": amp_launches[k.name],
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3873,6 +4481,8 @@ def main(argv=()):
             **({"training_shape": r["training"]} if "training" in r
                else {}),
             **({"vgg_shape": r["vgg"]} if "vgg" in r else {}),
+            **({"amp_training_shape": r["amp_training"]}
+               if "amp_training" in r else {}),
             **{key: r[key] for key in ("f32_w", "bf16_w", "bf16",
                                        "chunked_rows", "decode") if key in r}})
     print(json.dumps({"kernels": kernels}))

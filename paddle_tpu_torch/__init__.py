@@ -16,7 +16,13 @@ so far:
 
   The Executor interprets the Program op by op; one ``backward`` op
   differentiates the recorded forward, one optimizer op per parameter
-  (``adam``, ``momentum``, ``sgd``) updates it in place.  The dense op
+  (every optimizer of the JAX package) updates it in place.  The
+  training loop is ported whole: `optimizer.MixedPrecision` (dynamic
+  loss scaling with a bitwise skip on overflow), gradient clipping
+  (`clip`), weight decay (`regularizer`), the LR schedules,
+  `optimizer.ModelAverage`, ``Executor.train_loop`` with
+  ``check_nan_inf``, K-step windows and `checkpoint` resume, the fault
+  points (`fault`), `flags` and the `reader` decorators.  The dense op
   families (math, tensor, logic and the dense nn rules), their layers,
   ``Variable``'s operators, the ``nets`` image helpers, `DataFeeder`,
   `metrics`, `evaluator` and `average` are ported.  The models: the
@@ -40,9 +46,13 @@ backward, BatchNorm training backward, the LSTM and GRU recurrences
 forward and backward) are written in CUDA (``ops/csrc``).  Entry points run on the card unless the caller asks for
 the CPU (``Executor(CPUPlace())``, ``device="cpu"``, ``--device cpu``).
 """
+from . import flags  # noqa: F401  (the FLAGS_* bootstrap runs first)
+from .flags import FLAGS  # noqa: F401
 from . import (average, backward, core, evaluator,  # noqa: F401
                initializer, io, layers, metrics, nets, optimizer,
                unique_name)
+from . import checkpoint, clip, fault, reader, regularizer  # noqa: F401
+from .checkpoint import CheckpointManager  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .core import (Executor, CPUPlace, CUDAPlace, Program,  # noqa: F401
                    Variable, Parameter, append_backward,

@@ -1,6 +1,14 @@
 """``python -m paddle_tpu_torch`` — the port's command line (counterpart
-of ``paddle_tpu/__main__.py``; the serving verbs only):
+of ``paddle_tpu/__main__.py``; the serving and training verbs):
 
+  train <script> [args]  run a training script as ``__main__`` with
+                        the port importable (a script written for the
+                        JAX package runs with its import changed)
+  checkpoints <dir>     list a training checkpoint directory (step,
+                        age, size, reader position, fingerprint: the
+                        manifests ``train_loop(resume_from=...)``
+                        reads), or --json for the full listing; the
+                        JAX verb's output for the same directory
   serve <model_dir>     serve saved inference model(s) over the
                         newline-JSON wire: --model NAME=DIR (repeatable)
                         mounts more models behind one port; a model whose
@@ -17,8 +25,8 @@ of ``paddle_tpu/__main__.py``; the serving verbs only):
                         --json for a snapshot)
 
 The client verbs read the endpoint from HOST:PORT or from the port file
-a local ``serve`` wrote.  ``fleet``, ``top``, ``inspect`` and the
-training verbs are not ported yet (ROADMAP queue A).
+a local ``serve`` wrote.  ``fleet``, ``top``, ``inspect`` and
+``pserver`` are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -169,9 +177,49 @@ def _client_parser(sub, verb, help):
     return p
 
 
+def cmd_train(args):
+    import runpy
+    sys.argv = [args.script] + list(args.script_args)
+    runpy.run_path(args.script, run_name="__main__")
+    return 0
+
+
+def cmd_checkpoints(args):
+    from .checkpoint import describe
+
+    listing = describe(args.directory)
+    if args.json:
+        print(json.dumps(listing, indent=1))
+        return 0
+    if not listing:
+        print(f"no committed checkpoints under {args.directory}")
+        return 1
+    import datetime
+    for c in listing:
+        when = (datetime.datetime.fromtimestamp(c["saved_at"])
+                .strftime("%Y-%m-%d %H:%M:%S") if c["saved_at"] else "?")
+        print(f"step {c['step']:>8}  {when}  "
+              f"{c['num_vars']:>4} vars  {c['bytes']/1e6:8.2f} MB  "
+              f"reader@{c['reader_position']}  "
+              f"program={c['program_fingerprint']}")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("train", help="run a training script")
+    p.add_argument("script")
+    p.add_argument("script_args", nargs=argparse.REMAINDER)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("checkpoints",
+                       help="list a training checkpoint directory")
+    p.add_argument("directory")
+    p.add_argument("--json", action="store_true",
+                   help="full JSON listing instead of the table")
+    p.set_defaults(fn=cmd_checkpoints)
 
     p = sub.add_parser("serve", help="serve saved inference model(s)")
     p.add_argument("model_dir", nargs="?", default=None,

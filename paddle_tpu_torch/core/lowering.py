@@ -15,6 +15,22 @@ the env as leaves that require grad, and every output the program marks
 recorded graph once (`core.backward`), and the ops after it (the
 optimizer's) run without recording.
 
+Optimize ops commit in place.  An op of the ``optimize`` role (the
+optimizer, the loss scaler, ModelAverage's accumulation) computes its
+outputs out of place; the interpreter then copies each output into the
+tensor its name held before the op (the scope's own parameter or
+accumulator), so a step copies no state and scope tensors keep their
+storage.  An op wired with ``FoundInf`` and ``skip_on_found_inf``
+(`optimizer.MixedPrecision`) commits with ``torch.where(found, old,
+new)`` instead: on an overflowed step every parameter, moment and beta
+pow keeps its pre-step bits, with no host sync and no rule edited one by
+one.  (The JAX interpreter selects back immutable values; eager in-place
+updates would alias the snapshot, hence the out-of-place rules.)
+
+``check_nan_inf`` poisons every non-finite floating output of an op with
+NaN on the device (the JAX ``_guard_outputs``), so the executor's one
+finite check of the fetches sees it.
+
 Ragged values keep the JAX package's representation: a padded dense
 tensor plus a companion int32 length vector named ``<name>@SEQ_LEN`` in
 the env (fed beside the data, carried along by the rules).  Sub-blocks
@@ -140,11 +156,13 @@ class Interpreter:
 
     def __init__(self, program: Program, device: torch.device,
                  generator: torch.Generator,
-                 fetch_names: Iterable[str] = ()):
+                 fetch_names: Iterable[str] = (),
+                 check_nan_inf: bool = False):
         self.program = program
         self.device = device
         self.generator = generator
         self.fetch_names = tuple(fetch_names)
+        self.check_nan_inf = check_nan_inf
         self.needed = set()
 
     def run_block(self, block: Block, env: Dict[str, Any]):
@@ -163,11 +181,54 @@ class Interpreter:
             rule = OpRegistry.get(op.type)
             ctx = ExecContext(op, env, self.program, block, self)
             record = bwd_at is not None and i < bwd_at
+            prev = None
+            if op.desc.attrs.get("op_role") == "optimize":
+                prev = {n: env[n] for n in op.desc.output_names()
+                        if isinstance(env.get(n), torch.Tensor)}
             with torch.set_grad_enabled(record):
                 rule.fn(ctx)
             if record:
                 self._stop_gradients(op, block, env)
+            if prev:
+                self._commit(op, env, prev)
+            if self.check_nan_inf:
+                self._poison_nonfinite(op, env, prev or {})
         return env
+
+    @staticmethod
+    def _commit(op: Operator, env: Dict[str, Any], prev: Dict[str, Any]):
+        """Copy an optimize op's outputs into the tensors their names held
+        before it; under ``skip_on_found_inf`` keep the old values where
+        the step's FoundInf is set."""
+        found = None
+        if op.desc.attrs.get("skip_on_found_inf"):
+            names = op.desc.inputs.get("FoundInf", [])
+            if names and names[0] in env:
+                found = env[names[0]].reshape(()).bool()
+        with torch.no_grad():
+            for name, old in prev.items():
+                new = env[name]
+                if (new is old or not isinstance(new, torch.Tensor)
+                        or new.shape != old.shape):
+                    continue
+                if found is None:
+                    old.copy_(new)
+                else:
+                    torch.where(found, old, new.to(old.dtype), out=old)
+                env[name] = old
+
+    @staticmethod
+    def _poison_nonfinite(op: Operator, env: Dict[str, Any],
+                          committed: Dict[str, Any]):
+        for name in op.desc.output_names():
+            val = env.get(name)
+            if (name in committed or not isinstance(val, torch.Tensor)
+                    or not val.is_floating_point()):
+                continue
+            bad = torch.logical_not(torch.isfinite(val).all())
+            # the poison is detached: a NaN must not reach the gradients
+            # of the steps where nothing is bad (0 * NaN in where's VJP)
+            env[name] = torch.where(bad, val.detach() * float("nan"), val)
 
     @staticmethod
     def _stop_gradients(op: Operator, block: Block, env: Dict[str, Any]):

@@ -10,8 +10,10 @@ Ported as far as the training and serving programs need: sub-blocks (a
 DynamicRNN's step block, ``create_block``/``rollback``),
 ``clone(for_test=True)`` and ``prune(targets)`` (what
 ``io.save_inference_model`` exports) and `Variable`'s operator sugar.
-Like the JAX package's, the ``amp`` flag is not part of the JSON, and an
-attribute's tuples come back from it as lists.
+Like the JAX package's, the ``amp`` flag (default ``FLAGS.amp``) and the
+loss scaler's ``_loss_scaling`` marker are not part of the JSON, and an
+attribute's tuples come back from it as lists.  `Block.prepend_op` puts
+an op first (the LR schedules' step counter).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 
 from . import types as core_types
 from .. import unique_name
+from ..flags import FLAGS
 
 
 class VarDesc:
@@ -332,6 +335,14 @@ class Block:
         self.ops.append(op)
         return op
 
+    def prepend_op(self, type: str, inputs=None, outputs=None,
+                   attrs=None) -> Operator:
+        """`append_op`, then move the op to the front of the block (the
+        LR schedules' step counter runs first in every step)."""
+        op = self.append_op(type, inputs, outputs, attrs)
+        self.ops.insert(0, self.ops.pop())
+        return op
+
     def all_parameters(self) -> List[Parameter]:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
@@ -352,7 +363,10 @@ class Program:
         self._current_block_idx = 0
         self._seed = None            # program-level RNG seed
         self._op_role = "forward"    # forward | backward | optimize
-        self._amp = False            # bf16 compute on conv/matmul ops
+        self._amp = FLAGS.amp        # bf16 compute on conv/matmul ops
+        #: the loss scaler's var names (`optimizer.MixedPrecision`), read
+        #: by the executor's non-finite check; None without a scaler
+        self._loss_scaling = None
 
     def global_block(self) -> Block:
         return self.blocks[0]
@@ -415,7 +429,17 @@ class Program:
                     if "is_test" in _TEST_MODE_OPS.get(op.type, ()):
                         op.desc.attrs["is_test"] = True
             p._op_role = "forward"
+        p._drop_stale_loss_scaling()
         return p
+
+    def _drop_stale_loss_scaling(self):
+        """A copy without the ``check_finite_and_unscale`` op (the only
+        writer of the scaler's found_inf) drops the ``_loss_scaling``
+        marker too, or the executor would fetch a var no op writes."""
+        if self._loss_scaling and not any(
+                op.type == "check_finite_and_unscale"
+                for op in self.global_block().ops):
+            self._loss_scaling = None
 
     def prune(self, targets: Sequence) -> "Program":
         """A copy whose global block keeps only the ops that ``targets``
@@ -444,6 +468,7 @@ class Program:
                          | set(op.desc.output_names()))
         block.vars = {k: v for k, v in block.vars.items()
                       if k in used or k in target_names}
+        p._drop_stale_loss_scaling()
         return p
 
     # -- serialization -------------------------------------------------------

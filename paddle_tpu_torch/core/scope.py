@@ -21,6 +21,9 @@ class Scope:
     def set(self, name: str, value):
         self._vars[name] = value
 
+    def local_var_names(self):
+        return list(self._vars)
+
     def clear(self):
         """Drop every variable."""
         self._vars.clear()

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import fault
 from .core.place import resolve_device
 from .core.program import (Parameter, Program, Variable,
                            default_main_program)
@@ -54,6 +55,7 @@ def _atomic_write(path: str, mode: str = "w"):
             yield f
             f.flush()
             os.fsync(f.fileno())
+        fault.maybe_fault("io.pre_replace")
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -110,6 +112,7 @@ def save_vars(executor, dirname, main_program=None, vars=None,
         val = scope.get(var.name)
         if val is None:
             continue
+        fault.maybe_fault("io.save_vars")
         with _atomic_write(os.path.join(dirname, var.name + ".npy"),
                            "wb") as f:
             np.save(f, _numpy(val))

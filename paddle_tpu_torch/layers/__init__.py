@@ -9,5 +9,8 @@ from .sequence import *    # noqa: F401,F403
 from .misc import *        # noqa: F401,F403
 from .control_flow import DynamicRNN, StaticRNN  # noqa: F401
 from .io import data  # noqa: F401
-from . import (control_flow, io, misc, nn, ops, sequence,  # noqa: F401
-               tensor)
+from .learning_rate_scheduler import (  # noqa: F401
+    autoincreased_step_counter, exponential_decay, inverse_time_decay,
+    natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay)
+from . import (control_flow, io, learning_rate_scheduler,  # noqa: F401
+               misc, nn, ops, sequence, tensor)

@@ -2,6 +2,6 @@
 the tensor functions the serving model calls (`nn_ops`, `kv_cache_ops`,
 `attention_ops`) and the op rules the executor interprets.  Importing the
 package registers every rule."""
-from . import (attention_ops, logic_ops, math_ops,  # noqa: F401
-               misc_ops, nn_ops, optimizer_ops, rnn_ops, sequence_ops,
+from . import (amp_ops, attention_ops, logic_ops,  # noqa: F401
+               math_ops, misc_ops, nn_ops, optimizer_ops, rnn_ops, sequence_ops,
                tensor_ops)

@@ -1,0 +1,67 @@
+"""Loss-scaling op rules of mixed-precision training (counterpart of
+``paddle_tpu/ops/amp_ops.py``).
+
+Both rules stay on the device: ``check_finite_and_unscale`` reduces every
+gradient's finiteness to one boolean tensor, and ``update_loss_scaling``
+moves the scale with selects, so a step never waits on the host to learn
+that it overflowed.  The update skip itself is the interpreter's
+(`core.lowering`): an optimize op wired with ``FoundInf`` and the
+``skip_on_found_inf`` attribute commits its outputs only where the flag
+is false.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.registry import register_op
+
+
+@register_op("check_finite_and_unscale",
+             doc="check_finite_and_unscale_op.cc: one device boolean for "
+                 "all gradients, gradients unscaled into f32")
+def _check_finite_and_unscale(ctx):
+    scale = ctx.input("Scale")
+    inv = 1.0 / scale.reshape(()).float()
+    finite = []
+    for n_in, n_out in zip(ctx.op.desc.inputs.get("X", []),
+                           ctx.output_names("Out")):
+        g = ctx.env.get(n_in)
+        if g is None:
+            if ctx.env.get(n_in + "@VALUES") is not None:
+                raise NotImplementedError(
+                    "check_finite_and_unscale over a SelectedRows gradient "
+                    "is not ported")
+            continue
+        finite.append(torch.isfinite(g).all())
+        ctx.env[n_out] = g.float() * inv
+    if finite:
+        found = torch.logical_not(torch.stack(finite).all())
+    else:
+        found = torch.zeros((), dtype=torch.bool, device=scale.device)
+    ctx.set_output("FoundInf", found)
+
+
+@register_op("update_loss_scaling",
+             doc="update_loss_scaling_op.cc: an overflow multiplies the "
+                 "scale by decr_ratio (floored) and zeroes the clean-step "
+                 "counter; incr_every_n_steps clean steps multiply it by "
+                 "incr_ratio")
+def _update_loss_scaling(ctx):
+    found = ctx.input("FoundInf").reshape(()).bool()
+    scale = ctx.input("LossScaling").reshape(()).float()
+    good = ctx.input("GoodSteps").reshape(()).int()
+    incr_every = int(ctx.attr("incr_every_n_steps", 1000))
+    incr_ratio = float(ctx.attr("incr_ratio", 2.0))
+    decr_ratio = float(ctx.attr("decr_ratio", 0.5))
+    min_scale = float(ctx.attr("min_loss_scaling", 1.0))
+    max_scale = float(ctx.attr("max_loss_scaling", 2.0 ** 31))
+    zero = torch.zeros_like(good)
+    good_new = torch.where(found, zero, good + 1)
+    grow = good_new >= incr_every
+    scale_new = torch.where(
+        found, torch.clamp(scale * decr_ratio, min=min_scale),
+        torch.where(grow, torch.clamp(scale * incr_ratio, max=max_scale),
+                    scale))
+    good_new = torch.where(grow, zero, good_new)
+    ctx.set_output("LossScalingOut", scale_new.reshape(1))
+    ctx.set_output("GoodStepsOut", good_new.reshape(1))

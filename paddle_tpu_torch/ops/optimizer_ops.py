@@ -1,9 +1,14 @@
 """Optimizer op rules (counterpart of ``paddle_tpu/ops/optimizer_ops.py``;
-the dense paths of ``sgd``, ``momentum`` and ``adam``).
+the dense paths of ``sgd``, ``momentum``, ``adam``, ``adamax``,
+``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``ftrl``,
+``proximal_gd``, ``proximal_adagrad`` and ModelAverage's
+``average_accumulates``).
 
-The update runs in place under ``torch.no_grad()``: the parameter and
-its accumulators are the scope's own tensors, so a step copies no state.
-The sparse (SelectedRows) and mesh-sharded branches are not ported.
+Each rule computes its outputs out of place, the JAX rules' math term
+for term.  The interpreter commits them into the scope's own tensors
+(`core.lowering`), so a step copies no state, and an op wired with
+``FoundInf`` keeps its old values on an overflowed step.  The sparse
+(SelectedRows) and mesh-sharded branches are not ported.
 """
 from __future__ import annotations
 
@@ -12,7 +17,7 @@ import torch
 from ..core.registry import register_op
 
 
-def _dense_grad(ctx):
+def _grad(ctx):
     if ctx.input_name("Grad") not in ctx.env:
         raise NotImplementedError(f"{ctx.op.type} over a SelectedRows "
                                   "gradient is not ported")
@@ -23,47 +28,191 @@ def _lr(ctx):
     return ctx.input("LearningRate").reshape(())
 
 
+def _scalar(ctx, slot):
+    return ctx.input(slot).reshape(())
+
+
 @register_op("sgd")
 def _sgd(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
-    with torch.no_grad():
-        p.sub_((_lr(ctx) * g).to(p.dtype))
-    ctx.set_output("ParamOut", p)
+    p, g = ctx.input("Param"), _grad(ctx)
+    ctx.set_output("ParamOut", (p - _lr(ctx) * g).to(p.dtype))
 
 
 @register_op("momentum")
 def _momentum(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
-    v = ctx.input("Velocity")
+    p, g, v = ctx.input("Param"), _grad(ctx), ctx.input("Velocity")
     mu = ctx.attr("mu")
     lr = _lr(ctx)
-    with torch.no_grad():
-        v.mul_(mu).add_(g)
-        if ctx.attr("use_nesterov", False):
-            p.sub_(((g + mu * v) * lr).to(p.dtype))
-        else:
-            p.sub_((lr * v).to(p.dtype))
-    ctx.set_output("ParamOut", p)
-    ctx.set_output("VelocityOut", v)
+    v_new = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    ctx.set_output("ParamOut", p_new.to(p.dtype))
+    ctx.set_output("VelocityOut", v_new)
 
 
 @register_op("adam")
 def _adam(ctx):
-    p, g = ctx.input("Param"), _dense_grad(ctx)
+    p, g = ctx.input("Param"), _grad(ctx)
     m, v = ctx.input("Moment1"), ctx.input("Moment2")
-    b1p, b2p = ctx.input("Beta1Pow"), ctx.input("Beta2Pow")
+    b1p, b2p = _scalar(ctx, "Beta1Pow"), _scalar(ctx, "Beta2Pow")
     b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
     eps = ctx.attr("epsilon", 1e-8)
-    with torch.no_grad():
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        lr_t = _lr(ctx) * torch.sqrt(1 - b2p.reshape(())) \
-            / (1 - b1p.reshape(()))
-        p.sub_((lr_t * m / (torch.sqrt(v) + eps)).to(p.dtype))
-        b1p.mul_(b1)
-        b2p.mul_(b2)
-    ctx.set_output("ParamOut", p)
-    ctx.set_output("Moment1Out", m)
-    ctx.set_output("Moment2Out", v)
-    ctx.set_output("Beta1PowOut", b1p)
-    ctx.set_output("Beta2PowOut", b2p)
+    # the JAX rule's b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g^2,
+    # as one add and one addcmul kernel each
+    m_new = (m * b1).add(g, alpha=1 - b1)
+    v_new = (v * b2).addcmul(g, g, value=1 - b2)
+    lr_t = _lr(ctx) * torch.sqrt(1 - b2p) / (1 - b1p)
+    p_new = p - lr_t * m_new / (torch.sqrt(v_new) + eps)
+    ctx.set_output("ParamOut", p_new.to(p.dtype))
+    ctx.set_output("Moment1Out", m_new)
+    ctx.set_output("Moment2Out", v_new)
+    ctx.set_output("Beta1PowOut", (b1p * b1).reshape(1))
+    ctx.set_output("Beta2PowOut", (b2p * b2).reshape(1))
+
+
+@register_op("adamax")
+def _adamax(ctx):
+    p, g = ctx.input("Param"), _grad(ctx)
+    m, inf = ctx.input("Moment"), ctx.input("InfNorm")
+    b1p = _scalar(ctx, "Beta1Pow")
+    b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-8)
+    m_new = b1 * m + (1 - b1) * g
+    inf_new = torch.maximum(b2 * inf, torch.abs(g))
+    p_new = p - (_lr(ctx) / (1 - b1p)) * m_new / (inf_new + eps)
+    ctx.set_output("ParamOut", p_new.to(p.dtype))
+    ctx.set_output("MomentOut", m_new)
+    ctx.set_output("InfNormOut", inf_new)
+    ctx.set_output("Beta1PowOut", (b1p * b1).reshape(1))
+
+
+@register_op("adagrad")
+def _adagrad(ctx):
+    p, g, mom = ctx.input("Param"), _grad(ctx), ctx.input("Moment")
+    eps = ctx.attr("epsilon", 1e-6)
+    mom_new = mom + torch.square(g)
+    p_new = p - _lr(ctx) * g / (torch.sqrt(mom_new) + eps)
+    ctx.set_output("ParamOut", p_new.to(p.dtype))
+    ctx.set_output("MomentOut", mom_new)
+
+
+@register_op("decayed_adagrad")
+def _decayed_adagrad(ctx):
+    p, g, mom = ctx.input("Param"), _grad(ctx), ctx.input("Moment")
+    decay = ctx.attr("decay", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    mom_new = decay * mom + (1 - decay) * torch.square(g)
+    p_new = p - _lr(ctx) * g / (torch.sqrt(mom_new) + eps)
+    ctx.set_output("ParamOut", p_new.to(p.dtype))
+    ctx.set_output("MomentOut", mom_new)
+
+
+@register_op("adadelta")
+def _adadelta(ctx):
+    p, g = ctx.input("Param"), _grad(ctx)
+    avg_sq_g = ctx.input("AvgSquaredGrad")
+    avg_sq_u = ctx.input("AvgSquaredUpdate")
+    rho = ctx.attr("rho", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    g2 = rho * avg_sq_g + (1 - rho) * torch.square(g)
+    upd = -torch.sqrt((avg_sq_u + eps) / (g2 + eps)) * g
+    u2 = rho * avg_sq_u + (1 - rho) * torch.square(upd)
+    ctx.set_output("ParamOut", (p + upd).to(p.dtype))
+    ctx.set_output("AvgSquaredGradOut", g2)
+    ctx.set_output("AvgSquaredUpdateOut", u2)
+
+
+@register_op("rmsprop")
+def _rmsprop(ctx):
+    p, g = ctx.input("Param"), _grad(ctx)
+    ms, mom = ctx.input("MeanSquare"), ctx.input("Moment")
+    rho = ctx.attr("decay", 0.9)
+    mu = ctx.attr("momentum", 0.0)
+    eps = ctx.attr("epsilon", 1e-10)
+    ms_new = rho * ms + (1 - rho) * torch.square(g)
+    mom_new = mu * mom + _lr(ctx) * g / torch.sqrt(ms_new + eps)
+    ctx.set_output("ParamOut", (p - mom_new).to(p.dtype))
+    ctx.set_output("MeanSquareOut", ms_new)
+    ctx.set_output("MomentOut", mom_new)
+
+
+@register_op("ftrl")
+def _ftrl(ctx):
+    p, g = ctx.input("Param"), _grad(ctx)
+    sq = ctx.input("SquaredAccumulator")
+    lin = ctx.input("LinearAccumulator")
+    l1 = ctx.attr("l1", 0.0) + 1e-10
+    l2 = ctx.attr("l2", 0.0) + 1e-10
+    lr_power = ctx.attr("lr_power", -0.5)
+    lr = _lr(ctx)
+    new_sq = sq + torch.square(g)
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+        denom = torch.sqrt(new_sq) / lr + 2 * l2
+    else:
+        sigma = (torch.pow(new_sq, -lr_power)
+                 - torch.pow(sq, -lr_power)) / lr
+        denom = torch.pow(new_sq, -lr_power) / lr + 2 * l2
+    new_lin = lin + g - sigma * p
+    pre = torch.clamp(new_lin, -l1, l1) - new_lin
+    ctx.set_output("ParamOut", (pre / denom).to(p.dtype))
+    ctx.set_output("SquaredAccumOut", new_sq)
+    ctx.set_output("LinearAccumOut", new_lin)
+
+
+def _proximal(prox, lr_t, l1, l2):
+    if l1 > 0:
+        return (torch.sign(prox)
+                * torch.clamp(torch.abs(prox) - lr_t * l1, min=0.0)
+                / (1.0 + lr_t * l2))
+    return prox / (1.0 + lr_t * l2)
+
+
+@register_op("proximal_gd")
+def _proximal_gd(ctx):
+    p, g = ctx.input("Param"), _grad(ctx)
+    lr = _lr(ctx)
+    p_new = _proximal(p - lr * g, lr, ctx.attr("l1", 0.0),
+                      ctx.attr("l2", 0.0))
+    ctx.set_output("ParamOut", p_new.to(p.dtype))
+
+
+@register_op("proximal_adagrad")
+def _proximal_adagrad(ctx):
+    p, g, mom = ctx.input("Param"), _grad(ctx), ctx.input("Moment")
+    mom_new = mom + torch.square(g)
+    lr_t = _lr(ctx) / torch.sqrt(mom_new)
+    p_new = _proximal(p - lr_t * g, lr_t, ctx.attr("l1", 0.0),
+                      ctx.attr("l2", 0.0))
+    ctx.set_output("ParamOut", p_new.to(p.dtype))
+    ctx.set_output("MomentOut", mom_new)
+
+
+@register_op("average_accumulates",
+             doc="ModelAverage accumulation: two-buffer windowed "
+                 "parameter sums")
+def _average_accumulates(ctx):
+    p = ctx.input("Param")
+    s1, s2 = ctx.input("InSum1"), ctx.input("InSum2")
+    num_acc = ctx.input("InNumAccumulates")
+    old_num = ctx.input("InOldNumAccumulates")
+    num_upd = ctx.input("InNumUpdates")
+    avg_window = ctx.attr("average_window", 0.15)
+    max_w = ctx.attr("max_average_window", 10000)
+    min_w = ctx.attr("min_average_window", 10000)
+    s1 = s1 + p
+    num_acc = num_acc + 1
+    num_upd = num_upd + 1
+    # the window restarts when the live window outgrows its budget
+    window = (num_upd.float() * avg_window).to(num_upd.dtype)
+    limit = torch.clamp(torch.clamp(window, max=max_w), min=min_w)
+    shift = num_acc >= limit
+    ctx.set_output("OutSum1", torch.where(shift, torch.zeros_like(s1), s1))
+    ctx.set_output("OutSum2", torch.where(shift, s1, s2))
+    ctx.set_output("OutNumAccumulates",
+                   torch.where(shift, torch.zeros_like(num_acc), num_acc))
+    ctx.set_output("OutOldNumAccumulates",
+                   torch.where(shift, num_acc, old_num))
+    ctx.set_output("OutNumUpdates", num_upd)

@@ -327,6 +327,11 @@ ELSEWHERE = {
     "adam": "test_torch_train.py", "momentum": "test_torch_resnet.py",
     "sgd": "test_torch_book_models.py", "backward": "test_torch_train.py",
     "dynamic_rnn": "test_torch_stacked_lstm.py",
+    **{op: "test_torch_optimizers.py" for op in (
+        "adamax", "adagrad", "decayed_adagrad", "adadelta", "rmsprop",
+        "ftrl", "proximal_gd", "proximal_adagrad", "average_accumulates")},
+    "check_finite_and_unscale": "test_torch_mixed_precision.py",
+    "update_loss_scaling": "test_torch_mixed_precision.py",
 }
 
 
