@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-18
+    python3 chip_smoke.py             # the smoke run, phases 1-21
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -13,6 +13,8 @@
                                       # phases 14-16
     python3 chip_smoke.py --amp-train # phase 1, the training kernels at
                                       # phase 17's bf16 shapes, phase 17
+    python3 chip_smoke.py --seq2seq   # phase 1, the seq2seq shapes of
+                                      # phase 3, phases 19 and 20
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -139,7 +141,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1x28x28, 10 classes, batch 128, amp, Adam 1e-3), 20 steps, no port
    kernel;
 16. every op rule the port registers (but the optimizers, the backward
-   op and the DynamicRNN, which the training phases run), each as a
+   op and the DynamicRNN, which the training phases run, and phase
+   21's), each as a
    one-op program on the card and on the CPU from one seeded feed:
    outputs and the input @GRADs of a weighted-sum loss, integer and bool
    outputs exactly; the random rules by mean and variance on the card.
@@ -166,6 +169,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    small fc program: 5 steps on the card and on the CPU from one startup
    state, losses, learning rates and every persistable to 2e-5; the
    card's ModelAverage apply/restore bitwise;
+19. train seq2seq attention NMT (bench.py bench_seq2seq: seq_to_seq_net
+   with embedding, encoder and decoder 512, vocabulary 30000, batch 64,
+   T 50, program.amp, Adam 1e-3) through Executor.run on one seeded
+   batch: launch counts zeroed just before and read just after (2 LSTM
+   forward and 2 backward, 1 softmax cross-entropy forward and backward
+   a step), every loss finite and the last below the first; step p50,
+   examples/s and tokens/s; one step profiled by kernel group and by op
+   (the decoder DynamicRNN's forward, autograd's backward, Adam) with
+   the interpreter's dead-op skip and one without it; then one f32 step
+   at batch 4 with ragged lengths on the card and on the CPU, held as
+   phase 11;
+20. seq_to_seq_generate at bench.py:1042-1060's config (batch 16, beam
+   3, max_length 50) with phase 19's parameters by name: batch latency
+   and sentences/s on the card (2 LSTM forward launches a decode), then
+   the same decode on the CPU: per sample, the card's step ids and
+   parents equal the CPU's, or first part at a step whose selected
+   scores agree within S2S_TIE_RTOL (a near tie, printed);
+21. every rule this slice registered (S21_RULES: the sequence, beam,
+   LoD, array, control-flow and CRF families, lod_reset, im2sequence,
+   row_conv) on the card against the CPU: one-op programs as phase 16,
+   While/IfElse/ConditionalBlock/ParallelDo, the arrays, the printers
+   and cross_entropy_over_beam as programs of the port's layers with
+   calc_gradient's @GRADs, nce by the JAX formula on its card samples;
 then a JSON line with every ported kernel's launches, error and times,
 the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
@@ -178,7 +204,9 @@ the LSTM and GRU checks and timings and phases 9 and 10; with --ln phase
 --frontdoor phase 1 and phase 12; with --decode-modes phase 1, the
 row-stable product's phase 3 and phase 13; with --vgg phase 1, the
 BatchNorm backward's checks and timings and phases 14-16; with
---amp-train phase 1 and phase 17.  Each prints its
+--amp-train phase 1 and phase 17; with --seq2seq phase 1, the LSTM and
+softmax cross-entropy checks and timings at the seq2seq shapes and
+phases 19 and 20.  Each prints its
 results as one JSON line (no result line): run from two checkouts in
 turns, it compares two versions of those kernels on one card.  In these
 modes a recurrent kernel that refuses a width it should place is
@@ -2401,10 +2429,11 @@ def _copy_feed(batch, seed):
 
 
 def _train_steps(main, startup, avg_cost, feed, steps, per_step,
-                 other="other", ranges=None):
+                 other="other", ranges=None, after=None):
     """Startup, then ``steps`` steps of ``main`` on the card on one fixed
     feed, with the launch counts zeroed just before the steps and read
-    just after, then one profiled step.  Fails unless each kernel
+    just after, then one profiled step (and ``after(exe)``, if given, in
+    the same scope).  Fails unless each kernel
     launched ``per_step[name]`` times a step and the loss is finite and
     falls.  Returns (launches, end-to-end numbers, state after the
     steps)."""
@@ -2439,6 +2468,8 @@ def _train_steps(main, startup, avg_cost, feed, steps, per_step,
         launches = {k.name: k.launches for k in K.KERNELS}
         peak = torch.cuda.max_memory_allocated()
         device = _profile_step(exe, main, feed, avg_cost, other, ranges)
+        if after is not None:
+            after(exe)
         state = {n: t.cpu().numpy() for n, t in scope._vars.items()}
     print(f"  launches in {steps} steps: {launches}", flush=True)
     for name, n in per_step.items():
@@ -3503,7 +3534,7 @@ def op_rules_card_vs_cpu(seed=0):
                              "the probabilities")
     rules.add("sampling_id")
     missing = sorted(set(OpRegistry.registered_ops()) - rules
-                     - PHASE16_ELSEWHERE)
+                     - PHASE16_ELSEWHERE - S21_RULES)
     if missing:
         raise AssertionError(f"rules phase 16 did not run: {missing}")
     worst = sorted(shares.items(), key=lambda kv: -kv[1])[:5]
@@ -4163,6 +4194,887 @@ def optimizer_rules_card_vs_cpu(seed=0):
     return {"cases": len(worst), "largest_share": top[0][1]}
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: seq2seq attention NMT training and beam generation, and the
+# sequence, beam, LoD, array, control-flow and CRF rules on the card
+# ---------------------------------------------------------------------------
+
+#: bench.py bench_seq2seq (:712-745): models/seq2seq.py seq_to_seq_net
+#: with embedding, encoder and decoder 512 and vocabulary 30000 on both
+#: sides, batch 64, T 50 (full lengths, ids seeded in [1, 30000)), Adam
+#: 1e-3, program.amp on (bench.py:1119)
+S2S_CONFIG = dict(embedding_dim=512, encoder_size=512, decoder_size=512,
+                  source_dict_dim=30000, target_dict_dim=30000)
+S2S_BATCH, S2S_T, S2S_STEPS = 64, 50, 20
+S2S_FEEDS = ("source_sequence", "target_sequence", "label_sequence")
+#: launches a step: the encoder's two dynamic_lstm layers (forward and
+#: is_reverse), and the flat head's softmax cross-entropy
+S2S_LAUNCHES_PER_STEP = dict(
+    {name: 0 for name in TRAIN_LAUNCHES_PER_STEP}, lstm_fwd=2, lstm_bwd=2,
+    softmax_xent_fwd=1, softmax_xent_bwd=1)
+#: phase 19's f32 step on the card against the CPU: batch, ragged lengths
+S2S_CPU_BATCH = 4
+#: bench.py:1042-1060: seq_to_seq_generate at the same widths, batch 16,
+#: beam 3, max_length 50, a source of T 50
+S2S_GEN_BATCH, S2S_BEAM, S2S_MAX_LEN = 16, 3, 50
+#: LSTM forward launches a decode: the encoder's two layers (f32 w)
+S2S_GEN_LSTM_LAUNCHES = 2
+#: the card's beams may part from the CPU's only after a step whose
+#: selected scores differ by at most this share of their magnitude: a near
+#: tie in the top-k that f32 rounding swapped
+S2S_TIE_RTOL = 1e-5
+#: phase 3's encoder shapes (T, B, H, lengths, reversed): training's batch
+#: both ways, full and ragged; generation's batch 16
+S2S_LSTM_CASES = [(S2S_T, S2S_BATCH, 512, lens, rev)
+                  for lens in ("full", "ragged") for rev in (False, True)]
+S2S_GEN_LSTM = (S2S_T, S2S_GEN_BATCH, 512, "full", False)
+
+
+def _lstm_pair(args, bf, label, rec_fwd, rec_bwd):
+    """One LSTM forward and backward against their plain versions."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    xs, w, h0, c0, mask, dhs, dcs = args
+    fwd_args = (xs, w, h0, c0, mask)
+    got, ref = K.lstm_fwd(*fwd_args), K.lstm_fwd_plain(*fwd_args)
+    bwd_args = fwd_args + tuple(ref) + (dhs, dcs)
+    dgot, dref = K.lstm_bwd(*bwd_args), K.lstm_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    _check("lstm_fwd", list(zip(got, ref)), "float32", label, rec_fwd,
+           "bf16_max" if bf else None)
+    _check("lstm_bwd", list(zip(dgot, dref)), "float32", label, rec_bwd,
+           "bf16_max" if bf else None)
+    return fwd_args, bwd_args
+
+
+def check_seq2seq_kernels(recs):
+    """Phase 3 at the seq2seq path's shapes: the LSTM kernels at the
+    encoder's T50 B64 H512, forward and is_reverse, full and ragged
+    lengths, with the bf16 w of program.amp and with f32 w, and at
+    generation's B16 (f32 w); the softmax cross-entropy kernels on the
+    flat head, R3200 V30000, in bf16 (amp) and f32.  Each against its
+    plain version (phase 3's rules), timed beside nn.LSTM and
+    F.cross_entropy; and the head's three bf16 products (forward, dX,
+    dW) timed with cuBLAS against their bound."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cpu").manual_seed(21)
+    rec_fwd, rec_bwd = recs["lstm_fwd"], recs["lstm_bwd"]
+    for case in S2S_LSTM_CASES + [S2S_GEN_LSTM]:
+        t, b, h, lens, rev = case
+        for wdt in ((torch.float32,) if case == S2S_GEN_LSTM
+                    else (torch.bfloat16, torch.float32)):
+            xs, w32, h0, c0, mask, dhs, dcs = _recurrent_inputs(
+                4, t, b, h, lens, rev, g)
+            bf = wdt is torch.bfloat16
+            dn = str(wdt).replace("torch.", "")
+            label = (f"T{t} B{b} H{h} {lens}" + (" reverse" if rev else "")
+                     + f" w {dn} (seq2seq)")
+            fwd_args, bwd_args = _lstm_pair(
+                (xs, w32.to(wdt), h0, c0, mask, dhs, dcs), bf, label,
+                rec_fwd, rec_bwd)
+            key = ("seq2seq_generation" if case == S2S_GEN_LSTM else
+                   f"seq2seq_{'bf16' if bf else 'f32'}_w")
+            if lens == "full" and not rev:
+                rec_fwd[key] = _recurrent_timings("lstm", False, fwd_args,
+                                                  bwd_args)
+                if case != S2S_GEN_LSTM:
+                    rec_bwd[key] = _recurrent_timings("lstm", True,
+                                                      fwd_args, bwd_args)
+    r, v = S2S_BATCH * S2S_T, S2S_CONFIG["target_dict_dim"]
+    dev = torch.device("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        x = (2 * torch.randn(r, v, generator=g)).to(dev, dtype)
+        lab = torch.randint(1, v, (r,), generator=g).to(dev, torch.int32)
+        dl = torch.rand(r, generator=g).to(dev)
+        loss, lse = K.softmax_xent_fwd(x, lab)
+        rloss, rlse = K.softmax_xent_fwd_plain(x, lab)
+        dx = K.softmax_xent_bwd(x, lab, lse, dl)
+        rdx = K.softmax_xent_bwd_plain(x, lab, lse, dl)
+        torch.cuda.synchronize()
+        label = f"R{r} V{v} (seq2seq head)"
+        _check("softmax_xent_fwd", [(loss, rloss), (lse, rlse)], dn, label,
+               recs["softmax_xent_fwd"])
+        _check("softmax_xent_bwd", [(dx, rdx)], dn, label,
+               recs["softmax_xent_bwd"])
+        shape = f"R{r} V{v} {dn} (seq2seq head)"
+        lab64 = lab.long()
+        eb = x.element_size()
+        recs["softmax_xent_fwd"][f"seq2seq_{dn}"] = _kernel_times(
+            {}, lambda: K.softmax_xent_fwd(x, lab),
+            lambda: K.softmax_xent_fwd_plain(x, lab),
+            lambda: F.cross_entropy(x, lab64, reduction="none"),
+            r * v * eb + r * 4 + 2 * r * 4, 4 * r * v, dn, shape)
+        xx = x.detach().requires_grad_(True)
+        lib = F.cross_entropy(xx, lab64, reduction="none")
+        recs["softmax_xent_bwd"][f"seq2seq_{dn}"] = _kernel_times(
+            {}, lambda: K.softmax_xent_bwd(x, lab, lse, dl),
+            lambda: K.softmax_xent_bwd_plain(x, lab, lse, dl),
+            lambda: torch.autograd.grad(lib, (xx,), dl, retain_graph=True),
+            2 * r * v * eb + 3 * r * 4, 4 * r * v, dn, shape)
+        del x, xx, lib, dx, rdx
+    d = S2S_CONFIG["decoder_size"]
+    hid = torch.randn(r, d, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(d, v, generator=g).to(dev, torch.bfloat16)
+    dy = torch.randn(r, v, generator=g).to(dev, torch.bfloat16)
+    gemm = {"forward": _time_ms(lambda: hid @ w),
+            "dX": _time_ms(lambda: dy @ w.t()),
+            "dW": _time_ms(lambda: hid.t() @ dy)}
+    gemm["bound_ms_each"] = _bound((r * d + d * v + r * v) * 2,
+                                   2 * r * d * v, "bfloat16")[0]
+    gemm["shape"] = f"[{r}, {d}] x [{d}, {v}] bf16"
+    print(f"  the seq2seq head's products (cuBLAS, bf16): {gemm}",
+          flush=True)
+    recs["softmax_xent_fwd"]["seq2seq_head_gemm_ms"] = gemm
+
+
+def _s2s_program(seed, amp):
+    """seq_to_seq_net at S2S_CONFIG + Adam 1e-3 in fresh default programs
+    -> (main, startup, avg_cost, prediction)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import seq2seq
+    fluid.core.program.reset_default_programs()
+    avg_cost, prediction, _ = seq2seq.seq_to_seq_net(**S2S_CONFIG)
+    optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+    main = fluid.default_main_program()
+    main.amp = amp
+    startup = fluid.default_startup_program()
+    startup.random_seed = seed
+    return main, startup, avg_cost, prediction
+
+
+def _s2s_feed(batch, seed, ragged=False):
+    """bench_seq2seq's feed: ids in [1, vocab) for the three sequences,
+    full lengths (or seeded in [1, T], the first row full, the last of
+    length 1, each sequence its own)."""
+    rng = np.random.default_rng(seed)
+    feed = {}
+    for name in S2S_FEEDS:
+        feed[name] = rng.integers(1, S2S_CONFIG["target_dict_dim"],
+                                  (batch, S2S_T)).astype(np.int64)
+        lens = np.full(batch, S2S_T, np.int32)
+        if ragged:
+            lens = rng.integers(1, S2S_T + 1, batch).astype(np.int32)
+            lens[0], lens[-1] = S2S_T, 1
+        feed[name + "@SEQ_LEN"] = lens
+    return feed
+
+
+#: phase 19's kernel groups, by kernel name
+S2S_KERNEL_GROUPS = {
+    "encoder LSTM kernels": ("lstm_", "rnn_"),
+    "softmax cross-entropy kernels": ("sm_xent_",),
+    "library products (GEMMs)": ("xmma", "gemm", "cutlass", "nvjet")}
+#: and by the op whose rule launched them (the backward op's kernels run
+#: on autograd's device thread, outside the op's range: they are read
+#: from autograd's own ranges, "autograd::engine::evaluate_function: ...")
+S2S_OP_GROUPS = {"decoder DynamicRNN (forward, eager per-step ops)":
+                 "dynamic_rnn",
+                 "optimizer (Adam)": "adam"}
+
+
+def _profile_s2s_step(exe, main, feed, avg_cost):
+    """One step under torch.profiler: device ms in all, by kernel group
+    and by the op ranges of S2S_OP_GROUPS (the rest of the forward is what
+    they leave), launches, and the step's wall ms.  A measurement aid:
+    None if the profiler fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with _op_ranges(S2S_OP_GROUPS.values()), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[avg_cost])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = prof.key_averages()
+        kernels = [r for r in rows
+                   if r.device_type == torch.autograd.DeviceType.CUDA
+                   and not r.key.startswith("op:")]
+        total = sum(r.device_time_total for r in kernels) / 1e3
+        by_kernel = dict.fromkeys(list(S2S_KERNEL_GROUPS) + ["other"], 0.0)
+        for r in kernels:
+            group = next((g for g, keys in S2S_KERNEL_GROUPS.items()
+                          if any(k in r.key.lower() for k in keys)), "other")
+            by_kernel[group] += r.device_time_total / 1e3
+        cpu = [r for r in rows
+               if r.device_type == torch.autograd.DeviceType.CPU]
+        by_op = {g: sum(r.device_time_total for r in cpu
+                        if r.key == "op:" + t) / 1e3
+                 for g, t in S2S_OP_GROUPS.items()}
+        by_op["backward (autograd)"] = sum(
+            r.device_time_total for r in cpu if r.key.startswith(
+                "autograd::engine::evaluate_function")) / 1e3
+        by_op["the rest of the forward (encoder, head, loss)"] = (
+            total - sum(by_op.values()))
+        return {"all": total, "wall_ms": wall,
+                "launches": sum(r.count for r in kernels),
+                "by_kernel": by_kernel, "by_op": by_op}
+    except Exception as e:  # noqa: BLE001  (a measurement aid)
+        print(f"  profiler unavailable: {type(e).__name__}: {e}",
+              flush=True)
+        return None
+
+
+def train_seq2seq(seed=0):
+    """Phase 19: S2S_STEPS Adam steps of seq_to_seq_net at
+    bench_seq2seq's config under program.amp on the card, the batch
+    staged on the card; then one profiled step with the interpreter's
+    dead-op skip and one without it (the unfetched 3-D prediction head
+    runs: a [3200, 512] x [512, 30000] product and a softmax)."""
+    import torch
+    from paddle_tpu_torch.core.lowering import Interpreter
+    main, startup, avg_cost, _ = _s2s_program(seed, amp=True)
+    feed = {k: torch.from_numpy(v).to("cuda")
+            for k, v in _s2s_feed(S2S_BATCH, seed).items()}
+    anatomy = {}
+
+    def after(exe):
+        anatomy["skip"] = _profile_s2s_step(exe, main, feed, avg_cost)
+        Interpreter.skip_dead_ops = False
+        try:
+            anatomy["no_skip"] = _profile_s2s_step(exe, main, feed, avg_cost)
+        finally:
+            Interpreter.skip_dead_ops = True
+    launches, e2e, state = _train_steps(
+        main, startup, avg_cost, feed, S2S_STEPS, S2S_LAUNCHES_PER_STEP,
+        other="eager per-step ops and other elementwise", after=after)
+    per_s = 1e3 / e2e["step_ms_p50"]
+    e2e.update(examples_per_s=S2S_BATCH * per_s,
+               tokens_per_s=S2S_BATCH * S2S_T * per_s,
+               launches_per_step={k: v / S2S_STEPS
+                                  for k, v in launches.items() if v},
+               anatomy=anatomy)
+    skip, no_skip = anatomy["skip"], anatomy["no_skip"]
+    if skip and no_skip:
+        e2e["host_idle_share"] = 1.0 - skip["all"] / e2e["step_ms_p50"]
+        e2e["dead_op_skip_saves_device_ms"] = no_skip["all"] - skip["all"]
+    print(f"  seq2seq: step p50 {e2e['step_ms_p50']:.3f} ms, "
+          f"{e2e['examples_per_s']:.1f} examples/s, "
+          f"{e2e['tokens_per_s']:.0f} tokens/s, loss {e2e['loss_first']:.5f}"
+          f" -> {e2e['loss_last']:.5f}, host idle share "
+          f"{e2e.get('host_idle_share')}; the profiled step with the "
+          f"dead-op skip: {json.dumps(skip)}; without it: "
+          f"{json.dumps(no_skip)}", flush=True)
+    return launches, e2e, state
+
+
+def s2s_card_vs_cpu(state, seed=0):
+    """Phase 19's f32 check: seq_to_seq_net in f32 (amp off, TF32 off) at
+    full width, batch S2S_CPU_BATCH with ragged lengths: one step from the
+    carried-in state on the card (kernels) and on the CPU (plain
+    versions), the loss to CPU_LOSS_RTOL and each @GRAD's max abs error
+    over its max |value| to CPU_GRAD_RTOL (phases 6 and 11's rule)."""
+    import paddle_tpu_torch as fluid
+    main, _, avg_cost, _ = _s2s_program(seed, amp=False)
+    feed = _s2s_feed(S2S_CPU_BATCH, seed + 1, ragged=True)
+    params, card = _step(fluid.CUDAPlace(0), main, avg_cost, feed, state)
+    _, cpu = _step(fluid.CPUPlace(), main, avg_cost, feed, state)
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    errs = sorted(((float(np.abs(a - b).max())
+                    / max(float(np.abs(b).max()), 1e-30), n)
+                   for n, a, b in zip(params, card[1:], cpu[1:])),
+                  reverse=True)
+    print(f"  loss relative error {loss_err:.3e} (limit {CPU_LOSS_RTOL}); "
+          f"largest @GRAD errors over each gradient's max |value| (limit "
+          f"{CPU_GRAD_RTOL}): "
+          + ", ".join(f"{n} {e:.3e}" for e, n in errs[:5]), flush=True)
+    if loss_err > CPU_LOSS_RTOL or errs[0][0] > CPU_GRAD_RTOL:
+        raise AssertionError("the card's seq2seq step disagrees with the "
+                             "CPU's")
+    return {"loss_rel_err": loss_err, "grad_rel_err_max": errs[0][0],
+            "grads_compared": len(params)}
+
+
+def _s2s_beam_divergence(card, cpu):
+    """Hold the card's beams to the CPU's: per sample, the step outputs
+    (ids, parents) equal, or first part at a step whose selected scores
+    are within S2S_TIE_RTOL of the CPU's (a near tie); -> the parted
+    samples as (sample, step, gap share)."""
+    ids_c, par_c, sc_c = (np.asarray(a) for a in card)
+    ids_h, par_h, sc_h = (np.asarray(a) for a in cpu)
+    parted = []
+    for s in range(ids_c.shape[0] // S2S_BEAM):
+        rows = slice(s * S2S_BEAM, (s + 1) * S2S_BEAM)
+        same = ((ids_c[rows].reshape(S2S_BEAM, -1)
+                 == ids_h[rows].reshape(S2S_BEAM, -1)).all(0)
+                & (par_c[rows] == par_h[rows]).all(0))
+        if same.all():
+            continue
+        t = int(np.argmin(same))
+        a = sc_c[rows, t].astype(np.float64).reshape(-1)
+        b = sc_h[rows, t].astype(np.float64).reshape(-1)
+        share = float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max()
+                      / S2S_TIE_RTOL)
+        parted.append((s, t, share))
+        if share > 1.0:
+            raise AssertionError(
+                f"sample {s}: the card's beam parts from the CPU's at step "
+                f"{t} on no near tie (selected scores {a.tolist()} against "
+                f"{b.tolist()}: {share:.3f} of the tolerance)")
+    return parted
+
+
+def generate_seq2seq(state, seed=0):
+    """Phase 20: seq_to_seq_generate at bench.py:1042-1060's config
+    (batch 16, beam 3, max_length 50, the training widths) with phase
+    19's parameters by name over the generator's own startup (its
+    vocabulary fc has an automatic name, not the training head's): the
+    batch latency and sentences/s on the card (launch counts zeroed just
+    before the timed runs), then the same decode on the CPU: the card's
+    ids must equal the CPU's, or part only after a near tie
+    (`_s2s_beam_divergence`)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.models import seq2seq
+    from paddle_tpu_torch.ops import kernels as K
+    fluid.core.program.reset_default_programs()
+    sent_ids, sent_scores = seq2seq.seq_to_seq_generate(
+        beam_size=S2S_BEAM, max_length=S2S_MAX_LEN, **S2S_CONFIG)
+    main, startup = (fluid.default_main_program(),
+                     fluid.default_startup_program())
+    startup.random_seed = seed
+    rnn = next(op for op in main.global_block().ops
+               if op.type == "dynamic_rnn")
+    fetch = [sent_ids.name, sent_scores.name] + rnn.desc.outputs["Out"]
+    scope0 = fluid.core.scope.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope0)
+    arrays = {}
+    for v in main.list_vars():
+        if v.persistable and not v.desc.is_data:
+            mine = scope0.get(v.name).cpu().numpy()
+            trained = state.get(v.name)
+            arrays[v.name] = (trained if trained is not None
+                              and trained.shape == mine.shape else mine)
+    loaded = sum(1 for n in arrays if n in state)
+    rng = np.random.default_rng(seed + 2)
+    feed = {"source_sequence": rng.integers(
+                1, S2S_CONFIG["source_dict_dim"],
+                (S2S_GEN_BATCH, S2S_T)).astype(np.int64),
+            "source_sequence@SEQ_LEN": np.full(S2S_GEN_BATCH, S2S_T,
+                                               np.int32)}
+
+    def decode(place, timed=0):
+        exe = fluid.Executor(place)
+        scope = fluid.core.scope.Scope()
+        pio.scope_from_numpy(scope, main, arrays, exe.device)
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        ms = []
+        if timed:
+            K.reset_launches()
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+    card, ms = decode(fluid.CUDAPlace(0), timed=3)
+    launches = {k.name: k.launches for k in K.KERNELS}
+    if launches["lstm_fwd"] != S2S_GEN_LSTM_LAUNCHES * len(ms):
+        raise AssertionError(f"lstm_fwd: {launches['lstm_fwd']} launches in "
+                             f"{len(ms)} decodes, want "
+                             f"{S2S_GEN_LSTM_LAUNCHES} each")
+    t0 = time.perf_counter()
+    cpu, _ = decode(fluid.CPUPlace())
+    cpu_s = time.perf_counter() - t0
+    ids = np.asarray(card[0])
+    if ids.shape != (S2S_GEN_BATCH * S2S_BEAM, S2S_MAX_LEN) or not (
+            0 <= ids.min() and ids.max() < S2S_CONFIG["target_dict_dim"]):
+        raise AssertionError(f"sentence ids of shape {ids.shape} out of "
+                             "range")
+    if not np.isfinite(np.asarray(card[1])).all():
+        raise AssertionError("non-finite sentence scores")
+    parted = _s2s_beam_divergence(card[2:], cpu[2:])
+    same_ids = int((np.asarray(card[0]) == np.asarray(cpu[0])).all(1).sum())
+    p50 = float(np.percentile(ms, 50))
+    e2e = {"batch_latency_ms_p50": p50, "batch_latency_ms": ms,
+           "sentences_per_s": S2S_GEN_BATCH * 1e3 / p50,
+           "parameters_from_training": loaded,
+           "parameters": len(arrays), "cpu_decode_s": cpu_s,
+           "rows_equal_cpu": same_ids,
+           "rows": S2S_GEN_BATCH * S2S_BEAM,
+           "parted_after_near_tie": parted}
+    print(f"  generation: batch latency p50 {p50:.2f} ms ({ms}), "
+          f"{e2e['sentences_per_s']:.2f} sentences/s; {same_ids} of "
+          f"{e2e['rows']} sentences equal the CPU's; samples parted after "
+          f"a near tie (sample, step, share of the tolerance): {parted}",
+          flush=True)
+    return launches, e2e
+
+
+def _program_state(startup):
+    """A startup's persistables, initialised on the CPU, as numpy."""
+    import paddle_tpu_torch as fluid
+    scope = fluid.core.scope.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    return {n: v.cpu().numpy() for n, v in scope._vars.items()
+            if hasattr(v, "cpu")}
+
+
+def _state_run(place, main, state, feed, fetch):
+    """``main`` on ``place`` from the persistables ``state`` (numpy)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    exe = fluid.Executor(place)
+    scope = fluid.core.scope.Scope()
+    pio.scope_from_numpy(scope, main, state, exe.device)
+    return exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+
+
+def _s21_programs():
+    """Phase 21's programs built with the port's layers: name -> a function
+    that fills fresh default programs and returns (fetch names, feed)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    from paddle_tpu_torch.backward import calc_gradient
+    rng = np.random.default_rng(21)
+
+    def u(*shape):
+        return rng.uniform(-1, 1, shape).astype(np.float32)
+
+    def while_loop(bounded):
+        def build():
+            x = L.data(name="x", shape=[3], dtype="float32",
+                       append_batch_size=False)
+            i = L.fill_constant(shape=[1], dtype="int64", value=0)
+            lim = L.fill_constant(shape=[1], dtype="int64", value=5)
+            acc = L.fill_constant(shape=[3], dtype="float32", value=0.0)
+            acc.stop_gradient = False
+            cond = L.less_than(x=i, y=lim)
+            w = L.While(cond=cond, max_trip_count=8 if bounded else None)
+            with w.block():
+                L.assign(L.elementwise_add(L.scale(acc, scale=1.1), x),
+                         output=acc)
+                L.increment(i, value=1, in_place=True)
+                L.less_than(x=i, y=lim, cond=cond)
+            loss = L.reduce_sum(acc)
+            fetch = [loss, i] + (calc_gradient(loss, [x]) if bounded else [])
+            return [v.name for v in fetch], {"x": u(3)}
+        return build
+
+    def conditional(flag):
+        def build():
+            x = L.data(name="x", shape=[3], dtype="float32",
+                       append_batch_size=False)
+            f = L.data(name="flag", shape=[1], dtype="float32",
+                       append_batch_size=False)
+            out = L.fill_constant(shape=[3], dtype="float32", value=1.0)
+            out.stop_gradient = False
+            cb = L.ConditionalBlock([L.less_than(
+                x=L.fill_constant(shape=[1], dtype="float32", value=0.5),
+                y=f)])
+            with cb.block():
+                L.assign(L.scale(x, scale=3.0), output=out)
+            loss = L.reduce_sum(out)
+            return ([v.name for v in [loss] + calc_gradient(loss, [x])],
+                    {"x": u(3), "flag": np.array([flag], np.float32)})
+        return build
+
+    def if_else():
+        x = L.data(name="x", shape=[4], dtype="float32")
+        x.stop_gradient = False
+        ie = L.IfElse(L.less_than(
+            x=L.slice(x, axes=[1], starts=[0], ends=[1]),
+            y=L.fill_constant_batch_size_like(x, shape=[-1, 1],
+                                              dtype="float32", value=0.0)))
+        with ie.true_block():
+            ie.output(L.fc(input=ie.input(x), size=3, act="tanh"))
+        with ie.false_block():
+            ie.output(L.scale(L.fc(input=ie.input(x), size=3), scale=2.0))
+        out = ie()
+        loss = L.reduce_sum(out)
+        return ([v.name for v in [out] + calc_gradient(loss, [x])],
+                {"x": u(6, 4)})
+
+    def parallel_do():
+        x = L.data(name="x", shape=[4], dtype="float32")
+        x.stop_gradient = False
+        pd = L.ParallelDo(L.get_places())
+        with pd.do():
+            pd.write_output(L.fc(input=pd.read_input(x), size=3,
+                                 act="tanh"))
+        out = pd()
+        return ([v.name for v in [out] + calc_gradient(L.reduce_sum(out),
+                                                       [x])],
+                {"x": u(6, 4)})
+
+    def arrays():
+        x = L.data(name="x", shape=[3, 2], dtype="float32")
+        x.stop_gradient = False
+        arr = L.lod_tensor_to_array(x)
+        back = L.array_to_lod_tensor(arr)
+        i1 = L.fill_constant(shape=[1], dtype="int64", value=1)
+        arr2 = L.array_write(L.scale(x, scale=2.0), i1)
+        step = L.array_read(arr2, i1)
+        n = L.array_length(arr2)
+        block = fluid.default_main_program().global_block()
+        m = block.create_var(name="n_lod", dtype="int32")
+        block.append_op("lod_array_length", inputs={"X": [arr]},
+                        outputs={"Out": [m]})
+        tmp = L.scale(x, scale=5.0)
+        block.append_op("delete_var", inputs={"X": [tmp]})
+        loss = L.reduce_sum(L.elementwise_add(back, step))
+        return ([v.name for v in [back, step, n, m, loss]
+                 + calc_gradient(loss, [x])], {"x": u(4, 3, 2)})
+
+    def printing():
+        x = L.data(name="x", shape=[2], dtype="float32")
+        x.stop_gradient = False
+        block = fluid.default_main_program().global_block()
+        y = block.create_var(name="y_probe", dtype="float32")
+        block.append_op("print_grad", inputs={"In": [x]},
+                        outputs={"Out": [y]})
+        out = L.Print(L.scale(y, scale=3.0), message="phase 21 Print")
+        return ([v.name for v in [out] + calc_gradient(L.reduce_sum(out),
+                                                       [x])],
+                {"x": u(2, 2)})
+
+    def ceob():
+        block = fluid.default_main_program().global_block()
+        names = []
+        for k, (rows, width) in enumerate(((2, 5), (4, 3))):
+            s = L.data(name=f"s{k}", shape=[width], dtype="float32",
+                       lod_level=1)
+            s.stop_gradient = False
+            names.append((s, L.data(name=f"i{k}", shape=[2], dtype="int64"),
+                          L.data(name=f"g{k}", shape=[1], dtype="int64")))
+        out = block.create_var(name="ceob", dtype="float32")
+        block.append_op("cross_entropy_over_beam",
+                        inputs={"Scores": [n[0] for n in names],
+                                "Ids": [n[1] for n in names],
+                                "Gold": [n[2] for n in names]},
+                        outputs={"Out": [out]})
+        grads = calc_gradient(L.reduce_sum(out), [n[0] for n in names])
+        feed = {"s0": u(2, 5), "s0@SEQ_LEN": np.array([5, 4], np.int32),
+                "s1": u(4, 3), "s1@SEQ_LEN": np.array([3, 3, 2, 3],
+                                                      np.int32),
+                "i0": np.array([[4, 1], [0, 2]], np.int64),
+                "i1": np.array([[0, 2], [1, -1], [2, 0], [1, 1]], np.int64),
+                "g0": np.array([[4], [3]], np.int64),
+                "g1": np.array([[2], [0]], np.int64)}
+        return [v.name for v in [out] + grads], feed
+
+    return {"while bounded": while_loop(True),
+            "while unbounded": while_loop(False),
+            "conditional_block taken": conditional(1.0),
+            "conditional_block skipped": conditional(0.0),
+            "if_else": if_else, "parallel_do": parallel_do,
+            "arrays": arrays, "print": printing,
+            "cross_entropy_over_beam": ceob}
+
+
+#: the one-op cases of phase 21 (phase 16's format); ragged inputs carry
+#: their lengths
+_S21_SEQ = _u((3, 5, 4))
+_S21_LENS = {"X": [5, 2, 3]}
+S21_OP_CASES = (
+    [_op_case(op, {"X": _S21_SEQ}, seq_len=_S21_LENS)
+     for op in ("sequence_first_step", "sequence_last_step")]
+    + [_op_case("sequence_reverse", {"X": _S21_SEQ}, outs=("Y",),
+                seq_len=_S21_LENS),
+       _op_case("sequence_softmax", {"X": _u((3, 5))}, seq_len=_S21_LENS),
+       _op_case("sequence_expand", {"X": _u((3, 1, 4)), "Y": _u((3, 5, 1))},
+                nodiff=("Y",), seq_len={"Y": [5, 2, 3]}),
+       _op_case("sequence_conv", {"X": _S21_SEQ, "Filter": _u((12, 6))},
+                {"contextLength": 3, "contextStart": -1,
+                 "contextStride": 1}, seq_len=_S21_LENS, sums=True),
+       _op_case("sequence_slice", {"X": _S21_SEQ,
+                                   "Offset": np.array([[1], [0], [2]],
+                                                      np.int64),
+                                   "Length": np.array([[3], [2], [1]],
+                                                      np.int64)},
+                seq_len=_S21_LENS),
+       _op_case("sequence_erase", {"X": ("ids", (3, 6), 5)},
+                {"tokens": [0, 3]}, seq_len=_S21_LENS, sums=None),
+       _op_case("sequence_reshape", {"X": _S21_SEQ}, {"new_dim": 2},
+                seq_len=_S21_LENS),
+       _op_case("sequence_concat", {"X": [_S21_SEQ, _u((3, 2, 4))]},
+                seq_len=_S21_LENS),
+       _op_case("sequence_pad", {"X": _S21_SEQ}, outs=("Out", "Length"),
+                loss=("Out",), seq_len=_S21_LENS),
+       _op_case("sequence_unpad", {"X": _S21_SEQ,
+                                   "Length": np.array([5, 2, 3], np.int64)}),
+       _op_case("sequence_mask", {"X": _S21_SEQ}, outs=("Y",),
+                seq_len=_S21_LENS, sums=None),
+       _op_case("lstm_unit", {"X": _u((3, 16)), "C_prev": _u((3, 4))},
+                {"forget_bias": 0.5}, outs=("C", "H")),
+       _op_case("lod_reset", {"X": _u((3, 4)),
+                              "Y": np.array([1, 2, 3], np.int32)},
+                nodiff=("Y",)),
+       _op_case("im2sequence", {"X": _u((2, 3, 5, 4))},
+                {"kernels": [2, 2], "strides": [1, 2],
+                 "paddings": [1, 0, 0, 1]}),
+       _op_case("row_conv", {"X": _S21_SEQ, "Filter": _u((3, 4))},
+                seq_len=_S21_LENS, sums=True),
+       _op_case("repeat_batch", {"X": _u((3, 4))}, {"times": 3}),
+       _op_case("beam_init_scores", {"Ref": _u((6, 2))}, {"beam_size": 3},
+                sums=None),
+       _op_case("beam_search", {"PreScores": _u((6, 1), -3, 0),
+                                "Probs": ("probs", (6, 50)),
+                                "PreFinished": np.array(
+                                    [[0], [1], [0], [0], [0], [1]],
+                                    np.float32)},
+                {"beam_size": 3, "end_id": 1},
+                ("SelectedIds", "SelectedScores", "ParentIdx", "Finished"),
+                sums=None),
+       _op_case("beam_search_decode",
+                {"Ids": ("ids", (6, 7, 1), 50),
+                 "Parents": np.array([[0, 1, 0, 2, 1, 0, 0]] * 3
+                                     + [[3, 4, 5, 3, 4, 5, 3]] * 3,
+                                     np.int32),
+                 "Scores": _u((6, 1))},
+                {"beam_size": 3, "num_results": 2},
+                ("SentenceIds", "SentenceScores"), sums=None),
+       _op_case("lod_rank_table", {"X": _S21_SEQ}, seq_len=_S21_LENS,
+                sums=None),
+       _op_case("max_sequence_len",
+                {"RankTable": np.array([0, 2, 1], np.int32)},
+                outs=("Out",), seq_len={"RankTable": [5, 2, 3]}, sums=None),
+       _op_case("reorder_lod_tensor_by_rank",
+                {"X": _u((3, 4)), "RankTable": np.array([2, 0, 1],
+                                                        np.int32)}),
+       _op_case("shrink_rnn_memory",
+                {"X": _u((3, 4)), "I": np.array([2], np.int64),
+                 "RankTable": np.array([0, 2, 1], np.int32)},
+                nodiff=("RankTable",), seq_len={"RankTable": [5, 2, 3]}),
+       _op_case("rnn_memory_helper", {"X": _u((3, 4))}),
+       _op_case("split_lod_tensor", {"X": _u((4, 2)),
+                                     "Mask": np.array([[True], [False],
+                                                       [True], [False]])},
+                outs=("OutTrue", "OutFalse")),
+       _op_case("merge_lod_tensor", {"InTrue": _u((4, 2)),
+                                     "InFalse": _u((4, 2)),
+                                     "Mask": np.array([[True], [False],
+                                                       [True], [False]])}),
+       _op_case("linear_chain_crf",
+                {"Emission": _u((3, 5, 4)), "Transition": _u((6, 4)),
+                 "Label": ("ids", (3, 5), 4)},
+                outs=("Alpha", "EmissionExps", "TransitionExps",
+                      "LogLikelihood"), loss=("LogLikelihood",),
+                seq_len={"Emission": [5, 2, 3]}, sums=True),
+       _op_case("crf_decoding",
+                {"Emission": _u((3, 5, 4)), "Transition": _u((6, 4))},
+                outs=("ViterbiPath",), seq_len={"Emission": [5, 2, 3]},
+                sums=None),
+       _op_case("edit_distance",
+                {"Hyps": ("ids", (3, 6), 4), "Refs": ("ids", (3, 5), 4)},
+                {"normalized": True}, ("Out", "SequenceNum"),
+                seq_len={"Hyps": [6, 3, 1], "Refs": [5, 5, 2]}, sums=None),
+       _op_case("chunk_eval",
+                {"Inference": ("ids", (3, 6), 5),
+                 "Label": ("ids", (3, 6), 5)},
+                {"num_chunk_types": 2, "chunk_scheme": "IOB"},
+                ("Precision", "Recall", "F1-Score", "NumInferChunks",
+                 "NumLabelChunks", "NumCorrectChunks"),
+                seq_len={"Inference": [6, 4, 5]}, sums=None),
+       _op_case("warpctc", {"Logits": _u((3, 8, 5)),
+                            "Label": ("ids", (3, 3), 4)},
+                {"blank": 0, "norm_by_times": False},
+                ("Loss", "WarpCTCGrad"), loss=("Loss",),
+                seq_len={"Logits": [8, 6, 7], "Label": [3, 2, 3]},
+                sums=True),
+       _op_case("ctc_align", {"Input": ("ids", (3, 8), 4)}, {"blank": 0},
+                ("Output",), seq_len={"Input": [8, 5, 2]}, sums=None),
+       _op_case("hsigmoid", {"X": _u((4, 5)), "W": _u((8, 5)),
+                             "Bias": _u((8, 1)),
+                             "Label": ("ids", (4, 1), 9)},
+                {"num_classes": 9}, sums=True)])
+
+
+def new_rules_card_vs_cpu(seed=0):
+    """Phase 21: every rule this slice registers, on the card against the
+    CPU as phase 16 holds its rules: S21_OP_CASES as one-op programs
+    (outputs and the input @GRADs of a weighted-sum loss), the control
+    flow, arrays, printing and cross_entropy_over_beam as programs of the
+    port's layers (outputs and calc_gradient's @GRADs; parameters from
+    one CPU startup), nce by the JAX formula on the samples the card
+    drew.  Fails if a rule of S21_RULES ran in none of them."""
+    import zlib
+    import paddle_tpu_torch as fluid
+    shares, rules = {}, set()
+    for n, case in enumerate(S21_OP_CASES):
+        op = case["op"]
+        rng = np.random.default_rng(seed + zlib.crc32(f"{op}{n}".encode()))
+        arrays = {slot: [_case_array(s, rng) for s in
+                         (spec if isinstance(spec, list) else [spec])]
+                  for slot, spec in case["inputs"].items()}
+        prog, feed, outs, _ = _one_op_program(case, arrays)
+        cpu = _run_on(fluid.CPUPlace(), prog, feed, outs)
+        loss_slots = [f"o_{s.lower()}_"
+                      for s in (case["loss"] or case["outs"])]
+        floats = {o: a.shape for o, a in zip(outs, cpu)
+                  if a.dtype.kind == "f"
+                  and any(o.startswith(s) for s in loss_slots)}
+        grads = []
+        if case["sums"] is not None and floats:
+            prog, feed, outs, grads = _one_op_program(case, arrays, floats)
+        fetch = outs + grads
+        want = _run_on(fluid.CPUPlace(), prog, feed, fetch)
+        got = _run_on(fluid.CUDAPlace(0), prog, feed, fetch)
+        tol = SUM_TOL if case["sums"] else F32_TOL
+        shares[f"{op} #{n}"] = max(
+            [_hold(f"{op} #{n} {name}", g, w, tol)
+             for name, g, w in zip(fetch, got, want)], default=0.0)
+        rules.add(op)
+    for name, build in _s21_programs().items():
+        fluid.core.program.reset_default_programs()
+        fetch, feed = build()
+        main = fluid.default_main_program()
+        state = _program_state(fluid.default_startup_program())
+        cpu, card = (_state_run(place, main, state, feed, fetch)
+                     for place in (fluid.CPUPlace(), fluid.CUDAPlace(0)))
+        shares[name] = max(_hold(f"{name} {f}", g, w, SUM_TOL)
+                           for f, g, w in zip(fetch, card, cpu))
+        rules.update(op.type for b in main.blocks for op in b.ops)
+    rules.update(_seq_text_printer_card_vs_cpu())
+    rules.update(_nce_on_card())
+    missing = sorted(S21_RULES - rules)
+    if missing:
+        raise AssertionError(f"rules phase 21 did not run: {missing}")
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  {len(shares)} programs over {len(rules & S21_RULES)} of the "
+          f"slice's {len(S21_RULES)} rules held; largest shares of the "
+          f"tolerance: {worst}", flush=True)
+    return {"cases": len(shares) + 2, "rules": len(rules & S21_RULES),
+            "largest_share": worst[0][1]}
+
+
+def _seq_text_printer_card_vs_cpu():
+    """seq_text_printer on the card and on the CPU writes the same text."""
+    import tempfile
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers as L
+    texts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = os.path.join(tmp, "dict.txt")
+        with open(vocab, "w") as f:
+            f.write("\n".join(f"w{i}" for i in range(10)) + "\n")
+        for k, place in enumerate((fluid.CPUPlace(), fluid.CUDAPlace(0))):
+            fluid.core.program.reset_default_programs()
+            ids = L.data(name="ids", shape=[1], dtype="int64", lod_level=1)
+            block = fluid.default_main_program().global_block()
+            tok = block.create_var(name="tok", dtype="int32")
+            result = os.path.join(tmp, f"out{k}.txt")
+            block.append_op("seq_text_printer", inputs={"Ids": [ids]},
+                            outputs={"Out": [tok]},
+                            attrs={"dict_file": vocab,
+                                   "result_file": result})
+            fluid.Executor(place).run(
+                fluid.default_main_program(),
+                feed={"ids": np.array([[2, 3, 9], [4, 2, 0]], np.int64),
+                      "ids@SEQ_LEN": np.array([3, 2], np.int32)},
+                fetch_list=[tok], scope=fluid.core.scope.Scope())
+            with open(result) as f:
+                texts.append(f.read())
+    if texts[0] != texts[1] or texts[0] != "0\tw2 w3 w9\n1\tw4 w2\n":
+        raise AssertionError(f"seq_text_printer wrote {texts}")
+    return {"seq_text_printer"}
+
+
+def _nce_on_card():
+    """nce draws its negatives from the card's generator: its cost must be
+    the JAX formula on the samples it drew (read back through
+    SampleLabels), and the samples lie in [0, classes)."""
+    import paddle_tpu_torch as fluid
+    c, k, b, d = 50, 8, 64, 16
+    rng = np.random.default_rng(22)
+    feed = {"x": rng.standard_normal((b, d)).astype(np.float32),
+            "label": rng.integers(0, c, (b, 1)),
+            "w": rng.standard_normal((c, d)).astype(np.float32),
+            "b": rng.standard_normal((c, 1)).astype(np.float32)}
+    prog = fluid.Program()
+    block = prog.global_block()
+    for name, arr in feed.items():
+        block.create_var(name=name, shape=arr.shape, dtype=str(arr.dtype),
+                         is_data=True)
+    for name in ("cost", "samples"):
+        block.create_var(name=name)
+    block.append_op("nce", inputs={"Input": ["x"], "Label": ["label"],
+                                   "Weight": ["w"], "Bias": ["b"]},
+                    outputs={"Cost": ["cost"], "SampleLabels": ["samples"]},
+                    attrs={"num_total_classes": c, "num_neg_samples": k})
+    cost, neg = _run_on(fluid.CUDAPlace(0), prog, feed, ["cost", "samples"])
+
+    def logit(ids):
+        x = feed["x"].astype(np.float64)
+        return ((feed["w"][ids] * (x[:, None] if ids.ndim == 2 else x))
+                .sum(-1) + feed["b"][:, 0][ids])
+    log_q = math.log(k / c)
+    want = (np.logaddexp(0, -(logit(feed["label"][:, 0]) - log_q))
+            + np.logaddexp(0, logit(neg) - log_q).sum(1))
+    share = _hold("nce on the card", cost[:, 0], want.astype(np.float32),
+                  SUM_TOL)
+    if neg.min() < 0 or neg.max() >= c:
+        raise AssertionError("nce samples outside [0, classes)")
+    print(f"  nce on the card: the JAX formula on its {neg.size} samples, "
+          f"{share:.4f} of the tolerance", flush=True)
+    return {"nce"}
+
+
+#: the rules this slice registers (phase 21 holds them; phase 16 leaves
+#: them here)
+S21_RULES = frozenset((
+    "sequence_first_step", "sequence_last_step", "sequence_softmax",
+    "sequence_expand", "sequence_conv", "sequence_slice", "sequence_erase",
+    "sequence_reshape", "sequence_concat", "sequence_pad",
+    "sequence_unpad", "lstm_unit", "sequence_mask", "sequence_reverse",
+    "lod_reset", "im2sequence", "row_conv", "beam_search",
+    "beam_search_decode", "repeat_batch", "beam_init_scores",
+    "cross_entropy_over_beam", "lod_rank_table", "max_sequence_len",
+    "reorder_lod_tensor_by_rank", "lod_tensor_to_array",
+    "array_to_lod_tensor", "shrink_rnn_memory", "rnn_memory_helper",
+    "split_lod_tensor", "merge_lod_tensor", "lod_array_length",
+    "delete_var", "write_to_array", "read_from_array", "array_length",
+    "print", "print_grad", "seq_text_printer", "while", "conditional_block",
+    "if_else", "parallel_do", "linear_chain_crf", "crf_decoding",
+    "edit_distance", "chunk_eval", "warpctc", "ctc_align", "nce",
+    "hsigmoid"))
+
+
+def seq2seq_phases(smi, recs=None):
+    """Phases 19 and 20 (with ``recs``, the kernels' records, their
+    seq2seq launches are added there) -> (training launches, generation
+    launches, end-to-end numbers)."""
+    print(f"phase 19: seq2seq attention NMT {S2S_CONFIG} (bench.py "
+          f"bench_seq2seq) at batch {S2S_BATCH}, T {S2S_T}, program.amp, "
+          "Adam, through seq_to_seq_net + Executor.run", flush=True)
+    train_launches, train_e2e, state = train_seq2seq()
+    print(f"  end to end ({smi}): {json.dumps(train_e2e)}", flush=True)
+    print(f"  one f32 step at batch {S2S_CPU_BATCH}, ragged lengths, card "
+          "against CPU", flush=True)
+    train_e2e["card_vs_cpu"] = s2s_card_vs_cpu(state)
+    print(f"phase 20: seq_to_seq_generate at batch {S2S_GEN_BATCH}, beam "
+          f"{S2S_BEAM}, max_length {S2S_MAX_LEN} (bench.py:1042-1060), the "
+          "training parameters by name, card against CPU", flush=True)
+    gen_launches, gen_e2e = generate_seq2seq(state)
+    print(f"  end to end ({smi}): {json.dumps(gen_e2e)}", flush=True)
+    if recs is not None:
+        for name in ("lstm_fwd", "lstm_bwd", "softmax_xent_fwd",
+                     "softmax_xent_bwd"):
+            recs[name]["launches_seq2seq_training"] = train_launches[name]
+            recs[name]["launches_seq2seq_generation"] = gen_launches[name]
+    return train_launches, gen_launches, {"training": train_e2e,
+                                          "generation": gen_e2e}
+
+
+def seq2seq_ab(smi):
+    """``--seq2seq``: phase 3 at the seq2seq path's shapes, then phases 19
+    and 20 alone (their kernel rows read here, not late in the full
+    smoke, where `_device_ms` reads low)."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("lstm", "softmax_xent"))
+    recs = {n: {} for n in ("lstm_fwd", "lstm_bwd", "softmax_xent_fwd",
+                            "softmax_xent_bwd")}
+    check_seq2seq_kernels(recs)
+    _, _, e2e = seq2seq_phases(smi, recs)
+    recs["seq2seq"] = e2e
+    return recs
+
+
 def serving_ab(smi):
     """``--serving``: only the serving path's kernels and phase 4 (paged
     attention and LayerNorm against their plain versions with their
@@ -4308,7 +5220,8 @@ def vgg_f32_anatomy(smi):
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
-            "--vgg-f32": vgg_f32_anatomy, "--amp-train": amp_train_ab}
+            "--vgg-f32": vgg_f32_anatomy, "--amp-train": amp_train_ab,
+            "--seq2seq": seq2seq_ab}
 
 
 def main(argv=()):
@@ -4362,6 +5275,7 @@ def main(argv=()):
     for kind in ("lstm", "gru"):
         check_recurrent(kind, recs[f"{kind}_fwd"], recs[f"{kind}_bwd"])
     check_row_stable_mm(recs["row_stable_mm"])
+    check_seq2seq_kernels(recs)
 
     print(f"phase 4: DecodeEngine, {FULL_WIDTH['n_layers']}-layer d768 LM, "
           "bf16", flush=True)
@@ -4433,6 +5347,12 @@ def main(argv=()):
           "schedule on the card against the CPU", flush=True)
     print(f"  {json.dumps(optimizer_rules_card_vs_cpu())}", flush=True)
 
+    s2s_launches, s2s_gen_launches, _ = seq2seq_phases(smi, recs)
+
+    print("phase 21: every sequence, beam, LoD, array, control-flow and "
+          "CRF rule on the card against the CPU", flush=True)
+    print(f"  {json.dumps(new_rules_card_vs_cpu())}", flush=True)
+
     kernels = []
     for k in K.KERNELS:
         r = recs[k.name]
@@ -4445,7 +5365,8 @@ def main(argv=()):
                          + seq["lstm"][0][k.name] + seq["gru"][0][k.name]
                          + fd_launches[k.name] + dm_launches[k.name]
                          + vgg_launches[k.name] + lenet_launches[k.name]
-                         + amp_launches[k.name]),
+                         + amp_launches[k.name] + s2s_launches[k.name]
+                         + s2s_gen_launches[k.name]),
             "launches_serving": serve_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
             "launches_decode_modes": dm_launches[k.name],
@@ -4455,13 +5376,16 @@ def main(argv=()):
                                   + seq["gru"][0][k.name]
                                   + vgg_launches[k.name]
                                   + lenet_launches[k.name]
-                                  + amp_launches[k.name]),
+                                  + amp_launches[k.name]
+                                  + s2s_launches[k.name]),
             "launches_resnet_training": resnet_launches[k.name],
             "launches_lstm_training": seq["lstm"][0][k.name],
             "launches_gru_training": seq["gru"][0][k.name],
             "launches_vgg_training": vgg_launches[k.name],
             "launches_lenet_training": lenet_launches[k.name],
             "launches_amp_training": amp_launches[k.name],
+            "launches_seq2seq_training": s2s_launches[k.name],
+            "launches_seq2seq_generation": s2s_gen_launches[k.name],
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4484,7 +5408,10 @@ def main(argv=()):
             **({"amp_training_shape": r["amp_training"]}
                if "amp_training" in r else {}),
             **{key: r[key] for key in ("f32_w", "bf16_w", "bf16",
-                                       "chunked_rows", "decode") if key in r}})
+                                       "chunked_rows", "decode") if key in r},
+            **{key: v for key, v in r.items()
+               if key.startswith("seq2seq_") and not key.startswith(
+                   "seq2seq_launches")}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

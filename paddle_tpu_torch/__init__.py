@@ -48,8 +48,8 @@ the CPU (``Executor(CPUPlace())``, ``device="cpu"``, ``--device cpu``).
 """
 from . import flags  # noqa: F401  (the FLAGS_* bootstrap runs first)
 from .flags import FLAGS  # noqa: F401
-from . import (average, backward, core, evaluator,  # noqa: F401
-               initializer, io, layers, metrics, nets, optimizer,
+from . import (average, backward, core, dataset,  # noqa: F401
+               evaluator, initializer, io, layers, metrics, nets, optimizer,
                unique_name)
 from . import checkpoint, clip, fault, reader, regularizer  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
@@ -58,6 +58,7 @@ from .core import (Executor, CPUPlace, CUDAPlace, Program,  # noqa: F401
                    Variable, Parameter, append_backward,
                    default_main_program, default_startup_program,
                    global_scope, program_guard, scope_guard)
+from .core.lowering import LEN_SUFFIX  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 
 __version__ = "0.5.0"

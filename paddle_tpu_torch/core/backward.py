@@ -10,8 +10,12 @@ the parameters (see `core.lowering`), so the rule calls
 Function of the port's kernels (flash attention, LayerNorm, softmax
 cross-entropy) runs its backward kernel there.
 
-Not ported yet: SelectedRows (``is_sparse``) gradients, ``calc_gradient``
-and ``memory_optimize`` rematerialisation.
+`calc_gradient` appends the same op for any targets and inputs (the
+JAX function's program), so a program may hold several; the interpreter
+records up to the last, and every one but the last keeps the graph.
+
+Not ported yet: SelectedRows (``is_sparse``) gradients and
+``memory_optimize`` rematerialisation.
 """
 from __future__ import annotations
 
@@ -60,6 +64,26 @@ def append_backward(loss: Variable,
     return list(zip(params, grad_vars))
 
 
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """The gradients of ``targets[0]`` (summed) with respect to
+    ``inputs`` (data vars or parameters), as ``<name>@GRAD`` vars: one
+    ``backward`` op, the JAX function's program."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    block = targets[0].block
+    forward_op_end = len(block.ops)
+    grad_vars = [block.create_var(name=v.name + "@GRAD", shape=v.shape,
+                                  dtype=v.dtype) for v in inputs]
+    block.append_op(
+        "backward",
+        inputs={"Loss": [targets[0]]},
+        outputs={"Grads": [g.name for g in grad_vars], "LossGrad": []},
+        attrs={"params": [v.name for v in inputs],
+               "forward_op_end": forward_op_end,
+               "op_role": "backward"})
+    return grad_vars
+
+
 @register_op("backward")
 def _backward_rule(ctx: ExecContext):
     if ctx.attr("sparse_params"):
@@ -70,9 +94,16 @@ def _backward_rule(ctx: ExecContext):
     loss_grad = torch.ones_like(loss)
     # a loss that depends on no parameter (a constant, or only on stopped
     # inputs) has zero gradients, as jax.grad gives
-    grads = (torch.autograd.grad(loss, params, grad_outputs=loss_grad,
-                                 allow_unused=True)
-             if loss.requires_grad else [None] * len(params))
+    want = [i for i, p in enumerate(params) if p.requires_grad]
+    grads = [None] * len(params)
+    if loss.requires_grad and want:
+        got = torch.autograd.grad(
+            loss, [params[i] for i in want], grad_outputs=loss_grad,
+            allow_unused=True,
+            retain_graph=ctx.op is not ctx.interpreter.last_backward)
+        for i, g in zip(want, got):
+            grads[i] = g
     for gname, p, g in zip(ctx.output_names("Grads"), params, grads):
-        ctx.env[gname] = torch.zeros_like(p) if g is None else g.to(p.dtype)
+        ctx.env[gname] = (torch.zeros_like(p) if g is None
+                          else g.to(p.dtype)).detach()
     ctx.set_output("LossGrad", loss_grad)

@@ -34,8 +34,22 @@ finite check of the fetches sees it.
 Ragged values keep the JAX package's representation: a padded dense
 tensor plus a companion int32 length vector named ``<name>@SEQ_LEN`` in
 the env (fed beside the data, carried along by the rules).  Sub-blocks
-(a DynamicRNN's step block) are run by their op's rule, which hands each
-of their ops an `ExecContext` whose ``block`` is the sub-block.
+(a DynamicRNN's step block, a While's body) are run by their op's rule,
+which hands each of their ops an `ExecContext` whose ``block`` is the
+sub-block.
+
+Dead ops are skipped.  XLA drops what no output needs; an eager
+interpreter would run it.  Before a block runs, one backward pass over
+its ops marks an op live when one of its outputs is fetched, read by a
+later live op, read in a sub-block or persistable, or when it is an
+optimize-role, in-place, printing or control op, an op with no outputs,
+or a rule that draws from the executor's generator (skipping one would
+shift every later draw).  The rest do not run (a training program's
+unfetched inference head, say).  ``Interpreter.skip_dead_ops = False``
+runs every op, for measuring what the skip saves.
+
+``calc_gradient`` may append several ``backward`` ops: the interpreter
+records up to the last live one, and each keeps the graph for the next.
 """
 from __future__ import annotations
 
@@ -104,6 +118,9 @@ class ExecContext:
         names = self.op.desc.inputs.get(slot, [])
         return names[0] if names else None
 
+    def input_names(self, slot: str) -> List[str]:
+        return self.op.desc.inputs.get(slot, [])
+
     def output_name(self, slot: str) -> Optional[str]:
         names = self.op.desc.outputs.get(slot, [])
         return names[0] if names else None
@@ -115,6 +132,10 @@ class ExecContext:
         names = self.op.desc.outputs.get(slot, [])
         if names:
             self.env[names[idx]] = value
+
+    def set_outputs(self, slot: str, values):
+        for name, value in zip(self.op.desc.outputs.get(slot, []), values):
+            self.env[name] = value
 
     def output_needed(self, slot: str) -> bool:
         """True when a later op or the fetch list reads this output (a
@@ -150,9 +171,27 @@ class ExecContext:
         random_seed); its bits are not JAX's threefry bits."""
         return self.interpreter.generator
 
+    # -- sub-blocks ------------------------------------------------------------
+    def run_sub_block(self, block: Block, env: Dict[str, Any]):
+        """Run every op of a sub-block over ``env``, in order (a control
+        op's body: no op of it is skipped)."""
+        for op in block.ops:
+            OpRegistry.get(op.type).fn(
+                ExecContext(op, env, self.program, block, self.interpreter))
+
+
+#: ops that always run: side effects the env does not show
+PRINT_OPS = {"print", "print_grad", "seq_text_printer"}
+#: attributes naming the sub-blocks a control op runs
+SUB_BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
+
 
 class Interpreter:
     """Runs a block's ops over an env on one device."""
+
+    #: skip the ops no fetch, persistable or side effect needs (see the
+    #: module docstring); False runs every op
+    skip_dead_ops = True
 
     def __init__(self, program: Program, device: torch.device,
                  generator: torch.Generator,
@@ -164,23 +203,61 @@ class Interpreter:
         self.fetch_names = tuple(fetch_names)
         self.check_nan_inf = check_nan_inf
         self.needed = set()
+        self.last_backward = None
+
+    def live_ops(self, block: Block) -> List[bool]:
+        """Which ops of ``block`` run; also sets ``needed`` to the names a
+        live op, a sub-block or the fetch list reads."""
+        needed = set(self.fetch_names)
+        for b in self.program.blocks:
+            if b is not block:
+                for op in b.ops:
+                    needed.update(op.desc.input_names())
+        live = [True] * len(block.ops)
+        for i in range(len(block.ops) - 1, -1, -1):
+            op = block.ops[i]
+            ins, outs = op.desc.input_names(), op.desc.output_names()
+            control = any(k in op.desc.attrs for k in SUB_BLOCK_ATTRS)
+            keep = (not self.skip_dead_ops or not outs or control
+                    or op.type in PRINT_OPS
+                    or op.desc.attrs.get("op_role") == "optimize"
+                    or OpRegistry.get(op.type).draws_rng
+                    or any(n in needed for n in outs)
+                    or any(n in ins for n in outs)
+                    or any(self._persistable(block, n) for n in outs))
+            live[i] = keep
+            if keep:
+                needed.update(ins)
+                if control:
+                    # a control op reads its carried vars' values on entry
+                    needed.update(outs)
+        self.needed = needed
+        return live
+
+    @staticmethod
+    def _persistable(block: Block, name: str) -> bool:
+        var = block._find_var_recursive(name)
+        return var is not None and var.persistable
 
     def run_block(self, block: Block, env: Dict[str, Any]):
-        # an output read only inside a sub-block (a DynamicRNN's step
-        # block) is needed too
-        self.needed = set(self.fetch_names)
-        for b in self.program.blocks:
-            for op in b.ops:
-                self.needed.update(op.desc.input_names())
-        bwd_at = next((i for i, op in enumerate(block.ops)
-                       if op.type == "backward"), None)
-        if bwd_at is not None:
-            for name in block.ops[bwd_at].desc.attrs["params"]:
-                env[name] = env[name].detach().requires_grad_(True)
+        live = self.live_ops(block)
+        bwd = [i for i, op in enumerate(block.ops)
+               if op.type == "backward" and live[i]]
+        record_end = bwd[-1] if bwd else 0
+        # the backward rule keeps the graph for a later backward op
+        self.last_backward = block.ops[record_end] if bwd else None
+        for i in bwd:
+            for name in block.ops[i].desc.attrs["params"]:
+                val = env.get(name)
+                if (isinstance(val, torch.Tensor) and val.is_floating_point()
+                        and not val.requires_grad):
+                    env[name] = val.detach().requires_grad_(True)
         for i, op in enumerate(block.ops):
+            if not live[i]:
+                continue
             rule = OpRegistry.get(op.type)
             ctx = ExecContext(op, env, self.program, block, self)
-            record = bwd_at is not None and i < bwd_at
+            record = i < record_end
             prev = None
             if op.desc.attrs.get("op_role") == "optimize":
                 prev = {n: env[n] for n in op.desc.output_names()

@@ -295,6 +295,11 @@ class Block:
         self.vars[name] = p
         return p
 
+    @property
+    def parent_block(self) -> Optional["Block"]:
+        return (self.program.blocks[self.parent_idx]
+                if self.parent_idx >= 0 else None)
+
     def var(self, name) -> Variable:
         v = self._find_var_recursive(name)
         if v is None:

@@ -12,22 +12,27 @@ from typing import Callable, Dict, Optional
 
 
 class OpDef:
-    __slots__ = ("type", "fn", "doc")
+    __slots__ = ("type", "fn", "doc", "draws_rng")
 
-    def __init__(self, type: str, fn: Callable, doc: str = ""):
+    def __init__(self, type: str, fn: Callable, doc: str = "",
+                 draws_rng: bool = False):
         self.type = type
         self.fn = fn
         self.doc = doc
+        #: the rule draws from the executor's generator: it always runs,
+        #: so that skipping it cannot shift a later draw
+        self.draws_rng = draws_rng
 
 
 class OpRegistry:
     _ops: Dict[str, OpDef] = {}
 
     @classmethod
-    def register(cls, type: str, fn: Callable, doc: str = ""):
+    def register(cls, type: str, fn: Callable, doc: str = "",
+                 draws_rng: bool = False):
         if type in cls._ops:
             raise ValueError(f"op '{type}' registered twice")
-        cls._ops[type] = OpDef(type, fn, doc)
+        cls._ops[type] = OpDef(type, fn, doc, draws_rng)
 
     @classmethod
     def get(cls, type: str) -> OpDef:
@@ -46,9 +51,10 @@ class OpRegistry:
         return sorted(cls._ops)
 
 
-def register_op(type: str, doc: str = ""):
-    """Decorator: @register_op("relu") def _rule(ctx): ..."""
+def register_op(type: str, doc: str = "", draws_rng: bool = False):
+    """Decorator: @register_op("relu") def _rule(ctx): ...  Mark a rule
+    that calls ``ctx.next_rng()`` with ``draws_rng=True``."""
     def deco(fn):
-        OpRegistry.register(type, fn, doc or (fn.__doc__ or ""))
+        OpRegistry.register(type, fn, doc or (fn.__doc__ or ""), draws_rng)
         return fn
     return deco

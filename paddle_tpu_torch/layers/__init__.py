@@ -6,11 +6,18 @@ from .nn import *          # noqa: F401,F403
 from .tensor import *      # noqa: F401,F403
 from .ops import *         # noqa: F401,F403
 from .sequence import *    # noqa: F401,F403
+from .structured import *  # noqa: F401,F403
 from .misc import *        # noqa: F401,F403
-from .control_flow import DynamicRNN, StaticRNN  # noqa: F401
+from .control_flow import (DynamicRNN, StaticRNN, Switch, Print,  # noqa: F401
+                           increment, array_write, array_read, array_length,
+                           While, IfElse, ConditionalBlock, ParallelDo,
+                           get_places, lod_rank_table, max_sequence_len,
+                           reorder_lod_tensor_by_rank, lod_tensor_to_array,
+                           array_to_lod_tensor, shrink_memory,
+                           split_lod_tensor, merge_lod_tensor)
 from .io import data  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
     autoincreased_step_counter, exponential_decay, inverse_time_decay,
     natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay)
 from . import (control_flow, io, learning_rate_scheduler,  # noqa: F401
-               misc, nn, ops, sequence, tensor)
+               misc, nn, ops, sequence, structured, tensor)

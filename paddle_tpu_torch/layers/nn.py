@@ -1,9 +1,6 @@
-"""Neural-net layers (counterpart of ``paddle_tpu/layers/nn.py``; its
-dense part).  Each appends ops to the current block and returns output
-Variables with inferred shapes.  Not ported: ``row_conv``,
-``im2sequence``, ``sampling_id``, ``sequence_slice``, ``lstm_unit``,
-``hsigmoid`` and ``sequence_reverse``, which wait for their op
-families."""
+"""Neural-net layers (counterpart of ``paddle_tpu/layers/nn.py``).  Each
+appends ops to the current block and returns output Variables with
+inferred shapes."""
 from __future__ import annotations
 
 from ..initializer import Constant, ConstantInitializer, NormalInitializer
@@ -664,3 +661,83 @@ def auc(input, label, curve="ROC", num_thresholds=200, topk=1, name=None):
                             "num_thresholds": num_thresholds})
     auc_out.desc.shape = (1,)
     return auc_out, stats
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """row_conv_op.cc: a lookahead convolution over the time axis."""
+    helper = LayerHelper("row_conv", input=input)
+    d = input.shape[-1]
+    filt = helper.create_parameter(param_attr or None,
+                                   [future_context_size + 1, d], "float32")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [filt]},
+                     outputs={"Out": [out]})
+    out.desc.shape = input.shape
+    return helper.append_activation(out) if act else out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    k = _pair(filter_size)
+    s = _pair(stride)
+    p = padding if isinstance(padding, (list, tuple)) else [padding] * 4
+    return _simple_xy("im2sequence", input, None,
+                      {"kernels": list(k), "strides": list(s),
+                       "paddings": list(p)})
+
+
+def sequence_slice(input, offset, length, name=None):
+    helper = LayerHelper("sequence_slice", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="sequence_slice",
+                     inputs={"X": [input], "Offset": [offset],
+                             "Length": [length]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_reverse(x, name=None):
+    helper = LayerHelper("sequence_reverse", input=x)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="sequence_reverse", inputs={"X": [x]},
+                     outputs={"Y": [out]})
+    if x.shape:
+        out.desc.shape = x.shape
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, name=None):
+    return _simple_xy("sampling_id", x, None, {"seed": seed},
+                      out_dtype="int64")
+
+
+def lstm_unit(x_t, cell_t_prev, forget_bias=0.0, name=None):
+    """lstm_unit_op.cc: one fused cell step; x_t is the 4H gate input."""
+    helper = LayerHelper("lstm_unit", input=x_t)
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op(type="lstm_unit",
+                     inputs={"X": [x_t], "C_prev": [cell_t_prev]},
+                     outputs={"C": [c], "H": [h]},
+                     attrs={"forget_bias": float(forget_bias)})
+    return h, c
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid loss (hierarchical_sigmoid_op.cc): a row's cost
+    over the complete-binary-tree path of its label."""
+    helper = LayerHelper("hsigmoid", input=input)
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr or None, [num_classes - 1, d],
+                                "float32")
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr or None, [num_classes - 1, 1],
+                                    "float32", is_bias=True)
+        inputs["Bias"] = [b]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="hsigmoid", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"num_classes": num_classes})
+    return out

@@ -1,2 +1,3 @@
 """Models of the port: the transformer LM (generation and training),
-ResNet, the stacked dynamic LSTM, LeNet-5 and VGG-16 (training)."""
+ResNet, the stacked dynamic LSTM, LeNet-5, VGG-16 and the seq2seq
+attention NMT model (training and beam-search generation)."""

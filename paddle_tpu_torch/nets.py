@@ -1,7 +1,7 @@
 """Composite layers (counterpart of ``paddle_tpu/nets.py``): the image
-helpers ``simple_img_conv_pool`` and ``img_conv_group``, ``glu``, and the
-self-attention branch of ``scaled_dot_product_attention``.
-``sequence_conv_pool`` waits for ``sequence_conv``."""
+helpers ``simple_img_conv_pool`` and ``img_conv_group``,
+``sequence_conv_pool``, ``glu``, and the self-attention branch of
+``scaled_dot_product_attention``."""
 from __future__ import annotations
 
 from . import layers
@@ -57,6 +57,15 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride,
                          use_cudnn=use_cudnn)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """sequence_conv (with ``act``) then sequence_pool."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

@@ -6,8 +6,8 @@ normalisation (``batch_norm``, ``layer_norm``, ``lrn``,
 ``l2_normalize``), ``softmax``/``log_softmax``, the losses
 (``cross_entropy`` on probabilities, ``softmax_with_cross_entropy``, the
 sigmoid, smooth-L1, Huber, hinge, log and rank losses), ``lookup_table``
-(dense gradient), ``prelu`` and ``dropout``.  ``im2sequence`` and
-``row_conv`` wait for the sequence ops.
+(dense gradient), ``prelu``, ``dropout``, and the sequence-shaped
+``im2sequence`` and ``row_conv``.
 
 The BatchNorm, LayerNorm and hard-label loss-head rules go through the
 autograd Functions of `ops.kernels`, so their backward runs the
@@ -475,7 +475,7 @@ def _lookup_table(ctx):
     ctx.set_seq_len("Out", ctx.seq_len_of("Ids"))
 
 
-@register_op("dropout")
+@register_op("dropout", draws_rng=True)
 def _dropout(ctx):
     x = ctx.input("X")
     prob = ctx.attr("dropout_prob", 0.5)
@@ -502,3 +502,32 @@ def _prelu(ctx):
     elif mode == "element":
         alpha = alpha.reshape(x.shape[1:])
     ctx.set_output("Out", torch.where(x > 0, x, alpha * x))
+
+
+@register_op("im2sequence", doc="im2sequence_op.cc: convolution patches "
+             "as a sequence")
+def _im2sequence(ctx):
+    """NCHW -> [N, OH*OW, C*kh*kw] (one sequence an image, the patch's
+    channel-major layout of ``lax.conv_general_dilated_patches``)."""
+    x = ctx.input("X")
+    kernels = ctx.attr("kernels")
+    strides = ctx.attr("strides", [1, 1])
+    pads = ctx.attr("paddings", [0, 0, 0, 0])
+    xp = F.pad(x, (pads[1], pads[3], pads[0], pads[2]))
+    patches = F.unfold(xp, tuple(kernels), stride=tuple(strides))
+    out = patches.transpose(1, 2)
+    ctx.set_output("Out", out)
+    ctx.set_seq_len("Out", torch.full((x.shape[0],), out.shape[1],
+                                      dtype=torch.int32, device=x.device))
+
+
+@register_op("row_conv", doc="row_conv_op.cc: lookahead convolution over "
+             "time")
+def _row_conv(ctx):
+    x = ctx.input("X")              # [batch, time, dim]
+    w = ctx.input("Filter")         # [future_context + 1, dim]
+    t = x.shape[1]
+    pad = F.pad(x, (0, 0, 0, w.shape[0] - 1))
+    out = sum(pad[:, i:i + t, :] * w[i] for i in range(w.shape[0]))
+    ctx.set_output("Out", out)
+    ctx.set_seq_len("Out", ctx.seq_len_of("X"))

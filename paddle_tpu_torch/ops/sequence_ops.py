@@ -1,5 +1,6 @@
-"""Sequence op rules (counterpart of ``paddle_tpu/ops/sequence_ops.py``:
-``sequence_pool`` and the recurrent ``lstm`` and ``gru`` rules).
+"""Sequence op rules (counterpart of ``paddle_tpu/ops/sequence_ops.py``,
+all 17 rules: the ``sequence_*`` family, ``lstm_unit`` and the recurrent
+``lstm`` and ``gru`` rules).
 
 A ragged batch is a padded dense tensor [B, T, ...] plus its int32
 ``<name>@SEQ_LEN`` length vector, as in the JAX package; masks take the
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.lowering import LEN_SUFFIX
 from ..core.registry import register_op
 from . import kernels as K
 from .math_ops import amp_on
@@ -30,6 +32,21 @@ def _time_mask(lens, t: int, dtype=torch.float32):
         return None
     return (torch.arange(t, device=lens.device)[None, :]
             < lens[:, None]).to(dtype)
+
+
+def _last_index(lens, b, t, device):
+    """Each row's last valid time step ([B] long), T-1 without lengths."""
+    idx = (lens - 1 if lens is not None
+           else torch.full((b,), t - 1, device=device))
+    return idx.clamp(0, t - 1).long()
+
+
+def _take_time(x, idx):
+    """x [B, T, ...] gathered along time at idx [B, T'] -> [B, T', ...]."""
+    b, n = idx.shape
+    full = idx.reshape((b, n) + (1,) * (x.dim() - 2)).expand(
+        (b, n) + tuple(x.shape[2:]))
+    return x.gather(1, full)
 
 
 # ---------------------------------------------------------------------------
@@ -60,16 +77,216 @@ def _sequence_pool(ctx):
         out = torch.where(m > 0, x, torch.full((), low, dtype=x.dtype,
                                                device=x.device)).amax(dim=1)
     elif ptype == "LAST":
-        idx = (lens - 1 if lens is not None
-               else torch.full((b,), t - 1, device=x.device))
-        idx = idx.clamp(0, t - 1).long().reshape(
-            (b, 1) + (1,) * (x.dim() - 2)).expand((b, 1) + x.shape[2:])
-        out = x.gather(1, idx)[:, 0]
+        out = _take_time(x, _last_index(lens, b, t, x.device)[:, None])[:, 0]
     elif ptype == "FIRST":
         out = x[:, 0]
     else:
         raise ValueError(f"unknown pooltype {ptype}")
     ctx.set_output("Out", out)
+
+
+@register_op("sequence_first_step")
+def _sequence_first_step(ctx):
+    ctx.set_output("Out", ctx.input("X")[:, 0])
+
+
+@register_op("sequence_last_step")
+def _sequence_last_step(ctx):
+    x = ctx.input("X")
+    idx = _last_index(ctx.seq_len_of("X"), x.shape[0], x.shape[1], x.device)
+    ctx.set_output("Out", _take_time(x, idx[:, None])[:, 0])
+
+
+@register_op("sequence_softmax",
+             doc="softmax over the time axis with the length mask")
+def _sequence_softmax(ctx):
+    x = ctx.input("X")                     # [B, T] or [B, T, 1]
+    lens = ctx.seq_len_of("X")
+    squeeze = x.dim() == 3 and x.shape[-1] == 1
+    logits = (x[..., 0] if squeeze else x).float()
+    mask = _time_mask(lens, logits.shape[1])
+    if mask is not None:
+        logits = torch.where(mask > 0, logits,
+                             torch.full_like(logits, -1e30))
+    sm = torch.softmax(logits, dim=1)
+    if mask is not None:
+        sm = sm * mask
+    out = sm[..., None] if squeeze else sm
+    ctx.set_output("Out", out.to(x.dtype))
+    ctx.set_seq_len("Out", lens)
+
+
+@register_op("sequence_expand",
+             doc="broadcast per-row vectors over a reference sequence's "
+                 "time axis (the attention use)")
+def _sequence_expand(ctx):
+    x = ctx.input("X")                     # [B, D] or [B, 1, D]
+    y = ctx.input("Y")                     # [B, T, ...] reference
+    t = y.shape[1]
+    if x.dim() == 2:
+        out = x[:, None, :].expand(x.shape[0], t, x.shape[1])
+    else:
+        out = x.expand((x.shape[0], t) + tuple(x.shape[2:]))
+    ctx.set_output("Out", out)
+    ctx.set_seq_len("Out", ctx.seq_len_of("Y"))
+
+
+@register_op("sequence_conv", doc="context-window projection over time")
+def _sequence_conv(ctx):
+    x = ctx.input("X")                     # [B, T, D]
+    w = ctx.input("Filter")                # [ctx_len * D, F]
+    ctx_len = ctx.attr("contextLength")
+    ctx_start = ctx.attr("contextStart", -(ctx_len // 2))
+    lens = ctx.seq_len_of("X")
+    t = x.shape[1]
+    mask = _time_mask(lens, t, x.dtype)
+    xm = x * mask[..., None] if mask is not None else x
+    cols = []
+    for i in range(ctx_len):
+        off = ctx_start + i
+        if off < 0:
+            cols.append(torch.nn.functional.pad(xm, (0, 0, -off, 0))[:, :t])
+        elif off > 0:
+            cols.append(torch.nn.functional.pad(xm, (0, 0, 0, off))[:, off:])
+        else:
+            cols.append(xm)
+    stacked = torch.cat(cols, dim=-1)     # [B, T, ctx_len * D]
+    dt = torch.promote_types(stacked.dtype, w.dtype)
+    out = torch.matmul(stacked.to(dt), w.to(dt)).to(x.dtype)
+    if mask is not None:
+        out = out * mask[..., None]
+    ctx.set_output("Out", out)
+    ctx.set_seq_len("Out", lens)
+
+
+@register_op("sequence_slice")
+def _sequence_slice(ctx):
+    x = ctx.input("X")
+    offset = ctx.input("Offset").reshape(-1).long()      # [B]
+    length = ctx.input("Length").reshape(-1).to(torch.int32)
+    t = x.shape[1]
+    idx = (offset[:, None]
+           + torch.arange(t, device=x.device)[None, :]).clamp(0, t - 1)
+    ctx.set_output("Out", _take_time(x, idx))
+    ctx.set_seq_len("Out", length)
+
+
+def _compact(x, keep):
+    """Kept tokens of each row moved left in order, the rest 0 -> (out,
+    new lengths int32)."""
+    t = x.shape[1]
+    new_lens = keep.sum(dim=1).to(torch.int32)
+    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    gathered = x.gather(1, order)
+    mask = torch.arange(t, device=x.device)[None, :] < new_lens[:, None]
+    return torch.where(mask, gathered, torch.zeros_like(gathered)), new_lens
+
+
+@register_op("sequence_erase", doc="drop tokens; compacts left, repads")
+def _sequence_erase(ctx):
+    x = ctx.input("X")                     # [B, T] int tokens
+    tokens = torch.as_tensor(list(ctx.attr("tokens")), dtype=x.dtype,
+                             device=x.device)
+    lens = ctx.seq_len_of("X")
+    keep = (x[..., None] != tokens[None, None, :]).all(dim=-1)
+    if lens is not None:
+        keep = keep & (torch.arange(x.shape[1], device=x.device)[None, :]
+                       < lens[:, None])
+    out, new_lens = _compact(x, keep)
+    ctx.set_output("Out", out)
+    ctx.set_seq_len("Out", new_lens)
+
+
+@register_op("sequence_reshape")
+def _sequence_reshape(ctx):
+    x = ctx.input("X")                     # [B, T, D]
+    new_dim = ctx.attr("new_dim")
+    b, t, d = x.shape
+    ctx.set_output("Out", x.reshape(b, t * d // new_dim, new_dim))
+    lens = ctx.seq_len_of("X")
+    if lens is not None:
+        ctx.set_seq_len("Out", (lens * d) // new_dim)
+
+
+@register_op("sequence_concat", doc="concat sequences time-wise, packed "
+             "by each row's lengths")
+def _sequence_concat(ctx):
+    xs = ctx.inputs("X")                   # each [B, T_i, ...]
+    lens = [ctx.env.get(n + LEN_SUFFIX) for n in ctx.input_names("X")]
+    lens = [ln if ln is not None
+            else torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                            device=x.device)
+            for x, ln in zip(xs, lens)]
+    b = xs[0].shape[0]
+    t_out = sum(x.shape[1] for x in xs)
+    dev = xs[0].device
+    idx = torch.arange(t_out, device=dev)[None, :]
+    out = torch.zeros((b, t_out) + tuple(xs[0].shape[2:]),
+                      dtype=xs[0].dtype, device=dev)
+    start = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    for x, ln in zip(xs, lens):
+        rel = (idx - start).clamp(0, x.shape[1] - 1)
+        sel = (idx >= start) & (idx < start + ln.long()[:, None])
+        vals = _take_time(x, rel)
+        out = torch.where(sel.reshape(sel.shape + (1,) * (vals.dim() - 2)),
+                          vals, out)
+        start = start + ln.long()[:, None]
+    ctx.set_output("Out", out)
+    ctx.set_seq_len("Out", sum(lens).to(torch.int32))
+
+
+@register_op("sequence_pad")
+def _sequence_pad(ctx):
+    """Already padded in this representation: X again, and its lengths."""
+    x = ctx.input("X")
+    ctx.set_output("Out", x)
+    lens = ctx.seq_len_of("X")
+    ctx.set_output("Length", lens if lens is not None else torch.full(
+        (x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device))
+
+
+@register_op("sequence_unpad")
+def _sequence_unpad(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+    ctx.set_seq_len("Out", ctx.input("Length").reshape(-1).to(torch.int32))
+
+
+@register_op("lstm_unit", doc="lstm_unit_op.cc: one fused cell step")
+def _lstm_unit(ctx):
+    x = ctx.input("X")                     # [B, 4H] pre-projected gates
+    c_prev = ctx.input("C_prev")
+    i, f, g, o = x.chunk(4, dim=-1)
+    c = (torch.sigmoid(f + ctx.attr("forget_bias", 0.0)) * c_prev
+         + torch.sigmoid(i) * torch.tanh(g))
+    ctx.set_output("C", c)
+    ctx.set_output("H", torch.sigmoid(o) * torch.tanh(c))
+
+
+@register_op("sequence_mask", doc="1/0 mask [B, T] from a sequence's "
+             "lengths")
+def _sequence_mask(ctx):
+    x = ctx.input("X")
+    lens = ctx.seq_len_of("X")
+    b, t = x.shape[0], x.shape[1]
+    ctx.set_output("Y", torch.ones((b, t), device=x.device) if lens is None
+                   else _time_mask(lens, t))
+
+
+@register_op("sequence_reverse",
+             doc="per-row time reversal that leaves the padding in place "
+                 "(reversed[t] = x[len-1-t] for t < len)")
+def _sequence_reverse(ctx):
+    x = ctx.input("X")                     # [B, T, ...]
+    lens = ctx.seq_len_of("X")
+    b, t = x.shape[0], x.shape[1]
+    pos = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    if lens is None:
+        idx = t - 1 - pos
+    else:
+        n = lens.reshape(b, 1).long()
+        idx = torch.where(pos < n, n - 1 - pos, pos)
+    ctx.set_output("Y", _take_time(x, idx))
+    ctx.set_seq_len("Y", lens)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,13 @@
 """Tensor creation and manipulation op rules (counterpart of
 ``paddle_tpu/ops/tensor_ops.py``): constants and casts, concat / split /
-stack, shape changes, gather and scatter, ``one_hot``, padding, and the
-random rules.
+stack, shape changes, gather and scatter, ``one_hot``, padding,
+``lod_reset``, and the random rules.
 
 Dtypes: a declared dtype is kept as declared (``int64`` stays int64: the
 port runs with 64-bit integers, where the JAX package canonicalizes them
 to int32); an integer a rule chooses follows the JAX rule (``shape`` and
 ``sampling_id`` give int32).  Indices widen to int64 only at a gather or
-scatter.  Every tensor a rule creates is made on the executor's device.
-``lod_reset`` waits for the LoD ops."""
+scatter.  Every tensor a rule creates is made on the executor's device."""
 from __future__ import annotations
 
 import math
@@ -290,7 +289,7 @@ def _uniform(shape, lo, hi, dtype, g, device):
     return u * (hi - lo) + lo
 
 
-@register_op("uniform_random")
+@register_op("uniform_random", draws_rng=True)
 def _uniform_random(ctx):
     ctx.set_output("Out", _uniform(tuple(ctx.attr("shape")),
                                    ctx.attr("min", -1.0),
@@ -298,7 +297,7 @@ def _uniform_random(ctx):
                                    _generator(ctx), ctx.device))
 
 
-@register_op("uniform_random_batch_size_like")
+@register_op("uniform_random_batch_size_like", draws_rng=True)
 def _uniform_random_bsl(ctx):
     ctx.set_output("Out", _uniform(_batch_size_like_shape(ctx),
                                    ctx.attr("min", -1.0),
@@ -311,13 +310,13 @@ def _normal(ctx, shape, g):
     return ctx.attr("mean", 0.0) + ctx.attr("std", 1.0) * n
 
 
-@register_op("gaussian_random")
+@register_op("gaussian_random", draws_rng=True)
 def _gaussian_random(ctx):
     ctx.set_output("Out", _normal(ctx, tuple(ctx.attr("shape")),
                                   _generator(ctx)))
 
 
-@register_op("gaussian_random_batch_size_like")
+@register_op("gaussian_random_batch_size_like", draws_rng=True)
 def _gaussian_random_bsl(ctx):
     ctx.set_output("Out", _normal(ctx, _batch_size_like_shape(ctx),
                                   ctx.next_rng()))
@@ -328,7 +327,7 @@ _PHI_LO, _PHI_HI = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0)))
                     for b in (-2.0, 2.0))
 
 
-@register_op("truncated_gaussian_random")
+@register_op("truncated_gaussian_random", draws_rng=True)
 def _truncated_gaussian_random(ctx):
     """mean + std * N(0, 1) truncated to [-2, 2], by the inverse CDF of a
     uniform draw between the bounds' CDF values (as
@@ -340,7 +339,7 @@ def _truncated_gaussian_random(ctx):
                            * z).to(_dtype(ctx)))
 
 
-@register_op("sampling_id")
+@register_op("sampling_id", draws_rng=True)
 def _sampling_id(ctx):
     """One id a row of probabilities X [batch, n], int32: the Gumbel-max
     draw over log(max(x, 1e-20)) that ``jax.random.categorical`` makes."""
@@ -352,3 +351,12 @@ def _sampling_id(ctx):
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
     ctx.set_output("Out", torch.argmax(logits + gumbel, dim=-1
                                        ).to(torch.int32))
+
+
+@register_op("lod_reset", doc="lod_reset_op.cc: replace the sequence-length "
+             "companion")
+def _lod_reset(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+    y = ctx.input("Y")
+    if y is not None:
+        ctx.set_seq_len("Out", y)

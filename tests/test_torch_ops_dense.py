@@ -156,7 +156,11 @@ def _assert_close(name, got, want, tol):
                                 f"{tol} x {scale:.3g}")
 
 
-PARITY_SPECS = [s for s in SPECS if OpRegistry.has(s.op)]
+#: rules whose draws the port cannot match (torch's generator, not
+#: threefry): held by their samples in test_torch_structured_ops.py
+SAMPLED = {"nce"}
+PARITY_SPECS = [s for s in SPECS if OpRegistry.has(s.op)
+                and s.op not in SAMPLED]
 
 
 def _ids(specs):
@@ -332,28 +336,43 @@ ELSEWHERE = {
         "ftrl", "proximal_gd", "proximal_adagrad", "average_accumulates")},
     "check_finite_and_unscale": "test_torch_mixed_precision.py",
     "update_loss_scaling": "test_torch_mixed_precision.py",
+    **{op: "test_torch_control_flow.py" for op in (
+        "while", "conditional_block", "if_else", "parallel_do",
+        "write_to_array", "read_from_array", "array_length", "print",
+        "lod_rank_table", "max_sequence_len", "lod_tensor_to_array",
+        "array_to_lod_tensor")},
+    **{op: "test_torch_sequence_ops.py" for op in (
+        "sequence_erase", "sequence_mask", "beam_search",
+        "beam_search_decode", "beam_init_scores")},
+    **{op: "test_torch_structured_ops.py" for op in (
+        "crf_decoding", "edit_distance", "chunk_eval", "ctc_align", "nce",
+        "cross_entropy_over_beam", "print_grad", "seq_text_printer",
+        "lod_array_length", "delete_var")},
 }
 
 
 def test_dense_coverage_accounting():
     """Every rule the port registers is held against the JAX rule by
     test_op_parity (forward and @GRAD), held forward-only here, or held
-    by a named port test file; the four dense families are complete
-    apart from lod_reset, im2sequence and row_conv."""
+    by a named port test file; the dense families and the sequence, LoD,
+    beam, control, array and CRF families are complete."""
     registered = set(OpRegistry.registered_ops())
     parity = {s.op for s in PARITY_SPECS}
     unaccounted = registered - parity - NO_GRAD_PATH - set(ELSEWHERE)
     assert not unaccounted, f"unaccounted rules: {sorted(unaccounted)}"
     assert not (NO_GRAD_PATH | set(ELSEWHERE)) - registered
-    assert len(registered) >= 142, len(registered)
+    assert not parity & set(ELSEWHERE), parity & set(ELSEWHERE)
+    assert len(registered) >= 204, len(registered)
     from paddle_tpu.core.registry import OpRegistry as JaxRegistry
     import inspect
-    families = ("math_ops.py", "tensor_ops.py", "logic_ops.py", "nn_ops.py")
+    families = ("math_ops.py", "tensor_ops.py", "logic_ops.py", "nn_ops.py",
+                "sequence_ops.py", "lod_ops.py", "beam_ops.py",
+                "control_ops.py", "array_ops.py", "crf_ops.py")
     missing = sorted(
         n for n in JaxRegistry.registered_ops()
         if inspect.getsourcefile(JaxRegistry.get(n).fn).endswith(families)
         and n not in registered)
-    assert missing == ["im2sequence", "lod_reset", "row_conv"], missing
+    assert missing == [], missing
 
 
 # ---------------------------------------------------------------------------
