@@ -15,6 +15,8 @@
                                       # phase 17's bf16 shapes, phase 17
     python3 chip_smoke.py --seq2seq   # phase 1, the seq2seq shapes of
                                       # phase 3, phases 19 and 20
+    python3 chip_smoke.py --xent      # phase 1, softmax cross-entropy's
+                                      # phase 3
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -36,10 +38,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flash, LayerNorm, BatchNorm and recurrent backward kernels and the GRU
    forward must repeat bit for bit, and the flash, LSTM and GRU libraries
    must hold tensor-core instructions (HMMA in cuobjdump -sass), the GRU
-   forward kernel in its own machine code; the row-stable product of
-   exact decode must equal its plain version bit for bit at the exact
-   LM's shapes (M 4, 2048, 8192) and give a row the same bits at M 1 and
-   8192 (cuBLAS's addmm is recorded for the same row);
+   forward kernel in its own machine code; softmax cross-entropy also
+   on rows of -inf (lse -inf), labels -1 and V and rows that start off a
+   16-byte boundary (V 30001, 1001), timed at the LM's R8192 V8192 and
+   the seq2seq head's R3200 V30000 in f32 and bf16 (a device reading
+   under the bound of a call too large for the L2 is reported as a
+   broken measurement, not a time); the row-stable product of exact
+   decode must equal its plain version bit for bit at the exact LM's
+   shapes (M 4, 2048, 8192; the decode shapes also at M 1 and on both
+   sides of the small-M tile code's limit), each through the tile code
+   the wrapper names, and give a row the same bits at M 1 (small-M code)
+   and inside 8192 (the 128 x 128 code) at each recompute shape (cuBLAS's
+   addmm is recorded for the same row); the four decode products are
+   timed with cold weights beside the bytes bound and the FADD chain's
+   floor, and the small-M code at each strip width and the 128 x 128
+   code at M 4-64;
 4. serve the full-width transformer LM (vocab 32000, 12 layers, d_model
    768, 12 heads, d_ff 3072; seeded random weights saved as a model
    directory and loaded through DecodeEngine.from_model_dir) in bf16
@@ -110,8 +123,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tokens each, then the 1000-token prompt again: every token's logits
    bitwise greedy_decode_full(numerics="exact"), the hot stream's bitwise
    the cold one's; the flash forward, LayerNorm forward and row-stable
-   product launched.  int8 decode: 8 requests of 64 new tokens on 8
-   slots, two streams against the int8 full recompute by phase 4's rule;
+   product launched, the decode steps' products through the small-M tile
+   code and the recompute's layer products through the 128 x 128 one.
+   int8 decode: 8 requests of 64 new tokens on 8 slots, two streams
+   against the int8 full recompute by phase 4's rule;
    paged attention, the flash forward and the LayerNorm forward launched;
    tokens/s and step p50 beside phase 4's.  The recommender of
    bench.py:788-810 (V 100000, D 64, T 64, sequence_pool sum, fc 128
@@ -206,7 +221,8 @@ row-stable product's phase 3 and phase 13; with --vgg phase 1, the
 BatchNorm backward's checks and timings and phases 14-16; with
 --amp-train phase 1 and phase 17; with --seq2seq phase 1, the LSTM and
 softmax cross-entropy checks and timings at the seq2seq shapes and
-phases 19 and 20.  Each prints its
+phases 19 and 20; with --xent phase 1 and the softmax cross-entropy
+checks and timings of phase 3.  Each prints its
 results as one JSON line (no result line): run from two checkouts in
 turns, it compares two versions of those kernels on one card.  In these
 modes a recurrent kernel that refuses a width it should place is
@@ -230,6 +246,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: "float32" is the CUDA cores' rate; "float32_3xtf32" that of an f32
 #: product on the tensor cores as three TF32 products (the flash kernels)
 MEM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12,
             "float32_3xtf32": 495e12 / 3}
 #: stated tolerances of kernel vs plain version.  Every kernel accumulates
@@ -598,6 +615,15 @@ def _kernel_times(rec, kernel, plain, library, nbytes, ops, dtype, shape,
     f32 = tensor_cores and dtype == "float32"
     rec["bound_ms"], rec["bound_by"] = _bound(
         nbytes, ops, "float32_3xtf32" if f32 else dtype)
+    # no call can beat its bound; a bytes bound holds only for inputs that
+    # do not fit the L2 between calls
+    if rec["bound_by"] == "operations" or nbytes > L2_BYTES:
+        for key in ("device_ms", "library_device_ms"):
+            if rec[key] is not None and rec[key] < rec["bound_ms"]:
+                print(f"  {shape}: {key} {rec[key]:.5f} is under the bound "
+                      f"{rec['bound_ms']:.5f}: a broken measurement, not a "
+                      "time", flush=True)
+                rec[key + "_broken"], rec[key] = rec[key], None
     if f32:
         rec["bound_cuda_core_ms"] = _bound(nbytes, ops, "float32")[0]
     rec["shape"] = shape
@@ -1028,7 +1054,39 @@ def check_layer_norm_bwd(rec):
                     rec["bf16"] = t
 
 
+#: softmax cross-entropy in phase 3: (R, V, kind) checked in f32 and bf16
+#: ("edges": rows of +-1e4, a row of -inf, labels -1 and V; V 30001 and
+#: 1001 also start most rows off a 16-byte boundary in both dtypes), and
+#: the timed shapes, (R, V) of the LM (phase 5 f32, phase 17 bf16) and of
+#: the seq2seq head (phase 19), timed in both dtypes; the first in f32 is
+#: the kernel's row in the JSON line
+XENT_CASES = ((8192, 8192, "random"), (3200, 30000, "random"),
+              (64, 1000, "random"), (64, 8192, "edges"),
+              (64, 30001, "edges"), (64, 1001, "edges"))
+XENT_TIMED = ((8192, 8192), (3200, 30000))
+
+
+def _xent_inputs(r, v, kind, dtype, g, dev):
+    """Seeded logits [R, V], labels (two out of range) and dloss."""
+    import torch
+    x = 2 * torch.randn(r, v, generator=g)
+    lab = torch.randint(0, v, (r,), generator=g)
+    if kind == "edges":
+        x[::2, ::3] = 1e4           # rows that saturate the exp
+        x[1::2, 1::5] = -1e4
+        x[7] = -math.inf            # no term: lse -inf (label out of range)
+        x[9, ::2] = -math.inf
+        lab[7] = v
+    lab[3], lab[5] = -1, v          # out of range: gold 0
+    return (x.to(dev, dtype), lab.to(dev, torch.int32),
+            torch.rand(r, generator=g).to(dev))
+
+
 def check_softmax_xent(rec_fwd, rec_bwd):
+    """Both softmax cross-entropy kernels against their plain versions at
+    XENT_CASES, then timed at XENT_TIMED in f32 and bf16 beside
+    F.cross_entropy (forward, and its backward through autograd) into
+    ``rec[...]["shapes"]``."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
@@ -1036,85 +1094,179 @@ def check_softmax_xent(rec_fwd, rec_bwd):
     dev = torch.device("cuda")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        for r, v, extreme in ((8192, 8192, False), (64, 1000, False),
-                              (64, 8192, True)):
-            x = (2 * torch.randn(r, v, generator=g))
-            if extreme:     # +-1e4 logits, rows that saturate the exp
-                x[::2, ::3] = 1e4
-                x[1::2, 1::5] = -1e4
-            x = x.to(dev, dtype)
-            lab = torch.randint(0, v, (r,), generator=g)
-            lab[3], lab[5] = -1, v          # out of range: gold 0
-            lab = lab.to(dev, torch.int32)
-            dl = torch.rand(r, generator=g).to(dev)
+        for r, v, kind in XENT_CASES:
+            x, lab, dl = _xent_inputs(r, v, kind, dtype, g, dev)
             loss, lse = K.softmax_xent_fwd(x, lab)
             rloss, rlse = K.softmax_xent_fwd_plain(x, lab)
             dx = K.softmax_xent_bwd(x, lab, lse, dl)
             rdx = K.softmax_xent_bwd_plain(x, lab, lse, dl)
             torch.cuda.synchronize()
-            label = f"R{r} V{v}" + (" +-1e4" if extreme else "")
+            label = f"R{r} V{v}" + ("" if kind == "random" else f" {kind}")
+            if kind == "edges" and not bool(torch.isneginf(lse[7])):
+                raise AssertionError(f"softmax_xent_fwd {label} {dn}: a row "
+                                     f"of -inf gave lse {float(lse[7])}")
             _check("softmax_xent_fwd", [(loss, rloss), (lse, rlse)], dn,
                    label, rec_fwd)
+            if kind == "edges":
+                # the row of -inf has no gradient: exp(-inf - lse) with lse
+                # -inf is NaN in the kernel and the plain version alike
+                if not (bool(torch.isnan(dx[7]).all())
+                        and bool(torch.isnan(rdx[7]).all())):
+                    raise AssertionError(f"softmax_xent_bwd {label} {dn}: "
+                                         "the row of -inf is not NaN in both")
+                keep = torch.arange(r, device=dev) != 7
+                dx, rdx = dx[keep], rdx[keep]
             _check("softmax_xent_bwd", [(dx, rdx)], dn, label, rec_bwd)
-            if dtype is torch.float32 and (r, v, extreme) == (8192, 8192,
-                                                              False):
-                shape = f"R{r} V{v} f32"
-                # the library asserts on a label outside [0, V): it is
-                # timed on the in-range labels
-                lab64 = lab.long().clamp(0, v - 1)
-                _kernel_times(
-                    rec_fwd, lambda: K.softmax_xent_fwd(x, lab),
-                    lambda: K.softmax_xent_fwd_plain(x, lab),
-                    lambda: F.cross_entropy(x, lab64, reduction="none"),
-                    r * v * 4 + r * 4 + 2 * r * 4, 4 * r * v, dn, shape)
-                xx = x.detach().requires_grad_(True)
-                lib = F.cross_entropy(xx, lab64, reduction="none")
-                _kernel_times(
-                    rec_bwd, lambda: K.softmax_xent_bwd(x, lab, lse, dl),
-                    lambda: K.softmax_xent_bwd_plain(x, lab, lse, dl),
-                    lambda: torch.autograd.grad(lib, (xx,), dl,
-                                                retain_graph=True),
-                    2 * r * v * 4 + 3 * r * 4, 4 * r * v, dn, shape)
+            if (r, v) not in XENT_TIMED:
+                continue
+            shape = f"R{r} V{v} {dn}"
+            eb = x.element_size()
+            # the library asserts on a label outside [0, V): it is timed
+            # on the in-range labels
+            lab64 = lab.long().clamp(0, v - 1)
+            fwd = _kernel_times(
+                {}, lambda: K.softmax_xent_fwd(x, lab),
+                lambda: K.softmax_xent_fwd_plain(x, lab),
+                lambda: F.cross_entropy(x, lab64, reduction="none"),
+                r * v * eb + r * 4 + 2 * r * 4, 4 * r * v, dn, shape)
+            xx = x.detach().requires_grad_(True)
+            lib = F.cross_entropy(xx, lab64, reduction="none")
+            bwd = _kernel_times(
+                {}, lambda: K.softmax_xent_bwd(x, lab, lse, dl),
+                lambda: K.softmax_xent_bwd_plain(x, lab, lse, dl),
+                lambda: torch.autograd.grad(lib, (xx,), dl,
+                                            retain_graph=True),
+                2 * r * v * eb + 3 * r * 4, 4 * r * v, dn, shape)
+            for rec, t in ((rec_fwd, fwd), (rec_bwd, bwd)):
+                rec.setdefault("shapes", {})[shape] = t
+                if (r, v, dtype) == (*XENT_TIMED[0], torch.float32):
+                    rec.update(t)
+            del x, xx, lib, dx, rdx
 
 
 #: the row-stable product's cases: the exact LM's products (FULL_WIDTH,
 #: 4 slots) at decode's M = 4, prefill's M = 2048 and the recompute's
 #: M = 4 x 2048, as (M, K, N, label); the timed one is the recompute's
-#: first FFN product
-MM_CASES = [(4, 768, 2304, "decode QKV"), (4, 3072, 768, "decode FFN2"),
-            (4, 768, 32000, "decode head"), (2048, 768, 3072,
-                                             "prefill FFN1"),
+#: first FFN product.  `_mm_cases` adds each decode shape at M = 1 and on
+#: both sides of the small-M tile code's limit
+MM_CASES = [(4, 768, 2304, "decode QKV"), (4, 768, 3072, "decode FFN1"),
+            (4, 3072, 768, "decode FFN2"), (4, 768, 32000, "decode head"),
+            (2048, 768, 3072, "prefill FFN1"),
             (8192, 768, 2304, "recompute QKV"),
             (8192, 768, 3072, "recompute FFN1"),
             (8192, 3072, 768, "recompute FFN2"), (5, 12, 8, "ragged")]
 MM_TIMED = "recompute FFN1"
-MM_TIMED_DECODE = "decode head"
+#: the decode step's products, each timed with its weights read cold:
+#: the launches rotate over copies of w that together pass MM_COLD_BYTES,
+#: three times the 50 MB L2, as the decode step's 37 products do
+MM_TIMED_DECODE = ("decode QKV", "decode FFN1", "decode FFN2", "decode head")
+MM_COLD_BYTES = 150e6
+#: the small-M code at each strip width and the 128 x 128 code, timed
+#: against each other (device ms, cold weights) at the decode shapes, the
+#: layers' ones also at M 16 and 64, to place kernels.ROW_STABLE_SMALL_M
+#: and the strip rule of kernels.row_stable_mm_geometry
+MM_SWEEP = (((768, 2304), "QKV", (4, 16, 64)), ((768, 3072), "FFN1",
+                                                (4, 16, 64)),
+            ((3072, 768), "FFN2", (4, 16, 64)), ((768, 32000), "head", (4,)))
+MM_SWEEP_STRIPS = (8, 16, 32, 0)
+#: one dependent f32 add: the FADD latency in cycles on Hopper
+FADD_CYCLES = 4
+
+
+def _mm_cases(small_m):
+    """MM_CASES plus M = 1, small_m and small_m + 1 at each decode
+    shape."""
+    extra = [(m, k, n, f"{label} edge")
+             for _, k, n, label in MM_CASES if label.startswith("decode")
+             for m in (1, small_m, small_m + 1)]
+    return MM_CASES + extra
+
+
+def _sm_clock_ghz():
+    """The card's maximum SM clock (nvidia-smi), in GHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) / 1e3
+
+
+def _cold_weights(w, copies_bytes=MM_COLD_BYTES):
+    """An endless rotation over copies of ``w`` that together pass
+    ``copies_bytes`` (at least two), so that no launch finds its weights
+    in L2."""
+    import itertools
+    n = max(2, math.ceil(copies_bytes / (w.numel() * w.element_size())))
+    return itertools.cycle([w.clone() for _ in range(n)]), n
+
+
+def _tile_code_sweep(g, dev):
+    """Device ms of each MM_SWEEP_STRIPS code (0: the 128 x 128 code) at
+    each MM_SWEEP shape and M, cold weights, forcing the wrapper's
+    geometry; beside it the strip the wrapper picks."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    keep = K.row_stable_mm_geometry
+    sms = K._sm_count(0)
+    sweep = {}
+    try:
+        for (k, n), label, ms in MM_SWEEP:
+            w = (torch.randn(k, n, generator=g) / math.sqrt(k)).to(dev)
+            ws, _ = _cold_weights(w)
+            for m in ms:
+                x = torch.randn(m, k, generator=g).to(dev)
+                row = {"picked": keep(m, n, sms)}
+                for strip in MM_SWEEP_STRIPS:
+                    K.row_stable_mm_geometry = (
+                        lambda m_, n_, sms_, strip=strip: strip)
+                    row[f"strip {strip}" if strip else "128 x 128"] = \
+                        _device_ms(lambda: K.row_stable_mm(x, next(ws)))[0]
+                sweep[f"{label} M{m}"] = row
+                print(f"    {label} M{m} K{k} N{n}: device ms " + ", ".join(
+                    f"{key} {v:.4f}" if isinstance(v, float) else
+                    f"{key} {v}" for key, v in row.items()), flush=True)
+    finally:
+        K.row_stable_mm_geometry = keep
+    return sweep
 
 
 def check_row_stable_mm(rec):
     """The exact mode's product against its plain version, bit for bit
     (the plain version does the kernel's arithmetic: each multiply and
-    add rounded on its own, k in order), at every MM_CASES shape; a row
-    must give the same bits at M = 1 and inside M = 8192.  Timed at
-    MM_TIMED beside cuBLAS's addmm (TF32 off), whose bits for one row at
-    M = 1 and inside M = 8192 are recorded too: the reason the kernel
-    exists."""
+    add rounded on its own, k in order), at every `_mm_cases` shape, each
+    through the tile code `row_stable_mm_geometry` picks; a row must give
+    the same bits at M = 1 (the small-M code) and inside M = 8192 (the
+    128 x 128 code) at each recompute shape.  Timed at MM_TIMED beside cuBLAS's
+    addmm (TF32 off), whose bits for one row at M = 1 and inside M = 8192
+    are recorded too: the reason the kernel exists; and at each
+    MM_TIMED_DECODE shape with cold weights, beside addmm, the bytes bound
+    and the FADD chain's floor (K dependent adds of FADD_CYCLES at the
+    card's maximum SM clock).  Then every code at MM_SWEEP."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
     g = torch.Generator(device="cpu").manual_seed(17)
     dev = torch.device("cuda")
-    for m, k, n, label in MM_CASES:
+    ghz = _sm_clock_ghz()
+    paths = K.ROW_STABLE_MM.path_launches
+    for m, k, n, label in _mm_cases(K.ROW_STABLE_SMALL_M):
         x = torch.randn(m, k, generator=g).to(dev)
         w = (torch.randn(k, n, generator=g) / math.sqrt(k)).to(dev)
         b = (0.1 * torch.randn(n, generator=g)).to(dev)
+        strip = K.row_stable_mm_geometry(m, n, K._sm_count(0))
+        path = "small" if strip else "large"
+        before = paths[path]
         out = K.row_stable_mm(x, w, b)
         ref = K.row_stable_mm_plain(x, w, b)
         torch.cuda.synchronize()
+        if paths[path] != before + 1:
+            raise AssertionError(f"row_stable_mm {label}: the {path} code "
+                                 "was not counted")
         differ = int((out != ref).sum())
         err = float((out - ref).abs().max())
-        print(f"  row_stable_mm {label} M{m} K{k} N{n}: {differ} elements "
-              f"differ from the plain version (max_abs_err {err:.3e}; "
-              "the tolerance is bitwise)", flush=True)
+        print(f"  row_stable_mm {label} M{m} K{k} N{n} ({path} code"
+              + (f", strips of {strip}" if strip else "") + "): "
+              f"{differ} elements differ from the plain version "
+              f"(max_abs_err {err:.3e}; the tolerance is bitwise)",
+              flush=True)
         if differ:
             raise AssertionError(f"row_stable_mm {label}: not bitwise its "
                                  "plain version")
@@ -1130,24 +1282,36 @@ def check_row_stable_mm(rec):
                                      "differs between M=1 and M=8192")
             same = bool(torch.equal(lib_one[0], lib_all[4321]))
             rec.setdefault("addmm_row_same_bits", {})[label] = same
-            print(f"    row 4321 at M=1 and inside M=8192: kernel same "
-                  f"bits; torch.addmm (cuBLAS, TF32 off) "
+            print(f"    row 4321 at M=1 (small code) and inside M=8192 "
+                  f"({path} code): kernel same bits; "
+                  f"torch.addmm (cuBLAS, TF32 off) "
                   f"{'same bits' if same else 'DIFFERENT bits'} (max "
                   f"{float((lib_one[0] - lib_all[4321]).abs().max()):.3e})",
                   flush=True)
+        nbytes = 4 * (m * k + k * n + n + m * n)
         if label == MM_TIMED:
             _kernel_times(rec, lambda: K.row_stable_mm(x, w, b),
                           lambda: K.row_stable_mm_plain(x, w, b),
                           lambda: torch.addmm(b, x, w),
-                          4 * (m * k + k * n + n + m * n), 2 * m * n * k,
-                          "float32", f"M{m} K{k} N{n} f32", plain_iters=2)
-        if label == MM_TIMED_DECODE:
-            rec["decode"] = _kernel_times(
-                {}, lambda: K.row_stable_mm(x, w, b),
-                lambda: K.row_stable_mm_plain(x, w, b),
-                lambda: torch.addmm(b, x, w),
-                4 * (m * k + k * n + n + m * n), 2 * m * n * k, "float32",
-                f"M{m} K{k} N{n} f32", plain_iters=2)
+                          nbytes, 2 * m * n * k, "float32",
+                          f"M{m} K{k} N{n} f32", plain_iters=2)
+        if label in MM_TIMED_DECODE:
+            ws, copies = _cold_weights(w)
+            t = _kernel_times(
+                {}, lambda: K.row_stable_mm(x, next(ws), b),
+                lambda: K.row_stable_mm_plain(x, next(ws), b),
+                lambda: torch.addmm(b, x, next(ws)),
+                nbytes, 2 * m * n * k, "float32",
+                f"M{m} K{k} N{n} f32, cold w ({copies} copies)",
+                plain_iters=2)
+            t["fadd_chain_floor_ms"] = k * FADD_CYCLES / ghz * 1e-6
+            print(f"    FADD chain floor {t['fadd_chain_floor_ms']:.5f} ms "
+                  f"(K {k} x {FADD_CYCLES} cycles at {ghz:.3f} GHz)",
+                  flush=True)
+            rec.setdefault("decode", {})[label] = t
+    print("  the tile codes and strips (cold weights):", flush=True)
+    rec["tile_code_sweep"] = _tile_code_sweep(g, dev)
+    rec["small_m"] = K.ROW_STABLE_SMALL_M
 
 
 def _recurrent_inputs(gates, t, b, h, lens, reverse, g):
@@ -1313,7 +1477,7 @@ def check_exchange_sizes(kind, rec_bwd, strict=True):
     library (not ``strict``) that sizes the buffer in Python."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = K._sm_count(0)
     try:
         query = K.rnn_exchange_floats
         query(kind, 0, 96, 5)
@@ -2124,6 +2288,7 @@ def _exact_decode(model_dir, seed, device, sync):
         sync()
         wall = time.perf_counter() - t0
         launches = {k.name: k.launches for k in K.KERNELS}
+        engine_paths = dict(K.ROW_STABLE_MM.path_launches)
         stats = engine.stats()
     finally:
         engine.close()
@@ -2135,6 +2300,17 @@ def _exact_decode(model_dir, seed, device, sync):
     for name in DM_KERNELS["exact"]:
         if launches[name] <= 0:
             raise AssertionError(f"exact decode never launched {name}")
+    # each decode step's products (QKV, FFN1, FFN2 a layer, and the head)
+    # run at M = DM_SLOTS: the small-M code; prefills longer than
+    # ROW_STABLE_SMALL_M rows the large one
+    per_step = 3 * FULL_WIDTH["n_layers"] + 1
+    counted = "row_stable_mm" in DM_KERNELS["exact"]
+    long_prefill = max(DM_EXACT_PROMPTS) > K.ROW_STABLE_SMALL_M
+    if counted and (engine_paths["small"] < per_step * len(steps)
+                    or (engine_paths["large"] > 0) != long_prefill):
+        raise AssertionError(f"exact decode: row_stable_mm codes "
+                             f"{engine_paths} for {len(steps)} decode steps "
+                             f"of {per_step} products")
     if stats["prefix"]["hits"] != 1:
         raise AssertionError(f"the repeated prompt missed the prefix cache: "
                              f"{stats['prefix']}")
@@ -2143,11 +2319,23 @@ def _exact_decode(model_dir, seed, device, sync):
                                                  cold[DM_HOT]["logits"])):
         raise AssertionError("the hot stream's logits are not bitwise the "
                              "cold stream's")
+    K.reset_launches()
     t0 = time.perf_counter()
     full = greedy_decode_full(engine.model, prompts, DM_EXACT_NEW,
                               capture_logits=True, numerics="exact")
     sync()
     full_s = time.perf_counter() - t0
+    # the recompute's layer products run at M = 4 x max_len: the 128 x 128
+    # code; its head reads one row a stream (M 4): the small-M code
+    recompute_paths = dict(K.ROW_STABLE_MM.path_launches)
+    n_full = full["dispatches"]
+    if counted and recompute_paths != {"small": n_full,
+                                       "large": (per_step - 1) * n_full}:
+        raise AssertionError(f"exact recompute: row_stable_mm codes "
+                             f"{recompute_paths} for {n_full} steps")
+    print(f"  exact: row_stable_mm launches by tile code: the engine's "
+          f"{len(steps)} decode steps and prefills {engine_paths}, the "
+          f"recompute {recompute_paths}", flush=True)
     compared = 0
     for i, r in enumerate(cold):
         if len(r["logits"]) != DM_EXACT_NEW or \
@@ -2170,6 +2358,8 @@ def _exact_decode(model_dir, seed, device, sync):
     profile = profile_decode_step(engine, steps)
     return launches, {"wall_s": wall, "step_ms": stats["step_ms"],
                       "tokens_bitwise": compared,
+                      "row_stable_paths": {"engine": engine_paths,
+                                           "recompute": recompute_paths},
                       "full_recompute_s": full_s,
                       "prefix_hits": stats["prefix"]["hits"],
                       "decode_step_profile": profile}
@@ -5140,6 +5330,16 @@ def decode_modes_ab(smi):
     return recs
 
 
+def xent_ab(smi):
+    """``--xent``: the softmax cross-entropy kernels' phase 3 checks and
+    timings only (XENT_CASES; XENT_TIMED in f32 and bf16)."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("softmax_xent",))
+    recs = {"softmax_xent_fwd": {}, "softmax_xent_bwd": {}}
+    check_softmax_xent(recs["softmax_xent_fwd"], recs["softmax_xent_bwd"])
+    return recs
+
+
 def ln_ab(smi):
     """``--ln``: the LayerNorm forward and backward kernels' phase 3
     checks and timings only."""
@@ -5221,7 +5421,7 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
             "--vgg-f32": vgg_f32_anatomy, "--amp-train": amp_train_ab,
-            "--seq2seq": seq2seq_ab}
+            "--seq2seq": seq2seq_ab, "--xent": xent_ab}
 
 
 def main(argv=()):
@@ -5408,7 +5608,9 @@ def main(argv=()):
             **({"amp_training_shape": r["amp_training"]}
                if "amp_training" in r else {}),
             **{key: r[key] for key in ("f32_w", "bf16_w", "bf16",
-                                       "chunked_rows", "decode") if key in r},
+                                       "chunked_rows", "decode", "shapes",
+                                       "tile_code_sweep", "small_m")
+               if key in r},
             **{key: v for key, v in r.items()
                if key.startswith("seq2seq_") and not key.startswith(
                    "seq2seq_launches")}})

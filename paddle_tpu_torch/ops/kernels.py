@@ -53,7 +53,9 @@ for a bf16 w, 3xTF32 for f32).  `row_stable_mm` is the exact decode
 path's product: each output element summed over k in one order with
 separately rounded multiplies and adds, so a row's bits do not depend on
 M (the plain version does the same arithmetic, so the two agree bit for
-bit).
+bit); a small-M tile code (a block a strip of columns over all rows)
+and a large-M one (128 x 128 tiles) share that arithmetic, and
+`row_stable_mm_geometry` picks between them by M and the strip by N.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it checks device, dtype, shape and contiguity, launches its
@@ -61,8 +63,10 @@ kernel on the current stream (no allocation inside the kernel, no
 synchronisation) and raises if the launch reports an error — there is no
 fallback.  Each launch adds one to the kernel's ``launches`` count
 (`KERNELS`), so a run can show that its main path went through the
-kernels.  The plain versions are what the CPU tests hold against the JAX
-package and what ``chip_smoke.py`` holds each kernel against on the card.
+kernels; a kernel with more than one tile code also counts each code's
+launches (``path_launches``).  The plain versions are what the CPU tests
+hold against the JAX package and what ``chip_smoke.py`` holds each
+kernel against on the card.
 They compute in f32, or in f64 for f64 inputs (``gradcheck``).
 
 `FlashAttention`, `LayerNorm`, `SoftmaxXent`, `BatchNormTrain`,
@@ -94,16 +98,18 @@ class Kernel:
     _count_lock = threading.Lock()
 
     def __init__(self, name: str, source: str, entry: str, replaces: str,
-                 argtypes):
+                 argtypes, paths: Tuple[str, ...] = ()):
         self.name = name
         self.source = source
         self.entry = entry
         self.replaces = replaces
         self.argtypes = argtypes
         self.launches = 0
+        #: launches by tile code, for a kernel with more than one
+        self.path_launches = dict.fromkeys(paths, 0)
         self._fn = None
 
-    def launch(self, *args):
+    def launch(self, *args, path: str = None):
         if self._fn is None:
             fn = getattr(_build.load(self.source), self.entry)
             fn.argtypes = self.argtypes
@@ -121,6 +127,8 @@ class Kernel:
                                f"error {rc}")
         with self._count_lock:
             self.launches += 1
+            if path is not None:
+                self.path_launches[path] += 1
 
 
 #: cudaErrorCooperativeLaunchTooLarge (its value since CUDA 10), returned
@@ -192,7 +200,7 @@ ROW_STABLE_MM = Kernel(
     "none (no Pallas kernel): the f32 dots of numerics='exact', which XLA "
     "CPU runs op by op (paddle_tpu/serving/decode_engine.py:54 "
     "_GenPredictor)",
-    [_P] * 4 + [_I] * 3 + [_P])
+    [_P] * 4 + [_I] * 4 + [_P], paths=("small", "large"))
 
 KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD,
            LAYER_NORM_FWD, LAYER_NORM_BWD, SOFTMAX_XENT_FWD,
@@ -208,6 +216,7 @@ def reset_launches():
     with Kernel._count_lock:
         for k in KERNELS:
             k.launches = 0
+            k.path_launches = dict.fromkeys(k.path_launches, 0)
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -499,13 +508,40 @@ def row_stable_mm_plain(x, w, bias=None):
     return acc if bias is None else acc.add_(bias.float())
 
 
+#: the row-stable product's small-M code (csrc/row_stable_mm.cu) takes
+#: M up to ROW_STABLE_SMALL_M rows, the most it holds (on the H100 it
+#: beats the 128 x 128 code at every M it takes: PERF.md), in strips of
+#: 8, 16 or 32 columns a block
+ROW_STABLE_SMALL_M = 64
+_ROW_STABLE_STRIPS = (32, 16, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def row_stable_mm_geometry(m: int, n: int, sms: int) -> int:
+    """The columns a block of `row_stable_mm` owns for an [M, N] output
+    on a card of ``sms`` SMs: 0 for the 128 x 128 code, above
+    ROW_STABLE_SMALL_M rows; for the small-M code (a block a strip of
+    columns over all rows) the widest strip that still gives half the SMs
+    a block.  Both codes do each element's arithmetic alike, so the
+    choice never moves a bit.  A wider strip reads each row of w in
+    longer runs (128 bytes at 32 columns), which an SM streams about
+    three times faster than 32-byte runs; a narrower one spreads a small
+    N over more SMs, which a long K needs (measured on the H100 with
+    ``row_stable_builds.py``: PERF.md)."""
+    if m > ROW_STABLE_SMALL_M:
+        return 0
+    return next((s for s in _ROW_STABLE_STRIPS if 2 * -(-n // s) >= sms),
+                _ROW_STABLE_STRIPS[-1])
+
+
 def row_stable_mm(x: torch.Tensor, w: torch.Tensor,
                   bias: torch.Tensor = None) -> torch.Tensor:
     """``x [M, K] . w [K, N] (+ bias [N])`` -> f32 ``[M, N]``, every
     element summed over k in one fixed order with separately rounded
     multiplies and adds: bit for bit `row_stable_mm_plain`, whatever M.
     On the card: f32, contiguous, 16-byte aligned, K and N multiples of
-    4."""
+    4; the tile code and strip by `row_stable_mm_geometry`, each code's
+    launches counted in ``ROW_STABLE_MM.path_launches``."""
     if x.device.type == "cpu":
         return row_stable_mm_plain(x, w, bias)
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1] or (
@@ -521,16 +557,19 @@ def row_stable_mm(x: torch.Tensor, w: torch.Tensor,
     if k % 4 or n % 4:
         raise ValueError(f"row_stable_mm: K={k} and N={n} must be "
                          "multiples of 4")
+    # the large code's grid holds a 128-row tile a block in y
     if m > 65535 * 128:
         raise ValueError(f"row_stable_mm: M={m} rows exceed the grid")
     tensors = (x, w) if bias is None else (x, w, bias)
     _check_cuda("row_stable_mm", *tensors)
     if (x.data_ptr() | w.data_ptr()) & 15:
         raise ValueError("row_stable_mm: x and w must be 16-byte aligned")
+    strip = row_stable_mm_geometry(m, n, _sm_count(x.get_device()))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     ROW_STABLE_MM.launch(x.data_ptr(), w.data_ptr(),
                          None if bias is None else bias.data_ptr(),
-                         out.data_ptr(), m, n, k, _stream(x))
+                         out.data_ptr(), m, n, k, strip, _stream(x),
+                         path="small" if strip else "large")
     return out
 
 

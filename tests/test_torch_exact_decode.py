@@ -15,8 +15,9 @@ test_precision_serving.py:48, and equal tokens up to a greedy choice that
 flips on a near tie of the JAX logits (top two within that tolerance:
 the bf16 activation stream's sums depend on the CPU's thread count),
 after which the streams part.  The row-stable product's plain version
-gives a row the same bits at M = 1, 7 and 64, which is what exact mode
-rests on.
+gives a row the same bits at M = 1, 7, 64 and on both sides of the M
+where the card switches tile codes, at K 96 and 3072, which is what
+exact mode rests on.
 """
 import numpy as np
 import pytest
@@ -80,21 +81,50 @@ def _engine(model_dir, **kw):
 # the row-stable product
 # ---------------------------------------------------------------------------
 
+def _row_stable_ms():
+    """M values around the card's switch between the small-M and the
+    large-M tile code (`K.ROW_STABLE_SMALL_M`), and 1, 7 and 64."""
+    small = K.ROW_STABLE_SMALL_M
+    return sorted({1, 7, small, small + 1, 64})
+
+
 @pytest.mark.parametrize("bias", [True, False])
-def test_row_stable_product_gives_a_row_the_same_bits_at_every_m(bias):
+@pytest.mark.parametrize("k", [96, 3072])
+def test_row_stable_product_gives_a_row_the_same_bits_at_every_m(bias, k):
+    """K 96, and 3072, the exact LM's FFN2 depth."""
+    ms = _row_stable_ms()
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((64, 96)).astype(np.float32))
-    w = torch.from_numpy(rng.standard_normal((96, 40)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((ms[-1], k)).astype(np.float32))
+    # sums of K terms keep the magnitude of K 96's
+    w = torch.from_numpy((rng.standard_normal((k, 40))
+                          * np.sqrt(96 / k)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal(40).astype(np.float32)) \
         if bias else None
-    rows = {m: K.row_stable_mm(x[64 - m:], w, b) for m in (1, 7, 64)}
+    rows = {m: K.row_stable_mm(x[ms[-1] - m:], w, b) for m in ms}
     for m, out in rows.items():
         assert out.dtype == torch.float32 and out.shape == (m, 40)
         # the last row of x is the last row of every product
-        assert torch.equal(out[-1], rows[64][-1]), m
+        assert torch.equal(out[-1], rows[ms[-1]][-1]), m
     want = x.double() @ w.double() + (0 if b is None else b.double())
-    np.testing.assert_allclose(rows[64].numpy(), want.numpy(), atol=1e-4,
-                               rtol=0)
+    np.testing.assert_allclose(rows[ms[-1]].numpy(), want.numpy(),
+                               atol=1e-4, rtol=0)
+
+
+def test_row_stable_product_switches_tile_code_above_small_m():
+    """The card's small-M code takes M up to ROW_STABLE_SMALL_M, the
+    128 x 128 code the rest, and its strip is the widest that gives half
+    the SMs a block (the H100's 132 SMs here); on the CPU neither
+    launches."""
+    small = K.ROW_STABLE_SMALL_M
+    assert [K.row_stable_mm_geometry(m, 32000, 132)
+            for m in (1, 4, small, small + 1, 8192)] == [32] * 3 + [0] * 2
+    # the exact LM's decode products: the head, QKV, FFN1, FFN2
+    assert [K.row_stable_mm_geometry(4, n, 132)
+            for n in (32000, 2304, 3072, 768)] == [32, 32, 32, 8]
+    assert K.ROW_STABLE_MM.path_launches == {"small": 0, "large": 0}
+    K.row_stable_mm(torch.ones(4, 8), torch.ones(8, 4))
+    assert K.ROW_STABLE_MM.launches == 0
+    assert K.ROW_STABLE_MM.path_launches == {"small": 0, "large": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -761,6 +761,115 @@ def test_softmax_xent_extreme_logits():
                                rtol=1e-5)
 
 
+# The forward kernel's arithmetic (csrc/softmax_xent.cu), modelled in
+# torch: a block of 256 threads a row; the elements before the row's first
+# 16-byte boundary and past its last whole vector as one first chunk of two
+# values a thread; then chunks of 32 values, thread t taking vectors
+# t + 256 u of each run of 256 * 32 / VEC vectors; per chunk one max and at
+# most one rescale of the thread's (m2, s) in base 2, each term
+# 2^fma(x, log2 e, -m2); a warp butterfly of the pairs, then warp 0's over
+# the 8 warps' pairs; lse = (m2 + log2 s) ln 2.
+_XENT_THREADS, _XENT_CHUNK = 256, 32
+_LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+_LN2 = torch.tensor(0.6931471805599453, dtype=torch.float32)
+
+
+def _fma32(a, b, c):
+    """f32 a * b + c with the product exact (in f64) and one rounding to
+    f32 (through f64: a model of FFMA, off by at most an ulp)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _xent_fold(m2, s, chunk):
+    """Fold each thread's chunk [threads, n] into its (m2, s)."""
+    cm = chunk.max(dim=1).values
+    ok = cm > -math.inf
+    cm2 = cm * _LOG2E
+    up = ok & (cm2 > m2)
+    s = torch.where(up, s * torch.exp2(m2 - cm2), s)
+    m2 = torch.where(up, cm2, m2)
+    terms = torch.exp2(_fma32(chunk, _LOG2E, -m2[:, None]))
+    for e in range(chunk.shape[1]):
+        s = torch.where(ok, s + terms[:, e], s)
+    return m2, s
+
+
+def _xent_butterfly(m2, s):
+    """The warp butterfly over each run of 32 lanes."""
+    lane = torch.arange(m2.shape[0])
+    for o in (16, 8, 4, 2, 1):
+        om2, os = m2[lane ^ o], s[lane ^ o]
+        mx = torch.maximum(m2, om2)
+        ok = mx > -math.inf
+        both = s * torch.exp2(m2 - mx) + os * torch.exp2(om2 - mx)
+        s, m2 = torch.where(ok, both, s), torch.where(ok, mx, m2)
+    return m2, s
+
+
+def _xent_fwd_kernel_model(x, lab):
+    """(loss, lse) as the forward kernel computes them, for a tensor whose
+    storage starts 16-byte aligned."""
+    r, v = x.shape
+    item = x.element_size()
+    vec = 16 // item
+    loads = _XENT_CHUNK // vec
+    t = torch.arange(_XENT_THREADS)
+    ninf = torch.full((_XENT_THREADS,), -math.inf)
+    loss, lse = torch.empty(r), torch.empty(r)
+    for i in range(r):
+        row = x[i].float()
+        head = min(v, (16 - i * v * item % 16) % 16 // item)
+        nvec = (v - head) // vec
+        tail0 = head + nvec * vec
+        chunks = [torch.stack([
+            torch.where(t < head, row[t.clamp(max=v - 1)], ninf),
+            torch.where(tail0 + t < v, row[(tail0 + t).clamp(max=v - 1)],
+                        ninf)], dim=1)]
+        body = row[head:tail0].reshape(nvec, vec)
+        for base in range(0, nvec, _XENT_THREADS * loads):
+            j = base + torch.arange(loads)[:, None] * _XENT_THREADS + t
+            vals = torch.where((j < nvec)[..., None],
+                               body[j.clamp(max=nvec - 1)], -math.inf)
+            chunks.append(vals.permute(1, 0, 2).reshape(_XENT_THREADS, -1))
+        m2, s = ninf.clone(), torch.zeros(_XENT_THREADS)
+        for chunk in chunks:
+            m2, s = _xent_fold(m2, s, chunk)
+        m2, s = _xent_butterfly(m2, s)
+        n_warps = _XENT_THREADS // 32
+        m2, s = _xent_butterfly(
+            torch.cat([m2[::32], torch.full((32 - n_warps,), -math.inf)]),
+            torch.cat([s[::32], torch.zeros(32 - n_warps)]))
+        lse[i] = (m2[0] + torch.log2(s[0])) * _LN2 \
+            if m2[0] > -math.inf else -math.inf
+        g = int(lab[i])
+        loss[i] = lse[i] - (row[g] if 0 <= g < v else 0.0)
+    return loss, lse
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,v", [(16, 30000), (7, 1001)])
+def test_softmax_xent_fwd_kernel_arithmetic_matches_pallas(dtype, r, v):
+    """The forward kernel's chunked base-2 online softmax stays within
+    F32_TOL of the Pallas kernel, on rows of +-1e4 logits, a row of -inf,
+    labels out of range and, at V 1001, rows whose starts are not 16-byte
+    aligned."""
+    rng = np.random.RandomState(15)
+    x = (3.0 * rng.randn(r, v)).astype(np.float32)
+    x[0, ::3], x[0, 1::5] = 1e4, -1e4      # saturates the exp
+    x[2, :] = -1e4
+    x[2, 7] = 1e4
+    x[3, :] = -np.inf                      # no term: lse -inf
+    x[4, ::2] = -np.inf
+    lab = rng.randint(0, v, r).astype(np.int32)
+    lab[1], lab[3] = -1, v                 # out of range: gold 0
+    jx, tx = _pair(x, dtype)
+    wloss, wlse = _sm_xent_pallas_fwd(jx, jnp.asarray(lab), interpret=True)
+    gloss, glse = _xent_fwd_kernel_model(tx, torch.from_numpy(lab))
+    assert np.isneginf(_np(glse)[3]) and np.isneginf(_np(wlse)[3])
+    _close(gloss, wloss, F32_TOL, rel=True)
+    _close(glse, wlse, F32_TOL, rel=True)
+
+
 # ---------------------------------------------------------------------------
 # BatchNorm training backward
 # ---------------------------------------------------------------------------
