@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-21
+    python3 chip_smoke.py             # the smoke run, phases 1-23
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -17,6 +17,8 @@
                                       # phase 3, phases 19 and 20
     python3 chip_smoke.py --xent      # phase 1, softmax cross-entropy's
                                       # phase 3
+    python3 chip_smoke.py --genprog   # phases 1 and 22, the generation
+                                      # Programs
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -207,6 +209,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
    While/IfElse/ConditionalBlock/ParallelDo, the arrays, the printers
    and cross_entropy_over_beam as programs of the port's layers with
    calc_gradient's @GRADs, nce by the JAX formula on its card samples;
+22. the generation Programs (build_generation_programs: the prefill and
+   decode steps over the paged KV cache as op rules on the port's
+   interpreter) of phase 4's LM, saved by save_generation_model with
+   seeded random weights and loaded into a Scope through io, served by
+   DecodeEngine(scope, spec).  Fast in bf16: phase 4's traffic (32
+   requests, prompts of 8..1024 tokens, 64 new tokens, 16 slots), launch
+   counts zeroed before and read after, paged attention, the flash
+   forward and the LayerNorm forward launched; the same prompts through
+   the TransformerLM engine (from_model_dir) in the same run, each
+   stream equal to it or parted on a near tie by phase 4's rule;
+   tokens/s, step p50 and TTFT of both engines, and one decode step of
+   each with every slot active profiled.  Exact in f32: phase 13's 4
+   slots over the 2048 span, prompts of 17, 300, 1000 and 1900 tokens, 8
+   new tokens each: every token's logits bitwise the exact full-recompute
+   program's row (transformer_lm_logits at T = max_len,
+   exact_lowering), the row-stable product through the small-M code in
+   decode and the 128 x 128 code in the prefills and the recompute, the
+   flash forward launched; whether the logits equal the TransformerLM
+   exact engine's bitwise is printed with the largest difference;
+23. the misc rules (S23_OP_CASES: ops/misc_ops.py's 19) as one-op
+   programs on the card against the CPU as phase 16 holds its rules,
+   with ties for the _with_index masks (equal) and roi_pool's rounding;
 then a JSON line with every ported kernel's launches, error and times,
 the card's name and power limit, and the last line:
 {"ok": true, "device": {...}}.
@@ -222,9 +246,10 @@ BatchNorm backward's checks and timings and phases 14-16; with
 --amp-train phase 1 and phase 17; with --seq2seq phase 1, the LSTM and
 softmax cross-entropy checks and timings at the seq2seq shapes and
 phases 19 and 20; with --xent phase 1 and the softmax cross-entropy
-checks and timings of phase 3.  Each prints its
-results as one JSON line (no result line): run from two checkouts in
-turns, it compares two versions of those kernels on one card.  In these
+checks and timings of phase 3; with --genprog phase 1 and phase 22.
+Each prints its results as one JSON line (no result line): run from two
+checkouts in turns, it compares two versions of those kernels on one
+card.  In these
 modes a recurrent kernel that refuses a width it should place is
 recorded, not fatal, so that an older kernel can be measured too.
 """
@@ -1767,10 +1792,11 @@ DECODE_GROUPS = {"paged attention": ("paged_",),
 
 
 def profile_decode_step(engine, steps, iters=20):
-    """One decode step of the served model under torch.profiler: the
-    step of the run nearest its middle at which every slot was active,
-    replayed on the engine's pools as the engine runs it (decode, argmax,
-    copy to the host).  Prints device ms by kernel and by group, launches
+    """One decode step of the served model (a TransformerLM or the
+    generation Programs) under torch.profiler: the step of the run
+    nearest its middle at which every slot was active, replayed on the
+    engine's pools as the engine runs it (decode, argmax, copy to the
+    host).  Prints device ms by kernel and by group, launches
     per step and the host idle share (1 - device time / the step's wall
     time, the median of ``iters`` unprofiled replays)."""
     import torch
@@ -1799,9 +1825,13 @@ def profile_decode_step(engine, steps, iters=20):
                                  ProfilerActivity.CUDA]) as prof:
             step()
             torch.cuda.synchronize()
+    # a profiler range (the predictor's "executor.run") also shows on the
+    # device's timeline: it spans kernels, it is none
+    ranges = {e.name for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
     kernels = [r for r in prof.key_averages()
                if r.device_type == torch.autograd.DeviceType.CUDA
-               and r.device_time_total > 0]
+               and r.device_time_total > 0 and r.key not in ranges]
     device_ms = sum(r.device_time_total for r in kernels) / 1e3
     n_launch = sum(r.count for r in kernels)
     positions = int(index.long().sum()) + len(index)
@@ -3616,9 +3646,9 @@ def _run_on(place, prog, feed, fetch):
 
 def _hold(label, got, want, tol):
     """Fail unless the card's fetch ``got`` equals the CPU's ``want`` (same
-    dtype and shape; integer and bool exactly; NaN where the CPU has NaN;
-    float within ``tol`` x max(1, max |want|)); returns the error's share
-    of the tolerance."""
+    dtype and shape; integer and bool exactly; NaN where the CPU has NaN,
+    the CPU's infinities; float within ``tol`` x max(1, max |want|) where
+    the CPU's is finite); returns the error's share of the tolerance."""
     import numpy as np
     got, want = np.asarray(got), np.asarray(want)
     if got.dtype != want.dtype or got.shape != want.shape:
@@ -3631,7 +3661,10 @@ def _hold(label, got, want, tol):
     g, w = got.astype(np.float64), want.astype(np.float64)
     if not np.array_equal(np.isnan(g), np.isnan(w)):
         raise AssertionError(f"{label}: NaN at other places")
-    ok = ~np.isnan(w)
+    inf = np.isinf(w)
+    if not np.array_equal(g[inf], w[inf]):
+        raise AssertionError(f"{label}: infinities differ")
+    ok = np.isfinite(w)
     if not ok.any():
         return 0.0
     share = float(np.abs(g[ok] - w[ok]).max()) / (
@@ -3724,7 +3757,7 @@ def op_rules_card_vs_cpu(seed=0):
                              "the probabilities")
     rules.add("sampling_id")
     missing = sorted(set(OpRegistry.registered_ops()) - rules
-                     - PHASE16_ELSEWHERE - S21_RULES)
+                     - PHASE16_ELSEWHERE - S21_RULES - S22_RULES - S23_RULES)
     if missing:
         raise AssertionError(f"rules phase 16 did not run: {missing}")
     worst = sorted(shares.items(), key=lambda kv: -kv[1])[:5]
@@ -5083,33 +5116,9 @@ def new_rules_card_vs_cpu(seed=0):
     port's layers (outputs and calc_gradient's @GRADs; parameters from
     one CPU startup), nce by the JAX formula on the samples the card
     drew.  Fails if a rule of S21_RULES ran in none of them."""
-    import zlib
     import paddle_tpu_torch as fluid
     shares, rules = {}, set()
-    for n, case in enumerate(S21_OP_CASES):
-        op = case["op"]
-        rng = np.random.default_rng(seed + zlib.crc32(f"{op}{n}".encode()))
-        arrays = {slot: [_case_array(s, rng) for s in
-                         (spec if isinstance(spec, list) else [spec])]
-                  for slot, spec in case["inputs"].items()}
-        prog, feed, outs, _ = _one_op_program(case, arrays)
-        cpu = _run_on(fluid.CPUPlace(), prog, feed, outs)
-        loss_slots = [f"o_{s.lower()}_"
-                      for s in (case["loss"] or case["outs"])]
-        floats = {o: a.shape for o, a in zip(outs, cpu)
-                  if a.dtype.kind == "f"
-                  and any(o.startswith(s) for s in loss_slots)}
-        grads = []
-        if case["sums"] is not None and floats:
-            prog, feed, outs, grads = _one_op_program(case, arrays, floats)
-        fetch = outs + grads
-        want = _run_on(fluid.CPUPlace(), prog, feed, fetch)
-        got = _run_on(fluid.CUDAPlace(0), prog, feed, fetch)
-        tol = SUM_TOL if case["sums"] else F32_TOL
-        shares[f"{op} #{n}"] = max(
-            [_hold(f"{op} #{n} {name}", g, w, tol)
-             for name, g, w in zip(fetch, got, want)], default=0.0)
-        rules.add(op)
+    _op_cases_card_vs_cpu(S21_OP_CASES, seed, shares, rules)
     for name, build in _s21_programs().items():
         fluid.core.program.reset_default_programs()
         fetch, feed = build()
@@ -5225,6 +5234,408 @@ S21_RULES = frozenset((
     "hsigmoid"))
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the generation Programs through DecodeEngine(scope, spec)
+# ---------------------------------------------------------------------------
+
+#: fast decode through the Programs in bf16: GP_REQUESTS requests with
+#: prompts of GP_PROMPT tokens and GP_NEW new tokens each on GP_SLOTS
+#: slots (phase 4's traffic), also through the TransformerLM engine;
+#: exact decode in f32: phase 13's slots, span, prompts and new tokens
+GP_SLOTS, GP_REQUESTS, GP_NEW, GP_PROMPT = 16, 32, 64, (8, 1024)
+#: the kernels each Program engine must launch
+GP_KERNELS = {"fast": ("paged_attention", "flash_attention_fwd",
+                       "layer_norm_fwd"),
+              "exact": ("flash_attention_fwd", "layer_norm_fwd",
+                        "row_stable_mm")}
+
+
+def _save_generation_scope(model_dir, seed):
+    """FULL_WIDTH's seeded random weights saved by the port's
+    save_generation_model, then loaded into a Scope through the port's
+    io -> (spec, scope)."""
+    import shutil
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.models import transformer as PT
+    spec = PT.generation_spec(**FULL_WIDTH)
+    src = Scope()
+    for name, arr in PT.random_params(spec, seed).items():
+        src.set(name, arr)
+    shutil.rmtree(model_dir, ignore_errors=True)
+    PT.save_generation_model(model_dir, **FULL_WIDTH, scope=src, init=False)
+    scope = Scope()
+    with scope_guard(scope):
+        pio.load_inference_model(model_dir, None)
+    return spec, scope
+
+
+def _drive_engine(engine, prompts, max_new, sync, capture=False):
+    """Every prompt submitted at once; each decode step's (tokens, pages,
+    index) recorded for the profile.  Launch counts are zeroed just before
+    and read just after -> (results, stats, wall s, launches, row-stable
+    launches by tile code, steps)."""
+    from paddle_tpu_torch.ops import kernels as K
+    steps = []
+    decode = engine.model.decode
+    engine.model.decode = lambda *a, **k: (
+        steps.append((a[0], a[2], a[3])), decode(*a, **k))[1]
+    try:
+        sync()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        results = [h.result(timeout=900) for h in [
+            engine.submit(p, max_new, capture_logits=capture)
+            for p in prompts]]
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in K.KERNELS}
+        paths = dict(K.ROW_STABLE_MM.path_launches)
+        stats = engine.stats()
+    finally:
+        engine.close()
+        del engine.model.decode
+    for r in results:
+        if len(r["tokens"]) != max_new or r["finish_reason"] != "length":
+            raise AssertionError(f"stream ended early: {r['finish_reason']}"
+                                 f" after {len(r['tokens'])} tokens")
+    return results, stats, wall, launches, paths, steps
+
+
+def _parted_on_near_tie(model, prompt, tokens, step, token):
+    """The TransformerLM's full recompute of ``prompt + tokens[:step]``:
+    ``token`` within E2E_TOL of its top logit (phase 4's rule)?"""
+    import torch
+    seq = list(prompt) + list(tokens[:step])
+    with torch.inference_mode():
+        row = model(torch.tensor([seq], device=model.device),
+                    torch.tensor([len(seq) - 1], device=model.device))
+    row = row[0].float().cpu().numpy()
+    tol = E2E_TOL * max(1.0, float(np.abs(row).max()))
+    return float(row.max() - row[token]) <= tol
+
+
+def _fast_programs(model_dir, spec, scope, seed, device, sync):
+    """Phase 22's bf16 run: the Program engine and the TransformerLM
+    engine on the same prompts, streams held by phase 4's rule, each
+    decode step profiled with every slot active."""
+    from paddle_tpu_torch.serving.decode_engine import DecodeEngine
+    rng = np.random.default_rng(seed + 22)
+    prompts = [rng.integers(0, spec["vocab"], n).tolist()
+               for n in rng.integers(GP_PROMPT[0], GP_PROMPT[1] + 1,
+                                     GP_REQUESTS)]
+    runs = {}
+    for name, make in (
+            ("programs", lambda: DecodeEngine(
+                scope, spec, slots=GP_SLOTS, block_len=DM_BLOCK_LEN,
+                precision="bf16", device=device, warmup=True)),
+            ("module", lambda: DecodeEngine.from_model_dir(
+                model_dir, precision="bf16", slots=GP_SLOTS,
+                block_len=DM_BLOCK_LEN, device=device, warmup=True))):
+        t0 = time.perf_counter()
+        engine = make()
+        sync()
+        load_s = time.perf_counter() - t0
+        results, stats, wall, launches, _, steps = _drive_engine(
+            engine, prompts, GP_NEW, sync)
+        n_tok = sum(len(r["tokens"]) for r in results)
+        print(f"  {name} engine (bf16, loaded and warm in {load_s:.1f} s):"
+              f" {GP_REQUESTS} requests, {n_tok} tokens in {wall:.3f} s: "
+              f"{n_tok / wall:.1f} tokens/s; TTFT ms {stats['ttft_ms']}; "
+              f"step ms {stats['step_ms']}; prefills {stats['prefills']}, "
+              f"decode steps {stats['iterations']}; launches {launches}",
+              flush=True)
+        profile = profile_decode_step(engine, steps)
+        runs[name] = dict(results=results, launches=launches,
+                          model=engine.model, e2e={
+                              "tokens_per_s": n_tok / wall,
+                              "ttft_ms": stats["ttft_ms"],
+                              "step_ms": stats["step_ms"],
+                              "decode_step_profile": profile})
+    for k in GP_KERNELS["fast"]:
+        if runs["programs"]["launches"][k] <= 0:
+            raise AssertionError(f"the Program engine never launched {k}")
+    parted = 0
+    module = runs["module"]
+    for i, (r, want) in enumerate(zip(runs["programs"]["results"],
+                                      module["results"])):
+        step = next((j for j, (a, b) in enumerate(zip(r["tokens"],
+                                                      want["tokens"]))
+                     if a != b), None)
+        if step is None:
+            continue
+        if not _parted_on_near_tie(module["model"], prompts[i],
+                                   want["tokens"], step, r["tokens"][step]):
+            raise AssertionError(f"stream {i} token {step}: the Program "
+                                 "engine's token differs from the "
+                                 "TransformerLM engine's without a near "
+                                 "tie")
+        parted += 1
+    print(f"  {GP_REQUESTS - parted} of {GP_REQUESTS} streams equal to the "
+          f"TransformerLM engine's, {parted} parted on a near tie",
+          flush=True)
+    return runs["programs"]["launches"], {
+        "programs": runs["programs"]["e2e"], "module": module["e2e"],
+        "streams_parted_on_near_tie": parted}
+
+
+def _exact_programs(model_dir, spec, scope, seed, device, sync):
+    """Phase 22's exact run: every token's logits bitwise the exact
+    full-recompute program's row, the row-stable product through the
+    small-M code in decode and the 128 x 128 code in the recompute; the
+    TransformerLM exact engine's logits compared and printed."""
+    from paddle_tpu_torch.serving.decode_engine import (
+        DecodeEngine, _load_full_predictor, greedy_decode_full)
+    from paddle_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(seed + 13)
+    prompts = [rng.integers(0, spec["vocab"], n).tolist()
+               for n in DM_EXACT_PROMPTS]
+    engine = DecodeEngine(scope, spec, slots=DM_SLOTS,
+                          block_len=DM_BLOCK_LEN, numerics="exact",
+                          precision="f32", device=device, warmup=True)
+    results, stats, wall, launches, paths, steps = _drive_engine(
+        engine, prompts, DM_EXACT_NEW, sync, capture=True)
+    print(f"  exact programs: {len(prompts)} streams of {DM_EXACT_NEW} "
+          f"tokens in {wall:.3f} s; step ms {stats['step_ms']}, prefills "
+          f"{stats['prefills']}; launches {launches}", flush=True)
+    for k in GP_KERNELS["exact"]:
+        if launches[k] <= 0:
+            raise AssertionError(f"the exact Program engine never launched "
+                                 f"{k}")
+    # every fc of the programs is a mul: QKV, FFN1 and FFN2 a layer and the
+    # head; a decode step's at M = DM_SLOTS, a prefill's at M = max_len
+    per_step = 3 * spec["n_layers"] + 1
+    counted = "row_stable_mm" in GP_KERNELS["exact"]
+    want_paths = {"small": per_step * len(steps),
+                  "large": per_step * stats["prefills"]}
+    if counted and paths != want_paths:
+        raise AssertionError(f"exact programs: row_stable_mm codes {paths}, "
+                             f"want {want_paths}")
+    pred = _load_full_predictor(model_dir, spec, True, device=device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    full = greedy_decode_full(model_dir, prompts, DM_EXACT_NEW,
+                              capture_logits=True, predictor=pred)
+    sync()
+    full_s = time.perf_counter() - t0
+    recompute = dict(K.ROW_STABLE_MM.path_launches)
+    if counted and recompute != {"small": 0,
+                                 "large": per_step * full["dispatches"]}:
+        raise AssertionError(f"exact recompute program: row_stable_mm codes "
+                             f"{recompute}")
+    compared = 0
+    for i, r in enumerate(results):
+        if r["tokens"] != full["tokens"][i]:
+            raise AssertionError(f"exact stream {i}: tokens differ from the "
+                                 "exact full-recompute program")
+        for step, a in enumerate(r["logits"]):
+            b = full["logits"][step][i]
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"exact stream {i} (prompt {len(prompts[i])}) token "
+                    f"{step}: logits differ from the full-recompute program "
+                    f"by up to {float(np.abs(a - b).max()):.3e}")
+            compared += 1
+    print(f"  exact: {compared} tokens of {len(prompts)} streams (prompts "
+          f"{list(DM_EXACT_PROMPTS)}) bitwise the exact full-recompute "
+          f"program ({full['dispatches']} runs at [{len(prompts)}, "
+          f"{spec['max_len']}] in {full_s:.2f} s); row_stable_mm by tile "
+          f"code: decode and prefills {paths}, recompute {recompute}",
+          flush=True)
+    module = DecodeEngine.from_model_dir(
+        model_dir, numerics="exact", slots=DM_SLOTS, block_len=DM_BLOCK_LEN,
+        device=device, warmup=True)
+    mod_results = _drive_engine(module, prompts, DM_EXACT_NEW, sync,
+                                capture=True)[0]
+    diff = max(float(np.abs(a - b).max())
+               for r, m in zip(results, mod_results)
+               for a, b in zip(r["logits"], m["logits"]))
+    print(f"  exact: the TransformerLM exact engine's logits "
+          f"{'bitwise equal' if diff == 0 else 'differ'} (largest "
+          f"difference {diff:.3e})", flush=True)
+    return launches, {"wall_s": wall, "step_ms": stats["step_ms"],
+                      "tokens_bitwise": compared,
+                      "row_stable_paths": {"engine": paths,
+                                           "recompute": recompute},
+                      "full_recompute_s": full_s,
+                      "module_exact_max_abs_diff": diff}
+
+
+def generation_programs(seed=0, device="cuda"):
+    """Phase 22: the generation Programs at FULL_WIDTH through
+    DecodeEngine(scope, spec) on the port's interpreter, fast in bf16 and
+    exact in f32.  Returns (launches summed over the two Program engine
+    runs, results)."""
+    import torch
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    model_dir = os.path.join(HERE, "build", "genprog", "lm")
+    t0 = time.perf_counter()
+    spec, scope = _save_generation_scope(model_dir, seed)
+    print(f"  full-width LM saved by save_generation_model and loaded into "
+          f"a Scope: {time.perf_counter() - t0:.1f} s", flush=True)
+    fast_launches, fast = _fast_programs(model_dir, spec, scope, seed,
+                                         device, sync)
+    exact_launches, exact = _exact_programs(model_dir, spec, scope, seed,
+                                            device, sync)
+    launches = {k: fast_launches[k] + exact_launches[k]
+                for k in fast_launches}
+    return launches, {"fast_bf16": fast, "exact_f32": exact,
+                      "launches_fast": {k: fast_launches[k]
+                                        for k in GP_KERNELS["fast"]},
+                      "launches_exact": {k: exact_launches[k]
+                                         for k in GP_KERNELS["exact"]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the misc rules on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _ties(shape, seed):
+    """Values from {0, 1, 2} (most windows hold tied maxima) with one
+    plane of -inf."""
+    a = np.random.RandomState(seed).randint(0, 3, shape).astype(np.float32)
+    a[0, 0] = -np.inf
+    return a
+
+
+#: phase 23's one-op programs: SPECS' shapes, and inputs with ties for
+#: the _with_index masks and roi_pool's rounding
+S23_OP_CASES = (
+    [_op_case("minus", {"X": _u((2, 3)), "Y": _u((2, 3))}),
+     _op_case("l1_norm", {"X": _away((2, 3))}, sums=True),
+     _op_case("label_smooth", {"X": _u((2, 4), 0.0, 1.0)},
+              {"epsilon": 0.1}),
+     _op_case("modified_huber_loss",
+              {"X": _u((3, 1), -0.8, 0.8),
+               "Y": np.array([[1.], [0.], [1.]], np.float32)},
+              nodiff=("Y",), outs=("Out", "IntermediateVal"),
+              loss=("Out",)),
+     _op_case("multiplex", {"Ids": np.array([[0], [1], [1]], np.int32),
+                            "X": [_u((3, 4)), _u((3, 4))]}),
+     _op_case("crop", {"X": _u((3, 4)), "Y": np.zeros((2, 2), np.float32)},
+              {"offsets": [1, 1]}, nodiff=("Y",)),
+     _op_case("fill", {}, {"value": [1, -2, 3, 4, 5, 6], "shape": [2, 3],
+                           "dtype": "int32"}, sums=None),
+     _op_case("conv_shift", {"X": _u((2, 5)), "Y": _u((2, 3), -0.5, 0.5)},
+              sums=True),
+     _op_case("bilinear_tensor_product",
+              {"X": _u((2, 3)), "Y": _u((2, 4)),
+               "Weight": _u((5, 3, 4), -0.5, 0.5),
+               "Bias": _u((1, 5), -0.5, 0.5)}, sums=True),
+     _op_case("bilinear_interp", {"X": _u((2, 2, 3, 3))},
+              {"out_h": 6, "out_w": 5}),
+     _op_case("bilinear_interp", {"X": _u((2, 2, 3, 3))},
+              {"out_h": 1, "out_w": 4}),
+     _op_case("max_pool2d_with_index", {"X": _ties((2, 3, 7, 6), 23)},
+              {"ksize": [3, 3], "strides": [2, 1], "paddings": [1, 1]},
+              outs=("Out", "Mask"), sums=None),
+     _op_case("max_pool3d_with_index", {"X": _ties((1, 2, 4, 5, 6), 24)},
+              {"ksize": [2, 3, 2], "strides": [2, 1, 2],
+               "paddings": [1, 1, 0]}, outs=("Out", "Mask"), sums=None),
+     _op_case("unpool", {"X": _u((1, 2, 2, 2), 0.5, 1.5),
+                         "Indices": np.array([[[[0, 3], [12, 15]],
+                                               [[0, 3], [12, 15]]]],
+                                             np.int32)},
+              {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]})]
+    + [_op_case("spp", {"X": _u((1, 2, 5, 6))},
+                {"pyramid_height": 3, "pooling_type": t}, sums=True)
+       for t in ("max", "avg")]
+    + [_op_case("roi_pool",
+                {"X": _u((2, 2, 8, 8)),
+                 "ROIs": np.array([[1., 3., 5., 9.], [3., 1., 7., 5.],
+                                   [8., 8., 16., 16.], [0., 0., 1., 1.]],
+                                  np.float32),
+                 **({"RoisBatchId": np.array([0, 1, 1, 0], np.int32)}
+                    if bid else {})},
+                {"pooled_height": 3, "pooled_width": 2,
+                 "spatial_scale": 0.5}, nodiff=("ROIs",))
+       for bid in (True, False)]
+    + [_op_case("gru_unit", {"Input": _u((2, 12), -0.5, 0.5),
+                             "HiddenPrev": _u((2, 4), -0.5, 0.5),
+                             "Weight": _u((4, 12), -0.3, 0.3),
+                             "Bias": _u((1, 12), -0.2, 0.2)},
+                {"activation": 3, "gate_activation": "sigmoid"},
+                outs=("Gate", "ResetHiddenPrev", "Hidden"),
+                loss=("Hidden",), sums=True),
+       _op_case("lstmp", {"Input": _u((3, 5, 16), -0.5, 0.5),
+                          "Weight": _u((3, 16), -0.3, 0.3),
+                          "ProjWeight": _u((4, 3), -0.3, 0.3),
+                          "Bias": _u((1, 28), -0.2, 0.2)},
+                {"use_peepholes": True, "is_reverse": True},
+                outs=("Projection", "Cell"), loss=("Projection",),
+                seq_len={"Input": [5, 2, 4]}, sums=True),
+       _op_case("positive_negative_pair",
+                {"Score": np.array([[.9], [.1], [.3], [.7], [.7], [.3],
+                                    [.5], [.5]], np.float32),
+                 "Label": np.array([[2.], [1.], [3.], [1.], [2.], [1.],
+                                    [0.], [2.]], np.float32),
+                 "QueryID": np.array([[0], [0], [1], [1], [1], [1], [2],
+                                      [2]], np.int32),
+                 "Weight": _u((8, 1), 0.5, 2.0)},
+                outs=("PositivePair", "NegativePair", "NeutralPair"),
+                sums=None),
+       _op_case("scale_sub_region",
+                {"X": _u((2, 2, 3, 3)),
+                 "Indices": np.array([[1, 1, 1, 2, 1, 3], [2, 2, 2, 3, 2, 3]],
+                                     np.int32)},
+                {"value": 2.0}, nodiff=("Indices",))])
+#: the rules phase 23 holds (ops/misc_ops.py but sharding_constraint)
+S23_RULES = frozenset(c["op"] for c in S23_OP_CASES)
+#: the rules phase 22 runs through the generation Programs
+S22_RULES = frozenset(("kv_cache_write", "paged_attention",
+                       "pos_encoding_add", "batched_select"))
+
+
+def _op_cases_card_vs_cpu(cases, seed, shares, rules):
+    """Each case as a one-op program on the card and on the CPU (phase
+    16's rule): outputs and the input @GRADs of a weighted-sum loss, to
+    F32_TOL, or SUM_TOL for a case that sums, integer and bool outputs
+    exactly; the shares of the tolerance go into ``shares``, the ops
+    into ``rules``."""
+    import zlib
+    import paddle_tpu_torch as fluid
+    for n, case in enumerate(cases):
+        op = case["op"]
+        rng = np.random.default_rng(seed + zlib.crc32(f"{op}{n}".encode()))
+        arrays = {slot: [_case_array(s, rng) for s in
+                         (spec if isinstance(spec, list) else [spec])]
+                  for slot, spec in case["inputs"].items()}
+        prog, feed, outs, _ = _one_op_program(case, arrays)
+        cpu = _run_on(fluid.CPUPlace(), prog, feed, outs)
+        loss_slots = [f"o_{s.lower()}_"
+                      for s in (case["loss"] or case["outs"])]
+        floats = {o: a.shape for o, a in zip(outs, cpu)
+                  if a.dtype.kind == "f"
+                  and any(o.startswith(s) for s in loss_slots)}
+        grads = []
+        if case["sums"] is not None and floats:
+            prog, feed, outs, grads = _one_op_program(case, arrays, floats)
+        fetch = outs + grads
+        want = _run_on(fluid.CPUPlace(), prog, feed, fetch)
+        got = _run_on(fluid.CUDAPlace(0), prog, feed, fetch)
+        tol = SUM_TOL if case["sums"] else F32_TOL
+        shares[f"{op} #{n}"] = max(
+            [_hold(f"{op} #{n} {name}", g, w, tol)
+             for name, g, w in zip(fetch, got, want)], default=0.0)
+        rules.add(op)
+
+
+def misc_rules_card_vs_cpu(seed=0):
+    """Phase 23: the misc rules (S23_OP_CASES) on the card against the
+    CPU; ties in the _with_index rules must give equal masks.  Fails if a
+    rule of S23_RULES ran in none of them."""
+    shares, rules = {}, set()
+    _op_cases_card_vs_cpu(S23_OP_CASES, seed, shares, rules)
+    missing = sorted(S23_RULES - rules)
+    if missing:
+        raise AssertionError(f"rules phase 23 did not run: {missing}")
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  {len(shares)} one-op programs over {len(rules)} rules held; "
+          f"largest shares of the tolerance: {worst}", flush=True)
+    return {"cases": len(shares), "rules": len(rules),
+            "largest_share": worst[0][1]}
+
+
 def seq2seq_phases(smi, recs=None):
     """Phases 19 and 20 (with ``recs``, the kernels' records, their
     seq2seq launches are added there) -> (training launches, generation
@@ -5263,6 +5674,29 @@ def seq2seq_ab(smi):
     _, _, e2e = seq2seq_phases(smi, recs)
     recs["seq2seq"] = e2e
     return recs
+
+
+def genprog_phase(smi):
+    """Phase 22 with its heading and end-to-end line -> (launches of the
+    two Program engine runs, results)."""
+    print(f"phase 22: the generation Programs of the {FULL_WIDTH['n_layers']}"
+          "-layer d768 LM through DecodeEngine(scope, spec): bf16 fast "
+          "against the TransformerLM engine, f32 exact against the "
+          "full-recompute program", flush=True)
+    launches, e2e = generation_programs()
+    print(f"  end to end ({smi}): {json.dumps(e2e)}", flush=True)
+    return launches, e2e
+
+
+def genprog_ab(smi):
+    """``--genprog``: phase 22 alone, after building its four kernels."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("paged_attention", "flash_attention", "layer_norm",
+                      "row_stable_mm"))
+    launches, e2e = genprog_phase(smi)
+    return {"genprog": dict(e2e, launches={
+        k: launches[k] for k in set(GP_KERNELS["fast"])
+        | set(GP_KERNELS["exact"])})}
 
 
 def serving_ab(smi):
@@ -5421,7 +5855,8 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
             "--vgg-f32": vgg_f32_anatomy, "--amp-train": amp_train_ab,
-            "--seq2seq": seq2seq_ab, "--xent": xent_ab}
+            "--seq2seq": seq2seq_ab, "--xent": xent_ab,
+            "--genprog": genprog_ab}
 
 
 def main(argv=()):
@@ -5553,6 +5988,12 @@ def main(argv=()):
           "CRF rule on the card against the CPU", flush=True)
     print(f"  {json.dumps(new_rules_card_vs_cpu())}", flush=True)
 
+    gp_launches = genprog_phase(smi)[0]
+
+    print("phase 23: the misc rules on the card against the CPU",
+          flush=True)
+    print(f"  {json.dumps(misc_rules_card_vs_cpu())}", flush=True)
+
     kernels = []
     for k in K.KERNELS:
         r = recs[k.name]
@@ -5566,8 +6007,9 @@ def main(argv=()):
                          + fd_launches[k.name] + dm_launches[k.name]
                          + vgg_launches[k.name] + lenet_launches[k.name]
                          + amp_launches[k.name] + s2s_launches[k.name]
-                         + s2s_gen_launches[k.name]),
+                         + s2s_gen_launches[k.name] + gp_launches[k.name]),
             "launches_serving": serve_launches[k.name],
+            "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
             "launches_decode_modes": dm_launches[k.name],
             "launches_training": (train_launches[k.name]

@@ -42,14 +42,21 @@ Dead ops are skipped.  XLA drops what no output needs; an eager
 interpreter would run it.  Before a block runs, one backward pass over
 its ops marks an op live when one of its outputs is fetched, read by a
 later live op, read in a sub-block or persistable, or when it is an
-optimize-role, in-place, printing or control op, an op with no outputs,
-or a rule that draws from the executor's generator (skipping one would
-shift every later draw).  The rest do not run (a training program's
-unfetched inference head, say).  ``Interpreter.skip_dead_ops = False``
+optimize-role, in-place, printing or control op, a ``kv_cache_write``
+(it writes the KV pools in place, which a prefill that fetches only its
+logits must still see), an op with no outputs, or a rule that draws from
+the executor's generator (skipping one would shift every later draw).
+The rest do not run (a training program's unfetched inference head,
+say).  ``Interpreter.skip_dead_ops = False``
 runs every op, for measuring what the skip saves.
 
 ``calc_gradient`` may append several ``backward`` ops: the interpreter
 records up to the last live one, and each keeps the graph for the next.
+
+``Interpreter.memo`` holds what the rules of one run share: the KV-cache
+write plan, computed once for every ``kv_cache_write`` of a generation
+step (one host sync a step instead of one a layer).  It lives and dies
+with the run's interpreter.
 """
 from __future__ import annotations
 
@@ -182,6 +189,8 @@ class ExecContext:
 
 #: ops that always run: side effects the env does not show
 PRINT_OPS = {"print", "print_grad", "seq_text_printer"}
+#: ops that write an input tensor in place (the KV pools)
+WRITE_OPS = {"kv_cache_write"}
 #: attributes naming the sub-blocks a control op runs
 SUB_BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
 
@@ -204,6 +213,9 @@ class Interpreter:
         self.check_nan_inf = check_nan_inf
         self.needed = set()
         self.last_backward = None
+        #: values the rules of this run share, by a key of the rule's
+        #: choosing (module docstring)
+        self.memo: Dict[Any, Any] = {}
 
     def live_ops(self, block: Block) -> List[bool]:
         """Which ops of ``block`` run; also sets ``needed`` to the names a
@@ -219,7 +231,7 @@ class Interpreter:
             ins, outs = op.desc.input_names(), op.desc.output_names()
             control = any(k in op.desc.attrs for k in SUB_BLOCK_ATTRS)
             keep = (not self.skip_dead_ops or not outs or control
-                    or op.type in PRINT_OPS
+                    or op.type in PRINT_OPS or op.type in WRITE_OPS
                     or op.desc.attrs.get("op_role") == "optimize"
                     or OpRegistry.get(op.type).draws_rng
                     or any(n in needed for n in outs)

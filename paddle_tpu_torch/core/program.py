@@ -10,9 +10,16 @@ Ported as far as the training and serving programs need: sub-blocks (a
 DynamicRNN's step block, ``create_block``/``rollback``),
 ``clone(for_test=True)`` and ``prune(targets)`` (what
 ``io.save_inference_model`` exports) and `Variable`'s operator sugar.
-Like the JAX package's, the ``amp`` flag (default ``FLAGS.amp``) and the
-loss scaler's ``_loss_scaling`` marker are not part of the JSON, and an
-attribute's tuples come back from it as lists.  `Block.prepend_op` puts
+Like the JAX package's, the ``amp`` flag (default ``FLAGS.amp``), the
+``exact_lowering`` flag and the loss scaler's ``_loss_scaling`` marker
+are not part of the JSON, and an attribute's tuples come back from it as
+lists.
+
+``exact_lowering`` (default False; kept by ``clone`` and ``prune``) is
+the decode engine's ``numerics="exact"``.  The JAX package fences XLA's
+fusion with it; here it selects the kernels whose row results do not
+depend on the batch: ``mul`` runs the row-stable product kernel in f32
+and ``fused_attention`` the flash forward in f32.  `Block.prepend_op` puts
 an op first (the LR schedules' step counter).
 """
 from __future__ import annotations
@@ -369,6 +376,9 @@ class Program:
         self._seed = None            # program-level RNG seed
         self._op_role = "forward"    # forward | backward | optimize
         self._amp = FLAGS.amp        # bf16 compute on conv/matmul ops
+        #: row-stable kernels for every product and attention (module
+        #: docstring)
+        self.exact_lowering = False
         #: the loss scaler's var names (`optimizer.MixedPrecision`), read
         #: by the executor's non-finite check; None without a scaler
         self._loss_scaling = None

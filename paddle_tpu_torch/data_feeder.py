@@ -6,9 +6,14 @@ the reference's LoD) become a padded [batch, max_len, ...] array and a
 companion ``<name>@SEQ_LEN`` int32 length vector, the representation the
 executor reads.  Pad lengths are rounded up to powers of two (at least
 8), as the JAX feeder does to bound its recompilations, so both packages
-see the same arrays.  The JAX feeder's ``FLAGS_use_pinned_memory``
-staging waits for ``flags.py``; the executor copies the feed to the
-device.
+see the same arrays.
+
+Under ``FLAGS_use_pinned_memory`` the batch is staged on the feeder's
+place as the JAX feeder stages it on its device: `feed` returns tensors,
+on a CUDA place from pinned host copies copied ``non_blocking`` on the
+current stream (the host goes on batching while they travel), on the
+CPU as CPU tensors.  No place means the current card.  The executor
+takes tensors already on its device as they are.
 """
 from __future__ import annotations
 
@@ -17,8 +22,11 @@ from typing import Dict, Sequence
 import numpy as np
 
 from .core.lowering import LEN_SUFFIX
+from .core.place import resolve_device
 from .core.program import Variable
 from .core.types import convert_dtype
+from .flags import FLAGS
+from .reader.decorator import stage_to_device
 
 
 def _round_up_pow2(n: int, minimum: int = 8) -> int:
@@ -47,6 +55,10 @@ class DataFeeder:
                 out[var.name + LEN_SUFFIX] = lens
             else:
                 out[var.name] = self._stack_dense(col, dtype, var)
+        if FLAGS.use_pinned_memory:
+            device = resolve_device(None if self.place is None
+                                    else self.place.torch_device())
+            out = {k: stage_to_device(v, device) for k, v in out.items()}
         return out
 
     @staticmethod

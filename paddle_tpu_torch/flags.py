@@ -14,13 +14,13 @@ What each flag gates in the port:
 - ``benchmark``: ``Executor.run`` synchronizes the card before it
   returns, so wall-clock timers measure finished device work;
 - ``amp``: default of ``Program.amp``;
+- ``use_pinned_memory``: `DataFeeder.feed` stages the batch on its place
+  (pinned host copies, ``non_blocking`` copies to a card);
 - ``fault_points``: the spec `fault` arms at import.
 
 Flags without effect in the port (accepted so launchers keep parsing;
 ROADMAP queue C lists them):
 
-- ``use_pinned_memory``: `DataFeeder` hands back host arrays; pinned
-  staging is ``reader.device_prefetch``'s;
 - ``fraction_of_tpu_memory_to_use`` (alias
   ``fraction_of_gpu_memory_to_use``): the port leaves the caching
   allocator's limit alone;
@@ -87,7 +87,7 @@ FLAGS.define("check_nan_inf", _parse_bool, False,
 FLAGS.define("benchmark", _parse_bool, False,
              "Executor.run synchronizes the card before it returns")
 FLAGS.define("use_pinned_memory", _parse_bool, False,
-             "accepted; no effect in the port")
+             "DataFeeder.feed stages the batch on its place")
 FLAGS.define("fraction_of_tpu_memory_to_use", float, 0.0,
              "accepted; no effect in the port",
              aliases=("fraction_of_gpu_memory_to_use",))

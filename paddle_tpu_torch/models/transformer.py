@@ -1,12 +1,17 @@
 """Decoder-only transformer LM (counterpart of
 ``paddle_tpu/models/transformer.py``), in two forms:
 
-- the functions at the end of this module that build the training Program
-  (`transformer_lm_train_program` and the layers it calls), which emit
-  the JAX package's ops, names and shapes through the Fluid front end;
-- the generation model `TransformerLM`, an ``nn.Module`` that the decode
-  engine serves, and `save_generation_model`, which writes the artifact
-  both packages serve.
+- the functions at the end of this module that build Programs through
+  the Fluid front end, with the JAX package's ops, names and shapes: the
+  training Program (`transformer_lm_train_program` and the layers it
+  calls) and the generation Programs (`build_generation_programs`: the
+  bucketed prefill and the one-token decode step over the paged KV cache,
+  through the `KVCache` build handle), which ``DecodeEngine(scope,
+  spec)`` serves;
+- the generation model `TransformerLM`, an ``nn.Module`` that
+  ``DecodeEngine(model)`` and ``DecodeEngine.from_model_dir`` serve, and
+  `save_generation_model`, which writes the artifact both packages
+  serve.
 
 The model is the one the JAX package builds in ``transformer_lm_logits``
 and serves through ``transformer_lm_prefill_logits`` /
@@ -170,11 +175,12 @@ def random_params(spec: dict, seed: int = 0) -> Dict[str, np.ndarray]:
     return out
 
 
-class KVCache:
-    """One forward pass's view of the paged KV cache: the per-layer pool
-    pairs, the page table, the write start (``index``), the valid rows of
-    a prefill (``length``) and the write plan shared by every layer.
-    Each attention call takes the next layer's pools."""
+class PagedKVView:
+    """One `TransformerLM` forward pass's view of the paged KV cache: the
+    per-layer pool pairs, the page table, the write start (``index``), the
+    valid rows of a prefill (``length``) and the write plan shared by
+    every layer.  Each attention call takes the next layer's pools.  (The
+    generation Programs' build handle is `KVCache`.)"""
 
     def __init__(self, mode: str, pools: List[Tuple[torch.Tensor,
                                                     torch.Tensor]],
@@ -228,7 +234,7 @@ class DecoderLayer(nn.Module):
         for attr in self.MATRICES:
             self.register_buffer(attr + "_qscale", None)
 
-    def forward(self, x: torch.Tensor, cache: Optional[KVCache] = None,
+    def forward(self, x: torch.Tensor, cache: Optional[PagedKVView] = None,
                 exact: bool = False):
         b, t, d = x.shape
         attn = self_attention(x, _dequantized(self, "qkv_w"), self.qkv_b,
@@ -354,7 +360,7 @@ class TransformerLM(nn.Module):
         selects one, the same values at T times the head's cost."""
         b, t = tokens.shape
         index = torch.zeros(b, dtype=torch.int32, device=tokens.device)
-        cache = KVCache("prefill", pools, pages, index, t, length)
+        cache = PagedKVView("prefill", pools, pages, index, t, length)
         x = self._pos_add(self._embed(tokens))
         for layer in self.layers:
             x = layer(x, cache, exact)
@@ -366,7 +372,7 @@ class TransformerLM(nn.Module):
         positions ``index [S]`` -> next-token logits ``[S, V]``, appending
         each slot's K/V to the paged cache."""
         s = tokens.shape[0]
-        cache = KVCache("decode", pools, pages, index, 1)
+        cache = PagedKVView("decode", pools, pages, index, 1)
         x = self._pos_add(self._embed(tokens), index)
         x = x.reshape(s, 1, -1)
         for layer in self.layers:
@@ -408,13 +414,16 @@ def params_from_numpy(spec: dict, arrays: Dict[str, np.ndarray],
 
 
 # ---------------------------------------------------------------------------
-# training programs (the Fluid front end)
+# training and generation programs (the Fluid front end)
 # ---------------------------------------------------------------------------
 
-def _positional_encoding(x, max_len, d_model):
+def _positional_encoding(x, max_len, d_model, index=None, dynamic=False):
     """The sinusoid table as a trainable=False parameter (no gradient, no
-    optimizer state), added to ``x [B, max_len, d]`` through reshape +
-    elementwise_add, the JAX package's training emission."""
+    optimizer state).  The training emission adds it to ``x [B, max_len,
+    d]`` through reshape + elementwise_add.  The generation programs use
+    the ``pos_encoding_add`` op instead: ``dynamic=True`` slices the
+    table to x's T (one prefill program serves every prompt bucket), and
+    ``index`` adds each decode slot's own position row."""
     from ..initializer import NumpyArrayInitializer
     from ..layer_helper import LayerHelper
     helper = LayerHelper("pos_encoding")
@@ -423,6 +432,16 @@ def _positional_encoding(x, max_len, d_model):
         default_initializer=NumpyArrayInitializer(
             sinusoid_table(max_len, d_model)))
     pe.trainable = False
+    if index is not None or dynamic:
+        helper = LayerHelper("pos_encoding_add", input=x)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        inputs = {"X": [x], "Table": [pe]}
+        if index is not None:
+            inputs["Index"] = [index]
+        helper.append_op(type="pos_encoding_add", inputs=inputs,
+                         outputs={"Out": [out]})
+        out.desc.shape = x.shape
+        return out
     return layers.elementwise_add(x, layers.reshape(
         pe, shape=[1, max_len, d_model]))
 
@@ -443,11 +462,13 @@ def _residual_norm(x, y, dropout):
                              begin_norm_axis=2)
 
 
-def transformer_decoder_layer(x, d_model, n_heads, d_ff, dropout=0.0):
-    """One post-LN decoder layer: causal self-attention, residual + LN,
-    FFN, residual + LN."""
+def transformer_decoder_layer(x, d_model, n_heads, d_ff, dropout=0.0,
+                              cache=None):
+    """One post-LN decoder layer: causal self-attention (through the paged
+    KV cache under a `KVCache` handle), residual + LN, FFN, residual +
+    LN."""
     attn = nets.scaled_dot_product_attention(x, x, x, num_heads=n_heads,
-                                             causal=True)
+                                             causal=True, cache=cache)
     x = _residual_norm(x, attn, dropout)
     return _residual_norm(x, _ffn(x, d_model, d_ff, dropout), dropout)
 
@@ -462,6 +483,152 @@ def transformer_lm_logits(tokens, vocab, max_len, n_layers=2, d_model=64,
     for _ in range(n_layers):
         x = transformer_decoder_layer(x, d_model, n_heads, d_ff, dropout)
     return layers.fc(input=x, size=vocab, num_flatten_dims=2)
+
+
+class KVCache:
+    """Build handle of the generation Programs' paged KV cache: the feed
+    variables and the updated pools.
+
+    One instance goes through every decoder layer of a generation
+    program; each attention call takes the next layer's (PoolK, PoolV)
+    feed pair and records its written pools, which
+    `build_generation_programs` fetches.  The pool feeds are declared
+    ``[-1, block_len, heads, head_dim]``: the engine picks the pool's
+    block count without a rebuild.  (A `TransformerLM` forward's runtime
+    view is `PagedKVView`.)"""
+
+    def __init__(self, n_layers, n_heads, head_dim, block_len,
+                 mode="decode", exact=False, kv_dtype="float32"):
+        if mode not in ("decode", "prefill"):
+            raise ValueError(f"mode must be decode|prefill, got {mode!r}")
+        self.mode = mode
+        self.exact = bool(exact)
+        self.block_len = int(block_len)
+        self.kv_dtype = str(kv_dtype)
+        #: decode: the query token's position per slot; prefill: the
+        #: write start (0)
+        self.index = layers.data(name="kv_index", shape=[1], dtype="int32")
+        #: [S, P] block ids per slot; an idle slot's row is num_blocks
+        self.pages = layers.data(name="kv_pages", shape=[1], dtype="int32")
+        self.length = (layers.data(name="kv_len", shape=[1], dtype="int32")
+                       if mode == "prefill" else None)
+        self.pools = []
+        for i in range(n_layers):
+            pk = layers.data(name=f"kv_k_{i}",
+                             shape=[block_len, n_heads, head_dim],
+                             dtype=kv_dtype)
+            pv = layers.data(name=f"kv_v_{i}",
+                             shape=[block_len, n_heads, head_dim],
+                             dtype=kv_dtype)
+            self.pools.append((pk, pv))
+        self.updated = []
+        self._cursor = 0
+
+    def next_pools(self):
+        pair = self.pools[self._cursor]
+        self._cursor += 1
+        return pair
+
+    def record_update(self, pk_out, pv_out):
+        self.updated.append((pk_out, pv_out))
+
+    @property
+    def feed_names(self):
+        names = ["kv_index", "kv_pages"]
+        if self.length is not None:
+            names.append("kv_len")
+        for pk, pv in self.pools:
+            names.extend((pk.name, pv.name))
+        return names
+
+    @property
+    def updated_vars(self):
+        return [v for pair in self.updated for v in pair]
+
+
+def transformer_lm_decode_logits(tokens, cache, vocab, max_len, n_layers=2,
+                                 d_model=64, n_heads=4, d_ff=256):
+    """One decode iteration of the slot batch: ``tokens`` [S] (each slot's
+    current token, at position ``cache.index[s]``) -> next-token logits
+    [S, vocab], appending this position's K/V to the paged cache.  The
+    layer calls are `transformer_lm_logits`'s, so parameter names match
+    a saved full model."""
+    emb = layers.embedding(input=tokens, size=[vocab, d_model])   # [S, d]
+    x = layers.scale(emb, scale=math.sqrt(d_model))
+    x = _positional_encoding(x, max_len, d_model, index=cache.index)
+    x = layers.reshape(x, shape=[0, 1, d_model])                  # [S,1,d]
+    x = layers.amp_cast(x)
+    for _ in range(n_layers):
+        x = transformer_decoder_layer(x, d_model, n_heads, d_ff, 0.0,
+                                      cache=cache)
+    logits = layers.fc(input=x, size=vocab, num_flatten_dims=2)   # [S,1,V]
+    return layers.reshape(logits, shape=[0, vocab])
+
+
+def transformer_lm_prefill_logits(tokens, cache, vocab, max_len,
+                                  n_layers=2, d_model=64, n_heads=4,
+                                  d_ff=256):
+    """Bucket-padded prompt prefill: ``tokens`` [B, T_bucket] -> the
+    next-token logits [B, vocab] (position ``kv_len - 1``), writing the
+    prompt's K/V (masked by ``kv_len``) into the paged cache.  The
+    positional table is sliced to the fed T, so one program serves every
+    bucket."""
+    from ..layer_helper import LayerHelper
+    emb = layers.embedding(input=tokens, size=[vocab, d_model])
+    x = layers.scale(emb, scale=math.sqrt(d_model))
+    x = _positional_encoding(x, max_len, d_model, dynamic=True)
+    x = layers.amp_cast(x)
+    for _ in range(n_layers):
+        x = transformer_decoder_layer(x, d_model, n_heads, d_ff, 0.0,
+                                      cache=cache)
+    logits = layers.fc(input=x, size=vocab, num_flatten_dims=2)  # [B,T,V]
+    helper = LayerHelper("batched_select", input=logits)
+    out = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(type="batched_select",
+                     inputs={"X": [logits], "Index": [cache.length]},
+                     outputs={"Out": [out]}, attrs={"offset": -1})
+    out.desc.shape = (-1, vocab)
+    return out
+
+
+def build_generation_programs(spec, block_len=16, exact=False,
+                              kv_dtype="float32"):
+    """The (prefill, decode) Program pair of a generation spec, each
+    built in a fresh Program under a fresh name generator so parameter
+    names match a model saved by `save_generation_model`.  Returns a dict
+    per mode: {"program", "feed_names", "fetch_vars", "cache"}; the
+    fetches are the logits and every written pool.  ``exact=True`` sets
+    ``exact_lowering`` (the row-stable kernels) and builds the decode
+    attention as the full-span f32 flash forward, bitwise the full-prefix
+    recompute."""
+    from .. import unique_name
+    from ..core.program import Program, program_guard
+    if spec.get("family", "transformer_lm") != "transformer_lm":
+        raise ValueError(f"unsupported generation family "
+                         f"{spec.get('family')!r}")
+    head_dim = spec["d_model"] // spec["n_heads"]
+    out = {}
+    for mode in ("prefill", "decode"):
+        main = Program()
+        with program_guard(main, Program()), unique_name.guard():
+            tokens = layers.data(
+                name="tokens",
+                shape=[1] if mode == "decode" else [spec["max_len"]],
+                dtype="int64")
+            cache = KVCache(spec["n_layers"], spec["n_heads"], head_dim,
+                            block_len, mode=mode, exact=exact,
+                            kv_dtype=kv_dtype)
+            build = (transformer_lm_decode_logits if mode == "decode"
+                     else transformer_lm_prefill_logits)
+            logits = build(tokens, cache, spec["vocab"], spec["max_len"],
+                           spec["n_layers"], spec["d_model"],
+                           spec["n_heads"], spec["d_ff"])
+        main.exact_lowering = bool(exact)
+        out[mode] = {"program": main,
+                     "feed_names": ["tokens"] + cache.feed_names,
+                     "fetch_vars": [logits] + cache.updated_vars,
+                     "cache": cache}
+    return out
 
 
 def transformer_lm_train_program(vocab=128, max_len=64, n_layers=2,

@@ -1,7 +1,6 @@
 """Composite layers (counterpart of ``paddle_tpu/nets.py``): the image
 helpers ``simple_img_conv_pool`` and ``img_conv_group``,
-``sequence_conv_pool``, ``glu``, and the self-attention branch of
-``scaled_dot_product_attention``."""
+``sequence_conv_pool``, ``glu`` and ``scaled_dot_product_attention``."""
 from __future__ import annotations
 
 from . import layers
@@ -77,49 +76,136 @@ def glu(input, dim=-1):
 def scaled_dot_product_attention(queries, keys, values, num_heads=1,
                                  dropout_rate=0.0, causal=False,
                                  use_fused=True, cache=None):
-    """Multi-head self-attention over [batch, seq, dim] program variables
-    (``queries is keys is values``): one ``[d, 3d]`` fc, q/k/v slices,
-    heads split to [B, H, T, d/H], ONE ``fused_attention`` op, heads
-    merged back.  The ops, attributes and shapes are the JAX package's.
+    """Multi-head attention over [batch, seq, dim] program variables, with
+    the JAX package's ops, attributes, names and shapes:
 
-    Not ported: cross-attention, a single head, attention dropout (the
-    matmul/softmax chain), the paged KV cache (the serving model is the
-    ``nn.Module`` in ``models.transformer``)."""
-    if not (queries is keys and keys is values) or num_heads <= 1:
-        raise NotImplementedError("only multi-head self-attention is "
-                                  "ported")
-    if dropout_rate or cache is not None:
-        raise NotImplementedError("attention dropout and the KV cache are "
-                                  "not ported in the Program front end")
-    hidden = queries.shape[-1]
-    qkv = layers.fc(input=queries, size=3 * hidden, num_flatten_dims=2)
-    qkv = layers.sharding_constraint(qkv, ("batch", "length", "heads"))
-    q = layers.slice(qkv, axes=[2], starts=[0], ends=[hidden])
-    k = layers.slice(qkv, axes=[2], starts=[hidden], ends=[2 * hidden])
-    v = layers.slice(qkv, axes=[2], starts=[2 * hidden], ends=[3 * hidden])
-    for t in (q, k, v):
-        t.desc.shape = tuple(qkv.shape[:-1]) + (hidden,)
+    - self-attention (``queries is keys is values``) with several heads:
+      one ``[d, 3d]`` fc and q/k/v slices; cross-attention: three ``[d,
+      d]`` fcs; one head: no projection, and ``[B, 1, T, D]`` reshapes
+      around the attention op;
+    - with ``use_fused`` or ``causal`` and no attention dropout, ONE
+      ``fused_attention`` op (the flash kernels); else the ``scale`` /
+      ``matmul`` / ``softmax`` / ``dropout`` / ``matmul`` chain;
+    - ``cache`` (a ``models.transformer.KVCache`` build handle): the
+      projections' K/V go into the paged pools through a
+      ``kv_cache_write`` (as ``[B, T, H, D]``), then ``cache.mode ==
+      "decode"`` emits ``paged_attention`` over the cached prefix and
+      ``"prefill"`` a causal ``fused_attention`` over the prompt.
+
+    Causal attention with attention dropout, and the KV cache with any
+    dropout, raise ValueError."""
+    if num_heads > 1:
+        hidden = queries.shape[-1]
+        if queries is keys and keys is values:
+            qkv = layers.fc(input=queries, size=3 * hidden,
+                            num_flatten_dims=2)
+            qkv = layers.sharding_constraint(
+                qkv, ("batch", "length", "heads"))
+            q = layers.slice(qkv, axes=[2], starts=[0], ends=[hidden])
+            k = layers.slice(qkv, axes=[2], starts=[hidden],
+                             ends=[2 * hidden])
+            v = layers.slice(qkv, axes=[2], starts=[2 * hidden],
+                             ends=[3 * hidden])
+            for t in (q, k, v):
+                t.desc.shape = tuple(qkv.shape[:-1]) + (hidden,)
+        else:
+            q = layers.fc(input=queries, size=hidden, num_flatten_dims=2)
+            k = layers.fc(input=keys, size=hidden, num_flatten_dims=2)
+            v = layers.fc(input=values, size=hidden, num_flatten_dims=2)
+    else:
+        q, k, v = queries, keys, values
 
     def _split_heads(x, n):
+        if n == 1:
+            return x
         reshaped = layers.reshape(x, shape=[0, 0, n, x.shape[-1] // n])
         t = layers.transpose(reshaped, perm=[0, 2, 1, 3])
         return layers.sharding_constraint(
             t, ("batch", "heads", "length", "kv"))
 
-    def _merge_heads(x):
+    def _merge_heads(x, n):
+        if n == 1:
+            return x
         t = layers.transpose(x, perm=[0, 2, 1, 3])
         merged = layers.reshape(t, shape=[0, 0, t.shape[2] * t.shape[3]])
         return layers.sharding_constraint(
             merged, ("batch", "length", "embed"))
 
+    def _one_head(*xs):
+        """[B, T, D] -> [B, 1, T, D], the attention ops' layout."""
+        return [layers.reshape(x, shape=[0, 1] + list(x.shape[1:]))
+                for x in xs]
+
+    def _attention_op(op_type, inputs, attrs, q, v):
+        helper = LayerHelper(op_type, input=q)
+        out = helper.create_variable_for_type_inference(q.dtype)
+        helper.append_op(type=op_type, inputs=inputs,
+                         outputs={"Out": [out]}, attrs=attrs)
+        out.desc.shape = tuple(q.shape[:-1]) + (v.shape[-1],)
+        return out
+
+    def _finish(out, single):
+        if single:
+            return layers.reshape(out, shape=[0] + list(out.shape[2:]))
+        return _merge_heads(out, num_heads)
+
+    if causal and dropout_rate:
+        raise ValueError("causal attention with attention dropout is not "
+                         "supported; drop out the projections instead")
     q = _split_heads(q, num_heads)
     k = _split_heads(k, num_heads)
     v = _split_heads(v, num_heads)
-    helper = LayerHelper("fused_attention", input=q)
-    out = helper.create_variable_for_type_inference(q.dtype)
-    helper.append_op(type="fused_attention",
-                     inputs={"Q": [q], "K": [k], "V": [v]},
-                     outputs={"Out": [out]},
-                     attrs={"causal": causal})
-    out.desc.shape = tuple(q.shape[:-1]) + (v.shape[-1],)
-    return _merge_heads(out)
+    single = num_heads == 1
+    if cache is not None:
+        if dropout_rate:
+            raise ValueError("KV-cache attention has no dropout "
+                             "(generation path)")
+        if single:
+            q, k, v = _one_head(q, k, v)
+        pool_k, pool_v = cache.next_pools()
+        # the pools are [block, pos, head, dim]: new rows go in as
+        # [B, T, H, D]
+        kt = layers.transpose(k, perm=[0, 2, 1, 3])
+        vt = layers.transpose(v, perm=[0, 2, 1, 3])
+        helper = LayerHelper("kv_cache_write", input=kt)
+        pk_out = helper.create_variable_for_type_inference(pool_k.dtype)
+        pv_out = helper.create_variable_for_type_inference(pool_v.dtype)
+        inputs = {"K": [kt], "V": [vt], "PoolK": [pool_k],
+                  "PoolV": [pool_v], "PageTable": [cache.pages],
+                  "Index": [cache.index]}
+        if cache.length is not None:
+            inputs["Length"] = [cache.length]
+        helper.append_op(type="kv_cache_write", inputs=inputs,
+                         outputs={"PoolKOut": [pk_out],
+                                  "PoolVOut": [pv_out]})
+        pk_out.desc.shape = pool_k.shape
+        pv_out.desc.shape = pool_v.shape
+        cache.record_update(pk_out, pv_out)
+        if cache.mode == "decode":
+            out = _attention_op(
+                "paged_attention",
+                {"Q": [q], "PoolK": [pk_out], "PoolV": [pv_out],
+                 "PageTable": [cache.pages], "Index": [cache.index]},
+                {"exact": cache.exact}, q, v)
+        else:
+            # prefill: the causal attention over the prompt answers; the
+            # write above has cached its K/V
+            out = _attention_op("fused_attention",
+                                {"Q": [q], "K": [k], "V": [v]},
+                                {"causal": True}, q, v)
+        return _finish(out, single)
+    if (use_fused or causal) and not dropout_rate:
+        if single:
+            q, k, v = _one_head(q, k, v)
+        out = _attention_op("fused_attention", {"Q": [q], "K": [k],
+                                                "V": [v]},
+                            {"causal": causal}, q, v)
+        return _finish(out, single)
+    d = q.shape[-1]
+    scaled_q = layers.scale(q, scale=d ** -0.5)
+    product = layers.matmul(scaled_q, k, transpose_y=True)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    ctx = layers.matmul(weights, v)
+    return _merge_heads(ctx, num_heads)

@@ -9,7 +9,8 @@ table measured on the TPU; that table does not carry over to the card,
 and a matmul chain in plain PyTorch is no port of the kernel, so every
 length takes the flash kernels here.
 
-Under ``exact`` (the decode engine's ``numerics="exact"``) every product
+Under ``exact`` (the decode engine's ``numerics="exact"``, and a
+Program's ``exact_lowering`` for ``fused_attention``) every product
 goes through the row-stable product kernel (`kernels.row_stable_mm`) and
 every attention runs in f32 on the flash forward kernel, over the full
 span for a decode step (`kv_cache_ops.paged_attention_exact`), so that a
@@ -29,10 +30,13 @@ from .kv_cache_ops import (kv_cache_write, paged_attention,
              doc="scaled-dot-product attention over [B, H, T, D] as ONE "
                  "op: the flash forward and backward kernels")
 def _fused_attention(ctx):
+    """Under ``program.exact_lowering`` the flash forward in f32."""
     q, k, v = (ctx.input(s).contiguous() for s in ("Q", "K", "V"))
-    ctx.set_output("Out", FlashAttention.apply(q, k, v,
-                                               bool(ctx.attr("causal",
-                                                             False))))
+    causal = bool(ctx.attr("causal", False))
+    if ctx.program.exact_lowering:
+        ctx.set_output("Out", _flash_f32(q, k, v, causal))
+        return
+    ctx.set_output("Out", FlashAttention.apply(q, k, v, causal))
 
 
 def linear(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -72,7 +76,7 @@ def self_attention(x: torch.Tensor, qkv_weight: torch.Tensor,
     d/H]``, attention, heads merged back to ``[B, T, d]``.  There is no
     output projection (the JAX model has none).
 
-    ``cache`` (a ``models.transformer.KVCache``) makes the call read from
+    ``cache`` (a ``models.transformer.PagedKVView``) makes the call read from
     and append to the paged KV cache: the new K/V rows are written into
     this layer's pools, then ``cache.mode == "decode"`` (one token per
     slot) runs the paged-attention kernel over each slot's cached prefix,

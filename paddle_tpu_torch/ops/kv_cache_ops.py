@@ -26,6 +26,26 @@ idle slot's row holds the sentinel ``num_blocks`` (one past the pool).
   it.
 - `pos_encoding_add` and `batched_select` are the generation programs'
   positional add and per-row gather.
+
+Each function is also the op rule of the same name, with the JAX rule's
+slots and attributes, so the generation Programs (built by either
+package) run on the port's Executor:
+
+- ``kv_cache_write`` writes the pools in place and sets ``PoolKOut`` /
+  ``PoolVOut`` to the very tensors fed as ``PoolK`` / ``PoolV`` (nothing
+  is copied; the interpreter never skips the op).  The write plan takes
+  one host sync (``torch.nonzero``), so the rules of one run share it,
+  keyed on the identity of the ``PageTable``, ``Index`` and ``Length``
+  tensors (`core.lowering.Interpreter.memo`): one plan a decode step,
+  not one a layer.
+- ``paged_attention`` runs the paged-attention kernel, or with
+  ``exact=True`` `paged_attention_exact`.  The JAX rule's
+  ``FLAGS_paged_attention`` switch and its XLA gather+GEMV branch are
+  dispatch choices of the TPU: the port takes its kernel at every shape.
+  A query at ``Index`` -1 sees no position and gives 0, as the JAX
+  package's Pallas kernel does.
+- ``pos_encoding_add`` with and without ``Index``, ``batched_select``
+  with its ``offset``.
 """
 from __future__ import annotations
 
@@ -33,6 +53,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.registry import register_op
 from .kernels import flash_attention_fwd, gather_slot_kv, paged_attention  # noqa: F401,E501
 
 
@@ -119,3 +140,73 @@ def batched_select(x: torch.Tensor, index: torch.Tensor,
     b = x.shape[0]
     idx = (index.reshape(b).long() + offset).clamp(0, x.shape[1] - 1)
     return x[torch.arange(b, device=x.device), idx]
+
+
+# ---------------------------------------------------------------------------
+# op rules
+# ---------------------------------------------------------------------------
+
+def _shared_plan(ctx, table, index, length, t, block_len, num_blocks):
+    """The run's write plan for these page-table, index and length
+    tensors (module docstring)."""
+    key = ("kv_write_plan", id(table), id(index),
+           None if length is None else id(length), t, block_len, num_blocks)
+    hit = ctx.interpreter.memo.get(key)
+    if hit is None:
+        # the tensors ride along so that their ids stay theirs for the run
+        hit = (write_plan(table, index, t, block_len, num_blocks, length),
+               (table, index, length))
+        ctx.interpreter.memo[key] = hit
+    return hit[0]
+
+
+@register_op("kv_cache_write",
+             doc="scatter new K/V rows into the paged block pools through "
+                 "the slot page table, in place (decode: T=1 append; "
+                 "prefill: the bucket-padded prompt, masked by Length)")
+def _kv_cache_write(ctx):
+    k, v = ctx.input("K"), ctx.input("V")              # [S, T, H, D]
+    pool_k, pool_v = ctx.input("PoolK"), ctx.input("PoolV")
+    table, index = ctx.input("PageTable"), ctx.input("Index")
+    length = ctx.input("Length")
+    plan = _shared_plan(ctx, table, index, length, k.shape[1],
+                        pool_k.shape[1], pool_k.shape[0])
+    kv_cache_write(k, v, pool_k, pool_v, table, index, length, plan=plan)
+    ctx.set_output("PoolKOut", pool_k)
+    ctx.set_output("PoolVOut", pool_v)
+
+
+@register_op("paged_attention",
+             doc="one decode token per slot attends over its paged KV "
+                 "prefix: the paged-attention kernel, or with exact=True "
+                 "the f32 flash forward over the full span")
+def _paged_attention(ctx):
+    q = ctx.input("Q")                                   # [S, H, 1, D]
+    pool_k, pool_v = ctx.input("PoolK"), ctx.input("PoolV")
+    table = ctx.input("PageTable")
+    s = q.shape[0]
+    index = ctx.input("Index").reshape(s).to(torch.int32).contiguous()
+    if ctx.attr("exact", False):
+        out = paged_attention_exact(q, pool_k, pool_v, table, index)
+    else:
+        out = paged_attention(q.to(pool_k.dtype).contiguous(), pool_k,
+                              pool_v, table.to(torch.int32).contiguous(),
+                              index).to(q.dtype)
+    ctx.set_output("Out", out)
+
+
+@register_op("pos_encoding_add",
+             doc="positional-encoding add of the generation programs: "
+                 "X [B, T, D] + Table[:T], or with Index, X [S, D] + "
+                 "Table[Index]")
+def _pos_encoding_add(ctx):
+    ctx.set_output("Out", pos_encoding_add(ctx.input("X"), ctx.input("Table"),
+                                           ctx.input("Index")))
+
+
+@register_op("batched_select",
+             doc="per-row gather along axis 1: Out[b] = X[b, Index[b] + "
+                 "offset], clipped")
+def _batched_select(ctx):
+    ctx.set_output("Out", batched_select(ctx.input("X"), ctx.input("Index"),
+                                         ctx.attr("offset", 0)))

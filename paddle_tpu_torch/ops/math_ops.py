@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.registry import register_op
+from .kernels import row_stable_mm
 
 
 def _align(x: torch.Tensor, y: torch.Tensor, axis) -> torch.Tensor:
@@ -170,14 +171,21 @@ def amp_out(ctx, out, want):
 
 @register_op("mul", doc="mul_op.cc: flatten-to-2D matmul")
 def _mul(ctx):
+    """Under ``program.exact_lowering`` the product is the row-stable
+    product kernel in f32 (a row's bits do not depend on M); a shape the
+    kernel refuses raises."""
     x, y = ctx.input("X"), ctx.input("Y")
     xnd = ctx.attr("x_num_col_dims", 1)
     ynd = ctx.attr("y_num_col_dims", 1)
     x2 = x.reshape(math.prod(x.shape[:xnd]), -1)
     y2 = y.reshape(math.prod(y.shape[:ynd]), -1)
     want = x.dtype
-    x2, y2 = amp_operands(ctx, x2, y2)
-    out = amp_out(ctx, torch.matmul(x2, y2), want)
+    if ctx.program.exact_lowering:
+        out = amp_out(ctx, row_stable_mm(x2.float().contiguous(),
+                                         y2.float().contiguous()), want)
+    else:
+        x2, y2 = amp_operands(ctx, x2, y2)
+        out = amp_out(ctx, torch.matmul(x2, y2), want)
     ctx.set_output("Out", out.reshape(
         tuple(x.shape[:xnd]) + tuple(y.shape[ynd:])))
     ctx.set_seq_len("Out", ctx.seq_len_of("X"))

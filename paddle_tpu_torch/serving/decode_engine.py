@@ -31,15 +31,28 @@ Orca-style iteration-level scheduling over a vLLM-style paged KV cache:
   evicts least-recently-used leaves nobody references, and yields its
   blocks to live traffic under pool pressure (`PrefixCache.evict_for`).
 
+Two models behind one small interface (``new_kv_pools``, ``prefill``,
+``decode``, ``spec``, ``device``), and the engine around them is the same:
+
+- ``DecodeEngine(model)`` with a `TransformerLM` (what
+  ``DecodeEngine.from_model_dir``, the registry and the server build): an
+  ``nn.Module`` that computes each step as tensor functions;
+- ``DecodeEngine(scope, spec, ...)``, the JAX engine's constructor: the
+  generation Programs of ``models.transformer.build_generation_programs``
+  over the parameters in ``scope``, each run by a `_GenPredictor` on the
+  port's interpreter (`GenerationPrograms`).  Its prefill pads a prompt to
+  the JAX engine's buckets (powers of two from 8 up to ``max_len``).
+
 Numerics, the JAX engine's ``numerics=``: ``"fast"`` (default) decodes
 through the paged-attention kernel, within f32 rounding of the full
 recompute.  ``"exact"`` is the verification mode: every emitted token's
 logits are bitwise the full-prefix recompute's (`greedy_decode_full` with
 ``numerics="exact"``).  The JAX engine gets that from XLA's op-at-a-time
 dispatch on the CPU; the port gets it from kernels whose row results do
-not depend on the batch (``TransformerLM`` with ``exact=True``: the
-row-stable product kernel, the flash forward in f32 over the full
-``max_len`` span, the LayerNorm kernel).  So exact mode needs
+not depend on the batch (``TransformerLM`` with ``exact=True``, or the
+Programs' ``exact_lowering``: the row-stable product kernel, the flash
+forward in f32 over the full ``max_len`` span, the LayerNorm kernel).
+So exact mode needs
 ``pages_per_slot * block_len == max_len``, and its prefill runs at the
 single ``max_len`` bucket.
 
@@ -59,18 +72,123 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import profiler
+from ..core.place import resolve_device
+from ..core.scope import Scope
 from ..io import load_generation_model
 from ..models.transformer import TransformerLM
 from ..observability import MetricsRegistry, default_registry, trace
 from ..observability import flight as _flight
 from ..observability.registry import _LatencyWindow
 from .engine import EngineOverloadedError
+from .predictor import Predictor
+
+
+class _GenPredictor(Predictor):
+    """A `Predictor` that sets its program's ``exact_lowering``
+    (``numerics="exact"``: the row-stable kernels).  The JAX predictor's
+    ``donate`` has no counterpart: the KV pools are written in place."""
+
+    def __init__(self, program, feed_names, fetch_vars, scope=None,
+                 exact: bool = False, **kwargs):
+        program.exact_lowering = bool(exact)
+        super().__init__(program, feed_names, fetch_vars, scope=scope,
+                         **kwargs)
+
+
+class GenerationPrograms:
+    """The generation Programs as the engine's model: the prefill and the
+    decode step of `build_generation_programs`, each run by a
+    `_GenPredictor` over a snapshot of ``scope``'s parameters on
+    ``device``.  ``prefill`` and ``decode`` take and return what
+    `TransformerLM`'s do; the programs fetch the logits and the written
+    pools (the very tensors fed)."""
+
+    def __init__(self, scope: Scope, spec: Dict[str, Any], block_len: int,
+                 exact: bool = False, precision: str = "f32", device=None,
+                 compile_cache=None):
+        from ..models import transformer as _T
+        if spec["d_model"] % spec["n_heads"]:
+            raise ValueError("d_model must be a multiple of n_heads")
+        self.spec = dict(spec)
+        self.exact = bool(exact)
+        self.precision = str(precision)
+        self.device = resolve_device(device)
+        self.kv_dtype = "bfloat16" if precision == "bf16" else "float32"
+        progs = _T.build_generation_programs(
+            self.spec, block_len=block_len, exact=self.exact,
+            kv_dtype=self.kv_dtype)
+        self.pool_names = [n for n in progs["decode"]["feed_names"]
+                           if n.startswith(("kv_k_", "kv_v_"))]
+        self.prefill_pred, self.decode_pred = (
+            _GenPredictor(progs[m]["program"], progs[m]["feed_names"],
+                          progs[m]["fetch_vars"], scope=scope,
+                          exact=self.exact, precision=self.precision,
+                          device=self.device, compile_cache=compile_cache)
+            for m in ("prefill", "decode"))
+
+    def new_kv_pools(self, num_blocks: int, block_len: int
+                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Zeroed per-layer (K, V) pools in the programs' pool dtype."""
+        spec = self.spec
+        shape = (num_blocks, block_len, spec["n_heads"],
+                 spec["d_model"] // spec["n_heads"])
+        dtype = (torch.bfloat16 if self.kv_dtype == "bfloat16"
+                 else torch.float32)
+        return [(torch.zeros(shape, dtype=dtype, device=self.device),
+                 torch.zeros(shape, dtype=dtype, device=self.device))
+                for _ in range(spec["n_layers"])]
+
+    def _check(self, exact):
+        if exact is not None and bool(exact) != self.exact:
+            raise ValueError(f"the programs were built with exact="
+                             f"{self.exact}")
+
+    def _feed(self, tokens, pools, pages, index, length=None):
+        feed = {"tokens": tokens, "kv_index": index, "kv_pages": pages}
+        if length is not None:
+            feed["kv_len"] = length
+        for (k, v), i in zip(pools, range(0, len(self.pool_names), 2)):
+            feed[self.pool_names[i]] = k
+            feed[self.pool_names[i + 1]] = v
+        return feed
+
+    def prefill(self, tokens: torch.Tensor, pools, pages: torch.Tensor,
+                length: torch.Tensor, exact: Optional[bool] = None
+                ) -> torch.Tensor:
+        """The prefill program: the prompt ``tokens [B, T]`` (valid rows
+        ``length [B]``) into the cache from position 0 -> next-token
+        logits ``[B, V]``."""
+        self._check(exact)
+        index = torch.zeros(tokens.shape[0], dtype=torch.int32,
+                            device=tokens.device)
+        return self.prefill_pred.run(
+            self._feed(tokens, pools, pages, index, length),
+            return_numpy=False)[0]
+
+    def decode(self, tokens: torch.Tensor, pools, pages: torch.Tensor,
+               index: torch.Tensor, exact: Optional[bool] = None
+               ) -> torch.Tensor:
+        """The decode program: ``tokens [S]`` at positions ``index [S]``
+        -> next-token logits ``[S, V]``, each slot's K/V appended."""
+        self._check(exact)
+        return self.decode_pred.run(
+            self._feed(tokens, pools, pages, index), return_numpy=False)[0]
+
+
+def _prefill_buckets(max_len: int) -> List[int]:
+    """The JAX engine's prompt buckets: powers of two from 8, and
+    ``max_len``."""
+    buckets, b = [], 8
+    while b < max_len:
+        buckets.append(b)
+        b *= 2
+    return buckets + [max_len]
 
 
 class BlockAllocator:
@@ -386,26 +504,53 @@ def _p50_p99(summary):
 
 
 class DecodeEngine:
-    """S decode slots over one `TransformerLM` and its paged KV pools."""
+    """S decode slots over one model and its paged KV pools.
 
-    def __init__(self, model: TransformerLM, slots: int = 4,
-                 block_len: int = 16, pages_per_slot: Optional[int] = None,
+    ``source`` is a `TransformerLM` (``spec``, ``precision``, ``device``
+    and ``compile_cache`` are then the model's and stay None), or, as
+    the JAX engine is built, a `Scope` holding a saved generation
+    model's parameters with its ``spec``: the engine then serves the
+    generation Programs (`GenerationPrograms`) in ``precision`` on
+    ``device`` (the card unless ``"cpu"``).  The ``model`` keyword is
+    the name the metric series carry (kept as ``model_name``; the
+    attribute ``model`` is the model served)."""
+
+    def __init__(self, source, spec: Optional[Dict[str, Any]] = None,
+                 slots: int = 4, block_len: int = 16,
+                 pages_per_slot: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  max_queue_depth: Optional[int] = None,
                  warmup: bool = False, numerics: str = "fast",
-                 model_name: str = "default",
-                 prefix_cache_blocks: int = 0):
+                 prefix_cache_blocks: int = 0,
+                 precision: Optional[str] = None, device=None,
+                 model: str = "default", compile_cache=None):
         if numerics not in ("fast", "exact"):
             raise ValueError(f"numerics must be fast|exact, got {numerics!r}")
-        self.model = model
-        self.model_name = str(model_name)
+        self.model_name = str(model)
         self.numerics = numerics
         #: the model's keyword for the exact paths (none in fast mode)
         self._exact_kw = {"exact": True} if numerics == "exact" else {}
-        self.spec = dict(model.spec)
-        self.device = model.device
-        self.slots = int(slots)
         self.block_len = int(block_len)
+        if isinstance(source, TransformerLM):
+            if spec is not None or precision is not None or \
+                    device is not None or compile_cache is not None:
+                raise ValueError("spec, precision, device and compile_cache "
+                                 "are the TransformerLM's own")
+            self.model = source
+        elif isinstance(source, Scope):
+            if spec is None:
+                raise ValueError("DecodeEngine(scope, spec): the spec of "
+                                 "the model in the scope is missing")
+            self.model = GenerationPrograms(
+                source, spec, self.block_len, exact=numerics == "exact",
+                precision=precision or "f32", device=device,
+                compile_cache=compile_cache)
+        else:
+            raise TypeError(f"DecodeEngine serves a TransformerLM or a "
+                            f"Scope, not {type(source).__name__}")
+        self.spec = dict(self.model.spec)
+        self.device = self.model.device
+        self.slots = int(slots)
         max_len = int(self.spec["max_len"])
         if pages_per_slot is None:
             pages_per_slot = -(-max_len // self.block_len)
@@ -420,9 +565,14 @@ class DecodeEngine:
                 "numerics='exact' needs pages_per_slot*block_len == "
                 f"max_len ({self.pages_per_slot}*{self.block_len} != "
                 f"{max_len})")
-        #: prefill lengths: the prompt's own, or exact mode's single
-        #: max_len bucket
-        self.prefill_bucket = max_len if numerics == "exact" else None
+        #: prefill lengths: exact mode's single max_len bucket, the JAX
+        #: buckets for the Programs, else (None) the prompt's own
+        if numerics == "exact":
+            self.prefill_buckets: Optional[List[int]] = [max_len]
+        elif isinstance(self.model, GenerationPrograms):
+            self.prefill_buckets = _prefill_buckets(max_len)
+        else:
+            self.prefill_buckets = None
         if num_blocks is None:
             num_blocks = self.slots * self.pages_per_slot
         self.allocator = BlockAllocator(num_blocks)
@@ -438,8 +588,8 @@ class DecodeEngine:
         self._evictions_synced = 0
         self.max_queue_depth = (None if max_queue_depth is None
                                 else int(max_queue_depth))
-        self._pools = model.new_kv_pools(self.allocator.num_blocks,
-                                         self.block_len)
+        self._pools = self.model.new_kv_pools(self.allocator.num_blocks,
+                                              self.block_len)
         self.kv_dtype = str(self._pools[0][0].dtype).replace("torch.", "")
         self._slots = [_Slot(i) for i in range(self.slots)]
         self._pages = np.full((self.slots, self.pages_per_slot),
@@ -535,7 +685,7 @@ class DecodeEngine:
         the name its metric series carry."""
         lm = load_generation_model(model_dir, params_filename,
                                    precision=precision, device=device)
-        return cls(lm, numerics=numerics, model_name=model, **kwargs)
+        return cls(lm, numerics=numerics, model=model, **kwargs)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -547,8 +697,7 @@ class DecodeEngine:
         idle = self._tensor(self._pages)
         with torch.inference_mode():
             self.model.prefill(
-                self._tensor(np.zeros((1, self.prefill_bucket or 1),
-                                      np.int64)),
+                self._tensor(np.zeros((1, self._bucket_for(1)), np.int64)),
                 self._pools, idle[:1], self._tensor(np.ones(1, np.int32)),
                 **self._exact_kw)
             self.model.decode(self._tensor(np.zeros(self.slots, np.int64)),
@@ -657,6 +806,9 @@ class DecodeEngine:
             "expired": int(self._m_expired.value),
             "finished": {labels["reason"]: int(series.value)
                          for labels, series in self._m_finished.items()},
+            **({"prefill": self.model.prefill_pred.stats(),
+                "decode": self.model.decode_pred.stats()}
+               if isinstance(self.model, GenerationPrograms) else {}),
         }
 
     def close(self, timeout: float = 30.0, unmount: bool = True):
@@ -846,12 +998,19 @@ class DecodeEngine:
         ids = tuple(t for r in reqs for t in r.trace)
         return trace.scope(*ids) if ids else contextlib.nullcontext()
 
+    def _bucket_for(self, n: int) -> int:
+        """The prefill length of an n-token prompt."""
+        if self.prefill_buckets is None:
+            return n
+        return next((b for b in self.prefill_buckets if n <= b),
+                    self.prefill_buckets[-1])
+
     def _prefill(self, slot: _Slot):
         req = slot.req
         t0 = time.perf_counter()
         with self._trace_scope([req]), profiler.record_block(
                 "decode.prefill"):
-            toks = np.zeros((1, self.prefill_bucket or len(req.prompt)),
+            toks = np.zeros((1, self._bucket_for(len(req.prompt))),
                             np.int64)
             toks[0, :len(req.prompt)] = req.prompt
             logits = self.model.prefill(
@@ -993,26 +1152,76 @@ def _as_model(model: Union[str, os.PathLike, TransformerLM], precision,
                                  device=device)
 
 
+def _load_full_predictor(model_dir: str, spec: Dict[str, Any],
+                         exact: bool, precision: str = "f32",
+                         device=None) -> _GenPredictor:
+    """The full-prefix LM program (``transformer_lm_logits`` at ``T =
+    max_len``, the saved model's parameter names) over the parameters in
+    ``model_dir``, as a `_GenPredictor` (``exact``: the row-stable
+    kernels); the exact generation Programs' logits are bitwise its
+    rows."""
+    from .. import io as _io
+    from .. import layers, unique_name
+    from ..core.program import Program, program_guard
+    from ..core.scope import scope_guard
+    from ..models import transformer as _T
+    scope = Scope()
+    with scope_guard(scope):
+        _io.load_inference_model(model_dir, None)
+    main = Program()
+    with program_guard(main, Program()), unique_name.guard():
+        toks = layers.data(name="tokens", shape=[spec["max_len"]],
+                           dtype="int64")
+        logits = _T.transformer_lm_logits(
+            toks, spec["vocab"], spec["max_len"], spec["n_layers"],
+            spec["d_model"], spec["n_heads"], spec["d_ff"])
+    return _GenPredictor(main, ["tokens"], [logits], scope=scope,
+                         exact=exact, precision=precision, device=device)
+
+
 def greedy_decode_full(model, prompts: Sequence[Sequence[int]],
                        max_new_tokens: int = 16,
                        eos_id: Optional[int] = None,
                        capture_logits: bool = False,
                        precision: str = "f32", device=None,
-                       numerics: str = "fast") -> Dict[str, Any]:
+                       numerics: str = "fast",
+                       predictor: Optional[Predictor] = None
+                       ) -> Dict[str, Any]:
     """The O(T^2) offline baseline: every emitted token re-runs the whole
     prefix through the model (`TransformerLM.forward`) and reads each
     sequence's last position.  ``model`` is a `TransformerLM` or a saved
     model directory.  Padding past a sequence's length is inert under the
     causal mask.  ``numerics="exact"`` runs the exact paths at
     ``T = max_len`` (as the JAX baseline always does), the shapes at which
-    the exact decode engine's logits are bitwise these."""
+    the exact decode engine's logits are bitwise these.  With
+    ``predictor`` (`_load_full_predictor`'s) the recompute runs that
+    program at ``T = max_len`` instead, and ``model`` is only read for its
+    spec (a directory is not loaded)."""
     if numerics not in ("fast", "exact"):
         raise ValueError(f"numerics must be fast|exact, got {numerics!r}")
-    m = _as_model(model, precision, device)
-    exact = numerics == "exact"
+    if predictor is not None:
+        from ..models.transformer import read_generation_spec
+        spec = (model.spec if isinstance(model, TransformerLM)
+                else read_generation_spec(str(model)))
+
+        def step(toks, last):
+            # the program's feed is [B, max_len]; its logits [B, T, V]
+            (full,) = predictor.run({"tokens": toks}, return_numpy=False)
+            rows = torch.arange(len(last), device=full.device)
+            return full[rows, torch.from_numpy(last).to(full.device)]
+        t_fixed = spec["max_len"]
+    else:
+        m = _as_model(model, precision, device)
+        spec = m.spec
+        exact = numerics == "exact"
+
+        def step(toks, last):
+            return m(torch.from_numpy(toks).to(m.device),
+                     torch.from_numpy(last).to(m.device), exact=exact)
+        t_fixed = spec["max_len"] if exact else None
     if eos_id is None:
-        eos_id = m.spec.get("eos_id")
-    max_len = m.spec["max_len"]
+        eos_id = spec.get("eos_id")
+    max_len = spec["max_len"]
     b = len(prompts)
     seqs = [list(map(int, p)) for p in prompts]
     done = [len(s) >= max_len for s in seqs]
@@ -1024,13 +1233,11 @@ def greedy_decode_full(model, prompts: Sequence[Sequence[int]],
         for _ in range(max_new_tokens):
             if all(done):
                 break
-            t = max_len if exact else max(len(s) for s in seqs)
+            t = t_fixed or max(len(s) for s in seqs)
             toks = np.zeros((b, t), np.int64)
             for i, s in enumerate(seqs):
                 toks[i, :len(s)] = s
-            last = np.array([len(s) - 1 for s in seqs], np.int64)
-            lg = m(torch.from_numpy(toks).to(m.device),
-                   torch.from_numpy(last).to(m.device), exact=exact)
+            lg = step(toks, np.array([len(s) - 1 for s in seqs], np.int64))
             dispatches += 1
             nxt = lg.argmax(dim=-1).cpu().numpy()
             if capture_logits:

@@ -86,6 +86,35 @@ def test_data_feeder_ragged_columns_bitwise(lengths):
     assert got["words@SEQ_LEN"].tolist() == lengths
 
 
+def test_data_feeder_pinned_memory_stages_on_place(monkeypatch):
+    """FLAGS_use_pinned_memory: the feed comes back as tensors on the
+    feeder's place (CPU tensors on a CPU place), bitwise the arrays of
+    the unstaged feed, and the Executor takes it as it is: an fc program
+    fetches the same bits from both feeds."""
+    import torch
+    rng = np.random.RandomState(3)
+    rows = [(rng.rand(6).astype(np.float32),
+             [int(i) for i in rng.randint(0, 9, n)]) for n in (3, 5, 2)]
+    x = fluid.layers.data(name="x", shape=[6], dtype="float32")
+    words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                              lod_level=1)
+    y = fluid.layers.fc(input=x, size=4)
+    feeder = fluid.DataFeeder(place=fluid.CPUPlace(), feed_list=[x, words])
+    plain = feeder.feed(rows)
+    monkeypatch.setattr(fluid.flags.FLAGS, "use_pinned_memory", True)
+    staged = feeder.feed(rows)
+    assert sorted(staged) == sorted(plain)
+    for k, v in staged.items():
+        assert isinstance(v, torch.Tensor) and v.device.type == "cpu", k
+        assert v.numpy().dtype == plain[k].dtype, k
+        assert v.numpy().tobytes() == plain[k].tobytes(), k
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(fluid.default_startup_program())
+    (want,) = exe.run(feed=plain, fetch_list=[y])
+    (got,) = exe.run(feed=staged, fetch_list=[y])
+    assert got.tobytes() == want.tobytes()
+
+
 def _drive(metric_pair, updates):
     """The same update calls on the JAX and the port metric -> both
     evals."""
