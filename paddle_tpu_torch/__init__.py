@@ -31,7 +31,13 @@ so far:
   VGG-16 with BatchNorm (`models.vgg`), and the sequence family: the
   stacked dynamic LSTM (`models.stacked_lstm`, a DynamicRNN cell plus
   ``dynamic_lstm`` layers) and ``dynamic_gru`` classifiers, fed padded
-  ids with a ``<name>@SEQ_LEN`` length vector;
+  ids with a ``<name>@SEQ_LEN`` length vector.  Detection: the SSD op
+  rules and layers (`layers.multi_box_head`, ``ssd_loss``,
+  ``detection_output``, ``detection_map``).  Input: the reader ops
+  (`layers.open_recordio_file` ... ``read_file``) over `recordio` files
+  written by `recordio_writer`, which ``Executor.run`` and
+  ``train_loop`` read when a step has no feed, and every `dataset`
+  (synthetic, no download);
 - serving the transformer LM: `serving.decode_engine.DecodeEngine` over a
   paged KV cache, with a radix prefix cache;
 - the serving front door: `serving.Predictor` over a saved inference

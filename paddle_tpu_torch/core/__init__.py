@@ -3,7 +3,7 @@ scopes, the interpreter, autodiff and the executor."""
 from . import backward, executor, lowering, program, registry, scope  # noqa: F401
 from .. import ops as _ops  # registers the op rules  # noqa: F401
 from .backward import append_backward  # noqa: F401
-from .executor import Executor  # noqa: F401
+from .executor import EOFException, Executor  # noqa: F401
 from .place import CPUPlace, CUDAPlace  # noqa: F401
 from .program import (Block, Operator, Parameter, Program,  # noqa: F401
                       Variable, default_main_program,
@@ -12,3 +12,4 @@ from .program import (Block, Operator, Parameter, Program,  # noqa: F401
 from .registry import OpRegistry, register_op  # noqa: F401
 from .scope import Scope, global_scope, scope_guard  # noqa: F401
 from .types import VarType, convert_dtype, to_torch_dtype  # noqa: F401
+

@@ -34,12 +34,15 @@ generator state rides each checkpoint as ``@TORCH_RNG_STATE@``, so a
 resumed run draws the same dropout masks.
 
 ``Executor()`` with no place means the card and raises without CUDA.
+A program bound to a reader-op pipeline (``layers.read_file``) needs no
+feed: ``run`` pulls the next batch and raises `EOFException`
+at the end of a pass, and ``train_loop(feed=None)`` takes the pipeline
+as its feed until the pass ends.
+
 Refused: the sharded-run arguments of ``train_loop`` (``mesh``,
 ``param_spec``, ``data_axis``, ``numerics``, ``lookup_exchange``,
-``a2a_capacity``, ``tiered``; ROADMAP queue A item 4), its profiler
-arguments (``timeline_path``, ``xprof_*``; queue A item 5) and
-``feed=None`` with a program-bound reader op (``layers.read_file``,
-queue A item 2).
+``a2a_capacity``, ``tiered``; ROADMAP queue A item 4) and its profiler
+arguments (``timeline_path``, ``xprof_*``; queue A item 5).
 """
 from __future__ import annotations
 
@@ -175,6 +178,10 @@ class _FusedFetchHandle(FetchHandle):
         return list(self._host)
 
 
+class EOFException(Exception):
+    """Raised by ``Executor.run`` when the bound reader's pass ends."""
+
+
 class NonFiniteError(RuntimeError):
     """``check_nan_inf`` tripped: a fetch holds NaN or Inf."""
 
@@ -194,6 +201,18 @@ def _finite_code(fetches, found_inf, device):
         code = torch.where(found_inf.reshape(()).bool(),
                            torch.full_like(code, _STEP_SKIP), code)
     return code
+
+
+def _reader_op_feed(reader):
+    """A program-bound reader-op pipeline as a ``train_loop`` feed: the
+    end of its pass ends the feed (where ``run`` raises EOFException)."""
+    def gen():
+        while True:
+            try:
+                yield reader.next_feed()
+            except EOFException:
+                return
+    return gen
 
 
 def _refuse(what: str, label: str):
@@ -234,6 +253,10 @@ class Executor:
         program = program or default_main_program()
         scope = scope or global_scope()
         feed = feed or {}
+        reader = program._bound_reader
+        if not feed and reader is not None:
+            # raises EOFException at the end of a pass
+            feed = reader.next_feed()
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         if self._is_startup_like(program, feed, fetch_names):
@@ -407,7 +430,9 @@ class Executor:
         ``feed`` is a reader (a zero-arg callable returning an iterable
         of feed dicts), an iterable of feed dicts, or one feed dict
         (which needs ``steps``); a list or tuple cycles when ``steps``
-        exceeds its length.  Each iteration dispatches step i, then
+        exceeds its length.  ``feed=None`` reads the program's bound
+        reader-op pipeline (``layers.read_file``) to the end of its
+        pass.  Each iteration dispatches step i, then
         stages batch i+1 on the device while step i runs.  The host
         syncs once every ``fetch_every`` steps (default: once, at the
         end): the window's handles retire and its per-step NaN/Inf codes
@@ -452,10 +477,11 @@ class Executor:
             if given:
                 _refuse(what, _PROFILER)
         if feed is None:
-            raise NotImplementedError(
-                "train_loop(feed=None) reads a program-bound reader op "
-                "(layers.read_file), which is not ported (ROADMAP queue A "
-                "item 2: layers.io beyond data)")
+            if program._bound_reader is None:
+                raise ValueError("train_loop(feed=None) reads the program's "
+                                 "bound reader op (layers.read_file); this "
+                                 "program has none")
+            feed = _reader_op_feed(program._bound_reader)
         fetch_names = tuple(f.name if isinstance(f, Variable) else f
                             for f in (fetch_list or []))
         if fetch_every is not None and fetch_every <= 0:

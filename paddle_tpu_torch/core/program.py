@@ -382,6 +382,9 @@ class Program:
         #: the loss scaler's var names (`optimizer.MixedPrecision`), read
         #: by the executor's non-finite check; None without a scaler
         self._loss_scaling = None
+        #: the reader-op pipeline `layers.read_file` bound; the executor
+        #: pulls from it when a step has no feed
+        self._bound_reader = None
 
     def global_block(self) -> Block:
         return self.blocks[0]

@@ -15,9 +15,18 @@ from .control_flow import (DynamicRNN, StaticRNN, Switch, Print,  # noqa: F401
                            reorder_lod_tensor_by_rank, lod_tensor_to_array,
                            array_to_lod_tensor, shrink_memory,
                            split_lod_tensor, merge_lod_tensor)
-from .io import data  # noqa: F401
+# io after the star-imports: the reader ops `batch` and `shuffle` are
+# the layers' names for them, as in the JAX package
+from .io import (data, Reader, EOFException, open_recordio_file,  # noqa: F401
+                 open_files, batch, shuffle, double_buffer, multi_pass,
+                 read_file, ListenAndServ, Send)
 from .learning_rate_scheduler import (  # noqa: F401
     autoincreased_step_counter, exponential_decay, inverse_time_decay,
     natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay)
-from . import (control_flow, io, learning_rate_scheduler,  # noqa: F401
-               misc, nn, ops, sequence, structured, tensor)
+from . import (control_flow, detection, io,  # noqa: F401
+               learning_rate_scheduler, misc, nn, ops, sequence, structured,
+               tensor)
+from .detection import (prior_box, iou_similarity, box_coder,  # noqa: F401
+                        bipartite_match, target_assign, multiclass_nms,
+                        detection_output, detection_map, ssd_loss,
+                        multi_box_head)

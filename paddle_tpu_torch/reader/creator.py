@@ -1,6 +1,5 @@
-"""Reader creators (counterpart of ``paddle_tpu/reader/creator.py``:
-``np_array`` and ``text_file``; the recordio creators wait for the
-recordio format, ROADMAP queue A item 6)."""
+"""Reader creators (counterpart of ``paddle_tpu/reader/creator.py``):
+``np_array``, ``text_file`` and the recordio creators."""
 from __future__ import annotations
 
 import numpy as np
@@ -20,3 +19,27 @@ def text_file(path):
             for line in f:
                 yield line.rstrip("\n")
     return reader
+
+
+def recordio(paths, buf_size=100):
+    """A reader over the raw records of recordio file(s), in file order
+    (``paths`` a list or a comma-separated string)."""
+    from ..recordio import scanner
+
+    if isinstance(paths, str):
+        paths = paths.split(",")
+
+    def reader():
+        for path in paths:
+            yield from scanner(path)
+    return reader
+
+
+def recordio_threaded(paths, num_threads=2, queue_capacity=1024):
+    """`recordio` with the files read ahead of the consumer by a pump
+    thread, up to ``queue_capacity`` records; the order is `recordio`'s.
+    The JAX package reads with its C++ loader's ``num_threads`` threads
+    when that is built; the port reads with one thread (the C++ twin is
+    ROADMAP queue A item 6)."""
+    from .decorator import buffered
+    return buffered(recordio(paths), queue_capacity)

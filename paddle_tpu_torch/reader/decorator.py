@@ -96,41 +96,57 @@ def compose(*readers, **kwargs):
 
 
 def _pumped(reader, size, exc_counter, transform=None, on_yield=None,
-            depth_gauge=None):
+            depth_gauge=None, thread_name=None):
     """The pump thread behind ``buffered`` and ``device_prefetch``: a
-    daemon thread stays up to ``size`` samples ahead of the consumer,
-    applying ``transform`` before it enqueues.  Items cross the queue as
-    (more, sample) pairs; a source (or transform) exception crosses the
-    same queue and re-raises in the consumer."""
+    daemon thread (named ``thread_name``) stays up to ``size`` samples
+    ahead of the consumer, applying ``transform`` before it enqueues.
+    Items cross the queue as (more, sample) pairs; a source (or
+    transform) exception crosses the same queue and re-raises in the
+    consumer.  A consumer that drops the generator sets a stop event,
+    and the pump ends at its next put instead of holding its samples."""
     def data_reader():
         slots: _queue.Queue = _queue.Queue(maxsize=size)
+        stop = threading.Event()
         source = reader()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    slots.put(item, timeout=0.1)
+                    return True
+                except _queue.Full:
+                    continue
+            return False
 
         def pump():
             try:
                 for sample in source:
-                    slots.put((True,
-                               transform(sample) if transform else sample))
+                    if not put((True, transform(sample) if transform
+                                else sample)):
+                        return
                     if depth_gauge is not None:
                         depth_gauge.set(slots.qsize())
             except BaseException as exc:  # noqa: BLE001 — re-raised below
                 exc_counter.inc()
-                slots.put((False, exc))
+                put((False, exc))
             else:
-                slots.put((False, None))
+                put((False, None))
 
-        threading.Thread(target=pump, daemon=True).start()
-        while True:
-            more, payload = slots.get()
-            if depth_gauge is not None:
-                depth_gauge.set(slots.qsize())
-            if not more:
-                if payload is not None:
-                    raise payload
-                return
-            if on_yield is not None:
-                on_yield()
-            yield payload
+        threading.Thread(target=pump, name=thread_name, daemon=True).start()
+        try:
+            while True:
+                more, payload = slots.get()
+                if depth_gauge is not None:
+                    depth_gauge.set(slots.qsize())
+                if not more:
+                    if payload is not None:
+                        raise payload
+                    return
+                if on_yield is not None:
+                    on_yield()
+                yield payload
+        finally:
+            stop.set()
     return data_reader
 
 
@@ -237,7 +253,8 @@ def _device_of(place):
     return place.torch_device()
 
 
-def device_prefetch(reader, size=2, place=None, stack=None):
+def device_prefetch(reader, size=2, place=None, stack=None,
+                    thread_name=None):
     """Stage a reader's batches into device memory up to ``size`` ahead of
     the consumer: a pump thread copies batch i+1 while step i runs.
 
@@ -254,7 +271,8 @@ def device_prefetch(reader, size=2, place=None, stack=None):
     ``stack=K`` groups K consecutive feed-dict batches into one
     `StackedBatch`, each leaf ``np.stack``-ed on the host and staged in
     one copy, so ``train_loop`` gets a whole window of K steps at once.
-    A ragged tail yields a smaller stack.
+    A ragged tail yields a smaller stack.  ``thread_name`` names the
+    pump thread.
     """
     import torch
 
@@ -297,7 +315,8 @@ def device_prefetch(reader, size=2, place=None, stack=None):
 
     pumped = _pumped(source, size, _DEVICE_PREFETCH_EXC,
                      transform=transform,
-                     depth_gauge=_DEVICE_PREFETCH_DEPTH)
+                     depth_gauge=_DEVICE_PREFETCH_DEPTH,
+                     thread_name=thread_name)
 
     def data_reader():
         for staged in pumped():

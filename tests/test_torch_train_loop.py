@@ -392,11 +392,12 @@ def test_fused_window_metrics_count_logical_steps():
 
 
 def test_reader_op_feed_is_refused():
-    """feed=None reads a program-bound reader op, which waits for
-    layers.io beyond data."""
+    """feed=None reads the program's bound reader op (layers.read_file;
+    tests/test_torch_reader_ops.py trains through one): a program with
+    none is refused."""
     loss, _ = _build_model()
     exe = _fresh_exe()
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
+    with pytest.raises(ValueError, match="read_file"):
         exe.train_loop(fetch_list=[loss], steps_per_launch=2)
 
 
