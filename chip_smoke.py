@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-25
+    python3 chip_smoke.py             # the smoke run, phases 1-27
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -19,7 +19,13 @@
                                       # phase 3
     python3 chip_smoke.py --genprog   # phases 1 and 22, the generation
                                       # Programs
-    python3 chip_smoke.py --ssd       # phases 1 and 24, MobileNet-SSD
+    python3 chip_smoke.py --ssd       # phases 1 and 24, MobileNet-SSD,
+                                      # with the BatchNorm backward over
+                                      # its step's 35 launches
+    python3 chip_smoke.py --sparse    # phases 1 and 26, SelectedRows
+                                      # training on the recommender
+    python3 chip_smoke.py --remat     # phases 1 and 27, the LM under
+                                      # memory_optimize
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -185,8 +191,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    caller-thread and commit ms and the skip guard's cost a step;
 18. every optimizer rule, ModelAverage's accumulation, each weight decay,
    gradient clip and LR schedule and a per-parameter learning rate on a
-   small fc program: 5 steps on the card and on the CPU from one startup
-   state, losses, learning rates and every persistable to 2e-5; the
+   small fc program, and the SelectedRows branches of sgd, momentum
+   (nesterov) and adam behind an is_sparse table: 5 steps on the card and
+   on the CPU from one startup state, losses, learning rates and every
+   persistable to 2e-5, the table rows never looked up bitwise; the
    card's ModelAverage apply/restore bitwise;
 19. train seq2seq attention NMT (bench.py bench_seq2seq: seq_to_seq_net
    with embedding, encoder and decoder 512, vocabulary 30000, batch 64,
@@ -258,9 +266,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
    path's shapes on the card against the CPU as phase 16 holds its
    rules, with ties, zero-area boxes and padding rows; the discrete
    outputs bitwise;
-then a JSON line with every ported kernel's launches, error and times,
-the card's name and power limit, and the last line:
-{"ok": true, "device": {...}}.
+26. SelectedRows training on the recommender of bench.py:794-810 at full
+   width (V 100000, D 64, T 64, batch 64, Zipf(1.1) ids with ragged
+   lengths, sequence_pool sum, fc 128 relu, fc 2 softmax, cross_entropy,
+   Adam 1e-3) through Executor.train_loop in windows of 8 steps, the
+   is_sparse leg and the dense leg: step p50/p99 and examples/s of each,
+   the loss falling, the rows never looked up bitwise their start in the
+   table and both moments; one sparse step profiled by op
+   (lookup_table, sequence_pool, backward, adam); merge_selected_rows
+   alone; then each sparse branch (Adam, SGD, Momentum with nesterov,
+   MixedPrecision(Adam)) from one startup state: one window on the card
+   against the CPU (every persistable to 1e-4; 2e-2 under amp), the rows
+   no feed looked up bitwise, one step run twice bitwise (every
+   persistable, the fetched rows and values), and under amp an inf in a
+   looked-up row of the table, a bitwise skip; then
+   benchmark/fluid/sparse_embedding.py's size leg (V 1000000, D 256,
+   uniform ids, fc 2 softmax, Adam) at bs32 T32 and bs1024 T512: sparse
+   and dense ms/step, the merge alone, and each leg's peak allocated
+   memory during a step over what was resident before it, the sparse
+   leg's at bs32 T32 under a quarter of the 1 GiB dense gradient.  No
+   port kernel runs on this path;
+27. phase 5's LM without and with fluid.memory_optimize (the recorded
+   forward in segments under torch.utils.checkpoint), each from one
+   startup state on one feed: 3 steps with launch counts zeroed before
+   and read after (under remat every forward kernel launches twice a
+   step, the backward kernels once), the losses and every @GRAD of the
+   third step bitwise the plain run's; then 6 steps timed, step p50 and
+   peak allocated memory of each;
+then a JSON line with every ported kernel's launches (with
+launches_sparse_training, launches_remat_training and
+launches_remat_plain_training), error and times, the card's name and
+power limit, and the last line: {"ok": true, "device": {...}}.
 
 With --serving it runs only phase 1, the paged-attention and LayerNorm
 checks and timings of phase 3, and phase 4; with --resnet phase 1, the
@@ -274,7 +310,10 @@ BatchNorm backward's checks and timings and phases 14-16; with
 softmax cross-entropy checks and timings at the seq2seq shapes and
 phases 19 and 20; with --xent phase 1 and the softmax cross-entropy
 checks and timings of phase 3; with --genprog phase 1 and phase 22;
-with --ssd phase 1 and phase 24.
+with --ssd phase 1, the BatchNorm backward's checks at phase 24's shapes
+and its times (kernel, plain, cuDNN) summed over the step's 35 launches,
+and phase 24; with --sparse phase 1 and phase 26; with --remat phase 1
+and phase 27.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
@@ -2854,7 +2893,8 @@ def _profile_step(exe, main, feed, avg_cost, other="other", ranges=None):
             sums[other] -= ms
         print("  by group (ms): " + ", ".join(
             f"{g} {t:.2f}" for g, t in sums.items()), flush=True)
-        return dict({"all": total / 1e3}, **sums)
+        return dict({"all": total / 1e3,
+                     "launches": sum(r.count for r in kernels)}, **sums)
     except Exception as e:  # noqa: BLE001  (a measurement aid)
         print(f"  profiler unavailable: {type(e).__name__}: {e}",
               flush=True)
@@ -4316,6 +4356,8 @@ def amp_train(smi, seed=0):
 # ---------------------------------------------------------------------------
 
 OPT_STEPS = 5
+#: the sparse cases' table rows and ids a row
+OPT_V, OPT_IDS = 20, 5
 
 
 def _opt_fc(fl, param_attr=None):
@@ -4327,12 +4369,28 @@ def _opt_fc(fl, param_attr=None):
     return layers.mean(layers.square_error_cost(input=pred, label=y))
 
 
+def _opt_sparse(fl, param_attr=None):
+    """`_opt_fc` after an is_sparse table: ids [OPT_IDS] -> embedding
+    [OPT_V, 4] -> their mean -> the fc program, x added."""
+    layers = fl.layers
+    ids = layers.data(name="ids", shape=[OPT_IDS], dtype="int64")
+    emb = layers.embedding(input=ids, size=[OPT_V, 4], is_sparse=True)
+    x = layers.data(name="x", shape=[4], dtype="float32")
+    y = layers.data(name="y", shape=[1], dtype="float32")
+    h = layers.fc(input=layers.elementwise_add(
+        layers.reduce_mean(emb, dim=1), x), size=6, act="tanh",
+        param_attr=param_attr)
+    pred = layers.fc(input=h, size=1)
+    return layers.mean(layers.square_error_cost(input=pred, label=y))
+
+
 def _opt_case(make_opt, param_attr=None, clip=None, schedule=None,
-              average=False):
+              average=False, sparse=False):
     """A phase-18 program builder: fluid -> (loss, extra fetches,
-    ModelAverage or None)."""
+    ModelAverage or None); ``sparse`` builds `_opt_sparse`."""
     def build(fl):
-        loss = _opt_fc(fl, param_attr(fl) if param_attr else None)
+        loss = (_opt_sparse if sparse else _opt_fc)(
+            fl, param_attr(fl) if param_attr else None)
         if clip:
             fl.clip.set_gradient_clip(clip(fl))
         lr = schedule(fl.layers) if schedule else None
@@ -4342,6 +4400,7 @@ def _opt_case(make_opt, param_attr=None, clip=None, schedule=None,
                                         max_average_window=3)
               if average else None)
         return loss, [lr.name] if lr is not None else [], ma
+    build.make_opt = make_opt
     return build
 
 
@@ -4402,6 +4461,10 @@ def _opt_cases():
     }
     for name, sched in schedules.items():
         cases[name] = _opt_case(opt("SGD"), schedule=sched)
+    # the SelectedRows branches: an is_sparse table (`_opt_sparse`)
+    for name in ("sgd", "momentum nesterov", "adam"):
+        cases["sparse " + name] = _opt_case(cases[name].make_opt,
+                                            sparse=True)
     return cases
 
 
@@ -4440,6 +4503,9 @@ def optimizer_rules_card_vs_cpu(seed=0):
     feeds = [{"x": rng.rand(8, 4).astype(np.float32),
               "y": rng.rand(8, 1).astype(np.float32)}
              for _ in range(OPT_STEPS)]
+    # the sparse cases' ids: the upper half of the table never looked up
+    sparse_feeds = [dict(f, ids=rng.randint(0, OPT_V // 2, (8, OPT_IDS)))
+                    for f in feeds]
     worst = {}
     rules = set()
     for label, build in _opt_cases().items():
@@ -4453,10 +4519,17 @@ def optimizer_rules_card_vs_cpu(seed=0):
         with fluid.scope_guard(scope):
             fluid.Executor(fluid.CPUPlace()).run(startup)
         state = {n: v.cpu().numpy() for n, v in scope._vars.items()}
+        f = sparse_feeds if label.startswith("sparse") else feeds
         card, card_state, ma, card_scope = _opt_run(
-            build, fluid.CUDAPlace(0), state, feeds)
+            build, fluid.CUDAPlace(0), state, f)
         cpu, cpu_state, cpu_ma, cpu_scope = _opt_run(
-            build, fluid.CPUPlace(), state, feeds)
+            build, fluid.CPUPlace(), state, f)
+        if label.startswith("sparse"):
+            for n, a in state.items():
+                if (a.shape == (OPT_V, 4) and not np.array_equal(
+                        card_state[n][OPT_V // 2:], a[OPT_V // 2:])):
+                    raise AssertionError(f"phase 18 {label}: rows never "
+                                         f"looked up moved in {n}")
         pairs = ([(f"step {i} fetch {j}", a, b)
                   for i, (ca, cb) in enumerate(zip(card, cpu))
                   for j, (a, b) in enumerate(zip(ca, cb))]
@@ -6145,16 +6218,68 @@ def ssd_phase(smi):
     return launches, e2e
 
 
+def bn_ssd_step_times(seed=0):
+    """The BatchNorm backward over one MobileNet-SSD step's 35 launches
+    (NCHW f32 at batch SSD_BATCH, relu): kernel, plain version and
+    F.batch_norm's backward (cuDNN, no relu) timed at each of the
+    BN_SSD_SHAPES geometries (`_bn_timings`), summed with each shape's
+    count of conv_bn layers in the program; the bound summed alike."""
+    import collections
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    main, _, _ = _ssd_program(seed, SSD_BATCH)
+    block = main.global_block()
+    counts = collections.Counter(
+        (h, w, c) for _, c, h, w in (block.var(op.desc.inputs["X"][0]).shape
+                                     for op in block.ops
+                                     if op.type == "batch_norm"))
+    if sum(counts.values()) != SSD_LAUNCHES_PER_STEP["batch_norm_bwd"]:
+        raise AssertionError(f"{sum(counts.values())} BatchNorms in the SSD "
+                             "program")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 24)
+    keys = ("ms", "plain_ms", "library_ms", "device_ms",
+            "library_device_ms", "bound_ms")
+    total = dict.fromkeys(keys, 0.0)
+    per_shape = {}
+    for (h, w, c), k in sorted(counts.items()):
+        n = SSD_BATCH
+        x = (1.5 * torch.randn(n, c, h * w, generator=g, device=dev) + 0.3)
+        dy = torch.randn(n, c, h * w, generator=g, device=dev)
+        sc = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+        bi = 0.5 * torch.randn(c, generator=g, device=dev)
+        mean = x.mean(dim=(0, 2))
+        inv = torch.rsqrt(x.var(dim=(0, 2), unbiased=False) + 1e-5)
+        t = _bn_timings((x, dy, sc, bi, mean, inv, "relu"), (n, h, w, c),
+                        "NCHW")
+        per_shape[f"{h}x{w} C{c}"] = dict({q: t[q] for q in keys},
+                                          layers=k)
+        for q in keys:
+            if t[q] is None or total[q] is None:
+                total[q] = None
+            else:
+                total[q] += k * t[q]
+        del x, dy
+    out = {"launches": sum(counts.values()), "sum": total,
+           "shapes": per_shape}
+    print(f"  the BatchNorm backward over the SSD step's "
+          f"{out['launches']} launches (summed ms): {json.dumps(total)}",
+          flush=True)
+    return out
+
+
 def ssd_ab(smi):
-    """``--ssd``: phase 24 alone, after building its two kernels and
-    checking the BatchNorm backward at its shapes."""
+    """``--ssd``: phase 24 alone, after building its two kernels,
+    checking the BatchNorm backward at its shapes and timing it, its plain
+    version and cuDNN's over the step's 35 launches."""
     from paddle_tpu_torch.ops import _build
     _build.build_all(("softmax_xent", "batch_norm_bwd"))
     print("phase 3: the BatchNorm backward at phase 24's shapes",
           flush=True)
     check_batch_norm_bwd({}, ssd_only=True)
+    bn_step = bn_ssd_step_times()
     launches, e2e = ssd_phase(smi)
-    return {"ssd": dict(e2e, launches={
+    return {"ssd": dict(e2e, batch_norm_bwd_step=bn_step, launches={
         n: launches[n] for n in ("softmax_xent_fwd", "softmax_xent_bwd",
                                  "batch_norm_bwd")})}
 
@@ -6292,6 +6417,539 @@ def detection_rules_card_vs_cpu(seed=0):
     """Phase 25: the detection rules (S25_OP_CASES) on the card against
     the CPU as phase 16 holds its rules, the exact cases bitwise."""
     return _rules_card_vs_cpu(25, S25_OP_CASES, S25_RULES, seed)
+
+
+# ---------------------------------------------------------------------------
+# phase 26: SelectedRows sparse training on the recommender
+# ---------------------------------------------------------------------------
+
+#: bench.py:794-810 (bench_recommender) at full width: a V x D table read
+#: by is_sparse lookups of T ids a row (Zipf(1.1), ragged lengths),
+#: sequence_pool sum, fc 128 relu, fc 2 softmax, cross_entropy, Adam 1e-3
+#: through train_loop in windows of REC_K steps; REC_WINDOWS windows a
+#: leg, the first one not timed
+REC_TRAIN = dict(V=100_000, D=64, T=64, batch=64)
+REC_K, REC_WINDOWS, REC_FEEDS = 8, 5, 8
+#: the card's state after one window against the CPU's: max abs error
+#: over max(1, max |cpu|) (f32 rules summed in another order)
+REC_CPU_TOL = 1e-4
+#: under MixedPrecision the fc products take bf16 operands, which the
+#: card and the CPU round after sums taken in another order: each
+#: persistable's max abs error after the window must stay within this
+#: share of how far the CPU's window moved it (max |cpu - start|; 0 where
+#: it did not move), so a skipped or wrong update fails
+REC_AMP_MOVE_SHARE = 0.1
+#: and each step's loss within this absolute limit (on an H100 the
+#: worst share was 5.2e-4 and the losses 6.0e-8 apart)
+REC_AMP_LOSS_TOL = 1e-5
+#: benchmark/fluid/sparse_embedding.py:388-415's size leg: V 1M, D 256,
+#: uniform ids at full length, sequence_pool sum, fc 2 softmax, Adam 1e-3;
+#: SIZE_WARMUP steps, then SIZE_STEPS timed steps a leg at each (batch, T)
+SIZE_TABLE = dict(V=1_000_000, D=256)
+SIZE_SHAPES = ((32, 32), (1024, 512))
+SIZE_WARMUP, SIZE_STEPS = 2, 5
+#: the sparse leg's peak over its resident state at bs32 T32 must stay
+#: under this share of the dense [V, D] gradient (1 GiB)
+SIZE_PEAK_SHARE = 0.25
+
+
+def _rec_program(is_sparse, make_opt, V, D, hidden=128, seed=0):
+    """The recommender in fresh programs: -> (main, startup, loss, table
+    name).  ``make_opt(fluid)`` gives the optimizer; ``hidden`` 0 drops
+    the fc 128 (sparse_embedding.py's model)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = layers.data(name="words", shape=[1], dtype="int64",
+                            lod_level=1)
+        emb = layers.embedding(input=words, size=[V, D],
+                               is_sparse=is_sparse)
+        h = layers.sequence_pool(emb, pool_type="sum")
+        if hidden:
+            h = layers.fc(input=h, size=hidden, act="relu")
+        pred = layers.fc(input=h, size=2, act="softmax")
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        loss = layers.mean(layers.cross_entropy(input=pred, label=label))
+        make_opt(fluid).minimize(loss)
+    startup.random_seed = seed
+    table = next(op.desc.inputs["W"][0] for op in main.global_block().ops
+                 if op.type == "lookup_table")
+    return main, startup, loss, table
+
+
+def _rec_feeds(n, batch, T, V, seed, zipf=1.1, ragged=True):
+    """``n`` seeded batches: ids Zipf(``zipf``) (uniform when None), the
+    lengths ragged in [1, T] or full."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = (np.minimum(rng.zipf(zipf, (batch, T)), V) - 1 if zipf
+               else rng.randint(0, V, (batch, T)))
+        out.append({"words": ids.astype(np.int64),
+                    "words@SEQ_LEN": (rng.randint(1, T + 1, batch) if ragged
+                                      else np.full(batch, T)).astype(
+                                          np.int32),
+                    "label": rng.randint(0, 2, (batch, 1)).astype(
+                        np.int64)})
+    return out
+
+
+def _startup_state(startup, place):
+    """The persistables ``startup`` makes on ``place``, as numpy."""
+    import paddle_tpu_torch as fluid
+    scope = fluid.core.scope.Scope()
+    with fluid.scope_guard(scope):
+        fluid.Executor(place).run(startup)
+    return {n: v.cpu().numpy() for n, v in scope._vars.items()}
+
+
+def _rec_run(main, loss, state, place, feeds, steps, fetch=()):
+    """``steps`` steps of ``main`` through train_loop in one window of
+    ``steps``, from ``state`` in a fresh scope on ``place`` -> (fetches a
+    step, the scope, the executor)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    exe = fluid.Executor(place)
+    scope = fluid.core.scope.Scope()
+    pio.scope_from_numpy(scope, main, state, exe.device)
+    with fluid.scope_guard(scope):
+        hs = exe.train_loop(main, feeds, fetch_list=[loss.name, *fetch],
+                            steps=steps, steps_per_launch=steps)
+        got = [h.get() for h in hs]
+    return got, scope, exe
+
+
+def _held(label, card, cpu):
+    """Fail unless every array of ``card`` is within REC_CPU_TOL x max(1,
+    max |cpu|) of ``cpu``'s; -> the largest share of the tolerance."""
+    share = 0.0
+    for name, b in cpu.items():
+        b = np.asarray(b, np.float64)
+        lim = REC_CPU_TOL * max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(np.asarray(card[name], np.float64) - b).max())
+        share = max(share, err / lim)
+        if err > lim:
+            raise AssertionError(f"phase 26 {label}: {name} on the card is "
+                                 f"{err:.3e} from the CPU's (limit {lim:.3e})")
+    return share
+
+
+def _held_to_movement(label, card, cpu, start):
+    """Fail unless every array of ``card`` is within REC_AMP_MOVE_SHARE x
+    max |cpu - start| of ``cpu``'s -> {name: [max abs error, max
+    movement]} of the arrays that moved."""
+    out = {}
+    for name, b in cpu.items():
+        b = np.asarray(b, np.float64)
+        err = float(np.abs(np.asarray(card[name], np.float64) - b).max())
+        move = float(np.abs(b - np.asarray(start[name], np.float64)).max())
+        if err > REC_AMP_MOVE_SHARE * move:
+            raise AssertionError(
+                f"phase 26 {label}: {name} on the card is {err:.3e} from "
+                f"the CPU's, whose window moved it {move:.3e} (limit "
+                f"{REC_AMP_MOVE_SHARE} of that)")
+        if move:
+            out[name] = [err, move]
+    return out
+
+
+def _sparse_branch_checks(label, make_opt, feeds, seed=0, amp=False):
+    """One optimizer's sparse branch at the recommender's full width: one
+    window of REC_K steps on the card against the CPU from one startup
+    state (every persistable to REC_CPU_TOL); the rows no feed looked up
+    bitwise their start in every [V, D] persistable (table, moments,
+    velocity); one step run twice from the start state, bitwise (every
+    persistable and the fetched rows and values); under ``amp`` one step
+    with an inf in a looked-up row of the table, which must be a skip
+    (every persistable but the scaler bitwise, the scale halved).  Under
+    ``amp`` the window is held to REC_AMP_MOVE_SHARE of each
+    persistable's movement and the losses to REC_AMP_LOSS_TOL instead."""
+    import torch
+    import paddle_tpu_torch as fluid
+    cfg = REC_TRAIN
+    main, startup, loss, table = _rec_program(True, make_opt, cfg["V"],
+                                              cfg["D"], seed=seed)
+    state = _startup_state(startup, fluid.CPUPlace())
+    wide = [n for n, a in state.items() if a.shape == (cfg["V"], cfg["D"])]
+    card, card_scope, card_exe = _rec_run(main, loss, state,
+                                          fluid.CUDAPlace(0), feeds, REC_K)
+    cpu, cpu_scope, _ = _rec_run(main, loss, state, fluid.CPUPlace(), feeds,
+                                 REC_K)
+    card_state = {n: card_scope.get(n).cpu().numpy() for n in state}
+    cpu_state = {n: cpu_scope.get(n).numpy() for n in state}
+    card_loss = np.array([float(f[0]) for f in card])
+    cpu_loss = np.array([float(f[0]) for f in cpu])
+    out = {}
+    if amp:
+        out["err_and_movement"] = _held_to_movement(label, card_state,
+                                                    cpu_state, state)
+        out["move_share"] = max(e / m for e, m in
+                                out["err_and_movement"].values())
+        out["loss_err"] = float(np.abs(card_loss - cpu_loss).max())
+        if out["loss_err"] > REC_AMP_LOSS_TOL:
+            raise AssertionError(f"phase 26 {label}: the card's losses are "
+                                 f"{out['loss_err']:.3e} from the CPU's")
+    else:
+        out["cpu_share"] = _held(label, card_state, cpu_state)
+        _held(label + " losses", {"loss": card_loss}, {"loss": cpu_loss})
+    seen = np.zeros(cfg["V"], bool)
+    seen[np.concatenate([f["words"].ravel() for f in feeds[:REC_K]])] = True
+    for n in wide:
+        if not np.array_equal(card_state[n][~seen], state[n][~seen]):
+            raise AssertionError(f"phase 26 {label}: rows no feed looked up "
+                                 f"moved in {n}")
+    grad = table + "@GRAD"
+    fetch = (grad + "@ROWS", grad + "@VALUES")
+    runs = []
+    for _ in range(2):
+        got, scope, _ = _rec_run(main, loss, state, fluid.CUDAPlace(0),
+                                 feeds[:1], 1, fetch)
+        runs.append((got, {n: scope.get(n) for n in state}))
+    (g1, s1), (g2, s2) = runs
+    same = (all(torch.equal(s1[n], s2[n]) for n in state)
+            and all(np.array_equal(a, b) for a, b in zip(g1[0], g2[0])))
+    if not same:
+        raise AssertionError(f"phase 26 {label}: one step run twice is not "
+                             "bitwise")
+    out.update(untouched_rows=int((~seen).sum()),
+               merged_rows=int(np.unique(g1[0][1]).size),
+               rows=int(g1[0][1].size), step_twice_bitwise=True)
+    if amp:
+        ls = main._loss_scaling
+        names = [n for n in state if n not in (ls["scale"],
+                                               ls["good_steps"])]
+        scale = float(card_scope.get(ls["scale"]))
+        row = int(feeds[0]["words"][0, 0])
+        with torch.no_grad():
+            card_scope.get(table)[row, 0] = float("inf")
+        before = {n: card_scope.get(n).clone() for n in names}
+        with fluid.scope_guard(card_scope):
+            card_exe.run(main, feed=feeds[0], fetch_list=[loss])
+        torch.cuda.synchronize()
+        moved = [n for n in names
+                 if not torch.equal(before[n], card_scope.get(n))]
+        after = float(card_scope.get(ls["scale"]))
+        if moved or after != scale / 2:
+            raise AssertionError(f"phase 26 {label}: the overflowed step "
+                                 f"moved {moved}, scale {scale} -> {after}")
+        out["overflow_skip_bitwise"] = True
+    print(f"  {label}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _rec_leg(is_sparse, feeds, seed=0):
+    """One leg of the recommender at full width on the card: REC_WINDOWS
+    windows of REC_K steps through train_loop, a host sync a window ->
+    (end-to-end numbers, main, loss, the executor, its scope, the start
+    state)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    cfg = REC_TRAIN
+    main, startup, loss, table = _rec_program(
+        is_sparse, lambda fl: fl.optimizer.Adam(learning_rate=1e-3),
+        cfg["V"], cfg["D"], seed=seed)
+    state = _startup_state(startup, fluid.CPUPlace())
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.core.scope.Scope()
+    pio.scope_from_numpy(scope, main, state, exe.device)
+    steps = REC_K * REC_WINDOWS
+    with fluid.scope_guard(scope):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = exe.train_loop(main, feeds, fetch_list=[loss], steps=steps,
+                            fetch_every=REC_K, steps_per_launch=REC_K)
+        wall = time.perf_counter() - t0
+    losses = [float(h.get()[0]) for h in hs]
+    ms = _window_step_ms(exe._flight.records(), REC_K)
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-REC_K:]) < np.mean(losses[:REC_K])):
+        raise AssertionError(f"recommender losses do not fall: {losses}")
+    p50 = float(np.percentile(ms, 50))
+    e2e = {"is_sparse": is_sparse, "steps": steps, "steps_per_launch": REC_K,
+           "step_ms_p50": p50, "step_ms_p99": float(np.percentile(ms, 99)),
+           "examples_per_s": cfg["batch"] * 1e3 / p50, "train_loop_s": wall,
+           "loss_first": losses[0], "loss_last": losses[-1]}
+    return e2e, main, loss, exe, scope, state, table
+
+
+def _merge_times(V, D, n, seed, zipf=None):
+    """merge_selected_rows alone on ``n`` seeded ids (Zipf(``zipf``) or
+    uniform) and values [n, D] on the card: CUDA-event ms (its one host
+    sync included) and device ms a call."""
+    import torch
+    from paddle_tpu_torch.ops.optimizer_ops import merge_selected_rows
+    rng = np.random.RandomState(seed)
+    ids = (np.minimum(rng.zipf(zipf, n), V) - 1 if zipf
+           else rng.randint(0, V, n))
+    rows = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    values = torch.tensor(rng.randn(n, D).astype(np.float32), device="cuda")
+    uniq, _ = merge_selected_rows(rows, values, V)
+    return {"n": n, "merged_rows": int(uniq.numel()),
+            "ms": _time_ms(lambda: merge_selected_rows(rows, values, V)),
+            "device_ms": _device_ms(
+                lambda: merge_selected_rows(rows, values, V))[0]}
+
+
+def _size_leg(bs, T, seed=0):
+    """sparse_embedding.py's size leg at (bs, T): each of the sparse and
+    dense legs from its startup on the card, SIZE_WARMUP steps, then
+    SIZE_STEPS timed steps (host clock around run and a synchronise);
+    the peak allocated during the last step over what was allocated
+    before it (the resident state and the feed); the merge alone."""
+    import torch
+    import paddle_tpu_torch as fluid
+    V, D = SIZE_TABLE["V"], SIZE_TABLE["D"]
+    feeds = _rec_feeds(2, bs, T, V, seed, zipf=None, ragged=False)
+    out = {"batch": bs, "T": T, "n": bs * T}
+    for is_sparse in (True, False):
+        main, startup, loss, table = _rec_program(
+            is_sparse, lambda fl: fl.optimizer.Adam(learning_rate=1e-3),
+            V, D, hidden=0, seed=seed)
+        scope = fluid.core.scope.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            state_bytes = sum(t.numel() * t.element_size()
+                              for t in scope._vars.values())
+            for step in range(SIZE_WARMUP):
+                exe.run(main, feed=feeds[step % 2], fetch_list=[loss])
+            ms = []
+            for step in range(SIZE_STEPS):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                (l,) = exe.run(main, feed=feeds[(step + 1) % 2],
+                               fetch_list=[loss])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() - before
+        if not np.isfinite(l).all():
+            raise AssertionError(f"size leg bs{bs} T{T}: loss {l}")
+        leg = "sparse" if is_sparse else "dense"
+        out[leg] = {"step_ms": ms, "step_ms_p50": float(np.median(ms)),
+                    "peak_over_resident_gib": peak / 2**30,
+                    "state_gib": state_bytes / 2**30}
+        del exe, scope
+        torch.cuda.empty_cache()
+    out["merge"] = _merge_times(V, D, bs * T, seed)
+    out["dense_over_sparse"] = (out["dense"]["step_ms_p50"]
+                                / out["sparse"]["step_ms_p50"])
+    return out
+
+
+def sparse_phase(smi, seed=0):
+    """Phase 26: the recommender of bench.py at full width, its sparse and
+    dense legs; the sparse branches of Adam, SGD, Momentum (nesterov) and
+    MixedPrecision(Adam) held to the CPU, to their untouched rows and to
+    themselves; then sparse_embedding.py's V 1M D 256 size leg.  No port
+    kernel runs on this path (the merge and the row updates are torch
+    ops): the counts, zeroed just before the sparse leg's train_loop and
+    read just after it, must all be 0.  -> (launches, end-to-end
+    numbers)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import kernels as K
+    cfg = REC_TRAIN
+    print(f"phase 26: the recommender of bench.py:794-810 {cfg} "
+          "(Zipf(1.1) ids, ragged lengths), Adam 1e-3, through "
+          f"Executor.train_loop in windows of {REC_K}: is_sparse "
+          "(SelectedRows) and dense; then sparse_embedding.py's "
+          f"{SIZE_TABLE} size leg", flush=True)
+    feeds = _rec_feeds(REC_FEEDS, cfg["batch"], cfg["T"], cfg["V"], seed)
+    e2e = {}
+    for is_sparse in (True, False):
+        leg = "sparse" if is_sparse else "dense"
+        if is_sparse:
+            K.reset_launches()
+        e2e[leg], main, loss, exe, scope, state, table = _rec_leg(
+            is_sparse, feeds, seed)
+        if is_sparse:
+            # the main path's own run: its counts, read before any check
+            launches = {k.name: k.launches for k in K.KERNELS}
+            if any(launches.values()):
+                raise AssertionError("phase 26: a port kernel launched on "
+                                     f"the sparse path: {launches}")
+        print(f"  {leg} ({smi}): {json.dumps(e2e[leg])}", flush=True)
+        if is_sparse:
+            seen = np.zeros(cfg["V"], bool)
+            seen[np.concatenate([f["words"].ravel() for f in feeds])] = True
+            wide = [n for n, a in state.items()
+                    if a.shape == (cfg["V"], cfg["D"])]
+            for n in wide:
+                now = scope.get(n).cpu().numpy()
+                if not np.array_equal(now[~seen], state[n][~seen]):
+                    raise AssertionError(f"phase 26: rows never looked up "
+                                         f"moved in {n}")
+            e2e[leg]["untouched_rows_bitwise"] = {
+                "rows": int((~seen).sum()), "tensors": wide}
+            with fluid.scope_guard(scope):
+                device = _profile_step(
+                    exe, main, feeds[0], loss, ranges={
+                        "lookup_table": "lookup_table",
+                        "sequence_pool": "sequence_pool",
+                        "backward": "backward", "adam": "adam"})
+            e2e[leg]["profiled_device_ms"] = device
+            e2e[leg]["device_busy_share"] = (
+                device["all"] / e2e[leg]["step_ms_p50"] if device else None)
+        del exe, scope
+    e2e["sparse_over_dense_examples"] = (e2e["sparse"]["examples_per_s"]
+                                         / e2e["dense"]["examples_per_s"])
+    e2e["merge"] = _merge_times(cfg["V"], cfg["D"], cfg["batch"] * cfg["T"],
+                                seed, zipf=1.1)
+    print(f"  ({smi}) merge_selected_rows alone: {json.dumps(e2e['merge'])}",
+          flush=True)
+    e2e["branches"] = {
+        "adam": _sparse_branch_checks(
+            "adam", lambda fl: fl.optimizer.Adam(learning_rate=1e-3), feeds),
+        "sgd": _sparse_branch_checks(
+            "sgd", lambda fl: fl.optimizer.SGD(learning_rate=0.1), feeds),
+        "momentum nesterov": _sparse_branch_checks(
+            "momentum nesterov", lambda fl: fl.optimizer.Momentum(
+                learning_rate=0.1, momentum=0.9, use_nesterov=True), feeds),
+        "amp adam": _sparse_branch_checks(
+            "MixedPrecision(Adam)", lambda fl: fl.optimizer.MixedPrecision(
+                fl.optimizer.Adam(learning_rate=1e-3)), feeds, amp=True)}
+    e2e["size"] = {}
+    for bs, T in SIZE_SHAPES:
+        r = _size_leg(bs, T, seed)
+        e2e["size"][f"bs{bs} T{T}"] = r
+        print(f"  size leg bs{bs} T{T} ({smi}): {json.dumps(r)}", flush=True)
+    small = e2e["size"][f"bs{SIZE_SHAPES[0][0]} T{SIZE_SHAPES[0][1]}"]
+    dense_grad_gib = SIZE_TABLE["V"] * SIZE_TABLE["D"] * 4 / 2**30
+    if small["sparse"]["peak_over_resident_gib"] > (SIZE_PEAK_SHARE
+                                                    * dense_grad_gib):
+        raise AssertionError(
+            "phase 26: the sparse leg's peak over its resident state "
+            f"({small['sparse']['peak_over_resident_gib']:.3f} GiB) is not "
+            f"far below the {dense_grad_gib:.0f} GiB dense gradient")
+    torch.cuda.empty_cache()
+    return launches, e2e
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the LM under memory_optimize (rematerialisation)
+# ---------------------------------------------------------------------------
+
+#: phase 5's LM at TRAIN_CONFIG, batch TRAIN_BATCH, f32, Adam, without and
+#: with fluid.memory_optimize: REMAT_CHECK steps from one state (losses
+#: and every @GRAD of the last compared), then REMAT_TIMED timed steps
+REMAT_CHECK, REMAT_TIMED = 3, 6
+#: under remat each forward kernel launches again in its segment's
+#: recompute; the backward kernels once
+REMAT_LAUNCHES_PER_STEP = dict(
+    TRAIN_LAUNCHES_PER_STEP, flash_attention_fwd=24, layer_norm_fwd=48,
+    softmax_xent_fwd=2)
+
+
+def remat_phase(smi, seed=0):
+    """Phase 27: the LM without and with memory_optimize in one call,
+    each leg from the same startup state on the same feed: REMAT_CHECK
+    steps with launch counts zeroed before and read after (the remat leg
+    must launch REMAT_LAUNCHES_PER_STEP a step), losses and every @GRAD of
+    the last step bitwise the plain leg's (else the op whose output
+    first differs is named with its largest difference, and the phase
+    fails); then REMAT_TIMED steps timed (host clock and a synchronise)
+    with the peak allocated memory.  -> (launches of each leg, results)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.ops import kernels as K
+    print(f"phase 27: training {TRAIN_CONFIG} at batch {TRAIN_BATCH}, f32, "
+          "Adam, without and with fluid.memory_optimize (rematerialised "
+          "segments under torch.utils.checkpoint)", flush=True)
+    feed = _copy_feed(TRAIN_BATCH, seed)
+    legs, launches, grads, losses = {}, {}, {}, {}
+    state = None
+    for remat in (False, True):
+        name = "remat" if remat else "plain"
+        main, startup, avg_cost = _train_program(seed)
+        if state is None:
+            state = _startup_state(startup, fluid.CUDAPlace(0))
+        if remat:
+            fluid.memory_optimize(main)
+        (bwd,) = [op for op in main.global_block().ops
+                  if op.type == "backward"]
+        names = [p + "@GRAD" for p in bwd.desc.attrs["params"]]
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.core.scope.Scope()
+        pio.scope_from_numpy(scope, main, state, exe.device)
+        with fluid.scope_guard(scope):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            losses[name] = []
+            for step in range(REMAT_CHECK):
+                last = step == REMAT_CHECK - 1
+                out = exe.run(main, feed=feed, fetch_list=[avg_cost] + (
+                    names if last else []), return_numpy=False)
+                losses[name].append(out[0].clone())
+            grads[name] = dict(zip(names, out[1:]))
+            torch.cuda.synchronize()
+            launches[name] = {k.name: k.launches for k in K.KERNELS}
+            ms = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(REMAT_TIMED):
+                t0 = time.perf_counter()
+                exe.run(main, feed=feed, fetch_list=[avg_cost])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+        legs[name] = {"losses": [float(l) for l in losses[name]],
+                      "step_ms": ms,
+                      "step_ms_p50": float(np.median(ms)),
+                      "peak_mem_gib": peak / 2**30,
+                      "launches_per_step": {
+                          k: v / REMAT_CHECK
+                          for k, v in launches[name].items() if v},
+                      "segments": (len(main._remat_bounds) - 1
+                                   if remat else None)}
+        print(f"  {name} ({smi}): {json.dumps(legs[name])}", flush=True)
+        del exe, scope
+        torch.cuda.empty_cache()
+    for leg, per_step in (("plain", TRAIN_LAUNCHES_PER_STEP),
+                          ("remat", REMAT_LAUNCHES_PER_STEP)):
+        for k, n in per_step.items():
+            if launches[leg][k] != n * REMAT_CHECK:
+                raise AssertionError(
+                    f"phase 27 {leg}: {k} launched {launches[leg][k]} times "
+                    f"in {REMAT_CHECK} steps, want {n} a step")
+    differ = {n: float((grads["remat"][n] - g).abs().max())
+              for n, g in grads["plain"].items()
+              if not torch.equal(grads["remat"][n], g)}
+    loss_same = all(torch.equal(a, b)
+                    for a, b in zip(losses["plain"], losses["remat"]))
+    print(f"  losses bitwise: {loss_same}; @GRADs compared "
+          f"{len(grads['plain'])}, differing {differ}", flush=True)
+    if differ or not loss_same:
+        raise AssertionError(f"phase 27: remat is not bitwise the plain run "
+                             f"(losses {loss_same}; @GRADs {differ})")
+    e2e = dict(legs, grads_compared=len(grads["plain"]), bitwise=True,
+               peak_ratio=(legs["remat"]["peak_mem_gib"]
+                           / legs["plain"]["peak_mem_gib"]),
+               step_ratio=(legs["remat"]["step_ms_p50"]
+                           / legs["plain"]["step_ms_p50"]))
+    print(f"  ({smi}) peak memory {legs['plain']['peak_mem_gib']:.3f} -> "
+          f"{legs['remat']['peak_mem_gib']:.3f} GiB, step p50 "
+          f"{legs['plain']['step_ms_p50']:.2f} -> "
+          f"{legs['remat']['step_ms_p50']:.2f} ms", flush=True)
+    return launches, e2e
+
+
+def sparse_ab(smi):
+    """``--sparse``: phase 26 alone (its path runs no port kernel)."""
+    launches, e2e = sparse_phase(smi)
+    return {"sparse": e2e}
+
+
+def remat_ab(smi):
+    """``--remat``: phase 27 alone, after building the LM's kernels."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("flash_attention", "flash_attention_bwd",
+                      "layer_norm", "layer_norm_bwd", "softmax_xent"))
+    launches, e2e = remat_phase(smi)
+    return {"remat": dict(e2e, launches=launches)}
 
 
 def seq2seq_phases(smi, recs=None):
@@ -6514,7 +7172,8 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
             "--vgg-f32": vgg_f32_anatomy, "--amp-train": amp_train_ab,
             "--seq2seq": seq2seq_ab, "--xent": xent_ab,
-            "--genprog": genprog_ab, "--ssd": ssd_ab}
+            "--genprog": genprog_ab, "--ssd": ssd_ab, "--sparse": sparse_ab,
+            "--remat": remat_ab}
 
 
 def main(argv=()):
@@ -6658,6 +7317,9 @@ def main(argv=()):
           flush=True)
     print(f"  {json.dumps(detection_rules_card_vs_cpu())}", flush=True)
 
+    sparse_launches, _ = sparse_phase(smi)
+    remat_launches, _ = remat_phase(smi)
+
     kernels = []
     for k in K.KERNELS:
         r = recs[k.name]
@@ -6672,7 +7334,9 @@ def main(argv=()):
                          + vgg_launches[k.name] + lenet_launches[k.name]
                          + amp_launches[k.name] + s2s_launches[k.name]
                          + s2s_gen_launches[k.name] + gp_launches[k.name]
-                         + ssd_launches[k.name]),
+                         + ssd_launches[k.name] + sparse_launches[k.name]
+                         + remat_launches["plain"][k.name]
+                         + remat_launches["remat"][k.name]),
             "launches_serving": serve_launches[k.name],
             "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
@@ -6685,7 +7349,10 @@ def main(argv=()):
                                   + lenet_launches[k.name]
                                   + amp_launches[k.name]
                                   + s2s_launches[k.name]
-                                  + ssd_launches[k.name]),
+                                  + ssd_launches[k.name]
+                                  + sparse_launches[k.name]
+                                  + remat_launches["plain"][k.name]
+                                  + remat_launches["remat"][k.name]),
             "launches_resnet_training": resnet_launches[k.name],
             "launches_lstm_training": seq["lstm"][0][k.name],
             "launches_gru_training": seq["gru"][0][k.name],
@@ -6695,6 +7362,9 @@ def main(argv=()):
             "launches_seq2seq_training": s2s_launches[k.name],
             "launches_seq2seq_generation": s2s_gen_launches[k.name],
             "launches_ssd_training": ssd_launches[k.name],
+            "launches_sparse_training": sparse_launches[k.name],
+            "launches_remat_training": remat_launches["remat"][k.name],
+            "launches_remat_plain_training": remat_launches["plain"][k.name],
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -65,6 +65,8 @@ from .core import (Executor, CPUPlace, CUDAPlace, Program,  # noqa: F401
                    default_main_program, default_startup_program,
                    global_scope, program_guard, scope_guard)
 from .core.lowering import LEN_SUFFIX  # noqa: F401
+from .memory_optimization_transpiler import (memory_optimize,  # noqa: F401
+                                             release_memory)
 from .param_attr import ParamAttr  # noqa: F401
 
 __version__ = "0.5.0"

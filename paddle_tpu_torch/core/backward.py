@@ -10,12 +10,27 @@ the parameters (see `core.lowering`), so the rule calls
 Function of the port's kernels (flash attention, LayerNorm, softmax
 cross-entropy) runs its backward kernel there.
 
+SelectedRows gradients.  A table read only as the ``W`` of ``is_sparse``
+``lookup_table`` ops (`_find_sparse_params`) gets a ``@GRAD`` var of type
+``SELECTED_ROWS`` with ``@GRAD@ROWS`` and ``@GRAD@VALUES`` companions,
+and the dense ``[V, D]`` gradient never exists.  Where the JAX rule
+differentiates with respect to a zero delta added at each sparse
+lookup's output, the port does not make such a table require grad at
+all: the lookup rule gathers from the detached table and makes the
+gathered rows the autograd leaf (`ops.nn_ops`), and this rule asks
+``torch.autograd.grad`` for those leaves.  ``@ROWS`` is the ids, int32,
+concatenated over the table's lookups in op order; ``@VALUES`` the
+leaves' gradients as ``[-1, D]`` rows in the table's dtype.
+
+Rematerialisation (``memory_optimize``).  Where the JAX rule replays the
+forward in ``jax.checkpoint`` segments, the interpreter runs the
+recorded forward in segments under ``torch.utils.checkpoint``
+(`core.lowering`), so this rule's one ``torch.autograd.grad`` recomputes
+each segment's saved tensors as it reaches it.
+
 `calc_gradient` appends the same op for any targets and inputs (the
 JAX function's program), so a program may hold several; the interpreter
 records up to the last, and every one but the last keeps the graph.
-
-Not ported yet: SelectedRows (``is_sparse``) gradients and
-``memory_optimize`` rematerialisation.
 """
 from __future__ import annotations
 
@@ -23,9 +38,10 @@ from typing import List, Optional, Sequence, Set, Tuple
 
 import torch
 
-from .lowering import ExecContext
+from .lowering import ROWS_SUFFIX, VALUES_SUFFIX, ExecContext
 from .program import Parameter, Variable
 from .registry import register_op
+from .types import VarType
 
 
 def append_backward(loss: Variable,
@@ -39,17 +55,21 @@ def append_backward(loss: Variable,
         params = [p for p in params if p.name in names]
     if no_grad_set:
         params = [p for p in params if p.name not in no_grad_set]
-    names = {p.name for p in params}
-    for op in block.ops:
-        if (op.type == "lookup_table" and op.desc.attrs.get("is_sparse")
-                and op.desc.inputs["W"][0] in names):
-            raise NotImplementedError(
-                "is_sparse embeddings (SelectedRows gradients) are not "
-                "ported: build the embedding with is_sparse=False")
 
     forward_op_end = len(block.ops)
-    grad_vars = [block.create_var(name=p.name + "@GRAD", shape=p.shape,
-                                  dtype=p.dtype) for p in params]
+    sparse = _find_sparse_params(block, forward_op_end,
+                                 {p.name for p in params})
+    grad_vars = []
+    for p in params:
+        g = block.create_var(name=p.name + "@GRAD", shape=p.shape,
+                             dtype=p.dtype)
+        if p.name in sparse:
+            g.desc.type = VarType.SELECTED_ROWS
+            block.create_var(name=g.name + ROWS_SUFFIX, shape=(-1,),
+                             dtype="int32")
+            block.create_var(name=g.name + VALUES_SUFFIX,
+                             shape=(-1, p.shape[-1]), dtype=p.dtype)
+        grad_vars.append(g)
     loss_grad = block.create_var(name=loss.name + "@GRAD", shape=loss.shape,
                                  dtype=loss.dtype)
     block.append_op(
@@ -58,10 +78,35 @@ def append_backward(loss: Variable,
         outputs={"Grads": [g.name for g in grad_vars],
                  "LossGrad": [loss_grad]},
         attrs={"params": [p.name for p in params],
-               "sparse_params": [],
+               "sparse_params": sorted(sparse),
                "forward_op_end": forward_op_end,
                "op_role": "backward"})
     return list(zip(params, grad_vars))
+
+
+def _find_sparse_params(block, op_end, param_names):
+    """Tables eligible for SelectedRows gradients: every use in ``[0,
+    op_end)`` is the ``W`` of an ``is_sparse`` ``lookup_table``.  Any
+    other reader, in this block or in a sub-block, vetoes the table (its
+    gradient stays dense)."""
+    eligible, vetoed = set(), set()
+    for op in block.ops[:op_end]:
+        for slot, names in op.desc.inputs.items():
+            for n in names:
+                if n not in param_names:
+                    continue
+                if (op.type == "lookup_table" and slot == "W"
+                        and op.desc.attrs.get("is_sparse")):
+                    eligible.add(n)
+                else:
+                    vetoed.add(n)
+    for other in block.program.blocks:
+        if other is block:
+            continue
+        for op in other.ops:
+            for names in op.desc.inputs.values():
+                vetoed.update(n for n in names if n in param_names)
+    return eligible - vetoed
 
 
 def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
@@ -84,26 +129,67 @@ def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
     return grad_vars
 
 
+def _sparse_sites(block, op_end, sparse_params):
+    """``{table: [(lookup Out name, Ids name), ...]}`` in op order: the
+    ``is_sparse`` lookups of each SelectedRows table in ``[0, op_end)``."""
+    sites = {}
+    for op in block.ops[:op_end]:
+        if (op.type == "lookup_table" and op.desc.attrs.get("is_sparse")
+                and op.desc.inputs["W"][0] in sparse_params):
+            sites.setdefault(op.desc.inputs["W"][0], []).append(
+                (op.desc.outputs["Out"][0], op.desc.inputs["Ids"][0]))
+    return sites
+
+
 @register_op("backward")
 def _backward_rule(ctx: ExecContext):
-    if ctx.attr("sparse_params"):
-        raise NotImplementedError("SelectedRows gradients are not ported")
     loss = ctx.input("Loss")
-    params = [ctx.env[p] for p in ctx.attr("params")]
+    names = ctx.attr("params")
+    params = [ctx.env[p] for p in names]
+    sites = _sparse_sites(ctx.block, ctx.attr("forward_op_end"),
+                         set(ctx.attr("sparse_params", []) or ()))
+    # each sparse lookup's (table, gathered rows or None, ids); a lookup
+    # that did not run (dead) gives zero values for its fed ids
+    gathered = []
+    for p in names:
+        for out, ids in sites.get(p, ()):
+            leaf, flat = ctx.interpreter.sparse_leaves.get(
+                out, (None, ctx.env[ids]))
+            gathered.append((p, leaf, flat))
     # d(sum(loss))/dparams, the JAX rule's jax.grad of jnp.sum(loss)
     loss_grad = torch.ones_like(loss)
     # a loss that depends on no parameter (a constant, or only on stopped
     # inputs) has zero gradients, as jax.grad gives
-    want = [i for i, p in enumerate(params) if p.requires_grad]
-    grads = [None] * len(params)
-    if loss.requires_grad and want:
-        got = torch.autograd.grad(
-            loss, [params[i] for i in want], grad_outputs=loss_grad,
-            allow_unused=True,
+    wrt = [params[i] for i, p in enumerate(names)
+           if p not in sites and params[i].requires_grad]
+    wrt += [leaf for _, leaf, _ in gathered
+            if leaf is not None and leaf.requires_grad]
+    got = {}
+    if loss.requires_grad and wrt:
+        grads = torch.autograd.grad(
+            loss, wrt, grad_outputs=loss_grad, allow_unused=True,
             retain_graph=ctx.op is not ctx.interpreter.last_backward)
-        for i, g in zip(want, got):
-            grads[i] = g
-    for gname, p, g in zip(ctx.output_names("Grads"), params, grads):
-        ctx.env[gname] = (torch.zeros_like(p) if g is None
-                          else g.to(p.dtype)).detach()
+        got = {id(t): g for t, g in zip(wrt, grads)}
+    for gname, p, val in zip(ctx.output_names("Grads"), names, params):
+        if p in sites:
+            continue
+        g = got.get(id(val))
+        ctx.env[gname] = (torch.zeros_like(val) if g is None
+                          else g.to(val.dtype)).detach()
+    for gname, p, val in zip(ctx.output_names("Grads"), names, params):
+        if p not in sites:
+            continue
+        d = val.shape[-1]
+        rows, values = [], []
+        for table, leaf, ids in gathered:
+            if table != p:
+                continue
+            g = got.get(id(leaf)) if leaf is not None else None
+            rows.append(ids.reshape(-1).to(torch.int32))
+            values.append(
+                torch.zeros((ids.numel(), d), dtype=val.dtype,
+                            device=val.device) if g is None
+                else g.detach().reshape(-1, d).to(val.dtype))
+        ctx.env[gname + ROWS_SUFFIX] = torch.cat(rows)
+        ctx.env[gname + VALUES_SUFFIX] = torch.cat(values)
     ctx.set_output("LossGrad", loss_grad)

@@ -42,7 +42,10 @@ as its feed until the pass ends.
 Refused: the sharded-run arguments of ``train_loop`` (``mesh``,
 ``param_spec``, ``data_axis``, ``numerics``, ``lookup_exchange``,
 ``a2a_capacity``, ``tiered``; ROADMAP queue A item 4) and its profiler
-arguments (``timeline_path``, ``xprof_*``; queue A item 5).
+arguments (``timeline_path``, ``xprof_*``; queue A item 5); and, in
+``run`` and ``train_loop``, a program with an
+``embedding(is_distributed=True)`` table, which the JAX executor refuses
+when no mesh is bound (the port has none).
 """
 from __future__ import annotations
 
@@ -215,6 +218,29 @@ def _reader_op_feed(reader):
     return gen
 
 
+def _refuse_distributed(program: Program):
+    """An ``is_distributed`` table is row-sharded over a mesh in the JAX
+    package, which refuses to run it with no mesh bound; the port has no
+    mesh, so it always refuses (it would train the table replicated).
+    The tables are the ``W`` of every ``lookup_table(is_distributed=True)``
+    of the main block (the JAX ``parallel.embedding.distributed_tables``);
+    the scan runs again only when the block's op count changes."""
+    ops = program.global_block().ops
+    if getattr(program, "_undistributed_at", None) == len(ops):
+        return
+    tables = sorted({name for op in ops if op.type == "lookup_table"
+                     and op.desc.attrs.get("is_distributed")
+                     for name in op.desc.inputs.get("W", [])})
+    if tables:
+        raise ValueError(
+            "layers.embedding(is_distributed=True): program has "
+            f"distributed table(s) {tables} but no mesh is bound "
+            "- the table would train replicated and lie about capacity.  "
+            f"The port has no mesh (ROADMAP {_SHARDED}); single-device "
+            "training wants is_sparse=True without is_distributed.")
+    program._undistributed_at = len(ops)
+
+
 def _refuse(what: str, label: str):
     raise NotImplementedError(f"train_loop({what}) is not ported "
                               f"(ROADMAP {label})")
@@ -263,6 +289,7 @@ class Executor:
             lowering.run_startup(program, scope, self.device,
                                  self._rng(program))
             return []
+        _refuse_distributed(program)
         fi_name = self._found_inf_name(program)
         names = fetch_names + [fi_name] if fi_name else fetch_names
         t0 = time.perf_counter()
@@ -476,6 +503,7 @@ class Executor:
                             ("xprof_dir", xprof_dir is not None)):
             if given:
                 _refuse(what, _PROFILER)
+        _refuse_distributed(program)
         if feed is None:
             if program._bound_reader is None:
                 raise ValueError("train_loop(feed=None) reads the program's "

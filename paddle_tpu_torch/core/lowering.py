@@ -57,10 +57,35 @@ records up to the last live one, and each keeps the graph for the next.
 write plan, computed once for every ``kv_cache_write`` of a generation
 step (one host sync a step instead of one a layer).  It lives and dies
 with the run's interpreter.
+
+SelectedRows.  A table a live ``backward`` op lists in
+``sparse_params`` never requires grad: its ``is_sparse`` lookups make
+their gathered rows the autograd leaves (``Interpreter.sparse_leaves``),
+and the sparse branches of ``sgd``, ``momentum`` and ``adam`` hand the
+commit a `RowUpdate`, which scatters only the merged rows into the
+scope's tensor (``index_copy_``; under ``skip_on_found_inf`` the old
+rows go back in where the step overflowed).
+
+Rematerialisation (``memory_optimize`` sets ``program._memory_opt``).
+The recorded forward ``[0, record_end)`` runs in segments at
+``program._remat_bounds`` (clipped to the recorded slice), or at a
+uniform sqrt(N) split without them, as the JAX backward rule cuts it.
+Each segment runs its ops over its own copy of the env under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: autograd
+keeps none of the tensors the segment saves for backward, and the env
+keeps only the segment's live-out values (read by a later op, a
+sub-block or the fetch list, persistable, or a length companion of
+one).  The backward recomputes a segment from a snapshot of the env at
+its entry.  A recompute draws again from the executor's generator at
+the state it had on the segment's entry (and leaves it as it was), so
+dropout masks repeat.  Print, KV-write and control ops, whose effects
+must not happen twice, run outside any segment.  The dead-op skip and
+``check_nan_inf`` see the same ops as without remat.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+import math
+from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 import torch
 
@@ -69,6 +94,9 @@ from .registry import OpRegistry
 
 #: suffix of the companion length vector of a ragged value
 LEN_SUFFIX = "@SEQ_LEN"
+#: suffixes of a SelectedRows gradient's row ids and row values in the env
+#: (an is_sparse table's ``@GRAD``, `core.backward`)
+ROWS_SUFFIX, VALUES_SUFFIX = "@ROWS", "@VALUES"
 #: suffix of an int8 parameter's per-column dequantization scales in the
 #: env (serving.Predictor at precision "int8"; the lookup_table rule
 #: dequantizes only the rows it gathers)
@@ -195,6 +223,30 @@ WRITE_OPS = {"kv_cache_write"}
 SUB_BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
 
 
+class RowUpdate:
+    """An optimize op's output that changes only some rows of the tensor
+    its name holds: ``rows`` (int64, distinct, in range) take ``values``.
+    The commit scatters them in place."""
+
+    __slots__ = ("base", "rows", "values")
+
+    def __init__(self, base: torch.Tensor, rows: torch.Tensor,
+                 values: torch.Tensor):
+        self.base, self.rows, self.values = base, rows, values
+
+
+def remat_bounds(program: Program, record_end: int) -> List[int]:
+    """The segment bounds of the recorded forward ``[0, record_end)``:
+    the transpiler's liveness cuts, else a uniform sqrt(N) split (the JAX
+    backward rule's)."""
+    bounds = getattr(program, "_remat_bounds", None)
+    if bounds:
+        return sorted({min(b, record_end) for b in bounds}
+                      | {0, record_end})
+    n_seg = max(1, int(math.sqrt(record_end)))
+    return [round(i * record_end / n_seg) for i in range(n_seg + 1)]
+
+
 class Interpreter:
     """Runs a block's ops over an env on one device."""
 
@@ -216,6 +268,12 @@ class Interpreter:
         #: values the rules of this run share, by a key of the rule's
         #: choosing (module docstring)
         self.memo: Dict[Any, Any] = {}
+        #: the SelectedRows tables of this run's live backward ops
+        self.sparse_tables: Set[str] = set()
+        #: lookup Out name -> (gathered rows, the autograd leaf; flat ids)
+        self.sparse_leaves: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        #: names read outside the block being run (sub-blocks, fetches)
+        self._outer_reads: Set[str] = set()
 
     def live_ops(self, block: Block) -> List[bool]:
         """Which ops of ``block`` run; also sets ``needed`` to the names a
@@ -225,6 +283,7 @@ class Interpreter:
             if b is not block:
                 for op in b.ops:
                     needed.update(op.desc.input_names())
+        self._outer_reads = set(needed)
         live = [True] * len(block.ops)
         for i in range(len(block.ops) - 1, -1, -1):
             op = block.ops[i]
@@ -259,36 +318,128 @@ class Interpreter:
         # the backward rule keeps the graph for a later backward op
         self.last_backward = block.ops[record_end] if bwd else None
         for i in bwd:
+            self.sparse_tables.update(
+                block.ops[i].desc.attrs.get("sparse_params") or ())
+        for i in bwd:
             for name in block.ops[i].desc.attrs["params"]:
                 val = env.get(name)
-                if (isinstance(val, torch.Tensor) and val.is_floating_point()
+                if (name not in self.sparse_tables
+                        and isinstance(val, torch.Tensor)
+                        and val.is_floating_point()
                         and not val.requires_grad):
                     env[name] = val.detach().requires_grad_(True)
-        for i, op in enumerate(block.ops):
-            if not live[i]:
-                continue
-            rule = OpRegistry.get(op.type)
-            ctx = ExecContext(op, env, self.program, block, self)
-            record = i < record_end
-            prev = None
-            if op.desc.attrs.get("op_role") == "optimize":
-                prev = {n: env[n] for n in op.desc.output_names()
-                        if isinstance(env.get(n), torch.Tensor)}
-            with torch.set_grad_enabled(record):
-                rule.fn(ctx)
-            if record:
-                self._stop_gradients(op, block, env)
-            if prev:
-                self._commit(op, env, prev)
-            if self.check_nan_inf:
-                self._poison_nonfinite(op, env, prev or {})
+        start = 0
+        if record_end and getattr(self.program, "_memory_opt", False):
+            self._run_remat(block, env, live, record_end)
+            start = record_end
+        for i in range(start, len(block.ops)):
+            if live[i]:
+                self._run_op(block, env, i, i < record_end)
         return env
+
+    def _run_op(self, block: Block, env: Dict[str, Any], i: int,
+                record: bool):
+        op = block.ops[i]
+        rule = OpRegistry.get(op.type)
+        ctx = ExecContext(op, env, self.program, block, self)
+        prev = None
+        if op.desc.attrs.get("op_role") == "optimize":
+            prev = {n: env[n] for n in op.desc.output_names()
+                    if isinstance(env.get(n), torch.Tensor)}
+        with torch.set_grad_enabled(record):
+            rule.fn(ctx)
+        if record:
+            self._stop_gradients(op, block, env)
+        if prev:
+            self._commit(op, env, prev)
+        if self.check_nan_inf:
+            self._poison_nonfinite(op, env, prev or {})
+
+    # -- rematerialisation ---------------------------------------------------
+    @staticmethod
+    def _replay_safe(op: Operator) -> bool:
+        """False for an op whose effect must not happen twice (a print, a
+        KV write, a control op running a sub-block)."""
+        return not (op.type in PRINT_OPS or op.type in WRITE_OPS
+                    or any(k in op.desc.attrs for k in SUB_BLOCK_ATTRS))
+
+    def _run_remat(self, block: Block, env: Dict[str, Any],
+                   live: List[bool], record_end: int):
+        """Ops ``[0, record_end)`` in checkpointed segments (module
+        docstring); ops that must not replay run between them."""
+        runs = []             # (lo, hi) checkpointed, or (i, None) plain
+        bounds = remat_bounds(self.program, record_end)
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            run_lo = lo
+            for i in range(lo, hi + 1):
+                if i < hi and self._replay_safe(block.ops[i]):
+                    continue
+                if any(live[run_lo:i]):
+                    runs.append((run_lo, i))
+                if i < hi and live[i]:
+                    runs.append((i, None))
+                run_lo = i + 1
+        # keep[hi]: the names a sub-block, a fetch or a live op at hi or
+        # later reads (a checkpointed run's live-out)
+        ends = {hi for _, hi in runs if hi is not None}
+        keep: Dict[int, Set[str]] = {}
+        acc = set(self._outer_reads)
+        for i in range(len(block.ops) - 1, -1, -1):
+            if live[i]:
+                acc.update(block.ops[i].desc.input_names())
+            if i in ends:
+                keep[i] = set(acc)
+        for lo, hi in runs:
+            if hi is None:
+                self._run_op(block, env, lo, True)
+            else:
+                self._run_segment(block, env, live, lo, hi, keep[hi])
+
+    def _run_segment(self, block: Block, env: Dict[str, Any],
+                     live: List[bool], lo: int, hi: int, keep: Set[str]):
+        from torch.utils.checkpoint import checkpoint
+        snap = dict(env)
+        gen = self.generator
+        entry_state = gen.get_state()
+        runs = [0]
+
+        def segment():
+            replay = runs[0] > 0
+            runs[0] += 1
+            if replay:
+                # the recompute draws what the first run drew
+                resume_state = gen.get_state()
+                gen.set_state(entry_state)
+            try:
+                env2 = dict(snap)
+                for i in range(lo, hi):
+                    if live[i]:
+                        self._run_op(block, env2, i, True)
+                return env2
+            finally:
+                if replay:
+                    gen.set_state(resume_state)
+
+        out = checkpoint(segment, use_reentrant=False,
+                         preserve_rng_state=False)
+        for name in snap:
+            if name not in out:
+                env.pop(name, None)          # a delete_var in the segment
+        for name, val in out.items():
+            if snap.get(name) is val:
+                continue
+            if (name in keep or not isinstance(val, torch.Tensor)
+                    or (name.endswith(LEN_SUFFIX)
+                        and name[:-len(LEN_SUFFIX)] in keep)
+                    or self._persistable(block, name)):
+                env[name] = val
 
     @staticmethod
     def _commit(op: Operator, env: Dict[str, Any], prev: Dict[str, Any]):
         """Copy an optimize op's outputs into the tensors their names held
-        before it; under ``skip_on_found_inf`` keep the old values where
-        the step's FoundInf is set."""
+        before it (a `RowUpdate` scatters its rows); under
+        ``skip_on_found_inf`` keep the old values where the step's
+        FoundInf is set."""
         found = None
         if op.desc.attrs.get("skip_on_found_inf"):
             names = op.desc.inputs.get("FoundInf", [])
@@ -297,6 +448,14 @@ class Interpreter:
         with torch.no_grad():
             for name, old in prev.items():
                 new = env[name]
+                if isinstance(new, RowUpdate):
+                    vals = new.values.to(old.dtype)
+                    if found is not None:
+                        vals = torch.where(
+                            found, old.index_select(0, new.rows), vals)
+                    old.index_copy_(0, new.rows, vals)
+                    env[name] = old
+                    continue
                 if (new is old or not isinstance(new, torch.Tensor)
                         or new.shape != old.shape):
                     continue

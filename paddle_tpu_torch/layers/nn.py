@@ -63,8 +63,11 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
-    """nn.py embedding -> lookup_table op.  is_distributed maps to the mesh-
-    sharded table in parallel/embedding.py (P7 parity)."""
+    """nn.py embedding -> lookup_table op.  ``is_sparse`` trains the table
+    with a SelectedRows gradient (`core.backward`).  ``is_distributed``
+    only marks the op: the JAX package row-shards such a table over a
+    mesh; the port has none, so its ``Executor`` refuses the program
+    (ROADMAP queue A item 4)."""
     helper = LayerHelper("embedding", input=input, param_attr=param_attr)
     w = helper.create_parameter(helper.param_attr, shape=list(size),
                                 dtype=dtype,

@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/amp_ops.py``).
 
 Both rules stay on the device: ``check_finite_and_unscale`` reduces every
-gradient's finiteness to one boolean tensor, and ``update_loss_scaling``
+gradient's finiteness (a SelectedRows gradient's by its row values) to
+one boolean tensor, and ``update_loss_scaling``
 moves the scale with selects, so a step never waits on the host to learn
 that it overflowed.  The update skip itself is the interpreter's
 (`core.lowering`): an optimize op wired with ``FoundInf`` and the
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.lowering import ROWS_SUFFIX, VALUES_SUFFIX
 from ..core.registry import register_op
 
 
@@ -26,14 +28,17 @@ def _check_finite_and_unscale(ctx):
     for n_in, n_out in zip(ctx.op.desc.inputs.get("X", []),
                            ctx.output_names("Out")):
         g = ctx.env.get(n_in)
-        if g is None:
-            if ctx.env.get(n_in + "@VALUES") is not None:
-                raise NotImplementedError(
-                    "check_finite_and_unscale over a SelectedRows gradient "
-                    "is not ported")
+        if g is not None:
+            finite.append(torch.isfinite(g).all())
+            ctx.env[n_out] = g.float() * inv
             continue
-        finite.append(torch.isfinite(g).all())
-        ctx.env[n_out] = g.float() * inv
+        # a SelectedRows gradient (an is_sparse table): check and unscale
+        # its row values, carry its rows
+        vals = ctx.env.get(n_in + VALUES_SUFFIX)
+        if vals is not None:
+            finite.append(torch.isfinite(vals).all())
+            ctx.env[n_out + VALUES_SUFFIX] = vals.float() * inv
+            ctx.env[n_out + ROWS_SUFFIX] = ctx.env[n_in + ROWS_SUFFIX]
     if finite:
         found = torch.logical_not(torch.stack(finite).all())
     else:

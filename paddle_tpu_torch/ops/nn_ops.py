@@ -467,6 +467,16 @@ def _lookup_table(ctx):
         # an int8 table (serving precision "int8"): dequantize only the
         # gathered rows with the per-column scales, stored bf16
         out = embedding_lookup(ctx.input("W"), flat, scale)
+    table = ctx.input_name("W")
+    if (ctx.attr("is_sparse") and torch.is_grad_enabled()
+            and table in ctx.interpreter.sparse_tables):
+        # a SelectedRows table (core.backward): the table does not
+        # require grad, the gathered rows are the autograd leaf, before
+        # the padding mask so that padded ids get zero values.  A
+        # rematerialised segment's recompute keeps the first leaf.
+        out.requires_grad_(True)
+        ctx.interpreter.sparse_leaves.setdefault(ctx.output_name("Out"),
+                                                 (out, flat))
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         # the padding row reads (and so trains) as zeros

@@ -7,21 +7,98 @@ the dense paths of ``sgd``, ``momentum``, ``adam``, ``adamax``,
 Each rule computes its outputs out of place, the JAX rules' math term
 for term.  The interpreter commits them into the scope's own tensors
 (`core.lowering`), so a step copies no state, and an op wired with
-``FoundInf`` keeps its old values on an overflowed step.  The sparse
-(SelectedRows) and mesh-sharded branches are not ported.
+``FoundInf`` keeps its old values on an overflowed step.
+
+SelectedRows.  ``sgd``, ``momentum`` and ``adam`` also take a
+SelectedRows gradient (``<Grad>@ROWS``, ``<Grad>@VALUES``; an
+``is_sparse`` table, `core.backward`): `merge_selected_rows` sums the
+duplicate rows, and the update reads and writes only the merged rows,
+so Adam's moments and Momentum's velocity of every other row stay as
+they were (``adam_op.h`` SparseAdamFunctor).  The rule hands the commit
+a `core.lowering.RowUpdate` of those rows, so a step moves the touched
+rows, never the whole table.  Every other optimizer refuses such a
+gradient, as the JAX package's rules do.  The mesh-sharded branches are
+not ported (ROADMAP queue A item 4).
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.lowering import ROWS_SUFFIX, VALUES_SUFFIX, RowUpdate
 from ..core.registry import register_op
 
 
 def _grad(ctx):
-    if ctx.input_name("Grad") not in ctx.env:
-        raise NotImplementedError(f"{ctx.op.type} over a SelectedRows "
-                                  "gradient is not ported")
+    name = ctx.input_name("Grad")
+    if name not in ctx.env and name + VALUES_SUFFIX in ctx.env:
+        raise ValueError(
+            f"{ctx.op.type} has no SelectedRows branch: {name} is the "
+            "gradient of an is_sparse table, which only sgd, momentum and "
+            "adam update; build the embedding with is_sparse=False")
     return ctx.input("Grad")
+
+
+def merge_selected_rows(rows: torch.Tensor, values: torch.Tensor, V: int):
+    """Sum the values of duplicate rows (``selected_rows_functor.cc``
+    MergeAdd) -> (rows int64 ``[k]``, strictly increasing, in ``[0,
+    V)``; their summed values f32 ``[k, D]``).  Ids in ``[-V, 0)`` wrap
+    as the lookup wraps them; other ids outside ``[0, V)`` are dropped,
+    as the JAX rule's scatters drop them.
+
+    The JAX rule's order: a stable sort of the ids, then each segment
+    summed in that order.  ``index_put_(accumulate=True)`` sums the
+    duplicates of an index in order of position (on the card a sorted,
+    sequential pass, not atomics), so the bits repeat from run to run.
+    The size ``k`` is data-dependent: reading it costs one
+    device-to-host sync a merge (the JAX rule pads to ``n`` instead)."""
+    n = rows.shape[0]
+    d = values.shape[-1]
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.int64, device=rows.device),
+                torch.zeros((0, d), dtype=torch.float32,
+                            device=values.device))
+    rows = rows.long()
+    rows = torch.where((rows < 0) & (rows >= -V), rows + V, rows)
+    sr, order = torch.sort(rows, stable=True)
+    sv = values.float().index_select(0, order)
+    head = torch.ones_like(sr, dtype=torch.bool)
+    head[1:] = sr[1:] != sr[:-1]
+    seg = torch.cumsum(head, 0) - 1
+    # the one host sync: segments, and those below 0 and below V
+    k, lo, hi = torch.stack([seg[-1] + 1, (head & (sr < 0)).sum(),
+                             (head & (sr < V)).sum()]).tolist()
+    uniq = torch.full((k,), -1, dtype=torch.int64, device=rows.device)
+    uniq.scatter_reduce_(0, seg, sr, "amax")
+    merged = torch.zeros((k, d), dtype=torch.float32, device=values.device)
+    merged.index_put_((seg,), sv, accumulate=True)
+    return uniq[lo:hi], merged[lo:hi]
+
+
+def _sparse_grad(ctx):
+    """(merged rows, merged values) when this op's Grad is a SelectedRows
+    gradient, else None."""
+    name = ctx.input_name("Grad")
+    if name in ctx.env:
+        return None
+    rows = ctx.env.get(name + ROWS_SUFFIX)
+    values = ctx.env.get(name + VALUES_SUFFIX)
+    if rows is None or values is None:
+        return None
+    return merge_selected_rows(rows, values, ctx.input("Param").shape[0])
+
+
+def _set_rows(ctx, slot: str, base: torch.Tensor, rows: torch.Tensor,
+              values: torch.Tensor):
+    """Output ``slot``: ``base`` with ``rows`` replaced by ``values``, a
+    `RowUpdate` that the commit scatters into ``base`` itself.  Every
+    optimize op `Optimizer.minimize` builds writes its state in place;
+    a sparse update that is not committed so is refused."""
+    if not (ctx.attr("op_role") == "optimize"
+            and ctx.env.get(ctx.output_name(slot)) is base):
+        raise ValueError(
+            f"{ctx.op.type}: a SelectedRows update of {slot} must write "
+            "its input in place in an optimize-role op")
+    ctx.set_output(slot, RowUpdate(base, rows, values))
 
 
 def _lr(ctx):
@@ -34,40 +111,80 @@ def _scalar(ctx, slot):
 
 @register_op("sgd")
 def _sgd(ctx):
-    p, g = ctx.input("Param"), _grad(ctx)
+    p = ctx.input("Param")
+    sparse = _sparse_grad(ctx)
+    if sparse is not None:
+        rows, g = sparse
+        # the JAX rule's scatter-add of -lr * merged into the rows
+        p_rows = p.index_select(0, rows)
+        _set_rows(ctx, "ParamOut", p, rows,
+                  p_rows + (-_lr(ctx) * g).to(p.dtype))
+        return
+    g = _grad(ctx)
     ctx.set_output("ParamOut", (p - _lr(ctx) * g).to(p.dtype))
+
+
+def _momentum_step(p, v, g, mu, lr, nesterov):
+    v_new = mu * v + g
+    if nesterov:
+        return p - (g + mu * v_new) * lr, v_new
+    return p - lr * v_new, v_new
 
 
 @register_op("momentum")
 def _momentum(ctx):
-    p, g, v = ctx.input("Param"), _grad(ctx), ctx.input("Velocity")
-    mu = ctx.attr("mu")
-    lr = _lr(ctx)
-    v_new = mu * v + g
-    if ctx.attr("use_nesterov", False):
-        p_new = p - (g + mu * v_new) * lr
-    else:
-        p_new = p - lr * v_new
+    p, v = ctx.input("Param"), ctx.input("Velocity")
+    mu, lr = ctx.attr("mu"), _lr(ctx)
+    nesterov = ctx.attr("use_nesterov", False)
+    sparse = _sparse_grad(ctx)
+    if sparse is not None:
+        # only the gradient's rows move (momentum_op's sparse path)
+        rows, g = sparse
+        p_new, v_new = _momentum_step(p.index_select(0, rows),
+                                      v.index_select(0, rows), g, mu, lr,
+                                      nesterov)
+        _set_rows(ctx, "ParamOut", p, rows, p_new)
+        _set_rows(ctx, "VelocityOut", v, rows, v_new)
+        return
+    p_new, v_new = _momentum_step(p, v, _grad(ctx), mu, lr, nesterov)
     ctx.set_output("ParamOut", p_new.to(p.dtype))
     ctx.set_output("VelocityOut", v_new)
 
 
+def _adam_moments(m, v, g, b1, b2):
+    # the JAX rule's b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g^2,
+    # as one add and one addcmul kernel each
+    return (m * b1).add(g, alpha=1 - b1), (v * b2).addcmul(g, g,
+                                                           value=1 - b2)
+
+
 @register_op("adam")
 def _adam(ctx):
-    p, g = ctx.input("Param"), _grad(ctx)
+    p = ctx.input("Param")
     m, v = ctx.input("Moment1"), ctx.input("Moment2")
     b1p, b2p = _scalar(ctx, "Beta1Pow"), _scalar(ctx, "Beta2Pow")
     b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
     eps = ctx.attr("epsilon", 1e-8)
-    # the JAX rule's b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g^2,
-    # as one add and one addcmul kernel each
-    m_new = (m * b1).add(g, alpha=1 - b1)
-    v_new = (v * b2).addcmul(g, g, value=1 - b2)
     lr_t = _lr(ctx) * torch.sqrt(1 - b2p) / (1 - b1p)
-    p_new = p - lr_t * m_new / (torch.sqrt(v_new) + eps)
-    ctx.set_output("ParamOut", p_new.to(p.dtype))
-    ctx.set_output("Moment1Out", m_new)
-    ctx.set_output("Moment2Out", v_new)
+    sparse = _sparse_grad(ctx)
+    if sparse is not None:
+        # moments and parameter move only on the gradient's merged rows
+        # (adam_op.h SparseAdamFunctor)
+        rows, g = sparse
+        m_new, v_new = _adam_moments(m.index_select(0, rows),
+                                     v.index_select(0, rows), g, b1, b2)
+        p_new = (p.index_select(0, rows)
+                 - lr_t * m_new / (torch.sqrt(v_new) + eps))
+        _set_rows(ctx, "ParamOut", p, rows, p_new)
+        _set_rows(ctx, "Moment1Out", m, rows, m_new)
+        _set_rows(ctx, "Moment2Out", v, rows, v_new)
+    else:
+        g = _grad(ctx)
+        m_new, v_new = _adam_moments(m, v, g, b1, b2)
+        p_new = p - lr_t * m_new / (torch.sqrt(v_new) + eps)
+        ctx.set_output("ParamOut", p_new.to(p.dtype))
+        ctx.set_output("Moment1Out", m_new)
+        ctx.set_output("Moment2Out", v_new)
     ctx.set_output("Beta1PowOut", (b1p * b1).reshape(1))
     ctx.set_output("Beta2PowOut", (b2p * b2).reshape(1))
 
