@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-27
+    python3 chip_smoke.py             # the smoke run, phases 1-29
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -26,6 +26,8 @@
                                       # training on the recommender
     python3 chip_smoke.py --remat     # phases 1 and 27, the LM under
                                       # memory_optimize
+    python3 chip_smoke.py --observe   # phases 1, 28 and 29, the
+                                      # observability plane
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -293,9 +295,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step, the backward kernels once), the losses and every @GRAD of the
    third step bitwise the plain run's; then 6 steps timed, step p50 and
    peak allocated memory of each;
+28. phase 17's amp LM through train_loop with the observability plane:
+   20 steps in windows of 4 from one saved state twice, plain and with
+   timeline_path, xprof_every 8 and xprof_steps 2: the losses bitwise
+   equal, the timeline parsed (executor.run spans on the loop's thread,
+   the flight counter track), every capture window measured and holding
+   the six training kernels by their __global__ names, the program's
+   report's flops within 1% of the count of phase 17's products; step
+   p50 of both runs with the capture windows apart, the roofline at the
+   p50, the windows' compute and idle shares;
+29. phase 4's model (bf16, 16 slots) behind an InferenceServer over
+   TCP, 16 streamed generate requests with the plane off, then again
+   with the profiler's span log on, a TimeSeriesStore sampling the
+   registry and an SLOMonitor with a TTFT p99 objective: the streams
+   equal, the inspect verb listing the decode step's report, the trace
+   verb returning one request's serving.request, decode.prefill and
+   decode.step spans (stitched into a Chrome trace with flow events),
+   the inter-token attribution's shares summing to 1 with the paged
+   attention kernel in "kernel", pool_copy_bytes_per_token 0 and the
+   slo_* gauges set; tokens/s and step p50 with the plane off and on;
 then a JSON line with every ported kernel's launches (with
-launches_sparse_training, launches_remat_training and
-launches_remat_plain_training), error and times, the card's name and
+launches_sparse_training, launches_remat_training,
+launches_remat_plain_training, launches_observe_training and
+launches_observe_serving), error and times, the card's name and
 power limit, and the last line: {"ok": true, "device": {...}}.
 
 With --serving it runs only phase 1, the paged-attention and LayerNorm
@@ -313,7 +335,7 @@ checks and timings of phase 3; with --genprog phase 1 and phase 22;
 with --ssd phase 1, the BatchNorm backward's checks at phase 24's shapes
 and its times (kernel, plain, cuDNN) summed over the step's 35 launches,
 and phase 24; with --sparse phase 1 and phase 26; with --remat phase 1
-and phase 27.
+and phase 27; with --observe phase 1 and phases 28 and 29.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
@@ -2854,9 +2876,14 @@ def _profile_step(exe, main, feed, avg_cost, other="other", ranges=None):
             exe.run(main, feed=feed, fetch_list=[avg_cost])
             torch.cuda.synchronize()
         rows = prof.key_averages()
+        # a profiler range (the executor's "executor.run") also shows on
+        # the device's timeline: it spans kernels, it is none
+        annotations = {e.name for e in prof.events()
+                       if getattr(e, "is_user_annotation", False)}
         kernels = [r for r in rows
                    if r.device_type == torch.autograd.DeviceType.CUDA
-                   and not r.key.startswith("op:")]
+                   and not r.key.startswith("op:")
+                   and r.key not in annotations]
         total = sum(r.device_time_total for r in kernels)
         print(f"  profiled step (first 15 kernels, then the port's): "
               f"{total / 1e3:.2f} ms of device time in "
@@ -4769,9 +4796,14 @@ def _profile_s2s_step(exe, main, feed, avg_cost):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         rows = prof.key_averages()
+        # a profiler range (the executor's "executor.run") also shows on
+        # the device's timeline: it spans kernels, it is none
+        annotations = {e.name for e in prof.events()
+                       if getattr(e, "is_user_annotation", False)}
         kernels = [r for r in rows
                    if r.device_type == torch.autograd.DeviceType.CUDA
-                   and not r.key.startswith("op:")]
+                   and not r.key.startswith("op:")
+                   and r.key not in annotations]
         total = sum(r.device_time_total for r in kernels) / 1e3
         by_kernel = dict.fromkeys(list(S2S_KERNEL_GROUPS) + ["other"], 0.0)
         for r in kernels:
@@ -6952,6 +6984,423 @@ def remat_ab(smi):
     return {"remat": dict(e2e, launches=launches)}
 
 
+# ---------------------------------------------------------------------------
+# phases 28 and 29: the observability plane
+# ---------------------------------------------------------------------------
+
+#: phase 28's capture cadence: a torch.profiler window every OBS_EVERY
+#: steps, each covering OBS_WINDOW steps (rounded up to whole windows of
+#: AMP_K steps)
+OBS_EVERY, OBS_WINDOW = 8, 2
+#: the __global__ functions (ops/csrc) of the six training kernels
+TRAIN_KERNEL_GLOBALS = {
+    "flash_attention_fwd": ("flash_fwd_kernel",),
+    "flash_attention_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
+    "layer_norm_fwd": ("ln_fwd_warp_kernel", "ln_fwd_block_kernel"),
+    "layer_norm_bwd": ("ln_bwd_warp_kernel", "ln_bwd_block_kernel"),
+    "softmax_xent_fwd": ("sm_xent_fwd_kernel",),
+    "softmax_xent_bwd": ("sm_xent_bwd_kernel",)}
+#: phase 29's traffic: OBS_REQUESTS streamed generate requests of OBS_NEW
+#: tokens, prompts of OBS_PROMPT tokens, on OBS_SLOTS decode slots; the
+#: SLO's TTFT p99 objective
+OBS_REQUESTS, OBS_NEW, OBS_PROMPT, OBS_SLOTS = 16, 64, (8, 1024), 16
+OBS_TTFT_P99_MS = 5000.0
+#: the kernels phase 29's path runs
+OBS_SERVE_KERNELS = ("paged_attention", "flash_attention_fwd",
+                     "layer_norm_fwd")
+
+
+def _split_window_ms(window_ms, windows):
+    """Per-step ms of the train_loop windows 2.. (``_window_step_ms``)
+    with the capture's start and stop seconds (paid in the ticks at the
+    head of a window) taken out, split into the windows the profiler
+    captured and the rest: -> (captured, uncaptured)."""
+    extra = {}
+    for w in windows:
+        first = w["step"] // AMP_K
+        extra[first] = extra.get(first, 0.0) + w["start_s"]
+        last = first + -(-OBS_WINDOW // AMP_K)
+        extra[last] = extra.get(last, 0.0) + w["stop_s"]
+    captured = {w["step"] // AMP_K for w in windows}
+    net = {i: ms - extra.get(i, 0.0) * 1e3 / AMP_K
+           for i, ms in enumerate(window_ms, start=1)}
+    return ([ms for i, ms in net.items() if i in captured],
+            [ms for i, ms in net.items() if i not in captured])
+
+
+def observe_train(smi, seed=0, amp_e2e=None):
+    """Phase 28: the amp LM through train_loop, from one startup state
+    three times: plain, with timeline_path and xprof_every, and plain
+    again (a torch.profiler session can leave the process's launches
+    slower after it ends; the second plain run reads that apart from the
+    plane's own cost).  -> (launches of the three runs, results)."""
+    import tempfile
+    import threading
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.observability import attribution, introspect
+    from paddle_tpu_torch.ops import kernels as K
+    print(f"phase 28: training {TRAIN_CONFIG} at batch {TRAIN_BATCH} under "
+          f"MixedPrecision(Adam) through train_loop (steps_per_launch "
+          f"{AMP_K}), plain and with timeline_path, xprof_every {OBS_EVERY},"
+          f" xprof_steps {OBS_WINDOW}", flush=True)
+    main, startup, avg_cost = _train_program(seed, amp=True)
+    feed = _copy_feed(TRAIN_BATCH, seed)
+    scope0 = fluid.core.scope.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope0)
+    saved = {n: v.clone() for n, v in scope0._vars.items()
+             if isinstance(v, torch.Tensor)}
+    del scope0
+    loop = dict(fetch_list=[avg_cost.name], steps=AMP_STEPS,
+                fetch_every=AMP_K, steps_per_launch=AMP_K)
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        timeline = os.path.join(tmp, "timeline.json")
+        for label, kw in (("plain", {}),
+                          ("observed", dict(
+                              timeline_path=timeline, xprof_every=OBS_EVERY,
+                              xprof_steps=OBS_WINDOW,
+                              xprof_dir=os.path.join(tmp, "xprof"))),
+                          ("plain_after", {})):
+            scope = fluid.core.scope.Scope()
+            for n, v in saved.items():
+                scope.set(n, v.clone())
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            with fluid.scope_guard(scope):
+                torch.cuda.synchronize()
+                before = introspect.count()
+                K.reset_launches()
+                t0 = time.perf_counter()
+                handles = exe.train_loop(main, feed, **loop, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches[label] = {k.name: k.launches for k in K.KERNELS}
+            runs[label] = {
+                "losses": [np.asarray(h.get()[0]).tobytes()
+                           for h in handles],
+                "wall_s": wall,
+                "window_ms": _window_step_ms(exe._flight.records(), AMP_K),
+                "reports": introspect.reports(layer="executor",
+                                              since_seq=before),
+                "xprof": exe.last_xprof}
+            del exe, scope
+            torch.cuda.empty_cache()
+        for k, n in TRAIN_LAUNCHES_PER_STEP.items():
+            for label in runs:
+                if launches[label][k] != n * AMP_STEPS:
+                    raise AssertionError(
+                        f"phase 28 {label}: {k} launched "
+                        f"{launches[label][k]} times in {AMP_STEPS} steps")
+        if not runs["plain"]["losses"] == runs["observed"]["losses"] \
+                == runs["plain_after"]["losses"]:
+            raise AssertionError("phase 28: the losses with the plane on "
+                                 "are not bitwise the plain runs'")
+        with open(timeline) as f:
+            doc = json.load(f)
+        events = doc["traceEvents"]
+        threads = {e["tid"]: e["args"]["name"] for e in events
+                   if e["ph"] == "M" and e["name"] == "thread_name"}
+        runs_on = {threads[e["tid"]] for e in events
+                   if e["ph"] == "X" and e["name"] == "executor.run"}
+        n_runs = sum(e["ph"] == "X" and e["name"] == "executor.run"
+                     for e in events)
+        flight_track = sum(e["ph"] == "C" and e["name"] == "flight:train"
+                           for e in events)
+        if runs_on != {threading.current_thread().name} or \
+                n_runs != AMP_STEPS or not flight_track:
+            raise AssertionError(
+                f"phase 28 timeline: executor.run on {runs_on} x{n_runs}, "
+                f"{flight_track} flight:train samples")
+        cap = runs["observed"]["xprof"]
+        summary = cap.summary()
+        names = []
+        for w in cap.windows:
+            seen = {e["name"] for e in attribution.device_events(w["trace"])}
+            missing = [k for k, globs in TRAIN_KERNEL_GLOBALS.items()
+                       if not any(g in n for g in globs for n in seen)]
+            if missing:
+                raise AssertionError(f"phase 28: window at step {w['step']} "
+                                     f"misses {missing}")
+            names.append(len(seen))
+    if summary["windows"] < 2 or summary["measured"] != summary["windows"]:
+        raise AssertionError(f"phase 28: xprof summary {summary}")
+    reps = runs["observed"]["reports"]
+    if len(reps) != 1 or reps[0]["steps"] != AMP_K:
+        raise AssertionError(f"phase 28: reports {reps}")
+    rep = reps[0]
+    t, d = TRAIN_CONFIG["max_len"], TRAIN_CONFIG["d_model"]
+    # phase 17's products: forward, dX and dW of every mul, and of the
+    # attention's QK^T and PV (3 x 4BT^2d a layer)
+    want = (3 * _forward_flops(main, TRAIN_BATCH * t)
+            + 3 * 4 * TRAIN_BATCH * t * t * d * TRAIN_CONFIG["n_layers"])
+    got = rep["flops"] / rep["steps"]
+    if abs(got / want - 1) > 0.01:
+        raise AssertionError(f"phase 28: report flops {got} against the "
+                             f"count {want}")
+    on_ms, off_ms = _split_window_ms(runs["observed"]["window_ms"],
+                                     cap.windows)
+    p50 = float(np.median(runs["plain"]["window_ms"]))
+    p50_after = float(np.median(runs["plain_after"]["window_ms"]))
+    p50_off = float(np.median(off_ms)) if off_ms else None
+    roof = attribution.roofline(rep, measured_step_seconds=p50 / 1e3)
+    e2e = {"plain_window_step_ms": runs["plain"]["window_ms"],
+           "observed_window_step_ms": runs["observed"]["window_ms"],
+           "plain_after_window_step_ms": runs["plain_after"]["window_ms"],
+           "plain_step_ms_p50": p50, "plain_after_step_ms_p50": p50_after,
+           "observed_uncaptured_step_ms_p50": p50_off,
+           "observed_captured_step_ms": on_ms,
+           "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+           "xprof": summary,
+           "xprof_windows": [{"step": w["step"], "split": w["split"],
+                              "start_s": w["start_s"],
+                              "stop_s": w["stop_s"],
+                              "device_kernel_names": n}
+                             for w, n in zip(cap.windows, names)],
+           "report": {k: rep[k] for k in ("flops", "bytes_accessed",
+                                          "peak_bytes", "steps", "dtype",
+                                          "device_name")},
+           "flops_count": want, "roofline": roof,
+           "timeline_events": len(events),
+           "phase17_busy_share": (amp_e2e or {}).get("device_busy_share")}
+    capture_s = [(round(w["start_s"], 3), round(w["stop_s"], 3))
+                 for w in cap.windows]
+    print(f"  ({smi}) losses bitwise with the plane on; step p50 plain "
+          f"{p50:.3f} ms, plain after {p50_after:.3f} ms, observed outside "
+          f"the capture windows {p50_off} ms, in them {on_ms} (capture "
+          f"start and stop taken out: {capture_s} s)", flush=True)
+    print(f"  ({smi}) report flops/step {got:.6g} (count {want:.6g}); "
+          f"roofline at the p50: {json.dumps(roof)}", flush=True)
+    print(f"  ({smi}) windows {json.dumps(summary)}; phase 17's busy share "
+          f"{e2e['phase17_busy_share']}", flush=True)
+    return {k: sum(run[k] for run in launches.values())
+            for k in launches["plain"]}, e2e
+
+
+def _obs_generate(ep, prompts, max_new, traces=None):
+    """``prompts`` streamed over the wire from one thread each (under
+    trace id ``traces[i]`` when given) -> ({i: tokens}, wall s)."""
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.serving import ServingClient
+    out = {}
+
+    def client(i):
+        scope = (trace.scope(traces[i]) if traces
+                 else contextlib.nullcontext())
+        with scope, ServingClient(ep, timeout=FD_WIRE_TIMEOUT) as c:
+            toks, final = [], None
+            for line in c.generate_stream(prompts[i], model="lm",
+                                          max_new_tokens=max_new):
+                if "token" in line:
+                    toks.append(line["token"])
+                else:
+                    final = line
+            if final is None or final["tokens"] != toks:
+                raise AssertionError(f"request {i}: the final line does not "
+                                     "repeat the streamed tokens")
+            out[i] = toks
+
+    t0 = time.perf_counter()
+    _run_threads(client, len(prompts))
+    return out, time.perf_counter() - t0
+
+
+def _step_ms_since(engine, t_wall):
+    """Per-iteration ms of the engine's decode steps after ``t_wall``,
+    from its flight ring."""
+    recs = [r for r in engine.flight.records() if r["ts"] >= t_wall]
+    return [r["step_s"] * 1e3 for a, r in zip(recs, recs[1:])
+            if r["iteration"] > a["iteration"]]
+
+
+def _observe_lm_dir(seed):
+    """Phase 4's model as a servable artifact: phase 12's when this run
+    wrote it (the same spec and seed), else written under build/observe.
+    -> (dir, spec)."""
+    import shutil
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import transformer as T
+    spec = T.generation_spec(**FULL_WIDTH)
+    fd = os.path.join(HERE, "build", "frontdoor", "lm")
+    if seed == 0 and os.path.exists(os.path.join(fd, "__model__")) and \
+            T.read_generation_spec(fd) == spec:
+        return fd, spec
+    d = os.path.join(HERE, "build", "observe", "lm")
+    shutil.rmtree(d, ignore_errors=True)
+    scope = Scope()
+    for name, arr in T.random_params(spec, seed).items():
+        scope.set(name, arr)
+    T.save_generation_model(d, **FULL_WIDTH, scope=scope, init=False)
+    return d, spec
+
+
+def _kick_attribution(engine, timeout=60.0):
+    """Call ``engine.stats()`` (which asks for the inter-token
+    attribution) once all its slots are active, or at the timeout;
+    -> the slots active then."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if all(s.active for s in engine._slots):
+            break
+        time.sleep(0.001)
+    active = sum(s.active for s in engine._slots)
+    engine.stats()
+    return active
+
+
+def observe_serving(smi, seed=0):
+    """Phase 29: phase 4's model behind an InferenceServer, OBS_REQUESTS
+    requests three times: a warm round submitted in process, whose first
+    decode step with every slot active is profiled for the inter-token
+    attribution, then streamed over TCP with the plane off, then on.  -> (launches of the last two rounds,
+    results)."""
+    import torch
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import (SLOMonitor, TimeSeriesStore,
+                                                attribution, default_registry,
+                                                snapshot, timeline)
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import (InferenceServer, ModelRegistry,
+                                          ServingClient, wait_for_port_file)
+    print(f"phase 29: the {FULL_WIDTH['n_layers']}-layer "
+          f"d{FULL_WIDTH['d_model']} LM (bf16, "
+          f"{OBS_SLOTS} slots) behind an InferenceServer, {OBS_REQUESTS} "
+          "streamed generate requests with the plane off, then on (span "
+          "log, TimeSeriesStore, SLOMonitor)", flush=True)
+    t0 = time.perf_counter()
+    model_dir, spec = _observe_lm_dir(seed)
+    reg = ModelRegistry()
+    reg.load("lm", model_dir, precision="bf16",
+             engine_opts={"max_batch_size": 1}, warmup=[],
+             decode={"slots": OBS_SLOTS, "block_len": 16, "warmup": True})
+    port_file = os.path.join(HERE, "build", "observe_port")
+    server = InferenceServer(reg, port=0, port_file=port_file).start()
+    ep = f"127.0.0.1:{wait_for_port_file(port_file, timeout=60)}"
+    engine = reg.get("lm").decode
+    torch.cuda.synchronize()
+    print(f"  model saved, loaded and warm, serving on {ep}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(seed + 29)
+    lens = rng.integers(OBS_PROMPT[0], OBS_PROMPT[1] + 1, OBS_REQUESTS)
+    prompts = [rng.integers(0, spec["vocab"], n).tolist() for n in lens]
+    traces = [f"{0x29000000 + i:016x}" for i in range(OBS_REQUESTS)]
+    store = slo = None
+    try:
+        # a warm round, submitted in process so that every slot is busy
+        # at once; then stats() asks for the inter-token attribution, and
+        # the engine profiles its next step
+        handles = [engine.submit(p, OBS_NEW) for p in prompts]
+        attr_slots = _kick_attribution(engine)
+        for h in handles:
+            h.result(timeout=600)
+        attr = engine.stats()["inter_token_attribution"]
+        K.reset_launches()
+        t_off = time.time()
+        off, wall_off = _obs_generate(ep, prompts, OBS_NEW)
+        steps_off = _step_ms_since(engine, t_off)
+        profiler.start_profiler()
+        store = TimeSeriesStore(default_registry(), interval_s=0.25).start()
+        slo = SLOMonitor(store, p99_ms=OBS_TTFT_P99_MS,
+                         latency_family="decode_ttft_seconds")
+        t_on = time.time()
+        on, wall_on = _obs_generate(ep, prompts, OBS_NEW, traces)
+        steps_on = _step_ms_since(engine, t_on)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in K.KERNELS}
+        store.stop(final_sample=True)
+        with ServingClient(ep, timeout=60) as c:
+            summary = c.inspect()
+            doc = c.trace(traces[0])
+        stats = engine.stats()
+        gauges = {name: body["series"] for name, body in snapshot().items()
+                  if name.startswith("slo_")}
+        profiler.stop_profiler(quiet=True)
+    finally:
+        if slo is not None:
+            slo.close()
+        if store is not None:
+            store.stop()
+        profiler.stop_profiler(quiet=True)
+        server.stop()
+        reg.close()
+    bad = [i for i in range(OBS_REQUESTS) if on[i] != off[i]]
+    if bad:
+        raise AssertionError(f"phase 29: streams {bad} differ with the "
+                             "plane on")
+    for name in OBS_SERVE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 29: {name} never launched")
+    decode_reps = [r for r in summary["programs"]
+                   if r["layer"] == "predictor" and "kv_index" in r["feed_sig"]
+                   and "kv_len" not in r["feed_sig"]]
+    if not decode_reps:
+        raise AssertionError("phase 29: inspect lists no decode report")
+    spans = doc["processes"][0]["spans"]
+    span_names = {s["name"] for s in spans}
+    want_spans = {"serving.request", "decode.prefill", "decode.step"}
+    if not want_spans <= span_names or \
+            any(traces[0] not in s["trace"] for s in spans):
+        raise AssertionError(f"phase 29: trace spans {span_names}")
+    stitched = timeline.stitch_processes(doc["processes"])
+    flows = sum(e["ph"] in ("s", "t", "f") for e in stitched["traceEvents"])
+    if not flows:
+        raise AssertionError("phase 29: the stitched trace has no flows")
+    if attr is None:
+        raise AssertionError(f"phase 29: no inter-token attribution "
+                             f"({engine._attr_error})")
+    total = sum(attr[k] for k in ("gather", "write", "attention", "kernel",
+                                  "other"))
+    if abs(total - 1) > 1e-3 or "paged_split_kernel" not in \
+            attr.get("kernels_us", {}):
+        raise AssertionError(f"phase 29: attribution {attr}")
+    if stats["pool_copy_bytes_per_token"] != 0:
+        raise AssertionError(f"phase 29: pool copy bytes "
+                             f"{stats['pool_copy_bytes_per_token']}")
+    want_gauges = {"slo_objective_target", "slo_observed",
+                   "slo_error_budget_burn_rate", "slo_breach"}
+    if set(gauges) != want_gauges or not all(
+            "objective=latency_p99" in g for g in gauges.values()):
+        raise AssertionError(f"phase 29: SLO gauges {gauges}")
+    n_tok = OBS_REQUESTS * OBS_NEW
+    e2e = {"tokens_per_s_off": n_tok / wall_off,
+           "tokens_per_s_on": n_tok / wall_on,
+           "step_ms_p50_off": float(np.median(steps_off)),
+           "step_ms_p50_on": float(np.median(steps_on)),
+           "steps_off": len(steps_off), "steps_on": len(steps_on),
+           "inter_token_attribution": attr,
+           "attribution_slots_active": attr_slots,
+
+           "decode_report": {k: decode_reps[-1][k] for k in (
+               "flops", "bytes_accessed", "peak_bytes", "dtype",
+               "device_name")},
+           "trace_spans": len(spans), "stitched_flow_events": flows,
+           "slo": gauges, "pool_copy_bytes_per_token": 0,
+           "spans_dropped": profiler.dropped_spans()}
+    print(f"  ({smi}) plane off: {e2e['tokens_per_s_off']:.1f} tokens/s, "
+          f"step p50 {e2e['step_ms_p50_off']:.3f} ms; plane on: "
+          f"{e2e['tokens_per_s_on']:.1f} tokens/s, step p50 "
+          f"{e2e['step_ms_p50_on']:.3f} ms; streams equal", flush=True)
+    print(f"  ({smi}) inter-token attribution {json.dumps(attr)}; set it "
+          "beside phase 4's profiled step by group (PERF.md section 5)",
+          flush=True)
+    print(f"  decode report {json.dumps(e2e['decode_report'])}; trace "
+          f"{len(spans)} spans, {flows} flow events; SLO {json.dumps(gauges)}",
+          flush=True)
+    return launches, e2e
+
+
+def observe_ab(smi):
+    """``--observe``: phases 28 and 29 alone, after building their
+    kernels."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("flash_attention", "flash_attention_bwd",
+                      "layer_norm", "layer_norm_bwd", "softmax_xent",
+                      "paged_attention"))
+    train_launches, train_e2e = observe_train(smi)
+    serve_launches, serve_e2e = observe_serving(smi)
+    return {"observe_training": dict(train_e2e, launches=train_launches),
+            "observe_serving": dict(serve_e2e, launches=serve_launches)}
+
+
 def seq2seq_phases(smi, recs=None):
     """Phases 19 and 20 (with ``recs``, the kernels' records, their
     seq2seq launches are added there) -> (training launches, generation
@@ -7173,7 +7622,7 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--vgg-f32": vgg_f32_anatomy, "--amp-train": amp_train_ab,
             "--seq2seq": seq2seq_ab, "--xent": xent_ab,
             "--genprog": genprog_ab, "--ssd": ssd_ab, "--sparse": sparse_ab,
-            "--remat": remat_ab}
+            "--remat": remat_ab, "--observe": observe_ab}
 
 
 def main(argv=()):
@@ -7319,6 +7768,8 @@ def main(argv=()):
 
     sparse_launches, _ = sparse_phase(smi)
     remat_launches, _ = remat_phase(smi)
+    obs_train_launches, _ = observe_train(smi, amp_e2e=amp_e2e)
+    obs_serve_launches, _ = observe_serving(smi)
 
     kernels = []
     for k in K.KERNELS:
@@ -7336,7 +7787,9 @@ def main(argv=()):
                          + s2s_gen_launches[k.name] + gp_launches[k.name]
                          + ssd_launches[k.name] + sparse_launches[k.name]
                          + remat_launches["plain"][k.name]
-                         + remat_launches["remat"][k.name]),
+                         + remat_launches["remat"][k.name]
+                         + obs_train_launches[k.name]
+                         + obs_serve_launches[k.name]),
             "launches_serving": serve_launches[k.name],
             "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
@@ -7352,7 +7805,8 @@ def main(argv=()):
                                   + ssd_launches[k.name]
                                   + sparse_launches[k.name]
                                   + remat_launches["plain"][k.name]
-                                  + remat_launches["remat"][k.name]),
+                                  + remat_launches["remat"][k.name]
+                                  + obs_train_launches[k.name]),
             "launches_resnet_training": resnet_launches[k.name],
             "launches_lstm_training": seq["lstm"][0][k.name],
             "launches_gru_training": seq["gru"][0][k.name],
@@ -7365,6 +7819,8 @@ def main(argv=()):
             "launches_sparse_training": sparse_launches[k.name],
             "launches_remat_training": remat_launches["remat"][k.name],
             "launches_remat_plain_training": remat_launches["plain"][k.name],
+            "launches_observe_training": obs_train_launches[k.name],
+            "launches_observe_serving": obs_serve_launches[k.name],
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

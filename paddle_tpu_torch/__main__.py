@@ -19,14 +19,24 @@ of ``paddle_tpu/__main__.py``; the serving and training verbs):
                         (--embedding-cache-rows N).  Runs on the
                         card unless --device cpu.  SIGTERM or SIGINT (or
                         the ``shutdown`` verb) drains in-flight requests,
-                        then prints the engines' stats as one JSON line
+                        then prints the engines' stats as one JSON line.
+                        --profile keeps a live span log for the ``trace``
+                        verb, --timeline PATH also writes the session's
+                        Chrome trace at shutdown (with the
+                        --metrics-jsonl counters), --xprof DIR captures
+                        one torch.profiler window of --xprof-seconds
   models [endpoint]     list a running server's models
   metrics [endpoint]    a running server's metrics (Prometheus text, or
                         --json for a snapshot)
+  inspect [dir|endpoint]
+                        cost reports: of a saved model dir run once at
+                        --batch-size here, or of every program a live
+                        server has run; --roofline adds the verdict
+                        against the card's roofs
 
 The client verbs read the endpoint from HOST:PORT or from the port file
-a local ``serve`` wrote.  ``fleet``, ``top``, ``inspect`` and
-``pserver`` are not ported yet (ROADMAP queue A).
+a local ``serve`` wrote.  ``fleet``, ``top`` and ``pserver`` are not
+ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -40,6 +50,11 @@ import sys
 def cmd_serve(args):
     from paddle_tpu_torch.serving import InferenceServer, ModelRegistry
 
+    if args.timeline or args.profile:
+        # a live span log: the trace verb answers from it, --timeline
+        # exports it at shutdown
+        from paddle_tpu_torch import profiler
+        profiler.start_profiler()
     exporter = None
     if args.metrics_jsonl:
         from paddle_tpu_torch.observability import JsonlExporter
@@ -93,14 +108,16 @@ def cmd_serve(args):
                 f"{base}.flight.{n}.json"
     server = InferenceServer(registry, host=args.host, port=args.port,
                              port_file=args.port_file).start()
+    # one event ends the process, whether a signal or the shutdown verb
+    # (installed before the profiler window, whose start takes seconds)
+    signal.signal(signal.SIGTERM, lambda *a: server.shutting_down.set())
+    signal.signal(signal.SIGINT, lambda *a: server.shutting_down.set())
+    xprof_stop = _start_xprof(args) if args.xprof else None
     print(f"paddle_tpu_torch serving {len(specs)} model(s) "
           f"{[n for n, _ in specs]} on {server.host}:{server.port} "
           f"(default={registry.default_model} "
           f"max_batch={args.max_batch_size} "
           f"delay={args.max_queue_delay_ms}ms)", flush=True)
-    # one event ends the process, whether a signal or the shutdown verb
-    signal.signal(signal.SIGTERM, lambda *a: server.shutting_down.set())
-    signal.signal(signal.SIGINT, lambda *a: server.shutting_down.set())
     server.shutting_down.wait()
     server.drain_and_stop(timeout=args.drain_timeout)
     # the live registry, not the start-up list: the wire may have loaded
@@ -109,12 +126,59 @@ def cmd_serve(args):
     entries = {n: registry.get(n) for n in registry.names()}
     registry.close(unmount=False)
     stats = {n: registry.stats_for(e) for n, e in entries.items()}
+    if xprof_stop is not None:
+        from paddle_tpu_torch.observability import attribution
+        xprof_stop()        # the timer may have fired already
+        split = attribution.device_step_split(args.xprof)
+        print(json.dumps({"xprof": {"logdir": args.xprof,
+                                    "split": split}}), flush=True)
     if exporter is not None:
         exporter.close()
+    if args.timeline:
+        from paddle_tpu_torch import profiler
+        from paddle_tpu_torch.observability import timeline as _timeline
+        counters = (_timeline.read_metrics_jsonl(args.metrics_jsonl)
+                    if args.metrics_jsonl else None)
+        _timeline.export_profile(args.timeline, counters=counters)
+        profiler.stop_profiler(quiet=True)
+        print(f"wrote timeline {args.timeline}", flush=True)
     only = specs[0][0]
     print(json.dumps(stats[only] if list(stats) == [only] else stats),
           flush=True)
     return 0
+
+
+def _start_xprof(args):
+    """One bounded torch.profiler window of live serving (the card's
+    events, or the host's without one) written under ``args.xprof``;
+    -> the idempotent stop, which a timer calls after
+    ``--xprof-seconds``.  A capture that cannot start is reported and
+    serving goes on."""
+    import threading
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import attribution
+    try:
+        profiler.start_trace(args.xprof,
+                             activities=attribution.window_activities())
+    except Exception as e:  # noqa: BLE001 — another profiler active etc.
+        print(f"xprof capture unavailable: {e}", flush=True)
+        return None
+    lock = threading.Lock()
+    done = []
+
+    def stop():
+        with lock:
+            if done:
+                return
+            done.append(True)
+            try:
+                profiler.stop_trace()
+            except Exception:  # noqa: BLE001
+                pass
+    timer = threading.Timer(args.xprof_seconds, stop)
+    timer.daemon = True
+    timer.start()
+    return stop
 
 
 def _resolve_endpoint(args, verb):
@@ -161,6 +225,48 @@ def cmd_metrics(args):
         print(json.dumps(out, indent=1))
     else:
         print(out, end="")
+    return 0
+
+
+def cmd_inspect(args):
+    from paddle_tpu_torch.observability import attribution, introspect
+
+    if args.target is not None and os.path.isdir(args.target):
+        info = introspect.inspect_model_dir(
+            args.target, batch_size=args.batch,
+            params_filename=args.params_filename,
+            transpile=not args.no_transpile, device=args.device)
+        if args.json:
+            if args.roofline and info.get("report"):
+                info["roofline"] = attribution.roofline(info["report"])
+            print(json.dumps(info, indent=1))
+            return 0
+        print(f"model {info['model_dir']}  "
+              f"fingerprint {info['fingerprint']}")
+        print(f"  feeds {info['feed_names']}  fetch {info['fetch_names']}")
+        print(f"  param bytes     {info['param_bytes']:,}")
+        print(f"  batch size      {info['batch_size']}")
+        print(introspect.format_report(info["report"],
+                                       roofline=args.roofline))
+        return 0
+
+    from paddle_tpu_torch.serving import serving_introspection
+    args.endpoint = args.target
+    summary = serving_introspection(_resolve_endpoint(args, "inspect"),
+                                    timeout=args.timeout)
+    if args.json:
+        print(json.dumps(summary, indent=1))
+        return 0
+    for layer, agg in sorted(summary.get("layers", {}).items()):
+        print(f"layer {layer}: {agg['programs']} program(s), "
+              f"{agg['flops'] / 1e9:.3f} GFLOP total, "
+              f"peak {agg['peak_bytes']:,} B, "
+              f"compile {agg['compile_seconds']:.2f} s")
+    for rep in summary.get("programs", []):
+        print(f"- [{rep['layer']}] fingerprint {rep['fingerprint']} "
+              f"fetch {rep['fetch_names']}")
+        print(introspect.format_report(rep, indent="    ",
+                                       roofline=args.roofline))
     return 0
 
 
@@ -292,12 +398,53 @@ def main(argv=None):
                    metavar="N",
                    help="let up to N KV pool blocks hold cached prompt "
                         "prefixes (radix tree); 0 disables")
+    p.add_argument("--profile", action="store_true",
+                   help="keep a live profiler span log (no export) so "
+                        "the `trace <id>` verb can return this "
+                        "process's slice of a distributed trace")
+    p.add_argument("--timeline", default=None, metavar="PATH",
+                   help="profile the serving session and write a Chrome "
+                        "Trace Event Format timeline here on shutdown "
+                        "(open in chrome://tracing / Perfetto)")
+    p.add_argument("--xprof", default=None, metavar="DIR",
+                   help="capture one bounded torch.profiler window of "
+                        "live serving into DIR and print its compute/"
+                        "collective/idle split at shutdown (None on the "
+                        "CPU)")
+    p.add_argument("--xprof-seconds", type=float, default=5.0,
+                   help="length of the --xprof capture window")
     p.set_defaults(fn=cmd_serve)
 
     _client_parser(sub, "models", "list a running server's models"
                    ).set_defaults(fn=cmd_models)
     _client_parser(sub, "metrics", "a running server's metrics"
                    ).set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser("inspect",
+                       help="cost reports of a saved model dir or a live "
+                            "serve endpoint")
+    p.add_argument("target", nargs="?", default=None,
+                   help="model dir (run once here and report) or "
+                        "HOST:PORT of a live `serve` (default: read the "
+                        "port file)")
+    p.add_argument("--port-file", default=None,
+                   help="port file to resolve the endpoint from")
+    p.add_argument("--batch", "--batch-size", dest="batch", type=int,
+                   default=1, help="batch size to run a model dir at")
+    p.add_argument("--device", default=None,
+                   help="where a model dir runs: the card by default "
+                        "(raises without CUDA), or 'cpu'")
+    p.add_argument("--params-filename", default=None,
+                   help="combined params file (merged models)")
+    p.add_argument("--no-transpile", action="store_true",
+                   help="skip the inference transpiler (BatchNorm fold)")
+    p.add_argument("--json", action="store_true",
+                   help="full JSON report instead of the table")
+    p.add_argument("--roofline", action="store_true",
+                   help="classify each program compute-/memory-/comms-"
+                        "bound against the card's roofs")
+    p.add_argument("--timeout", type=float, default=30.0)
+    p.set_defaults(fn=cmd_inspect)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -39,10 +39,18 @@ feed: ``run`` pulls the next batch and raises `EOFException`
 at the end of a pass, and ``train_loop(feed=None)`` takes the pipeline
 as its feed until the pass ends.
 
+Observability, as the JAX executor's: every step runs inside an
+``executor.run`` profiler span; the first run of a (program, feed
+signature, fetch list, window size) registers its cost report
+(`observability.introspect`) and samples the device memory, which every
+window sync samples again; ``train_loop(timeline_path=...)`` profiles
+the loop and writes its Chrome trace, and ``xprof_every=N`` captures a
+``torch.profiler`` window of ``xprof_steps`` steps every N
+(`observability.attribution.XprofCapture`, read back as ``last_xprof``).
+
 Refused: the sharded-run arguments of ``train_loop`` (``mesh``,
 ``param_spec``, ``data_axis``, ``numerics``, ``lookup_exchange``,
-``a2a_capacity``, ``tiered``; ROADMAP queue A item 4) and its profiler
-arguments (``timeline_path``, ``xprof_*``; queue A item 5); and, in
+``a2a_capacity``, ``tiered``; ROADMAP queue A item 4); and, in
 ``run`` and ``train_loop``, a program with an
 ``embedding(is_distributed=True)`` table, which the JAX executor refuses
 when no mesh is bound (the port has none).
@@ -51,6 +59,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import tempfile
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
@@ -63,9 +72,11 @@ from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope
 from .types import to_torch_dtype
 from .. import fault as _fault
+from .. import profiler
 from ..flags import FLAGS
 from ..observability import default_registry as _obs_registry
 from ..observability import flight as _flight
+from ..observability import introspect as _introspect
 
 #: the scope and checkpoint name of the executor's generator state
 RNG_STATE_VAR = "@TORCH_RNG_STATE@"
@@ -102,7 +113,6 @@ _TRAIN_FLIGHT_FIELDS = ("ts", "step", "host_gap_s", "dispatch_s",
 _STEP_BAD, _STEP_OK, _STEP_SKIP = 0, 1, 2
 
 _SHARDED = "queue A item 4"
-_PROFILER = "queue A item 5 (profiler)"
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -258,6 +268,11 @@ class Executor:
         self._in_flight = 0
         self._last_dispatch_t: Optional[float] = None
         self._stage_stream = None
+        #: the last train_loop's XprofCapture (None without xprof_every)
+        self.last_xprof = None
+        #: (program, feed signature, fetches, steps) already reported
+        self._reported: set = set()
+        self._program_fps: Dict[Any, str] = {}
 
     def _rng(self, program: Program) -> torch.Generator:
         """One generator per executor on its device, seeded from the
@@ -319,22 +334,55 @@ class Executor:
 
     def _dispatch(self, program: Program, scope: Scope,
                   feed: Dict[str, torch.Tensor],
-                  fetch_names: Sequence[str]) -> List[torch.Tensor]:
+                  fetch_names: Sequence[str],
+                  report_steps: int = 1) -> List[torch.Tensor]:
         """One step: interpret the global block over the scope's state
         and ``feed`` (tensors on the device), write the persistables
-        back, return the fetches (detached, on the device)."""
+        back, return the fetches (detached, on the device).  The first
+        step of a (program, feed signature, fetches, ``report_steps``)
+        registers its report; ``report_steps=0`` skips the check."""
         block = program.global_block()
         env = self._state(block, scope)
         env.update(feed)
-        lowering.Interpreter(program, self.device, self._rng(program),
-                             fetch_names, self.check_nan_inf
-                             ).run_block(block, env)
+        interp = lowering.Interpreter(program, self.device,
+                                      self._rng(program), fetch_names,
+                                      self.check_nan_inf)
+        key = None
+        if report_steps:
+            key = (id(program), len(block.ops),
+                   _introspect.feed_signature(feed), tuple(fetch_names),
+                   report_steps)
+            if key in self._reported:
+                key = None
+        with profiler.record_block("executor.run"):
+            if key is None:
+                interp.run_block(block, env)
+            else:
+                with _introspect.first_run_memory(self.device) as peak:
+                    interp.run_block(block, env)
+                self._report(program, env, interp, key, peak[0])
         for v in block.vars.values():
             if v.persistable and v.name in env:
                 val = env[v.name]
                 scope.set(v.name, val.detach()
                           if isinstance(val, torch.Tensor) else val)
         return [env[n].detach() for n in fetch_names]
+
+    def _report(self, program, env, interp, key, peak_bytes):
+        """Register the cost report of a first run (`_dispatch`)."""
+        self._reported.add(key)
+        fp_key = (id(program), key[1])
+        fp = self._program_fps.get(fp_key)
+        if fp is None:
+            from ..io import program_fingerprint
+            fp = self._program_fps[fp_key] = program_fingerprint(program)
+        flops, nbytes = _introspect.program_cost(
+            program, env, interp.live_ops(program.global_block()))
+        _introspect.record_run(
+            layer="executor", device=self.device, fingerprint=fp,
+            feed_sig=key[2], fetch_names=key[3], flops=flops,
+            bytes_accessed=nbytes, peak_bytes=peak_bytes, steps=key[4],
+            dtype="bf16" if getattr(program, "amp", False) else "f32")
 
     def _stamp_dispatch(self, t0: float, steps: int = 1):
         now = time.perf_counter()
@@ -485,6 +533,14 @@ class Executor:
         to ``flight_path`` (default: ``flight_recorder.json`` in the
         checkpoint dir, else a pid-scoped temporary file) on an
         exception, a NaN trip or a fault point, and on SIGUSR1.
+
+        ``timeline_path`` profiles the loop (unless an outer profiling
+        session owns the profiler) and writes its Chrome trace on return.
+        ``xprof_every=N`` captures a ``torch.profiler`` window every N
+        logical steps, each covering ``xprof_steps`` steps (whole windows
+        under ``steps_per_launch``), under ``xprof_dir`` (default:
+        ``xprof/`` in the checkpoint dir, else a pid-scoped temporary
+        directory); ``last_xprof.summary()`` reads them back.
         """
         program = program or default_main_program()
         scope = scope or global_scope()
@@ -497,12 +553,6 @@ class Executor:
                             ("tiered", bool(tiered))):
             if given:
                 _refuse(what, _SHARDED)
-        for what, given in (("timeline_path", bool(timeline_path)),
-                            ("xprof_every", bool(xprof_every)),
-                            ("xprof_steps", xprof_steps != 1),
-                            ("xprof_dir", xprof_dir is not None)):
-            if given:
-                _refuse(what, _PROFILER)
         _refuse_distributed(program)
         if feed is None:
             if program._bound_reader is None:
@@ -589,6 +639,18 @@ class Executor:
             consumed[0] += len(raws)
             return self._stage(block, _stack_feeds(raws)), len(raws)
 
+        xprof = None
+        if xprof_every:
+            from ..observability.attribution import XprofCapture
+            base = xprof_dir or (
+                os.path.join(checkpoint_dir, "xprof") if checkpoint_dir
+                else os.path.join(tempfile.gettempdir(),
+                                  f"paddle_tpu_torch_xprof_{os.getpid()}"))
+            xprof = XprofCapture(base, xprof_every, xprof_steps)
+        self.last_xprof = xprof
+        own_profile = bool(timeline_path) and not profiler.is_enabled()
+        if own_profile:
+            profiler.start_profiler()
         handles: List[FetchHandle] = []
         window: List[FetchHandle] = []
         finite: List[Any] = []
@@ -603,6 +665,10 @@ class Executor:
                     _PREFETCH_DEPTH.set(1 if staged is not None else 0)
                     while staged is not None:
                         cur, n = staged
+                        if xprof is not None:
+                            # before the dispatch: a window covers whole
+                            # launches' device work
+                            xprof.tick(i)
                         t_d0 = time.perf_counter()
                         for _ in range(n):
                             # count-based kill points count logical steps
@@ -613,8 +679,9 @@ class Executor:
                             feed_j = (batch if not fused else
                                       {name: v[j].clone()
                                        for name, v in batch.items()})
-                            fetches = self._dispatch(program, scope, feed_j,
-                                                     disp_names)
+                            fetches = self._dispatch(
+                                program, scope, feed_j, disp_names,
+                                report_steps=n if j == 0 else 0)
                             fi = fetches.pop() if fi_name else None
                             if alias:
                                 fetches = [v.clone() if idx in alias else v
@@ -666,10 +733,29 @@ class Executor:
                 self._flight_abort(fr, i, e)
                 raise
         finally:
+            if xprof is not None:
+                xprof.finish()
             if manager is not None:
                 # the newest checkpoint is durable before control returns
                 manager.close()
+            self._finish_timeline(own_profile, timeline_path)
         return handles
+
+    @staticmethod
+    def _finish_timeline(own_profile, timeline_path):
+        if not timeline_path:
+            return
+        from ..observability import timeline as _timeline
+        try:
+            if own_profile:
+                profiler.stop_profiler(timeline_path=timeline_path,
+                                       quiet=True)
+            else:
+                # an outer session owns start and stop: export what it
+                # has recorded so far
+                _timeline.export_profile(timeline_path)
+        except OSError:
+            pass
 
     def _stage(self, block, feed: Dict[str, Any]):
         """A feed dict on this executor's device, each value cast to its
@@ -739,6 +825,7 @@ class Executor:
             return
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+        _introspect.sample_device_memory()
         if finite:
             flags = torch.cat([f.reshape(-1) for _, f, _ in finite]
                               ).cpu().numpy()

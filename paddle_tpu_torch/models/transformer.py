@@ -323,6 +323,29 @@ class TransformerLM(nn.Module):
                  torch.zeros(shape, dtype=dtype, device=self.device))
                 for _ in self.layers]
 
+    def step_cost(self, mode: str, batch: int, t: int,
+                  span: int = 0) -> Tuple[int, int]:
+        """(flops, bytes) of one `prefill` (``batch`` prompts of ``t``
+        tokens, attention over ``t`` keys) or `decode` (``batch`` slots,
+        attention over each slot's ``span`` of pages) for the cost
+        reports (`observability.introspect`): the products the
+        generation Programs' cost model counts (2·M·N·K a product, QKᵀ
+        and PV), and the bytes of the parameters, the KV rows read and
+        written and the logits."""
+        spec = self.spec
+        d, dff, v = spec["d_model"], spec["d_ff"], spec["vocab"]
+        m = batch * t
+        keys = t if mode == "prefill" else span
+        flops = (len(self.layers) * (2 * m * d * 3 * d + 4 * m * d * dff
+                                     + 4 * m * keys * d)
+                 + 2 * batch * d * v)
+        kv_item = 2 if self.precision == "bf16" else 4
+        params = sum(p.numel() * p.element_size()
+                     for p in self.named_artifact_tensors().values())
+        kv = 2 * len(self.layers) * (batch * keys + m) * d * kv_item
+        logits = batch * v * self.dtype.itemsize
+        return flops, params + kv + logits
+
     # -- forward passes ---------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         rows = self.embedding[tokens]

@@ -53,6 +53,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import profiler
 from ..core.registry import register_op
 from .kernels import flash_attention_fwd, gather_slot_kv, paged_attention  # noqa: F401,E501
 
@@ -96,10 +97,13 @@ def kv_cache_write(k: torch.Tensor, v: torch.Tensor, pool_k: torch.Tensor,
     if plan is None:
         plan = write_plan(table, index, k.shape[1], block_len, n, length)
     src, dst = plan
-    for new, pool in ((k, pool_k), (v, pool_v)):
-        rows = new.reshape((-1,) + tuple(pool.shape[2:]))
-        flat = pool.view((n * block_len,) + tuple(pool.shape[2:]))
-        flat.index_copy_(0, dst, rows.index_select(0, src).to(pool.dtype))
+    # the decode attribution's "write" class is this range's device time
+    with profiler.device_range("kv_cache.write"):
+        for new, pool in ((k, pool_k), (v, pool_v)):
+            rows = new.reshape((-1,) + tuple(pool.shape[2:]))
+            flat = pool.view((n * block_len,) + tuple(pool.shape[2:]))
+            flat.index_copy_(0, dst,
+                             rows.index_select(0, src).to(pool.dtype))
     return pool_k, pool_v
 
 

@@ -27,6 +27,7 @@ from .decode_engine import (DecodeEngine, BlockAllocator,  # noqa: F401
                             greedy_decode_full, greedy_decode_kv)
 from .server import (InferenceServer, ServingClient,  # noqa: F401
                      ServingError, RETRIABLE_CODES, infer_round_trip,
-                     serving_stats, serving_metrics, list_models,
+                     serving_stats, serving_metrics,
+                     serving_introspection, list_models,
                      shutdown_serving, wait_for_port_file,
                      write_port_file)

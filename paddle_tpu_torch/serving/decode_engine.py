@@ -64,11 +64,26 @@ copied to the host only for requests that ask for them
 (``capture_logits``).  Every metric family is the JAX engine's
 (``decode_*``, labelled by ``model``), mounted on the process default
 registry; the flight recorder keeps one record per iteration.
+
+Introspection: the first decode step and the first prefill of each
+bucket register a cost report (`observability.introspect`, layer
+``predictor``: the Programs' predictors register their own, a
+`TransformerLM` through its `step_cost`).
+``stats()["inter_token_attribution"]`` is one decode step's device time
+by class (`attribution.decode_attribution`): the first ``stats()`` on the
+card asks the engine thread to run its next decode step under
+``torch.profiler``, and the result is kept.
+``stats()["pool_copy_bytes_per_token"]`` is the bytes of the pool tensors
+a decode step returned that are not the pools it was fed: 0, since both
+models write the pools in place (None before the first step).
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import json
 import os
+import tempfile
 import threading
 import time
 from collections import deque
@@ -83,7 +98,9 @@ from ..core.scope import Scope
 from ..io import load_generation_model
 from ..models.transformer import TransformerLM
 from ..observability import MetricsRegistry, default_registry, trace
+from ..observability import attribution as _attribution
 from ..observability import flight as _flight
+from ..observability import introspect as _introspect
 from ..observability.registry import _LatencyWindow
 from .engine import EngineOverloadedError
 from .predictor import Predictor
@@ -125,6 +142,8 @@ class GenerationPrograms:
             kv_dtype=self.kv_dtype)
         self.pool_names = [n for n in progs["decode"]["feed_names"]
                            if n.startswith(("kv_k_", "kv_v_"))]
+        #: bytes of the last decode's returned pools that are copies
+        self.pool_copy_bytes: Optional[int] = None
         self.prefill_pred, self.decode_pred = (
             _GenPredictor(progs[m]["program"], progs[m]["feed_names"],
                           progs[m]["fetch_vars"], scope=scope,
@@ -177,8 +196,13 @@ class GenerationPrograms:
         """The decode program: ``tokens [S]`` at positions ``index [S]``
         -> next-token logits ``[S, V]``, each slot's K/V appended."""
         self._check(exact)
-        return self.decode_pred.run(
-            self._feed(tokens, pools, pages, index), return_numpy=False)[0]
+        outs = self.decode_pred.run(self._feed(tokens, pools, pages, index),
+                                    return_numpy=False)
+        fed = [t.untyped_storage().data_ptr() for pair in pools for t in pair]
+        self.pool_copy_bytes = sum(
+            o.numel() * o.element_size() for o, ptr in zip(outs[1:], fed)
+            if o.untyped_storage().data_ptr() != ptr)
+        return outs[0]
 
 
 def _prefill_buckets(max_len: int) -> List[int]:
@@ -602,6 +626,12 @@ class DecodeEngine:
         self._iterations = 0
         self._prefills = 0
         self._step_s = _LatencyWindow()
+        #: introspection: reported (mode, batch, length) calls of a
+        #: TransformerLM, the kept attribution and its request flag
+        self._reported: set = set()
+        self._inter_token_attr = None
+        self._attr_wanted = False
+        self._attr_error: Optional[str] = None
         self._init_metrics()
         if warmup:
             try:
@@ -696,14 +726,12 @@ class DecodeEngine:
         request.  Idle pages take no writes."""
         idle = self._tensor(self._pages)
         with torch.inference_mode():
-            self.model.prefill(
+            self._prefill_call(
                 self._tensor(np.zeros((1, self._bucket_for(1)), np.int64)),
-                self._pools, idle[:1], self._tensor(np.ones(1, np.int32)),
-                **self._exact_kw)
-            self.model.decode(self._tensor(np.zeros(self.slots, np.int64)),
-                              self._pools, idle,
-                              self._tensor(np.zeros(self.slots, np.int32)),
-                              **self._exact_kw)
+                idle[:1], self._tensor(np.ones(1, np.int32)))
+            self._decode_call(self._tensor(np.zeros(self.slots, np.int64)),
+                              idle,
+                              self._tensor(np.zeros(self.slots, np.int32)))
 
     # -- submission ----------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
@@ -770,6 +798,101 @@ class DecodeEngine:
                            deadline_ms).result(timeout=timeout)
 
     # -- introspection -------------------------------------------------
+    def _prefill_call(self, tokens, pages, length):
+        # a TransformerLM prefills at the prompt's length: its reports
+        # go by the JAX engine's buckets, at the bucket's cost
+        buckets = (self.prefill_buckets
+                   or _prefill_buckets(int(self.spec["max_len"])))
+        n = tokens.shape[1]
+        key = ("prefill", tokens.shape[0],
+               next((b for b in buckets if n <= b), buckets[-1]))
+        return self._reported_call(
+            key, {"tokens": tokens, "kv_pages": pages, "kv_len": length},
+            lambda: self.model.prefill(tokens, self._pools, pages, length,
+                                       **self._exact_kw))
+
+    def _decode_call(self, tokens, pages, index):
+        key = ("decode", tokens.shape[0], 1)
+        return self._reported_call(
+            key, {"tokens": tokens, "kv_pages": pages, "kv_index": index},
+            lambda: self.model.decode(tokens, self._pools, pages, index,
+                                      **self._exact_kw))
+
+    def _reported_call(self, key, feed, call):
+        """``call()``; the first call of a `TransformerLM` at ``key``
+        (mode, batch, length) also registers its report (the Programs'
+        predictors register their own)."""
+        if key in self._reported or not isinstance(self.model,
+                                                   TransformerLM):
+            return call()
+        with _introspect.first_run_memory(self.device) as peak:
+            out = call()
+        self._reported.add(key)
+        mode, batch, t = key
+        model = self.model
+        flops, nbytes = model.step_cost(
+            mode, batch, t, span=self.pages_per_slot * self.block_len)
+        fp = hashlib.sha1(json.dumps(
+            [self.spec, model.precision, mode, self.numerics],
+            sort_keys=True).encode()).hexdigest()[:16]
+        _introspect.record_run(
+            layer="predictor", device=self.device, fingerprint=fp,
+            feed_sig=_introspect.feed_signature(feed), fetch_names=["logits"],
+            flops=flops, bytes_accessed=nbytes, peak_bytes=peak[0],
+            dtype=model.precision)
+        return out
+
+    def _inter_token_attribution(self):
+        """One decode step's device time by class, measured once: on the
+        card a first call asks the engine thread to profile its next
+        decode step and returns None until it has."""
+        if self._inter_token_attr is None and self.device.type == "cuda":
+            self._attr_wanted = True
+        return self._inter_token_attr
+
+    def _pool_copy_bytes_per_token(self):
+        """Bytes of the decode step's returned pools that are copies, not
+        the fed pools (None before the first decode step)."""
+        if self._iterations == 0:
+            return None
+        return int(getattr(self.model, "pool_copy_bytes", 0) or 0)
+
+    def _profiled_decode(self, tokens, pages, index):
+        """The decode step under ``torch.profiler``, its attribution kept
+        (`attribution.decode_attribution`).  While another profiler runs
+        the step runs plain and the next one tries again; a profiler that
+        fails leaves the step as it was and its reason in
+        ``_attr_error``."""
+        if _attribution.torch_profiling():
+            return self._decode_call(tokens, pages, index)
+        self._attr_wanted = False
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        try:
+            prof.start()
+        except Exception as e:  # noqa: BLE001 — a measurement aid only
+            self._attr_error = f"profiler start: {type(e).__name__}: {e}"
+            return self._decode_call(tokens, pages, index)
+        try:
+            logits = self._decode_call(tokens, pages, index)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            prof.stop()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            self._inter_token_attr = _attribution.decode_attribution(path)
+            if self._inter_token_attr is None:
+                self._attr_error = "the profiled step held no device events"
+        except Exception as e:  # noqa: BLE001
+            self._attr_error = f"trace: {type(e).__name__}: {e}"
+        finally:
+            os.unlink(path)
+        return logits
+
     def stats(self) -> Dict[str, Any]:
         with self._cv:
             queued = len(self._queue)
@@ -796,6 +919,8 @@ class DecodeEngine:
             "ttft_ms": _p50_p99(self._m_ttft.summary()),
             "inter_token_ms": _p50_p99(self._m_itl.summary()),
             "step_ms": _p50_p99(step),
+            "inter_token_attribution": self._inter_token_attribution(),
+            "pool_copy_bytes_per_token": self._pool_copy_bytes_per_token(),
             "prefix": prefix,
             "blocks": {"total": self.allocator.num_blocks,
                        "in_use": self.allocator.in_use,
@@ -1013,11 +1138,10 @@ class DecodeEngine:
             toks = np.zeros((1, self._bucket_for(len(req.prompt))),
                             np.int64)
             toks[0, :len(req.prompt)] = req.prompt
-            logits = self.model.prefill(
-                self._tensor(toks), self._pools,
+            logits = self._prefill_call(
+                self._tensor(toks),
                 self._tensor(self._pages[slot.sid:slot.sid + 1]),
-                self._tensor(np.array([len(req.prompt)], np.int32)),
-                **self._exact_kw)
+                self._tensor(np.array([len(req.prompt)], np.int32)))
             tok = int(logits[0].argmax())
             row = (logits[0].float().cpu().numpy() if req.capture_logits
                    else None)
@@ -1103,9 +1227,10 @@ class DecodeEngine:
         t0 = time.perf_counter()
         with self._trace_scope([s.req for s in active]), \
                 profiler.record_block("decode.step"):
-            logits = self.model.decode(self._tensor(tokens), self._pools,
-                                       self._tensor(self._pages),
-                                       self._tensor(index), **self._exact_kw)
+            call = (self._profiled_decode if self._attr_wanted
+                    else self._decode_call)
+            logits = call(self._tensor(tokens), self._tensor(self._pages),
+                          self._tensor(index))
             next_tokens = logits.argmax(dim=-1).cpu().numpy()
             rows = (logits.float().cpu().numpy()
                     if any(s.req.capture_logits for s in active) else None)

@@ -36,6 +36,7 @@ import torch
 from .. import profiler
 from ..observability import MetricsRegistry, default_registry, trace
 from ..observability import flight as _flight
+from ..observability import introspect as _introspect
 
 
 class EngineOverloadedError(RuntimeError):
@@ -102,6 +103,10 @@ class _Request:
 
 
 class ServingEngine:
+    #: sample ``executor_device_memory_bytes{device}`` every Nth dispatch
+    #: (the JAX engine's cadence), off the per-request path
+    DEVICE_MEM_SAMPLE_EVERY = 64
+
     def __init__(self, predictor, max_batch_size: int = 16,
                  max_queue_delay_ms: float = 2.0,
                  buckets: Optional[Sequence[int]] = None,
@@ -423,6 +428,9 @@ class ServingEngine:
         self._m_bucket_cache.labels(model=self.model, bucket=b,
                                     result="hit" if hit else "miss").inc()
         self._dispatch_n += 1
+        every = self.DEVICE_MEM_SAMPLE_EVERY
+        if every and self._dispatch_n % every == 1 % every:
+            _introspect.sample_device_memory()
         self.flight.push((time.time(), self._dispatch_n, len(self._queue),
                           len(batch), rows, bucket, now - batch[0].t_submit))
         for r in batch:

@@ -13,7 +13,10 @@ load, cuBLAS and cuDNN choose their algorithms for the shape), so
 ``run_with_info`` reports ``hit`` for a signature this predictor has run
 before, and ``stats()`` counts ``cache_hits`` / ``cache_misses`` and
 ``shapes_seen``.  The JAX keys only XLA can give (``disk_hits``,
-``cached_executables``, compile seconds) are left out.
+``cached_executables``, compile seconds) are left out.  The first run at
+a signature also registers the signature's cost report
+(`observability.introspect`, layer ``predictor``) and samples the device
+memory.
 
 Precision, as the JAX predictor's ``_apply_precision``:
 
@@ -60,6 +63,7 @@ from ..core.program import Program, Variable
 from ..core.scope import Scope, global_scope, scope_guard
 from ..core.types import to_torch_dtype
 from ..observability import default_registry as _obs_registry
+from ..observability import introspect as _introspect
 from .hot_rows import HotRowCache
 
 # the predictor is the executor layer of a serving process: the JAX
@@ -301,17 +305,42 @@ class Predictor:
         t0 = time.perf_counter()
         with profiler.record_block("executor.run"), \
                 _on_device(self.device), torch.inference_mode():
-            outs = self._forward(feed, cached)
+            if hit:
+                outs = self._forward(feed, cached)
+            else:
+                outs = self._first_forward(feed, cached)
             if return_numpy:
                 outs = [(o.float() if o.dtype == torch.bfloat16 else o)
                         .cpu().numpy() for o in outs]
         _PRED_RUN_S.observe(time.perf_counter() - t0)
         return outs, hit
 
+    def _first_forward(self, feed, cached) -> List[torch.Tensor]:
+        """`_forward` at a new signature, registering its report."""
+        env: Dict[str, Any] = {}
+        with _introspect.first_run_memory(self.device) as peak:
+            outs = self._forward(feed, cached, env)
+        live = Interpreter(self.program, self.device, self._generator,
+                           self.fetch_names).live_ops(
+                               self.program.global_block())
+        flops, nbytes = _introspect.program_cost(self.program, env, live)
+        _introspect.record_run(
+            layer="predictor", device=self.device,
+            fingerprint=self.fingerprint,
+            feed_sig=_introspect.feed_signature(feed),
+            fetch_names=self.fetch_names, flops=flops,
+            bytes_accessed=nbytes, peak_bytes=peak[0],
+            dtype=self.precision)
+        return outs
+
     def _forward(self, feed: Dict[str, torch.Tensor],
-                 cached: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+                 cached: Dict[str, torch.Tensor],
+                 env: Optional[Dict[str, Any]] = None) -> List[torch.Tensor]:
+        """One interpretation of the program; ``env``, when given, is
+        filled with every value the run left."""
+        env = {} if env is None else env
         with self._lock:
-            env: Dict[str, Any] = dict(self._params)
+            env.update(self._params)
         # int8: a matrix a product reads is dequantized here, per call,
         # f32 multiply stored bf16 (the JAX forward's expand)
         for name, skey in self._quantized.items():

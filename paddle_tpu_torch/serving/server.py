@@ -15,8 +15,11 @@ registry default; ``"deadline_ms"`` is the remaining budget),
 false``, then one ``{"done": true}`` line), ``stats``, ``metrics``
 (Prometheus text, or a snapshot with ``"format": "json"``), ``models``,
 ``load``, ``unload``, ``reload``, ``apply_deltas`` (a model's row-delta
-chain head onto its live predictor) and ``shutdown``.  ``inspect`` and
-``trace`` answer ``bad_request`` naming them as not ported yet.  Errors are ``{"error", "code"}`` with code one of
+chain head onto its live predictor), ``inspect`` (the process's cost
+reports, `observability.introspect.summary`), ``trace`` (this process's
+spans and flight records of one trace id,
+`observability.timeline.process_trace_doc`) and ``shutdown``.  Errors
+are ``{"error", "code"}`` with code one of
 ``unknown_model`` / ``bad_feed`` / ``shutting_down`` / ``overloaded`` /
 ``deadline_exceeded`` / ``bad_request`` / ``internal``;
 ``shutting_down`` and ``overloaded`` are retriable (the request never
@@ -50,12 +53,6 @@ from .registry import GenerationUnsupportedError, ModelRegistry, \
 #: where the ``models`` / ``metrics`` CLI verbs look for it
 SELECTED_PORT_FILE = os.path.join(tempfile.gettempdir(),
                                   "paddle_tpu_torch.serving_port")
-
-#: verbs of the JAX package's wire that the port answers with
-#: bad_request, and the ROADMAP item that brings each
-_NOT_PORTED = {
-    "inspect": "ROADMAP queue A item 1 (inspect/trace)",
-    "trace": "ROADMAP queue A item 1 (inspect/trace)"}
 
 
 def _encode(arr: np.ndarray) -> dict:
@@ -235,47 +232,52 @@ class _Handler(socketserver.StreamRequestHandler):
                         try:
                             if self.server.shutting_down.is_set():
                                 raise RuntimeError("server is closed")
-                            entry = registry.generate_entry(
-                                msg.get("model"))
-                            prompt = msg.get("prompt")
-                            if isinstance(prompt, dict):
-                                prompt = _decode(prompt)
-                            handle = entry.decode.submit(
-                                prompt,
-                                max_new_tokens=int(
-                                    msg.get("max_new_tokens", 16)),
-                                eos_id=msg.get("eos_id"),
-                                deadline_ms=msg.get("deadline_ms"))
-                            stream = bool(msg.get("stream", True))
-                            count = 0
-                            # events() only returns after a terminal
-                            # event, but never let a contract break
-                            # leave `resp` unbound past the loop
-                            resp = {"error": "generation stream ended "
-                                             "without a terminal event",
-                                    "code": "internal", "trace": tid}
-                            for ev in handle.events():
-                                if ev[0] == "token":
-                                    count += 1
-                                    if stream:
-                                        line = {"token": int(ev[2]),
-                                                "index": int(ev[1]),
+                            # the whole stream is one span (the JAX
+                            # server spans only infer), so a generate's
+                            # trace holds its request beside the engine's
+                            # prefill and steps
+                            with profiler.record_block("serving.request"):
+                                entry = registry.generate_entry(
+                                    msg.get("model"))
+                                prompt = msg.get("prompt")
+                                if isinstance(prompt, dict):
+                                    prompt = _decode(prompt)
+                                handle = entry.decode.submit(
+                                    prompt,
+                                    max_new_tokens=int(
+                                        msg.get("max_new_tokens", 16)),
+                                    eos_id=msg.get("eos_id"),
+                                    deadline_ms=msg.get("deadline_ms"))
+                                stream = bool(msg.get("stream", True))
+                                count = 0
+                                # events() only returns after a terminal
+                                # event, but never let a contract break
+                                # leave `resp` unbound past the loop
+                                resp = {"error": "generation stream ended "
+                                                 "without a terminal event",
+                                        "code": "internal", "trace": tid}
+                                for ev in handle.events():
+                                    if ev[0] == "token":
+                                        count += 1
+                                        if stream:
+                                            line = {"token": int(ev[2]),
+                                                    "index": int(ev[1]),
+                                                    "model": entry.name,
+                                                    "trace": tid}
+                                            self.wfile.write(
+                                                (json.dumps(line)
+                                                 + "\n").encode())
+                                            self.wfile.flush()
+                                    elif ev[0] == "error":
+                                        raise ev[1]
+                                    else:
+                                        resp = {"done": True,
+                                                "tokens": [int(t)
+                                                           for t in ev[2]],
+                                                "finish_reason": ev[1],
+                                                "count": count,
                                                 "model": entry.name,
                                                 "trace": tid}
-                                        self.wfile.write(
-                                            (json.dumps(line)
-                                             + "\n").encode())
-                                        self.wfile.flush()
-                                elif ev[0] == "error":
-                                    raise ev[1]
-                                else:
-                                    resp = {"done": True,
-                                            "tokens": [int(t)
-                                                       for t in ev[2]],
-                                            "finish_reason": ev[1],
-                                            "count": count,
-                                            "model": entry.name,
-                                            "trace": tid}
                         except Exception as e:  # noqa: BLE001
                             resp = dict(_err(e), trace=tid)
                         self.wfile.write((json.dumps(resp) + "\n").encode())
@@ -297,10 +299,20 @@ class _Handler(socketserver.StreamRequestHandler):
                     resp = {"metrics": snapshot()}
                 else:
                     resp = {"metrics": render_prometheus()}
-            elif method in _NOT_PORTED:
-                resp = {"error": f"verb {method!r} is not ported yet: "
-                                 f"{_NOT_PORTED[method]}",
-                        "code": "bad_request"}
+            elif method == "inspect":
+                # every (program, feed signature) this process has run,
+                # with its cost report
+                from ..observability import introspect
+                resp = {"introspection": introspect.summary()}
+            elif method == "trace":
+                # this process's spans and flight records of one trace
+                # id, with the (wall, perf) clock origin a stitcher
+                # aligns them by
+                from ..observability import timeline as _tl
+                resp = {"trace": {
+                    "id": msg.get("id"),
+                    "processes": [_tl.process_trace_doc(
+                        msg.get("id"), role="serve")]}}
             elif method == "models":
                 resp = {"models": registry.describe()}
             elif method == "load":
@@ -689,6 +701,20 @@ class ServingClient:
                           idempotent=True)["metrics"]
 
     # -- multi-model admin surface ------------------------------------------
+    def inspect(self) -> Dict[str, Any]:
+        """The server's introspection registry: per-program cost reports
+        and per-layer aggregates."""
+        return self._call({"method": "inspect"},
+                          idempotent=True)["introspection"]
+
+    def trace(self, trace_id: str) -> Dict[str, Any]:
+        """One trace id's slices: ``{"id", "processes":
+        [process_trace_doc, ...]}`` (one process for a ``serve``); feed
+        ``processes`` to ``timeline.stitch_processes`` for the merged
+        Chrome trace."""
+        return self._call({"method": "trace", "id": str(trace_id)},
+                          idempotent=True)["trace"]
+
     def models(self) -> Dict[str, Any]:
         """Registry listing: {'default': name, 'models': {name: info}}."""
         return self._call({"method": "models"}, idempotent=True)["models"]
@@ -771,6 +797,14 @@ def list_models(endpoint: str, timeout: float = 60.0) -> Dict[str, Any]:
     """One-shot registry listing (the `models` CLI verb's transport)."""
     with ServingClient(endpoint, timeout=timeout) as c:
         return c.models()
+
+
+def serving_introspection(endpoint: str,
+                          timeout: float = 60.0) -> Dict[str, Any]:
+    """One-shot report pull (the ``inspect`` CLI verb's transport against
+    a live endpoint)."""
+    with ServingClient(endpoint, timeout=timeout) as c:
+        return c.inspect()
 
 
 def shutdown_serving(endpoint: str, timeout: float = 10.0):

@@ -166,11 +166,14 @@ def test_every_wire_error_code_through_the_jax_client(tmp_path, lm_dir):
             with pytest.raises(jserving.ServingError) as ei:
                 c.infer(one, model="a", deadline_ms=0)
             assert ei.value.code == "deadline_exceeded"
-            for verb in ("inspect", "trace"):
-                reply = c.raw_call({"method": verb, "model": "a", "id": "x"})
-                assert reply["code"] == "bad_request", reply
-                assert "not ported" in reply["error"]
-                assert "ROADMAP" in reply["error"]
+            # inspect and trace are ported: answers, not error codes
+            reply = c.raw_call({"method": "inspect", "model": "a"})
+            assert "error" not in reply, reply
+            assert {"layers", "programs"} <= set(reply["introspection"])
+            reply = c.raw_call({"method": "trace", "id": "x"})
+            assert "error" not in reply, reply
+            assert reply["trace"]["id"] == "x"
+            assert reply["trace"]["processes"][0]["role"] == "serve"
             # apply_deltas is ported: an unknown model is unknown_model,
             # a model with no delta chain a no-op
             reply = c.raw_call({"method": "apply_deltas", "model": "zz"})

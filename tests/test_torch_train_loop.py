@@ -409,9 +409,6 @@ def test_reader_op_feed_is_refused():
     ({"lookup_exchange": "a2a"}, "queue A item 4"),
     ({"a2a_capacity": 4}, "queue A item 4"),
     ({"tiered": {"w": 4}}, "queue A item 4"),
-    ({"timeline_path": "t.json"}, r"queue A item 5 \(profiler\)"),
-    ({"xprof_every": 2}, r"queue A item 5 \(profiler\)"),
-    ({"xprof_dir": "x"}, r"queue A item 5 \(profiler\)"),
 ])
 def test_unported_arguments_raise_with_their_label(kw, label):
     loss, feeds = _build_model()
