@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-29
+    python3 chip_smoke.py             # the smoke run, phases 1-31
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -28,6 +28,8 @@
                                       # memory_optimize
     python3 chip_smoke.py --observe   # phases 1, 28 and 29, the
                                       # observability plane
+    python3 chip_smoke.py --fleet     # phases 1, 30 and 31, the serving
+                                      # fleet and its control plane
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -314,11 +316,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the inter-token attribution's shares summing to 1 with the paged
    attention kernel in "kernel", pool_copy_bytes_per_token 0 and the
    slo_* gauges set; tokens/s and step p50 with the plane off and on;
+30. the serving fleet: phase 4's model saved for serving, two spawned
+   `python -m paddle_tpu_torch serve --precision bf16 --decode-slots 16
+   --profile` replicas on the card and one adopted in-process replica
+   behind a FleetFrontend (heartbeat every 0.5 s): 48 streams (prompts
+   of 8..1024 tokens, 64 new tokens, 8 client threads) to the in-process
+   server alone (the reference), the same through the frontend (launch
+   counts zeroed just before: the adopted replica's count every serving
+   kernel), the same again with the spawned replica holding the most
+   streams SIGKILLed once stream 0 has relayed 8 tokens, then 16 more
+   once it is back; every stream bitwise the reference, retries, the
+   victim restarted, readmitted and serving, the merged metrics with
+   every replica's series, a trace stitched over three processes (a
+   client subprocess, the frontend, a spawned replica), `top` rendering
+   the three replicas, no kernel built by a replica, each spawned
+   replica's kernels in its inter-token attribution; tokens/s and TTFT
+   of each round, kill to ejection and to readmission, and each replica
+   incarnation's longest decode step, step ms and device memory;
+31. the control plane: a CheckpointWatcher over phase 30's two spawned
+   replicas republishes a checkpoint of the served weights (a no-op, no
+   reload) and then every parameter times 1 + 1e-2 N(0, 1), rolled one
+   replica at a time under LoadGenerator generates (none may fail),
+   both replicas then on the new fingerprint, a greedy stream equal to
+   the in-process engine reloaded from the published dir and unequal to
+   phase 30's; then `fleet --autoscale min=1,max=2` replays one
+   build_schedule trace (low rate, an x8 burst, low rate, idle): one
+   scale-up during the burst whose replica boots on the card and takes
+   traffic, one scale-down after it, no client errors, the autoscaler
+   on the stats page, no replica process left; p99 before, during and
+   after the burst, shed rate, boot seconds;
 then a JSON line with every ported kernel's launches (with
 launches_sparse_training, launches_remat_training,
-launches_remat_plain_training, launches_observe_training and
-launches_observe_serving), error and times, the card's name and
-power limit, and the last line: {"ok": true, "device": {...}}.
+launches_remat_plain_training, launches_observe_training,
+launches_observe_serving and launches_fleet), error and times, the
+card's name and power limit, and the last line: {"ok": true, "device":
+{...}}.
 
 With --serving it runs only phase 1, the paged-attention and LayerNorm
 checks and timings of phase 3, and phase 4; with --resnet phase 1, the
@@ -335,7 +367,8 @@ checks and timings of phase 3; with --genprog phase 1 and phase 22;
 with --ssd phase 1, the BatchNorm backward's checks at phase 24's shapes
 and its times (kernel, plain, cuDNN) summed over the step's 35 launches,
 and phase 24; with --sparse phase 1 and phase 26; with --remat phase 1
-and phase 27; with --observe phase 1 and phases 28 and 29.
+and phase 27; with --observe phase 1 and phases 28 and 29; with
+--fleet phase 1 and phases 30 and 31.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
@@ -7616,13 +7649,805 @@ def vgg_f32_anatomy(smi):
 #: JSON line and no {"ok": ...} line: run from two checkouts in turns
 #: (parent, change, change, parent), it compares two versions of those
 #: kernels on one card
+# ---------------------------------------------------------------------------
+# phases 30-31: the serving fleet and its control plane
+# ---------------------------------------------------------------------------
+
+FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_PROMPT = 16, 48, 64, (8, 1024)
+FLEET_CLIENTS, FLEET_BURST, FLEET_KILL_AFTER = 8, 16, 8
+FLEET_HEALTH = 0.5
+FLEET_BOOT_TIMEOUT = 300.0
+FLEET_KERNELS = ("paged_attention", "flash_attention_fwd", "layer_norm_fwd")
+#: the kernel each spawned replica's inter-token attribution must name
+FLEET_ATTRIBUTED = "paged_split_kernel"
+#: a replica of phases 30-31: ``serve`` on the card (its default device)
+FLEET_REPLICA_ARGS = ("--precision", "bf16", "--decode-slots",
+                      str(FLEET_SLOTS), "--profile")
+#: phase 31a: checkpoint step 2 is every parameter times (1 + ROLL_NOISE
+#: N(0, 1)), seeded (not trained weights); the load generator replays
+#: ROLL_WINDOW_S windows of ROLL_RPS generates of ROLL_NEW tokens until
+#: the roll is done
+ROLL_NOISE, ROLL_NEW, ROLL_PROMPT = 1e-2, 16, 32
+ROLL_RPS, ROLL_WINDOW_S = 6.0, 4.0
+#: phase 31b: one build_schedule trace (low rate, an x8 burst, low rate
+#: again, then idle) replayed at AUTOSCALE_TIME_SCALE against
+#: ``fleet --autoscale AUTOSCALE_SPEC`` (16-token generates)
+AUTOSCALE_PHASES = (
+    {"duration_s": 6.0, "rps": 2.0, "generate_fraction": 1.0},
+    {"duration_s": 64.0, "rps": 2.0, "burst_x": 8.0,
+     "generate_fraction": 1.0},
+    {"duration_s": 6.0, "rps": 2.0, "generate_fraction": 1.0})
+AUTOSCALE_TIME_SCALE = 0.5
+AUTOSCALE_P99_MS = 2000.0
+AUTOSCALE_SPEC = (f"min=1,max=2,slo=p99_ms={AUTOSCALE_P99_MS:g},"
+                  "queue_high=2,window_s=2,idle_s=2,cooldown_up_s=2,"
+                  "cooldown_down_s=8")
+
+
+def _fleet_lm_dir(seed, name):
+    """A copy of phase 4's model as a servable artifact under
+    build/fleet/<name> (the watcher republishes into it)."""
+    import shutil
+    src, spec = _observe_lm_dir(seed)
+    d = os.path.join(HERE, "build", "fleet", name)
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(src, d)
+    return d, spec
+
+
+def _fleet_env():
+    return dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def _fleet_generate(ep, prompts, order, on_token=None):
+    """Streams ``prompts[i]`` for i in ``order`` from FLEET_CLIENTS
+    threads over the wire -> ({i: (tokens, ttft s)}, wall s).  Every
+    stream's done line must repeat its relayed tokens; ``on_token(i,
+    n)`` sees each stream's n-th relayed token."""
+    from paddle_tpu_torch.serving import ServingClient
+    out = {}
+
+    def client(t):
+        with ServingClient(ep, timeout=FD_WIRE_TIMEOUT) as c:
+            for i in order[t::FLEET_CLIENTS]:
+                t0, ttft, toks, final = time.perf_counter(), None, [], None
+                for line in c.generate_stream(prompts[i],
+                                              max_new_tokens=FLEET_NEW):
+                    if "token" in line:
+                        if ttft is None:
+                            ttft = time.perf_counter() - t0
+                        toks.append(line["token"])
+                        if on_token is not None:
+                            on_token(i, len(toks))
+                    else:
+                        final = line
+                if final is None or final["tokens"] != toks:
+                    raise AssertionError(f"stream {i}: the done line does "
+                                         "not repeat the relayed tokens")
+                out[i] = (toks, ttft)
+
+    t0 = time.perf_counter()
+    _run_threads(client, FLEET_CLIENTS)
+    return out, time.perf_counter() - t0
+
+
+def _round_numbers(results, wall):
+    n_tok = sum(len(t) for t, _ in results.values())
+    return {"streams": len(results), "tokens": n_tok,
+            "tokens_per_s": n_tok / wall, "wall_s": wall,
+            "ttft_ms": _pct([ttft for _, ttft in results.values()])}
+
+
+def _replica_reading(endpoint, tokens_len):
+    """One spawned replica incarnation over the wire: its longest decode
+    step and step count from the ``decode.default`` flight ring (the
+    ``trace`` verb of a ``--profile`` replica returns it), its stats
+    page's step ms, its inter-token attribution's kernels, and its
+    ``sample_device_memory`` reading after one infer."""
+    from paddle_tpu_torch.observability import parse_series_key
+    from paddle_tpu_torch.serving import ServingClient
+    with ServingClient(endpoint, timeout=FD_WIRE_TIMEOUT) as c:
+        doc = c.raw_call({"method": "trace"})["trace"]   # every span
+        st = c.stats()
+        c.infer({"tokens": np.zeros((1, tokens_len), np.int64)})
+        mem = c.metrics(format="json").get(
+            "executor_device_memory_bytes", {}).get("series", {})
+    recs = sorted((r for p in doc["processes"]
+                   for r in p.get("flight", {}).get("decode.default", ())),
+                  key=lambda r: r["ts"])
+    steps, prev = [], 0
+    for r in recs:              # a record past the last count ran a step
+        if r["iteration"] > prev:
+            steps.append(r["step_s"] * 1e3)
+        prev = r["iteration"]
+    attr = (st.get("decode") or {}).get("inter_token_attribution") or {}
+    return {"decode_steps_in_ring": len(steps),
+            "first_step_ms": steps[0] if steps else None,
+            "longest_step_ms": max(steps) if steps else None,
+            "step_ms": (st.get("decode") or {}).get("step_ms"),
+            "attribution_kernels_us": attr.get("kernels_us"),
+            "device_memory_bytes": {parse_series_key(k)[0]["device"]:
+                                    int(v) for k, v in mem.items()}}
+
+
+def _readings(endpoints, tokens_len):
+    """`_replica_reading` of each endpoint, at once -> list."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(endpoints)) as pool:
+        return list(pool.map(lambda ep: _replica_reading(ep, tokens_len),
+                             endpoints))
+
+
+class _StateWatch:
+    """Polls one replica's health state every 20 ms from the moment of a
+    kill: -> seconds to EJECTED and to HEALTHY again (its restart)."""
+
+    def __init__(self, rep):
+        import threading
+        self.rep, self.t_kill = rep, time.monotonic()
+        self.ejected_s = self.readmitted_s = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            dt = time.monotonic() - self.t_kill
+            if self.ejected_s is None and self.rep.state == "ejected":
+                self.ejected_s = dt
+            if self.ejected_s is not None and self.rep.restarts > 0 and \
+                    self.rep.state == "healthy":
+                self.readmitted_s = dt
+                return
+
+    def stop(self):
+        self._thread.join(2)        # a last poll sees the readmission
+        self._stop.set()
+        self._thread.join(5)
+
+
+_TRACE_CLIENT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from paddle_tpu_torch import profiler
+from paddle_tpu_torch.observability import timeline, trace
+from paddle_tpu_torch.serving import ServingClient
+ep, prompt = sys.argv[2], json.loads(sys.argv[3])
+profiler.start_profiler()
+out = {"attempts": 0}
+with ServingClient(ep, timeout=120) as c:
+    while out["attempts"] < 12:
+        out["attempts"] += 1
+        tid = trace.new_trace_id()
+        with trace.scope(tid), profiler.record_block("client.request"):
+            lines = list(c.generate_stream(prompt, max_new_tokens=4))
+        procs = c.trace(tid)["processes"] + [
+            timeline.process_trace_doc(tid, role="client")]
+        pids = {p["pid"] for p in procs if p["spans"]}
+        if len(pids) < 3:
+            continue
+        events = timeline.stitch_processes(procs)["traceEvents"]
+        flows = [e for e in events if e.get("id") == tid
+                 and e["ph"] in ("s", "t", "f")]
+        out.update(trace=tid, processes=len(pids),
+                   roles=sorted(p["role"] for p in procs if p["spans"]),
+                   spans=sorted({s["name"] for p in procs
+                                 for s in p["spans"]}),
+                   flow_pids=len({e["pid"] for e in flows}),
+                   flow_phases=sorted({e["ph"] for e in flows}))
+        break
+print(json.dumps(out))
+"""
+
+
+def fleet_phase(smi, seed=0):
+    """Phase 30: two spawned ``serve`` replicas of phase 4's LM on the
+    card and one adopted in-process replica behind a `FleetFrontend`;
+    FLEET_REQUESTS streams to the in-process server alone (the
+    reference), then through the frontend, then again with the busiest
+    spawned replica SIGKILLed mid-stream and a follow-up burst once it
+    is back.  -> (launches of the in-process replica over rounds 2-3 and
+    the burst, results, state for phase 31)."""
+    import shutil
+    import signal
+    import torch
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import (FleetFrontend, InferenceServer,
+                                          ModelRegistry)
+    print(f"phase 30: the serving fleet: 2 spawned `serve` replicas of the "
+          f"{FULL_WIDTH['n_layers']}-layer d{FULL_WIDTH['d_model']} LM "
+          f"(bf16, {FLEET_SLOTS} slots, on the card) + 1 adopted in-process "
+          f"replica behind a FleetFrontend; {FLEET_REQUESTS} streams alone, "
+          "through the fleet, and across a SIGKILL", flush=True)
+    t_phase = time.perf_counter()
+    times = {}
+    torch.cuda.empty_cache()
+    model_dir, spec = _fleet_lm_dir(seed, "lm")
+    times["model_dir_s"] = time.perf_counter() - t_phase
+    kernels_before = _built_kernels()
+    run_dir = os.path.join(HERE, "build", "fleet", "run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    profiler.start_profiler()       # the frontend's spans
+    reg = ModelRegistry()
+    reg.load("default", model_dir, precision="bf16", warmup=[],
+             decode={"slots": FLEET_SLOTS, "block_len": 16, "warmup": True})
+    server = InferenceServer(reg, port=0, port_file="").start()
+    local_ep = f"127.0.0.1:{server.port}"
+    t_spawn = time.perf_counter()
+    times["in_process_load_s"] = t_spawn - t_phase - times["model_dir_s"]
+    fleet = FleetFrontend(
+        [("default", model_dir)], replicas=2, replica_endpoints=[local_ep],
+        run_dir=run_dir, spawn_env=_fleet_env(),
+        replica_args=FLEET_REPLICA_ARGS, health_interval=FLEET_HEALTH,
+        spawn_timeout=FLEET_BOOT_TIMEOUT, request_timeout=FD_WIRE_TIMEOUT,
+        route_timeout=FD_WIRE_TIMEOUT).start()
+    state = {"fleet": fleet, "server": server, "reg": reg,
+             "model_dir": model_dir, "spec": spec}
+    try:
+        fleet.wait_ready(timeout=FLEET_BOOT_TIMEOUT)
+        boot_s = time.perf_counter() - t_spawn
+        ep = f"127.0.0.1:{fleet.port}"
+        print(f"  3 replicas healthy {boot_s:.1f} s after the spawn "
+              f"(model copied, in-process replica warm); frontend {ep}",
+              flush=True)
+        rng = np.random.default_rng(seed + 30)
+        lens = rng.integers(FLEET_PROMPT[0], FLEET_PROMPT[1] + 1,
+                            FLEET_REQUESTS)
+        prompts = [rng.integers(0, spec["vocab"], n).tolist() for n in lens]
+        order = list(range(FLEET_REQUESTS))
+        t0 = time.perf_counter()
+        ref, wall1 = _fleet_generate(local_ep, prompts, order)
+        rounds = {"alone": _round_numbers(ref, wall1)}
+
+        K.reset_launches()
+        r2, wall2 = _fleet_generate(ep, prompts, order)
+        rounds["fleet"] = _round_numbers(r2, wall2)
+        suspect = sum(int(s.value) for lab, s
+                      in fleet._m_transitions.items()
+                      if lab["to"] in ("suspect", "ejected"))
+        spawned = [r for r in fleet.replicas if r.owned]
+        incarnations = {r.name: [reading] for r, reading in zip(
+            spawned, _readings([r.endpoint for r in spawned],
+                               spec["max_len"]))}
+
+        victim, watch = [], []
+
+        def kill_busiest(i, n):
+            if i == 0 and n == FLEET_KILL_AFTER and not victim:
+                rep = max(spawned, key=lambda r: r.inflight)
+                os.kill(rep.proc.pid, signal.SIGKILL)
+                victim.append(rep)
+                watch.append(_StateWatch(rep))
+
+        times["rounds_1_2_s"] = time.perf_counter() - t0
+        retries0 = int(fleet._m_retries.value)
+        t0 = time.perf_counter()
+        r3, wall3 = _fleet_generate(ep, prompts, order, kill_busiest)
+        rounds["chaos"] = _round_numbers(r3, wall3)
+        if not victim:
+            raise AssertionError("phase 30: stream 0 never reached the "
+                                 "kill point")
+        victim = victim[0]
+        fleet.wait_ready(timeout=FLEET_BOOT_TIMEOUT)
+        watch[0].stop()
+        times["round_3_and_restart_s"] = time.perf_counter() - t0
+        fwd_before = victim.forwarded
+        burst, wall4 = _fleet_generate(ep, prompts, order[:FLEET_BURST])
+        rounds["burst"] = _round_numbers(burst, wall4)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in K.KERNELS}
+        t0 = time.perf_counter()
+        # phase 31's autoscaled fleet boots while this phase checks
+        state["autoscale"] = _start_autoscale_fleet(seed)
+        retries = int(fleet._m_retries.value) - retries0
+
+        for label, res, want in (("fleet", r2, order), ("chaos", r3, order),
+                                 ("burst", burst, order[:FLEET_BURST])):
+            bad = [i for i in want if i not in res or res[i][0] != ref[i][0]]
+            if bad:
+                raise AssertionError(f"phase 30 {label}: streams {bad[:8]} "
+                                     "missing or unequal to the single "
+                                     "server's")
+        if retries < 1 or victim.restarts < 1:
+            raise AssertionError(f"phase 30: retries {retries}, victim "
+                                 f"{victim.describe()}")
+        if victim.forwarded <= fwd_before:
+            raise AssertionError("phase 30: the restarted replica took no "
+                                 f"traffic in the burst: "
+                                 f"{[r.describe() for r in fleet.replicas]}")
+        for name in FLEET_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"phase 30: {name} never launched in "
+                                     "the adopted replica")
+        for name, readings in incarnations.items():
+            for r in readings:
+                kernels = r["attribution_kernels_us"] or {}
+                if FLEET_ATTRIBUTED and FLEET_ATTRIBUTED not in kernels:
+                    raise AssertionError(
+                        f"phase 30: replica {name}'s attribution names no "
+                        f"port kernel: {r['attribution_kernels_us']}")
+
+        snap = fleet.metrics_snapshot()
+        series = snap.get("decode_tokens_total", {}).get("series", {})
+        labels = {p.split("=", 1)[1] for k in series for p in k.split(",")
+                  if p.startswith("replica=")}
+        if not {"r0", "r1", "r2", "fleet"} <= labels:
+            raise AssertionError(f"phase 30: merged metrics replicas "
+                                 f"{sorted(labels)}")
+        # the traced client and `top`, each in a process of its own, at once
+        trace, top = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=HERE) for cmd in (
+                [sys.executable, "-c", _TRACE_CLIENT, HERE, ep,
+                 json.dumps(prompts[1][:64])],
+                [sys.executable, "-m", "paddle_tpu_torch", "top", ep,
+                 "--iterations", "1"]))
+        incarnations[victim.name] += _readings([victim.endpoint],
+                                               spec["max_len"])
+        trace_out, trace_err = trace.communicate(timeout=300)
+        top_out, top_err = top.communicate(timeout=300)
+        tdoc = json.loads(trace_out.strip().splitlines()[-1]) \
+            if trace.returncode == 0 else {"error": trace_err[-2000:]}
+        if tdoc.get("processes", 0) < 3 or tdoc.get("flow_pids", 0) < 3 \
+                or tdoc.get("flow_phases") != ["f", "s", "t"]:
+            raise AssertionError(f"phase 30: stitched trace {tdoc}")
+        rows = [ln for ln in top_out.splitlines()
+                if ln.strip().startswith(("r0 ", "r1 ", "r2 "))]
+        if top.returncode != 0 or len(rows) != 3:
+            raise AssertionError(f"phase 30: top rendered {rows}: "
+                                 f"{top_out}{top_err[-2000:]}")
+        print("\n".join("  | " + ln for ln in top_out.splitlines()),
+              flush=True)
+        built = _built_kernels()
+        logs = "".join(open(os.path.join(run_dir, f), errors="replace").read()
+                       for f in os.listdir(run_dir) if f.endswith(".log"))
+        replica_built = built != kernels_before or "ptxas" in logs \
+            or "nvcc" in logs
+        if replica_built:
+            raise AssertionError("phase 30: a replica built kernels: "
+                                 f"{sorted(set(built) - set(kernels_before))}")
+        e2e = {"rounds": rounds, "retries": retries,
+               "suspect_or_ejected_before_kill": suspect,
+               "victim": victim.name,
+               "kill_to_ejected_s": watch[0].ejected_s,
+               "kill_to_readmitted_s": watch[0].readmitted_s,
+               "forwarded": {r.name: r.forwarded for r in fleet.replicas},
+               "incarnations": incarnations, "boot_s": boot_s,
+               "trace": tdoc, "replica_built_kernels": replica_built}
+        times["checks_s"] = time.perf_counter() - t0
+        e2e.update(times=times, phase_s=time.perf_counter() - t_phase)
+        state.update(prompts=prompts, ref=ref)
+    except BaseException:
+        _stop_fleet(state)
+        raise
+    for label, r in rounds.items():
+        print(f"  ({smi}) {label}: {r['streams']} streams, "
+              f"{r['tokens_per_s']:.1f} tokens/s, TTFT ms p50 "
+              f"{r['ttft_ms']['p50']:.1f} p99 {r['ttft_ms']['p99']:.1f}",
+              flush=True)
+    print(f"  ({smi}) SIGKILL of {victim.name}: ejected after "
+          f"{watch[0].ejected_s} s, readmitted after "
+          f"{watch[0].readmitted_s} s; retries {retries}; forwarded "
+          f"{e2e['forwarded']}; every stream bitwise the single server's",
+          flush=True)
+    for name, readings in incarnations.items():
+        for k, r in enumerate(readings):
+            print(f"  ({smi}) {name} incarnation {k + 1}: longest decode "
+                  f"step {r['longest_step_ms']} ms of "
+                  f"{r['decode_steps_in_ring']} (the first "
+                  f"{r['first_step_ms']} ms; step ms "
+                  f"{r['step_ms']}); "
+                  f"device memory {r['device_memory_bytes']}; kernels "
+                  f"{sorted(r['attribution_kernels_us'] or {})}",
+                  flush=True)
+    print(f"  trace {tdoc['trace']}: {tdoc['processes']} processes "
+          f"{tdoc['roles']}; no replica built a kernel; phase "
+          f"{e2e['phase_s']:.1f} s {json.dumps(times)}", flush=True)
+    return launches, e2e, state
+
+
+def _built_kernels():
+    """The files of the kernels' build directory."""
+    from paddle_tpu_torch.ops import _build
+    return sorted(os.listdir(_build.BUILD_DIR)) \
+        if os.path.isdir(_build.BUILD_DIR) else []
+
+
+def _serve_pids(model_dir):
+    """Live ``serve`` processes of ``model_dir``, read from
+    /proc/<pid>/cmdline: a replica no frontend tracks shows here too."""
+    want = os.path.abspath(model_dir).encode()
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"serve" in argv and want in argv:
+            out.append(int(d))
+    return out
+
+
+def _stop_cli_fleet(proc):
+    """SIGTERM a ``fleet`` process, which then stops its replicas;
+    SIGKILL its process group after 60 s."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait(30)
+
+
+def _stop_fleet(state):
+    """Stop what phase 30 started: the frontend (and its spawned
+    replicas), the in-process server and registry, the span log, and
+    phase 31's autoscaled fleet if phase 31 never took it; -> whether
+    every replica process of phase 30 is gone."""
+    from paddle_tpu_torch import profiler
+    fleet = state.pop("fleet", None)
+    procs = []
+    if fleet is not None:
+        fleet.stop(grace=30.0)
+        procs = [r.proc for r in fleet.replicas if r.proc is not None]
+    for key in ("server", "reg"):
+        obj = state.pop(key, None)
+        if obj is not None:
+            obj.stop() if key == "server" else obj.close()
+    b = state.pop("autoscale", None)
+    if b is not None:
+        _stop_cli_fleet(b[0])
+    profiler.stop_profiler(quiet=True)
+    return all(p.poll() is not None for p in procs) and \
+        not _serve_pids(state["model_dir"])
+
+
+def _roll_load(ep, prompt, stop):
+    """LoadGenerator windows of ROLL_WINDOW_S at ROLL_RPS (16-token
+    generates, client retries on) until ``stop`` is set -> summed
+    report."""
+    from paddle_tpu_torch.fleet_control import LoadGenerator, build_schedule
+    total = {"offered": 0, "ok": 0, "shed": 0, "errors": 0, "windows": 0}
+    k = 0
+    while not stop.is_set():
+        sched = build_schedule([{"duration_s": ROLL_WINDOW_S,
+                                 "rps": ROLL_RPS, "generate_fraction": 1.0}],
+                               seed=310 + k)
+        rep = LoadGenerator(ep, sched, feed={}, generate_model="default",
+                            generate_prompt=prompt,
+                            max_new_tokens=ROLL_NEW, retries=3,
+                            timeout=FD_WIRE_TIMEOUT).run()
+        for key in ("offered", "ok", "shed", "errors"):
+            total[key] += rep[key]
+        total["windows"] += 1
+        k += 1
+    return total
+
+
+def _start_autoscale_fleet(seed):
+    """``fleet --autoscale`` over its own copy of the model -> (process,
+    port file, start time, model dir)."""
+    model_dir = _fleet_lm_dir(seed, "lm_autoscale")[0]
+    port_file = os.path.join(HERE, "build", "fleet", "autoscale.port")
+    if os.path.exists(port_file):
+        os.unlink(port_file)
+    t0 = time.monotonic()
+    return _autoscale_fleet(model_dir, port_file), port_file, t0, model_dir
+
+
+def _autoscale_fleet(model_dir, port_file):
+    cmd = [sys.executable, "-m", "paddle_tpu_torch", "fleet", model_dir,
+           "--port-file", port_file, "--health-interval", str(FLEET_HEALTH),
+           "--sample-interval", "0.5", "--autoscale", AUTOSCALE_SPEC,
+           "--route-timeout", str(FD_WIRE_TIMEOUT)]
+    cmd += [f"--replica-arg={a}" for a in FLEET_REPLICA_ARGS]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=HERE,
+                            env=_fleet_env(), start_new_session=True)
+
+
+class _FleetWatch:
+    """Polls a frontend's ``fleet`` verb every 0.25 s: each replica's
+    first STARTING and HEALTHY times, its largest ``forwarded`` and pid."""
+
+    def __init__(self, ep):
+        import threading
+        self.ep, self.t0 = ep, time.monotonic()
+        self.seen = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        from paddle_tpu_torch.serving import ServingClient
+        with ServingClient(self.ep, timeout=30) as c:
+            while not self._stop.wait(0.25):
+                try:
+                    desc = c.raw_call({"method": "fleet"})["fleet"]
+                except (OSError, KeyError):
+                    continue
+                now = time.monotonic() - self.t0
+                for r in desc["replicas"]:
+                    s = self.seen.setdefault(r["replica"], {
+                        "first_seen_s": now, "healthy_s": None,
+                        "forwarded": 0, "pids": set()})
+                    if r["state"] == "healthy" and s["healthy_s"] is None:
+                        s["healthy_s"] = now
+                    s["forwarded"] = max(s["forwarded"], r["forwarded"])
+                    if r["pid"]:
+                        s["pids"].add(r["pid"])
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(10)
+
+
+def control_phase(smi, state, seed=0):
+    """Phase 31: (a) a CheckpointWatcher over phase 30's two spawned
+    replicas republishes a checkpoint of the served weights (a no-op:
+    no reload) and then a perturbed step 2, rolled replica by replica
+    under LoadGenerator traffic; (b) a fresh ``fleet --autoscale``
+    (min 1, max 2) replays one trace: low rate, an x8 burst, low again,
+    idle.  -> results."""
+    import shutil
+    import threading
+    import torch
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.fleet_control import (CheckpointWatcher,
+                                                LoadGenerator, ModelPublisher,
+                                                build_schedule)
+    from paddle_tpu_torch.io import _read_params
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import FleetFrontend, ServingClient
+    print("phase 31: the fleet control plane: a CheckpointWatcher rolls "
+          "phase 30's spawned replicas (a no-op, then perturbed weights "
+          "under load); `fleet --autoscale` replays a low/x8 burst/idle "
+          "trace", flush=True)
+    t_phase = time.perf_counter()
+    fleet, model_dir = state["fleet"], state["model_dir"]
+    spawned = [r for r in fleet.replicas if r.owned]
+    # phase b's fleet, started by phase 30, boots while phase a publishes
+    b_proc, b_port, t_b, b_dir = state.pop("autoscale")
+    out = {}
+    fleet_a = None
+    try:
+        fleet_a = FleetFrontend(
+            replica_endpoints=[r.endpoint for r in spawned],
+            health_interval=FLEET_HEALTH, route_timeout=FD_WIRE_TIMEOUT,
+            request_timeout=FD_WIRE_TIMEOUT).start()
+        fleet_a.wait_ready(timeout=60)
+        ep_a = f"127.0.0.1:{fleet_a.port}"
+
+        def served():
+            res = []
+            for r in spawned:
+                with ServingClient(r.endpoint, timeout=60) as c:
+                    m = c.models()["models"]["default"]
+                    res.append((m["manifest_fingerprint"], m["version"]))
+            return res
+
+        ckpt = os.path.join(HERE, "build", "fleet", "ckpt")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        mgr = CheckpointManager(ckpt, async_save=False)
+        arrays = _read_params(model_dir)
+        t0 = time.perf_counter()
+        mgr.save(1, arrays, block=True)
+        pub = ModelPublisher(ckpt, model_dir)
+        watcher = CheckpointWatcher(fleet_a, pub, poll_interval=1.0,
+                                    health_timeout=180.0, rpc_timeout=120.0,
+                                    registry=MetricsRegistry())
+        before = served()
+        noop = watcher.poll_once()
+        noop_s = time.perf_counter() - t0
+        if noop["outcome"] != "noop" or noop["rolled"] or served() != before:
+            raise AssertionError(f"phase 31: step 1 was no no-op: {noop}, "
+                                 f"{before} -> {served()}")
+        rng = np.random.default_rng(seed + 31)
+        noisy = {n: (a * (1 + ROLL_NOISE * rng.standard_normal(
+            a.shape, dtype=np.float32))).astype(a.dtype)
+            if np.issubdtype(a.dtype, np.floating) else a
+            for n, a in arrays.items()}
+        mgr.save(2, noisy, block=True)
+        del arrays, noisy
+        stop = threading.Event()
+        load = {}
+        prompt = state["prompts"][2][:ROLL_PROMPT]
+        lt = threading.Thread(target=lambda: load.update(
+            _roll_load(ep_a, prompt, stop)), daemon=True)
+        lt.start()
+        t0 = time.perf_counter()
+        try:
+            roll = watcher.poll_once()
+        finally:
+            stop.set()
+            lt.join(600)
+        roll_s = time.perf_counter() - t0
+        target = pub.published_fingerprint()
+        after = served()
+        if roll["outcome"] != "ok" or len(roll["rolled"]) != 2 or \
+                any(fp != target for fp, _ in after):
+            raise AssertionError(f"phase 31: roll {roll}; served {after}")
+        if load.get("ok") != load.get("offered") or load.get("errors") or \
+                load.get("shed"):
+            raise AssertionError(f"phase 31: requests failed in the roll: "
+                                 f"{load}")
+        p0 = state["prompts"][0]
+        with ServingClient(ep_a, timeout=FD_WIRE_TIMEOUT) as c:
+            fleet_toks = c.generate(p0, max_new_tokens=FLEET_NEW)["tokens"]
+        reg = state["reg"]
+        if not reg.reload("default"):
+            raise AssertionError("phase 31: the in-process registry saw "
+                                 "no new artifact")
+        local = reg.get("default").decode.generate(p0, FLEET_NEW,
+                                                   timeout=600)["tokens"]
+        if fleet_toks != local or fleet_toks == state["ref"][0][0]:
+            raise AssertionError("phase 31: the rolled fleet's stream "
+                                 f"{fleet_toks[:8]} / in-process "
+                                 f"{local[:8]} / before "
+                                 f"{state['ref'][0][0][:8]}")
+        out["watcher"] = {"noop": noop["outcome"], "noop_s": noop_s,
+                          "roll": roll["outcome"], "rolled": roll["rolled"],
+                          "roll_s": roll_s, "load": load,
+                          "fingerprint": target,
+                          "replica_versions": [v for _, v in after]}
+        print(f"  ({smi}) watcher: step 1 a no-op in {noop_s:.1f} s (no "
+              f"reload, versions {[v for _, v in before]}); step 2 rolled "
+              f"{roll['rolled']} in {roll_s:.1f} s under "
+              f"{load['offered']} generates, {load['ok']} ok, "
+              f"{load['errors']} errors, {load['shed']} shed; both on "
+              f"{target}; a greedy stream equals the in-process engine's "
+              "and differs from round 1's", flush=True)
+        fleet_a.stop(grace=10.0)
+        fleet_a = None
+        out["phase30_replicas_gone"] = _stop_fleet(state)
+        if not out["phase30_replicas_gone"]:
+            raise AssertionError("phase 31: a phase 30 replica survived "
+                                 "fleet.stop()")
+        torch.cuda.empty_cache()
+
+        b_ep = f"127.0.0.1:{_wait_port(b_port, b_proc)}"
+        with ServingClient(b_ep, timeout=60) as c:
+            deadline = time.monotonic() + FLEET_BOOT_TIMEOUT
+            while c.stats()["replicas"]["healthy"] < 1:
+                if time.monotonic() > deadline or b_proc.poll() is not None:
+                    raise AssertionError("phase 31: the autoscaled fleet's "
+                                         "first replica never came up")
+                time.sleep(0.25)
+        first_boot_s = time.monotonic() - t_b
+        watch = _FleetWatch(b_ep)
+        sched = build_schedule(AUTOSCALE_PHASES, seed=seed + 31)
+        edges = np.cumsum([p["duration_s"] for p in AUTOSCALE_PHASES])
+        parts = {}
+        for name, lo, hi in (("before", 0.0, edges[0]),
+                             ("during", edges[0], edges[1]),
+                             ("after", edges[1], edges[2])):
+            sub = [(t - lo, k) for t, k in sched if lo <= t < hi]
+            parts[name] = LoadGenerator(
+                b_ep, sub, feed={}, generate_model="default",
+                generate_prompt=prompt, max_new_tokens=ROLL_NEW,
+                retries=3, timeout=FD_WIRE_TIMEOUT).run(
+                    time_scale=AUTOSCALE_TIME_SCALE)
+        t_idle = time.monotonic()
+        deadline = t_idle + 120.0
+        with ServingClient(b_ep, timeout=60) as c:
+            while True:
+                st = c.stats()
+                asc = st.get("autoscaler") or {}
+                if asc.get("scale_downs", 0) >= 1 and \
+                        asc.get("replicas") == 1:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 31: no scale-down: {asc}")
+                time.sleep(0.25)
+        down_s = time.monotonic() - t_idle
+        watch.stop()
+        with ServingClient(b_ep, timeout=60) as c:
+            c.raw_call({"method": "shutdown"})
+        b_out = b_proc.communicate(timeout=120)[0]
+        final = json.loads(b_out.strip().splitlines()[-1])
+        pids = set().union(*(s["pids"] for s in watch.seen.values()))
+        alive = sorted(set(p for p in pids if _pid_alive(p))
+                       | set(_serve_pids(b_dir)))
+        offered = sum(p["offered"] for p in parts.values())
+        shed = sum(p["shed"] for p in parts.values())
+        errors = sum(p["errors"] for p in parts.values())
+        up = watch.seen.get("r1") or {}
+        if asc.get("scale_ups") != 1 or asc.get("scale_downs") != 1 or \
+                errors or not up.get("forwarded") or alive or \
+                "autoscaler" not in final:
+            raise AssertionError(f"phase 31: autoscaler {asc}, errors "
+                                 f"{errors}, r1 {up}, alive {alive}")
+        out["autoscaler"] = {
+            "spec": AUTOSCALE_SPEC, "time_scale": AUTOSCALE_TIME_SCALE,
+            "first_replica_boot_s": first_boot_s,
+            "scale_up_replica": {
+                "seen_s": up["first_seen_s"], "healthy_s": up["healthy_s"],
+                "boot_s": up["healthy_s"] - up["first_seen_s"],
+                "forwarded": up["forwarded"]},
+            "idle_to_scale_down_s": down_s, "offered": offered,
+            "shed": shed, "shed_rate": shed / max(offered, 1),
+            "errors": errors,
+            "p99_ms": {k: p["latency_p99_ms"] for k, p in parts.items()},
+            "p50_ms": {k: p["latency_p50_ms"] for k, p in parts.items()},
+            "achieved_rps": {k: p["achieved_rps"] for k, p in parts.items()},
+            "last_decision": asc.get("last_decision"),
+            "replicas_gone": not alive}
+        out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        if fleet_a is not None:
+            fleet_a.stop(grace=10.0)
+        _stop_cli_fleet(b_proc)
+        _stop_fleet(state)
+    a = out["autoscaler"]
+    print(f"  ({smi}) autoscaler [{AUTOSCALE_SPEC}]: first replica up in "
+          f"{a['first_replica_boot_s']:.1f} s; the scale-up replica booted "
+          f"in {a['scale_up_replica']['boot_s']:.1f} s and took "
+          f"{a['scale_up_replica']['forwarded']} requests; scale-down "
+          f"{a['idle_to_scale_down_s']:.1f} s after the trace; p99 ms "
+          f"{a['p99_ms']}; shed {a['shed']} of {a['offered']} "
+          f"({a['shed_rate']:.4f}), errors 0; phase {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def _wait_port(path, proc, timeout=FLEET_BOOT_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"fleet exited {proc.returncode}: "
+                                 f"{proc.stdout.read()[-3000:]}")
+        try:
+            with open(path) as f:
+                line = f.readline().strip()
+            if line:
+                return int(line)
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"no port file {path} after {timeout} s")
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def fleet_phases(smi):
+    """Phases 30 and 31 -> (phase 30's launches, results)."""
+    launches, e30, state = fleet_phase(smi)
+    e31 = control_phase(smi, state)
+    return launches, {"fleet": e30, "control": e31}
+
+
+def fleet_ab(smi):
+    """``--fleet``: phases 30 and 31 alone, after building the serving
+    path's three kernels."""
+    from paddle_tpu_torch.ops import _build
+    _build.build_all(("paged_attention", "flash_attention", "layer_norm"))
+    launches, e2e = fleet_phases(smi)
+    return {"fleet": dict(e2e, launches={k: launches[k]
+                                         for k in FLEET_KERNELS})}
+
+
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
             "--vgg-f32": vgg_f32_anatomy, "--amp-train": amp_train_ab,
             "--seq2seq": seq2seq_ab, "--xent": xent_ab,
             "--genprog": genprog_ab, "--ssd": ssd_ab, "--sparse": sparse_ab,
-            "--remat": remat_ab, "--observe": observe_ab}
+            "--remat": remat_ab, "--observe": observe_ab,
+            "--fleet": fleet_ab}
 
 
 def main(argv=()):
@@ -7770,6 +8595,7 @@ def main(argv=()):
     remat_launches, _ = remat_phase(smi)
     obs_train_launches, _ = observe_train(smi, amp_e2e=amp_e2e)
     obs_serve_launches, _ = observe_serving(smi)
+    fleet_launches, _ = fleet_phases(smi)
 
     kernels = []
     for k in K.KERNELS:
@@ -7789,7 +8615,8 @@ def main(argv=()):
                          + remat_launches["plain"][k.name]
                          + remat_launches["remat"][k.name]
                          + obs_train_launches[k.name]
-                         + obs_serve_launches[k.name]),
+                         + obs_serve_launches[k.name]
+                         + fleet_launches[k.name]),
             "launches_serving": serve_launches[k.name],
             "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
@@ -7821,6 +8648,7 @@ def main(argv=()):
             "launches_remat_plain_training": remat_launches["plain"][k.name],
             "launches_observe_training": obs_train_launches[k.name],
             "launches_observe_serving": obs_serve_launches[k.name],
+            "launches_fleet": fleet_launches[k.name],
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

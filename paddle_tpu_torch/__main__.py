@@ -25,9 +25,25 @@ of ``paddle_tpu/__main__.py``; the serving and training verbs):
                         Chrome trace at shutdown (with the
                         --metrics-jsonl counters), --xprof DIR captures
                         one torch.profiler window of --xprof-seconds
+  fleet <model_dir>     replicated serving tier: spawn (or adopt with
+                        --replica) N health-checked replica ``serve``
+                        processes behind one routing frontend
+                        (power-of-two-choices routing, admission control,
+                        deadline propagation, retry on another replica,
+                        crash restart); --autoscale min=N,max=M scales it
+                        on p99/shed/queue pressure, --watch-checkpoints DIR
+                        rolls new checkpoint weights replica by replica.
+                        Replicas run on the card unless --replica-arg
+                        --device --replica-arg cpu
   models [endpoint]     list a running server's models
   metrics [endpoint]    a running server's metrics (Prometheus text, or
-                        --json for a snapshot)
+                        --json for a snapshot); against a fleet frontend
+                        the merged fleet view (every replica's series
+                        labeled replica=<id>); --watch N refreshes every
+                        N seconds (--count bounds it)
+  top [endpoint]        live fleet view: per-replica state / queue / rps /
+                        p99 / restarts plus SLO error-budget burn and the
+                        autoscaler, refreshed in place
   inspect [dir|endpoint]
                         cost reports: of a saved model dir run once at
                         --batch-size here, or of every program a live
@@ -35,8 +51,9 @@ of ``paddle_tpu/__main__.py``; the serving and training verbs):
                         against the card's roofs
 
 The client verbs read the endpoint from HOST:PORT or from the port file
-a local ``serve`` wrote.  ``fleet``, ``top`` and ``pserver`` are not
-ported yet (ROADMAP queue A).
+a local ``serve`` wrote.  ``pserver`` waits for ROADMAP queue A item 4;
+``merge_model``, ``dump_config``, ``make_diagram`` and ``version`` for
+item 6.
 """
 from __future__ import annotations
 
@@ -148,6 +165,111 @@ def cmd_serve(args):
     return 0
 
 
+def cmd_fleet(args):
+    from paddle_tpu_torch.serving import FleetFrontend
+
+    specs = []
+    if args.model_dir:
+        specs.append(("default", args.model_dir))
+    for spec in args.model or []:
+        name, sep, d = spec.partition("=")
+        if not sep or not name or not d:
+            raise SystemExit(f"--model expects NAME=DIR, got {spec!r}")
+        specs.append((name, d))
+    if not specs and not args.replica:
+        raise SystemExit("fleet: give a model dir (to spawn replicas) "
+                         "or --replica endpoints to adopt")
+    autoscale = None
+    if args.autoscale:
+        from paddle_tpu_torch.fleet_control import parse_autoscale_spec
+        if not specs:
+            raise SystemExit("fleet: --autoscale needs a model dir — "
+                             "adopted replicas cannot be spawned")
+        try:
+            autoscale = parse_autoscale_spec(args.autoscale)
+        except ValueError as e:
+            raise SystemExit(f"fleet: {e}")
+    if args.watch_checkpoints and not specs:
+        raise SystemExit("fleet: --watch-checkpoints needs a model dir "
+                         "to publish into")
+    # 2 replicas when there is something to spawn; an adopt-only fleet
+    # spawns none, an autoscaled one starts at its floor
+    replicas = args.replicas
+    if replicas is None:
+        replicas = autoscale["min"] if autoscale else (2 if specs else 0)
+    if replicas > 0 and not specs:
+        raise SystemExit("fleet: spawning replicas needs a model dir")
+    replica_args = list(args.replica_arg or [])
+    if args.profile:
+        # the frontend and every replica keep live span logs, so that
+        # `trace <id>` stitches one request across the whole fleet
+        from paddle_tpu_torch import profiler
+        profiler.start_profiler()
+        replica_args.append("--profile")
+    try:
+        fleet = FleetFrontend(
+            specs, replicas=replicas,
+            replica_endpoints=args.replica or [],
+            host=args.host, port=args.port, port_file=args.port_file,
+            compile_cache=args.compile_cache,
+            health_interval=args.health_interval,
+            max_retries=args.max_retries,
+            route_timeout=args.route_timeout,
+            admission_bound=args.admission_bound,
+            sample_interval=args.sample_interval,
+            slo=args.slo,
+            replica_args=replica_args).start()
+    except ValueError as e:
+        raise SystemExit(f"fleet: {e}")
+    # replicas run in their own sessions: any exception from here on
+    # that skipped fleet.stop() would orphan them
+    stats = None
+    watcher = None
+    try:
+        if autoscale:
+            from paddle_tpu_torch.fleet_control import Autoscaler
+            tunables = {k: autoscale[k]
+                        for k in ("queue_high", "window_s", "idle_s",
+                                  "cooldown_up_s", "cooldown_down_s")
+                        if k in autoscale}
+            Autoscaler(fleet, min_replicas=autoscale["min"],
+                       max_replicas=autoscale["max"],
+                       p99_ms=(autoscale.get("slo") or {}).get("p99_ms"),
+                       **tunables)
+        if args.watch_checkpoints:
+            from paddle_tpu_torch.fleet_control import (CheckpointWatcher,
+                                                        ModelPublisher)
+            # the served model dir is its own publish template
+            name, model_dir = specs[0]
+            watcher = CheckpointWatcher(
+                fleet, ModelPublisher(args.watch_checkpoints, model_dir),
+                model=name).start()
+        print(f"paddle_tpu_torch fleet frontend on {fleet.host}:"
+              f"{fleet.port} — {replicas} spawned + "
+              f"{len(args.replica or [])} adopted replica(s), models "
+              f"{[n for n, _ in specs]}"
+              + (f", autoscale [{autoscale['min']}..{autoscale['max']}]"
+                 if autoscale else "")
+              + (f", watching {args.watch_checkpoints}"
+                 if args.watch_checkpoints else ""), flush=True)
+        signal.signal(signal.SIGTERM,
+                      lambda *a: fleet.shutting_down.set())
+        signal.signal(signal.SIGINT,
+                      lambda *a: fleet.shutting_down.set())
+        if args.wait_ready:
+            fleet.wait_ready(timeout=args.wait_ready)
+            print(f"fleet ready: {fleet.healthy_count()} replica(s) "
+                  "healthy", flush=True)
+        fleet.shutting_down.wait()
+        stats = fleet.stats()
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        fleet.stop()    # also closes an attached autoscaler
+    print(json.dumps(stats), flush=True)
+    return 0
+
+
 def _start_xprof(args):
     """One bounded torch.profiler window of live serving (the card's
     events, or the host's without one) written under ``args.xprof``;
@@ -215,17 +337,237 @@ def cmd_models(args):
     return 0
 
 
-def cmd_metrics(args):
-    from paddle_tpu_torch.serving import serving_metrics
+def _poll_resilient(client, fetch, interval, bounded):
+    """One fetch under the watch loops' failure policy (``metrics
+    --watch`` and ``top``): a bounded run (one-shot, --count,
+    --iterations) re-raises endpoint errors; an unbounded monitor
+    outlives server restarts — drop the socket, note the gap, wait one
+    interval and return None (retry)."""
+    import time
 
-    out = serving_metrics(_resolve_endpoint(args, "metrics"),
-                          format="json" if args.json else "prometheus",
-                          timeout=args.timeout)
-    if args.json:
-        print(json.dumps(out, indent=1))
-    else:
-        print(out, end="")
-    return 0
+    from paddle_tpu_torch.serving import ServingError
+
+    try:
+        return fetch()
+    except (OSError, ServingError) as e:
+        if bounded:
+            raise
+        client.close()
+        print(f"(endpoint unavailable: {e}; retrying)")
+        time.sleep(interval)
+        return None
+
+
+def cmd_metrics(args):
+    # a plain serve and a fleet frontend both speak the metrics verb;
+    # the fleet's reply is the merged view
+    import time
+
+    from paddle_tpu_torch.serving import ServingClient
+
+    if args.watch is not None and args.watch <= 0:
+        raise SystemExit(f"metrics: --watch must be a positive number "
+                         f"of seconds, got {args.watch}")
+    if args.count and args.watch is None:
+        raise SystemExit("metrics: --count only bounds a --watch loop; "
+                         "pass --watch N to refresh periodically")
+    endpoint = _resolve_endpoint(args, "metrics")
+    fmt = "json" if args.json else "prometheus"
+    n = 0
+    try:
+        with ServingClient(endpoint, timeout=args.timeout) as client:
+            while True:
+                out = _poll_resilient(
+                    client, lambda: client.metrics(format=fmt),
+                    interval=args.watch or 0,
+                    bounded=not args.watch or bool(args.count))
+                if out is None:
+                    continue
+                n += 1
+                if args.watch:
+                    print(f"=== {endpoint} snapshot {n} "
+                          f"{time.strftime('%H:%M:%S')} ===")
+                if args.json:
+                    print(json.dumps(out, indent=1))
+                else:
+                    print(out, end="")
+                if not args.watch or (args.count and n >= args.count):
+                    return 0
+                sys.stdout.flush()
+                time.sleep(args.watch)
+    except KeyboardInterrupt:
+        return 0            # --watch runs until interrupted
+
+
+def _metric_value(metrics, family, match, pick=max):
+    """Best (default: max) plain-sample value of a snapshot family whose
+    labels contain ``match`` — e.g. the p99 series of one replica."""
+    from paddle_tpu_torch.observability import parse_series_key
+    fam = (metrics or {}).get(family) or {}
+    best = None
+    for key, val in fam.get("series", {}).items():
+        labels, part = parse_series_key(key)
+        if part:
+            continue
+        if all(labels.get(k) == str(v) for k, v in match.items()):
+            best = val if best is None else pick(best, val)
+    return best
+
+
+def _render_top(endpoint, desc, stats, metrics, prev, now):
+    """One refresh of the live fleet view (the JAX verb's text).
+    ``prev`` carries {replica: (ts, forwarded)} so per-replica rps is a
+    delta between refreshes.  Returns (text, new_prev)."""
+    lines = []
+    new_prev = {}
+    if desc is None:
+        # a plain serve endpoint: its stats page
+        lat = (stats or {}).get("latency") or {}
+        lines.append(f"serve {endpoint}")
+        lines.append(
+            f"  requests {stats.get('requests', 0)}  "
+            f"queue {stats.get('queue_depth', 0)}  "
+            f"dispatches {stats.get('dispatches', 0)}  "
+            f"avg_batch {stats.get('avg_batch', 0)}  "
+            f"p99_ms {lat.get('p99_ms', '-')}")
+        dec = _render_decode((stats or {}).get("decode"))
+        if dec:
+            lines.append("  " + dec)
+        emb = _render_embcache(((stats or {}).get("predictor") or {})
+                               .get("embedding_cache"))
+        if emb:
+            lines.append("  " + emb)
+        return "\n".join(lines), new_prev
+    reps = desc.get("replicas", [])
+    healthy = sum(1 for r in reps if r.get("state") == "healthy")
+    shed = sum((stats.get("shed") or {}).values())
+    lines.append(
+        f"fleet {endpoint} — {len(reps)} replica(s), {healthy} healthy   "
+        f"requests {stats.get('requests', 0)}  "
+        f"retries {stats.get('retries', 0)}  shed {shed}  "
+        f"readmitted {stats.get('readmitted', 0)}")
+    for objective, res in sorted((stats.get("slo") or {}).items()):
+        burn = res.get("burn_rate")
+        obs = res.get("observed")
+        lines.append(
+            f"  slo {objective}: "
+            f"{'BREACH' if res.get('breached') else 'ok'}  "
+            f"budget burn {burn if burn is None else round(burn, 3)}  "
+            f"observed {obs if obs is None else round(obs, 4)}")
+    asc = stats.get("autoscaler")
+    if asc:
+        last = asc.get("last_decision") or {}
+        lines.append(
+            f"  autoscaler [{asc.get('min')}..{asc.get('max')}] "
+            f"replicas {asc.get('replicas')} "
+            f"({asc.get('healthy')} healthy)  "
+            f"last {last.get('decision', '-')}/{last.get('reason', '-')}  "
+            f"ups {asc.get('scale_ups', 0)} "
+            f"downs {asc.get('scale_downs', 0)}  "
+            f"cooldown {float(asc.get('cooldown_remaining_s') or 0):.0f}s")
+    hdr = (f"  {'replica':<8} {'state':<9} {'queue':>6} {'infl':>5} "
+           f"{'rps':>8} {'p99_ms':>8} {'fwd':>9} {'restarts':>8}")
+    lines.append(hdr)
+    for r in reps:
+        name = r.get("replica", "?")
+        fwd = r.get("forwarded", 0)
+        rps = "-"
+        if name in prev:
+            t0, f0 = prev[name]
+            if now > t0:
+                rps = f"{max(fwd - f0, 0) / (now - t0):.1f}"
+        new_prev[name] = (now, fwd)
+        p99 = _metric_value(metrics, "engine_request_latency_seconds",
+                            {"quantile": "0.99", "replica": name})
+        p99 = "-" if p99 is None else f"{p99 * 1e3:.1f}"
+        lines.append(
+            f"  {name:<8} {r.get('state', '?'):<9} "
+            f"{int(r.get('queue_depth') or 0):>6} "
+            f"{int(r.get('inflight') or 0):>5} {rps:>8} {p99:>8} "
+            f"{fwd:>9} {int(r.get('restarts') or 0):>8}")
+        dec = _render_decode(r.get("decode"))
+        if dec:
+            lines.append(f"  {'':<8} {dec}")
+    return "\n".join(lines), new_prev
+
+
+def _render_embcache(caches):
+    """Hot-row embedding-cache columns: only when the endpoint's
+    predictor serves tables through a HotRowCache."""
+    if not caches:
+        return None
+    parts = []
+    for name, c in sorted(caches.items()):
+        parts.append(f"{name}: hit_rate {c.get('hit_rate', 0)}  "
+                     f"rows {c.get('budget_rows', '?')}/"
+                     f"{c.get('table_rows', '?')}  "
+                     f"promotions {c.get('promotions', 0)}")
+    return "embcache " + "   ".join(parts)
+
+
+def _render_decode(dec):
+    """Decode-engine columns: only when the endpoint reports a
+    DecodeEngine in its stats page (the prefix hit rate only with a
+    prefix cache)."""
+    if not dec:
+        return None
+    ttft = (dec.get("ttft_ms") or {}).get("p99")
+    occ = dec.get("occupancy_mean")
+    tps = dec.get("tokens_per_sec")
+    prefix = dec.get("prefix") or {}
+    hit = prefix.get("hit_rate")
+    return (f"decode: slots {dec.get('active_slots', 0)}/"
+            f"{dec.get('slots', '?')}  "
+            f"occ {occ if occ is not None else '-'}  "
+            f"tok/s {tps if tps is not None else '-'}  "
+            f"ttft_p99_ms {ttft if ttft is not None else '-'}  "
+            f"blocks {(dec.get('blocks') or {}).get('in_use', 0)}/"
+            f"{(dec.get('blocks') or {}).get('total', '?')}"
+            + (f"  prefix_hit {hit if hit is not None else '-'}"
+               if prefix else ""))
+
+
+def cmd_top(args):
+    """Live fleet view, refreshed every --interval seconds: the full
+    view against a fleet frontend, the stats page against a serve."""
+    import time
+
+    from paddle_tpu_torch.serving import ServingClient
+
+    if args.interval <= 0:
+        raise SystemExit(f"top: --interval must be a positive number of "
+                         f"seconds, got {args.interval}")
+    endpoint = _resolve_endpoint(args, "top")
+    prev = {}
+    n = 0
+
+    def fetch(client):
+        return (client.raw_call({"method": "fleet"}).get("fleet"),
+                client.raw_call({"method": "stats"}).get("stats", {}),
+                client.raw_call({"method": "metrics",
+                                 "format": "json"}).get("metrics", {}))
+
+    try:
+        with ServingClient(endpoint, timeout=args.timeout) as client:
+            while True:
+                fetched = _poll_resilient(
+                    client, lambda: fetch(client),
+                    interval=args.interval,
+                    bounded=bool(args.iterations))
+                if fetched is None:
+                    continue
+                desc, stats, metrics = fetched
+                text, prev = _render_top(endpoint, desc, stats, metrics,
+                                         prev, time.monotonic())
+                if sys.stdout.isatty():
+                    print("\x1b[2J\x1b[H", end="")
+                print(text, flush=True)
+                n += 1
+                if args.iterations and n >= args.iterations:
+                    return 0
+                time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0            # the default --iterations 0 runs until ^C
 
 
 def cmd_inspect(args):
@@ -415,10 +757,100 @@ def main(argv=None):
                    help="length of the --xprof capture window")
     p.set_defaults(fn=cmd_serve)
 
+    p = sub.add_parser(
+        "fleet",
+        help="replicated serving tier: spawn/adopt N health-checked "
+             "replica serve processes behind one routing frontend")
+    p.add_argument("model_dir", nargs="?", default=None,
+                   help="model dir replicas mount as their default model")
+    p.add_argument("--model", action="append", metavar="NAME=DIR",
+                   help="another named model on every replica "
+                        "(repeatable)")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="replica serve processes to spawn (default 2 "
+                        "when a model dir is given, 0 for adopt-only "
+                        "--replica invocations)")
+    p.add_argument("--replica", action="append", metavar="HOST:PORT",
+                   help="adopt an already-running serve endpoint "
+                        "(repeatable; health-checked but never respawned)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--port-file", default=None,
+                   help="write the frontend's bound port here")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="refused: it persists XLA executables, and eager "
+                        "PyTorch has none")
+    p.add_argument("--health-interval", type=float, default=0.5,
+                   help="seconds between replica heartbeats")
+    p.add_argument("--max-retries", type=int, default=3,
+                   help="bounded retry-on-another-replica per request")
+    p.add_argument("--route-timeout", type=float, default=30.0,
+                   help="seconds a request may wait for a healthy replica")
+    p.add_argument("--admission-bound", type=int, default=None,
+                   help="per-model outstanding-request bound (shed with "
+                        "'overloaded' beyond it; default unbounded)")
+    p.add_argument("--replica-arg", action="append", metavar="ARG",
+                   help="extra raw CLI arg passed to every spawned "
+                        "replica serve process (repeatable), e.g. "
+                        "--replica-arg=--device --replica-arg=cpu")
+    p.add_argument("--wait-ready", type=float, default=None,
+                   metavar="SECONDS",
+                   help="block until every replica is healthy (prints "
+                        "'fleet ready') before going quiet")
+    p.add_argument("--slo", default=None, metavar="SPEC",
+                   help="SLO objectives evaluated against the fleet "
+                        "time-series store, e.g. p99_ms=100:avail=0.999 "
+                        "— slo_* gauges on the fleet metrics endpoint")
+    p.add_argument("--sample-interval", type=float, default=1.0,
+                   help="seconds between time-series store samples of "
+                        "the frontend's own metric families")
+    p.add_argument("--autoscale", default=None, metavar="SPEC",
+                   help="autoscaling policy over the fleet time-series "
+                        "store, e.g. min=1,max=4,slo=p99_ms=100 — scale "
+                        "up on p99/shed/queue pressure, down on "
+                        "sustained idle, with cooldown hysteresis "
+                        "(extra knobs: queue_high, window_s, idle_s, "
+                        "cooldown_up_s, cooldown_down_s)")
+    p.add_argument("--watch-checkpoints", default=None, metavar="DIR",
+                   help="watch a CheckpointManager directory: each new "
+                        "committed step is re-exported into the served "
+                        "model dir and rolled replica by replica "
+                        "through the draining reload, health-gated "
+                        "with rollback on a failed gate")
+    p.add_argument("--profile", action="store_true",
+                   help="profile the frontend AND every replica so "
+                        "`trace <id>` stitches one request across the "
+                        "whole fleet")
+    p.set_defaults(fn=cmd_fleet)
+
     _client_parser(sub, "models", "list a running server's models"
                    ).set_defaults(fn=cmd_models)
-    _client_parser(sub, "metrics", "a running server's metrics"
-                   ).set_defaults(fn=cmd_metrics)
+    p = _client_parser(sub, "metrics", "a running server's metrics")
+    p.add_argument("--watch", type=float, default=None, metavar="SECONDS",
+                   help="re-snapshot every N seconds over one "
+                        "persistent connection (header line between "
+                        "snapshots) instead of a one-shot pull")
+    p.add_argument("--count", type=int, default=None,
+                   help="with --watch: stop after this many snapshots "
+                        "(default: until interrupted)")
+    p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser(
+        "top",
+        help="live fleet view: per-replica state/queue/rps/p99/restarts "
+             "+ SLO budget burn, refreshed in place")
+    p.add_argument("endpoint", nargs="?", default=None,
+                   help="HOST:PORT of a fleet frontend (full view) or a "
+                        "plain serve (its stats page); default: read "
+                        "the port file")
+    p.add_argument("--port-file", default=None,
+                   help="port file to resolve the endpoint from")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="seconds between refreshes")
+    p.add_argument("--iterations", type=int, default=0,
+                   help="stop after N refreshes (0 = until interrupted)")
+    p.add_argument("--timeout", type=float, default=30.0)
+    p.set_defaults(fn=cmd_top)
 
     p = sub.add_parser("inspect",
                        help="cost reports of a saved model dir or a live "

@@ -12,8 +12,12 @@ Spec grammar (comma-separated list)::
             logical step of ``Executor.train_loop``), ``checkpoint.write``
             (each var file), ``checkpoint.pre_commit``,
             ``checkpoint.post_commit``, ``io.save_vars`` (each var file
-            of ``io.save_vars``) and ``io.pre_replace`` (each atomic
-            file publish)
+            of ``io.save_vars``), ``io.pre_replace`` (each atomic
+            file publish), the fleet's ``fleet.route`` (each forward
+            attempt), ``fleet.health`` (each heartbeat sweep) and
+            ``replica.spawn`` (each spawn attempt), and the checkpoint
+            watcher's ``watcher.roll`` (before each replica) and
+            ``watcher.health_gate``
 ``@n``      fire on the n-th hit of the point, once (default 1); ``@n+``
             fires on the n-th hit and every hit after it
 ``action``  ``exit`` (``os._exit(137)``, the kill -9 analog), ``raise``

@@ -10,11 +10,15 @@ layer per file:
 - ``registry.py``      — `ModelRegistry`: named, versioned models behind
   one endpoint, with draining reload and per-model metric labels;
 - ``server.py``        — `InferenceServer` and `ServingClient`: the JAX
-  package's newline-JSON wire, byte for byte.
+  package's newline-JSON wire, byte for byte;
+- ``fleet.py``         — `FleetFrontend`: N health-checked replica
+  ``serve`` processes behind one endpoint (routing, admission,
+  deadlines, retry on another replica, restarts).
 
-``python -m paddle_tpu_torch serve`` wires them together.  Not ported
-yet (ROADMAP queue A item 1): the sharded predictor, the compile cache
-(XLA-only), hot rows, and the fleet.
+``python -m paddle_tpu_torch serve`` wires the single-process layers
+together, ``python -m paddle_tpu_torch fleet`` the replicated tier.  Not
+ported: the sharded predictor (ROADMAP queue A item 4) and the compile
+cache (XLA-only).
 """
 from .predictor import Predictor  # noqa: F401
 from .engine import (ServingEngine, SlimFuture,  # noqa: F401
@@ -31,3 +35,4 @@ from .server import (InferenceServer, ServingClient,  # noqa: F401
                      serving_introspection, list_models,
                      shutdown_serving, wait_for_port_file,
                      write_port_file)
+from .fleet import FleetFrontend  # noqa: F401

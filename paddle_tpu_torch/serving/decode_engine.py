@@ -723,15 +723,22 @@ class DecodeEngine:
     def warm(self):
         """Run one prefill and one decode step on idle (sentinel) pages,
         so that the kernels are built and loaded before the first
-        request.  Idle pages take no writes."""
+        request.  Idle pages take no writes.  On the card the decode
+        step runs under ``torch.profiler`` and its trace is dropped:
+        CUPTI's first start in a process takes seconds, and paid here,
+        before a server publishes its port, the live step that the first
+        ``stats()`` asks to profile costs milliseconds."""
         idle = self._tensor(self._pages)
         with torch.inference_mode():
             self._prefill_call(
                 self._tensor(np.zeros((1, self._bucket_for(1)), np.int64)),
                 idle[:1], self._tensor(np.ones(1, np.int32)))
-            self._decode_call(self._tensor(np.zeros(self.slots, np.int64)),
-                              idle,
-                              self._tensor(np.zeros(self.slots, np.int32)))
+            step = (self._tensor(np.zeros(self.slots, np.int64)), idle,
+                    self._tensor(np.zeros(self.slots, np.int32)))
+            if self.device.type == "cuda":
+                self._profiled_decode(*step, keep=False)
+            else:
+                self._decode_call(*step)
 
     # -- submission ----------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
@@ -857,15 +864,17 @@ class DecodeEngine:
             return None
         return int(getattr(self.model, "pool_copy_bytes", 0) or 0)
 
-    def _profiled_decode(self, tokens, pages, index):
+    def _profiled_decode(self, tokens, pages, index, keep=True):
         """The decode step under ``torch.profiler``, its attribution kept
-        (`attribution.decode_attribution`).  While another profiler runs
-        the step runs plain and the next one tries again; a profiler that
-        fails leaves the step as it was and its reason in
-        ``_attr_error``."""
+        (`attribution.decode_attribution`) unless ``keep`` is False (the
+        warm-up's window, which only pays the profiler's first start).
+        While another profiler runs the step runs plain and the next one
+        tries again; a profiler that fails leaves the step as it was and
+        its reason in ``_attr_error``."""
         if _attribution.torch_profiling():
             return self._decode_call(tokens, pages, index)
-        self._attr_wanted = False
+        if keep:
+            self._attr_wanted = False
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
@@ -884,9 +893,12 @@ class DecodeEngine:
         os.close(fd)
         try:
             prof.export_chrome_trace(path)
-            self._inter_token_attr = _attribution.decode_attribution(path)
-            if self._inter_token_attr is None:
-                self._attr_error = "the profiled step held no device events"
+            if keep:
+                self._inter_token_attr = _attribution.decode_attribution(
+                    path)
+                if self._inter_token_attr is None:
+                    self._attr_error = ("the profiled step held no device "
+                                        "events")
         except Exception as e:  # noqa: BLE001
             self._attr_error = f"trace: {type(e).__name__}: {e}"
         finally:

@@ -44,8 +44,9 @@ from .engine import ServingEngine
 from .predictor import Predictor
 
 
-#: the delta chain head in a model directory (the JAX package's
-#: ``fleet_control.publisher.DELTA_FILENAME``)
+#: the delta chain head in a model directory, which
+#: ``fleet_control.ModelPublisher.publish_deltas`` writes (the JAX
+#: package's name)
 DELTA_FILENAME = "__delta__.json"
 
 

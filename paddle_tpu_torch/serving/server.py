@@ -666,7 +666,8 @@ class ServingClient:
 
     def infer(self, feed: Dict[str, Any],
               model: Optional[str] = None,
-              deadline_ms: Optional[float] = None) -> Dict[str, np.ndarray]:
+              deadline_ms: Optional[float] = None,
+              priority: Optional[int] = None) -> Dict[str, np.ndarray]:
         # mint (or inherit) a trace id, span the round trip, carry the id
         # on the wire; the reply echoes it back for correlation.  A
         # retried send reuses the same id — it is one logical request.
@@ -683,6 +684,9 @@ class ServingClient:
                 # retry attempt
                 msg["deadline_ms"] = float(deadline_ms)
                 deadline = time.monotonic() + float(deadline_ms) / 1e3
+            if priority is not None:
+                # the fleet frontend's admission queue orders by it
+                msg["priority"] = int(priority)
             with profiler.record_block("client.request"):
                 resp = self._call(msg, idempotent=True, deadline=deadline)
         self.last_trace = resp.get("trace", tid)
