@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-31
+    python3 chip_smoke.py             # the smoke run, phases 1-32
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -30,6 +30,7 @@
                                       # observability plane
     python3 chip_smoke.py --fleet     # phases 1, 30 and 31, the serving
                                       # fleet and its control plane
+    python3 chip_smoke.py --mesh      # phases 1 and 32, the mesh
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -345,10 +346,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    traffic, one scale-down after it, no client errors, the autoscaler
    on the stats page, no replica process left; p99 before, during and
    after the burst, shed rate, boot seconds;
+32. the mesh (`paddle_tpu_torch.parallel`) on TRAIN_CONFIG at
+   TRAIN_BATCH: (a) an NCCL world of 2 ranks on the one card is refused;
+   a one-rank NCCL world runs one all-gather, all-reduce and broadcast
+   on a CUDA tensor, then train_loop(mesh={"dp": 1}) 4 steps after a
+   warm-up one, bitwise the plain run; (b) two spawned ranks on gloo
+   over CUDA tensors, time-slicing the card: dp=2 exact 4 steps, losses
+   and every final param bitwise the single-process card run; dp=2 fast
+   4 steps and tp=2 fast (mesh dp=1 x tp=2, transformer_tp_rules) 2
+   steps, each loss within CPU_LOSS_RTOL of it, every tp-ruled param and
+   both Adam moments holding half the ruled dim, each rank's resident
+   state under 0.75x the whole, and the tp step's gathers exactly the
+   QKV outputs, the logits and the biases read whole; each case
+   launching the six training kernels TRAIN_LAUNCHES_PER_STEP times a
+   rank and step; (c) ShardedPredictor dp=2 on TRAIN_CONFIG's logits
+   program within 1e-5 of Predictor; the parts' seconds and the
+   collectives' counts and bytes;
 then a JSON line with every ported kernel's launches (with
 launches_sparse_training, launches_remat_training,
 launches_remat_plain_training, launches_observe_training,
-launches_observe_serving and launches_fleet), error and times, the
+launches_observe_serving, launches_fleet and launches_mesh), error and
+times, the
 card's name and power limit, and the last line: {"ok": true, "device":
 {...}}.
 
@@ -368,7 +386,8 @@ with --ssd phase 1, the BatchNorm backward's checks at phase 24's shapes
 and its times (kernel, plain, cuDNN) summed over the step's 35 launches,
 and phase 24; with --sparse phase 1 and phase 26; with --remat phase 1
 and phase 27; with --observe phase 1 and phases 28 and 29; with
---fleet phase 1 and phases 30 and 31.
+--fleet phase 1 and phases 30 and 31; with --mesh phase 1 and phase
+32.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
@@ -7393,6 +7412,11 @@ def observe_serving(smi, seed=0):
     if set(gauges) != want_gauges or not all(
             "objective=latency_p99" in g for g in gauges.values()):
         raise AssertionError(f"phase 29: SLO gauges {gauges}")
+    if not decode_reps[-1]["peak_bytes"] > 0:
+        # the report's peak is argument + output + temp - alias bytes,
+        # never 0 for a program that reads weights
+        raise AssertionError(f"phase 29: decode report peak "
+                             f"{decode_reps[-1]['peak_bytes']}")
     n_tok = OBS_REQUESTS * OBS_NEW
     e2e = {"tokens_per_s_off": n_tok / wall_off,
            "tokens_per_s_on": n_tok / wall_on,
@@ -8440,6 +8464,348 @@ def fleet_ab(smi):
                                          for k in FLEET_KERNELS})}
 
 
+#: phase 32: the mesh.  Steps of each case, the ranks' time limit, and
+#: (c)'s feed and limit: a sharded reply's max abs error over
+#: max(1, max |Predictor reply|)
+MESH_STEPS, MESH_TP_STEPS = 4, 2
+MESH_RANK_TIMEOUT = 600.0
+MESH_PREDICT_BATCH, MESH_PREDICT_TOL = 4, 1e-5
+#: the kernels the training path launches, each rank and step
+MESH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                "layer_norm_fwd", "layer_norm_bwd", "softmax_xent_fwd",
+                "softmax_xent_bwd")
+
+
+def _state_digest(scope, program):
+    """sha256 over every persistable's bytes, in name order (the whole
+    value: a sharded var is gathered, on every rank alike)."""
+    import hashlib
+    h = hashlib.sha256()
+    for v in sorted(program.list_vars(), key=lambda v: v.name):
+        if not v.persistable or scope.get_local(v.name) is None:
+            continue
+        val = scope.get(v.name)
+        h.update(v.name.encode())
+        h.update(val.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_train(case, steps, seed=0, mesh=None, numerics=None,
+                param_spec=None):
+    """One warm-up step, then ``steps`` Adam steps of TRAIN_CONFIG at
+    TRAIN_BATCH through ``train_loop`` on the card, with the launch and
+    collective counts zeroed just before the timed loop and read just
+    after -> the case's record (the timed steps' losses, seconds and
+    seconds a step, launches, collectives, state)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.parallel import collectives
+    main, startup, avg_cost = _train_program(seed)
+    scope = fluid.core.scope.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        whole = {n: (tuple(t.shape), t.numel() * t.element_size())
+                 for n, t in scope._vars.items()
+                 if isinstance(t, torch.Tensor)}
+        feed = _copy_feed(TRAIN_BATCH, seed)
+        exe.train_loop(feed=feed, fetch_list=[avg_cost], steps=1, mesh=mesh,
+                       numerics=numerics, param_spec=param_spec)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        handles = exe.train_loop(feed=feed, fetch_list=[avg_cost],
+                                 steps=steps, mesh=mesh, numerics=numerics,
+                                 param_spec=param_spec)
+        losses = [float(h.get()[0]) for h in handles]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        rec = {"case": case, "losses": losses, "seconds": sec,
+               "step_s": sec / steps,
+               "launches": {k.name: k.launches for k in K.KERNELS},
+               "collectives": collectives.ledger(),
+               "whole_bytes": sum(b for _, b in whole.values()),
+               "resident_bytes": sum(
+                   t.numel() * t.element_size()
+                   for t in scope._vars.values()
+                   if isinstance(t, torch.Tensor)),
+               "sharded": {n: [list(whole[n][0]),
+                               list(scope.get_local(n).shape),
+                               [p if p is None or isinstance(p, str)
+                                else list(p) for p in scope.sharding(n)[1]]]
+                           for n in whole if scope.sharding(n)},
+               "digest": _state_digest(scope, main)}
+    del exe, scope
+    torch.cuda.empty_cache()
+    print(f"  {case}: {steps} steps after a warm-up one in {sec:.2f} s, "
+          f"losses {losses}", flush=True)
+    return rec
+
+
+def _mesh_lm_dir(seed=0):
+    """TRAIN_CONFIG's logits program with seeded random weights, saved
+    for (c) under build/mesh_lm."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer
+    d = os.path.join(HERE, "build", "mesh_lm")
+    fluid.core.program.reset_default_programs()
+    cfg = {k: TRAIN_CONFIG[k] for k in ("vocab", "max_len", "n_layers",
+                                        "d_model", "n_heads", "d_ff")}
+    tokens = layers.data(name="tokens", shape=[cfg["max_len"]],
+                         dtype="int64")
+    logits = transformer.transformer_lm_logits(tokens, **cfg)
+    fluid.default_startup_program().random_seed = seed
+    scope = fluid.core.scope.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        exe.run(fluid.default_startup_program())
+        fluid.io.save_inference_model(d, ["tokens"], [logits], exe)
+    return d
+
+
+def _mesh_rank(rank, init, out_dir, lm_dir):
+    """One of phase 32's two gloo ranks over CUDA tensors (both on the
+    one card): (b) dp=2 exact, dp=2 fast and tp=2 fast training, then
+    (c) the sharded predictor; writes its records as JSON."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.ops import _build, kernels as K
+    from paddle_tpu_torch.parallel import (collectives, init_distributed,
+                                           transformer_tp_rules)
+    from paddle_tpu_torch import serving
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.build_all({k.source for k in K.KERNELS if k.name in MESH_KERNELS})
+    init_distributed(init, 2, rank, backend="gloo")
+    d, f, v = (TRAIN_CONFIG[k] for k in ("d_model", "d_ff", "vocab"))
+    recs = [_mesh_train("dp=2 exact", MESH_STEPS, mesh={"dp": 2},
+                        numerics="exact"),
+            _mesh_train("dp=2 fast", MESH_STEPS, mesh={"dp": 2}),
+            _mesh_train("tp=2 fast", MESH_TP_STEPS,
+                        mesh={"dp": 1, "tp": 2},
+                        param_spec=transformer_tp_rules(d, f, vocab=v))]
+    # the two tensor-parallel gathers' cost, alone at the path's shapes:
+    # a QKV output shard (12 a step) and a logits shard (one a step)
+    group = dist.group.WORLD
+    gathers = {}
+    t_len = TRAIN_CONFIG["max_len"]
+    for what, width in (("qkv", 3 * d // 2), ("logits", v // 2)):
+        x = torch.randn(TRAIN_BATCH, t_len, width, device="cuda")
+        collectives.all_gather(x, group, "tp", 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            collectives.all_gather(x, group, "tp", 2)
+        torch.cuda.synchronize()
+        gathers[what] = {"ms": (time.perf_counter() - t0) / 3 * 1e3,
+                         "bytes": 2 * x.numel() * x.element_size()}
+    rng = np.random.default_rng(32)
+    feed = {"tokens": rng.integers(
+        0, v, (MESH_PREDICT_BATCH, TRAIN_CONFIG["max_len"])).astype(
+            np.int64)}
+    want = serving.Predictor.from_model_dir(lm_dir).run(feed)[0]
+    pred = serving.ShardedPredictor.from_model_dir(lm_dir, mesh={"dp": 2})
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    got = pred.run(feed)[0]
+    torch.cuda.synchronize()
+    predict = {"seconds": time.perf_counter() - t0,
+               "max_abs_err": float(np.abs(got - want).max()),
+               "max_abs_want": float(np.abs(want).max()),
+               "shape": list(got.shape),
+               "collectives": collectives.ledger()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump({"train": recs, "predict": predict, "gathers": gathers},
+                  fh)
+    dist.destroy_process_group()
+
+
+def mesh_phase(smi, seed=0):
+    """Phase 32: the mesh on the card.  (a) a one-rank NCCL world: one
+    call of each collective, then ``train_loop(mesh={"dp": 1})`` bitwise
+    the plain run; (b) two spawned gloo ranks time-slicing the card:
+    dp=2 exact bitwise the single-process card run, dp=2 and tp=2 fast
+    within CPU_LOSS_RTOL of it, the tp=2 ruled params and moments holding
+    half the ruled dim and each rank's resident state under 0.75x the
+    whole, every case launching the six training kernels
+    TRAIN_LAUNCHES_PER_STEP times a rank and step; (c) the sharded
+    predictor dp=2 within MESH_PREDICT_TOL of `Predictor`; and the two
+    tensor-parallel gathers (a QKV output, the logits) timed alone at
+    the path's shapes.  -> (launches
+    of the six kernels, summed over the ranks, numbers)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.parallel import init_distributed
+    t_phase = time.perf_counter()
+    print("phase 32: the mesh: a one-rank NCCL world, two gloo ranks "
+          f"time-slicing the card ({smi})", flush=True)
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    # (a) NCCL refuses two ranks on one card: the port raises, it does
+    # not switch backend
+    try:
+        init_distributed(f"127.0.0.1:{free_port()}", 2, 0)
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("an NCCL world of 2 ranks on one card was "
+                             "not refused")
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+    x = torch.arange(1024, dtype=torch.float32, device="cuda") - 512.0
+    out = torch.empty((1, 1024), device="cuda")
+    dist.all_gather_into_tensor(out, x)
+    red = x.clone()
+    dist.all_reduce(red)
+    bc = x.clone()
+    dist.broadcast(bc, src=0)
+    torch.cuda.synchronize()
+    for name, got in (("all_gather", out[0]), ("all_reduce", red),
+                      ("broadcast", bc)):
+        if not torch.equal(got, x):
+            raise AssertionError(f"one-rank NCCL {name} changed its input")
+    plain = _mesh_train("plain", MESH_STEPS, seed)
+    one = _mesh_train("dp=1 NCCL", MESH_STEPS, seed, mesh={"dp": 1})
+    dist.destroy_process_group()
+    if one["losses"] != plain["losses"] or one["digest"] != plain["digest"]:
+        raise AssertionError("train_loop(mesh={'dp': 1}) is not bitwise "
+                             "the plain run")
+    part_a = time.perf_counter() - t0
+    # (b) and (c) on two gloo ranks
+    t0 = time.perf_counter()
+    lm_dir = _mesh_lm_dir(seed)
+    out_dir = os.path.join(HERE, "build", "mesh_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    for fname in os.listdir(out_dir):
+        os.unlink(os.path.join(out_dir, fname))
+    init = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--mesh-rank", str(r), init, out_dir,
+                               lm_dir]) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=MESH_RANK_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"mesh ranks exited "
+                             f"{[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    part_bc = time.perf_counter() - t0
+    launches = {name: 0 for name in MESH_KERNELS}
+    for name in MESH_KERNELS:
+        launches[name] += (plain["launches"][name]
+                           + one["launches"][name])
+    cases = {}
+    for r, res in enumerate(ranks):
+        for rec in res["train"]:
+            case, steps = rec["case"], len(rec["losses"])
+            for name, n in rec["launches"].items():
+                want = TRAIN_LAUNCHES_PER_STEP.get(name, 0) * steps
+                if n != want:
+                    raise AssertionError(
+                        f"rank {r} {case}: {name} launched {n} times in "
+                        f"{steps} steps, want {want}")
+                if name in launches:
+                    launches[name] += n
+            if case.endswith("exact"):
+                if rec["losses"] != plain["losses"] \
+                        or rec["digest"] != plain["digest"]:
+                    raise AssertionError(
+                        f"rank {r} {case} is not bitwise the single-"
+                        f"process card run: {rec['losses']} against "
+                        f"{plain['losses']}")
+            else:
+                for got, want in zip(rec["losses"], plain["losses"]):
+                    if abs(got - want) > CPU_LOSS_RTOL * abs(want):
+                        raise AssertionError(
+                            f"rank {r} {case}: loss {got} against the "
+                            f"single-process {want}")
+            if case.startswith("tp"):
+                d, f, v = (TRAIN_CONFIG[k] for k in ("d_model", "d_ff",
+                                                     "vocab"))
+                ruled = {(d, 3 * d): 1, (3 * d,): 0, (d, f): 1, (f,): 0,
+                         (f, d): 0, (d, v): 1, (v,): 0}
+                n_ruled = 0
+                for n, (full, local, spec) in rec["sharded"].items():
+                    dim = ruled.get(tuple(full))
+                    if dim is None:
+                        continue
+                    n_ruled += 1
+                    want = list(full)
+                    want[dim] //= 2
+                    if local != want:
+                        raise AssertionError(f"rank {r}: {n} holds "
+                                             f"{local}, want {want}")
+                if n_ruled < 3 * (5 * TRAIN_CONFIG["n_layers"] + 2):
+                    raise AssertionError(f"rank {r}: only {n_ruled} "
+                                         "ruled vars sharded")
+                # Megatron's plan ran: a step gathers the QKV outputs,
+                # the logits and the biases read whole, and no weight
+                b_t = TRAIN_BATCH * TRAIN_CONFIG["max_len"]
+                n_l = TRAIN_CONFIG["n_layers"]
+                want_bytes = 4 * (n_l * (b_t * 3 * d + 3 * d)
+                                  + b_t * v + v) * steps
+                got_bytes = rec["collectives"]["kinds"]["all-gather"][
+                    "bytes"]
+                if got_bytes != want_bytes:
+                    raise AssertionError(
+                        f"rank {r}: tp gathers moved {got_bytes} bytes in "
+                        f"{steps} steps, want {want_bytes}")
+                share = rec["resident_bytes"] / rec["whole_bytes"]
+                if share >= 0.75:
+                    raise AssertionError(f"rank {r}: resident state "
+                                         f"{share:.3f} of the whole")
+                rec["resident_share"] = share
+            cases.setdefault(case, []).append(
+                {k: rec[k] for k in ("seconds", "step_s", "losses",
+                                     "collectives")
+                 } | ({"resident_share": rec["resident_share"]}
+                      if "resident_share" in rec else {}))
+        pr = res["predict"]
+        err = pr["max_abs_err"] / max(1.0, pr["max_abs_want"])
+        if not err <= MESH_PREDICT_TOL:
+            raise AssertionError(f"rank {r}: sharded predictor off by "
+                                 f"{err:.3g} of max |logit|")
+        pr["rel_err"] = err
+    e2e = {"card": smi, "nccl_refusal": refusal,
+           "part_a_s": part_a, "part_bc_s": part_bc,
+           "plain_losses": plain["losses"], "plain_s": plain["seconds"],
+           "plain_step_s": plain["step_s"], "dp1_step_s": one["step_s"],
+           "cases": cases, "predict": [res["predict"] for res in ranks],
+           "tp_gathers": [res["gathers"] for res in ranks],
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  end to end ({smi}): {json.dumps(e2e)}", flush=True)
+    return launches, e2e
+
+
+def mesh_ab(smi):
+    from paddle_tpu_torch.ops import _build, kernels as K
+    _build.build_all({k.source for k in K.KERNELS
+                      if k.name in MESH_KERNELS})
+    launches, e2e = mesh_phase(smi)
+    return {"mesh": dict(e2e, launches=launches)}
+
+
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
@@ -8447,7 +8813,7 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--seq2seq": seq2seq_ab, "--xent": xent_ab,
             "--genprog": genprog_ab, "--ssd": ssd_ab, "--sparse": sparse_ab,
             "--remat": remat_ab, "--observe": observe_ab,
-            "--fleet": fleet_ab}
+            "--fleet": fleet_ab, "--mesh": mesh_ab}
 
 
 def main(argv=()):
@@ -8464,6 +8830,10 @@ def main(argv=()):
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv and argv[0] == "--mesh-rank":
+        # one of phase 32's ranks (started by mesh_phase)
+        _mesh_rank(int(argv[1]), argv[2], argv[3], argv[4])
+        return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -8596,6 +8966,7 @@ def main(argv=()):
     obs_train_launches, _ = observe_train(smi, amp_e2e=amp_e2e)
     obs_serve_launches, _ = observe_serving(smi)
     fleet_launches, _ = fleet_phases(smi)
+    mesh_launches, _ = mesh_phase(smi)
 
     kernels = []
     for k in K.KERNELS:
@@ -8616,7 +8987,8 @@ def main(argv=()):
                          + remat_launches["remat"][k.name]
                          + obs_train_launches[k.name]
                          + obs_serve_launches[k.name]
-                         + fleet_launches[k.name]),
+                         + fleet_launches[k.name]
+                         + mesh_launches.get(k.name, 0)),
             "launches_serving": serve_launches[k.name],
             "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
@@ -8649,6 +9021,7 @@ def main(argv=()):
             "launches_observe_training": obs_train_launches[k.name],
             "launches_observe_serving": obs_serve_launches[k.name],
             "launches_fleet": fleet_launches[k.name],
+            "launches_mesh": mesh_launches.get(k.name, 0),
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

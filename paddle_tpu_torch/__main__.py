@@ -17,7 +17,11 @@ of ``paddle_tpu/__main__.py``; the serving and training verbs):
                         (--decode-numerics fast|exact); lookup-only
                         tables can be served through a hot-row cache
                         (--embedding-cache-rows N).  Runs on the
-                        card unless --device cpu.  SIGTERM or SIGINT (or
+                        card unless --device cpu.  --mesh dp=N serves
+                        one model from N ranks (this process is rank 0
+                        and spawns the others; gloo with --device cpu,
+                        NCCL on the cards, one a rank).  SIGTERM or
+                        SIGINT (or
                         the ``shutdown`` verb) drains in-flight requests,
                         then prints the engines' stats as one JSON line.
                         --profile keeps a live span log for the ``trace``
@@ -65,6 +69,51 @@ import sys
 
 
 def cmd_serve(args):
+    specs = []
+    if args.model_dir:
+        specs.append(("default", args.model_dir))
+    for spec in args.model or []:
+        name, sep, d = spec.partition("=")
+        if not sep or not name or not d:
+            raise SystemExit(f"--model expects NAME=DIR, got {spec!r}")
+        specs.append((name, d))
+    if not specs:
+        raise SystemExit("serve: give a model dir or --model NAME=DIR")
+    mesh, size = _serve_mesh(args, specs)
+    if size == 1:
+        return _serve(args, specs, mesh, [])
+    import shutil
+    import subprocess
+    import tempfile
+    from paddle_tpu_torch.parallel import init_distributed
+    if args.mesh_rank > 0:
+        init_distributed(args.mesh_init, size, args.mesh_rank,
+                         device=args.device)
+        return _follow(args, specs[0][1], mesh)
+    # rank 0 spawns the followers (this verb again with --mesh-rank) and
+    # kills and reaps whichever is still running when it returns or fails
+    store = tempfile.mkdtemp(prefix="paddle_tpu_torch_mesh_")
+    init = "file://" + os.path.join(store, "store")
+    followers = []
+    try:
+        for r in range(1, size):
+            followers.append(subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch"] + args.argv
+                + ["--mesh-rank", str(r), "--mesh-init", init]))
+        init_distributed(init, size, 0, device=args.device)
+        return _serve(args, specs, mesh, followers)
+    finally:
+        for proc in followers:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _serve(args, specs, mesh, followers):
+    """``serve``'s server: rank 0's under a mesh (``followers`` are the
+    other ranks' processes, which stop with the registry)."""
+    import subprocess
     from paddle_tpu_torch.serving import InferenceServer, ModelRegistry
 
     if args.timeline or args.profile:
@@ -77,16 +126,6 @@ def cmd_serve(args):
         from paddle_tpu_torch.observability import JsonlExporter
         exporter = JsonlExporter(args.metrics_jsonl,
                                  interval_s=args.metrics_interval)
-    specs = []
-    if args.model_dir:
-        specs.append(("default", args.model_dir))
-    for spec in args.model or []:
-        name, sep, d = spec.partition("=")
-        if not sep or not name or not d:
-            raise SystemExit(f"--model expects NAME=DIR, got {spec!r}")
-        specs.append((name, d))
-    if not specs:
-        raise SystemExit("serve: give a model dir or --model NAME=DIR")
     buckets = ([int(b) for b in args.buckets.split(",") if b]
                if args.buckets else None)
     engine_opts = {"max_batch_size": args.max_batch_size,
@@ -109,12 +148,14 @@ def cmd_serve(args):
                               transpile=not args.no_transpile,
                               engine_opts=engine_opts, warmup=warm,
                               precision=args.precision, decode=decode,
-                              embedding_cache_rows=args.embedding_cache_rows)
+                              embedding_cache_rows=args.embedding_cache_rows,
+                              mesh=mesh)
         pred, eng = entry.predictor, entry.engine
         print(f"loaded model {name!r} from {d} "
               f"(feeds={pred.feed_names} fetch={pred.fetch_names} "
               f"buckets={eng.buckets} precision={args.precision} "
               f"device={pred.device}"
+              + (f" mesh={mesh}" if mesh else "")
               + (f" decode_slots={entry.decode.slots}"
                  if entry.decode is not None else "") + ")", flush=True)
     if args.metrics_jsonl:
@@ -142,6 +183,14 @@ def cmd_serve(args):
     # exporter's last snapshot
     entries = {n: registry.get(n) for n in registry.names()}
     registry.close(unmount=False)
+    for proc in followers:
+        # the registry's close ended their loops; one still running after
+        # this wait is killed by cmd_serve
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            print(f"serve: follower pid {proc.pid} did not stop in 60 s",
+                  file=sys.stderr, flush=True)
     stats = {n: registry.stats_for(e) for n, e in entries.items()}
     if xprof_stop is not None:
         from paddle_tpu_torch.observability import attribution
@@ -162,6 +211,35 @@ def cmd_serve(args):
     only = specs[0][0]
     print(json.dumps(stats[only] if list(stats) == [only] else stats),
           flush=True)
+    return 0
+
+
+def _serve_mesh(args, specs):
+    """``serve --mesh``'s axes -> (axes dict or None, the mesh's size)."""
+    if not args.mesh:
+        return None, 1
+    from paddle_tpu_torch.parallel.partitioner import parse_mesh_axes
+    try:
+        axes = parse_mesh_axes(args.mesh)
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}")
+    size = 1
+    for n in (axes or {}).values():
+        size *= n
+    if size > 1 and len(specs) != 1:
+        raise SystemExit("serve --mesh serves one model")
+    return axes, size
+
+
+def _follow(args, model_dir, mesh):
+    """A follower rank of ``serve --mesh``: run rank 0's batches until it
+    stops serving."""
+    from paddle_tpu_torch.serving import ShardedPredictor
+    pred = ShardedPredictor.from_model_dir(
+        model_dir, params_filename=args.params_filename,
+        transpile=not args.no_transpile, precision=args.precision,
+        device=args.device, mesh=mesh)
+    pred.follow()
     return 0
 
 
@@ -709,6 +787,13 @@ def main(argv=None):
                         "holds int8 rows; 0 disables")
     p.add_argument("--no-transpile", action="store_true",
                    help="skip the inference transpiler (BatchNorm fold)")
+    p.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N]",
+                   help="serve one model from a mesh of ranks "
+                        "(ShardedPredictor): this process is rank 0 and "
+                        "spawns the followers")
+    p.add_argument("--mesh-rank", type=int, default=0,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--mesh-init", default=None, help=argparse.SUPPRESS)
     p.add_argument("--metrics-jsonl", default=None,
                    help="append periodic registry snapshots to this file")
     p.add_argument("--metrics-interval", type=float, default=10.0,
@@ -879,6 +964,8 @@ def main(argv=None):
     p.set_defaults(fn=cmd_inspect)
 
     args = ap.parse_args(argv)
+    # the verb's own words, which serve --mesh gives its follower ranks
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     return args.fn(args)
 
 

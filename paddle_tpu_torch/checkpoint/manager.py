@@ -17,6 +17,22 @@ checkpoint written by either package restores in the other).
   JAX package's recipe), the step, the reader position and each var's
   dtype and shape; ``Executor.train_loop(resume_from=...)`` restarts
   with the uninterrupted run's losses.
+- **Shard-wise under a mesh.**  ``save(..., partitioner=p)`` in a world
+  of several ranks (`parallel.Partitioner`; the state holds this rank's
+  shards of the vars ``specs`` names) writes each shard once, by its
+  first holder, as ``<var>.shard-NNN.npy``, and every whole var once,
+  by rank 0; the manifest records each var's spec and every shard
+  file's global index, as the JAX package writes a sharded array.  It
+  runs on the caller's thread on every rank: the files, then every
+  rank's outcome gathered, rank 0's manifest and commit only when every
+  rank wrote its files, and the commit's outcome broadcast (so a
+  one-rank mesh's replicas on several ranks write one checkpoint, not
+  one each, and a failed write on any rank leaves no checkpoint and
+  raises on every rank).  `restore`
+  reassembles the full arrays from the shard files and refuses files
+  that do not cover an array; `RestoredCheckpoint.place` cuts this
+  rank's shard for another mesh, an axis that mesh lacks degrading to
+  replicated.
 
 Layout::
 
@@ -24,6 +40,7 @@ Layout::
       ckpt-000020/
         manifest.json          # step, fingerprint, reader_position, vars
         <var>.npy              # one host array per state var
+        <var>.shard-000.npy    # or its shards, under a mesh
       ckpt-000030/ ...         # the keep_last_n newest survive
 """
 from __future__ import annotations
@@ -70,12 +87,28 @@ def record_resume():
 
 
 def _spec_to_json(spec) -> List[Any]:
-    """A recorded partition spec as a JSON list (an axis name, a list of
-    names, or None per dim); the port records no sharding of its own."""
+    """A partition spec as a JSON list (an axis name, a list of names, or
+    None per dim)."""
     if spec is None:
         return []
     return [p if p is None or isinstance(p, str) else list(p)
             for p in tuple(spec)]
+
+
+def _spec_on_mesh(spec_json, mesh):
+    """A recorded spec valid on ``mesh``: axes the mesh does not have
+    degrade to None (replicated along that dim), which is what makes a
+    dp=4 checkpoint load on dp=1 or a tp-only mesh."""
+    from ..parallel.logical_axes import PartitionSpec
+    axes = set(mesh.axis_names)
+    parts = []
+    for part in spec_json or []:
+        if isinstance(part, list):
+            kept = [a for a in part if a in axes]
+            parts.append(tuple(kept) if kept else None)
+        else:
+            parts.append(part if part in axes else None)
+    return PartitionSpec(*parts)
 
 
 def _dtype_name(val) -> str:
@@ -102,12 +135,31 @@ class RestoredCheckpoint:
         self.arrays = arrays
 
     def place(self, mesh=None) -> Dict[str, Any]:
-        """The host arrays (the executor puts them on its device)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh waits for the parallel package "
-                "(ROADMAP queue A item 4)")
-        return dict(self.arrays)
+        """The host arrays (the executor puts them on its device); with
+        a ``mesh``, this rank's shard of each by its recorded spec on
+        that mesh (`specs_on`)."""
+        if mesh is None:
+            return dict(self.arrays)
+        from ..parallel.partitioner import Partitioner, resolve_mesh
+        mesh = resolve_mesh(mesh)
+        part = Partitioner(mesh=mesh, data_axis=mesh.axis_names[0])
+        return {name: np.ascontiguousarray(part.shard(arr, spec))
+                for (name, arr), spec in
+                zip(self.arrays.items(), self.specs_on(mesh).values())}
+
+    def specs_on(self, mesh) -> Dict[str, Any]:
+        """Each var's recorded spec on ``mesh`` (`_spec_on_mesh`), or
+        replicated where its shape does not divide."""
+        from ..parallel.logical_axes import PartitionSpec
+        from ..parallel.partitioner import resolve_mesh, spec_fits
+        mesh = resolve_mesh(mesh)
+        out = {}
+        for name, arr in self.arrays.items():
+            spec = _spec_on_mesh(
+                self.manifest["vars"].get(name, {}).get("spec") or [], mesh)
+            out[name] = (spec if spec_fits(spec, tuple(np.shape(arr)), mesh)
+                         else PartitionSpec())
+        return out
 
     def restore_to_scope(self, scope, mesh=None):
         """Write every restored var into ``scope``."""
@@ -180,14 +232,21 @@ class CheckpointManager:
              program=None, reader_position: Optional[int] = None,
              specs: Optional[Dict[str, Any]] = None,
              extra: Optional[Dict[str, Any]] = None,
-             block: bool = False) -> None:
+             block: bool = False, partitioner=None) -> None:
         """Snapshot ``state`` (name -> tensor or array) as checkpoint
         ``step``.  Device tensors are cloned here, on the compute stream;
         the device-to-host copies, files, manifest, rename and retention
         run on the writer thread unless ``block=True`` (or
-        ``async_save=False``)."""
+        ``async_save=False``).  With a sharding ``partitioner``, ``state``
+        holds this rank's shards of the vars ``specs`` names and the save
+        is shard-wise, on this thread, on every rank (module
+        docstring)."""
         import torch
         self._raise_pending_error()
+        if partitioner is not None and _world_size() > 1:
+            self._save_sharded(step, state, program, reader_position,
+                               dict(specs or {}), extra, partitioner)
+            return
         snapshot, event = {}, None
         with torch.no_grad():
             for name, val in state.items():
@@ -238,6 +297,111 @@ class CheckpointManager:
             self._idle.clear()
         self._queue.put(job)
 
+    def _save_sharded(self, step, state, program, reader_position, specs,
+                      extra, part):
+        import itertools
+        import torch
+        import torch.distributed as dist
+        final = self.checkpoint_path(int(step))
+        box = [os.getpid()]
+        dist.broadcast_object_list(box, src=0)
+        tmp = f"{final}.tmp-{box[0]}"
+        leader = dist.get_rank() == 0
+        if leader:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        dist.barrier()
+        manifest = {
+            "step": int(step),
+            "reader_position": (int(reader_position)
+                                if reader_position is not None else None),
+            "program_fingerprint": (program_fingerprint(program)
+                                    if program is not None else None),
+            "saved_at": time.time(),
+            "vars": {}}
+        if extra:
+            manifest.update(extra)
+        total, err = 0, None
+        try:
+            for name, val in state.items():
+                fault.maybe_fault("checkpoint.write")
+                arr = (val.detach().cpu().numpy()
+                       if isinstance(val, torch.Tensor) else np.asarray(val))
+                spec = specs.get(name)
+                shape = list(arr.shape)
+                meta = {"dtype": _dtype_name(val),
+                        "spec": _spec_to_json(spec)}
+                manifest["vars"][name] = meta
+                if spec is None or not (part.use_sharding
+                                        and part.is_sharded(spec)):
+                    meta["shape"] = shape
+                    if leader:
+                        with open(os.path.join(tmp, _fname(name)), "wb") as f:
+                            np.save(f, np.ascontiguousarray(arr))
+                        total += arr.nbytes
+                    continue
+                parts = [part._index(_axes_of(p))[1] for p in tuple(spec)]
+                parts += [1] * (len(shape) - len(parts))
+                full = [d * n for d, n in zip(shape, parts)]
+                meta["shape"] = full
+                mine = [i // d for (i, _), d in
+                        zip(part.shard_index(spec, full), shape)]
+                shards = []
+                for i, combo in enumerate(itertools.product(
+                        *[range(n) for n in parts])):
+                    fname = _shard_fname(name, i)
+                    shards.append({"file": fname, "index": [
+                        [c * d, (c + 1) * d] for c, d in zip(combo, shape)]})
+                    if list(combo) == mine and part.writes_shard(spec):
+                        with open(os.path.join(tmp, fname), "wb") as f:
+                            np.save(f, np.ascontiguousarray(arr))
+                        total += arr.nbytes
+                meta["shards"] = shards
+        except Exception as e:  # noqa: BLE001 - agreed on below, re-raised
+            err = e
+        # every rank's outcome, before rank 0 commits: one failed write
+        # leaves no checkpoint, and every rank raises
+        outcomes = [None] * dist.get_world_size()
+        dist.all_gather_object(
+            outcomes, None if err is None else f"{type(err).__name__}: {err}")
+        failed = {r: o for r, o in enumerate(outcomes) if o is not None}
+        if leader and not failed:
+            try:
+                with open(os.path.join(tmp, MANIFEST), "w") as f:
+                    json.dump(manifest, f, indent=1)
+                    f.flush()
+                    os.fsync(f.fileno())
+                fault.maybe_fault("checkpoint.pre_commit")
+                if os.path.exists(final):
+                    doomed = f"{final}.old-{os.getpid()}"
+                    shutil.rmtree(doomed, ignore_errors=True)
+                    os.rename(final, doomed)
+                    os.rename(tmp, final)
+                    shutil.rmtree(doomed, ignore_errors=True)
+                else:
+                    os.rename(tmp, final)
+            except Exception as e:  # noqa: BLE001 - broadcast, re-raised
+                err = e
+                failed = {0: f"{type(e).__name__}: {e}"}
+        if leader and failed:
+            shutil.rmtree(tmp, ignore_errors=True)
+        # rank 0's commit, as every rank learns it
+        box = [failed]
+        dist.broadcast_object_list(box, src=0)
+        failed = box[0]
+        if failed:
+            _CKPT_FAILED.inc()
+            if err is not None:
+                raise err
+            raise RuntimeError(
+                f"checkpoint {int(step)} was not committed: rank(s) "
+                f"{sorted(failed)} failed ({failed})")
+        if leader:
+            _CKPT_COMMITTED.inc()
+            self._retire_old()
+        _CKPT_BYTES.inc(total)
+
     def wait(self, timeout: Optional[float] = None) -> bool:
         """Block until every queued save committed; re-raises a writer
         failure.  Returns False on timeout."""
@@ -272,8 +436,8 @@ class CheckpointManager:
                 arrays[name] = np.load(os.path.join(path, _fname(name)),
                                        allow_pickle=False)
                 continue
-            # a shard-wise checkpoint (written by a sharded run of the
-            # JAX package): reassemble the full array from its files
+            # a shard-wise checkpoint (written under a mesh, by either
+            # package): reassemble the full array from its files
             full = None
             covered = 0
             for sh in shards:
@@ -437,6 +601,22 @@ def _pid_alive(pid: int) -> bool:
     except OSError:
         pass                      # EPERM etc.: it exists
     return True
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if (dist.is_available()
+                                     and dist.is_initialized()) else 1
+
+
+def _axes_of(part):
+    if part is None:
+        return ()
+    return tuple(part) if isinstance(part, (tuple, list)) else (part,)
+
+
+def _shard_fname(var_name: str, i: int) -> str:
+    return var_name.replace(os.sep, "_") + f".shard-{i:03d}.npy"
 
 
 def _fname(var_name: str) -> str:

@@ -28,6 +28,11 @@ recorded forward in segments under ``torch.utils.checkpoint``
 (`core.lowering`), so this rule's one ``torch.autograd.grad`` recomputes
 each segment's saved tensors as it reaches it.
 
+Meshes.  Under a fast-numerics mesh the gradients of the one
+``torch.autograd.grad`` are reduced over the data axis, as the loss's
+placement asks, before the optimizer ops run, and a parameter the step gathered gets its shard's
+gradient back (`parallel.partitioner.StepSharding.reduce_gradients`).
+
 `calc_gradient` appends the same op for any targets and inputs (the
 JAX function's program), so a program may hold several; the interpreter
 records up to the last, and every one but the last keeps the graph.
@@ -170,6 +175,21 @@ def _backward_rule(ctx: ExecContext):
             loss, wrt, grad_outputs=loss_grad, allow_unused=True,
             retain_graph=ctx.op is not ctx.interpreter.last_backward)
         got = {id(t): g for t, g in zip(wrt, grads)}
+    step = ctx.interpreter.partitioner
+    if step is not None:
+        if sites:
+            raise NotImplementedError(
+                "SelectedRows gradients on a mesh come with the sharded "
+                "embeddings (ROADMAP queue A item 4); build the table "
+                "with is_sparse=False")
+        # the mesh's gradients: reduced over the data axis, a gathered
+        # param's cut back to its shard (parallel.partitioner)
+        dense = {p: (torch.zeros_like(val) if got.get(id(val)) is None
+                     else got[id(val)]) for p, val in zip(names, params)}
+        step.reduce_gradients(ctx.block, ctx.op.desc.inputs["Loss"][0],
+                              ctx.env, names, dense)
+        params = [ctx.env[p] for p in names]
+        got = {id(val): dense[p] for p, val in zip(names, params)}
     for gname, p, val in zip(ctx.output_names("Grads"), names, params):
         if p in sites:
             continue

@@ -48,12 +48,25 @@ the loop and writes its Chrome trace, and ``xprof_every=N`` captures a
 ``torch.profiler`` window of ``xprof_steps`` steps every N
 (`observability.attribution.XprofCapture`, read back as ``last_xprof``).
 
-Refused: the sharded-run arguments of ``train_loop`` (``mesh``,
-``param_spec``, ``data_axis``, ``numerics``, ``lookup_exchange``,
-``a2a_capacity``, ``tiered``; ROADMAP queue A item 4); and, in
+Meshes (`parallel`).  ``train_loop(mesh=, param_spec=, data_axis=,
+numerics=)`` binds a `parallel.Partitioner` (kept on the executor, as
+`set_partitioner` binds one; with no mesh the loop adopts the process
+mesh of `parallel.set_mesh`).  Every rank runs the same loop on the same
+global feeds (SPMD over ``torch.distributed``).  The state is placed
+once by the rule: the scope keeps each rank's shard.  ``"exact"`` gathers
+the batch and every shard at step entry, runs the single-device step and
+keeps each rank's shard of the new state, bitwise the single-process
+run; ``"fast"`` runs the step partitioned (`parallel.partitioner`).
+Fetches are the global values on every rank.  A one-rank mesh runs the
+plain path.  Checkpoints under a mesh are written shard-wise: each rank
+writes the shards it is the first holder of, rank 0 the manifest (the
+JAX package's format, with each var's spec).
+
+Refused: ``train_loop``'s ``lookup_exchange``, ``a2a_capacity`` and
+``tiered`` (the sharded embeddings; ROADMAP queue A item 4); and, in
 ``run`` and ``train_loop``, a program with an
-``embedding(is_distributed=True)`` table, which the JAX executor refuses
-when no mesh is bound (the port has none).
+``embedding(is_distributed=True)`` table, whose row-sharded lookup is not
+ported either.
 """
 from __future__ import annotations
 
@@ -77,6 +90,7 @@ from ..flags import FLAGS
 from ..observability import default_registry as _obs_registry
 from ..observability import flight as _flight
 from ..observability import introspect as _introspect
+from ..parallel import collectives as _coll
 
 #: the scope and checkpoint name of the executor's generator state
 RNG_STATE_VAR = "@TORCH_RNG_STATE@"
@@ -230,8 +244,9 @@ def _reader_op_feed(reader):
 
 def _refuse_distributed(program: Program):
     """An ``is_distributed`` table is row-sharded over a mesh in the JAX
-    package, which refuses to run it with no mesh bound; the port has no
-    mesh, so it always refuses (it would train the table replicated).
+    package, which refuses to run it with no mesh bound; the port does
+    not shard tables yet, so it always refuses (it would train the table
+    replicated).
     The tables are the ``W`` of every ``lookup_table(is_distributed=True)``
     of the main block (the JAX ``parallel.embedding.distributed_tables``);
     the scan runs again only when the block's op count changes."""
@@ -246,8 +261,9 @@ def _refuse_distributed(program: Program):
             "layers.embedding(is_distributed=True): program has "
             f"distributed table(s) {tables} but no mesh is bound "
             "- the table would train replicated and lie about capacity.  "
-            f"The port has no mesh (ROADMAP {_SHARDED}); single-device "
-            "training wants is_sparse=True without is_distributed.")
+            f"Row-sharded tables are not ported (ROADMAP {_SHARDED}); "
+            "single-device training wants is_sparse=True without "
+            "is_distributed.")
     program._undistributed_at = len(ops)
 
 
@@ -273,6 +289,29 @@ class Executor:
         #: (program, feed signature, fetches, steps) already reported
         self._reported: set = set()
         self._program_fps: Dict[Any, str] = {}
+        #: the bound `parallel.Partitioner` (None: the single-device path)
+        self._partitioner = None
+
+    def set_partitioner(self, partitioner):
+        """Bind (or clear, with None) the placement rules of every later
+        step.  An equivalent partitioner (same rule object, same
+        fingerprint) keeps the one bound; otherwise the state is placed
+        again under the new rules at the next step (a sharded var is
+        gathered under the old rules first)."""
+        cur = self._partitioner
+        if partitioner is cur:
+            return
+        if (partitioner is not None and cur is not None
+                and partitioner.rule_token() is cur.rule_token()
+                and partitioner.fingerprint() == cur.fingerprint()):
+            return
+        self._partitioner = partitioner
+
+    def _sharded(self):
+        """The bound partitioner when it shards (a one-rank mesh runs the
+        plain path)."""
+        p = self._partitioner
+        return p if (p is not None and p.use_sharding) else None
 
     def _rng(self, program: Program) -> torch.Generator:
         """One generator per executor on its device, seeded from the
@@ -340,13 +379,11 @@ class Executor:
         and ``feed`` (tensors on the device), write the persistables
         back, return the fetches (detached, on the device).  The first
         step of a (program, feed signature, fetches, ``report_steps``)
-        registers its report; ``report_steps=0`` skips the check."""
+        registers its report; ``report_steps=0`` skips the check.  Under
+        a partitioner the step runs on the mesh (module docstring)."""
         block = program.global_block()
-        env = self._state(block, scope)
-        env.update(feed)
-        interp = lowering.Interpreter(program, self.device,
-                                      self._rng(program), fetch_names,
-                                      self.check_nan_inf)
+        part = self._sharded()
+        env, specs = self._state(block, scope)
         key = None
         if report_steps:
             key = (id(program), len(block.ops),
@@ -354,35 +391,122 @@ class Executor:
                    report_steps)
             if key in self._reported:
                 key = None
+        since = _coll.counts() if key is not None else None
+        step = None
+        feed_specs = {}
+        if part is not None:
+            feed_specs = {n: str(part.feed_spec(tuple(v.shape)))
+                          for n, v in feed.items()}
+            if part.numerics == "exact":
+                feed = self._exact_feed(part, feed)
+                for name, spec in specs.items():
+                    env[name] = part.gather(env[name], spec)
+            else:
+                step = part.step(program, specs)
+                feed = step.slice_feed(feed)
+                step.prepare(env)
+        state_vals = None
+        if key is not None:
+            # the state as it rests in the scope, and the generator's
+            # state (the JAX step's RNG key)
+            state_vals = ([scope.get_local(n) for n in env if n not in feed]
+                          + [self._rng(program).get_state()])
+        env.update(feed)
+        interp = lowering.Interpreter(program, self.device,
+                                      self._rng(program), fetch_names,
+                                      self.check_nan_inf, partitioner=step)
         with profiler.record_block("executor.run"):
             if key is None:
                 interp.run_block(block, env)
             else:
                 with _introspect.first_run_memory(self.device) as peak:
                     interp.run_block(block, env)
-                self._report(program, env, interp, key, peak[0])
         for v in block.vars.values():
             if v.persistable and v.name in env:
                 val = env[v.name]
-                scope.set(v.name, val.detach()
-                          if isinstance(val, torch.Tensor) else val)
-        return [env[n].detach() for n in fetch_names]
+                if isinstance(val, torch.Tensor):
+                    val = val.detach()
+                if v.name in specs:
+                    self._write_shard(scope, part, v.name, specs[v.name],
+                                      val)
+                else:
+                    scope.set(v.name, val)
+        fetches = [env[n].detach() for n in fetch_names]
+        if step is not None:
+            fetches = [step.fetch(block, n, f)
+                       for n, f in zip(fetch_names, fetches)]
+        if key is not None:
+            self._report(program, env, interp, key, peak[0], state_vals,
+                         fetches, specs, feed, feed_specs, since)
+        return fetches
 
-    def _report(self, program, env, interp, key, peak_bytes):
-        """Register the cost report of a first run (`_dispatch`)."""
+    @staticmethod
+    def _exact_feed(part, feed):
+        """Exact numerics: each rank keeps its data-axis slice, and the
+        step gathers the batch at entry (bit-exact)."""
+        out = {}
+        for name, v in feed.items():
+            spec = part.feed_spec(tuple(v.shape))
+            if part.is_sharded(spec):
+                v = part.gather(part.shard(v, spec), spec)
+            out[name] = v
+        return out
+
+    @staticmethod
+    def _write_shard(scope, part, name, spec, val):
+        """Keep this rank's shard of a sharded var's new value (a whole
+        value is cut to the shard; the resident tensor keeps its
+        storage)."""
+        local = scope.get_local(name)
+        if val is local or not isinstance(val, torch.Tensor):
+            return
+        with torch.no_grad():
+            if tuple(val.shape) != tuple(local.shape):
+                val = part.shard(val, spec)
+            local.copy_(val)
+
+    def _report(self, program, env, interp, key, temp_bytes, state_vals,
+                fetches, specs, feed, feed_specs, since):
+        """Register the cost report of a first run (`_dispatch`): peak
+        from argument (state, feeds and the generator's state), output
+        (fetches and the state the step returns), temp (the measured
+        rise) and alias (the returned state, updated in place) bytes,
+        each this rank's under a mesh."""
         self._reported.add(key)
         fp_key = (id(program), key[1])
         fp = self._program_fps.get(fp_key)
         if fp is None:
             from ..io import program_fingerprint
             fp = self._program_fps[fp_key] = program_fingerprint(program)
+        block = program.global_block()
         flops, nbytes = _introspect.program_cost(
-            program, env, interp.live_ops(program.global_block()))
+            program, env, interp.live_ops(block))
+        part = self._partitioner
+        summary = {}
+        if part is not None:
+            for s in feed_specs.values():
+                summary[s] = summary.get(s, 0) + 1
+            for name in env:
+                if name in feed or not isinstance(env[name], torch.Tensor):
+                    continue
+                s = str(specs.get(name, "PartitionSpec()"))
+                summary[s] = summary.get(s, 0) + 1
         _introspect.record_run(
             layer="executor", device=self.device, fingerprint=fp,
             feed_sig=key[2], fetch_names=key[3], flops=flops,
-            bytes_accessed=nbytes, peak_bytes=peak_bytes, steps=key[4],
-            dtype="bf16" if getattr(program, "amp", False) else "f32")
+            bytes_accessed=nbytes,
+            # the step returns its whole state, updated in place (the
+            # JAX step's donated state): an output and the alias term
+            argument_bytes=_introspect.tensor_bytes(
+                state_vals + list(feed.values())),
+            output_bytes=_introspect.tensor_bytes(list(fetches)
+                                                  + state_vals),
+            temp_bytes=temp_bytes,
+            alias_bytes=_introspect.tensor_bytes(state_vals),
+            steps=key[4],
+            dtype="bf16" if getattr(program, "amp", False) else "f32",
+            partitioner=part, sharding_summary=summary,
+            collectives=_coll.ledger(since))
 
     def _stamp_dispatch(self, t0: float, steps: int = 1):
         now = time.perf_counter()
@@ -431,17 +555,29 @@ class Executor:
         """The JAX executor's write-back of bound state; the port's scope
         is always current."""
 
-    def _state(self, block, scope: Scope) -> Dict[str, Any]:
+    def _state(self, block, scope: Scope):
         """The block's persistables from the scope, as tensors on this
         executor's device (a value that is not one yet is placed once and
-        written back, so later steps update it in place)."""
-        env = {}
+        written back, so later steps update it in place) -> (env, specs).
+        Under a partitioner a var its rule shards is stored as this
+        rank's shard, and ``specs`` names each sharded var's spec; a var
+        sharded under other rules is gathered first."""
+        part = self._sharded()
+        env, specs = {}, {}
         for v in block.vars.values():
             if not v.persistable:
                 continue
-            val = scope.get(v.name)
+            val = scope.get_local(v.name)
             if val is None:
                 continue
+            placed = scope.sharding(v.name)
+            if placed is not None:
+                if placed[0] is part:
+                    env[v.name] = val
+                    specs[v.name] = placed[1]
+                    continue
+                val = placed[0].gather(val, placed[1])
+                scope.set(v.name, val)
             if not isinstance(val, torch.Tensor):
                 # a copy: the optimizer updates scope tensors in place
                 val = torch.tensor(np.asarray(val), device=self.device)
@@ -449,8 +585,16 @@ class Executor:
             elif val.device != self.device:
                 val = val.to(self.device)
                 scope.set(v.name, val)
+            if part is not None and val.dim() > 0:
+                spec = part.param_spec(v.name, tuple(val.shape))
+                if part.is_sharded(spec):
+                    val = part.shard(val, spec).clone()
+                    scope.set_local(v.name, val, part, spec)
+                    specs[v.name] = spec
             env[v.name] = val
-        return env
+        if part is not None:
+            part.warn_rule_misses()
+        return env, specs
 
     @staticmethod
     def _feed_dtype(block, name: str, t: torch.Tensor) -> torch.dtype:
@@ -544,15 +688,12 @@ class Executor:
         """
         program = program or default_main_program()
         scope = scope or global_scope()
-        for what, given in (("mesh", mesh is not None),
-                            ("param_spec", param_spec is not None),
-                            ("data_axis", data_axis != "dp"),
-                            ("numerics", numerics is not None),
-                            ("lookup_exchange", lookup_exchange is not None),
+        for what, given in (("lookup_exchange", lookup_exchange is not None),
                             ("a2a_capacity", a2a_capacity is not None),
                             ("tiered", bool(tiered))):
             if given:
                 _refuse(what, _SHARDED)
+        self._bind_mesh(mesh, param_spec, data_axis, numerics)
         _refuse_distributed(program)
         if feed is None:
             if program._bound_reader is None:
@@ -741,6 +882,35 @@ class Executor:
             self._finish_timeline(own_profile, timeline_path)
         return handles
 
+    def _bind_mesh(self, mesh, param_spec, data_axis, numerics):
+        """``train_loop``'s mesh arguments -> the bound partitioner (the
+        JAX executor's rules: an explicit mesh or rule binds a new one;
+        else the process mesh, when none is bound; else a changed
+        ``numerics`` rebinds the bound one)."""
+        from ..parallel import mesh as _mesh_lib
+        from ..parallel.partitioner import Partitioner, resolve_mesh
+        if mesh is not None or param_spec is not None:
+            rmesh = resolve_mesh(mesh)
+            axis = (data_axis if data_axis in rmesh.shape
+                    else tuple(rmesh.shape)[0])
+            self.set_partitioner(Partitioner(
+                mesh=rmesh, data_axis=axis, param_spec=param_spec,
+                numerics=numerics or "fast"))
+        elif self._partitioner is None:
+            pmesh = _mesh_lib.get_mesh()
+            if pmesh is not None:
+                axis = (data_axis if data_axis in pmesh.shape
+                        else tuple(pmesh.shape)[0])
+                self.set_partitioner(Partitioner(
+                    mesh=pmesh, data_axis=axis,
+                    numerics=numerics or "fast"))
+        elif numerics and numerics != self._partitioner.numerics:
+            old = self._partitioner
+            self.set_partitioner(Partitioner(
+                mesh=old.mesh, data_axis=old.data_axis,
+                param_spec=old.rule, numerics=numerics,
+                table_specs=old.table_specs))
+
     @staticmethod
     def _finish_timeline(own_profile, timeline_path):
         if not timeline_path:
@@ -907,15 +1077,20 @@ class Executor:
 
     def _checkpoint(self, manager, program, scope, step):
         """Snapshot the program's persistables and the generator state as
-        checkpoint ``step`` (device clones on this thread)."""
-        state = {}
+        checkpoint ``step`` (device clones on this thread); under a mesh
+        of several ranks shard-wise, each rank writing its shards."""
+        state, specs = {}, {}
         for v in program.global_block().vars.values():
             if v.persistable:
-                val = scope.get(v.name)
+                val = scope.get_local(v.name)
                 if val is not None:
                     state[v.name] = val
+                    placed = scope.sharding(v.name)
+                    if placed is not None:
+                        specs[v.name] = placed[1]
         state[RNG_STATE_VAR] = self._rng(program).get_state()
-        manager.save(step, state, program=program, reader_position=step)
+        manager.save(step, state, program=program, reader_position=step,
+                     specs=specs, partitioner=self._partitioner)
 
     def _resume(self, manager, program, scope) -> int:
         """Restore the latest committed checkpoint into ``scope``; ->

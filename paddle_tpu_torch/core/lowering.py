@@ -53,6 +53,13 @@ runs every op, for measuring what the skip saves.
 ``calc_gradient`` may append several ``backward`` ops: the interpreter
 records up to the last live one, and each keeps the graph for the next.
 
+Meshes.  Under a fast-numerics mesh the executor hands the interpreter
+the step's `parallel.partitioner.StepSharding` (``partitioner=``); the
+rules that shard read it (the column and row products, the gradient
+reduction of the ``backward`` rule, the loss scaler's flag, the ZeRO
+optimizer branch).  Exact numerics runs the plain interpreter on the
+gathered state.
+
 ``Interpreter.memo`` holds what the rules of one run share: the KV-cache
 write plan, computed once for every ``kv_cache_write`` of a generation
 step (one host sync a step instead of one a layer).  It lives and dies
@@ -257,8 +264,12 @@ class Interpreter:
     def __init__(self, program: Program, device: torch.device,
                  generator: torch.Generator,
                  fetch_names: Iterable[str] = (),
-                 check_nan_inf: bool = False):
+                 check_nan_inf: bool = False, partitioner=None):
         self.program = program
+        #: the step's `parallel.partitioner.StepSharding` under a fast
+        #: mesh (None otherwise): the product, constraint, gradient,
+        #: loss-scaler and ZeRO branches of the rules read it
+        self.partitioner = partitioner
         self.device = device
         self.generator = generator
         self.fetch_names = tuple(fetch_names)

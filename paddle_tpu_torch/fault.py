@@ -15,14 +15,17 @@ Spec grammar (comma-separated list)::
             of ``io.save_vars``), ``io.pre_replace`` (each atomic
             file publish), the fleet's ``fleet.route`` (each forward
             attempt), ``fleet.health`` (each heartbeat sweep) and
-            ``replica.spawn`` (each spawn attempt), and the checkpoint
-            watcher's ``watcher.roll`` (before each replica) and
-            ``watcher.health_gate``
+            ``replica.spawn`` (each spawn attempt), the server's
+            ``serve.stream_token`` (after each streamed token line), and
+            the checkpoint watcher's ``watcher.roll`` (before each
+            replica) and ``watcher.health_gate``
 ``@n``      fire on the n-th hit of the point, once (default 1); ``@n+``
             fires on the n-th hit and every hit after it
 ``action``  ``exit`` (``os._exit(137)``, the kill -9 analog), ``raise``
-            (`FaultInjected`, the default) or ``drop`` (``maybe_fault``
-            returns True and the caller drops the operation)
+            (`FaultInjected`, the default), ``drop`` (``maybe_fault``
+            returns True and the caller drops the operation) or ``stop``
+            (the process stops itself with SIGSTOP and goes on when sent
+            SIGCONT: a chaos test paces a replica one site at a time)
 
 Every site calls ``maybe_fault("site")``: one dict check when nothing is
 armed.
@@ -30,6 +33,7 @@ armed.
 from __future__ import annotations
 
 import os
+import signal
 import threading
 from typing import Dict, Tuple
 
@@ -37,7 +41,7 @@ from .flags import FLAGS
 
 __all__ = ["FaultInjected", "arm", "reset", "maybe_fault", "hits", "armed"]
 
-_ACTIONS = ("exit", "raise", "drop")
+_ACTIONS = ("exit", "raise", "drop", "stop")
 _EXIT_CODE = 137              # what the shell reports for SIGKILL
 
 
@@ -105,7 +109,8 @@ def hits(point: str) -> int:
 
 def maybe_fault(point: str) -> bool:
     """Hit a kill point.  True iff the caller must drop the operation
-    (``drop``); ``raise`` raises, ``exit`` never returns."""
+    (``drop``); ``raise`` raises, ``exit`` never returns, ``stop``
+    returns False once the process is continued."""
     if not _armed:
         return False
     with _lock:
@@ -121,6 +126,9 @@ def maybe_fault(point: str) -> bool:
         os._exit(_EXIT_CODE)
     if action == "raise":
         raise FaultInjected(point, n)
+    if action == "stop":
+        os.kill(os.getpid(), signal.SIGSTOP)
+        return False
     return True               # drop
 
 

@@ -474,8 +474,10 @@ def get_places(device_count=None, device_type=None):
 class ParallelDo:
     """A data-parallel sub-block.  The reference splits the batch across
     places and merges the gradients; here, as in the JAX package, the
-    block runs once over the whole batch, which gives the same results
-    and gradients.  Data parallelism waits for queue A item 4."""
+    block runs once over the batch a device holds: the whole batch on
+    one device, which gives the same results and gradients, and each
+    rank's data-axis slice under a fast mesh (`parallel`), whose
+    backward averages the gradients over the data axis."""
 
     def __init__(self, places, use_nccl=False, name=None):
         self.helper = LayerHelper("parallel_do", name=name)

@@ -15,9 +15,19 @@ fingerprint, feed signature), under the JAX keys and metric families:
   ``backward`` op at twice the products of the forward it differentiates.
   Bytes are each op's input and output bytes, except the paged KV pools,
   of which only the rows an op reads or writes count;
-- ``peak_bytes`` is how far ``torch.cuda.max_memory_allocated`` rose
-  above the memory allocated before that first run (0 on the CPU, or when
-  the run stayed under an earlier peak);
+- ``peak_bytes`` is built from the JAX report's terms: argument +
+  output + temp - alias bytes.  Arguments are the run's feeds and the
+  parameters it reads, outputs its fetches and the state it writes, both
+  counted from their tensors (`tensor_bytes`); the state an optimizer
+  writes in place is the alias term, as the JAX step's donated state is.
+  Temp is how far ``torch.cuda.max_memory_allocated`` rose above the
+  memory allocated before the run (0 on the CPU, or when the run stayed
+  under an earlier peak: the allocator's peak is never reset here);
+- under a mesh every term is the rank's own: its shards and its slice of
+  the feed.  ``mesh_shape``, ``num_devices`` and ``sharding_summary``
+  (the resident placement of each feed and state tensor) come from the
+  `parallel.Partitioner`, and ``collectives`` from the counts of
+  `parallel.collectives` over the run;
 - ``compile_seconds`` is 0.0 and ``steps`` the window's K.
 
 The report also names its ``device_name`` (the card's
@@ -60,7 +70,7 @@ _DEVICE_MEM = default_registry().gauge(
     labelnames=("device",))
 _COLLECTIVE_BYTES = default_registry().counter(
     "executor_collective_bytes_total",
-    "per-step collective payload bytes (none until the port shards)",
+    "per-step collective payload bytes (parallel.collectives' counts)",
     labelnames=("layer", "kind"))
 
 
@@ -103,14 +113,39 @@ def device_name_of(device) -> str:
     return device.type
 
 
+def tensor_bytes(values: Iterable[Any]) -> int:
+    """The bytes of the distinct tensors among ``values`` (a tensor seen
+    twice, or two views of one storage, count once); anything that is
+    not a tensor counts 0."""
+    import torch
+    seen = set()
+    total = 0
+    for v in values:
+        if not isinstance(v, torch.Tensor):
+            continue
+        try:
+            key = (v.untyped_storage().data_ptr(), v.device)
+        except RuntimeError:
+            key = id(v)
+        if key in seen:
+            continue
+        seen.add(key)
+        total += _nbytes(v)
+    return total
+
+
 def record_run(*, layer: str, device, fingerprint: str = "",
                feed_sig: Any = None, fetch_names=(), flops: float = 0.0,
-               bytes_accessed: float = 0.0, peak_bytes: int = 0,
-               steps: int = 1, dtype: str = "f32") -> CompiledReport:
+               bytes_accessed: float = 0.0, argument_bytes: int = 0,
+               output_bytes: int = 0, temp_bytes: int = 0,
+               alias_bytes: int = 0, steps: int = 1, dtype: str = "f32",
+               partitioner=None, sharding_summary=None,
+               collectives=None) -> CompiledReport:
     """Register the report of a first run on ``device`` and sample the
     device memory (a first run is when it moves); ``flops`` and
     ``bytes_accessed`` are one step's, and scale by ``steps`` as the JAX
-    report's do."""
+    report's do.  ``peak_bytes`` is argument + output + temp - alias
+    (module docstring); a ``partitioner`` names the run's mesh."""
     rep = CompiledReport()
     rep.layer = str(layer)
     rep.fingerprint = str(fingerprint)
@@ -122,18 +157,22 @@ def record_run(*, layer: str, device, fingerprint: str = "",
     rep.num_devices = 1
     rep.input_shardings = []
     rep.output_shardings = []
-    rep.sharding_summary = {}
+    rep.sharding_summary = dict(sharding_summary or {})
+    if partitioner is not None:
+        rep.mesh_shape = partitioner.mesh_shape()
+        rep.num_devices = partitioner.num_devices
     rep.flops_scale = 1
     rep.flops = float(flops) * rep.steps
     rep.bytes_accessed = float(bytes_accessed) * rep.steps
-    rep.collectives = attribution.collective_ledger()
-    # XLA's memory-analysis keys: nothing measures them in eager PyTorch
-    rep.argument_bytes = 0
-    rep.output_bytes = 0
-    rep.temp_bytes = 0
-    rep.alias_bytes = 0
+    rep.collectives = (collectives if collectives
+                       else attribution.collective_ledger())
+    rep.argument_bytes = int(argument_bytes)
+    rep.output_bytes = int(output_bytes)
+    rep.temp_bytes = int(temp_bytes)
+    rep.alias_bytes = int(alias_bytes)
     rep.generated_code_bytes = 0
-    rep.peak_bytes = int(peak_bytes)
+    rep.peak_bytes = max(0, rep.argument_bytes + rep.output_bytes
+                         + rep.temp_bytes - rep.alias_bytes)
     rep.compile_seconds = 0.0
     rep.created_at = time.time()
     rep.device_name = device_name_of(device)
@@ -151,16 +190,20 @@ def record_run(*, layer: str, device, fingerprint: str = "",
     peak_g = _COMPILED_PEAK_BYTES.labels(layer=rep.layer)
     if rep.peak_bytes > peak_g.value:
         peak_g.set(rep.peak_bytes)
+    if rep.collectives:
+        for kind, ent in rep.collectives["kinds"].items():
+            _COLLECTIVE_BYTES.labels(layer=rep.layer,
+                                     kind=kind).inc(ent["bytes"])
     sample_device_memory()
     return rep
 
 
 @contextlib.contextmanager
 def first_run_memory(device):
-    """Measure a first run's peak: yields a one-element list that holds,
-    after the block, how far ``max_memory_allocated`` rose above the
-    memory allocated before it (0 on the CPU, or when the block stayed
-    under an earlier peak)."""
+    """Measure a first run's temp term: yields a one-element list that
+    holds, after the block, how far ``max_memory_allocated`` rose above
+    the memory allocated before it (0 on the CPU, or when the block
+    stayed under an earlier peak; the peak is never reset)."""
     import torch
     out = [0]
     device = torch.device(device)
@@ -420,7 +463,7 @@ def format_report(rep: Optional[Dict[str, Any]], indent: str = "  ",
         f"  ({rep['flops'] / 1e9:.3f} GFLOP)",
         f"{indent}bytes accessed  {rep['bytes_accessed']:,.0f}",
         f"{indent}peak memory     {rep['peak_bytes']:,} B"
-        f"  (rise over the first run)",
+        f"  (argument + output + temp - alias)",
         f"{indent}device          {rep.get('device_name')}",
     ]
     if rep.get("steps", 1) > 1:
@@ -444,4 +487,8 @@ def format_report(rep: Optional[Dict[str, Any]], indent: str = "  ",
                 f"{rl['attained_memory_frac']:.1%} of roof "
                 f"({rl['basis']}); comm {rl['comm_bytes_per_step']:,} "
                 "B/step")
+        tp = rl.get("tp_collective_bytes_per_step")
+        if tp is not None:
+            lines.append(f"{indent}tp collectives  {tp:,} B/step over the "
+                         "tp groups")
     return "\n".join(lines)

@@ -8,7 +8,8 @@ moves the scale with selects, so a step never waits on the host to learn
 that it overflowed.  The update skip itself is the interpreter's
 (`core.lowering`): an optimize op wired with ``FoundInf`` and the
 ``skip_on_found_inf`` attribute commits its outputs only where the flag
-is false.
+is false.  Under a fast mesh the flag is max-reduced over every rank
+(`parallel.partitioner.StepSharding.any_rank`).
 """
 from __future__ import annotations
 
@@ -43,6 +44,10 @@ def _check_finite_and_unscale(ctx):
         found = torch.logical_not(torch.stack(finite).all())
     else:
         found = torch.zeros((), dtype=torch.bool, device=scale.device)
+    step = ctx.interpreter.partitioner
+    if step is not None:
+        # every rank skips together, so the loss scales stay equal
+        found = step.any_rank(found)
     ctx.set_output("FoundInf", found)
 
 

@@ -130,8 +130,11 @@ def _if_else(ctx: ExecContext):
 
 
 @register_op("parallel_do",
-             doc="parallel_do_op.cc: the block runs once over the whole "
-                 "batch")
+             doc="parallel_do_op.cc: the block runs once over the batch "
+                 "this rank holds: the whole batch on one device, the "
+                 "rank's data-axis slice under a fast mesh (whose "
+                 "backward reduces the gradients over the data axis), "
+                 "as the JAX rule runs under GSPMD")
 def _parallel_do(ctx: ExecContext):
     env = dict(ctx.env)
     for outer, inner in ctx.attr("input_pairs"):

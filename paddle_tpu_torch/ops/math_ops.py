@@ -173,8 +173,15 @@ def amp_out(ctx, out, want):
 def _mul(ctx):
     """Under ``program.exact_lowering`` the product is the row-stable
     product kernel in f32 (a row's bits do not depend on M); a shape the
-    kernel refuses raises."""
+    kernel refuses raises.  Under a fast mesh a column-sharded weight
+    multiplies as its shard (the input passes Megatron's f; the output
+    stays sharded or is gathered) and a row-sharded one gives partial
+    sums that are all-reduced (Megatron's g), as the step's plan says
+    (`parallel.partitioner`)."""
     x, y = ctx.input("X"), ctx.input("Y")
+    step = ctx.interpreter.partitioner
+    if step is not None:
+        x = step.product_input(ctx.op, x)
     xnd = ctx.attr("x_num_col_dims", 1)
     ynd = ctx.attr("y_num_col_dims", 1)
     x2 = x.reshape(math.prod(x.shape[:xnd]), -1)
@@ -186,8 +193,10 @@ def _mul(ctx):
     else:
         x2, y2 = amp_operands(ctx, x2, y2)
         out = amp_out(ctx, torch.matmul(x2, y2), want)
-    ctx.set_output("Out", out.reshape(
-        tuple(x.shape[:xnd]) + tuple(y.shape[ynd:])))
+    out = out.reshape(tuple(x.shape[:xnd]) + tuple(y.shape[ynd:]))
+    if step is not None:
+        out = step.product_output(ctx.op, out)
+    ctx.set_output("Out", out)
     ctx.set_seq_len("Out", ctx.seq_len_of("X"))
 
 

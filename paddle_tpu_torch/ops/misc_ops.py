@@ -42,10 +42,18 @@ from ..core.types import to_torch_dtype
 
 
 @register_op("sharding_constraint",
-             doc="pins an activation's logical-axis layout on a mesh; the "
-                 "port runs on one card with no mesh, so it is the "
-                 "identity")
+             doc="pins an activation's logical-axis layout on a mesh: "
+                 "the value passes through unchanged; under a fast mesh "
+                 "with a LogicalAxisRules table the step's plan keeps a "
+                 "column product's output sharded up to a constraint "
+                 "that asks for its tp axis (Partitioner.activation_spec)"
+                 " and gathers it elsewhere")
 def _sharding_constraint(ctx):
+    """Identity on the values.  The layout a constraint asks for
+    (``Partitioner.activation_spec`` of its logical axes) is decided when
+    the step's plan is built (`parallel.partitioner.TPPlan`): a value the
+    plan keeps sharded arrives here as its shard and leaves as one, and
+    every other value arrives whole."""
     ctx.set_output("Out", ctx.input("X"))
 
 

@@ -17,15 +17,21 @@ so Adam's moments and Momentum's velocity of every other row stay as
 they were (``adam_op.h`` SparseAdamFunctor).  The rule hands the commit
 a `core.lowering.RowUpdate` of those rows, so a step moves the touched
 rows, never the whole table.  Every other optimizer refuses such a
-gradient, as the JAX package's rules do.  The mesh-sharded branches are
-not ported (ROADMAP queue A item 4).
+gradient, as the JAX package's rules do.
+
+Meshes.  Under a fast mesh the rules update the local shards of sharded
+parameters and their same-shape accumulators as they are; a parameter
+and accumulators placed differently (ZeRO-1's sharded accumulators, or
+a sharded parameter beside replicated ones) take `_mesh_branch`.  The
+mesh-sharded branches of the row-sharded embedding tables are not
+ported (ROADMAP queue A item 4).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.lowering import ROWS_SUFFIX, VALUES_SUFFIX, RowUpdate
-from ..core.registry import register_op
+from ..core.registry import OpRegistry, register_op
 
 
 def _grad(ctx):
@@ -333,3 +339,84 @@ def _average_accumulates(ctx):
     ctx.set_output("OutOldNumAccumulates",
                    torch.where(shift, num_acc, old_num))
     ctx.set_output("OutNumUpdates", num_upd)
+
+
+# ---------------------------------------------------------------------------
+# Mixed placements under a mesh: parameter and accumulators cut alike
+# ---------------------------------------------------------------------------
+
+#: the slots that are neither the parameter, its gradient nor the rate
+_NOT_STATE = ("Param", "Grad", "LearningRate")
+
+
+def _mesh_branch(fn):
+    """An optimizer rule under a fast mesh whose parameter and
+    accumulators are placed differently.  Two cases, as GSPMD partitions
+    them in the JAX package:
+
+    - accumulators sharded on the data axis beside a replicated
+      parameter (ZeRO-1, ``DistributeTranspiler.transpile(zero_stage=1)``):
+      the rule updates this rank's rows of the parameter and its
+      gradient with the local accumulators, and the parameter's rows are
+      all-gathered;
+    - a sharded parameter beside replicated accumulators of its shape:
+      the accumulators are cut to the parameter's shard, updated, and
+      all-gathered back.
+
+    The commit then writes whole tensors where the scope holds whole
+    ones and shards where it holds shards."""
+    def rule(ctx):
+        step = ctx.interpreter.partitioner
+        if step is None:
+            return fn(ctx)
+        env = ctx.env
+        p_name, g_name = ctx.input_name("Param"), ctx.input_name("Grad")
+        p = env.get(p_name)
+        if not isinstance(p, torch.Tensor) or p.dim() == 0:
+            return fn(ctx)
+        accs = [n for slot, names in ctx.op.desc.inputs.items()
+                if slot not in _NOT_STATE for n in names
+                if isinstance(env.get(n), torch.Tensor)
+                and env[n].dim() == p.dim()]
+        part = step.part
+        p_spec = step.specs.get(p_name)
+        if p_spec is not None:
+            spec = p_spec
+            full = part.full_shape(tuple(p.shape), spec)
+            cut = [n for n in accs if n not in step.specs
+                   and tuple(env[n].shape) == full != tuple(p.shape)]
+        else:
+            zero = [n for n in accs if n in step.specs
+                    and env[n].shape[0] < p.shape[0]]
+            if not zero:
+                return fn(ctx)
+            spec = step.specs[zero[0]]
+            cut = [p_name, g_name]
+        if not cut:
+            return fn(ctx)
+        saved = {n: env[n] for n in cut}
+        for n in cut:
+            env[n] = part.shard(saved[n], spec)
+        try:
+            fn(ctx)
+        finally:
+            if g_name in saved:
+                env[g_name] = saved[g_name]
+        outs = {ctx.input_name("Param"): ctx.output_name("ParamOut")}
+        for slot, names in ctx.op.desc.inputs.items():
+            out = ctx.output_name(slot + "Out")
+            if names and out is not None:
+                outs[names[0]] = out
+        for n in cut:
+            out = outs.get(n)
+            if out is not None and out in env:
+                env[out] = part.gather(env[out], spec)
+    rule.__doc__ = fn.__doc__
+    return rule
+
+
+for _name in ("sgd", "momentum", "adam", "adamax", "adagrad",
+              "decayed_adagrad", "adadelta", "rmsprop", "ftrl",
+              "proximal_gd", "proximal_adagrad"):
+    _def = OpRegistry.get(_name)
+    _def.fn = _mesh_branch(_def.fn)

@@ -3,6 +3,8 @@ layer per file:
 
 - ``predictor.py``     — `Predictor`: in-process inference over a saved
   model on one device, in f32, bf16 or int8;
+- ``sharded.py``       — `ShardedPredictor`: the same over a mesh of
+  ranks (rank 0 serves, the others follow its batches);
 - ``engine.py``        — `ServingEngine`: the dynamic batcher (coalesce,
   pad to a bucket, one forward, scatter);
 - ``decode_engine.py`` — `DecodeEngine`: continuous-batching decode over
@@ -16,11 +18,11 @@ layer per file:
   deadlines, retry on another replica, restarts).
 
 ``python -m paddle_tpu_torch serve`` wires the single-process layers
-together, ``python -m paddle_tpu_torch fleet`` the replicated tier.  Not
-ported: the sharded predictor (ROADMAP queue A item 4) and the compile
-cache (XLA-only).
+together (``--mesh dp=N`` over N ranks), ``python -m paddle_tpu_torch
+fleet`` the replicated tier.  Not ported: the compile cache (XLA-only).
 """
 from .predictor import Predictor  # noqa: F401
+from .sharded import ShardedPredictor, ParamSpecRule  # noqa: F401
 from .engine import (ServingEngine, SlimFuture,  # noqa: F401
                      EngineOverloadedError)
 from .registry import (ModelRegistry, UnknownModelError,  # noqa: F401

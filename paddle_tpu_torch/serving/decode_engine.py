@@ -842,11 +842,16 @@ class DecodeEngine:
         fp = hashlib.sha1(json.dumps(
             [self.spec, model.precision, mode, self.numerics],
             sort_keys=True).encode()).hexdigest()[:16]
+        pools = [t for pair in self._pools for t in pair]
         _introspect.record_run(
             layer="predictor", device=self.device, fingerprint=fp,
             feed_sig=_introspect.feed_signature(feed), fetch_names=["logits"],
-            flops=flops, bytes_accessed=nbytes, peak_bytes=peak[0],
-            dtype=model.precision)
+            flops=flops, bytes_accessed=nbytes,
+            argument_bytes=_introspect.tensor_bytes(
+                list(model.parameters()) + pools + list(feed.values())),
+            output_bytes=_introspect.tensor_bytes(
+                out if isinstance(out, (list, tuple)) else [out]),
+            temp_bytes=peak[0], dtype=model.precision)
         return out
 
     def _inter_token_attribution(self):

@@ -185,6 +185,8 @@ class _Replica:
         #: `top` renders the decode columns from it
         self.last_decode: Optional[Dict[str, Any]] = None
         self.inflight = 0
+        #: trace ids of the generate streams this replica relays now
+        self.relaying: set = set()
         self.forwarded = 0
         self.restarts = 0
         #: latest full metrics snapshot pulled by the heartbeat: the
@@ -1183,6 +1185,7 @@ class FleetFrontend:
             trace.inject(fwd)
             with self._lock:
                 rep.inflight += 1
+                rep.relaying.add(tid)
             client = None
             try:
                 fault.maybe_fault("fleet.route")
@@ -1263,6 +1266,7 @@ class FleetFrontend:
             finally:
                 with self._lock:
                     rep.inflight -= 1
+                    rep.relaying.discard(tid)
 
     def _forward(self, rep: _Replica, fwd: Dict[str, Any]) -> Dict[str, Any]:
         with self._lock:

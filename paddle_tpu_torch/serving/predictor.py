@@ -324,14 +324,25 @@ class Predictor:
                            self.fetch_names).live_ops(
                                self.program.global_block())
         flops, nbytes = _introspect.program_cost(self.program, env, live)
+        with self._lock:
+            params = list(self._params.values())
         _introspect.record_run(
             layer="predictor", device=self.device,
             fingerprint=self.fingerprint,
             feed_sig=_introspect.feed_signature(feed),
             fetch_names=self.fetch_names, flops=flops,
-            bytes_accessed=nbytes, peak_bytes=peak[0],
-            dtype=self.precision)
+            bytes_accessed=nbytes,
+            argument_bytes=_introspect.tensor_bytes(
+                params + list(feed.values()) + list(cached.values())),
+            output_bytes=_introspect.tensor_bytes(outs),
+            temp_bytes=peak[0], dtype=self.precision,
+            **self._report_mesh())
         return outs
+
+    def _report_mesh(self) -> Dict[str, Any]:
+        """The mesh fields of this predictor's reports (none here; the
+        sharded predictor names its partitioner)."""
+        return {}
 
     def _forward(self, feed: Dict[str, torch.Tensor],
                  cached: Dict[str, torch.Tensor],

@@ -21,9 +21,10 @@ artifact ships ``__generation__.json``:
 Every engine is labelled with the model's name, and lifecycle events
 count in ``serving_model_events_total{model,event}`` and
 ``serving_models``; rows patched by deltas in
-``embedding_delta_rows_total{model}``.  Refused with an error that names
-the ROADMAP item: ``mesh`` (sharded serving) and ``compile_cache``
-(XLA-only).
+``embedding_delta_rows_total{model}``.  ``mesh=`` serves a model
+through a `ShardedPredictor` (rank 0 of the mesh serves, the other ranks
+run its ``follow`` loop) with no decode engine.  Refused with an error
+that names the ROADMAP item: ``compile_cache`` (XLA-only).
 """
 from __future__ import annotations
 
@@ -101,6 +102,9 @@ class _Entry:
              "feed_names": list(self.predictor.feed_names),
              "fetch_names": list(self.predictor.fetch_names),
              "device": str(self.predictor.device)}
+        sharding = getattr(self.predictor, "sharding_info", None)
+        if sharding is not None:
+            d["sharding"] = sharding()
         if self.delta_seq is not None:
             d["delta_seq"] = self.delta_seq
             d["delta_step"] = self.delta_step
@@ -119,6 +123,9 @@ class _Entry:
         self.engine.close(timeout=drain_timeout, unmount=unmount)
         if self.decode is not None:
             self.decode.close(timeout=drain_timeout, unmount=unmount)
+        stop = getattr(self.predictor, "stop_followers", None)
+        if stop is not None:
+            stop()
 
 
 class ModelRegistry:
@@ -159,10 +166,6 @@ class ModelRegistry:
         `DecodeEngine` options (``numerics``, ``precision`` and the rest),
         or False for no decode engine; ``embedding_cache_rows`` serves
         lookup-only tables through a hot-row cache of that many rows."""
-        if mesh is not None:
-            raise ValueError(
-                "mesh= (sharded serving over several cards) is not ported "
-                "yet: ROADMAP queue A item 4")
         name = str(name)
         load_opts = {"params_filename": params_filename,
                      "transpile": transpile,
@@ -171,6 +174,7 @@ class ModelRegistry:
                      "compile_cache": compile_cache,
                      "precision": precision, "decode": decode,
                      "embedding_cache_rows": int(embedding_cache_rows),
+                     "mesh": mesh,
                      # resolved first: without CUDA and without "cpu"
                      # this raises before any file is read
                      "device": resolve_device(
@@ -211,14 +215,23 @@ class ModelRegistry:
     def _build(self, name, model_dir, version, load_opts) -> _Entry:
         precision = load_opts["precision"]
         device = load_opts["device"]
+        mesh = load_opts.get("mesh")
+        kw = {}
+        cls = Predictor
+        if mesh is not None:
+            from .sharded import ShardedPredictor
+            cls, kw = ShardedPredictor, {"mesh": mesh}
         with self._build_lock:
-            predictor = Predictor.from_model_dir(
+            predictor = cls.from_model_dir(
                 model_dir, params_filename=load_opts["params_filename"],
                 transpile=load_opts["transpile"],
                 compile_cache=load_opts["compile_cache"],
                 precision=precision,
                 embedding_cache_rows=load_opts["embedding_cache_rows"],
-                device=device)
+                device=device, **kw)
+        if mesh is not None and predictor.mesh.size > 1:
+            # rank 0 serves; the other ranks follow its batches
+            predictor.lead()
         engine = ServingEngine(predictor, model=name,
                                **load_opts["engine_opts"])
         try:
@@ -229,6 +242,8 @@ class ModelRegistry:
                     pass   # non-batch dynamic dims: the first request warms
             decode_engine = None
             dopts = load_opts["decode"]
+            if mesh is not None:
+                dopts = False   # the decode engine runs on one device
             if dopts is not False and read_generation_spec(model_dir):
                 kw = dict(dopts) if isinstance(dopts, dict) else {}
                 kw.setdefault("precision", precision)

@@ -41,7 +41,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from .. import profiler
+from .. import fault, profiler
 from ..distributed.backoff import Backoff
 from ..io import _atomic_write
 from ..observability import render_prometheus, snapshot, trace
@@ -268,6 +268,8 @@ class _Handler(socketserver.StreamRequestHandler):
                                                 (json.dumps(line)
                                                  + "\n").encode())
                                             self.wfile.flush()
+                                            fault.maybe_fault(
+                                                "serve.stream_token")
                                     elif ev[0] == "error":
                                         raise ev[1]
                                     else:

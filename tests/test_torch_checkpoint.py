@@ -306,10 +306,15 @@ def test_kill9_mid_checkpoint_subprocess(tmp_path):
 
 
 def test_restore_onto_a_mesh_is_refused(tmp_path):
+    """``place(mesh=)`` takes a mesh (the parallel package's, an axes
+    dict or a spec string) and refuses anything else; a one-rank mesh
+    places the whole arrays."""
     mgr = CheckpointManager(str(tmp_path / "c"))
     mgr.save(1, {"w": np.ones(2, np.float32)}, block=True)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(TypeError, match="mesh must be"):
         mgr.restore().place(mesh=object())
+    placed = mgr.restore().place(mesh={"dp": 1})
+    np.testing.assert_array_equal(placed["w"], np.ones(2, np.float32))
 
 
 def test_resumable_reader_position_and_seek():
@@ -472,6 +477,39 @@ def test_fault_point_sticky_and_drop():
     assert fault.hits("a.b") == 4 and "a.b" in fault.armed()
     fault.reset()
     assert not fault.armed() and fault.hits("a.b") == 0
+
+
+def test_fault_point_stop_pauses_the_process_until_continued(tmp_path):
+    """``stop`` (a port action: pacing for the chaos tests) stops the
+    process at the site's hit and returns False once it is continued."""
+    import signal
+    import time
+    env = dict(os.environ, FLAGS_fault_points="p.q@2:stop",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    code = ("from paddle_tpu_torch import fault; "
+            "print(fault.maybe_fault('p.q'), flush=True); "
+            "print(fault.maybe_fault('p.q'), fault.hits('p.q'), flush=True)")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        assert proc.stdout.readline().strip() == "False"
+        deadline = time.monotonic() + 60
+        state = ""
+        while time.monotonic() < deadline:
+            with open(f"/proc/{proc.pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+            if state == "T":
+                break
+            time.sleep(0.01)
+        assert state == "T"
+        os.kill(proc.pid, signal.SIGCONT)
+        out, _ = proc.communicate(timeout=60)
+        assert out.strip() == "False 2" and proc.returncode == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def test_backoff_deterministic_bounded_and_jittered():

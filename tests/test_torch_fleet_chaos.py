@@ -46,7 +46,8 @@ def _spawned_fleet(model_dir, tmp_path, n=3, replica_args=(), **kw):
     kw.setdefault("spawn_timeout", 120.0)
     return FleetFrontend(
         [("default", str(model_dir))], replicas=n,
-        run_dir=str(tmp_path / "fleet_run"), spawn_env=_subproc_env(),
+        run_dir=str(tmp_path / "fleet_run"),
+        spawn_env=kw.pop("spawn_env", None) or _subproc_env(),
         replica_args=CPU + tuple(replica_args), **kw)
 
 
@@ -359,7 +360,18 @@ def test_fleet_generate_relay(lm_dir, tmp_path):
 def _sigkill_chaos(lm_dir, tmp_path, replica_args=(), prompt_fn=None):
     """SIGKILL the replica carrying stream 0 once it has relayed two
     tokens: every stream completes unbroken, equal to an in-process
-    engine's, and at least one retry happened."""
+    engine's, and at least one retry happened.
+
+    The victim is the replica the frontend relays stream 0 from (its
+    ``relaying`` set).  A replica of this tiny model writes its ten
+    tokens in a few ms, faster than a loaded client reads two, and a
+    stream already in the socket buffers completes without a retry.  So
+    every replica stops itself (SIGSTOP, the ``serve.stream_token@1+:stop``
+    fault point) after each token line it writes: the victim is sent
+    SIGCONT until the client holds two of stream 0's tokens, so it has
+    written at most one line more than the client has read when it is
+    killed, whatever the machine's load, while the other replicas are
+    resumed as they stop."""
     prompt_fn = prompt_fn or (lambda i: [3, 4, 5 + i])
     n_streams, gen = 4, 10
     ref = tserving.DecodeEngine.from_model_dir(lm_dir, device="cpu",
@@ -369,14 +381,34 @@ def _sigkill_chaos(lm_dir, tmp_path, replica_args=(), prompt_fn=None):
                 for i in range(n_streams)]
     finally:
         ref.close()
+    # the paced victim is stopped most of the time: a probe must wait
+    # for it rather than eject it (and retry stream 0 elsewhere) first
+    env = dict(_subproc_env(),
+               FLAGS_fault_points="serve.stream_token@1+:stop")
     fleet = _spawned_fleet(lm_dir, tmp_path, n=2, health_interval=0.3,
-                           replica_args=replica_args)
+                           replica_args=replica_args, probe_timeout=120.0,
+                           spawn_env=env)
     fleet.start()
+    done = threading.Event()
+
+    def cont(pid):
+        try:
+            os.kill(pid, signal.SIGCONT)
+        except OSError:
+            pass
+
+    def resume_others(victim_pid):
+        while not done.wait(0.001):
+            for r in list(fleet.replicas):
+                if r.proc is not None and r.proc.pid != victim_pid:
+                    cont(r.proc.pid)
+
+    resumer = None
     try:
         fleet.wait_ready(2, timeout=180)
         results = [None] * n_streams
         streamed = [[] for _ in range(n_streams)]
-        killed = threading.Event()
+        seen = [threading.Event() for _ in range(gen + 1)]
 
         def client(i):
             with ServingClient(f"127.0.0.1:{fleet.port}",
@@ -387,25 +419,43 @@ def _sigkill_chaos(lm_dir, tmp_path, replica_args=(), prompt_fn=None):
                         results[i] = obj
                         continue
                     streamed[i].append(obj["token"])
-                    if i == 0 and len(streamed[0]) == 2:
-                        victim = max(fleet.replicas,
-                                     key=lambda r: r.inflight)
-                        if victim.proc is not None:
-                            os.kill(victim.proc.pid, signal.SIGKILL)
-                        killed.set()
+                    if i == 0:
+                        seen[len(streamed[0])].set()
 
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(n_streams)]
-        for t in threads:
+        threads[0].start()
+        deadline = time.monotonic() + 60
+        victim = None
+        while victim is None and time.monotonic() < deadline:
+            victim = next((r for r in fleet.replicas if r.relaying), None)
+            time.sleep(0.001)
+        assert victim is not None, "stream 0 was never relayed"
+        victim_pid = victim.proc.pid
+        resumer = threading.Thread(target=resume_others, args=(victim_pid,),
+                                   daemon=True)
+        resumer.start()
+        for t in threads[1:]:
             t.start()
+        while not seen[2].is_set() and time.monotonic() < deadline:
+            have = len(streamed[0])
+            cont(victim_pid)
+            seen[have + 1].wait(0.05)
+        assert seen[2].is_set(), "stream 0 never relayed two tokens"
+        os.kill(victim_pid, signal.SIGKILL)
         for t in threads:
             t.join(timeout=300)
-        assert killed.is_set()
         for i in range(n_streams):
             assert results[i] is not None, f"stream {i} never finished"
             assert streamed[i] == results[i]["tokens"] == want[i], i
         assert int(fleet._m_retries.value) >= 1
     finally:
+        done.set()
+        if resumer is not None:
+            resumer.join(timeout=10)
+        for r in list(fleet.replicas):
+            if r.proc is not None:
+                cont(r.proc.pid)
         fleet.stop()
 
 

@@ -381,11 +381,12 @@ def test_wire_admin_load_unload_reload(tmp_path):
             with pytest.raises(jserving.ServingError) as ei:
                 c.load_model("a", da)
             assert ei.value.code == "bad_request"
-            # sharded serving is refused, naming its ROADMAP item
+            # sharded serving needs the mesh's world: a two-rank mesh
+            # in a one-process server is refused, naming the world
             with pytest.raises(jserving.ServingError) as ei:
                 c.load_model("c", db, mesh={"dp": 2})
             assert ei.value.code == "bad_request"
-            assert "ROADMAP" in ei.value.message
+            assert "process group" in ei.value.message
     finally:
         server.stop()
         reg.close()
@@ -425,9 +426,11 @@ def test_registry_load_precision_and_refusals(tmp_path, lm_dir):
                                                          np.float32)})[0]
         got = reg.infer("m8", {"x": np.ones((2, 4), np.float32)})[0]
         np.testing.assert_allclose(got, want, atol=1e-6)
-        for kw in ({"mesh": {"dp": 2}}, {"compile_cache": str(tmp_path)}):
-            with pytest.raises(ValueError, match="ROADMAP"):
-                reg.load("x", d, **kw)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            reg.load("x", d, compile_cache=str(tmp_path))
+        # a mesh of two ranks needs a two-rank world (ShardedPredictor)
+        with pytest.raises(ValueError, match="process group"):
+            reg.load("x", d, mesh={"dp": 2})
         # no delta chain in the model dir: nothing to apply
         assert reg.apply_deltas("m8") == {"applied": False, "stale": False,
                                           "seq": None, "step": None,

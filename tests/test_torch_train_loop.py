@@ -411,10 +411,39 @@ def test_reader_op_feed_is_refused():
     ({"tiered": {"w": 4}}, "queue A item 4"),
 ])
 def test_unported_arguments_raise_with_their_label(kw, label):
+    """The sharded embeddings' arguments (``lookup_exchange``,
+    ``a2a_capacity``, ``tiered``) raise with their label.  The mesh's
+    (``mesh``, ``param_spec``, ``data_axis``, ``numerics``) are ported
+    (queue A item 4a): in a one-process world a two-rank mesh, or a rule
+    with no mesh, is refused by the mesh itself, and ``data_axis`` or
+    ``numerics`` with no mesh run the single-device loop, as in the JAX
+    package."""
     loss, feeds = _build_model()
     exe = _fresh_exe()
+    if "mesh" in kw or "param_spec" in kw:
+        with pytest.raises(ValueError, match="process group|no mesh") as ei:
+            exe.train_loop(feed=feeds, fetch_list=[loss], **kw)
+        assert label not in str(ei.value)
+        return
+    if "data_axis" in kw or "numerics" in kw:
+        snap = _snapshot(fluid.global_scope())
+        ref = exe.train_loop(feed=feeds, fetch_list=[loss])
+        ref_params = _snapshot(fluid.global_scope())
+        _restore(fluid.global_scope(), snap)
+        got = _fresh_exe_like(exe).train_loop(feed=feeds,
+                                              fetch_list=[loss], **kw)
+        assert [h.get()[0].tobytes() for h in got] == \
+            [h.get()[0].tobytes() for h in ref]
+        _assert_same(ref_params, _snapshot(fluid.global_scope()))
+        return
     with pytest.raises(NotImplementedError, match=label):
         exe.train_loop(feed=feeds, fetch_list=[loss], **kw)
+
+
+def _fresh_exe_like(exe):
+    """A second executor on the same place (no partitioner, a fresh
+    generator seeded alike)."""
+    return fluid.Executor(exe.place)
 
 
 def test_device_prefetch_stacked_feeds_fused_loop():
