@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-32
+    python3 chip_smoke.py             # the smoke run, phases 1-33
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -31,6 +31,8 @@
     python3 chip_smoke.py --fleet     # phases 1, 30 and 31, the serving
                                       # fleet and its control plane
     python3 chip_smoke.py --mesh      # phases 1 and 32, the mesh
+    python3 chip_smoke.py --sharded-embedding  # phases 1 and 33, the
+                                      # row-sharded recommender
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -362,6 +364,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    rank and step; (c) ShardedPredictor dp=2 on TRAIN_CONFIG's logits
    program within 1e-5 of Predictor; the parts' seconds and the
    collectives' counts and bytes;
+33. row-sharded embedding tables (`paddle_tpu_torch.parallel.embedding`)
+   on the recommender of bench.py at full width (V 100000, D 64, T 64,
+   batch 64, Zipf(1.1) ids, Adam 1e-3): (a) a one-rank NCCL world,
+   train_loop(mesh={"ep": 1}) on the is_distributed program bitwise the
+   plain sparse run, no collective; (b) two spawned gloo ranks over
+   CUDA tensors, ep=2 exact with the psum lookup and then the id
+   exchange at the capacity planned from the feeds, each 4 steps after
+   a warm-up one, losses and every persistable (table, both Adam
+   moments) bitwise the single-process card run; each rank's resident
+   table and moments half the whole; (c) ep=2 fast, psum and exchange,
+   losses within 1e-5 relative of it; (d) one process: the tiered
+   table of bench.py:941 (V 50000, D 32, batch 32, T 16, a pool of 1562
+   rows, 8 steps in windows of 4) bitwise the untiered run; (e)
+   ShardedPredictor {"ep": 2} on the two ranks, exact and fast, with and
+   without a REC_CACHE_ROWS hot-row cache, bitwise the Predictor's reply;
+   seconds a step, the collectives' calls and bytes a step, the planned
+   capacity, the resident bytes, the tiered hit rate and pool bytes.  No
+   port kernel launches on this path, and two ranks on one card show
+   placement and parity, not scaling;
 then a JSON line with every ported kernel's launches (with
 launches_sparse_training, launches_remat_training,
 launches_remat_plain_training, launches_observe_training,
@@ -387,7 +408,7 @@ and its times (kernel, plain, cuDNN) summed over the step's 35 launches,
 and phase 24; with --sparse phase 1 and phase 26; with --remat phase 1
 and phase 27; with --observe phase 1 and phases 28 and 29; with
 --fleet phase 1 and phases 30 and 31; with --mesh phase 1 and phase
-32.
+32; with --sharded-embedding phase 1 and phase 33.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
@@ -6537,10 +6558,12 @@ SIZE_WARMUP, SIZE_STEPS = 2, 5
 SIZE_PEAK_SHARE = 0.25
 
 
-def _rec_program(is_sparse, make_opt, V, D, hidden=128, seed=0):
+def _rec_program(is_sparse, make_opt, V, D, hidden=128, seed=0,
+                 is_distributed=False):
     """The recommender in fresh programs: -> (main, startup, loss, table
     name).  ``make_opt(fluid)`` gives the optimizer; ``hidden`` 0 drops
-    the fc 128 (sparse_embedding.py's model)."""
+    the fc 128 (sparse_embedding.py's model); ``is_distributed`` marks
+    the table row-sharded (phase 33)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import layers
     main, startup = fluid.Program(), fluid.Program()
@@ -6548,7 +6571,8 @@ def _rec_program(is_sparse, make_opt, V, D, hidden=128, seed=0):
         words = layers.data(name="words", shape=[1], dtype="int64",
                             lod_level=1)
         emb = layers.embedding(input=words, size=[V, D],
-                               is_sparse=is_sparse)
+                               is_sparse=is_sparse,
+                               is_distributed=is_distributed)
         h = layers.sequence_pool(emb, pool_type="sum")
         if hidden:
             h = layers.fc(input=h, size=hidden, act="relu")
@@ -8806,6 +8830,324 @@ def mesh_ab(smi):
     return {"mesh": dict(e2e, launches=launches)}
 
 
+# ---------------------------------------------------------------------------
+# phase 33: row-sharded embedding tables on the recommender
+# ---------------------------------------------------------------------------
+
+#: timed steps a case after one warm-up step (the feeds cycle over them)
+SE_STEPS = 4
+SE_RANK_TIMEOUT = 300.0
+#: fast numerics against the single-process run: each loss's relative
+#: error
+SE_FAST_RTOL = 1e-5
+#: bench.py:941 / benchmark/fluid/sparse_embedding.py:310-335's tiered
+#: table: vocab 50000, D 32, batch 32, T 16, a pool of vocab // 32 rows,
+#: 8 steps in windows of 4, two Zipf(1.1) feeds of seed 5
+TIERED = dict(V=50_000, D=32, batch=32, T=16, cap_rows=50_000 // 32,
+              steps=8, k=4, seed=5)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _se_program(is_distributed, seed=0):
+    return _rec_program(True, lambda fl: fl.optimizer.Adam(
+        learning_rate=1e-3), REC_V, REC_D, seed=seed,
+        is_distributed=is_distributed)
+
+
+def _se_feeds(seed=0):
+    """SE_STEPS batches of bench.py's feed: Zipf(1.1) ids clipped to V,
+    full lengths."""
+    return _rec_feeds(SE_STEPS, REC_BATCH, REC_T, REC_V, seed, ragged=False)
+
+
+def _se_train(case, main, loss, table, state, feeds, **kw):
+    """One warm-up step, then SE_STEPS steps of ``main`` through
+    train_loop on the card from ``state``, with the collective and kernel
+    counts zeroed just before the timed steps and read just after ->
+    the case's record."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.parallel import collectives
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.core.scope.Scope()
+    pio.scope_from_numpy(scope, main, state, exe.device)
+    with fluid.scope_guard(scope):
+        exe.train_loop(main, feeds, fetch_list=[loss], steps=1, **kw)
+        torch.cuda.synchronize()
+        collectives.reset_counts()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        hs = exe.train_loop(main, feeds, fetch_list=[loss],
+                            steps=SE_STEPS, **kw)
+        losses = [float(h.get()[0]) for h in hs]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        led = collectives.ledger()
+        launches = sum(k.launches for k in K.KERNELS)
+        resident = sum(t.numel() * t.element_size()
+                       for n, t in scope._vars.items()
+                       if n.startswith(table) and t.dim() == 2)
+        whole = 3 * REC_V * REC_D * 4
+        rec = {"case": case, "losses": losses, "seconds": sec,
+               "step_s": sec / SE_STEPS, "port_kernel_launches": launches,
+               "collectives_per_step": None if led is None else {
+                   k: {"calls": v["count"] / SE_STEPS,
+                       "bytes": v["bytes"] / SE_STEPS}
+                   for k, v in led["kinds"].items()},
+               "resident_table_and_moments_bytes": resident,
+               "whole_table_and_moments_bytes": whole,
+               "digest": _state_digest(scope, main)}
+    print(f"  {case}: {SE_STEPS} steps after a warm-up one, "
+          f"{rec['step_s'] * 1e3:.2f} ms a step, losses {losses}",
+          flush=True)
+    return rec
+
+
+def _se_rank(rank, init, out_dir, state_path, model_dir):
+    """One of phase 33's two gloo ranks over CUDA tensors: (b) ep=2
+    exact, psum and exchange, (c) ep=2 fast, (e) the sharded predictor;
+    writes its records as JSON."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.parallel import collectives, init_distributed
+    from paddle_tpu_torch.parallel.embedding import plan_a2a_capacity
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_distributed(init, 2, rank, backend="gloo")
+    with np.load(state_path) as z:
+        state = {n: z[n] for n in z.files}
+    main, _, loss, table = _se_program(True)
+    feeds = _se_feeds()
+    cap = plan_a2a_capacity([f["words"].reshape(-1) for f in feeds], 2,
+                            vocab=REC_V)
+    mesh = {"ep": 2}
+    recs = [_se_train("ep=2 exact psum", main, loss, table, state, feeds,
+                      mesh=mesh, numerics="exact"),
+            _se_train(f"ep=2 exact a2a capacity {cap}", main, loss, table,
+                      state, feeds, mesh=mesh, numerics="exact",
+                      lookup_exchange="a2a", a2a_capacity=cap),
+            _se_train("ep=2 fast psum", main, loss, table, state, feeds,
+                      mesh=mesh, numerics="fast"),
+            _se_train(f"ep=2 fast a2a capacity {cap}", main, loss, table,
+                      state, feeds, mesh=mesh, numerics="fast",
+                      lookup_exchange="a2a", a2a_capacity=cap)]
+    # (e) the saved recommender served on {"ep": 2}
+    rng = np.random.RandomState(33)
+    feed = {"words": (np.minimum(rng.zipf(REC_ZIPF, (REC_BATCH, REC_T)),
+                                 REC_V) - 1).astype(np.int64),
+            "words@SEQ_LEN": np.full((REC_BATCH,), REC_T, np.int32)}
+    want = serving.Predictor.from_model_dir(model_dir).run(dict(feed))[0]
+    predict = {}
+    for cache in (0, REC_CACHE_ROWS):
+        for numerics in ("exact", "fast"):
+            pred = serving.ShardedPredictor.from_model_dir(
+                model_dir, mesh={"ep": 2}, numerics=numerics,
+                embedding_cache_rows=cache)
+            collectives.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = pred.run(dict(feed))[0]
+            torch.cuda.synchronize()
+            predict[f"{numerics} cache {cache}"] = {
+                "seconds": time.perf_counter() - t0,
+                "bitwise": got.tobytes() == want.tobytes(),
+                "max_abs_err": float(np.abs(got - want).max()),
+                "sharded_params": pred.sharding_info()["sharded_params"],
+                "collectives": collectives.ledger()}
+            del pred
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump({"train": recs, "capacity": cap, "predict": predict}, fh)
+    dist.destroy_process_group()
+
+
+def _tiered_leg(smi):
+    """(d): the tiered table against the untiered run, one process."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    cfg = TIERED
+    main, startup, loss, table = _rec_program(
+        True, lambda fl: fl.optimizer.Adam(learning_rate=1e-3), cfg["V"],
+        cfg["D"], hidden=0)
+    state = _startup_state(startup, fluid.CPUPlace())
+    rng = np.random.RandomState(cfg["seed"])
+    ids = np.minimum(rng.zipf(1.1, (2, cfg["batch"], cfg["T"])),
+                     cfg["V"]) - 1
+    feeds = [{"words": ids[i].astype(np.int64),
+              "words@SEQ_LEN": np.full((cfg["batch"],), cfg["T"], np.int32),
+              "label": rng.randint(0, 2, (cfg["batch"], 1)).astype(np.int64)}
+             for i in range(2)]
+    out = {}
+    for leg, tiered in (("untiered", None),
+                        ("tiered", {table: cfg["cap_rows"]})):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.core.scope.Scope()
+        pio.scope_from_numpy(scope, main, state, exe.device)
+        with fluid.scope_guard(scope):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hs = exe.train_loop(main, feeds, fetch_list=[loss],
+                                steps=cfg["steps"], fetch_every=cfg["steps"],
+                                steps_per_launch=cfg["k"], tiered=tiered)
+            losses = [float(h.get()[0]) for h in hs]
+            torch.cuda.synchronize()
+            rec = {"losses": losses,
+                   "step_ms": (time.perf_counter() - t0) / cfg["steps"] * 1e3,
+                   "digest": _state_digest(scope, main)}
+        if tiered:
+            st = exe.last_tiered.stats()
+            rec.update(stats=st, pool_device_bytes=3 * cfg["cap_rows"]
+                       * cfg["D"] * 4,
+                       table_and_moments_bytes=3 * cfg["V"] * cfg["D"] * 4)
+        out[leg] = rec
+    if (out["tiered"]["losses"] != out["untiered"]["losses"]
+            or out["tiered"]["digest"] != out["untiered"]["digest"]):
+        raise AssertionError("phase 33 (d): the tiered run is not bitwise "
+                             "the untiered one")
+    st = out["tiered"]["stats"]
+    t = out["tiered"]
+    print(f"  (d) tiered ({smi}): hit rate {st['tiered_hit_rate']}, "
+          f"{st['evictions']} evictions, pool {t['pool_device_bytes']} B on "
+          f"the card against {t['table_and_moments_bytes']} B whole, "
+          "bitwise the untiered run", flush=True)
+    return out
+
+
+def sharded_embedding_phase(smi, seed=0):
+    """Phase 33 (the module docstring's 33) -> its end-to-end numbers."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel import init_distributed
+    t_phase = time.perf_counter()
+    print(f"phase 33: row-sharded embedding tables, the recommender at "
+          f"V {REC_V} D {REC_D} T {REC_T} batch {REC_BATCH}: a one-rank "
+          f"NCCL world, two gloo ranks time-slicing the card ({smi}); "
+          "placement and parity, not scaling", flush=True)
+    import paddle_tpu_torch as fluid
+    plain_main, startup, plain_loss, table = _se_program(False, seed)
+    dist_main, _, dist_loss, _ = _se_program(True, seed)
+    state = _startup_state(startup, fluid.CPUPlace())
+    feeds = _se_feeds(seed)
+    # (a) ep=1 on NCCL
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+    plain = _se_train("plain sparse", plain_main, plain_loss, table, state,
+                      feeds)
+    one = _se_train("ep=1 NCCL", dist_main, dist_loss, table, state, feeds,
+                    mesh={"ep": 1})
+    dist.destroy_process_group()
+    if one["losses"] != plain["losses"] or one["digest"] != plain["digest"]:
+        raise AssertionError("phase 33 (a): train_loop(mesh={'ep': 1}) is "
+                             "not bitwise the plain sparse run")
+    if one["collectives_per_step"] is not None:
+        raise AssertionError(f"phase 33 (a): collectives ran: "
+                             f"{one['collectives_per_step']}")
+    part_a = time.perf_counter() - t0
+    # (d) tiered, one process
+    t0 = time.perf_counter()
+    tiered = _tiered_leg(smi)
+    part_d = time.perf_counter() - t0
+    # (b), (c), (e) on two gloo ranks
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "build", "sharded_embedding")
+    out_dir = os.path.join(root, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    for fname in os.listdir(out_dir):
+        os.unlink(os.path.join(out_dir, fname))
+    state_path = os.path.join(root, "start_state.npz")
+    np.savez(state_path, **state)
+    model_dir = os.path.join(root, "model")
+    _save_recommender(model_dir, seed)
+    init = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sharded-rank", str(r), init, out_dir,
+                               state_path, model_dir]) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=SE_RANK_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"phase 33 ranks exited "
+                             f"{[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    part_bce = time.perf_counter() - t0
+    cases = {}
+    for r, res in enumerate(ranks):
+        for rec in res["train"]:
+            case = rec["case"]
+            if rec["port_kernel_launches"]:
+                raise AssertionError(f"phase 33 rank {r} {case}: a port "
+                                     "kernel launched")
+            if "exact" in case:
+                if rec["losses"] != plain["losses"] \
+                        or rec["digest"] != plain["digest"]:
+                    raise AssertionError(
+                        f"phase 33 rank {r} {case} is not bitwise the "
+                        f"single-process card run: {rec['losses']} "
+                        f"against {plain['losses']}")
+            else:
+                for got, want in zip(rec["losses"], plain["losses"]):
+                    if abs(got - want) > SE_FAST_RTOL * abs(want):
+                        raise AssertionError(
+                            f"phase 33 rank {r} {case}: loss {got} against "
+                            f"the single-process {want}")
+            if rec["resident_table_and_moments_bytes"] * 2 != \
+                    rec["whole_table_and_moments_bytes"]:
+                raise AssertionError(
+                    f"phase 33 rank {r} {case}: resident table and moments "
+                    f"{rec['resident_table_and_moments_bytes']} B, want "
+                    "half the whole")
+            cases.setdefault(case, []).append(
+                {k: rec[k] for k in ("step_s", "seconds",
+                                     "collectives_per_step",
+                                     "resident_table_and_moments_bytes",
+                                     "losses")})
+        for key, pr in res["predict"].items():
+            if not pr["bitwise"]:
+                raise AssertionError(
+                    f"phase 33 rank {r} ShardedPredictor {key}: not bitwise "
+                    f"the Predictor's reply (max abs error "
+                    f"{pr['max_abs_err']})")
+    n_ids = REC_BATCH * REC_T
+    cap = ranks[0]["capacity"]
+    e2e = {"card": smi, "part_a_s": part_a, "part_d_s": part_d,
+           "part_bce_s": part_bce, "plain_step_s": plain["step_s"],
+           "ep1_step_s": one["step_s"], "plain_losses": plain["losses"],
+           "planned_capacity": cap,
+           "psum_lookup_bytes_per_step": n_ids * REC_D * 4,
+           "a2a_bytes_each_way": 2 * cap * (4 + REC_D * 4),
+           "a2a_route": "all_to_all_single (gloo, CUDA tensors)",
+           "cases": cases, "tiered": tiered,
+           "predict": [res["predict"] for res in ranks],
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  end to end ({smi}): {json.dumps(e2e)}", flush=True)
+    torch.cuda.empty_cache()
+    return e2e
+
+
+def sharded_embedding_ab(smi):
+    return {"sharded_embedding": sharded_embedding_phase(smi)}
+
+
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
@@ -8813,7 +9155,8 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--seq2seq": seq2seq_ab, "--xent": xent_ab,
             "--genprog": genprog_ab, "--ssd": ssd_ab, "--sparse": sparse_ab,
             "--remat": remat_ab, "--observe": observe_ab,
-            "--fleet": fleet_ab, "--mesh": mesh_ab}
+            "--fleet": fleet_ab, "--mesh": mesh_ab,
+            "--sharded-embedding": sharded_embedding_ab}
 
 
 def main(argv=()):
@@ -8833,6 +9176,10 @@ def main(argv=()):
     if argv and argv[0] == "--mesh-rank":
         # one of phase 32's ranks (started by mesh_phase)
         _mesh_rank(int(argv[1]), argv[2], argv[3], argv[4])
+        return 0
+    if argv and argv[0] == "--sharded-rank":
+        # one of phase 33's ranks (started by sharded_embedding_phase)
+        _se_rank(int(argv[1]), argv[2], argv[3], argv[4], argv[5])
         return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8967,6 +9314,7 @@ def main(argv=()):
     obs_serve_launches, _ = observe_serving(smi)
     fleet_launches, _ = fleet_phases(smi)
     mesh_launches, _ = mesh_phase(smi)
+    sharded_embedding_phase(smi)
 
     kernels = []
     for k in K.KERNELS:

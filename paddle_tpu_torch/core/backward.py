@@ -30,8 +30,14 @@ each segment's saved tensors as it reaches it.
 
 Meshes.  Under a fast-numerics mesh the gradients of the one
 ``torch.autograd.grad`` are reduced over the data axis, as the loss's
-placement asks, before the optimizer ops run, and a parameter the step gathered gets its shard's
-gradient back (`parallel.partitioner.StepSharding.reduce_gradients`).
+placement asks, before the optimizer ops run, and a parameter the step
+gathered gets its shard's gradient back
+(`parallel.partitioner.StepSharding.reduce_gradients`).  A SelectedRows
+table's pairs (a row-sharded table, or one replicated on a
+data-parallel mesh) are gathered over the data axis in rank order
+(`StepSharding.reduce_sparse`), so that every rank merges the same
+pairs.  Under exact numerics the pairs are already the whole batch's on
+every rank.
 
 `calc_gradient` appends the same op for any targets and inputs (the
 JAX function's program), so a program may hold several; the interpreter
@@ -176,20 +182,19 @@ def _backward_rule(ctx: ExecContext):
             retain_graph=ctx.op is not ctx.interpreter.last_backward)
         got = {id(t): g for t, g in zip(wrt, grads)}
     step = ctx.interpreter.partitioner
+    loss_name = ctx.op.desc.inputs["Loss"][0]
     if step is not None:
-        if sites:
-            raise NotImplementedError(
-                "SelectedRows gradients on a mesh come with the sharded "
-                "embeddings (ROADMAP queue A item 4); build the table "
-                "with is_sparse=False")
         # the mesh's gradients: reduced over the data axis, a gathered
         # param's cut back to its shard (parallel.partitioner)
+        dense_names = [p for p in names if p not in sites]
         dense = {p: (torch.zeros_like(val) if got.get(id(val)) is None
-                     else got[id(val)]) for p, val in zip(names, params)}
-        step.reduce_gradients(ctx.block, ctx.op.desc.inputs["Loss"][0],
-                              ctx.env, names, dense)
+                     else got[id(val)]) for p, val in zip(names, params)
+                 if p not in sites}
+        step.reduce_gradients(ctx.block, loss_name, ctx.env, dense_names,
+                              dense)
         params = [ctx.env[p] for p in names]
-        got = {id(val): dense[p] for p, val in zip(names, params)}
+        got.update({id(val): dense[p] for p, val in zip(names, params)
+                    if p not in sites})
     for gname, p, val in zip(ctx.output_names("Grads"), names, params):
         if p in sites:
             continue
@@ -210,6 +215,10 @@ def _backward_rule(ctx: ExecContext):
                 torch.zeros((ids.numel(), d), dtype=val.dtype,
                             device=val.device) if g is None
                 else g.detach().reshape(-1, d).to(val.dtype))
-        ctx.env[gname + ROWS_SUFFIX] = torch.cat(rows)
-        ctx.env[gname + VALUES_SUFFIX] = torch.cat(values)
+        rows, values = torch.cat(rows), torch.cat(values)
+        if step is not None:
+            rows, values = step.reduce_sparse(ctx.block, loss_name, p,
+                                              rows, values)
+        ctx.env[gname + ROWS_SUFFIX] = rows
+        ctx.env[gname + VALUES_SUFFIX] = values
     ctx.set_output("LossGrad", loss_grad)

@@ -62,11 +62,20 @@ plain path.  Checkpoints under a mesh are written shard-wise: each rank
 writes the shards it is the first holder of, rank 0 the manifest (the
 JAX package's format, with each var's spec).
 
-Refused: ``train_loop``'s ``lookup_exchange``, ``a2a_capacity`` and
-``tiered`` (the sharded embeddings; ROADMAP queue A item 4); and, in
-``run`` and ``train_loop``, a program with an
-``embedding(is_distributed=True)`` table, whose row-sharded lookup is not
-ported either.
+Row-sharded embedding tables (`parallel.embedding`).  A program with
+``embedding(is_distributed=True)`` tables needs a mesh (`_bind_distributed`,
+the JAX contract): with none bound ``run`` and ``train_loop`` raise (the
+table would train replicated and lie about capacity), a mesh with no
+axis that row-shards the table raises, and a one-rank mesh runs the
+dense path.  On a mesh the tables and their row-shaped accumulators stay
+``[V/n, D]`` a rank in both numerics (`embedding.RowTables`);
+``train_loop(lookup_exchange="a2a", a2a_capacity=C)`` exchanges ids over
+an all-to-all instead of the psum lookup.  Checkpoints write them
+shard-wise and restore them on any ep size.
+
+``train_loop(tiered={table: C})`` trains an ``is_sparse`` table out of
+host RAM through a ``[C, D]`` device pool (`parallel.tiered.TieredTables`,
+read back as ``last_tiered``); checkpoints hold the whole table.
 """
 from __future__ import annotations
 
@@ -125,9 +134,6 @@ _TRAIN_FLIGHT_FIELDS = ("ts", "step", "host_gap_s", "dispatch_s",
 #: per-step codes of the window sync: a genuine NaN/Inf, a clean step, a
 #: step the loss scaler skipped
 _STEP_BAD, _STEP_OK, _STEP_SKIP = 0, 1, 2
-
-_SHARDED = "queue A item 4"
-
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """A fetched tensor as a numpy snapshot (a bf16 tensor as f32, every
@@ -242,36 +248,6 @@ def _reader_op_feed(reader):
     return gen
 
 
-def _refuse_distributed(program: Program):
-    """An ``is_distributed`` table is row-sharded over a mesh in the JAX
-    package, which refuses to run it with no mesh bound; the port does
-    not shard tables yet, so it always refuses (it would train the table
-    replicated).
-    The tables are the ``W`` of every ``lookup_table(is_distributed=True)``
-    of the main block (the JAX ``parallel.embedding.distributed_tables``);
-    the scan runs again only when the block's op count changes."""
-    ops = program.global_block().ops
-    if getattr(program, "_undistributed_at", None) == len(ops):
-        return
-    tables = sorted({name for op in ops if op.type == "lookup_table"
-                     and op.desc.attrs.get("is_distributed")
-                     for name in op.desc.inputs.get("W", [])})
-    if tables:
-        raise ValueError(
-            "layers.embedding(is_distributed=True): program has "
-            f"distributed table(s) {tables} but no mesh is bound "
-            "- the table would train replicated and lie about capacity.  "
-            f"Row-sharded tables are not ported (ROADMAP {_SHARDED}); "
-            "single-device training wants is_sparse=True without "
-            "is_distributed.")
-    program._undistributed_at = len(ops)
-
-
-def _refuse(what: str, label: str):
-    raise NotImplementedError(f"train_loop({what}) is not ported "
-                              f"(ROADMAP {label})")
-
-
 class Executor:
     def __init__(self, place=None):
         self.place = place if place is not None else CUDAPlace(0)
@@ -291,6 +267,10 @@ class Executor:
         self._program_fps: Dict[Any, str] = {}
         #: the bound `parallel.Partitioner` (None: the single-device path)
         self._partitioner = None
+        #: the last train_loop's `parallel.tiered.TieredTables` (None
+        #: without ``tiered``), and the one of a loop in progress
+        self.last_tiered = None
+        self._tiered = None
 
     def set_partitioner(self, partitioner):
         """Bind (or clear, with None) the placement rules of every later
@@ -312,6 +292,47 @@ class Executor:
         plain path)."""
         p = self._partitioner
         return p if (p is not None and p.use_sharding) else None
+
+    def _bind_distributed(self, program: Program):
+        """Bind the program's distributed-table placements to the bound
+        partitioner when it lacks them, and refuse an ``is_distributed``
+        table that would train replicated: with no mesh bound, or on a
+        mesh with no axis that row-shards it.  A one-rank mesh runs the
+        dense path (the JAX executor's ``_bind_distributed``).  The
+        program's tables are scanned again only when its op count
+        changes."""
+        from ..parallel import embedding as _emb
+        n_ops = len(program.global_block().ops)
+        cached = getattr(program, "_dist_tables", None)
+        if cached is None or cached[0] != n_ops:
+            cached = program._dist_tables = (
+                n_ops, _emb.distributed_tables(program))
+        tables = cached[1]
+        if not tables:
+            return
+        part = self._partitioner
+        if part is None:
+            raise ValueError(
+                "layers.embedding(is_distributed=True): program has "
+                f"distributed table(s) {sorted(tables)} but no mesh is "
+                "bound - the table would train replicated and lie about "
+                "capacity.  Pass mesh={'ep': N} to train_loop, call "
+                "set_partitioner, or set a process mesh via "
+                "parallel.set_mesh; single-device training wants "
+                "is_sparse=True without is_distributed.")
+        if not part.use_sharding:
+            return
+        if any(name not in part.table_specs for name in tables):
+            _emb.bind_program_tables(part, program)
+        for name, shape in tables.items():
+            if _emb.table_row_axis(part, name, shape) is None:
+                raise ValueError(
+                    f"distributed table {name!r} (shape {shape}) does not "
+                    f"row-shard on mesh {part.mesh_shape()}: add an "
+                    f"{_emb.EMBED_AXIS!r} axis whose size divides the row "
+                    f"count {shape[0]}, or a param_spec rule that "
+                    "row-shards it - training it replicated would lie "
+                    "about capacity.")
 
     def _rng(self, program: Program) -> torch.Generator:
         """One generator per executor on its device, seeded from the
@@ -343,7 +364,7 @@ class Executor:
             lowering.run_startup(program, scope, self.device,
                                  self._rng(program))
             return []
-        _refuse_distributed(program)
+        self._bind_distributed(program)
         fi_name = self._found_inf_name(program)
         names = fetch_names + [fi_name] if fi_name else fetch_names
         t0 = time.perf_counter()
@@ -392,18 +413,26 @@ class Executor:
             if key in self._reported:
                 key = None
         since = _coll.counts() if key is not None else None
-        step = None
+        step = tables = None
         feed_specs = {}
         if part is not None:
             feed_specs = {n: str(part.feed_spec(tuple(v.shape)))
                           for n, v in feed.items()}
+            rows = self._row_state(program, part, specs)
             if part.numerics == "exact":
                 feed = self._exact_feed(part, feed)
                 for name, spec in specs.items():
-                    env[name] = part.gather(env[name], spec)
+                    if name not in rows:
+                        env[name] = part.gather(env[name], spec)
             else:
                 step = part.step(program, specs)
                 feed = step.slice_feed(feed)
+            if rows:
+                from ..parallel.embedding import RowTables
+                tables = RowTables(part, rows, step)
+                if step is not None:
+                    step.tables = tables
+            if step is not None:
                 step.prepare(env)
         state_vals = None
         if key is not None:
@@ -414,7 +443,8 @@ class Executor:
         env.update(feed)
         interp = lowering.Interpreter(program, self.device,
                                       self._rng(program), fetch_names,
-                                      self.check_nan_inf, partitioner=step)
+                                      self.check_nan_inf, partitioner=step,
+                                      tables=tables)
         with profiler.record_block("executor.run"):
             if key is None:
                 interp.run_block(block, env)
@@ -439,6 +469,20 @@ class Executor:
             self._report(program, env, interp, key, peak[0], state_vals,
                          fetches, specs, feed, feed_specs, since)
         return fetches
+
+    @staticmethod
+    def _row_state(program, part, specs) -> Dict[str, str]:
+        """The step's row-sharded tables and accumulators (`embedding.
+        row_sharded_state`), cached on the program by its op count and
+        the specs."""
+        key = (len(program.global_block().ops), id(part),
+               tuple(sorted((n, tuple(s)) for n, s in specs.items())))
+        cache = getattr(program, "_row_state_cache", None)
+        if cache is None or cache[0] != key:
+            from ..parallel.embedding import row_sharded_state
+            cache = program._row_state_cache = (
+                key, row_sharded_state(program, part, specs))
+        return cache[1]
 
     @staticmethod
     def _exact_feed(part, feed):
@@ -685,16 +729,19 @@ class Executor:
         under ``steps_per_launch``), under ``xprof_dir`` (default:
         ``xprof/`` in the checkpoint dir, else a pid-scoped temporary
         directory); ``last_xprof.summary()`` reads them back.
+
+        ``mesh``, ``param_spec``, ``data_axis`` and ``numerics`` bind a
+        `parallel.Partitioner` (module docstring); ``lookup_exchange``
+        ("psum" or "a2a") and ``a2a_capacity`` are its row-sharded
+        tables' lookup policy.  ``tiered={table: C}`` trains each named
+        ``is_sparse`` table through a ``[C, D]`` device pool
+        (`parallel.tiered`; ``last_tiered.stats()``).
         """
         program = program or default_main_program()
         scope = scope or global_scope()
-        for what, given in (("lookup_exchange", lookup_exchange is not None),
-                            ("a2a_capacity", a2a_capacity is not None),
-                            ("tiered", bool(tiered))):
-            if given:
-                _refuse(what, _SHARDED)
-        self._bind_mesh(mesh, param_spec, data_axis, numerics)
-        _refuse_distributed(program)
+        self._bind_mesh(program, mesh, param_spec, data_axis, numerics,
+                        lookup_exchange, a2a_capacity)
+        self._bind_distributed(program)
         if feed is None:
             if program._bound_reader is None:
                 raise ValueError("train_loop(feed=None) reads the program's "
@@ -724,6 +771,14 @@ class Executor:
                 manager = None
         if steps is not None and start_step >= steps:
             return []
+        tiered_mgr = None
+        if tiered:
+            # after the resume, so that a restored table seeds the store
+            from ..parallel.tiered import TieredTables
+            tiered_mgr = TieredTables(program, scope, tiered,
+                                      partitioner=self._partitioner,
+                                      device=self.device)
+            self.last_tiered = self._tiered = tiered_mgr
 
         fr = self._ensure_flight(flight_path, checkpoint_dir or resume_from)
         from ..reader.decorator import StackedBatch
@@ -753,6 +808,11 @@ class Executor:
             if head is None:
                 return None
             if isinstance(head, StackedBatch):
+                if tiered_mgr is not None:
+                    raise ValueError(
+                        "tiered tables remap each batch's ids on the host: "
+                        "feed per-step batches (steps_per_launch=K stacks "
+                        "them) instead of pre-stacked ones")
                 if not fused:
                     raise ValueError(
                         "stacked batch (device_prefetch stack=K) arrived "
@@ -766,6 +826,10 @@ class Executor:
                 return staged, n
             if not fused:
                 consumed[0] += 1
+                if tiered_mgr is not None:
+                    # residency for this batch and its ids remapped to
+                    # pool slots, ordered after the step in flight
+                    head = tiered_mgr.step(head)
                 return self._stage(block, head), 1
             want = k if remaining is None else min(k, remaining)
             raws = [head]
@@ -778,6 +842,9 @@ class Executor:
                                      "one train_loop window")
                 raws.append(nxt)
             consumed[0] += len(raws)
+            if tiered_mgr is not None:
+                # the window's union of ids resident before its launch
+                raws = tiered_mgr.step_window(raws)
             return self._stage(block, _stack_feeds(raws)), len(raws)
 
         xprof = None
@@ -874,6 +941,11 @@ class Executor:
                 self._flight_abort(fr, i, e)
                 raise
         finally:
+            if tiered_mgr is not None:
+                # the resident rows fold back: the scope holds the whole
+                # tables again
+                tiered_mgr.finalize()
+                self._tiered = None
             if xprof is not None:
                 xprof.finish()
             if manager is not None:
@@ -882,34 +954,48 @@ class Executor:
             self._finish_timeline(own_profile, timeline_path)
         return handles
 
-    def _bind_mesh(self, mesh, param_spec, data_axis, numerics):
+    def _bind_mesh(self, program, mesh, param_spec, data_axis, numerics,
+                   lookup_exchange=None, a2a_capacity=None):
         """``train_loop``'s mesh arguments -> the bound partitioner (the
         JAX executor's rules: an explicit mesh or rule binds a new one;
         else the process mesh, when none is bound; else a changed
-        ``numerics`` rebinds the bound one)."""
+        ``numerics``, ``lookup_exchange`` or ``a2a_capacity`` rebinds the
+        bound one).  A new partitioner gets the program's table specs
+        before `set_partitioner` compares fingerprints, so that an equal
+        one built again keeps the binding.  An ep-only mesh has no
+        ``"dp"``: the data axis falls back to its first axis."""
         from ..parallel import mesh as _mesh_lib
+        from ..parallel.embedding import bind_program_tables
         from ..parallel.partitioner import Partitioner, resolve_mesh
+        rmesh = None
         if mesh is not None or param_spec is not None:
             rmesh = resolve_mesh(mesh)
+        elif self._partitioner is None:
+            rmesh = _mesh_lib.get_mesh()
+        if rmesh is not None:
             axis = (data_axis if data_axis in rmesh.shape
                     else tuple(rmesh.shape)[0])
-            self.set_partitioner(Partitioner(
-                mesh=rmesh, data_axis=axis, param_spec=param_spec,
-                numerics=numerics or "fast"))
-        elif self._partitioner is None:
-            pmesh = _mesh_lib.get_mesh()
-            if pmesh is not None:
-                axis = (data_axis if data_axis in pmesh.shape
-                        else tuple(pmesh.shape)[0])
-                self.set_partitioner(Partitioner(
-                    mesh=pmesh, data_axis=axis,
-                    numerics=numerics or "fast"))
-        elif numerics and numerics != self._partitioner.numerics:
-            old = self._partitioner
+            part = Partitioner(mesh=rmesh, data_axis=axis,
+                               param_spec=param_spec,
+                               numerics=numerics or "fast",
+                               lookup_exchange=lookup_exchange or "psum",
+                               a2a_capacity=a2a_capacity)
+            bind_program_tables(part, program)
+            self.set_partitioner(part)
+            return
+        old = self._partitioner
+        if old is None:
+            return
+        want = (numerics or old.numerics,
+                lookup_exchange or old.lookup_exchange,
+                a2a_capacity if a2a_capacity is not None
+                else old.a2a_capacity)
+        if want != (old.numerics, old.lookup_exchange, old.a2a_capacity):
             self.set_partitioner(Partitioner(
                 mesh=old.mesh, data_axis=old.data_axis,
-                param_spec=old.rule, numerics=numerics,
-                table_specs=old.table_specs))
+                param_spec=old.rule, numerics=want[0],
+                table_specs=old.table_specs, lookup_exchange=want[1],
+                a2a_capacity=want[2]))
 
     @staticmethod
     def _finish_timeline(own_profile, timeline_path):
@@ -1088,6 +1174,10 @@ class Executor:
                     placed = scope.sharding(v.name)
                     if placed is not None:
                         specs[v.name] = placed[1]
+        if self._tiered is not None:
+            # tiered tables in their whole [V, D] form: the host store
+            # with the resident rows written over it
+            state.update(self._tiered.export_full())
         state[RNG_STATE_VAR] = self._rng(program).get_state()
         manager.save(step, state, program=program, reader_position=step,
                      specs=specs, partitioner=self._partitioner)

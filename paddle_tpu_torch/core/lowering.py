@@ -58,7 +58,9 @@ the step's `parallel.partitioner.StepSharding` (``partitioner=``); the
 rules that shard read it (the column and row products, the gradient
 reduction of the ``backward`` rule, the loss scaler's flag, the ZeRO
 optimizer branch).  Exact numerics runs the plain interpreter on the
-gathered state.
+gathered state.  Row-sharded embedding tables stay shards in both
+numerics: the interpreter's ``tables`` (`parallel.embedding.RowTables`)
+routes their lookups and sparse updates.
 
 ``Interpreter.memo`` holds what the rules of one run share: the KV-cache
 write plan, computed once for every ``kv_cache_write`` of a generation
@@ -264,12 +266,17 @@ class Interpreter:
     def __init__(self, program: Program, device: torch.device,
                  generator: torch.Generator,
                  fetch_names: Iterable[str] = (),
-                 check_nan_inf: bool = False, partitioner=None):
+                 check_nan_inf: bool = False, partitioner=None,
+                 tables=None):
         self.program = program
         #: the step's `parallel.partitioner.StepSharding` under a fast
         #: mesh (None otherwise): the product, constraint, gradient,
         #: loss-scaler and ZeRO branches of the rules read it
         self.partitioner = partitioner
+        #: the step's row-sharded embedding state under a mesh, in either
+        #: numerics (`parallel.embedding.RowTables`; None otherwise): the
+        #: lookup_table rule and the sparse optimizer branches read it
+        self.tables = tables
         self.device = device
         self.generator = generator
         self.fetch_names = tuple(fetch_names)

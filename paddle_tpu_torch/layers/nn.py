@@ -65,9 +65,10 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
     """nn.py embedding -> lookup_table op.  ``is_sparse`` trains the table
     with a SelectedRows gradient (`core.backward`).  ``is_distributed``
-    only marks the op: the JAX package row-shards such a table over a
-    mesh; the port has none, so its ``Executor`` refuses the program
-    (ROADMAP queue A item 4)."""
+    row-shards the table (and its row-shaped optimizer accumulators) over
+    the mesh's ``"ep"`` axis (`parallel.embedding`): the ``Executor``
+    needs a mesh for such a program (``train_loop(mesh={"ep": N})``), and
+    a one-rank mesh runs it dense."""
     helper = LayerHelper("embedding", input=input, param_attr=param_attr)
     w = helper.create_parameter(helper.param_attr, shape=list(size),
                                 dtype=dtype,

@@ -155,7 +155,10 @@ def roofline(report: Dict[str, Any],
 
 def psum_share(report: Dict[str, Any]) -> Optional[float]:
     """The all-reduce payload's share of a report's bytes per step; None
-    without a ledger (always, in the port) or an all-reduce."""
+    without a ledger or an all-reduce.  The executor's reports carry the
+    counts of `parallel.collectives` for their first step under a mesh
+    (`introspect.record_run`): on a psum-lookup step of a row-sharded
+    table this reads the lookup's all-reduce."""
     led = report.get("collectives") or {}
     ar = (led.get("kinds") or {}).get("all-reduce")
     if not ar or not report.get("bytes_accessed"):

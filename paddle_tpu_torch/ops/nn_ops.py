@@ -464,9 +464,19 @@ def _lookup_table(ctx):
         out = (dequantize_int8(pre, scale)
                if pre.dtype == torch.int8 and scale is not None else pre)
     else:
-        # an int8 table (serving precision "int8"): dequantize only the
-        # gathered rows with the per-column scales, stored bf16
-        out = embedding_lookup(ctx.input("W"), flat, scale)
+        w = ctx.input("W")
+        rows = ctx.interpreter.tables
+        if rows is not None and rows.axis_of(ctx.input_name("W")):
+            # a row-sharded table (parallel.embedding): W is this rank's
+            # shard; the psum lookup (or the id exchange) gives the rows
+            # bitwise; an int8 table's rows dequantize before the sum
+            out = rows.lookup(ctx.block, ctx.input_name("W"), w, flat,
+                              ctx.input_name("Ids"),
+                              scale if w.dtype == torch.int8 else None)
+        else:
+            # an int8 table (serving precision "int8"): dequantize only
+            # the gathered rows with the per-column scales, stored bf16
+            out = embedding_lookup(w, flat, scale)
     table = ctx.input_name("W")
     if (ctx.attr("is_sparse") and torch.is_grad_enabled()
             and table in ctx.interpreter.sparse_tables):

@@ -23,8 +23,12 @@ Meshes.  Under a fast mesh the rules update the local shards of sharded
 parameters and their same-shape accumulators as they are; a parameter
 and accumulators placed differently (ZeRO-1's sharded accumulators, or
 a sharded parameter beside replicated ones) take `_mesh_branch`.  The
-mesh-sharded branches of the row-sharded embedding tables are not
-ported (ROADMAP queue A item 4).
+SelectedRows branch of a row-sharded embedding table (in either
+numerics) hands its raw pairs to the step's `parallel.embedding.RowTables`:
+the merged rows' per-row math runs on the rows this rank owns
+(`sharded_row_update`), or, under ``lookup_exchange="a2a"``, on the
+pairs the reverse exchange brings each owner (`sharded_row_update_a2a`);
+the commit writes them into the rank's shards.
 """
 from __future__ import annotations
 
@@ -80,9 +84,13 @@ def merge_selected_rows(rows: torch.Tensor, values: torch.Tensor, V: int):
     return uniq[lo:hi], merged[lo:hi]
 
 
-def _sparse_grad(ctx):
-    """(merged rows, merged values) when this op's Grad is a SelectedRows
-    gradient, else None."""
+def _sparse_update(ctx, row_fn, tables):
+    """The SelectedRows branch's new rows when this op's Grad is a
+    SelectedRows gradient, else None: -> (the merged rows, ``row_fn``'s
+    new rows of each of ``tables`` there).  ``row_fn(rows_tuple, merged)``
+    is the per-row math on the rows of ``tables`` (the parameter and its
+    accumulators); a row-sharded parameter's update runs on the rows this
+    rank owns (`parallel.embedding.RowTables.update`)."""
     name = ctx.input_name("Grad")
     if name in ctx.env:
         return None
@@ -90,7 +98,13 @@ def _sparse_grad(ctx):
     values = ctx.env.get(name + VALUES_SUFFIX)
     if rows is None or values is None:
         return None
-    return merge_selected_rows(rows, values, ctx.input("Param").shape[0])
+    sharded = ctx.interpreter.tables
+    p_name = ctx.input_name("Param")
+    if sharded is not None and sharded.axis_of(p_name):
+        return sharded.update(p_name, row_fn, tables, rows, values)
+    uniq, merged = merge_selected_rows(rows, values, tables[0].shape[0])
+    return uniq, row_fn(tuple(t.index_select(0, uniq) for t in tables),
+                        merged)
 
 
 def _set_rows(ctx, slot: str, base: torch.Tensor, rows: torch.Tensor,
@@ -118,13 +132,14 @@ def _scalar(ctx, slot):
 @register_op("sgd")
 def _sgd(ctx):
     p = ctx.input("Param")
-    sparse = _sparse_grad(ctx)
+    lr = _lr(ctx)
+    # the JAX rule's scatter-add of -lr * merged into the rows: the
+    # product rounded to the param's dtype once, then added
+    sparse = _sparse_update(
+        ctx, lambda cur, g: (cur[0] + (-lr * g).to(p.dtype),), (p,))
     if sparse is not None:
-        rows, g = sparse
-        # the JAX rule's scatter-add of -lr * merged into the rows
-        p_rows = p.index_select(0, rows)
-        _set_rows(ctx, "ParamOut", p, rows,
-                  p_rows + (-_lr(ctx) * g).to(p.dtype))
+        rows, (p_new,) = sparse
+        _set_rows(ctx, "ParamOut", p, rows, p_new)
         return
     g = _grad(ctx)
     ctx.set_output("ParamOut", (p - _lr(ctx) * g).to(p.dtype))
@@ -142,13 +157,12 @@ def _momentum(ctx):
     p, v = ctx.input("Param"), ctx.input("Velocity")
     mu, lr = ctx.attr("mu"), _lr(ctx)
     nesterov = ctx.attr("use_nesterov", False)
-    sparse = _sparse_grad(ctx)
+    # only the gradient's rows move (momentum_op's sparse path)
+    sparse = _sparse_update(
+        ctx, lambda cur, g: _momentum_step(cur[0], cur[1], g, mu, lr,
+                                           nesterov), (p, v))
     if sparse is not None:
-        # only the gradient's rows move (momentum_op's sparse path)
-        rows, g = sparse
-        p_new, v_new = _momentum_step(p.index_select(0, rows),
-                                      v.index_select(0, rows), g, mu, lr,
-                                      nesterov)
+        rows, (p_new, v_new) = sparse
         _set_rows(ctx, "ParamOut", p, rows, p_new)
         _set_rows(ctx, "VelocityOut", v, rows, v_new)
         return
@@ -172,15 +186,16 @@ def _adam(ctx):
     b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
     eps = ctx.attr("epsilon", 1e-8)
     lr_t = _lr(ctx) * torch.sqrt(1 - b2p) / (1 - b1p)
-    sparse = _sparse_grad(ctx)
+
+    def adam_rows(cur, g):
+        p_r, m_r, v_r = cur
+        m_new, v_new = _adam_moments(m_r, v_r, g, b1, b2)
+        return p_r - lr_t * m_new / (torch.sqrt(v_new) + eps), m_new, v_new
+    # moments and parameter move only on the gradient's merged rows
+    # (adam_op.h SparseAdamFunctor)
+    sparse = _sparse_update(ctx, adam_rows, (p, m, v))
     if sparse is not None:
-        # moments and parameter move only on the gradient's merged rows
-        # (adam_op.h SparseAdamFunctor)
-        rows, g = sparse
-        m_new, v_new = _adam_moments(m.index_select(0, rows),
-                                     v.index_select(0, rows), g, b1, b2)
-        p_new = (p.index_select(0, rows)
-                 - lr_t * m_new / (torch.sqrt(v_new) + eps))
+        rows, (p_new, m_new, v_new) = sparse
         _set_rows(ctx, "ParamOut", p, rows, p_new)
         _set_rows(ctx, "Moment1Out", m, rows, m_new)
         _set_rows(ctx, "Moment2Out", v, rows, v_new)

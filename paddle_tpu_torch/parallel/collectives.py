@@ -17,10 +17,16 @@ pattern through (a float buffer of +0.0 would turn -0.0 into +0.0 and
 break the bitwise checks of ``numerics="exact"``).  Elsewhere it is the
 backend's own all-gather.
 
+The all-to-all (`all_to_all`, tiled on dim 0, the sharded embeddings'
+id exchange) is the backend's own ``all_to_all_single`` on every
+backend: gloo takes CUDA tensors for it (torch 2.11), so the card's
+two-rank route needs no emulation, and the exchange moves data without
+arithmetic, so every bit pattern passes.
+
 Every call is counted by kind (``all-gather``, ``all-reduce``,
-``broadcast``), mesh axis and payload bytes (the bytes the collective
-delivers to this rank); `ledger` gives the counts in the JAX
-``collective_ledger`` form, which the cost reports read.
+``broadcast``, ``all-to-all``), mesh axis and payload bytes (the bytes
+the collective delivers to this rank); `ledger` gives the counts in the
+JAX ``collective_ledger`` form, which the cost reports read.
 
 The autograd Functions are Megatron's:
 
@@ -144,6 +150,35 @@ def all_reduce(t: torch.Tensor, group, axis: str, op: str = "sum"
     dist.all_reduce(out, op=(dist.ReduceOp.MAX if op == "max"
                              else dist.ReduceOp.SUM), group=group)
     return out
+
+
+def all_to_all(t: torch.Tensor, group, axis: str) -> torch.Tensor:
+    """Tiled all-to-all on dim 0: ``t``'s j-th of ``n`` equal blocks goes
+    to group rank j, and block i of the result came from group rank i
+    (``lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
+    n = _size(group)
+    if n == 1:
+        return t
+    t = t.detach().contiguous()
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 ({t.shape[0]}) does not split "
+                         f"into {n} blocks")
+    _count("all-to-all", axis, t.numel() * t.element_size())
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+def all_reduce_words(t: torch.Tensor, group, axis: str) -> torch.Tensor:
+    """An integer sum over the group of ``t``'s bytes read as int32 words.
+    Where at most one rank holds non-zero bytes at each word (each row
+    owned by one rank, zeros elsewhere), the result is that rank's bits:
+    a float sum would turn ``-0.0`` into ``+0.0``."""
+    if _size(group) == 1:
+        return t
+    nbytes = t.numel() * t.element_size()
+    words = all_reduce(_words(t), group, axis)
+    return words.view(torch.uint8)[:nbytes].view(t.dtype).reshape(t.shape)
 
 
 def broadcast(t: torch.Tensor, group, axis: str, src: int = 0

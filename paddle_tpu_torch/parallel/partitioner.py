@@ -10,12 +10,14 @@ What a `Partitioner` decides, as in the JAX package:
 - **Feed placement.**  The batch dim shards along ``data_axis`` when the
   axis divides it, else the feed is replicated (``feed_spec``).
 - **Numerics.**  ``"exact"`` gathers the batch on the data axis and
-  every parameter shard at step entry, runs the single-device step and
-  keeps each rank's shard of the new state: losses and parameters are
-  bitwise the single-process run.  A `LogicalAxisRules` table is skipped
-  in exact mode (its params live replicated); explicit ``table_specs``
-  and plain callable rules keep their placement.  ``"fast"`` runs the
-  step partitioned (`StepSharding`).
+  every parameter shard at step entry (a row-sharded embedding table
+  and its row-shaped accumulators excepted: see below), runs the
+  single-device step and keeps each rank's shard of the new state:
+  losses and parameters are bitwise the single-process run.  A
+  `LogicalAxisRules` table is skipped in exact mode (its params live
+  replicated); explicit ``table_specs`` and plain callable rules keep
+  their placement.  ``"fast"`` runs the step partitioned
+  (`StepSharding`).
 - **One device.**  A one-rank mesh runs the plain path with no
   collectives (``use_sharding`` False).
 
@@ -56,8 +58,19 @@ Fast mode, per step (`StepSharding`):
   axis, a sharded value gathered; any other value read from the slice
   raises.
 
-``lookup_exchange="a2a"`` and ``a2a_capacity`` belong to the sharded
-embeddings and are refused (ROADMAP queue A item 4).
+Row-sharded embedding tables (`parallel.embedding`).  ``table_specs``
+(bound from the program by `embedding.bind_program_tables`) row-shards
+each ``is_distributed`` table and its row-shaped accumulators over the
+mesh's ``"ep"`` axis.  In both numerics they stay ``[V/n, D]`` a rank:
+no step gathers them, only the lookup (the psum lookup, or the id
+exchange under ``lookup_exchange="a2a"`` with its static
+``a2a_capacity``) and the sparse update touch them.  Both knobs and the
+table specs are part of ``fingerprint()``.  Under fast numerics the
+gradient pairs of a SelectedRows table (row-sharded, or replicated on a
+data-parallel mesh) are gathered over the data axis in rank order before
+the merge (`StepSharding.reduce_sparse`), so every rank merges the same
+pairs; under the exchange on the data axis they stay each rank's block
+and ride the reverse exchange instead.
 """
 from __future__ import annotations
 
@@ -77,11 +90,10 @@ ParamSpecRule = Callable[[str, tuple], Optional[PartitionSpec]]
 
 #: numerics modes (module docstring)
 NUMERICS = ("fast", "exact")
-#: sharded-lookup exchange policies of the JAX package; only "psum"
-#: (no sharded lookup) runs here
+#: the sharded lookup's exchange policies: "psum" all-reduces the
+#: looked-up rows (the default and the exact reference), "a2a" routes
+#: owner-bucketed ids over an all-to-all and gets only the hit rows back
 LOOKUP_EXCHANGES = ("psum", "a2a")
-
-_SHARDED_EMBEDDINGS = "queue A item 4"
 
 #: ops a column-sharded product's output may pass through and stay
 #: sharded on its last axis
@@ -181,13 +193,11 @@ class Partitioner:
             raise ValueError(
                 f"lookup_exchange must be one of {LOOKUP_EXCHANGES}, "
                 f"got {lookup_exchange!r}")
-        if lookup_exchange != "psum" or a2a_capacity is not None:
-            raise NotImplementedError(
-                "lookup_exchange='a2a' and a2a_capacity exchange the ids "
-                "of row-sharded embeddings, which are not ported "
-                f"(ROADMAP {_SHARDED_EMBEDDINGS})")
-        self.lookup_exchange = "psum"
-        self.a2a_capacity = None
+        self.lookup_exchange = str(lookup_exchange)
+        #: the exchange's static bucket size per (source, owner) pair;
+        #: None is the full-safe ceil(N / nsh)
+        self.a2a_capacity = (None if a2a_capacity is None
+                             else int(a2a_capacity))
         self.data_axis = str(data_axis)
         self.logical_rules: Optional[LogicalAxisRules] = None
         if isinstance(param_spec, LogicalAxisRules):
@@ -198,6 +208,11 @@ class Partitioner:
         self._rule_misses: Dict[str, str] = {}
         self._warned_misses = False
         self._plans: Dict[Any, "TPPlan"] = {}
+
+    def bind_table_specs(self, specs: Dict[str, PartitionSpec]):
+        """Add per-name placements (the distributed tables'; an idempotent
+        union).  Part of ``fingerprint()``: bind before the first step."""
+        self.table_specs.update(specs)
 
     # -- topology ------------------------------------------------------
     @property
@@ -353,6 +368,10 @@ class Partitioner:
                "rule": self.rule_id()}
         if self.table_specs:
             out["sharded_tables"] = sorted(self.table_specs)
+        if self.lookup_exchange != "psum":
+            out["lookup_exchange"] = self.lookup_exchange
+            if self.a2a_capacity is not None:
+                out["a2a_capacity"] = self.a2a_capacity
         return out
 
     def rule_id(self) -> Optional[str]:
@@ -367,8 +386,9 @@ class Partitioner:
             else self.rule
 
     def fingerprint(self) -> Tuple:
-        """Mesh topology, ranks, data axis, rule, numerics: two
-        deployments that place state differently never share one."""
+        """Mesh topology, ranks, data axis, rule, numerics, table specs
+        and the lookup exchange: two deployments that place state or
+        exchange ids differently never share one."""
         rule_fp = (self.logical_rules.fingerprint()
                    if self.logical_rules is not None else self.rule_id())
         return (tuple(sorted((ax, int(n))
@@ -552,14 +572,19 @@ class StepSharding:
         self.sliced: set = set()
         #: (vars that read a sliced feed, forward op writing each var)
         self._deps: Optional[Tuple[set, Dict[str, Any]]] = None
+        #: the step's `embedding.RowTables` (None without row-sharded
+        #: tables), set by the executor
+        self.tables = None
 
     # -- entry ---------------------------------------------------------
     def prepare(self, env: Dict[str, Any]):
         """Gather every sharded var the forward reads that is not read
-        as a shard (before the interpreter marks the autograd leaves)."""
+        as a shard (before the interpreter marks the autograd leaves); a
+        row-sharded table is read as its shard by its lookups."""
+        rows = self.tables.axes if self.tables is not None else {}
         for name, spec in self.specs.items():
             if name in env and name in self.plan.read \
-                    and name not in self.plan.local:
+                    and name not in self.plan.local and name not in rows:
                 self.gathered[name] = env[name]
                 env[name] = self.part.gather(env[name], spec)
 
@@ -633,10 +658,12 @@ class StepSharding:
             how = self.placement(block, loss)
             if how is None:
                 raise self._unreduced(block, loss, "the loss")
+        complete = self.tables.complete if self.tables is not None else ()
         for name in names:
             g = grads.get(name)
             if g is not None and how != "replicated":
-                g = coll.all_reduce(g, self.data_group, part.data_axis)
+                if name not in complete:
+                    g = coll.all_reduce(g, self.data_group, part.data_axis)
                 if how == "mean":
                     g = g / self.n_data
             if name in self.gathered:
@@ -645,6 +672,28 @@ class StepSharding:
                 env[name] = self.gathered[name]
             if g is not None:
                 grads[name] = g
+
+    def reduce_sparse(self, block, loss: str, table: str, rows, values):
+        """A SelectedRows gradient's pairs over the data axis, as the
+        loss's placement asks: gathered in rank order (so that every rank
+        merges the same pairs, the global batch's in position order),
+        scaled for a mean; left as this rank's block for a table whose
+        exchange routes them (`embedding.RowTables.blocked`)."""
+        if self.n_data == 1 or not self.sliced:
+            return rows, values
+        how = self.placement(block, loss)
+        if how is None:
+            raise self._unreduced(block, loss, "the loss")
+        if how == "replicated":
+            return rows, values
+        if how == "mean":
+            values = values / self.n_data
+        if self.tables is not None and table in self.tables.blocked:
+            return rows, values
+        return (coll.all_gather(rows, self.data_group, self.part.data_axis,
+                                0),
+                coll.all_gather(values, self.data_group,
+                                self.part.data_axis, 0))
 
     # -- the loss scaler (ops.amp_ops) ---------------------------------
     def any_rank(self, flag):

@@ -14,6 +14,13 @@ under) and whose forward runs on the mesh:
   at entry and the forward is the single-device one: replies are bitwise
   the `Predictor`'s, storage stays sharded.
 
+The saved program's ``is_distributed`` tables row-shard over the mesh's
+``"ep"`` axis by the rule training places them by
+(`parallel.embedding.bind_program_tables`) and are served through the
+sharded lookup in both numerics, never gathered; `sharding_info` names
+them.  With ``embedding_cache_rows`` a table lives in its hot-row cache
+instead, and its looked-up rows follow the batch's slice.
+
 Every rank runs the forward (SPMD).  Behind a server only rank 0 owns
 the engine and the socket: `lead` makes rank 0's forward first broadcast
 the batch's feed signature and arrays to the followers, and the other
@@ -29,10 +36,12 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from ..core.lowering import Interpreter
+from ..core.lowering import CACHED_ROWS_SUFFIX, Interpreter
 from ..core.program import Program
 from ..core.scope import Scope
 from ..parallel import collectives as coll
+from ..parallel.embedding import (RowTables, bind_program_tables,
+                                  row_sharded_state)
 from ..parallel.logical_axes import PartitionSpec
 from ..parallel.partitioner import ParamSpecRule, Partitioner  # noqa: F401
 from .predictor import Predictor
@@ -70,6 +79,9 @@ class ShardedPredictor(Predictor):
         super().__init__(program, feed_names, fetch_vars, scope=scope,
                          precision=precision, **kwargs)
         part = self.partitioner
+        # the program's distributed tables row-shard by the rule training
+        # uses (the JAX predictor binds them here too)
+        bind_program_tables(part, program)
         #: sharded param -> its spec (the resident value is the shard)
         self._specs: Dict[str, PartitionSpec] = {}
         self._placed: Dict[str, PartitionSpec] = {}
@@ -84,6 +96,8 @@ class ShardedPredictor(Predictor):
                 self._params[name] = part.shard(val, spec).clone()
                 self._specs[name] = spec
         part.warn_rule_misses()
+        #: the row-sharded tables (and accumulators) -> their axis
+        self._rows = row_sharded_state(program, part, self._specs)
         self._leading = False
         self._mesh_lock = threading.Lock()
 
@@ -105,10 +119,12 @@ class ShardedPredictor(Predictor):
         with self._lock:
             env.update(self._params)
         block = self.program.global_block()
-        step = None
+        step = tables = None
+        rows = self._rows
         if part.numerics == "exact":
             for name, spec in self._specs.items():
-                env[name] = part.gather(env[name], spec)
+                if name not in rows:
+                    env[name] = part.gather(env[name], spec)
             feed = {n: (part.gather(part.shard(v, s), s)
                         if part.is_sharded(s) else v)
                     for n, v in feed.items()
@@ -116,11 +132,23 @@ class ShardedPredictor(Predictor):
         else:
             step = part.step(self.program, self._specs)
             feed = step.slice_feed(feed)
+            # a cached site's rows are cut as its ids were
+            ids_of = {o + CACHED_ROWS_SUFFIX: i
+                      for o, i, _ in self._cached_lookups}
+            cached = {k: (part.shard(v, part.feed_spec(tuple(v.shape)))
+                          if ids_of.get(k) in step.sliced else v)
+                      for k, v in cached.items()}
+        if rows:
+            tables = RowTables(part, rows, step)
+            if step is not None:
+                step.tables = tables
+        if step is not None:
             step.prepare(env)
         env.update(feed)
         env.update(cached)
         Interpreter(self.program, self.device, self._generator,
-                    self.fetch_names, partitioner=step).run_block(block, env)
+                    self.fetch_names, partitioner=step,
+                    tables=tables).run_block(block, env)
         outs = [env[n] for n in self.fetch_names]
         if step is not None:
             outs = [step.fetch(block, n, v)

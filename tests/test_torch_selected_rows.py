@@ -314,8 +314,11 @@ def test_distributed_table_is_refused_in_both(entry):
                 e.run(feed=f, fetch_list=[c])
             else:
                 e.train_loop(feed=[f], fetch_list=[c], steps=1)
-    with pytest.raises(ValueError, match="queue A item 4"):
+    # the port names the JAX remedy (row-sharded tables are ported:
+    # tests/test_torch_sharded_embedding.py trains them on a mesh)
+    with pytest.raises(ValueError, match=r"mesh=\{'ep': N\}") as ei:
         exe.run(feed=f, fetch_list=[cost])
+    assert "queue A item 4" not in str(ei.value)
     # the table never moved
     np.testing.assert_array_equal(_get(fluid, "table"), _table_init())
 

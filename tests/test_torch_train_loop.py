@@ -411,13 +411,15 @@ def test_reader_op_feed_is_refused():
     ({"tiered": {"w": 4}}, "queue A item 4"),
 ])
 def test_unported_arguments_raise_with_their_label(kw, label):
-    """The sharded embeddings' arguments (``lookup_exchange``,
-    ``a2a_capacity``, ``tiered``) raise with their label.  The mesh's
-    (``mesh``, ``param_spec``, ``data_axis``, ``numerics``) are ported
-    (queue A item 4a): in a one-process world a two-rank mesh, or a rule
-    with no mesh, is refused by the mesh itself, and ``data_axis`` or
-    ``numerics`` with no mesh run the single-device loop, as in the JAX
-    package."""
+    """Every one of these arguments is ported now, and no message names
+    the old label.  The mesh's (``mesh``, ``param_spec``, ``data_axis``,
+    ``numerics``, queue A item 4a): in a one-process world a two-rank
+    mesh, or a rule with no mesh, is refused by the mesh itself.  The
+    sharded embeddings' (``lookup_exchange``, ``a2a_capacity``,
+    ``tiered``, item 4b): ``tiered`` refuses a name that is no lookup
+    table.  ``data_axis``, ``numerics``, ``lookup_exchange`` and
+    ``a2a_capacity`` with no mesh run the single-device loop, as in the
+    JAX package."""
     loss, feeds = _build_model()
     exe = _fresh_exe()
     if "mesh" in kw or "param_spec" in kw:
@@ -425,7 +427,12 @@ def test_unported_arguments_raise_with_their_label(kw, label):
             exe.train_loop(feed=feeds, fetch_list=[loss], **kw)
         assert label not in str(ei.value)
         return
-    if "data_axis" in kw or "numerics" in kw:
+    if "tiered" in kw:
+        with pytest.raises(ValueError, match="tiered table 'w'") as ei:
+            exe.train_loop(feed=feeds, fetch_list=[loss], **kw)
+        assert label not in str(ei.value)
+        return
+    if kw:
         snap = _snapshot(fluid.global_scope())
         ref = exe.train_loop(feed=feeds, fetch_list=[loss])
         ref_params = _snapshot(fluid.global_scope())
@@ -435,9 +442,6 @@ def test_unported_arguments_raise_with_their_label(kw, label):
         assert [h.get()[0].tobytes() for h in got] == \
             [h.get()[0].tobytes() for h in ref]
         _assert_same(ref_params, _snapshot(fluid.global_scope()))
-        return
-    with pytest.raises(NotImplementedError, match=label):
-        exe.train_loop(feed=feeds, fetch_list=[loss], **kw)
 
 
 def _fresh_exe_like(exe):
