@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-33
+    python3 chip_smoke.py             # the smoke run, phases 1-35
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -33,6 +33,11 @@
     python3 chip_smoke.py --mesh      # phases 1 and 32, the mesh
     python3 chip_smoke.py --sharded-embedding  # phases 1 and 33, the
                                       # row-sharded recommender
+    python3 chip_smoke.py --sequence-parallel  # phases 1 and 34, ring
+                                      # and Ulysses attention, the
+                                      # pipeline
+    python3 chip_smoke.py --pserver   # phases 1 and 35, the dataset
+                                      # master and the parameter server
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -383,11 +388,51 @@ Phases, in order; any failure exits non-zero and prints no result line:
    capacity, the resident bytes, the tiered hit rate and pool bytes.  No
    port kernel launches on this path, and two ranks on one card show
    placement and parity, not scaling;
+34. sequence-parallel attention and the GPipe pipeline
+   (`paddle_tpu_torch.parallel.ring_attention`, `.pipeline`) at the LM's
+   attention width (12 heads of 64): (a) a one-rank NCCL world: ring and
+   Ulysses at sp=1 bitwise the single flash (out and dq/dk/dv, f32 and
+   bf16, T 8192 causal), pipeline_apply at pp=1 in one microbatch
+   bitwise pipeline_reference; the stage's four kernels called at the
+   pipeline's shapes (LayerNorm R 2048 F 768, flash B 4 H 12 T 512
+   causal, f32) against their plain versions; (b) two spawned gloo ranks over CUDA
+   tensors: ring and Ulysses, causal and full, f32 and bf16, at B 1 T
+   8192 (4096 a rank), out and dq/dk/dv of sum(out * w) against the
+   single-process FlashAttention over the whole T and against the
+   kernels' plain versions (each tensor on its own: F32_TOL; bf16 one
+   bf16 step of its max |reference| plus BF16_FLOOR), each rank's
+   flash launches (causal ring: rank 0 one block, rank 1 two), the hops
+   and all-to-alls and their bytes; the pipeline at pp=2 over a post-LN
+   decoder block at TRAIN_CONFIG width in f32 (x [16, 512, 768], 4
+   microbatches): output and each stage's gradients of sum(out ** 2)
+   within PP_RTOL of pipeline_reference, run on each microbatch in turn
+   and on the whole batch, and within F32_TOL of max |reference| of
+   pipeline_reference over the stage's plain twin (the kernels' plain
+   forwards, differentiated by autograd), the other stage's gradient
+   rows zero, 4 flash and 8 LayerNorm launches a rank each way, 5 hops
+   each way and one all-reduce; pipeline_window K 2 bitwise with bubble
+   0.2, its stage report's flops those of the stage's four products and
+   its flash forward;
+35. the dataset master and the parameter server
+   (`paddle_tpu_torch.distributed`): (a) ``python -m paddle_tpu_torch
+   pserver`` with a 2 s task timeout over 8 record files of 8 chunks
+   written by the port; two workers on the card lease tasks through
+   MasterClient and train tests/test_dist_train.py's fit-a-line program;
+   one is SIGKILLed while it holds its second lease; every task is
+   finished once and the survivor's loss falls; (b) a ListenAndServ
+   (fan_in=2) pserver on the card whose sub-block applies SGD to every
+   parameter of the LM at TRAIN_CONFIG width, depth cut to 2, and two
+   trainers on the card that Send their batch-16 gradients for 3
+   rounds: after each round the parameters (and each loss) are bitwise
+   the single-process card run that sums both batches' gradients and
+   applies the sgd rule's update; the round seconds, the bytes on the
+   wire, the straggler gap and pserver_rounds_total;
 then a JSON line with every ported kernel's launches (with
 launches_sparse_training, launches_remat_training,
 launches_remat_plain_training, launches_observe_training,
-launches_observe_serving, launches_fleet and launches_mesh), error and
-times, the
+launches_observe_serving, launches_fleet, launches_mesh,
+launches_sequence_parallel, launches_pipeline and launches_pserver),
+error and times, the
 card's name and power limit, and the last line: {"ok": true, "device":
 {...}}.
 
@@ -408,7 +453,9 @@ and its times (kernel, plain, cuDNN) summed over the step's 35 launches,
 and phase 24; with --sparse phase 1 and phase 26; with --remat phase 1
 and phase 27; with --observe phase 1 and phases 28 and 29; with
 --fleet phase 1 and phases 30 and 31; with --mesh phase 1 and phase
-32; with --sharded-embedding phase 1 and phase 33.
+32; with --sharded-embedding phase 1 and phase 33; with
+--sequence-parallel phase 1 and phase 34; with --pserver phase 1 and
+phase 35.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
@@ -543,13 +590,14 @@ SUM_TOL = 1e-4
 #: rules phase 16 leaves to the training phases: the optimizers and the
 #: backward op run in every training step (and every optimizer rule in
 #: phase 18), the DynamicRNN in phase 9, the loss scaler's rules in
-#: phase 17
+#: phase 17, the parameter server's op pair (a server blocks until a
+#: shutdown message) in phase 35
 OPTIMIZER_RULES = ("sgd", "momentum", "adam", "adamax", "adagrad",
                    "decayed_adagrad", "adadelta", "rmsprop", "ftrl",
                    "proximal_gd", "proximal_adagrad", "average_accumulates")
 PHASE16_ELSEWHERE = set(OPTIMIZER_RULES) | {
     "backward", "dynamic_rnn", "check_finite_and_unscale",
-    "update_loss_scaling"}
+    "update_loss_scaling", "listen_and_serv", "send"}
 #: phase 11: one f32 step of each at full width on the card and the CPU,
 #: batch 4, ragged lengths
 SEQ_CPU_BATCH = 4
@@ -609,7 +657,8 @@ def _err(out, ref, rule=None):
     """(max abs error of ``out`` against ``ref``, its share of the stated
     tolerance); equal infinities count as no error.  ``rule`` is "f32"
     (F32_TOL relative to max(1, max |ref|)), "bf16" (per element, one
-    bf16 rounding step plus BF16_FLOOR) or "bf16_max" (one bf16 rounding
+    bf16 rounding step plus BF16_FLOOR), "bf16_tensor" (one bf16 rounding
+    step of max |ref| plus BF16_FLOOR) or "bf16_max" (one bf16 rounding
     step of max(1, max |ref|)); by default the rule of ``ref``'s dtype."""
     import torch
     a, b = out.float(), ref.float()
@@ -620,6 +669,8 @@ def _err(out, ref, rule=None):
     rule = rule or ("bf16" if ref.dtype == torch.bfloat16 else "f32")
     if rule == "bf16":
         share = (d / (BF16_REL * mag + BF16_FLOOR)).max()
+    elif rule == "bf16_tensor":
+        share = d.max() / (BF16_REL * float(mag.max()) + BF16_FLOOR)
     elif rule == "bf16_max":
         share = d.max() / (BF16_REL * max(1.0, float(mag.max())))
     else:
@@ -8448,8 +8499,9 @@ def _wait_port(path, proc, timeout=FLEET_BOOT_TIMEOUT):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if proc.poll() is not None:
-            raise AssertionError(f"fleet exited {proc.returncode}: "
-                                 f"{proc.stdout.read()[-3000:]}")
+            out = proc.stdout.read()[-3000:] if proc.stdout else ""
+            raise AssertionError(f"{proc.args[:4]} exited {proc.returncode}"
+                                 f": {out}")
         try:
             with open(path) as f:
                 line = f.readline().strip()
@@ -9148,6 +9200,1055 @@ def sharded_embedding_ab(smi):
     return {"sharded_embedding": sharded_embedding_phase(smi)}
 
 
+# ---------------------------------------------------------------------------
+# phase 34: sequence-parallel attention and the GPipe pipeline
+# ---------------------------------------------------------------------------
+
+#: the LM's attention width (TRAIN_CONFIG): one batch of T 8192, split
+#: over sp=2 ranks (4096 a rank)
+SP_SHAPE = (1, 8192, TRAIN_CONFIG["n_heads"],
+            TRAIN_CONFIG["d_model"] // TRAIN_CONFIG["n_heads"])
+#: ring and Ulysses against the whole-sequence flash and the plain
+#: versions, each of out, dq, dk and dv on its own: f32 at F32_TOL of
+#: max(1, max |reference|), bf16 at BF16_REL * max |reference| +
+#: BF16_FLOOR ("bf16_tensor" in `_err`; a ring block's out is rounded to
+#: bf16 before the f32 merge, which the single flash does not do)
+SP_RANK_TIMEOUT = 600.0
+SP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+              "layer_norm_fwd", "layer_norm_bwd")
+#: the pipeline: x [16, 512, 768] in 4 microbatches over pp=2, the stage
+#: one post-LN decoder block at TRAIN_CONFIG width in f32; output and
+#: gradients within PP_RTOL of max |reference|, the reference run on
+#: each microbatch in turn and on the whole batch at once (there its
+#: products run at another M)
+PP_X = (16, TRAIN_CONFIG["max_len"], TRAIN_CONFIG["d_model"])
+PP_MICRO, PP_K, PP_RTOL = 4, 2, 1e-5
+
+
+def _sp_inputs(dtype, seed=34):
+    """The global [B, T, H, D] q, k, v and w on the card, the same on
+    every rank (a seeded generator on the card)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(SP_SHAPE, generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def _flash_whole(q, k, v, w, causal, plain=False):
+    """Attention over the whole sequence in one process -> (out, [dq, dk,
+    dv] of sum(out * w)), [B, T, H, D]: `kernels.FlashAttention` (the
+    single-process flash), or with ``plain`` the kernels' plain
+    versions."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    qh, kh, vh, wh = (t.transpose(1, 2).contiguous() for t in (q, k, v, w))
+    if plain:
+        out, lse = K.flash_attention_fwd_plain(qh, kh, vh, causal)
+        grads = K.flash_attention_bwd_plain(qh, kh, vh, out, lse,
+                                            wh.to(out.dtype), causal)
+    else:
+        qh, kh, vh = (t.requires_grad_(True) for t in (qh, kh, vh))
+        out = K.FlashAttention.apply(qh, kh, vh, causal)
+        (out.float() * wh.float()).sum().backward()
+        grads = (qh.grad, kh.grad, vh.grad)
+        out = out.detach()
+    return (out.transpose(1, 2),
+            [g.transpose(1, 2) for g in grads])
+
+
+def _sp_err(got, want):
+    """One tensor against its reference -> {max abs error, max |want|,
+    share of the tolerance}: f32 by the "f32" rule, bf16 by
+    "bf16_tensor" (`_err`)."""
+    import torch
+    got, want = got.detach(), want.detach()
+    err, share = _err(got, want, "f32" if want.dtype == torch.float32
+                      else "bf16_tensor")
+    return {"err": err, "max_ref": float(want.float().abs().max()),
+            "share": share}
+
+
+def _pp_params(n_stages, seed=35):
+    """Stacked [n_stages, ...] parameters of the decoder-block stage,
+    seeded on the card: weights N(0, 0.02), biases 0, LayerNorm scale
+    1 + N(0, 0.1) and bias N(0, 0.1).  (At scale 1 and bias 0 the last
+    LayerNorm's output has a constant sum of squares, so every gradient
+    of sum(out ** 2) but its scale's would be rounding noise.)"""
+    import torch
+    d, f = TRAIN_CONFIG["d_model"], TRAIN_CONFIG["d_ff"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn((n_stages,) + shape, generator=g,
+                           device="cuda") * 0.02
+
+    def zeros(*shape):
+        return torch.zeros((n_stages,) + shape, device="cuda")
+
+    def norm_scale():
+        return 1.0 + 5.0 * w(d)
+
+    return {"w_qkv": w(d, 3 * d), "b_qkv": zeros(3 * d),
+            "w_o": w(d, d), "b_o": zeros(d),
+            "ln1_s": norm_scale(), "ln1_b": 5.0 * w(d),
+            "w_1": w(d, f), "b_1": zeros(f), "w_2": w(f, d),
+            "b_2": zeros(d), "ln2_s": norm_scale(), "ln2_b": 5.0 * w(d)}
+
+
+def _pp_stage(p, x, plain=False):
+    """One post-LN decoder block (causal self-attention, GELU FFN) over
+    [mb, T, d]: the flash kernels for attention, the LayerNorm kernels
+    for both norms, torch.matmul for the products; with ``plain`` the
+    kernels' plain forwards instead, differentiated by autograd.  GELU
+    (tanh form) and not the LM's ReLU: a ReLU input within rounding of 0
+    takes the other branch wherever two right computations round
+    differently (the kernels and their plain versions, or another M),
+    which moved w_1's gradient by 4.6e-4 of its max at this shape; GELU's
+    gradient is continuous, so such differences stay at rounding."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kernels as K
+    b, t, d = x.shape
+    h = TRAIN_CONFIG["n_heads"]
+    qkv = (torch.matmul(x, p["w_qkv"]) + p["b_qkv"]).reshape(
+        b, t, 3, h, d // h).permute(2, 0, 3, 1, 4)
+    q, k, v = (qkv[i].contiguous() for i in range(3))
+    if plain:
+        a = K.flash_attention_fwd_plain(q, k, v, True)[0]
+    else:
+        a = K.FlashAttention.apply(q, k, v, True)
+    a = torch.matmul(a.transpose(1, 2).reshape(b, t, d), p["w_o"]) \
+        + p["b_o"]
+
+    def norm(y, s, bias):
+        y = y.reshape(-1, d).contiguous()
+        y = (K.layer_norm_fwd_plain(y, s, bias, 1e-5) if plain
+             else K.LayerNorm.apply(y, s, bias, 1e-5))[0]
+        return y.reshape(b, t, d)
+
+    x = norm(x + a, p["ln1_s"], p["ln1_b"])
+    f = F.gelu(torch.matmul(x, p["w_1"]) + p["b_1"], approximate="tanh")
+    f = torch.matmul(f, p["w_2"]) + p["b_2"]
+    return norm(x + f, p["ln2_s"], p["ln2_b"])
+
+
+def _pp_stage_plain(p, x):
+    return _pp_stage(p, x, plain=True)
+
+
+def _pp_stage_flops():
+    """The stage's forward flops on one microbatch: its four products
+    (2 M d (3d + d + 2 f), M = mb * T) and its causal flash forward."""
+    from paddle_tpu_torch.ops import kernels as K
+    mb, t, d = PP_X[0] // PP_MICRO, PP_X[1], PP_X[2]
+    h, f = TRAIN_CONFIG["n_heads"], TRAIN_CONFIG["d_ff"]
+    return 2 * mb * t * d * (4 * d + 2 * f) + K.flash_attention_flops(
+        mb * h, t, t, d // h, True)
+
+
+def _pp_kernel_checks():
+    """The stage's four kernels called on the card at the pipeline's
+    shapes (LayerNorm over mb * T rows of d, flash over [mb, H, T, D]
+    causal, f32) against their plain versions on the same seeded inputs
+    -> {kernel: {max_abs_err, limit_share}}.  These launches are
+    comparisons, made after the counted runs."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    mb, t, d = PP_X[0] // PP_MICRO, PP_X[1], PP_X[2]
+    h = TRAIN_CONFIG["n_heads"]
+    g = torch.Generator(device="cuda").manual_seed(37)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    recs = {name: {} for name in SP_KERNELS}
+    x, dy = randn(mb * t, d), randn(mb * t, d)
+    scale, bias = 1.0 + 0.1 * randn(d), 0.1 * randn(d)
+    want = K.layer_norm_fwd_plain(x, scale, bias, 1e-5)
+    label = f"pipeline stage R{mb * t} F{d}"
+    _check("layer_norm_fwd", list(zip(K.layer_norm_fwd(x, scale, bias, 1e-5),
+                                      want)),
+           "float32", label, recs["layer_norm_fwd"])
+    inv = torch.rsqrt(want[2] + 1e-5)
+    _check("layer_norm_bwd", list(zip(
+        K.layer_norm_bwd(x, scale, want[1], inv, dy),
+        K.layer_norm_bwd_plain(x, scale, want[1], inv, dy))),
+        "float32", label, recs["layer_norm_bwd"])
+    q, k, v, dout = (randn(mb, h, t, d // h) for _ in range(4))
+    out, lse = K.flash_attention_fwd_plain(q, k, v, True)
+    label = f"pipeline stage B{mb} H{h} T{t} D{d // h} causal"
+    _check("flash_attention_fwd", list(zip(
+        K.flash_attention_fwd(q, k, v, True), (out, lse))),
+        "float32", label, recs["flash_attention_fwd"])
+    _check("flash_attention_bwd", list(zip(
+        K.flash_attention_bwd(q, k, v, out, lse, dout, True),
+        K.flash_attention_bwd_plain(q, k, v, out, lse, dout, True))),
+        "float32", label, recs["flash_attention_bwd"])
+    return recs
+
+
+def _pp_x(seed=36):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(PP_X, generator=g, device="cuda")
+
+
+def _launches(names=SP_KERNELS):
+    from paddle_tpu_torch.ops import kernels as K
+    return {k.name: k.launches for k in K.KERNELS if k.name in names}
+
+
+def _leaf(params):
+    return {k: v.detach().clone().requires_grad_(True)
+            for k, v in params.items()}
+
+
+def _sp_one_rank(smi):
+    """Phase 34 (a): a one-rank NCCL world.  Ring and Ulysses at sp=1
+    bitwise the single flash (out and dq/dk/dv, f32 and bf16);
+    pipeline_apply at pp=1 in one microbatch bitwise pipeline_reference
+    (out and every gradient); then the stage's kernels against their
+    plain versions at its shapes (`_pp_kernel_checks`) -> (launches of
+    the sequence-parallel calls, of the pipeline's, numbers)."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.parallel import (create_mesh, init_distributed,
+                                           pipeline_apply,
+                                           pipeline_reference,
+                                           sequence_parallel_attention)
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, want nccl")
+    mesh = create_mesh({"sp": 1})
+    sp_launches = dict.fromkeys(SP_KERNELS, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, w = _sp_inputs(dtype)
+        want, want_g = _flash_whole(q, k, v, w, True)
+        for strategy in ("ring", "ulysses"):
+            ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            K.reset_launches()
+            out = sequence_parallel_attention(*ts, mesh, strategy=strategy,
+                                              causal=True)
+            (out.float() * w.float()).sum().backward()
+            torch.cuda.synchronize()
+            for name, n in _launches().items():
+                sp_launches[name] += n
+            if not torch.equal(out, want) or not all(
+                    torch.equal(t.grad, g) for t, g in zip(ts, want_g)):
+                raise AssertionError(f"phase 34 (a): {strategy} at sp=1 in "
+                                     f"{dtype} is not bitwise the single "
+                                     "flash")
+        del q, k, v, w, want, want_g
+    params = {k: v[:1] for k, v in _pp_params(1).items()}
+    x = _pp_x()
+    got_p, ref_p = _leaf(params), _leaf(params)
+    K.reset_launches()
+    out = pipeline_apply(_pp_stage, got_p, x, create_mesh({"pp": 1}),
+                         n_microbatches=1)
+    (out ** 2).sum().backward()
+    torch.cuda.synchronize()
+    pp_launches = _launches()
+    ref = pipeline_reference(_pp_stage, ref_p, x)
+    (ref ** 2).sum().backward()
+    if not torch.equal(out, ref) or not all(
+            torch.equal(got_p[n].grad, ref_p[n].grad) for n in params):
+        raise AssertionError("phase 34 (a): pipeline_apply at pp=1 is not "
+                             "bitwise pipeline_reference")
+    dist.destroy_process_group()
+    kernel_checks = _pp_kernel_checks()
+    torch.cuda.empty_cache()
+    return sp_launches, pp_launches, {"seconds": time.perf_counter() - t0,
+                                      "stage_kernels": kernel_checks}
+
+
+def _sp_rank(rank, init, out_dir):
+    """One of phase 34's two gloo ranks over CUDA tensors (both on the
+    one card): ring and Ulysses, causal and full, f32 and bf16, each
+    against the single-process flash and the plain versions; the
+    pipeline at pp=2 against pipeline_reference, and pipeline_window;
+    writes its records as JSON."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.observability import introspect
+    from paddle_tpu_torch.ops import _build, kernels as K
+    from paddle_tpu_torch.parallel import (collectives, create_mesh,
+                                           init_distributed,
+                                           pipeline_apply,
+                                           pipeline_reference,
+                                           pipeline_window,
+                                           sequence_parallel_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.build_all({k.source for k in K.KERNELS if k.name in SP_KERNELS})
+    init_distributed(init, 2, rank, backend="gloo")
+    mesh = create_mesh({"sp": 2})
+    tl = SP_SHAPE[1] // 2
+    sl = slice(rank * tl, (rank + 1) * tl)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            q, k, v, w = _sp_inputs(dtype)
+            flash = _flash_whole(q, k, v, w, causal)
+            plain = _flash_whole(q, k, v, w, causal, plain=True)
+            for strategy in ("ring", "ulysses"):
+                ts = [t[:, sl].clone().requires_grad_(True)
+                      for t in (q, k, v)]
+                torch.cuda.synchronize()
+                dist.barrier()
+                K.reset_launches()
+                collectives.reset_counts()
+                t0 = time.perf_counter()
+                out = sequence_parallel_attention(
+                    *ts, mesh, strategy=strategy, causal=causal)
+                torch.cuda.synchronize()
+                fwd_s = time.perf_counter() - t0
+                fwd_ledger = collectives.ledger()
+                (out.float() * w[:, sl].float()).sum().backward()
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                rec = {"strategy": strategy, "causal": causal,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "seconds": sec, "forward_s": fwd_s,
+                       "launches": _launches(SP_KERNELS[:2]),
+                       "forward_collectives": fwd_ledger,
+                       "collectives": collectives.ledger()}
+                for what, (r_out, r_grads) in (("flash", flash),
+                                               ("plain", plain)):
+                    errs = dict(zip(("out", "dq", "dk", "dv"), [
+                        _sp_err(out, r_out[:, sl])] + [
+                        _sp_err(t.grad, g[:, sl])
+                        for t, g in zip(ts, r_grads)]))
+                    rec[f"vs_{what}"] = {
+                        "max_abs_err": max(e["err"] for e in errs.values()),
+                        "limit_share": max(e["share"]
+                                           for e in errs.values()),
+                        "tensors": errs}
+                cases.append(rec)
+                del ts, out
+            del q, k, v, w, flash, plain
+            torch.cuda.empty_cache()
+    # the pipeline at pp=2
+    pmesh = create_mesh({"pp": 2})
+    params = _pp_params(2)
+    x = _pp_x()
+    got_p, ref_p = _leaf(params), _leaf(params)
+    torch.cuda.synchronize()
+    dist.barrier()
+    K.reset_launches()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    out = pipeline_apply(_pp_stage, got_p, x, pmesh, n_microbatches=PP_MICRO)
+    torch.cuda.synchronize()
+    pp_fwd = time.perf_counter() - t0
+    (out ** 2).sum().backward()
+    torch.cuda.synchronize()
+    pp_sec = time.perf_counter() - t0
+    pp_launches = _launches()
+    pp_ledger = collectives.ledger()
+    # where the time goes: the same run again (warm), one stage call on
+    # one microbatch, and one hop of a microbatch alone
+    warm_p = _leaf(params)
+    dist.barrier()
+    t0 = time.perf_counter()
+    warm = pipeline_apply(_pp_stage, warm_p, x, pmesh,
+                          n_microbatches=PP_MICRO)
+    (warm ** 2).sum().backward()
+    torch.cuda.synchronize()
+    parts = {"warm_s": time.perf_counter() - t0,
+             "warm_bitwise": bool(torch.equal(warm, out)) and all(
+                 torch.equal(warm_p[n].grad, got_p[n].grad)
+                 for n in params)}
+    mb = x[:PP_X[0] // PP_MICRO]
+    with torch.no_grad():
+        stage0 = {n: v[0] for n, v in params.items()}
+        _pp_stage(stage0, mb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _pp_stage(stage0, mb)
+        torch.cuda.synchronize()
+        parts["stage_s"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        collectives.hop(mb, pmesh.group("pp"), "pp", 1)
+        torch.cuda.synchronize()
+        parts["hop_s"] = time.perf_counter() - t0
+
+    def rel(a, b):
+        a, b = a.detach(), b.detach()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def against(ref, ref_p):
+        (ref ** 2).sum().backward()
+        return {"out_rel_err": rel(out, ref),
+                "grad_rel_err": {n: rel(got_p[n].grad[rank],
+                                        ref_p[n].grad[rank])
+                                 for n in params}}
+
+    # the oracle at the pipeline's M (each microbatch in turn), the same
+    # over the stage's plain twin, and on the whole batch at once
+    micro = x.reshape((PP_MICRO, -1) + tuple(x.shape[1:]))
+    pipe = {"seconds": pp_sec, "forward_s": pp_fwd, "parts": parts,
+            "launches": pp_launches, "collectives": pp_ledger,
+            **against(torch.cat([pipeline_reference(_pp_stage, ref_p, m)
+                                 for m in micro]), ref_p),
+            "other_stage_grads_zero": all(
+                bool((got_p[n].grad[1 - rank] == 0).all()) for n in params)}
+    plain_p = _leaf(params)
+    pipe["vs_plain"] = against(torch.cat([
+        pipeline_reference(_pp_stage_plain, plain_p, m) for m in micro]),
+        plain_p)
+    del plain_p
+    whole_p = _leaf(params)
+    pipe["whole_batch"] = against(pipeline_reference(_pp_stage, whole_p, x),
+                                  whole_p)
+    torch.cuda.synchronize()
+    dist.barrier()
+    K.reset_launches()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outw, sched = pipeline_window(_pp_stage, params,
+                                      torch.stack([x] * PP_K), pmesh,
+                                      n_microbatches=PP_MICRO)
+    torch.cuda.synchronize()
+    stage_rep = [r for r in introspect.reports("pipeline_stage")
+                 if r["seq"] in sched["report_seqs"]]
+    pipe["window"] = {"seconds": time.perf_counter() - t0,
+                      "launches": _launches(),
+                      "collectives": collectives.ledger(),
+                      "schedule": sched,
+                      "stage_flops": [r["flops"] for r in stage_rep],
+                      "stage_flops_want": _pp_stage_flops(),
+                      "bitwise": all(torch.equal(outw[i], out.detach())
+                                     for i in range(PP_K))}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump({"cases": cases, "pipeline": pipe}, fh)
+    dist.destroy_process_group()
+
+
+def sequence_parallel_phase(smi):
+    """Phase 34 (the module docstring's 34) -> (launches of the
+    sequence-parallel paths, of the pipeline's, numbers)."""
+    from paddle_tpu_torch.parallel import bubble_fraction
+    t_phase = time.perf_counter()
+    print(f"phase 34: sequence-parallel attention (ring, Ulysses) at "
+          f"{SP_SHAPE} and the GPipe pipeline at x {PP_X}, "
+          f"{PP_MICRO} microbatches: a one-rank NCCL world, two gloo "
+          f"ranks time-slicing the card ({smi}); placement and parity, "
+          "not scaling", flush=True)
+    sp_launches, pp_launches, part_a = _sp_one_rank(smi)
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "sp_ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    for fname in os.listdir(out_dir):
+        os.unlink(os.path.join(out_dir, fname))
+    init = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sp-rank", str(r), init, out_dir])
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=SP_RANK_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"phase 34 ranks exited "
+                             f"{[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    part_b = time.perf_counter() - t0
+    b, t, h, d = SP_SHAPE
+    tl = t // 2
+    for r, res in enumerate(ranks):
+        for c in res["cases"]:
+            label = (f"phase 34 rank {r} {c['strategy']} "
+                     f"{'causal' if c['causal'] else 'full'} {c['dtype']}")
+            for what in ("vs_flash", "vs_plain"):
+                if not c[what]["limit_share"] <= 1.0:
+                    raise AssertionError(f"{label}: {what} {c[what]}")
+            item = 4 if c["dtype"] == "float32" else 2
+            block = b * tl * h * d * item
+            if c["strategy"] == "ring":
+                blocks = 1 if c["causal"] and r == 0 else 2
+                want = {"collective-permute": {"count": 2,
+                                               "bytes": 2 * block}}
+                total = 2 + 2 + 2 * 2
+            else:
+                blocks = 1
+                want = {"all-to-all": {"count": 4, "bytes": 4 * block}}
+                total = 8
+            if c["forward_collectives"]["kinds"] != want \
+                    or c["collectives"]["count"] != total:
+                raise AssertionError(f"{label}: collectives "
+                                     f"{c['collectives']}")
+            if c["launches"] != {"flash_attention_fwd": blocks,
+                                 "flash_attention_bwd": blocks}:
+                raise AssertionError(f"{label}: launches {c['launches']}, "
+                                     f"want {blocks} of each")
+            for name, n in c["launches"].items():
+                sp_launches[name] += n
+        pipe = res["pipeline"]
+        if not (pipe["out_rel_err"] <= PP_RTOL and max(
+                pipe["grad_rel_err"].values()) <= PP_RTOL):
+            raise AssertionError(f"phase 34 rank {r} pipeline: out "
+                                 f"{pipe['out_rel_err']}, grads "
+                                 f"{pipe['grad_rel_err']}")
+        for what, tol in (("whole_batch", PP_RTOL), ("vs_plain", F32_TOL)):
+            if not (pipe[what]["out_rel_err"] <= tol and max(
+                    pipe[what]["grad_rel_err"].values()) <= tol):
+                raise AssertionError(f"phase 34 rank {r} pipeline {what}: "
+                                     f"{pipe[what]}")
+        if not pipe["parts"]["warm_bitwise"]:
+            raise AssertionError(f"phase 34 rank {r}: the pipeline's second "
+                                 "run is not bitwise its first")
+        if not pipe["other_stage_grads_zero"]:
+            raise AssertionError(f"phase 34 rank {r}: the other stage's "
+                                 "gradient rows are not zero")
+        want = {"flash_attention_fwd": PP_MICRO,
+                "flash_attention_bwd": PP_MICRO,
+                "layer_norm_fwd": 2 * PP_MICRO,
+                "layer_norm_bwd": 2 * PP_MICRO}
+        if pipe["launches"] != want:
+            raise AssertionError(f"phase 34 rank {r} pipeline launches "
+                                 f"{pipe['launches']}, want {want}")
+        ticks = PP_MICRO + 2 - 1
+        micro = PP_X[0] // PP_MICRO * PP_X[1] * PP_X[2] * 4
+        kinds = pipe["collectives"]["kinds"]
+        if kinds != {"collective-permute": {"count": 2 * ticks,
+                                            "bytes": 2 * ticks * micro},
+                     "all-reduce": {"count": 1, "bytes": 4 * micro}}:
+            raise AssertionError(f"phase 34 rank {r} pipeline collectives "
+                                 f"{kinds}")
+        win = pipe["window"]
+        if win["stage_flops"] != [win["stage_flops_want"]]:
+            raise AssertionError(f"phase 34 rank {r} pipeline_window: stage "
+                                 f"flops {win['stage_flops']}, want "
+                                 f"{win['stage_flops_want']}")
+        if not win["bitwise"] or win["schedule"]["bubble_fraction"] != \
+                bubble_fraction(2, PP_MICRO) or \
+                win["schedule"]["bubble_fraction"] != 0.2:
+            raise AssertionError(f"phase 34 rank {r} pipeline_window: "
+                                 f"{win['schedule']}, bitwise "
+                                 f"{win['bitwise']}")
+        for key in (pipe["launches"], win["launches"]):
+            for name, n in key.items():
+                pp_launches[name] += n
+    e2e = {"card": smi, "part_a_s": part_a["seconds"], "part_b_s": part_b,
+           "shape": list(SP_SHAPE), "pipeline_x": list(PP_X),
+           "n_microbatches": PP_MICRO,
+           "ranks": ranks, "seconds": time.perf_counter() - t_phase}
+    print(f"  end to end ({smi}): {json.dumps(e2e)}", flush=True)
+    return sp_launches, pp_launches, e2e
+
+
+def sequence_parallel_ab(smi):
+    from paddle_tpu_torch.ops import _build, kernels as K
+    _build.build_all({k.source for k in K.KERNELS if k.name in SP_KERNELS})
+    sp, pp, e2e = sequence_parallel_phase(smi)
+    return {"sequence_parallel": dict(e2e, launches_sequence_parallel=sp,
+                                      launches_pipeline=pp)}
+
+
+# ---------------------------------------------------------------------------
+# phase 35: the dataset master and the parameter server
+# ---------------------------------------------------------------------------
+
+#: the master's dataset: 8 record files of 8 chunks of 32 fit-a-line
+#: samples (x [4], y = x . w)
+MS_FILES, MS_CHUNKS, MS_RECORDS = 8, 8, 32
+MS_TASK_TIMEOUT, MS_BATCH = 2.0, 16
+MS_TIMEOUT = 300.0
+#: the parameter server's LM: TRAIN_CONFIG at depth 2 (cut from 12),
+#: batch 16 a trainer, SGD, 3 rounds of 2 trainers
+PS_CONFIG = dict(TRAIN_CONFIG, n_layers=2)
+PS_TRAINERS, PS_ROUNDS, PS_LR = 2, 3, 0.01
+PS_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+              "layer_norm_fwd", "layer_norm_bwd", "softmax_xent_fwd",
+              "softmax_xent_bwd")
+PS_LAUNCHES_PER_ROUND = {
+    "flash_attention_fwd": 2, "flash_attention_bwd": 2,
+    "layer_norm_fwd": 4, "layer_norm_bwd": 4,
+    "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+
+
+def _ms_dataset(root, seed=35):
+    """The master's record files (the port's writer) -> (paths, w)."""
+    from paddle_tpu_torch import recordio
+    from paddle_tpu_torch.recordio_writer import serialize_sample
+    rng = np.random.default_rng(seed)
+    w = rng.random((4, 1)).astype(np.float32)
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for fi in range(MS_FILES):
+        p = os.path.join(root, f"part-{fi:02d}.recordio")
+        with recordio.Writer(p, max_chunk_records=MS_RECORDS) as wr:
+            for _ in range(MS_CHUNKS * MS_RECORDS):
+                x = rng.random(4).astype(np.float32)
+                wr.write(serialize_sample((x, (x @ w).astype(np.float32))))
+        paths.append(p)
+    return paths, w
+
+
+def _wait_port_file(path, timeout=MS_TIMEOUT):
+    """The port a server published in ``path`` (written atomically)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no port file {path} after {timeout} s")
+        time.sleep(0.05)
+    with open(path) as f:
+        return int(f.read().strip())
+
+
+def _ms_worker(index, port_file, data_dir, out_dir, victim):
+    """One of phase 35 (a)'s workers: lease tasks through MasterClient
+    and train tests/test_dist_train.py's fit-a-line program on the card
+    over their records, until the pass ends.  The survivor starts once
+    the victim has finished its first task; the victim then leases one
+    more, says so in its progress file and waits for its SIGKILL."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.distributed import MasterClient, NoMoreTasks
+    from paddle_tpu_torch.recordio import Scanner
+    from paddle_tpu_torch.recordio_writer import deserialize_sample
+    torch.cuda.set_device(0)
+    progress = open(os.path.join(out_dir, f"w{index}.progress"), "a")
+    c = MasterClient("127.0.0.1", _wait_port_file(port_file),
+                     worker=f"w{index}", retry_interval=0.05)
+    c.set_dataset(sorted(os.path.join(data_dir, f)
+                         for f in os.listdir(data_dir)))
+    c.register()
+    x = layers.data(name="x", shape=[4], dtype="float32")
+    y = layers.data(name="y", shape=[1], dtype="float32")
+    pred = layers.fc(input=x, size=1)
+    loss = layers.mean(layers.square_error_cost(input=pred, label=y))
+    fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(fluid.default_startup_program())
+    finished, losses, n_records = [], [], 0
+    t0 = time.perf_counter()
+    if not victim:
+        # lease nothing until the victim has finished its first task
+        victim_log = os.path.join(out_dir, "w1.progress")
+        while not (os.path.exists(victim_log)
+                   and "finished" in open(victim_log).read()):
+            time.sleep(0.02)
+    while True:
+        try:
+            task = c.get_task()
+        except NoMoreTasks as e:
+            if e.retryable:
+                time.sleep(0.1)
+                continue
+            break
+        if victim and finished:
+            progress.write(f"leased {task.id}\n")
+            progress.flush()
+            time.sleep(MS_TIMEOUT)
+        batch = []
+        for rec in Scanner(task.path, task.chunk_begin, task.chunk_end):
+            n_records += 1
+            batch.append(deserialize_sample(rec))
+            if len(batch) == MS_BATCH:
+                (l,) = exe.run(fluid.default_main_program(), feed={
+                    "x": np.stack([b[0] for b in batch]),
+                    "y": np.stack([b[1] for b in batch])},
+                    fetch_list=[loss])
+                losses.append(float(l))
+                batch = []
+        c.task_finished(task.id)
+        finished.append(task.id)
+        progress.write(f"finished {task.id}\n")
+        progress.flush()
+    c.close()
+    with open(os.path.join(out_dir, f"w{index}.json"), "w") as fh:
+        json.dump({"finished": finished, "losses": losses,
+                   "records": n_records,
+                   "seconds": time.perf_counter() - t0}, fh)
+
+
+def _master_leg(smi, root):
+    """Phase 35 (a) -> its numbers."""
+    import signal
+    t0 = time.perf_counter()
+    data_dir = os.path.join(root, "data")
+    out_dir = os.path.join(root, "workers")
+    os.makedirs(out_dir, exist_ok=True)
+    for fname in os.listdir(out_dir):
+        os.unlink(os.path.join(out_dir, fname))
+    paths, _ = _ms_dataset(data_dir)
+    port_file = os.path.join(root, "master.port")
+    if os.path.exists(port_file):
+        os.unlink(port_file)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    master = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "pserver", "--host",
+         "127.0.0.1", "--port", "0", "--port-file", port_file,
+         "--task-timeout", str(MS_TASK_TIMEOUT)], cwd=HERE, env=env)
+    workers = []
+    try:
+        # the workers start beside the master and wait for its port file
+        workers = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--master-worker",
+             str(i), port_file, data_dir, out_dir, str(int(i == 1))])
+            for i in range(2)]
+        _wait_port(port_file, master, 60)
+        victim, survivor = workers[1], workers[0]
+        progress = os.path.join(out_dir, "w1.progress")
+        deadline = time.monotonic() + MS_TIMEOUT
+        while True:
+            if os.path.exists(progress) and "leased" in open(progress).read():
+                break
+            if victim.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"phase 35 (a): the victim ended "
+                                     f"({victim.returncode}) before its "
+                                     "second lease")
+            time.sleep(0.05)
+        victim.send_signal(signal.SIGKILL)
+        victim.wait()
+        t_kill = time.perf_counter() - t0
+        survivor.wait(timeout=MS_TIMEOUT)
+        if survivor.returncode != 0:
+            raise AssertionError(f"phase 35 (a): the survivor exited "
+                                 f"{survivor.returncode}")
+    finally:
+        for p in workers + [master]:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+                try:
+                    p.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    with open(os.path.join(out_dir, "w0.json")) as fh:
+        res = json.load(fh)
+    lines = open(progress).read().split()
+    victim_done = [int(v) for k, v in zip(lines[::2], lines[1::2])
+                   if k == "finished"]
+    leased = [int(v) for k, v in zip(lines[::2], lines[1::2])
+              if k == "leased"]
+    done = res["finished"] + victim_done
+    n_tasks = MS_FILES * MS_CHUNKS
+    if sorted(done) != list(range(n_tasks)):
+        raise AssertionError(f"phase 35 (a): tasks finished {sorted(done)}, "
+                             f"want each of {n_tasks} once")
+    if leased[0] not in res["finished"]:
+        raise AssertionError(f"phase 35 (a): the victim's lease "
+                             f"{leased[0]} was not finished by the survivor")
+    losses = res["losses"]
+    head, tail = np.mean(losses[:8]), np.mean(losses[-8:])
+    if not tail < 0.2 * head:
+        raise AssertionError(f"phase 35 (a): the survivor's loss went from "
+                             f"{head} to {tail}")
+    return {"seconds": time.perf_counter() - t0, "kill_at_s": t_kill,
+            "tasks": n_tasks, "survivor_tasks": len(res["finished"]),
+            "victim_tasks": len(victim_done), "victim_lease": leased[0],
+            "survivor_records": res["records"],
+            "survivor_loss_first8": float(head),
+            "survivor_loss_last8": float(tail),
+            "survivor_seconds": res["seconds"]}
+
+
+def _ps_programs(endpoint=None):
+    """PS_CONFIG's LM loss, its backward and, with ``endpoint``, the Send
+    of every gradient for its parameter, in fresh default programs ->
+    (main, startup, loss, [(param, grad)])."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import transformer
+    fluid.core.program.reset_default_programs()
+    cfg = {k: PS_CONFIG[k] for k in ("vocab", "max_len", "n_layers",
+                                     "d_model", "n_heads", "d_ff")}
+    tokens = layers.data(name="tokens", shape=[cfg["max_len"]],
+                         dtype="int64")
+    labels = layers.data(name="labels", shape=[cfg["max_len"]],
+                         dtype="int64")
+    logits = transformer.transformer_lm_logits(tokens, **cfg)
+    cost = layers.softmax_with_cross_entropy(
+        logits=logits, label=layers.reshape(labels,
+                                            shape=[-1, cfg["max_len"], 1]))
+    loss = layers.mean(cost)
+    pairs = fluid.backward.append_backward(loss)
+    if endpoint:
+        layers.Send(endpoint, [g for _, g in pairs], [p for p, _ in pairs])
+    startup = fluid.default_startup_program()
+    startup.random_seed = 35
+    return fluid.default_main_program(), startup, loss, pairs
+
+
+def _ps_feed(rnd, trainer):
+    rng = np.random.default_rng(1000 * rnd + trainer)
+    seqs = rng.integers(0, PS_CONFIG["vocab"],
+                        (TRAIN_BATCH, PS_CONFIG["max_len"])).astype(np.int64)
+    return {"tokens": seqs, "labels": np.roll(seqs, -1, axis=1)}
+
+
+def _ps_digest(values):
+    import hashlib
+    h = hashlib.sha256()
+    for name in sorted(values):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(values[name]).tobytes())
+    return h.hexdigest()
+
+
+def _ps_server(state_path, port_file, out_path):
+    """Phase 35 (b)'s pserver: a ListenAndServ(fan_in=2) program whose
+    sub-block applies SGD to every parameter from its summed gradient,
+    on the card, until the shutdown message; then its metrics as JSON."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.distributed import param_server as ps
+    from paddle_tpu_torch.observability import default_registry
+    torch.cuda.set_device(0)
+    default_registry().enable()
+    state = dict(np.load(state_path))
+    names = sorted(state)
+    main = fluid.Program()
+    scope = fluid.core.scope.Scope()
+    with fluid.program_guard(main, fluid.Program()):
+        block = main.global_block()
+        for n in names:
+            block.create_var(name=n, shape=state[n].shape, dtype="float32",
+                             persistable=True)
+        lr = block.create_var(name="ps_lr", shape=(1,), dtype="float32",
+                              persistable=True)
+        serv = layers.ListenAndServ("127.0.0.1:0", [n + "@GRAD"
+                                                    for n in names],
+                                    fan_in=PS_TRAINERS)
+        with serv.do():
+            for n in names:
+                g = layers.data(name=n + "@GRAD", shape=list(state[n].shape),
+                                dtype="float32", append_batch_size=False)
+                main.current_block().append_op(
+                    type="sgd", inputs={"Param": [n], "Grad": [g],
+                                        "LearningRate": [lr]},
+                    outputs={"ParamOut": [n]})
+    for n in names:
+        scope.set(n, torch.tensor(state[n], device="cuda"))
+    scope.set("ps_lr", torch.full((1,), PS_LR, device="cuda"))
+    ps.SELECTED_PORT_FILE = port_file
+    with fluid.scope_guard(scope):
+        fluid.Executor(fluid.CUDAPlace(0)).run(main)
+    with open(out_path, "w") as fh:
+        json.dump({"pserver_rounds_total": ps._PS_ROUNDS.value,
+                   "round_seconds": {"count": ps._PS_ROUND_S.count,
+                                     "sum": ps._PS_ROUND_S.sum},
+                   "straggler_gap_seconds": {
+                       "count": ps._PS_STRAGGLER_S.count,
+                       "sum": ps._PS_STRAGGLER_S.sum,
+                       "max": ps._PS_STRAGGLER_S.percentile(100)}}, fh)
+
+
+def _ps_trainer(index, state_path, port_file, out_path):
+    """One of phase 35 (b)'s trainers: PS_ROUNDS rounds of its batch's
+    gradients sent through the Send op, the parameters the reply brings
+    digested after each."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _build, kernels as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.build_all({k.source for k in K.KERNELS if k.name in PS_KERNELS})
+    main, startup, loss, pairs = _ps_programs(
+        f"127.0.0.1:{_wait_port_file(port_file)}")
+    state = dict(np.load(state_path))
+    scope = fluid.core.scope.Scope()
+    rounds = []
+    launches = dict.fromkeys(PS_KERNELS, 0)
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        for n, v in state.items():
+            scope.set(n, torch.tensor(v, device="cuda"))
+        for r in range(PS_ROUNDS):
+            feed = _ps_feed(r, index)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            for name, n in _launches(PS_KERNELS).items():
+                launches[name] += n
+            params = {p.name: scope.get(p.name).cpu().numpy()
+                      for p, _ in pairs}
+            rounds.append({"seconds": sec, "loss": float(lv),
+                           "launches": _launches(PS_KERNELS),
+                           "digest": _ps_digest(params)})
+    grad_bytes = sum(int(np.prod(p.shape)) * 4 for p, _ in pairs)
+    # where a round's time goes: the wire codec alone, one message each
+    # way (base64 in JSON, as send_round_trip and the server do)
+    from paddle_tpu_torch.distributed import param_server as ps
+    t0 = time.perf_counter()
+    line = json.dumps({"method": "send", "vars": {
+        p.name: ps._encode(v) for (p, _), v in zip(
+            pairs, (scope.get(p.name).cpu().numpy() for p, _ in pairs))}})
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    {k: ps._decode(v) for k, v in json.loads(line)["vars"].items()}
+    codec = {"encode_s": encode_s, "decode_s": time.perf_counter() - t0,
+             "line_bytes": len(line)}
+    with open(out_path, "w") as fh:
+        json.dump({"rounds": rounds, "launches": launches, "codec": codec,
+                   "grad_bytes": grad_bytes,
+                   "wire_bytes_each_way": sum(
+                       4 * -(-int(np.prod(p.shape)) * 4 // 3)
+                       for p, _ in pairs)}, fh)
+
+
+def _ps_reference(state):
+    """The single-process card run: each round, both batches' gradients
+    at the current parameters, summed, and the sgd rule's update
+    ``(p - lr * g)`` -> (losses by round and trainer, digests by round)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    main, startup, loss, pairs = _ps_programs()
+    scope = fluid.core.scope.Scope()
+    lr = torch.full((1,), PS_LR, device="cuda").reshape(())
+    losses, digests = [], []
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup)
+        for n, v in state.items():
+            scope.set(n, torch.tensor(v, device="cuda"))
+        for r in range(PS_ROUNDS):
+            total, row = None, []
+            for i in range(PS_TRAINERS):
+                out = exe.run(main, feed=_ps_feed(r, i),
+                              fetch_list=[loss] + [g for _, g in pairs],
+                              return_numpy=False)
+                row.append(float(out[0]))
+                grads = [g.clone() for g in out[1:]]
+                total = grads if total is None else [
+                    a + b for a, b in zip(total, grads)]
+            losses.append(row)
+            with torch.no_grad():
+                for (p, _), g in zip(pairs, total):
+                    cur = scope.get(p.name)
+                    scope.set(p.name, (cur - lr * g).to(cur.dtype))
+            digests.append(_ps_digest({p.name: scope.get(p.name).cpu()
+                                       .numpy() for p, _ in pairs}))
+    return losses, digests
+
+
+def _pserver_leg(smi, root):
+    """Phase 35 (b) -> (the trainers' launches, numbers)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import param_server as ps
+    t0 = time.perf_counter()
+    _, startup, _, pairs = _ps_programs()
+    state = {n: v for n, v in _startup_state(startup, fluid.CPUPlace())
+             .items() if n in {p.name for p, _ in pairs}}
+    state_path = os.path.join(root, "ps_state.npz")
+    np.savez(state_path, **state)
+    port_file = os.path.join(root, "ps.port")
+    if os.path.exists(port_file):
+        os.unlink(port_file)
+    server_out = os.path.join(root, "pserver.json")
+    server = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--ps-server", state_path, port_file,
+                               server_out])
+    trainers = []
+    try:
+        # the trainers start beside the pserver and wait for its port file
+        trainers = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ps-trainer",
+             str(i), state_path, port_file,
+             os.path.join(root, f"trainer{i}.json")])
+            for i in range(PS_TRAINERS)]
+        endpoint = f"127.0.0.1:{_wait_port(port_file, server, 120)}"
+        ref_losses, ref_digests = _ps_reference(state)
+        torch.cuda.empty_cache()
+        for p in trainers:
+            p.wait(timeout=MS_TIMEOUT)
+        if any(p.returncode != 0 for p in trainers):
+            raise AssertionError(f"phase 35 (b): trainers exited "
+                                 f"{[p.returncode for p in trainers]}")
+        ps.shutdown_server(endpoint)
+        server.wait(timeout=60)
+        if server.returncode != 0:
+            raise AssertionError(f"phase 35 (b): the pserver exited "
+                                 f"{server.returncode}")
+    finally:
+        for p in trainers + [server]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for i in range(PS_TRAINERS):
+        with open(os.path.join(root, f"trainer{i}.json")) as fh:
+            res.append(json.load(fh))
+    with open(server_out) as fh:
+        served = json.load(fh)
+    launches = dict.fromkeys(PS_KERNELS, 0)
+    for i, tr in enumerate(res):
+        for r, rec in enumerate(tr["rounds"]):
+            if rec["digest"] != ref_digests[r]:
+                raise AssertionError(
+                    f"phase 35 (b): trainer {i}'s parameters after round "
+                    f"{r} are not bitwise the single-process card run")
+            if rec["loss"] != ref_losses[r][i]:
+                raise AssertionError(
+                    f"phase 35 (b): trainer {i}'s round {r} loss "
+                    f"{rec['loss']}, the single-process run's "
+                    f"{ref_losses[r][i]}")
+            if rec["launches"] != PS_LAUNCHES_PER_ROUND:
+                raise AssertionError(f"phase 35 (b): trainer {i} round {r} "
+                                     f"launches {rec['launches']}")
+        for name, n in tr["launches"].items():
+            launches[name] += n
+    if served["pserver_rounds_total"] != PS_ROUNDS:
+        raise AssertionError(f"phase 35 (b): pserver_rounds_total "
+                             f"{served['pserver_rounds_total']}")
+    return launches, {
+        "seconds": time.perf_counter() - t0,
+        "config": PS_CONFIG, "batch": TRAIN_BATCH, "lr": PS_LR,
+        "grad_bytes_per_trainer_round": res[0]["grad_bytes"],
+        "wire_base64_bytes_each_way": res[0]["wire_bytes_each_way"],
+        "round_seconds": [[rec["seconds"] for rec in tr["rounds"]]
+                          for tr in res],
+        "codec": [tr["codec"] for tr in res],
+        "losses": ref_losses, "pserver": served}
+
+
+def pserver_phase(smi):
+    """Phase 35 (the module docstring's 35) -> (launches, numbers)."""
+    t_phase = time.perf_counter()
+    print(f"phase 35: the dataset master (the pserver verb, two workers on "
+          f"the card, one SIGKILLed) and the parameter server on the LM at "
+          f"{PS_CONFIG} (depth cut from {TRAIN_CONFIG['n_layers']}), batch "
+          f"{TRAIN_BATCH}, {PS_TRAINERS} trainers, {PS_ROUNDS} rounds "
+          f"({smi})", flush=True)
+    root = os.path.join(HERE, "build", "pserver")
+    os.makedirs(root, exist_ok=True)
+    master = _master_leg(smi, root)
+    launches, served = _pserver_leg(smi, root)
+    e2e = {"card": smi, "master": master, "pserver": served,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  end to end ({smi}): {json.dumps(e2e)}", flush=True)
+    return launches, e2e
+
+
+def pserver_ab(smi):
+    from paddle_tpu_torch.ops import _build, kernels as K
+    _build.build_all({k.source for k in K.KERNELS if k.name in PS_KERNELS})
+    launches, e2e = pserver_phase(smi)
+    return {"pserver": dict(e2e, launches=launches)}
+
+
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
@@ -9156,7 +10257,9 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--genprog": genprog_ab, "--ssd": ssd_ab, "--sparse": sparse_ab,
             "--remat": remat_ab, "--observe": observe_ab,
             "--fleet": fleet_ab, "--mesh": mesh_ab,
-            "--sharded-embedding": sharded_embedding_ab}
+            "--sharded-embedding": sharded_embedding_ab,
+            "--sequence-parallel": sequence_parallel_ab,
+            "--pserver": pserver_ab}
 
 
 def main(argv=()):
@@ -9180,6 +10283,22 @@ def main(argv=()):
     if argv and argv[0] == "--sharded-rank":
         # one of phase 33's ranks (started by sharded_embedding_phase)
         _se_rank(int(argv[1]), argv[2], argv[3], argv[4], argv[5])
+        return 0
+    if argv and argv[0] == "--sp-rank":
+        # one of phase 34's ranks (started by sequence_parallel_phase)
+        _sp_rank(int(argv[1]), argv[2], argv[3])
+        return 0
+    if argv and argv[0] == "--master-worker":
+        # one of phase 35 (a)'s workers (started by _master_leg)
+        _ms_worker(int(argv[1]), argv[2], argv[3], argv[4], argv[5] == "1")
+        return 0
+    if argv and argv[0] == "--ps-server":
+        # phase 35 (b)'s pserver (started by _pserver_leg)
+        _ps_server(argv[1], argv[2], argv[3])
+        return 0
+    if argv and argv[0] == "--ps-trainer":
+        # one of phase 35 (b)'s trainers (started by _pserver_leg)
+        _ps_trainer(int(argv[1]), argv[2], argv[3], argv[4])
         return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -9315,6 +10434,8 @@ def main(argv=()):
     fleet_launches, _ = fleet_phases(smi)
     mesh_launches, _ = mesh_phase(smi)
     sharded_embedding_phase(smi)
+    sp_launches, pp_launches, _ = sequence_parallel_phase(smi)
+    ps_launches, _ = pserver_phase(smi)
 
     kernels = []
     for k in K.KERNELS:
@@ -9336,7 +10457,10 @@ def main(argv=()):
                          + obs_train_launches[k.name]
                          + obs_serve_launches[k.name]
                          + fleet_launches[k.name]
-                         + mesh_launches.get(k.name, 0)),
+                         + mesh_launches.get(k.name, 0)
+                         + sp_launches.get(k.name, 0)
+                         + pp_launches.get(k.name, 0)
+                         + ps_launches.get(k.name, 0)),
             "launches_serving": serve_launches[k.name],
             "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
@@ -9370,6 +10494,9 @@ def main(argv=()):
             "launches_observe_serving": obs_serve_launches[k.name],
             "launches_fleet": fleet_launches[k.name],
             "launches_mesh": mesh_launches.get(k.name, 0),
+            "launches_sequence_parallel": sp_launches.get(k.name, 0),
+            "launches_pipeline": pp_launches.get(k.name, 0),
+            "launches_pserver": ps_launches.get(k.name, 0),
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -4,6 +4,13 @@ of ``paddle_tpu/__main__.py``; the serving and training verbs):
   train <script> [args]  run a training script as ``__main__`` with
                         the port importable (a script written for the
                         JAX package runs with its import changed)
+  pserver               the elastic dataset master (distributed.master)
+                        on --host/--port (--port-file gets the bound
+                        port); it leases chunk tasks of
+                        --chunks-per-task chunks with a --task-timeout
+                        lease and a --failure-limit budget, and with
+                        --snapshot FILE recovers its queues after a
+                        restart; SIGTERM or SIGINT stops it
   checkpoints <dir>     list a training checkpoint directory (step,
                         age, size, reader position, fingerprint: the
                         manifests ``train_loop(resume_from=...)``
@@ -55,9 +62,8 @@ of ``paddle_tpu/__main__.py``; the serving and training verbs):
                         against the card's roofs
 
 The client verbs read the endpoint from HOST:PORT or from the port file
-a local ``serve`` wrote.  ``pserver`` waits for ROADMAP queue A item 4;
-``merge_model``, ``dump_config``, ``make_diagram`` and ``version`` for
-item 6.
+a local ``serve`` wrote.  ``merge_model``, ``dump_config``,
+``make_diagram`` and ``version`` wait for ROADMAP queue A item 6.
 """
 from __future__ import annotations
 
@@ -710,6 +716,28 @@ def cmd_train(args):
     return 0
 
 
+def cmd_pserver(args):
+    import threading
+    from paddle_tpu_torch.distributed.master import (MasterServer,
+                                                     MasterService)
+
+    service = MasterService(chunks_per_task=args.chunks_per_task,
+                            timeout_s=args.task_timeout,
+                            failure_max=args.failure_limit,
+                            snapshot_path=args.snapshot)
+    server = MasterServer(service, host=args.host, port=args.port,
+                          port_file=args.port_file)
+    server.start()
+    print(f"paddle_tpu_torch pserver (master service) on "
+          f"{server.host}:{server.port}", flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    stop.wait()
+    server.stop()
+    return 0
+
+
 def cmd_checkpoints(args):
     from .checkpoint import describe
 
@@ -739,6 +767,19 @@ def main(argv=None):
     p.add_argument("script")
     p.add_argument("script_args", nargs=argparse.REMAINDER)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("pserver", help="serve the distributed master")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--port-file", default=None,
+                   help="write the bound port here")
+    p.add_argument("--chunks-per-task", type=int, default=1)
+    p.add_argument("--task-timeout", type=float, default=60.0)
+    p.add_argument("--failure-limit", type=int, default=3)
+    p.add_argument("--snapshot", default=None,
+                   help="persist queue state here; a restarted master "
+                        "recovers it (pending leases re-queue)")
+    p.set_defaults(fn=cmd_pserver)
 
     p = sub.add_parser("checkpoints",
                        help="list a training checkpoint directory")

@@ -19,10 +19,12 @@ read it (`reader.decorator.device_prefetch`, which ``double_buffer``
 is).  ``place=None`` means the card.  An abandoned generator sets the
 producer's stop event, and the producer ends at its next put.
 
-``ListenAndServ`` and ``Send`` are the parameter-server path of
-``dist_ops.py`` and refuse (ROADMAP queue A item 4).
+``ListenAndServ`` and ``Send`` build the parameter server's op pair
+(``listen_and_serv`` and ``send``, `ops.dist_ops`).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
@@ -191,17 +193,53 @@ def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
                             is_data=True)
 
 
-_PSERVER = ("the parameter-server ops (listen_and_serv, send) are not "
-            "ported (ROADMAP queue A item 4: dist_ops.py)")
-
-
 class ListenAndServ:
-    """Refused: the parameter server as an operator."""
+    """The parameter server as an operator.  Running the program that
+    holds its ``listen_and_serv`` op serves the sub-block built under
+    `do` over TCP (`distributed.param_server`): the bound port goes to
+    the selected-port file, ``fan_in`` sends make a round, their vars
+    are summed, the sub-block runs once on the executor's device, and
+    each sender gets back the sub-block's writes of outer vars.  The run
+    returns when a ``shutdown`` message arrives."""
 
     def __init__(self, endpoint, inputs=None, fan_in=1, optimizer_mode=True):
-        raise NotImplementedError(_PSERVER)
+        self.endpoint = endpoint
+        self.inputs = inputs or []
+        self.fan_in = fan_in
+        self.optimizer_mode = optimizer_mode
+        self.helper = LayerHelper("listen_and_serv")
+        self.main_program = self.helper.main_program
+        self.parent_block = self.main_program.current_block()
+        self.sub_block = None
+
+    @contextlib.contextmanager
+    def do(self):
+        """Build the served sub-block under this context."""
+        from .control_flow import _outer_uses
+        self.sub_block = self.main_program.create_block()
+        yield
+        self.main_program.rollback()
+        _, written = _outer_uses(self.sub_block)
+        self.parent_block.append_op(
+            type="listen_and_serv",
+            inputs={},
+            outputs={"Out": [self.parent_block.var(n) for n in written]},
+            attrs={"endpoint": self.endpoint,
+                   "Fanin": self.fan_in,
+                   "sub_block": self.sub_block.idx,
+                   "out_vars": list(written),
+                   "optimizer_mode": self.optimizer_mode})
 
 
 def Send(endpoint, send_vars, get_vars):
-    """Refused: a send/recv round trip to a ListenAndServ endpoint."""
-    raise NotImplementedError(_PSERVER)
+    """A synchronous round trip to a ListenAndServ endpoint: the
+    ``send`` op sends ``send_vars`` and writes the reply into
+    ``get_vars`` (each with a concrete shape)."""
+    helper = LayerHelper("send")
+    helper.append_op(
+        type="send",
+        inputs={"X": list(send_vars)},
+        outputs={"Out": list(get_vars)},
+        attrs={"endpoint": endpoint,
+               "epmap": [endpoint] * len(send_vars)})
+    return get_vars

@@ -26,7 +26,8 @@ fingerprint, feed signature), under the JAX keys and metric families:
 - under a mesh every term is the rank's own: its shards and its slice of
   the feed.  ``mesh_shape``, ``num_devices`` and ``sharding_summary``
   (the resident placement of each feed and state tensor) come from the
-  `parallel.Partitioner`, and ``collectives`` from the counts of
+  `parallel.Partitioner` (or from the caller, as `parallel.pipeline`'s
+  reports give them), and ``collectives`` from the counts of
   `parallel.collectives` over the run;
 - ``compile_seconds`` is 0.0 and ``steps`` the window's K.
 
@@ -140,12 +141,14 @@ def record_run(*, layer: str, device, fingerprint: str = "",
                output_bytes: int = 0, temp_bytes: int = 0,
                alias_bytes: int = 0, steps: int = 1, dtype: str = "f32",
                partitioner=None, sharding_summary=None,
-               collectives=None) -> CompiledReport:
+               collectives=None, mesh_shape=None,
+               num_devices=None) -> CompiledReport:
     """Register the report of a first run on ``device`` and sample the
     device memory (a first run is when it moves); ``flops`` and
     ``bytes_accessed`` are one step's, and scale by ``steps`` as the JAX
     report's do.  ``peak_bytes`` is argument + output + temp - alias
-    (module docstring); a ``partitioner`` names the run's mesh."""
+    (module docstring); a ``partitioner`` names the run's mesh, else
+    ``mesh_shape`` and ``num_devices`` do."""
     rep = CompiledReport()
     rep.layer = str(layer)
     rep.fingerprint = str(fingerprint)
@@ -153,8 +156,8 @@ def record_run(*, layer: str, device, fingerprint: str = "",
     rep.fetch_names = [str(n) for n in fetch_names]
     rep.steps = max(1, int(steps))
     rep.dtype = str(dtype or "f32")
-    rep.mesh_shape = None
-    rep.num_devices = 1
+    rep.mesh_shape = dict(mesh_shape) if mesh_shape else None
+    rep.num_devices = int(num_devices or 1)
     rep.input_shardings = []
     rep.output_shardings = []
     rep.sharding_summary = dict(sharding_summary or {})

@@ -64,7 +64,10 @@ synchronisation) and raises if the launch reports an error — there is no
 fallback.  Each launch adds one to the kernel's ``launches`` count
 (`KERNELS`), so a run can show that its main path went through the
 kernels; a kernel with more than one tile code also counts each code's
-launches (``path_launches``).  The plain versions are what the CPU tests
+launches (``path_launches``).  The flash kernels also add their product
+flops to the open `kernel_flops` tallies of the launching thread, which
+``torch.utils.flop_counter.FlopCounterMode`` cannot see (a ctypes launch
+is no aten op).  The plain versions are what the CPU tests
 hold against the JAX package and what ``chip_smoke.py`` holds each
 kernel against on the card.
 They compute in f32, or in f64 for f64 inputs (``gradcheck``).
@@ -79,6 +82,7 @@ plain versions on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -109,7 +113,7 @@ class Kernel:
         self.path_launches = dict.fromkeys(paths, 0)
         self._fn = None
 
-    def launch(self, *args, path: str = None):
+    def launch(self, *args, path: str = None, flops: int = 0):
         if self._fn is None:
             fn = getattr(_build.load(self.source), self.entry)
             fn.argtypes = self.argtypes
@@ -129,6 +133,8 @@ class Kernel:
             self.launches += 1
             if path is not None:
                 self.path_launches[path] += 1
+        for tally in getattr(_flop_tallies, "open", ()):
+            tally[0] += flops
 
 
 #: cudaErrorCooperativeLaunchTooLarge (its value since CUDA 10), returned
@@ -210,6 +216,48 @@ KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD,
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
 _PAGED_HEAD_DIMS = (16, 32, 64, 128)
 _FLASH_HEAD_DIMS = (32, 64)
+
+
+#: each thread's open `kernel_flops` tallies
+_flop_tallies = threading.local()
+
+
+@contextlib.contextmanager
+def kernel_flops():
+    """Tally the product flops of the kernels this thread launches inside
+    the block: yields a one-item list whose item is the running total.
+    The flash kernels report theirs (`flash_attention_flops`); on CPU
+    tensors the wrappers run their plain versions, which launch nothing
+    and whose aten products ``FlopCounterMode`` counts."""
+    tally = [0]
+    if not hasattr(_flop_tallies, "open"):
+        _flop_tallies.open = []
+    _flop_tallies.open.append(tally)
+    try:
+        yield tally
+    finally:
+        _flop_tallies.open.remove(tally)
+
+
+def flash_attention_pairs(tq: int, tk: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes: all ``tq * tk``, or
+    under the bottom-right aligned causal mask (query i sees
+    ``clamp(i + tk - tq + 1, 0, tk)`` keys) their sum."""
+    if not causal:
+        return tq * tk
+    off = tk - tq + 1
+    lo = min(max(-off, 0), tq)          # rows before lo see no key
+    hi = min(max(tk - off, lo), tq)     # rows from hi on see all tk
+    return (hi - lo) * (lo + hi - 1 + 2 * off) // 2 + (tq - hi) * tk
+
+
+def flash_attention_flops(bh: int, tq: int, tk: int, d: int, causal: bool,
+                          backward: bool = False) -> int:
+    """The flash kernels' product flops over ``bh`` batch-heads: forward
+    S = QK^T and PV (4 a pair and feature), backward S again, dO V^T,
+    P^T dO, dS K and dS^T Q (10)."""
+    return (10 if backward else 4) * bh * flash_attention_pairs(
+        tq, tk, causal) * d
 
 
 def reset_launches():
@@ -413,7 +461,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     FLASH_ATTENTION_FWD.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b * h, tq, tk, d, int(bool(causal)),
-        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q))
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q),
+        flops=flash_attention_flops(b * h, tq, tk, d, causal))
     return out, lse
 
 
@@ -485,7 +534,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b * h, tq, tk, d, int(bool(causal)),
-        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q))
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q),
+        flops=flash_attention_flops(b * h, tq, tk, d, causal,
+                                    backward=True))
     return dq, dk, dv
 
 

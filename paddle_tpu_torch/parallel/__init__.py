@@ -1,10 +1,11 @@
-"""Data and tensor parallelism and row-sharded embedding tables over
-``torch.distributed`` (counterpart of ``paddle_tpu/parallel``): every
-rank runs the same program (SPMD) on a `Mesh` of named axes, a
-`Partitioner` places state and feeds by rule, `collectives` carries the
-exchanges, `embedding` row-shards lookup tables over an ``"ep"`` axis
-and `tiered` trains a table out of host RAM.  Ring and Ulysses
-attention and pipelines are not ported (ROADMAP queue A item 4c)."""
+"""Data, tensor, sequence and pipeline parallelism and row-sharded
+embedding tables over ``torch.distributed`` (counterpart of
+``paddle_tpu/parallel``): every rank runs the same program (SPMD) on a
+`Mesh` of named axes, a `Partitioner` places state and feeds by rule,
+`collectives` carries the exchanges, `embedding` row-shards lookup
+tables over an ``"ep"`` axis, `tiered` trains a table out of host RAM,
+`ring_attention` shards attention over the sequence (ring and Ulysses)
+and `pipeline` runs GPipe stages over a ``"pp"`` axis."""
 from .parallel_executor import ParallelExecutor  # noqa: F401
 from .mesh import (create_mesh, create_hybrid_mesh,  # noqa: F401
                    create_training_mesh, get_mesh, set_mesh, Mesh,
@@ -15,5 +16,12 @@ from .partitioner import (Partitioner, ParamSpecRule,  # noqa: F401
 from .logical_axes import (LogicalAxisRules, PartitionSpec,  # noqa: F401
                            transformer_tp_rules)
 from .transpiler import DistributeTranspiler  # noqa: F401
+from .ring_attention import (ring_attention_local,  # noqa: F401
+                             ulysses_attention_local,
+                             sequence_parallel_attention,
+                             reference_attention)
 from .embedding import (sharded_embedding_lookup,  # noqa: F401
                         shard_table)
+from .pipeline import (pipeline_apply, pipeline_local,  # noqa: F401
+                       pipeline_reference, pipeline_window,
+                       bubble_fraction)

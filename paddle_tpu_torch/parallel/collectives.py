@@ -18,15 +18,23 @@ break the bitwise checks of ``numerics="exact"``).  Elsewhere it is the
 backend's own all-gather.
 
 The all-to-all (`all_to_all`, tiled on dim 0, the sharded embeddings'
-id exchange) is the backend's own ``all_to_all_single`` on every
-backend: gloo takes CUDA tensors for it (torch 2.11), so the card's
-two-rank route needs no emulation, and the exchange moves data without
-arithmetic, so every bit pattern passes.
+id exchange and Ulysses' sequence/head swap) is the backend's own
+``all_to_all_single`` on every backend: gloo takes CUDA tensors for it
+(torch 2.11), so the card's two-rank route needs no emulation, and the
+exchange moves data without arithmetic, so every bit pattern passes.
+
+The ring hop (`hop`, ``lax.ppermute`` with the permutation
+``[(i, (i + shift) % n)]``: the ring attention's K/V rotation and the
+pipeline's stage hop) is ``all_to_all_single`` with split sizes too: the
+whole tensor goes to group rank ``r + shift`` and zero-size splits go
+to the others.  That is one route on every backend (gloo refuses
+point-to-point sends of CUDA tensors, ROADMAP queue C).
 
 Every call is counted by kind (``all-gather``, ``all-reduce``,
-``broadcast``, ``all-to-all``), mesh axis and payload bytes (the bytes
-the collective delivers to this rank); `ledger` gives the counts in the
-JAX ``collective_ledger`` form, which the cost reports read.
+``broadcast``, ``all-to-all``, ``collective-permute``), mesh axis and
+payload bytes (the bytes the collective delivers to this rank); `ledger`
+gives the counts in the JAX ``collective_ledger`` form, which the cost
+reports read.
 
 The autograd Functions are Megatron's:
 
@@ -35,12 +43,22 @@ The autograd Functions are Megatron's:
 - `copy_to` (Megatron's f: identity forward, all-reduce backward), on
   the replicated input of a column-sharded product;
 - `reduce_from` (Megatron's g: all-reduce forward, identity backward),
-  on the partial sums of a row-sharded product.
+  on the partial sums of a row-sharded product, and on the pipeline's
+  closing broadcast of the last stage's output;
+- `ppermute` (the ring hop forward, the reverse hop backward) and
+  `exchange` (the all-to-all forward, the same all-to-all backward: a
+  tiled all-to-all is its own inverse).
+
+Every collective here is SPMD: every rank of the group calls it the same
+number of times in the same order, and so must the backward passes
+that differentiate through them (a graph whose shape differs between
+ranks drives its backward by hand, as `ring_attention` and `pipeline`
+do).
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -92,6 +110,13 @@ def ledger(since: Optional[Dict] = None) -> Optional[Dict]:
     return {"total_bytes": sum(e["bytes"] for e in kinds.values()),
             "count": sum(e["count"] for e in kinds.values()),
             "kinds": kinds, "axes": axes}
+
+
+def on_axis(mesh, axis: str) -> Tuple[Any, int, int]:
+    """(this rank's group along ``axis``, the axis's size, this rank's
+    index on it) of a `parallel.mesh.Mesh`."""
+    return (mesh.group(axis), int(mesh.shape.get(axis, 1)),
+            int(mesh.coords.get(axis, 0)))
 
 
 def _size(group) -> int:
@@ -169,6 +194,28 @@ def all_to_all(t: torch.Tensor, group, axis: str) -> torch.Tensor:
     return out
 
 
+def hop(t: torch.Tensor, group, axis: str, shift: int = 1) -> torch.Tensor:
+    """The ring hop: ``t`` goes to group rank ``(r + shift) % n``; the
+    result is the tensor group rank ``(r - shift) % n`` sent (the same
+    shape on every rank).  One ``all_to_all_single`` whose splits are
+    the whole tensor to the destination and zero to the others."""
+    n = _size(group)
+    if n == 1 or shift % n == 0:
+        return t
+    t = t.detach().contiguous()
+    me = dist.get_rank(group)
+    numel = t.numel()
+    _count("collective-permute", axis, numel * t.element_size())
+    ins, outs = [0] * n, [0] * n
+    ins[(me + shift) % n] = numel
+    outs[(me - shift) % n] = numel
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out.reshape(-1), t.reshape(-1),
+                           output_split_sizes=outs, input_split_sizes=ins,
+                           group=group)
+    return out
+
+
 def all_reduce_words(t: torch.Tensor, group, axis: str) -> torch.Tensor:
     """An integer sum over the group of ``t``'s bytes read as int32 words.
     Where at most one rank holds non-zero bytes at each word (each row
@@ -241,6 +288,28 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis, shift):
+        ctx.group, ctx.axis, ctx.shift = group, axis, shift
+        return hop(x, group, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return hop(g, ctx.group, ctx.axis, -ctx.shift), None, None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return all_to_all(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group, ctx.axis), None, None
+
+
 def gather(x: torch.Tensor, group, axis: str, dim: int) -> torch.Tensor:
     """Differentiable all-gather along ``dim`` (module docstring)."""
     if _size(group) == 1:
@@ -264,3 +333,19 @@ def reduce_from(x: torch.Tensor, group, axis: str) -> torch.Tensor:
     if not (x.requires_grad and torch.is_grad_enabled()):
         return all_reduce(x, group, axis)
     return _ReduceFrom.apply(x, group, axis)
+
+
+def ppermute(x: torch.Tensor, group, axis: str, shift: int = 1
+             ) -> torch.Tensor:
+    """Differentiable ring hop (`hop`): the backward is the reverse hop."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return hop(x, group, axis, shift)
+    return _Permute.apply(x, group, axis, shift)
+
+
+def exchange(x: torch.Tensor, group, axis: str) -> torch.Tensor:
+    """Differentiable tiled all-to-all on dim 0 (`all_to_all`): the
+    backward is the same exchange of the gradient."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return all_to_all(x, group, axis)
+    return _Exchange.apply(x, group, axis)

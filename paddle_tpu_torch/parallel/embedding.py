@@ -51,7 +51,7 @@ taken from the mesh.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -62,12 +62,6 @@ from .logical_axes import PartitionSpec
 #: the conventional mesh axis tables row-shard over: a Partitioner whose
 #: mesh has it places distributed tables by itself (derive_table_specs)
 EMBED_AXIS = "ep"
-
-
-def _on_axis(mesh, axis: str) -> Tuple[Any, int, int]:
-    """(the group, its size, this rank's index) along ``axis``."""
-    return (mesh.group(axis), int(mesh.shape.get(axis, 1)),
-            int(mesh.coords.get(axis, 0)))
 
 
 def _wrap(ids: torch.Tensor, total: int) -> torch.Tensor:
@@ -103,7 +97,7 @@ def sharded_lookup_local(table_shard: torch.Tensor, ids: torch.Tensor,
     """One rank's part of the psum lookup: its rows for ``ids`` (zeros
     for ids it does not own), summed over the axis as int32 words ->
     ``[*ids, D]`` rows, the same on every rank of the group."""
-    group, n, index = _on_axis(mesh, axis)
+    group, n, index = coll.on_axis(mesh, axis)
     rows = table_shard.shape[0]
     local, own = _owned(_wrap(ids, rows * n), rows, index)
     return coll.all_reduce_words(_rows_of(table_shard, local, own, scale),
@@ -129,7 +123,7 @@ class _ShardedRows(torch.autograd.Function):
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         mesh, axis, ids_blocked, grad_blocked, shape, dtype = ctx.meta
-        group, n, index = _on_axis(mesh, axis)
+        group, n, index = coll.on_axis(mesh, axis)
         rows, d = shape
         ids = ids.reshape(-1)
         g = g.reshape(-1, d)
@@ -178,7 +172,7 @@ def sharded_row_update(mesh, axis: str, row_fn: Callable, tables, uniq,
     branch's per-row math.  -> (the owned rows' indices in the shard, the
     new rows of each table), which the optimizer's commit writes into
     the shards (`core.lowering.RowUpdate`)."""
-    _, _, index = _on_axis(mesh, axis)
+    _, _, index = coll.on_axis(mesh, axis)
     rows = tables[0].shape[0]
     if any(t.shape[0] != rows for t in tables):
         raise ValueError("sharded_row_update: the parameter and its "
@@ -256,7 +250,7 @@ def a2a_lookup_local(table_shard: torch.Tensor, ids_blk: torch.Tensor,
     owner gathers its rows, and the rows come back over a second ->
     ``[C0, D]``, each delivered row the exact table row; undelivered
     positions (ids no shard owns, bucket overflow) are zero rows."""
-    group, _, index = _on_axis(mesh, axis)
+    group, _, index = coll.on_axis(mesh, axis)
     rows = table_shard.shape[0]
     total = rows * nsh
     ids_blk = _wrap(ids_blk, total)
@@ -301,7 +295,7 @@ def a2a_embedding_lookup(table: torch.Tensor, ids: torch.Tensor, mesh,
     looks up its position block of the flattened ids -> that block's rows
     ``[ceil(N / nsh), D]``, or, with ``gather_out``, every rank's blocks
     gathered back to ``[*ids, D]``, bitwise the psum lookup's."""
-    group, nsh, index = _on_axis(mesh, axis)
+    group, nsh, index = coll.on_axis(mesh, axis)
     orig = tuple(ids.shape)
     d = table.shape[-1]
     flat, n, _ = _pad_block(ids.reshape(-1).long(), nsh,
@@ -363,7 +357,7 @@ def sharded_row_update_a2a(mesh, axis: str, row_fn: Callable, tables,
     already this rank's block (fast numerics on the data axis).  -> (the
     owned rows' indices in the shard, the new rows of each table)."""
     from ..ops.optimizer_ops import merge_selected_rows
-    group, nsh, index = _on_axis(mesh, axis)
+    group, nsh, index = coll.on_axis(mesh, axis)
     total = tables[0].shape[0] * nsh
     ids = _wrap(rows_ids.reshape(-1), total)
     vals = values.reshape(ids.shape[0], -1)
@@ -411,7 +405,7 @@ def shard_table(table: torch.Tensor, mesh, axis: str = EMBED_AXIS
                 ) -> torch.Tensor:
     """This rank's row shard of a whole table (the startup-time
     counterpart of the transpiler's ``split_dense_variable``)."""
-    _, n, index = _on_axis(mesh, axis)
+    _, n, index = coll.on_axis(mesh, axis)
     return coll.local_slice(table, 0, index, n).clone()
 
 
@@ -572,7 +566,7 @@ class RowTables:
         are the rank's block for the exchange."""
         axis = self.axes[name]
         mesh = self.part.mesh
-        group, nsh, index = _on_axis(mesh, axis)
+        group, nsh, index = coll.on_axis(mesh, axis)
         blocked = self._on_data_axis(axis, block, ids_name)
         d = table.shape[-1]
         if blocked and table.requires_grad and torch.is_grad_enabled():

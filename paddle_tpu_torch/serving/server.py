@@ -3,7 +3,7 @@
 byte, so either package's client talks to either package's server).
 
 One JSON object per line; tensors as ``{shape, dtype, base64 data}``
-(the JAX package's transport codec, `_encode` / `_decode`).  The server
+(`distributed.param_server`'s codec, `_encode` / `_decode`).  The server
 binds port 0 and publishes the real port through a port file
 (`write_port_file` / `wait_for_port_file`).  Connections persist; each
 handler thread blocks in its engine, so the batcher sees every
@@ -28,7 +28,6 @@ finish and reply, then stops the listener.
 """
 from __future__ import annotations
 
-import base64
 import itertools
 import json
 import os
@@ -43,6 +42,7 @@ import numpy as np
 
 from .. import fault, profiler
 from ..distributed.backoff import Backoff
+from ..distributed.param_server import _decode, _encode
 from ..io import _atomic_write
 from ..observability import render_prometheus, snapshot, trace
 from .engine import EngineOverloadedError, ServingEngine
@@ -53,19 +53,6 @@ from .registry import GenerationUnsupportedError, ModelRegistry, \
 #: where the ``models`` / ``metrics`` CLI verbs look for it
 SELECTED_PORT_FILE = os.path.join(tempfile.gettempdir(),
                                   "paddle_tpu_torch.serving_port")
-
-
-def _encode(arr: np.ndarray) -> dict:
-    """The wire form of an array (``paddle_tpu/distributed/
-    param_server.py``'s codec)."""
-    arr = np.ascontiguousarray(arr)
-    return {"shape": list(arr.shape), "dtype": str(arr.dtype),
-            "data": base64.b64encode(arr.tobytes()).decode("ascii")}
-
-
-def _decode(d: dict) -> np.ndarray:
-    return np.frombuffer(base64.b64decode(d["data"]),
-                         dtype=np.dtype(d["dtype"])).reshape(d["shape"])
 
 
 def write_port_file(path: str, port: int):

@@ -329,7 +329,7 @@ def test_rule_matches_jax(case):
 
 def test_every_detection_rule_is_held():
     """The cases above reach all ten rules, and the port registers
-    exactly the JAX registry but csp_ops.py's 6 and dist_ops.py's 2."""
+    exactly the JAX registry but csp_ops.py's 6."""
     from paddle_tpu.core.registry import OpRegistry as J
     from paddle_tpu_torch.core.registry import OpRegistry as P
     assert {c[0] for c in RULE_CASES.values()} == {
@@ -338,9 +338,8 @@ def test_every_detection_rule_is_held():
         "detection_map", "gather_encoded_target", "abs_smooth_l1"}
     missing = set(J.registered_ops()) - set(P.registered_ops())
     assert missing == {"channel_create", "channel_send", "channel_recv",
-                       "channel_close", "go", "select",
-                       "listen_and_serv", "send"}
-    assert len(P.registered_ops()) == 237
+                       "channel_close", "go", "select"}
+    assert len(P.registered_ops()) == 239
     assert not set(P.registered_ops()) - set(J.registered_ops())
 
 

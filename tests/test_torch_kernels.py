@@ -18,6 +18,7 @@ kernel where it applies (channels-last, C a multiple of 128) and against
 the JAX package's XLA closed form elsewhere (NCHW, C=64).
 """
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -1060,3 +1061,44 @@ def test_wrappers_count_only_kernel_launches():
     K.BatchNormTrain.apply(x3, torch.ones(3), torch.zeros(3), torch.zeros(3),
                            torch.ones(3), "relu").sum().backward()
     assert all(k.launches == 0 for k in K.KERNELS)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_pairs_count_the_mask(causal):
+    """The flop count's (query, key) pairs are the plain version's
+    unmasked scores, for every Tq and Tk up to 9 (both alignments)."""
+    for tq in range(10):
+        for tk in range(10):
+            keep = torch.ones(tq, tk, dtype=torch.bool)
+            if causal:
+                keep = keep.tril(tk - tq)
+            assert K.flash_attention_pairs(tq, tk, causal) == int(keep.sum())
+    assert K.flash_attention_flops(48, 512, 512, 64, True) \
+        == 4 * 48 * (512 * 513 // 2) * 64
+    assert K.flash_attention_flops(1, 8, 8, 32, False, backward=True) \
+        == 10 * 64 * 32
+
+
+def test_kernel_flops_tallies_this_threads_launches():
+    """A launch adds its flops to every tally open on its thread (nested
+    ones too), to none once the block closes and to none of another
+    thread's; the plain CPU path reports nothing."""
+    kernel = K.FLASH_ATTENTION_FWD
+    fn, launches = kernel._fn, kernel.launches
+    kernel._fn = lambda *args: 0
+    seen = []
+    try:
+        with K.kernel_flops() as outer:
+            kernel.launch(flops=5)
+            with K.kernel_flops() as inner:
+                kernel.launch(flops=7)
+                other = threading.Thread(
+                    target=lambda: seen.append(kernel.launch(flops=100)))
+                other.start()
+                other.join()
+            q = torch.randn(1, 2, 3, 32)
+            K.flash_attention_fwd(q, q, q, True)
+        kernel.launch(flops=11)
+    finally:
+        kernel._fn, kernel.launches = fn, launches
+    assert (outer[0], inner[0], len(seen)) == (12, 7, 1)

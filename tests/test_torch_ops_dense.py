@@ -357,6 +357,7 @@ ELSEWHERE = {
     **{op: "test_torch_detection.py" for op in (
         "prior_box", "bipartite_match", "mine_hard_examples",
         "multiclass_nms", "detection_map")},
+    **{op: "test_torch_pserver.py" for op in ("listen_and_serv", "send")},
 }
 
 

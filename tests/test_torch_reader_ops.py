@@ -15,7 +15,7 @@ executor's binding of them in the port, on the CPU.
 - ``shuffle`` after ``random.seed`` gives the JAX package's batches.
 - ``double_buffer(place=CPUPlace())`` stages tensors, surfaces a source
   error, and its producer thread ends when the consumer abandons the
-  pass; ``ListenAndServ``/``Send`` refuse with their ROADMAP label.
+  pass; ``ListenAndServ``/``Send`` build the JAX package's op pair.
 """
 import os
 import random
@@ -409,8 +409,36 @@ def test_double_buffer_surfaces_a_source_error():
     _wait_for_no_producer()
 
 
-def test_parameter_server_layers_refuse():
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        layers.ListenAndServ("127.0.0.1:0")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        layers.Send("127.0.0.1:0", [], [])
+def _pserver_pair(fl, ly):
+    """A ListenAndServ program and a Send program built by one front end
+    -> their JSON."""
+    import json
+    server = fl.Program()
+    with fl.program_guard(server):
+        acc = server.global_block().create_var(name="Acc", shape=(1,),
+                                               dtype="float32")
+        ly.fill_constant(shape=[1], dtype="float32", value=0.0, out=acc)
+        serv = ly.ListenAndServ("127.0.0.1:0", ["X"], fan_in=2)
+        with serv.do():
+            x = ly.data(name="X", shape=[1], dtype="float32",
+                        append_batch_size=False)
+            ly.assign(ly.elementwise_add(acc, x), output=acc)
+    trainer = fl.Program()
+    with fl.program_guard(trainer):
+        x = ly.data(name="X", shape=[32, 32], dtype="float32",
+                    append_batch_size=False)
+        out = trainer.global_block().create_var(name="Out", shape=(32, 32),
+                                                dtype="float32")
+        ly.Send("127.0.0.1:6174", [x], [out])
+    return (json.loads(server.serialize_to_string()),
+            json.loads(trainer.serialize_to_string()))
+
+
+def test_parameter_server_layers_build_the_jax_op_pair():
+    """ListenAndServ (its sub-block, Fanin, out_vars) and Send build the
+    JAX package's programs, op for op."""
+    got = _pserver_pair(fluid, layers)
+    want = _pserver_pair(jfluid, jlayers)
+    assert got == want
+    types = [op["type"] for op in got[0]["blocks"][0]["ops"]]
+    assert types[-1] == "listen_and_serv"

@@ -99,7 +99,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "paddle_tpu_torch.serving.decode_engine, "
             "paddle_tpu_torch.core.executor, paddle_tpu_torch.layers, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.ops.attention_ops, "
-            "paddle_tpu_torch.ops.logic_ops, paddle_tpu_torch.models.resnet; "
+            "paddle_tpu_torch.ops.logic_ops, paddle_tpu_torch.models.resnet, "
+            "paddle_tpu_torch.parallel.ring_attention, "
+            "paddle_tpu_torch.parallel.pipeline, "
+            "paddle_tpu_torch.distributed.param_server, "
+            "paddle_tpu_torch.distributed.master, "
+            "paddle_tpu_torch.ops.dist_ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
