@@ -38,6 +38,9 @@
                                       # pipeline
     python3 chip_smoke.py --pserver   # phases 1 and 35, the dataset
                                       # master and the parameter server
+    python3 chip_smoke.py --v2        # phases 1-3 for the GRU and
+                                      # BatchNorm kernels, and 36, the
+                                      # legacy v2 trainer
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -427,11 +430,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the single-process card run that sums both batches' gradients and
    applies the sgd rule's update; the round seconds, the bytes on the
    wire, the straggler gap and pserver_rounds_total;
+36. the legacy training API (`paddle_tpu_torch.v2` over
+   `trainer_config_helpers`, fed by `trainer.PyDataProvider2`), through
+   paddle.layer, paddle.parameters.create, paddle.trainer.SGD(...).train
+   and paddle.infer on the card: the BatchNorm backward against its
+   plain version at small_vgg's first block (NCHW f32 relu, N 128, C 64,
+   32x32); (a) the GRU classifier of tools/gru_bench.py:47-54 in the v2
+   DSL at its full width (vocab 30000, H 512), f32, Adam 1e-3, batch
+   32, T 80, 20 steps from a @provider: step p50/p99 between
+   EndIteration events, examples/s, a profiled step's device ms and busy
+   share, one gru_fwd and one gru_bwd launch a step; one plain-SGD step
+   at batch 4 with ragged lengths from the same Parameters on the card
+   and on the CPU, the cost and every parameter after it within V2_TOL;
+   paddle.infer over 64 samples on both within V2_TOL; to_tar and
+   from_tar bitwise; (b) networks.small_vgg on CIFAR-10 shapes at batch
+   128 (Momentum 0.9, lr 0.1/128, L2 5e-4*128), 10 steps: step p50, the
+   BatchNorm backward's launches a step from the wrappers' counts and
+   from the profile (11), finite costs, SGD.test on the card against the
+   CPU's from the same Parameters within V2_TOL;
 then a JSON line with every ported kernel's launches (with
 launches_sparse_training, launches_remat_training,
 launches_remat_plain_training, launches_observe_training,
 launches_observe_serving, launches_fleet, launches_mesh,
-launches_sequence_parallel, launches_pipeline and launches_pserver),
+launches_sequence_parallel, launches_pipeline, launches_pserver and
+launches_v2),
 error and times, the
 card's name and power limit, and the last line: {"ok": true, "device":
 {...}}.
@@ -455,7 +477,8 @@ and phase 27; with --observe phase 1 and phases 28 and 29; with
 --fleet phase 1 and phases 30 and 31; with --mesh phase 1 and phase
 32; with --sharded-embedding phase 1 and phase 33; with
 --sequence-parallel phase 1 and phase 34; with --pserver phase 1 and
-phase 35.
+phase 35; with --v2 phase 1, phase 2 for the GRU and BatchNorm sources,
+the GRU's phase 3 checks and timings, and phase 36.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
@@ -10249,6 +10272,440 @@ def pserver_ab(smi):
     return {"pserver": dict(e2e, launches=launches)}
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the legacy training API (paddle_tpu_torch.v2)
+# ---------------------------------------------------------------------------
+
+#: leg (a): the GRU classifier of tools/gru_bench.py:47-54 in the v2 DSL
+#: at GRU_CONFIG's width, f32, Adam 1e-3, batch SEQ_BATCH, T SEQ_T at full
+#: lengths, V2_GRU_STEPS steps; the card-against-CPU step at batch
+#: SEQ_CPU_BATCH (ragged) and paddle.infer over V2_INFER_SAMPLES samples
+V2_GRU_STEPS, V2_INFER_SAMPLES = 20, 64
+#: leg (b): networks.small_vgg on CIFAR-10 shapes (3x32x32, 10 classes)
+#: as the reference's demo/image_classification/vgg_16_cifar.py
+#: configures it: batch 128, Momentum(0.9, 0.1 / 128), L2 5e-4 * 128
+V2_VGG_BATCH, V2_VGG_STEPS, V2_VGG_TEST_BATCH = 128, 10, 32
+#: the BatchNorm backward's launches a small_vgg step: the 10 conv
+#: blocks' BatchNorms (relu fused, NCHW) and the one over the fc output
+V2_VGG_BN_PER_STEP = 11
+#: small_vgg's BatchNorm backward launches at batch V2_VGG_BATCH, as the
+#: (C, S) of their [N, C, S] views, f32 with relu fused in each: the four
+#: conv groups at 32x32, 16x16, 8x8 and 4x4 (two, two, three and three
+#: blocks) and the fc's [N, 512]; each is a launch geometry of its own
+#: (`kernels.bn_bwd_geometry`), so each is checked (`_v2_vgg_leg`
+#: asserts that the program's BatchNorms are these)
+V2_VGG_BN_SHAPES = {"group 1": (64, 32 * 32), "group 2": (128, 16 * 16),
+                    "group 3": (256, 8 * 8), "group 4": (512, 4 * 4),
+                    "fc": (512, 1)}
+#: the whole-model rule (ROADMAP): each value's max abs error over its
+#: tensor's max |value|
+V2_TOL = 1e-4
+V2_KERNELS = ("gru_fwd", "gru_bwd", "batch_norm_bwd")
+
+
+def _v2_rel(got, want):
+    """Max abs error of ``got`` against ``want`` over max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes {got.shape} and {want.shape}")
+    return float(np.abs(got - want).max(initial=0.0)
+                 / max(float(np.abs(want).max(initial=0.0)), 1e-30))
+
+
+def _v2_gru_topology(paddle):
+    """The GRU classifier in the v2 DSL -> (cost, prediction)."""
+    vocab, hid = GRU_CONFIG["vocab"], GRU_CONFIG["hid"]
+    word = paddle.layer.data(
+        name="word", type=paddle.data_type.integer_value_sequence(vocab))
+    label = paddle.layer.data(name="label",
+                              type=paddle.data_type.integer_value(2))
+    emb = paddle.layer.embedding(input=word, size=hid)
+    gru = paddle.networks.simple_gru(input=emb, size=hid)
+    pooled = paddle.layer.pooling(input=gru,
+                                  pooling_type=paddle.pooling.Max())
+    pred = paddle.layer.fc(input=pooled, size=2,
+                           act=paddle.activation.Softmax())
+    return paddle.layer.classification_cost(input=pred, label=label), pred
+
+
+def _v2_gru_provider(n, seed, ragged=False):
+    """A PyDataProvider2 @provider of ``n`` seeded samples: SEQ_T ids (a
+    seeded length in [1, SEQ_T] with ``ragged``, the first full and the
+    last of length 1) and a binary label."""
+    from paddle_tpu_torch.trainer.PyDataProvider2 import (
+        integer_value, integer_value_sequence, provider)
+
+    @provider(input_types=[integer_value_sequence(GRU_CONFIG["vocab"]),
+                           integer_value(2)], should_shuffle=False)
+    def samples(settings, filename):
+        rng = np.random.default_rng(seed)
+        lens = (rng.integers(1, SEQ_T + 1, n) if ragged
+                else np.full(n, SEQ_T))
+        if ragged:
+            lens[0], lens[-1] = SEQ_T, 1
+        for length in lens:
+            yield (rng.integers(0, GRU_CONFIG["vocab"], int(length)),
+                   int(rng.integers(0, 2)))
+
+    return samples
+
+
+def _v2_train_timed(paddle, trainer, reader):
+    """``trainer.train`` over ``reader`` (one pass), the host clock read
+    after a synchronise at every EndIteration -> (costs, ms between
+    consecutive EndIteration events, the first step's ms)."""
+    import torch
+    stamps, costs = [], []
+
+    def handler(ev):
+        if isinstance(ev, paddle.event.BeginPass):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        elif isinstance(ev, paddle.event.EndIteration):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            costs.append(ev.cost)
+
+    trainer.train(reader, num_passes=1, event_handler=handler)
+    ms = [(b - a) * 1e3 for a, b in zip(stamps[:-1], stamps[1:])]
+    return costs, ms[1:], ms[0]
+
+
+def _v2_profile(trainer, batch):
+    """Two more ``trainer.train`` steps on ``batch`` under torch.profiler,
+    the first its warm-up (not kept) -> (device ms of every kernel of the
+    second, {kernel name: launches} in it, {wrapper: launches} in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from paddle_tpu_torch.ops import kernels as K
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            K.reset_launches()
+            trainer.train(lambda: iter([batch]), num_passes=1)
+            torch.cuda.synchronize()
+            prof.step()
+    wrappers = {k.name: k.launches for k in K.KERNELS}
+    annotations = {e.name for e in prof.events()
+                   if getattr(e, "is_user_annotation", False)}
+    rows = [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA
+            and not r.key.startswith("op:") and r.key not in annotations]
+    total = sum(r.device_time_total for r in rows) / 1e3
+    counts = {r.key: r.count for r in rows}
+    print(f"  profiled step: {total:.3f} device ms in "
+          f"{sum(counts.values())} kernel launches; the port's: "
+          + ", ".join(f"{k[:70]} x{n}" for k, n in sorted(counts.items())
+                      if any(f in k for f in ("gru_", "bn_", "rnn_")))
+          + "; the eight longest (ms, launches): " + "; ".join(
+              f"{r.device_time_total / 1e3:.3f} x{r.count} {r.key[:60]}"
+              for r in sorted(rows, key=lambda r: -r.device_time_total)[:8]),
+          flush=True)
+    return total, counts, wrappers
+
+
+def _v2_profiled_numbers(leg, device_ms, p50, profiled, wrappers):
+    """The profiled step's device ms and busy share, or None for both
+    where the profile holds fewer of a kernel's launches than its
+    wrapper counted in that step (the profile lost events)."""
+    complete = all(profiled[k] >= wrappers[k] for k in profiled)
+    print(f"  {leg} the profiled step's kernels: {profiled} in the "
+          f"profile, {dict((k, wrappers[k]) for k in profiled)} by the "
+          f"wrappers' counts"
+          + ("" if complete else "; the profile lost launches, so its "
+             "device ms and busy share are not kept"), flush=True)
+    return {"profile_complete": complete,
+            "profiled_device_ms": device_ms if complete else None,
+            "device_busy_share": device_ms / p50 if complete else None}
+
+
+def _v2_step_numbers(ms, batch, first_ms):
+    p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+    return {"step1_ms": first_ms, "step_ms_p50": p50, "step_ms_p99": p99,
+            "examples_per_s": batch * 1e3 / p50}
+
+
+def _v2_launch_check(leg, launches, want):
+    print(f"  {leg} launches: {launches}", flush=True)
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"phase 36 {leg}: {name} launched "
+                                 f"{launches[name]} times, want {n}")
+
+
+def _v2_params_copy(paddle, params, names):
+    """A tar of ``params``' values of ``names`` (the topology's
+    parameters) -> a maker of fresh Parameters objects holding them."""
+    import io
+    sub = paddle.parameters.Parameters()
+    for n in names:
+        sub.set(n, params.get(n))
+    buf = io.BytesIO()
+    sub.to_tar(buf)
+    raw = buf.getvalue()
+    return lambda: paddle.parameters.Parameters.from_tar(io.BytesIO(raw))
+
+
+def _v2_gru_leg(paddle, smi):
+    """Leg (a) -> (launches, numbers)."""
+    import io
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import kernels as K
+    cost, pred = _v2_gru_topology(paddle)
+    params = paddle.parameters.create(cost)
+    names = params.names()
+    trainer = paddle.trainer.SGD(
+        cost=cost, parameters=params,
+        update_equation=paddle.optimizer.Adam(learning_rate=1e-3))
+    reader = paddle.batch(_v2_gru_provider(SEQ_BATCH * V2_GRU_STEPS, 36),
+                          SEQ_BATCH)
+    K.reset_launches()
+    costs, ms, first = _v2_train_timed(paddle, trainer, reader)
+    launches = {k.name: k.launches for k in K.KERNELS}
+    _v2_launch_check("(a)", launches, {"gru_fwd": V2_GRU_STEPS,
+                                       "gru_bwd": V2_GRU_STEPS})
+    if len(costs) != V2_GRU_STEPS or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"phase 36 (a): costs {costs}")
+    e2e = _v2_step_numbers(ms, SEQ_BATCH, first)
+    device_ms, counts, step = _v2_profile(trainer, next(reader()))
+    _v2_launch_check("(a) the profiled step", step,
+                     {"gru_fwd": 1, "gru_bwd": 1})
+    profiled = {name: sum(n for k, n in counts.items()
+                          if name + "_kernel" in k)
+                for name in ("gru_fwd", "gru_bwd")}
+    e2e.update(cost_first=costs[0], cost_last=costs[-1],
+               gru_launches_profiled=profiled,
+               **_v2_profiled_numbers("(a)", device_ms, e2e["step_ms_p50"],
+                                      profiled, step))
+    print(f"  (a) step p50 {e2e['step_ms_p50']:.3f} ms, p99 "
+          f"{e2e['step_ms_p99']:.3f}, {e2e['examples_per_s']:.1f} "
+          f"examples/s, busy share {e2e['device_busy_share']} ({smi})",
+          flush=True)
+
+    # one plain-SGD step (lr 1: each parameter moves by its gradient; an
+    # Adam step moves each by about lr whatever its gradient) at batch 4
+    # with ragged lengths, from the same Parameters on the card and the
+    # CPU
+    fresh = _v2_params_copy(paddle, params, names)
+    batch = next(paddle.batch(_v2_gru_provider(SEQ_CPU_BATCH, 37,
+                                               ragged=True),
+                              SEQ_CPU_BATCH)())
+    after = {}
+    for key, place in (("card", fluid.CUDAPlace(0)),
+                       ("cpu", fluid.CPUPlace())):
+        p = fresh()
+        got = []
+        paddle.trainer.SGD(
+            cost=cost, parameters=p,
+            update_equation=paddle.optimizer.Optimizer(learning_rate=1.0),
+            place=place).train(
+            lambda: iter([batch]), num_passes=1,
+            event_handler=lambda ev: got.append(ev.cost) if isinstance(
+                ev, paddle.event.EndIteration) else None)
+        after[key] = (got[0], {n: p.get(n) for n in names})
+    cost_err = abs(after["card"][0] - after["cpu"][0]) / abs(after["cpu"][0])
+    param_errs = sorted(((_v2_rel(after["card"][1][n], after["cpu"][1][n]),
+                          n) for n in names), reverse=True)
+    print(f"  (a) card against CPU, one step at batch {SEQ_CPU_BATCH} "
+          f"(ragged): cost {cost_err:.3e}, parameters "
+          + ", ".join(f"{n} {e:.3e}" for e, n in param_errs)
+          + f" (limit {V2_TOL})", flush=True)
+    if cost_err > V2_TOL or param_errs[0][0] > V2_TOL:
+        raise AssertionError("phase 36 (a): the card's step disagrees with "
+                             "the CPU's")
+
+    # paddle.infer on the card against the CPU's, from the trained values
+    samples = [(s[0],) for s in _v2_gru_provider(V2_INFER_SAMPLES, 38,
+                                                 ragged=True)()]
+    probs = {key: paddle.infer(output_layer=pred, parameters=params,
+                               input=samples, place=place)
+             for key, place in (("card", fluid.CUDAPlace(0)),
+                                ("cpu", fluid.CPUPlace()))}
+    infer_err = _v2_rel(probs["card"], probs["cpu"])
+    print(f"  (a) paddle.infer over {V2_INFER_SAMPLES} samples "
+          f"{probs['card'].shape}: card against CPU {infer_err:.3e} (limit "
+          f"{V2_TOL})", flush=True)
+    if probs["card"].shape != (V2_INFER_SAMPLES, 2) or infer_err > V2_TOL:
+        raise AssertionError("phase 36 (a): paddle.infer on the card "
+                             "disagrees with the CPU's")
+
+    # the trained parameters through to_tar and from_tar, bitwise
+    buf = io.BytesIO()
+    params.to_tar(buf)
+    buf.seek(0)
+    back = paddle.parameters.Parameters.from_tar(buf)
+    if sorted(back.names()) != sorted(params.names()) or not all(
+            np.array_equal(back.get(n), params.get(n))
+            and back.get(n).dtype == params.get(n).dtype
+            for n in params.names()):
+        raise AssertionError("phase 36 (a): from_tar(to_tar(params)) is "
+                             "not bitwise the trained parameters")
+    print(f"  (a) to_tar/from_tar: {len(params.names())} values, "
+          f"{buf.getbuffer().nbytes} bytes, bitwise", flush=True)
+    e2e.update(card_vs_cpu={"cost_rel_err": cost_err,
+                            "param_rel_err_max": param_errs[0][0],
+                            "params_compared": len(names),
+                            "infer_rel_err": infer_err},
+               tar_bytes=buf.getbuffer().nbytes, tar_bitwise=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in V2_KERNELS}, e2e
+
+
+def _v2_vgg_samples(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 3 * 32 * 32), dtype=np.float32)
+    y = rng.integers(0, 10, n)
+    return lambda: ((x[i], int(y[i])) for i in range(n))
+
+
+def _v2_vgg_leg(paddle, smi):
+    """Leg (b) -> (launches, numbers)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import kernels as K
+    images = paddle.layer.data(
+        name="pixel", type=paddle.data_type.dense_vector(3 * 32 * 32),
+        height=32, width=32)
+    label = paddle.layer.data(name="label",
+                              type=paddle.data_type.integer_value(10))
+    out = paddle.networks.small_vgg(input_image=images, num_channels=3,
+                                    num_classes=10)
+    cost = paddle.layer.classification_cost(input=out, label=label)
+    params = paddle.parameters.create(cost)
+    names = params.names()
+
+    def momentum():
+        return paddle.optimizer.Momentum(
+            momentum=0.9, learning_rate=0.1 / V2_VGG_BATCH,
+            regularization=paddle.optimizer.L2Regularization(
+                rate=5e-4 * V2_VGG_BATCH))
+
+    trainer = paddle.trainer.SGD(cost=cost, parameters=params,
+                                 update_equation=momentum())
+    block = trainer._prog.global_block()
+    bn = [(tuple(block.var(op.desc.inputs["X"][0]).shape),
+           op.desc.attrs.get("act"))
+          for op in block.ops if op.type == "batch_norm"]
+    views = {((shape[1], int(np.prod(shape[2:], dtype=np.int64))), act)
+             for shape, act in bn}
+    if (len(bn) != V2_VGG_BN_PER_STEP or views
+            != {(cs, "relu") for cs in V2_VGG_BN_SHAPES.values()}):
+        raise AssertionError(f"small_vgg's BatchNorms {bn} are not "
+                             "V2_VGG_BN_SHAPES with relu")
+    reader = paddle.batch(_v2_vgg_samples(V2_VGG_BATCH * V2_VGG_STEPS, 39),
+                          V2_VGG_BATCH)
+    K.reset_launches()
+    costs, ms, first = _v2_train_timed(paddle, trainer, reader)
+    launches = {k.name: k.launches for k in K.KERNELS}
+    _v2_launch_check("(b)", launches, {
+        "batch_norm_bwd": V2_VGG_BN_PER_STEP * V2_VGG_STEPS})
+    if len(costs) != V2_VGG_STEPS or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"phase 36 (b): costs {costs}")
+    e2e = _v2_step_numbers(ms, V2_VGG_BATCH, first)
+    device_ms, counts, step = _v2_profile(trainer, next(reader()))
+    _v2_launch_check("(b) the profiled step", step,
+                     {"batch_norm_bwd": V2_VGG_BN_PER_STEP})
+    # each BatchNorm backward launches one bn_reduce_kernel
+    bn_profiled = sum(n for k, n in counts.items()
+                      if "bn_reduce_kernel" in k)
+    e2e.update(cost_first=costs[0], cost_last=costs[-1],
+               batch_norm_bwd_per_step=launches["batch_norm_bwd"]
+               / V2_VGG_STEPS, batch_norm_bwd_profiled=bn_profiled,
+               **_v2_profiled_numbers(
+                   "(b)", device_ms, e2e["step_ms_p50"],
+                   {"batch_norm_bwd": bn_profiled}, step))
+    print(f"  (b) step p50 {e2e['step_ms_p50']:.3f} ms, p99 "
+          f"{e2e['step_ms_p99']:.3f}, {e2e['examples_per_s']:.1f} "
+          f"examples/s, busy share {e2e['device_busy_share']}; "
+          f"batch_norm_bwd a step: "
+          f"{launches['batch_norm_bwd'] / V2_VGG_STEPS:g} by the wrappers' "
+          f"counts (the check), {bn_profiled} in the profiled step ({smi})",
+          flush=True)
+
+    # SGD.test (the test clone: dropout off, BatchNorm on its running
+    # statistics) on the card against the CPU's, from the same Parameters
+    fresh = _v2_params_copy(paddle, params, names)
+    test_reader = paddle.batch(_v2_vgg_samples(V2_VGG_TEST_BATCH, 40),
+                               V2_VGG_TEST_BATCH)
+    card = trainer.test(test_reader).cost
+    cpu = paddle.trainer.SGD(cost=cost, parameters=fresh(),
+                             update_equation=momentum(),
+                             place=fluid.CPUPlace()).test(test_reader).cost
+    test_err = abs(card - cpu) / abs(cpu)
+    print(f"  (b) SGD.test at batch {V2_VGG_TEST_BATCH}: card {card:.7f}, "
+          f"CPU {cpu:.7f}, {test_err:.3e} (limit {V2_TOL})", flush=True)
+    if not test_err <= V2_TOL:
+        raise AssertionError("phase 36 (b): the card's SGD.test disagrees "
+                             "with the CPU's")
+    e2e.update(test_cost_card=card, test_cost_cpu=cpu,
+               test_rel_err=test_err)
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in V2_KERNELS}, e2e
+
+
+def check_v2_batch_norm(rec):
+    """The BatchNorm backward against its plain version at every
+    V2_VGG_BN_SHAPES launch of small_vgg: [V2_VGG_BATCH, C, S] f32 with
+    relu."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(36)
+    n = V2_VGG_BATCH
+    for label, (c, s) in V2_VGG_BN_SHAPES.items():
+        x = (1.5 * torch.randn((n, c, s), generator=g, device=dev) + 0.3)
+        dy = torch.randn((n, c, s), generator=g, device=dev)
+        sc = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+        bi = 0.5 * torch.randn(c, generator=g, device=dev)
+        mean = x.mean(dim=(0, 2))
+        inv = torch.rsqrt(x.var(dim=(0, 2), unbiased=False) + 1e-5)
+        args = (x, dy, sc, bi, mean, inv, "relu")
+        got, ref = K.batch_norm_bwd(*args), K.batch_norm_bwd_plain(*args)
+        torch.cuda.synchronize()
+        _check("batch_norm_bwd", list(zip(got, ref)), "float32",
+               f"small_vgg {label} NCHW ({n}, {c}, {s}) act=relu", rec)
+
+
+def v2_phase(smi, rec_bn):
+    """Phase 36 (the module docstring's 36) -> (launches, numbers)."""
+    import paddle_tpu_torch.v2 as paddle
+    t0 = time.perf_counter()
+    print(f"phase 36: the legacy v2 trainer: the GRU classifier (vocab "
+          f"{GRU_CONFIG['vocab']}, H {GRU_CONFIG['hid']}, batch {SEQ_BATCH}, "
+          f"T {SEQ_T}, f32, Adam) and small_vgg on CIFAR-10 shapes (batch "
+          f"{V2_VGG_BATCH}, f32, Momentum) through paddle.trainer.SGD "
+          f"({smi})", flush=True)
+    check_v2_batch_norm(rec_bn)
+    paddle.init(seed=36)
+    gru_launches, gru = _v2_gru_leg(paddle, smi)
+    vgg_launches, vgg = _v2_vgg_leg(paddle, smi)
+    launches = {k: gru_launches[k] + vgg_launches[k] for k in V2_KERNELS}
+    e2e = {"card": smi, "gru": gru, "small_vgg": vgg,
+           "seconds": time.perf_counter() - t0}
+    print(f"  end to end ({smi}): {json.dumps(e2e)}", flush=True)
+    return launches, e2e
+
+
+def v2_ab(smi):
+    """``--v2``: phase 2 for the GRU and BatchNorm backward sources, the
+    GRU's phase 3 checks and timings, then phase 36."""
+    from paddle_tpu_torch.ops import _build, kernels as K
+    t0 = time.perf_counter()
+    _build.build_all({k.source for k in K.KERNELS if k.name in V2_KERNELS})
+    print(f"phase 2: the GRU and BatchNorm kernels built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    recs = {k: {} for k in V2_KERNELS}
+    print("phase 3: the GRU kernels against their plain versions",
+          flush=True)
+    check_recurrent("gru", recs["gru_fwd"], recs["gru_bwd"], strict=False)
+    launches, e2e = v2_phase(smi, recs["batch_norm_bwd"])
+    return {"v2": dict(e2e, launches=launches), "kernels": recs}
+
+
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
@@ -10259,7 +10716,7 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--fleet": fleet_ab, "--mesh": mesh_ab,
             "--sharded-embedding": sharded_embedding_ab,
             "--sequence-parallel": sequence_parallel_ab,
-            "--pserver": pserver_ab}
+            "--pserver": pserver_ab, "--v2": v2_ab}
 
 
 def main(argv=()):
@@ -10436,6 +10893,7 @@ def main(argv=()):
     sharded_embedding_phase(smi)
     sp_launches, pp_launches, _ = sequence_parallel_phase(smi)
     ps_launches, _ = pserver_phase(smi)
+    v2_launches, _ = v2_phase(smi, recs["batch_norm_bwd"])
 
     kernels = []
     for k in K.KERNELS:
@@ -10460,7 +10918,8 @@ def main(argv=()):
                          + mesh_launches.get(k.name, 0)
                          + sp_launches.get(k.name, 0)
                          + pp_launches.get(k.name, 0)
-                         + ps_launches.get(k.name, 0)),
+                         + ps_launches.get(k.name, 0)
+                         + v2_launches.get(k.name, 0)),
             "launches_serving": serve_launches[k.name],
             "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
@@ -10497,6 +10956,7 @@ def main(argv=()):
             "launches_sequence_parallel": sp_launches.get(k.name, 0),
             "launches_pipeline": pp_launches.get(k.name, 0),
             "launches_pserver": ps_launches.get(k.name, 0),
+            "launches_v2": v2_launches.get(k.name, 0),
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

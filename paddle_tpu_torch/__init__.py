@@ -44,7 +44,11 @@ so far:
   model (``io.save_inference_model`` / ``load_inference_model``), the
   dynamic batcher `serving.ServingEngine`, `serving.ModelRegistry`, the
   TCP `serving.InferenceServer` (the JAX package's wire), and
-  ``python -m paddle_tpu_torch serve``.
+  ``python -m paddle_tpu_torch serve``;
+- the legacy training API: the v1 config DSL (`trainer_config_helpers`),
+  ``import paddle_tpu_torch.v2 as paddle`` (``paddle.trainer.SGD``,
+  ``paddle.infer`` and the JAX package's parameter tars),
+  `trainer.PyDataProvider2` and `debuger`.
 
 Their kernels (paged attention, FlashAttention-2 forward and backward,
 LayerNorm forward and backward, softmax cross-entropy forward and

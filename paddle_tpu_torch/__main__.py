@@ -60,10 +60,21 @@ of ``paddle_tpu/__main__.py``; the serving and training verbs):
                         --batch-size here, or of every program a live
                         server has run; --roofline adds the verdict
                         against the card's roofs
+  merge_model <model_dir> <out_dir>
+                        re-save an exported inference model with all its
+                        weights in ONE __params__.npz (--params-filename
+                        names the source's own combined file)
+  dump_config <script>  run a config script (not as ``__main__``: its
+                        training guard does not fire) and print the
+                        default main Program's JSON, the JAX package's
+                        for the same script
+  make_diagram <script> <out.dot>
+                        the graphviz dot of that Program's global block
+  version               the port's version, torch's, CUDA's and the
+                        number of cards
 
 The client verbs read the endpoint from HOST:PORT or from the port file
-a local ``serve`` wrote.  ``merge_model``, ``dump_config``,
-``make_diagram`` and ``version`` wait for ROADMAP queue A item 6.
+a local ``serve`` wrote.
 """
 from __future__ import annotations
 
@@ -759,6 +770,62 @@ def cmd_checkpoints(args):
     return 0
 
 
+def _run_script_collect_program(script, script_args):
+    """Run a config script as the JAX helper does, under the run name
+    ``__paddle_tpu_config__`` (a script's ``if __name__ == "__main__":``
+    training guard must not fire just to dump or draw its program) ->
+    the port's default main Program."""
+    import runpy
+    sys.argv = [script] + list(script_args)
+    runpy.run_path(script, run_name="__paddle_tpu_config__")
+    from .core.program import default_main_program
+    return default_main_program()
+
+
+def cmd_merge_model(args):
+    import paddle_tpu_torch as fluid
+    fluid.core.program.reset_default_programs()
+    exe = fluid.Executor(fluid.CPUPlace())
+    program, feed_names, fetch_vars = fluid.io.load_inference_model(
+        args.model_dir, exe, params_filename=args.params_filename)
+    scope = fluid.global_scope()
+    missing = [v.name for v in program.global_block().vars.values()
+               if v.persistable and scope.get(v.name) is None]
+    if missing:
+        raise SystemExit(
+            f"merge_model: {len(missing)} persistable vars did not load "
+            f"from {args.model_dir} (e.g. {missing[:3]}); if the source "
+            "was itself merged, pass --params-filename __params__.npz")
+    fluid.io.save_inference_model(
+        args.out_dir, feed_names, fetch_vars, exe, main_program=program,
+        params_filename="__params__.npz")
+    print(f"merged model -> {args.out_dir} (__model__ + __params__.npz)")
+    return 0
+
+
+def cmd_dump_config(args):
+    prog = _run_script_collect_program(args.script, args.script_args)
+    print(json.dumps(prog.to_dict(), indent=1))
+    return 0
+
+
+def cmd_make_diagram(args):
+    prog = _run_script_collect_program(args.script, [])
+    from .debuger import draw_block_graphviz
+    draw_block_graphviz(prog.global_block(), path=args.output)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_version(args):
+    import torch
+    import paddle_tpu_torch
+    print(f"paddle_tpu_torch {paddle_tpu_torch.__version__}")
+    print(f"torch {torch.__version__}; CUDA {torch.version.cuda}; "
+          f"devices {torch.cuda.device_count()}")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1003,6 +1070,29 @@ def main(argv=None):
                         "bound against the card's roofs")
     p.add_argument("--timeout", type=float, default=30.0)
     p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser("merge_model",
+                       help="combine an exported model's weights into one "
+                            "file")
+    p.add_argument("model_dir")
+    p.add_argument("out_dir")
+    p.add_argument("--params-filename", default=None,
+                   help="combined params file of the SOURCE model (for "
+                        "re-merging an already-merged dir)")
+    p.set_defaults(fn=cmd_merge_model)
+
+    p = sub.add_parser("dump_config", help="print a script's Program JSON")
+    p.add_argument("script")
+    p.add_argument("script_args", nargs=argparse.REMAINDER)
+    p.set_defaults(fn=cmd_dump_config)
+
+    p = sub.add_parser("make_diagram", help="graphviz of a script's program")
+    p.add_argument("script")
+    p.add_argument("output")
+    p.set_defaults(fn=cmd_make_diagram)
+
+    p = sub.add_parser("version", help="print version info")
+    p.set_defaults(fn=cmd_version)
 
     args = ap.parse_args(argv)
     # the verb's own words, which serve --mesh gives its follower ranks

@@ -42,6 +42,15 @@ every rank.
 `calc_gradient` appends the same op for any targets and inputs (the
 JAX function's program), so a program may hold several; the interpreter
 records up to the last, and every one but the last keeps the graph.
+
+``print_grad``.  A var flagged ``desc.print_grad``
+(``gradient_printer_evaluator``) prints the cotangent that reaches it.
+Where the JAX rule routes the replayed value through an identity whose
+VJP prints, the rule hooks the recorded forward value
+(`hook_print_grad`, a ``Tensor.register_hook`` that returns the
+cotangent unchanged) for the one ``torch.autograd.grad`` and removes the
+hook after it.  Every consumer read that tensor, so the hook sees the
+sum of their cotangents, as the JAX probe does.
 """
 from __future__ import annotations
 
@@ -152,6 +161,31 @@ def _sparse_sites(block, op_end, sparse_params):
     return sites
 
 
+def hook_print_grad(block, op_end, env) -> list:
+    """Hook every ``print_grad`` var that ops ``[0, op_end)`` wrote and
+    that carries a recorded graph -> the hooks' handles."""
+    flagged = {name for name, var in block.vars.items()
+               if var.desc.print_grad}
+    if not flagged:
+        return []
+    from ..ops.array_ops import print_cotangent
+
+    def hook(g):
+        print_cotangent(g)
+        return g
+
+    handles = []
+    for op in block.ops[:op_end]:
+        for name in op.desc.output_names():
+            val = env.get(name)
+            if (name not in flagged or not isinstance(val, torch.Tensor)
+                    or not val.requires_grad):
+                continue
+            flagged.discard(name)
+            handles.append(val.register_hook(hook))
+    return handles
+
+
 @register_op("backward")
 def _backward_rule(ctx: ExecContext):
     loss = ctx.input("Loss")
@@ -177,9 +211,13 @@ def _backward_rule(ctx: ExecContext):
             if leaf is not None and leaf.requires_grad]
     got = {}
     if loss.requires_grad and wrt:
+        handles = hook_print_grad(ctx.block, ctx.attr("forward_op_end"),
+                                  ctx.env)
         grads = torch.autograd.grad(
             loss, wrt, grad_outputs=loss_grad, allow_unused=True,
             retain_graph=ctx.op is not ctx.interpreter.last_backward)
+        for h in handles:
+            h.remove()
         got = {id(t): g for t, g in zip(wrt, grads)}
     step = ctx.interpreter.partitioner
     loss_name = ctx.op.desc.inputs["Loss"][0]

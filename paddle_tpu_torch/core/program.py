@@ -41,7 +41,7 @@ class VarDesc:
     __slots__ = ("name", "shape", "dtype", "type", "persistable",
                  "stop_gradient", "lod_level", "is_data", "initializer",
                  "trainable", "regularizer", "optimize_attr", "error_clip",
-                 "gradient_clip_attr", "do_model_average")
+                 "gradient_clip_attr", "do_model_average", "print_grad")
 
     def __init__(self, name, shape=None, dtype="float32",
                  type=core_types.VarType.LOD_TENSOR, persistable=False,
@@ -63,6 +63,10 @@ class VarDesc:
         self.error_clip = None
         self.gradient_clip_attr = None
         self.do_model_average = False
+        # gradient_printer_evaluator: print this var's cotangent in the
+        # backward (core.backward.hook_print_grad); not serialised, as in
+        # the JAX package
+        self.print_grad = False
 
     def to_dict(self):
         return {
@@ -495,6 +499,20 @@ class Program:
 
     def serialize_to_string(self) -> str:
         return json.dumps(self.to_dict())
+
+    def to_string(self, throw_on_error=True, with_details=False):
+        """A readable listing: each block's vars, then its ops (the JAX
+        package's text, line for line)."""
+        lines = []
+        for b in self.blocks:
+            lines.append(f"block {b.idx} (parent {b.parent_idx}):")
+            for v in b.vars.values():
+                flag = "P" if v.persistable else " "
+                shape = list(v.shape) if v.shape else "?"
+                lines.append(f"  var[{flag}] {v.name} : {v.dtype}{shape}")
+            for op in b.ops:
+                lines.append(f"  op {op.desc!r}")
+        return "\n".join(lines)
 
     @staticmethod
     def parse_from_string(s: str) -> "Program":

@@ -55,6 +55,11 @@ def _print(ctx):
     ctx.set_output("Out", x)
 
 
+def print_cotangent(dy: torch.Tensor):
+    """The ``[gradient_printer]`` line of a cotangent (the JAX probe's)."""
+    print(f"[gradient_printer] {dy.detach().cpu().numpy()}", flush=True)
+
+
 class GradProbe(torch.autograd.Function):
     """Identity whose backward prints the cotangent."""
 
@@ -64,7 +69,7 @@ class GradProbe(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        print(f"[gradient_printer] {dy.detach().cpu().numpy()}", flush=True)
+        print_cotangent(dy)
         return dy
 
 

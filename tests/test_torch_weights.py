@@ -104,7 +104,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             "paddle_tpu_torch.parallel.pipeline, "
             "paddle_tpu_torch.distributed.param_server, "
             "paddle_tpu_torch.distributed.master, "
-            "paddle_tpu_torch.ops.dist_ops; "
+            "paddle_tpu_torch.ops.dist_ops, paddle_tpu_torch.v2, "
+            "paddle_tpu_torch.v2.image, paddle_tpu_torch.v2.master, "
+            "paddle_tpu_torch.v2.plot, paddle_tpu_torch.trainer_config_helpers, "
+            "paddle_tpu_torch.trainer.PyDataProvider2, "
+            "paddle_tpu_torch.debuger, paddle_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
