@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-35
+    python3 chip_smoke.py             # the smoke run, phases 1-37
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -41,12 +41,16 @@
     python3 chip_smoke.py --v2        # phases 1-3 for the GRU and
                                       # BatchNorm kernels, and 36, the
                                       # legacy v2 trainer
+    python3 chip_smoke.py --csp       # phases 1-3 for the BatchNorm
+                                      # backward and LSTM kernels, and
+                                      # 37, CSP and the native runtime
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ops/csrc (one nvcc per source, all
-   started together) and print the build seconds and ptxas report;
+   started together) and, beside them, the native C++ library (one g++
+   per source), and print the build seconds and ptxas report;
 3. hold each kernel against its plain PyTorch version at the main paths'
    shapes, in f32 and bf16 (the flash kernels also at head_dim 32 and at
    tile-edge lengths, paged attention also at one slot of 2047
@@ -425,11 +429,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    finished once and the survivor's loss falls; (b) a ListenAndServ
    (fan_in=2) pserver on the card whose sub-block applies SGD to every
    parameter of the LM at TRAIN_CONFIG width, depth cut to 2, and two
-   trainers on the card that Send their batch-16 gradients for 3
-   rounds: after each round the parameters (and each loss) are bitwise
-   the single-process card run that sums both batches' gradients and
-   applies the sgd rule's update; the round seconds, the bytes on the
-   wire, the straggler gap and pserver_rounds_total;
+   trainers on the card that Send their batch-16 gradients for 2
+   rounds (cut from 3 for time): after each round the parameters (and
+   each loss) are bitwise the single-process card run that sums both
+   batches' gradients and applies the sgd rule's update; the round
+   seconds, the bytes on the wire, the straggler gap and
+   pserver_rounds_total;
 36. the legacy training API (`paddle_tpu_torch.v2` over
    `trainer_config_helpers`, fed by `trainer.PyDataProvider2`), through
    paddle.layer, paddle.parameters.create, paddle.trainer.SGD(...).train
@@ -448,12 +453,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
    BatchNorm backward's launches a step from the wrappers' counts and
    from the profile (11), finite costs, SGD.test on the card against the
    CPU's from the same Parameters within V2_TOL;
+37. CSP (`paddle_tpu_torch.concurrency`, the channel, go and select
+   rules) and the native C++ runtime (`paddle_tpu_torch.native`, built
+   with g++ at first use): (a) ResNet-50 at phase 7's program and batch
+   (224x224 NHWC, program.amp, Momentum, batch 128), trained CSP_STEPS
+   steps from CSP_BATCHES distinct batches of seeded uint8 images
+   written by dataset.common.convert through the C++ writer (zlib), one
+   shard a batch, CSP_WRITERS at once: a Go producer reads them with
+   reader.creator.recordio_threaded (the C++ FileLoader, 4 threads),
+   unpickles, stacks, copies pinned to the card on a side stream and
+   normalizes there in f32, and sends each batch on a channel of
+   capacity 2; the consumer receives until the channel is closed and
+   runs Executor.run(feed=...) a batch; the same steps from batches
+   already on the card: both steps' p50/p99 and images/s, their ratio,
+   the consumer's wait in recv and the producer's in send, a profiled
+   fed step's device ms and busy share with its 53 BatchNorm backward
+   launches, the write's seconds and MB/s, the loader alone with 1 and 4
+   threads against the Python Scanner (records/s, MB/s), the producer
+   alone (ms a batch with a consumer that only receives); every sample
+   index exactly once a pass, the FileLoader opened and no Python
+   Scanner built, and one f32 step at batch 4 through the pipeline
+   bitwise the same step fed directly; (b) the reference's CSP programs
+   on Executor(CUDAPlace(0)), each bounded by CSP_PROGRAM_TIMEOUT: the
+   simple routine (1234), the daisy chain at n = 100 (101) and
+   Fibonacci through ProgramGo + ProgramSelect + While (34), exactly,
+   with CUDA payloads; 1000 unbuffered rendezvous of a [1] CUDA tensor
+   between two Go threads (us a pair); (c) phase 9's stacked LSTM
+   classifier at LSTM_CONFIG, f32, exported with io.save_inference_model
+   and run on 4 sequences of length 80 by the card Predictor (2 lstm_fwd
+   launches), native.CpuPredictor and the C API (the two C++ runs at
+   once), within CSP_CPP_TOL of each other, each one's ms;
 then a JSON line with every ported kernel's launches (with
 launches_sparse_training, launches_remat_training,
 launches_remat_plain_training, launches_observe_training,
 launches_observe_serving, launches_fleet, launches_mesh,
-launches_sequence_parallel, launches_pipeline, launches_pserver and
-launches_v2),
+launches_sequence_parallel, launches_pipeline, launches_pserver,
+launches_v2 and launches_csp),
 error and times, the
 card's name and power limit, and the last line: {"ok": true, "device":
 {...}}.
@@ -478,7 +513,9 @@ and phase 27; with --observe phase 1 and phases 28 and 29; with
 32; with --sharded-embedding phase 1 and phase 33; with
 --sequence-parallel phase 1 and phase 34; with --pserver phase 1 and
 phase 35; with --v2 phase 1, phase 2 for the GRU and BatchNorm sources,
-the GRU's phase 3 checks and timings, and phase 36.
+the GRU's phase 3 checks and timings, and phase 36; with --csp phase 1,
+phase 2 for the BatchNorm backward and LSTM sources, their phase 3
+checks and timings, and phase 37.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
@@ -614,13 +651,15 @@ SUM_TOL = 1e-4
 #: backward op run in every training step (and every optimizer rule in
 #: phase 18), the DynamicRNN in phase 9, the loss scaler's rules in
 #: phase 17, the parameter server's op pair (a server blocks until a
-#: shutdown message) in phase 35
+#: shutdown message) in phase 35, the CSP rules (a rendezvous needs a
+#: peer) in phase 37
 OPTIMIZER_RULES = ("sgd", "momentum", "adam", "adamax", "adagrad",
                    "decayed_adagrad", "adadelta", "rmsprop", "ftrl",
                    "proximal_gd", "proximal_adagrad", "average_accumulates")
 PHASE16_ELSEWHERE = set(OPTIMIZER_RULES) | {
     "backward", "dynamic_rnn", "check_finite_and_unscale",
-    "update_loss_scaling", "listen_and_serv", "send"}
+    "update_loss_scaling", "listen_and_serv", "send", "channel_create",
+    "channel_send", "channel_recv", "channel_close", "go", "select"}
 #: phase 11: one f32 step of each at full width on the card and the CPU,
 #: batch 4, ragged lengths
 SEQ_CPU_BATCH = 4
@@ -2205,8 +2244,9 @@ def _fd_prompts(vocab, seed):
     return prompts
 
 
-def _run_threads(fn, n):
-    """Run ``fn(t)`` on n threads; re-raise the first failure."""
+def _run_threads(fn, n, timeout=900):
+    """Run ``fn(t)`` on n threads; re-raise the first failure; fail if
+    one has not finished ``timeout`` seconds after its join began."""
     import threading
     errors = []
 
@@ -2221,9 +2261,9 @@ def _run_threads(fn, n):
     for t in threads:
         t.start()
     for t in threads:
-        t.join(900)
+        t.join(timeout)
     if any(t.is_alive() for t in threads):
-        raise AssertionError("a client thread did not finish in 900 s")
+        raise AssertionError(f"a thread did not finish in {timeout} s")
     if errors:
         raise errors[0]
 
@@ -9790,9 +9830,10 @@ MS_FILES, MS_CHUNKS, MS_RECORDS = 8, 8, 32
 MS_TASK_TIMEOUT, MS_BATCH = 2.0, 16
 MS_TIMEOUT = 300.0
 #: the parameter server's LM: TRAIN_CONFIG at depth 2 (cut from 12),
-#: batch 16 a trainer, SGD, 3 rounds of 2 trainers
+#: batch 16 a trainer, SGD, 2 rounds of 2 trainers (cut from 3 to keep
+#: the whole run inside its time limit)
 PS_CONFIG = dict(TRAIN_CONFIG, n_layers=2)
-PS_TRAINERS, PS_ROUNDS, PS_LR = 2, 3, 0.01
+PS_TRAINERS, PS_ROUNDS, PS_LR = 2, 2, 0.01
 PS_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
               "layer_norm_fwd", "layer_norm_bwd", "softmax_xent_fwd",
               "softmax_xent_bwd")
@@ -10706,6 +10747,735 @@ def v2_ab(smi):
     return {"v2": dict(e2e, launches=launches), "kernels": recs}
 
 
+# ---------------------------------------------------------------------------
+# phase 37: CSP and the native C++ runtime
+# ---------------------------------------------------------------------------
+
+#: leg (a): distinct batches of RESNET_BATCH seeded uint8 images written
+#: as one recordio shard each, by CSP_WRITERS convert calls at once (the
+#: C++ writer deflates uniform pixels at about 6 MB/s a thread on the
+#: H100 host); CSP_STEPS steps read them in CSP_STEPS / CSP_BATCHES
+#: passes
+CSP_BATCHES, CSP_STEPS, CSP_WRITERS = 8, RESNET_STEPS, 8
+#: the C++ loader's threads and the channel's capacity
+CSP_THREADS, CSP_CAPACITY = 4, 2
+#: the write is to stay under this many seconds (else fewer batches)
+CSP_WRITE_LIMIT_S = 10.0
+#: the pipeline-against-direct step: f32, this batch, one shard
+CSP_CHECK_BATCH = 4
+#: the pipeline check holds bitwise, or within this relative error where
+#: a reduction's order differs
+CSP_CHECK_RTOL = 1e-6
+#: leg (b): each program's bound, the daisy chain's length and the
+#: rendezvous count
+CSP_PROGRAM_TIMEOUT, CSP_DAISY, CSP_RENDEZVOUS = 60.0, 100, 1000
+#: leg (c): the batch (SEQ_T long) and the three runners' agreement
+CSP_CPP_BATCH, CSP_CPP_TOL = 4, 1e-4
+CSP_KERNELS = ("batch_norm_bwd", "lstm_fwd")
+
+
+def _csp_images(n, seed=37):
+    """n seeded uint8 HWC images at RESNET_CONFIG's shape and labels."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n,) + RESNET_CONFIG["image_shape"],
+                          dtype=np.uint8)
+    labels = rng.integers(0, RESNET_CONFIG["class_dim"], n)
+    return images, labels
+
+
+def _csp_write(root, name, images, labels, per_shard):
+    """(index, image, label) samples written by dataset.common.convert
+    through the C++ writer, one shard of ``per_shard`` a call, up to
+    CSP_WRITERS calls at once (the writer's deflate runs without the
+    GIL) -> (paths, seconds, bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.dataset import common
+    os.makedirs(root, exist_ok=True)
+
+    def shard(b):
+        lo, hi = b * per_shard, min((b + 1) * per_shard, len(images))
+
+        def samples():
+            for i in range(lo, hi):
+                yield (i, images[i], int(labels[i]))
+        if common.convert(root, samples, per_shard, f"{name}{b:03d}") != 1:
+            raise AssertionError(f"phase 37: shard {b} is not one file")
+        return os.path.join(root, f"{name}{b:03d}-00000")
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CSP_WRITERS) as pool:
+        paths = list(pool.map(shard, range(-(-len(images) // per_shard))))
+    seconds = time.perf_counter() - t0
+    return paths, seconds, sum(os.path.getsize(p) for p in paths)
+
+
+def _csp_produce(ch, paths, steps, batch, stats):
+    """The Go producer: passes over ``paths`` through recordio_threaded,
+    each ``batch`` samples unpickled, stacked, copied pinned to the card
+    on a side stream and normalized there in f32, then sent with the
+    copy's event and the sample indices; closes the channel after
+    ``steps`` batches.  ``stats["passes"]`` gets each pass's indices."""
+    import pickle
+    import torch
+    from paddle_tpu_torch.reader import creator
+    stream = torch.cuda.Stream()
+    sent = 0
+    while sent < steps:
+        seen = []
+        stats["passes"].append(seen)
+        imgs, labs = [], []
+        records = creator.recordio_threaded(paths,
+                                            num_threads=CSP_THREADS)()
+        try:
+            for rec in records:
+                i, img, lab = pickle.loads(rec)
+                seen.append(i)
+                imgs.append(img)
+                labs.append(lab)
+                if len(imgs) < batch:
+                    continue
+                x = torch.from_numpy(np.stack(imgs)).pin_memory()
+                y = torch.from_numpy(np.asarray(labs, np.int64)
+                                     .reshape(-1, 1)).pin_memory()
+                with torch.cuda.stream(stream):
+                    xd = x.to("cuda", non_blocking=True).float().mul_(
+                        1.0 / 255.0)
+                    yd = y.to("cuda", non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+                t = time.perf_counter()
+                ch.send((xd, yd, ready, seen[-batch:]))
+                stats["send_s"] += time.perf_counter() - t
+                sent += 1
+                imgs, labs = [], []
+                if sent == steps:
+                    break
+        finally:
+            records.close()
+        if len(seen) < batch:
+            raise AssertionError(f"phase 37: a pass over {paths} read "
+                                 f"{len(seen)} samples, under one batch")
+    ch.close()
+
+
+def _csp_go_producer(ch, paths, steps, batch, stats):
+    """`_csp_produce` on a Go thread; a failure lands in
+    ``stats["error"]`` and closes the channel, so the consumer ends."""
+    from paddle_tpu_torch import concurrency
+
+    def produce():
+        try:
+            _csp_produce(ch, paths, steps, batch, stats)
+        except BaseException as e:  # noqa: BLE001  (raised by the caller)
+            stats["error"] = e
+            ch.close()
+    return concurrency.Go(produce)
+
+
+def _csp_train(exe, main, avg_cost, paths, steps, batch=None,
+               scope=None, hook=None):
+    """``steps`` steps of ``main`` fed through the CSP pipeline: a Go
+    producer (`_csp_produce`) and this thread receiving until the channel
+    is closed, one Executor.run a batch (``hook("before"/"after")``
+    around each) -> (ms a step, from the recv to the step's end; losses;
+    each batch's indices; stats: recv_s, send_s, passes)."""
+    import torch
+    from paddle_tpu_torch import concurrency
+    batch = batch or RESNET_BATCH
+    ch = concurrency.make_channel(capacity=CSP_CAPACITY)
+    stats = {"recv_s": 0.0, "send_s": 0.0, "passes": [], "error": None}
+    producer = _csp_go_producer(ch, paths, steps, batch, stats)
+    ms, losses, batches = [], [], []
+    while True:
+        t = time.perf_counter()
+        item, ok = ch.recv()
+        if not ok:
+            break
+        stats["recv_s"] += time.perf_counter() - t
+        x, y, ready, idx = item
+        cur = torch.cuda.current_stream()
+        cur.wait_event(ready)
+        x.record_stream(cur)
+        y.record_stream(cur)
+        if hook is not None:
+            hook("before")
+        (loss,) = exe.run(main, feed={"data": x, "label": y},
+                          fetch_list=[avg_cost], scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if hook is not None:
+            hook("after")
+        losses.append(float(loss))
+        batches.append(list(idx))
+    producer.join(CSP_PROGRAM_TIMEOUT)
+    if stats["error"] is not None:
+        raise stats["error"]
+    if len(ms) != steps:
+        raise AssertionError(f"phase 37: {len(ms)} batches arrived, want "
+                             f"{steps}")
+    return ms, losses, batches, stats
+
+
+def _csp_producer_alone(paths, steps):
+    """The producer with a consumer that only receives: ms a batch after
+    the first (what the pipeline can feed with no training beside it)."""
+    import torch
+    from paddle_tpu_torch import concurrency
+    ch = concurrency.make_channel(capacity=CSP_CAPACITY)
+    stats = {"send_s": 0.0, "passes": [], "error": None}
+    producer = _csp_go_producer(ch, paths, steps, RESNET_BATCH, stats)
+    stamps = []
+    for _ in ch:
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    producer.join(CSP_PROGRAM_TIMEOUT)
+    if stats["error"] is not None:
+        raise stats["error"]
+    if len(stamps) != steps:
+        raise AssertionError(f"phase 37: the producer alone sent "
+                             f"{len(stamps)} of {steps} batches")
+    return (stamps[-1] - stamps[0]) * 1e3 / (steps - 1)
+
+
+def _csp_loader_rates(paths):
+    """The loader alone over ``paths``: the C++ FileLoader with 1 and 4
+    threads and the Python Scanner -> {label: records/s, MB/s, s}."""
+    from paddle_tpu_torch import native, recordio
+    out = {}
+    for label, make in (
+            ("cpp_1_thread", lambda: native.FileLoader(paths, 1)),
+            ("cpp_4_threads", lambda: native.FileLoader(paths, 4)),
+            ("python_scanner", lambda: (r for p in paths
+                                        for r in recordio.Scanner(p)))):
+        t0 = time.perf_counter()
+        it = make()
+        n = nbytes = 0
+        for rec in it:
+            n += 1
+            nbytes += len(rec)
+        dt = time.perf_counter() - t0
+        if hasattr(it, "close"):
+            it.close()
+        out[label] = {"records": n, "seconds": dt, "records_per_s": n / dt,
+                      "mb_per_s": nbytes / dt / 1e6}
+    if len({r["records"] for r in out.values()}) != 1:
+        raise AssertionError(f"phase 37: the readers disagree: {out}")
+    return out
+
+
+def _csp_profile(exe, main, avg_cost, paths, scope):
+    """Two more fed steps under torch.profiler, the first its warm-up ->
+    (device ms of the second, its BatchNorm backward launches by the
+    wrapper's count, the profile's bn kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from paddle_tpu_torch.ops import kernels as K
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        def hook(when):
+            if when == "before":
+                K.reset_launches()
+            else:
+                prof.step()
+        _csp_train(exe, main, avg_cost, paths, 2, scope=scope, hook=hook)
+    wrapper = {k.name: k.launches for k in K.KERNELS}["batch_norm_bwd"]
+    annotations = {e.name for e in prof.events()
+                   if getattr(e, "is_user_annotation", False)}
+    rows = [r for r in prof.key_averages()
+            if r.device_type == torch.autograd.DeviceType.CUDA
+            and not r.key.startswith("op:") and r.key not in annotations]
+    total = sum(r.device_time_total for r in rows) / 1e3
+    bn = {r.key[:60]: r.count for r in rows if "bn_" in r.key}
+    print(f"  profiled fed step: {total:.3f} device ms in "
+          f"{sum(r.count for r in rows)} kernel launches; batch_norm_bwd "
+          f"wrapper launches {wrapper}; the profile's BatchNorm kernels "
+          f"{bn}", flush=True)
+    return total, wrapper, bn
+
+
+def _csp_passes_exact(passes, n):
+    """Every sample index exactly once in each pass (a last pass cut
+    short holds no index twice)."""
+    for p, seen in enumerate(passes):
+        if len(seen) == n:
+            if sorted(seen) != list(range(n)):
+                raise AssertionError(f"phase 37: pass {p} is not every "
+                                     "sample once")
+        elif len(set(seen)) != len(seen) or len(seen) > n:
+            raise AssertionError(f"phase 37: pass {p} repeats samples")
+
+
+def _csp_step_check(root, images, labels, seed=37):
+    """One f32 step at CSP_CHECK_BATCH through the pipeline against the
+    same step fed directly on the card, from one startup: the loss and
+    every persistable after it, bitwise or within CSP_CHECK_RTOL."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    (path,), _, _ = _csp_write(os.path.join(root, "check"), "check",
+                               images[:CSP_CHECK_BATCH],
+                               labels[:CSP_CHECK_BATCH], CSP_CHECK_BATCH)
+    main, startup, avg_cost = _resnet_program(seed, amp=False)
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    try:
+        for mode in ("pipeline", "direct"):
+            scope = Scope()
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            with scope_guard(scope):
+                exe.run(startup)
+            if mode == "pipeline":
+                _, losses, batches, _ = _csp_train(
+                    exe, main, avg_cost, [path], 1, CSP_CHECK_BATCH, scope)
+                loss, order = losses[0], batches[0]
+            else:
+                x = torch.from_numpy(np.stack(images[order])).to(
+                    "cuda").float().mul_(1.0 / 255.0)
+                y = torch.from_numpy(np.asarray(labels[order], np.int64)
+                                     .reshape(-1, 1)).to("cuda")
+                (loss,) = exe.run(main, feed={"data": x, "label": y},
+                                  fetch_list=[avg_cost], scope=scope)
+                loss = float(loss)
+            out[mode] = (loss, {n: t.detach().cpu().numpy()
+                                for n, t in scope._vars.items()
+                                if isinstance(t, torch.Tensor)})
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = det
+    (lp, sp), (ld, sd) = out["pipeline"], out["direct"]
+    same = lp == ld and all(np.array_equal(sp[n], sd[n]) for n in sd)
+    err = max([abs(lp - ld) / max(abs(ld), 1e-30)]
+              + [float(np.abs(sp[n] - sd[n]).max(initial=0.0))
+                 / max(float(np.abs(sd[n]).max(initial=0.0)), 1e-30)
+                 for n in sd if sd[n].dtype.kind == "f"])
+    print(f"  pipeline step against the direct step (f32, batch "
+          f"{CSP_CHECK_BATCH}, {len(sd)} persistables): bitwise {same}, "
+          f"max relative error {err:.3e} (limit {CSP_CHECK_RTOL})",
+          flush=True)
+    if not same and err > CSP_CHECK_RTOL:
+        raise AssertionError("phase 37: the pipeline's step is not the "
+                             "direct step's")
+    return {"bitwise": same, "max_rel_err": err, "order": order}
+
+
+def _csp_resnet_leg(smi, root, seed=37):
+    """Phase 37 (a) -> (launches of the fed steps, numbers)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import native, recordio
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.ops import kernels as K
+    n = CSP_BATCHES * RESNET_BATCH
+    images, labels = _csp_images(n, seed)
+    paths, write_s, nbytes = _csp_write(os.path.join(root, "shards"),
+                                        "resnet", images, labels,
+                                        RESNET_BATCH)
+    raw_mb = images.nbytes / 1e6
+    print(f"  wrote {n} images ({raw_mb:.1f} MB of pixels) into "
+          f"{len(paths)} shards ({nbytes / 1e6:.1f} MB, zlib) through the "
+          f"C++ writer in {write_s:.3f} s, {raw_mb / write_s:.1f} MB/s",
+          flush=True)
+    if write_s > CSP_WRITE_LIMIT_S:
+        print(f"  the write passed {CSP_WRITE_LIMIT_S} s: CSP_BATCHES is "
+              "to be cut", flush=True)
+    rates = _csp_loader_rates(paths)
+    print("  loader alone (warm page cache): " + "; ".join(
+        f"{k} {v['records_per_s']:.1f} records/s, {v['mb_per_s']:.1f} MB/s"
+        for k, v in rates.items()), flush=True)
+    alone_ms = _csp_producer_alone(paths, CSP_BATCHES)
+    print(f"  the producer alone (a consumer that only receives): "
+          f"{alone_ms:.3f} ms a batch", flush=True)
+
+    main, startup, avg_cost = _resnet_program(seed, amp=True)
+    scope = Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with scope_guard(scope):
+        exe.run(startup)
+    resident = []
+    for b in range(CSP_BATCHES):
+        sl = slice(b * RESNET_BATCH, (b + 1) * RESNET_BATCH)
+        resident.append({
+            "data": torch.from_numpy(images[sl]).to("cuda").float().mul_(
+                1.0 / 255.0),
+            "label": torch.from_numpy(labels[sl].astype(np.int64)
+                                      .reshape(-1, 1)).to("cuda")})
+    mem_ms = []
+    for step in range(CSP_STEPS):
+        t = time.perf_counter()
+        (loss,) = exe.run(main, feed=resident[step % CSP_BATCHES],
+                          fetch_list=[avg_cost], scope=scope)
+        torch.cuda.synchronize()
+        mem_ms.append((time.perf_counter() - t) * 1e3)
+    del resident
+
+    opened = {"loader": 0, "scanner": 0}
+    loader_init, scanner_init = (native.FileLoader.__init__,
+                                 recordio.Scanner.__init__)
+
+    def counted_loader(self, *a, **kw):
+        opened["loader"] += 1
+        loader_init(self, *a, **kw)
+
+    def counted_scanner(self, *a, **kw):
+        opened["scanner"] += 1
+        scanner_init(self, *a, **kw)
+
+    native.FileLoader.__init__ = counted_loader
+    recordio.Scanner.__init__ = counted_scanner
+    try:
+        K.reset_launches()
+        fed_ms, losses, batches, stats = _csp_train(
+            exe, main, avg_cost, paths, CSP_STEPS, scope=scope)
+        launches = {k.name: k.launches for k in K.KERNELS}
+    finally:
+        native.FileLoader.__init__ = loader_init
+        recordio.Scanner.__init__ = scanner_init
+    print(f"  fed steps: {', '.join(f'{m:.2f}' for m in fed_ms)} ms; "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    passes = len(stats["passes"])
+    if opened != {"loader": passes, "scanner": 0}:
+        raise AssertionError(f"phase 37: the reader opened {opened} over "
+                             f"{passes} passes; the C++ loader must serve "
+                             "every pass and no Python Scanner")
+    _csp_passes_exact(stats["passes"], n)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 37: non-finite loss {losses}")
+    want = RESNET_LAUNCHES_PER_STEP["batch_norm_bwd"] * CSP_STEPS
+    if launches["batch_norm_bwd"] != want:
+        raise AssertionError(f"phase 37: batch_norm_bwd launched "
+                             f"{launches['batch_norm_bwd']} times in "
+                             f"{CSP_STEPS} fed steps, want {want}")
+    device_ms, prof_launches, prof_bn = _csp_profile(
+        exe, main, avg_cost, paths, scope)
+    if prof_launches != RESNET_LAUNCHES_PER_STEP["batch_norm_bwd"]:
+        raise AssertionError(f"phase 37: the profiled step launched "
+                             f"batch_norm_bwd {prof_launches} times")
+    del exe, scope
+    torch.cuda.empty_cache()
+    check = _csp_step_check(root, images, labels, seed)
+
+    def pct(ms):
+        return (float(np.percentile(ms[1:], 50)),
+                float(np.percentile(ms[1:], 99)))
+    fed, mem = pct(fed_ms), pct(mem_ms)
+    e2e = {"card": smi, "batch": RESNET_BATCH, "steps": CSP_STEPS,
+           "distinct_batches": CSP_BATCHES, "passes": passes,
+           "write_s": write_s, "write_mb_per_s": raw_mb / write_s,
+           "shard_mb": nbytes / 1e6, "pixels_mb": raw_mb,
+           "fed_step1_ms": fed_ms[0], "fed_step_ms_p50": fed[0],
+           "fed_step_ms_p99": fed[1],
+           "fed_images_per_s": RESNET_BATCH * 1e3 / fed[0],
+           "mem_step1_ms": mem_ms[0], "mem_step_ms_p50": mem[0],
+           "mem_step_ms_p99": mem[1],
+           "mem_images_per_s": RESNET_BATCH * 1e3 / mem[0],
+           "fed_over_mem": fed[0] / mem[0],
+           "recv_wait_s": stats["recv_s"], "send_wait_s": stats["send_s"],
+           "recv_wait_ms_per_step": stats["recv_s"] * 1e3 / CSP_STEPS,
+           "producer_alone_ms_per_batch": alone_ms,
+           "profiled_device_ms": device_ms,
+           "device_busy_share": device_ms / fed[0],
+           "profiled_bn_bwd_launches": prof_launches,
+           "profiled_bn_kernels": prof_bn,
+           "loader": rates, "loss_first": losses[0],
+           "loss_last": losses[-1], "pipeline_check": check}
+    print(f"  fed step p50 {fed[0]:.3f} ms p99 {fed[1]:.3f} ms "
+          f"({e2e['fed_images_per_s']:.1f} images/s) against in-memory "
+          f"p50 {mem[0]:.3f} ms p99 {mem[1]:.3f} ms "
+          f"({e2e['mem_images_per_s']:.1f} images/s): x"
+          f"{e2e['fed_over_mem']:.4f}; recv waited {stats['recv_s']:.4f} s "
+          f"(starved), send {stats['send_s']:.4f} s (back-pressure); busy "
+          f"share {e2e['device_busy_share']:.4f} ({smi})", flush=True)
+    return {k: launches[k] for k in CSP_KERNELS}, e2e
+
+
+def _csp_simple_routine(fl, L, C):
+    ch = C.make_channel(capacity=0, in_program=True)
+    result = fl.default_main_program().global_block().create_var(
+        name="ret", shape=(1,), dtype="float32")
+    with C.ProgramGo():
+        val = L.fill_constant(shape=[1], dtype="float32", value=1234.0)
+        C.channel_send(ch, val)
+    out, _ = C.channel_recv(ch, result)
+    C.channel_close(ch)
+    return out
+
+
+def _csp_daisy_chain(fl, L, C):
+    leftmost = C.make_channel(capacity=0, in_program=True)
+    left, main = leftmost, fl.default_main_program()
+    for i in range(CSP_DAISY):
+        right = C.make_channel(capacity=0, in_program=True)
+        with C.ProgramGo():
+            ret = main.current_block().create_var(
+                name=f"ret_{i}", shape=(1,), dtype="float32")
+            got, _ = C.channel_recv(right, ret)
+            one = L.fill_constant(shape=[1], dtype="float32", value=1.0)
+            C.channel_send(left, L.elementwise_add(one, got))
+        left = right
+    with C.ProgramGo():
+        C.channel_send(right, L.fill_constant(shape=[1], dtype="float32",
+                                              value=1.0))
+    final = main.global_block().create_var(name="final", shape=(1,),
+                                           dtype="float32")
+    return C.channel_recv(leftmost, final)[0]
+
+
+def _csp_fibonacci(fl, L, C):
+    main = fl.default_main_program()
+    ch = C.make_channel(capacity=0, in_program=True)
+    quit_ch = C.make_channel(capacity=0, in_program=True)
+    result = main.global_block().create_var(name="result", shape=(1,),
+                                            dtype="float32")
+    L.fill_constant(shape=[1], dtype="float32", value=-1.0, out=result)
+    with C.ProgramGo():
+        i = L.fill_constant(shape=[1], dtype="int64", value=0)
+        limit = L.fill_constant(shape=[1], dtype="int64", value=10)
+        cond = L.less_than(x=i, y=limit)
+        w = L.While(cond=cond)
+        with w.block():
+            got, _ = C.channel_recv(ch, result)
+            L.assign(got, output=result)
+            L.increment(i, value=1, in_place=True)
+            L.less_than(x=i, y=limit, cond=cond)
+        C.channel_send(quit_ch, L.fill_constant(shape=[1], dtype="int64",
+                                                value=1))
+    fib_x = main.global_block().create_var(name="fibX", shape=(1,),
+                                           dtype="float32")
+    fib_y = main.global_block().create_var(name="fibY", shape=(1,),
+                                           dtype="float32")
+    L.fill_constant(shape=[1], dtype="float32", value=0.0, out=fib_x)
+    L.fill_constant(shape=[1], dtype="float32", value=1.0, out=fib_y)
+    quit_var = main.global_block().create_var(name="quitVar", shape=(1,),
+                                              dtype="int64")
+    zero = L.fill_constant(shape=[1], dtype="int64", value=0)
+    one_i = L.fill_constant(shape=[1], dtype="int64", value=1)
+    go_on = L.less_than(x=zero, y=one_i)
+    w = L.While(cond=go_on)
+    with w.block():
+        with C.ProgramSelect() as sel:
+            with sel.case(C.channel_send, ch, fib_x):
+                xtemp = L.assign(fib_x)
+                L.assign(fib_y, output=fib_x)
+                L.assign(L.elementwise_add(xtemp, fib_y), output=fib_y)
+            with sel.case(C.channel_recv, quit_ch, quit_var):
+                L.less_than(x=one_i, y=zero, cond=go_on)
+    return result
+
+
+def _csp_programs_leg():
+    """Phase 37 (b) -> numbers."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import concurrency as C, layers as L
+    from paddle_tpu_torch.core.lowering import CSP_OPS
+    from paddle_tpu_torch.core.scope import Scope
+    out, rules = {}, set()
+    for name, build, want in (("simple_routine", _csp_simple_routine,
+                               1234.0),
+                              ("daisy_chain", _csp_daisy_chain,
+                               CSP_DAISY + 1.0),
+                              ("fibonacci", _csp_fibonacci, 34.0)):
+        fluid.core.program.reset_default_programs()
+        fetch = build(fluid, L, C)
+        rules.update(op.type for b in fluid.default_main_program().blocks
+                     for op in b.ops)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        t0 = time.perf_counter()
+        ran = {}
+        _run_threads(lambda _: ran.update(got=exe.run(
+            fluid.default_main_program(), feed={}, fetch_list=[fetch],
+            scope=Scope(), return_numpy=False)), 1, CSP_PROGRAM_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        (got,) = ran["got"]
+        if not (isinstance(got, torch.Tensor) and got.is_cuda):
+            raise AssertionError(f"phase 37 (b) {name}: the received "
+                                 f"payload is {type(got)} on "
+                                 f"{getattr(got, 'device', None)}")
+        value = float(got.reshape(-1)[0])
+        if value != want:
+            raise AssertionError(f"phase 37 (b) {name}: {value}, want "
+                                 f"{want}")
+        out[name] = {"value": value, "device": str(got.device),
+                     "seconds": seconds}
+    if CSP_OPS - rules:
+        raise AssertionError(f"phase 37 (b): the CSP rules "
+                             f"{sorted(CSP_OPS - rules)} did not run")
+    ch = C.Channel(capacity=0)
+    payload = torch.ones(1, device="cuda")
+    got = []
+
+    def send():
+        for _ in range(CSP_RENDEZVOUS):
+            ch.send(payload)
+
+    def recv():
+        for _ in range(CSP_RENDEZVOUS):
+            got.append(ch.recv()[1])
+
+    t0 = time.perf_counter()
+    g = C.Go()
+    g(send)
+    g(recv)
+    g.join(CSP_PROGRAM_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if len(got) != CSP_RENDEZVOUS or not all(got):
+        raise AssertionError(f"phase 37 (b): {len(got)} of "
+                             f"{CSP_RENDEZVOUS} rendezvous completed")
+    out["rendezvous_us_per_pair"] = seconds / CSP_RENDEZVOUS * 1e6
+    print(f"  in-program CSP on the card: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _csp_cpp_leg(root, seed=37):
+    """Phase 37 (c) -> (launches of the card Predictor's run, numbers)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio, layers, native
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.models.stacked_lstm import lstm_net
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import Predictor
+    fluid.core.program.reset_default_programs()
+    data = layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
+    label = layers.data(name="label", shape=[1], dtype="int64")
+    _, _, logit = lstm_net(data, label, **LSTM_CONFIG)
+    startup = fluid.default_startup_program()
+    startup.random_seed = seed
+    model_dir = os.path.join(root, "lstm_model")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with scope_guard(Scope()):
+        exe.run(startup)
+        pio.save_inference_model(model_dir, ["words"], [logit], exe)
+    rng = np.random.default_rng(seed)
+    feed = {"words": rng.integers(0, LSTM_CONFIG["dict_dim"],
+                                  (CSP_CPP_BATCH, SEQ_T)).astype(np.int64),
+            "words@SEQ_LEN": np.full(CSP_CPP_BATCH, SEQ_T, np.int32)}
+
+    def timed(fn, n):
+        ms, out = [], None
+        for _ in range(n):
+            t = time.perf_counter()
+            out = fn()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, float(np.median(ms))
+
+    pred = Predictor.from_model_dir(model_dir)
+    pred.run(feed)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    card = pred.run(feed)
+    launches = {k.name: k.launches for k in K.KERNELS}
+    card, card_ms = timed(lambda: pred.run(feed), 5)
+    t = time.perf_counter()
+    cpu_pred = native.CpuPredictor(model_dir)
+    load_ms = (time.perf_counter() - t) * 1e3
+    # the two C++ runs at once (each one thread, the GIL released)
+    runs = {}
+    _run_threads(lambda i: runs.__setitem__(i, timed(
+        (lambda: cpu_pred.run(feed)) if i == 0
+        else (lambda: native.capi_run(model_dir, feed)), 1)), 2)
+    (cpp, cpp_ms), (capi, capi_ms) = runs[0], runs[1]
+    errs = {"card_vs_cpp": float(np.abs(card[0] - cpp[0]).max()),
+            "card_vs_capi": float(np.abs(card[0] - capi[0]).max()),
+            "cpp_vs_capi": float(np.abs(cpp[0] - capi[0]).max())}
+    out = {"shape": list(card[0].shape), "card_ms": card_ms,
+           "cpp_load_ms": load_ms, "cpp_run_ms": cpp_ms,
+           "capi_load_and_run_ms": capi_ms, "cpp_runs_concurrent": True,
+           "max_abs_err": errs,
+           "lstm_fwd_launches": launches["lstm_fwd"]}
+    print(f"  the stacked LSTM ({LSTM_CONFIG}, f32, {CSP_CPP_BATCH} x "
+          f"{SEQ_T}) three ways: {json.dumps(out)}", flush=True)
+    if launches["lstm_fwd"] != SEQ_LAUNCHES_PER_STEP["lstm"]["lstm_fwd"]:
+        raise AssertionError(f"phase 37 (c): the card Predictor launched "
+                             f"lstm_fwd {launches['lstm_fwd']} times")
+    if not all(np.isfinite(o[0]).all() for o in (card, cpp, capi)) or \
+            max(errs.values()) > CSP_CPP_TOL:
+        raise AssertionError(f"phase 37 (c): the runners disagree: {errs} "
+                             f"(limit {CSP_CPP_TOL})")
+    return {k: launches[k] for k in CSP_KERNELS}, out
+
+
+def start_native_build():
+    """Build the native library on a thread (beside phase 2's nvcc) ->
+    a join that returns the build's seconds or raises its failure."""
+    import threading
+    from paddle_tpu_torch import native
+    out = {}
+
+    def build():
+        t = time.perf_counter()
+        try:
+            native.load_library()
+        except BaseException as e:  # noqa: BLE001  (raised at the join)
+            out["error"] = e
+        out["seconds"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=build, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["seconds"]
+    return join
+
+
+def csp_phase(smi, build_s=None):
+    """Phase 37 (the module docstring's 37) -> (launches, numbers);
+    ``build_s``: the seconds of the native build started beside phase 2
+    (else it is built here)."""
+    import shutil
+    from paddle_tpu_torch import native
+    t0 = time.perf_counter()
+    print(f"phase 37: CSP and the native C++ runtime: ResNet-50 "
+          f"{RESNET_CONFIG} at batch {RESNET_BATCH} fed from recordio by "
+          f"the C++ loader through a Go producer and a channel, the "
+          f"reference's CSP programs on the card, the stacked LSTM through "
+          f"the C++ runner ({smi})", flush=True)
+    if build_s is None:
+        build_s = start_native_build()()
+    print(f"  the native library {native._lib_path().name} built with g++ "
+          f"in {build_s:.2f} s", flush=True)
+    root = os.path.join(HERE, "build", "csp")
+    shutil.rmtree(root, ignore_errors=True)
+    resnet_launches, resnet = _csp_resnet_leg(smi, root)
+    print("  (b) in-program CSP on Executor(CUDAPlace(0))", flush=True)
+    programs = _csp_programs_leg()
+    print("  (c) the C++ runner against the card", flush=True)
+    cpp_launches, cpp = _csp_cpp_leg(root)
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {k: resnet_launches[k] + cpp_launches[k] for k in CSP_KERNELS}
+    e2e = {"card": smi, "native_build_s": build_s, "resnet": resnet,
+           "programs": programs, "cpp_runner": cpp,
+           "seconds": time.perf_counter() - t0}
+    print(f"  end to end ({smi}): {json.dumps(e2e)}", flush=True)
+    return launches, e2e
+
+
+def csp_ab(smi):
+    """``--csp``: phase 2 for the BatchNorm backward and LSTM sources,
+    their phase 3 checks and timings, then phase 37."""
+    from paddle_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    native_join = start_native_build()
+    _build.build_all(("batch_norm_bwd", "lstm"))
+    build_s = native_join()
+    print(f"phase 2: the BatchNorm backward and LSTM kernels and the native "
+          f"library built in {time.perf_counter() - t0:.1f} s", flush=True)
+    recs = {k: {} for k in ("batch_norm_bwd", "lstm_fwd", "lstm_bwd")}
+    print("phase 3: the BatchNorm backward and LSTM kernels against their "
+          "plain versions", flush=True)
+    check_batch_norm_bwd(recs["batch_norm_bwd"])
+    check_recurrent("lstm", recs["lstm_fwd"], recs["lstm_bwd"], strict=False)
+    launches, e2e = csp_phase(smi, build_s)
+    return {"csp": dict(e2e, launches=launches), "kernels": recs}
+
+
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
@@ -10716,7 +11486,7 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--fleet": fleet_ab, "--mesh": mesh_ab,
             "--sharded-embedding": sharded_embedding_ab,
             "--sequence-parallel": sequence_parallel_ab,
-            "--pserver": pserver_ab, "--v2": v2_ab}
+            "--pserver": pserver_ab, "--v2": v2_ab, "--csp": csp_ab}
 
 
 def main(argv=()):
@@ -10770,9 +11540,11 @@ def main(argv=()):
         return 0
 
     t0 = time.perf_counter()
+    native_join = start_native_build()
     paths = _build.build_all(k.source for k in K.KERNELS)
-    print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    native_build_s = native_join()
+    print(f"phase 2: kernels and the native library built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         kernel = ""
         for line in log.splitlines():
@@ -10894,6 +11666,7 @@ def main(argv=()):
     sp_launches, pp_launches, _ = sequence_parallel_phase(smi)
     ps_launches, _ = pserver_phase(smi)
     v2_launches, _ = v2_phase(smi, recs["batch_norm_bwd"])
+    csp_launches, _ = csp_phase(smi, native_build_s)
 
     kernels = []
     for k in K.KERNELS:
@@ -10919,7 +11692,8 @@ def main(argv=()):
                          + sp_launches.get(k.name, 0)
                          + pp_launches.get(k.name, 0)
                          + ps_launches.get(k.name, 0)
-                         + v2_launches.get(k.name, 0)),
+                         + v2_launches.get(k.name, 0)
+                         + csp_launches.get(k.name, 0)),
             "launches_serving": serve_launches[k.name],
             "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
@@ -10957,6 +11731,7 @@ def main(argv=()):
             "launches_pipeline": pp_launches.get(k.name, 0),
             "launches_pserver": ps_launches.get(k.name, 0),
             "launches_v2": v2_launches.get(k.name, 0),
+            "launches_csp": csp_launches.get(k.name, 0),
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

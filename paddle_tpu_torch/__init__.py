@@ -48,7 +48,12 @@ so far:
 - the legacy training API: the v1 config DSL (`trainer_config_helpers`),
   ``import paddle_tpu_torch.v2 as paddle`` (``paddle.trainer.SGD``,
   ``paddle.infer`` and the JAX package's parameter tars),
-  `trainer.PyDataProvider2` and `debuger`.
+  `trainer.PyDataProvider2` and `debuger`;
+- CSP (`concurrency`: channels, ``Go``, ``Select``, and their ops in a
+  Program) and the native C++ runtime (`native`: the recordio writer
+  and scanner, the threaded loader, the blocking queue, the memory pool,
+  the C++ CPU inference runner and its C API), built with g++ at first
+  use.
 
 Their kernels (paged attention, FlashAttention-2 forward and backward,
 LayerNorm forward and backward, softmax cross-entropy forward and
@@ -63,6 +68,9 @@ from . import (average, backward, core, dataset,  # noqa: F401
                unique_name)
 from . import checkpoint, clip, fault, reader, regularizer  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
+from . import concurrency  # noqa: F401
+from .concurrency import (Go, Select, make_channel, channel_send,  # noqa: F401
+                          channel_recv, channel_close)
 from .data_feeder import DataFeeder  # noqa: F401
 from .core import (Executor, CPUPlace, CUDAPlace, Program,  # noqa: F401
                    Variable, Parameter, append_backward,

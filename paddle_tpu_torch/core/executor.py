@@ -12,6 +12,10 @@ program's global block on the place's device (`core.lowering`):
   leaves the step as a plain leaf (no autograd history).  The scope is
   always current, so `sync_scope` has nothing to do;
 - fetches come back detached, as numpy unless ``return_numpy=False``;
+- a CSP program (channels, ``go``, ``select``) runs on the same path:
+  a channel is a host object in the env, which the state, the fetch and
+  the first-run report pass as it is, and the run joins its ``go``
+  threads before it writes back and fetches;
 - ``check_nan_inf`` (default ``FLAGS.check_nan_inf``) poisons non-finite
   op outputs and raises `NonFiniteError` when a floating fetch is not
   finite, reduced on the device to one boolean a fetch; a step the loss
@@ -93,6 +97,7 @@ from .place import CUDAPlace
 from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope
 from .types import to_torch_dtype
+from ..concurrency import Channel
 from .. import fault as _fault
 from .. import profiler
 from ..flags import FLAGS
@@ -137,7 +142,10 @@ _STEP_BAD, _STEP_OK, _STEP_SKIP = 0, 1, 2
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """A fetched tensor as a numpy snapshot (a bf16 tensor as f32, every
-    value exact: numpy has no bf16)."""
+    value exact: numpy has no bf16); a host object (a CSP channel) as it
+    is."""
+    if not isinstance(t, torch.Tensor):
+        return t
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -451,6 +459,7 @@ class Executor:
             else:
                 with _introspect.first_run_memory(self.device) as peak:
                     interp.run_block(block, env)
+            lowering.join_go_threads(env)
         for v in block.vars.values():
             if v.persistable and v.name in env:
                 val = env[v.name]
@@ -461,7 +470,9 @@ class Executor:
                                       val)
                 else:
                     scope.set(v.name, val)
-        fetches = [env[n].detach() for n in fetch_names]
+        # a host object (a CSP channel) is fetched as it is
+        fetches = [env[n].detach() if isinstance(env[n], torch.Tensor)
+                   else env[n] for n in fetch_names]
         if step is not None:
             fetches = [step.fetch(block, n, f)
                        for n, f in zip(fetch_names, fetches)]
@@ -613,6 +624,9 @@ class Executor:
                 continue
             val = scope.get_local(v.name)
             if val is None:
+                continue
+            if isinstance(val, Channel):
+                env[v.name] = val
                 continue
             placed = scope.sharding(v.name)
             if placed is not None:

@@ -42,13 +42,18 @@ Dead ops are skipped.  XLA drops what no output needs; an eager
 interpreter would run it.  Before a block runs, one backward pass over
 its ops marks an op live when one of its outputs is fetched, read by a
 later live op, read in a sub-block or persistable, or when it is an
-optimize-role, in-place, printing or control op, a ``kv_cache_write``
+optimize-role, in-place, printing, CSP or control op, a ``kv_cache_write``
 (it writes the KV pools in place, which a prefill that fetches only its
 logits must still see), an op with no outputs, or a rule that draws from
 the executor's generator (skipping one would shift every later draw).
 The rest do not run (a training program's unfetched inference head,
-say).  ``Interpreter.skip_dead_ops = False``
-runs every op, for measuring what the skip saves.
+say).  A ``select`` names its channels and values in its ``cases``
+attribute, not as inputs: they count as read.  ``Interpreter.skip_dead_ops
+= False`` runs every op, for measuring what the skip saves.
+
+CSP.  A ``go`` op's thread works on the run's env; `run_startup` and the
+executor join the threads (`join_go_threads`) before they write back and
+fetch, and raise what a ``go`` block raised.
 
 ``calc_gradient`` may append several ``backward`` ops: the interpreter
 records up to the last live one, and each keeps the graph for the next.
@@ -228,8 +233,36 @@ class ExecContext:
 PRINT_OPS = {"print", "print_grad", "seq_text_printer"}
 #: ops that write an input tensor in place (the KV pools)
 WRITE_OPS = {"kv_cache_write"}
+#: CSP ops (`ops.csp_ops`): a rendezvous on a host channel is an effect
+#: the env does not show, so they always run, and never twice
+CSP_OPS = {"channel_create", "channel_send", "channel_recv",
+           "channel_close", "go", "select"}
+#: env key of the threads the ``go`` ops of a run started
+GO_THREADS = "@GO_THREADS@"
+#: how long a run waits for each ``go`` thread at its end
+GO_JOIN_TIMEOUT_S = 60.0
 #: attributes naming the sub-blocks a control op runs
 SUB_BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
+
+
+def op_reads(op: Operator) -> List[str]:
+    """The names an op reads: its inputs, and for a ``select`` the
+    channel and value vars its cases name."""
+    names = list(op.desc.input_names())
+    for case in op.desc.attrs.get("cases") or ():
+        if isinstance(case, dict):
+            names.extend(case[k] for k in ("channel", "value") if k in case)
+    return names
+
+
+def join_go_threads(env: Dict[str, Any]):
+    """Wait for the ``go`` threads a run started (up to
+    `GO_JOIN_TIMEOUT_S` each); raise what a block raised."""
+    for t in env.pop(GO_THREADS, []):
+        t.join(timeout=GO_JOIN_TIMEOUT_S)
+        if t.error is not None:
+            raise RuntimeError(f"a go block failed: {t.error!r}") \
+                from t.error
 
 
 class RowUpdate:
@@ -300,15 +333,16 @@ class Interpreter:
         for b in self.program.blocks:
             if b is not block:
                 for op in b.ops:
-                    needed.update(op.desc.input_names())
+                    needed.update(op_reads(op))
         self._outer_reads = set(needed)
         live = [True] * len(block.ops)
         for i in range(len(block.ops) - 1, -1, -1):
             op = block.ops[i]
-            ins, outs = op.desc.input_names(), op.desc.output_names()
+            ins, outs = op_reads(op), op.desc.output_names()
             control = any(k in op.desc.attrs for k in SUB_BLOCK_ATTRS)
             keep = (not self.skip_dead_ops or not outs or control
                     or op.type in PRINT_OPS or op.type in WRITE_OPS
+                    or op.type in CSP_OPS
                     or op.desc.attrs.get("op_role") == "optimize"
                     or OpRegistry.get(op.type).draws_rng
                     or any(n in needed for n in outs)
@@ -379,6 +413,7 @@ class Interpreter:
         """False for an op whose effect must not happen twice (a print, a
         KV write, a control op running a sub-block)."""
         return not (op.type in PRINT_OPS or op.type in WRITE_OPS
+                    or op.type in CSP_OPS
                     or any(k in op.desc.attrs for k in SUB_BLOCK_ATTRS))
 
     def _run_remat(self, block: Block, env: Dict[str, Any],
@@ -514,6 +549,7 @@ def run_startup(program: Program, scope, device: torch.device,
     with torch.no_grad():
         Interpreter(program, device, generator).run_block(
             program.global_block(), env)
+    join_go_threads(env)
     for v in program.global_block().vars.values():
         if v.persistable and v.name in env:
             scope.set(v.name, env[v.name])

@@ -15,12 +15,19 @@ documented empty sentinels — ``rollup() == {}``, ``window_delta() ==
 
 - **scale up** when the observed p99 (``rollup("fleet_route_latency_seconds",
   match={"quantile": "0.99"}, window_s=...)["max"]``) crosses the SLO
-  target, when the frontend shed anything in the window, or when mean
-  in-flight per healthy replica climbs past ``queue_high`` — sustained
-  for ``breach_after`` consecutive ticks;
+  target while the window saw requests, when the frontend shed anything
+  in the window, or when mean in-flight per healthy replica climbs past
+  ``queue_high`` — sustained for ``breach_after`` consecutive ticks;
 - **scale down** when the fleet is idle (zero accepted requests over
   ``idle_s`` and nothing in flight) for ``clear_after`` consecutive
   ticks.
+
+The p99 gauge is a quantile over the frontend's last requests, so it
+moves only when requests end: after a burst whose tail breached the SLO
+an idle fleet would go on reading that tail.  A p99 over the target is
+pressure only when ``fleet_requests_total`` rose in the same window.
+Here the port departs from ``paddle_tpu/fleet_control/policy.py``,
+which counts the stale tail and so never scales such a fleet down.
 
 Hysteresis on top of the streaks: per-direction cooldowns (a scale-up
 also arms the scale-DOWN cooldown, so freshly added capacity is not
@@ -198,6 +205,12 @@ class Autoscaler:
                 "shed_delta": shed,
                 "requests_idle_window": reqs}
 
+    def _requests_in_window(self, now: float) -> float:
+        """Requests accepted over ``window_s``: with none, the p99 gauge
+        holds the tail of earlier traffic."""
+        return self.fleet.timeseries.window_delta(
+            "fleet_requests_total", window_s=self.window_s, now=now)
+
     def evaluate_once(self, now: Optional[float] = None
                       ) -> Dict[str, Any]:
         """One read-evaluate-act tick.  Returns the decision record
@@ -212,7 +225,8 @@ class Autoscaler:
 
         reasons = []
         if (self.p99_ms is not None and sig["p99_ms"] is not None
-                and sig["p99_ms"] > self.p99_ms):
+                and sig["p99_ms"] > self.p99_ms
+                and self._requests_in_window(now) > 0):
             reasons.append("p99")
         if sig["shed_delta"] > 0:
             reasons.append("shed")

@@ -23,8 +23,12 @@ semantics:
 - ``parallel_do`` runs its block once over the whole batch (the JAX rule
   leaves the split to SPMD sharding).
 
-CSP programs (channels, ``go``, ``select``), whose While the JAX rule
-runs as a host loop over host objects, wait for queue A item 6.
+A ``while`` whose block holds host ops (`_HOST_OPS`: the CSP ops and the
+parameter server's, in the block or any sub-block or ``select`` case it
+runs) is the JAX rule's host loop: every trip runs the body over the
+shared env and reads the condition from it, with no carry check, since a
+``select`` case may flip the condition (the CSP Fibonacci producer) and a
+``go`` consumer's writes must reach the fetch.
 """
 from __future__ import annotations
 
@@ -63,6 +67,10 @@ def _while(ctx: ExecContext):
     sub = ctx.program.blocks[ctx.attr("sub_block")]
     carry = list(ctx.attr("carry_vars"))
     cond_name = ctx.input_name("Condition")
+    if _block_has_host_ops(ctx.program, sub):
+        while _truth(ctx.env[cond_name]):
+            ctx.run_sub_block(sub, ctx.env)
+        return
     if cond_name not in carry:
         raise ValueError(
             f"While: condition var '{cond_name}' is never updated inside "
@@ -141,3 +149,30 @@ def _parallel_do(ctx: ExecContext):
         env[inner] = ctx.env[outer]
     ctx.run_sub_block(ctx.program.blocks[ctx.attr("sub_block")], env)
     ctx.set_outputs("Out", [env[n] for n in ctx.attr("output_vars")])
+
+
+#: ops that make a While a host loop over the shared env
+_HOST_OPS = {"channel_create", "channel_send", "channel_recv",
+             "channel_close", "go", "select", "listen_and_serv", "send"}
+
+
+def _block_has_host_ops(program, block, _seen=None) -> bool:
+    """True if ``block``, or a sub-block or ``select`` case block it
+    runs, holds a host op."""
+    _seen = _seen if _seen is not None else set()
+    if block.idx in _seen:
+        return False
+    _seen.add(block.idx)
+    for op in block.ops:
+        if op.type in _HOST_OPS:
+            return True
+        sb = op.desc.attrs.get("sub_block")
+        if sb is not None and _block_has_host_ops(
+                program, program.blocks[sb], _seen):
+            return True
+        for case in op.desc.attrs.get("cases") or ():
+            if (isinstance(case, dict) and case.get("sub_block", -1) >= 0
+                    and _block_has_host_ops(
+                        program, program.blocks[case["sub_block"]], _seen)):
+                return True
+    return False

@@ -1,5 +1,6 @@
 """Reader creators (counterpart of ``paddle_tpu/reader/creator.py``):
-``np_array``, ``text_file`` and the recordio creators."""
+``np_array``, ``text_file`` and the recordio creators, which read
+through the C++ runtime (`native`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -36,10 +37,21 @@ def recordio(paths, buf_size=100):
 
 
 def recordio_threaded(paths, num_threads=2, queue_capacity=1024):
-    """`recordio` with the files read ahead of the consumer by a pump
-    thread, up to ``queue_capacity`` records; the order is `recordio`'s.
-    The JAX package reads with its C++ loader's ``num_threads`` threads
-    when that is built; the port reads with one thread (the C++ twin is
-    ROADMAP queue A item 6)."""
-    from .decorator import buffered
-    return buffered(recordio(paths), queue_capacity)
+    """A reader over the raw records of recordio file(s) through the C++
+    `native.FileLoader`: ``num_threads`` threads (at most one a file)
+    parse records into a queue of ``queue_capacity`` ahead of the
+    consumer.  Each file's records keep their order; across files the
+    order is the threads', so it is `recordio`'s only with one thread."""
+    from .. import native
+
+    if isinstance(paths, str):
+        paths = paths.split(",")
+
+    def reader():
+        loader = native.FileLoader(paths, num_threads=num_threads,
+                                   queue_capacity=queue_capacity)
+        try:
+            yield from loader
+        finally:
+            loader.close()
+    return reader

@@ -10,10 +10,10 @@ the chunk's records, zlib-compressed unless the compressor is
 ``NO_COMPRESS``.  Chunks decode independently, so a scanner can read a
 ``[begin, end)`` range of them (a shard).
 
-`writer` and `scanner` are the JAX package's preferred entry points; the
-JAX package backs them with its C++ twin when that is built, which the
-port does not have (ROADMAP queue A item 6), so here they are `Writer`
-and `Scanner`.
+`writer` and `scanner` are the preferred entry points: they return the
+C++ `native.NativeWriter` and `native.NativeScanner` of a path.
+`Writer` and `Scanner` are the plain Python versions of the same
+format.
 """
 from __future__ import annotations
 
@@ -133,10 +133,14 @@ def num_chunks(path: str) -> int:
     return n
 
 
-def writer(path: str, **kw) -> Writer:
-    return Writer(path, **kw)
+def writer(path, **kw):
+    """The C++ writer of ``path``."""
+    from . import native
+    return native.NativeWriter(os.fspath(path), **kw)
 
 
 def scanner(path: str, chunk_begin: int = 0,
-            chunk_end: Optional[int] = None) -> Scanner:
-    return Scanner(path, chunk_begin, chunk_end)
+            chunk_end: Optional[int] = None):
+    """The C++ scanner of ``path``'s chunks ``[chunk_begin, chunk_end)``."""
+    from . import native
+    return native.NativeScanner(os.fspath(path), chunk_begin, chunk_end)

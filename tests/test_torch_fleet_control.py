@@ -164,11 +164,12 @@ def _full_cycle(scaler_cls=Autoscaler, registry_cls=MetricsRegistry,
     records = []
 
     def tick(t):
+        if t < 1020.0:
+            reqs.inc()      # traffic flows while the latency is read
         fleet.timeseries.sample_once(now=t)
         records.append(dict(scaler.last))
 
     lat.set(0.020)
-    reqs.inc()
     tick(1000.0)
     tick(1001.0)
     lat.set(0.500)
@@ -234,6 +235,33 @@ def test_autoscaler_takes_the_jax_decisions():
             port_last = scaler.last
         else:
             assert scaler.last == port_last
+
+
+def test_autoscaler_ignores_a_stale_p99():
+    """A p99 gauge left over the SLO by a burst is pressure only while
+    requests arrive: once the window saw none, an idle fleet at max
+    scales down.  The JAX policy counts the stale tail and holds at max
+    (``hold_max``) for as long as the fleet stays idle."""
+    out = {}
+    for cls, reg_cls, store_cls in ((Autoscaler, MetricsRegistry,
+                                     TimeSeriesStore),
+                                    (JAutoscaler, JRegistry, JStore)):
+        fleet, scaler, lat, reqs = _wired_fake(
+            cls, reg_cls, store_cls, min_replicas=1, max_replicas=2)
+        fleet._reps.append(SimpleNamespace(state="healthy", name="r1"))
+        lat.set(0.500)
+        decisions = []
+        for t in (1000.0, 1001.0, 1002.0, 1003.0, 1010.0, 1030.0, 1031.0):
+            if t < 1005.0:
+                reqs.inc()
+            fleet.timeseries.sample_once(now=t)
+            decisions.append(scaler.last["decision"])
+            assert scaler.last["signals"]["p99_ms"] == 500.0
+        out[cls] = (decisions, len(fleet.replicas))
+    assert out[Autoscaler] == (
+        ["hold", "hold_max", "hold_max", "hold_max", "hold", "hold",
+         "scale_down"], 1)
+    assert out[JAutoscaler] == (["hold"] + ["hold_max"] * 6, 2)
 
 
 def test_autoscaler_pressure_reasons_shed_and_queue():

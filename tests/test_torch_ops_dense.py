@@ -358,6 +358,9 @@ ELSEWHERE = {
         "prior_box", "bipartite_match", "mine_hard_examples",
         "multiclass_nms", "detection_map")},
     **{op: "test_torch_pserver.py" for op in ("listen_and_serv", "send")},
+    **{op: "test_torch_csp.py" for op in (
+        "channel_create", "channel_send", "channel_recv", "channel_close",
+        "go", "select")},
 }
 
 

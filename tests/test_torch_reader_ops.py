@@ -304,15 +304,17 @@ def test_recordio_uncompressed_and_bad_files(tmp_path):
 
 def test_recordio_creators_cross_packages(tmp_path):
     """reader.creator.recordio and recordio_threaded over shards of the
-    other package: the JAX records, in order (the JAX threaded loader
-    as a multiset: its threads interleave files)."""
+    other package: the JAX records, in order (both packages' C++
+    threaded loaders as a multiset: their threads interleave files; in
+    order with one thread)."""
     paths = jwriter.convert_reader_to_recordio_files(
         str(tmp_path / "s"), 15, lambda: _samples())
     want = list(jcreator.recordio(paths)())
     assert list(creator.recordio(paths)()) == want
     assert list(creator.recordio(",".join(paths))()) == want
     threaded = list(creator.recordio_threaded(paths)())
-    assert threaded == want
+    assert sorted(threaded) == sorted(want)
+    assert list(creator.recordio_threaded(paths, num_threads=1)()) == want
     assert sorted(threaded) == sorted(jcreator.recordio_threaded(paths)())
 
 

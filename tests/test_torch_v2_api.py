@@ -513,26 +513,41 @@ def test_provider_trains_through_reader_pipeline():
     assert_close(losses["port"], losses["jax"], what="losses")
 
 
-def test_v2_plot_without_and_with_matplotlib(tmp_path, monkeypatch, capsys):
-    """Ploter's lazy matplotlib import: without it (the card machine has
-    none) plot() prints each series' last point, as the JAX Ploter does;
-    with it, plot(path) writes the figure."""
-    monkeypatch.setitem(sys.modules, "matplotlib", None)
+def _plot_without_and_with_matplotlib(tmp_path, monkeypatch, capsys):
     texts = []
-    for pk in (JAX, PORT):
-        plot = pk.v2.plot.Ploter("train", "test")
-        for step in range(3):
-            plot.append("train", step, 1.0 / (step + 1))
-        plot.append("test", 2, 0.25)
-        capsys.readouterr()
-        plot.plot()
-        texts.append(capsys.readouterr().out)
-        plot.reset()
+    # the original sys.modules entry (submodules included) is back
+    # before the second half
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "matplotlib", None)
+        for pk in (JAX, PORT):
+            plot = pk.v2.plot.Ploter("train", "test")
+            for step in range(3):
+                plot.append("train", step, 1.0 / (step + 1))
+            plot.append("test", 2, 0.25)
+            capsys.readouterr()
+            plot.plot()
+            texts.append(capsys.readouterr().out)
+            plot.reset()
     assert texts[1] == texts[0]
     assert "[plot] train: step=2 value=0.3333333333333333" in texts[1]
-    monkeypatch.delitem(sys.modules, "matplotlib")
     if importlib.util.find_spec("matplotlib") is not None:
         plot = PORT.v2.plot.Ploter("train")
         plot.append("train", 0, 1.0)
         plot.plot(str(tmp_path / "cost.png"))
         assert (tmp_path / "cost.png").stat().st_size > 0
+
+
+def test_v2_plot_without_and_with_matplotlib(tmp_path, monkeypatch, capsys):
+    """Ploter's lazy matplotlib import: without it (the card machine has
+    none) plot() prints each series' last point, as the JAX Ploter does;
+    with it, plot(path) writes the figure."""
+    _plot_without_and_with_matplotlib(tmp_path, monkeypatch, capsys)
+
+
+def test_v2_plot_after_pyplot_was_imported(tmp_path, monkeypatch, capsys):
+    """The same with ``matplotlib.pyplot`` imported by an earlier test in
+    the process: hiding matplotlib must not leave its submodules behind
+    a second copy of the package."""
+    if importlib.util.find_spec("matplotlib") is not None:
+        importlib.import_module("matplotlib.pyplot")
+    _plot_without_and_with_matplotlib(tmp_path, monkeypatch, capsys)
