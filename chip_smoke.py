@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # the smoke run, phases 1-37
+    python3 chip_smoke.py             # the smoke run, phases 1-38
     python3 chip_smoke.py --serving   # phases 1, 3 and 4, serving only
     python3 chip_smoke.py --frontdoor # phases 1 and 12, the front door
     python3 chip_smoke.py --resnet    # phase 1, BatchNorm's phase 3, phase 7
@@ -44,6 +44,9 @@
     python3 chip_smoke.py --csp       # phases 1-3 for the BatchNorm
                                       # backward and LSTM kernels, and
                                       # 37, CSP and the native runtime
+    python3 chip_smoke.py --shapes    # phases 1-3 for the head dims
+                                      # 8-128 and the stepwise
+                                      # recurrences, and 38
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -52,14 +55,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    started together) and, beside them, the native C++ library (one g++
    per source), and print the build seconds and ptxas report;
 3. hold each kernel against its plain PyTorch version at the main paths'
-   shapes, in f32 and bf16 (the flash kernels also at head_dim 32 and at
-   tile-edge lengths, paged attention also at one slot of 2047
-   positions and at head_dim 128 and 32 with indexes on page and split
-   edges and at -1, LayerNorm at widths on both sides of its warp-per-row
-   path, the recurrent kernels also with ragged and time-reversed masks
-   and at an odd shape, and at the widths where placement ends: what
-   fits is checked, what does not must refuse; the LSTM and GRU forward
-   also where they stage the batch in chunks), and time kernel, plain
+   shapes, in f32 and bf16 (the flash kernels also at head_dim 8, 16,
+   32, 80 and 128, at tile-edge lengths and at 65544 batch-heads, and
+   timed at head_dim 128 at phase 38's prefill and training shapes;
+   paged attention also at one slot of 2047 positions, at head_dim 128,
+   80, 32 and 8 with indexes on page and split edges and at -1, and
+   timed at phase 38's S16 H16 D128; LayerNorm at widths on both sides
+   of its warp-per-row path, the recurrent kernels also with ragged and
+   time-reversed masks and at an odd shape, and at the widths where the
+   persistent grid ends: at H1024 the persistent path (and the stepwise
+   one forced beside it, bit for bit or not recorded), at H2048 the
+   stepwise path at B4 T3 and B32 T80, timed there in f32 and bf16 w;
+   the LSTM and GRU forward also where they stage the batch in chunks),
+   and time kernel, plain
    version and a PyTorch library yardstick with CUDA events and by device
    time per call (torch.profiler, split by kernel name), the wrappers of
    paged attention and the LayerNorm forward by host us per call; the
@@ -483,13 +491,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and run on 4 sequences of length 80 by the card Predictor (2 lstm_fwd
    launches), native.CpuPredictor and the C API (the two C++ runs at
    once), within CSP_CPP_TOL of each other, each one's ms;
+38. head dims 128 and 16 and hidden width 2048, at full width: (a)
+   the port's TransformerLM at Pythia-1.4B's widths (PYTHIA_1B4: 16
+   heads of 128), its weights made on the card from a seed, served in
+   bf16 by DecodeEngine on SH_SLOTS slots (SH_REQUESTS prompts of
+   8-1024 ids, SH_NEW new tokens each; two streams held to
+   the full recompute by phase 4's rule), then in f32 by an exact engine
+   on 2 slots over max_len 512 (every token bitwise the exact full
+   recompute); (b) the same widths at depth 4, T 1024, batch 8 through
+   transformer_lm_train_program and Executor.train_loop, 5 steps in f32
+   and 5 under MixedPrecision(Adam), the loss finite and falling; (c)
+   the JAX package's default servable model (heads of 16), saved by the
+   port and served (every stream held to the full recompute); (d) phase
+   9's stacked LSTM and phase 10's GRU classifier at hidden width 2048,
+   batch 32, T 80, 5 steps each in f32 and under amp; the attention
+   launches counted by head-dim code (d128 or d16) and the recurrent
+   ones by path (stepwise), step p50 and device ms of each part;
 then a JSON line with every ported kernel's launches (with
 launches_sparse_training, launches_remat_training,
 launches_remat_plain_training, launches_observe_training,
 launches_observe_serving, launches_fleet, launches_mesh,
 launches_sequence_parallel, launches_pipeline, launches_pserver,
-launches_v2 and launches_csp),
-error and times, the
+launches_v2, launches_csp and launches_shapes, and launches_by_path:
+phase 38's legs by code or path, and every launch of the run by path,
+checks included), error and times, the
 card's name and power limit, and the last line: {"ok": true, "device":
 {...}}.
 
@@ -515,12 +540,15 @@ and phase 27; with --observe phase 1 and phases 28 and 29; with
 phase 35; with --v2 phase 1, phase 2 for the GRU and BatchNorm sources,
 the GRU's phase 3 checks and timings, and phase 36; with --csp phase 1,
 phase 2 for the BatchNorm backward and LSTM sources, their phase 3
-checks and timings, and phase 37.
+checks and timings, and phase 37; with --shapes phase 1, phase 2, the
+phase 3 checks and timings of the head dims 8, 16, 80 and 128 and of the
+recurrent widths' limits, and phase 38.
 Each prints its results as one JSON line (no result line): run from two
 checkouts in turns, it compares two versions of those kernels on one
 card.  In these
-modes a recurrent kernel that refuses a width it should place is
-recorded, not fatal, so that an older kernel can be measured too.
+modes a recurrent library without the stepwise path (an older one) has
+its limits' checks skipped and recorded, not fatal, so that an older
+kernel can be measured too.
 """
 from __future__ import annotations
 
@@ -528,6 +556,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -772,16 +801,26 @@ def _check(name, pairs, dtype, label, rec, rule=None):
 #: paged-attention cases, (slots, heads, head_dim, block_len, pages,
 #: positions): the serving shape (S16, 12 heads of 64, ragged positions
 #: with slots 3 and 9 idle: sentinel pages, index 0), one slot of 2047
-#: positions (decoding a single long stream), and head_dim 128 / 32
+#: positions (decoding a single long stream), head_dim 128 / 32 / 80 / 8
 #: cases whose indexes sit on page and split edges, past the table's
-#: capacity and at -1 (no live position: the output is 0)
+#: capacity and at -1 (no live position: the output is 0; 80 and 8 run
+#: the codes 128 and 16 with their tail zero-filled), and phase 38's
+#: serving shape (S16, 16 heads of 128)
 PAGED_CASES = {
     "serving": (16, 12, 64, 16, 128, None),
     "one long slot": (1, 12, 64, 16, 128, [2046]),
     "D128 edges": (4, 8, 128, 16, 32, [511, -1, 16, 130]),
-    "D32 edges": (5, 4, 32, 8, 64, [15, 127, 0, 600, -1])}
-#: the cases timed in bf16 (the rest are checked only)
-PAGED_TIMED = ("serving", "one long slot")
+    "D32 edges": (5, 4, 32, 8, 64, [15, 127, 0, 600, -1]),
+    "D80 edges": (4, 8, 80, 16, 32, [511, -1, 16, 130]),
+    "D8 edges": (5, 4, 8, 8, 64, [15, 127, 0, 600, -1]),
+    "D128 serving": (16, 16, 128, 16, 128, None)}
+#: the cases timed in bf16 (the rest are checked only), and the record
+#: key of each ("serving" fills the kernel's record itself)
+PAGED_TIMED = {"serving": None, "one long slot": "one_long_slot",
+               "D128 serving": "d128_serving"}
+#: the head dims off the first codes: the paged and flash cases
+#: `--shapes` runs
+NEW_HEAD_DIMS = (8, 16, 80, 128)
 
 
 def _paged_inputs(S, H, D, L, P, positions, g):
@@ -806,13 +845,18 @@ def _paged_inputs(S, H, D, L, P, positions, g):
     return N, index.to(dev), table.to(dev)
 
 
-def check_paged_attention(rec):
+def check_paged_attention(rec, dims=None):
+    """Phase 3 for the paged kernel: every PAGED_CASES case (those of
+    head dims ``dims`` alone, if given) against the plain version in f32
+    and bf16, the PAGED_TIMED ones timed in bf16."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
     g = torch.Generator(device="cpu").manual_seed(11)
     dev = torch.device("cuda")
     for label, (S, H, D, L, P, positions) in PAGED_CASES.items():
+        if dims is not None and D not in dims:
+            continue
         N, index, table = _paged_inputs(S, H, D, L, P, positions, g)
         n_pos = sum(min(int(i), P * L - 1) + 1 for i in index.cpu()
                     if i >= 0)
@@ -847,22 +891,37 @@ def check_paged_attention(rec):
                 lambda: K.paged_attention(q, pk, pv, table, index))
             print(f"    wrapper host us per call {times['host_us']:.2f}",
                   flush=True)
-            if label == "serving":
+            if PAGED_TIMED[label] is None:
                 rec.update(times)
             else:
-                rec["one_long_slot"] = times
+                rec[PAGED_TIMED[label]] = times
 
 
-#: flash cases, (batch, tq, tk, causal): the serving prefill lengths, the
-#: training shape B16 T512, and the tile edges (64-row tiles); at head_dim
-#: 64 (the models') all of them, at 32 the edges and a long prefill
+#: flash cases, (batch, tq, tk, causal) at 12 heads: the serving prefill
+#: lengths, the training shape B16 T512, and the tile edges (64-row
+#: tiles); at head_dim 64 (the models') all of them, at 32, 16 and 128
+#: the edges and a long prefill, at 80 and 8 (the codes 128 and 16 with
+#: their columns past D zero-filled) the edges; at 16 also 65544
+#: batch-heads at tiny T (the kernels take them 65535 at a time)
 FLASH_EDGES = [(1, t, t, True) for t in (63, 65, 129)] + [
     (1, 65, 1000, True), (1, 65, 1000, False)]
 FLASH_CASES = {64: [(1, t, t, True) for t in (7, 128, 1000, 2048)]
                + [(1, 100, 1000, True), (1, 100, 1000, False),
                   (16, 512, 512, True)] + FLASH_EDGES,
                32: [(1, 7, 7, True), (2, 128, 128, False),
-                    (1, 1000, 1000, True)] + FLASH_EDGES}
+                    (1, 1000, 1000, True)] + FLASH_EDGES,
+               16: [(1, 7, 7, True), (2, 128, 128, False),
+                    (5462, 5, 9, True), (5462, 9, 5, False)] + FLASH_EDGES,
+               128: [(1, 7, 7, True), (2, 128, 128, False),
+                     (1, 1000, 1000, True)] + FLASH_EDGES,
+               80: [(2, 100, 70, True), (2, 100, 70, False)] + FLASH_EDGES,
+               8: [(2, 100, 70, True), (2, 100, 70, False)] + FLASH_EDGES}
+#: the D 128 shapes timed (PERF.md section 6 rows 1-2), (batch, heads,
+#: T, dtype, backward too): phase 38's prefill (B1 H16 T1000) and
+#: training step (B8 H16 T1024) of the Pythia-width LM, causal
+FLASH_D128_TIMED = [(1, 16, 1000, "bfloat16", False),
+                    (8, 16, 1024, "float32", True),
+                    (8, 16, 1024, "bfloat16", True)]
 
 
 def _device_ms(fn, iters=20, warmup=3):
@@ -966,7 +1025,10 @@ def _flash_check(name, got, want, dtype, label, rec):
         _check(name, bf, dtype, label + " (bf16_max)", rec, "bf16_max")
 
 
-def check_flash_attention(rec):
+def check_flash_attention(rec, dims=None):
+    """Phase 3 for the flash forward: every FLASH_CASES case (of head dims
+    ``dims`` alone, if given) against the plain version in f32 and bf16;
+    the D 64 serving and training shapes timed."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
@@ -976,6 +1038,8 @@ def check_flash_attention(rec):
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
         for D, cases in FLASH_CASES.items():
+            if dims is not None and D not in dims:
+                continue
             for b, tq, tk, causal in cases:
                 q = torch.randn(b, H, tq, D, generator=g).to(dev, dtype)
                 k = torch.randn(b, H, tk, D, generator=g).to(dev, dtype)
@@ -1012,6 +1076,55 @@ def check_flash_attention(rec):
                         4 * tq * H * D * 2 + tq * H * 4, 4 * pairs * H * D,
                         dn, f"B1 H{H} T{tq} D{D} causal bf16",
                         tensor_cores=True)
+
+
+def time_flash_d128(rec_fwd, rec_bwd):
+    """The FLASH_D128_TIMED shapes: each one checked against the plain
+    version, then the forward (and backward) timed beside SDPA, into
+    ``rec_*["d128"]`` by shape."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import kernels as K
+    g = torch.Generator(device="cpu").manual_seed(26)
+    dev = torch.device("cuda")
+    D = 128
+    for b, h, t, dn, backward in FLASH_D128_TIMED:
+        dtype = getattr(torch, dn)
+        size = 2 if dtype is torch.bfloat16 else 4
+        q, k, v, do = (torch.randn(b, h, t, D, generator=g).to(dev, dtype)
+                       for _ in range(4))
+        shape = f"B{b} H{h} T{t} D{D} causal {dn}"
+        out, lse = K.flash_attention_fwd(q, k, v, True)
+        ref = K.flash_attention_fwd_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        _flash_check("flash_attention_fwd", (out, lse), ref, dn, shape,
+                     rec_fwd)
+        pairs = b * h * t * (t + 1) // 2
+        n = b * h * t * D
+        rec_fwd.setdefault("d128", {})[shape] = _kernel_times(
+            {}, lambda: K.flash_attention_fwd(q, k, v, True),
+            lambda: K.flash_attention_fwd_plain(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            4 * n * size + b * h * t * 4, 4 * pairs * D, dn, shape,
+            tensor_cores=True, plain_iters=3)
+        if not backward:
+            continue
+        got = K.flash_attention_bwd(q, k, v, out, lse, do, True)
+        want = K.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+        torch.cuda.synchronize()
+        _flash_check("flash_attention_bwd", got, want, dn, shape, rec_bwd)
+        del want
+        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        rec_bwd.setdefault("d128", {})[shape] = _kernel_times(
+            {}, lambda: K.flash_attention_bwd(q, k, v, out, lse, do, True),
+            lambda: K.flash_attention_bwd_plain(q, k, v, out, lse, do, True),
+            lambda: torch.autograd.grad(lib, (qq, kk, vv), do,
+                                        retain_graph=True),
+            8 * n * size + b * h * t * 4, 10 * pairs * D, dn, shape,
+            tensor_cores=True, plain_iters=3)
+        del lib, qq, kk, vv
+        torch.cuda.empty_cache()
 
 
 #: the kernel libraries whose products run on the tensor cores: the flash
@@ -1224,6 +1337,21 @@ def check_batch_norm_bwd(rec, ssd_only=False):
                             rec[key] = t
 
 
+def _print_ptxas(names=None):
+    """Phase 2's report: each compiled kernel's registers, shared memory
+    and spills as ptxas printed them (of the sources ``names``, or all)."""
+    from paddle_tpu_torch.ops import _build
+    for name, log in _build.build_logs.items():
+        if names is not None and name not in names:
+            continue
+        kernel = ""
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1][:130]
+            if "Used" in line or "spill" in line:
+                print(f"  {name} {kernel}: {line.strip()}")
+
+
 def _bitwise_repeat(name, got, again, label, rec):
     """Fail unless a second run's outputs ``again`` equal ``got`` bit for
     bit."""
@@ -1269,7 +1397,8 @@ def _bn_timings(args, nhwc, layout="NHWC"):
         f"{str(x.dtype)[6:]} act={args[6]}")
 
 
-def check_flash_attention_bwd(rec):
+def check_flash_attention_bwd(rec, dims=None):
+    """Phase 3 for the flash backward, as `check_flash_attention`."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import kernels as K
@@ -1279,6 +1408,8 @@ def check_flash_attention_bwd(rec):
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
         for D, cases in FLASH_CASES.items():
+            if dims is not None and D not in dims:
+                continue
             for b, tq, tk, causal in cases:
                 if tq == 2048:     # the plain backward's [T, T] tensors
                     continue
@@ -1826,61 +1957,120 @@ def check_exchange_sizes(kind, rec_bwd, strict=True):
 
 
 #: the widths at which the recurrent kernels are checked at the edge of
-#: what the card can place (T3 B4, ragged, f32 w): kernel -> (H checked
-#: against the plain version, H that must be refused)
-RECURRENT_LIMITS = {"lstm_fwd": ((1024,), ()), "lstm_bwd": ((1024,), (2048,)),
-                    "gru_fwd": ((1024,), ()), "gru_bwd": ((1024,), (2048,))}
+#: what the card can hold: kernel -> (H whose grid the card holds,
+#: where the persistent path runs and the stepwise one is forced beside
+#: it, at B32 T5 ragged; H it cannot hold, where the stepwise path runs,
+#: at B4 T3 ragged and at B32 T80 with full lengths, timed there in both
+#: w dtypes)
+RECURRENT_LIMITS = {"lstm_fwd": ((1024,), (2048,)),
+                    "lstm_bwd": ((1024,), (2048,)),
+                    "gru_fwd": ((1024,), (2048,)),
+                    "gru_bwd": ((1024,), (2048,))}
+
+
+def _recurrent_call(kind, args, backward, path=None):
+    """The kernel's outputs and the plain version's on ``args`` (the
+    forward's or the backward's), each a tuple."""
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    name = f"{kind}_{'bwd' if backward else 'fwd'}"
+    got = getattr(K, name)(*args, **({"path": path} if path else {}))
+    ref = getattr(K, name + "_plain")(*args)
+    as_tuple = (lambda x: (x,) if isinstance(x, torch.Tensor) else tuple(x))
+    return as_tuple(got), as_tuple(ref)
+
+
+def _recurrent_args(kind, t, b, h, wdt, lens, g):
+    """Seeded (forward args, backward args) of a recurrent kernel at T, B,
+    H with ``lens`` ("full" or "ragged") lengths, w in ``wdt``; the
+    backward's hs (and cs) are the plain forward's."""
+    from paddle_tpu_torch.ops import kernels as K
+    lstm = kind == "lstm"
+    xs, w, h0, c0, mask, dhs, dcs = _recurrent_inputs(
+        4 if lstm else 3, t, b, h, lens, False, g)
+    w = w.to(wdt)
+    if lstm:
+        fwd = (xs, w, h0, c0, mask)
+        return fwd, fwd + tuple(K.lstm_fwd_plain(*fwd)) + (dhs, dcs)
+    fwd = (xs, w, h0, mask)
+    return fwd, fwd + (K.gru_fwd_plain(*fwd), dhs)
 
 
 def check_recurrent_limits(kind, g, rec_fwd, rec_bwd, strict=True):
-    """At RECURRENT_LIMITS' widths: each kernel that fits is held to its
-    plain version, and each that does not must refuse to launch ("cannot
-    be placed"), not hang.  With ``strict`` False (the A/B modes, which
-    also run older kernels) a refusal where a fit is expected is recorded
-    in the kernel's record, not raised."""
+    """At RECURRENT_LIMITS' widths, each kernel in f32 and bf16 w: where
+    the card holds the persistent grid, the chosen path must be
+    "persistent" (the library's query, `kernels.recurrent_paths`, equal
+    to `kernels.recurrent_path`'s reckoning), the kernel within tolerance
+    of its plain version, and the stepwise path, forced, too; whether the
+    two agree bit for bit is recorded (``paths_bitwise``).  Where it does
+    not, the chosen path must be "stepwise", held to the plain version at
+    B4 T3 and B32 T80 and timed at B32 T80 (``stepwise_h2048``).  With
+    ``strict`` False (the A/B modes, which also run older kernels) a
+    library without the stepwise path is recorded, not raised."""
     import torch
     from paddle_tpu_torch.ops import kernels as K
-    lstm = kind == "lstm"
-    gates = 4 if lstm else 3
-    for which, rec in (("fwd", rec_fwd), ("bwd", rec_bwd)):
-        name = f"{kind}_{which}"
-        fits, refused = RECURRENT_LIMITS[name]
-        for h, want_fit in [(h, True) for h in fits] + [
-                (h, False) for h in refused]:
-            xs, w, h0, c0, mask, dhs, dcs = _recurrent_inputs(
-                gates, 3, 4, h, "ragged", False, g)
-            fwd_args = (xs, w, h0, c0, mask) if lstm else (xs, w, h0, mask)
-            plain_fwd = K.lstm_fwd_plain if lstm else K.gru_fwd_plain
-            outs = plain_fwd(*fwd_args)
-            outs = tuple(outs) if lstm else (outs,)
-            bwd_args = fwd_args + outs + ((dhs, dcs) if lstm else (dhs,))
-            if which == "fwd":
-                fn, plain, args = getattr(K, name), plain_fwd, fwd_args
-            else:
-                fn, plain = getattr(K, name), getattr(K, f"{name}_plain")
-                args = bwd_args
-            label = f"T3 B4 H{h} ragged w float32"
-            try:
-                got = fn(*args)
-            except RuntimeError as e:
-                if "cannot be placed" not in str(e):
-                    raise
-                print(f"  {name} {label}: refused ({e})", flush=True)
-                if want_fit:
-                    rec.setdefault("refused_h", []).append(h)
-                    if strict:
-                        raise AssertionError(f"{name} refused H {h}, "
-                                             "which it must place")
-                continue
-            if not want_fit:
-                raise AssertionError(f"{name} launched at H {h}, whose "
-                                     "blocks cannot all be resident")
-            got = (got,) if isinstance(got, torch.Tensor) else got
-            ref = plain(*args)
-            ref = (ref,) if isinstance(ref, torch.Tensor) else ref
-            torch.cuda.synchronize()
-            _check(name, list(zip(got, ref)), "float32", label, rec)
-            rec.setdefault("checked_h", []).append(h)
+    if not hasattr(K, "recurrent_paths"):
+        if strict:
+            raise AssertionError("the kernels have no stepwise path")
+        print(f"  {kind}: no stepwise path in this library, limits "
+              "skipped", flush=True)
+        rec_fwd["stepwise"] = rec_bwd["stepwise"] = None
+        return
+    sms = K._sm_count(0)
+    for wdt in (torch.float32, torch.bfloat16):
+        dn = str(wdt).replace("torch.", "")
+        bf = wdt is torch.bfloat16
+        rule = "bf16_max" if bf else None
+        for which, rec in (("fwd", rec_fwd), ("bwd", rec_bwd)):
+            name = f"{kind}_{which}"
+            held, streamed = RECURRENT_LIMITS[name]
+            for h, b, t in [(h, 32, 5) for h in held] + [
+                    (h, b, t) for h in streamed for b, t in ((4, 3),
+                                                             (32, 80))]:
+                want = "persistent" if h in held else "stepwise"
+                chosen = K.recurrent_paths(kind, 0, h, b, bf)[
+                    which == "bwd"]
+                reckoned = K.recurrent_path(kind, which, h, b, bf, sms=sms)
+                if chosen != want or reckoned != chosen:
+                    raise AssertionError(
+                        f"{name} H{h} B{b} w {dn}: the library chooses "
+                        f"{chosen}, the reckoning {reckoned}, want {want}")
+                lens = "full" if t == 80 else "ragged"
+                fa, ba = _recurrent_args(kind, t, b, h, wdt, lens, g)
+                args = ba if which == "bwd" else fa
+                label = f"T{t} B{b} H{h} {lens} w {dn} {chosen}"
+                before = dict(getattr(K, name.upper()).path_launches)
+                got, ref = _recurrent_call(kind, args, which == "bwd")
+                torch.cuda.synchronize()
+                ran = {p: n - before[p] for p, n in
+                       getattr(K, name.upper()).path_launches.items()}
+                if ran[chosen] != 1:
+                    raise AssertionError(f"{name} {label}: launches by "
+                                         f"path {ran}")
+                _check(name, list(zip(got, ref)), "float32", label, rec,
+                       rule)
+                checked = rec.setdefault("checked_h", {}).setdefault(
+                    chosen, [])
+                if h not in checked:
+                    checked.append(h)
+                if chosen == "persistent":
+                    other, _ = _recurrent_call(kind, args, which == "bwd",
+                                               path="stepwise")
+                    torch.cuda.synchronize()
+                    _check(name, list(zip(other, ref)), "float32",
+                           label.replace("persistent", "stepwise (forced)"),
+                           rec, rule)
+                    same = all(torch.equal(a, c) for a, c in zip(got, other))
+                    print(f"  {name} {label}: the persistent and stepwise "
+                          f"paths agree bit for bit: {same}", flush=True)
+                    rec.setdefault("paths_bitwise", {})[
+                        f"H{h} B{b} T{t} w {dn}"] = same
+                elif t == 80:
+                    times = _recurrent_timings(kind, which == "bwd", fa, ba)
+                    times["path"] = chosen
+                    rec.setdefault("stepwise_h2048", {})[dn] = times
+                del got, ref, fa, ba, args
+                torch.cuda.empty_cache()
 
 
 def _recurrent_timings(kind, backward, fwd_args, bwd_args):
@@ -2943,14 +3133,14 @@ def _copy_feed(batch, seed):
 
 
 def _train_steps(main, startup, avg_cost, feed, steps, per_step,
-                 other="other", ranges=None, after=None):
+                 other="other", ranges=None, after=None, keep_state=True):
     """Startup, then ``steps`` steps of ``main`` on the card on one fixed
     feed, with the launch counts zeroed just before the steps and read
-    just after, then one profiled step (and ``after(exe)``, if given, in
-    the same scope).  Fails unless each kernel
-    launched ``per_step[name]`` times a step and the loss is finite and
-    falls.  Returns (launches, end-to-end numbers, state after the
-    steps)."""
+    just after (by path too: ``path_launches`` in the numbers), then one
+    profiled step (and ``after(exe)``, if given, in the same scope).
+    Fails unless each kernel launched ``per_step[name]`` times a step and
+    the loss is finite and falls.  Returns (launches, end-to-end numbers,
+    state after the steps, or None without ``keep_state``)."""
     import numpy as np
     import torch
     import paddle_tpu_torch as fluid
@@ -2980,11 +3170,13 @@ def _train_steps(main, startup, avg_cost, feed, steps, per_step,
             print(f"  step {step + 1}: loss {losses[-1]:.6f}, "
                   f"{ms[-1]:.2f} ms", flush=True)
         launches = {k.name: k.launches for k in K.KERNELS}
+        paths = _path_launches()
         peak = torch.cuda.max_memory_allocated()
         device = _profile_step(exe, main, feed, avg_cost, other, ranges)
         if after is not None:
             after(exe)
-        state = {n: t.cpu().numpy() for n, t in scope._vars.items()}
+        state = ({n: t.cpu().numpy() for n, t in scope._vars.items()}
+                 if keep_state else None)
     print(f"  launches in {steps} steps: {launches}", flush=True)
     for name, n in per_step.items():
         if launches[name] != n * steps:
@@ -3004,7 +3196,8 @@ def _train_steps(main, startup, avg_cost, feed, steps, per_step,
            "loss_first": losses[0], "loss_last": losses[-1],
            "peak_mem_gib": peak / 2**30, "profiled_device_ms": device,
            "device_busy_share": (device["all"] / p50 if device is not None
-                                 else None)}
+                                 else None),
+           "path_launches": paths}
     return launches, e2e, state
 
 
@@ -4107,10 +4300,10 @@ def op_rules_card_vs_cpu(seed=0):
 # phases 9, 10 and 11: the sequence models through the Fluid front end
 # ---------------------------------------------------------------------------
 
-def _seq_program(model, seed, amp):
+def _seq_program(model, seed, amp, config=None):
     """Build the stacked LSTM (``model`` "lstm") or the GRU classifier
-    ("gru") + Adam in fresh default programs; returns (main, startup,
-    avg_cost)."""
+    ("gru") + Adam in fresh default programs, at LSTM_CONFIG or
+    GRU_CONFIG (or ``config``); returns (main, startup, avg_cost)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import layers, optimizer
     from paddle_tpu_torch.models.stacked_lstm import lstm_net
@@ -4118,9 +4311,10 @@ def _seq_program(model, seed, amp):
     data = layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
     label = layers.data(name="label", shape=[1], dtype="int64")
     if model == "lstm":
-        avg_cost, _, _ = lstm_net(data, label, **LSTM_CONFIG)
+        avg_cost, _, _ = lstm_net(data, label, **(config or LSTM_CONFIG))
     else:
-        vocab, hid = GRU_CONFIG["vocab"], GRU_CONFIG["hid"]
+        vocab, hid = (config or GRU_CONFIG)["vocab"], (config or
+                                                       GRU_CONFIG)["hid"]
         emb = layers.embedding(input=data, size=[vocab, hid])
         proj = layers.fc(input=emb, size=3 * hid, num_flatten_dims=2)
         seq = layers.dynamic_gru(input=proj, size=hid)
@@ -11476,6 +11670,450 @@ def csp_ab(smi):
     return {"csp": dict(e2e, launches=launches), "kernels": recs}
 
 
+# ---------------------------------------------------------------------------
+# phase 38: head dims 8-128 and hidden widths past the co-resident grid
+# ---------------------------------------------------------------------------
+
+#: the port's TransformerLM at Pythia-1.4B's widths (Biderman et al. 2023,
+#: "Pythia", Table 1: d_model 2048, 16 heads of 128, 24 layers, vocab
+#: 50304 (the padded GPT-NeoX tokenizer), d_ff 4 x 2048, context 2048);
+#: only the widths are taken, the architecture stays the repo's
+#: (post-LN, sinusoid positions, untied head)
+PYTHIA_1B4 = dict(vocab=50304, max_len=2048, n_layers=24, d_model=2048,
+                  n_heads=16, d_ff=8192, eos_id=None)
+#: (a) serving it in bf16: slots, requests, prompt lengths drawn in
+#: [8, 1024], new tokens a request, the streams checked against the full
+#: recompute
+SH_SLOTS, SH_REQUESTS, SH_PROMPT_RANGE, SH_NEW = 16, 32, (8, 1024), 32
+SH_CHECKED = (0, 17)
+#: then an exact engine on 2 slots over max_len 512 (f32, row-stable
+#: products, the f32 flash over the whole span): prompts and new tokens
+SH_EXACT_MAX_LEN, SH_EXACT_PROMPTS, SH_EXACT_NEW = 512, (37, 400), 8
+SH_EXACT_SLOTS = 2
+#: (b) training the same widths at depth 4 (cut from 24), T 1024, batch
+#: 8, through the Fluid Program and train_loop, f32 then amp
+SH_TRAIN = dict(vocab=50304, max_len=1024, n_layers=4, d_model=2048,
+                n_heads=16, d_ff=8192)
+SH_TRAIN_BATCH, SH_TRAIN_STEPS = 8, 5
+#: the kernel launches of one of its steps: an attention and two
+#: LayerNorms a layer, one loss head
+SH_TRAIN_PER_STEP = dict({name: 0 for name in TRAIN_LAUNCHES_PER_STEP},
+                         flash_attention_fwd=4, flash_attention_bwd=4,
+                         layer_norm_fwd=8, layer_norm_bwd=8,
+                         softmax_xent_fwd=1, softmax_xent_bwd=1)
+#: (c) the JAX package's default servable model, as
+#: benchmark/fluid/serving.py:277-287 saves and drives it (vocab 128,
+#: max_len 256, 2 layers, d_model 64, 4 heads of 16, d_ff 256, seed 7; 4
+#: slots, prompts of 8 ids in [2, 128) from RandomState(7), 32 new
+#: tokens), saved by the port and served by DecodeEngine in f32
+SH_DEFAULT = dict(vocab=128, max_len=256, n_layers=2, d_model=64,
+                  n_heads=4, d_ff=256)
+SH_DEFAULT_SLOTS, SH_DEFAULT_PROMPT, SH_DEFAULT_NEW = 4, 8, 32
+#: (d) phase 9's stacked LSTM and phase 10's GRU classifier at hidden
+#: width 2048, batch 32, T 80, in f32 and under amp
+SH_LSTM = dict(LSTM_CONFIG, hid_dim=2048)
+SH_GRU = dict(GRU_CONFIG, hid=2048)
+SH_SEQ_STEPS = 5
+
+
+#: every kernel's launches by path over the whole run, checks included
+#: (`_track_path_totals` adds each count before the counts are zeroed)
+_PATH_TOTALS = {}
+
+
+def _track_path_totals(K):
+    """Make ``K.reset_launches`` add each kernel's launches by path into
+    _PATH_TOTALS before it zeroes them."""
+    reset = K.reset_launches
+
+    def tracked():
+        for k in K.KERNELS:
+            tot = _PATH_TOTALS.setdefault(k.name, {})
+            for p, n in k.path_launches.items():
+                tot[p] = tot.get(p, 0) + n
+        reset()
+    K.reset_launches = tracked
+
+
+def _path_launches():
+    """Each kernel's launches by path (head-dim code, tile code or
+    recurrent path) since the counts were last zeroed."""
+    from paddle_tpu_torch.ops import kernels as K
+    return {k.name: dict(k.path_launches) for k in K.KERNELS
+            if any(k.path_launches.values())}
+
+
+def _random_lm_on_card(spec, precision, seed):
+    """The port's TransformerLM at ``spec`` with seeded random weights
+    made on the card, none written to disk: `random_params`'
+    distributions (Xavier-uniform matrices, N(0, 0.02) vectors, LayerNorm
+    scales 1 + N(0, 0.1), the sinusoid table), drawn by a CUDA
+    generator."""
+    import torch
+    from paddle_tpu_torch.models.transformer import (TransformerLM,
+                                                     param_shapes,
+                                                     sinusoid_table)
+    model = TransformerLM(spec, precision=precision, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = param_shapes(spec)
+    with torch.no_grad():
+        for name, (mod, attr) in model.artifact_slots().items():
+            dst, shape = getattr(mod, attr), shapes[name]
+            if tuple(dst.shape) != tuple(shape):
+                raise AssertionError(f"{name}: model {tuple(dst.shape)}, "
+                                     f"artifact {shape}")
+            if name == "pos_encoding_0.w_0":
+                val = torch.from_numpy(sinusoid_table(*shape)).cuda()
+            elif name.startswith("layer_norm") and name.endswith("w_0"):
+                val = 1.0 + 0.1 * torch.randn(shape, generator=g,
+                                              device="cuda")
+            elif len(shape) == 1:
+                val = 0.02 * torch.randn(shape, generator=g, device="cuda")
+            else:
+                lim = math.sqrt(6.0 / (shape[0] + shape[1]))
+                val = (2 * torch.rand(shape, generator=g, device="cuda")
+                       - 1) * lim
+            dst.copy_(val.to(model.dtype))
+            del val
+    torch.cuda.synchronize()
+    return model
+
+
+def _sh_serving(seed):
+    """(a): the Pythia-width LM in bf16 behind DecodeEngine: SH_REQUESTS
+    streams on SH_SLOTS slots, two held to the full recompute by phase
+    4's rule; then the exact engine, every token bitwise the exact full
+    recompute.  Returns (launches, paths, numbers) of both runs."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving.decode_engine import (DecodeEngine,
+                                                        greedy_decode_full)
+    t0 = time.perf_counter()
+    model = _random_lm_on_card(dict(PYTHIA_1B4), "bf16", seed)
+    engine = DecodeEngine(model, slots=SH_SLOTS, block_len=16, warmup=True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {n_params / 1e9:.3f} B parameters made on the card, engine "
+          f"warm: {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(seed + 38)
+    lens = rng.integers(SH_PROMPT_RANGE[0], SH_PROMPT_RANGE[1] + 1,
+                        SH_REQUESTS)
+    prompts = [rng.integers(0, PYTHIA_1B4["vocab"], n).tolist()
+               for n in lens]
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        handles = [engine.submit(p, SH_NEW, capture_logits=i in SH_CHECKED)
+                   for i, p in enumerate(prompts)]
+        results = [h.result(timeout=900) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in K.KERNELS}
+        paths = _path_launches()
+        stats = engine.stats()
+    finally:
+        engine.close()
+    n_tok = sum(len(r["tokens"]) for r in results)
+    for r in results:
+        if len(r["tokens"]) != SH_NEW or r["finish_reason"] != "length" \
+                or not all(0 <= t < PYTHIA_1B4["vocab"]
+                           for t in r["tokens"]):
+            raise AssertionError(f"D128 stream ended early or out of range: "
+                                 f"{r['finish_reason']}, {len(r['tokens'])}")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0 or name != "layer_norm_fwd" and \
+                paths[name]["d128"] != launches[name]:
+            raise AssertionError(f"D128 serving: {name} launched "
+                                 f"{launches[name]}, by code "
+                                 f"{paths.get(name)}")
+    print(f"  {SH_REQUESTS} requests, {n_tok} tokens in {wall:.3f} s: "
+          f"{n_tok / wall:.1f} tokens/s; TTFT ms {stats['ttft_ms']}; step "
+          f"ms {stats['step_ms']}; launches {launches}; by code {paths}",
+          flush=True)
+    for i in SH_CHECKED:
+        _match_full_recompute(model, prompts[i], results[i],
+                              f"D128 stream {i}", min(8, SH_NEW))
+    serving = {"tokens_per_s": n_tok / wall, "wall_s": wall,
+               "ttft_ms": stats["ttft_ms"], "step_ms": stats["step_ms"],
+               "launches": launches, "path_launches": paths}
+    del engine, model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spec = dict(PYTHIA_1B4, max_len=SH_EXACT_MAX_LEN)
+    model = _random_lm_on_card(spec, "f32", seed + 1)
+    engine = DecodeEngine(model, slots=SH_EXACT_SLOTS, block_len=16,
+                          numerics="exact", warmup=True)
+    torch.cuda.synchronize()
+    print(f"  exact engine (f32, max_len {SH_EXACT_MAX_LEN}) warm: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = [rng.integers(0, spec["vocab"], n).tolist()
+               for n in SH_EXACT_PROMPTS]
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        cold = [h.result(timeout=900) for h in [
+            engine.submit(p, SH_EXACT_NEW, capture_logits=True)
+            for p in prompts]]
+        torch.cuda.synchronize()
+        exact_wall = time.perf_counter() - t0
+        exact_launches = {k.name: k.launches for k in K.KERNELS}
+        exact_paths = _path_launches()
+        exact_stats = engine.stats()
+    finally:
+        engine.close()
+    if exact_paths.get("flash_attention_fwd", {}).get("d128", 0) <= 0 or \
+            exact_launches["row_stable_mm"] <= 0:
+        raise AssertionError(f"exact D128 decode: launches "
+                             f"{exact_launches}, by code {exact_paths}")
+    t0 = time.perf_counter()
+    full = greedy_decode_full(model, prompts, SH_EXACT_NEW,
+                              capture_logits=True, numerics="exact")
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    compared = 0
+    for i, r in enumerate(cold):
+        if r["tokens"] != full["tokens"][i]:
+            raise AssertionError(f"exact D128 stream {i}: tokens differ "
+                                 "from the exact full recompute")
+        for step, a in enumerate(r["logits"]):
+            b = full["logits"][step][i]
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"exact D128 stream {i} token {step}: logits differ "
+                    f"from the exact full recompute by up to "
+                    f"{float(np.abs(a - b).max()):.3e}")
+            compared += 1
+    print(f"  exact: {compared} tokens of {len(prompts)} streams (prompts "
+          f"{list(SH_EXACT_PROMPTS)}) bitwise the exact full recompute in "
+          f"{exact_wall:.3f} s (recompute {full_s:.2f} s); step ms "
+          f"{exact_stats['step_ms']}; launches {exact_launches}; by code "
+          f"{exact_paths}", flush=True)
+    exact = {"wall_s": exact_wall, "step_ms": exact_stats["step_ms"],
+             "tokens_bitwise": compared, "full_recompute_s": full_s,
+             "launches": exact_launches, "path_launches": exact_paths}
+    del engine, model
+    torch.cuda.empty_cache()
+    return serving, exact
+
+
+def _sh_train(amp, seed):
+    """(b): SH_TRAIN_STEPS steps of the Pythia-width LM at depth 4 through
+    Executor.train_loop (a host sync a step), f32 or under
+    MixedPrecision(Adam), on one fixed copy-task batch, then one profiled
+    step.  The loss must be finite and fall; each kernel must launch
+    SH_TRAIN_PER_STEP times a step, the flash pair at head dim 128."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import kernels as K
+    fluid.core.program.reset_default_programs()
+    _, _, avg_cost = transformer.transformer_lm_train_program(**SH_TRAIN,
+                                                              amp=amp)
+    main, startup = fluid.default_main_program(), \
+        fluid.default_startup_program()
+    startup.random_seed = seed
+    rng = np.random.default_rng(seed)
+    seqs = rng.integers(0, SH_TRAIN["vocab"],
+                        (SH_TRAIN_BATCH, SH_TRAIN["max_len"])).astype(np.int64)
+    feed = {"tokens": seqs, "labels": np.roll(seqs, -1, axis=1)}
+    scope = fluid.core.scope.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    with fluid.scope_guard(scope):
+        t0 = time.perf_counter()
+        exe.run(startup)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        handles = exe.train_loop(main, feed, fetch_list=[avg_cost],
+                                 steps=SH_TRAIN_STEPS, fetch_every=1,
+                                 steps_per_launch=1)
+        losses = [float(np.asarray(h.get()[0])) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in K.KERNELS}
+        paths = _path_launches()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = _window_step_ms(exe._flight.records(), 1)
+        device = _profile_step(exe, main, feed, avg_cost)
+    del exe, scope
+    torch.cuda.empty_cache()
+    what = "amp" if amp else "f32"
+    print(f"  {what}: startup {startup_s:.1f} s; {SH_TRAIN_STEPS} steps in "
+          f"{wall:.2f} s, losses {[round(x, 5) for x in losses]}; step ms "
+          f"{[round(x, 2) for x in step_ms]}; launches {launches}; by "
+          f"code {paths}", flush=True)
+    for name, per in SH_TRAIN_PER_STEP.items():
+        if launches[name] != per * SH_TRAIN_STEPS:
+            raise AssertionError(f"D128 training ({what}): {name} launched "
+                                 f"{launches[name]} times in "
+                                 f"{SH_TRAIN_STEPS} steps, want {per} a step")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        if paths[name]["d128"] != launches[name]:
+            raise AssertionError(f"D128 training: {name} by code "
+                                 f"{paths[name]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"D128 training ({what}): losses {losses}")
+    p50 = float(np.percentile(step_ms, 50)) if step_ms else None
+    return launches, {"losses": losses, "step_ms": step_ms,
+                      "step_ms_p50": p50, "wall_s": wall,
+                      "startup_s": startup_s, "peak_mem_gib": peak / 2**30,
+                      "profiled_device_ms": device,
+                      "device_busy_share": (device["all"] / p50 if device
+                                            and p50 else None),
+                      "path_launches": paths}
+
+
+def _sh_default_model(seed):
+    """(c): the JAX package's default servable model (head dim 16), saved
+    by the port and served by DecodeEngine in f32: every stream held to
+    the full recompute by phase 4's rule."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.transformer import save_generation_model
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving.decode_engine import DecodeEngine
+    model_dir = os.path.join(HERE, "build", "default_model")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    save_generation_model(model_dir, **SH_DEFAULT, seed=7)
+    engine = DecodeEngine.from_model_dir(model_dir, slots=SH_DEFAULT_SLOTS,
+                                         block_len=16, warmup=True)
+    rng = np.random.RandomState(7)
+    prompts = [list(map(int, rng.randint(2, SH_DEFAULT["vocab"],
+                                         SH_DEFAULT_PROMPT)))
+               for _ in range(SH_DEFAULT_SLOTS)]
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        results = [h.result(timeout=300) for h in [
+            engine.submit(p, SH_DEFAULT_NEW, capture_logits=True)
+            for p in prompts]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in K.KERNELS}
+        paths = _path_launches()
+        stats = engine.stats()
+    finally:
+        engine.close()
+    for name in ("paged_attention", "flash_attention_fwd"):
+        if paths.get(name, {}).get("d16", 0) != launches[name] or \
+                launches[name] <= 0:
+            raise AssertionError(f"D16 serving: {name} launched "
+                                 f"{launches[name]}, by code "
+                                 f"{paths.get(name)}")
+    for i, (p, r) in enumerate(zip(prompts, results)):
+        if len(r["tokens"]) != SH_DEFAULT_NEW:
+            raise AssertionError(f"D16 stream {i} ended early")
+        _match_full_recompute(engine.model, p, r, f"D16 stream {i}",
+                              min(8, SH_DEFAULT_NEW))
+    n_tok = sum(len(r["tokens"]) for r in results)
+    print(f"  {SH_DEFAULT_SLOTS} streams, {n_tok} tokens in {wall:.3f} s; "
+          f"step ms {stats['step_ms']}; launches {launches}; by code "
+          f"{paths}", flush=True)
+    return launches, {"tokens_per_s": n_tok / wall, "wall_s": wall,
+                      "step_ms": stats["step_ms"], "path_launches": paths}
+
+
+def _sh_recurrent(model, amp, seed):
+    """(d): phase 9's stacked LSTM (``model`` "lstm") or phase 10's GRU
+    classifier at hidden width 2048, SH_SEQ_STEPS steps at SEQ_BATCH x
+    SEQ_T, f32 or under amp: each recurrent launch must take the
+    stepwise path."""
+    import torch
+    config = SH_LSTM if model == "lstm" else SH_GRU
+    main, startup, avg_cost = _seq_program(model, seed, amp, config)
+    feed = {k: torch.from_numpy(v).to("cuda")
+            for k, v in _word_feed(SEQ_BATCH, seed).items()}
+    launches, e2e, _ = _train_steps(
+        main, startup, avg_cost, feed, SH_SEQ_STEPS,
+        SEQ_LAUNCHES_PER_STEP[model],
+        other="the DynamicRNN's eager per-step ops and other elementwise",
+        keep_state=False)
+    paths = e2e["path_launches"]
+    for name in (f"{model}_fwd", f"{model}_bwd"):
+        if paths[name]["stepwise"] != launches[name] or not launches[name]:
+            raise AssertionError(f"H2048 {model}: {name} by path "
+                                 f"{paths[name]}")
+    print(f"  H2048 {model} {'amp' if amp else 'f32'}: step p50 "
+          f"{e2e['step_ms_p50']:.3f} ms, device busy share "
+          f"{e2e['device_busy_share']}; by path {paths}", flush=True)
+    torch.cuda.empty_cache()
+    return launches, e2e
+
+
+def shapes_phase(smi, seed=0):
+    """Phase 38: the slice's path at full width: (a) the Pythia-width LM
+    (16 heads of 128) served in bf16 and, exactly, in f32; (b) trained at
+    depth 4 in f32 and under amp; (c) the JAX package's default servable
+    model (heads of 16); (d) the stacked LSTM and the GRU classifier at H
+    2048 in f32 and under amp.  Returns (launches summed over the legs,
+    numbers by leg)."""
+    print(f"phase 38: head dims 128 and 16, hidden width 2048 ({smi})",
+          flush=True)
+    t_phase = time.perf_counter()
+    total, out = {}, {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    print(f"  (a) {PYTHIA_1B4} in bf16 on {SH_SLOTS} slots", flush=True)
+    out["serving"], out["exact"] = _sh_serving(seed)
+    add(out["serving"]["launches"])
+    add(out["exact"]["launches"])
+    for amp in (False, True):
+        key = "train_amp" if amp else "train_f32"
+        print(f"  (b) {SH_TRAIN} at batch {SH_TRAIN_BATCH}, "
+              f"{'MixedPrecision(Adam)' if amp else 'f32 Adam'}", flush=True)
+        launches, out[key] = _sh_train(amp, seed)
+        add(launches)
+    print(f"  (c) the default servable model {SH_DEFAULT}", flush=True)
+    launches, out["default_model"] = _sh_default_model(seed)
+    add(launches)
+    for model in ("lstm", "gru"):
+        for amp in (False, True):
+            key = f"{model}_h2048_{'amp' if amp else 'f32'}"
+            print(f"  (d) {SH_LSTM if model == 'lstm' else SH_GRU}, "
+                  f"{'amp' if amp else 'f32'}", flush=True)
+            launches, out[key] = _sh_recurrent(model, amp, seed)
+            add(launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 38: {out['phase_s']:.1f} s; launches {total}",
+          flush=True)
+    return total, out
+
+
+def shapes_ab(smi):
+    """``--shapes``: phase 2 for the attention and recurrent sources, the
+    phase 3 checks of the head dims 8-128 and the recurrent widths (flash and
+    paged at NEW_HEAD_DIMS, the D 128 timings, the recurrent limits and
+    stepwise timings), then phase 38."""
+    from paddle_tpu_torch.ops import _build, kernels as K
+    t0 = time.perf_counter()
+    _build.build_all(k.source for k in K.KERNELS)
+    print(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _print_ptxas(("flash_attention", "flash_attention_bwd", "lstm", "gru"))
+    recs = {k.name: {} for k in K.KERNELS}
+    print("phase 3: the new shapes against their plain versions",
+          flush=True)
+    check_paged_attention(recs["paged_attention"], dims=NEW_HEAD_DIMS)
+    check_flash_attention(recs["flash_attention_fwd"], dims=NEW_HEAD_DIMS)
+    check_flash_attention_bwd(recs["flash_attention_bwd"],
+                              dims=NEW_HEAD_DIMS)
+    time_flash_d128(recs["flash_attention_fwd"], recs["flash_attention_bwd"])
+    g = __import__("torch").Generator(device="cpu").manual_seed(38)
+    for kind in ("lstm", "gru"):
+        check_recurrent_limits(kind, g, recs[f"{kind}_fwd"],
+                               recs[f"{kind}_bwd"])
+    launches, e2e = shapes_phase(smi)
+    return {"shapes": dict(e2e, launches=launches),
+            "kernels": {k: r for k, r in recs.items() if r}}
+
+
 AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--lstm": lstm_ab, "--ln": ln_ab, "--frontdoor": frontdoor_ab,
             "--decode-modes": decode_modes_ab, "--vgg": vgg_ab,
@@ -11486,7 +12124,8 @@ AB_MODES = {"--serving": serving_ab, "--resnet": resnet_ab,
             "--fleet": fleet_ab, "--mesh": mesh_ab,
             "--sharded-embedding": sharded_embedding_ab,
             "--sequence-parallel": sequence_parallel_ab,
-            "--pserver": pserver_ab, "--v2": v2_ab, "--csp": csp_ab}
+            "--pserver": pserver_ab, "--v2": v2_ab, "--csp": csp_ab,
+            "--shapes": shapes_ab}
 
 
 def main(argv=()):
@@ -11539,19 +12178,14 @@ def main(argv=()):
         print(json.dumps(dict(AB_MODES[argv[0]](smi), card=smi)))
         return 0
 
+    _track_path_totals(K)
     t0 = time.perf_counter()
     native_join = start_native_build()
     paths = _build.build_all(k.source for k in K.KERNELS)
     native_build_s = native_join()
     print(f"phase 2: kernels and the native library built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in _build.build_logs.items():
-        kernel = ""
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                kernel = line.split("'")[1][:90]
-            if "Used" in line or "spill" in line:
-                print(f"  {name} {kernel}: {line.strip()}")
+    _print_ptxas()
 
     print("phase 3: kernels against their plain versions", flush=True)
     hmma = check_tensor_cores(paths)
@@ -11560,6 +12194,7 @@ def main(argv=()):
     check_flash_attention(recs["flash_attention_fwd"])
     check_layer_norm(recs["layer_norm_fwd"])
     check_flash_attention_bwd(recs["flash_attention_bwd"])
+    time_flash_d128(recs["flash_attention_fwd"], recs["flash_attention_bwd"])
     check_layer_norm_bwd(recs["layer_norm_bwd"])
     check_softmax_xent(recs["softmax_xent_fwd"], recs["softmax_xent_bwd"])
     check_batch_norm_bwd(recs["batch_norm_bwd"])
@@ -11667,7 +12302,13 @@ def main(argv=()):
     ps_launches, _ = pserver_phase(smi)
     v2_launches, _ = v2_phase(smi, recs["batch_norm_bwd"])
     csp_launches, _ = csp_phase(smi, native_build_s)
+    shapes_launches, shapes_e2e = shapes_phase(smi)
+    path_legs = {leg: shapes_e2e[leg]["path_launches"] for leg in (
+        "serving", "exact", "train_f32", "train_amp", "default_model",
+        "lstm_h2048_f32", "lstm_h2048_amp", "gru_h2048_f32",
+        "gru_h2048_amp")}
 
+    K.reset_launches()  # the last counts into _PATH_TOTALS
     kernels = []
     for k in K.KERNELS:
         r = recs[k.name]
@@ -11693,7 +12334,8 @@ def main(argv=()):
                          + pp_launches.get(k.name, 0)
                          + ps_launches.get(k.name, 0)
                          + v2_launches.get(k.name, 0)
-                         + csp_launches.get(k.name, 0)),
+                         + csp_launches.get(k.name, 0)
+                         + shapes_launches.get(k.name, 0)),
             "launches_serving": serve_launches[k.name],
             "launches_genprog": gp_launches[k.name],
             "launches_frontdoor": fd_launches[k.name],
@@ -11732,6 +12374,11 @@ def main(argv=()):
             "launches_pserver": ps_launches.get(k.name, 0),
             "launches_v2": v2_launches.get(k.name, 0),
             "launches_csp": csp_launches.get(k.name, 0),
+            "launches_shapes": shapes_launches.get(k.name, 0),
+            "launches_by_path": {
+                "phase38": {leg: p[k.name] for leg, p in path_legs.items()
+                            if k.name in p},
+                "whole_run": _PATH_TOTALS.get(k.name, {})},
             "max_abs_err": r["max_abs_err"],
             "limit_share": r["limit_share"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -11755,7 +12402,9 @@ def main(argv=()):
                if "amp_training" in r else {}),
             **{key: r[key] for key in ("f32_w", "bf16_w", "bf16",
                                        "chunked_rows", "decode", "shapes",
-                                       "tile_code_sweep", "small_m")
+                                       "tile_code_sweep", "small_m", "d128",
+                                       "d128_serving", "stepwise_h2048",
+                                       "paths_bitwise", "checked_h")
                if key in r},
             **{key: v for key, v in r.items()
                if key.startswith("seq2seq_") and not key.startswith(

@@ -9,6 +9,15 @@
 
 namespace ptt {
 
+// The compiled head-dim code of the attention kernels that serves head
+// dim d: the least of 16, 32, 64 and 128 at or above d, for d a multiple
+// of 8 from 8 to 128 (the kernels zero-fill the columns past d); 0 for
+// any other d (kernels.head_dim_code is the same map).
+__host__ __device__ inline int head_dim_code(int d) {
+  if (d < 8 || d > 128 || d % 8 != 0) return 0;
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);

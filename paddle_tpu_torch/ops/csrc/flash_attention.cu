@@ -41,8 +41,23 @@
 // are never loaded and a warp skips the tiles wholly in its own masked
 // future; ragged Tq/Tk are masked in the kernel (rows past the end read as
 // zeros), so any length works (prefill goes down to 1 token).  A fully
-// masked row gives out 0 and lse -inf, as the TPU kernel does.  head_dim
-// is a template parameter: 32 and 64 are built (the served model has 64).
+// masked row gives out 0 and lse -inf, as the TPU kernel does.
+//
+// Head dims.  The code's width D is a template parameter: 16, 32, 64 and
+// 128 are built, and head dim d (a multiple of 8 up to 128) runs the
+// least code D >= d (common.cuh head_dim_code): the tile loads zero-fill
+// the columns past d in shared memory (cp.async with a zero source size,
+// nothing padded on the host), those columns add 0 to every score, and
+// only the first d columns of out are stored (`kPad`: a code at its own
+// width keeps d a compile-time constant, a narrower d runs an
+// instantiation of its own).  The scale is the caller's (1/sqrt(d)).
+// f32 at D 128 cannot keep Q's fragments in registers (128 for Q's tf32
+// hi and lo beside O's 64 accumulators): that code keeps Q's tile in
+// shared memory beside the K/V buffers (five tiles, 165 KB, one block an
+// SM) and reads its fragments again for each key tile
+// (`q_in_registers`).
+// A grid has at most 65535 batch-heads in y; more run in chunks of 65535
+// with offset pointers.
 //
 // Why mma.sync and not wgmma/TMA: one warp-level MMA path serves bf16 and
 // 3xTF32 alike (a wgmma tf32 path would need its own operand splitting in
@@ -59,20 +74,31 @@ using ptt::fa::kRows;
 using ptt::fa::kThreads;
 using ptt::fa::Tc;
 
-// Double-buffered K and V tiles; Q's tile is read once, into registers,
-// from K's second buffer before that buffer is first filled.
+// Whether a code keeps Q's mma fragments in registers for the whole loop:
+// all but f32 at D 128, which reads them from Q's tile in shared memory.
 template <typename T, int D>
-constexpr int smem_bytes() {
-  return 4 * kRows * ptt::fa::ld<T, D>() * static_cast<int>(sizeof(T));
+__host__ __device__ constexpr bool q_in_registers() {
+  return !(sizeof(T) == 4 && D == 128);
 }
 
+// Double-buffered K and V tiles; Q's tile is read once, into registers,
+// from K's second buffer before that buffer is first filled (or, without
+// `q_in_registers`, kept in a fifth tile of its own).
 template <typename T, int D>
+constexpr int smem_bytes() {
+  return (q_in_registers<T, D>() ? 4 : 5) * kRows * ptt::fa::ld<T, D>() *
+         static_cast<int>(sizeof(T));
+}
+
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 && D == 64 ? 3 : 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int Tq, int Tk, int causal,
-                     float scale) {
+                     float* __restrict__ lse, int Tq, int Tk, int d_in,
+                     int causal, float scale) {
   using M = Tc<T>;
+  const int d = kPad ? d_in : D;  // the true head dim
+  constexpr bool kQReg = q_in_registers<T, D>();
   constexpr int LD = ptt::fa::ld<T, D>();
   constexpr int kTile = kRows * LD;
   constexpr int NB = kRows / 8;  // 8-key accumulator blocks of a tile
@@ -91,30 +117,33 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 && D == 64 ? 3 : 1)
   const int kv_end = causal ? min(Tk, last_row + offset + 1) : Tk;
   const int n_kv = kv_end > 0 ? (kv_end + kRows - 1) / kRows : 0;
 
-  const T* kb = k + bh * Tk * D;
-  const T* vb = v + bh * Tk * D;
+  const T* kb = k + bh * Tk * d;
+  const T* vb = v + bh * Tk * d;
   // tile j goes to buffer j & 1, one commit group per tile (empty past
   // the last): at step j only tile j's group is still in flight
   auto load_kv = [&](int j) {
     if (j < n_kv) {
-      ptt::fa::load_tile<T, D>(Ks + (j & 1) * kTile, kb, j * kRows, Tk);
-      ptt::fa::load_tile<T, D>(Vs + (j & 1) * kTile, vb, j * kRows, Tk);
+      ptt::fa::load_tile<T, D>(Ks + (j & 1) * kTile, kb, j * kRows, Tk, d);
+      ptt::fa::load_tile<T, D>(Vs + (j & 1) * kTile, vb, j * kRows, Tk, d);
     }
     ptt::fa::cp_async_commit();
   };
-  T* Qs = Ks + kTile;  // K's second buffer, free until tile 1 is loaded
-  ptt::fa::load_tile<T, D>(Qs, q + bh * Tq * D, q0, Tq);
+  // K's second buffer, free until tile 1 is loaded; or a tile of its own
+  T* Qs = kQReg ? Ks + kTile : Vs + 2 * kTile;
+  ptt::fa::load_tile<T, D>(Qs, q + bh * Tq * d, q0, Tq, d);
   ptt::fa::cp_async_commit();
   load_kv(0);
   // Q's fragments go to registers once, before the loop, while tile 0 is
   // still in flight
   ptt::fa::cp_async_wait<1>();
   __syncthreads();
-  typename M::A qf[D / M::kK];
+  typename M::A qf[kQReg ? D / M::kK : 1];
+  if constexpr (kQReg) {
 #pragma unroll
-  for (int kk = 0; kk < D / M::kK; ++kk)
-    qf[kk] = M::load_a(Qs + warp * 16 * LD, LD, kk * M::kK);
-  __syncthreads();  // Q's slot may now take tile 1
+    for (int kk = 0; kk < D / M::kK; ++kk)
+      qf[kk] = M::load_a(Qs + warp * 16 * LD, LD, kk * M::kK);
+    __syncthreads();  // Q's slot may now take tile 1
+  }
 
   const float sl2 = scale * ptt::fa::kLog2e;
   float o[D / 8][4] = {};
@@ -132,7 +161,11 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 && D == 64 ? 3 : 1)
     // a warp skips a tile wholly in the masked future of its rows
     if (!causal || k0 <= w0 + 15 + offset) {
       float s[NB][4] = {};
-      ptt::fa::gemm_nt_reg<T, kRows, D, true>(s, qf, Kt, LD);
+      if constexpr (kQReg) {
+        ptt::fa::gemm_nt_reg<T, kRows, D, true>(s, qf, Kt, LD);
+      } else {
+        ptt::fa::gemm_nt<T, kRows, D, true>(s, Qs + warp * 16 * LD, Kt, LD);
+      }
       if (k0 + kRows > Tk || (causal && k0 + kRows - 1 > w0 + offset)) {
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
@@ -189,35 +222,54 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 && D == 64 ? 3 : 1)
       lse[bh * Tq + row] =
           l[rr] > 0.f ? m[rr] * scale + logf(l[rr]) : -CUDART_INF_F;
   }
-  ptt::fa::store_rows<T, D>(out + bh * Tq * D, o, inv, w0, Tq);
+  ptt::fa::store_rows<T, D>(out + bh * Tq * d, o, inv, w0, Tq, d);
 }
 
+// The most batch-heads one grid takes (gridDim.y).
+constexpr int kMaxGridY = 65535;
+
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* out,
-             void* lse, int BH, int Tq, int Tk, int causal, float scale,
+int launch_d(const T* q, const T* k, const T* v, T* out, float* lse, int BH,
+             int Tq, int Tk, int d, int causal, float scale,
              cudaStream_t st) {
   constexpr int kSmem = smem_bytes<T, D>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = d == D ? flash_fwd_kernel<T, D, false>
+                       : flash_fwd_kernel<T, D, true>;
   if (int rc = ptt::fa::allow_smem(kernel, kSmem)) return rc;
-  const dim3 grid((Tq + kRows - 1) / kRows, BH);
-  kernel<<<grid, kThreads, kSmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), Tq, Tk, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  for (int b0 = 0; b0 < BH; b0 += kMaxGridY) {
+    const int64_t qo = static_cast<int64_t>(b0) * Tq;
+    const int64_t ko = static_cast<int64_t>(b0) * Tk * d;
+    const dim3 grid((Tq + kRows - 1) / kRows, min(kMaxGridY, BH - b0));
+    kernel<<<grid, kThreads, kSmem, st>>>(q + qo * d, k + ko, v + ko,
+                                          out + qo * d, lse + qo, Tq, Tk, d,
+                                          causal, scale);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int BH, int Tq, int Tk, int D, int causal, float scale,
+           int BH, int Tq, int Tk, int d, int causal, float scale,
            cudaStream_t st) {
-  switch (D) {
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(k);
+  const T* vv = static_cast<const T*>(v);
+  T* oo = static_cast<T*>(out);
+  float* ll = static_cast<float*>(lse);
+  switch (ptt::head_dim_code(d)) {
+    case 16:
+      return launch_d<T, 16>(qq, kk, vv, oo, ll, BH, Tq, Tk, d, causal,
+                             scale, st);
     case 32:
-      return launch_d<T, 32>(q, k, v, out, lse, BH, Tq, Tk, causal, scale,
-                             st);
+      return launch_d<T, 32>(qq, kk, vv, oo, ll, BH, Tq, Tk, d, causal,
+                             scale, st);
     case 64:
-      return launch_d<T, 64>(q, k, v, out, lse, BH, Tq, Tk, causal, scale,
-                             st);
+      return launch_d<T, 64>(qq, kk, vv, oo, ll, BH, Tq, Tk, d, causal,
+                             scale, st);
+    case 128:
+      return launch_d<T, 128>(qq, kk, vv, oo, ll, BH, Tq, Tk, d, causal,
+                              scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

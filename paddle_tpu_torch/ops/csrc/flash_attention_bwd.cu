@@ -45,9 +45,19 @@
 // j <= i + Tk - Tq), tiles wholly outside the mask are skipped, the mask
 // and the ragged edges are applied only on the tiles that cross them
 // (rows past the end read as zeros), and a fully masked row (lse = -inf)
-// contributes p = 0, as the TPU kernels do.  head_dim is a template
-// parameter: 32 and 64 are built, as in the forward.  mma.sync rather
-// than wgmma/TMA for the reason the forward gives (flash_attention.cu).
+// contributes p = 0, as the TPU kernels do.  Head dims as in the forward
+// (flash_attention.cu): codes 16, 32, 64 and 128, head dim d running the
+// least code D >= d with the columns past d zero-filled in shared memory
+// and only d columns stored; more than 65535 batch-heads run in chunks.
+// Unlike the forward, each code has one instantiation, d a run-time
+// argument: a second one a code (the forward's `kPad`) makes this source,
+// already the longest to build, build for half as long again, for a few
+// percent of the D64 backward (PERF.md section 6).
+// At D 128 the dq, dk and dv products are summed 64 columns at a time
+// (`add_pn`), so a step's partial sum needs 32 registers, not 64, beside
+// the [rows, 128] accumulators (two of them in dk/dv), and f32 at D 128
+// steps 16 keys or queries at a time (`sub_rows`).  mma.sync rather than
+// wgmma/TMA for the reason the forward gives (flash_attention.cu).
 #include <cstdint>
 
 #include "flash_mma.cuh"
@@ -57,23 +67,33 @@ namespace {
 using ptt::fa::kRows;
 using ptt::fa::kThreads;
 
-constexpr int kSub = 32;  // keys (dq) or queries (dk/dv) per inner step
+// Keys (dq) or queries (dk/dv) per inner step: 32, or 16 for f32 at
+// D 128, whose accumulators leave the fewest registers.
+template <typename T, int D>
+__host__ __device__ constexpr int sub_rows() {
+  return sizeof(T) == 4 && D == 128 ? 16 : 32;
+}
 
 // acc += the warp's [16 x D] product P.B of one inner step, summed apart
 // first: the tensor cores add into their accumulator without rounding to
 // nearest, so a running sum over a thousand keys fed straight by mma
 // drifts toward zero by most of F32_TOL; each step's sum is added with an
-// FADD.
+// FADD.  Columns go 64 at a time (one pass up to D 64): each column's sum
+// is the same whatever the split.
 template <typename T, int N, int D>
 __device__ __forceinline__ void add_pn(float (&acc)[D / 8][4],
                                        const float (&p)[N / 8][4], const T* b,
                                        int ld) {
-  float part[D / 8][4] = {};
-  ptt::fa::gemm_pn<T, N, D>(part, p, b, ld);
+  constexpr int kW = D < 64 ? D : 64;
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
+  for (int c0 = 0; c0 < D; c0 += kW) {
+    float part[kW / 8][4] = {};
+    ptt::fa::gemm_pn<T, N, kW>(part, p, b + c0, ld);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
+    for (int nd = 0; nd < kW / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 / 8 + nd][e] += part[nd][e];
+  }
 }
 
 template <typename T>
@@ -106,7 +126,8 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int Tq, int Tk, int causal, float scale) {
+                        int Tq, int Tk, int d, int causal, float scale) {
+  constexpr int kSub = sub_rows<T, D>();
   constexpr int LD = ptt::fa::ld<T, D>();
   constexpr int kTile = kRows * LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -125,13 +146,13 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = causal ? min(Tk, last_row + offset + 1) : Tk;
   const int n_kv = kv_end > 0 ? (kv_end + kRows - 1) / kRows : 0;
 
-  const T* kb = k + bh * Tk * D;
-  const T* vb = v + bh * Tk * D;
-  ptt::fa::load_tile<T, D>(Qs, q + bh * Tq * D, q0, Tq);
-  ptt::fa::load_tile<T, D>(Gs, dout + bh * Tq * D, q0, Tq);
+  const T* kb = k + bh * Tk * d;
+  const T* vb = v + bh * Tk * d;
+  ptt::fa::load_tile<T, D>(Qs, q + bh * Tq * d, q0, Tq, d);
+  ptt::fa::load_tile<T, D>(Gs, dout + bh * Tq * d, q0, Tq, d);
   if (n_kv > 0) {
-    ptt::fa::load_tile<T, D>(Ks, kb, 0, Tk);
-    ptt::fa::load_tile<T, D>(Vs, vb, 0, Tk);
+    ptt::fa::load_tile<T, D>(Ks, kb, 0, Tk, d);
+    ptt::fa::load_tile<T, D>(Vs, vb, 0, Tk, d);
   }
   ptt::fa::cp_async_commit();
 
@@ -152,9 +173,9 @@ __global__ void __launch_bounds__(kThreads)
     const int buf = j & 1;
     if (j + 1 < n_kv) {
       ptt::fa::load_tile<T, D>(Ks + (buf ^ 1) * kTile, kb, (j + 1) * kRows,
-                               Tk);
+                               Tk, d);
       ptt::fa::load_tile<T, D>(Vs + (buf ^ 1) * kTile, vb, (j + 1) * kRows,
-                               Tk);
+                               Tk, d);
       ptt::fa::cp_async_commit();
       ptt::fa::cp_async_wait<1>();
     } else {
@@ -196,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (n_kv == 0) ptt::fa::cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
-  ptt::fa::store_rows<T, D>(dq + bh * Tq * D, acc, one, w0, Tq);
+  ptt::fa::store_rows<T, D>(dq + bh * Tq * d, acc, one, w0, Tq, d);
 }
 
 template <typename T, int D>
@@ -207,7 +228,8 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int Tq,
-                          int Tk, int causal, float scale) {
+                          int Tk, int d, int causal, float scale) {
+  constexpr int kSub = sub_rows<T, D>();
   constexpr int LD = ptt::fa::ld<T, D>();
   constexpr int kTile = kRows * LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -228,14 +250,14 @@ __global__ void __launch_bounds__(kThreads)
   const int q_start = causal ? max(0, k0 - offset) : 0;
   const int n_q = q_start < Tq ? (Tq - q_start + kRows - 1) / kRows : 0;
 
-  const T* qb = q + bh * Tq * D;
-  const T* gb = dout + bh * Tq * D;
+  const T* qb = q + bh * Tq * d;
+  const T* gb = dout + bh * Tq * d;
   const float* lb = lse + bh * Tq;
   const float* db = delta + bh * Tq;
   // Q, dO, lse and delta of the query tile at i0 into buffer `buf`
   auto load_q = [&](int i0, int buf) {
-    ptt::fa::load_tile<T, D>(Qs + buf * kTile, qb, i0, Tq);
-    ptt::fa::load_tile<T, D>(Gs + buf * kTile, gb, i0, Tq);
+    ptt::fa::load_tile<T, D>(Qs + buf * kTile, qb, i0, Tq, d);
+    ptt::fa::load_tile<T, D>(Gs + buf * kTile, gb, i0, Tq, d);
     const int r = threadIdx.x & (kRows - 1), i = i0 + r;
     const bool in = i < Tq;
     if (threadIdx.x < kRows)
@@ -243,8 +265,8 @@ __global__ void __launch_bounds__(kThreads)
     else
       ptt::fa::cp_async4(Dl + buf * kRows + r, db + (in ? i : 0), in ? 4 : 0);
   };
-  ptt::fa::load_tile<T, D>(Ks, k + bh * Tk * D, k0, Tk);
-  ptt::fa::load_tile<T, D>(Vs, v + bh * Tk * D, k0, Tk);
+  ptt::fa::load_tile<T, D>(Ks, k + bh * Tk * d, k0, Tk, d);
+  ptt::fa::load_tile<T, D>(Vs, v + bh * Tk * d, k0, Tk, d);
   if (n_q > 0) load_q(q_start, 0);
   ptt::fa::cp_async_commit();
 
@@ -308,34 +330,45 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (n_q == 0) ptt::fa::cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
-  ptt::fa::store_rows<T, D>(dk + bh * Tk * D, dka, one, w0, Tk);
-  ptt::fa::store_rows<T, D>(dv + bh * Tk * D, dva, one, w0, Tk);
+  ptt::fa::store_rows<T, D>(dk + bh * Tk * d, dka, one, w0, Tk, d);
+  ptt::fa::store_rows<T, D>(dv + bh * Tk * d, dva, one, w0, Tk, d);
 }
+
+// The most batch-heads one grid takes (gridDim.y).
+constexpr int kMaxGridY = 65535;
 
 template <typename T, int D>
 int launch_d(const T* q, const T* k, const T* v, const T* dout,
              const float* lse, const float* delta, T* dq, T* dk, T* dv,
-             int BH, int Tq, int Tk, int causal, float scale,
+             int BH, int Tq, int Tk, int d, int causal, float scale,
              cudaStream_t st) {
   constexpr int kSmem = smem_bytes<T, D>();
   auto dq_kernel = flash_bwd_dq_kernel<T, D>;
   auto dkdv_kernel = flash_bwd_dkdv_kernel<T, D>;
   if (int rc = ptt::fa::allow_smem(dq_kernel, kSmem)) return rc;
   if (int rc = ptt::fa::allow_smem(dkdv_kernel, kSmem)) return rc;
-  const dim3 grid_q((Tq + kRows - 1) / kRows, BH);
-  dq_kernel<<<grid_q, kThreads, kSmem, st>>>(q, k, v, dout, lse, delta, dq,
-                                             Tq, Tk, causal, scale);
-  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  const dim3 grid_k((Tk + kRows - 1) / kRows, BH);
-  dkdv_kernel<<<grid_k, kThreads, kSmem, st>>>(q, k, v, dout, lse, delta, dk,
-                                               dv, Tq, Tk, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  for (int b0 = 0; b0 < BH; b0 += kMaxGridY) {
+    const int n = min(kMaxGridY, BH - b0);
+    const int64_t qo = static_cast<int64_t>(b0) * Tq;
+    const int64_t ko = static_cast<int64_t>(b0) * Tk * d;
+    const dim3 grid_q((Tq + kRows - 1) / kRows, n);
+    dq_kernel<<<grid_q, kThreads, kSmem, st>>>(
+        q + qo * d, k + ko, v + ko, dout + qo * d, lse + qo, delta + qo,
+        dq + qo * d, Tq, Tk, d, causal, scale);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+    const dim3 grid_k((Tk + kRows - 1) / kRows, n);
+    dkdv_kernel<<<grid_k, kThreads, kSmem, st>>>(
+        q + qo * d, k + ko, v + ko, dout + qo * d, lse + qo, delta + qo,
+        dk + ko, dv + ko, Tq, Tk, d, causal, scale);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, const void* lse, void* delta, void* dq, void* dk,
-           void* dv, int BH, int Tq, int Tk, int D, int causal, float scale,
+           void* dv, int BH, int Tq, int Tk, int d, int causal, float scale,
            cudaStream_t st) {
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
@@ -343,20 +376,31 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   const T* gg = static_cast<const T*>(dout);
   const float* ll = static_cast<const float*>(lse);
   float* dd = static_cast<float*>(delta);
-  if (D != 32 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  T* dqq = static_cast<T*>(dq);
+  T* dkk = static_cast<T*>(dk);
+  T* dvv = static_cast<T*>(dv);
+  const int code = ptt::head_dim_code(d);
+  if (code == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t rows = static_cast<int64_t>(BH) * Tq;
   constexpr int kWarps = 8;
   flash_bwd_delta_kernel<T><<<(rows + kWarps - 1) / kWarps, 32 * kWarps, 0,
                               st>>>(static_cast<const T*>(out), gg, dd, rows,
-                                    D);
+                                    d);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  if (D == 32)
-    return launch_d<T, 32>(qq, kk, vv, gg, ll, dd, static_cast<T*>(dq),
-                           static_cast<T*>(dk), static_cast<T*>(dv), BH, Tq,
-                           Tk, causal, scale, st);
-  return launch_d<T, 64>(qq, kk, vv, gg, ll, dd, static_cast<T*>(dq),
-                         static_cast<T*>(dk), static_cast<T*>(dv), BH, Tq, Tk,
-                         causal, scale, st);
+  switch (code) {
+    case 16:
+      return launch_d<T, 16>(qq, kk, vv, gg, ll, dd, dqq, dkk, dvv, BH, Tq,
+                             Tk, d, causal, scale, st);
+    case 32:
+      return launch_d<T, 32>(qq, kk, vv, gg, ll, dd, dqq, dkk, dvv, BH, Tq,
+                             Tk, d, causal, scale, st);
+    case 64:
+      return launch_d<T, 64>(qq, kk, vv, gg, ll, dd, dqq, dkk, dvv, BH, Tq,
+                             Tk, d, causal, scale, st);
+    default:
+      return launch_d<T, 128>(qq, kk, vv, gg, ll, dd, dqq, dkk, dvv, BH, Tq,
+                              Tk, d, causal, scale, st);
+  }
 }
 
 }  // namespace

@@ -90,19 +90,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// cp.async rows [row0, row0 + kRows) of a row-major [rows x D] matrix at
-// src into a padded tile; rows at or past `rows` read as zeros.  Every
-// thread of the block calls it; the caller commits the group.
+// cp.async rows [row0, row0 + kRows) of a row-major [rows x d] matrix at
+// src into a padded tile of D >= d columns; rows at or past `rows` and
+// columns at or past d read as zeros (a zero source size: the copy
+// writes 16 zero bytes and reads nothing).  d is a multiple of 8, so a
+// 16-byte chunk is wholly in or out and every row starts 16-byte aligned.
+// Every thread of the block calls it; the caller commits the group.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int rows) {
+                                          int rows, int d) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   constexpr int kChunks = D / kVec;
   for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * kVec, gr = row0 + r;
-    const bool in = gr < rows;
+    const bool in = gr < rows && c < d;
     cp_async16(dst + r * ld<T, D>() + c,
-               src + static_cast<int64_t>(in ? gr : 0) * D + c, in ? 16 : 0);
+               src + (in ? static_cast<int64_t>(gr) * d + c : 0),
+               in ? 16 : 0);
   }
 }
 
@@ -358,20 +362,22 @@ __device__ __forceinline__ void gemm_pn(float (&acc)[D / 8][4],
   }
 }
 
-// Store the warp's [16 x D] accumulator, scaled per row by mul[rr] (rr 0
-// for row g, 1 for row g + 8), as rows w0.. of a [rows x D] matrix.
+// Store the first d columns of the warp's [16 x D] accumulator, scaled
+// per row by mul[rr] (rr 0 for row g, 1 for row g + 8), as rows w0.. of a
+// [rows x d] matrix (d a multiple of 8: whole 8-column blocks).
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[D / 8][4],
                                            const float (&mul)[2], int w0,
-                                           int rows) {
+                                           int rows, int d) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = w0 + g + 8 * rr;
     if (row >= rows) continue;
-    T* p = dst + static_cast<int64_t>(row) * D + 2 * t;
+    T* p = dst + static_cast<int64_t>(row) * d + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb) {
+      if (nb * 8 >= d) break;
       const float x = acc[nb][2 * rr] * mul[rr];
       const float y = acc[nb][2 * rr + 1] * mul[rr];
       if constexpr (sizeof(T) == 4) {

@@ -86,7 +86,20 @@
 // nothing is summed with atomics: runs repeat bit for bit.  Shared memory
 // is about H * 3HB of w's type plus operands (120 KB at H1024 B32 for an
 // f32 w), so H1024 places (HB 8, 128 blocks); H2048 needs 256 blocks, one
-// an SM, and is refused.
+// an SM, and runs stepwise.
+//
+// Stepwise (recurrent.cuh), for the shapes whose persistent grid does not
+// fit (`persistent_fits`): the forward two launches a step, the kernel
+// boundary in place of each barrier (gru_fwd_rz_kernel: the r|z product,
+// r * h_prev published and z kept in a [B, H] f32 scratch;
+// gru_fwd_c_kernel: c's product and h), w's columns and the operand
+// streamed per warp; the backward's recurrence two launches a step
+// (gru_bwd_a_kernel: exchange 2 of step t + 1 gathered into the carry,
+// (a) and its share of drh streamed over w's rows; gru_bwd_b_kernel:
+// exchange 1 gathered, (b) and its share of drz_in . w_rz^T) and a last
+// launch that gathers step 0's exchange 2 into dh0; the carry and the
+// part of dh_prev known before the exchanges go through a [2, B, H] f32
+// scratch, the step's inputs are read from device memory.
 #include "recurrent_gemm.cuh"
 
 namespace {
@@ -135,6 +148,12 @@ __device__ __forceinline__ float warp_tiles_sum(const float* red, int MC,
 #pragma unroll
   for (int wp = 1; wp < kWarps; ++wp) s += red[(wp * MC + r) * NR + n];
   return s;
+}
+
+// h of one (row, unit) from z, h_prev, c and the step's mask, both paths.
+__device__ __forceinline__ float gru_h(float z, float h_prev, float c,
+                                       float m) {
+  return m * ((1.f - z) * h_prev + z * c) + (1.f - m) * h_prev;
 }
 
 // One cooperative launch for all T steps, block k owning units [k * HB,
@@ -248,9 +267,7 @@ __global__ void __launch_bounds__(kThreads)
         const int r = i / nu, u = i - r * nu, b = b0 + r;
         const float c =
             tanhf(x_s[r * HB + u] + warp_tiles_sum(red, MC, NRC, r, u));
-        const float z = z_s[b * HB + u], h_prev = ho_s[b * HB + u];
-        const float m = m_s[r];
-        const float h = m * ((1.f - z) * h_prev + z * c) + (1.f - m) * h_prev;
+        const float h = gru_h(z_s[b * HB + u], ho_s[b * HB + u], c, m_s[r]);
         hs[t * BH + static_cast<int64_t>(b) * H + j0 + u] = h;
         ho_s[b * HB + u] = h;
         if constexpr (kBf16)
@@ -260,6 +277,122 @@ __global__ void __launch_bounds__(kThreads)
     }
     grid.sync();  // forward barrier 2: every unit's h is published
   }
+}
+
+// The stepwise forward's two launches of step t, each for the block's
+// units and its kStepRows rows of the batch (recurrent.cuh
+// `streamed_product`), as (a) and (b) of gru_fwd_kernel: the r|z launch
+// publishes r * h_prev (rhf or rh16) and keeps z in zs [B, H] f32; the c
+// launch reads them and writes h (hs[t], and h16 for a bf16 w).  h_prev
+// is read from hs[t - 1] (or h0).
+template <typename W, int HB>
+__global__ void __launch_bounds__(kThreads)
+    gru_fwd_rz_kernel(const float* __restrict__ xs, const W* __restrict__ w,
+                      const float* __restrict__ h0, const float* hs,
+                      float* rhf, __nv_bfloat16* rh16,
+                      const __nv_bfloat16* h16, float* zs, int t, int B,
+                      int H, int vec) {
+  using Geo = FwdGeom<W, HB>;
+  constexpr int NP = Geo::NPR, NR = NP + 4, G2 = 2 * HB, MC = kStepRows;
+  using S = Streamed<W, NP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W* stage = reinterpret_cast<W*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw);
+  float* x_s = reinterpret_cast<float*>(smem_raw + S::bytes());  // [MC][2HB]
+  const int kp = Geo::kp(H);
+  const int j0 = blockIdx.x * HB, nu = min(HB, H - j0);
+  const int b0 = blockIdx.y * MC, rows = min(MC, B - b0);
+  const int64_t H3 = 3LL * H, BH = static_cast<int64_t>(B) * H;
+  const float* xt = xs + t * B * H3;
+  for (int i = threadIdx.x; i < rows * G2; i += kThreads) {
+    const int r = i / G2, n = i - r * G2, q = n / HB, u = n - q * HB;
+    if (u < nu)
+      ptt::fa::cp_async4(x_s + i, xt + (b0 + r) * H3 + q * H + j0 + u, 4);
+  }
+  ptt::fa::cp_async_commit();
+  const float* hf = t ? hs + (t - 1) * BH : h0;
+  float acc[2][NP / 8][4] = {};
+  streamed_product<W, HB, NP>(acc, stage, w, H3, 0, 2, j0, nu, vec, hf,
+                              sizeof(W) == 2 && t ? h16 : nullptr, b0, B, H,
+                              kp);
+  ptt::fa::cp_async_wait<0>();
+  __syncthreads();
+  store_partials<NP>(acc, red);
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * nu; i += kThreads) {
+    const int r = i / nu, u = i - r * nu, b = b0 + r;
+    const int64_t at = static_cast<int64_t>(b) * H + j0 + u;
+    const float rg = sigmoid(x_s[r * G2 + u]
+                             + warp_tiles_sum(red, MC, NR, r, u));
+    const float zg = sigmoid(x_s[r * G2 + HB + u]
+                             + warp_tiles_sum(red, MC, NR, r, HB + u));
+    zs[at] = zg;
+    const float rh = rg * hf[at];
+    if constexpr (sizeof(W) == 2) {
+      rh16[static_cast<int64_t>(b) * kp + j0 + u] = __float2bfloat16(rh);
+    } else {
+      rhf[at] = rh;
+    }
+  }
+}
+
+template <typename W, int HB>
+__global__ void __launch_bounds__(kThreads)
+    gru_fwd_c_kernel(const float* __restrict__ xs, const W* __restrict__ w,
+                     const float* __restrict__ h0,
+                     const float* __restrict__ mask, float* hs,
+                     const float* rhf, const __nv_bfloat16* rh16,
+                     __nv_bfloat16* h16, const float* zs, int t, int B, int H,
+                     int vec) {
+  using Geo = FwdGeom<W, HB>;
+  constexpr int NP = Geo::NPC, NR = NP + 4, MC = kStepRows;
+  using S = Streamed<W, NP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W* stage = reinterpret_cast<W*>(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw);
+  float* x_s = reinterpret_cast<float*>(smem_raw + S::bytes());  // [MC][HB]
+  float* m_s = x_s + MC * HB;                                     // [MC]
+  const int kp = Geo::kp(H);
+  const int j0 = blockIdx.x * HB, nu = min(HB, H - j0);
+  const int b0 = blockIdx.y * MC, rows = min(MC, B - b0);
+  const int64_t H3 = 3LL * H, BH = static_cast<int64_t>(B) * H;
+  const float* xt = xs + t * B * H3;
+  for (int i = threadIdx.x; i < rows * HB; i += kThreads) {
+    const int r = i / HB, u = i - r * HB;
+    if (u < nu)
+      ptt::fa::cp_async4(x_s + i, xt + (b0 + r) * H3 + 2 * H + j0 + u, 4);
+  }
+  for (int r = threadIdx.x; r < rows; r += kThreads)
+    ptt::fa::cp_async4(m_s + r, mask + t * B + b0 + r, 4);
+  ptt::fa::cp_async_commit();
+  float acc[2][NP / 8][4] = {};
+  streamed_product<W, HB, NP>(acc, stage, w, H3, 2 * H, 1, j0, nu, vec, rhf,
+                              rh16, b0, B, H, kp);
+  ptt::fa::cp_async_wait<0>();
+  __syncthreads();
+  store_partials<NP>(acc, red);
+  __syncthreads();
+  const float* hf = t ? hs + (t - 1) * BH : h0;
+  for (int i = threadIdx.x; i < rows * nu; i += kThreads) {
+    const int r = i / nu, u = i - r * nu, b = b0 + r;
+    const int64_t at = static_cast<int64_t>(b) * H + j0 + u;
+    const float c =
+        tanhf(x_s[r * HB + u] + warp_tiles_sum(red, MC, NR, r, u));
+    const float h = gru_h(zs[at], hf[at], c, m_s[r]);
+    hs[t * BH + at] = h;
+    if constexpr (sizeof(W) == 2)
+      h16[static_cast<int64_t>(b) * kp + j0 + u] = __float2bfloat16(h);
+  }
+}
+
+template <typename W, int HB>
+size_t fwd_step_smem() {
+  using Geo = FwdGeom<W, HB>;
+  const size_t rz = Streamed<W, Geo::NPR>::bytes()
+                    + sizeof(float) * kStepRows * 2 * HB;
+  const size_t c = Streamed<W, Geo::NPC>::bytes()
+                   + sizeof(float) * (kStepRows * HB + kStepRows);
+  return rz > c ? rz : c;
 }
 
 // --- backward ------------------------------------------------------------
@@ -324,6 +457,31 @@ __device__ __forceinline__ void prefetch_step(float* in_s, float* m_s,
     cp_async4(m_s + b, mask + t * B + b, 4);
 }
 
+// (a) of one (row, unit), both paths: from dhs, the carried dh, h_prev,
+// z, c's pre-activation and the mask -> the part of dh_prev known before
+// the exchanges, dz_in and dc_in.
+__device__ __forceinline__ void gru_grad_a(float dhs_v, float carry,
+                                           float h_prev, float z,
+                                           float c_pre, float m, float& part,
+                                           float& dz_in, float& dc_in) {
+  const float c = tanhf(c_pre);
+  const float dh = dhs_v + carry;
+  const float dh_new = m * dh;
+  part = (1.f - m) * dh + dh_new * (1.f - z);
+  const float dz = dh_new * (c - h_prev);
+  dc_in = dh_new * z * (1.f - c * c);
+  dz_in = dz * z * (1.f - z);
+}
+
+// (b) of one (row, unit), both paths: dr_in and the carry to step t - 1
+// (before exchange 2's shares) from drh, h_prev, r and (a)'s part.
+__device__ __forceinline__ void gru_grad_b(float drh, float h_prev, float r,
+                                           float part, float& dr_in,
+                                           float& carry) {
+  dr_in = drh * h_prev * r * (1.f - r);
+  carry = part + drh * r;
+}
+
 // One cooperative launch for all T steps, block k owning units [k * HB,
 // k * HB + HB).  On entry dxs holds r and z (activated) and c's
 // pre-activation (the products before the launch); on exit the dgates
@@ -379,15 +537,9 @@ __global__ void __launch_bounds__(kThreads)
     // (a) dc_in and dz_in of the units, then the share of drh
     for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
       const int b = idx / nu, u = idx - b * nu, j = j0 + u, at = b * HB + u;
-      const float h_prev = in[BU + at], z = in[3 * BU + at];
-      const float c = tanhf(in[4 * BU + at]);
-      const float m = mt[b];
-      const float dh = in[at] + carry_s[at];
-      const float dh_new = m * dh;
-      part_s[at] = (1.f - m) * dh + dh_new * (1.f - z);
-      const float dz = dh_new * (c - h_prev);
-      const float dc_in = dh_new * z * (1.f - c * c);
-      const float dz_in = dz * z * (1.f - z);
+      float dz_in, dc_in;
+      gru_grad_a(in[at], carry_s[at], in[BU + at], in[3 * BU + at],
+                 in[4 * BU + at], mt[b], part_s[at], dz_in, dc_in);
       dxt[b * H3 + H + j] = dz_in;
       dxt[b * H3 + 2 * H + j] = dc_in;
       a_s[b * LD + HB + u] = static_cast<W>(dz_in);
@@ -407,15 +559,14 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
       const int b = idx / nu, u = idx - b * nu, j = j0 + u, at = b * HB + u;
-      const float h_prev = in[BU + at], r = in[2 * BU + at];
-      const float drh = drh_s[at];
-      const float dr_in = drh * h_prev * r * (1.f - r);
+      float dr_in;
+      gru_grad_b(drh_s[at], in[BU + at], in[2 * BU + at], part_s[at], dr_in,
+                 carry_s[at]);
       dxt[b * H3 + j] = dr_in;
       a_s[b * LD + u] = static_cast<W>(dr_in);
       if constexpr (kBf16)
         dg16[(static_cast<int64_t>(t) * B + b) * ldd + j] =
             __float2bfloat16(dr_in);
-      carry_s[at] = part_s[at] + drh * r;
     }
     if (t > 0) {
       prefetch_step(in_s + ((t - 1) & 1) * 5 * BU, m_s + ((t - 1) & 1) * B,
@@ -434,6 +585,128 @@ __global__ void __launch_bounds__(kThreads)
     const int b = idx / nu, u = idx - b * nu;
     dh0[b * H + j0 + u] = carry_s[b * HB + u];
   }
+}
+
+// The stepwise backward's two launches of step t, block k owning units
+// [k * HB, k * HB + HB) as in gru_bwd_kernel; carry is [2][B][H] f32: the
+// carried dh, then (a)'s part of dh_prev.  The step's inputs (dhs,
+// h_prev, and r, z, c's pre-activation from dxs) are read from device
+// memory.  A: the carry of the units with exchange 2 of step t + 1 added
+// in order of writer (0 at t = T - 1), then (a) and the share of drh
+// into exchange 1, w's c rows streamed; at t = -1 dh0 instead.  B:
+// exchange 1 gathered into drh, (b), the carry written, and the share of
+// drz_in . w_rz^T into exchange 2, w's r|z rows streamed.
+template <typename W, int HB>
+__global__ void __launch_bounds__(kThreads)
+    gru_bwd_a_kernel(const W* __restrict__ w,
+                     const float* __restrict__ hprev,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ dhs, float* dxs,
+                     __nv_bfloat16* dg16, float* ex1, const float* ex2,
+                     float* carry, float* dh0, int t, int T, int B, int H,
+                     int vec) {
+  using G = BwdGeom<W, HB>;
+  constexpr int KR = G::KR, KC = G::KC, LD = G::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int j0 = blockIdx.x * HB, nu = min(HB, H - j0);
+  const int blocks = gridDim.x, bp = (B + 15) / 16 * 16;
+  const int64_t H3 = 3LL * H, BH = static_cast<int64_t>(B) * H;
+  W* a_s = reinterpret_cast<W*>(smem_raw);
+  W* wr_s = a_s + bp * LD;  // two buffers of kStepJ rows
+  float* red = reinterpret_cast<float*>(
+      smem_raw + align16((bp + 2 * kStepJ) * LD * sizeof(W)));
+  float* carry_s = red + max(1024, exchange_seg(B, HB));  // [B][HB]
+  for (int idx = threadIdx.x; idx < bp * LD; idx += kThreads)
+    a_s[idx] = static_cast<W>(0.f);
+  for (int idx = threadIdx.x; idx < B * HB; idx += kThreads) {
+    const int b = idx / HB, u = idx - b * HB;
+    carry_s[idx] = u < nu && t < T - 1 ? carry[b * H + j0 + u] : 0.f;
+  }
+  __syncthreads();
+  if (t < T - 1) {
+    exchange_gather<HB, true>(ex2, red, carry_s, blocks, B, nu);
+    __syncthreads();
+  }
+  if (t < 0) {
+    for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
+      const int b = idx / nu, u = idx - b * nu;
+      dh0[b * H + j0 + u] = carry_s[b * HB + u];
+    }
+    return;
+  }
+  float* dxt = dxs + t * B * H3;
+  for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
+    const int b = idx / nu, u = idx - b * nu, j = j0 + u;
+    const int64_t hb = t * BH + static_cast<int64_t>(b) * H + j;
+    float* gx = dxt + b * H3 + j;
+    float part, dz_in, dc_in;
+    gru_grad_a(dhs[hb], carry_s[b * HB + u], hprev[hb], gx[H], gx[2 * H],
+               mask[t * B + b], part, dz_in, dc_in);
+    carry[BH + b * H + j] = part;
+    gx[H] = dz_in;
+    gx[2 * H] = dc_in;
+    a_s[b * LD + KR + u] = static_cast<W>(dc_in);
+    if constexpr (sizeof(W) == 2) {
+      __nv_bfloat16* d = dg16 + (static_cast<int64_t>(t) * B + b) * dg_ld(H)
+                         + j;
+      d[H] = __float2bfloat16(dz_in);
+      d[2 * H] = __float2bfloat16(dc_in);
+    }
+  }
+  __syncthreads();
+  streamed_share<W, HB, KC>(a_s + KR, LD, wr_s, LD, KR, w, H3, 2 * H, 1, j0,
+                            nu, vec, ex1, blockIdx.x, blocks, B, H);
+}
+
+template <typename W, int HB>
+__global__ void __launch_bounds__(kThreads)
+    gru_bwd_b_kernel(const W* __restrict__ w,
+                     const float* __restrict__ hprev, float* dxs,
+                     __nv_bfloat16* dg16, const float* ex1, float* ex2,
+                     float* carry, int t, int B, int H, int vec) {
+  using G = BwdGeom<W, HB>;
+  constexpr int KR = G::KR, LD = G::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int j0 = blockIdx.x * HB, nu = min(HB, H - j0);
+  const int blocks = gridDim.x, bp = (B + 15) / 16 * 16;
+  const int64_t H3 = 3LL * H, BH = static_cast<int64_t>(B) * H;
+  W* a_s = reinterpret_cast<W*>(smem_raw);
+  W* wr_s = a_s + bp * LD;
+  float* red = reinterpret_cast<float*>(
+      smem_raw + align16((bp + 2 * kStepJ) * LD * sizeof(W)));
+  float* drh_s = red + max(1024, exchange_seg(B, HB));  // [B][HB]
+  for (int idx = threadIdx.x; idx < bp * LD; idx += kThreads)
+    a_s[idx] = static_cast<W>(0.f);
+  exchange_gather<HB, false>(ex1, red, drh_s, blocks, B, nu);
+  __syncthreads();
+  float* dxt = dxs + t * B * H3;
+  for (int idx = threadIdx.x; idx < B * nu; idx += kThreads) {
+    const int b = idx / nu, u = idx - b * nu, j = j0 + u;
+    const int64_t at = static_cast<int64_t>(b) * H + j;
+    float* gx = dxt + b * H3 + j;
+    float dr_in, cy;
+    gru_grad_b(drh_s[b * HB + u], hprev[t * BH + at], gx[0], carry[BH + at],
+               dr_in, cy);
+    carry[at] = cy;
+    gx[0] = dr_in;
+    a_s[b * LD + u] = static_cast<W>(dr_in);
+    a_s[b * LD + HB + u] = static_cast<W>(gx[H]);  // dz_in, from (a)
+    if constexpr (sizeof(W) == 2)
+      dg16[(static_cast<int64_t>(t) * B + b) * dg_ld(H) + j] =
+          __float2bfloat16(dr_in);
+  }
+  __syncthreads();
+  streamed_share<W, HB, KR>(a_s, LD, wr_s, LD, 0, w, H3, 0, 2, j0, nu, vec,
+                            ex2, blockIdx.x, blocks, B, H);
+}
+
+// Shared memory of either stepwise backward launch.
+template <typename W, int HB>
+size_t bwd_step_smem(int B) {
+  const int bp = (B + 15) / 16 * 16, seg = exchange_seg(B, HB);
+  return align16((bp + 2 * kStepJ) * BwdGeom<W, HB>::LD * sizeof(W))
+         + sizeof(float) * ((seg > 1024 ? seg : 1024)
+                            + static_cast<size_t>(B) * HB);
 }
 
 // r = sigmoid(dxs[.., :H]) and z = sigmoid(dxs[.., H:2H]) written over
@@ -455,20 +728,30 @@ __global__ void gru_gates_kernel(float* __restrict__ dxs,
   }
 }
 
-// The backward: check that the recurrence can be placed, then enqueue the
-// gates (r|z product, r and z with rh, c's product, all into dxs), the
-// recurrence, and dw's two products (in S runs of k through part, summed
-// after, when S > 1).
+// The backward: enqueue the gates (r|z product, r and z with rh, c's
+// product, all into dxs), the recurrence (persistent: check that it can
+// be placed, then one cooperative launch; stepwise: 2T + 1 launches), and
+// dw's two products (in S runs of k through part, summed after, when
+// S > 1).
 template <typename W, int HB>
 int launch_bwd(const float* xs, const W* w, const float* hprev,
                const float* mask, const float* dhs, float* dxs,
                __nv_bfloat16* dg16, float* exch, float* dw, float* part,
-               int S, float* dh0, float* rh, int T, int B, int H,
-               cudaStream_t st) {
+               int S, float* dh0, float* rh, float* carry, int stepwise,
+               int T, int B, int H, cudaStream_t st) {
   auto kern = gru_bwd_kernel<W, HB>;
+  auto step_a = gru_bwd_a_kernel<W, HB>;
+  auto step_b = gru_bwd_b_kernel<W, HB>;
   const int blocks = (H + HB - 1) / HB;
-  const size_t smem = bwd_smem<W, HB>(B, H);
-  cudaError_t e = place(kern, blocks, smem);
+  const size_t smem =
+      stepwise ? bwd_step_smem<W, HB>(B) : bwd_smem<W, HB>(B, H);
+  cudaError_t e = cudaSuccess;
+  if (stepwise) {
+    e = allow_step_smem(step_a, smem);
+    if (e == cudaSuccess) e = allow_step_smem(step_b, smem);
+  } else {
+    e = place(kern, blocks, smem);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int TB = T * B, H2 = 2 * H, H3 = 3 * H;
   launch_gemm<W, false>(hprev, H, w, H3, xs, dxs, H3, 1, TB, H2, H, st);
@@ -480,11 +763,30 @@ int launch_bwd(const float* xs, const W* w, const float* hprev,
   float* ex1 = exch;
   float* ex2 = exch + static_cast<int64_t>(blocks) * blocks
                           * exchange_seg(B, HB);
-  void* args[] = {&w, &hprev, &mask, &dhs, &dxs, &dg16, &ex1, &ex2, &dh0,
-                  &T, &B, &H};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
-                                  blocks, kThreads, args, smem, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (stepwise) {
+    // w's rows are copied 16 bytes at a time for a bf16 w of 8 units
+    const int vec = w_vec<W>(w, HB, H, 0) && HB == 8;
+    for (int t = T - 1; t >= 0; --t) {
+      step_a<<<blocks, kThreads, smem, st>>>(w, hprev, mask, dhs, dxs, dg16,
+                                             ex1, ex2, carry, dh0, t, T, B,
+                                             H, vec);
+      step_b<<<blocks, kThreads, smem, st>>>(w, hprev, dxs, dg16, ex1, ex2,
+                                             carry, t, B, H, vec);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    step_a<<<blocks, kThreads, smem, st>>>(w, hprev, mask, dhs, dxs, dg16,
+                                           ex1, ex2, carry, dh0, -1, T, B, H,
+                                           vec);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    void* args[] = {&w, &hprev, &mask, &dhs, &dxs, &dg16, &ex1, &ex2, &dh0,
+                    &T, &B, &H};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                    blocks, kThreads, args, smem, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   // the dgates as the products' operand: the bf16 copy, or dxs itself
   const bool bf = sizeof(W) == 2;
   const W* dg = bf ? reinterpret_cast<const W*>(dg16)
@@ -508,9 +810,30 @@ int fwd_rows(int B, int H) {
 template <typename W, int HB>
 int launch_fwd(const float* xs, const W* w, const float* h0,
                const float* mask, float* hs, float* rhf, __nv_bfloat16* rh16,
-               __nv_bfloat16* h16, int T, int B, int H, cudaStream_t st) {
-  auto kern = gru_fwd_kernel<W, HB>;
+               __nv_bfloat16* h16, float* zs, int stepwise, int T, int B,
+               int H, cudaStream_t st) {
   const int blocks = (H + HB - 1) / HB;
+  if (stepwise) {
+    auto rz = gru_fwd_rz_kernel<W, HB>;
+    auto c = gru_fwd_c_kernel<W, HB>;
+    const size_t smem = fwd_step_smem<W, HB>();
+    cudaError_t e = allow_step_smem(rz, smem);
+    if (e == cudaSuccess) e = allow_step_smem(c, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int vec_rz = w_vec<W>(w, HB, H, 0);
+    const int vec_c = w_vec<W>(w, HB, H, 2 * H);
+    const dim3 grid(blocks, (B + kStepRows - 1) / kStepRows);
+    for (int t = 0; t < T; ++t) {
+      rz<<<grid, kThreads, smem, st>>>(xs, w, h0, hs, rhf, rh16, h16, zs, t,
+                                       B, H, vec_rz);
+      c<<<grid, kThreads, smem, st>>>(xs, w, h0, mask, hs, rhf, rh16, h16,
+                                      zs, t, B, H, vec_c);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    return 0;
+  }
+  auto kern = gru_fwd_kernel<W, HB>;
   int MC = fwd_rows<W, HB>(B, H);
   const size_t smem = fwd_smem<W, HB>(B, H, MC);
   cudaError_t e = place(kern, blocks, smem);
@@ -524,21 +847,23 @@ int launch_fwd(const float* xs, const W* w, const float* h0,
 // rh is r * h_prev's scratch: f32 for an f32 w, bf16 for a bf16 w.
 template <typename W>
 int fwd(const void* xs, const void* w, const void* h0, const void* mask,
-        void* hs, void* rh, void* h16, int T, int B, int H, cudaStream_t st) {
+        void* hs, void* rh, void* h16, void* zs, int stepwise, int T, int B,
+        int H, cudaStream_t st) {
   constexpr bool kBf16 = sizeof(W) == 2;
   return launch_fwd<W, kFwdUnits>(
       static_cast<const float*>(xs), static_cast<const W*>(w),
       static_cast<const float*>(h0), static_cast<const float*>(mask),
       static_cast<float*>(hs), kBf16 ? nullptr : static_cast<float*>(rh),
       kBf16 ? static_cast<__nv_bfloat16*>(rh) : nullptr,
-      static_cast<__nv_bfloat16*>(h16), T, B, H, st);
+      static_cast<__nv_bfloat16*>(h16), static_cast<float*>(zs), stepwise, T,
+      B, H, st);
 }
 
 template <typename W>
 int bwd(const void* xs, const void* w, const void* hprev, const void* mask,
         const void* dhs, void* dxs, void* dg16, void* exch, void* dw,
-        void* part, int S, void* dh0, void* rh, int T, int B, int H,
-        cudaStream_t st) {
+        void* part, int S, void* dh0, void* rh, void* carry, int stepwise,
+        int T, int B, int H, cudaStream_t st) {
   const float* x = static_cast<const float*>(xs);
   const W* wt = static_cast<const W*>(w);
   const float* hp = static_cast<const float*>(hprev);
@@ -551,15 +876,36 @@ int bwd(const void* xs, const void* w, const void* hprev, const void* mask,
   float* pt = static_cast<float*>(part);
   float* dh = static_cast<float*>(dh0);
   float* s = static_cast<float*>(rh);
+  float* cy = static_cast<float*>(carry);
   switch (units_per_block(H)) {
     case 1: return launch_bwd<W, 1>(x, wt, hp, m, gh, dx, dg, ex, dwo, pt, S,
-                                    dh, s, T, B, H, st);
+                                    dh, s, cy, stepwise, T, B, H, st);
     case 2: return launch_bwd<W, 2>(x, wt, hp, m, gh, dx, dg, ex, dwo, pt, S,
-                                    dh, s, T, B, H, st);
+                                    dh, s, cy, stepwise, T, B, H, st);
     case 4: return launch_bwd<W, 4>(x, wt, hp, m, gh, dx, dg, ex, dwo, pt, S,
-                                    dh, s, T, B, H, st);
+                                    dh, s, cy, stepwise, T, B, H, st);
     default: return launch_bwd<W, 8>(x, wt, hp, m, gh, dx, dg, ex, dwo, pt,
-                                     S, dh, s, T, B, H, st);
+                                     S, dh, s, cy, stepwise, T, B, H, st);
+  }
+}
+
+// Whether the backward's recurrence at B, H takes the persistent path.
+template <typename W, int HB>
+bool bwd_persistent(int B, int H) {
+  return persistent_fits(gru_bwd_kernel<W, HB>, (H + HB - 1) / HB,
+                         bwd_smem<W, HB>(B, H));
+}
+
+template <typename W>
+void paths(int B, int H, int* fwd_p, int* bwd_p) {
+  *fwd_p = persistent_fits(
+      gru_fwd_kernel<W, kFwdUnits>, (H + kFwdUnits - 1) / kFwdUnits,
+      fwd_smem<W, kFwdUnits>(B, H, fwd_rows<W, kFwdUnits>(B, H)));
+  switch (units_per_block(H)) {
+    case 1: *bwd_p = bwd_persistent<W, 1>(B, H); break;
+    case 2: *bwd_p = bwd_persistent<W, 2>(B, H); break;
+    case 4: *bwd_p = bwd_persistent<W, 4>(B, H); break;
+    default: *bwd_p = bwd_persistent<W, 8>(B, H);
   }
 }
 
@@ -570,19 +916,24 @@ int bwd(const void* xs, const void* w, const void* hprev, const void* mask,
 // f32 for an f32 w, [B, roundup(H, 16)] bf16 for a bf16 w; h16, for a
 // bf16 w only (null for f32), is [B, roundup(H, 16)] bf16 (h as the next
 // step's operand).  The padding columns of both bf16 buffers are 0 and
-// stay 0.
+// stay 0.  stepwise 0: one cooperative launch (refused with
+// cudaErrorCooperativeLaunchTooLarge when the grid cannot be placed); 1:
+// two launches a step, with zs [B, H] f32 scratch (z between them).
 extern "C" int ptt_gru_fwd(const void* xs, const void* w, const void* h0,
                            const void* mask, void* hs, void* rh, void* h16,
-                           int T, int B, int H, int w_bf16, void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || rh == nullptr)
+                           void* zs, int T, int B, int H, int w_bf16,
+                           int stepwise, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || rh == nullptr
+      || (stepwise && zs == nullptr))
     return cudaErrorInvalidValue;
   if (w_bf16 && (h16 == nullptr || reinterpret_cast<uintptr_t>(h16) % 16
                  || reinterpret_cast<uintptr_t>(rh) % 16))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return w_bf16 ? fwd<__nv_bfloat16>(xs, w, h0, mask, hs, rh, h16, T, B, H,
-                                     st)
-                : fwd<float>(xs, w, h0, mask, hs, rh, h16, T, B, H, st);
+  return w_bf16 ? fwd<__nv_bfloat16>(xs, w, h0, mask, hs, rh, h16, zs,
+                                     stepwise, T, B, H, st)
+                : fwd<float>(xs, w, h0, mask, hs, rh, h16, zs, stepwise, T,
+                             B, H, st);
 }
 
 // *rows: the rows of the batch the forward stages at once at B, H on this
@@ -595,31 +946,51 @@ extern "C" int ptt_gru_fwd_rows(int B, int H, int w_bf16, int* rows) {
   return cudaSuccess;
 }
 
+// *fwd, *bwd: 1 where the forward, the backward's recurrence, takes the
+// persistent path at B, H on this card, 0 where it runs stepwise
+// (recurrent.cuh persistent_fits; the wrappers choose by it).
+extern "C" int ptt_gru_paths(int B, int H, int w_bf16, int* fwd_p,
+                             int* bwd_p) {
+  if (B <= 0 || H <= 0 || fwd_p == nullptr || bwd_p == nullptr)
+    return cudaErrorInvalidValue;
+  if (w_bf16)
+    paths<__nv_bfloat16>(B, H, fwd_p, bwd_p);
+  else
+    paths<float>(B, H, fwd_p, bwd_p);
+  cudaGetLastError();  // a query refused above only answers "stepwise"
+  return cudaSuccess;
+}
+
 // hprev [T, B, H]: the state each step starts from ([h0, hs[:-1]]).
 // dxs [T, B, 3H], dw [H, 3H], dh0 [B, H], all f32, fully written.
 // Scratch: rh [T, B, H] f32 (r * h_prev, the c product's and dw's operand);
 // dg16 [T, B, dg_ld(H)] bf16 for a bf16 w (unused for f32); exch, the two
 // exchanges, of the f32 elements that ptt_rnn_exchange_floats gives
-// (recurrent.cuh); for dw_splits S > 1 part [S, H, 3H] f32.
-// Seven kernels, one call (six with S == 1): r|z product, r, z and rh, c
-// product, recurrence, dw's two products (and the sum of their S runs).
+// (recurrent.cuh); for dw_splits S > 1 part [S, H, 3H] f32; for stepwise
+// carry [2, B, H] f32.  Seven kernels, one call (six with S == 1): r|z
+// product, r, z and rh, c product, recurrence (one cooperative launch, or
+// 2T + 1 launches stepwise), dw's two products (and the sum of their S
+// runs).
 extern "C" int ptt_gru_bwd(const void* xs, const void* w, const void* hprev,
                            const void* mask, const void* dhs, void* dxs,
                            void* dg16, void* exch, void* dw, void* part,
-                           void* dh0, void* rh, int T, int B, int H,
-                           int dw_splits, int w_bf16, void* stream) {
+                           void* dh0, void* rh, void* carry, int T, int B,
+                           int H, int dw_splits, int w_bf16, int stepwise,
+                           void* stream) {
   if (T <= 0 || B <= 0 || H <= 0 || dw_splits <= 0)
     return cudaErrorInvalidValue;
   if ((w_bf16 && dg16 == nullptr) || exch == nullptr || rh == nullptr
-      || (dw_splits > 1 && part == nullptr))
+      || (dw_splits > 1 && part == nullptr)
+      || (stepwise && carry == nullptr))
     return cudaErrorInvalidValue;
   for (const void* p : {exch, dw, part})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return w_bf16 ? bwd<__nv_bfloat16>(xs, w, hprev, mask, dhs, dxs, dg16,
-                                     exch, dw, part, dw_splits, dh0, rh, T,
-                                     B, H, st)
+                                     exch, dw, part, dw_splits, dh0, rh,
+                                     carry, stepwise, T, B, H, st)
                 : bwd<float>(xs, w, hprev, mask, dhs, dxs, dg16, exch, dw,
-                             part, dw_splits, dh0, rh, T, B, H, st);
+                             part, dw_splits, dh0, rh, carry, stepwise, T, B,
+                             H, st);
 }

@@ -37,6 +37,15 @@
 // clamp to N-1 as the TPU kernel's index map does, so an idle slot
 // (index 0) gives that block's first V row; a slot with Index < 0 has
 // no live split and gives 0.
+//
+// Head dims: codes D = 16, 32, 64 and 128 are built; head dim d (a
+// multiple of 8 up to 128) runs the least code D >= d (common.cuh
+// head_dim_code).  The pools and q keep their true d, heads packed at a
+// stride of d: a lane's chunk c of the head group is head c / (D / vec),
+// chunk c % (D / vec) of it, and reads zero past d, so the padded lanes
+// add 0 to every dot product (a code at its own width keeps d a
+// compile-time constant: `kPad`).  The scratch is laid out in the code's
+// D; the combine kernel stores only the first d elements of each head.
 #include <cstdint>
 
 #include "common.cuh"
@@ -58,20 +67,32 @@ struct Geometry {
   static constexpr int max_heads = kChunks * 32 / lanes_per_head;
 };
 
+// The element offset, in a head group's row of heads at a stride of d,
+// of the lane chunk c of a code of lanes_per_head chunks a head; -1 past
+// the head's d columns.
+template <typename T>
+__device__ __forceinline__ int chunk_offset(int c, int lanes_per_head,
+                                            int d) {
+  constexpr int vec = ptt::Chunk<T>::n;
+  const int hh = c / lanes_per_head, cc = c - hh * lanes_per_head;
+  return cc * vec < d ? hh * d + cc * vec : -1;
+}
+
 // one position's K and V chunks of this lane (chunk lane + 32 i of the
 // head group's row), zero where the lane holds no chunk
 template <typename T>
 __device__ __forceinline__ void load_position(
     const T* __restrict__ pool_k, const T* __restrict__ pool_v,
-    int64_t base, int lane, int n_chunks, uint4 (&k)[kChunks],
-    uint4 (&v)[kChunks]) {
-  constexpr int vec = ptt::Chunk<T>::n;
+    int64_t base, int lane, int n_chunks, int lanes_per_head, int d,
+    uint4 (&k)[kChunks], uint4 (&v)[kChunks]) {
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     const int c = lane + 32 * i;
-    if (c < n_chunks) {
-      k[i] = ptt::Chunk<T>::raw(pool_k + base + c * vec);
-      v[i] = ptt::Chunk<T>::raw(pool_v + base + c * vec);
+    const int at =
+        c < n_chunks ? chunk_offset<T>(c, lanes_per_head, d) : -1;
+    if (at >= 0) {
+      k[i] = ptt::Chunk<T>::raw(pool_k + base + at);
+      v[i] = ptt::Chunk<T>::raw(pool_v + base + at);
     } else {
       k[i] = v[i] = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -110,7 +131,7 @@ __device__ __forceinline__ void fold_position(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
     paged_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                        const T* __restrict__ pool_v,
@@ -118,9 +139,10 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ index,
                        float* __restrict__ part_acc,
                        float* __restrict__ part_ml, int N, int L, int H,
-                       int P, int split, int n_splits, int heads_per_block,
-                       float scale_log2) {
+                       int d_in, int P, int split, int n_splits,
+                       int heads_per_block, float scale_log2) {
   using G = Geometry<T, D>;
+  const int d = kPad ? d_in : D;  // the true head dim
   constexpr int vec = G::vec;
   __shared__ float sm_acc[kWarps][kChunks * 32 * vec];
   __shared__ float sm_m[kWarps][G::max_heads];
@@ -137,12 +159,14 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   float qf[kChunks][vec];
-  const T* qrow = q + (static_cast<int64_t>(s) * H + h0) * D;
+  const T* qrow = q + (static_cast<int64_t>(s) * H + h0) * d;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     const int c = lane + 32 * i;
-    if (c < n_chunks) {
-      ptt::Chunk<T>::unpack(ptt::Chunk<T>::raw(qrow + c * vec), qf[i]);
+    const int at =
+        c < n_chunks ? chunk_offset<T>(c, G::lanes_per_head, d) : -1;
+    if (at >= 0) {
+      ptt::Chunk<T>::unpack(ptt::Chunk<T>::raw(qrow + at), qf[i]);
 #pragma unroll
       for (int e = 0; e < vec; ++e) qf[i][e] *= scale_log2;
     } else {
@@ -160,7 +184,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int* trow = table + static_cast<int64_t>(s) * P;
-  const int64_t row_elems = static_cast<int64_t>(H) * D;
+  const int64_t row_elems = static_cast<int64_t>(H) * d;
   for (int t = t0 + warp; t < t1; t += 2 * kWarps) {
     const int u = t + kWarps;
     const bool two = u < t1;  // warp-uniform
@@ -168,14 +192,14 @@ __global__ void __launch_bounds__(kThreads)
     const int p0 = min(max(trow[t / L], 0), N - 1);
     load_position<T>(pool_k, pool_v,
                      (static_cast<int64_t>(p0) * L + t % L) * row_elems +
-                         static_cast<int64_t>(h0) * D,
-                     lane, n_chunks, k0, v0);
+                         static_cast<int64_t>(h0) * d,
+                     lane, n_chunks, G::lanes_per_head, d, k0, v0);
     if (two) {
       const int p1 = min(max(trow[u / L], 0), N - 1);
       load_position<T>(pool_k, pool_v,
                        (static_cast<int64_t>(p1) * L + u % L) * row_elems +
-                           static_cast<int64_t>(h0) * D,
-                       lane, n_chunks, k1, v1);
+                           static_cast<int64_t>(h0) * d,
+                       lane, n_chunks, G::lanes_per_head, d, k1, v1);
     }
     fold_position<T, D>(qf, k0, v0, n_chunks, m, l, acc);
     if (two) fold_position<T, D>(qf, k1, v1, n_chunks, m, l, acc);
@@ -219,13 +243,15 @@ __global__ void __launch_bounds__(kThreads)
 
 // one block per (slot, head, kCombineD elements of D): thread (g, dd)
 // sums the splits j = g, g + kCombineGroups, ... of element dd, the
-// groups meet in shared memory in a fixed order
+// groups meet in shared memory in a fixed order; the scratch is laid out
+// in the code's D, out in the true head dim d (elements past d are not
+// stored)
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
     paged_combine_kernel(const float* __restrict__ part_acc,
                          const float* __restrict__ part_ml,
                          const int* __restrict__ index, T* __restrict__ out,
-                         int H, int D, int capacity, int split,
+                         int H, int D, int d, int capacity, int split,
                          int n_splits) {
   __shared__ float scratch[32];
   __shared__ float sm_a[kCombineGroups][kCombineD];
@@ -255,23 +281,23 @@ __global__ void __launch_bounds__(kCombineThreads)
   sm_a[g][dd] = a;
   if (dd == 0) sm_l[g] = sum;
   __syncthreads();
-  if (g == 0) {
+  if (g == 0 && d0 + dd < d) {
     float o = 0.f, l = 0.f;
 #pragma unroll
     for (int k = 0; k < kCombineGroups; ++k) {
       o += sm_a[k][dd];
       l += sm_l[k];
     }
-    out[(static_cast<int64_t>(s) * H + h) * D + d0 + dd] =
+    out[(static_cast<int64_t>(s) * H + h) * d + d0 + dd] =
         ptt::from_f32<T>(live > 0 ? o / l : 0.f);
   }
 }
 
 template <typename T, int D>
 int launch_d(const T* q, const T* pk, const T* pv, const int* table,
-             const int* index, T* out, float* scratch, int S, int H, int N,
-             int L, int P, int split, int n_splits, int heads_per_block,
-             float scale, cudaStream_t st) {
+             const int* index, T* out, float* scratch, int S, int H, int d,
+             int N, int L, int P, int split, int n_splits,
+             int heads_per_block, float scale, cudaStream_t st) {
   using G = Geometry<T, D>;
   if (heads_per_block <= 0 || heads_per_block > G::max_heads ||
       split <= 0 || static_cast<int64_t>(split) * n_splits < P * L)
@@ -279,12 +305,14 @@ int launch_d(const T* q, const T* pk, const T* pv, const int* table,
   const int groups = (H + heads_per_block - 1) / heads_per_block;
   float* part_acc = scratch;
   float* part_ml = scratch + static_cast<int64_t>(S) * n_splits * H * D;
-  paged_split_kernel<T, D><<<dim3(n_splits, S, groups), kThreads, 0, st>>>(
-      q, pk, pv, table, index, part_acc, part_ml, N, L, H, P, split,
+  auto split_kernel = d == D ? paged_split_kernel<T, D, false>
+                             : paged_split_kernel<T, D, true>;
+  split_kernel<<<dim3(n_splits, S, groups), kThreads, 0, st>>>(
+      q, pk, pv, table, index, part_acc, part_ml, N, L, H, d, P, split,
       n_splits, heads_per_block, scale * kLog2e);
   const dim3 cgrid(S, H, D / kCombineD);
   paged_combine_kernel<T><<<cgrid, kCombineThreads, 0, st>>>(
-      part_acc, part_ml, index, out, H, D, P * L, split, n_splits);
+      part_acc, part_ml, index, out, H, D, d, P * L, split, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,18 +328,18 @@ int launch(const void* q, const void* pk, const void* pv, const void* table,
   const int* ix = static_cast<const int*>(index);
   T* oo = static_cast<T*>(out);
   float* sc = static_cast<float*>(scratch);
-  switch (D) {
+  switch (ptt::head_dim_code(D)) {
     case 16:
-      return launch_d<T, 16>(qq, kk, vv, tb, ix, oo, sc, S, H, N, L, P,
+      return launch_d<T, 16>(qq, kk, vv, tb, ix, oo, sc, S, H, D, N, L, P,
                              split, n_splits, heads_per_block, scale, st);
     case 32:
-      return launch_d<T, 32>(qq, kk, vv, tb, ix, oo, sc, S, H, N, L, P,
+      return launch_d<T, 32>(qq, kk, vv, tb, ix, oo, sc, S, H, D, N, L, P,
                              split, n_splits, heads_per_block, scale, st);
     case 64:
-      return launch_d<T, 64>(qq, kk, vv, tb, ix, oo, sc, S, H, N, L, P,
+      return launch_d<T, 64>(qq, kk, vv, tb, ix, oo, sc, S, H, D, N, L, P,
                              split, n_splits, heads_per_block, scale, st);
     case 128:
-      return launch_d<T, 128>(qq, kk, vv, tb, ix, oo, sc, S, H, N, L, P,
+      return launch_d<T, 128>(qq, kk, vv, tb, ix, oo, sc, S, H, D, N, L, P,
                               split, n_splits, heads_per_block, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -321,8 +349,9 @@ int launch(const void* q, const void* pk, const void* pv, const void* table,
 }  // namespace
 
 // Enqueues the split kernel and the combine kernel on `stream`.
-// `scratch` holds slots * n_splits * heads * (head_dim + 2) f32: each
-// split's accumulator rows, then its (m, l) pairs.
+// `scratch` holds slots * n_splits * heads * (code + 2) f32, code the
+// head dim's compiled code (head_dim_code): each split's accumulator
+// rows, then its (m, l) pairs.
 extern "C" int ptt_paged_attention(const void* q, const void* pool_k,
                                    const void* pool_v, const void* table,
                                    const void* index, void* out,

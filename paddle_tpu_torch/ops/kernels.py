@@ -64,8 +64,11 @@ synchronisation) and raises if the launch reports an error — there is no
 fallback.  Each launch adds one to the kernel's ``launches`` count
 (`KERNELS`), so a run can show that its main path went through the
 kernels; a kernel with more than one tile code also counts each code's
-launches (``path_launches``).  The flash kernels also add their product
-flops to the open `kernel_flops` tallies of the launching thread, which
+launches (``path_launches``): the attention kernels by head-dim code
+(`head_dim_code`), the recurrent ones by path (`recurrent_path`:
+"persistent" or "stepwise"), the row-stable product by tile code.
+The flash kernels also add their product flops to the open
+`kernel_flops` tallies of the launching thread, which
 ``torch.utils.flop_counter.FlopCounterMode`` cannot see (a ctypes launch
 is no aten op).  The plain versions are what the CPU tests
 hold against the JAX package and what ``chip_smoke.py`` holds each
@@ -144,14 +147,19 @@ _COOPERATIVE_TOO_LARGE = 720
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
+#: the head-dim codes the attention kernels are compiled for (`head_dim_code`)
+HEAD_DIM_CODES = (16, 32, 64, 128)
+_HEAD_DIM_PATHS = tuple(f"d{c}" for c in HEAD_DIM_CODES)
+
 PAGED_ATTENTION = Kernel(
     "paged_attention", "paged_attention", "ptt_paged_attention",
     "paddle_tpu/ops/pallas_kernels.py:704 _paged_attn_kernel",
-    [_P] * 7 + [_I] * 9 + [_F, _I, _P])
+    [_P] * 7 + [_I] * 9 + [_F, _I, _P], paths=_HEAD_DIM_PATHS)
 FLASH_ATTENTION_FWD = Kernel(
     "flash_attention_fwd", "flash_attention", "ptt_flash_attention_fwd",
     "paddle_tpu/ops/pallas_kernels.py:54 _flash_kernel",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    paths=_HEAD_DIM_PATHS)
 LAYER_NORM_FWD = Kernel(
     "layer_norm_fwd", "layer_norm", "ptt_layer_norm_fwd",
     "paddle_tpu/ops/pallas_kernels.py:1388 _ln_fwd_kernel",
@@ -160,7 +168,7 @@ FLASH_ATTENTION_BWD = Kernel(
     "flash_attention_bwd", "flash_attention_bwd", "ptt_flash_attention_bwd",
     "paddle_tpu/ops/pallas_kernels.py:274 _flash_backward "
     "(:164 _flash_bwd_dq_kernel, :217 _flash_bwd_dkv_kernel)",
-    [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _P])
+    [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _P], paths=_HEAD_DIM_PATHS)
 LAYER_NORM_BWD = Kernel(
     "layer_norm_bwd", "layer_norm_bwd", "ptt_layer_norm_bwd",
     "paddle_tpu/ops/pallas_kernels.py:1437 _ln_bwd_kernel",
@@ -180,26 +188,29 @@ BATCH_NORM_BWD = Kernel(
     "(bn_bwd_onepass :1798)",
     [_P] * 10 + [_L] + [_I] * 10 + [_P])
 
+#: the two paths of the recurrent kernels (`recurrent_path`)
+RECURRENT_PATHS = ("persistent", "stepwise")
+
 LSTM_FWD = Kernel(
     "lstm_fwd", "lstm", "ptt_lstm_fwd",
     "paddle_tpu/ops/pallas_kernels.py:853 _lstm_fwd_kernel "
     "(_lstm_pallas_fwd :944)",
-    [_P] * 8 + [_I, _I, _I, _I, _P])
+    [_P] * 8 + [_I] * 5 + [_P], paths=RECURRENT_PATHS)
 LSTM_BWD = Kernel(
     "lstm_bwd", "lstm", "ptt_lstm_bwd",
     "paddle_tpu/ops/pallas_kernels.py:885 _lstm_bwd_kernel "
     "(_lstm_pallas_bwd :979)",
-    [_P] * 14 + [_I] * 5 + [_P])
+    [_P] * 15 + [_I] * 6 + [_P], paths=RECURRENT_PATHS)
 GRU_FWD = Kernel(
     "gru_fwd", "gru", "ptt_gru_fwd",
     "paddle_tpu/ops/pallas_kernels.py:1078 _gru_fwd_kernel "
     "(_gru_pallas_fwd :1164)",
-    [_P] * 7 + [_I, _I, _I, _I, _P])
+    [_P] * 8 + [_I] * 5 + [_P], paths=RECURRENT_PATHS)
 GRU_BWD = Kernel(
     "gru_bwd", "gru", "ptt_gru_bwd",
     "paddle_tpu/ops/pallas_kernels.py:1104 _gru_bwd_kernel "
     "(_gru_pallas_bwd :1189)",
-    [_P] * 12 + [_I] * 5 + [_P])
+    [_P] * 13 + [_I] * 6 + [_P], paths=RECURRENT_PATHS)
 
 ROW_STABLE_MM = Kernel(
     "row_stable_mm", "row_stable_mm", "ptt_row_stable_mm",
@@ -214,8 +225,20 @@ KERNELS = (PAGED_ATTENTION, FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD,
            GRU_BWD, ROW_STABLE_MM)
 
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
-_PAGED_HEAD_DIMS = (16, 32, 64, 128)
-_FLASH_HEAD_DIMS = (32, 64)
+
+
+def head_dim_code(d: int) -> int:
+    """The compiled code of the flash and paged-attention kernels that
+    runs head dim ``d``: the least of `HEAD_DIM_CODES` at or above ``d``,
+    for ``d`` a multiple of 8 from 8 to 128 (the kernels zero-fill the
+    columns past ``d`` in shared memory and store only ``d``; common.cuh
+    ``head_dim_code`` is the same map).  Raises ValueError for any other
+    ``d``: a multiple of 8 keeps every row 16-byte aligned in f32 and
+    bf16, which the kernels' 16-byte copies need."""
+    if d % 8 or not 8 <= d <= HEAD_DIM_CODES[-1]:
+        raise ValueError(f"head_dim {d}: the attention kernels take a "
+                         f"multiple of 8 from 8 to {HEAD_DIM_CODES[-1]}")
+    return next(c for c in HEAD_DIM_CODES if c >= d)
 
 
 #: each thread's open `kernel_flops` tallies
@@ -371,7 +394,9 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     pools [N, L, H, D], table [S, P] int32, index [S] int32 (the query's
     position; it sees positions 0..Index[s]) -> [S, H, 1, D].  On the
     card: split-K over each slot's positions (`paged_geometry`), q and
-    the pools 16-byte aligned; a call repeats bit for bit."""
+    the pools 16-byte aligned; head dim ``d`` runs the code
+    `head_dim_code` (its launches counted by code in
+    ``PAGED_ATTENTION.path_launches``); a call repeats bit for bit."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, table, index)
     s, h, one, d = q.shape
@@ -388,9 +413,7 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                          f"/{pool_v.dtype}")
     if table.dtype != torch.int32 or index.dtype != torch.int32:
         raise ValueError("paged_attention: table and index must be int32")
-    if d not in _PAGED_HEAD_DIMS:
-        raise ValueError(f"paged_attention: head_dim {d} not in "
-                         f"{_PAGED_HEAD_DIMS}")
+    code = head_dim_code(d)
     _check_cuda("paged_attention", q, pool_k, pool_v, table, index)
     ptrs = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr())
     if (ptrs[0] | ptrs[1] | ptrs[2]) & 15:
@@ -398,14 +421,14 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                          "aligned")
     pages = table.shape[1]
     split, n_splits, heads_per_block, floats = paged_geometry(
-        s, h, d, pages, block_len, q.element_size())
+        s, h, code, pages, block_len, q.element_size())
     out = torch.empty_like(q)
     scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
     PAGED_ATTENTION.launch(
         *ptrs, table.data_ptr(), index.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), s, h, d, n, block_len, pages, split, n_splits,
         heads_per_block, 1.0 / math.sqrt(d),
-        int(q.dtype == torch.bfloat16), _stream(q))
+        int(q.dtype == torch.bfloat16), _stream(q), path=f"d{code}")
     return out
 
 
@@ -438,7 +461,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse [B, H, Tq] f32).  Causal masking is bottom-right aligned (key j
     visible to query i when j <= i + Tk - Tq); any Tq, Tk work.  On the
     card: bf16 products with p rounded to bf16 for P.V, or 3xTF32 for
-    f32 (module docstring); inputs 16-byte aligned."""
+    f32 (module docstring); inputs 16-byte aligned; head dim ``d`` runs
+    the code `head_dim_code` (launches counted by code in
+    ``path_launches``); any number of batch-heads (the kernel takes them
+    65535 at a time)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal)
     b, h, tq, d = q.shape
@@ -450,11 +476,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_fwd: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}")
-    if d not in _FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {d} not in "
-                         f"{_FLASH_HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention_fwd: batch*heads {b * h} > 65535")
+    code = head_dim_code(d)
     _check_cuda("flash_attention_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -462,7 +484,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b * h, tq, tk, d, int(bool(causal)),
         1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q),
-        flops=flash_attention_flops(b * h, tq, tk, d, causal))
+        path=f"d{code}", flops=flash_attention_flops(b * h, tq, tk, d,
+                                                      causal))
     return out, lse
 
 
@@ -520,11 +543,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             t.dtype != q.dtype for t in (k, v, out, dout)):
         raise ValueError(f"flash_attention_bwd: dtypes {q.dtype}/{k.dtype}/"
                          f"{v.dtype}/{out.dtype}/{dout.dtype}")
-    if d not in _FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head_dim {d} not in "
-                         f"{_FLASH_HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention_bwd: batch*heads {b * h} > 65535")
+    code = head_dim_code(d)
     _check_cuda("flash_attention_bwd", q, k, v, out, lse, dout)
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
@@ -535,8 +554,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b * h, tq, tk, d, int(bool(causal)),
         1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), _stream(q),
-        flops=flash_attention_flops(b * h, tq, tk, d, causal,
-                                    backward=True))
+        path=f"d{code}", flops=flash_attention_flops(b * h, tq, tk, d,
+                                                      causal, backward=True))
     return dq, dk, dv
 
 
@@ -1047,6 +1066,127 @@ def batch_norm_bwd(x3: torch.Tensor, dy3: torch.Tensor, scale: torch.Tensor,
 # with a bf16 w take bf16 operands and accumulate in f32, as the Pallas
 # kernels' dots do; everything else is f32.  The backward kernels
 # recompute the gates from the saved states, walking t down from T - 1.
+#
+# Two paths (recurrent.cuh): "persistent", one cooperative launch for all
+# T steps whose blocks keep their columns of w in shared memory, where its
+# grid fits one block an SM; else "stepwise", one launch a step (the
+# GRU's forward and backward two) streaming w from device memory.  The
+# wrappers choose by the library's own query (`recurrent_paths`), from the
+# shape, before any launch; `recurrent_path` is the same rule in Python.
+
+#: the H100's SMs and the most shared memory one of its blocks may ask for
+#: (227 KB), the card `recurrent_path` reckons for by default
+H100_SMS, H100_SMEM_OPTIN = 132, 232448
+
+#: threads and warps of a recurrent block (recurrent.cuh kThreads)
+_RNN_WARPS = 8
+
+
+def _units_per_block(h: int, sms: int) -> int:
+    """recurrent.cuh units_per_block: the fewest of 1, 2, 4, 8 hidden
+    units a block that need no more blocks than ``sms``, else 8."""
+    hb = 1
+    while hb < 8 and -(-h // hb) > sms:
+        hb *= 2
+    return hb
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _fwd_smem(kind: str, h: int, b: int, hb: int, ws: int,
+              optin: int) -> int:
+    """Shared memory of a persistent forward block (lstm.cu / gru.cu
+    fwd_smem) at the most rows of the batch it stages at once that fit
+    ``optin`` (recurrent.cuh staged_rows)."""
+    ldk = _up(h, 16) + 16 // ws
+    if kind == "lstm":
+        np_ = _up(4 * hb, 16)
+        w_rows, red_cols, x_cols = np_, np_ + 4, 4 * hb
+    else:
+        npr, npc = _up(2 * hb, 16), _up(hb, 16)
+        w_rows, red_cols, x_cols = npr + npc, npr + 4, 2 * hb
+
+    def smem(mc):
+        return (_up(w_rows * ldk * ws, 16) + _up(mc * ldk * ws, 16)
+                + 4 * (_RNN_WARPS * mc * red_cols + mc * x_cols + mc
+                       + 2 * b * hb))
+    mc = _up(b, 16)
+    while mc > 16 and smem(mc) > optin:
+        mc -= 16
+    return smem(mc)
+
+
+def _bwd_smem(kind: str, h: int, b: int, hb: int, ws: int) -> int:
+    """Shared memory of a persistent backward recurrence block (lstm.cu /
+    gru.cu bwd_smem)."""
+    bf16 = ws == 2
+    if kind == "lstm":
+        ko = _up(4 * hb, 16) if bf16 else 4 * hb
+        ld, carried = ko + (8 if bf16 else 1), 2 * b * hb
+    else:
+        kr = _up(2 * hb, 16) if bf16 else 2 * hb
+        kc = _up(hb, 16) if bf16 else hb
+        ld, carried = kr + kc + (8 if bf16 else 1), 13 * b * hb + 2 * b
+    seg = _up(b * hb, 4)
+    return (_up((_up(h, 16) + _up(b, 16)) * ld * ws, 16)
+            + 4 * (max(1024, seg) + carried))
+
+
+def recurrent_path(kind: str, direction: str, h: int, b: int,
+                   w_bf16: bool, sms: int = H100_SMS,
+                   smem_optin: int = H100_SMEM_OPTIN) -> str:
+    """The path the ``kind`` ("lstm" or "gru") kernel of ``direction``
+    ("fwd", or "bwd" for the backward's recurrence) takes at hidden width
+    ``h`` and batch ``b`` on a card of ``sms`` SMs whose blocks may ask
+    for ``smem_optin`` bytes: "persistent" when its grid fits one block
+    an SM (no more blocks than SMs, units a block as
+    ``units_per_block``, the GRU forward's 8) and a block's shared memory
+    (its columns of w for all of h, the staged operand, the partial
+    tiles) fits, else "stepwise".  recurrent.cuh ``persistent_fits`` is
+    the same rule, with the card's occupancy query beside it."""
+    if kind not in ("lstm", "gru") or direction not in ("fwd", "bwd"):
+        raise ValueError(f"recurrent_path: {kind!r}, {direction!r}")
+    ws = 2 if w_bf16 else 4
+    hb = 8 if (kind, direction) == ("gru", "fwd") else \
+        _units_per_block(h, sms)
+    smem = (_fwd_smem(kind, h, b, hb, ws, smem_optin) if direction == "fwd"
+            else _bwd_smem(kind, h, b, hb, ws))
+    fits = -(-h // hb) <= sms and smem <= smem_optin
+    return "persistent" if fits else "stepwise"
+
+
+@functools.lru_cache(maxsize=None)
+def recurrent_paths(source: str, device: int, h: int, b: int,
+                    w_bf16: bool) -> Tuple[str, str]:
+    """(forward, backward) path of the library of ``source`` ("lstm" or
+    "gru") at ``h``, ``b`` on card ``device``, from the library's own
+    query (ptt_lstm_paths / ptt_gru_paths: recurrent.cuh
+    persistent_fits)."""
+    fn = getattr(_build.load(source), f"ptt_{source}_paths")
+    fn.argtypes = [_I, _I, _I, _P, _P]
+    fn.restype = ctypes.c_int
+    fwd, bwd = ctypes.c_int(-1), ctypes.c_int(-1)
+    with torch.cuda.device(device):
+        rc = fn(b, h, int(w_bf16), ctypes.byref(fwd), ctypes.byref(bwd))
+    if rc != 0 or fwd.value not in (0, 1) or bwd.value not in (0, 1):
+        raise RuntimeError(f"{source} path query failed: CUDA error {rc}")
+    return tuple(RECURRENT_PATHS[1 - v] for v in (fwd.value, bwd.value))
+
+
+def _rnn_path(kernel: Kernel, xs: torch.Tensor, h: int, b: int, bf16: bool,
+              path) -> str:
+    """The path a recurrent wrapper launches: ``path`` when the caller
+    forces one (a shape the persistent grid cannot hold is then refused at
+    the launch), else the library's choice for the shape."""
+    if path is None:
+        fwd, bwd = recurrent_paths(kernel.source, xs.get_device(), h, b, bf16)
+        return fwd if kernel.name.endswith("_fwd") else bwd
+    if path not in RECURRENT_PATHS:
+        raise ValueError(f"{kernel.name}: path {path!r} not in "
+                         f"{RECURRENT_PATHS}")
+    return path
 
 def _mm(t, w):
     """``t`` as an operand of a product with ``w``: rounded to bf16 and
@@ -1195,11 +1335,13 @@ def _check_recurrent(name, gates, xs, w, states, seqs, mask):
 
 
 def lstm_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
-             c0: torch.Tensor, mask: torch.Tensor
+             c0: torch.Tensor, mask: torch.Tensor, path: str = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole-T LSTM recurrence: xs [T, B, 4H] f32, w [H, 4H] f32 or
     bf16, h0 and c0 [B, H] f32, mask [T, B, 1] f32 -> (hs, cs), each
-    [T, B, H] f32.  One launch for all T steps."""
+    [T, B, H] f32.  One launch for all T steps, or one a step where the
+    card cannot hold that (``path``: `recurrent_paths`' choice unless
+    forced; counted in ``LSTM_FWD.path_launches``)."""
     if xs.device.type == "cpu":
         return lstm_fwd_plain(xs, w, h0, c0, mask)
     t, b, h = _check_recurrent("lstm_fwd", 4, xs, w, (h0, c0), (), mask)
@@ -1210,10 +1352,12 @@ def lstm_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     bf16 = w.dtype == torch.bfloat16
     h16 = torch.zeros((2, b, -(-h // 16) * 16), dtype=torch.bfloat16,
                       device=xs.device) if bf16 else None
+    path = _rnn_path(LSTM_FWD, xs, h, b, bf16, path)
     LSTM_FWD.launch(xs.data_ptr(), w.data_ptr(), h0.data_ptr(),
                     c0.data_ptr(), mask.data_ptr(), hs.data_ptr(),
                     cs.data_ptr(), h16.data_ptr() if bf16 else None, t, b, h,
-                    int(bf16), _stream(xs))
+                    int(bf16), int(path == "stepwise"), _stream(xs),
+                    path=path)
     return hs, cs
 
 
@@ -1246,13 +1390,15 @@ def rnn_dw_splits(h: int, tb: int, gates: int) -> int:
 
 def lstm_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
              c0: torch.Tensor, mask: torch.Tensor, hs: torch.Tensor,
-             cs: torch.Tensor, dhs: torch.Tensor, dcs: torch.Tensor
+             cs: torch.Tensor, dhs: torch.Tensor, dcs: torch.Tensor,
+             path: str = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                         torch.Tensor]:
     """Gradients of `lstm_fwd` from its inputs, its outputs hs and cs and
     their cotangents dhs and dcs -> (dxs [T, B, 4H], dw [H, 4H], dh0,
     dc0), all f32.  One C call: the gates' product, the recurrence (one
-    cooperative launch for all T steps) and dw's product."""
+    cooperative launch for all T steps, or T + 1 launches stepwise:
+    ``path`` as `lstm_fwd`'s) and dw's product."""
     if xs.device.type == "cpu":
         return lstm_bwd_plain(xs, w, h0, c0, mask, hs, cs, dhs, dcs)
     t, b, h = _check_recurrent("lstm_bwd", 4, xs, w, (h0, c0),
@@ -1274,22 +1420,29 @@ def lstm_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
                        device=xs.device) if splits > 1 else None
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
+    path = _rnn_path(LSTM_BWD, xs, h, b, bf16, path)
+    # stepwise: dh and dc carried from one launch to the next
+    carry = torch.empty((2, b, h), dtype=torch.float32,
+                        device=xs.device) if path == "stepwise" else None
     LSTM_BWD.launch(xs.data_ptr(), w.data_ptr(), hprev.data_ptr(),
                     cprev.data_ptr(), mask.data_ptr(), dhs.data_ptr(),
                     dcs.data_ptr(), dxs.data_ptr(),
                     dg16.data_ptr() if bf16 else None, exch.data_ptr(),
                     dw.data_ptr(),
                     part.data_ptr() if splits > 1 else None,
-                    dh0.data_ptr(), dc0.data_ptr(), t, b, h, splits,
-                    int(bf16), _stream(xs))
+                    dh0.data_ptr(), dc0.data_ptr(),
+                    carry.data_ptr() if carry is not None else None, t, b, h,
+                    splits, int(bf16), int(path == "stepwise"), _stream(xs),
+                    path=path)
     return dxs, dw, dh0, dc0
 
 
 def gru_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
+            mask: torch.Tensor, path: str = None) -> torch.Tensor:
     """The whole-T GRU recurrence, gate columns r | z | c: xs [T, B, 3H]
     f32, w [H, 3H] f32 or bf16, h0 [B, H] f32, mask [T, B, 1] f32 -> hs
-    [T, B, H] f32.  One launch for all T steps."""
+    [T, B, H] f32.  One launch for all T steps, or two a step where the
+    card cannot hold that (``path`` as `lstm_fwd`'s)."""
     if xs.device.type == "cpu":
         return gru_fwd_plain(xs, w, h0, mask)
     t, b, h = _check_recurrent("gru_fwd", 3, xs, w, (h0,), (), mask)
@@ -1303,20 +1456,28 @@ def gru_fwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
                               device=xs.device)
     else:
         rh = torch.empty((b, h), dtype=torch.float32, device=xs.device)
+    path = _rnn_path(GRU_FWD, xs, h, b, bf16, path)
+    # stepwise: z from the r|z launch to the c launch of a step
+    zs = torch.empty((b, h), dtype=torch.float32,
+                     device=xs.device) if path == "stepwise" else None
     GRU_FWD.launch(xs.data_ptr(), w.data_ptr(), h0.data_ptr(),
                    mask.data_ptr(), hs.data_ptr(), rh.data_ptr(),
-                   h16.data_ptr() if bf16 else None, t, b, h, int(bf16),
-                   _stream(xs))
+                   h16.data_ptr() if bf16 else None,
+                   zs.data_ptr() if zs is not None else None, t, b, h,
+                   int(bf16), int(path == "stepwise"), _stream(xs),
+                   path=path)
     return hs
 
 
 def gru_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
-            mask: torch.Tensor, hs: torch.Tensor, dhs: torch.Tensor
+            mask: torch.Tensor, hs: torch.Tensor, dhs: torch.Tensor,
+            path: str = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of `gru_fwd` from its inputs, its output hs and the
     cotangent dhs -> (dxs [T, B, 3H], dw [H, 3H], dh0), all f32.  One C
     call: the gates' products, the recurrence (one cooperative launch for
-    all T steps) and dw's products."""
+    all T steps, or 2T + 1 launches stepwise: ``path`` as `lstm_fwd`'s)
+    and dw's products."""
     if xs.device.type == "cpu":
         return gru_bwd_plain(xs, w, h0, mask, hs, dhs)
     t, b, h = _check_recurrent("gru_bwd", 3, xs, w, (h0,), (hs, dhs), mask)
@@ -1337,12 +1498,18 @@ def gru_bwd(xs: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
                        device=xs.device) if splits > 1 else None
     dh0 = torch.empty_like(h0)
     rh = torch.empty((t, b, h), dtype=torch.float32, device=xs.device)
+    path = _rnn_path(GRU_BWD, xs, h, b, bf16, path)
+    # stepwise: the carried dh and (a)'s part of dh_prev between launches
+    carry = torch.empty((2, b, h), dtype=torch.float32,
+                        device=xs.device) if path == "stepwise" else None
     GRU_BWD.launch(xs.data_ptr(), w.data_ptr(), hprev.data_ptr(),
                    mask.data_ptr(), dhs.data_ptr(), dxs.data_ptr(),
                    dg16.data_ptr() if bf16 else None, exch.data_ptr(),
                    dw.data_ptr(), part.data_ptr() if splits > 1 else None,
-                   dh0.data_ptr(), rh.data_ptr(), t, b, h, splits,
-                   int(bf16), _stream(xs))
+                   dh0.data_ptr(), rh.data_ptr(),
+                   carry.data_ptr() if carry is not None else None, t, b, h,
+                   splits, int(bf16), int(path == "stepwise"), _stream(xs),
+                   path=path)
     return dxs, dw, dh0
 
 

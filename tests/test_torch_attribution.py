@@ -193,9 +193,10 @@ def test_xprof_summary_shares_from_measured_windows():
 def test_every_port_kernel_classifies_as_kernel():
     names = tattr.port_kernel_names()
     # flash forward and backward, paged attention, LayerNorm forward and
-    # backward, softmax cross-entropy, BatchNorm backward, LSTM, GRU, the
-    # recurrent products and the row-stable product
-    assert len(names) == 27
+    # backward, softmax cross-entropy, BatchNorm backward, LSTM, GRU (each
+    # persistent and stepwise), the recurrent products and the row-stable
+    # product
+    assert len(names) == 33
     for n in names:
         assert tattr.classify_kernel(f"void {n}<float, 64>(int)") == \
             "kernel"
